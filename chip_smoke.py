@@ -6,42 +6,91 @@ Run from the root of a checkout, with no arguments::
     python3 chip_smoke.py
 
 It builds every CUDA kernel of the port from ``kernels/csrc/`` with
-``nvcc``, holds each kernel against its plain PyTorch version on the card
-at the main path's shapes (and times kernel, plain version, the PyTorch
-library call and the card's bound), then serves generation from
-``TransformerLM`` at the full width of the bench's large config
-(vocab 32768, 12 layers, 16 heads, d_model 1024, d_ff 4096, max_len 1024,
-bf16, fused QKV; random weights from a numpy seed through
-``from_jax_params``) through ``DecodeEngine`` in its default paged mode,
-and checks the tokens and logits. Every phase must pass: any failure
-exits nonzero. Output is one JSON object per line; the last line is
-``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout,
-it exits nonzero and prints no result.
+``nvcc`` (one process per source, all at once), checks in ptxas's report
+that the wgmma kernel has 168 registers a thread at entry and no spills,
+then:
+
+1. kernel phase — holds each flash-attention kernel (the wgmma kernel for
+   bf16 at d 64/128, the simple kernel for f32 and the other head dims)
+   against its plain PyTorch version on the card, at the main path's
+   shapes and layouts (the strided fused-QKV views, the batch bucket, the
+   ragged ``apply`` length, block edges, non-causal with Tq != Tk, d 128),
+   and times each: ``ms`` (20 back-to-back wrapper calls between CUDA
+   events, host included), ``device_ms`` (20 launches captured in a CUDA
+   graph, replays timed with CUDA events: device only), the plain
+   version, SDPA (``library_ms`` and ``library_device_ms``, timed the same
+   two ways) and the card's bound;
+2. slice phase — serves generation from ``TransformerLM`` at the full
+   width of the bench's large config (vocab 32768, 12 layers, 16 heads,
+   d_model 1024, d_ff 4096, max_len 1024, bf16, fused QKV; random weights
+   from a numpy seed through ``from_jax_params``) through ``DecodeEngine``
+   in its default paged mode, checks the tokens and logits, and checks that
+   every prefill and ``apply`` launched the wgmma kernel exactly once per
+   layer and the simple kernel never;
+3. profile phase — one ``torch.profiler`` window over a single prefill at
+   bucket 1024: the device's busy share and the top device kernels.
+
+Every phase must pass: any failure exits nonzero. Output is one JSON
+object per line; the last line is ``{"ok": true, "device": {...}}``.
+Without CUDA, or outside a checkout, it exits nonzero and prints no result.
 """
 from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
 SEED = 0
 N_NEW = 32
 PROMPT_LENS = (960, 500, 200, 37)       # buckets 1024, 512, 256, 64
-# (BH, T, d, dtype, causal): the prefill shapes of the large config
-# (B·16 heads, d 64, buckets up to 1024), a larger batch, a ragged T,
-# non-causal, f32 and d = 128
+PROFILE_PROMPT = 960                    # bucket 1024
+ROOT = Path(__file__).resolve().parent
+# where the profile phase writes its Chrome trace (gitignored)
+OUT_DIR = ROOT / "deeplearning4j_tpu_torch" / "_build"
+# Kernel cases: (layout, B, H, Tq, Tk, d, dtype, causal). "fused" is the
+# (B, H, T, d) views of one (B, T, 3·H·d) projection with o written into
+# the (B, H, T, d) view of a (B, T, H, d) buffer, as TransformerLM._attn
+# calls the wrapper; "3d" is contiguous (B·H, T, d) (H = 1).
 KERNEL_CASES = [
-    (16, 64, 64, "bfloat16", True), (16, 256, 64, "bfloat16", True),
-    (16, 512, 64, "bfloat16", True), (16, 1024, 64, "bfloat16", True),
-    (64, 512, 64, "bfloat16", True), (16, 1000, 64, "bfloat16", True),
-    (16, 1024, 64, "bfloat16", False), (16, 256, 64, "float32", True),
-    (16, 512, 128, "bfloat16", True)]
-MAIN_CASE = (16, 1024, 64, "bfloat16", True)
+    # the main path: prefill buckets (B 1, 16 heads, d 64) and the batch
+    ("fused", 1, 16, 1024, 1024, 64, "bfloat16", True),
+    ("fused", 1, 16, 512, 512, 64, "bfloat16", True),
+    ("fused", 1, 16, 256, 256, 64, "bfloat16", True),
+    ("fused", 1, 16, 64, 64, 64, "bfloat16", True),
+    ("fused", 4, 16, 128, 128, 64, "bfloat16", True),
+    ("fused", 1, 16, 991, 991, 64, "bfloat16", True),    # apply, ragged
+    # block edges
+    ("fused", 1, 16, 127, 127, 64, "bfloat16", True),
+    ("fused", 1, 16, 129, 129, 64, "bfloat16", True),
+    ("fused", 1, 16, 1, 1, 64, "bfloat16", True),
+    # contiguous (B·H, T, d)
+    ("3d", 16, 1, 1024, 1024, 64, "bfloat16", True),
+    ("3d", 64, 1, 512, 512, 64, "bfloat16", True),
+    ("3d", 16, 1, 1000, 1000, 64, "bfloat16", True),
+    ("3d", 16, 1, 1024, 1024, 64, "bfloat16", False),
+    # non-causal with Tq != Tk
+    ("3d", 16, 1, 512, 1024, 64, "bfloat16", False),
+    ("fused", 2, 16, 300, 77, 64, "bfloat16", False),
+    # d 128
+    ("3d", 16, 1, 512, 512, 128, "bfloat16", True),
+    ("fused", 1, 8, 1024, 1024, 128, "bfloat16", True),
+    # the simple kernel: f32, and bf16 at other head dims
+    ("3d", 16, 1, 256, 256, 64, "float32", True),
+    ("fused", 1, 16, 1024, 1024, 64, "float32", True),
+    ("3d", 16, 1, 512, 512, 32, "bfloat16", True),
+    ("fused", 1, 8, 129, 129, 80, "bfloat16", True),
+]
+MAIN_CASE = {"wgmma": ("fused", 1, 16, 1024, 1024, 64, "bfloat16", True),
+             "simple": ("3d", 16, 1, 256, 256, 64, "float32", True)}
+SOURCES = {"wgmma": "flash_attention_fwd_wgmma.cu",
+           "simple": "flash_attention_fwd.cu"}
 # the bench's large config (bench.py, the "large" rung)
 LARGE = dict(vocab_size=32768, n_layers=12, n_heads=16, d_model=1024,
              d_ff=4096, max_len=1024, dtype="bfloat16", fused_qkv=True)
@@ -54,6 +103,12 @@ TOL_TEACHER_FORCED = 0.1
 # (no TF32 in the port), device memory bandwidth
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
+# the wgmma kernel's 384 threads: ptxas must budget 168 registers a thread
+# at entry, which its setmaxnreg 24 / 240 split balances to the register
+WGMMA_ENTRY_REGISTERS = 168
+# the profile phase fails when the trace holds no device work; only a CPU
+# rehearsal of the phase sets this to False
+TRACE_ON_DEVICE = True
 
 
 def emit(**kv):
@@ -66,7 +121,8 @@ def check(cond, what):
 
 
 def time_ms(fn, torch, iters=20, repeats=7):
-    """Median over ``repeats`` of CUDA-event time per call of ``fn``."""
+    """Median over ``repeats`` of CUDA-event time per call of ``fn``, the
+    host's work for each call included (back-to-back Python calls)."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -82,21 +138,97 @@ def time_ms(fn, torch, iters=20, repeats=7):
     return statistics.median(times)
 
 
-def attention_bound_ms(bh, t, d, dtype, causal):
+def device_ms(fn, torch, launches=20, repeats=7):
+    """Device time per call of ``fn``: ``launches`` calls captured into one
+    CUDA graph, the median over ``repeats`` replays timed with CUDA events.
+    The host's work runs once, at capture, so it is not in the time."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / launches)
+    del graph
+    return statistics.median(times)
+
+
+def attention_bound_ms(bh, t_q, t_k, d, dtype, causal):
     """Least time for one call: the larger of its FLOPs over the peak
     rate of its type and its bytes (q, k, v read once, o and lse written
-    once) over the memory rate. Causal counts only the kept pairs."""
+    once) over the memory rate. Causal counts only the kept pairs
+    (k_idx <= q_idx)."""
     itemsize = 2 if dtype == "bfloat16" else 4
-    pairs = t * (t + 1) // 2 if causal else t * t
+    pairs = (sum(min(i + 1, t_k) for i in range(t_q)) if causal
+             else t_q * t_k)
     flops = 4.0 * bh * d * pairs
-    nbytes = itemsize * bh * t * d * 4 + 4 * bh * t
+    nbytes = itemsize * bh * d * 2 * (t_q + t_k) + 4 * bh * t_q
     t_ops, t_mem = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_mem), ("operations" if t_ops >= t_mem
                                      else "bytes")
 
 
+def case_inputs(torch, case):
+    """q, k, v, an output view (or None) and SDPA's 4-D q, k, v."""
+    layout, b, h, t_q, t_k, d, dtype, _causal = case
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(
+        b * 1000003 + h * 10007 + t_q * 101 + t_k + d)
+    if layout == "3d":
+        q = torch.randn((b, t_q, d), generator=g, device="cuda", dtype=dt)
+        k, v = (torch.randn((b, t_k, d), generator=g, device="cuda",
+                            dtype=dt) for _ in range(2))
+        return q, k, v, None, (q[None], k[None], v[None])
+    c = h * d
+    xq = torch.randn((b, t_q, 3 * c), generator=g, device="cuda", dtype=dt)
+    xk = (xq if t_k == t_q else
+          torch.randn((b, t_k, 3 * c), generator=g, device="cuda", dtype=dt))
+    q = xq[..., :c].reshape(b, t_q, h, d).transpose(1, 2)
+    k = xk[..., c:2 * c].reshape(b, t_k, h, d).transpose(1, 2)
+    v = xk[..., 2 * c:].reshape(b, t_k, h, d).transpose(1, 2)
+    out = torch.empty((b, t_q, h, d), device="cuda", dtype=dt).transpose(1, 2)
+    return q, k, v, out, (q, k, v)
+
+
+def wgmma_ptxas(log):
+    """{head dim: {"registers": n, "spill_bytes": stores + loads}} for each
+    instantiation of the wgmma kernel in a ptxas report (``-Xptxas -v``)."""
+    report, d = {}, None
+    for line in log.splitlines():
+        if "Compiling entry" in line:
+            m = re.search(r"flash_fwd_wgmma_kernelILi(\d+)E", line)
+            d = int(m.group(1)) if m else None
+            if d is not None:
+                report[d] = {}
+            continue
+        if d is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            report[d]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report[d]["registers"] = int(m.group(1))
+    return report
+
+
 def kernel_phase(torch, fa):
-    """flash_attention_fwd against its plain version at each case."""
+    """Both flash kernels against their plain version at each case."""
     import torch.nn.functional as F
     # about a second of matmuls first, so the first case is not timed while
     # the card's clocks are still coming up
@@ -107,13 +239,18 @@ def kernel_phase(torch, fa):
         torch.cuda.synchronize()
     results = {}
     for case in KERNEL_CASES:
-        bh, t, d, dtype, causal = case
-        g = torch.Generator(device="cuda").manual_seed(bh * 100003 + t + d)
-        q, k, v = (torch.randn((bh, t, d), generator=g, device="cuda",
-                               dtype=getattr(torch, dtype))
-                   for _ in range(3))
-        o, lse = fa.flash_attention_fwd(q, k, v, causal)
+        layout, b, h, t_q, t_k, d, dtype, causal = case
+        q, k, v, out, (q4, k4, v4) = case_inputs(torch, case)
+        path = "wgmma" if fa.takes_wgmma(q.dtype, d) else "simple"
+        fa.launches_wgmma = fa.launches_simple = 0
+        o, lse = fa.flash_attention_fwd(q, k, v, causal, out=out)
         torch.cuda.synchronize()
+        check((fa.launches_wgmma, fa.launches_simple)
+              == ((1, 0) if path == "wgmma" else (0, 1)),
+              f"{case}: launched ({fa.launches_wgmma}, "
+              f"{fa.launches_simple}), want only the {path} kernel")
+        check(out is None or o.data_ptr() == out.data_ptr(),
+              f"{case}: o not written into the caller's view")
         o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal)
         err_o = (o.float() - o_ref.float()).abs().max().item()
         err_lse = (lse - lse_ref).abs().max().item()
@@ -123,25 +260,42 @@ def kernel_phase(torch, fa):
         check(math.isfinite(err_lse) and err_lse <= TOL_LSE,
               f"flash_attention_fwd {case}: max |dlse| {err_lse} > "
               f"{TOL_LSE}")
-        ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal), torch)
+
+        def kernel():
+            fa.flash_attention_fwd(q, k, v, causal, out=out)
+
+        def library():
+            F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
+
+        ms = time_ms(kernel, torch)
+        dev_ms = device_ms(kernel, torch)
         plain_ms = time_ms(
             lambda: fa.flash_attention_reference(q, k, v, causal), torch,
             iters=5, repeats=5)
-        q4, k4, v4 = q[None], k[None], v[None]
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=causal), torch)
-        bound_ms, bound_by = attention_bound_ms(bh, t, d, dtype, causal)
-        row = {"bh": bh, "t": t, "d": d, "dtype": dtype, "causal": causal,
+        library_ms = time_ms(library, torch)
+        library_dev_ms = device_ms(library, torch)
+        bound_ms, bound_by = attention_bound_ms(b * h, t_q, t_k, d, dtype,
+                                                causal)
+        row = {"path": path, "layout": layout, "b": b, "h": h, "t_q": t_q,
+               "t_k": t_k, "d": d, "dtype": dtype, "causal": causal,
                "max_abs_err_o": err_o, "max_abs_err_lse": err_lse,
-               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by}
+               "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "library_device_ms": library_dev_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "device_vs_library": dev_ms / library_dev_ms,
+               "device_vs_bound": dev_ms / bound_ms}
         emit(kernel_case=row)
         results[case] = row
     return results
 
 
+def counts(fa):
+    return fa.launches_wgmma, fa.launches_simple
+
+
 def slice_phase(torch, fa):
-    """Full-width generation through the port's entry points."""
+    """Full-width generation through the port's entry points. Returns the
+    engine, the model and each kernel's launches in the run."""
     from deeplearning4j_tpu_torch.models.generation import (DecodeEngine,
                                                             SamplerConfig)
     from deeplearning4j_tpu_torch.models.transformer import (
@@ -162,35 +316,39 @@ def slice_phase(torch, fa):
                 "seconds": time.perf_counter() - t0,
                 "page_tokens": engine.page_tokens})
     L, V = cfg.n_layers, cfg.vocab_size
+    per_forward = (L, 0)       # wgmma once per layer, simple never
     rng = np.random.default_rng(SEED + 1)
 
     def launched(fn):
-        before = fa.launches
+        before = counts(fa)
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
-        return out, fa.launches - before, 1e3 * (time.perf_counter() - t)
+        after = counts(fa)
+        return (out, (after[0] - before[0], after[1] - before[1]),
+                1e3 * (time.perf_counter() - t))
 
     def tokens_ok(toks, shape):
         check(toks.shape == shape, f"tokens shape {toks.shape} != {shape}")
         check(bool(((toks >= 0) & (toks < V)).all()), "token out of range")
 
-    fa.launches = 0                      # the main path's run starts here
+    fa.launches_wgmma = fa.launches_simple = 0   # the main path starts here
     for n in PROMPT_LENS:
         prompt = rng.integers(0, V, (1, n)).astype(np.int32)
         bucket = engine.prefill_bucket(n)
         (toks, steps), got, _ms = launched(
             lambda: engine.generate(prompt, N_NEW, return_logits=True))
-        check(got == L, f"prompt {n}: {got} kernel launches, want {L}")
+        check(got == per_forward, f"prompt {n}: launched {got}, want "
+              f"{per_forward} (wgmma, simple)")
         tokens_ok(toks, (1, N_NEW))
         pre = []
         for _ in range(3):
             _out, got, ms = launched(lambda: engine.prefill(prompt))
-            check(got == L, f"prefill {n}: {got} launches, want {L}")
+            check(got == per_forward, f"prefill {n}: launched {got}")
             pre.append(ms)
         toks2, got, gen_ms = launched(lambda: engine.generate(prompt, N_NEW))
-        check(got == L and np.array_equal(toks2, toks),
+        check(got == per_forward and np.array_equal(toks2, toks),
               f"prompt {n}: greedy rerun differs or launched {got}")
         # teacher forcing: the full forward (kernel path) over prompt +
         # generated tokens against each step's logits (prefill, then the
@@ -198,7 +356,7 @@ def slice_phase(torch, fa):
         full = np.concatenate([prompt, toks[:, :-1]], axis=1)
         ref, got, _ms = launched(lambda: model.apply(
             engine.params, torch.as_tensor(full, device=model.device)))
-        check(got == L, f"apply {n}: {got} launches, want {L}")
+        check(got == per_forward, f"apply {n}: launched {got}")
         ref = ref[0, n - 1:].cpu().numpy()
         dec = np.concatenate(steps, axis=0)
         check(np.isfinite(dec).all() and np.isfinite(ref).all(),
@@ -217,7 +375,7 @@ def slice_phase(torch, fa):
 
     batch = rng.integers(0, V, (4, 100)).astype(np.int32)
     toks, got, ms = launched(lambda: engine.generate(batch, N_NEW))
-    check(got == L, f"batch: {got} launches, want {L}")
+    check(got == per_forward, f"batch: launched {got}")
     tokens_ok(toks, (4, N_NEW))
     emit(batch={"batch": 4, "prompt_len": 100, "generate_ms": ms})
 
@@ -228,13 +386,93 @@ def slice_phase(torch, fa):
     runs = []
     for _ in range(2):
         toks, got, ms = launched(lambda: topk.generate(prompt, N_NEW))
-        check(got == L, f"top-k: {got} launches, want {L}")
+        check(got == per_forward, f"top-k: launched {got}")
         tokens_ok(toks, (1, N_NEW))
         runs.append(toks)
     check(np.array_equal(runs[0], runs[1]), "top-k runs differ")
     emit(topk={"top_k": 40, "temperature": 0.8, "seed": 7,
                "identical": True, "generate_ms": ms})
-    return fa.launches
+    return engine, model, counts(fa)
+
+
+def _union_us(intervals, lo, hi):
+    """Length of the union of [start, end) intervals clipped to [lo, hi)."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted((max(s, lo), min(e, hi)) for s, e in intervals):
+        if e <= s:
+            continue
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def profile_phase(torch, fa, engine):
+    """One torch.profiler window over a single prefill at bucket 1024: the
+    device's busy share of the window and the top device kernels by time.
+    The Chrome trace goes to OUT_DIR/prefill_1024_trace.json."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    prompt = np.random.default_rng(SEED + 2).integers(
+        0, LARGE["vocab_size"], (1, PROFILE_PROMPT)).astype(np.int32)
+    engine.prefill(prompt)
+    torch.cuda.synchronize()
+    fa.launches_wgmma = fa.launches_simple = 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("chip_smoke.prefill"):
+            t = time.perf_counter()
+            engine.prefill(prompt)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t)
+    check(counts(fa) == (LARGE["n_layers"], 0),
+          f"profiled prefill launched {counts(fa)}")
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    trace = OUT_DIR / "prefill_1024_trace.json"
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+    device = [e for e in events if e.get("ph") == "X" and e.get("cat") in
+              ("kernel", "gpu_memcpy", "gpu_memset")]
+    windows = [e for e in events if e.get("ph") == "X"
+               and e.get("name") == "chip_smoke.prefill"
+               and e.get("cat") == "user_annotation"]
+    if not device or not windows:
+        # only a rehearsal on the CPU, with TRACE_ON_DEVICE set to False,
+        # gets here without failing
+        check(not TRACE_ON_DEVICE,
+              f"the profiler traced {len(device)} device events and "
+              f"{len(windows)} prefill windows: busy share not measured")
+        emit(profile={"bucket": 1024, "wall_ms": wall_ms,
+                      "device_events": len(device),
+                      "busy_share": "not measured (the trace holds no "
+                      "device events or no window)"})
+        return
+    lo = float(windows[0]["ts"])
+    hi = lo + float(windows[0]["dur"])
+    busy = _union_us([(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                      for e in device], lo, hi)
+    by_name = {}
+    for e in device:
+        if e.get("cat") != "kernel":
+            continue
+        tot = by_name.setdefault(e["name"], [0.0, 0])
+        tot[0] += float(e["dur"])
+        tot[1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    copies = sum(n for name, (_us, n) in by_name.items()
+                 if "copy" in name.lower())
+    kernels = sum(n for _us, n in by_name.values())
+    emit(profile={
+        "bucket": 1024, "wall_ms": wall_ms, "window_us": hi - lo,
+        "device_busy_us": busy, "busy_share": busy / (hi - lo),
+        "kernels": kernels, "copy_kernels": copies,
+        "trace": str(trace.relative_to(ROOT)),
+        "top10": [{"name": name[:160], "us": us, "count": n}
+                  for name, (us, n) in top]})
 
 
 def _leaves(tree):
@@ -246,6 +484,23 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+def kernel_entry(path, cases, launches):
+    rows = [r for r in cases.values() if r["path"] == path]
+    main = cases[MAIN_CASE[path]]
+    return {
+        "name": f"flash_attention_fwd_{path}", "route": "cuda",
+        "source": f"deeplearning4j_tpu_torch/kernels/csrc/{SOURCES[path]}",
+        "replaces": "deeplearning4j_tpu/kernels/flash_attention.py:41",
+        "launches": launches, "on_main_path": path == "wgmma",
+        "max_abs_err": max(r["max_abs_err_o"] for r in rows),
+        "ms": main["ms"], "device_ms": main["device_ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+        "library_device_ms": main["library_device_ms"],
+        "at": dict(zip(("layout", "b", "h", "t_q", "t_k", "d", "dtype",
+                        "causal"), MAIN_CASE[path]))}
 
 
 def main() -> int:
@@ -272,25 +527,28 @@ def main() -> int:
     compiled = _build.build_all()
     ptxas = [ln.strip() for log in _build.build_logs.values()
              for ln in log.splitlines()
-             if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
+             if "Compiling entry" in ln or "Used" in ln or "spill" in ln
+             or "C75" in ln]
     emit(build={"seconds": time.perf_counter() - t0, "compiled": compiled,
                 "ptxas": ptxas})
+    log = _build.build_logs.get("flash_attention_fwd_wgmma")
+    if log is not None:     # compiled in this run, not an earlier library
+        report = wgmma_ptxas(log)
+        emit(wgmma_ptxas=report)
+        check(sorted(report) == [64, 128] and all(
+            r.get("registers") == WGMMA_ENTRY_REGISTERS
+            and r.get("spill_bytes") == 0 for r in report.values()),
+            f"wgmma kernel: want {WGMMA_ENTRY_REGISTERS} registers and no "
+            f"spills at d 64 and 128, ptxas gave {report}")
 
     cases = kernel_phase(torch, fa)
-    launches = slice_phase(torch, fa)
-    main_case = cases[MAIN_CASE]
-    emit(kernels=[{
-        "name": "flash_attention_fwd", "route": "cuda",
-        "source": "deeplearning4j_tpu_torch/kernels/csrc/"
-                  "flash_attention_fwd.cu",
-        "replaces": "deeplearning4j_tpu/kernels/flash_attention.py:41",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err_o"] for r in cases.values()),
-        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"]}])
-    check(launches > 0, "the main path launched no flash_attention_fwd")
+    engine, _model, (n_wgmma, n_simple) = slice_phase(torch, fa)
+    emit(main_path_launches={"wgmma": n_wgmma, "simple": n_simple})
+    check(n_wgmma > 0, "the main path launched no flash_attention_fwd_wgmma")
+    check(n_simple == 0, "the main path launched the simple kernel")
+    profile_phase(torch, fa, engine)
+    emit(kernels=[kernel_entry("wgmma", cases, n_wgmma),
+                  kernel_entry("simple", cases, n_simple)])
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

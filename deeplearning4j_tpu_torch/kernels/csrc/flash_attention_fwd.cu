@@ -1,4 +1,6 @@
-// Flash-attention forward for Hopper (sm_90a), bf16 and f32.
+// Flash-attention forward for Hopper (sm_90a), the simple path: f32 at every
+// head dim, bf16 at the head dims the wgmma kernel does not take (16, 32, 48,
+// 80, 96, 112; flash_attention_fwd_wgmma.cu has bf16 at 64 and 128).
 //
 // Replaces the Pallas TPU kernel `_attn_fwd_kernel` (launched by `_fwd_pallas`)
 // in deeplearning4j_tpu/kernels/flash_attention.py. It computes the same
@@ -17,7 +19,8 @@
 // each block keeps its Q tile and the running statistics on chip for the whole
 // key loop, so Q, K and V are read from device memory once per (query tile,
 // key tile) pair and O is written once, and the (T, T) score matrix never
-// reaches device memory. wgmma, TMA and warp specialisation are later work.
+// reaches device memory. The bf16 d = 64 / 128 prefill path has the wgmma +
+// TMA redesign in flash_attention_fwd_wgmma.cu.
 //
 // Layout: q (BH, seq_q, D), k and v (BH, seq_k, D), o like q, lse (BH, seq_q)
 // f32, all contiguous and 16-byte aligned (the Python wrapper checks this).
@@ -260,10 +263,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, int bh, int seq_q, int seq_k, float scale,
                    int causal, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<T, D>();
-  cudaError_t err = cudaFuncSetAttribute(
+  // the shared-memory opt-in, once per instantiation
+  static const cudaError_t attr = cudaFuncSetAttribute(
       flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
-  if (err != cudaSuccess) return err;
+  if (attr != cudaSuccess) return attr;
   dim3 grid((seq_q + BM - 1) / BM, bh);
   flash_fwd_kernel<T, D><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -272,19 +276,25 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// bf16 at d = 64 and 128 is flash_attention_fwd_wgmma.cu's, not this file's
 template <typename T>
 cudaError_t dispatch(int d, const void* q, const void* k, const void* v,
                      void* o, void* lse, int bh, int seq_q, int seq_k,
                      float scale, int causal, cudaStream_t s) {
+  constexpr bool F32 = std::is_same<T, float>::value;
   switch (d) {
     case 16: return launch<T, 16>(q, k, v, o, lse, bh, seq_q, seq_k, scale, causal, s);
     case 32: return launch<T, 32>(q, k, v, o, lse, bh, seq_q, seq_k, scale, causal, s);
     case 48: return launch<T, 48>(q, k, v, o, lse, bh, seq_q, seq_k, scale, causal, s);
-    case 64: return launch<T, 64>(q, k, v, o, lse, bh, seq_q, seq_k, scale, causal, s);
     case 80: return launch<T, 80>(q, k, v, o, lse, bh, seq_q, seq_k, scale, causal, s);
     case 96: return launch<T, 96>(q, k, v, o, lse, bh, seq_q, seq_k, scale, causal, s);
     case 112: return launch<T, 112>(q, k, v, o, lse, bh, seq_q, seq_k, scale, causal, s);
-    case 128: return launch<T, 128>(q, k, v, o, lse, bh, seq_q, seq_k, scale, causal, s);
+    case 64:
+      if constexpr (F32) return launch<T, 64>(q, k, v, o, lse, bh, seq_q, seq_k, scale, causal, s);
+      return cudaErrorInvalidValue;
+    case 128:
+      if constexpr (F32) return launch<T, 128>(q, k, v, o, lse, bh, seq_q, seq_k, scale, causal, s);
+      return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }

@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch._device import resolve_device
-from deeplearning4j_tpu_torch.kernels.flash_attention import flash_attention
+from deeplearning4j_tpu_torch.kernels import flash_attention as fa
 from deeplearning4j_tpu_torch.ops.moments import one_pass_moments
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -132,13 +132,18 @@ class TransformerLM:
 
     def _attn(self, p, x):
         """Full-sequence attention: the flash kernel on the card, its
-        plain version on the CPU. Returns (out, k, v)."""
+        plain version on the CPU. The kernel reads q, k, v as (B, H, T, hd)
+        views of the projection and writes o into a (B, T, H, hd) buffer
+        through its (B, H, T, hd) view, so no copy is made around it.
+        Returns (out, k, v)."""
         c = self.config
         b, t, _ = x.shape
         q, k, v = self._qkv(p, x)
-        o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), causal=c.causal)
-        out = o.transpose(1, 2).reshape(b, t, c.d_model) @ p["wo"]
+        o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        fa.flash_attention_fwd(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), c.causal,
+                               out=o.transpose(1, 2))
+        out = o.view(b, t, c.d_model) @ p["wo"]
         return out, k, v
 
     def _ffn(self, blk, h):

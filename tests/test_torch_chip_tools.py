@@ -1,0 +1,92 @@
+"""The CPU-side arithmetic of ``chip_smoke.py``.
+
+It runs on the card; what it computes from shapes and text (the bound it
+holds each kernel to, the profiler's busy share, the ptxas report it
+checks the wgmma kernel's build against) is checked here.
+"""
+import pytest
+
+import chip_smoke
+
+
+def test_bound_at_the_main_shape_is_pr1s():
+    ms, by = chip_smoke.attention_bound_ms(16, 1024, 1024, 64, "bfloat16",
+                                           True)
+    assert by == "bytes" and ms == pytest.approx(0.0025236250746268657)
+
+
+def test_bound_counts_only_kept_causal_pairs():
+    # Tq 3, Tk 2: rows keep 1, 2, 2 keys
+    flops_ms, _ = chip_smoke.attention_bound_ms(1, 3, 2, 64, "float32", True)
+    ops = 4.0 * 64 * (1 + 2 + 2) / chip_smoke.PEAK_FLOPS["float32"]
+    nbytes = 4 * 64 * 2 * (3 + 2) + 4 * 3
+    assert flops_ms == pytest.approx(1e3 * max(ops, nbytes /
+                                               chip_smoke.PEAK_BYTES))
+    full_ms, by = chip_smoke.attention_bound_ms(16, 512, 1024, 64,
+                                                "bfloat16", False)
+    assert by == "operations"
+    assert full_ms == pytest.approx(
+        1e3 * 4.0 * 16 * 64 * 512 * 1024 / chip_smoke.PEAK_FLOPS["bfloat16"])
+
+
+@pytest.mark.parametrize("intervals,lo,hi,want", [
+    ([(0, 5), (3, 8), (10, 12), (11, 20)], 1, 15, 12.0),
+    ([(2, 3), (2, 3)], 0, 10, 1.0),
+    ([(5, 9)], 6, 7, 1.0),
+    ([], 0, 10, 0.0),
+])
+def test_busy_time_is_the_union_inside_the_window(intervals, lo, hi, want):
+    assert chip_smoke._union_us(intervals, lo, hi) == want
+
+
+_PTXAS = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122flash_fwd_wgmma_kernelILi128EEEv14CUtensorMap_stS1_S1_iii7OutArgsiiifi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_122flash_fwd_wgmma_kernelILi128EEEv14CUtensorMap_stS1_S1_iii7OutArgsiiifi
+    0 bytes stack frame, {s128} bytes spill stores, {l128} bytes spill loads
+ptxas info    : Used {r128} registers, used 16 barriers, 616 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122flash_fwd_wgmma_kernelILi64EEEv14CUtensorMap_stS1_S1_iii7OutArgsiiifi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_122flash_fwd_wgmma_kernelILi64EEEv14CUtensorMap_stS1_S1_iii7OutArgsiiifi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 16 barriers, 616 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z15other_kerneli' for 'sm_90a'
+    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 40 registers
+"""
+
+
+@pytest.mark.parametrize("r128,s128,l128,want_ok", [
+    (168, 0, 0, True),
+    (168, 24, 24, False),      # d 128 spills
+    (160, 0, 0, False),        # not the budget setmaxnreg 24 / 240 needs
+])
+def test_ptxas_report_of_each_wgmma_instantiation(r128, s128, l128,
+                                                  want_ok):
+    report = chip_smoke.wgmma_ptxas(_PTXAS.format(r128=r128, s128=s128,
+                                                  l128=l128))
+    # the other kernel's lines are not the wgmma kernel's
+    assert report == {128: {"registers": r128, "spill_bytes": s128 + l128},
+                      64: {"registers": 168, "spill_bytes": 0}}
+    ok = all(r["registers"] == chip_smoke.WGMMA_ENTRY_REGISTERS
+             and r["spill_bytes"] == 0 for r in report.values())
+    assert ok == want_ok
+
+
+def test_profile_phase_fails_on_the_card_without_device_events(
+        tmp_path, monkeypatch):
+    """An empty trace is a failure unless the phase is rehearsed on the
+    CPU (TRACE_ON_DEVICE False), where 'not measured' is the answer."""
+    import torch
+
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+
+    class Engine:
+        def prefill(self, prompt):
+            fa.launches_wgmma += chip_smoke.LARGE["n_layers"]
+
+    monkeypatch.setattr(chip_smoke, "OUT_DIR", tmp_path)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    with pytest.raises(AssertionError, match="not measured"):
+        chip_smoke.profile_phase(torch, fa, Engine())
+    monkeypatch.setattr(chip_smoke, "TRACE_ON_DEVICE", False)
+    chip_smoke.profile_phase(torch, fa, Engine())

@@ -9,9 +9,11 @@ take bf16 operands with f32 accumulation, but round P to bf16 at
 different points: the kernel with the running max, the plain version
 with the final one).
 
-The CUDA kernel itself runs only on the card:
-``tests/test_torch_kernels_gpu.py`` holds it against this plain version
-there.
+The CUDA kernels themselves run only on the card:
+``tests/test_torch_kernels_gpu.py`` holds them against this plain version
+there. What the CPU does reach is tested here too: which kernel a dtype
+and head dim go to, and the wgmma kernel's layout rules and launch
+arguments on the fused-QKV views the model hands it.
 """
 import math
 
@@ -91,10 +93,11 @@ def test_reference_bf16_matches_jax_kernel(causal):
 
 def test_cpu_path_does_not_count_launches():
     q, k, v = (torch.from_numpy(a) for a in _inputs((1, 2, 16, 16)))
-    fa.launches = 0
+    fa.launches_wgmma = fa.launches_simple = 0
     fa.flash_attention(q, k, v, causal=True)
     fa.flash_attention_fwd(q[0], k[0], v[0])
-    assert fa.launches == 0
+    fa.flash_attention_fwd(*(t.to(torch.bfloat16) for t in (q, k, v)))
+    assert fa.launches_wgmma == 0 and fa.launches_simple == 0
 
 
 def test_non_cpu_non_cuda_tensor_raises():
@@ -103,3 +106,84 @@ def test_non_cpu_non_cuda_tensor_raises():
     q = torch.empty((1, 16, 16), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention_fwd(q, q, q)
+
+
+def test_cpu_out_receives_o_and_lse_has_q_shape():
+    q, k, v = (torch.from_numpy(a) for a in _inputs((2, 3, 24, 32), seed=5))
+    out = torch.full((2, 24, 3, 32), float("nan")).transpose(1, 2)
+    o, lse = fa.flash_attention_fwd(q, k, v, True, out=out)
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, True)
+    assert o is out and lse.shape == (2, 3, 24)
+    np.testing.assert_array_equal(out.numpy(), ref.numpy())
+    np.testing.assert_array_equal(lse.numpy(), ref_lse.numpy())
+
+
+@pytest.mark.parametrize("dtype,d,wgmma", [
+    (torch.bfloat16, 64, True), (torch.bfloat16, 128, True),
+    (torch.bfloat16, 16, False), (torch.bfloat16, 80, False),
+    (torch.bfloat16, 112, False), (torch.float32, 64, False),
+    (torch.float32, 128, False)])
+def test_dispatch_by_dtype_and_head_dim(dtype, d, wgmma):
+    assert fa.takes_wgmma(dtype, d) is wgmma
+
+
+def _fused_qkv_views(b=2, t=5, h=2, hd=64, dtype=torch.bfloat16):
+    """q, k, v as ``TransformerLM._attn`` hands them over: (B, H, T, hd)
+    views of one (B, T, 3C) projection, and the (B, H, T, hd) view of the
+    (B, T, H, hd) output buffer."""
+    c = h * hd
+    qkv = torch.zeros((b, t, 3 * c), dtype=dtype)
+    q, k, v = (x.reshape(b, t, h, hd).transpose(1, 2)
+               for x in torch.split(qkv, c, dim=-1))
+    o = torch.empty((b, t, h, hd), dtype=dtype)
+    return qkv, q, k, v, o
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_wgmma_layout_takes_fused_qkv_views_and_args(hd):
+    b, t, h = 2, 5, 2
+    c = h * hd
+    qkv, q, k, v, o = _fused_qkv_views(b, t, h, hd)
+    out = o.transpose(1, 2)
+    for name, x in (("q", q), ("k", k), ("v", v), ("out", out)):
+        assert not x.is_contiguous()
+        assert fa.tma_operand(name, x)[0] == x.data_ptr()
+    lse = torch.empty((b, h, t), dtype=torch.float32)
+    args = fa.wgmma_args(q, k, v, out, lse, True, 0.125)
+    base, item = qkv.data_ptr(), qkv.element_size()
+    assert args[:5] == (base, base + c * item, base + 2 * c * item,
+                        o.data_ptr(), lse.data_ptr())
+    assert args[5:10] == (b, h, t, t, hd)
+    qkv_strides = (t * 3 * c, hd, 3 * c)           # (b, h, t) in elements
+    assert args[10:19] == qkv_strides * 3
+    assert args[19:22] == (t * c, hd, c)
+    assert args[22:] == (0.125, 1)
+
+
+def test_wgmma_args_of_3d_operands_have_one_head():
+    q = torch.zeros((6, 33, 64), dtype=torch.bfloat16)
+    assert fa.tma_operand("q", q) == (q.data_ptr(), 33 * 64, 33 * 64, 64)
+    args = fa.wgmma_args(q, q, q, q, torch.empty((6, 33)), False, 1.0)
+    assert args[5:10] == (6, 1, 33, 33, 64)
+    assert args[10:13] == (33 * 64, 33 * 64, 64)
+    assert args[-1] == 0
+
+
+@pytest.mark.parametrize("bad,match", [
+    ("d_strided", "unit stride"),
+    ("misaligned", "16-byte boundary"),
+    ("row_stride", "multiples of 16 bytes"),
+])
+def test_wgmma_layout_rejects_what_tma_cannot_read(bad, match):
+    if bad == "d_strided":          # every other column of a d=128 tensor
+        x = torch.zeros((1, 2, 8, 128), dtype=torch.bfloat16)[..., ::2]
+    elif bad == "misaligned":       # starts one element into its storage
+        x = torch.zeros((1, 2, 8, 65), dtype=torch.bfloat16)[..., 1:]
+    else:                           # rows 136 bytes apart
+        x = torch.zeros((1, 2, 8, 68), dtype=torch.bfloat16)[..., :64]
+    assert x.shape[-1] == 64
+    with pytest.raises(ValueError, match=match):
+        fa.tma_operand("q", x)
+    ok = torch.zeros((1, 2, 8, 64), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=match):
+        fa.wgmma_args(ok, ok, x, ok, torch.empty((1, 2, 8)), True, 1.0)

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import torch
 
 from deeplearning4j_tpu.models import transformer as jtr
+from deeplearning4j_tpu_torch.kernels import flash_attention as fa
 from deeplearning4j_tpu_torch.models import transformer as ttr
 from deeplearning4j_tpu_torch.models.weights import (from_jax_params,
                                                      init_jax_layout)
@@ -194,3 +195,39 @@ def test_decode_window_paged_matches_jax_including_trash_page():
                                    np.asarray(jpool[n])[:, :-1], atol=2e-4)
         # the out-of-range row landed in the trash page, not a real one
         assert not np.allclose(tpool[n][:, -1].numpy(), pool[n][:, -1])
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_attn_hands_the_kernel_views_without_copies(monkeypatch, fused):
+    """``_attn`` passes the flash wrapper (B, H, T, hd) views of the QKV
+    projection (not contiguous, q/k/v of one storage when fused) and an
+    ``out`` that is the (B, H, T, hd) view of a contiguous (B, T, H, hd)
+    buffer, which it then reads as (B, T, C) — so the port still matches
+    JAX to f32 atol 1e-4 with nothing copied around the kernel."""
+    jm, jp, tm, tp = _pair(fused)
+    seen = []
+    real = fa.flash_attention_fwd
+
+    def spy(q, k, v, causal=False, scale=None, out=None):
+        seen.append((q, k, v, out))
+        return real(q, k, v, causal, scale, out=out)
+
+    monkeypatch.setattr(fa, "flash_attention_fwd", spy)
+    toks = _tokens(2, 24, seed=3)
+    got = tm.apply(tp, torch.from_numpy(toks))
+    assert len(seen) == KW["n_layers"]
+    hd = KW["d_model"] // KW["n_heads"]
+    for q, k, v, out in seen:
+        for x in (q, k, v, out):
+            assert x.shape == (2, KW["n_heads"], 24, hd)
+            assert not x.is_contiguous() and x.stride(-1) == 1
+        storages = {x.untyped_storage().data_ptr() for x in (q, k, v)}
+        assert len(storages) == (1 if fused else 3)
+        if fused:   # q, k, v are the three column blocks of x @ wqkv
+            assert k.data_ptr() - q.data_ptr() == KW["d_model"] * 4
+            assert v.data_ptr() - k.data_ptr() == KW["d_model"] * 4
+        buf = out.transpose(1, 2)
+        assert buf.is_contiguous() and buf.data_ptr() == out.data_ptr()
+        assert out.untyped_storage().nbytes() == buf.numel() * 4
+    ref = np.asarray(jax.jit(jm.apply)(jp, jnp.asarray(toks)))
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-4)
