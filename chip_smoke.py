@@ -20,15 +20,31 @@ then:
    graph, replays timed with CUDA events: device only), the plain
    version, SDPA (``library_ms`` and ``library_device_ms``, timed the same
    two ways) and the card's bound;
-2. slice phase — serves generation from ``TransformerLM`` at the full
+2. backward phase — holds the backward kernel (K2: dq, dk, dv) against its
+   plain version at the training layer (fused QKV views, batch 8), ragged
+   and block-edge lengths, Tq != Tk, d 128, f32 and the other head dims,
+   and times it as the forward is, plus the forward and backward together
+   (K1 + K2) against SDPA's forward and backward; each gradient is held by
+   its largest error and by the relative L2 error of each 64-row tile;
+   then the training step's tied LM head (bf16 product into f32 logits,
+   bf16 dlogits in its backward) against autograd through the f32 product
+   at the training layer;
+3. slice phase — serves generation from ``TransformerLM`` at the full
    width of the bench's large config (vocab 32768, 12 layers, 16 heads,
    d_model 1024, d_ff 4096, max_len 1024, bf16, fused QKV; random weights
    from a numpy seed through ``from_jax_params``) through ``DecodeEngine``
    in its default paged mode, checks the tokens and logits, and checks that
    every prefill and ``apply`` launched the wgmma kernel exactly once per
    layer and the simple kernel never;
-3. profile phase — one ``torch.profiler`` window over a single prefill at
-   bucket 1024: the device's busy share and the top device kernels.
+4. profile phase — one ``torch.profiler`` window over a single prefill at
+   bucket 1024: the device's busy share and the top device kernels;
+5. training phase — ``make_train_step(adamw(3e-4))`` at the same config,
+   batch 8 × 1024 tokens (bench.py's first rung): 2 warm and 5 timed steps
+   on one batch (ms per step, tokens/s, MFU by bench.py's count, peak
+   memory), a falling finite loss, the wgmma forward and K2 launched once
+   per layer per step and the simple kernel never; then one gradient on the
+   kernels against one on their plain versions, and a profiler window over
+   one step.
 
 Every phase must pass: any failure exits nonzero. Output is one JSON
 object per line; the last line is ``{"ok": true, "device": {...}}``.
@@ -36,6 +52,7 @@ Without CUDA, or outside a checkout, it exits nonzero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -75,6 +92,8 @@ KERNEL_CASES = [
     ("3d", 64, 1, 512, 512, 64, "bfloat16", True),
     ("3d", 16, 1, 1000, 1000, 64, "bfloat16", True),
     ("3d", 16, 1, 1024, 1024, 64, "bfloat16", False),
+    # the training layer (bench large config, batch 8)
+    ("fused", 8, 16, 1024, 1024, 64, "bfloat16", True),
     # non-causal with Tq != Tk
     ("3d", 16, 1, 512, 1024, 64, "bfloat16", False),
     ("fused", 2, 16, 300, 77, 64, "bfloat16", False),
@@ -90,7 +109,24 @@ KERNEL_CASES = [
 MAIN_CASE = {"wgmma": ("fused", 1, 16, 1024, 1024, 64, "bfloat16", True),
              "simple": ("3d", 16, 1, 256, 256, 64, "float32", True)}
 SOURCES = {"wgmma": "flash_attention_fwd_wgmma.cu",
-           "simple": "flash_attention_fwd.cu"}
+           "simple": "flash_attention_fwd.cu",
+           "bwd": "flash_attention_bwd.cu"}
+# K2 (backward) cases, laid out as KERNEL_CASES: "fused" takes q, k, v from
+# one (B, T, 3·H·d) projection, o from the forward written as TransformerLM
+# writes it, dO as the (B, H, T, d) view of a (B, T, H·d) gradient, and
+# writes dq, dk, dv into the views of (B, T, 3·H·d) gradient buffers
+BWD_CASES = [
+    ("fused", 8, 16, 1024, 1024, 64, "bfloat16", True),   # the training layer
+    ("fused", 1, 16, 991, 991, 64, "bfloat16", True),     # ragged
+    ("fused", 1, 16, 127, 127, 64, "bfloat16", True),     # block edges
+    ("fused", 1, 16, 129, 129, 64, "bfloat16", True),
+    ("fused", 1, 16, 1, 1, 64, "bfloat16", True),
+    ("fused", 2, 16, 300, 77, 64, "bfloat16", False),     # Tq != Tk
+    ("fused", 1, 8, 1024, 1024, 128, "bfloat16", True),   # d 128
+    ("3d", 16, 1, 256, 256, 64, "float32", True),
+    ("3d", 16, 1, 512, 512, 32, "bfloat16", True),
+    ("fused", 1, 8, 129, 129, 80, "bfloat16", True),
+]
 # the bench's large config (bench.py, the "large" rung)
 LARGE = dict(vocab_size=32768, n_layers=12, n_heads=16, d_model=1024,
              d_ff=4096, max_len=1024, dtype="bfloat16", fused_qkv=True)
@@ -99,6 +135,25 @@ LARGE = dict(vocab_size=32768, n_layers=12, n_heads=16, d_model=1024,
 TOL_O = {"bfloat16": 2e-2, "float32": 5e-5}
 TOL_LSE = 1e-3
 TOL_TEACHER_FORCED = 0.1
+# K2 vs its plain version: max |dg| over max(1, max |g_plain|) per gradient,
+# and the relative L2 error of each 64-row tile along T of each gradient
+# (its norm floored at an rms of GRAD_RMS_FLOOR, so a tile that cancels to
+# ~0 is held to an absolute error); one full-width gradient on the kernels
+# vs on the plain versions: |dloss|, and each leaf's relative L2 error
+TOL_GRAD = {"bfloat16": 1e-2, "float32": 1e-5}
+TOL_GRAD_TILE_L2 = {"bfloat16": 1e-3, "float32": 5e-7}
+GRAD_RMS_FLOOR = {"bfloat16": 1e-3, "float32": 1e-6}
+TOL_STEP_LOSS = 5e-5
+TOL_STEP_LEAF = 1.5e-2
+# the tied LM head on the card (bf16 operands, f32 logits, bf16 dlogits in
+# its backward) vs autograd through the f32 product, at the training layer:
+# relative L2 error of the logits and of each gradient
+TOL_HEAD = {"logits": 5e-6, "dx": 5e-3, "de": 5e-3}
+# the training phase: bench.py's first rung of the large config
+TRAIN_BATCH = 8
+WARM_STEPS = 2
+TIMED_STEPS = 5
+LEARNING_RATE = 3e-4
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 FMA
 # (no TF32 in the port), device memory bandwidth
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -167,19 +222,58 @@ def device_ms(fn, torch, launches=20, repeats=7):
     return statistics.median(times)
 
 
+def _kept_pairs(t_q, t_k, causal):
+    """(query, key) pairs attention computes: all of them, or causally
+    only k_idx <= q_idx."""
+    return (sum(min(i + 1, t_k) for i in range(t_q)) if causal
+            else t_q * t_k)
+
+
+def _bound(flops, nbytes, dtype):
+    t_ops, t_mem = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_mem), ("operations" if t_ops >= t_mem
+                                     else "bytes")
+
+
 def attention_bound_ms(bh, t_q, t_k, d, dtype, causal):
     """Least time for one call: the larger of its FLOPs over the peak
     rate of its type and its bytes (q, k, v read once, o and lse written
     once) over the memory rate. Causal counts only the kept pairs
     (k_idx <= q_idx)."""
     itemsize = 2 if dtype == "bfloat16" else 4
-    pairs = (sum(min(i + 1, t_k) for i in range(t_q)) if causal
-             else t_q * t_k)
-    flops = 4.0 * bh * d * pairs
+    flops = 4.0 * bh * d * _kept_pairs(t_q, t_k, causal)
     nbytes = itemsize * bh * d * 2 * (t_q + t_k) + 4 * bh * t_q
-    t_ops, t_mem = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_mem), ("operations" if t_ops >= t_mem
-                                     else "bytes")
+    return _bound(flops, nbytes, dtype)
+
+
+def attention_bwd_bound_ms(bh, t_q, t_k, d, dtype, causal):
+    """Least time for one backward call: the five products of
+    ``_bwd_blockwise`` (S = QKᵀ, dV = PᵀdO, dP = dO·Vᵀ, dQ = dS·K,
+    dK = dSᵀQ), 2·d FLOPs per kept pair each, over the peak rate of the
+    type, against q, k, v, o, dO and lse read once and dq, dk, dv written
+    once over the memory rate."""
+    itemsize = 2 if dtype == "bfloat16" else 4
+    flops = 10.0 * bh * d * _kept_pairs(t_q, t_k, causal)
+    nbytes = itemsize * bh * d * 4 * (t_q + t_k) + 4 * bh * t_q
+    return _bound(flops, nbytes, dtype)
+
+
+def tile_rel_l2(x, ref, rms_floor, rows=64):
+    """The largest relative L2 error of ``x`` against ``ref`` over tiles of
+    ``rows`` rows along dim -2 (T for an attention gradient), each tile's
+    norm floored at ``rms_floor`` times the root of its size."""
+    worst = 0.0
+    for a, b in zip(x.float().split(rows, dim=-2),
+                    ref.float().split(rows, dim=-2)):
+        den = max(b.norm().item(), rms_floor * math.sqrt(b.numel()))
+        worst = max(worst, (a - b).norm().item() / den)
+    return worst
+
+
+def train_flops_per_token(n_params, n_layers, seq_len, d_model):
+    """bench.py's count for a causal LM's training step: 6·N for the
+    forward and backward through the params, plus 6·L·T·d for attention."""
+    return 6 * n_params + 6 * n_layers * seq_len * d_model
 
 
 def case_inputs(torch, case):
@@ -289,8 +383,158 @@ def kernel_phase(torch, fa):
     return results
 
 
+def bwd_case_inputs(torch, fa, case):
+    """The forward's inputs and output (as :func:`case_inputs`, o and lse
+    from the kernel), dO, three views that receive dq, dk, dv, and SDPA's
+    4-D q, k, v and dO. "fused": dO is the (B, H, T, d) view of a (B, T,
+    H·d) gradient and the views are the column blocks of (B, T, 3·H·d)
+    gradient buffers, as ``fa.FlashAttention`` calls the wrapper."""
+    layout, b, h, t_q, t_k, d, dtype, causal = case
+    q, k, v, out, sdpa = case_inputs(torch, case)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, out=out)
+    g = torch.Generator(device="cuda").manual_seed(t_q * 7919 + t_k + d)
+    if layout == "3d":
+        do = torch.randn(q.shape, generator=g, device="cuda", dtype=q.dtype)
+        grads = tuple(torch.empty_like(x) for x in (q, k, v))
+        return q, k, v, out, o, lse, do, grads, (*sdpa, do[None])
+    c = h * d
+    do = torch.randn((b, t_q, c), generator=g, device="cuda",
+                     dtype=q.dtype).view(b, t_q, h, d).transpose(1, 2)
+    gq = torch.empty((b, t_q, 3 * c), device="cuda", dtype=q.dtype)
+    gk = gq if t_k == t_q else torch.empty((b, t_k, 3 * c), device="cuda",
+                                           dtype=q.dtype)
+    grads = tuple(x[..., i * c:(i + 1) * c].reshape(b, x.shape[1], h, d)
+                  .transpose(1, 2) for i, x in enumerate((gq, gk, gk)))
+    return q, k, v, out, o, lse, do, grads, (*sdpa, do)
+
+
+def bwd_phase(torch, fa):
+    """K2 against its plain version at each of BWD_CASES, timed as the
+    forward is, plus the forward and backward together (K1 + K2) against
+    SDPA's forward and backward on the same inputs."""
+    import torch.nn.functional as F
+    results = {}
+    for case in BWD_CASES:
+        layout, b, h, t_q, t_k, d, dtype, causal = case
+        (q, k, v, out, o, lse, do, grads,
+         (q4, k4, v4, do4)) = bwd_case_inputs(torch, fa, case)
+        fa.launches_bwd = 0
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal, out=grads)
+        torch.cuda.synchronize()
+        check(fa.launches_bwd == 1 and all(
+            x is y for x, y in zip(got, grads)),
+            f"bwd {case}: launched {fa.launches_bwd} times or did not write "
+            f"into the caller's views")
+        ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal)
+        errs, tile_l2 = {}, {}
+        for name, x, r in zip(("dq", "dk", "dv"), got, ref):
+            err = (x.float() - r.float()).abs().max().item()
+            limit = TOL_GRAD[dtype] * max(1.0, r.float().abs().max().item())
+            check(math.isfinite(err) and err <= limit,
+                  f"flash_attention_bwd {case}: max |d{name}| {err} > "
+                  f"{limit}")
+            errs[name] = err
+            tile_l2[name] = tile_rel_l2(x, r, GRAD_RMS_FLOOR[dtype])
+            check(tile_l2[name] <= TOL_GRAD_TILE_L2[dtype],
+                  f"flash_attention_bwd {case}: a 64-row tile of {name} has "
+                  f"relative L2 error {tile_l2[name]} > "
+                  f"{TOL_GRAD_TILE_L2[dtype]}")
+        del ref
+
+        def kernel():
+            fa.flash_attention_bwd(q, k, v, o, lse, do, causal, out=grads)
+
+        def pair():
+            o_, lse_ = fa.flash_attention_fwd(q, k, v, causal, out=out)
+            fa.flash_attention_bwd(q, k, v, o_, lse_, do, causal, out=grads)
+
+        def library():
+            # fresh leaves each call, so autograd's accumulation nodes are
+            # made on the stream being captured
+            xs = [x.detach().requires_grad_() for x in (q4, k4, v4)]
+            y = F.scaled_dot_product_attention(*xs, is_causal=causal)
+            torch.autograd.grad(y, xs, do4)
+
+        bound_ms, bound_by = attention_bwd_bound_ms(b * h, t_q, t_k, d,
+                                                    dtype, causal)
+        row = {"layout": layout, "b": b, "h": h, "t_q": t_q, "t_k": t_k,
+               "d": d, "dtype": dtype, "causal": causal,
+               "max_abs_err": errs, "max_tile_rel_l2": tile_l2,
+               "ms": time_ms(kernel, torch),
+               "device_ms": device_ms(kernel, torch),
+               "plain_ms": time_ms(lambda: fa.flash_attention_bwd_reference(
+                   q, k, v, o, lse, do, causal), torch, iters=3, repeats=3),
+               "fwd_bwd_ms": time_ms(pair, torch),
+               "fwd_bwd_device_ms": device_ms(pair, torch),
+               "library_ms": time_ms(library, torch),
+               "library_device_ms": device_ms(library, torch),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        row["device_vs_bound"] = row["device_ms"] / bound_ms
+        row["fwd_bwd_vs_library"] = (row["fwd_bwd_device_ms"]
+                                     / row["library_device_ms"])
+        emit(bwd_case=row)
+        results[case] = row
+    return results
+
+
+def head_phase(torch):
+    """The tied LM head of the training step (``_TiedHead``: bf16 x and e,
+    f32 logits, bf16 dlogits in the backward) against autograd through the
+    f32 product ``x.float() @ e.float().T`` on the same inputs: x (8, 1024,
+    1024) at a LayerNorm's scale, e (32768, 1024) at the init's, and the
+    cross-entropy gradient of random targets as dlogits. Also gives how far
+    JAX's ``ce_chunks=0`` gradient arithmetic (f32 dlogits, f32 products,
+    each gradient rounded to bf16) lies from the f32 one, beside the
+    head's."""
+    from deeplearning4j_tpu_torch._device import resolve_device
+    from deeplearning4j_tpu_torch.models.transformer import _TiedHead
+    resolve_device()            # TF32 off: the reference product is f32
+    b, t, c, vocab = (TRAIN_BATCH, LARGE["max_len"], LARGE["d_model"],
+                      LARGE["vocab_size"])
+    n = b * t
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    x = torch.randn((b, t, c), generator=g, device="cuda").bfloat16()
+    e = (0.02 * torch.randn((vocab, c), generator=g, device="cuda")
+         ).bfloat16()
+    xr, er = (a.float().requires_grad_() for a in (x, e))
+    logits_ref = torch.matmul(xr, er.T)
+    targets = torch.randint(0, vocab, (n,), generator=g, device="cuda")
+    with torch.no_grad():
+        dlogits = torch.softmax(logits_ref, -1)
+        dlogits.view(n, vocab)[torch.arange(n, device="cuda"),
+                               targets] -= 1.0
+        dlogits /= n
+    dx_ref, de_ref = torch.autograd.grad(logits_ref, (xr, er), dlogits)
+    xk, ek = (a.detach().requires_grad_() for a in (x, e))
+    logits = _TiedHead.apply(xk, ek)
+    dx, de = torch.autograd.grad(logits, (xk, ek), dlogits)
+    torch.cuda.synchronize()
+    check(logits.dtype == torch.float32 and dx.dtype == de.dtype
+          == torch.bfloat16, f"head dtypes {logits.dtype} {dx.dtype} "
+          f"{de.dtype}")
+
+    def rel(got, want):
+        return ((got.float() - want).norm() / want.norm()).item()
+
+    check(logits.shape == (b, t, vocab), f"head logits {logits.shape}")
+    row = {"logits": rel(logits, logits_ref.detach()), "dx": rel(dx, dx_ref),
+           "de": rel(de, de_ref)}
+    row["jax_ce_chunks0_arithmetic"] = {
+        "dx": rel(dx_ref.bfloat16(), dx_ref), "de": rel(de_ref.bfloat16(),
+                                                        de_ref)}
+    row["head_vs_jax_arithmetic"] = {"dx": rel(dx, dx_ref.bfloat16().float()),
+                                     "de": rel(de, de_ref.bfloat16().float())}
+    emit(head={"batch": b, "seq_len": t, "d_model": c, "vocab": vocab,
+               "rel_l2": row, "tolerance": TOL_HEAD})
+    for name, limit in TOL_HEAD.items():
+        check(math.isfinite(row[name]) and row[name] <= limit,
+              f"tied head: relative L2 error of {name} {row[name]} > {limit}")
+
+
 def counts(fa):
-    return fa.launches_wgmma, fa.launches_simple
+    """Launches of each flash wrapper: (wgmma forward, simple forward,
+    backward)."""
+    return fa.launches_wgmma, fa.launches_simple, fa.launches_bwd
 
 
 def slice_phase(torch, fa):
@@ -302,6 +546,7 @@ def slice_phase(torch, fa):
         TransformerConfig, TransformerLM)
     from deeplearning4j_tpu_torch.models.weights import (from_jax_params,
                                                          init_jax_layout)
+    from deeplearning4j_tpu_torch.tree import tree_leaves
 
     cfg = TransformerConfig(**LARGE)
     t0 = time.perf_counter()
@@ -312,11 +557,11 @@ def slice_phase(torch, fa):
           f"engine is not in its default paged mode ({engine.page_tokens})")
     engine.warm(1)
     torch.cuda.synchronize()
-    emit(setup={"params": sum(p.numel() for p in _leaves(params)),
+    emit(setup={"params": sum(p.numel() for p in tree_leaves(params)),
                 "seconds": time.perf_counter() - t0,
                 "page_tokens": engine.page_tokens})
     L, V = cfg.n_layers, cfg.vocab_size
-    per_forward = (L, 0)       # wgmma once per layer, simple never
+    per_forward = (L, 0, 0)    # wgmma once per layer, simple never
     rng = np.random.default_rng(SEED + 1)
 
     def launched(fn):
@@ -326,21 +571,22 @@ def slice_phase(torch, fa):
         out = fn()
         torch.cuda.synchronize()
         after = counts(fa)
-        return (out, (after[0] - before[0], after[1] - before[1]),
+        return (out, tuple(a - b for a, b in zip(after, before)),
                 1e3 * (time.perf_counter() - t))
 
     def tokens_ok(toks, shape):
         check(toks.shape == shape, f"tokens shape {toks.shape} != {shape}")
         check(bool(((toks >= 0) & (toks < V)).all()), "token out of range")
 
-    fa.launches_wgmma = fa.launches_simple = 0   # the main path starts here
+    fa.launches_wgmma = fa.launches_simple = fa.launches_bwd = 0
+    # the main path starts here
     for n in PROMPT_LENS:
         prompt = rng.integers(0, V, (1, n)).astype(np.int32)
         bucket = engine.prefill_bucket(n)
         (toks, steps), got, _ms = launched(
             lambda: engine.generate(prompt, N_NEW, return_logits=True))
         check(got == per_forward, f"prompt {n}: launched {got}, want "
-              f"{per_forward} (wgmma, simple)")
+              f"{per_forward} (wgmma, simple, bwd)")
         tokens_ok(toks, (1, N_NEW))
         pre = []
         for _ in range(3):
@@ -416,84 +662,219 @@ def profile_phase(torch, fa, engine):
     """One torch.profiler window over a single prefill at bucket 1024: the
     device's busy share of the window and the top device kernels by time.
     The Chrome trace goes to OUT_DIR/prefill_1024_trace.json."""
-    from torch.profiler import ProfilerActivity, profile, record_function
     prompt = np.random.default_rng(SEED + 2).integers(
         0, LARGE["vocab_size"], (1, PROFILE_PROMPT)).astype(np.int32)
     engine.prefill(prompt)
     torch.cuda.synchronize()
-    fa.launches_wgmma = fa.launches_simple = 0
+    fa.launches_wgmma = fa.launches_simple = fa.launches_bwd = 0
+    row = profile_window(torch, "prefill", lambda: engine.prefill(prompt),
+                         "prefill_1024_trace.json")
+    check(counts(fa) == (LARGE["n_layers"], 0, 0),
+          f"profiled prefill launched {counts(fa)}")
+    emit(profile={"bucket": 1024, **row})
+
+
+@contextlib.contextmanager
+def plain_attention(fa):
+    """The plain versions in place of the flash kernels, forward and
+    backward, for ``fa.FlashAttention`` (which looks its functions up at
+    call time): a reference run of the same model on the card."""
+    kernels = fa.flash_attention_fwd, fa.flash_attention_bwd
+
+    def fwd(q, k, v, causal=False, scale=None, out=None):
+        o, lse = fa.flash_attention_reference(q, k, v, causal, scale)
+        return (o if out is None else out.copy_(o)), lse
+
+    def bwd(q, k, v, o, lse, do, causal=False, scale=None, out=None):
+        grads = fa.flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                                 causal, scale)
+        return grads if out is None else tuple(
+            dst.copy_(x) for dst, x in zip(out, grads))
+
+    fa.flash_attention_fwd, fa.flash_attention_bwd = fwd, bwd
+    try:
+        yield
+    finally:
+        fa.flash_attention_fwd, fa.flash_attention_bwd = kernels
+
+
+def train_phase(torch, fa):
+    """Training at the bench's large config, batch 8 (bench.py's first
+    rung): WARM_STEPS + TIMED_STEPS of ``make_train_step(adamw(3e-4))`` on
+    one batch with targets rolled by −1, each launching the wgmma forward
+    and K2 once per layer and the simple kernel never; then one gradient
+    on the kernels held against one on the plain versions (loss and each
+    leaf). Returns the launches of the steps and what the profile phase
+    needs."""
+    from deeplearning4j_tpu_torch.models.transformer import (
+        TransformerConfig, TransformerLM)
+    from deeplearning4j_tpu_torch.models.weights import (from_jax_params,
+                                                         init_jax_layout)
+    from deeplearning4j_tpu_torch.tree import tree_leaves
+    from deeplearning4j_tpu_torch.optim.adamw import adamw
+
+    cfg = TransformerConfig(**LARGE)
+    model = TransformerLM(cfg)
+    params = from_jax_params(init_jax_layout(cfg, SEED), cfg)
+    n_params = sum(a.numel() for a in tree_leaves(params))
+    L, V, T = cfg.n_layers, cfg.vocab_size, cfg.max_len
+    tokens = torch.as_tensor(np.random.default_rng(SEED + 3).integers(
+        0, V, (TRAIN_BATCH, T)).astype(np.int32), device=model.device)
+    targets = torch.roll(tokens, -1, dims=1)
+    opt = adamw(LEARNING_RATE)
+    state = opt.init(params)
+    step = model.make_train_step(opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    fa.launches_wgmma = fa.launches_simple = fa.launches_bwd = 0
+    for i in range(WARM_STEPS + TIMED_STEPS):    # the main path starts here
+        before = counts(fa)
+        t = time.perf_counter()
+        params, state, loss = step(params, state, tokens, targets)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t))
+        got = tuple(a - b for a, b in zip(counts(fa), before))
+        check(got == (L, 0, L), f"train step {i}: launched {got}, want "
+              f"{(L, 0, L)} (wgmma, simple, bwd)")
+        losses.append(loss)
+    launches = counts(fa)                        # ... and ends here
+    peak_bytes = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    ms = statistics.median(step_ms[WARM_STEPS:])
+    tokens_per_s = TRAIN_BATCH * T / (ms / 1e3)
+    flops_per_token = train_flops_per_token(n_params, L, T, cfg.d_model)
+    emit(train={"batch": TRAIN_BATCH, "seq_len": T, "params": n_params,
+                "losses": losses, "step_ms": step_ms, "ms_per_step": ms,
+                "tokens_per_s": tokens_per_s,
+                "flops_per_token": flops_per_token,
+                "mfu": tokens_per_s * flops_per_token
+                / PEAK_FLOPS["bfloat16"],
+                "peak_memory_bytes": peak_bytes,
+                "launches": dict(zip(("wgmma", "simple", "bwd"),
+                                     launches))})
+
+    # one gradient on the kernels and one on the plain versions, same
+    # weights and batch
+    loss_k, grads_k = model.loss_and_grads(params, tokens, targets)
+    leaves_k = tree_leaves(grads_k)
+    check(all(bool(g.isfinite().all()) for g in leaves_k),
+          "a gradient leaf is not finite")
+    with plain_attention(fa):
+        loss_p, grads_p = model.loss_and_grads(params, tokens, targets)
+    rel = [((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+           for a, b in zip(leaves_k, tree_leaves(grads_p))]
+    d_loss = abs(float(loss_k) - float(loss_p))
+    emit(train_vs_plain={"loss": float(loss_k), "plain_loss": float(loss_p),
+                         "abs_diff_loss": d_loss,
+                         "max_leaf_rel_l2": max(rel),
+                         "median_leaf_rel_l2": statistics.median(rel),
+                         "leaves": len(rel)})
+    check(d_loss <= TOL_STEP_LOSS, f"loss on the kernels {float(loss_k)} vs "
+          f"plain {float(loss_p)}")
+    check(max(rel) <= TOL_STEP_LEAF, f"a gradient leaf's relative L2 error "
+          f"{max(rel)} > {TOL_STEP_LEAF}")
+    del grads_k, grads_p, leaves_k
+    torch.cuda.empty_cache()
+    return launches, ms, (step, params, state, tokens, targets)
+
+
+def train_profile_phase(torch, fa, step_ms, step, params, state, tokens,
+                        targets):
+    """One torch.profiler window over one training step. The profiler's
+    own host work stretches the window, so the device's busy time is also
+    given over ``step_ms``, the median unprofiled step."""
+    L = LARGE["n_layers"]
+    fa.launches_wgmma = fa.launches_simple = fa.launches_bwd = 0
+    row = profile_window(torch, "train_step",
+                         lambda: step(params, state, tokens, targets),
+                         "train_step_trace.json", top=15)
+    check(counts(fa) == (L, 0, L),
+          f"profiled step launched {counts(fa)}")
+    if "device_busy_us" in row:
+        row["busy_over_unprofiled_step"] = (row["device_busy_us"]
+                                            / (1e3 * step_ms))
+    emit(train_profile=row)
+
+
+def _top(totals, n):
+    return [{"name": name[:160], "us": us, "count": c}
+            for name, (us, c) in sorted(totals.items(),
+                                        key=lambda kv: -kv[1][0])[:n]]
+
+
+def profile_window(torch, label, fn, trace_name, top=10):
+    """One torch.profiler window over ``fn()`` (ending in a synchronise),
+    its Chrome trace written to OUT_DIR/``trace_name``: the window's
+    length, the device's busy time and share in it, and the device time
+    by kernel and by the operator that launched each kernel (its
+    "External id"; kernels launched outside any operator, as the port's
+    ctypes kernels are, count under their own name)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    window = f"chip_smoke.{label}"
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        with record_function("chip_smoke.prefill"):
+        with record_function(window):
             t = time.perf_counter()
-            engine.prefill(prompt)
+            fn()
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t)
-    check(counts(fa) == (LARGE["n_layers"], 0),
-          f"profiled prefill launched {counts(fa)}")
     OUT_DIR.mkdir(parents=True, exist_ok=True)
-    trace = OUT_DIR / "prefill_1024_trace.json"
+    trace = OUT_DIR / trace_name
     prof.export_chrome_trace(str(trace))
     events = json.loads(trace.read_text())["traceEvents"]
     device = [e for e in events if e.get("ph") == "X" and e.get("cat") in
               ("kernel", "gpu_memcpy", "gpu_memset")]
     windows = [e for e in events if e.get("ph") == "X"
-               and e.get("name") == "chip_smoke.prefill"
+               and e.get("name") == window
                and e.get("cat") == "user_annotation"]
     if not device or not windows:
         # only a rehearsal on the CPU, with TRACE_ON_DEVICE set to False,
         # gets here without failing
         check(not TRACE_ON_DEVICE,
               f"the profiler traced {len(device)} device events and "
-              f"{len(windows)} prefill windows: busy share not measured")
-        emit(profile={"bucket": 1024, "wall_ms": wall_ms,
-                      "device_events": len(device),
-                      "busy_share": "not measured (the trace holds no "
-                      "device events or no window)"})
-        return
+              f"{len(windows)} {label} windows: busy share not measured")
+        return {"wall_ms": wall_ms, "device_events": len(device),
+                "busy_share": "not measured (the trace holds no device "
+                "events or no window)"}
     lo = float(windows[0]["ts"])
     hi = lo + float(windows[0]["dur"])
     busy = _union_us([(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
                       for e in device], lo, hi)
-    by_name = {}
+    ops = {e["args"]["External id"]: e["name"] for e in events
+           if e.get("cat") == "cpu_op" and "External id" in e.get("args", {})}
+    by_name, by_op = {}, {}
     for e in device:
         if e.get("cat") != "kernel":
             continue
-        tot = by_name.setdefault(e["name"], [0.0, 0])
-        tot[0] += float(e["dur"])
-        tot[1] += 1
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+        for totals, key in ((by_name, e["name"]),
+                            (by_op, ops.get(e.get("args", {}).get(
+                                "External id"), e["name"]))):
+            tot = totals.setdefault(key, [0.0, 0])
+            tot[0] += float(e["dur"])
+            tot[1] += 1
     copies = sum(n for name, (_us, n) in by_name.items()
                  if "copy" in name.lower())
-    kernels = sum(n for _us, n in by_name.values())
-    emit(profile={
-        "bucket": 1024, "wall_ms": wall_ms, "window_us": hi - lo,
-        "device_busy_us": busy, "busy_share": busy / (hi - lo),
-        "kernels": kernels, "copy_kernels": copies,
-        "trace": str(trace.relative_to(ROOT)),
-        "top10": [{"name": name[:160], "us": us, "count": n}
-                  for name, (us, n) in top]})
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
+    return {"wall_ms": wall_ms, "window_us": hi - lo,
+            "device_busy_us": busy, "busy_share": busy / (hi - lo),
+            "kernels": sum(n for _us, n in by_name.values()),
+            "copy_kernels": copies, "trace": str(trace.relative_to(ROOT)),
+            "top_kernels": _top(by_name, top), "top_ops": _top(by_op, top)}
 
 
 def kernel_entry(path, cases, launches):
+    """The kernels-line entry of one forward kernel; ``launches`` maps each
+    main path (serve, train) to its count."""
     rows = [r for r in cases.values() if r["path"] == path]
     main = cases[MAIN_CASE[path]]
     return {
         "name": f"flash_attention_fwd_{path}", "route": "cuda",
         "source": f"deeplearning4j_tpu_torch/kernels/csrc/{SOURCES[path]}",
         "replaces": "deeplearning4j_tpu/kernels/flash_attention.py:41",
-        "launches": launches, "on_main_path": path == "wgmma",
+        "launches": sum(launches.values()), "launches_by_path": launches,
+        "on_main_path": path == "wgmma",
         "max_abs_err": max(r["max_abs_err_o"] for r in rows),
         "ms": main["ms"], "device_ms": main["device_ms"],
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
@@ -501,6 +882,30 @@ def kernel_entry(path, cases, launches):
         "library_device_ms": main["library_device_ms"],
         "at": dict(zip(("layout", "b", "h", "t_q", "t_k", "d", "dtype",
                         "causal"), MAIN_CASE[path]))}
+
+
+def bwd_kernel_entry(cases, launches):
+    """K2's kernels-line entry, its numbers at the training layer. Its
+    ``library_ms`` is SDPA's forward and backward, beside ``fwd_bwd_ms``:
+    K1 + K2 on the same inputs (no one PyTorch call computes the backward
+    alone)."""
+    main = cases[BWD_CASES[0]]
+    return {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": f"deeplearning4j_tpu_torch/kernels/csrc/{SOURCES['bwd']}",
+        "replaces": "deeplearning4j_tpu/kernels/flash_attention.py:153",
+        "launches": sum(launches.values()), "launches_by_path": launches,
+        "on_main_path": True,
+        "max_abs_err": max(e for r in cases.values()
+                           for e in r["max_abs_err"].values()),
+        "ms": main["ms"], "device_ms": main["device_ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+        "library_device_ms": main["library_device_ms"],
+        "fwd_bwd_ms": main["fwd_bwd_ms"],
+        "fwd_bwd_device_ms": main["fwd_bwd_device_ms"],
+        "at": dict(zip(("layout", "b", "h", "t_q", "t_k", "d", "dtype",
+                        "causal"), BWD_CASES[0]))}
 
 
 def main() -> int:
@@ -542,13 +947,26 @@ def main() -> int:
             f"spills at d 64 and 128, ptxas gave {report}")
 
     cases = kernel_phase(torch, fa)
-    engine, _model, (n_wgmma, n_simple) = slice_phase(torch, fa)
-    emit(main_path_launches={"wgmma": n_wgmma, "simple": n_simple})
-    check(n_wgmma > 0, "the main path launched no flash_attention_fwd_wgmma")
-    check(n_simple == 0, "the main path launched the simple kernel")
+    bwd_cases = bwd_phase(torch, fa)
+    head_phase(torch)
+    torch.cuda.empty_cache()
+    engine, _model, serve = slice_phase(torch, fa)
     profile_phase(torch, fa, engine)
-    emit(kernels=[kernel_entry("wgmma", cases, n_wgmma),
-                  kernel_entry("simple", cases, n_simple)])
+    del engine, _model
+    torch.cuda.empty_cache()
+    train, step_ms, for_profile = train_phase(torch, fa)
+    train_profile_phase(torch, fa, step_ms, *for_profile)
+    launches = {name: {"serve": serve[i], "train": train[i]}
+                for i, name in enumerate(("wgmma", "simple", "bwd"))}
+    emit(main_path_launches=launches)
+    check(serve[0] > 0 and train[0] > 0,
+          "a main path launched no flash_attention_fwd_wgmma")
+    check(train[2] > 0, "training launched no flash_attention_bwd")
+    check(serve[1] == 0 and train[1] == 0,
+          "a main path launched the simple kernel")
+    emit(kernels=[kernel_entry("wgmma", cases, launches["wgmma"]),
+                  kernel_entry("simple", cases, launches["simple"]),
+                  bwd_kernel_entry(bwd_cases, launches["bwd"])])
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

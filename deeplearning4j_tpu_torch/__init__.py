@@ -2,10 +2,11 @@
 
 A package of its own beside the JAX one, which stays the reference: it
 imports torch, numpy and the standard library, and nothing of JAX or of
-``deeplearning4j_tpu``. This slice serves ``TransformerLM`` generation
-(prefill + paged KV-cache decode through ``DecodeEngine``) on an NVIDIA
-H100, with prefill attention in a hand-written CUDA flash kernel
-(``kernels/csrc/flash_attention_fwd.cu``).
+``deeplearning4j_tpu``. It serves ``TransformerLM`` generation (prefill +
+paged KV-cache decode through ``DecodeEngine``) and trains it on one
+NVIDIA H100 (``make_train_step`` with ``optim.adamw``), with full-sequence
+attention and its gradient in hand-written CUDA flash kernels
+(``kernels/csrc/``).
 
 Entry points (``TransformerLM``, ``DecodeEngine``, ``from_jax_params``)
 run on the card unless the caller passes ``device="cpu"``; without CUDA

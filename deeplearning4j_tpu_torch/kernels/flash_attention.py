@@ -1,10 +1,12 @@
-"""Flash-attention forward: hand-written CUDA kernels for Hopper.
+"""Flash attention, forward and backward: hand-written CUDA kernels for
+Hopper.
 
 Replace the Pallas TPU kernel ``_attn_fwd_kernel`` (launched through
 ``pl.pallas_call`` in ``_fwd_pallas``) of
-``deeplearning4j_tpu/kernels/flash_attention.py``. Two kernels, chosen
-explicitly by dtype and head dim, each built with ``nvcc`` for ``sm_90a``
-at first use (``_build.py``) and called through ctypes:
+``deeplearning4j_tpu/kernels/flash_attention.py`` and its custom-VJP
+backward ``_bwd_blockwise``. Three sources, each built with ``nvcc`` for
+``sm_90a`` at first use (``_build.py``) and called through ctypes; the
+forward's two kernels are chosen explicitly by dtype and head dim:
 
 - ``csrc/flash_attention_fwd_wgmma.cu`` — bf16 at d = 64 and 128 (the
   model's prefill): ``wgmma`` for both products with scores, P and O in
@@ -16,11 +18,19 @@ at first use (``_build.py``) and called through ctypes:
   TF32) and bf16 at the other head dims (16, 32, 48, 80, 96, 112): WMMA
   through shared memory on contiguous (BH, T, d), 64 query rows per block.
   Strided inputs are made contiguous for it first.
+- ``csrc/flash_attention_bwd.cu`` — the backward (dq, dk, dv) for every
+  dtype and head dim the forwards take, FA2's split into a D pass, a dQ
+  kernel and a dK/dV kernel; bf16 through ``mma.sync`` with the scores in
+  registers, f32 through scalar FMA. It reads and writes strided
+  (B, H, T, d) views, so the fused projection's gradient is written in
+  place.
 
-What bounds them on the H100: per head 4·Tq·Tk·d FLOPs (about half when
-causal) over 2·(Tq + Tk)·d·itemsize bytes, so at d = 64 in bf16 the tensor
-cores bound it above T ≈ 600 and device memory below. ``PERF.md`` holds
-both kernels' times beside the bound.
+What bounds them on the H100: per head 4·Tq·Tk·d FLOPs forward and
+10·Tq·Tk·d backward (about half when causal) over 2·(Tq + Tk)·d·itemsize
+bytes forward and 4·(Tq + Tk)·d·itemsize backward, so in bf16 the tensor
+cores bound the forward above T ≈ 600 and the backward above T ≈ 470
+(about twice that when causal), device memory below. ``PERF.md`` holds
+the kernels' times beside the bound.
 
 Beside the kernels:
 
@@ -32,7 +42,12 @@ Beside the kernels:
   version.
 - :func:`flash_attention` — the JAX signature over (B, T, d) or
   (B, H, T, d), returning o.
-- ``launches_wgmma`` / ``launches_simple`` — launches of each kernel.
+- :func:`flash_attention_bwd_reference` / :func:`flash_attention_bwd` —
+  the backward's plain version and its wrapper, as the forward's.
+- :class:`FlashAttention` — the ``autograd.Function`` the model trains
+  through: the forward kernel, and the backward kernel as its gradient.
+- ``launches_wgmma`` / ``launches_simple`` / ``launches_bwd`` — launches
+  of each wrapper's kernel.
 """
 from __future__ import annotations
 
@@ -50,6 +65,7 @@ _WGMMA_DIMS = (64, 128)
 #: count one run's launches)
 launches_wgmma = 0
 launches_simple = 0
+launches_bwd = 0
 
 _fns = {}
 
@@ -66,6 +82,13 @@ def _kernel(name: str):
                           + [ctypes.c_longlong] * 12
                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
             err = lib.dl4j_flash_wgmma_error_string
+        elif name == "flash_attention_bwd":
+            f = lib.dl4j_flash_attention_bwd
+            f.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                          + [ctypes.POINTER(ctypes.c_longlong),
+                             ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_void_p])
+            err = lib.dl4j_flash_bwd_error_string
         else:
             f = lib.dl4j_flash_attention_fwd
             f.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
@@ -141,32 +164,44 @@ def _check(q, k, v, out):
                          f"{q.dtype} on {q.device}")
 
 
+def _outer_strides(t: torch.Tensor):
+    """(b, h, t) strides and sizes of a (B, H, T, d) or (BH, T, d) view."""
+    st, shape = t.stride(), t.shape
+    if len(st) == 3:
+        return (st[0], st[0], st[1]), (shape[0], 1, shape[1])
+    return st[:3], shape[:3]
+
+
+def _layout_error(t: torch.Tensor) -> Optional[str]:
+    """Why the kernels cannot read ``t`` through its strides, or None."""
+    if t.stride(-1) != 1:
+        return (f"needs unit stride on the head dim (strides "
+                f"{tuple(t.stride())})")
+    if t.data_ptr() % 16:
+        return "does not start on a 16-byte boundary"
+    item = t.element_size()
+    for stride, size in zip(*_outer_strides(t)):
+        if size > 1 and (stride <= 0 or stride * item % 16):
+            return (f"strides {tuple(t.stride())} (elements) must be "
+                    f"positive multiples of 16 bytes outside the head dim")
+    return None
+
+
+def _strided_operand(fn: str, name: str, t: torch.Tensor
+                     ) -> Tuple[int, int, int, int]:
+    err = _layout_error(t)
+    if err is not None:
+        raise ValueError(f"{fn}: {name} {err}")
+    return (t.data_ptr(), *_outer_strides(t)[0])
+
+
 def tma_operand(name: str, t: torch.Tensor) -> Tuple[int, int, int, int]:
     """(data_ptr, stride_b, stride_h, stride_t) in elements of a
     (B, H, T, d) view, or of a (BH, T, d) one taken as (BH, 1, T, d), that
     the wgmma kernel reads or writes as it is. Raises ValueError unless it
     has unit stride on d, a 16-byte aligned start, and every other stride
     of a dim longer than 1 a positive multiple of 16 bytes (TMA's rule)."""
-    st, shape = t.stride(), t.shape
-    if st[-1] != 1:
-        raise ValueError(f"flash_attention_fwd: {name} needs unit stride on "
-                         f"the head dim (strides {tuple(st)})")
-    ptr = t.data_ptr()
-    if ptr % 16:
-        raise ValueError(f"flash_attention_fwd: {name} does not start on a "
-                         f"16-byte boundary")
-    if len(st) == 3:
-        outer, sizes = (st[0], st[0], st[1]), (shape[0], 1, shape[1])
-    else:
-        outer, sizes = st[:3], shape[:3]
-    item = t.element_size()
-    for size, stride in zip(sizes, outer):
-        if size > 1 and (stride <= 0 or stride * item % 16):
-            raise ValueError(
-                f"flash_attention_fwd: {name} strides {tuple(st)} "
-                f"(elements) must be positive multiples of 16 bytes outside "
-                f"the head dim")
-    return (ptr, *outer)
+    return _strided_operand("flash_attention_fwd", name, t)
 
 
 def wgmma_args(q, k, v, o, lse, causal: bool, scale: float) -> tuple:
@@ -259,3 +294,150 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Attention over (B, T, d) or (B, H, T, d) tensors; o. ``scale``
     defaults to 1/sqrt(d)."""
     return flash_attention_fwd(q, k, v, causal, scale)[0]
+
+
+# ------------------------------------------------------------- backward
+def flash_attention_bwd_reference(q, k, v, o, lse, do, causal: bool = False,
+                                  scale: Optional[float] = None):
+    """Plain PyTorch version of the backward over (..., T, d), with the
+    rounding points of the JAX ``_bwd_blockwise``: D = rowsum(f32 dO ∘ f32
+    O); p = exp(s − lse) in f32 from f32 scores (masked keys at the −1e30
+    sentinel give exactly 0); dV = p cast to v's dtype, times dO; dP =
+    dO·Vᵀ; dS = p ∘ (dP − D) cast to q's dtype; dQ = scale·dS·K and dK =
+    scale·dSᵀ·Q; every product accumulated in f32. Returns (dq, dk, dv) in
+    the dtypes of q, k, v."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    delta = (dof * o.float()).sum(-1, keepdim=True)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    if causal:
+        t_q, t_k = s.shape[-2], s.shape[-1]
+        keep = (torch.arange(t_q, device=s.device)[:, None]
+                >= torch.arange(t_k, device=s.device)[None, :])
+        s = torch.where(keep, s, torch.full_like(s, _NEG_INF))
+    p = torch.exp(s - lse.float()[..., None])
+    dv = torch.matmul(p.to(v.dtype).float().transpose(-1, -2), dof)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = (p * (dp - delta)).to(q.dtype).float()
+    dq = scale * torch.matmul(ds, kf)
+    dk = scale * torch.matmul(ds.transpose(-1, -2), qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def bwd_args(q, k, v, o, lse, do, dq, dk, dv, delta) -> tuple:
+    """Pointers, sizes and the 24 strides (b, h, t for q, k, v, o, dO, dq,
+    dk, dv) of ``dl4j_flash_attention_bwd`` (no launch; scale, causal and
+    dtype follow). Every operand must meet :func:`tma_operand`'s rule."""
+    names = ("q", "k", "v", "o", "do", "dq", "dk", "dv")
+    ops = [_strided_operand("flash_attention_bwd", n, t)
+           for n, t in zip(names, (q, k, v, o, do, dq, dk, dv))]
+    b, h = (q.shape[0], 1) if q.dim() == 3 else (q.shape[0], q.shape[1])
+    strides = [s for op in ops for s in op[1:]]
+    return ((*(op[0] for op in ops[:5]), lse.data_ptr(),
+             *(op[0] for op in ops[5:]), delta.data_ptr(),
+             b, h, q.shape[-2], k.shape[-2], q.shape[-1]), strides)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
+                        scale: Optional[float] = None,
+                        out: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor]] = None):
+    """(dq, dk, dv) of attention for the forward's (q, k, v, o, lse) and
+    the output gradient ``do``, over (BH, T, d) or (B, H, T, d). ``out``,
+    if given, is three views of q's, k's and v's shapes that receive the
+    gradients (and are returned).
+
+    A CUDA tensor launches ``csrc/flash_attention_bwd.cu`` (or raises):
+    the operands are read through their strides where they meet
+    :func:`tma_operand`'s rule and from contiguous copies where not; the
+    views in ``out`` must meet it. A CPU tensor takes
+    :func:`flash_attention_bwd_reference`."""
+    global launches_bwd
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        grads = flash_attention_bwd_reference(q, k, v, o, lse, do, causal,
+                                              scale)
+        if out is None:
+            return grads
+        return tuple(dst.copy_(g) for dst, g in zip(out, grads))
+    _check(q, k, v, None)
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"flash_attention_bwd: {name} {tuple(t.shape)} "
+                             f"{t.dtype} must match q {tuple(q.shape)} "
+                             f"{q.dtype} on {q.device}")
+    if lse.shape != q.shape[:-1] or lse.dtype != torch.float32 \
+            or lse.device != q.device:
+        raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} "
+                         f"{lse.dtype} must be float32 of shape "
+                         f"{tuple(q.shape[:-1])}")
+    if out is None:
+        out = tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                    for t in (q, k, v))
+    for name, dst, like in zip(("dq", "dk", "dv"), out, (q, k, v)):
+        if dst.shape != like.shape or dst.dtype != like.dtype \
+                or dst.device != like.device:
+            raise ValueError(f"flash_attention_bwd: {name} "
+                             f"{tuple(dst.shape)} {dst.dtype} must match "
+                             f"{tuple(like.shape)} {like.dtype}")
+    q, k, v, o, do = (t if _layout_error(t) is None else t.contiguous()
+                      for t in (q, k, v, o, do))
+    b_h = q.shape[0] * (1 if q.dim() == 3 else q.shape[1])
+    if b_h > 65535:
+        raise ValueError(f"flash_attention_bwd: B·H = {b_h} > 65535")
+    delta = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
+    args, strides = bwd_args(q, k, v, o, lse.contiguous(), do, *out, delta)
+    _call("flash_attention_bwd",
+          (*args, (ctypes.c_longlong * 24)(*strides), float(scale),
+           int(bool(causal)), _SIMPLE_DTYPES[q.dtype]), q.device)
+    launches_bwd += 1
+    return out
+
+
+def _heads(x, n_heads):
+    """(q, k, v) as (B, H, T, hd) views of one (B, T, 3C) projection or of
+    three (B, T, C) ones."""
+    if len(x) == 1:
+        x = torch.split(x[0], x[0].shape[-1] // 3, dim=-1)
+    b, t, c = x[0].shape
+    return tuple(a.view(b, t, n_heads, c // n_heads).transpose(1, 2)
+                 for a in x)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable attention in the model's layout: ``apply(n_heads,
+    causal, scale, qkv)`` for the fused (B, T, 3C) projection, or
+    ``apply(n_heads, causal, scale, q, k, v)`` for three (B, T, C) ones;
+    returns o as (B, T, C).
+
+    Forward: :func:`flash_attention_fwd` on the (B, H, T, hd) views, o
+    written through the (B, H, T, hd) view of a (B, T, H, hd) buffer.
+    Backward: :func:`flash_attention_bwd`, the gradients written straight
+    into one buffer shaped like each input (for the fused projection, one
+    (B, T, 3C) gradient), so nothing is copied or concatenated around the
+    kernels. Both look up the module's functions at call time."""
+
+    @staticmethod
+    def forward(ctx, n_heads, causal, scale, *x):
+        q, k, v = _heads(x, n_heads)
+        b, h, t, hd = q.shape
+        o = torch.empty((b, t, h, hd), dtype=q.dtype, device=q.device)
+        _o, lse = flash_attention_fwd(q, k, v, causal, scale,
+                                      out=o.transpose(1, 2))
+        ctx.save_for_backward(*x, o, lse)
+        ctx.n_heads, ctx.causal, ctx.scale = n_heads, causal, scale
+        return o.view(b, t, h * hd)
+
+    @staticmethod
+    def backward(ctx, do):
+        *x, o, lse = ctx.saved_tensors
+        dx = [torch.empty(a.shape, dtype=a.dtype, device=a.device)
+              for a in x]
+        b, t, h, hd = o.shape
+        flash_attention_bwd(*_heads(x, ctx.n_heads), o.transpose(1, 2), lse,
+                            do.reshape(b, t, h, hd).transpose(1, 2),
+                            ctx.causal, ctx.scale,
+                            out=_heads(dx, ctx.n_heads))
+        return (None, None, None, *dx)

@@ -1,19 +1,24 @@
 """TransformerLM — the decoder-only LM of ``deeplearning4j_tpu``, in PyTorch.
 
-Counterpart of ``deeplearning4j_tpu/models/transformer.py`` for the
-serving slice: inference forward (``apply``), ``prefill``, the dense and
-paged KV-cache decode steps, and the cache layouts. Parameters are a plain
-dict in the JAX package's layout (``init_params``): weights stored
-``(in, out)`` and used as raw matmul operands, f32 master weights cast to
-``config.dtype`` for compute (``_cast_params``), logits in f32 from
+Counterpart of ``deeplearning4j_tpu/models/transformer.py`` on one
+device: the forward (``apply``), ``prefill``, the dense and paged KV-cache
+decode steps and the cache layouts, and training (``loss_fn``,
+``loss_and_grads``, ``make_train_step``). Parameters are a plain dict in
+the JAX package's layout (``init_params``): weights stored ``(in, out)``
+and used as raw matmul operands, f32 master weights cast to
+``config.dtype`` for compute by a differentiable cast (``_cast_params``),
+so gradients land on the f32 masters, and logits in f32 from
 f32-accumulated products.
 
-Prefill attention runs in the CUDA flash kernel on the card and in its
-plain version on the CPU (``kernels/flash_attention.py``); the JAX
+Full-sequence attention runs in the CUDA flash kernels on the card, the
+forward and its backward under one ``autograd.Function``, and in their
+plain versions on the CPU (``kernels/flash_attention.py``); the JAX
 package's TPU crossover policy is not carried over. Decode attention is
 plain tensor code, as in the JAX package. The decode steps update the
 cache tensors in place (the JAX functions return new arrays) and return
-them, so a caller keeps one cache allocation for a whole generation.
+them, so a caller keeps one cache allocation for a whole generation; the
+train step updates params and optimizer state in place (the JAX step
+donates them).
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ import torch.nn.functional as F
 from deeplearning4j_tpu_torch._device import resolve_device
 from deeplearning4j_tpu_torch.kernels import flash_attention as fa
 from deeplearning4j_tpu_torch.ops.moments import one_pass_moments
+from deeplearning4j_tpu_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _NEG_INF = -1e30
@@ -40,13 +46,15 @@ class TransformerConfig:
     d_model: int = 128
     d_ff: Optional[int] = None
     max_len: int = 256
-    dropout: float = 0.0              # training only; inference ignores it
+    dropout: float = 0.0              # training with an rng only: not
+                                      # ported (raises there)
     dtype: Any = torch.float32        # torch.float32 / torch.bfloat16 or
                                       # the strings "float32" / "bfloat16"
     causal: bool = True
     scan_layers: bool = False         # a storage layout of the JAX params
                                       # only; from_jax_params unstacks it
     fused_qkv: bool = False
+    remat: bool = False
     moe: Any = None
     pipeline_stages: int = 0
     ce_chunks: int = 0
@@ -65,7 +73,8 @@ class TransformerConfig:
         if self.dtype not in _DTYPES.values():
             raise ValueError(f"dtype must be torch.float32 or "
                              f"torch.bfloat16, got {self.dtype}")
-        for name, on in (("moe", self.moe is not None),
+        for name, on in (("remat", self.remat),
+                         ("moe", self.moe is not None),
                          ("pipeline_stages", self.pipeline_stages > 1),
                          ("ce_chunks", bool(self.ce_chunks))):
             if on:
@@ -74,12 +83,25 @@ class TransformerConfig:
                     "(see ROADMAP.md, queue 1)")
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_tree_map(fn, v) for v in tree]
-    return fn(tree)
+class _TiedHead(torch.autograd.Function):
+    """bf16 x (B, T, C) times bf16 eᵀ into f32 logits on the card, the
+    JAX head's ``preferred_element_type=f32`` (``aten::mm.dtype``: f32
+    accumulation and output). The backward casts dlogits to bf16 before
+    its two products, as the JAX package's ``chunked_ce._bwd`` does."""
+
+    @staticmethod
+    def forward(ctx, x, e):
+        ctx.save_for_backward(x, e)
+        return torch.mm(x.reshape(-1, x.shape[-1]), e.t(),
+                        out_dtype=torch.float32).view(*x.shape[:-1],
+                                                      e.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, e = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1]).to(x.dtype)
+        return ((g2 @ e).view(x.shape),
+                g2.t() @ x.reshape(-1, x.shape[-1]))
 
 
 class TransformerLM:
@@ -105,7 +127,7 @@ class TransformerLM:
         """The mixed-precision cast: f32 master params, compute in
         ``config.dtype``. Already-cast params pass through unchanged."""
         dt = self.config.dtype
-        return _tree_map(
+        return tree_map(
             lambda a: a.to(dt) if a.is_floating_point() and a.dtype != dt
             else a, params)
 
@@ -118,33 +140,41 @@ class TransformerLM:
         y = y * p["g"].float() + p["b"].float()
         return y.to(x.dtype)
 
+    @staticmethod
+    def _proj(p, x):
+        """The attention projection of x (B, T, C): ``(x @ wqkv,)`` when
+        fused, else ``(x @ wq, x @ wk, x @ wv)``."""
+        if "wqkv" in p:
+            return (x @ p["wqkv"],)
+        return (x @ p["wq"], x @ p["wk"], x @ p["wv"])
+
     def _qkv(self, p, x):
         """(B, T, C) → (B, T, H, hd) q, k, v, fused or unfused."""
         c = self.config
         b, t, _ = x.shape
-        h, hd = c.n_heads, c.d_model // c.n_heads
-        if "wqkv" in p:
-            q, k, v = torch.split(x @ p["wqkv"], c.d_model, dim=-1)
-        else:
-            q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
-        return (q.reshape(b, t, h, hd), k.reshape(b, t, h, hd),
-                v.reshape(b, t, h, hd))
+        xs = self._proj(p, x)
+        if len(xs) == 1:
+            xs = torch.split(xs[0], c.d_model, dim=-1)
+        return tuple(a.reshape(b, t, c.n_heads, c.d_model // c.n_heads)
+                     for a in xs)
 
     def _attn(self, p, x):
-        """Full-sequence attention: the flash kernel on the card, its
-        plain version on the CPU. The kernel reads q, k, v as (B, H, T, hd)
-        views of the projection and writes o into a (B, T, H, hd) buffer
-        through its (B, H, T, hd) view, so no copy is made around it.
-        Returns (out, k, v)."""
+        """Full-sequence attention through ``fa.FlashAttention``: the
+        flash kernels on the card (forward, and backward when a gradient
+        is taken), their plain versions on the CPU. The kernels read q, k,
+        v as (B, H, T, hd) views of the projection, write o through a view
+        of a (B, T, H, hd) buffer and the gradient straight into one buffer
+        shaped like the projection, so no copy is made around them.
+        Returns (out, k, v), k and v as (B, T, H, hd) views."""
         c = self.config
         b, t, _ = x.shape
-        q, k, v = self._qkv(p, x)
-        o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-        fa.flash_attention_fwd(q.transpose(1, 2), k.transpose(1, 2),
-                               v.transpose(1, 2), c.causal,
-                               out=o.transpose(1, 2))
-        out = o.view(b, t, c.d_model) @ p["wo"]
-        return out, k, v
+        h, hd = c.n_heads, c.d_model // c.n_heads
+        xs = self._proj(p, x)
+        kv = (torch.split(xs[0], c.d_model, dim=-1) if len(xs) == 1
+              else xs)[1:]
+        o = fa.FlashAttention.apply(h, c.causal, 1.0 / math.sqrt(hd), *xs)
+        k, v = (a.view(b, t, h, hd) for a in kv)
+        return o @ p["wo"], k, v
 
     def _ffn(self, blk, h):
         hdn = F.gelu(h @ blk["mlp"]["w_up"] + blk["mlp"]["b_up"],
@@ -153,11 +183,21 @@ class TransformerLM:
 
     def _head(self, params, x):
         """Tied LM head: f32 logits from f32-accumulated products of the
-        compute-dtype operands (the JAX ``preferred_element_type=f32``)."""
-        return torch.matmul(x.float(), params["tok_emb"].float().T)
+        compute-dtype operands (the JAX ``preferred_element_type=f32``):
+        on the card a bf16 product with f32 output (``_TiedHead``), else
+        the exact f32 cast of both operands (the CPU build has no
+        ``mm.dtype``)."""
+        e = params["tok_emb"]
+        if x.is_cuda and x.dtype == torch.bfloat16:
+            return _TiedHead.apply(x, e)
+        return torch.matmul(x.float(), e.float().T)
 
-    def _forward(self, params, tokens, keep_kv: bool):
+    def _forward(self, params, tokens, keep_kv: bool, rng=None):
         c = self.config
+        if rng is not None and c.dropout > 0.0:
+            raise NotImplementedError(
+                "dropout in training is not ported yet (see ROADMAP.md, "
+                "queue 1)")
         params = self._cast_params(params)
         tokens = tokens.long()
         t = tokens.shape[1]
@@ -174,9 +214,69 @@ class TransformerLM:
         logits = self._head(params, self._ln(params["ln_f"], x))
         return logits, ks, vs
 
-    def apply(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens (B, T) → logits (B, T, V) f32 (inference: no dropout)."""
-        return self._forward(params, tokens, keep_kv=False)[0]
+    def apply(self, params, tokens: torch.Tensor, rng=None) -> torch.Tensor:
+        """tokens (B, T) → logits (B, T, V) f32. ``rng`` asks for dropout
+        (training mode), which raises while ``config.dropout > 0``: it is
+        not ported."""
+        return self._forward(params, tokens, keep_kv=False, rng=rng)[0]
+
+    # ---------------------------------------------------------- training
+    def loss_fn(self, params, tokens, targets, rng=None,
+                with_aux: bool = False):
+        """Mean token cross-entropy of ``apply``'s f32 logits against
+        ``targets`` (B, T): logsumexp minus the target logit, as the JAX
+        ``loss_fn`` with ``ce_chunks=0``. With ``with_aux``, (loss, aux)
+        with the JAX aux keys (the MoE entries are zeros for the dense
+        FFN)."""
+        logits = self.apply(params, tokens, rng)
+        correct = logits.gather(-1, targets.long()[..., None])[..., 0]
+        loss = (torch.logsumexp(logits, dim=-1) - correct).mean()
+        if not with_aux:
+            return loss
+        zero = torch.zeros((), dtype=torch.float32, device=loss.device)
+        return loss, {"lm_loss": loss, "moe_aux_loss": zero,
+                      "moe_dropped_fraction": zero,
+                      "moe_expert_fraction": torch.zeros(
+                          (0,), dtype=torch.float32, device=loss.device)}
+
+    def loss_and_grads(self, params, tokens, targets, rng=None,
+                       with_aux: bool = False):
+        """``jax.value_and_grad(loss_fn)``: (loss, grads) — or ((loss,
+        aux), grads) with ``with_aux`` — with grads a tree shaped like
+        ``params`` (f32, the masters' dtype). ``params`` are left as they
+        are (no ``requires_grad`` on them); the loss is a device tensor."""
+        leaves = [a.detach().requires_grad_() for a in tree_leaves(params)]
+        with torch.enable_grad():
+            out = self.loss_fn(tree_unflatten(params, leaves), tokens,
+                               targets, rng, with_aux)
+            loss = out[0] if with_aux else out
+            grads = torch.autograd.grad(loss, leaves)
+        grads = tree_unflatten(params, grads)
+        if with_aux:
+            return (loss.detach(), {k: a.detach() for k, a in
+                                    out[1].items()}), grads
+        return loss.detach(), grads
+
+    def make_train_step(self, optimizer, return_metrics: bool = False):
+        """``step(params, opt_state, tokens, targets, rng=None) → (params,
+        opt_state, loss)`` — or a metrics dict (``loss``, ``lm_loss`` and
+        the MoE aux entries) in place of the loss with
+        ``return_metrics``. One forward and backward and an optax-style
+        ``optimizer`` update (``deeplearning4j_tpu_torch.optim.adamw``);
+        params and the optimizer's state are updated in place and
+        returned, and the loss stays on the device (no host sync)."""
+        from deeplearning4j_tpu_torch.optim.adamw import apply_updates
+
+        def step(params, opt_state, tokens, targets, rng=None):
+            out, grads = self.loss_and_grads(params, tokens, targets, rng,
+                                             with_aux=return_metrics)
+            updates, opt_state = optimizer.update(grads, opt_state, params)
+            params = apply_updates(params, updates)
+            if return_metrics:
+                loss, aux = out
+                return params, opt_state, {"loss": loss, **aux}
+            return params, opt_state, out
+        return step
 
     # ---------------------------------------------- prefill / decode
     def init_cache(self, batch: int, max_len: int,

@@ -6,8 +6,12 @@ dicts/lists of numpy arrays (``jax.tree.map(np.asarray, params)`` gives
 it) and returns the port's params: the same dict layout, f32 torch
 tensors on one device, blocks always as a per-layer list (the JAX
 ``scan_layers`` storage stacks every block leaf on a leading layer axis;
-it is unstacked here). ``init_jax_layout`` draws a random tree in that
-layout with numpy, so both packages can be handed the same weights.
+it is unstacked here). ``to_jax_params`` goes the other way, so params
+trained in either package can be compared or carried on in the other;
+``adamw_state_to_numpy`` / ``adamw_state_from_numpy`` do the same for
+AdamW's moments.
+``init_jax_layout`` draws a random tree in that layout with numpy, so both
+packages can be handed the same weights.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch._device import resolve_device
+from deeplearning4j_tpu_torch.optim.adamw import AdamWState
 
 
 def _block_layout(c, normal) -> Dict:
@@ -116,3 +121,44 @@ def from_jax_params(tree: Dict, config,
             "pos_emb": to_t(tree["pos_emb"]),
             "ln_f": conv(tree["ln_f"]),
             "blocks": [conv(b) for b in blocks]}
+
+
+def to_jax_params(params: Dict, config) -> Dict:
+    """The port's params (or any tree in their layout, such as AdamW's
+    moments) → numpy f32 leaves in the JAX ``init_params`` layout, block
+    leaves stacked on a leading layer axis when ``config.scan_layers``:
+    the inverse of :func:`from_jax_params`."""
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        return t.detach().to("cpu", torch.float32).numpy()
+
+    blocks = [conv(b) for b in params["blocks"]]
+    if len(blocks) != config.n_layers:
+        raise ValueError(f"params have {len(blocks)} blocks, config says "
+                         f"n_layers={config.n_layers}")
+    if config.scan_layers and blocks:
+        blocks = _stack(blocks)
+    return {"tok_emb": conv(params["tok_emb"]),
+            "pos_emb": conv(params["pos_emb"]),
+            "ln_f": conv(params["ln_f"]), "blocks": blocks}
+
+
+def adamw_state_to_numpy(state: AdamWState, config) -> Dict:
+    """``{"count", "mu", "nu"}``, the fields of optax's
+    ``ScaleByAdamState``, with mu and nu as numpy trees in the JAX param
+    layout (:func:`to_jax_params`)."""
+    return {"count": np.int32(state.count),
+            "mu": to_jax_params(state.mu, config),
+            "nu": to_jax_params(state.nu, config)}
+
+
+def adamw_state_from_numpy(tree: Dict, config,
+                           device: Optional[Union[str, torch.device]] = None
+                           ) -> AdamWState:
+    """The inverse of :func:`adamw_state_to_numpy` (``device=None`` means
+    the card); also takes optax's ``ScaleByAdamState`` fields read into a
+    dict of numpy leaves."""
+    return AdamWState(int(tree["count"]),
+                      from_jax_params(tree["mu"], config, device),
+                      from_jax_params(tree["nu"], config, device))

@@ -29,6 +29,89 @@ def test_bound_counts_only_kept_causal_pairs():
         1e3 * 4.0 * 16 * 64 * 512 * 1024 / chip_smoke.PEAK_FLOPS["bfloat16"])
 
 
+def test_bwd_bound_at_the_training_shape():
+    """B 8 × H 16, T 1024, d 64, bf16, causal: 10·d FLOPs per kept pair
+    (five products) = 43.0 GFLOP against 134.7 MB (q, k, v, o, dO, dq,
+    dk, dv and lse), so the tensor cores bound it."""
+    ms, by = chip_smoke.attention_bwd_bound_ms(128, 1024, 1024, 64,
+                                               "bfloat16", True)
+    flops = 10.0 * 128 * 64 * (1024 * 1025 // 2)
+    assert by == "operations"
+    assert ms == pytest.approx(1e3 * flops / 989e12)
+    assert ms == pytest.approx(0.04347, rel=1e-3)
+
+
+def test_bwd_bound_counts_eight_tensors_and_lse():
+    # Tq 3, Tk 2, non-causal, f32: memory bounds a tiny call
+    ms, by = chip_smoke.attention_bwd_bound_ms(2, 3, 2, 16, "float32", False)
+    nbytes = 4 * 2 * 16 * 4 * (3 + 2) + 4 * 2 * 3
+    assert by == "bytes"
+    assert ms == pytest.approx(1e3 * nbytes / chip_smoke.PEAK_BYTES)
+    causal_ms, by = chip_smoke.attention_bwd_bound_ms(
+        16, 2048, 4096, 64, "bfloat16", True)
+    # causal rows of Tq 2048 over Tk 4096 keep 1..2048 keys
+    assert by == "operations"
+    assert causal_ms == pytest.approx(
+        1e3 * 10.0 * 16 * 64 * (2048 * 2049 // 2) / 989e12)
+
+
+def test_train_flops_per_token_is_bench_s_count():
+    # 6·N + 6·L·T·d: at the bench's large config (185,710,592 params, 12
+    # layers, T 1024, d 1024) 1.19 GFLOP a token
+    assert chip_smoke.train_flops_per_token(100, 2, 8, 4) == 600 + 6 * 64
+    assert chip_smoke.train_flops_per_token(185_710_592, 12, 1024, 1024) \
+        == 1_189_761_024
+
+
+def test_tile_rel_l2_sees_a_wrong_tail_tile():
+    """A gradient wrong only on its last (ragged) 64-row tile along T fails
+    the tile check at full weight, though its largest entries are right."""
+    import torch
+    g = torch.Generator().manual_seed(0)
+    ref = torch.randn((2, 4, 130, 16), generator=g)
+    ref[..., :64, :] *= 100.0            # large first rows, as at causal key 0
+    assert chip_smoke.tile_rel_l2(ref, ref, 1e-3) == 0.0
+    bad = ref.clone()
+    bad[..., 128:, :] *= 1.1
+    assert chip_smoke.tile_rel_l2(bad, ref, 1e-3) == pytest.approx(0.1,
+                                                                   rel=1e-5)
+    whole = ((bad - ref).norm() / ref.norm()).item()
+    assert whole < 1e-3                  # a whole-tensor norm hides it
+    # the (B, H, T, d) view of a (B, T, H, d) buffer is split along T too
+    view = bad.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not view.is_contiguous()
+    assert chip_smoke.tile_rel_l2(view, ref, 1e-3) == pytest.approx(
+        0.1, rel=1e-5)
+
+
+def test_tile_rel_l2_floors_a_tile_that_cancels_to_zero():
+    import torch
+    ref = torch.zeros((1, 1, 64))
+    x = torch.full((1, 1, 64), 3e-7)
+    # the error over an rms floor of 1e-3: 3e-7 / 1e-3
+    assert chip_smoke.tile_rel_l2(x, ref, 1e-3) == pytest.approx(3e-4)
+
+
+def test_plain_attention_swaps_the_kernels_out_and_back():
+    import torch
+
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+    kernels = fa.flash_attention_fwd, fa.flash_attention_bwd
+    x = torch.randn((2, 9, 3 * 32), generator=torch.Generator()
+                    .manual_seed(0)).requires_grad_()
+    o = fa.FlashAttention.apply(2, True, 0.25, x)
+    (want,) = torch.autograd.grad(o.square().sum(), x)
+    with pytest.raises(RuntimeError, match="inside"):
+        with chip_smoke.plain_attention(fa):
+            assert (fa.flash_attention_fwd, fa.flash_attention_bwd) != \
+                kernels
+            o = fa.FlashAttention.apply(2, True, 0.25, x)
+            (got,) = torch.autograd.grad(o.square().sum(), x)
+            raise RuntimeError("inside")
+    assert (fa.flash_attention_fwd, fa.flash_attention_bwd) == kernels
+    torch.testing.assert_close(got, want)
+
+
 @pytest.mark.parametrize("intervals,lo,hi,want", [
     ([(0, 5), (3, 8), (10, 12), (11, 20)], 1, 15, 12.0),
     ([(2, 3), (2, 3)], 0, 10, 1.0),

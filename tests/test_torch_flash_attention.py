@@ -1,4 +1,5 @@
-"""The port's flash-attention forward against the JAX package's.
+"""The port's flash attention, forward and backward, against the JAX
+package's (the backward's tolerances are stated with its tests below).
 
 On the CPU the port's ``flash_attention`` takes its plain version
 (``flash_attention_reference``); it is held here against the JAX Pallas
@@ -20,6 +21,7 @@ import math
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -187,3 +189,140 @@ def test_wgmma_layout_rejects_what_tma_cannot_read(bad, match):
     ok = torch.zeros((1, 2, 8, 64), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match=match):
         fa.wgmma_args(ok, ok, x, ok, torch.empty((1, 2, 8)), True, 1.0)
+
+
+# ------------------------------------------------------------- backward
+# Plain K2 against the JAX ``_bwd_blockwise`` on identical (q, k, v, o, lse,
+# dO) from the JAX forward: f32 atol 1e-5 (f32 sums in another order), bf16
+# atol 2e-2 (bf16 products exact in f32 on both sides, but dq/dk/dv are
+# rounded to bf16 after sums taken in another order: half an ulp at |g| ~ 2-4
+# is 8e-3).
+def _jax_bwd(q, k, v, do, causal, block=16, scale=None):
+    from deeplearning4j_tpu.kernels.flash_attention import _bwd_blockwise
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+    jq, jk, jv, jdo = (jnp.asarray(a) for a in (q, k, v, do))
+    o, lse = _fwd_pallas(jq, jk, jv, scale, causal, block, block,
+                         interpret=True)
+    grads = _bwd_blockwise(jq, jk, jv, o, lse, jdo, scale, causal, block)
+    return o, lse, [np.asarray(g.astype(jnp.float32)) for g in grads]
+
+
+@pytest.mark.parametrize("causal,t_q,t_k,block", [
+    (True, 64, 64, 16), (False, 64, 64, 16),
+    (True, 50, 50, 16),              # ragged T, a ragged last key block
+    (False, 40, 23, 8),              # Tq != Tk, several small key blocks
+    (True, 30, 70, 32),              # causal Tq < Tk: keys nobody sees
+    (False, 9, 9, 64)])              # one block longer than T
+def test_bwd_reference_matches_jax_blockwise_f32(causal, t_q, t_k, block):
+    q, k, v = _inputs((3, t_q, 16), t_k, seed=t_q + t_k)
+    do = np.random.default_rng(9).standard_normal(q.shape, dtype=np.float32)
+    o, lse, want = _jax_bwd(q, k, v, do, causal, block)
+    got = fa.flash_attention_bwd_reference(
+        *(torch.from_numpy(np.array(a)) for a in (q, k, v, o, lse, do)),
+        causal)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), w, atol=F32_ATOL)
+    if causal and t_k > t_q:
+        assert not got[1][:, t_q:].any() and not got[2][:, t_q:].any()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bwd_reference_matches_jax_blockwise_bf16(causal):
+    q, k, v = (a.astype(jnp.bfloat16) for a in _inputs((2, 50, 32), seed=8))
+    do = np.random.default_rng(10).standard_normal(
+        q.shape, dtype=np.float32).astype(jnp.bfloat16)
+    o, lse, want = _jax_bwd(q, k, v, do, causal)
+    to_t = (lambda a: torch.from_numpy(np.array(a, np.float32))
+            .to(torch.bfloat16))
+    got = fa.flash_attention_bwd_reference(
+        to_t(q), to_t(k), to_t(v), to_t(o),
+        torch.from_numpy(np.array(lse)), to_t(do), causal)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_allclose(g.float().numpy(), w, atol=BF16_ATOL)
+
+
+@pytest.mark.parametrize("causal,fused", [(True, True), (False, True),
+                                          (True, False)])
+def test_autograd_function_matches_jax_vjp(causal, fused):
+    """``fa.FlashAttention`` over the model's (B, T, ·) projections, the
+    gradient landing in one buffer shaped like each input, against
+    ``jax.vjp`` of the JAX ``flash_attention`` (Pallas interpret mode)."""
+    b, t, h, hd = 2, 37, 2, 16
+    c = h * hd
+    rng = np.random.default_rng(11)
+    qkv = rng.standard_normal((b, t, 3 * c), dtype=np.float32)
+    g_o = rng.standard_normal((b, t, c), dtype=np.float32)
+
+    def heads(a):                                   # (B, T, C) → (B, H, T, hd)
+        return a.reshape(b, t, h, hd).transpose(0, 2, 1, 3)
+
+    jq, jk, jv = (heads(jnp.asarray(a)) for a in np.split(qkv, 3, -1))
+    o_j, vjp = jax.vjp(lambda q, k, v: flash_attention(
+        q, k, v, causal=causal, block_q=16, block_k=16), jq, jk, jv)
+    want = [np.asarray(g.transpose(0, 2, 1, 3).reshape(b, t, c))
+            for g in vjp(heads(jnp.asarray(g_o)))]
+    want_o = np.asarray(o_j.transpose(0, 2, 1, 3).reshape(b, t, c))
+
+    x = torch.from_numpy(qkv)
+    xs = ((x.clone().requires_grad_(),) if fused else
+          tuple(a.clone().requires_grad_() for a in torch.split(x, c, -1)))
+    o = fa.FlashAttention.apply(h, causal, 1.0 / math.sqrt(hd), *xs)
+    assert o.shape == (b, t, c)
+    np.testing.assert_allclose(o.detach().numpy(), want_o, atol=F32_ATOL)
+    o.backward(torch.from_numpy(g_o))
+    got = (torch.split(xs[0].grad, c, -1) if fused
+           else [a.grad for a in xs])
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w, atol=F32_ATOL)
+
+
+def test_bwd_wrapper_cpu_writes_out_views_and_counts_nothing():
+    b, t, h, hd = 2, 20, 2, 32
+    qkv, q, k, v, _o = _fused_qkv_views(b, t, h, hd, torch.float32)
+    qkv.normal_(generator=torch.Generator().manual_seed(0))
+    o, lse = fa.flash_attention_fwd(q, k, v, True)
+    do = torch.randn(o.shape, generator=torch.Generator().manual_seed(1))
+    dqkv = torch.full_like(qkv, float("nan"))
+    views = tuple(x.reshape(b, t, h, hd).transpose(1, 2)
+                  for x in torch.split(dqkv, h * hd, dim=-1))
+    fa.launches_bwd = 0
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, True, out=views)
+    assert fa.launches_bwd == 0
+    assert all(g is w for g, w in zip(got, views))
+    assert not dqkv.isnan().any()
+    ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, True)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), r.numpy())
+
+
+def test_bwd_args_on_fused_views_read_the_gradient_buffer_in_place():
+    """The launch arguments the card path builds for the model's backward:
+    q/k/v and dq/dk/dv are the three column blocks of one (B, T, 3C)
+    tensor each, dO the (B, H, T, hd) view of a (B, T, C) gradient."""
+    b, t, h, hd = 2, 5, 2, 64
+    c = h * hd
+    qkv, q, k, v, o = _fused_qkv_views(b, t, h, hd)
+    dqkv, dq, dk, dv, g = _fused_qkv_views(b, t, h, hd)
+    o4, do4 = o.transpose(1, 2), g.transpose(1, 2)
+    lse = torch.empty((b, h, t))
+    delta = torch.empty((b, h, t))
+    args, strides = fa.bwd_args(q, k, v, o4, lse, do4, dq, dk, dv, delta)
+    item = 2
+    base, gbase = qkv.data_ptr(), dqkv.data_ptr()
+    assert args[:10] == (base, base + c * item, base + 2 * c * item,
+                         o.data_ptr(), g.data_ptr(), lse.data_ptr(),
+                         gbase, gbase + c * item, gbase + 2 * c * item,
+                         delta.data_ptr())
+    assert args[10:] == (b, h, t, t, hd)
+    fused, plain = (t * 3 * c, hd, 3 * c), (t * c, hd, c)
+    assert strides == list(fused * 3 + plain * 2 + fused * 3)
+
+
+def test_bwd_args_reject_an_output_the_kernel_cannot_write():
+    ok = torch.zeros((1, 2, 8, 64), dtype=torch.bfloat16)
+    bad = torch.zeros((1, 2, 8, 68), dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="flash_attention_bwd: dk strides"):
+        fa.bwd_args(ok, ok, ok, ok, torch.empty((1, 2, 8)), ok, ok, bad, ok,
+                    torch.empty((1, 2, 8)))
