@@ -7,8 +7,8 @@ Run from the root of a checkout, with no arguments::
 
 It builds every CUDA kernel of the port from ``kernels/csrc/`` with
 ``nvcc`` (one process per source, all at once), checks in ptxas's report
-that the wgmma kernel has 168 registers a thread at entry and no spills,
-then:
+that the wgmma forward has 168 registers a thread at entry and no spills
+and that the wgmma backward's kernels spill nothing, then:
 
 1. kernel phase — holds each flash-attention kernel (the wgmma kernel for
    bf16 at d 64/128, the simple kernel for f32 and the other head dims)
@@ -20,12 +20,15 @@ then:
    graph, replays timed with CUDA events: device only), the plain
    version, SDPA (``library_ms`` and ``library_device_ms``, timed the same
    two ways) and the card's bound;
-2. backward phase — holds the backward kernel (K2: dq, dk, dv) against its
-   plain version at the training layer (fused QKV views, batch 8), ragged
-   and block-edge lengths, Tq != Tk, d 128, f32 and the other head dims,
-   and times it as the forward is, plus the forward and backward together
-   (K1 + K2) against SDPA's forward and backward; each gradient is held by
-   its largest error and by the relative L2 error of each 64-row tile;
+2. backward phase — holds each backward kernel (K2: dq, dk, dv; the wgmma
+   backward for bf16 at d 64/128, the ``mma.sync`` one for f32 and the
+   other head dims) against its plain version at the training layer (fused
+   QKV views, batch 8), ragged and block-edge lengths, Tq != Tk, d 128, f32
+   and the other head dims, and times it as the forward is, plus the
+   forward and backward together (K1 + K2) against SDPA's forward and
+   backward, and SDPA's backward alone (its forward and backward less its
+   forward); each gradient is held by its largest error and by the
+   relative L2 error of each 64-row tile;
    then the training step's tied LM head (bf16 product into f32 logits,
    bf16 dlogits in its backward) against autograd through the f32 product
    at the training layer;
@@ -41,14 +44,21 @@ then:
 5. training phase — ``make_train_step(adamw(3e-4))`` at the same config,
    batch 8 × 1024 tokens (bench.py's first rung): 2 warm and 5 timed steps
    on one batch (ms per step, tokens/s, MFU by bench.py's count, peak
-   memory), a falling finite loss, the wgmma forward and K2 launched once
-   per layer per step and the simple kernel never; then one gradient on the
-   kernels against one on their plain versions, and a profiler window over
-   one step.
+   memory), a falling finite loss, the wgmma forward and the wgmma
+   backward launched once per layer per step and the simple forward and
+   the ``mma.sync`` backward never; then one gradient on the kernels
+   against one on their plain versions, and a profiler window over one
+   step.
 
 Every phase must pass: any failure exits nonzero. Output is one JSON
 object per line; the last line is ``{"ok": true, "device": {...}}``.
 Without CUDA, or outside a checkout, it exits nonzero and prints no result.
+
+``python3 chip_smoke.py --compare-bwd OTHER`` instead times K2 (and K1 at
+its main shapes) in this tree and in the checkout at OTHER in turns
+(OTHER, this, this, OTHER), each turn a subprocess running that tree's
+``kernel_phase`` and ``bwd_phase`` on the bf16 d 64/128 cases, and prints
+each case's device ms per turn.
 """
 from __future__ import annotations
 
@@ -110,7 +120,10 @@ MAIN_CASE = {"wgmma": ("fused", 1, 16, 1024, 1024, 64, "bfloat16", True),
              "simple": ("3d", 16, 1, 256, 256, 64, "float32", True)}
 SOURCES = {"wgmma": "flash_attention_fwd_wgmma.cu",
            "simple": "flash_attention_fwd.cu",
+           "bwd_wgmma": "flash_attention_bwd_wgmma.cu",
            "bwd": "flash_attention_bwd.cu"}
+# the launch counters of the four kernels, in the order counts() gives them
+KERNELS = ("wgmma", "simple", "bwd_wgmma", "bwd")
 # K2 (backward) cases, laid out as KERNEL_CASES: "fused" takes q, k, v from
 # one (B, T, 3·H·d) projection, o from the forward written as TransformerLM
 # writes it, dO as the (B, H, T, d) view of a (B, T, H·d) gradient, and
@@ -127,6 +140,7 @@ BWD_CASES = [
     ("3d", 16, 1, 512, 512, 32, "bfloat16", True),
     ("fused", 1, 8, 129, 129, 80, "bfloat16", True),
 ]
+BWD_MAIN_CASE = {"bwd_wgmma": BWD_CASES[0], "bwd": BWD_CASES[7]}
 # the bench's large config (bench.py, the "large" rung)
 LARGE = dict(vocab_size=32768, n_layers=12, n_heads=16, d_model=1024,
              d_ff=4096, max_len=1024, dtype="bfloat16", fused_qkv=True)
@@ -298,27 +312,52 @@ def case_inputs(torch, case):
     return q, k, v, out, (q, k, v)
 
 
-def wgmma_ptxas(log):
-    """{head dim: {"registers": n, "spill_bytes": stores + loads}} for each
-    instantiation of the wgmma kernel in a ptxas report (``-Xptxas -v``)."""
-    report, d = {}, None
+def _ptxas(log, entry, key):
+    """{key(match): {"registers": n, "spill_bytes": stores + loads}} for
+    each kernel entry whose mangled name matches the regex ``entry`` in a
+    ptxas report (``-Xptxas -v``)."""
+    report, k = {}, None
     for line in log.splitlines():
         if "Compiling entry" in line:
-            m = re.search(r"flash_fwd_wgmma_kernelILi(\d+)E", line)
-            d = int(m.group(1)) if m else None
-            if d is not None:
-                report[d] = {}
+            m = re.search(entry, line)
+            k = key(m) if m else None
+            if k is not None:
+                report[k] = {}
             continue
-        if d is None:
+        if k is None:
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
-            report[d]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            report[k]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
         m = re.search(r"Used (\d+) registers", line)
         if m:
-            report[d]["registers"] = int(m.group(1))
+            report[k]["registers"] = int(m.group(1))
     return report
+
+
+def wgmma_ptxas(log):
+    """{head dim: {"registers": n, "spill_bytes": n}} for each
+    instantiation of the wgmma forward."""
+    return _ptxas(log, r"flash_fwd_wgmma_kernelILi(\d+)E",
+                  lambda m: int(m.group(1)))
+
+
+def serialized_wgmma(log):
+    """ptxas's warnings that it serialized wgmma (C7514, C7512: issue or
+    wait counts it cannot prove), which cost the overlap a kernel is built
+    around."""
+    return [ln.strip() for ln in log.splitlines()
+            if "C7514" in ln or "C7512" in ln]
+
+
+def bwd_wgmma_ptxas(log):
+    """{"d64 dq": {"registers": n, "spill_bytes": n}, ...} for each
+    instantiation of the wgmma backward: the dQ kernel and the dK/dV kernel
+    at each head dim."""
+    return _ptxas(log, r"flash_bwd_wgmma_kernelILi(\d+)ELb([01])E",
+                  lambda m: f"d{m.group(1)} "
+                  + ("dkdv" if m.group(2) == "1" else "dq"))
 
 
 def kernel_phase(torch, fa):
@@ -411,20 +450,25 @@ def bwd_case_inputs(torch, fa, case):
 def bwd_phase(torch, fa):
     """K2 against its plain version at each of BWD_CASES, timed as the
     forward is, plus the forward and backward together (K1 + K2) against
-    SDPA's forward and backward on the same inputs."""
+    SDPA's forward and backward on the same inputs, and SDPA's backward
+    alone as the difference of its forward and backward and its forward
+    (both device times of this call, the forward run as training runs it,
+    on leaves that require grad)."""
     import torch.nn.functional as F
     results = {}
     for case in BWD_CASES:
         layout, b, h, t_q, t_k, d, dtype, causal = case
         (q, k, v, out, o, lse, do, grads,
          (q4, k4, v4, do4)) = bwd_case_inputs(torch, fa, case)
-        fa.launches_bwd = 0
+        path = ("bwd_wgmma" if fa.takes_wgmma_bwd(q.dtype, d) else "bwd")
+        fa.launches_bwd = fa.launches_bwd_wgmma = 0
         got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal, out=grads)
         torch.cuda.synchronize()
-        check(fa.launches_bwd == 1 and all(
-            x is y for x, y in zip(got, grads)),
-            f"bwd {case}: launched {fa.launches_bwd} times or did not write "
-            f"into the caller's views")
+        launched = (fa.launches_bwd_wgmma, fa.launches_bwd)
+        check(launched == ((1, 0) if path == "bwd_wgmma" else (0, 1))
+              and all(x is y for x, y in zip(got, grads)),
+              f"bwd {case}: launched (wgmma, mma.sync) {launched}, want only "
+              f"{path}, or did not write into the caller's views")
         ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal)
         errs, tile_l2 = {}, {}
         for name, x, r in zip(("dq", "dk", "dv"), got, ref):
@@ -455,10 +499,14 @@ def bwd_phase(torch, fa):
             y = F.scaled_dot_product_attention(*xs, is_causal=causal)
             torch.autograd.grad(y, xs, do4)
 
+        def library_fwd():
+            xs = [x.detach().requires_grad_() for x in (q4, k4, v4)]
+            F.scaled_dot_product_attention(*xs, is_causal=causal)
+
         bound_ms, bound_by = attention_bwd_bound_ms(b * h, t_q, t_k, d,
                                                     dtype, causal)
-        row = {"layout": layout, "b": b, "h": h, "t_q": t_q, "t_k": t_k,
-               "d": d, "dtype": dtype, "causal": causal,
+        row = {"path": path, "layout": layout, "b": b, "h": h, "t_q": t_q,
+               "t_k": t_k, "d": d, "dtype": dtype, "causal": causal,
                "max_abs_err": errs, "max_tile_rel_l2": tile_l2,
                "ms": time_ms(kernel, torch),
                "device_ms": device_ms(kernel, torch),
@@ -468,8 +516,14 @@ def bwd_phase(torch, fa):
                "fwd_bwd_device_ms": device_ms(pair, torch),
                "library_ms": time_ms(library, torch),
                "library_device_ms": device_ms(library, torch),
+               "library_fwd_device_ms": device_ms(library_fwd, torch),
                "bound_ms": bound_ms, "bound_by": bound_by}
+        # a difference of two device times, not a direct reading
+        row["library_bwd_device_ms"] = (row["library_device_ms"]
+                                        - row["library_fwd_device_ms"])
         row["device_vs_bound"] = row["device_ms"] / bound_ms
+        row["device_vs_library_bwd"] = (row["device_ms"]
+                                        / row["library_bwd_device_ms"])
         row["fwd_bwd_vs_library"] = (row["fwd_bwd_device_ms"]
                                      / row["library_device_ms"])
         emit(bwd_case=row)
@@ -532,9 +586,15 @@ def head_phase(torch):
 
 
 def counts(fa):
-    """Launches of each flash wrapper: (wgmma forward, simple forward,
-    backward)."""
-    return fa.launches_wgmma, fa.launches_simple, fa.launches_bwd
+    """Launches of each flash kernel, in the order of KERNELS: (wgmma
+    forward, simple forward, wgmma backward, mma.sync backward)."""
+    return (fa.launches_wgmma, fa.launches_simple, fa.launches_bwd_wgmma,
+            fa.launches_bwd)
+
+
+def reset_counts(fa):
+    fa.launches_wgmma = fa.launches_simple = 0
+    fa.launches_bwd_wgmma = fa.launches_bwd = 0
 
 
 def slice_phase(torch, fa):
@@ -561,7 +621,7 @@ def slice_phase(torch, fa):
                 "seconds": time.perf_counter() - t0,
                 "page_tokens": engine.page_tokens})
     L, V = cfg.n_layers, cfg.vocab_size
-    per_forward = (L, 0, 0)    # wgmma once per layer, simple never
+    per_forward = (L, 0, 0, 0)    # the wgmma forward once per layer
     rng = np.random.default_rng(SEED + 1)
 
     def launched(fn):
@@ -578,7 +638,7 @@ def slice_phase(torch, fa):
         check(toks.shape == shape, f"tokens shape {toks.shape} != {shape}")
         check(bool(((toks >= 0) & (toks < V)).all()), "token out of range")
 
-    fa.launches_wgmma = fa.launches_simple = fa.launches_bwd = 0
+    reset_counts(fa)
     # the main path starts here
     for n in PROMPT_LENS:
         prompt = rng.integers(0, V, (1, n)).astype(np.int32)
@@ -586,7 +646,7 @@ def slice_phase(torch, fa):
         (toks, steps), got, _ms = launched(
             lambda: engine.generate(prompt, N_NEW, return_logits=True))
         check(got == per_forward, f"prompt {n}: launched {got}, want "
-              f"{per_forward} (wgmma, simple, bwd)")
+              f"{per_forward} {KERNELS}")
         tokens_ok(toks, (1, N_NEW))
         pre = []
         for _ in range(3):
@@ -666,10 +726,10 @@ def profile_phase(torch, fa, engine):
         0, LARGE["vocab_size"], (1, PROFILE_PROMPT)).astype(np.int32)
     engine.prefill(prompt)
     torch.cuda.synchronize()
-    fa.launches_wgmma = fa.launches_simple = fa.launches_bwd = 0
+    reset_counts(fa)
     row = profile_window(torch, "prefill", lambda: engine.prefill(prompt),
                          "prefill_1024_trace.json")
-    check(counts(fa) == (LARGE["n_layers"], 0, 0),
+    check(counts(fa) == (LARGE["n_layers"], 0, 0, 0),
           f"profiled prefill launched {counts(fa)}")
     emit(profile={"bucket": 1024, **row})
 
@@ -702,7 +762,8 @@ def train_phase(torch, fa):
     """Training at the bench's large config, batch 8 (bench.py's first
     rung): WARM_STEPS + TIMED_STEPS of ``make_train_step(adamw(3e-4))`` on
     one batch with targets rolled by −1, each launching the wgmma forward
-    and K2 once per layer and the simple kernel never; then one gradient
+    and the wgmma backward once per layer and the simple forward and the
+    ``mma.sync`` backward never; then one gradient
     on the kernels held against one on the plain versions (loss and each
     leaf). Returns the launches of the steps and what the profile phase
     needs."""
@@ -727,7 +788,8 @@ def train_phase(torch, fa):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, step_ms = [], []
-    fa.launches_wgmma = fa.launches_simple = fa.launches_bwd = 0
+    reset_counts(fa)
+    per_step = (L, 0, L, 0)
     for i in range(WARM_STEPS + TIMED_STEPS):    # the main path starts here
         before = counts(fa)
         t = time.perf_counter()
@@ -735,8 +797,8 @@ def train_phase(torch, fa):
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - t))
         got = tuple(a - b for a, b in zip(counts(fa), before))
-        check(got == (L, 0, L), f"train step {i}: launched {got}, want "
-              f"{(L, 0, L)} (wgmma, simple, bwd)")
+        check(got == per_step, f"train step {i}: launched {got}, want "
+              f"{per_step} {KERNELS}")
         losses.append(loss)
     launches = counts(fa)                        # ... and ends here
     peak_bytes = torch.cuda.max_memory_allocated()
@@ -753,8 +815,7 @@ def train_phase(torch, fa):
                 "mfu": tokens_per_s * flops_per_token
                 / PEAK_FLOPS["bfloat16"],
                 "peak_memory_bytes": peak_bytes,
-                "launches": dict(zip(("wgmma", "simple", "bwd"),
-                                     launches))})
+                "launches": dict(zip(KERNELS, launches))})
 
     # one gradient on the kernels and one on the plain versions, same
     # weights and batch
@@ -787,11 +848,11 @@ def train_profile_phase(torch, fa, step_ms, step, params, state, tokens,
     own host work stretches the window, so the device's busy time is also
     given over ``step_ms``, the median unprofiled step."""
     L = LARGE["n_layers"]
-    fa.launches_wgmma = fa.launches_simple = fa.launches_bwd = 0
+    reset_counts(fa)
     row = profile_window(torch, "train_step",
                          lambda: step(params, state, tokens, targets),
                          "train_step_trace.json", top=15)
-    check(counts(fa) == (L, 0, L),
+    check(counts(fa) == (L, 0, L, 0),
           f"profiled step launched {counts(fa)}")
     if "device_busy_us" in row:
         row["busy_over_unprofiled_step"] = (row["device_busy_us"]
@@ -857,11 +918,15 @@ def profile_window(torch, label, fn, trace_name, top=10):
             tot[1] += 1
     copies = sum(n for name, (_us, n) in by_name.items()
                  if "copy" in name.lower())
+    # every kernel of K1 and K2 (the D pass too), however small
+    attention = {name: tot for name, tot in by_name.items() if re.search(
+        r"flash|delta_kernel|dq_kernel|dkdv_kernel", name)}
     return {"wall_ms": wall_ms, "window_us": hi - lo,
             "device_busy_us": busy, "busy_share": busy / (hi - lo),
             "kernels": sum(n for _us, n in by_name.values()),
             "copy_kernels": copies, "trace": str(trace.relative_to(ROOT)),
-            "top_kernels": _top(by_name, top), "top_ops": _top(by_op, top)}
+            "top_kernels": _top(by_name, top), "top_ops": _top(by_op, top),
+            "attention_kernels": _top(attention, len(attention))}
 
 
 def kernel_entry(path, cases, launches):
@@ -884,31 +949,82 @@ def kernel_entry(path, cases, launches):
                         "causal"), MAIN_CASE[path]))}
 
 
-def bwd_kernel_entry(cases, launches):
-    """K2's kernels-line entry, its numbers at the training layer. Its
-    ``library_ms`` is SDPA's forward and backward, beside ``fwd_bwd_ms``:
-    K1 + K2 on the same inputs (no one PyTorch call computes the backward
-    alone)."""
-    main = cases[BWD_CASES[0]]
+def bwd_kernel_entry(path, cases, launches):
+    """The kernels-line entry of one K2 kernel ("bwd_wgmma" or "bwd"), its
+    numbers at BWD_MAIN_CASE[path]. Its ``library_ms`` is SDPA's forward
+    and backward, beside ``fwd_bwd_ms``: K1 + K2 on the same inputs (no
+    one PyTorch call computes the backward alone; ``library_bwd_device_ms``
+    is the difference of two device times)."""
+    rows = [r for r in cases.values() if r["path"] == path]
+    main = cases[BWD_MAIN_CASE[path]]
     return {
-        "name": "flash_attention_bwd", "route": "cuda",
-        "source": f"deeplearning4j_tpu_torch/kernels/csrc/{SOURCES['bwd']}",
+        "name": ("flash_attention_bwd_wgmma" if path == "bwd_wgmma"
+                 else "flash_attention_bwd"), "route": "cuda",
+        "source": f"deeplearning4j_tpu_torch/kernels/csrc/{SOURCES[path]}",
         "replaces": "deeplearning4j_tpu/kernels/flash_attention.py:153",
         "launches": sum(launches.values()), "launches_by_path": launches,
-        "on_main_path": True,
-        "max_abs_err": max(e for r in cases.values()
+        "on_main_path": path == "bwd_wgmma",
+        "max_abs_err": max(e for r in rows
                            for e in r["max_abs_err"].values()),
         "ms": main["ms"], "device_ms": main["device_ms"],
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": main["library_ms"],
         "library_device_ms": main["library_device_ms"],
+        "library_bwd_device_ms": main["library_bwd_device_ms"],
         "fwd_bwd_ms": main["fwd_bwd_ms"],
         "fwd_bwd_device_ms": main["fwd_bwd_device_ms"],
         "at": dict(zip(("layout", "b", "h", "t_q", "t_k", "d", "dtype",
-                        "causal"), BWD_CASES[0]))}
+                        "causal"), BWD_MAIN_CASE[path]))}
+
+
+# one turn of --compare-bwd: the tree's own phases on the given cases
+_TURN = """
+import json, sys, torch, chip_smoke
+from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+fwd, bwd = json.loads(sys.argv[1])
+chip_smoke.KERNEL_CASES = [tuple(c) for c in fwd]
+chip_smoke.BWD_CASES = [tuple(c) for c in bwd]
+chip_smoke.kernel_phase(torch, fa)
+chip_smoke.bwd_phase(torch, fa)
+"""
+
+
+def compare_turns(other, this=ROOT):
+    """Device ms of K1 at MAIN_CASE["wgmma"] and the training layer, and
+    of K2 at every bf16 d 64/128 case of BWD_CASES, in the checkout at
+    ``other`` and in ``this`` in turns (other, this, this, other), each
+    turn a subprocess of that tree running its own ``kernel_phase`` and
+    ``bwd_phase``. Returns {"fwd"|"bwd": {case: {"other": [ms, ms],
+    "this": [ms, ms]}}}."""
+    fwd = [MAIN_CASE["wgmma"], KERNEL_CASES[13]]
+    bwd = [c for c in BWD_CASES if c[6] == "bfloat16" and c[5] in (64, 128)]
+    arg = json.dumps([fwd, bwd])
+    times = {"fwd": {}, "bwd": {}}
+    for label, root in (("other", other), ("this", this), ("this", this),
+                        ("other", other)):
+        run = subprocess.run([sys.executable, "-c", _TURN, arg], cwd=root,
+                             capture_output=True, text=True, timeout=900)
+        check(run.returncode == 0, f"turn in {root} failed:\n"
+              f"{run.stdout[-4000:]}\n{run.stderr[-4000:]}")
+        for line in run.stdout.splitlines():
+            row = json.loads(line) if line.startswith("{") else {}
+            for kind, key in (("fwd", "kernel_case"), ("bwd", "bwd_case")):
+                if key in row:
+                    r = row[key]
+                    case = " ".join(str(r[k]) for k in (
+                        "layout", "b", "h", "t_q", "t_k", "d", "causal"))
+                    times[kind].setdefault(case, {}).setdefault(
+                        label, []).append(r["device_ms"])
+    return times
 
 
 def main() -> int:
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--compare-bwd", metavar="OTHER", type=Path,
+                        help="time K1 and K2 here and in the checkout at "
+                        "OTHER in turns, and nothing else")
+    args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; the port runs on the "
@@ -927,6 +1043,9 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     emit(gpu=smi, torch=torch.__version__, cuda=torch.version.cuda)
+    if args.compare_bwd is not None:
+        emit(compare_turns=compare_turns(args.compare_bwd.resolve()))
+        return 0
 
     t0 = time.perf_counter()
     compiled = _build.build_all()
@@ -936,6 +1055,9 @@ def main() -> int:
              or "C75" in ln]
     emit(build={"seconds": time.perf_counter() - t0, "compiled": compiled,
                 "ptxas": ptxas})
+    for name in ("flash_attention_fwd_wgmma", "flash_attention_bwd_wgmma"):
+        warned = serialized_wgmma(_build.build_logs.get(name, ""))
+        check(not warned, f"{name}: ptxas serialized wgmma: {warned}")
     log = _build.build_logs.get("flash_attention_fwd_wgmma")
     if log is not None:     # compiled in this run, not an earlier library
         report = wgmma_ptxas(log)
@@ -945,6 +1067,15 @@ def main() -> int:
             and r.get("spill_bytes") == 0 for r in report.values()),
             f"wgmma kernel: want {WGMMA_ENTRY_REGISTERS} registers and no "
             f"spills at d 64 and 128, ptxas gave {report}")
+    log = _build.build_logs.get("flash_attention_bwd_wgmma")
+    if log is not None:
+        report = bwd_wgmma_ptxas(log)
+        emit(bwd_wgmma_ptxas=report)
+        check(sorted(report) == ["d128 dkdv", "d128 dq", "d64 dkdv", "d64 dq"]
+              and all("registers" in r and r.get("spill_bytes") == 0
+                      for r in report.values()),
+              f"wgmma backward: want no spills in its four kernels, ptxas "
+              f"gave {report}")
 
     cases = kernel_phase(torch, fa)
     bwd_cases = bwd_phase(torch, fa)
@@ -957,16 +1088,20 @@ def main() -> int:
     train, step_ms, for_profile = train_phase(torch, fa)
     train_profile_phase(torch, fa, step_ms, *for_profile)
     launches = {name: {"serve": serve[i], "train": train[i]}
-                for i, name in enumerate(("wgmma", "simple", "bwd"))}
+                for i, name in enumerate(KERNELS)}
     emit(main_path_launches=launches)
     check(serve[0] > 0 and train[0] > 0,
           "a main path launched no flash_attention_fwd_wgmma")
-    check(train[2] > 0, "training launched no flash_attention_bwd")
+    check(train[2] > 0, "training launched no flash_attention_bwd_wgmma")
     check(serve[1] == 0 and train[1] == 0,
           "a main path launched the simple kernel")
+    check(serve[2] == serve[3] == train[3] == 0,
+          "serving launched a backward, or training the mma.sync one")
     emit(kernels=[kernel_entry("wgmma", cases, launches["wgmma"]),
                   kernel_entry("simple", cases, launches["simple"]),
-                  bwd_kernel_entry(bwd_cases, launches["bwd"])])
+                  bwd_kernel_entry("bwd_wgmma", bwd_cases,
+                                   launches["bwd_wgmma"]),
+                  bwd_kernel_entry("bwd", bwd_cases, launches["bwd"])])
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

@@ -14,7 +14,7 @@
 // in full f32, no TF32 anywhere in the port).
 //
 // Three kernels, FA2's split, one launch each from dl4j_flash_attention_bwd:
-//   delta_kernel - D, one warp per query row;
+//   delta_kernel - D, 8 lanes a row with 16-byte loads (flash_bwd_delta.cuh);
 //   dq kernel    - one block per (b*h, 64-row query tile), looping over the
 //                  key tiles that tile sees (up to the diagonal when causal),
 //                  dQ in f32 registers; no atomics, so dq is deterministic,
@@ -56,6 +56,8 @@
 #include <stdint.h>
 #include <type_traits>
 
+#include "flash_bwd_delta.cuh"
+
 namespace {
 
 constexpr int BM = 64;          // rows of a block's own tile (query or key)
@@ -86,28 +88,6 @@ __device__ __forceinline__ long long head(const Args& a, int which, int bh) {
 
 __device__ __forceinline__ bool kept(const Args& a, int qi, int ki) {
   return qi < a.seq_q && ki < a.seq_k && (!a.causal || qi >= ki);
-}
-
-// ---------------------------------------------------------------- D = rowsum
-template <typename T> __device__ __forceinline__ float to_float(T x);
-template <> __device__ __forceinline__ float to_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_float<bf16>(bf16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(256) delta_kernel(Args a) {
-  const int bh = blockIdx.y;
-  const int qi = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (qi >= a.seq_q) return;
-  const T* o = static_cast<const T*>(a.o) + head(a, O, bh) + qi * a.st[O][2];
-  const T* g =
-      static_cast<const T*>(a.dout) + head(a, DO, bh) + qi * a.st[DO][2];
-  float acc = 0.0f;
-  for (int j = lane; j < a.d; j += 32) acc += to_float(g[j]) * to_float(o[j]);
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, s);
-  if (lane == 0) a.delta[(size_t)bh * a.seq_q + qi] = acc;
 }
 
 // ====================================================================== bf16
@@ -680,7 +660,10 @@ cudaError_t launch(const Args& a, int bh, cudaStream_t stream) {
   static const cudaError_t attr_kv = opt_in(dkdv, smem_kv);
   if (attr_q != cudaSuccess) return attr_q;
   if (attr_kv != cudaSuccess) return attr_kv;
-  delta_kernel<T><<<dim3((a.seq_q + 7) / 8, bh), 256, 0, stream>>>(a);
+  DeltaArgs da{a.o, a.dout, {a.st[O][0], a.st[O][1], a.st[O][2]},
+               {a.st[DO][0], a.st[DO][1], a.st[DO][2]}, a.lse, a.delta,
+               nullptr, a.h, a.seq_q, a.seq_q, a.d};
+  delta_kernel<T><<<dim3((a.seq_q + 31) / 32, bh), 256, 0, stream>>>(da);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dq<<<dim3((a.seq_q + BM - 1) / BM, bh), NTHREADS, smem_q, stream>>>(a);

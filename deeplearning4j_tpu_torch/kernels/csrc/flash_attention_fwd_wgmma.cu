@@ -56,14 +56,10 @@
 //   strides that are multiples of 16 bytes: the fused-QKV projection's views
 //   go in as they are, and o is written into a caller-given strided view.
 //
-// Tensor maps are encoded on the host with cuTensorMapEncodeTiled, reached
-// through cudaGetDriverEntryPoint, so the build needs no -lcuda; each map is
-// passed as a `const __grid_constant__ CUtensorMap` parameter.
+// The PTX helpers, the wgmma products and the tensor-map encoding are shared
+// with the backward in hopper_wgmma.cuh.
 
-#include <cuda.h>
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "hopper_wgmma.cuh"
 
 namespace {
 
@@ -72,10 +68,8 @@ constexpr int BN = 128;               // key rows per tile
 constexpr int NCONSUMER = 256;        // threads of the two consumer warpgroups
 constexpr int NPRODUCER = 128;        // the producer warpgroup
 constexpr int NTHREADS = NCONSUMER + NPRODUCER;
-constexpr int PANEL = 64;             // bf16 columns in one 128-byte row
 constexpr int BOX_BYTES = PANEL * 128 * 2;  // one TMA box: 128 rows x 128 B
 constexpr float NEG_INF = -1e30f;     // the reference's finite sentinel
-constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D> struct Smem {
   // K/V ring depth: a third stage measured faster only at d 128 (PERF.md),
@@ -90,183 +84,6 @@ template <int D> struct Smem {
   static constexpr int BYTES = 1024 + BARRIERS + 8 * (1 + 2 * STAGES);
   static_assert(BYTES <= 227 * 1024, "over the H100's shared memory opt-in");
 };
-
-// ---------------------------------------------------------------- PTX helpers
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// One 4-D TMA tile load into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
-      "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Wait until at most N committed wgmma groups of this thread are pending.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from moving register reads or writes across a wgmma
-// boundary (the asynchronous product owns these registers in between).
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void reg_fence(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
-// leading and stride byte offsets (all >> 4), layout type 1 in bits 62-63.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-#define ACC8(a, i)                                                        \
-  "+f"(a[i]), "+f"(a[i + 1]), "+f"(a[i + 2]), "+f"(a[i + 3]),             \
-      "+f"(a[i + 4]), "+f"(a[i + 5]), "+f"(a[i + 6]), "+f"(a[i + 7])
-
-// D[64 x 128] (+)= A[64 x 16] B[16 x 128]; A and B from shared memory, both
-// K-major. `accumulate` 0 overwrites D.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                              uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : ACC8(d, 0), ACC8(d, 8), ACC8(d, 16), ACC8(d, 24), ACC8(d, 32),
-        ACC8(d, 40), ACC8(d, 48), ACC8(d, 56)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// D[64 x 64] += A[64 x 16] B[16 x 64]; A from registers, B from shared
-// memory MN-major (the transpose bit).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : ACC8(d, 0), ACC8(d, 8), ACC8(d, 16), ACC8(d, 24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D[64 x 128] += A[64 x 16] B[16 x 128]; A from registers, B MN-major.
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : ACC8(d, 0), ACC8(d, 8), ACC8(d, 16), ACC8(d, 24), ACC8(d, 32),
-        ACC8(d, 40), ACC8(d, 48), ACC8(d, 56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
-                                         const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (D == 64) wgmma_rs_n64(o, a, db);
-  else wgmma_rs_n128(o, a, db);
-}
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// A tensor map's outer dims (t, h, b) in the order they were encoded:
-// `perm` holds each one's position (1..3) in 2-bit fields t | h << 2 | b << 4.
-__device__ __forceinline__ void outer_coords(int perm, int t, int h, int b,
-                                             int& c1, int& c2, int& c3) {
-  const int pt = perm & 3, ph = (perm >> 2) & 3;
-  c1 = pt == 1 ? t : (ph == 1 ? h : b);
-  c2 = pt == 2 ? t : (ph == 2 ? h : b);
-  c3 = pt == 3 ? t : (ph == 3 ? h : b);
-}
 
 struct OutArgs {
   __nv_bfloat16* o;
@@ -314,7 +131,7 @@ __device__ __forceinline__ void issue_pv(float (&o_acc)[D / 2],
                                          uint32_t sV) {
 #pragma unroll
   for (int kk = 0; kk < BN / 16; ++kk)
-    wgmma_pv<D>(o_acc, pf[kk], smem_desc(sV + kk * 2048, BOX_BYTES, 1024));
+    wgmma_rs<D>(o_acc, pf[kk], smem_desc(sV + kk * 2048, BOX_BYTES, 1024));
   wgmma_commit();
 }
 
@@ -382,19 +199,6 @@ __device__ __forceinline__ void rescale_o(float (&o_acc)[D / 2], float alpha0,
   }
 }
 
-// P as bf16 A fragments: keys 16kk..16kk+15 are accumulator column groups 2kk
-// and 2kk + 1 (registers 8kk..8kk+7).
-__device__ __forceinline__ void pack_p(uint32_t (&pf)[BN / 16][4],
-                                       const float (&sacc)[64]) {
-#pragma unroll
-  for (int kk = 0; kk < BN / 16; ++kk) {
-    pf[kk][0] = pack_bf16(sacc[8 * kk + 0], sacc[8 * kk + 1]);
-    pf[kk][1] = pack_bf16(sacc[8 * kk + 2], sacc[8 * kk + 3]);
-    pf[kk][2] = pack_bf16(sacc[8 * kk + 4], sacc[8 * kk + 5]);
-    pf[kk][3] = pack_bf16(sacc[8 * kk + 6], sacc[8 * kk + 7]);
-  }
-}
-
 // The two consumer warpgroups: 64 query rows each, the whole key loop.
 template <int D>
 __device__ __forceinline__ void consume(uint32_t sQ, uint32_t sKV,
@@ -441,7 +245,7 @@ __device__ __forceinline__ void consume(uint32_t sQ, uint32_t sKV,
   wgmma_wait<0>();
   reg_fence(sacc);
   softmax_scores(sacc, r, 0, seq_k, scale, causal, alpha0, alpha1);
-  pack_p(pf, sacc);                   // O is still zero: nothing to rescale
+  pack_a<BN>(pf, sacc);                   // O is still zero: nothing to rescale
   for (int j = 1; j < n_tiles; ++j) {
     const int s = j % STAGES, sp = (j - 1) % STAGES;
     mbar_wait(bar_full + 8 * s, (j / STAGES) & 1);
@@ -460,7 +264,7 @@ __device__ __forceinline__ void consume(uint32_t sQ, uint32_t sKV,
     reg_fence(pf);
     mbar_arrive(bar_empty + 8 * sp);  // the stage of tile j - 1 is free
     rescale_o<D>(o_acc, alpha0, alpha1);
-    pack_p(pf, sacc);
+    pack_a<BN>(pf, sacc);
   }
   const int sl = (n_tiles - 1) % STAGES;
   named_sync(my_turn);
@@ -579,68 +383,6 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 // ------------------------------------------------------------------ host side
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                  void*, const cuuint64_t*, const cuuint64_t*,
-                                  const cuuint32_t*, const cuuint32_t*,
-                                  CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_fn() {
-  static const EncodeTiledFn fn = []() -> EncodeTiledFn {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      return nullptr;
-    return reinterpret_cast<EncodeTiledFn>(p);
-  }();
-  return fn;
-}
-
-// Encode a (B, H, T, d) bf16 view with unit stride on d as a 4-D tensor map
-// whose box is 64 columns x 128 rows of T. The outer dims are encoded in
-// ascending order of stride (size-1 dims last), as the driver documents
-// strides; `perm` says where t, h and b went (see outer_coords).
-CUresult encode_4d(CUtensorMap* map, int* perm, const void* ptr, int batch,
-                   int heads, int seq, int d, long long sb, long long sh,
-                   long long st) {
-  EncodeTiledFn encode = encode_fn();
-  if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
-  struct Dim { long long size, stride; int which; };
-  Dim dims[3] = {{seq, st, 0}, {heads, sh, 1}, {batch, sb, 2}};
-  long long top = (long long)d;   // elements spanned by the real dims
-  for (const Dim& x : dims)
-    if (x.size > 1 && x.stride * x.size > top) top = x.stride * x.size;
-  for (Dim& x : dims)
-    if (x.size == 1) x.stride = (top + 7) / 8 * 8;   // any multiple of 16 B
-  for (int i = 1; i < 3; ++i)   // insertion sort by stride, size-1 dims last
-    for (int k = i; k > 0; --k) {
-      const bool later_one = dims[k - 1].size == 1 && dims[k].size > 1;
-      if (later_one || (dims[k - 1].size > 1 && dims[k].size > 1 &&
-                        dims[k].stride < dims[k - 1].stride)) {
-        Dim tmp = dims[k]; dims[k] = dims[k - 1]; dims[k - 1] = tmp;
-      }
-    }
-  cuuint64_t gdim[4] = {(cuuint64_t)d, 0, 0, 0};
-  cuuint64_t gstride[3];
-  cuuint32_t box[4] = {(cuuint32_t)PANEL, 1, 1, 1};
-  cuuint32_t estride[4] = {1, 1, 1, 1};
-  *perm = 0;
-  for (int i = 0; i < 3; ++i) {
-    gdim[i + 1] = (cuuint64_t)dims[i].size;
-    gstride[i] = (cuuint64_t)(dims[i].stride * 2);   // bytes
-    if (dims[i].which == 0) box[i + 1] = 128;
-    *perm |= (i + 1) << (2 * dims[i].which);
-  }
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), gdim, gstride, box, estride,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
 template <int D>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
            int pq, int pk, int pv, OutArgs out, int batch, int heads,
@@ -672,13 +414,15 @@ extern "C" int dl4j_flash_attention_fwd_wgmma(
   if (batch < 1 || heads < 1 || seq_q < 1 || seq_k < 1 ||
       (seq_q + BM - 1) / BM > 65535 || (d != 64 && d != 128))
     return (int)cudaErrorInvalidValue;
+  if (cudaError_t err = bind_context()) return (int)err;
   CUtensorMap tq, tk, tv;
   int pq, pk, pv;
-  CUresult r = encode_4d(&tq, &pq, q, batch, heads, seq_q, d, q_sb, q_sh, q_st);
+  CUresult r = encode_4d(&tq, &pq, q, batch, heads, seq_q, d, q_sb, q_sh,
+                         q_st, BM);
   if (r == CUDA_SUCCESS)
-    r = encode_4d(&tk, &pk, k, batch, heads, seq_k, d, k_sb, k_sh, k_st);
+    r = encode_4d(&tk, &pk, k, batch, heads, seq_k, d, k_sb, k_sh, k_st, BN);
   if (r == CUDA_SUCCESS)
-    r = encode_4d(&tv, &pv, v, batch, heads, seq_k, d, v_sb, v_sh, v_st);
+    r = encode_4d(&tv, &pv, v, batch, heads, seq_k, d, v_sb, v_sh, v_st, BN);
   if (r != CUDA_SUCCESS) return -(int)r;
   OutArgs out{static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), o_sb,
               o_sh, o_st};

@@ -4,9 +4,10 @@ Hopper.
 Replace the Pallas TPU kernel ``_attn_fwd_kernel`` (launched through
 ``pl.pallas_call`` in ``_fwd_pallas``) of
 ``deeplearning4j_tpu/kernels/flash_attention.py`` and its custom-VJP
-backward ``_bwd_blockwise``. Three sources, each built with ``nvcc`` for
-``sm_90a`` at first use (``_build.py``) and called through ctypes; the
-forward's two kernels are chosen explicitly by dtype and head dim:
+backward ``_bwd_blockwise``. Four sources, each built with ``nvcc`` for
+``sm_90a`` at first use (``_build.py``) and called through ctypes; each
+wrapper chooses its kernel explicitly by dtype and head dim
+(:func:`takes_wgmma`, :func:`takes_wgmma_bwd`):
 
 - ``csrc/flash_attention_fwd_wgmma.cu`` — bf16 at d = 64 and 128 (the
   model's prefill): ``wgmma`` for both products with scores, P and O in
@@ -18,12 +19,15 @@ forward's two kernels are chosen explicitly by dtype and head dim:
   TF32) and bf16 at the other head dims (16, 32, 48, 80, 96, 112): WMMA
   through shared memory on contiguous (BH, T, d), 64 query rows per block.
   Strided inputs are made contiguous for it first.
-- ``csrc/flash_attention_bwd.cu`` — the backward (dq, dk, dv) for every
-  dtype and head dim the forwards take, FA2's split into a D pass, a dQ
-  kernel and a dK/dV kernel; bf16 through ``mma.sync`` with the scores in
-  registers, f32 through scalar FMA. It reads and writes strided
-  (B, H, T, d) views, so the fused projection's gradient is written in
-  place.
+- ``csrc/flash_attention_bwd_wgmma.cu`` — the backward (dq, dk, dv) for
+  bf16 at d = 64 and 128 (the model's training step): FA2's split into a D
+  pass, a dQ kernel and a dK/dV kernel, ``wgmma`` for every product with
+  the scores, P and dS in registers, Q/dO or K/V through TMA rings. It
+  reads and writes strided (B, H, T, d) views, so the fused projection's
+  gradient is written in place.
+- ``csrc/flash_attention_bwd.cu`` — the backward for f32 and bf16 at the
+  other head dims, the same split through ``mma.sync`` (bf16) or scalar
+  FMA (f32), on the same strided views.
 
 What bounds them on the H100: per head 4·Tq·Tk·d FLOPs forward and
 10·Tq·Tk·d backward (about half when causal) over 2·(Tq + Tk)·d·itemsize
@@ -46,8 +50,8 @@ Beside the kernels:
   the backward's plain version and its wrapper, as the forward's.
 - :class:`FlashAttention` — the ``autograd.Function`` the model trains
   through: the forward kernel, and the backward kernel as its gradient.
-- ``launches_wgmma`` / ``launches_simple`` / ``launches_bwd`` — launches
-  of each wrapper's kernel.
+- ``launches_wgmma`` / ``launches_simple`` / ``launches_bwd_wgmma`` /
+  ``launches_bwd`` — launches of each kernel.
 """
 from __future__ import annotations
 
@@ -66,6 +70,7 @@ _WGMMA_DIMS = (64, 128)
 launches_wgmma = 0
 launches_simple = 0
 launches_bwd = 0
+launches_bwd_wgmma = 0
 
 _fns = {}
 
@@ -82,13 +87,16 @@ def _kernel(name: str):
                           + [ctypes.c_longlong] * 12
                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
             err = lib.dl4j_flash_wgmma_error_string
-        elif name == "flash_attention_bwd":
-            f = lib.dl4j_flash_attention_bwd
+        elif name in ("flash_attention_bwd", "flash_attention_bwd_wgmma"):
+            wgmma = name.endswith("wgmma")
+            f = getattr(lib, f"dl4j_{name}")
+            # the wgmma backward takes no dtype: it is bf16 only
             f.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                           + [ctypes.POINTER(ctypes.c_longlong),
-                             ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                             ctypes.c_void_p])
-            err = lib.dl4j_flash_bwd_error_string
+                             ctypes.c_float, ctypes.c_int]
+                          + [ctypes.c_int] * (not wgmma) + [ctypes.c_void_p])
+            err = (lib.dl4j_flash_bwd_wgmma_error_string if wgmma
+                   else lib.dl4j_flash_bwd_error_string)
         else:
             f = lib.dl4j_flash_attention_fwd
             f.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
@@ -325,6 +333,19 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, causal: bool = False,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def takes_wgmma_bwd(dtype: torch.dtype, d: int) -> bool:
+    """Whether the wgmma backward takes gradients of this dtype and head
+    dim (``csrc/flash_attention_bwd.cu`` takes every other supported
+    pair)."""
+    return dtype == torch.bfloat16 and d in _WGMMA_DIMS
+
+
+def bwd_scratch_numel(b_h: int, t_q: int) -> int:
+    """f32 scratch of the wgmma backward: D and a copy of lse, each
+    (B·H, Tq rounded up to the 64-row query tile)."""
+    return 2 * b_h * (-(-t_q // 64) * 64)
+
+
 def bwd_args(q, k, v, o, lse, do, dq, dk, dv, delta) -> tuple:
     """Pointers, sizes and the 24 strides (b, h, t for q, k, v, o, dO, dq,
     dk, dv) of ``dl4j_flash_attention_bwd`` (no launch; scale, causal and
@@ -339,6 +360,24 @@ def bwd_args(q, k, v, o, lse, do, dq, dk, dv, delta) -> tuple:
              b, h, q.shape[-2], k.shape[-2], q.shape[-1]), strides)
 
 
+def bwd_wgmma_args(q, k, v, o, lse, do, dq, dk, dv, scratch) -> tuple:
+    """The arguments of ``dl4j_flash_attention_bwd_wgmma`` (no launch;
+    scale and causal follow), laid out as :func:`bwd_args`'s with
+    ``scratch`` (:func:`bwd_scratch_numel` f32) in place of D. The kernel
+    reads q, k, v and dO through tensor maps, so every operand must meet
+    :func:`tma_operand`'s rule, and only bf16 at d 64 or 128 is taken."""
+    if not takes_wgmma_bwd(q.dtype, q.shape[-1]):
+        raise ValueError(f"flash_attention_bwd: the wgmma backward takes "
+                         f"bf16 at head dim 64 or 128, not {q.dtype} at "
+                         f"{q.shape[-1]}")
+    b_h = q.shape[0] * (1 if q.dim() == 3 else q.shape[1])
+    need = bwd_scratch_numel(b_h, q.shape[-2])
+    if scratch.dtype != torch.float32 or scratch.numel() < need:
+        raise ValueError(f"flash_attention_bwd: scratch needs {need} f32, "
+                         f"got {scratch.numel()} {scratch.dtype}")
+    return bwd_args(q, k, v, o, lse, do, dq, dk, dv, scratch)
+
+
 def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
                         scale: Optional[float] = None,
                         out: Optional[Tuple[torch.Tensor, torch.Tensor,
@@ -348,12 +387,13 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
     if given, is three views of q's, k's and v's shapes that receive the
     gradients (and are returned).
 
-    A CUDA tensor launches ``csrc/flash_attention_bwd.cu`` (or raises):
-    the operands are read through their strides where they meet
-    :func:`tma_operand`'s rule and from contiguous copies where not; the
-    views in ``out`` must meet it. A CPU tensor takes
-    :func:`flash_attention_bwd_reference`."""
-    global launches_bwd
+    A CUDA tensor launches a kernel (or raises): the wgmma backward for
+    bf16 at d 64 or 128 (:func:`takes_wgmma_bwd`), ``csrc/
+    flash_attention_bwd.cu`` for the rest. The operands are read through
+    their strides where they meet :func:`tma_operand`'s rule and from
+    contiguous copies where not; the views in ``out`` must meet it. A CPU
+    tensor takes :func:`flash_attention_bwd_reference`."""
+    global launches_bwd, launches_bwd_wgmma
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
@@ -387,6 +427,19 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
     b_h = q.shape[0] * (1 if q.dim() == 3 else q.shape[1])
     if b_h > 65535:
         raise ValueError(f"flash_attention_bwd: B·H = {b_h} > 65535")
+    if takes_wgmma_bwd(q.dtype, q.shape[-1]):
+        if (max(q.shape[-2], k.shape[-2]) + 127) // 128 > 65535:
+            raise ValueError(f"flash_attention_bwd: T {q.shape[-2]}, "
+                             f"{k.shape[-2]} too long")
+        scratch = torch.empty(bwd_scratch_numel(b_h, q.shape[-2]),
+                              dtype=torch.float32, device=q.device)
+        args, strides = bwd_wgmma_args(q, k, v, o, lse.contiguous(), do,
+                                       *out, scratch)
+        _call("flash_attention_bwd_wgmma",
+              (*args, (ctypes.c_longlong * 24)(*strides), float(scale),
+               int(bool(causal))), q.device)
+        launches_bwd_wgmma += 1
+        return out
     delta = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
     args, strides = bwd_args(q, k, v, o, lse.contiguous(), do, *out, delta)
     _call("flash_attention_bwd",

@@ -326,3 +326,99 @@ def test_bwd_args_reject_an_output_the_kernel_cannot_write():
     with pytest.raises(ValueError, match="flash_attention_bwd: dk strides"):
         fa.bwd_args(ok, ok, ok, ok, torch.empty((1, 2, 8)), ok, ok, bad, ok,
                     torch.empty((1, 2, 8)))
+
+
+# ------------------------------------------------- the wgmma backward's route
+@pytest.mark.parametrize("dtype,d,wgmma", [
+    (torch.bfloat16, 64, True), (torch.bfloat16, 128, True),
+    (torch.bfloat16, 32, False), (torch.bfloat16, 80, False),
+    (torch.float32, 64, False), (torch.float32, 128, False)])
+def test_bwd_dispatch_by_dtype_and_head_dim(dtype, d, wgmma):
+    """bf16 at d 64 and 128 (the model's layer) takes the wgmma backward;
+    every other pair the forwards take goes to the mma.sync / f32 one."""
+    assert fa.takes_wgmma_bwd(dtype, d) is wgmma
+
+
+@pytest.mark.parametrize("b_h,t_q,want", [(1, 1, 2 * 64), (3, 64, 6 * 64),
+                                           (2, 65, 4 * 128),
+                                           (128, 1024, 256 * 1024)])
+def test_bwd_scratch_is_d_and_lse_padded_to_query_tiles(b_h, t_q, want):
+    assert fa.bwd_scratch_numel(b_h, t_q) == want
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_bwd_wgmma_args_on_fused_views_and_one_gradient_buffer(hd):
+    """The model's backward: q, k, v the column blocks of one (B, T, 3C)
+    projection, o and dO the (B, H, T, hd) views of (B, T, C) buffers, and
+    dq, dk, dv the column blocks of one (B, T, 3C) gradient, all passed by
+    pointer and stride as they are."""
+    b, t, h = 2, 5, 3
+    c = h * hd
+    qkv, q, k, v, o = _fused_qkv_views(b, t, h, hd)
+    dqkv, dq, dk, dv, g = _fused_qkv_views(b, t, h, hd)
+    o4, do4 = o.transpose(1, 2), g.transpose(1, 2)
+    lse = torch.empty((b, h, t))
+    scratch = torch.empty(fa.bwd_scratch_numel(b * h, t))
+    args, strides = fa.bwd_wgmma_args(q, k, v, o4, lse, do4, dq, dk, dv,
+                                      scratch)
+    item = 2
+    base, gbase = qkv.data_ptr(), dqkv.data_ptr()
+    assert args[:10] == (base, base + c * item, base + 2 * c * item,
+                         o.data_ptr(), g.data_ptr(), lse.data_ptr(),
+                         gbase, gbase + c * item, gbase + 2 * c * item,
+                         scratch.data_ptr())
+    assert args[10:] == (b, h, t, t, hd)
+    fused, plain = (t * 3 * c, hd, 3 * c), (t * c, hd, c)
+    assert strides == list(fused * 3 + plain * 2 + fused * 3)
+    for x in (q, k, v, o4, do4, dq, dk, dv):
+        assert not x.is_contiguous()
+
+
+def test_bwd_wgmma_args_of_3d_operands_have_one_head():
+    q = torch.zeros((6, 33, 64), dtype=torch.bfloat16)
+    grads = [torch.empty_like(q) for _ in range(3)]
+    scratch = torch.empty(fa.bwd_scratch_numel(6, 33))
+    args, strides = fa.bwd_wgmma_args(q, q, q, q, torch.empty((6, 33)), q,
+                                      *grads, scratch)
+    assert args[9] == scratch.data_ptr()
+    assert args[10:] == (6, 1, 33, 33, 64)
+    assert strides == [33 * 64, 33 * 64, 64] * 8
+
+
+@pytest.mark.parametrize("bad,match", [
+    ("row_stride", "flash_attention_bwd: do strides"),
+    ("misaligned", "flash_attention_bwd: v does not start"),
+    ("dtype", "takes bf16 at head dim 64 or 128"),
+    ("head_dim", "takes bf16 at head dim 64 or 128"),
+    ("scratch", "scratch needs 256 f32"),
+])
+def test_bwd_wgmma_args_reject_what_the_kernel_cannot_take(bad, match):
+    ok = torch.zeros((1, 2, 8, 64), dtype=torch.bfloat16)
+    ops = dict(q=ok, k=ok, v=ok, o=ok, do=ok, dq=ok, dk=ok, dv=ok)
+    scratch = torch.empty(fa.bwd_scratch_numel(2, 8))
+    if bad == "row_stride":         # rows 136 bytes apart
+        ops["do"] = torch.zeros((1, 2, 8, 68), dtype=torch.bfloat16)[..., :64]
+    elif bad == "misaligned":       # starts one element into its storage
+        ops["v"] = torch.zeros((1, 2, 8, 65), dtype=torch.bfloat16)[..., 1:]
+    elif bad == "dtype":
+        ops = {n: x.float() for n, x in ops.items()}
+    elif bad == "head_dim":
+        ops = {n: x[..., :32] for n, x in ops.items()}
+    else:
+        scratch = scratch[:-1]
+    with pytest.raises(ValueError, match=match):
+        fa.bwd_wgmma_args(ops["q"], ops["k"], ops["v"], ops["o"],
+                          torch.empty((1, 2, 8)), ops["do"], ops["dq"],
+                          ops["dk"], ops["dv"], scratch)
+
+
+def test_bwd_cpu_path_counts_no_launch_of_either_backward():
+    """On the CPU both backwards' counters stay put: the plain version is
+    no launch."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _inputs((1, 2, 16, 64)))
+    o, lse = fa.flash_attention_fwd(q, k, v, True)
+    fa.launches_bwd = fa.launches_bwd_wgmma = 0
+    got = fa.flash_attention_bwd(q, k, v, o, lse, torch.ones_like(o), True)
+    assert (fa.launches_bwd, fa.launches_bwd_wgmma) == (0, 0)
+    assert all(g.dtype == torch.bfloat16 for g in got)

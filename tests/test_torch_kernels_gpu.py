@@ -6,13 +6,15 @@ only PyTorch and the CUDA toolkit::
 
     timeout 120 python -m pytest --noconftest -m gpu \\
         tests/test_torch_kernels_gpu.py -k "one_key_tile or one_tile"
+    timeout 120 python -m pytest --noconftest -m gpu \\
+        tests/test_torch_kernels_gpu.py -k bwd_wgmma_one_tile
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 
 (``--noconftest`` because the suite's conftest sets up JAX.) Tolerances as
 in PERF.md: bf16 ``o`` atol 2e-2, f32 ``o`` atol 5e-5, ``lse`` atol 1e-3;
-the backward's are stated with its tests below. The wgmma kernel takes
-bf16 at d 64 and 128; the simple kernel f32 and the other head dims; the
-backward kernel every one of them.
+the backward's are stated with its tests below. The wgmma kernels (forward
+and backward) take bf16 at d 64 and 128; the simple forward and the
+``mma.sync`` backward f32 and the other head dims.
 """
 import pytest
 import torch
@@ -147,10 +149,12 @@ def _bwd_held_to_reference(q, k, v, causal, do, out=None):
     _o, lse_plain = fa.flash_attention_reference(q, k, v, causal)
     # the forward's lse is the natural-log lse that exp(s - lse) needs
     assert (lse - lse_plain).abs().max().item() <= 1e-3
-    fa.launches_bwd = 0
+    fa.launches_bwd = fa.launches_bwd_wgmma = 0
     got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal, out=out)
     torch.cuda.synchronize()
-    assert fa.launches_bwd == 1
+    wgmma = fa.takes_wgmma_bwd(q.dtype, q.shape[-1])
+    assert (fa.launches_bwd_wgmma, fa.launches_bwd) == (
+        (1, 0) if wgmma else (0, 1))
     ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal)
     bf16 = q.dtype == torch.bfloat16
     tol, tile_tol, floor = (1e-2, 1e-3, 1e-3) if bf16 else (1e-5, 5e-7, 1e-6)
@@ -164,11 +168,24 @@ def _bwd_held_to_reference(q, k, v, causal, do, out=None):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("causal", [True, False])
-def test_bwd_one_tile(cuda, causal):
-    """One 64-row query tile against one 64-row key tile: the mma
-    fragments, the transposed products and the stores, before anything
-    larger."""
+def test_bwd_wgmma_one_tile(cuda, causal):
+    """The wgmma backward on one 64-row query tile against one 64-row key
+    tile (one block of each kernel, one pass of each ring, half of each
+    block's own rows past T): the SS and RS descriptors, the accumulator
+    and A-fragment layouts, the lse and D stages and the stores, before
+    anything larger."""
     q, k, v, do = (_rand((2, 64, 64), 20 + i, torch.bfloat16)
+                   for i in range(4))
+    _bwd_held_to_reference(q, k, v, causal, do)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+def test_bwd_one_tile(cuda, causal):
+    """The ``mma.sync`` backward (bf16 at d 32) on one 64-row query tile
+    against one 64-row key tile: the mma fragments, the transposed products
+    and the stores, before anything larger."""
+    q, k, v, do = (_rand((2, 64, 32), 20 + i, torch.bfloat16)
                    for i in range(4))
     _bwd_held_to_reference(q, k, v, causal, do)
 
@@ -182,6 +199,11 @@ def test_bwd_one_tile(cuda, causal):
     (torch.bfloat16, True, 129, 129, 128),
     (torch.bfloat16, False, 300, 77, 64),
     (torch.bfloat16, True, 77, 200, 64),    # keys past every query row
+    (torch.bfloat16, True, 77, 300, 128),
+    # d 128: 16 query tiles and 16 key tiles wrap each 3-stage ring 5 times
+    (torch.bfloat16, True, 1000, 1000, 128),
+    (torch.bfloat16, False, 1000, 1000, 128),
+    (torch.bfloat16, False, 130, 1000, 64),
     (torch.bfloat16, True, 200, 200, 32),
     (torch.bfloat16, True, 129, 129, 80),
     (torch.float32, True, 256, 256, 64),
@@ -218,15 +240,48 @@ def test_bwd_kernel_on_fused_qkv_views(cuda, b, h, t, hd, dtype):
 
 @pytest.mark.gpu
 def test_autograd_function_launches_both_kernels(cuda):
+    """The model's layer (fused QKV, bf16, d 64) goes through the wgmma
+    forward and the wgmma backward, and neither of the other two."""
     b, t, h, hd = 2, 256, 16, 64
     x = _rand((b, t, 3 * h * hd), 5, torch.bfloat16).requires_grad_()
-    fa.launches_wgmma = fa.launches_simple = fa.launches_bwd = 0
+    fa.launches_wgmma = fa.launches_simple = 0
+    fa.launches_bwd = fa.launches_bwd_wgmma = 0
     o = fa.FlashAttention.apply(h, True, hd ** -0.5, x)
     (g,) = torch.autograd.grad(o, x, torch.ones_like(o))
     torch.cuda.synchronize()
-    assert (fa.launches_wgmma, fa.launches_simple, fa.launches_bwd) == (
-        1, 0, 1)
+    assert (fa.launches_wgmma, fa.launches_bwd_wgmma) == (1, 1)
+    assert (fa.launches_simple, fa.launches_bwd) == (0, 0)
     assert g.shape == x.shape and g.isfinite().all()
+
+
+@pytest.mark.gpu
+def test_wgmma_kernels_launch_from_a_thread_that_has_no_context(cuda):
+    """Autograd runs a backward on a thread of its own; before anything
+    else touches CUDA there, no context is current on it, and the wgmma
+    kernels' tensor maps must still be encoded (both bind the context)."""
+    import threading
+    q, k, v, do = (_rand((2, 128, 64), 40 + i, torch.bfloat16)
+                   for i in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v, True)
+    torch.cuda.synchronize()
+    got, errors = [], []
+
+    def run():
+        try:
+            got.append(fa.flash_attention_fwd(q, k, v, True))
+            got.append(fa.flash_attention_bwd(q, k, v, o, lse, do, True))
+            torch.cuda.synchronize()
+        except Exception as e:      # re-raised on the test's thread
+            errors.append(e)
+
+    worker = threading.Thread(target=run)
+    worker.start()
+    worker.join()
+    assert not errors, errors
+    ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, True)
+    for g, r in zip(got[1], ref):
+        assert (g.float() - r.float()).abs().max().item() <= 1e-2 * max(
+            1.0, r.float().abs().max().item())
 
 
 # ------------------------------------------------------------- LM head
