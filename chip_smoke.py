@@ -32,6 +32,12 @@ and that the wgmma backward's kernels spill nothing, then:
    then the training step's tied LM head (bf16 product into f32 logits,
    bf16 dlogits in its backward) against autograd through the f32 product
    at the training layer;
+   then K3 (chunked cross-entropy: the forward K3f and one chunk's dlogits
+   K3b) and K7 (MoE dispatch K7d and combine K7c, each also in its
+   gradient mode) against their plain versions at the training shapes and
+   at ragged and small ones, timed the same two ways beside their bounds
+   and the library calls they stand for (the unchunked head + CE and its
+   backward; ``index_copy_`` / ``index_add_``);
 3. slice phase — serves generation from ``TransformerLM`` at the full
    width of the bench's large config (vocab 32768, 12 layers, 16 heads,
    d_model 1024, d_ff 4096, max_len 1024, bf16, fused QKV; random weights
@@ -41,14 +47,19 @@ and that the wgmma backward's kernels spill nothing, then:
    layer and the simple kernel never;
 4. profile phase — one ``torch.profiler`` window over a single prefill at
    bucket 1024: the device's busy share and the top device kernels;
-5. training phase — ``make_train_step(adamw(3e-4))`` at the same config,
-   batch 8 × 1024 tokens (bench.py's first rung): 2 warm and 5 timed steps
-   on one batch (ms per step, tokens/s, MFU by bench.py's count, peak
-   memory), a falling finite loss, the wgmma forward and the wgmma
-   backward launched once per layer per step and the simple forward and
-   the ``mma.sync`` backward never; then one gradient on the kernels
-   against one on their plain versions, and a profiler window over one
-   step.
+5. training phase — ``make_train_step(adamw(3e-4))`` at the same config on
+   each of bench.py's rungs (batch, remat, ce_chunks) = (8, no, 0),
+   (8, no, 8), (8, yes, 8), (4, yes, 8): 2 warm and 5 timed steps on one
+   batch (ms per step, tokens/s, MFU by bench.py's count, peak memory), a
+   falling finite loss, every kernel's launches a step as
+   ``expected_per_step`` says (the wgmma forward twice per layer under
+   remat), the first-step loss of the batch-8 rungs equal; one gradient on
+   the kernels against one on their plain versions at (8, no, 8), and
+   profiler windows over a step of each batch-8 rung;
+6. MoE phase — the same config with a top-1 MoE FFN of 8 experts at
+   capacity 1.25, (8, no, 8): the steps as above (K7 twice per layer a
+   step), a profiled step, one gradient against K7's plain versions, and
+   greedy generation from the trained model through ``DecodeEngine``.
 
 Every phase must pass: any failure exits nonzero. Output is one JSON
 object per line; the last line is ``{"ok": true, "device": {...}}``.
@@ -124,6 +135,12 @@ SOURCES = {"wgmma": "flash_attention_fwd_wgmma.cu",
            "bwd": "flash_attention_bwd.cu"}
 # the launch counters of the four kernels, in the order counts() gives them
 KERNELS = ("wgmma", "simple", "bwd_wgmma", "bwd")
+# every kernel of the port, in the order all_counts() gives their launches:
+# the four flash kernels, then K3f, K3b, K7d and K7c
+ALL_KERNELS = KERNELS + ("ce_fwd", "ce_dlogits", "moe_dispatch",
+                         "moe_combine")
+SOURCES.update(ce_fwd="chunked_ce.cu", ce_dlogits="chunked_ce.cu",
+               moe_dispatch="moe_route.cu", moe_combine="moe_route.cu")
 # K2 (backward) cases, laid out as KERNEL_CASES: "fused" takes q, k, v from
 # one (B, T, 3·H·d) projection, o from the forward written as TransformerLM
 # writes it, dO as the (B, H, T, d) view of a (B, T, H·d) gradient, and
@@ -159,15 +176,59 @@ TOL_GRAD_TILE_L2 = {"bfloat16": 1e-3, "float32": 5e-7}
 GRAD_RMS_FLOOR = {"bfloat16": 1e-3, "float32": 1e-6}
 TOL_STEP_LOSS = 5e-5
 TOL_STEP_LEAF = 1.5e-2
+# the same at the MoE phase with only K7 on its plain version: combine's f32
+# sums (fused multiply-adds against rounded products) move a bf16 ulp here
+# and there, and 12 layers carry it back to the first ones; set from the
+# readings (|Δloss| 0, worst leaf 2.7e-3 at pos_emb; PERF.md)
+TOL_MOE_STEP_LOSS = 5e-5
+TOL_MOE_STEP_LEAF = 1e-2
 # the tied LM head on the card (bf16 operands, f32 logits, bf16 dlogits in
 # its backward) vs autograd through the f32 product, at the training layer:
 # relative L2 error of the logits and of each gradient
 TOL_HEAD = {"logits": 5e-6, "dx": 5e-3, "de": 5e-3}
-# the training phase: bench.py's first rung of the large config
+# the training phase: bench.py's ladder for the large config, as (batch,
+# remat, ce_chunks) (bench.py:323-324); the first rung is the one profiled
 TRAIN_BATCH = 8
+TRAIN_RUNGS = ((8, False, 0), (8, False, 8), (8, True, 8), (4, True, 8))
+GRAD_RUNG = (8, False, 8)          # the rung of the kernels-vs-plain gradient
+PROFILED_RUNGS = TRAIN_RUNGS[:3]   # a profiler window over one step of each
 WARM_STEPS = 2
 TIMED_STEPS = 5
 LEARNING_RATE = 3e-4
+# the MoE training phase: the large config with a top-1 MoE FFN of 8 experts
+# (capacity factor 1.25), ce_chunks 8, batch 8, no remat
+MOE_EXPERTS = 8
+MOE_RUNG = (8, False, 8)
+# K3 (chunked cross-entropy) cases: (rows N, vocab V, d, dtype, ce chunks);
+# the first is the training layer (bench large config, batch 8)
+CE_CASES = [
+    (8192, 32768, 1024, "bfloat16", 8),
+    (4096, 32768, 1024, "bfloat16", 8),      # batch 4
+    (1000, 5000, 1024, "bfloat16", 4),       # ragged rows and vocab
+    (1, 384, 64, "bfloat16", 3),
+    (1024, 4096, 256, "float32", 4),
+]
+# K7 (MoE dispatch / combine) cases: (tokens G, experts E, slots C, top_k,
+# d, dtype); the first is the training layer (G 8192, cf 1.25 top-1)
+MOE_CASES = [
+    (8192, 8, 1280, 1, 1024, "bfloat16"),
+    (8192, 8, 2560, 2, 1024, "bfloat16"),    # top-2 at cf 1.25
+    (1000, 8, 100, 2, 512, "bfloat16"),      # drops
+    (8, 2, 4, 1, 64, "bfloat16"),
+    (300, 4, 100, 2, 96, "float32"),
+]
+# tolerances (PERF.md gives the reasons): K3f's lse and loss against the
+# plain version; K3b's dlogits off the target entries by relative L2, and at
+# the target entries by max |Δ| over g/N; K7's gathers exact, combine within
+# one bf16 ulp of its largest output (1e-6 in f32), d_gate 1e-2 (1e-5)
+TOL_CE_LSE = 1e-4
+TOL_CE_DLOG_L2 = {"bfloat16": 5e-3, "float32": 1e-5}
+TOL_CE_DLOG_TARGET = {"bfloat16": 2 ** -7, "float32": 1e-5}
+TOL_MOE_COMBINE = {"bfloat16": 2 ** -8, "float32": 1e-6}
+TOL_MOE_DGATE = {"bfloat16": 1e-2, "float32": 1e-5}
+# the first-step loss of a rung with ce_chunks (or remat) against the same
+# batch and weights at (8, False, 0): f32 sums in another order
+TOL_RUNG_LOSS = 5e-5
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 FMA
 # (no TF32 in the port), device memory bandwidth
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -207,11 +268,18 @@ def time_ms(fn, torch, iters=20, repeats=7):
     return statistics.median(times)
 
 
+_SIDE = []
+
+
 def device_ms(fn, torch, launches=20, repeats=7):
     """Device time per call of ``fn``: ``launches`` calls captured into one
     CUDA graph, the median over ``repeats`` replays timed with CUDA events.
-    The host's work runs once, at capture, so it is not in the time."""
-    side = torch.cuda.Stream()
+    The host's work runs once, at capture, so it is not in the time. One
+    side stream serves every call: cuBLAS keeps a 32 MiB workspace for
+    each stream a product ran on, for the life of the process."""
+    if not _SIDE:
+        _SIDE.append(torch.cuda.Stream())
+    side = _SIDE[0]
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
@@ -597,6 +665,352 @@ def reset_counts(fa):
     fa.launches_bwd_wgmma = fa.launches_bwd = 0
 
 
+def all_counts():
+    """Launches of every kernel of the port, in the order of ALL_KERNELS."""
+    from deeplearning4j_tpu_torch.kernels import chunked_ce as ce
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+    from deeplearning4j_tpu_torch.kernels import moe_route as mr
+    return counts(fa) + (ce.launches_fwd, ce.launches_dlogits,
+                         mr.launches_dispatch, mr.launches_combine)
+
+
+def reset_all_counts():
+    from deeplearning4j_tpu_torch.kernels import chunked_ce as ce
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+    from deeplearning4j_tpu_torch.kernels import moe_route as mr
+    reset_counts(fa)
+    ce.launches_fwd = ce.launches_dlogits = 0
+    mr.launches_dispatch = mr.launches_combine = 0
+
+
+def ce_fwd_bound_ms(n, v, d, dtype):
+    """K3f's least time: 2·N·V·d FLOPs of the logits over the peak of the
+    type, against x and E read once, targets read and lse written once."""
+    item = 2 if dtype == "bfloat16" else 4
+    return _bound(2.0 * n * v * d, item * (n + v) * d + 8 * n + 4 * n + 4,
+                  dtype)
+
+
+def ce_dlogits_bound_ms(n, c, d, dtype):
+    """One K3b launch's least time: 2·N·C·d FLOPs against x, the chunk of
+    E, targets and lse read once and the (N, C) dlogits written once."""
+    item = 2 if dtype == "bfloat16" else 4
+    return _bound(2.0 * n * c * d,
+                  item * (n + c) * d + 12 * n + item * n * c, dtype)
+
+
+def moe_bound_ms(rows_read, rows_written, d, dtype, index_bytes):
+    """A K7 launch's least time: the rows it must read and write, each
+    once, and its index maps, over the memory rate (no arithmetic to
+    speak of)."""
+    item = 2 if dtype == "bfloat16" else 4
+    return _bound(0.0, item * d * (rows_read + rows_written) + index_bytes,
+                  dtype)
+
+
+def dlogits_errors(got, ref, t_local, scale):
+    """(relative L2 error off the targets, max |Δ| at the targets over
+    ``scale``) of one chunk's dlogits; ``t_local`` holds each row's target
+    column in the chunk, or −1. Held apart because the target entries
+    (≈ −g/N) would hide a wrong softmax (≈ g/(N·V) each) in any norm over
+    all entries."""
+    import torch
+    got, ref = got.float(), ref.float()
+    on = torch.zeros_like(ref, dtype=torch.bool)
+    rows = torch.nonzero(t_local >= 0)[:, 0]
+    on[rows, t_local[rows]] = True
+    off_ref = torch.where(on, 0.0, ref)
+    off_err = torch.where(on, 0.0, got - ref)
+    rel = (off_err.norm() / off_ref.norm().clamp_min(1e-30)).item()
+    at = ((got - ref)[on].abs().max().item() / scale) if bool(on.any()) \
+        else 0.0
+    return rel, at
+
+
+def ce_phase(torch):
+    """K3f and K3b against their plain versions at each of CE_CASES, timed
+    as the flash kernels are. K3f's library time is the unchunked path it
+    replaces, two calls: the tied head's product into f32 logits
+    (``_TiedHead``, or the f32 product) and logsumexp minus the gathered
+    target logit; K3b's is that path's backward (the f32 dlogits, then the
+    head's bf16 backward), as the difference of its forward + backward and
+    its forward. K3b itself is timed per launch (one ce chunk) and as the
+    whole chunked backward (every chunk's K3b and its two products)."""
+    from deeplearning4j_tpu_torch.kernels import chunked_ce as ce
+    from deeplearning4j_tpu_torch.models.transformer import _TiedHead
+    results = {}
+    for case in CE_CASES:
+        n, v, d, dtype, chunks = case
+        dt = getattr(torch, dtype)
+        g = torch.Generator(device="cuda").manual_seed(n * 7 + v + d)
+        x = torch.randn((n, d), generator=g, device="cuda").to(dt)
+        e = (0.02 * torch.randn((v, d), generator=g, device="cuda")).to(dt)
+        t = torch.randint(0, v, (n,), generator=g, device="cuda")
+        c = v // chunks
+        t[: min(n, 3)] = torch.tensor([0, c, v - 1], device="cuda")[
+            : min(n, 3)]
+        ce.launches_fwd = ce.launches_dlogits = 0
+        lse, loss = ce.chunked_ce_fwd(x, e, t, chunks)
+        torch.cuda.synchronize()
+        check(ce.launches_fwd == 1, f"K3f {case}: launched "
+              f"{ce.launches_fwd}")
+        lse_ref, cor = ce.chunked_ce_fwd_reference(x, e, t, chunks)
+        err_lse = (lse - lse_ref).abs().max().item()
+        err_loss = abs(loss.item() - (lse_ref - cor).mean().item())
+        check(err_lse <= TOL_CE_LSE and err_loss <= TOL_CE_LSE,
+              f"K3f {case}: max |dlse| {err_lse}, |dloss| {err_loss} > "
+              f"{TOL_CE_LSE}")
+        gr = torch.ones((), device="cuda")
+        e0 = e[:c]
+        dlog = ce.ce_dlogits(x, e0, t, lse_ref, 0, gr, n)
+        ref = ce.ce_dlogits_reference(x, e0, t, lse_ref, 0, gr, n)
+        torch.cuda.synchronize()
+        check(ce.launches_dlogits == 1, f"K3b {case}: launched "
+              f"{ce.launches_dlogits}")
+        local = torch.where(t < c, t, -1)
+        rel, at = dlogits_errors(dlog, ref, local, 1.0 / n)
+        check(rel <= TOL_CE_DLOG_L2[dtype] and at <= TOL_CE_DLOG_TARGET[dtype],
+              f"K3b {case}: relative L2 off the targets {rel}, at the "
+              f"targets {at} of g/N")
+        err_dlog = (dlog.float() - ref.float()).abs().max().item()
+        del ref
+
+        def head_fwd(xs, es):
+            if dt == torch.bfloat16:
+                logits = _TiedHead.apply(xs, es)
+            else:
+                logits = xs @ es.T
+            return (torch.logsumexp(logits, -1)
+                    - logits.gather(-1, t[:, None])[:, 0]).mean()
+
+        def library_fwd():
+            xs, es = (a.detach().requires_grad_() for a in (x, e))
+            head_fwd(xs, es)
+
+        def library():
+            xs, es = (a.detach().requires_grad_() for a in (x, e))
+            torch.autograd.grad(head_fwd(xs, es), (xs, es))
+
+        def fwd():
+            ce.chunked_ce_fwd(x, e, t, chunks)
+
+        def dlogits():
+            ce.ce_dlogits(x, e0, t, lse_ref, 0, gr, n)
+
+        def backward():
+            ce.chunked_ce_bwd(x, e, t, lse_ref, gr, chunks)
+
+        big = n * v >= 2 ** 26
+        row = {"n": n, "v": v, "d": d, "dtype": dtype, "ce_chunks": chunks,
+               "max_abs_err_lse": err_lse, "abs_err_loss": err_loss,
+               "max_abs_err_dlogits": err_dlog,
+               "dlogits_rel_l2_off_target": rel,
+               "dlogits_err_at_target_over_scale": at,
+               "fwd_ms": time_ms(fwd, torch),
+               "fwd_device_ms": device_ms(fwd, torch),
+               "fwd_plain_ms": time_ms(
+                   lambda: ce.chunked_ce_fwd_reference(x, e, t, chunks),
+                   torch, iters=3, repeats=3),
+               "dlogits_ms": time_ms(dlogits, torch),
+               "dlogits_device_ms": device_ms(dlogits, torch),
+               "dlogits_plain_ms": time_ms(
+                   lambda: ce.ce_dlogits_reference(x, e0, t, lse_ref, 0, gr,
+                                                   n), torch, iters=3,
+                   repeats=3),
+               "backward_ms": time_ms(backward, torch, iters=5, repeats=5),
+               "backward_device_ms": device_ms(backward, torch, launches=5,
+                                               repeats=5),
+               "library": "_TiedHead (torch.mm out_dtype=f32) + "
+                          "logsumexp - gather; its backward",
+               "library_ms": time_ms(library_fwd, torch, iters=5,
+                                     repeats=5),
+               "library_device_ms": device_ms(library_fwd, torch,
+                                              launches=5, repeats=5),
+               "library_fwd_bwd_device_ms": device_ms(
+                   library, torch, launches=2 if big else 5, repeats=5)}
+        row["library_bwd_device_ms"] = (row["library_fwd_bwd_device_ms"]
+                                        - row["library_device_ms"])
+        row["library_bwd_ms"] = (time_ms(library, torch, iters=5, repeats=5)
+                                 - row["library_ms"])
+        row["fwd_bound_ms"], row["fwd_bound_by"] = ce_fwd_bound_ms(
+            n, v, d, dtype)
+        row["dlogits_bound_ms"], row["dlogits_bound_by"] = \
+            ce_dlogits_bound_ms(n, c, d, dtype)
+        row["fwd_device_vs_bound"] = row["fwd_device_ms"] / row[
+            "fwd_bound_ms"]
+        row["backward_device_vs_bound"] = row["backward_device_ms"] / (
+            chunks * row["dlogits_bound_ms"])
+        emit(ce_case=row)
+        results[case] = row
+        torch.cuda.empty_cache()
+    return results
+
+
+def moe_route_inputs(torch, case):
+    """Routing of random router probabilities for one of MOE_CASES, and
+    x, out_e and dy rows: (gates, slot, src, x, out_e, dy)."""
+    from deeplearning4j_tpu_torch.parallel import moe as tmoe
+    G, E, C, K, d, dtype = case
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(G * 31 + E * 7 + C + d)
+    probs = torch.softmax(torch.randn((G, E), generator=g, device="cuda"), -1)
+    cfg = tmoe.MoEConfig(d_model=d, d_ff=d, num_experts=E, top_k=K)
+    _c, gates, slot, src, _oh = tmoe.route(probs, cfg, C)
+    x, dy = (torch.randn((G, d), generator=g, device="cuda").to(dt)
+             for _ in range(2))
+    out_e = torch.randn((E * C, d), generator=g, device="cuda").to(dt)
+    return gates.to(dt).contiguous(), slot, src, x, out_e, dy
+
+
+def moe_phase(torch):
+    """K7d (dispatch, and with gates combine's backward) and K7c (combine,
+    and with unit gates dispatch's backward) against their plain versions
+    at each of MOE_CASES, timed as the flash kernels are. The library times
+    are index_copy_ into zeroed buffers (dispatch) and index_add_ of the
+    weighted rows (combine)."""
+    from deeplearning4j_tpu_torch.kernels import moe_route as mr
+    results = {}
+    for case in MOE_CASES:
+        G, E, C, K, d, dtype = case
+        gates, slot, src, x, out_e, dy = moe_route_inputs(torch, case)
+        mr.launches_dispatch = mr.launches_combine = 0
+        ei = mr.moe_dispatch(x, src, K)
+        y = mr.moe_combine(out_e, slot, gates)
+        dx = mr.moe_combine(ei, slot)
+        d_out, d_gates = mr.moe_dispatch_grad(dy, src, K, gates, out_e)
+        torch.cuda.synchronize()
+        check((mr.launches_dispatch, mr.launches_combine) == (2, 2),
+              f"K7 {case}: launched {(mr.launches_dispatch, mr.launches_combine)}")
+        check(torch.equal(ei, mr.dispatch_reference(x, src, K)),
+              f"K7d {case}: dispatch differs from its plain version")
+        ref_out, ref_gates = mr.dispatch_grad_reference(dy, src, K, gates,
+                                                        out_e)
+        check(torch.equal(d_out, ref_out),
+              f"K7d {case}: combine's backward rows differ")
+        errs = {}
+        for name, got, ref, tol in (
+                ("combine", y, mr.combine_reference(out_e, slot, gates),
+                 TOL_MOE_COMBINE[dtype]),
+                ("dispatch_grad", dx, mr.combine_reference(ei, slot),
+                 TOL_MOE_COMBINE[dtype]),
+                ("d_gate", d_gates, ref_gates, TOL_MOE_DGATE[dtype])):
+            top = max(ref.float().abs().max().item(), 1e-30)
+            errs[name] = (got.float() - ref.float()).abs().max().item()
+            check(errs[name] <= tol * top, f"K7 {case} {name}: max |Δ| "
+                  f"{errs[name]} > {tol} × {top}")
+        kept_choice = slot >= 0
+        n_kept = int(kept_choice.sum())
+        kept_slot = src >= 0
+        slot_idx = torch.nonzero(kept_slot)[:, 0]
+        tok_idx = (src[kept_slot] // K).long()
+        flat = torch.nonzero(kept_choice.reshape(-1))[:, 0]
+        add_tok = flat // K
+        add_slot = slot.reshape(-1)[flat].long()
+        add_w = gates.reshape(-1)[flat].float()[:, None]
+
+        def dispatch():
+            mr.moe_dispatch(x, src, K)
+
+        def combine():
+            mr.moe_combine(out_e, slot, gates)
+
+        def library_dispatch():
+            torch.zeros_like(out_e).index_copy_(0, slot_idx,
+                                                x.index_select(0, tok_idx))
+
+        def library_combine():
+            torch.zeros((G, d), device="cuda").index_add_(
+                0, add_tok, out_e.index_select(0, add_slot).float() * add_w)
+
+        row = {"g": G, "e": E, "c": C, "top_k": K, "d": d, "dtype": dtype,
+               "kept_choices": n_kept, "max_abs_err": errs,
+               "dispatch_ms": time_ms(dispatch, torch),
+               "dispatch_device_ms": device_ms(dispatch, torch),
+               "dispatch_plain_ms": time_ms(
+                   lambda: mr.dispatch_reference(x, src, K), torch, iters=5,
+                   repeats=5),
+               "dispatch_library_ms": time_ms(library_dispatch, torch),
+               "dispatch_library_device_ms": device_ms(library_dispatch,
+                                                       torch),
+               "combine_ms": time_ms(combine, torch),
+               "combine_device_ms": device_ms(combine, torch),
+               "combine_plain_ms": time_ms(
+                   lambda: mr.combine_reference(out_e, slot, gates), torch,
+                   iters=5, repeats=5),
+               "combine_library_ms": time_ms(library_combine, torch),
+               "combine_library_device_ms": device_ms(library_combine,
+                                                      torch),
+               "library": "zeros + index_copy_ of index_select (dispatch); "
+                          "zeros + index_add_ of weighted index_select "
+                          "(combine)"}
+        row["dispatch_bound_ms"], row["dispatch_bound_by"] = moe_bound_ms(
+            n_kept, E * C, d, dtype, 4 * E * C)
+        row["combine_bound_ms"], row["combine_bound_by"] = moe_bound_ms(
+            n_kept, G, d, dtype, G * K * (4 + (2 if dtype == "bfloat16"
+                                               else 4)))
+        emit(moe_case=row)
+        results[case] = row
+    return results
+
+
+@contextlib.contextmanager
+def plain_kernels(fa, moe_only=False):
+    """The plain versions in place of every kernel of the port (flash
+    attention forward and backward, K3f and K3b, K7d and K7c), or of K7's
+    alone with ``moe_only``, each looked up at call time by its caller: a
+    reference run of the same model on the card."""
+    from deeplearning4j_tpu_torch.kernels import chunked_ce as ce
+    from deeplearning4j_tpu_torch.kernels import moe_route as mr
+    saved = [(mr, "moe_dispatch", mr.moe_dispatch),
+             (mr, "moe_combine", mr.moe_combine),
+             (mr, "moe_dispatch_grad", mr.moe_dispatch_grad)]
+    mr.moe_dispatch = mr.dispatch_reference
+    mr.moe_combine = mr.combine_reference
+    mr.moe_dispatch_grad = mr.dispatch_grad_reference
+    if not moe_only:
+        saved += [(ce, "chunked_ce_fwd", ce.chunked_ce_fwd),
+                  (ce, "ce_dlogits", ce.ce_dlogits)]
+
+        def ce_fwd(x2, emb, targets, n_chunks):
+            lse, correct = ce.chunked_ce_fwd_reference(x2, emb, targets,
+                                                       n_chunks)
+            return lse, (lse - correct).mean()
+
+        ce.chunked_ce_fwd, ce.ce_dlogits = ce_fwd, ce.ce_dlogits_reference
+    try:
+        with (contextlib.nullcontext() if moe_only
+              else plain_attention(fa)):
+            yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def leaf_paths(tree, prefix=""):
+    """Names of a param tree's leaves in ``tree_leaves`` order (dict keys
+    sorted, list items by index)."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in leaf_paths(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree)
+                for p in leaf_paths(v, f"{prefix}/{i}")]
+    return [prefix]
+
+
+def expected_per_step(n_layers, remat, ce_chunks, moe=False):
+    """Launches of each kernel (ALL_KERNELS' order) in one training step:
+    the wgmma forward once per layer (twice under remat: the recompute),
+    the wgmma backward once per layer, K3f once and K3b once per ce chunk
+    when ce_chunks, and for a MoE model K7d and K7c twice per layer (the
+    forward's dispatch and combine, and each one's backward in the other
+    kernel; three times under remat)."""
+    L = n_layers
+    k7 = (3 if remat else 2) * L if moe else 0
+    return ((2 if remat else 1) * L, 0, L, 0, 1 if ce_chunks else 0,
+            ce_chunks, k7, k7)
+
+
 def slice_phase(torch, fa):
     """Full-width generation through the port's entry points. Returns the
     engine, the model and each kernel's launches in the run."""
@@ -638,7 +1052,7 @@ def slice_phase(torch, fa):
         check(toks.shape == shape, f"tokens shape {toks.shape} != {shape}")
         check(bool(((toks >= 0) & (toks < V)).all()), "token out of range")
 
-    reset_counts(fa)
+    reset_all_counts()
     # the main path starts here
     for n in PROMPT_LENS:
         prompt = rng.integers(0, V, (1, n)).astype(np.int32)
@@ -698,7 +1112,7 @@ def slice_phase(torch, fa):
     check(np.array_equal(runs[0], runs[1]), "top-k runs differ")
     emit(topk={"top_k": 40, "temperature": 0.8, "seed": 7,
                "identical": True, "generate_ms": ms})
-    return engine, model, counts(fa)
+    return engine, model, all_counts()
 
 
 def _union_us(intervals, lo, hi):
@@ -758,106 +1172,218 @@ def plain_attention(fa):
         fa.flash_attention_fwd, fa.flash_attention_bwd = kernels
 
 
-def train_phase(torch, fa):
-    """Training at the bench's large config, batch 8 (bench.py's first
-    rung): WARM_STEPS + TIMED_STEPS of ``make_train_step(adamw(3e-4))`` on
-    one batch with targets rolled by −1, each launching the wgmma forward
-    and the wgmma backward once per layer and the simple forward and the
-    ``mma.sync`` backward never; then one gradient
-    on the kernels held against one on the plain versions (loss and each
-    leaf). Returns the launches of the steps and what the profile phase
-    needs."""
+def _train_model(torch, rung, tree_cache, moe=False):
+    """(model, fresh params on the card, n_params, tokens, targets) for one
+    rung (batch, remat, ce_chunks) of the large config: the weights of
+    ``init_jax_layout(cfg, SEED)`` (drawn once per layout and kept in
+    ``tree_cache``), tokens from a numpy seed, targets rolled by −1."""
     from deeplearning4j_tpu_torch.models.transformer import (
         TransformerConfig, TransformerLM)
     from deeplearning4j_tpu_torch.models.weights import (from_jax_params,
                                                          init_jax_layout)
+    from deeplearning4j_tpu_torch.parallel.moe import MoEConfig
     from deeplearning4j_tpu_torch.tree import tree_leaves
-    from deeplearning4j_tpu_torch.optim.adamw import adamw
-
-    cfg = TransformerConfig(**LARGE)
+    batch, remat, chunks = rung
+    cfg = TransformerConfig(**LARGE, remat=remat, ce_chunks=chunks,
+                            moe=MoEConfig(num_experts=MOE_EXPERTS)
+                            if moe else None)
     model = TransformerLM(cfg)
-    params = from_jax_params(init_jax_layout(cfg, SEED), cfg)
+    if moe not in tree_cache:
+        tree_cache[moe] = init_jax_layout(cfg, SEED)
+    params = from_jax_params(tree_cache[moe], cfg)
     n_params = sum(a.numel() for a in tree_leaves(params))
-    L, V, T = cfg.n_layers, cfg.vocab_size, cfg.max_len
     tokens = torch.as_tensor(np.random.default_rng(SEED + 3).integers(
-        0, V, (TRAIN_BATCH, T)).astype(np.int32), device=model.device)
-    targets = torch.roll(tokens, -1, dims=1)
+        0, cfg.vocab_size, (TRAIN_BATCH, cfg.max_len)).astype(np.int32)[
+        :batch], device=model.device)
+    return model, params, n_params, tokens, torch.roll(tokens, -1, dims=1)
+
+
+def active_params(n_params, moe):
+    """Params a token's forward touches: all of them for the dense FFN;
+    for the MoE FFN, top-1 of MOE_EXPERTS experts' W1, b1, W2, b2."""
+    if not moe:
+        return n_params
+    d, f, L = LARGE["d_model"], LARGE["d_ff"], LARGE["n_layers"]
+    per_expert = 2 * d * f + f + d
+    return n_params - L * (MOE_EXPERTS - 1) * per_expert
+
+
+def train_rung(torch, fa, rung, tree_cache, moe=False):
+    """WARM_STEPS + TIMED_STEPS of ``make_train_step(adamw(3e-4))`` at one
+    rung (batch, remat, ce_chunks) of the large config on one batch, each
+    step launching exactly ``expected_per_step`` of every kernel. Returns
+    (row, the launches of the steps, what a profile window needs)."""
+    from deeplearning4j_tpu_torch.optim.adamw import adamw
+    batch, remat, chunks = rung
+    torch.cuda.empty_cache()
+    allocated_at_start = torch.cuda.memory_allocated()
+    model, params, n_params, tokens, targets = _train_model(
+        torch, rung, tree_cache, moe)
+    L, T = model.config.n_layers, model.config.max_len
     opt = adamw(LEARNING_RATE)
     state = opt.init(params)
     step = model.make_train_step(opt)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    allocated_before = torch.cuda.memory_allocated()
     losses, step_ms = [], []
-    reset_counts(fa)
-    per_step = (L, 0, L, 0)
+    per_step = expected_per_step(L, remat, chunks, moe)
+    reset_all_counts()
     for i in range(WARM_STEPS + TIMED_STEPS):    # the main path starts here
-        before = counts(fa)
+        before = all_counts()
         t = time.perf_counter()
         params, state, loss = step(params, state, tokens, targets)
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - t))
-        got = tuple(a - b for a, b in zip(counts(fa), before))
-        check(got == per_step, f"train step {i}: launched {got}, want "
-              f"{per_step} {KERNELS}")
+        got = tuple(a - b for a, b in zip(all_counts(), before))
+        check(got == per_step, f"rung {rung}{' MoE' if moe else ''} step "
+              f"{i}: launched {got}, want {per_step} {ALL_KERNELS}")
         losses.append(loss)
-    launches = counts(fa)                        # ... and ends here
+    launches = all_counts()                      # ... and ends here
     peak_bytes = torch.cuda.max_memory_allocated()
     losses = [float(x) for x in losses]
     check(all(math.isfinite(x) for x in losses), f"losses {losses}")
-    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    check(losses[-1] < losses[0], f"rung {rung}: loss did not fall: "
+          f"{losses}")
     ms = statistics.median(step_ms[WARM_STEPS:])
-    tokens_per_s = TRAIN_BATCH * T / (ms / 1e3)
-    flops_per_token = train_flops_per_token(n_params, L, T, cfg.d_model)
-    emit(train={"batch": TRAIN_BATCH, "seq_len": T, "params": n_params,
-                "losses": losses, "step_ms": step_ms, "ms_per_step": ms,
-                "tokens_per_s": tokens_per_s,
-                "flops_per_token": flops_per_token,
-                "mfu": tokens_per_s * flops_per_token
-                / PEAK_FLOPS["bfloat16"],
-                "peak_memory_bytes": peak_bytes,
-                "launches": dict(zip(KERNELS, launches))})
+    tokens_per_s = batch * T / (ms / 1e3)
+    flops_per_token = train_flops_per_token(active_params(n_params, moe), L,
+                                            T, model.config.d_model)
+    row = {"batch": batch, "remat": remat, "ce_chunks": chunks,
+           "moe": moe, "seq_len": T, "params": n_params,
+           "active_params": active_params(n_params, moe),
+           "losses": losses, "step_ms": step_ms, "ms_per_step": ms,
+           "tokens_per_s": tokens_per_s, "flops_per_token": flops_per_token,
+           "mfu": tokens_per_s * flops_per_token / PEAK_FLOPS["bfloat16"],
+           "peak_memory_bytes": peak_bytes,
+           # what earlier phases left allocated, and that plus the params
+           # and AdamW's moments
+           "allocated_at_start_bytes": allocated_at_start,
+           "allocated_before_steps_bytes": allocated_before,
+           "launches_per_step": dict(zip(ALL_KERNELS, per_step)),
+           "launches": dict(zip(ALL_KERNELS, launches))}
+    emit(train=row)
+    return row, launches, (model, step, params, state, tokens, targets)
 
-    # one gradient on the kernels and one on the plain versions, same
-    # weights and batch
+
+def grad_vs_plain(torch, fa, label, model, params, tokens, targets,
+                  tol_loss, tol_leaf, moe_only=False):
+    """One gradient on the kernels and one on their plain versions (K7's
+    alone with ``moe_only``), same weights and batch: |Δloss| and each
+    leaf's relative L2 error, the three worst leaves named."""
+    from deeplearning4j_tpu_torch.tree import tree_leaves
     loss_k, grads_k = model.loss_and_grads(params, tokens, targets)
     leaves_k = tree_leaves(grads_k)
     check(all(bool(g.isfinite().all()) for g in leaves_k),
-          "a gradient leaf is not finite")
-    with plain_attention(fa):
+          f"{label}: a gradient leaf is not finite")
+    with plain_kernels(fa, moe_only):
         loss_p, grads_p = model.loss_and_grads(params, tokens, targets)
     rel = [((a - b).norm() / b.norm().clamp_min(1e-30)).item()
            for a, b in zip(leaves_k, tree_leaves(grads_p))]
     d_loss = abs(float(loss_k) - float(loss_p))
-    emit(train_vs_plain={"loss": float(loss_k), "plain_loss": float(loss_p),
-                         "abs_diff_loss": d_loss,
-                         "max_leaf_rel_l2": max(rel),
-                         "median_leaf_rel_l2": statistics.median(rel),
-                         "leaves": len(rel)})
-    check(d_loss <= TOL_STEP_LOSS, f"loss on the kernels {float(loss_k)} vs "
-          f"plain {float(loss_p)}")
-    check(max(rel) <= TOL_STEP_LEAF, f"a gradient leaf's relative L2 error "
-          f"{max(rel)} > {TOL_STEP_LEAF}")
-    del grads_k, grads_p, leaves_k
+    worst = sorted(zip(rel, leaf_paths(grads_k)), reverse=True)[:3]
+    emit(**{label: {"loss": float(loss_k), "plain_loss": float(loss_p),
+                    "abs_diff_loss": d_loss, "max_leaf_rel_l2": max(rel),
+                    "median_leaf_rel_l2": statistics.median(rel),
+                    "worst_leaves": [[p, r] for r, p in worst],
+                    "leaves": len(rel), "plain": "K7" if moe_only else "all",
+                    "tolerance": [tol_loss, tol_leaf]}})
+    check(d_loss <= tol_loss, f"{label}: loss on the kernels "
+          f"{float(loss_k)} vs plain {float(loss_p)}")
+    check(max(rel) <= tol_leaf, f"{label}: a gradient leaf's relative L2 "
+          f"error {max(rel)} > {tol_leaf}")
+
+
+def train_phase(torch, fa):
+    """bench.py's ladder for the large config (TRAIN_RUNGS), each rung on
+    fresh copies of the same weights: the first-step loss of every rung at
+    batch 8 equals the (8, False, 0) rung's within f32 sum order; one
+    gradient on the kernels held against the plain versions at GRAD_RUNG;
+    a profiler window over one step of each of PROFILED_RUNGS.
+    Returns each kernel's launches over the rungs' steps."""
+    trees, total, first = {}, [0] * len(ALL_KERNELS), {}
+    for rung in TRAIN_RUNGS:
+        row, launches, (model, step, params, state, tokens, targets) = \
+            train_rung(torch, fa, rung, trees)
+        total = [a + b for a, b in zip(total, launches)]
+        first[rung] = row["losses"][0]
+        if rung[0] == TRAIN_BATCH:
+            check(abs(first[rung] - first[TRAIN_RUNGS[0]]) <= TOL_RUNG_LOSS,
+                  f"rung {rung}: first-step loss {first[rung]} vs "
+                  f"{first[TRAIN_RUNGS[0]]} at {TRAIN_RUNGS[0]}")
+        if rung in PROFILED_RUNGS:
+            name = "train_step%s_trace.json" % "".join(
+                s for s, on in (("_ce%d" % rung[2], rung[2]),
+                                ("_remat", rung[1])) if on)
+            train_profile_phase(torch, rung, row["ms_per_step"], step,
+                                params, state, tokens, targets, name)
+        if rung == GRAD_RUNG:
+            grad_vs_plain(torch, fa, "train_vs_plain", model, params, tokens,
+                          targets, TOL_STEP_LOSS, TOL_STEP_LEAF)
+        del model, step, params, state
+    emit(rung_first_losses={str(k): v for k, v in first.items()})
+    return tuple(total)
+
+
+def moe_train_phase(torch, fa):
+    """Training at the large config with a top-1 MoE FFN (MOE_EXPERTS,
+    capacity factor 1.25) at MOE_RUNG, then one gradient on the kernels
+    against the plain versions, then greedy generation from the trained
+    model through ``DecodeEngine``. Returns each kernel's launches over the
+    training steps."""
+    row, launches, (model, step, params, state, tokens, targets) = \
+        train_rung(torch, fa, MOE_RUNG, {}, moe=True)
+    train_profile_phase(torch, MOE_RUNG, row["ms_per_step"], step, params,
+                        state, tokens, targets, "train_step_moe_trace.json",
+                        moe=True)
+    _loss, aux = model.loss_fn(params, tokens, targets, with_aux=True)
+    emit(moe_aux={k: (v.tolist() if v.dim() else float(v))
+                  for k, v in aux.items()})
+    grad_vs_plain(torch, fa, "moe_train_vs_plain", model, params, tokens,
+                  targets, TOL_MOE_STEP_LOSS, TOL_MOE_STEP_LEAF,
+                  moe_only=True)
+    # the trained MoE model serves through DecodeEngine (paged, greedy)
+    from deeplearning4j_tpu_torch.models.generation import DecodeEngine
+    del step, state
+    engine = DecodeEngine(model, params, max_len=LARGE["max_len"])
+    prompt = np.random.default_rng(SEED + 5).integers(
+        0, LARGE["vocab_size"], (2, 100)).astype(np.int32)
+    before = all_counts()
+    t = time.perf_counter()
+    toks = engine.generate(prompt, N_NEW)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t)
+    served = tuple(a - b for a, b in zip(all_counts(), before))
+    check(toks.shape == (2, N_NEW) and bool(((toks >= 0) & (
+        toks < LARGE["vocab_size"])).all()), f"MoE generate: {toks.shape}")
+    check(served[6] > 0 and served[7] > 0 and served[4:6] == (0, 0),
+          f"MoE generate launched {served} {ALL_KERNELS}")
+    emit(moe_generate={"batch": 2, "prompt_len": 100, "new_tokens": N_NEW,
+                       "generate_ms": ms,
+                       "launches": dict(zip(ALL_KERNELS, served))})
+    del model, params, engine
     torch.cuda.empty_cache()
-    return launches, ms, (step, params, state, tokens, targets)
+    return launches
 
 
-def train_profile_phase(torch, fa, step_ms, step, params, state, tokens,
-                        targets):
-    """One torch.profiler window over one training step. The profiler's
-    own host work stretches the window, so the device's busy time is also
-    given over ``step_ms``, the median unprofiled step."""
+def train_profile_phase(torch, rung, step_ms, step, params, state, tokens,
+                        targets, trace_name="train_step_trace.json",
+                        moe=False):
+    """One torch.profiler window over one training step of ``rung``. The
+    profiler's own host work stretches the window, so the device's busy
+    time is also given over ``step_ms``, the median unprofiled step."""
     L = LARGE["n_layers"]
-    reset_counts(fa)
+    reset_all_counts()
     row = profile_window(torch, "train_step",
                          lambda: step(params, state, tokens, targets),
-                         "train_step_trace.json", top=15)
-    check(counts(fa) == (L, 0, L, 0),
-          f"profiled step launched {counts(fa)}")
+                         trace_name, top=15)
+    want = expected_per_step(L, rung[1], rung[2], moe)
+    check(all_counts() == want,
+          f"profiled step launched {all_counts()}, want {want}")
     if "device_busy_us" in row:
         row["busy_over_unprofiled_step"] = (row["device_busy_us"]
                                             / (1e3 * step_ms))
-    emit(train_profile=row)
+    emit(train_profile={"rung": list(rung), "moe": moe, **row})
 
 
 def _top(totals, n):
@@ -977,6 +1503,63 @@ def bwd_kernel_entry(path, cases, launches):
                         "causal"), BWD_MAIN_CASE[path]))}
 
 
+def ce_kernel_entry(kind, cases, launches):
+    """The kernels-line entry of K3f ("ce_fwd") or K3b ("ce_dlogits"), its
+    numbers at CE_CASES[0]. K3b's ``ms`` is one launch (one ce chunk);
+    ``backward_ms`` is the whole chunked backward (every chunk's K3b and
+    its two products), the counterpart of ``library_ms``, the unchunked
+    head's backward (a difference of two times)."""
+    main = cases[CE_CASES[0]]
+    fwd = kind == "ce_fwd"
+    p = "fwd" if fwd else "dlogits"
+    entry = {
+        "name": "chunked_ce_fwd" if fwd else "chunked_ce_dlogits",
+        "route": "cuda",
+        "source": f"deeplearning4j_tpu_torch/kernels/csrc/{SOURCES[kind]}",
+        "replaces": "deeplearning4j_tpu/kernels/chunked_ce.py:"
+                    + ("40" if fwd else "85"),
+        "launches": sum(launches.values()), "launches_by_path": launches,
+        "on_main_path": True,
+        "max_abs_err": max(r["max_abs_err_lse" if fwd else
+                             "max_abs_err_dlogits"] for r in cases.values()),
+        "ms": main[f"{p}_ms"], "device_ms": main[f"{p}_device_ms"],
+        "plain_ms": main[f"{p}_plain_ms"], "bound_ms": main[f"{p}_bound_ms"],
+        "bound_by": main[f"{p}_bound_by"], "library": main["library"],
+        "library_ms": main["library_ms" if fwd else "library_bwd_ms"],
+        "library_device_ms": main["library_device_ms" if fwd
+                                  else "library_bwd_device_ms"],
+        "at": dict(zip(("n", "v", "d", "dtype", "ce_chunks"), CE_CASES[0]))}
+    if not fwd:
+        entry["backward_ms"] = main["backward_ms"]
+        entry["backward_device_ms"] = main["backward_device_ms"]
+    return entry
+
+
+def moe_kernel_entry(kind, cases, launches):
+    """The kernels-line entry of K7d ("moe_dispatch") or K7c
+    ("moe_combine"), its numbers at MOE_CASES[0]."""
+    main = cases[MOE_CASES[0]]
+    p = "dispatch" if kind == "moe_dispatch" else "combine"
+    return {
+        "name": kind, "route": "cuda",
+        "source": f"deeplearning4j_tpu_torch/kernels/csrc/{SOURCES[kind]}",
+        "replaces": "deeplearning4j_tpu/parallel/moe.py:"
+                    + ("132" if p == "dispatch" else "143"),
+        "launches": sum(launches.values()), "launches_by_path": launches,
+        "on_main_path": True,
+        "max_abs_err": max(max(r["max_abs_err"][k] for k in
+                               (("d_gate",) if p == "dispatch" else
+                                ("combine", "dispatch_grad")))
+                           for r in cases.values()),
+        "ms": main[f"{p}_ms"], "device_ms": main[f"{p}_device_ms"],
+        "plain_ms": main[f"{p}_plain_ms"], "bound_ms": main[f"{p}_bound_ms"],
+        "bound_by": main[f"{p}_bound_by"], "library": main["library"],
+        "library_ms": main[f"{p}_library_ms"],
+        "library_device_ms": main[f"{p}_library_device_ms"],
+        "at": dict(zip(("g", "e", "c", "top_k", "d", "dtype"),
+                       MOE_CASES[0]))}
+
+
 # one turn of --compare-bwd: the tree's own phases on the given cases
 _TURN = """
 import json, sys, torch, chip_smoke
@@ -1077,31 +1660,55 @@ def main() -> int:
               f"wgmma backward: want no spills in its four kernels, ptxas "
               f"gave {report}")
 
+    def allocated(after):
+        emit(allocated={"after": after,
+                        "bytes": torch.cuda.memory_allocated()})
+
     cases = kernel_phase(torch, fa)
+    allocated("kernel_phase")
     bwd_cases = bwd_phase(torch, fa)
+    allocated("bwd_phase")
     head_phase(torch)
+    allocated("head_phase")
+    ce_cases = ce_phase(torch)
+    allocated("ce_phase")
+    moe_cases = moe_phase(torch)
+    allocated("moe_phase")
     torch.cuda.empty_cache()
     engine, _model, serve = slice_phase(torch, fa)
     profile_phase(torch, fa, engine)
     del engine, _model
     torch.cuda.empty_cache()
-    train, step_ms, for_profile = train_phase(torch, fa)
-    train_profile_phase(torch, fa, step_ms, *for_profile)
-    launches = {name: {"serve": serve[i], "train": train[i]}
-                for i, name in enumerate(KERNELS)}
+    allocated("slice_phase")
+    train = train_phase(torch, fa)
+    moe = moe_train_phase(torch, fa)
+    launches = {name: {"serve": serve[i], "train": train[i], "moe": moe[i]}
+                for i, name in enumerate(ALL_KERNELS)}
     emit(main_path_launches=launches)
-    check(serve[0] > 0 and train[0] > 0,
+    check(serve[0] > 0 and train[0] > 0 and moe[0] > 0,
           "a main path launched no flash_attention_fwd_wgmma")
-    check(train[2] > 0, "training launched no flash_attention_bwd_wgmma")
-    check(serve[1] == 0 and train[1] == 0,
+    check(train[2] > 0 and moe[2] > 0,
+          "training launched no flash_attention_bwd_wgmma")
+    check(serve[1] == 0 and train[1] == 0 and moe[1] == 0,
           "a main path launched the simple kernel")
-    check(serve[2] == serve[3] == train[3] == 0,
+    check(serve[2] == serve[3] == train[3] == moe[3] == 0,
           "serving launched a backward, or training the mma.sync one")
+    check(all(n > 0 for n in train[4:6] + moe[4:8]),
+          f"training launched no K3f, K3b, K7d or K7c: {train}, {moe}")
+    check(serve[4:] == (0, 0, 0, 0) and train[6:] == (0, 0),
+          "serving launched K3 or K7, or the dense model K7")
     emit(kernels=[kernel_entry("wgmma", cases, launches["wgmma"]),
                   kernel_entry("simple", cases, launches["simple"]),
                   bwd_kernel_entry("bwd_wgmma", bwd_cases,
                                    launches["bwd_wgmma"]),
-                  bwd_kernel_entry("bwd", bwd_cases, launches["bwd"])])
+                  bwd_kernel_entry("bwd", bwd_cases, launches["bwd"]),
+                  ce_kernel_entry("ce_fwd", ce_cases, launches["ce_fwd"]),
+                  ce_kernel_entry("ce_dlogits", ce_cases,
+                                  launches["ce_dlogits"]),
+                  moe_kernel_entry("moe_dispatch", moe_cases,
+                                   launches["moe_dispatch"]),
+                  moe_kernel_entry("moe_combine", moe_cases,
+                                   launches["moe_combine"])])
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

@@ -92,6 +92,37 @@ def build_all() -> List[str]:
         return [n for n, s in started.items() if s is not None]
 
 
+def bind(name: str, fn: str, argtypes, err: str):
+    """(``fn`` of ``csrc/<name>.cu``'s library with its ``argtypes`` and an
+    int result, its error-string function ``err``), the library built first
+    if needed."""
+    lib = load(name)
+    f = getattr(lib, fn)
+    f.argtypes = argtypes
+    f.restype = ctypes.c_int
+    e = getattr(lib, err)
+    e.argtypes = [ctypes.c_int]
+    e.restype = ctypes.c_char_p
+    return f, e
+
+
+def call(name: str, kernel, args, device) -> None:
+    """Launch ``kernel`` = (function, error-string function), as
+    :func:`bind` gives it, with ``args`` and the current stream of
+    ``device``; raises RuntimeError when the launch failed."""
+    import torch
+    fn, err_str = kernel
+    if device.index is None or device.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        what = (f"CUresult {-err}" if err < 0 else f"CUDA error {err}")
+        raise RuntimeError(f"{name} launch failed: {what} "
+                           f"({err_str(err).decode()})")
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
     lib = _libs.get(name)

@@ -80,32 +80,26 @@ def _kernel(name: str):
     fn = _fns.get(name)
     if fn is None:
         from deeplearning4j_tpu_torch.kernels import _build
-        lib = _build.load(name)
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         if name == "flash_attention_fwd_wgmma":
-            f = lib.dl4j_flash_attention_fwd_wgmma
-            f.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                          + [ctypes.c_longlong] * 12
-                          + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-            err = lib.dl4j_flash_wgmma_error_string
+            fn = _build.bind(name, "dl4j_flash_attention_fwd_wgmma",
+                             [p] * 5 + [i] * 5 + [ll] * 12
+                             + [ctypes.c_float, i, p],
+                             "dl4j_flash_wgmma_error_string")
         elif name in ("flash_attention_bwd", "flash_attention_bwd_wgmma"):
             wgmma = name.endswith("wgmma")
-            f = getattr(lib, f"dl4j_{name}")
             # the wgmma backward takes no dtype: it is bf16 only
-            f.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
-                          + [ctypes.POINTER(ctypes.c_longlong),
-                             ctypes.c_float, ctypes.c_int]
-                          + [ctypes.c_int] * (not wgmma) + [ctypes.c_void_p])
-            err = (lib.dl4j_flash_bwd_wgmma_error_string if wgmma
-                   else lib.dl4j_flash_bwd_error_string)
+            fn = _build.bind(name, f"dl4j_{name}",
+                             [p] * 10 + [i] * 5
+                             + [ctypes.POINTER(ll), ctypes.c_float, i]
+                             + [i] * (not wgmma) + [p],
+                             "dl4j_flash_bwd_wgmma_error_string" if wgmma
+                             else "dl4j_flash_bwd_error_string")
         else:
-            f = lib.dl4j_flash_attention_fwd
-            f.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-                ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-            err = lib.dl4j_cuda_error_string
-        f.restype = ctypes.c_int
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
-        fn = _fns[name] = (f, err)
+            fn = _build.bind(name, "dl4j_flash_attention_fwd",
+                             [p] * 5 + [i] * 4 + [ctypes.c_float, i, i, p],
+                             "dl4j_cuda_error_string")
+        _fns[name] = fn
     return fn
 
 
@@ -229,16 +223,8 @@ def wgmma_args(q, k, v, o, lse, causal: bool, scale: float) -> tuple:
 
 
 def _call(name, args, device):
-    fn, err_str = _kernel(name)
-    if device.index is None or device.index == torch.cuda.current_device():
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    else:
-        with torch.cuda.device(device):
-            err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        what = (f"CUresult {-err}" if err < 0 else f"CUDA error {err}")
-        raise RuntimeError(f"{name} launch failed: {what} "
-                           f"({err_str(err).decode()})")
+    from deeplearning4j_tpu_torch.kernels import _build
+    _build.call(name, _kernel(name), args, device)
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

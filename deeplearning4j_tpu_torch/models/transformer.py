@@ -3,7 +3,10 @@
 Counterpart of ``deeplearning4j_tpu/models/transformer.py`` on one
 device: the forward (``apply``), ``prefill``, the dense and paged KV-cache
 decode steps and the cache layouts, and training (``loss_fn``,
-``loss_and_grads``, ``make_train_step``). Parameters are a plain dict in
+``loss_and_grads``, ``make_train_step``) with every single-device option:
+the vocab-chunked cross-entropy (``ce_chunks``), per-block
+rematerialisation (``remat`` with ``remat_policy``), dropout with an rng,
+and the MoE FFN (``moe``, top-1 and top-2). Parameters are a plain dict in
 the JAX package's layout (``init_params``): weights stored ``(in, out)``
 and used as raw matmul operands, f32 master weights cast to
 ``config.dtype`` for compute by a differentiable cast (``_cast_params``),
@@ -13,12 +16,14 @@ f32-accumulated products.
 Full-sequence attention runs in the CUDA flash kernels on the card, the
 forward and its backward under one ``autograd.Function``, and in their
 plain versions on the CPU (``kernels/flash_attention.py``); the JAX
-package's TPU crossover policy is not carried over. Decode attention is
-plain tensor code, as in the JAX package. The decode steps update the
-cache tensors in place (the JAX functions return new arrays) and return
-them, so a caller keeps one cache allocation for a whole generation; the
-train step updates params and optimizer state in place (the JAX step
-donates them).
+package's TPU crossover policy is not carried over. The chunked
+cross-entropy (``kernels/chunked_ce.py``) and the MoE token movement
+(``kernels/moe_route.py``) likewise run in CUDA kernels on the card. Decode
+attention is plain tensor code, as in the JAX package. The decode steps
+update the cache tensors in place (the JAX functions return new arrays) and
+return them, so a caller keeps one cache allocation for a whole generation;
+the train step updates params and optimizer state in place (the JAX step
+donates them). ``pipeline_stages > 1`` needs a device mesh and raises.
 """
 from __future__ import annotations
 
@@ -30,8 +35,11 @@ import torch
 import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch._device import resolve_device
+from deeplearning4j_tpu_torch.kernels import chunked_ce
 from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+from deeplearning4j_tpu_torch.nn._remat import checkpoint_policy, remat
 from deeplearning4j_tpu_torch.ops.moments import one_pass_moments
+from deeplearning4j_tpu_torch.parallel.moe import MoEConfig, moe_ffn
 from deeplearning4j_tpu_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -46,18 +54,25 @@ class TransformerConfig:
     d_model: int = 128
     d_ff: Optional[int] = None
     max_len: int = 256
-    dropout: float = 0.0              # training with an rng only: not
-                                      # ported (raises there)
+    dropout: float = 0.0              # applied only with an rng (training)
     dtype: Any = torch.float32        # torch.float32 / torch.bfloat16 or
                                       # the strings "float32" / "bfloat16"
     causal: bool = True
     scan_layers: bool = False         # a storage layout of the JAX params
                                       # only; from_jax_params unstacks it
     fused_qkv: bool = False
-    remat: bool = False
-    moe: Any = None
-    pipeline_stages: int = 0
-    ce_chunks: int = 0
+    remat: bool = False               # recompute each block's activations
+                                      # in the backward (nn/_remat.py)
+    remat_policy: Optional[str] = None  # which products stay saved under
+                                      # remat: None / "nothing" (none),
+                                      # "dots", "dots_no_batch"
+    moe: Optional[MoEConfig] = None   # replace the dense FFN with the MoE
+                                      # FFN (parallel/moe.py)
+    moe_aux_weight: float = 0.01      # Switch load-balance aux-loss weight
+    pipeline_stages: int = 0          # > 1 needs a device mesh: raises
+    ce_chunks: int = 0                # > 0: the chunked cross-entropy
+                                      # (kernels/chunked_ce.py); the
+                                      # (B, T, V) logits never materialise
 
     def __post_init__(self):
         if self.d_ff is None:
@@ -73,14 +88,51 @@ class TransformerConfig:
         if self.dtype not in _DTYPES.values():
             raise ValueError(f"dtype must be torch.float32 or "
                              f"torch.bfloat16, got {self.dtype}")
-        for name, on in (("remat", self.remat),
-                         ("moe", self.moe is not None),
-                         ("pipeline_stages", self.pipeline_stages > 1),
-                         ("ce_chunks", bool(self.ce_chunks))):
-            if on:
-                raise NotImplementedError(
-                    f"TransformerConfig.{name} is not ported yet "
-                    "(see ROADMAP.md, queue 1)")
+        checkpoint_policy(self.remat_policy)      # an unknown name raises
+        if self.moe is not None:
+            if not isinstance(self.moe, MoEConfig):
+                raise TypeError(f"moe must be a deeplearning4j_tpu_torch "
+                                f"MoEConfig, got {type(self.moe).__name__}")
+            self.moe = dataclasses.replace(
+                self.moe, d_model=self.moe.d_model or self.d_model,
+                d_ff=self.moe.d_ff or self.d_ff)
+        if self.ce_chunks:
+            if self.ce_chunks < 2:
+                raise ValueError("ce_chunks must be >= 2 (1 = off)")
+            if self.vocab_size % self.ce_chunks:
+                raise ValueError(f"vocab_size {self.vocab_size} must divide "
+                                 f"into ce_chunks {self.ce_chunks}")
+        if self.pipeline_stages > 1:
+            raise NotImplementedError(
+                "TransformerConfig.pipeline_stages needs a device mesh; "
+                "not ported yet (see ROADMAP.md, queue 1, item 9)")
+
+
+_M64 = 0xFFFFFFFFFFFFFFFF
+
+
+def _fold_in(seed: int, i: int) -> int:
+    """A 63-bit generator seed from (seed, i), the port's ``fold_in``:
+    splitmix64 over ``seed·φ + i + 1``, so neighbouring (seed, i) give
+    unrelated streams."""
+    z = (int(seed) * 0x9E3779B97F4A7C15 + int(i) + 1) & _M64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
+    return (z ^ (z >> 31)) >> 1
+
+
+def dropout_mask(rng: int, i: int, keep: float, shape,
+                 device: torch.device) -> torch.Tensor:
+    """The keep mask of dropout site ``i`` for the integer seed ``rng``:
+    uniform draws below ``keep`` from a fresh ``torch.Generator`` seeded
+    from (rng, i), as ``bernoulli(fold_in(rng, i), keep)`` in the JAX
+    package. A fresh generator per call draws the same mask again when
+    remat recomputes the block (``torch.utils.checkpoint`` restores only
+    the default generators). Module-level so a test can hand both packages
+    the same masks."""
+    g = torch.Generator(device=device)
+    g.manual_seed(_fold_in(rng, i))
+    return torch.rand(shape, generator=g, device=device) < keep
 
 
 class _TiedHead(torch.autograd.Function):
@@ -176,68 +228,121 @@ class TransformerLM:
         k, v = (a.view(b, t, h, hd) for a in kv)
         return o @ p["wo"], k, v
 
-    def _ffn(self, blk, h):
+    def _ffn_aux(self, blk, h):
+        """One block's feed-forward on (B, T, C): (y, aux), aux the MoE
+        FFN's (aux_loss, dropped_fraction, expert_fraction) in f32, or None
+        for the dense FFN."""
+        if "moe" in blk:
+            y, st = moe_ffn(blk["moe"], h, self.config.moe)
+            return y, (st["aux_loss"].float(), st["dropped_fraction"].float(),
+                       st["expert_fraction"].float())
         hdn = F.gelu(h @ blk["mlp"]["w_up"] + blk["mlp"]["b_up"],
                      approximate="tanh")       # jax.nn.gelu's default
-        return hdn @ blk["mlp"]["w_down"] + blk["mlp"]["b_down"]
+        return hdn @ blk["mlp"]["w_down"] + blk["mlp"]["b_down"], None
 
-    def _head(self, params, x):
-        """Tied LM head: f32 logits from f32-accumulated products of the
-        compute-dtype operands (the JAX ``preferred_element_type=f32``):
-        on the card a bf16 product with f32 output (``_TiedHead``), else
-        the exact f32 cast of both operands (the CPU build has no
-        ``mm.dtype``)."""
-        e = params["tok_emb"]
+    def _ffn(self, blk, h):
+        """The feed-forward alone (the decode and prefill paths, which feed
+        no aux loss)."""
+        return self._ffn_aux(blk, h)[0]
+
+    def _head(self, emb, x):
+        """Tied LM head on the cast embedding ``emb``: f32 logits from
+        f32-accumulated products of the compute-dtype operands (the JAX
+        ``preferred_element_type=f32``): on the card a bf16 product with
+        f32 output (``_TiedHead``), else the exact f32 cast of both
+        operands (the CPU build has no ``mm.dtype``)."""
         if x.is_cuda and x.dtype == torch.bfloat16:
-            return _TiedHead.apply(x, e)
-        return torch.matmul(x.float(), e.float().T)
+            return _TiedHead.apply(x, emb)
+        return torch.matmul(x.float(), emb.float().T)
 
-    def _forward(self, params, tokens, keep_kv: bool, rng=None):
-        c = self.config
-        if rng is not None and c.dropout > 0.0:
-            raise NotImplementedError(
-                "dropout in training is not ported yet (see ROADMAP.md, "
-                "queue 1)")
-        params = self._cast_params(params)
-        tokens = tokens.long()
+    def _dropout(self, x, rng, i):
+        """``where(mask, x / keep, 0)`` in x's dtype for the mask of site
+        ``i`` (:func:`dropout_mask`); x itself without an rng or at
+        ``dropout == 0``."""
+        if rng is None or self.config.dropout <= 0.0:
+            return x
+        keep = 1.0 - self.config.dropout
+        mask = dropout_mask(rng, i, keep, x.shape, x.device)
+        return torch.where(mask, x / keep, 0.0).to(x.dtype)
+
+    def _embed(self, params, tokens, rng=None):
+        """Cast params, tokens (B, T) → (B, T, C) activations: token and
+        learned position embeddings, then dropout site 0."""
         t = tokens.shape[1]
-        x = (params["tok_emb"][tokens] + params["pos_emb"][:t]).to(c.dtype)
-        ks: List[torch.Tensor] = []
-        vs: List[torch.Tensor] = []
-        for blk in params["blocks"]:
-            a, k, v = self._attn(blk["attn"], self._ln(blk["ln1"], x))
-            x = x + a
-            x = x + self._ffn(blk, self._ln(blk["ln2"], x))
-            if keep_kv:
-                ks.append(k)
-                vs.append(v)
-        logits = self._head(params, self._ln(params["ln_f"], x))
-        return logits, ks, vs
+        x = params["tok_emb"][tokens.long()] + params["pos_emb"][:t]
+        return self._dropout(x.to(self.config.dtype), rng, 0)
 
-    def apply(self, params, tokens: torch.Tensor, rng=None) -> torch.Tensor:
-        """tokens (B, T) → logits (B, T, V) f32. ``rng`` asks for dropout
-        (training mode), which raises while ``config.dropout > 0``: it is
-        not ported."""
-        return self._forward(params, tokens, keep_kv=False, rng=rng)[0]
+    def _block_math(self, blk, x, rng, li):
+        """One pre-LN block: attention, dropout site 2·li + 1, the FFN,
+        site 2·li + 2. Returns (x, aux) as :meth:`_ffn_aux` gives aux."""
+        a, _k, _v = self._attn(blk["attn"], self._ln(blk["ln1"], x))
+        x = x + self._dropout(a, rng, 2 * li + 1)
+        y, aux = self._ffn_aux(blk, self._ln(blk["ln2"], x))
+        return x + self._dropout(y, rng, 2 * li + 2), aux
+
+    def _apply_trunk(self, params, tokens, rng=None):
+        """Everything up to and including the final LayerNorm: (hidden
+        (B, T, C), the cast ``tok_emb``, the aux dict). The chunked loss
+        consumes the trunk directly, so no logits materialise. With
+        ``config.remat`` each block is rematerialised under
+        ``config.remat_policy``. The aux dict holds the MoE aux loss summed
+        over the layers and per-layer means of the dropped and per-expert
+        fractions (zeros, and an empty fraction, for the dense FFN)."""
+        c = self.config
+        params = self._cast_params(params)
+        x = self._embed(params, tokens, rng)
+        body = (remat(self._block_math, c.remat_policy) if c.remat
+                else self._block_math)
+        total = None
+        for li, blk in enumerate(params["blocks"]):
+            x, aux = body(blk, x, rng, li)
+            if aux is not None:
+                total = aux if total is None else tuple(
+                    a + b for a, b in zip(total, aux))
+        x = self._ln(params["ln_f"], x)
+        if total is None:
+            zero = torch.zeros((), dtype=torch.float32, device=x.device)
+            total = (zero, zero, torch.zeros((0,), dtype=torch.float32,
+                                             device=x.device))
+        n = max(1, c.n_layers)
+        return x, params["tok_emb"], {"moe_aux_loss": total[0],
+                                      "moe_dropped_fraction": total[1] / n,
+                                      "moe_expert_fraction": total[2] / n}
+
+    def apply(self, params, tokens: torch.Tensor, rng=None,
+              return_aux: bool = False):
+        """tokens (B, T) → logits (B, T, V) f32. ``rng``, an integer seed,
+        turns dropout on (training mode); None is inference. With
+        ``return_aux``, (logits, aux dict) as the JAX ``apply`` gives."""
+        x, emb, aux = self._apply_trunk(params, tokens, rng)
+        logits = self._head(emb, x)
+        return (logits, aux) if return_aux else logits
 
     # ---------------------------------------------------------- training
     def loss_fn(self, params, tokens, targets, rng=None,
                 with_aux: bool = False):
-        """Mean token cross-entropy of ``apply``'s f32 logits against
-        ``targets`` (B, T): logsumexp minus the target logit, as the JAX
-        ``loss_fn`` with ``ce_chunks=0``. With ``with_aux``, (loss, aux)
-        with the JAX aux keys (the MoE entries are zeros for the dense
-        FFN)."""
-        logits = self.apply(params, tokens, rng)
-        correct = logits.gather(-1, targets.long()[..., None])[..., 0]
-        loss = (torch.logsumexp(logits, dim=-1) - correct).mean()
+        """Mean token cross-entropy against ``targets`` (B, T), plus
+        ``moe_aux_weight`` times the MoE aux loss for a MoE model, as the
+        JAX ``loss_fn``: with ``ce_chunks`` the chunked cross-entropy on
+        the trunk's output (``kernels/chunked_ce.py``: no logits), else
+        logsumexp minus the target logit of ``apply``'s f32 logits. With
+        ``with_aux``, (loss, aux) with the JAX aux keys (the MoE entries
+        are zeros for the dense FFN)."""
+        c = self.config
+        x, emb, aux = self._apply_trunk(params, tokens, rng)
+        if c.ce_chunks:
+            lm_loss = chunked_ce.chunked_softmax_xent(x, emb, targets,
+                                                      c.ce_chunks)
+        else:
+            logits = self._head(emb, x)
+            correct = logits.gather(-1, targets.long()[..., None])[..., 0]
+            lm_loss = (torch.logsumexp(logits, dim=-1) - correct).mean()
+        loss = lm_loss
+        if c.moe is not None:
+            loss = loss + c.moe_aux_weight * aux["moe_aux_loss"]
         if not with_aux:
             return loss
-        zero = torch.zeros((), dtype=torch.float32, device=loss.device)
-        return loss, {"lm_loss": loss, "moe_aux_loss": zero,
-                      "moe_dropped_fraction": zero,
-                      "moe_expert_fraction": torch.zeros(
-                          (0,), dtype=torch.float32, device=loss.device)}
+        return loss, {"lm_loss": lm_loss, **aux}
 
     def loss_and_grads(self, params, tokens, targets, rng=None,
                        with_aux: bool = False):
@@ -294,7 +399,17 @@ class TransformerLM:
         """tokens (B, T) → (logits (B, T, V) f32, kv ``{"k","v"}``
         (L, B, T, H, hd)) — the cache entries the causal forward computed
         for every prompt position."""
-        logits, ks, vs = self._forward(params, tokens, keep_kv=True)
+        params = self._cast_params(params)
+        x = self._embed(params, tokens)
+        ks: List[torch.Tensor] = []
+        vs: List[torch.Tensor] = []
+        for blk in params["blocks"]:
+            a, k, v = self._attn(blk["attn"], self._ln(blk["ln1"], x))
+            x = x + a
+            x = x + self._ffn(blk, self._ln(blk["ln2"], x))
+            ks.append(k)
+            vs.append(v)
+        logits = self._head(params["tok_emb"], self._ln(params["ln_f"], x))
         return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
 
     def _window_embed(self, params, tokens, positions):
@@ -329,7 +444,7 @@ class TransformerLM:
             o = self._window_attend(q, ck, cv, mask, hd)
             x = x + o.reshape(B, W, c.d_model) @ blk["attn"]["wo"]
             x = x + self._ffn(blk, self._ln(blk["ln2"], x))
-        return self._head(params, self._ln(params["ln_f"], x))
+        return self._head(params["tok_emb"], self._ln(params["ln_f"], x))
 
     def decode_step_math(self, params, cache, tokens, positions):
         """One step for a slot batch: ``tokens`` (B,) at ``positions``

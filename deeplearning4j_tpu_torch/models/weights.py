@@ -11,7 +11,9 @@ trained in either package can be compared or carried on in the other;
 ``adamw_state_to_numpy`` / ``adamw_state_from_numpy`` do the same for
 AdamW's moments.
 ``init_jax_layout`` draws a random tree in that layout with numpy, so both
-packages can be handed the same weights.
+packages can be handed the same weights. A MoE model's blocks carry
+``"moe"`` (``Wg``, ``W1``, ``b1``, ``W2``, ``b2``) in place of ``"mlp"``;
+every function here handles both.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import torch
 
 from deeplearning4j_tpu_torch._device import resolve_device
 from deeplearning4j_tpu_torch.optim.adamw import AdamWState
+from deeplearning4j_tpu_torch.parallel.moe import moe_layout
 
 
 def _block_layout(c, normal) -> Dict:
@@ -31,14 +34,19 @@ def _block_layout(c, normal) -> Dict:
     else:
         attn = {"wq": normal(C, C), "wk": normal(C, C), "wv": normal(C, C),
                 "wo": normal(C, C)}
-    return {
+    blk = {
         "ln1": {"g": ones(C, np.float32), "b": zeros(C, np.float32)},
         "ln2": {"g": ones(C, np.float32), "b": zeros(C, np.float32)},
         "attn": attn,
-        "mlp": {"w_up": normal(C, c.d_ff), "b_up": zeros(c.d_ff, np.float32),
-                "w_down": normal(c.d_ff, C),
-                "b_down": zeros(C, np.float32)},
     }
+    if c.moe is not None:
+        blk["moe"] = moe_layout(c.moe, normal)
+    else:
+        blk["mlp"] = {"w_up": normal(C, c.d_ff),
+                      "b_up": zeros(c.d_ff, np.float32),
+                      "w_down": normal(c.d_ff, C),
+                      "b_down": zeros(C, np.float32)}
+    return blk
 
 
 def _stack(blocks):
@@ -98,9 +106,18 @@ def from_jax_params(tree: Dict, config,
             raise ValueError(f"block {i} attention params "
                              f"{sorted(blk['attn'])} do not match "
                              f"fused_qkv={c.fused_qkv}")
-        if "mlp" not in blk:
-            raise ValueError(f"block {i} has no dense 'mlp' params "
-                             "(MoE blocks are not ported yet)")
+        ffn = "moe" if c.moe is not None else "mlp"
+        if ffn not in blk:
+            raise ValueError(f"block {i} has no {ffn!r} params, as "
+                             f"moe={c.moe} wants")
+        if ffn == "moe":
+            E, d, f = c.moe.num_experts, c.d_model, c.moe.d_ff
+            want = {"Wg": (d, E), "W1": (E, d, f), "b1": (E, f),
+                    "W2": (E, f, d), "b2": (E, d)}
+            got = {k: tuple(np.shape(v)) for k, v in blk["moe"].items()}
+            if got != want:
+                raise ValueError(f"block {i} MoE params {got} do not match "
+                                 f"the config's {want}")
     expect = {"tok_emb": (c.vocab_size, c.d_model),
               "pos_emb": (c.max_len, c.d_model)}
     for name, shape in expect.items():
@@ -109,8 +126,11 @@ def from_jax_params(tree: Dict, config,
                              f"config wants {shape}")
 
     def to_t(a):
+        # a copy even on the CPU: the train step updates params in place,
+        # and must not write through into the caller's arrays
         return torch.from_numpy(
-            np.require(a, np.float32, ["C_CONTIGUOUS", "WRITEABLE"])).to(dev)
+            np.require(a, np.float32, ["C_CONTIGUOUS", "WRITEABLE"])).to(
+            dev, copy=True)
 
     def conv(t):
         if isinstance(t, dict):

@@ -351,3 +351,124 @@ def test_profile_window_lists_every_attention_kernel(tmp_path, monkeypatch):
         "void dq_kernel_bf16<64>(Args)": (5.0, 1),
         "void delta_kernel<__nv_bfloat16>(DeltaArgs)": (1.0, 1)}
     assert row["busy_share"] == pytest.approx(0.9)    # 90 of 100 us
+
+
+def test_ce_bounds_at_the_training_shape():
+    """K3f at the bench's large config, batch 8: 2·8192·32768·1024 =
+    549.8 GFLOP, 0.556 ms at the dense bf16 peak; one K3b launch (a 4096-
+    column chunk) an eighth of that, also bound by its products."""
+    ms, by = chip_smoke.ce_fwd_bound_ms(8192, 32768, 1024, "bfloat16")
+    assert by == "operations"
+    assert ms == pytest.approx(1e3 * 2.0 * 8192 * 32768 * 1024 / 989e12)
+    assert ms == pytest.approx(0.556, rel=1e-3)
+    ms_b, by_b = chip_smoke.ce_dlogits_bound_ms(8192, 4096, 1024,
+                                                "bfloat16")
+    assert by_b == "operations" and ms_b == pytest.approx(ms / 8)
+    # a tiny call is bound by its bytes: x, the chunk, targets, lse, dlogits
+    ms_t, by_t = chip_smoke.ce_dlogits_bound_ms(1, 3, 16, "float32")
+    assert by_t == "bytes"
+    assert ms_t == pytest.approx(
+        1e3 * (4 * 4 * 16 + 12 + 4 * 3) / chip_smoke.PEAK_BYTES)
+
+
+def test_moe_bound_at_the_training_shape():
+    """Dispatch at G 8192, d 1024, E 8, C 1280, bf16: 16.8 MB of kept rows
+    read and 21.0 MB of expert rows written, ≈ 11 µs at 3.35 TB/s."""
+    ms, by = chip_smoke.moe_bound_ms(8192, 8 * 1280, 1024, "bfloat16",
+                                     4 * 8 * 1280)
+    assert by == "bytes"
+    assert ms == pytest.approx(1e3 * (2 * 1024 * (8192 + 10240) + 40960)
+                               / 3.35e12)
+    assert ms == pytest.approx(0.0113, rel=1e-2)
+
+
+def test_expected_launches_per_step():
+    """K1 twice per layer under remat (its recompute), K2 once, K3f once
+    and K3b per ce chunk, K7 twice per MoE layer (three times under
+    remat)."""
+    assert chip_smoke.expected_per_step(12, False, 0) == (12, 0, 12, 0, 0, 0,
+                                                          0, 0)
+    assert chip_smoke.expected_per_step(12, True, 8) == (24, 0, 12, 0, 1, 8,
+                                                         0, 0)
+    assert chip_smoke.expected_per_step(12, False, 8, moe=True) == (
+        12, 0, 12, 0, 1, 8, 24, 24)
+    assert chip_smoke.expected_per_step(2, True, 0, moe=True)[6:] == (6, 6)
+    assert len(chip_smoke.ALL_KERNELS) == 8
+    assert chip_smoke.ALL_KERNELS[:4] == chip_smoke.KERNELS
+
+
+def test_dlogits_errors_see_a_wrong_softmax_beside_the_targets():
+    """A softmax wrong by 10 % off the targets fails the off-target check,
+    though the target entries dominate any norm over all entries."""
+    import torch
+    n, c = 64, 512
+    g = torch.Generator().manual_seed(1)
+    p = torch.softmax(torch.randn((n, c), generator=g), -1)
+    t = torch.randint(0, c, (n,), generator=g)
+    ref = p.clone()
+    ref[torch.arange(n), t] -= 1.0
+    bad = ref * torch.where(torch.nn.functional.one_hot(t, c).bool(), 1.0,
+                            1.1)
+    rel, at = chip_smoke.dlogits_errors(bad, ref, t, 1.0)
+    assert rel == pytest.approx(0.1, rel=1e-4) and at == 0.0
+    whole = ((bad - ref).norm() / ref.norm()).item()
+    assert whole < chip_smoke.TOL_CE_DLOG_L2["bfloat16"] * 4
+    rel0, at0 = chip_smoke.dlogits_errors(ref, ref, torch.full((n,), -1),
+                                          1.0)
+    assert rel0 == 0.0 and at0 == 0.0
+
+
+def test_kernels_line_entries_of_k3_and_k7():
+    """K3f, K3b, K7d and K7c get kernels-line entries with every key the
+    line needs, from their cases' first (training-layer) row."""
+    keys = ("name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    ce_row = {f"{p}_{k}": 1.0 for p in ("fwd", "dlogits")
+              for k in ("ms", "device_ms", "plain_ms", "bound_ms")}
+    ce_row.update(fwd_bound_by="operations", dlogits_bound_by="operations",
+                  library="x", library_ms=2.0, library_device_ms=2.0,
+                  library_bwd_ms=3.0, library_bwd_device_ms=3.0,
+                  backward_ms=4.0, backward_device_ms=4.0,
+                  max_abs_err_lse=1e-5, max_abs_err_dlogits=1e-6)
+    ce_cases = {c: dict(ce_row) for c in chip_smoke.CE_CASES}
+    launches = {"serve": 0, "train": 21, "moe": 7}
+    fwd = chip_smoke.ce_kernel_entry("ce_fwd", ce_cases, launches)
+    dlog = chip_smoke.ce_kernel_entry("ce_dlogits", ce_cases, launches)
+    moe_row = {f"{p}_{k}": 1.0 for p in ("dispatch", "combine")
+               for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                         "library_ms", "library_device_ms")}
+    moe_row.update(dispatch_bound_by="bytes", combine_bound_by="bytes",
+                   library="y", max_abs_err={"combine": 1e-3,
+                                             "dispatch_grad": 2e-3,
+                                             "d_gate": 5e-3})
+    moe_cases = {c: dict(moe_row) for c in chip_smoke.MOE_CASES}
+    disp = chip_smoke.moe_kernel_entry("moe_dispatch", moe_cases, launches)
+    comb = chip_smoke.moe_kernel_entry("moe_combine", moe_cases, launches)
+    for entry in (fwd, dlog, disp, comb):
+        for key in keys:
+            assert key in entry, (entry["name"], key)
+        assert entry["route"] == "cuda" and entry["launches"] == 28
+    assert fwd["replaces"].endswith("chunked_ce.py:40")
+    assert dlog["replaces"].endswith("chunked_ce.py:85")
+    assert dlog["library_ms"] == 3.0 and dlog["backward_ms"] == 4.0
+    assert disp["source"].endswith("csrc/moe_route.cu")
+    assert disp["replaces"].endswith("moe.py:132")
+    assert comb["replaces"].endswith("moe.py:143")
+    assert (disp["max_abs_err"], comb["max_abs_err"]) == (5e-3, 2e-3)
+
+
+def test_plain_kernels_swaps_every_kernel_out_and_back():
+    from deeplearning4j_tpu_torch.kernels import chunked_ce as ce
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+    from deeplearning4j_tpu_torch.kernels import moe_route as mr
+    names = [(fa, "flash_attention_fwd"), (fa, "flash_attention_bwd"),
+             (ce, "chunked_ce_fwd"), (ce, "ce_dlogits"),
+             (mr, "moe_dispatch"), (mr, "moe_combine"),
+             (mr, "moe_dispatch_grad")]
+    before = [getattr(m, n) for m, n in names]
+    with chip_smoke.plain_kernels(fa):
+        during = [getattr(m, n) for m, n in names]
+        assert all(a is not b for a, b in zip(before, during))
+        assert mr.moe_combine is mr.combine_reference
+    assert [getattr(m, n) for m, n in names] == before

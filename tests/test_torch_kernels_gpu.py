@@ -323,3 +323,198 @@ def test_tied_head_matches_f32_autograd(cuda):
     assert rel(logits, ref.detach()) <= 5e-6
     assert rel(dx, dx_ref) <= 5e-3
     assert rel(de, de_ref) <= 5e-3
+
+
+# ------------------------------------------------ K3: chunked cross-entropy
+# K3f against its plain version: lse and the loss within 1e-4 (both take
+# f32 logits from the same operands and sum in another order; the kernel's
+# expf against torch's exp). K3b's dlogits, (p − onehot)·g/N in x's dtype:
+# the entries off the target within a relative L2 error of 5e-3 (bf16: one
+# rounding of each) or 1e-5 (f32), the target entries within 2^-7 (bf16) or
+# 1e-5 (f32) of g/N. The two are held apart because the target entries
+# (≈ −g/N each) would hide a wrong softmax (≈ g/(N·V) each) in any norm
+# over all entries (``chip_smoke.dlogits_errors``).
+def _ce_inputs(n, v, d, dtype, seed):
+    from deeplearning4j_tpu_torch.kernels import chunked_ce as ce
+    x = _rand((n, d), seed, dtype)
+    e = (0.5 * _rand((v, d), seed + 1, torch.float32) / d ** 0.5).to(dtype)
+    g = torch.Generator(device="cuda").manual_seed(seed + 2)
+    t = torch.randint(0, v, (n,), generator=g, device="cuda")
+    t[: min(n, 4)] = torch.tensor([0, v - 1, v // 2, 127], device="cuda")[
+        : min(n, 4)].clamp(max=v - 1)
+    return ce, x, e, t
+
+
+def _ce_held_to_reference(n, v, d, dtype, seed=0, n_chunks=2):
+    import chip_smoke
+    ce, x, e, t = _ce_inputs(n, v, d, dtype, seed)
+    ce.launches_fwd = ce.launches_dlogits = 0
+    lse, loss = ce.chunked_ce_fwd(x, e, t, n_chunks)
+    torch.cuda.synchronize()
+    assert ce.launches_fwd == 1
+    lse_ref, cor = ce.chunked_ce_fwd_reference(x, e, t, n_chunks)
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+    assert abs(loss.item() - (lse_ref - cor).mean().item()) <= 1e-4
+    c = v // n_chunks
+    g = torch.tensor(2.5, device="cuda")
+    for i in range(n_chunks):
+        got = ce.ce_dlogits(x, e[i * c:(i + 1) * c], t, lse_ref, i * c, g, n)
+        ref = ce.ce_dlogits_reference(x, e[i * c:(i + 1) * c], t, lse_ref,
+                                      i * c, g, n)
+        assert got.dtype == x.dtype and got.shape == (n, c)
+        local = torch.where((t >= i * c) & (t < (i + 1) * c), t - i * c, -1)
+        rel, at = chip_smoke.dlogits_errors(got, ref, local, 2.5 / n)
+        bf16 = dtype == torch.bfloat16
+        assert rel <= (5e-3 if bf16 else 1e-5), (i, rel)
+        assert at <= (2 ** -7 if bf16 else 1e-5), (i, at)
+    torch.cuda.synchronize()
+    assert ce.launches_dlogits == n_chunks
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64),
+                                     (torch.float32, 32)])
+def test_ce_one_tile(cuda, dtype, d):
+    """K3f and K3b on one 128-row tile against one 128-column vocab tile
+    (one block each, one split), before anything larger."""
+    _ce_held_to_reference(128, 256, d, dtype, n_chunks=2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,v,d,dtype,n_chunks", [
+    (300, 1000, 64, torch.bfloat16, 4),      # ragged rows and vocab
+    (1, 384, 32, torch.bfloat16, 3),
+    (1024, 8192, 1024, torch.bfloat16, 8),   # the training width
+    (2048, 4096, 256, torch.bfloat16, 2),    # many splits of few tiles
+    (257, 640, 48, torch.float32, 5),
+    (129, 130, 16, torch.float32, 2)])
+def test_ce_kernels_match_reference(cuda, n, v, d, dtype, n_chunks):
+    _ce_held_to_reference(n, v, d, dtype, seed=n + v, n_chunks=n_chunks)
+
+
+@pytest.mark.gpu
+def test_chunked_softmax_xent_on_the_card_matches_plain(cuda, monkeypatch):
+    """The autograd function (K3f, then K3b and the two products per
+    chunk) against the same function with the plain versions swapped in:
+    the loss within 1e-4, dx and dE by relative L2 within 5e-3 (bf16)."""
+    ce, x, e, t = _ce_inputs(512, 2048, 128, torch.bfloat16, 9)
+    xs, es = (a.detach().requires_grad_() for a in (x, e))
+    loss = ce.chunked_softmax_xent(xs.view(2, 256, 128), es, t.view(2, 256),
+                                   4)
+    dx, de = torch.autograd.grad(loss, (xs, es))
+    monkeypatch.setattr(ce, "chunked_ce_fwd", lambda x2, emb, tg, k: (
+        lambda lc: (lc[0], (lc[0] - lc[1]).mean()))(
+            ce.chunked_ce_fwd_reference(x2, emb, tg, k)))
+    monkeypatch.setattr(ce, "ce_dlogits", ce.ce_dlogits_reference)
+    ce.launches_fwd = ce.launches_dlogits = 0
+    xs2, es2 = (a.detach().requires_grad_() for a in (x, e))
+    ref = ce.chunked_softmax_xent(xs2.view(2, 256, 128), es2,
+                                  t.view(2, 256), 4)
+    dx_ref, de_ref = torch.autograd.grad(ref, (xs2, es2))
+    assert (ce.launches_fwd, ce.launches_dlogits) == (0, 0)
+    assert abs(loss.item() - ref.item()) <= 1e-4
+    for a, b in ((dx, dx_ref), (de, de_ref)):
+        assert a.dtype == torch.bfloat16
+        assert ((a.float() - b.float()).norm() / b.float().norm()).item() \
+            <= 5e-3
+
+
+@pytest.mark.gpu
+def test_ce_kernels_reject_what_they_do_not_take(cuda):
+    ce, x, e, t = _ce_inputs(64, 256, 64, torch.bfloat16, 3)
+    with pytest.raises(ValueError, match="multiple"):
+        ce.chunked_ce_fwd(x[:, :40].contiguous(), e[:, :40].contiguous(),
+                          t, 2)
+    with pytest.raises(ValueError, match="int64"):
+        ce.chunked_ce_fwd(x, e, t.int(), 2)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ce.chunked_ce_fwd(x, e.float(), t, 2)
+    with pytest.raises(ValueError, match="stride"):
+        ce.ce_dlogits(x[:, ::2], e[:, ::2], t, torch.zeros(64,
+                      device="cuda"), 0, torch.ones((), device="cuda"), 64)
+
+
+# ---------------------------------------------- K7: MoE dispatch / combine
+# Dispatch copies rows: exact. Its gradient mode: d_out = gate·dy rounded
+# once, exact; d_gate a dot product in another order, 1e-2 (bf16) or 1e-5
+# (f32) relative to the largest. Combine: f32 sums with fused multiply-adds
+# against the plain version's rounded products, one bf16 ulp (2^-8
+# relative to the largest output) or 1e-6 in f32.
+def _route(G, E, C, K, seed):
+    from deeplearning4j_tpu_torch.parallel import moe as tmoe
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    probs = torch.softmax(torch.randn((G, E), generator=g, device="cuda"), -1)
+    cfg = tmoe.MoEConfig(d_model=8, d_ff=8, num_experts=E, top_k=K)
+    return tmoe.route(probs, cfg, C)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,E,C,K,d,dtype", [
+    (8, 2, 4, 1, 64, torch.bfloat16),            # one block of each
+    (8192, 8, 1280, 1, 1024, torch.bfloat16),    # the training width
+    (1000, 8, 100, 2, 512, torch.bfloat16),      # top-2 with drops
+    (300, 4, 100, 2, 96, torch.float32),
+    (33, 3, 5, 1, 4, torch.float32)])
+def test_moe_kernels_match_reference(cuda, G, E, C, K, d, dtype):
+    from deeplearning4j_tpu_torch.kernels import moe_route as mr
+    _c, gates, slot, src, _oh = _route(G, E, C, K, G + d)
+    gates = gates.to(dtype).contiguous()
+    x = _rand((G, d), 1, dtype)
+    out_e = _rand((E * C, d), 2, dtype)
+    dy = _rand((G, d), 3, dtype)
+    mr.launches_dispatch = mr.launches_combine = 0
+    ei = mr.moe_dispatch(x, src, K)
+    y = mr.moe_combine(out_e, slot, gates)
+    dx = mr.moe_combine(ei, slot)
+    d_out, d_gates = mr.moe_dispatch_grad(dy, src, K, gates, out_e)
+    torch.cuda.synchronize()
+    assert (mr.launches_dispatch, mr.launches_combine) == (2, 2)
+    assert torch.equal(ei, mr.dispatch_reference(x, src, K))
+    ref_out, ref_gates = mr.dispatch_grad_reference(dy, src, K, gates, out_e)
+    assert torch.equal(d_out, ref_out)
+    bf16 = dtype == torch.bfloat16
+    for got, ref, tol in ((y, mr.combine_reference(out_e, slot, gates),
+                           2 ** -8 if bf16 else 1e-6),
+                          (dx, mr.combine_reference(ei, slot),
+                           2 ** -8 if bf16 else 1e-6),
+                          (d_gates, ref_gates, 1e-2 if bf16 else 1e-5)):
+        assert got.dtype == dtype and got.shape == ref.shape
+        top = max(ref.float().abs().max().item(), 1e-30)
+        assert (got.float() - ref.float()).abs().max().item() <= tol * top
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("top_k", [1, 2])
+def test_moe_ffn_on_the_card_matches_plain(cuda, monkeypatch, top_k):
+    """``moe_ffn`` through K7 (forward and backward) against the same
+    function with the plain versions swapped in, bf16: y exactly (the same
+    products; combine's sums within one ulp), every gradient by relative
+    L2 within 1e-2."""
+    from deeplearning4j_tpu_torch.kernels import moe_route as mr
+    from deeplearning4j_tpu_torch.parallel import moe as tmoe
+    cfg = tmoe.MoEConfig(d_model=256, d_ff=512, num_experts=8, top_k=top_k)
+    params = {k: v.bfloat16() for k, v in tmoe.init_moe_params(
+        cfg, seed=4, scale=0.1).items()}
+    x = _rand((4, 256, 256), 6, torch.bfloat16)
+
+    def run():
+        leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+        xs = x.detach().requires_grad_()
+        y, aux = tmoe.moe_ffn(leaves, xs, cfg)
+        grads = torch.autograd.grad((y.float().square().sum()
+                                     + aux["aux_loss"].float()),
+                                    [*leaves.values(), xs])
+        return y, grads
+
+    mr.launches_dispatch = mr.launches_combine = 0
+    y, grads = run()
+    assert (mr.launches_dispatch, mr.launches_combine) == (2, 2)
+    for name in ("moe_dispatch", "moe_combine", "moe_dispatch_grad"):
+        monkeypatch.setattr(mr, name, getattr(
+            mr, name.replace("moe_", "") + "_reference"))
+    y_ref, grads_ref = run()
+    top = y_ref.float().abs().max().item()
+    assert (y.float() - y_ref.float()).abs().max().item() <= 2 ** -8 * top
+    for a, b in zip(grads, grads_ref):
+        assert ((a.float() - b.float()).norm()
+                / b.float().norm().clamp_min(1e-30)).item() <= 1e-2

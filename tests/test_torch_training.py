@@ -196,6 +196,21 @@ def test_to_jax_params_round_trip(fused, scan):
         np.testing.assert_array_equal(a, b)
 
 
+def test_from_jax_params_copies_so_training_leaves_the_tree_alone():
+    """The train step updates params in place; on the CPU the params must
+    not share memory with the numpy tree they came from."""
+    cfg = ttr.TransformerConfig(**KW, fused_qkv=True)
+    tree = init_jax_layout(cfg, 9)
+    before = jax.tree.map(np.copy, tree)
+    tm = ttr.TransformerLM(cfg, device="cpu")
+    tp = from_jax_params(tree, cfg, "cpu")
+    step = tm.make_train_step(adamw(LR))
+    toks, tgts = (torch.from_numpy(a) for a in _batch())
+    step(tp, adamw(LR).init(tp), toks, tgts)
+    for a, b in zip(jax.tree.leaves(tree), jax.tree.leaves(before)):
+        np.testing.assert_array_equal(a, b)
+
+
 def test_to_jax_params_loads_into_the_jax_model():
     """Params carried back from the port drive the JAX model's apply."""
     jm, _jp, tm, tp = _pair(scan=True)
@@ -221,14 +236,18 @@ def test_adamw_state_round_trip():
 
 
 def test_unported_training_options_raise():
+    """Every single-device option trains now; only pipeline_stages > 1,
+    which needs a device mesh, still raises."""
     tm = ttr.TransformerLM(ttr.TransformerConfig(**KW, dropout=0.1),
                            device="cpu")
     tp = tm.init_params(0)
     toks = torch.zeros((1, 4), dtype=torch.long)
+    with_rng = tm.loss_fn(tp, toks, toks, rng=0)
+    no_rng = tm.loss_fn(tp, toks, toks)     # no rng: no dropout, as in JAX
+    assert bool(torch.isfinite(with_rng)) and float(with_rng) != float(no_rng)
+    from deeplearning4j_tpu_torch.parallel.moe import MoEConfig
+    for ok in (dict(remat=True), dict(remat=True, remat_policy="dots"),
+               dict(ce_chunks=61), dict(moe=MoEConfig(num_experts=2))):
+        ttr.TransformerConfig(**KW, **ok)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.loss_fn(tp, toks, toks, rng=0)
-    tm.loss_fn(tp, toks, toks)          # no rng: no dropout, as in JAX
-    for bad in (dict(remat=True), dict(ce_chunks=4), dict(moe=object()),
-                dict(pipeline_stages=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttr.TransformerConfig(**KW, **bad)
+        ttr.TransformerConfig(**KW, pipeline_stages=2)
