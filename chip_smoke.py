@@ -7,8 +7,9 @@ Run from the root of a checkout, with no arguments::
 
 It builds every CUDA kernel of the port from ``kernels/csrc/`` with
 ``nvcc`` (one process per source, all at once), checks in ptxas's report
-that the wgmma forward has 168 registers a thread at entry and no spills
-and that the wgmma backward's kernels spill nothing, then:
+that the wgmma forward has 168 registers a thread at entry and no spills,
+that the wgmma backward's and the wgmma K3's kernels spill nothing, and
+that no wgmma source has its products serialized (C7514/C7512), then:
 
 1. kernel phase — holds each flash-attention kernel (the wgmma kernel for
    bf16 at d 64/128, the simple kernel for f32 and the other head dims)
@@ -33,11 +34,13 @@ and that the wgmma backward's kernels spill nothing, then:
    bf16 dlogits in its backward) against autograd through the f32 product
    at the training layer;
    then K3 (chunked cross-entropy: the forward K3f and one chunk's dlogits
-   K3b) and K7 (MoE dispatch K7d and combine K7c, each also in its
-   gradient mode) against their plain versions at the training shapes and
-   at ragged and small ones, timed the same two ways beside their bounds
-   and the library calls they stand for (the unchunked head + CE and its
-   backward; ``index_copy_`` / ``index_add_``);
+   K3b; the wgmma kernels for bf16, chunked_ce.cu's for f32, and both
+   designs in turns at the training shape) and K7 (MoE dispatch K7d and
+   combine K7c, each also in its gradient mode) against their plain
+   versions at the training shapes and at ragged and small ones, timed the
+   same two ways beside their bounds and the library calls they stand for
+   (the unchunked head + CE and its backward; ``index_copy_`` /
+   ``index_add_``);
 3. slice phase — serves generation from ``TransformerLM`` at the full
    width of the bench's large config (vocab 32768, 12 layers, 16 heads,
    d_model 1024, d_ff 4096, max_len 1024, bf16, fused QKV; random weights
@@ -136,11 +139,14 @@ SOURCES = {"wgmma": "flash_attention_fwd_wgmma.cu",
 # the launch counters of the four kernels, in the order counts() gives them
 KERNELS = ("wgmma", "simple", "bwd_wgmma", "bwd")
 # every kernel of the port, in the order all_counts() gives their launches:
-# the four flash kernels, then K3f, K3b, K7d and K7c
+# the four flash kernels, then K3f and K3b of chunked_ce.cu (f32 and bf16 at
+# other d), K7d and K7c, then the wgmma K3f and K3b (bf16 at d % 64 == 0)
 ALL_KERNELS = KERNELS + ("ce_fwd", "ce_dlogits", "moe_dispatch",
-                         "moe_combine")
+                         "moe_combine", "ce_fwd_wgmma", "ce_dlogits_wgmma")
 SOURCES.update(ce_fwd="chunked_ce.cu", ce_dlogits="chunked_ce.cu",
-               moe_dispatch="moe_route.cu", moe_combine="moe_route.cu")
+               moe_dispatch="moe_route.cu", moe_combine="moe_route.cu",
+               ce_fwd_wgmma="chunked_ce_wgmma.cu",
+               ce_dlogits_wgmma="chunked_ce_wgmma.cu")
 # K2 (backward) cases, laid out as KERNEL_CASES: "fused" takes q, k, v from
 # one (B, T, 3·H·d) projection, o from the forward written as TransformerLM
 # writes it, dO as the (B, H, T, d) view of a (B, T, H·d) gradient, and
@@ -200,7 +206,8 @@ LEARNING_RATE = 3e-4
 MOE_EXPERTS = 8
 MOE_RUNG = (8, False, 8)
 # K3 (chunked cross-entropy) cases: (rows N, vocab V, d, dtype, ce chunks);
-# the first is the training layer (bench large config, batch 8)
+# the first is the training layer (bench large config, batch 8). The bf16
+# cases take the wgmma kernels, the f32 one chunked_ce.cu's
 CE_CASES = [
     (8192, 32768, 1024, "bfloat16", 8),
     (4096, 32768, 1024, "bfloat16", 8),      # batch 4
@@ -208,6 +215,9 @@ CE_CASES = [
     (1, 384, 64, "bfloat16", 3),
     (1024, 4096, 256, "float32", 4),
 ]
+# the case each K3 kernel's kernels-line numbers come from
+CE_MAIN_CASE = {"ce_fwd_wgmma": CE_CASES[0], "ce_dlogits_wgmma": CE_CASES[0],
+                "ce_fwd": CE_CASES[4], "ce_dlogits": CE_CASES[4]}
 # K7 (MoE dispatch / combine) cases: (tokens G, experts E, slots C, top_k,
 # d, dtype); the first is the training layer (G 8192, cf 1.25 top-1)
 MOE_CASES = [
@@ -417,6 +427,13 @@ def serialized_wgmma(log):
     around."""
     return [ln.strip() for ln in log.splitlines()
             if "C7514" in ln or "C7512" in ln]
+
+
+def ce_wgmma_ptxas(log):
+    """{"fwd"|"dlogits": {"registers": n, "spill_bytes": n}} for the two
+    instantiations of the wgmma chunked cross-entropy kernel."""
+    return _ptxas(log, r"ce_wgmma_kernelILb([01])E",
+                  lambda m: "dlogits" if m.group(1) == "1" else "fwd")
 
 
 def bwd_wgmma_ptxas(log):
@@ -671,7 +688,8 @@ def all_counts():
     from deeplearning4j_tpu_torch.kernels import flash_attention as fa
     from deeplearning4j_tpu_torch.kernels import moe_route as mr
     return counts(fa) + (ce.launches_fwd, ce.launches_dlogits,
-                         mr.launches_dispatch, mr.launches_combine)
+                         mr.launches_dispatch, mr.launches_combine,
+                         ce.launches_fwd_wgmma, ce.launches_dlogits_wgmma)
 
 
 def reset_all_counts():
@@ -680,6 +698,7 @@ def reset_all_counts():
     from deeplearning4j_tpu_torch.kernels import moe_route as mr
     reset_counts(fa)
     ce.launches_fwd = ce.launches_dlogits = 0
+    ce.launches_fwd_wgmma = ce.launches_dlogits_wgmma = 0
     mr.launches_dispatch = mr.launches_combine = 0
 
 
@@ -727,53 +746,86 @@ def dlogits_errors(got, ref, t_local, scale):
     return rel, at
 
 
+def ce_inputs(torch, case):
+    """x (N, d), E (V, d) at the init's scale and targets for one of
+    CE_CASES, the first three targets on vocab 0, the first chunk's edge
+    and V − 1."""
+    n, v, d, dtype, chunks = case
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(n * 7 + v + d)
+    x = torch.randn((n, d), generator=g, device="cuda").to(dt)
+    e = (0.02 * torch.randn((v, d), generator=g, device="cuda")).to(dt)
+    t = torch.randint(0, v, (n,), generator=g, device="cuda")
+    c = v // chunks
+    t[: min(n, 3)] = torch.tensor([0, c, v - 1], device="cuda")[: min(n, 3)]
+    return x, e, t
+
+
+def ce_checked(torch, ce, case, x, e, t, lse_ref, cor, kernel=None):
+    """Run K3f and the first chunk's K3b once through their wrappers (the
+    kernel ``kernel`` names, or the one the wrappers choose), check that
+    exactly that kernel launched and hold both against their plain
+    versions. Returns (path, max |Δlse|, |Δloss|, max |Δdlogits|, relative
+    L2 off the targets, max |Δ| at the targets over g/N)."""
+    n, v, d, dtype, chunks = case
+    path = kernel or ce.kernel_for("cuda", x.dtype, d, True)
+    counters = {"wgmma": ("launches_fwd_wgmma", "launches_dlogits_wgmma"),
+                "mma_sync": ("launches_fwd", "launches_dlogits")}
+    reset_all_counts()
+    lse, loss = ce.chunked_ce_fwd(x, e, t, chunks, kernel=kernel)
+    torch.cuda.synchronize()
+    want = [0] * len(ALL_KERNELS)
+    want[ALL_KERNELS.index("ce_fwd" + ("_wgmma" if path == "wgmma"
+                                       else ""))] = 1
+    check(all_counts() == tuple(want), f"K3f {case} ({path}): launched "
+          f"{all_counts()} {ALL_KERNELS}")
+    err_lse = (lse - lse_ref).abs().max().item()
+    err_loss = abs(loss.item() - (lse_ref - cor).mean().item())
+    check(err_lse <= TOL_CE_LSE and err_loss <= TOL_CE_LSE,
+          f"K3f {case} ({path}): max |dlse| {err_lse}, |dloss| {err_loss} > "
+          f"{TOL_CE_LSE}")
+    c = v // chunks
+    gr = torch.ones((), device="cuda")
+    dlog = ce.ce_dlogits(x, e[:c], t, lse_ref, 0, gr, n, kernel=kernel)
+    ref = ce.ce_dlogits_reference(x, e[:c], t, lse_ref, 0, gr, n)
+    torch.cuda.synchronize()
+    check(getattr(ce, counters[path][1]) == 1, f"K3b {case} ({path}): did "
+          f"not launch")
+    local = torch.where(t < c, t, -1)
+    rel, at = dlogits_errors(dlog, ref, local, 1.0 / n)
+    check(rel <= TOL_CE_DLOG_L2[dtype] and at <= TOL_CE_DLOG_TARGET[dtype],
+          f"K3b {case} ({path}): relative L2 off the targets {rel}, at the "
+          f"targets {at} of g/N")
+    err_dlog = (dlog.float() - ref.float()).abs().max().item()
+    return path, err_lse, err_loss, err_dlog, rel, at
+
+
 def ce_phase(torch):
-    """K3f and K3b against their plain versions at each of CE_CASES, timed
-    as the flash kernels are. K3f's library time is the unchunked path it
-    replaces, two calls: the tied head's product into f32 logits
+    """K3f and K3b against their plain versions at each of CE_CASES (the
+    wgmma kernels on the bf16 cases, chunked_ce.cu's on the f32 one),
+    timed as the flash kernels are. K3f's library time is the unchunked
+    path it replaces, two calls: the tied head's product into f32 logits
     (``_TiedHead``, or the f32 product) and logsumexp minus the gathered
     target logit; K3b's is that path's backward (the f32 dlogits, then the
     head's bf16 backward), as the difference of its forward + backward and
     its forward. K3b itself is timed per launch (one ce chunk) and as the
-    whole chunked backward (every chunk's K3b and its two products)."""
+    whole chunked backward (every chunk's K3b and its two products). At
+    the training shape chunked_ce.cu's kernels also run on the bf16
+    operands, held to the plain versions too, and both designs' device
+    times are taken in turns (mma.sync, wgmma, wgmma, mma.sync)."""
     from deeplearning4j_tpu_torch.kernels import chunked_ce as ce
     from deeplearning4j_tpu_torch.models.transformer import _TiedHead
     results = {}
     for case in CE_CASES:
         n, v, d, dtype, chunks = case
         dt = getattr(torch, dtype)
-        g = torch.Generator(device="cuda").manual_seed(n * 7 + v + d)
-        x = torch.randn((n, d), generator=g, device="cuda").to(dt)
-        e = (0.02 * torch.randn((v, d), generator=g, device="cuda")).to(dt)
-        t = torch.randint(0, v, (n,), generator=g, device="cuda")
+        x, e, t = ce_inputs(torch, case)
         c = v // chunks
-        t[: min(n, 3)] = torch.tensor([0, c, v - 1], device="cuda")[
-            : min(n, 3)]
-        ce.launches_fwd = ce.launches_dlogits = 0
-        lse, loss = ce.chunked_ce_fwd(x, e, t, chunks)
-        torch.cuda.synchronize()
-        check(ce.launches_fwd == 1, f"K3f {case}: launched "
-              f"{ce.launches_fwd}")
-        lse_ref, cor = ce.chunked_ce_fwd_reference(x, e, t, chunks)
-        err_lse = (lse - lse_ref).abs().max().item()
-        err_loss = abs(loss.item() - (lse_ref - cor).mean().item())
-        check(err_lse <= TOL_CE_LSE and err_loss <= TOL_CE_LSE,
-              f"K3f {case}: max |dlse| {err_lse}, |dloss| {err_loss} > "
-              f"{TOL_CE_LSE}")
-        gr = torch.ones((), device="cuda")
         e0 = e[:c]
-        dlog = ce.ce_dlogits(x, e0, t, lse_ref, 0, gr, n)
-        ref = ce.ce_dlogits_reference(x, e0, t, lse_ref, 0, gr, n)
-        torch.cuda.synchronize()
-        check(ce.launches_dlogits == 1, f"K3b {case}: launched "
-              f"{ce.launches_dlogits}")
-        local = torch.where(t < c, t, -1)
-        rel, at = dlogits_errors(dlog, ref, local, 1.0 / n)
-        check(rel <= TOL_CE_DLOG_L2[dtype] and at <= TOL_CE_DLOG_TARGET[dtype],
-              f"K3b {case}: relative L2 off the targets {rel}, at the "
-              f"targets {at} of g/N")
-        err_dlog = (dlog.float() - ref.float()).abs().max().item()
-        del ref
+        gr = torch.ones((), device="cuda")
+        lse_ref, cor = ce.chunked_ce_fwd_reference(x, e, t, chunks)
+        path, err_lse, err_loss, err_dlog, rel, at = ce_checked(
+            torch, ce, case, x, e, t, lse_ref, cor)
 
         def head_fwd(xs, es):
             if dt == torch.bfloat16:
@@ -791,17 +843,18 @@ def ce_phase(torch):
             xs, es = (a.detach().requires_grad_() for a in (x, e))
             torch.autograd.grad(head_fwd(xs, es), (xs, es))
 
-        def fwd():
-            ce.chunked_ce_fwd(x, e, t, chunks)
+        def fwd(kernel=None):
+            ce.chunked_ce_fwd(x, e, t, chunks, kernel=kernel)
 
-        def dlogits():
-            ce.ce_dlogits(x, e0, t, lse_ref, 0, gr, n)
+        def dlogits(kernel=None):
+            ce.ce_dlogits(x, e0, t, lse_ref, 0, gr, n, kernel=kernel)
 
         def backward():
             ce.chunked_ce_bwd(x, e, t, lse_ref, gr, chunks)
 
         big = n * v >= 2 ** 26
-        row = {"n": n, "v": v, "d": d, "dtype": dtype, "ce_chunks": chunks,
+        row = {"path": path, "n": n, "v": v, "d": d, "dtype": dtype,
+               "ce_chunks": chunks,
                "max_abs_err_lse": err_lse, "abs_err_loss": err_loss,
                "max_abs_err_dlogits": err_dlog,
                "dlogits_rel_l2_off_target": rel,
@@ -840,6 +893,22 @@ def ce_phase(torch):
             "fwd_bound_ms"]
         row["backward_device_vs_bound"] = row["backward_device_ms"] / (
             chunks * row["dlogits_bound_ms"])
+        if case == CE_CASES[0]:
+            # chunked_ce.cu's kernels on the same bf16 operands: held to
+            # the plain versions, then both designs timed in turns
+            _p, *errs = ce_checked(torch, ce, case, x, e, t, lse_ref, cor,
+                                   kernel="mma_sync")
+            row["mma_sync_errors"] = dict(zip(
+                ("max_abs_err_lse", "abs_err_loss", "max_abs_err_dlogits",
+                 "dlogits_rel_l2_off_target",
+                 "dlogits_err_at_target_over_scale"), errs))
+            turns = {"fwd": {"mma_sync": [], "wgmma": []},
+                     "dlogits": {"mma_sync": [], "wgmma": []}}
+            for kernel in ("mma_sync", "wgmma", "wgmma", "mma_sync"):
+                for what, fn in (("fwd", fwd), ("dlogits", dlogits)):
+                    turns[what][kernel].append(device_ms(
+                        lambda: fn(kernel), torch))
+            row["turns_device_ms"] = turns
         emit(ce_case=row)
         results[case] = row
         torch.cuda.empty_cache()
@@ -999,16 +1068,17 @@ def leaf_paths(tree, prefix=""):
 
 
 def expected_per_step(n_layers, remat, ce_chunks, moe=False):
-    """Launches of each kernel (ALL_KERNELS' order) in one training step:
-    the wgmma forward once per layer (twice under remat: the recompute),
-    the wgmma backward once per layer, K3f once and K3b once per ce chunk
-    when ce_chunks, and for a MoE model K7d and K7c twice per layer (the
-    forward's dispatch and combine, and each one's backward in the other
-    kernel; three times under remat)."""
+    """Launches of each kernel (ALL_KERNELS' order) in one training step of
+    the bf16 large config: the wgmma forward once per layer (twice under
+    remat: the recompute), the wgmma backward once per layer, the wgmma
+    K3f once and K3b once per ce chunk when ce_chunks (chunked_ce.cu's
+    never: d 1024 is a multiple of 64), and for a MoE model K7d and K7c
+    twice per layer (the forward's dispatch and combine, and each one's
+    backward in the other kernel; three times under remat)."""
     L = n_layers
     k7 = (3 if remat else 2) * L if moe else 0
-    return ((2 if remat else 1) * L, 0, L, 0, 1 if ce_chunks else 0,
-            ce_chunks, k7, k7)
+    return ((2 if remat else 1) * L, 0, L, 0, 0, 0, k7, k7,
+            1 if ce_chunks else 0, ce_chunks)
 
 
 def slice_phase(torch, fa):
@@ -1356,7 +1426,8 @@ def moe_train_phase(torch, fa):
     served = tuple(a - b for a, b in zip(all_counts(), before))
     check(toks.shape == (2, N_NEW) and bool(((toks >= 0) & (
         toks < LARGE["vocab_size"])).all()), f"MoE generate: {toks.shape}")
-    check(served[6] > 0 and served[7] > 0 and served[4:6] == (0, 0),
+    check(served[6] > 0 and served[7] > 0 and served[4:6] == (0, 0)
+          and served[8:] == (0, 0),
           f"MoE generate launched {served} {ALL_KERNELS}")
     emit(moe_generate={"batch": 2, "prompt_len": 100, "new_tokens": N_NEW,
                        "generate_ms": ms,
@@ -1444,15 +1515,20 @@ def profile_window(torch, label, fn, trace_name, top=10):
             tot[1] += 1
     copies = sum(n for name, (_us, n) in by_name.items()
                  if "copy" in name.lower())
-    # every kernel of K1 and K2 (the D pass too), however small
+    # every kernel of K1 and K2 (the D pass too), and of K3 (its merge
+    # too), however small
     attention = {name: tot for name, tot in by_name.items() if re.search(
         r"flash|delta_kernel|dq_kernel|dkdv_kernel", name)}
+    cross_entropy = {name: tot for name, tot in by_name.items() if re.search(
+        r"ce_wgmma_kernel|ce_fwd_kernel|ce_dlogits_kernel|ce_merge_kernel",
+        name)}
     return {"wall_ms": wall_ms, "window_us": hi - lo,
             "device_busy_us": busy, "busy_share": busy / (hi - lo),
             "kernels": sum(n for _us, n in by_name.values()),
             "copy_kernels": copies, "trace": str(trace.relative_to(ROOT)),
             "top_kernels": _top(by_name, top), "top_ops": _top(by_op, top),
-            "attention_kernels": _top(attention, len(attention))}
+            "attention_kernels": _top(attention, len(attention)),
+            "ce_kernels": _top(cross_entropy, len(cross_entropy))}
 
 
 def kernel_entry(path, cases, launches):
@@ -1504,31 +1580,42 @@ def bwd_kernel_entry(path, cases, launches):
 
 
 def ce_kernel_entry(kind, cases, launches):
-    """The kernels-line entry of K3f ("ce_fwd") or K3b ("ce_dlogits"), its
-    numbers at CE_CASES[0]. K3b's ``ms`` is one launch (one ce chunk);
+    """The kernels-line entry of K3f or K3b: "ce_fwd_wgmma" and
+    "ce_dlogits_wgmma" (``chunked_ce_wgmma.cu``) with their numbers at the
+    training shape, "ce_fwd" and "ce_dlogits" (``chunked_ce.cu``) at the
+    f32 case (CE_MAIN_CASE). K3b's ``ms`` is one launch (one ce chunk);
     ``backward_ms`` is the whole chunked backward (every chunk's K3b and
     its two products), the counterpart of ``library_ms``, the unchunked
-    head's backward (a difference of two times)."""
-    main = cases[CE_CASES[0]]
-    fwd = kind == "ce_fwd"
+    head's backward (a difference of two times). Each entry also carries
+    both designs' device times at the training shape, taken in turns."""
+    at = CE_MAIN_CASE[kind]
+    main = cases[at]
+    fwd = kind.startswith("ce_fwd")
+    wgmma = kind.endswith("_wgmma")
     p = "fwd" if fwd else "dlogits"
+    rows = [r for r in cases.values()
+            if r["path"] == ("wgmma" if wgmma else "mma_sync")]
     entry = {
-        "name": "chunked_ce_fwd" if fwd else "chunked_ce_dlogits",
+        "name": ("chunked_ce_fwd" if fwd else "chunked_ce_dlogits")
+        + ("_wgmma" if wgmma else ""),
         "route": "cuda",
         "source": f"deeplearning4j_tpu_torch/kernels/csrc/{SOURCES[kind]}",
         "replaces": "deeplearning4j_tpu/kernels/chunked_ce.py:"
                     + ("40" if fwd else "85"),
         "launches": sum(launches.values()), "launches_by_path": launches,
-        "on_main_path": True,
+        "on_main_path": wgmma,
         "max_abs_err": max(r["max_abs_err_lse" if fwd else
-                             "max_abs_err_dlogits"] for r in cases.values()),
+                             "max_abs_err_dlogits"] for r in rows),
         "ms": main[f"{p}_ms"], "device_ms": main[f"{p}_device_ms"],
         "plain_ms": main[f"{p}_plain_ms"], "bound_ms": main[f"{p}_bound_ms"],
         "bound_by": main[f"{p}_bound_by"], "library": main["library"],
         "library_ms": main["library_ms" if fwd else "library_bwd_ms"],
         "library_device_ms": main["library_device_ms" if fwd
                                   else "library_bwd_device_ms"],
-        "at": dict(zip(("n", "v", "d", "dtype", "ce_chunks"), CE_CASES[0]))}
+        "at": dict(zip(("n", "v", "d", "dtype", "ce_chunks"), at))}
+    turns = cases[CE_CASES[0]].get("turns_device_ms")
+    if turns is not None:
+        entry["turns_device_ms_at_training_shape"] = turns[p]
     if not fwd:
         entry["backward_ms"] = main["backward_ms"]
         entry["backward_device_ms"] = main["backward_device_ms"]
@@ -1638,7 +1725,8 @@ def main() -> int:
              or "C75" in ln]
     emit(build={"seconds": time.perf_counter() - t0, "compiled": compiled,
                 "ptxas": ptxas})
-    for name in ("flash_attention_fwd_wgmma", "flash_attention_bwd_wgmma"):
+    for name in ("flash_attention_fwd_wgmma", "flash_attention_bwd_wgmma",
+                 "chunked_ce_wgmma"):
         warned = serialized_wgmma(_build.build_logs.get(name, ""))
         check(not warned, f"{name}: ptxas serialized wgmma: {warned}")
     log = _build.build_logs.get("flash_attention_fwd_wgmma")
@@ -1659,6 +1747,15 @@ def main() -> int:
                       for r in report.values()),
               f"wgmma backward: want no spills in its four kernels, ptxas "
               f"gave {report}")
+    log = _build.build_logs.get("chunked_ce_wgmma")
+    if log is not None:
+        report = ce_wgmma_ptxas(log)
+        emit(ce_wgmma_ptxas=report)
+        check(sorted(report) == ["dlogits", "fwd"]
+              and all("registers" in r and r.get("spill_bytes") == 0
+                      for r in report.values()),
+              f"wgmma K3: want no spills in its two kernels, ptxas gave "
+              f"{report}")
 
     def allocated(after):
         emit(allocated={"after": after,
@@ -1693,9 +1790,12 @@ def main() -> int:
           "a main path launched the simple kernel")
     check(serve[2] == serve[3] == train[3] == moe[3] == 0,
           "serving launched a backward, or training the mma.sync one")
-    check(all(n > 0 for n in train[4:6] + moe[4:8]),
-          f"training launched no K3f, K3b, K7d or K7c: {train}, {moe}")
-    check(serve[4:] == (0, 0, 0, 0) and train[6:] == (0, 0),
+    check(all(n > 0 for n in train[8:10] + moe[6:10]),
+          f"training launched no wgmma K3f or K3b, K7d or K7c: {train}, "
+          f"{moe}")
+    check(train[4:6] == moe[4:6] == (0, 0),
+          "bf16 training launched chunked_ce.cu's K3 kernels")
+    check(serve[4:] == (0,) * 6 and train[6:8] == (0, 0),
           "serving launched K3 or K7, or the dense model K7")
     emit(kernels=[kernel_entry("wgmma", cases, launches["wgmma"]),
                   kernel_entry("simple", cases, launches["simple"]),
@@ -1708,7 +1808,11 @@ def main() -> int:
                   moe_kernel_entry("moe_dispatch", moe_cases,
                                    launches["moe_dispatch"]),
                   moe_kernel_entry("moe_combine", moe_cases,
-                                   launches["moe_combine"])])
+                                   launches["moe_combine"]),
+                  ce_kernel_entry("ce_fwd_wgmma", ce_cases,
+                                  launches["ce_fwd_wgmma"]),
+                  ce_kernel_entry("ce_dlogits_wgmma", ce_cases,
+                                  launches["ce_dlogits_wgmma"])])
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

@@ -1,6 +1,9 @@
 // Chunked LM cross-entropy for Hopper (sm_90a): the forward (K3f) and the
 // dlogits pass of the backward (K3b) of the tied head's softmax
 // cross-entropy, without the (N, V) logits ever reaching device memory.
+// This is the path for f32 and for bf16 at d not a multiple of 64;
+// chunked_ce_wgmma.cu takes bf16 at d a multiple of 64 (the model's
+// training step).
 //
 // Replaces `chunked_softmax_xent` of deeplearning4j_tpu/kernels/chunked_ce.py:
 // `_forward_pieces` (a lax.scan over vocab chunks: f32 logits x E_c^T, an
@@ -16,8 +19,9 @@
 // stay in f32 registers, where the block's threads fold them into a running
 // max and sum per row (the flash recurrence on the vocab axis) and pick the
 // target logit where it falls. Each split writes its partial (m, l, correct)
-// per row; ce_merge_kernel (one block) merges the splits into lse (saved for
-// the backward) and the mean of lse - correct, the loss, in a fixed order.
+// per row; ce_merge_kernel (chunked_ce_merge.cuh, one block) merges the
+// splits into lse (saved for the backward) and the mean of lse - correct,
+// the loss, in a fixed order.
 // K3b (ce_dlogits_kernel): one block per 128 x 128 tile of one ce chunk's
 // dlogits: the same product, then the epilogue above, written in x's dtype.
 //
@@ -47,6 +51,8 @@
 #include <math.h>
 #include <stdint.h>
 #include <type_traits>
+
+#include "chunked_ce_merge.cuh"
 
 namespace {
 
@@ -265,14 +271,6 @@ __device__ __forceinline__ void run_tiles(const Args& a, int row0,
   }
 }
 
-// (m, l) of two parts of one row's online softmax, merged into the first
-__device__ __forceinline__ void merge(float& m, float& l, float m2,
-                                      float l2) {
-  const float mx = fmaxf(m, m2);
-  l = mx == NEG_INF ? 0.0f : l * expf(m - mx) + l2 * expf(m2 - mx);
-  m = mx;
-}
-
 // bf16: at most 128 registers a thread, so two blocks share an SM
 template <typename T>
 constexpr int min_blocks() { return std::is_same<T, bf16>::value ? 2 : 1; }
@@ -363,39 +361,6 @@ __global__ void __launch_bounds__(NTHREADS, min_blocks<T>())
   }
 }
 
-// lse of each row from its splits' partials, and the mean of lse - correct
-// over the rows: one block, each thread's rows in a fixed order, then a
-// fixed tree, so the loss is the same from run to run
-__global__ void __launch_bounds__(1024) ce_merge_kernel(const float* part,
-                                                        int splits, int n,
-                                                        float* lse,
-                                                        float* loss) {
-  __shared__ float warp_sums[32];
-  const long long plane = (long long)splits * n;
-  float acc = 0.0f;
-  for (int r = threadIdx.x; r < n; r += blockDim.x) {
-    float m = NEG_INF, l = 0.0f, c = 0.0f;
-    for (int s = 0; s < splits; ++s) {
-      const long long at = (long long)s * n + r;
-      merge(m, l, part[at], part[plane + at]);
-      c += part[2 * plane + at];
-    }
-    const float v = m + logf(l);
-    lse[r] = v;
-    acc += v - c;
-  }
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = acc;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    acc = threadIdx.x < (int)(blockDim.x >> 5) ? warp_sums[threadIdx.x] : 0.f;
-    for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (threadIdx.x == 0) loss[0] = acc / (float)n;
-  }
-}
-
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(bf16* p, float v) {
   *p = __float2bfloat16_rn(v);
@@ -448,8 +413,7 @@ cudaError_t fwd(const Args& a, float* lse, float* loss, cudaStream_t s) {
                      SMEM_BYTES, s>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  ce_merge_kernel<<<1, 1024, 0, s>>>(a.part, a.splits, a.n, lse, loss);
-  return cudaGetLastError();
+  return launch_merge(a.part, a.splits, a.n, lse, loss, s);
 }
 
 template <typename T>

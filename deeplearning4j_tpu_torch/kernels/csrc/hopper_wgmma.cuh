@@ -1,6 +1,7 @@
 // Device and host helpers shared by the port's Hopper (sm_90a) kernels:
-// mbarriers, TMA tile and bulk loads, wgmma descriptors and products, and
-// the host-side encoding of strided (B, H, T, d) bf16 views as tensor maps.
+// mbarriers, TMA tile loads and stores and bulk loads, wgmma descriptors and
+// products, and the host-side encoding of strided (B, H, T, d) bf16 views and
+// of row-major (rows, d) bf16 matrices as tensor maps.
 //
 // Conventions of every kernel that includes this:
 // - a tile in shared memory is a stack of 64-column panels (128 bytes a
@@ -83,6 +84,44 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
       "r"(bar)
       : "memory");
+}
+
+// One 2-D TMA tile load into shared memory, completing on `bar`: the box
+// at column c0, row c1.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// One 2-D TMA tile store from shared memory (a bulk group of this thread):
+// the box at column c0, row c1; what falls outside the tensor is not
+// written.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait until this thread's bulk stores have finished reading shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// Wait until this thread's bulk stores are complete.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// Make this thread's shared-memory writes visible to the async proxy (TMA).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // `bytes` contiguous bytes global -> shared, completing on `bar`; both
@@ -170,6 +209,36 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       "%64, %65, p, 1, 1, 0, 0;\n}\n"
       : ACC8(d, 0), ACC8(d, 8), ACC8(d, 16), ACC8(d, 24), ACC8(d, 32),
         ACC8(d, 40), ACC8(d, 48), ACC8(d, 56)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+#define ACC32(a, i) ACC8(a, i), ACC8(a, i + 8), ACC8(a, i + 16), ACC8(a, i + 24)
+
+// D[64 x 256] (+)= A[64 x 16] B[16 x 256]; A and B from shared memory, both
+// K-major. `accumulate` 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 0;\n}\n"
+      : ACC32(d, 0), ACC32(d, 32), ACC32(d, 64), ACC32(d, 96)
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -326,6 +395,25 @@ CUresult encode_4d(CUtensorMap* map, int* perm, const void* ptr, int batch,
                 const_cast<void*>(ptr), gdim, gstride, box, estride,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// Encode a (rows, d) bf16 matrix with unit stride on d and row stride `ld`
+// elements as a 2-D tensor map whose box is 64 columns x `box_rows` rows
+// (what lies past the edges arrives zero-filled, and a store there is
+// dropped). `ld` * 2 must be a multiple of 16 and the base 16-byte aligned.
+CUresult encode_2d(CUtensorMap* map, const void* ptr, long long rows, int d,
+                   long long ld, int box_rows) {
+  EncodeTiledFn encode = encode_fn();
+  if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
+  cuuint64_t gdim[2] = {(cuuint64_t)d, (cuuint64_t)rows};
+  cuuint64_t gstride[1] = {(cuuint64_t)(ld * 2)};   // bytes
+  cuuint32_t box[2] = {(cuuint32_t)PANEL, (cuuint32_t)box_rows};
+  cuuint32_t estride[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(ptr), gdim, gstride, box, estride,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 

@@ -410,6 +410,14 @@ class TransformerLM:
             ks.append(k)
             vs.append(v)
         logits = self._head(params["tok_emb"], self._ln(params["ln_f"], x))
+        if not ks:
+            # zero-layer trunk (an embedding-only draft): no attention, an
+            # empty (0, B, T, H, hd) cache
+            c = self.config
+            b, t = tokens.shape
+            empty = torch.zeros((0, b, t, c.n_heads, c.d_model // c.n_heads),
+                                dtype=c.dtype, device=self.device)
+            return logits, {"k": empty, "v": empty}
         return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
 
     def _window_embed(self, params, tokens, positions):

@@ -208,6 +208,40 @@ def test_ptxas_report_of_each_bwd_wgmma_kernel(spill):
     assert chip_smoke.wgmma_ptxas(_BWD_PTXAS.format(s=spill)) == {}
 
 
+_CE_PTXAS = """\
+ptxas info    : Compiling entry function '_ZN58_GLOBAL__N__4c1d2e77_19_chunked_ce_wgmma_cu_0b9a4f1315ce_merge_kernelEPKfiiPfS2_' for 'sm_90a'
+    0 bytes stack frame, 16 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 30 registers, used 1 barriers, 128 bytes smem
+ptxas info    : Compiling entry function '_ZN58_GLOBAL__N__4c1d2e77_19_chunked_ce_wgmma_cu_0b9a4f1315ce_wgmma_kernelILb1EEEv14CUtensorMap_stS1_S1_NS_4ArgsE' for 'sm_90a'
+    0 bytes stack frame, {s} bytes spill stores, {s} bytes spill loads
+ptxas info    : Used 168 registers, used 3 barriers
+ptxas info    : Compiling entry function '_ZN58_GLOBAL__N__4c1d2e77_19_chunked_ce_wgmma_cu_0b9a4f1315ce_wgmma_kernelILb0EEEv14CUtensorMap_stS1_S1_NS_4ArgsE' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+"""
+
+
+@pytest.mark.parametrize("spill", [0, 24])
+def test_ptxas_report_of_each_ce_wgmma_kernel(spill):
+    """The wgmma K3's two instantiations (K3f and K3b) by registers and
+    spills; the merge kernel's spills are not theirs, the flash parsers
+    see none of them, and a serialization warning is found beside them."""
+    log = _CE_PTXAS.format(s=spill)
+    assert chip_smoke.ce_wgmma_ptxas(log) == {
+        "dlogits": {"registers": 168, "spill_bytes": 2 * spill},
+        "fwd": {"registers": 168, "spill_bytes": 0}}
+    assert chip_smoke.wgmma_ptxas(log) == {}
+    assert chip_smoke.bwd_wgmma_ptxas(log) == {}
+    assert chip_smoke.ce_wgmma_ptxas(_BWD_PTXAS.format(s=0)) == {}
+    assert chip_smoke.serialized_wgmma(log) == []
+    warned = log + ("ptxas warning : (C7514) Potential Performance Loss: "
+                    "wgmma.mma_async instructions are serialized due to "
+                    "...\n"
+                    "ptxas warning : (C7512) Potential Performance Loss: "
+                    "wgmma.mma_async instructions are serialized ...\n")
+    assert len(chip_smoke.serialized_wgmma(warned)) == 2
+
+
 def _bwd_row(path, case, device_ms, err):
     names = ("layout", "b", "h", "t_q", "t_k", "d", "dtype", "causal")
     row = dict(zip(names, case), path=path, device_ms=device_ms,
@@ -302,8 +336,8 @@ def test_serialized_wgmma_warnings_are_found():
 
 def test_profile_window_lists_every_attention_kernel(tmp_path, monkeypatch):
     """Besides the top kernels, the window names every kernel of K1 and K2
-    (the wgmma and mma.sync ones, and the small D pass), each with its
-    device time and count."""
+    (the wgmma and mma.sync ones, and the small D pass) and of K3 (the
+    merge too), each with its device time and count."""
     import json
     import torch
     import torch.profiler as tp
@@ -321,7 +355,11 @@ def test_profile_window_lists_every_attention_kernel(tmp_path, monkeypatch):
         kernel("void flash_bwd_wgmma_kernel<64, true>(...)", 69, 9),
         kernel("void delta_kernel<__nv_bfloat16>(DeltaArgs)", 78, 1),
         kernel("void dq_kernel_bf16<64>(Args)", 79, 5),
-        kernel("void dkdv_kernel_bf16<64>(Args)", 84, 6)]
+        kernel("void dkdv_kernel_bf16<64>(Args)", 84, 6),
+        kernel("void ce_wgmma_kernel<false>(CUtensorMap_st, Args)", 90, 4),
+        kernel("void ce_merge_kernel(float const*, int, int)", 94, 1),
+        kernel("void ce_wgmma_kernel<true>(CUtensorMap_st, Args)", 95, 2),
+        kernel("void ce_wgmma_kernel<true>(CUtensorMap_st, Args)", 97, 2)]
 
     class Profile:
         def __init__(self, activities):
@@ -350,7 +388,12 @@ def test_profile_window_lists_every_attention_kernel(tmp_path, monkeypatch):
         "void dkdv_kernel_bf16<64>(Args)": (6.0, 1),
         "void dq_kernel_bf16<64>(Args)": (5.0, 1),
         "void delta_kernel<__nv_bfloat16>(DeltaArgs)": (1.0, 1)}
-    assert row["busy_share"] == pytest.approx(0.9)    # 90 of 100 us
+    got = {k["name"]: (k["us"], k["count"]) for k in row["ce_kernels"]}
+    assert got == {
+        "void ce_wgmma_kernel<false>(CUtensorMap_st, Args)": (4.0, 1),
+        "void ce_merge_kernel(float const*, int, int)": (1.0, 1),
+        "void ce_wgmma_kernel<true>(CUtensorMap_st, Args)": (4.0, 2)}
+    assert row["busy_share"] == pytest.approx(0.99)   # 99 of 100 us
 
 
 def test_ce_bounds_at_the_training_shape():
@@ -383,18 +426,46 @@ def test_moe_bound_at_the_training_shape():
 
 
 def test_expected_launches_per_step():
-    """K1 twice per layer under remat (its recompute), K2 once, K3f once
-    and K3b per ce chunk, K7 twice per MoE layer (three times under
+    """K1 twice per layer under remat (its recompute), K2 once, the wgmma
+    K3f once and K3b per ce chunk (chunked_ce.cu's never: the large
+    config is bf16 at d 1024), K7 twice per MoE layer (three times under
     remat)."""
     assert chip_smoke.expected_per_step(12, False, 0) == (12, 0, 12, 0, 0, 0,
-                                                          0, 0)
-    assert chip_smoke.expected_per_step(12, True, 8) == (24, 0, 12, 0, 1, 8,
-                                                         0, 0)
+                                                          0, 0, 0, 0)
+    assert chip_smoke.expected_per_step(12, True, 8) == (24, 0, 12, 0, 0, 0,
+                                                         0, 0, 1, 8)
     assert chip_smoke.expected_per_step(12, False, 8, moe=True) == (
-        12, 0, 12, 0, 1, 8, 24, 24)
-    assert chip_smoke.expected_per_step(2, True, 0, moe=True)[6:] == (6, 6)
-    assert len(chip_smoke.ALL_KERNELS) == 8
+        12, 0, 12, 0, 0, 0, 24, 24, 1, 8)
+    assert chip_smoke.expected_per_step(2, True, 0, moe=True)[6:] == (6, 6,
+                                                                     0, 0)
+    assert len(chip_smoke.ALL_KERNELS) == 10
     assert chip_smoke.ALL_KERNELS[:4] == chip_smoke.KERNELS
+    assert chip_smoke.ALL_KERNELS[8:] == ("ce_fwd_wgmma", "ce_dlogits_wgmma")
+    assert {chip_smoke.SOURCES[k] for k in chip_smoke.ALL_KERNELS[8:]} == {
+        "chunked_ce_wgmma.cu"}
+
+
+def test_all_counts_reads_every_counter_in_order():
+    """all_counts gives the ten counters in ALL_KERNELS' order, and
+    reset_all_counts zeroes every one."""
+    from deeplearning4j_tpu_torch.kernels import chunked_ce as ce
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+    from deeplearning4j_tpu_torch.kernels import moe_route as mr
+    names = [(fa, "launches_wgmma"), (fa, "launches_simple"),
+             (fa, "launches_bwd_wgmma"), (fa, "launches_bwd"),
+             (ce, "launches_fwd"), (ce, "launches_dlogits"),
+             (mr, "launches_dispatch"), (mr, "launches_combine"),
+             (ce, "launches_fwd_wgmma"), (ce, "launches_dlogits_wgmma")]
+    saved = [getattr(m, n) for m, n in names]
+    try:
+        for i, (m, n) in enumerate(names):
+            setattr(m, n, i + 1)
+        assert chip_smoke.all_counts() == tuple(range(1, 11))
+        chip_smoke.reset_all_counts()
+        assert chip_smoke.all_counts() == (0,) * 10
+    finally:
+        for (m, n), v in zip(names, saved):
+            setattr(m, n, v)
 
 
 def test_dlogits_errors_see_a_wrong_softmax_beside_the_targets():
@@ -419,8 +490,10 @@ def test_dlogits_errors_see_a_wrong_softmax_beside_the_targets():
 
 
 def test_kernels_line_entries_of_k3_and_k7():
-    """K3f, K3b, K7d and K7c get kernels-line entries with every key the
-    line needs, from their cases' first (training-layer) row."""
+    """K3f and K3b (both designs), K7d and K7c get kernels-line entries
+    with every key the line needs: the wgmma K3 and K7 from their cases'
+    first (training-layer) row, chunked_ce.cu's K3 from the f32 case, each
+    K3 entry with both designs' turns at the training shape."""
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -431,10 +504,28 @@ def test_kernels_line_entries_of_k3_and_k7():
                   library_bwd_ms=3.0, library_bwd_device_ms=3.0,
                   backward_ms=4.0, backward_device_ms=4.0,
                   max_abs_err_lse=1e-5, max_abs_err_dlogits=1e-6)
-    ce_cases = {c: dict(ce_row) for c in chip_smoke.CE_CASES}
+    ce_cases = {c: dict(ce_row, path="mma_sync" if c[3] == "float32"
+                        else "wgmma") for c in chip_smoke.CE_CASES}
+    turns = {w: {"mma_sync": [3.0, 3.1], "wgmma": [1.0, 1.1]}
+             for w in ("fwd", "dlogits")}
+    ce_cases[chip_smoke.CE_CASES[0]].update(turns_device_ms=turns,
+                                            fwd_ms=7.0, max_abs_err_lse=2e-5)
+    ce_cases[chip_smoke.CE_CASES[4]].update(fwd_ms=9.0)
     launches = {"serve": 0, "train": 21, "moe": 7}
     fwd = chip_smoke.ce_kernel_entry("ce_fwd", ce_cases, launches)
     dlog = chip_smoke.ce_kernel_entry("ce_dlogits", ce_cases, launches)
+    fwd_w = chip_smoke.ce_kernel_entry("ce_fwd_wgmma", ce_cases, launches)
+    dlog_w = chip_smoke.ce_kernel_entry("ce_dlogits_wgmma", ce_cases,
+                                        launches)
+    assert (fwd_w["ms"], fwd["ms"]) == (7.0, 9.0)
+    assert (fwd_w["max_abs_err"], fwd["max_abs_err"]) == (2e-5, 1e-5)
+    assert fwd_w["name"] == "chunked_ce_fwd_wgmma" and fwd_w["on_main_path"]
+    assert dlog_w["source"].endswith("csrc/chunked_ce_wgmma.cu")
+    assert fwd["source"].endswith("csrc/chunked_ce.cu")
+    assert not fwd["on_main_path"] and fwd["at"]["dtype"] == "float32"
+    for entry in (fwd, dlog, fwd_w, dlog_w):
+        what = "fwd" if "fwd" in entry["name"] else "dlogits"
+        assert entry["turns_device_ms_at_training_shape"] == turns[what]
     moe_row = {f"{p}_{k}": 1.0 for p in ("dispatch", "combine")
                for k in ("ms", "device_ms", "plain_ms", "bound_ms",
                          "library_ms", "library_device_ms")}
@@ -445,7 +536,7 @@ def test_kernels_line_entries_of_k3_and_k7():
     moe_cases = {c: dict(moe_row) for c in chip_smoke.MOE_CASES}
     disp = chip_smoke.moe_kernel_entry("moe_dispatch", moe_cases, launches)
     comb = chip_smoke.moe_kernel_entry("moe_combine", moe_cases, launches)
-    for entry in (fwd, dlog, disp, comb):
+    for entry in (fwd, dlog, fwd_w, dlog_w, disp, comb):
         for key in keys:
             assert key in entry, (entry["name"], key)
         assert entry["route"] == "cuda" and entry["launches"] == 28

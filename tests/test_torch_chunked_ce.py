@@ -122,24 +122,83 @@ def test_dlogits_are_softmax_minus_onehot_scaled():
 def test_cpu_tensors_take_the_plain_versions():
     (_j), (tx, te, tt) = _inputs("float32", 2)
     tce.launches_fwd = tce.launches_dlogits = 0
+    tce.launches_fwd_wgmma = tce.launches_dlogits_wgmma = 0
     x = tx.clone().requires_grad_()
     torch.autograd.grad(tce.chunked_softmax_xent(x, te, tt, 2), x)
-    assert (tce.launches_fwd, tce.launches_dlogits) == (0, 0)
+    assert (tce.launches_fwd, tce.launches_dlogits, tce.launches_fwd_wgmma,
+            tce.launches_dlogits_wgmma) == (0, 0, 0, 0)
 
 
-@pytest.mark.parametrize("n,v,splits,per", [
-    (8192, 32768, 9, 29),          # the bench's large config, batch 8
-    (4096, 32768, 16, 16),         # batch 4
-    (10, 96, 1, 1),                # one tile of each
-    (1, 1000, 8, 1),               # one row: every tile its own split
-    (100000, 256, 1, 2),           # many rows: one split
+@pytest.mark.parametrize("device,dtype,d,aligned,want", [
+    ("cpu", torch.bfloat16, 1024, True, "plain"),
+    ("cpu", torch.float32, 40, False, "plain"),      # the CPU takes anything
+    ("cuda", torch.bfloat16, 1024, True, "wgmma"),   # the training layer
+    ("cuda", torch.bfloat16, 64, True, "wgmma"),
+    ("cuda", torch.bfloat16, 192, True, "wgmma"),
+    ("cuda", torch.bfloat16, 32, True, "mma_sync"),  # bf16 at other d
+    ("cuda", torch.bfloat16, 96, True, "mma_sync"),
+    ("cuda", torch.float32, 1024, True, "mma_sync"),  # f32 at any d
+    ("cuda", torch.float32, 16, True, "mma_sync"),
+    ("cuda", torch.bfloat16, 1024, False, ValueError),  # off the 16-B grid
+    ("cuda", torch.float32, 256, False, ValueError),
+    ("cuda", torch.bfloat16, 40, True, ValueError),     # 80 B a row
+    ("cuda", torch.float32, 8, True, ValueError),
+    ("cuda", torch.float16, 1024, True, TypeError),
 ])
-def test_vocab_splits_cover_the_vocab(n, v, splits, per):
-    got = tce.vocab_splits(n, v)
+def test_kernel_for_routes_each_case(device, dtype, d, aligned, want):
+    if isinstance(want, str):
+        assert tce.kernel_for(device, dtype, d, aligned) == want
+    else:
+        with pytest.raises(want):
+            tce.kernel_for(device, dtype, d, aligned)
+
+
+def test_tma_aligned_reads_strides_and_start():
+    x = torch.zeros((16, 64), dtype=torch.bfloat16)
+    assert tce.tma_aligned(x) == (x.data_ptr() % 16 == 0)
+    assert not tce.tma_aligned(x[:, ::2])                  # stride 2 on d
+    assert not tce.tma_aligned(torch.zeros((4, 68), dtype=torch.bfloat16)
+                               [:, :64])                   # 136-byte rows
+    buf = torch.zeros(16 * 64 + 8, dtype=torch.bfloat16)
+    off = next(i for i in range(1, 8) if (buf.data_ptr() + 2 * i) % 16)
+    assert not tce.tma_aligned(buf[off:off + 16 * 64].view(16, 64))
+
+
+@pytest.mark.parametrize("n,v,tile_cols,blocks,splits,per", [
+    # the wgmma kernel (256-column tiles, one block an SM)
+    (8192, 32768, 256, 132, 2, 64),    # the bench's large config, batch 8
+    (4096, 32768, 256, 132, 4, 32),    # batch 4
+    (10, 96, 256, 132, 1, 1),          # one tile of each
+    (1, 1000, 256, 132, 4, 1),         # one row: every tile its own split
+    (100000, 256, 256, 132, 1, 1),     # many rows: one split
+    # the mma.sync kernel (128-column tiles, four blocks an SM)
+    (8192, 32768, 128, 528, 8, 32),
+    (4096, 32768, 128, 528, 16, 16),
+    (1, 1000, 128, 528, 8, 1),
+    (100000, 256, 128, 528, 1, 2),
+])
+def test_vocab_splits_cover_the_vocab(n, v, tile_cols, blocks, splits, per):
+    got = tce.vocab_splits(n, v, tile_cols, blocks)
     assert got == (splits, per)
-    tiles = -(-v // 128)
+    tiles = -(-v // tile_cols)
     # every tile in exactly one split, and no split empty
     assert (splits - 1) * per < tiles <= splits * per
+
+
+@pytest.mark.parametrize("n", [1, 1000, 4096, 8192, 20000])
+@pytest.mark.parametrize("v", [256, 384, 5000, 32768])
+def test_vocab_splits_fill_one_wave(n, v):
+    """The wgmma K3f's grid (the defaults): every vocab tile in exactly one
+    split, no split empty, and never more blocks than one wave of the
+    H100's 132 SMs unless the rows alone need more; at the training rows
+    (N 8192 and 4096, V 32768) within 4 SMs of a full wave."""
+    splits, per = tce.vocab_splits(n, v)
+    tiles, row_tiles = -(-v // 256), -(-n // 128)
+    assert splits >= 1 and per >= 1
+    assert (splits - 1) * per < tiles <= splits * per
+    assert row_tiles * splits <= max(132, row_tiles)
+    if v == 32768 and n in (4096, 8192):
+        assert 128 <= row_tiles * splits <= 132
 
 
 def _pair(fused=True, dtype="float32", ce_chunks=4, seed=0):

@@ -8,6 +8,8 @@ only PyTorch and the CUDA toolkit::
         tests/test_torch_kernels_gpu.py -k "one_key_tile or one_tile"
     timeout 120 python -m pytest --noconftest -m gpu \\
         tests/test_torch_kernels_gpu.py -k bwd_wgmma_one_tile
+    timeout 120 python -m pytest --noconftest -m gpu \\
+        tests/test_torch_kernels_gpu.py -k ce_wgmma_one_tile
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 
 (``--noconftest`` because the suite's conftest sets up JAX.) Tolerances as
@@ -345,20 +347,39 @@ def _ce_inputs(n, v, d, dtype, seed):
     return ce, x, e, t
 
 
-def _ce_held_to_reference(n, v, d, dtype, seed=0, n_chunks=2):
+def _ce_counts(ce):
+    return (ce.launches_fwd, ce.launches_dlogits, ce.launches_fwd_wgmma,
+            ce.launches_dlogits_wgmma)
+
+
+def _ce_held_to_reference(n, v, d, dtype, seed=0, n_chunks=2, kernel=None,
+                          edges=False):
+    """K3f and every chunk's K3b once, on the kernel the wrappers choose
+    (or ``kernel``), each held to its plain version; asserts which kernel
+    launched. ``edges``: targets also on the 256-column tile edges and on
+    the chunk edges."""
     import chip_smoke
     ce, x, e, t = _ce_inputs(n, v, d, dtype, seed)
+    c = v // n_chunks
+    if edges and n > 4:
+        at = torch.tensor([255, 256, c - 1, c, 2 * c - 1, 511, 512, v - 2],
+                          device="cuda").clamp(max=v - 1)
+        k = min(n, 4 + at.numel())
+        t[4:k] = at[: k - 4]
+    path = kernel or ce.kernel_for("cuda", dtype, d, True)
+    wgmma = path == "wgmma"
     ce.launches_fwd = ce.launches_dlogits = 0
-    lse, loss = ce.chunked_ce_fwd(x, e, t, n_chunks)
+    ce.launches_fwd_wgmma = ce.launches_dlogits_wgmma = 0
+    lse, loss = ce.chunked_ce_fwd(x, e, t, n_chunks, kernel=kernel)
     torch.cuda.synchronize()
-    assert ce.launches_fwd == 1
+    assert _ce_counts(ce) == ((0, 0, 1, 0) if wgmma else (1, 0, 0, 0))
     lse_ref, cor = ce.chunked_ce_fwd_reference(x, e, t, n_chunks)
     assert (lse - lse_ref).abs().max().item() <= 1e-4
     assert abs(loss.item() - (lse_ref - cor).mean().item()) <= 1e-4
-    c = v // n_chunks
     g = torch.tensor(2.5, device="cuda")
     for i in range(n_chunks):
-        got = ce.ce_dlogits(x, e[i * c:(i + 1) * c], t, lse_ref, i * c, g, n)
+        got = ce.ce_dlogits(x, e[i * c:(i + 1) * c], t, lse_ref, i * c, g, n,
+                            kernel=kernel)
         ref = ce.ce_dlogits_reference(x, e[i * c:(i + 1) * c], t, lse_ref,
                                       i * c, g, n)
         assert got.dtype == x.dtype and got.shape == (n, c)
@@ -368,16 +389,45 @@ def _ce_held_to_reference(n, v, d, dtype, seed=0, n_chunks=2):
         assert rel <= (5e-3 if bf16 else 1e-5), (i, rel)
         assert at <= (2 ** -7 if bf16 else 1e-5), (i, at)
     torch.cuda.synchronize()
-    assert ce.launches_dlogits == n_chunks
+    assert _ce_counts(ce) == ((0, 0, 1, n_chunks) if wgmma
+                              else (1, n_chunks, 0, 0))
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64),
                                      (torch.float32, 32)])
 def test_ce_one_tile(cuda, dtype, d):
-    """K3f and K3b on one 128-row tile against one 128-column vocab tile
-    (one block each, one split), before anything larger."""
-    _ce_held_to_reference(128, 256, d, dtype, n_chunks=2)
+    """chunked_ce.cu's K3f and K3b on one 128-row tile against one
+    128-column vocab tile (one block each, one split), before anything
+    larger; bf16 at d 64 is forced onto it (the wrappers choose wgmma)."""
+    _ce_held_to_reference(128, 256, d, dtype, n_chunks=2,
+                          kernel="mma_sync")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+def test_ce_wgmma_one_tile(cuda, d):
+    """The wgmma K3f and K3b on one 128 × 256 block tile (one block, one
+    split, one K3b tile; one and two panels of d): the accumulator layout,
+    the descriptors, one pass of the ring, the staging swizzle and the TMA
+    store, before anything larger."""
+    _ce_held_to_reference(128, 256, d, torch.bfloat16, n_chunks=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,v,d,n_chunks", [
+    (8192, 32768, 1024, 8),    # the training layer (batch 8)
+    (4096, 32768, 1024, 8),    # batch 4
+    (1000, 5000, 1024, 4),     # ragged rows, vocab and chunks (C 1250)
+    (1, 384, 64, 3),           # one row; chunks of 128, half a tile
+    (129, 520, 192, 2),        # a row past a tile; chunks of 260
+    (300, 2304, 64, 9),        # more ring stages than panels a tile
+])
+def test_ce_wgmma_matches_reference(cuda, n, v, d, n_chunks):
+    """The wgmma kernels at chip_smoke's CE cases and at ragged ones, with
+    targets on 256-column tile edges and on chunk edges."""
+    _ce_held_to_reference(n, v, d, torch.bfloat16, seed=n + v + d,
+                          n_chunks=n_chunks, edges=True)
 
 
 @pytest.mark.gpu
@@ -399,19 +449,23 @@ def test_chunked_softmax_xent_on_the_card_matches_plain(cuda, monkeypatch):
     the loss within 1e-4, dx and dE by relative L2 within 5e-3 (bf16)."""
     ce, x, e, t = _ce_inputs(512, 2048, 128, torch.bfloat16, 9)
     xs, es = (a.detach().requires_grad_() for a in (x, e))
+    ce.launches_fwd = ce.launches_dlogits = 0
+    ce.launches_fwd_wgmma = ce.launches_dlogits_wgmma = 0
     loss = ce.chunked_softmax_xent(xs.view(2, 256, 128), es, t.view(2, 256),
                                    4)
     dx, de = torch.autograd.grad(loss, (xs, es))
+    assert _ce_counts(ce) == (0, 0, 1, 4)     # the wgmma kernels
     monkeypatch.setattr(ce, "chunked_ce_fwd", lambda x2, emb, tg, k: (
         lambda lc: (lc[0], (lc[0] - lc[1]).mean()))(
             ce.chunked_ce_fwd_reference(x2, emb, tg, k)))
     monkeypatch.setattr(ce, "ce_dlogits", ce.ce_dlogits_reference)
     ce.launches_fwd = ce.launches_dlogits = 0
+    ce.launches_fwd_wgmma = ce.launches_dlogits_wgmma = 0
     xs2, es2 = (a.detach().requires_grad_() for a in (x, e))
     ref = ce.chunked_softmax_xent(xs2.view(2, 256, 128), es2,
                                   t.view(2, 256), 4)
     dx_ref, de_ref = torch.autograd.grad(ref, (xs2, es2))
-    assert (ce.launches_fwd, ce.launches_dlogits) == (0, 0)
+    assert _ce_counts(ce) == (0, 0, 0, 0)
     assert abs(loss.item() - ref.item()) <= 1e-4
     for a, b in ((dx, dx_ref), (de, de_ref)):
         assert a.dtype == torch.bfloat16
@@ -432,6 +486,21 @@ def test_ce_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="stride"):
         ce.ce_dlogits(x[:, ::2], e[:, ::2], t, torch.zeros(64,
                       device="cuda"), 0, torch.ones((), device="cuda"), 64)
+    # a start off the 16-byte grid: neither kernel's loads can take it
+    xs = torch.empty(64 * 64 + 1, device="cuda",
+                     dtype=torch.bfloat16)[1:].view(64, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        ce.chunked_ce_fwd(xs, e, t, 2)
+    # the wgmma kernel is bf16 at d % 64 == 0 only
+    with pytest.raises(ValueError, match="wgmma"):
+        ce.chunked_ce_fwd(x.float(), e.float(), t, 2, kernel="wgmma")
+    with pytest.raises(ValueError, match="wgmma"):
+        ce.chunked_ce_fwd(x[:, :32].contiguous(), e[:, :32].contiguous(), t,
+                          2, kernel="wgmma")
+    ce.launches_fwd = ce.launches_fwd_wgmma = 0
+    ce.chunked_ce_fwd(x[:, :32].contiguous(), e[:, :32].contiguous(), t, 2)
+    torch.cuda.synchronize()
+    assert (ce.launches_fwd, ce.launches_fwd_wgmma) == (1, 0)
 
 
 # ---------------------------------------------- K7: MoE dispatch / combine
