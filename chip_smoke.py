@@ -40,16 +40,31 @@ that no wgmma source has its products serialized (C7514/C7512), then:
    versions at the training shapes and at ragged and small ones, timed the
    same two ways beside their bounds and the library calls they stand for
    (the unchunked head + CE and its backward; ``index_copy_`` /
-   ``index_add_``);
+   ``index_add_``); then K4 (K4a, the paged decode attention, over bf16,
+   f32 and int8 pages and the dense cache's view, at the serving shapes and
+   at edges: P 16, hd 16 and 128, a window past the span, a free slot; K4w,
+   the int8 quantize-and-scatter, bit-exact, for decode windows and a
+   prefill insert) against their plain versions, timed the same two ways
+   beside their bounds and, for K4a, the gather of the pages plus SDPA;
 3. slice phase — serves generation from ``TransformerLM`` at the full
    width of the bench's large config (vocab 32768, 12 layers, 16 heads,
    d_model 1024, d_ff 4096, max_len 1024, bf16, fused QKV; random weights
    from a numpy seed through ``from_jax_params``) through ``DecodeEngine``
    in its default paged mode, checks the tokens and logits, and checks that
    every prefill and ``apply`` launched the wgmma kernel exactly once per
-   layer and the simple kernel never;
+   layer and the simple kernel never, and every decode step K4a once per
+   layer;
 4. profile phase — one ``torch.profiler`` window over a single prefill at
-   bucket 1024: the device's busy share and the top device kernels;
+   bucket 1024, and one over 4 decode steps after a 960-token prompt: the
+   device's busy share and the top device kernels; then the serving modes
+   at full width: int8 pages with plain decode, bf16 pages with speculative
+   decoding (a 2-layer truncated draft with a dense cache, spec_k 4), and
+   both: the int8 gate's record (the pool int8 if and only if it passed),
+   the tokens against plain decode's up to its first near tie, the int8
+   decode's logits against ``apply``, every kernel's launches per step and
+   round, the accept ratio, prefill ms, ms per emitted token and the
+   resident cache bytes, and an int8 pool through ``decode_window_paged``
+   whatever the gate decided;
 5. training phase — ``make_train_step(adamw(3e-4))`` at the same config on
    each of bench.py's rungs (batch, remat, ce_chunks) = (8, no, 0),
    (8, no, 8), (8, yes, 8), (4, yes, 8): 2 warm and 5 timed steps on one
@@ -140,13 +155,17 @@ SOURCES = {"wgmma": "flash_attention_fwd_wgmma.cu",
 KERNELS = ("wgmma", "simple", "bwd_wgmma", "bwd")
 # every kernel of the port, in the order all_counts() gives their launches:
 # the four flash kernels, then K3f and K3b of chunked_ce.cu (f32 and bf16 at
-# other d), K7d and K7c, then the wgmma K3f and K3b (bf16 at d % 64 == 0)
+# other d), K7d and K7c, then the wgmma K3f and K3b (bf16 at d % 64 == 0),
+# then K4a (paged decode attention) and K4w (int8 quantize-and-scatter)
 ALL_KERNELS = KERNELS + ("ce_fwd", "ce_dlogits", "moe_dispatch",
-                         "moe_combine", "ce_fwd_wgmma", "ce_dlogits_wgmma")
+                         "moe_combine", "ce_fwd_wgmma", "ce_dlogits_wgmma",
+                         "paged_attention", "kv_quant_write")
 SOURCES.update(ce_fwd="chunked_ce.cu", ce_dlogits="chunked_ce.cu",
                moe_dispatch="moe_route.cu", moe_combine="moe_route.cu",
                ce_fwd_wgmma="chunked_ce_wgmma.cu",
-               ce_dlogits_wgmma="chunked_ce_wgmma.cu")
+               ce_dlogits_wgmma="chunked_ce_wgmma.cu",
+               paged_attention="paged_attention.cu",
+               kv_quant_write="paged_attention.cu")
 # K2 (backward) cases, laid out as KERNEL_CASES: "fused" takes q, k, v from
 # one (B, T, 3·H·d) projection, o from the forward written as TransformerLM
 # writes it, dO as the (B, H, T, d) view of a (B, T, H·d) gradient, and
@@ -236,6 +255,54 @@ TOL_CE_DLOG_L2 = {"bfloat16": 5e-3, "float32": 1e-5}
 TOL_CE_DLOG_TARGET = {"bfloat16": 2 ** -7, "float32": 1e-5}
 TOL_MOE_COMBINE = {"bfloat16": 2 ** -8, "float32": 1e-6}
 TOL_MOE_DGATE = {"bfloat16": 1e-2, "float32": 1e-5}
+# K4a (paged decode attention) cases: (slots B, window W, heads H, head dim
+# hd, page tokens P, pages a slot n_lp, q's dtype, pool ("same" as q or
+# "int8"), each slot's context (its window ends at context − 1), slots whose
+# table row is all trash). The first is the main path's decode step (bench
+# large config: 16 heads of 64, pages of 64 over a 1024 span); W 5 is the
+# speculative verify window (spec_k 4); P = S = 1024 is the dense cache.
+DECODE_CASES = [
+    (1, 1, 16, 64, 64, 16, "bfloat16", "same", (1024,), ()),
+    (1, 1, 16, 64, 64, 16, "bfloat16", "same", (37,), ()),
+    (1, 1, 16, 64, 64, 16, "bfloat16", "same", (500,), ()),
+    (1, 1, 16, 64, 64, 16, "bfloat16", "same", (960,), ()),
+    (1, 5, 16, 64, 64, 16, "bfloat16", "same", (960,), ()),
+    (8, 1, 16, 64, 64, 16, "bfloat16", "same", (1024,) * 8, ()),
+    (8, 5, 16, 64, 64, 16, "bfloat16", "same", (1024,) * 8, ()),
+    (1, 1, 16, 64, 64, 16, "bfloat16", "int8", (1024,), ()),
+    (1, 5, 16, 64, 64, 16, "bfloat16", "int8", (500,), ()),
+    (8, 1, 16, 64, 64, 16, "bfloat16", "int8", (1024,) * 8, ()),
+    (8, 5, 16, 64, 64, 16, "bfloat16", "int8", (37, 500, 960, 1024) * 2,
+     ()),
+    (1, 1, 16, 64, 1024, 1, "bfloat16", "same", (1024,), ()),   # dense
+    (1, 5, 16, 64, 1024, 1, "bfloat16", "same", (960,), ()),
+    (2, 3, 16, 64, 16, 64, "bfloat16", "int8", (700, 33), ()),  # P 16
+    (1, 4, 8, 128, 64, 8, "bfloat16", "same", (512,), ()),      # hd 128
+    (2, 2, 4, 16, 32, 4, "bfloat16", "int8", (128, 5), ()),     # hd 16
+    (2, 5, 16, 64, 64, 16, "float32", "same", (300, 1024), ()),
+    # a window whose tail runs past S, and a free slot (all trash)
+    (3, 5, 16, 64, 64, 4, "bfloat16", "int8", (258, 40, 300), (1,)),
+]
+DECODE_MAIN_CASE = {"paged_attention": DECODE_CASES[0],
+                    "paged_attention_int8": DECODE_CASES[7],
+                    "paged_attention_dense": DECODE_CASES[11]}
+# K4w cases: (slots B, window W, layers, page tokens P, rows' dtype); B = 1
+# with W > 1 layer is a prefill insert (rows of a T-token bucket into whole
+# pages, zero-padded), else a decode or verify window (one layer). Each has
+# an all-zero row. The first is the main path's decode step.
+QUANT_CASES = [
+    (1, 1, 1, 64, "bfloat16"),
+    (1, 5, 1, 64, "bfloat16"),
+    (8, 5, 1, 64, "bfloat16"),
+    (2, 5, 1, 16, "float32"),
+    (1, 1024, 12, 64, "bfloat16"),      # the insert at bucket 1024
+    (1, 32, 12, 64, "bfloat16"),        # bucket 32 into one padded page
+]
+# the serving modes at full width: int8 pages with plain decode, bf16 pages
+# with speculative decoding (a 2-layer truncated draft with a dense cache,
+# spec_k 4), and both
+SPEC_K = 4
+DRAFT_LAYERS = 2
 # the first-step loss of a rung with ce_chunks (or remat) against the same
 # batch and weights at (8, False, 0): f32 sums in another order
 TOL_RUNG_LOSS = 5e-5
@@ -687,19 +754,28 @@ def all_counts():
     from deeplearning4j_tpu_torch.kernels import chunked_ce as ce
     from deeplearning4j_tpu_torch.kernels import flash_attention as fa
     from deeplearning4j_tpu_torch.kernels import moe_route as mr
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
     return counts(fa) + (ce.launches_fwd, ce.launches_dlogits,
                          mr.launches_dispatch, mr.launches_combine,
-                         ce.launches_fwd_wgmma, ce.launches_dlogits_wgmma)
+                         ce.launches_fwd_wgmma, ce.launches_dlogits_wgmma,
+                         pa.launches_attend, pa.launches_quant_write)
 
 
 def reset_all_counts():
     from deeplearning4j_tpu_torch.kernels import chunked_ce as ce
     from deeplearning4j_tpu_torch.kernels import flash_attention as fa
     from deeplearning4j_tpu_torch.kernels import moe_route as mr
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
     reset_counts(fa)
     ce.launches_fwd = ce.launches_dlogits = 0
     ce.launches_fwd_wgmma = ce.launches_dlogits_wgmma = 0
     mr.launches_dispatch = mr.launches_combine = 0
+    pa.launches_attend = pa.launches_quant_write = 0
+
+
+def delta(before):
+    """Each kernel's launches since ``before`` (an ``all_counts()``)."""
+    return tuple(a - b for a, b in zip(all_counts(), before))
 
 
 def ce_fwd_bound_ms(n, v, d, dtype):
@@ -1074,11 +1150,12 @@ def expected_per_step(n_layers, remat, ce_chunks, moe=False):
     K3f once and K3b once per ce chunk when ce_chunks (chunked_ce.cu's
     never: d 1024 is a multiple of 64), and for a MoE model K7d and K7c
     twice per layer (the forward's dispatch and combine, and each one's
-    backward in the other kernel; three times under remat)."""
+    backward in the other kernel; three times under remat); K4a and K4w
+    (decode only) never."""
     L = n_layers
     k7 = (3 if remat else 2) * L if moe else 0
     return ((2 if remat else 1) * L, 0, L, 0, 0, 0, k7, k7,
-            1 if ce_chunks else 0, ce_chunks)
+            1 if ce_chunks else 0, ce_chunks, 0, 0)
 
 
 def slice_phase(torch, fa):
@@ -1105,18 +1182,19 @@ def slice_phase(torch, fa):
                 "seconds": time.perf_counter() - t0,
                 "page_tokens": engine.page_tokens})
     L, V = cfg.n_layers, cfg.vocab_size
-    per_forward = (L, 0, 0, 0)    # the wgmma forward once per layer
+    # the wgmma forward once per layer of a prefill or apply, K4a once per
+    # layer of each decode step (bf16 pages: K4w never), nothing else
+    per_forward = (L,) + (0,) * 11
+    per_generate = (L,) + (0,) * 9 + ((N_NEW - 1) * L, 0)
     rng = np.random.default_rng(SEED + 1)
 
     def launched(fn):
-        before = counts(fa)
+        before = all_counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
-        after = counts(fa)
-        return (out, tuple(a - b for a, b in zip(after, before)),
-                1e3 * (time.perf_counter() - t))
+        return out, delta(before), 1e3 * (time.perf_counter() - t)
 
     def tokens_ok(toks, shape):
         check(toks.shape == shape, f"tokens shape {toks.shape} != {shape}")
@@ -1129,8 +1207,8 @@ def slice_phase(torch, fa):
         bucket = engine.prefill_bucket(n)
         (toks, steps), got, _ms = launched(
             lambda: engine.generate(prompt, N_NEW, return_logits=True))
-        check(got == per_forward, f"prompt {n}: launched {got}, want "
-              f"{per_forward} {KERNELS}")
+        check(got == per_generate, f"prompt {n}: launched {got}, want "
+              f"{per_generate} {ALL_KERNELS}")
         tokens_ok(toks, (1, N_NEW))
         pre = []
         for _ in range(3):
@@ -1138,11 +1216,11 @@ def slice_phase(torch, fa):
             check(got == per_forward, f"prefill {n}: launched {got}")
             pre.append(ms)
         toks2, got, gen_ms = launched(lambda: engine.generate(prompt, N_NEW))
-        check(got == per_forward and np.array_equal(toks2, toks),
+        check(got == per_generate and np.array_equal(toks2, toks),
               f"prompt {n}: greedy rerun differs or launched {got}")
         # teacher forcing: the full forward (kernel path) over prompt +
         # generated tokens against each step's logits (prefill, then the
-        # plain-torch paged decode)
+        # paged decode through K4a)
         full = np.concatenate([prompt, toks[:, :-1]], axis=1)
         ref, got, _ms = launched(lambda: model.apply(
             engine.params, torch.as_tensor(full, device=model.device)))
@@ -1165,7 +1243,7 @@ def slice_phase(torch, fa):
 
     batch = rng.integers(0, V, (4, 100)).astype(np.int32)
     toks, got, ms = launched(lambda: engine.generate(batch, N_NEW))
-    check(got == per_forward, f"batch: launched {got}")
+    check(got == per_generate, f"batch: launched {got}")
     tokens_ok(toks, (4, N_NEW))
     emit(batch={"batch": 4, "prompt_len": 100, "generate_ms": ms})
 
@@ -1176,13 +1254,459 @@ def slice_phase(torch, fa):
     runs = []
     for _ in range(2):
         toks, got, ms = launched(lambda: topk.generate(prompt, N_NEW))
-        check(got == per_forward, f"top-k: launched {got}")
+        check(got == per_generate, f"top-k: launched {got}")
         tokens_ok(toks, (1, N_NEW))
         runs.append(toks)
     check(np.array_equal(runs[0], runs[1]), "top-k runs differ")
     emit(topk={"top_k": 40, "temperature": 0.8, "seed": 7,
                "identical": True, "generate_ms": ms})
     return engine, model, all_counts()
+
+
+def k4_inputs(torch, case):
+    """q as the (B, W, H, hd) view of a fused projection (strided, as the
+    model hands it over), pools of B·n_lp pages + trash (int8 from
+    quantized random rows with their scales, or q's dtype), each slot's
+    pages a random permutation (the trash slots' rows all trash), and
+    window positions ending at each slot's context − 1."""
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    B, W, H, hd, P, n_lp, dtype, pool, ctx, trash = case
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(B * 131 + W * 17 + hd + P)
+    n_pages = B * n_lp + 1
+    proj = torch.randn((B, W, 3 * H * hd), generator=g, device="cuda")
+    q = proj.to(dt)[..., :H * hd].view(B, W, H, hd)
+    rows = torch.randn((2, n_pages, P, H, hd), generator=g, device="cuda")
+    if pool == "int8":
+        k8, ks = pa.quantize_kv_rows_reference(rows[0])
+        v8, vs = pa.quantize_kv_rows_reference(rows[1])
+        pools = (k8, v8, ks, vs)
+    else:
+        rows = rows.to(dt)
+        pools = (rows[0].contiguous(), rows[1].contiguous(), None, None)
+    perm = torch.randperm(B * n_lp, generator=g, device="cuda")
+    tables = perm.view(B, n_lp).to(torch.int32)
+    for b in trash:
+        tables[b] = n_pages - 1
+    pos = (torch.tensor(ctx, device="cuda")[:, None] - W
+           + torch.arange(W, device="cuda")[None, :]).clamp_min(0)
+    return q, pools, tables, pos.to(torch.int32)
+
+
+def k4a_bound_ms(case, pos):
+    """K4a's least time on this run's positions: the keys each slot needs
+    (positions up to its largest query's, capped at S), k and v rows read
+    once (with their f32 scales for int8 pages), their page-table entries,
+    q and the positions read and o written once; against 4·hd operations
+    per (query, needed key, head) in f32, the kernel's arithmetic (scalar
+    FMAs: the f32 peak)."""
+    B, W, H, hd, P, n_lp, dtype, pool, _ctx, _trash = case
+    S = P * n_lp
+    item = 2 if dtype == "bfloat16" else 4
+    kv_item = 1 if pool == "int8" else item
+    pos = pos.cpu().numpy().astype(np.int64)
+    keys = np.minimum(pos.max(axis=1) + 1, S)
+    nbytes = (int(keys.sum()) * (2 * H * hd * kv_item
+                                 + (8 if pool == "int8" else 0))
+              + 4 * int(np.ceil(keys / P).sum()) + 4 * B * W
+              + 2 * B * W * H * hd * item)
+    flops = 4.0 * H * hd * float(np.minimum(pos + 1, S).sum())
+    return _bound(flops, nbytes, "float32")
+
+
+def k4w_bound_ms(n_valid, n_rows, layers, c, dtype):
+    """K4w's least time: the k and v rows read once, their int8 rows and
+    f32 scales written once, and the (page, row) coordinates read (no
+    arithmetic to speak of)."""
+    item = 2 if dtype == "bfloat16" else 4
+    return _bound(0.0, layers * (2 * n_valid * c * item + 2 * n_rows * c
+                                 + 8 * n_rows) + 8 * n_rows, dtype)
+
+
+def quant_inputs(torch, case):
+    """Rows for one of QUANT_CASES (strided views of a fused projection for
+    a window, a prefill's (L, 1, T, H, hd) k/v for an insert) with an
+    all-zero row, their (page, row) coordinates, and zeroed int8 pools and
+    scales of the large config's heads."""
+    B, W, layers, P, dtype = case
+    H, hd = LARGE["n_heads"], LARGE["d_model"] // LARGE["n_heads"]
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(B * 7 + W + layers + P)
+    if layers == 1:
+        proj = torch.randn((B, W, 3 * H * hd), generator=g, device="cuda")
+        proj[0, W - 1] = 0.0
+        proj = proj.to(dt)
+        k = proj[..., H * hd:2 * H * hd].view(B, W, H, hd)
+        v = proj[..., 2 * H * hd:].view(B, W, H, hd)
+        n_pages = -(-B * W // P) + 2
+        flat = torch.randperm((n_pages - 1) * P, generator=g,
+                              device="cuda")[:B * W].view(B, W)
+        phys, off = (flat // P).to(torch.int32), (flat % P).to(torch.int32)
+        phys[-1, -1], off[-1, -1] = n_pages - 1, 0          # the trash
+        lead = ()
+    else:
+        kv = torch.randn((2, layers, 1, W, H, hd), generator=g,
+                         device="cuda")
+        kv[:, :, :, 0] = 0.0
+        kv = kv.to(dt)
+        k, v = kv[0], kv[1]
+        npb = -(-W // P)
+        n_pages = npb + 1
+        ids = torch.randperm(npb, generator=g, device="cuda")
+        t = torch.arange(npb * P, device="cuda")
+        phys, off = ids[t // P][None].to(torch.int32), (t % P)[None].to(
+            torch.int32)
+        lead = (layers,)
+
+    def pools():
+        return [torch.zeros((*lead, n_pages, P, H, hd), dtype=torch.int8,
+                            device="cuda") for _ in range(2)] + [
+            torch.zeros((*lead, n_pages, P), device="cuda")
+            for _ in range(2)]
+
+    return k, v, phys, off, pools
+
+
+def decode_kernel_phase(torch):
+    """K4a against its plain version (the gather of each slot's pages and
+    the reference attention) at each of DECODE_CASES, and K4w against its
+    plain version (bit-exact) at each of QUANT_CASES, timed as the other
+    kernels are: ``device_ms`` from CUDA-graph replays, ``ms`` with the
+    host, the plain version, and for K4a the library call, the gather
+    (dequantized for int8 pages) plus SDPA with a boolean mask."""
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    results = {}
+    for case in DECODE_CASES:
+        B, W, H, hd, P, n_lp, dtype, pool, ctx, trash = case
+        q, (k, v, ks, vs), tables, pos = k4_inputs(torch, case)
+        pa.launches_attend = 0
+        o = pa.paged_attention(q, k, v, tables, pos, ks, vs)
+        torch.cuda.synchronize()
+        check(pa.launches_attend == 1, f"K4a {case}: launched "
+              f"{pa.launches_attend}")
+        ref = pa.paged_attention_reference(q, k, v, tables, pos, ks, vs)
+        err = (o.float() - ref.float()).abs().max().item()
+        check(math.isfinite(err) and err <= TOL_O[dtype],
+              f"paged_attention {case}: max |do| {err} > {TOL_O[dtype]}")
+        S = P * n_lp
+        mask = (torch.arange(S, device="cuda")[None, None, None, :]
+                <= pos.long()[:, None, :, None])
+
+        def kernel():
+            pa.paged_attention(q, k, v, tables, pos, ks, vs)
+
+        def library():
+            kk = pa.gather_pages(k, ks, tables, q.dtype).transpose(1, 2)
+            vv = pa.gather_pages(v, vs, tables, q.dtype).transpose(1, 2)
+            F.scaled_dot_product_attention(q.transpose(1, 2), kk, vv,
+                                           attn_mask=mask)
+
+        bound_ms, bound_by = k4a_bound_ms(case, pos)
+        row = {"b": B, "w": W, "h": H, "hd": hd, "page_tokens": P,
+               "pages_a_slot": n_lp, "dtype": dtype, "pool": pool,
+               "contexts": list(ctx), "trash_slots": list(trash),
+               "splits": pa.key_splits(B, H, S)[0], "max_abs_err": err,
+               "ms": time_ms(kernel, torch),
+               "device_ms": device_ms(kernel, torch),
+               "plain_ms": time_ms(lambda: pa.paged_attention_reference(
+                   q, k, v, tables, pos, ks, vs), torch, iters=5, repeats=5),
+               "library_ms": time_ms(library, torch),
+               "library_device_ms": device_ms(library, torch),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        row["device_vs_bound"] = row["device_ms"] / bound_ms
+        row["device_vs_library"] = (row["device_ms"]
+                                    / row["library_device_ms"])
+        emit(decode_case=row)
+        results[case] = row
+    for case in QUANT_CASES:
+        B, W, layers, P, dtype = case
+        k, v, phys, off, pools = quant_inputs(torch, case)
+        got, want = pools(), pools()
+        pa.launches_quant_write = 0
+        pa.kv_quant_write(k, v, phys, off, *got)
+        pa.kv_quant_write_reference(k, v, phys, off, *want)
+        torch.cuda.synchronize()
+        check(pa.launches_quant_write == 1, f"K4w {case}: launched "
+              f"{pa.launches_quant_write}")
+        for name, a, b in zip(("k", "v", "k_scale", "v_scale"), got, want):
+            check(torch.equal(a, b), f"kv_quant_write {case}: {name} "
+                  f"differs from its plain version")
+        zero_scale = got[2][..., int(phys[0, W - 1]), int(off[0, W - 1])] \
+            if layers == 1 else got[2][:, int(phys[0, 0]), int(off[0, 0])]
+        check(bool((zero_scale == 1.0).all()), f"kv_quant_write {case}: "
+              f"the all-zero row's scale is not 1")
+        n_rows = phys.numel()
+        n_valid = B * W
+        C = LARGE["d_model"]
+
+        def kernel():
+            pa.kv_quant_write(k, v, phys, off, *got)
+
+        bound_ms, bound_by = k4w_bound_ms(n_valid, n_rows, layers, C, dtype)
+        row = {"b": B, "w": W, "layers": layers, "page_tokens": P,
+               "dtype": dtype, "rows": n_rows, "max_abs_err": 0.0,
+               "ms": time_ms(kernel, torch),
+               "device_ms": device_ms(kernel, torch),
+               "plain_ms": time_ms(lambda: pa.kv_quant_write_reference(
+                   k, v, phys, off, *want), torch, iters=5, repeats=5),
+               "library_ms": None, "bound_ms": bound_ms,
+               "bound_by": bound_by}
+        row["device_vs_bound"] = row["device_ms"] / bound_ms
+        emit(quant_write_case=row)
+        results[("quant",) + case] = row
+    return results
+
+
+def near_tie_step(steps):
+    """The first step whose plain-decode logits (1, V) have a top-2 gap of
+    at most TOL_TEACHER_FORCED, or None: another matmul shape may round
+    such a step's argmax either way under bf16."""
+    for i, row in enumerate(steps):
+        top = np.sort(np.asarray(row, np.float64)[0])[-2:]
+        if top[1] - top[0] <= TOL_TEACHER_FORCED:
+            return i
+    return None
+
+
+def serve_phase(torch, model, engine):
+    """The three serving modes at full width against the default engine
+    (bf16 pages, plain decode): (a) int8 pages with plain decode, (b) bf16
+    pages with speculative decoding by a DRAFT_LAYERS-layer truncation of
+    the target (its embeddings shared) with a dense cache, spec_k SPEC_K,
+    (c) both. Greedy, PROMPT_LENS, N_NEW tokens. Checks the gate's record
+    (the pool is int8 if and only if it passed), the tokens against plain
+    decode's up to its first near-tie step, (a)'s teacher-forced logits
+    against ``apply``, and every kernel's launches; times prefill and ms per
+    emitted token; and runs an int8 pool through ``decode_window_paged``
+    whatever the gate decides. Returns each kernel's launches in the
+    phase."""
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    from deeplearning4j_tpu_torch.models.generation import DecodeEngine
+    from deeplearning4j_tpu_torch.models.transformer import (
+        TransformerConfig, TransformerLM)
+    cfg = model.config
+    L, V, P = cfg.n_layers, cfg.vocab_size, engine.page_tokens
+    params = engine.params
+    dmodel = TransformerLM(TransformerConfig(**dict(LARGE,
+                                                    n_layers=DRAFT_LAYERS)))
+    dparams = {"tok_emb": params["tok_emb"], "pos_emb": params["pos_emb"],
+               "ln_f": params["ln_f"],
+               "blocks": params["blocks"][:DRAFT_LAYERS]}
+    rng = np.random.default_rng(SEED + 6)
+    prompts = {n: rng.integers(0, V, (1, n)).astype(np.int32)
+               for n in PROMPT_LENS}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t)
+
+    def prefill_ms(eng, prompt):
+        return statistics.median(timed(lambda: eng.prefill(prompt))[1]
+                                 for _ in range(3))
+
+    reset_all_counts()                   # the main path starts here
+    draft = DecodeEngine(dmodel, dparams, max_len=cfg.max_len, page_tokens=0)
+    base = {}
+    for n, prompt in prompts.items():
+        (toks, steps) = engine.generate(prompt, N_NEW, return_logits=True)
+        _t, ms = timed(lambda: engine.generate(prompt, N_NEW))
+        pre = prefill_ms(engine, prompt)
+        base[n] = {"tokens": toks, "near_tie": near_tie_step(steps),
+                   "prefill_ms": pre, "generate_ms": ms,
+                   "ms_per_token": (ms - pre) / (N_NEW - 1)}
+        emit(serve_base={"prompt_len": n, "pool": "bfloat16",
+                         "near_tie_step": base[n]["near_tie"],
+                         **{k: base[n][k] for k in ("prefill_ms",
+                                                    "generate_ms",
+                                                    "ms_per_token")}})
+    modes = {"int8": dict(kv_quant=True),
+             "spec": dict(draft=draft, spec_k=SPEC_K),
+             "int8_spec": dict(kv_quant=True, draft=draft, spec_k=SPEC_K)}
+    rows = {}
+    for mode, kw in modes.items():
+        eng = DecodeEngine(model, params, max_len=cfg.max_len, **kw)
+        state = eng.new_state(1)
+        gate = eng.quant_gate
+        int8 = state.arrays["k"].dtype == torch.int8
+        if "kv_quant" in kw:
+            check(gate is not None and gate["checked"]
+                  and int8 == bool(gate["passed"]) == eng.kv_quant,
+                  f"{mode}: pool int8 {int8} but gate {gate}")
+        else:
+            check(gate is None and not int8, f"{mode}: gate {gate}")
+        emit(quant_gate={"mode": mode, "record": gate, "int8_pool": int8})
+        eng.warm(1)
+        spec = eng.spec
+        check(spec == ("draft" in kw), f"{mode}: spec {spec}")
+        per = []
+        for n, prompt in prompts.items():
+            before, rounds0 = all_counts(), eng.spec_stats["rounds"]
+            stats0 = dict(eng.spec_stats)
+            toks, gen_ms = timed(lambda: eng.generate(prompt, N_NEW))
+            got = delta(before)
+            rounds = eng.spec_stats["rounds"] - rounds0
+            steps = rounds if spec else N_NEW - 1
+            k4a = steps * (L + (SPEC_K * DRAFT_LAYERS if spec else 0))
+            k4w = (1 + steps * L) if int8 else 0
+            want = ((L + (DRAFT_LAYERS if spec else 0),) + (0,) * 9
+                    + (k4a, k4w))
+            check(got == want, f"{mode} prompt {n}: launched {got}, want "
+                  f"{want} {ALL_KERNELS}")
+            check(toks.shape == (1, N_NEW) and bool(((toks >= 0)
+                                                     & (toks < V)).all()),
+                  f"{mode} prompt {n}: tokens {toks.shape}")
+            tie = base[n]["near_tie"]
+            upto = N_NEW if tie is None else tie
+            check(np.array_equal(toks[:, :upto], base[n]["tokens"][:, :upto]),
+                  f"{mode} prompt {n}: tokens differ from plain decode "
+                  f"before step {upto} (its first near tie: {tie})")
+            pre = prefill_ms(eng, prompt)
+            dpre = prefill_ms(draft, prompt) if spec else 0.0
+            row = {"mode": mode, "prompt_len": n, "int8_pool": int8,
+                   "prefill_ms": pre, "draft_prefill_ms": dpre,
+                   "generate_ms": gen_ms,
+                   "ms_per_token": (gen_ms - pre - dpre) / (N_NEW - 1),
+                   "plain_bf16_ms_per_token": base[n]["ms_per_token"],
+                   "tokens_equal_plain": bool(np.array_equal(
+                       toks, base[n]["tokens"])),
+                   "plain_near_tie_step": tie,
+                   "launches": dict(zip(ALL_KERNELS, got))}
+            if spec:
+                acc = eng.spec_stats["accepted"] - stats0["accepted"]
+                prop = eng.spec_stats["proposed"] - stats0["proposed"]
+                row.update(rounds=rounds, accept_ratio=acc / prop,
+                           tokens_per_round=(N_NEW - 1) / rounds)
+            else:
+                (_t, steps_l) = eng.generate(prompt, N_NEW,
+                                             return_logits=True)
+                full = np.concatenate([prompt, toks[:, :-1]], axis=1)
+                ref = model.apply(params, torch.as_tensor(
+                    full, device=model.device))[0, n - 1:].cpu().numpy()
+                dec = np.concatenate(steps_l, axis=0)
+                diff = float(np.abs(dec - ref).max())
+                check(np.isfinite(dec).all() and diff <= TOL_TEACHER_FORCED,
+                      f"{mode} prompt {n}: decode logits differ from apply "
+                      f"by {diff}")
+                row["teacher_forced_max_abs_diff"] = diff
+            emit(serve_mode=row)
+            per.append(row)
+        if spec:
+            emit(spec_accept={"mode": mode,
+                              "accept_ratio": eng.spec_accept_ratio(),
+                              "stats": eng.spec_stats})
+        rows[mode] = per
+        _f, _l, kv, _t = eng.prefill(prompts[PROMPT_LENS[0]])
+        st = eng.insert_slot(eng.new_state(1), kv, 0)
+        bst = engine.insert_slot(engine.new_state(1), kv, 0)
+        emit(resident_cache={"mode": mode, "prompt_len": PROMPT_LENS[0],
+                             "bytes": eng.resident_cache_bytes(st),
+                             "bf16_bytes": engine.resident_cache_bytes(bst),
+                             "ratio": eng.resident_cache_bytes(st)
+                             / engine.resident_cache_bytes(bst),
+                             "page_bytes": eng.page_bytes()})
+        del eng, state, st, bst
+    # an int8 pool through decode_window_paged at full width, whatever the
+    # gate decided: the prompt's rows written by K4w, a W = SPEC_K + 1
+    # window, against the same window over bf16 pages
+    n = PROMPT_LENS[0]
+    _f, _l, kv, t = engine.prefill(prompts[n])
+    npb = -(-kv["k"].shape[2] // P)
+    n_lp = engine.pages_per_slot
+    pools = {"int8": model.init_paged_cache(n_lp + 1, P, quant=True),
+             "bf16": model.init_paged_cache(n_lp + 1, P)}
+    tables = torch.full((1, n_lp), n_lp, dtype=torch.int32,
+                        device=model.device)
+    tables[0, :npb] = torch.arange(npb, device=model.device)
+    pages = list(range(npb))
+    for pool in pools.values():
+        engine._write_pages(pool, kv, pages)
+    win = torch.as_tensor(prompts[n][:, :SPEC_K + 1], device=model.device)
+    pos = torch.tensor([t], device=model.device)
+    before = all_counts()
+    lq, _ = model.decode_window_paged(params, pools["int8"], tables, win,
+                                      pos, P)
+    torch.cuda.synchronize()
+    got = delta(before)
+    lb, _ = model.decode_window_paged(params, pools["bf16"], tables, win,
+                                      pos, P)
+    finite = bool(torch.isfinite(lq).all())
+    check(got[10:] == (L, L) and finite,
+          f"int8 window: launched {got}, finite logits {finite}")
+    emit(int8_window={"prompt_len": n, "w": SPEC_K + 1,
+                      "max_abs_logit_diff_vs_bf16_pages":
+                      (lq - lb).abs().max().item(), "launches": got[10:]})
+    launches = all_counts()              # ... and ends here
+    del pools, kv, lq, lb, draft, dmodel
+    torch.cuda.empty_cache()
+    return launches
+
+
+def decode_profile_phase(torch, engine):
+    """One torch.profiler window over 4 decode steps of one slot after a
+    960-token prompt: the device's busy share and the device time by
+    kernel, K4a's among them."""
+    prompt = np.random.default_rng(SEED + 7).integers(
+        0, LARGE["vocab_size"], (1, PROFILE_PROMPT)).astype(np.int32)
+    first, _l, kv, t = engine.prefill(prompt)
+    state = engine.insert_slot(engine.new_state(1), kv, 0)
+    toks, pos = first, np.full((1,), t, np.int32)
+    toks, _l, state = engine.decode(state, toks, pos, 1)     # warm
+    torch.cuda.synchronize()
+
+    def steps():
+        nonlocal toks, pos
+        for i in range(4):
+            pos = pos + 1
+            toks, _lg, _st = engine.decode(state, toks, pos, 2 + i)
+
+    reset_all_counts()
+    row = profile_window(torch, "decode", steps, "decode_960_trace.json",
+                         top=12)
+    L = LARGE["n_layers"]
+    check(all_counts() == (0,) * 10 + (4 * L, 0),
+          f"profiled decode launched {all_counts()}")
+    emit(decode_profile={"prompt_len": PROFILE_PROMPT, "steps": 4, **row})
+
+
+def decode_kernel_entry(kind, cases, launches):
+    """The kernels-line entry of K4a ("paged_attention", its numbers at the
+    main path's decode step, bf16 pages; its int8 and dense-view cases
+    beside them) or K4w ("kv_quant_write", at the decode step's rows; no
+    single library call computes it)."""
+    k4a = kind == "paged_attention"
+    main = cases[DECODE_MAIN_CASE[kind] if k4a
+                 else ("quant",) + QUANT_CASES[0]]
+    rows = [r for c, r in cases.items() if (c[0] != "quant") == k4a]
+    entry = {
+        "name": kind, "route": "cuda",
+        "source": f"deeplearning4j_tpu_torch/kernels/csrc/{SOURCES[kind]}",
+        "replaces": "deeplearning4j_tpu/models/transformer.py:"
+                    + ("827" if k4a else "107"),
+        "launches": sum(launches.values()), "launches_by_path": launches,
+        "on_main_path": True,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": main["ms"], "device_ms": main["device_ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+        "library_device_ms": main.get("library_device_ms")}
+    if k4a:
+        entry["library"] = "gather of the slot's pages + SDPA (bool mask)"
+        entry["at"] = dict(zip(("b", "w", "h", "hd", "page_tokens",
+                                "pages_a_slot", "dtype", "pool", "contexts",
+                                "trash_slots"), DECODE_MAIN_CASE[kind]))
+        for other in ("paged_attention_int8", "paged_attention_dense"):
+            r = cases[DECODE_MAIN_CASE[other]]
+            entry[other.split("_")[-1]] = {
+                k: r[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                  "library_ms", "library_device_ms")}
+    else:
+        entry["at"] = dict(zip(("b", "w", "layers", "page_tokens", "dtype"),
+                               QUANT_CASES[0]))
+    return entry
 
 
 def _union_us(intervals, lo, hi):
@@ -1427,7 +1951,8 @@ def moe_train_phase(torch, fa):
     check(toks.shape == (2, N_NEW) and bool(((toks >= 0) & (
         toks < LARGE["vocab_size"])).all()), f"MoE generate: {toks.shape}")
     check(served[6] > 0 and served[7] > 0 and served[4:6] == (0, 0)
-          and served[8:] == (0, 0),
+          and served[8:10] == (0, 0)
+          and served[10:] == ((N_NEW - 1) * LARGE["n_layers"], 0),
           f"MoE generate launched {served} {ALL_KERNELS}")
     emit(moe_generate={"batch": 2, "prompt_len": 100, "new_tokens": N_NEW,
                        "generate_ms": ms,
@@ -1522,13 +2047,16 @@ def profile_window(torch, label, fn, trace_name, top=10):
     cross_entropy = {name: tot for name, tot in by_name.items() if re.search(
         r"ce_wgmma_kernel|ce_fwd_kernel|ce_dlogits_kernel|ce_merge_kernel",
         name)}
+    decode = {name: tot for name, tot in by_name.items() if re.search(
+        r"attend_kernel|(?<![a-z_])merge_kernel|quant_write_kernel", name)}
     return {"wall_ms": wall_ms, "window_us": hi - lo,
             "device_busy_us": busy, "busy_share": busy / (hi - lo),
             "kernels": sum(n for _us, n in by_name.values()),
             "copy_kernels": copies, "trace": str(trace.relative_to(ROOT)),
             "top_kernels": _top(by_name, top), "top_ops": _top(by_op, top),
             "attention_kernels": _top(attention, len(attention)),
-            "ce_kernels": _top(cross_entropy, len(cross_entropy))}
+            "ce_kernels": _top(cross_entropy, len(cross_entropy)),
+            "decode_kernels": _top(decode, len(decode))}
 
 
 def kernel_entry(path, cases, launches):
@@ -1771,15 +2299,20 @@ def main() -> int:
     allocated("ce_phase")
     moe_cases = moe_phase(torch)
     allocated("moe_phase")
+    decode_cases = decode_kernel_phase(torch)
+    allocated("decode_kernel_phase")
     torch.cuda.empty_cache()
     engine, _model, serve = slice_phase(torch, fa)
     profile_phase(torch, fa, engine)
+    decode_profile_phase(torch, engine)
+    modes = serve_phase(torch, _model, engine)
     del engine, _model
     torch.cuda.empty_cache()
     allocated("slice_phase")
     train = train_phase(torch, fa)
     moe = moe_train_phase(torch, fa)
-    launches = {name: {"serve": serve[i], "train": train[i], "moe": moe[i]}
+    launches = {name: {"serve": serve[i], "serve_modes": modes[i],
+                       "train": train[i], "moe": moe[i]}
                 for i, name in enumerate(ALL_KERNELS)}
     emit(main_path_launches=launches)
     check(serve[0] > 0 and train[0] > 0 and moe[0] > 0,
@@ -1795,8 +2328,12 @@ def main() -> int:
           f"{moe}")
     check(train[4:6] == moe[4:6] == (0, 0),
           "bf16 training launched chunked_ce.cu's K3 kernels")
-    check(serve[4:] == (0,) * 6 and train[6:8] == (0, 0),
+    check(serve[4:10] == modes[4:10] == (0,) * 6 and train[6:8] == (0, 0),
           "serving launched K3 or K7, or the dense model K7")
+    check(serve[10] > 0 and serve[11] == 0 and modes[10] > 0
+          and modes[11] > 0 and train[10:] == moe[10:] == (0, 0),
+          f"K4a or K4w off their paths: serve {serve[10:]}, modes "
+          f"{modes[10:]}, train {train[10:]}, moe {moe[10:]}")
     emit(kernels=[kernel_entry("wgmma", cases, launches["wgmma"]),
                   kernel_entry("simple", cases, launches["simple"]),
                   bwd_kernel_entry("bwd_wgmma", bwd_cases,
@@ -1812,7 +2349,11 @@ def main() -> int:
                   ce_kernel_entry("ce_fwd_wgmma", ce_cases,
                                   launches["ce_fwd_wgmma"]),
                   ce_kernel_entry("ce_dlogits_wgmma", ce_cases,
-                                  launches["ce_dlogits_wgmma"])])
+                                  launches["ce_dlogits_wgmma"]),
+                  decode_kernel_entry("paged_attention", decode_cases,
+                                      launches["paged_attention"]),
+                  decode_kernel_entry("kv_quant_write", decode_cases,
+                                      launches["kv_quant_write"])])
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

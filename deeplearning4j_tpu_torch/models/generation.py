@@ -3,27 +3,40 @@
 Counterpart of ``deeplearning4j_tpu/models/generation.py`` for single-
 batch serving: prefill over a prompt padded to a power-of-two bucket (the
 flash kernel runs there), then one decode step per token against a KV
-cache, with sampling on the device. The cache is paged by default — k/v
-live in a pool of fixed-size pages shared by every slot, a host-side
-``PageAllocator`` hands pages out, and a per-slot page table maps logical
-to physical pages, with the pool's last page as the trash page free slots
-point at. ``DL4J_TPU_KV_PAGE_TOKENS`` sets the page size (0 = the dense
-per-slot cache), read at engine construction.
+cache, with sampling on the device; decode attention runs in K4a
+(``kernels/paged_attention.py``) on every path. Three composing levers, as
+in the JAX engine:
+
+- **Paged cache** (default; ``DL4J_TPU_KV_PAGE_TOKENS``, 0 = the dense
+  per-slot cache): k/v live in a pool of fixed-size pages shared by every
+  slot, a host-side ``PageAllocator`` hands pages out, and a per-slot page
+  table maps logical to physical pages, with the pool's last page as the
+  trash page free slots point at.
+- **int8 pages** (``kv_quant`` / ``DL4J_TPU_KV_QUANT=1``, paged only):
+  int8 rows with per-row f32 scales, written by K4w and dequantized inside
+  K4a; a numerics gate at the first state build (an eager probe against
+  the dense cache, teacher-forced) falls back to pages of the compute dtype
+  with a loud warning when the logits diverge beyond ``quant_tol``.
+- **Speculative decoding** (``draft=`` + ``spec_k``; kill switch
+  ``DL4J_TPU_SPEC_DECODE=0``): the draft proposes ``spec_k`` tokens from
+  its own dense cache, one W = k + 1 window verifies them on the target,
+  and the host accept/resample loop, drawing from the JAX engine's own
+  numpy generator, keeps the emitted distribution the target's (greedy:
+  the plain decode's tokens).
 
 PyTorch runs eagerly, so there is no executable set to compile: the JAX
 engine's jit wrappers, compile-watch probes and cost-model accounting
-have no counterpart here. Caches are updated in place. Sampling is greedy
-argmax or top-k/temperature drawn from a ``torch.Generator`` seeded from
-``(seed, step)``: deterministic within the port, not the JAX package's
-threefry bits.
-
-Not ported yet (see ``ROADMAP.md``): speculative decoding (``draft``),
-int8 KV pages (``kv_quant``), and the serving pipeline on top.
+(``account_spec``, ``account_decode``, ``decode_compile_count``) have no
+counterpart here. Caches are updated in place. Sampling is greedy argmax
+or top-k/temperature drawn from a ``torch.Generator`` seeded from ``(seed,
+step)``: deterministic within the port, not the JAX package's threefry
+bits. The serving pipeline on top is not ported yet (see ``ROADMAP.md``).
 """
 from __future__ import annotations
 
 import bisect
 import dataclasses
+import logging
 import os
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -32,7 +45,11 @@ import torch
 import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch._device import resolve_device
+from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+from deeplearning4j_tpu_torch.models import transformer as _tr
 from deeplearning4j_tpu_torch.resilience.policy import CachePagesExhausted
+
+_log = logging.getLogger(__name__)
 
 #: default KV page size in tokens (``DL4J_TPU_KV_PAGE_TOKENS``; 0 = dense)
 KV_PAGE_TOKENS_DEFAULT = 64
@@ -50,6 +67,20 @@ def page_tokens_env() -> Optional[int]:
         raise ValueError(
             f"DL4J_TPU_KV_PAGE_TOKENS={raw!r} is not an integer "
             "(0 = dense kill switch)")
+
+
+def kv_quant_env() -> bool:
+    """``DL4J_TPU_KV_QUANT=1``: int8 KV pages (paged mode only), behind the
+    numerics gate. Strictly ``"1"`` means on: a feature that changes the
+    numbers never engages on ``false`` or ``off``."""
+    return os.environ.get("DL4J_TPU_KV_QUANT", "0") == "1"
+
+
+def spec_decode_env() -> bool:
+    """``DL4J_TPU_SPEC_DECODE``: speculative decoding's switch, read only
+    when an engine is built with a draft; ``0`` (or empty) forces plain
+    one-token decode steps."""
+    return os.environ.get("DL4J_TPU_SPEC_DECODE", "1") not in ("0", "")
 
 
 def pack_kv_pages(arr: torch.Tensor, page_tokens: int) -> torch.Tensor:
@@ -110,7 +141,7 @@ class DecodeState:
     (host copy and a device mirror rebuilt when the table changes)."""
 
     __slots__ = ("mode", "slots", "arrays", "tables", "tables_dev",
-                 "alloc", "slot_pages")
+                 "alloc", "slot_pages", "draft_cache")
 
     def __init__(self, mode: str, slots: int, arrays: Dict,
                  tables: Optional[np.ndarray] = None,
@@ -122,6 +153,7 @@ class DecodeState:
         self.tables_dev = None
         self.alloc = alloc
         self.slot_pages: List[List[int]] = [[] for _ in range(slots)]
+        self.draft_cache = None            # the draft's dense KV (spec)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,6 +172,24 @@ class SamplerConfig:
         if self.temperature <= 0.0:
             raise ValueError("temperature must be > 0 (use kind='greedy' "
                              "for deterministic decoding)")
+
+
+def _dist_probs(logits_row: np.ndarray, sampler: SamplerConfig) -> np.ndarray:
+    """The probability vector a sampler draws from, on the host (the
+    accept/resample loop needs p and q explicitly): greedy = a delta at the
+    argmax, top-k/temperature = softmax over the scaled top-k."""
+    v = logits_row.shape[-1]
+    if sampler.kind == "greedy":
+        p = np.zeros((v,), np.float64)
+        p[int(np.argmax(logits_row))] = 1.0
+        return p
+    scaled = logits_row.astype(np.float64) / sampler.temperature
+    if sampler.top_k and sampler.top_k > 0:
+        kth = np.sort(scaled)[-sampler.top_k]
+        scaled = np.where(scaled >= kth, scaled, -np.inf)
+    scaled -= scaled.max()
+    e = np.exp(scaled)
+    return e / e.sum()
 
 
 def step_generator(seed: int, step: int,
@@ -186,24 +236,20 @@ def default_prefill_buckets(max_len: int, lo: int = 16) -> Tuple[int, ...]:
 class DecodeEngine:
     """One (model, params) pair + one sampler. ``device=None`` means the
     card; the model must live on the engine's device. Params are cast to
-    the compute dtype once, here."""
+    the compute dtype once, here. ``kv_quant`` (default
+    ``DL4J_TPU_KV_QUANT``) asks for int8 pages behind the numerics gate
+    (``quant_tol`` in max |logit diff|); ``draft``, a ``DecodeEngine`` of
+    the same vocabulary on the same device reaching at least ``max_len``,
+    turns on speculative decoding with ``spec_k`` proposals a round."""
 
     def __init__(self, model, params, max_len: Optional[int] = None,
                  prefill_buckets: Optional[Sequence[int]] = None,
                  sampler: Optional[SamplerConfig] = None, seed: int = 0,
                  page_tokens: Optional[int] = None,
-                 kv_quant: Optional[bool] = None, draft=None,
+                 kv_quant: Optional[bool] = None, quant_tol: float = 0.05,
+                 draft: Optional["DecodeEngine"] = None, spec_k: int = 4,
                  device: Optional[Union[str, torch.device]] = None):
         self.device = resolve_device(device)
-        if draft is not None:
-            raise NotImplementedError(
-                "speculative decoding (draft=) is not ported yet "
-                "(see ROADMAP.md, queue 1)")
-        if kv_quant if kv_quant is not None else (
-                os.environ.get("DL4J_TPU_KV_QUANT", "0") == "1"):
-            raise NotImplementedError(
-                "int8 KV pages (kv_quant / DL4J_TPU_KV_QUANT=1) are not "
-                "ported yet (see ROADMAP.md, queue 1)")
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine on "
                              f"{self.device}")
@@ -233,6 +279,42 @@ class DecodeEngine:
         self.paged = self.page_tokens > 0
         self.pages_per_slot = (-(-self.max_len // self.page_tokens)
                                if self.paged else 0)
+        self.kv_quant = bool(kv_quant if kv_quant is not None
+                             else kv_quant_env())
+        if self.kv_quant and not self.paged:
+            _log.warning(
+                "DL4J_TPU_KV_QUANT requested with the dense cache "
+                "(DL4J_TPU_KV_PAGE_TOKENS=0): int8 storage is per page; "
+                "keeping the dense cache")
+            self.kv_quant = False
+        self.quant_tol = float(quant_tol)
+        #: the numerics gate's record (None until it has run); a failed
+        #: gate flips ``kv_quant`` back to False with a loud warning
+        self.quant_gate: Optional[dict] = None
+        self.spec_k = int(spec_k)
+        if draft is not None:
+            if self.spec_k < 1:
+                raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+            dc = draft.model.config
+            if dc.vocab_size != c.vocab_size:
+                raise ValueError(
+                    f"draft vocab {dc.vocab_size} != target vocab "
+                    f"{c.vocab_size}: accept/resample needs one "
+                    "distribution support")
+            if draft.max_len < self.max_len:
+                raise ValueError(
+                    f"draft max_len {draft.max_len} < target max_len "
+                    f"{self.max_len}: the draft must reach every position "
+                    "the target decodes")
+            if draft.device != self.device:
+                raise ValueError(f"draft runs on {draft.device}, the "
+                                 f"engine on {self.device}")
+        self.draft = draft
+        #: speculative decoding engaged: a draft was given and the
+        #: DL4J_TPU_SPEC_DECODE kill switch is not set
+        self.spec = draft is not None and spec_decode_env()
+        #: cumulative accept-loop counts
+        self.spec_stats = {"rounds": 0, "proposed": 0, "accepted": 0}
         self.params = model._cast_params(
             _to_device(params, self.device))
 
@@ -240,40 +322,65 @@ class DecodeEngine:
     def new_state(self, slots: int,
                   pages: Optional[int] = None) -> DecodeState:
         """Cache state for ``slots`` sequences. Paged: a pool of
-        ``pages`` physical pages (default ``slots * pages_per_slot``) plus
-        the trash page every free slot's table row points at."""
+        ``pages`` physical pages (default ``slots * pages_per_slot``), int8
+        once the numerics gate has passed, plus the trash page every free
+        slot's table row points at. Spec mode adds the draft's dense
+        cache."""
         if not self.paged:
-            return DecodeState("dense", slots,
-                               self.model.init_cache(slots, self.max_len))
-        n = int(pages) if pages is not None else slots * self.pages_per_slot
-        if n < 1:
-            raise ValueError(f"page pool needs >= 1 page, got {n}")
-        pool = self.model.init_paged_cache(n + 1, self.page_tokens)
-        tables = np.full((slots, self.pages_per_slot), n, np.int32)
-        return DecodeState("paged", slots, pool, tables=tables,
-                           alloc=PageAllocator(n))
+            state = DecodeState("dense", slots,
+                                self.model.init_cache(slots, self.max_len))
+        else:
+            n = (int(pages) if pages is not None
+                 else slots * self.pages_per_slot)
+            if n < 1:
+                raise ValueError(f"page pool needs >= 1 page, got {n}")
+            pool = self.model.init_paged_cache(
+                n + 1, self.page_tokens, quant=self._quant_active())
+            tables = np.full((slots, self.pages_per_slot), n, np.int32)
+            state = DecodeState("paged", slots, pool, tables=tables,
+                                alloc=PageAllocator(n))
+        if self.spec:
+            # every position the target decodes, and the draft's largest
+            # prefill bucket for the longest admissible prompt
+            draft_len = max(self.max_len,
+                            self.draft.prefill_bucket(self.max_len))
+            state.draft_cache = self.draft.model.init_cache(slots,
+                                                            draft_len)
+        return state
 
     @staticmethod
-    def cache_bytes(cache) -> int:
-        """Device bytes of a cache or state (worst-case footprint)."""
-        arrays = cache.arrays if isinstance(cache, DecodeState) else cache
+    def _bytes(arrays: Dict) -> int:
         return int(sum(a.numel() * a.element_size()
                        for a in arrays.values()))
 
+    @classmethod
+    def cache_bytes(cls, cache) -> int:
+        """Device bytes of a cache or state (worst-case footprint: the
+        dense cache or the whole page pool, and the draft's cache)."""
+        if isinstance(cache, DecodeState):
+            return cls._bytes(cache.arrays) + (
+                cls._bytes(cache.draft_cache)
+                if cache.draft_cache is not None else 0)
+        return cls._bytes(cache)
+
     def page_bytes(self) -> int:
-        """Device bytes one page costs across all layers (k + v)."""
+        """Device bytes one page costs across all layers (k + v, and their
+        row scales for int8 pages)."""
         if not self.paged:
             return 0
         c = self.model.config
         per_row = c.d_model
+        if self._quant_active():
+            return c.n_layers * self.page_tokens * (2 * per_row + 8)
         itemsize = torch.empty((), dtype=c.dtype).element_size()
         return c.n_layers * self.page_tokens * 2 * per_row * itemsize
 
     def resident_cache_bytes(self, state: DecodeState) -> int:
-        """Actual resident cache bytes: dense = the whole allocation,
-        paged = pages in use × page bytes."""
+        """Actual resident target-cache bytes: dense = the whole
+        allocation, paged = pages in use × page bytes. The draft's fixed
+        dense cache is not counted (``cache_bytes`` counts it)."""
         if state.mode != "paged":
-            return self.cache_bytes(state)
+            return self._bytes(state.arrays)
         return int(state.alloc.in_use * self.page_bytes())
 
     # ------------------------------------------------------ page plumbing
@@ -321,8 +428,90 @@ class DecodeEngine:
     def _tables(self, state: DecodeState) -> torch.Tensor:
         if state.tables_dev is None:
             state.tables_dev = torch.as_tensor(
-                state.tables, dtype=torch.long, device=self.device)
+                state.tables, dtype=torch.int32, device=self.device)
         return state.tables_dev
+
+    def _write_pages(self, pool: Dict, kv: Dict, pages: Sequence[int]):
+        """A (L, 1, T_bucket, H, hd) prefill's k/v into whole pages of the
+        pool, zero-padded (``pack_kv_pages``): K4w for an int8 pool (its
+        zero rows get scale 1), plain copies otherwise."""
+        ids = self._ids(pages)
+        P = self.page_tokens
+        if "k_scale" in pool:
+            t = torch.arange(len(pages) * P, device=self.device)
+            pa.kv_quant_write(kv["k"], kv["v"], ids[t // P][None],
+                              (t % P)[None], pool["k"], pool["v"],
+                              pool["k_scale"], pool["v_scale"],
+                              quantize=_tr.quantize_kv_rows)
+            return
+        for name in ("k", "v"):
+            pool[name][:, ids] = pack_kv_pages(kv[name], P)
+
+    # ---------------------------------------------------- quant numerics
+    def _quant_active(self) -> bool:
+        """int8 storage is live only after the numerics gate has passed; a
+        failed gate falls back to pages of the compute dtype."""
+        if not self.kv_quant:
+            return False
+        if self.quant_gate is None:
+            self._run_quant_gate()
+        return self.kv_quant
+
+    def _run_quant_gate(self):
+        """Compare int8-paged decode logits with the dense cache's on a
+        small probe: prefill the smallest bucket, teacher-force a few greedy
+        steps through both, and compare each step's logits. Divergence
+        beyond ``quant_tol`` flips the engine back to pages of the compute
+        dtype."""
+        model, params = self.model, self.params
+        bucket = self.prefill_buckets[0]
+        if self.max_len - bucket < 1:
+            # the smallest bucket fills the cache: probe a shorter prompt
+            # so the gate has room to decode
+            bucket = self.prefill_bucket(max(1, self.max_len // 2))
+        steps = max(1, min(4, self.max_len - bucket))
+        rng = np.random.default_rng(1234)
+        prompt = rng.integers(0, model.config.vocab_size,
+                              (1, bucket)).astype(np.int32)
+        logits_p, kv = model.prefill(params, self._ids(prompt))
+        ref = model.init_cache(1, self.max_len)
+        for name in ("k", "v"):
+            ref[name][:, :, :bucket] = kv[name]
+        n_pages = min(self.pages_for(bucket + steps), self.pages_per_slot)
+        pool = model.init_paged_cache(n_pages + 1, self.page_tokens,
+                                      quant=True)
+        tables = np.full((1, self.pages_per_slot), n_pages, np.int32)
+        tables[0, :n_pages] = np.arange(n_pages)
+        self._write_pages(pool, kv, list(range(self.pages_for(bucket))))
+        tok = logits_p[:, bucket - 1].argmax(dim=-1)
+        pos = torch.full((1,), bucket, dtype=torch.long, device=self.device)
+        tables_dev = torch.as_tensor(tables, device=self.device)
+        max_diff, argmax_agree = 0.0, True
+        for _ in range(steps):
+            ref_logits, _ = model.decode_step_math(params, ref, tok, pos)
+            q_logits, _ = model.decode_window_paged(
+                params, pool, tables_dev, tok[:, None], pos,
+                self.page_tokens)
+            q_logits = q_logits[:, 0]
+            max_diff = max(max_diff, float(
+                (q_logits - ref_logits).abs().max()))
+            if int(q_logits.argmax()) != int(ref_logits.argmax()):
+                argmax_agree = False
+            # teacher-force the dense continuation, so each step measures
+            # the quantization alone and never a diverged token stream
+            tok = ref_logits.argmax(dim=-1)
+            pos = pos + 1
+        passed = max_diff <= self.quant_tol
+        self.quant_gate = {"checked": True, "passed": passed,
+                           "max_abs_logit_diff": max_diff,
+                           "tol": self.quant_tol,
+                           "argmax_agree": argmax_agree}
+        if not passed:
+            self.kv_quant = False
+            _log.warning(
+                "int8 KV-cache numerics gate FAILED (max |logit diff| "
+                "%.4g > tol %.4g): falling back to %s page storage",
+                max_diff, self.quant_tol, self.model.config.dtype)
 
     # ----------------------------------------------------------- buckets
     def prefill_bucket(self, length: int) -> int:
@@ -407,10 +596,7 @@ class DecodeEngine:
             cache.slot_pages[slot] = pages
             cache.tables[slot, :npb] = pages
             cache.tables_dev = None
-            ids = self._ids(pages)
-            for name in ("k", "v"):
-                cache.arrays[name][:, ids] = pack_kv_pages(
-                    kv[name], self.page_tokens)
+            self._write_pages(cache.arrays, kv, pages)
             return cache
         arrays = cache.arrays if isinstance(cache, DecodeState) else cache
         bp, tb = kv["k"].shape[1], kv["k"].shape[2]
@@ -418,19 +604,136 @@ class DecodeEngine:
             arrays[name][:, slot:slot + bp, :tb] = kv[name]
         return cache
 
+    def insert_draft_slot(self, state: DecodeState, slot: int, prompt,
+                          step: int = 0):
+        """Spec mode: the draft's prefill over the same prompt, its k/v
+        written into the draft's dense cache at ``slot``."""
+        _first, _logits, kv, _t = self.draft.prefill(prompt, step=step)
+        tb = kv["k"].shape[2]
+        for name in ("k", "v"):
+            state.draft_cache[name][:, slot:slot + 1, :tb] = kv[name]
+
+    # -------------------------------------------------- speculative step
+    def _propose(self, state: DecodeState, tokens: torch.Tensor,
+                 positions: torch.Tensor, step: int):
+        """``spec_k`` draft decode steps from its dense cache: (proposals
+        (B, k), the draft's logits (B, k, V)). Proposal j is drawn with the
+        draft's sampler at step ``step·(k+1) + j``."""
+        d, k = self.draft, self.spec_k
+        t, pos = tokens, positions
+        props, dlogits = [], []
+        for j in range(k):
+            logits, _ = d.model.decode_step_math(d.params, state.draft_cache,
+                                                 t, pos)
+            t = d._sample(logits, step * (k + 1) + j)
+            props.append(t)
+            dlogits.append(logits)
+            pos = pos + 1
+        return torch.stack(props, dim=1), torch.stack(dlogits, dim=1)
+
+    def spec_step(self, state: DecodeState, tokens, positions, step: int,
+                  active: Sequence[int]) -> Dict[int, List[int]]:
+        """One speculative round for the slot batch: the draft proposes
+        ``spec_k`` tokens a slot, the target scores carry + proposals in
+        one W = k + 1 window, and the accept/resample loop on the host
+        keeps the emitted distribution the target's (greedy: the tokens
+        plain decode emits). Returns ``{slot: [emitted...]}`` for the
+        active slots (1..spec_k tokens each; the last is the next carry).
+        The all-accepted bonus token is forfeited, so the draft's cache
+        never falls behind. Paged callers' pages through ``positions +
+        spec_k`` are ensured here."""
+        k = self.spec_k
+        pos_host = np.asarray(positions)
+        if state.mode == "paged":
+            for b in active:
+                last = min(int(pos_host[b]) + k, self.max_len - 1)
+                if not self.ensure_slot_pages(state, b, last):
+                    raise CachePagesExhausted(
+                        f"page pool exhausted backing slot {b}'s verify "
+                        f"window through position {last}")
+        tok = self._ids(np.asarray(tokens))
+        pos = self._ids(pos_host)
+        props, dlog = self._propose(state, tok, pos, step)
+        win = torch.cat([tok[:, None], props], dim=1)          # (B, k+1)
+        if state.mode == "paged":
+            logits, _ = self.model.decode_window_paged(
+                self.params, state.arrays, self._tables(state), win, pos,
+                self.page_tokens)
+        else:
+            logits, _ = self.model.decode_window_math(
+                self.params, state.arrays, win, pos)
+        props = props.cpu().numpy()
+        logits = logits.cpu().numpy()                          # (B, k+1, V)
+        greedy = (self.sampler.kind == "greedy"
+                  and self.draft.sampler.kind == "greedy")
+        dlog_h = None if greedy else dlog.cpu().numpy()
+        # the JAX engine's own generator, so the draws repeat its own
+        rng = (None if greedy
+               else np.random.default_rng((self._seed, 0x5BEC, step)))
+        emitted: Dict[int, List[int]] = {}
+        for b in active:
+            out: List[int] = []
+            accepted = 0
+            for j in range(k):
+                d = int(props[b, j])
+                if greedy:
+                    g = int(np.argmax(logits[b, j]))
+                    if d == g:
+                        out.append(d)
+                        accepted += 1
+                        continue
+                    out.append(g)       # the token plain decode emits
+                    break
+                p = _dist_probs(logits[b, j], self.sampler)
+                q = _dist_probs(dlog_h[b, j], self.draft.sampler)
+                if rng.random() < min(1.0, p[d] / max(q[d], 1e-20)):
+                    out.append(d)
+                    accepted += 1
+                    continue
+                resid = np.maximum(p - q, 0.0)
+                z = float(resid.sum())
+                if z <= 0.0:
+                    # the draft's distribution is the target's: emit from
+                    # the target directly
+                    out.append(int(rng.choice(len(p), p=p)))
+                else:
+                    out.append(int(rng.choice(len(resid), p=resid / z)))
+                break
+            self.spec_stats["proposed"] += k
+            self.spec_stats["accepted"] += accepted
+            emitted[b] = out
+        self.spec_stats["rounds"] += 1
+        return emitted
+
+    def spec_accept_ratio(self) -> Optional[float]:
+        p = self.spec_stats["proposed"]
+        return (self.spec_stats["accepted"] / p) if p else None
+
     def warm(self, slots: int) -> List[int]:
-        """Run one prefill + insert per bucket and one decode step at
-        ``slots`` against a throwaway state (first-call costs such as
-        library handles and allocator growth). Returns the buckets."""
+        """Run one prefill + insert per bucket (the draft's too in spec
+        mode) and one decode step at ``slots`` against a throwaway state
+        (first-call costs such as library handles and allocator growth;
+        the quant gate runs at the state's build), then one speculative
+        round, which leaves ``spec_stats`` as it found them. Returns the
+        buckets."""
         state = self.new_state(slots)
         for bucket in self.prefill_buckets:
             _first, _logits, kv, _t = self.prefill(
                 np.zeros((1, bucket), np.int32))
             state = self.insert_slot(state, kv, 0)
+            if self.spec:
+                self.insert_draft_slot(state, 0,
+                                       np.zeros((1, bucket), np.int32))
         for s in range(slots):
             self.ensure_slot_pages(state, s, 0)
         zeros = np.zeros((slots,), np.int32)
         self.decode(state, zeros, zeros, 0)
+        if self.spec:
+            for s in range(slots):
+                self.ensure_slot_pages(state, s, self.spec_k)
+            stats = dict(self.spec_stats)
+            self.spec_step(state, zeros, zeros, 0, range(slots))
+            self.spec_stats = stats
         return list(self.prefill_buckets)
 
     # ------------------------------------------------- convenience loop
@@ -453,6 +756,18 @@ class DecodeEngine:
             raise ValueError(
                 f"prompt ({T}) + max_new_tokens ({max_new_tokens}) "
                 f"exceeds the cache length {self.max_len}")
+        if self.spec:
+            if B != 1:
+                raise ValueError(
+                    "speculative generate decodes one sequence (the "
+                    "slot-batched path is the serving pipeline)")
+            if return_logits:
+                raise ValueError("return_logits is not available under "
+                                 "speculative decoding (a verify step has "
+                                 "no single per-token logits row for "
+                                 "rejected proposals)")
+            return self._generate_spec(prompts, max_new_tokens, eos_id,
+                                       on_token)
         first, logits, kv, t = self.prefill(prompts, step=0)
         state = self.new_state(B)
         if self.paged:
@@ -489,6 +804,46 @@ class DecodeEngine:
         if return_logits:
             return toks, logit_steps
         return toks
+
+    def _generate_spec(self, prompts, max_new_tokens: int, eos_id,
+                       on_token):
+        """Draft-accelerated generation of one sequence: prefill both
+        models, then speculative rounds until the budget, eos, or the
+        cache's end."""
+        first, _logits, kv, t = self.prefill(prompts, step=0)
+        state = self.new_state(1)
+        state = self.insert_slot(state, kv, 0)
+        self.insert_draft_slot(state, 0, prompts)
+        carry = int(first[0])
+        out = [carry]
+        if on_token is not None:
+            on_token(carry, 0)
+        if eos_id is not None and carry == eos_id:
+            return np.asarray([out], np.int32)
+        pos, step = t, 0
+        while len(out) < max_new_tokens:
+            emitted = self.spec_step(
+                state, np.asarray([carry], np.int32),
+                np.asarray([pos], np.int32), step, [0])[0]
+            stop = False
+            for tok in emitted:
+                if len(out) >= max_new_tokens:
+                    stop = True
+                    break
+                out.append(tok)
+                if on_token is not None:
+                    on_token(tok, len(out) - 1)
+                if eos_id is not None and tok == eos_id:
+                    stop = True
+                    break
+            if stop:
+                break
+            pos += len(emitted)
+            carry = emitted[-1]
+            step += 1
+            if pos + 1 >= self.max_len:
+                break               # no room for another cache write
+        return np.asarray([out], np.int32)
 
 
 def _to_device(tree, device):

@@ -18,8 +18,10 @@ forward and its backward under one ``autograd.Function``, and in their
 plain versions on the CPU (``kernels/flash_attention.py``); the JAX
 package's TPU crossover policy is not carried over. The chunked
 cross-entropy (``kernels/chunked_ce.py``) and the MoE token movement
-(``kernels/moe_route.py``) likewise run in CUDA kernels on the card. Decode
-attention is plain tensor code, as in the JAX package. The decode steps
+(``kernels/moe_route.py``) likewise run in CUDA kernels on the card, and
+so does decode attention on every decode path, dense and paged, bf16, f32
+or int8 pages (K4a, ``kernels/paged_attention.py``, with K4w quantizing and
+writing the rows of an int8 pool). The decode steps
 update the cache tensors in place (the JAX functions return new arrays) and
 return them, so a caller keeps one cache allocation for a whole generation;
 the train step updates params and optimizer state in place (the JAX step
@@ -37,13 +39,23 @@ import torch.nn.functional as F
 from deeplearning4j_tpu_torch._device import resolve_device
 from deeplearning4j_tpu_torch.kernels import chunked_ce
 from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+from deeplearning4j_tpu_torch.kernels import paged_attention as pa
 from deeplearning4j_tpu_torch.nn._remat import checkpoint_policy, remat
 from deeplearning4j_tpu_torch.ops.moments import one_pass_moments
 from deeplearning4j_tpu_torch.parallel.moe import MoEConfig, moe_ffn
 from deeplearning4j_tpu_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_NEG_INF = -1e30
+
+
+def quantize_kv_rows(rows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8 quantization of KV rows (…, H, hd) → (int8
+    rows, f32 scale (…,)): scale = max|row| / 127, zeros keep scale 1 so
+    their dequantization is exact (the plain version of K4w's arithmetic,
+    ``kernels/paged_attention.py``). Module-level on purpose: the int8
+    numerics-gate tests monkeypatch it with a corrupted scale to show the
+    gate trips (on the CPU, where the decode writes call it)."""
+    return pa.quantize_kv_rows_reference(rows)
 
 
 @dataclasses.dataclass
@@ -421,35 +433,25 @@ class TransformerLM:
         return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
 
     def _window_embed(self, params, tokens, positions):
-        """(B, W) tokens at (B, W) positions → (B, W, C) activations."""
-        x = params["tok_emb"][tokens.long()] + params["pos_emb"][
-            positions.long()]
+        """(B, W) tokens at (B, W) positions → (B, W, C) activations.
+        Positions past the position table (the tail of a verify window at
+        the end of the cache, whose logits are never emitted and whose rows
+        are dropped or sent to the trash page) read its last row, where an
+        index past the table would fault on the card."""
+        pos = positions.long().clamp(max=params["pos_emb"].shape[0] - 1)
+        x = params["tok_emb"][tokens.long()] + params["pos_emb"][pos]
         return x.to(self.config.dtype)
 
-    def _window_attend(self, q, ck, cv, mask, hd):
-        """q (B, W, H, hd) against caches (B, S, H, hd) under mask
-        (B, W, S): scores in the compute dtype, max-subtract, exp and
-        normalise in f32, P back in the compute dtype."""
-        s = torch.einsum("bwhd,bshd->bwhs", q, ck) / float(math.sqrt(hd))
-        s = torch.where(mask[:, :, None, :], s,
-                        torch.tensor(_NEG_INF, dtype=s.dtype,
-                                     device=s.device))
-        m = s.amax(dim=-1, keepdim=True)
-        p = torch.exp((s - m).float())
-        p = (p / p.sum(dim=-1, keepdim=True)).to(q.dtype)
-        return torch.einsum("bwhs,bshd->bwhd", p, cv)
-
-    def _decode_layers(self, params, x, mask, write):
-        """Shared decode body: per layer, project the window, let
-        ``write(li, k, v)`` store its rows and return the (B, S, H, hd)
-        caches to attend, then attention and FFN. Returns f32 logits."""
+    def _decode_layers(self, params, x, attend):
+        """Shared decode body: per layer, project the window and let
+        ``attend(li, q, k, v)`` store the window's k/v rows and return the
+        attention output (B, W, H, hd); then the output projection and the
+        FFN. Returns f32 logits."""
         c = self.config
         B, W, _ = x.shape
-        hd = c.d_model // c.n_heads
         for li, blk in enumerate(params["blocks"]):
             q, k, v = self._qkv(blk["attn"], self._ln(blk["ln1"], x))
-            ck, cv = write(li, k, v)
-            o = self._window_attend(q, ck, cv, mask, hd)
+            o = attend(li, q, k, v)
             x = x + o.reshape(B, W, c.d_model) @ blk["attn"]["wo"]
             x = x + self._ffn(blk, self._ln(blk["ln2"], x))
         return self._head(params["tok_emb"], self._ln(params["ln_f"], x))
@@ -465,18 +467,18 @@ class TransformerLM:
         B = tokens.shape[0]
         S = cache["k"].shape[2]
         x = self._window_embed(params, tokens[:, None], positions[:, None])
-        mask = (torch.arange(S, device=x.device)[None, None, :]
-                <= positions[:, None, None])
         at = positions.clamp(0, S - 1)
         bidx = torch.arange(B, device=x.device)
+        tables = pa.dense_tables(B, x.device)
+        pos_w = positions[:, None].int()
 
-        def write(li, k, v):
+        def attend(li, q, k, v):
             ck, cv = cache["k"][li], cache["v"][li]
             ck[bidx, at] = k[:, 0]
             cv[bidx, at] = v[:, 0]
-            return ck, cv
+            return pa.paged_attention(q, ck, cv, tables, pos_w)
 
-        logits = self._decode_layers(params, x, mask, write)
+        logits = self._decode_layers(params, x, attend)
         return logits[:, 0], cache
 
     def decode_window_math(self, params, cache, tokens, positions):
@@ -491,28 +493,38 @@ class TransformerLM:
         pos_w = positions.long()[:, None] + torch.arange(
             W, device=tokens.device)[None, :]
         x = self._window_embed(params, tokens, pos_w)
-        mask = (torch.arange(S, device=x.device)[None, None, :]
-                <= pos_w[:, :, None])
         keep = pos_w < S
         bidx = torch.arange(B, device=x.device)[:, None].expand(B, W)[keep]
         at = pos_w[keep]
+        tables = pa.dense_tables(B, x.device)
+        pos32 = pos_w.int()
 
-        def write(li, k, v):
+        def attend(li, q, k, v):
             ck, cv = cache["k"][li], cache["v"][li]
             ck[bidx, at] = k[keep]
             cv[bidx, at] = v[keep]
-            return ck, cv
+            return pa.paged_attention(q, ck, cv, tables, pos32)
 
-        return self._decode_layers(params, x, mask, write), cache
+        return self._decode_layers(params, x, attend), cache
 
     # ------------------------------------------------------- paged cache
     def init_paged_cache(self, n_pages: int, page_tokens: int,
+                         quant: bool = False,
                          dtype: Optional[torch.dtype] = None) -> Dict:
-        """Page pool ``{"k","v"}``: (L, n_pages, P, H, hd). The last
-        physical page is the trash page that no table row owns."""
+        """Page pool ``{"k","v"}``: (L, n_pages, P, H, hd); under ``quant``
+        int8 plus per-row f32 scales ``{"k_scale","v_scale"}`` (L, n_pages,
+        P). The last physical page is the trash page that no table row
+        owns."""
         c = self.config
         shape = (c.n_layers, n_pages, page_tokens, c.n_heads,
                  c.d_model // c.n_heads)
+        if quant:
+            return {name: torch.zeros(shape if name in ("k", "v")
+                                      else shape[:3],
+                                      dtype=torch.int8 if name in ("k", "v")
+                                      else torch.float32,
+                                      device=self.device)
+                    for name in ("k", "v", "k_scale", "v_scale")}
         dt = dtype if dtype is not None else c.dtype
         return {"k": torch.zeros(shape, dtype=dt, device=self.device),
                 "v": torch.zeros(shape, dtype=dt, device=self.device)}
@@ -521,36 +533,40 @@ class TransformerLM:
                             page_tokens: int):
         """Paged W-window decode: scatter the window's k/v rows into the
         pool through the per-slot page table ``tables`` (B,
-        pages_per_slot) in place, gather each slot's pages back, attend
-        under the causal mask. Rows past the last logical page go to the
-        trash page (the last physical page). Returns (logits (B, W, V)
+        pages_per_slot) in place, then attend through the table under the
+        causal mask (K4a). Rows past the last logical page go to the trash
+        page (the last physical page). An int8 pool (``k_scale`` present)
+        takes its rows quantized (K4w: :func:`quantize_kv_rows` on the CPU)
+        and is dequantized inside the attention. Returns (logits (B, W, V)
         f32, pool)."""
-        if "k_scale" in pool:
-            raise NotImplementedError("int8 KV pages are not ported yet "
-                                      "(see ROADMAP.md, queue 1)")
         params = self._cast_params(params)
         B, W = tokens.shape
         P = int(page_tokens)
-        tables = tables.long()
         n_lp = tables.shape[1]
         S = n_lp * P
+        quant = "k_scale" in pool
         pos_w = positions.long()[:, None] + torch.arange(
             W, device=tokens.device)[None, :]
         x = self._window_embed(params, tokens, pos_w)
-        mask = (torch.arange(S, device=x.device)[None, None, :]
-                <= pos_w[:, :, None])
         bidx = torch.arange(B, device=x.device)[:, None]
         trash = pool["k"].shape[1] - 1
-        phys = torch.where(pos_w < S,
-                           tables[bidx, torch.clamp(pos_w // P, max=n_lp - 1)],
+        lp = torch.clamp(pos_w // P, max=n_lp - 1)
+        phys = torch.where(pos_w < S, tables.long()[bidx, lp],
                            torch.full_like(pos_w, trash))
         off = pos_w % P
+        # the kernels' int32 operands, made once a step and not per layer
+        tables32, pos32 = tables.int(), pos_w.int()
+        phys32, off32 = (phys.int(), off.int()) if quant else (phys, off)
 
-        def write(li, k, v):
-            views = []
-            for pl_, rows in ((pool["k"][li], k), (pool["v"][li], v)):
-                pl_[phys, off] = rows
-                views.append(pl_[tables].reshape(B, S, *pl_.shape[-2:]))
-            return views
+        def attend(li, q, k, v):
+            pk, pv = pool["k"][li], pool["v"][li]
+            if quant:
+                sk, sv = pool["k_scale"][li], pool["v_scale"][li]
+                pa.kv_quant_write(k, v, phys32, off32, pk, pv, sk, sv,
+                                  quantize=quantize_kv_rows)
+                return pa.paged_attention(q, pk, pv, tables32, pos32, sk, sv)
+            pk[phys, off] = k
+            pv[phys, off] = v
+            return pa.paged_attention(q, pk, pv, tables32, pos32)
 
-        return self._decode_layers(params, x, mask, write), pool
+        return self._decode_layers(params, x, attend), pool

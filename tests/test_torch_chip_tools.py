@@ -429,40 +429,50 @@ def test_expected_launches_per_step():
     """K1 twice per layer under remat (its recompute), K2 once, the wgmma
     K3f once and K3b per ce chunk (chunked_ce.cu's never: the large
     config is bf16 at d 1024), K7 twice per MoE layer (three times under
-    remat)."""
+    remat), K4a and K4w (decode only) never."""
     assert chip_smoke.expected_per_step(12, False, 0) == (12, 0, 12, 0, 0, 0,
-                                                          0, 0, 0, 0)
+                                                          0, 0, 0, 0, 0, 0)
     assert chip_smoke.expected_per_step(12, True, 8) == (24, 0, 12, 0, 0, 0,
-                                                         0, 0, 1, 8)
+                                                         0, 0, 1, 8, 0, 0)
     assert chip_smoke.expected_per_step(12, False, 8, moe=True) == (
-        12, 0, 12, 0, 0, 0, 24, 24, 1, 8)
-    assert chip_smoke.expected_per_step(2, True, 0, moe=True)[6:] == (6, 6,
-                                                                     0, 0)
-    assert len(chip_smoke.ALL_KERNELS) == 10
+        12, 0, 12, 0, 0, 0, 24, 24, 1, 8, 0, 0)
+    assert chip_smoke.expected_per_step(2, True, 0, moe=True)[6:] == (
+        6, 6, 0, 0, 0, 0)
+    assert len(chip_smoke.ALL_KERNELS) == 12
     assert chip_smoke.ALL_KERNELS[:4] == chip_smoke.KERNELS
-    assert chip_smoke.ALL_KERNELS[8:] == ("ce_fwd_wgmma", "ce_dlogits_wgmma")
-    assert {chip_smoke.SOURCES[k] for k in chip_smoke.ALL_KERNELS[8:]} == {
+    assert chip_smoke.ALL_KERNELS[8:10] == ("ce_fwd_wgmma",
+                                            "ce_dlogits_wgmma")
+    assert {chip_smoke.SOURCES[k] for k in chip_smoke.ALL_KERNELS[8:10]} == {
         "chunked_ce_wgmma.cu"}
+    assert chip_smoke.ALL_KERNELS[10:] == ("paged_attention",
+                                           "kv_quant_write")
+    assert {chip_smoke.SOURCES[k] for k in chip_smoke.ALL_KERNELS[10:]} == {
+        "paged_attention.cu"}
 
 
 def test_all_counts_reads_every_counter_in_order():
-    """all_counts gives the ten counters in ALL_KERNELS' order, and
+    """all_counts gives the twelve counters in ALL_KERNELS' order, and
     reset_all_counts zeroes every one."""
     from deeplearning4j_tpu_torch.kernels import chunked_ce as ce
     from deeplearning4j_tpu_torch.kernels import flash_attention as fa
     from deeplearning4j_tpu_torch.kernels import moe_route as mr
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
     names = [(fa, "launches_wgmma"), (fa, "launches_simple"),
              (fa, "launches_bwd_wgmma"), (fa, "launches_bwd"),
              (ce, "launches_fwd"), (ce, "launches_dlogits"),
              (mr, "launches_dispatch"), (mr, "launches_combine"),
-             (ce, "launches_fwd_wgmma"), (ce, "launches_dlogits_wgmma")]
+             (ce, "launches_fwd_wgmma"), (ce, "launches_dlogits_wgmma"),
+             (pa, "launches_attend"), (pa, "launches_quant_write")]
     saved = [getattr(m, n) for m, n in names]
     try:
         for i, (m, n) in enumerate(names):
             setattr(m, n, i + 1)
-        assert chip_smoke.all_counts() == tuple(range(1, 11))
+        assert chip_smoke.all_counts() == tuple(range(1, 13))
+        before = chip_smoke.all_counts()
+        pa.launches_attend += 5
+        assert chip_smoke.delta(before) == (0,) * 10 + (5, 0)
         chip_smoke.reset_all_counts()
-        assert chip_smoke.all_counts() == (0,) * 10
+        assert chip_smoke.all_counts() == (0,) * 12
     finally:
         for (m, n), v in zip(names, saved):
             setattr(m, n, v)
@@ -563,3 +573,82 @@ def test_plain_kernels_swaps_every_kernel_out_and_back():
         assert all(a is not b for a, b in zip(before, during))
         assert mr.moe_combine is mr.combine_reference
     assert [getattr(m, n) for m, n in names] == before
+
+
+def test_k4a_bound_counts_only_the_keys_the_data_needs():
+    """The main decode step (B 1, W 1, context 1024, bf16 pages of 64, H 16,
+    hd 64): 4096 B a key position (k and v) plus q, o, the position and 16
+    table entries: 4.19 MB, 1.25 µs at 3.35 TB/s, bound by bytes. int8
+    pages: 2048 + 8 B a position, 0.63 µs. A window past S counts S keys;
+    a short context counts its own."""
+    import torch
+    case = chip_smoke.DECODE_CASES[0]
+    ms, by = chip_smoke.k4a_bound_ms(case, torch.tensor([[1023]]))
+    want = 1024 * 4096 + 4 * 16 + 4 + 2 * 1024 * 2
+    assert by == "bytes" and ms == pytest.approx(1e3 * want / 3.35e12)
+    assert ms == pytest.approx(1.25e-3, rel=5e-3)
+    ms8, _ = chip_smoke.k4a_bound_ms(chip_smoke.DECODE_CASES[7],
+                                     torch.tensor([[1023]]))
+    assert ms8 == pytest.approx(1e3 * (1024 * 2056 + 68 + 4096) / 3.35e12)
+    assert ms8 == pytest.approx(0.63e-3, rel=1e-2)
+    past, _ = chip_smoke.k4a_bound_ms(case, torch.tensor([[1500]]))
+    assert past == ms
+    short, _ = chip_smoke.k4a_bound_ms(case, torch.tensor([[36]]))
+    assert short == pytest.approx(1e3 * (37 * 4096 + 4 + 4 + 4096)
+                                  / 3.35e12)
+    b8, _ = chip_smoke.k4a_bound_ms(chip_smoke.DECODE_CASES[6],
+                                    torch.tensor([[1019, 1020, 1021, 1022,
+                                                   1023]] * 8))
+    assert b8 == pytest.approx(1e-2, rel=2e-2)        # 33.6 MB, 10.0 µs
+
+
+def test_k4w_bound_is_rows_read_and_int8_written():
+    ms, by = chip_smoke.k4w_bound_ms(1, 1, 1, 1024, "bfloat16")
+    assert by == "bytes"
+    assert ms == pytest.approx(1e3 * (2 * 1024 * 2 + 2 * 1024 + 8 + 8)
+                               / 3.35e12)
+    ms, _ = chip_smoke.k4w_bound_ms(32, 64, 12, 1024, "bfloat16")
+    assert ms == pytest.approx(1e3 * (12 * (2 * 32 * 2048 + 2 * 64 * 1024
+                                            + 8 * 64) + 8 * 64) / 3.35e12)
+
+
+def test_near_tie_step_finds_the_first_close_top_two():
+    import numpy as np
+    steps = [np.array([[0.0, 2.0, 1.0]]), np.array([[0.5, 0.55, 0.1]]),
+             np.array([[3.0, 0.0, 2.95]])]
+    assert chip_smoke.near_tie_step(steps) == 1
+    assert chip_smoke.near_tie_step(steps[:1]) is None
+    assert chip_smoke.near_tie_step([np.array([[1.0, 1.05]])]) == 0
+
+
+def test_kernels_line_entries_of_k4():
+    """K4a and K4w get kernels-line entries with every key the line needs:
+    K4a's numbers at the main decode step with its int8 and dense-view
+    cases beside them, K4w's at the decode step's rows with no library
+    call."""
+    keys = ("name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    row = {k: 1.0 for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                            "library_ms", "library_device_ms")}
+    cases = {c: dict(row, bound_by="bytes", max_abs_err=1e-3)
+             for c in chip_smoke.DECODE_CASES}
+    cases[chip_smoke.DECODE_CASES[0]].update(ms=7.0, max_abs_err=4e-3)
+    cases[chip_smoke.DECODE_CASES[7]].update(ms=8.0)
+    for c in chip_smoke.QUANT_CASES:
+        cases[("quant",) + c] = dict(row, bound_by="bytes", max_abs_err=0.0,
+                                     library_ms=None)
+    cases[("quant",) + chip_smoke.QUANT_CASES[0]].update(ms=3.0)
+    launches = {"serve": 372, "serve_modes": 900, "train": 0, "moe": 0}
+    a = chip_smoke.decode_kernel_entry("paged_attention", cases, launches)
+    w = chip_smoke.decode_kernel_entry("kv_quant_write", cases, launches)
+    for entry in (a, w):
+        for key in keys:
+            assert key in entry, (entry["name"], key)
+        assert entry["route"] == "cuda" and entry["launches"] == 1272
+        assert entry["source"].endswith("csrc/paged_attention.cu")
+    assert a["replaces"].endswith("transformer.py:827")
+    assert w["replaces"].endswith("transformer.py:107")
+    assert (a["ms"], a["int8"]["ms"], a["max_abs_err"]) == (7.0, 8.0, 4e-3)
+    assert a["dense"]["ms"] == 1.0 and a["at"]["pool"] == "same"
+    assert (w["ms"], w["library_ms"], w["max_abs_err"]) == (3.0, None, 0.0)

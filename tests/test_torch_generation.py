@@ -174,12 +174,36 @@ def test_topk_frequencies_match_jax_distribution(top_k):
                   + 1e-12)
 
 
-def test_unported_options_raise_not_implemented():
-    _jm, _jp, tm, tp = _models()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgen.DecodeEngine(tm, tp, device="cpu", kv_quant=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgen.DecodeEngine(tm, tp, device="cpu", draft=object())
+def test_bad_drafts_and_spec_k_raise_as_the_reference():
+    """int8 pages and speculative decoding are ported: what remains to
+    refuse is what the JAX engine refuses, a draft of another vocabulary or
+    a shorter reach, and spec_k < 1, each as a ValueError on both sides."""
+    jm, jp, tm, tp = _models()
+    small = dict(KW, vocab_size=7, n_layers=1)
+    jsm = jtr.TransformerLM(jtr.TransformerConfig(**small))
+    tsm = ttr.TransformerLM(ttr.TransformerConfig(**small), device="cpu")
+    drafts = {
+        "vocab": (jgen.DecodeEngine(jsm, jsm.init_params(jax.random.key(1)),
+                                    max_len=MAXLEN),
+                  tgen.DecodeEngine(tsm, tsm.init_params(1), max_len=MAXLEN,
+                                    device="cpu")),
+        "max_len": (jgen.DecodeEngine(jm, jp, max_len=16),
+                    tgen.DecodeEngine(tm, tp, max_len=16, device="cpu")),
+    }
+    for what, (jd, td) in drafts.items():
+        with pytest.raises(ValueError, match=what):
+            jgen.DecodeEngine(jm, jp, max_len=MAXLEN, draft=jd)
+        with pytest.raises(ValueError, match=what):
+            tgen.DecodeEngine(tm, tp, max_len=MAXLEN, draft=td, device="cpu")
+    good = _engine("torch", 0)
+    with pytest.raises(ValueError, match="spec_k"):
+        jgen.DecodeEngine(jm, jp, max_len=MAXLEN, draft=_engine("jax", 0),
+                          spec_k=0)
+    with pytest.raises(ValueError, match="spec_k"):
+        tgen.DecodeEngine(tm, tp, max_len=MAXLEN, draft=good, spec_k=0,
+                          device="cpu")
+    assert tgen.DecodeEngine(tm, tp, max_len=MAXLEN, draft=good,
+                             device="cpu").spec
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it():

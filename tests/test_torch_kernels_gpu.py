@@ -587,3 +587,163 @@ def test_moe_ffn_on_the_card_matches_plain(cuda, monkeypatch, top_k):
     for a, b in zip(grads, grads_ref):
         assert ((a.float() - b.float()).norm()
                 / b.float().norm().clamp_min(1e-30)).item() <= 1e-2
+
+
+# ------------------------------------------- K4: paged decode attention
+# K4a against its plain version (the gather and the reference attention):
+# bf16 o atol 2e-2 (as K1: the reference rounds the scores and P to bf16,
+# the kernel keeps them in f32), f32 atol 5e-5 (f32 sums in another order).
+# K4w bit-exact: the same f32 amax, product, IEEE division and rounding.
+def _k4_inputs(B, W, H, hd, P, n_lp, dtype, quant, ctx, seed, trash=()):
+    """q as the strided (B, W, H, hd) view of a fused projection, pools of
+    B·n_lp pages + trash (int8 with scales under ``quant``), each slot's
+    pages a random permutation, slots in ``trash`` all trash, and window
+    positions ending at ``ctx[b] - 1``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n_pages = B * n_lp + 1
+    proj = torch.randn((B, W, 3 * H * hd), generator=g, device="cuda")
+    q = proj.to(dtype)[..., :H * hd].view(B, W, H, hd)
+    rows = torch.randn((2, n_pages, P, H, hd), generator=g, device="cuda")
+    if quant:
+        from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+        k8, ks = pa.quantize_kv_rows_reference(rows[0])
+        v8, vs = pa.quantize_kv_rows_reference(rows[1])
+        pools = (k8, v8, ks, vs)
+    else:
+        rows = rows.to(dtype)
+        pools = (rows[0], rows[1], None, None)
+    perm = torch.randperm(B * n_lp, generator=g, device="cuda")
+    tables = perm.view(B, n_lp).to(torch.int32)
+    for b in trash:
+        tables[b] = n_pages - 1
+    pos = (torch.tensor(ctx, device="cuda")[:, None] - W
+           + torch.arange(W, device="cuda")[None, :]).clamp_min(0)
+    return q, pools, tables, pos
+
+
+def _k4a_held_to_reference(q, pools, tables, pos):
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    k, v, ks, vs = pools
+    pa.launches_attend = 0
+    o = pa.paged_attention(q, k, v, tables, pos, ks, vs)
+    torch.cuda.synchronize()
+    assert pa.launches_attend == 1
+    ref = pa.paged_attention_reference(q, k, v, tables, pos, ks, vs)
+    assert o.shape == ref.shape and o.dtype == q.dtype
+    atol = 2e-2 if q.dtype == torch.bfloat16 else 5e-5
+    assert (o.float() - ref.float()).abs().max().item() <= atol
+    return o
+
+
+@pytest.mark.gpu
+def test_k4a_one_tile(cuda):
+    """One slot, one head, one 64-key tile, one split: the shared-memory
+    layout and the online softmax before anything larger."""
+    _k4a_held_to_reference(*_k4_inputs(1, 1, 1, 64, 64, 1, torch.bfloat16,
+                                       False, [64], 0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,W,H,hd,P,n_lp,dtype,quant,ctx", [
+    # the serving shapes: contexts 37, 500, 960 and 1024 of a 1024 span
+    (1, 1, 16, 64, 64, 16, torch.bfloat16, False, [37]),
+    (1, 1, 16, 64, 64, 16, torch.bfloat16, False, [1024]),
+    (1, 5, 16, 64, 64, 16, torch.bfloat16, False, [500]),
+    (8, 1, 16, 64, 64, 16, torch.bfloat16, False, [960] * 8),
+    (8, 5, 16, 64, 64, 16, torch.bfloat16, True, [37, 500, 960, 1024] * 2),
+    (1, 1, 16, 64, 64, 16, torch.bfloat16, True, [1024]),
+    # edges: P 16 and P = S (the dense view), other head dims, f32
+    (2, 3, 4, 64, 16, 9, torch.bfloat16, False, [100, 7]),
+    (3, 1, 16, 64, 1024, 1, torch.bfloat16, False, [1, 600, 1024]),
+    (2, 2, 2, 128, 32, 5, torch.bfloat16, True, [150, 33]),
+    (2, 4, 3, 16, 8, 7, torch.bfloat16, False, [56, 3]),
+    (1, 16, 2, 256, 64, 3, torch.bfloat16, False, [192]),
+    (2, 3, 2, 8, 1, 70, torch.bfloat16, True, [70, 2]),
+    (2, 5, 16, 64, 64, 16, torch.float32, False, [300, 1024]),
+    (1, 2, 4, 40, 16, 4, torch.float32, True, [64]),
+])
+def test_k4a_matches_reference(cuda, B, W, H, hd, P, n_lp, dtype, quant,
+                               ctx):
+    _k4a_held_to_reference(*_k4_inputs(B, W, H, hd, P, n_lp, dtype, quant,
+                                       ctx, B * 7 + W + hd))
+
+
+@pytest.mark.gpu
+def test_k4a_window_past_the_span_and_a_free_slot(cuda):
+    """A window whose tail runs past S (its queries see every key) and a
+    free slot whose table row is all trash: both as the plain version."""
+    q, pools, tables, pos = _k4_inputs(3, 5, 16, 64, 64, 4, torch.bfloat16,
+                                       True, [258, 40, 300], 3, trash=(1,))
+    assert int(pos.max()) >= 256
+    _k4a_held_to_reference(q, pools, tables, pos)
+
+
+@pytest.mark.gpu
+def test_k4a_rejects_what_it_does_not_take(cuda):
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    q, (k, v, _ks, _vs), tables, pos = _k4_inputs(
+        1, 1, 2, 64, 16, 2, torch.bfloat16, False, [10], 1)
+    with pytest.raises(ValueError, match="window"):
+        wide = torch.zeros((1, 17, 2, 64), device="cuda",
+                           dtype=torch.bfloat16)
+        pa.paged_attention(wide, k, v, tables, pos.expand(1, 17))
+    with pytest.raises(ValueError, match="head dim"):
+        pa.paged_attention(q[..., :60], k[..., :60], v[..., :60], tables,
+                           pos)
+    with pytest.raises(ValueError, match="pool"):
+        pa.paged_attention(q, k.float(), v.float(), tables, pos)
+    with pytest.raises(ValueError, match="scale"):
+        pa.paged_attention(q, k.to(torch.int8), v.to(torch.int8), tables,
+                           pos)
+    with pytest.raises(TypeError):
+        pa.paged_attention(q.half(), k, v, tables, pos)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k4w_is_bit_exact(cuda, dtype):
+    """A decode window's rows (strided views of a fused projection, one of
+    them all zero) through (page, row) coordinates, and a prefill's 20 rows
+    into two whole pages of every layer with zero padding rows: pools and
+    scales equal the plain version's to the bit."""
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    g = torch.Generator(device="cuda").manual_seed(5)
+    H, hd, P = 16, 64, 16
+    proj = torch.randn((3, 2, 3 * H * hd), generator=g, device="cuda")
+    proj[1, 1] = 0.0
+    proj = proj.to(dtype)
+    k = proj[..., H * hd:2 * H * hd].view(3, 2, H, hd)
+    v = proj[..., 2 * H * hd:].view(3, 2, H, hd)
+    phys = torch.tensor([[2, 2], [0, 6], [6, 6]], dtype=torch.int32,
+                        device="cuda")
+    off = torch.tensor([[3, 4], [15, 0], [7, 8]], dtype=torch.int32,
+                       device="cuda")
+
+    def pools(layers=()):
+        return [torch.zeros((*layers, 7, P, H, hd), dtype=torch.int8,
+                            device="cuda") for _ in range(2)] + [
+            torch.zeros((*layers, 7, P), device="cuda") for _ in range(2)]
+
+    got, want = pools(), pools()
+    pa.launches_quant_write = 0
+    pa.kv_quant_write(k, v, phys, off, *got)
+    pa.kv_quant_write_reference(k, v, phys, off, *want)
+    torch.cuda.synchronize()
+    assert pa.launches_quant_write == 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert got[2][6, 0] == 1.0                          # the zero row
+    kv = torch.randn((2, 2, 1, 20, H, hd), generator=g,
+                     device="cuda").to(dtype)
+    t = torch.arange(2 * P, device="cuda")
+    ids = torch.tensor([5, 1], device="cuda")
+    got, want = pools((3,)), pools((3,))
+    pa.kv_quant_write(kv[0, :, :], kv[1], ids[t // P][None], (t % P)[None],
+                      *[x[1:] for x in got])
+    pa.kv_quant_write_reference(kv[0], kv[1], ids[t // P][None],
+                                (t % P)[None], *[x[1:] for x in want])
+    torch.cuda.synchronize()
+    assert pa.launches_quant_write == 2
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert (got[2][1:, 1, 4:] == 1.0).all() and (got[2][0] == 0).all()
