@@ -8,8 +8,9 @@ Run from the root of a checkout, with no arguments::
 It builds every CUDA kernel of the port from ``kernels/csrc/`` with
 ``nvcc`` (one process per source, all at once), checks in ptxas's report
 that the wgmma forward has 168 registers a thread at entry and no spills,
-that the wgmma backward's and the wgmma K3's kernels spill nothing, and
-that no wgmma source has its products serialized (C7514/C7512), then:
+that the wgmma backward's and the wgmma K3's kernels and every
+instantiation of K4a spill nothing, and that no wgmma source has its
+products serialized (C7514/C7512), then:
 
 1. kernel phase — holds each flash-attention kernel (the wgmma kernel for
    bf16 at d 64/128, the simple kernel for f32 and the other head dims)
@@ -42,10 +43,14 @@ that no wgmma source has its products serialized (C7514/C7512), then:
    (the unchunked head + CE and its backward; ``index_copy_`` /
    ``index_add_``); then K4 (K4a, the paged decode attention, over bf16,
    f32 and int8 pages and the dense cache's view, at the serving shapes and
-   at edges: P 16, hd 16 and 128, a window past the span, a free slot; K4w,
-   the int8 quantize-and-scatter, bit-exact, for decode windows and a
-   prefill insert) against their plain versions, timed the same two ways
-   beside their bounds and, for K4a, the gather of the pages plus SDPA;
+   at edges: P 16, hd 16 and 128, a window past the span, a free slot, 64
+   splits, W 16 at hd 128; K4w, the int8 quantize-and-scatter, bit-exact,
+   for decode windows and a prefill insert) against their plain versions,
+   timed the same two ways beside their bounds and, for K4a, the gather of
+   the pages plus SDPA, which K4a must not lose to at 16 heads of 64; K4a
+   must give the same bits on a second call and in every output of three
+   CUDA-graph replays, and its split count is swept at the main decode
+   step and the verify window (``decode_split_sweep``);
 3. slice phase — serves generation from ``TransformerLM`` at the full
    width of the bench's large config (vocab 32768, 12 layers, 16 heads,
    d_model 1024, d_ff 4096, max_len 1024, bf16, fused QKV; random weights
@@ -282,10 +287,26 @@ DECODE_CASES = [
     (2, 5, 16, 64, 64, 16, "float32", "same", (300, 1024), ()),
     # a window whose tail runs past S, and a free slot (all trash)
     (3, 5, 16, 64, 64, 4, "bfloat16", "int8", (258, 40, 300), (1,)),
+    # 64 splits through the last block's merge; W 16 at hd 128, where q
+    # and o take the most registers (two warps' worth of queries)
+    (1, 1, 1, 64, 64, 64, "bfloat16", "same", (4096,), ()),
+    (1, 16, 8, 128, 64, 16, "bfloat16", "same", (1024,), ()),
 ]
 DECODE_MAIN_CASE = {"paged_attention": DECODE_CASES[0],
                     "paged_attention_int8": DECODE_CASES[7],
                     "paged_attention_dense": DECODE_CASES[11]}
+# K4a's split counts timed at the main decode step and the verify window
+# (B 8, W 5), beside key_splits' own choice
+SPLIT_SWEEP = {DECODE_CASES[0]: (4, 8, 9, 12, 16, 24, 32, 64),
+               DECODE_CASES[6]: (1, 2, 3, 4, 6, 8, 16)}
+# every instantiation of K4a's kernel in ptxas's report: compute dtype /
+# pool type, queries a warp, elements a lane's chunk
+K4A_INSTANTIATIONS = sorted(
+    [f"bf16/same w{w} e8" for w in (1, 5, 8)]
+    + [f"f32/same w{w} e4" for w in (1, 5, 8)]
+    + [f"f32/same w{w} e8" for w in (1, 5)]
+    + [f"{t}/int8 w1 e16" for t in ("bf16", "f32")]
+    + [f"{t}/int8 w{w} e8" for t in ("bf16", "f32") for w in (1, 5, 8)])
 # K4w cases: (slots B, window W, layers, page tokens P, rows' dtype); B = 1
 # with W > 1 layer is a prefill insert (rows of a T-token bucket into whole
 # pages, zero-padded), else a decode or verify window (one layer). Each has
@@ -348,12 +369,10 @@ def time_ms(fn, torch, iters=20, repeats=7):
 _SIDE = []
 
 
-def device_ms(fn, torch, launches=20, repeats=7):
-    """Device time per call of ``fn``: ``launches`` calls captured into one
-    CUDA graph, the median over ``repeats`` replays timed with CUDA events.
-    The host's work runs once, at capture, so it is not in the time. One
-    side stream serves every call: cuBLAS keeps a 32 MiB workspace for
-    each stream a product ran on, for the life of the process."""
+def _warm_on_side(fn, torch):
+    """One call of ``fn`` on a side stream before a capture, as CUDA graphs
+    ask. One side stream serves every call: cuBLAS keeps a 32 MiB workspace
+    for each stream a product ran on, for the life of the process."""
     if not _SIDE:
         _SIDE.append(torch.cuda.Stream())
     side = _SIDE[0]
@@ -362,6 +381,13 @@ def device_ms(fn, torch, launches=20, repeats=7):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
+
+
+def device_ms(fn, torch, launches=20, repeats=7):
+    """Device time per call of ``fn``: ``launches`` calls captured into one
+    CUDA graph, the median over ``repeats`` replays timed with CUDA events.
+    The host's work runs once, at capture, so it is not in the time."""
+    _warm_on_side(fn, torch)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(launches):
@@ -379,6 +405,31 @@ def device_ms(fn, torch, launches=20, repeats=7):
         times.append(a.elapsed_time(b) / launches)
     del graph
     return statistics.median(times)
+
+
+def graph_outputs(fn, torch, launches=20, replays=3):
+    """Copies of the outputs of ``launches`` calls of ``fn`` captured in one
+    CUDA graph, taken after each of ``replays`` replays."""
+    _warm_on_side(fn, torch)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fn() for _ in range(launches)]
+    got = []
+    for _ in range(replays):
+        graph.replay()
+        torch.cuda.synchronize()
+        got.extend(o.clone() for o in outs)
+    del graph
+    return got
+
+
+def exactness(first, second, replayed):
+    """A kernel's run-to-run fields: ``deterministic`` (a second eager call
+    gave the first's bits) and ``replay_exact`` (so did every output of
+    every CUDA-graph replay)."""
+    return {"deterministic": bool(first.equal(second)),
+            "replay_exact": bool(replayed)
+            and all(bool(first.equal(r)) for r in replayed)}
 
 
 def _kept_pairs(t_q, t_k, causal):
@@ -479,6 +530,24 @@ def _ptxas(log, entry, key):
         if m:
             report[k]["registers"] = int(m.group(1))
     return report
+
+
+def k4a_ptxas(log):
+    """{"bf16/same w1 e8": {"registers": n, "spill_bytes": n}, ...} for
+    each instantiation of K4a's ``paged_attend_kernel<DT, KQ, WM, E>``."""
+    return _ptxas(
+        log, r"paged_attend_kernelILi(\d)ELi(\d)ELi(\d+)ELi(\d+)EE",
+        lambda m: (("bf16" if m.group(1) == "1" else "f32") + "/"
+                   + ("int8" if m.group(2) == "1" else "same")
+                   + f" w{m.group(3)} e{m.group(4)}"))
+
+
+def spill_free(report, want):
+    """True when ``report`` (from :func:`_ptxas`) lists exactly the
+    entries ``want``, each with its registers and no spilled bytes."""
+    return sorted(report) == sorted(want) and all(
+        "registers" in r and r.get("spill_bytes") == 0
+        for r in report.values())
 
 
 def wgmma_ptxas(log):
@@ -1394,7 +1463,12 @@ def decode_kernel_phase(torch):
                 <= pos.long()[:, None, :, None])
 
         def kernel():
-            pa.paged_attention(q, k, v, tables, pos, ks, vs)
+            return pa.paged_attention(q, k, v, tables, pos, ks, vs)
+
+        exact = exactness(o, kernel(), graph_outputs(kernel, torch))
+        check(exact["deterministic"] and exact["replay_exact"],
+              f"paged_attention {case}: not the same bits run to run "
+              f"{exact}")
 
         def library():
             kk = pa.gather_pages(k, ks, tables, q.dtype).transpose(1, 2)
@@ -1406,19 +1480,26 @@ def decode_kernel_phase(torch):
         row = {"b": B, "w": W, "h": H, "hd": hd, "page_tokens": P,
                "pages_a_slot": n_lp, "dtype": dtype, "pool": pool,
                "contexts": list(ctx), "trash_slots": list(trash),
-               "splits": pa.key_splits(B, H, S)[0], "max_abs_err": err,
+               "splits": pa.attend_splits(q, k, v, tables)[0],
+               "max_abs_err": err,
                "ms": time_ms(kernel, torch),
                "device_ms": device_ms(kernel, torch),
                "plain_ms": time_ms(lambda: pa.paged_attention_reference(
                    q, k, v, tables, pos, ks, vs), torch, iters=5, repeats=5),
                "library_ms": time_ms(library, torch),
                "library_device_ms": device_ms(library, torch),
-               "bound_ms": bound_ms, "bound_by": bound_by}
+               "bound_ms": bound_ms, "bound_by": bound_by, **exact}
         row["device_vs_bound"] = row["device_ms"] / bound_ms
         row["device_vs_library"] = (row["device_ms"]
                                     / row["library_device_ms"])
         emit(decode_case=row)
         results[case] = row
+    for case, candidates in SPLIT_SWEEP.items():
+        emit(decode_split_sweep=split_sweep(torch, case, candidates))
+    slower = {str(c): r["device_vs_library"] for c, r in results.items()
+              if c[2:4] == (16, 64) and r["device_vs_library"] > 1.0}
+    check(not slower, f"K4a slower than the gather + SDPA at H 16, hd 64: "
+          f"{slower}")
     for case in QUANT_CASES:
         B, W, layers, P, dtype = case
         k, v, phys, off, pools = quant_inputs(torch, case)
@@ -1456,6 +1537,49 @@ def decode_kernel_phase(torch):
         emit(quant_write_case=row)
         results[("quant",) + case] = row
     return results
+
+
+def split_sweep(torch, case, candidates):
+    """K4a's device time at each split count of ``candidates`` and at
+    key_splits' own, on one of DECODE_CASES, each held to the plain
+    version (:func:`split_sweep_row` gives the line)."""
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    B, W, H, hd, P, n_lp, dtype, pool, ctx, _trash = case
+    q, (k, v, ks, vs), tables, pos = k4_inputs(torch, case)
+    ref = pa.paged_attention_reference(q, k, v, tables, pos, ks, vs)
+    rule = pa.attend_splits(q, k, v, tables)[0]
+    points = []
+    for asked in sorted(set(candidates) | {rule}):
+        splits, per = pa.attend_splits(q, k, v, tables, asked)
+
+        def kernel():
+            return pa.paged_attention(q, k, v, tables, pos, ks, vs,
+                                      splits=asked)
+
+        err = (kernel().float() - ref.float()).abs().max().item()
+        check(err <= TOL_O[dtype], f"paged_attention {case} at {asked} "
+              f"splits: max |do| {err} > {TOL_O[dtype]}")
+        points.append({"splits": splits, "keys_per_split": per,
+                       "blocks": splits * H * B, "max_abs_err": err,
+                       "device_ms": device_ms(kernel, torch)})
+    return split_sweep_row(case, rule, points)
+
+
+def split_sweep_row(case, rule, points):
+    """The ``decode_split_sweep`` line of one case: its shape, key_splits'
+    choice (``rule_splits``), the fastest point and the rule's time over
+    it, and every point (splits, keys a split, blocks, max |do|, device
+    ms)."""
+    B, W, H, hd, P, n_lp, dtype, pool, ctx, _trash = case
+    best = min(points, key=lambda r: r["device_ms"])
+    at_rule = [r["device_ms"] for r in points if r["splits"] == rule]
+    return {"b": B, "w": W, "h": H, "hd": hd, "page_tokens": P,
+            "pages_a_slot": n_lp, "dtype": dtype, "pool": pool,
+            "contexts": list(ctx), "rule_splits": rule,
+            "best_splits": best["splits"],
+            "rule_vs_best": (at_rule[0] / best["device_ms"] if at_rule
+                             else None),
+            "points": points}
 
 
 def near_tie_step(steps):
@@ -1669,7 +1793,14 @@ def decode_profile_phase(torch, engine):
     L = LARGE["n_layers"]
     check(all_counts() == (0,) * 10 + (4 * L, 0),
           f"profiled decode launched {all_counts()}")
-    emit(decode_profile={"prompt_len": PROFILE_PROMPT, "steps": 4, **row})
+    traced = sum(k["count"] for k in row.get("decode_kernels", ())
+                 if "paged_attend_kernel" in k["name"])
+    check(traced == 4 * L or not TRACE_ON_DEVICE,
+          f"profiled decode traced {traced} K4a kernels, not one a layer "
+          f"a step ({4 * L})")
+    emit(decode_profile={"prompt_len": PROFILE_PROMPT, "steps": 4,
+                         "kernels_per_step": row.get("kernels", 0) / 4,
+                         **row})
 
 
 def decode_kernel_entry(kind, cases, launches):
@@ -2048,7 +2179,7 @@ def profile_window(torch, label, fn, trace_name, top=10):
         r"ce_wgmma_kernel|ce_fwd_kernel|ce_dlogits_kernel|ce_merge_kernel",
         name)}
     decode = {name: tot for name, tot in by_name.items() if re.search(
-        r"attend_kernel|(?<![a-z_])merge_kernel|quant_write_kernel", name)}
+        r"paged_attend_kernel|quant_write_kernel", name)}
     return {"wall_ms": wall_ms, "window_us": hi - lo,
             "device_busy_us": busy, "busy_share": busy / (hi - lo),
             "kernels": sum(n for _us, n in by_name.values()),
@@ -2284,6 +2415,13 @@ def main() -> int:
                       for r in report.values()),
               f"wgmma K3: want no spills in its two kernels, ptxas gave "
               f"{report}")
+    log = _build.build_logs.get("paged_attention")
+    if log is not None:
+        report = k4a_ptxas(log)
+        emit(k4a_ptxas=report)
+        check(spill_free(report, K4A_INSTANTIATIONS),
+              f"K4a: want no spills in its {len(K4A_INSTANTIATIONS)} "
+              f"instantiations, ptxas gave {report}")
 
     def allocated(after):
         emit(allocated={"after": after,

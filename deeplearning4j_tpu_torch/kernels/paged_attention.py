@@ -13,11 +13,13 @@ for Hopper in ``csrc/paged_attention.cu``, built with ``nvcc`` for
   the slot's keys at positions ≤ the query's, each read through the page
   table (key j at page ``tables[b, j // P]``, row ``j % P``); int8 pages
   are dequantized in registers with their f32 row scales. Scores and the
-  softmax in f32, 1/√hd scaling, o in the compute dtype. Flash-decoding
-  style: a grid over (key split, head, slot), an online softmax over 64-key
-  tiles, the splits' partials merged in a fixed order. A dense cache (B, S,
-  H, hd) is the pool of B pages of S tokens with the table
-  ``arange(B)[:, None]`` (:func:`dense_tables`).
+  softmax in f32, 1/√hd scaling, o in the compute dtype. One launch over
+  (key split, head, slot): K/V rows stream through registers with 16-byte
+  loads, reused across the window's queries, and the last split's block to
+  finish (a ticket on a per-(slot, head) counter) merges the splits'
+  partials in split order. A dense cache (B, S, H, hd) is the pool of B
+  pages of S tokens with the table ``arange(B)[:, None]``
+  (:func:`dense_tables`).
 - K4w (:func:`kv_quant_write`): :func:`quantize_kv_rows_reference` of the
   k and v rows, written into an int8 pool and its scale grid at explicit
   (page, row) coordinates, bit-exact with the plain version.
@@ -42,10 +44,14 @@ import torch
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _NEG_INF = -1e30
-TILE_KEYS = 64              # keys a K4a tile
 MAX_WINDOW = 16             # queries a (slot, head)
 MAX_HEAD_DIM = 256
 _SMS = 132                  # streaming multiprocessors of the H100
+WARPS = 4                   # warps a K4a block, each a run of the split's keys
+MIN_SPLIT_KEYS = 64         # keys a split holds at least
+MAX_SPLITS = 256            # the kernel's limit on splits a (slot, head)
+MERGE_FLOATS = 16384        # and on splits × W × hd (the last block's merge)
+SPLIT_BLOCKS_PER_SM = 2     # resident K4a blocks an SM, unless measured
 # 1/127 rounded to f32: the JAX engine's compiled steps compute the source's
 # ``amax / 127.0`` as ``amax * f32(1/127)`` (XLA turns a division by a
 # constant into a product by its reciprocal), and the port matches them.
@@ -67,11 +73,13 @@ def _kernel(fn: str):
     if k is None:
         from deeplearning4j_tpu_torch.kernels import _build
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        # the stream is the last argument of both
-        args = ([p, ll, ll, ll] + [p] * 9 + [i] * 10 + [p]
-                if fn == "dl4j_paged_attention" else
+        # the stream is the last argument of both launches
+        args = {"dl4j_paged_attention":
+                [p, ll, ll, ll] + [p] * 10 + [i] * 10 + [p],
+                "dl4j_paged_attention_blocks_per_sm": [i] * 5,
+                "dl4j_kv_quant_write":
                 [p, p, ll, ll, ll, i, i, i, i, p, p, i, p, p, p, p, ll, ll,
-                 i, i, p])
+                 i, i, p]}[fn]
         k = _fns[fn] = _build.bind("paged_attention", fn, args,
                                    "dl4j_paged_attention_error_string")
     return k
@@ -168,14 +176,92 @@ def dense_tables(slots: int, device) -> torch.Tensor:
     return torch.arange(slots, dtype=torch.int32, device=device)[:, None]
 
 
-def key_splits(slots: int, heads: int, keys: int) -> Tuple[int, int]:
-    """(splits, 64-key tiles a split) of K4a's grid for ``keys`` cached
-    positions: about two blocks an SM over (split, head, slot), each split
-    a whole number of tiles."""
-    tiles = -(-keys // TILE_KEYS)
-    want = -(-2 * _SMS // (slots * heads))
-    per = -(-tiles // max(1, min(tiles, want)))
-    return -(-tiles // per), per
+def key_splits(slots: int, heads: int, keys: int,
+               splits: Optional[int] = None, window_floats: int = 64,
+               blocks_per_sm: int = SPLIT_BLOCKS_PER_SM) -> Tuple[int, int]:
+    """(splits, keys a split) of K4a's grid over (split, head, slot) for
+    ``keys`` cached positions: as many blocks as the card holds at once
+    (``blocks_per_sm`` resident blocks on each of its SMs: one wave), no
+    split under :data:`MIN_SPLIT_KEYS` keys (so each of a block's warps
+    streams several rows per lane), no empty split, and the splits'
+    partials of ``window_floats`` (W × hd) floats within
+    :data:`MERGE_FLOATS`. ``splits`` overrides the count (the split sweep
+    and the tests use it). Shapes only, never positions, so a captured CUDA
+    graph stays valid."""
+    if splits is None:
+        want = blocks_per_sm * _SMS // (slots * heads)
+        splits = min(want, keys // MIN_SPLIT_KEYS)
+    splits = max(1, min(splits, MAX_SPLITS, keys,
+                        MERGE_FLOATS // window_floats))
+    per = -(-keys // splits)
+    return -(-keys // per), per
+
+
+def counter_slots(have: int, need: int) -> int:
+    """Entries of K4a's ticket-counter buffer for a call that needs
+    ``need`` (slots × heads) when the buffer holds ``have``: kept when it is
+    large enough, else the next power of two (at least 256)."""
+    if have >= need:
+        return have
+    return max(256, 1 << (need - 1).bit_length())
+
+
+_counters = {}
+_retired = []       # grown-out buffers a captured graph may still point at
+
+
+def _ticket_counters(device: torch.device, need: int) -> torch.Tensor:
+    """The zeroed int32 ticket counters of ``device`` (each launch leaves
+    them at 0), grown by :func:`counter_slots` only outside CUDA-graph
+    capture."""
+    buf = _counters.get(device)
+    have = 0 if buf is None else buf.numel()
+    size = counter_slots(have, need)
+    if size != have:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"paged_attention: {need} (slot, head) counters needed, "
+                f"{have} allocated; call it once at this batch outside "
+                f"CUDA-graph capture first")
+        if buf is not None:
+            _retired.append(buf)
+        buf = _counters[device] = torch.zeros(size, dtype=torch.int32,
+                                              device=device)
+    return buf
+
+
+_occupancy = {}
+
+
+def _blocks_per_sm(q: torch.Tensor, quant: bool, k_pool: torch.Tensor,
+                   v_pool: torch.Tensor) -> int:
+    """K4a's resident blocks an SM for this call's kernel, from the CUDA
+    occupancy calculator (once for each kernel configuration)."""
+    B, W, H, hd = q.shape
+    aligned = (k_pool.data_ptr() | v_pool.data_ptr()) % 16 == 0
+    key = (q.device, q.dtype, quant, W, hd, aligned)
+    n = _occupancy.get(key)
+    if n is None:
+        fn, err = _kernel("dl4j_paged_attention_blocks_per_sm")
+        with torch.cuda.device(q.device):
+            n = fn(W, hd, _DTYPES[q.dtype], int(quant), int(aligned))
+        if n < 1:
+            raise RuntimeError(f"paged_attention: occupancy query failed "
+                               f"({err(-n).decode() if n < 0 else n})")
+        _occupancy[key] = n
+    return n
+
+
+def attend_splits(q: torch.Tensor, k_pool: torch.Tensor,
+                  v_pool: torch.Tensor, tables: torch.Tensor,
+                  splits: Optional[int] = None) -> Tuple[int, int]:
+    """(splits, keys a split) that :func:`paged_attention` launches K4a
+    with on the card: :func:`key_splits` at this call's shapes and the
+    kernel's measured occupancy."""
+    B, W, H, hd = q.shape
+    return key_splits(B, H, tables.shape[1] * k_pool.shape[1], splits,
+                      W * hd, _blocks_per_sm(q, k_pool.dtype == torch.int8,
+                                             k_pool, v_pool))
 
 
 def _int32(t: torch.Tensor, device) -> torch.Tensor:
@@ -227,13 +313,15 @@ def _check_attend(q, k_pool, v_pool, tables, k_scale, v_scale):
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     v_pool: torch.Tensor, tables: torch.Tensor,
                     pos: torch.Tensor, k_scale: Optional[torch.Tensor] = None,
-                    v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    v_scale: Optional[torch.Tensor] = None,
+                    splits: Optional[int] = None) -> torch.Tensor:
     """o (B, W, H, hd) in q's dtype: each window query ``q[b, w]`` at
     position ``pos[b, w]`` (≥ 0) attends to the keys of slot b at positions
     ≤ its own, read from the pools (n_pages, P, H, hd) through ``tables``
     (B, n_lp) (table entries must lie in the pool); int8 pools with their
-    (n_pages, P) f32 scales. A CUDA tensor launches K4a (or raises); a CPU
-    tensor takes :func:`paged_attention_reference`."""
+    (n_pages, P) f32 scales. A CUDA tensor launches K4a once (or raises); a
+    CPU tensor takes :func:`paged_attention_reference`. ``splits``
+    overrides :func:`key_splits`' count (for the split sweep and tests)."""
     global launches_attend
     if q.device.type == "cpu":
         return paged_attention_reference(q, k_pool, v_pool, tables, pos,
@@ -245,14 +333,15 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError(f"paged_attention: pos must be (B, W) = {(B, W)}, "
                          f"got {tuple(pos.shape)}")
     tables, pos = _int32(tables, q.device), _int32(pos, q.device)
-    splits, per = key_splits(B, H, n_lp * P)
+    splits, per = attend_splits(q, k_pool, v_pool, tables, splits)
     out = torch.empty((B, W, H, hd), dtype=q.dtype, device=q.device)
-    o_part = ml_part = None
+    o_part = ml_part = counters = None
     if splits > 1:
         o_part = torch.empty((B, H, splits, W, hd), dtype=torch.float32,
                              device=q.device)
         ml_part = torch.empty((B, H, splits, W, 2), dtype=torch.float32,
                               device=q.device)
+        counters = _ticket_counters(q.device, B * H)
     from deeplearning4j_tpu_torch.kernels import _build
     sb, sw, sh, _ = q.stride()
     _build.call("paged_attention", _kernel("dl4j_paged_attention"),
@@ -263,6 +352,7 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                  tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
                  None if o_part is None else o_part.data_ptr(),
                  None if ml_part is None else ml_part.data_ptr(),
+                 None if counters is None else counters.data_ptr(),
                  B, W, H, hd, P, n_lp, splits, per, _DTYPES[q.dtype],
                  int(quant)), q.device)
     launches_attend += 1

@@ -359,7 +359,9 @@ def test_profile_window_lists_every_attention_kernel(tmp_path, monkeypatch):
         kernel("void ce_wgmma_kernel<false>(CUtensorMap_st, Args)", 90, 4),
         kernel("void ce_merge_kernel(float const*, int, int)", 94, 1),
         kernel("void ce_wgmma_kernel<true>(CUtensorMap_st, Args)", 95, 2),
-        kernel("void ce_wgmma_kernel<true>(CUtensorMap_st, Args)", 97, 2)]
+        kernel("void ce_wgmma_kernel<true>(CUtensorMap_st, Args)", 97, 2),
+        kernel("void (anonymous namespace)::paged_attend_kernel<1, 0, 1, "
+               "8>((anonymous namespace)::AttendArgs)", 97, 2)]
 
     class Profile:
         def __init__(self, activities):
@@ -393,6 +395,8 @@ def test_profile_window_lists_every_attention_kernel(tmp_path, monkeypatch):
         "void ce_wgmma_kernel<false>(CUtensorMap_st, Args)": (4.0, 1),
         "void ce_merge_kernel(float const*, int, int)": (1.0, 1),
         "void ce_wgmma_kernel<true>(CUtensorMap_st, Args)": (4.0, 2)}
+    assert [(k["us"], k["count"]) for k in row["decode_kernels"]] == [
+        (2.0, 1)]
     assert row["busy_share"] == pytest.approx(0.99)   # 99 of 100 us
 
 
@@ -652,3 +656,93 @@ def test_kernels_line_entries_of_k4():
     assert (a["ms"], a["int8"]["ms"], a["max_abs_err"]) == (7.0, 8.0, 4e-3)
     assert a["dense"]["ms"] == 1.0 and a["at"]["pool"] == "same"
     assert (w["ms"], w["library_ms"], w["max_abs_err"]) == (3.0, None, 0.0)
+
+
+def _k4a_entry(types, wm, e, spill=0):
+    dt, kq = types
+    name = (f"_ZN62_GLOBAL__N__5b1e4c2d_18_paged_attention_cu_7d3e9f1a19"
+            f"paged_attend_kernelILi{dt}ELi{kq}ELi{wm}ELi{e}EEEvNS_10"
+            f"AttendArgsE")
+    return (f"ptxas info    : Compiling entry function '{name}' for "
+            f"'sm_90a'\nptxas info    : Function properties for {name}\n"
+            f"    0 bytes stack frame, {spill} bytes spill stores, {spill} "
+            f"bytes spill loads\nptxas info    : Used 96 registers, used 1 "
+            f"barriers\n")
+
+
+_K4A_BUILT = [((1, 0), w, 8) for w in (1, 5, 8)] + [
+    ((0, 0), w, 4) for w in (1, 5, 8)] + [((0, 0), w, 8) for w in (1, 5)] + [
+    ((t, 1), 1, 16) for t in (1, 0)] + [
+    ((t, 1), w, 8) for t in (1, 0) for w in (1, 5, 8)]
+
+
+@pytest.mark.parametrize("spilled", [None, 0, 7, 15])
+def test_k4a_ptxas_report_holds_every_instantiation_to_no_spills(spilled):
+    """Each of K4a's 16 instantiations is read from ptxas's report under a
+    readable key (dtype/pool, queries a warp, elements a chunk); the check
+    passes only when all 16 are there without spills, and the K4w kernel's
+    lines are not K4a's."""
+    log = "".join(_k4a_entry(*c, spill=64 if n == spilled else 0)
+                  for n, c in enumerate(_K4A_BUILT))
+    log += ("ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118"
+            "quant_write_kernelIfEEvNS_9QuantArgsE' for 'sm_90a'\n    0 "
+            "bytes stack frame, 8 bytes spill stores, 8 bytes spill loads\n")
+    report = chip_smoke.k4a_ptxas(log)
+    assert sorted(report) == chip_smoke.K4A_INSTANTIATIONS
+    assert report["bf16/same w1 e8"]["registers"] == 96
+    assert "bf16/int8 w1 e16" in report and "f32/same w8 e4" in report
+    ok = chip_smoke.spill_free(report, chip_smoke.K4A_INSTANTIATIONS)
+    assert ok == (spilled is None)
+    missing = chip_smoke.k4a_ptxas("".join(_k4a_entry(*c)
+                                           for c in _K4A_BUILT[1:]))
+    assert not chip_smoke.spill_free(missing, chip_smoke.K4A_INSTANTIATIONS)
+
+
+def test_split_sweep_row_names_the_rule_and_the_fastest():
+    """The decode_split_sweep line: the case's shape, key_splits' choice,
+    the fastest point, the rule's time over the fastest's, and each point
+    as measured."""
+    case = chip_smoke.DECODE_CASES[0]
+    points = [{"splits": s, "keys_per_split": -(-1024 // s),
+               "blocks": 16 * s, "max_abs_err": 1e-3, "device_ms": t}
+              for s, t in ((8, 0.006), (16, 0.004), (32, 0.005))]
+    row = chip_smoke.split_sweep_row(case, 16, points)
+    assert (row["b"], row["w"], row["h"], row["hd"]) == (1, 1, 16, 64)
+    assert row["contexts"] == [1024] and row["pool"] == "same"
+    assert (row["rule_splits"], row["best_splits"]) == (16, 16)
+    assert row["rule_vs_best"] == 1.0 and row["points"] == points
+    row = chip_smoke.split_sweep_row(case, 8, points)
+    assert row["rule_vs_best"] == pytest.approx(1.5)
+    assert chip_smoke.split_sweep_row(case, 12, points)["rule_vs_best"] \
+        is None
+    assert set(chip_smoke.SPLIT_SWEEP) == {chip_smoke.DECODE_CASES[0],
+                                           chip_smoke.DECODE_CASES[6]}
+
+
+def test_exactness_fields_see_a_changed_bit():
+    """``deterministic`` compares a second eager call with the first,
+    ``replay_exact`` every replayed output, bit for bit."""
+    import torch
+    o = torch.tensor([1.0, -2.5, 3.0], dtype=torch.bfloat16)
+    off = o.clone()
+    off[1] = torch.tensor(-2.5, dtype=torch.bfloat16).view(
+        torch.int16).add(1).view(torch.bfloat16)
+    assert chip_smoke.exactness(o, o.clone(), [o.clone()] * 3) == {
+        "deterministic": True, "replay_exact": True}
+    assert chip_smoke.exactness(o, off, [o.clone()]) == {
+        "deterministic": False, "replay_exact": True}
+    assert chip_smoke.exactness(o, o.clone(), [o.clone(), off]) == {
+        "deterministic": True, "replay_exact": False}
+    assert not chip_smoke.exactness(o, o.clone(), [])["replay_exact"]
+
+
+def test_new_decode_cases_are_the_many_split_and_widest_window():
+    """The two cases appended for the one-launch K4a: 64 splits (one head,
+    4096 keys in pages of 64) and W 16 at hd 128; the main cases keep their
+    places."""
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    many, wide = chip_smoke.DECODE_CASES[-2:]
+    assert pa.key_splits(many[0], many[2], many[4] * many[5])[0] == 64
+    assert (wide[1], wide[3]) == (16, 128)
+    assert chip_smoke.DECODE_MAIN_CASE["paged_attention"][:2] == (1, 1)
+    assert chip_smoke.DECODE_MAIN_CASE["paged_attention_int8"][7] == "int8"

@@ -10,6 +10,8 @@ only PyTorch and the CUDA toolkit::
         tests/test_torch_kernels_gpu.py -k bwd_wgmma_one_tile
     timeout 120 python -m pytest --noconftest -m gpu \\
         tests/test_torch_kernels_gpu.py -k ce_wgmma_one_tile
+    timeout 120 python -m pytest --noconftest -m gpu \\
+        tests/test_torch_kernels_gpu.py -k k4a_one_tile
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 
 (``--noconftest`` because the suite's conftest sets up JAX.) Tolerances as
@@ -637,8 +639,9 @@ def _k4a_held_to_reference(q, pools, tables, pos):
 
 @pytest.mark.gpu
 def test_k4a_one_tile(cuda):
-    """One slot, one head, one 64-key tile, one split: the shared-memory
-    layout and the online softmax before anything larger."""
+    """One slot, one head, 64 keys, one split (no ticket merge): the lane
+    chunks, the row reductions and the online softmax before anything
+    larger."""
     _k4a_held_to_reference(*_k4_inputs(1, 1, 1, 64, 64, 1, torch.bfloat16,
                                        False, [64], 0))
 
@@ -676,6 +679,68 @@ def test_k4a_window_past_the_span_and_a_free_slot(cuda):
                                        True, [258, 40, 300], 3, trash=(1,))
     assert int(pos.max()) >= 256
     _k4a_held_to_reference(q, pools, tables, pos)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,W,H,hd,P,n_lp,dtype,quant,ctx", [
+    (1, 1, 16, 64, 64, 16, torch.bfloat16, False, [1024]),
+    (1, 1, 16, 64, 64, 16, torch.bfloat16, True, [1024]),
+    (8, 5, 16, 64, 64, 16, torch.bfloat16, False, [1024] * 8),
+    (2, 5, 16, 64, 64, 16, torch.float32, False, [300, 1024]),
+])
+def test_k4a_gives_the_same_bits_eagerly_and_in_graph_replays(
+        cuda, B, W, H, hd, P, n_lp, dtype, quant, ctx):
+    """Two eager calls give bit-identical o, and so does each of 20
+    launches captured in one CUDA graph over 3 replays: the last split's
+    block merges in split order and leaves every ticket counter at 0."""
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    q, (k, v, ks, vs), tables, pos = _k4_inputs(
+        B, W, H, hd, P, n_lp, dtype, quant, ctx, 11)
+
+    def call():
+        return pa.paged_attention(q, k, v, tables, pos, ks, vs)
+
+    first = _k4a_held_to_reference(q, (k, v, ks, vs), tables, pos)
+    assert torch.equal(first, call())
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [call() for _ in range(20)]
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(first, o) for o in outs)
+    assert not pa._counters[q.device].any()
+
+
+@pytest.mark.gpu
+def test_k4a_many_splits_through_the_ticket_merge(cuda):
+    """One slot, one head, 4096 keys in pages of 64: 64 splits, the last
+    block to finish merging all of them; also forced to 1, 7 and 256
+    splits."""
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    q, (k, v, ks, vs), tables, pos = _k4_inputs(
+        1, 1, 1, 64, 64, 64, torch.bfloat16, False, [4096], 12)
+    assert pa.attend_splits(q, k, v, tables)[0] == 64
+    first = _k4a_held_to_reference(q, (k, v, ks, vs), tables, pos)
+    ref = pa.paged_attention_reference(q, k, v, tables, pos)
+    for splits in (1, 7, 256):
+        o = pa.paged_attention(q, k, v, tables, pos, splits=splits)
+        assert (o.float() - ref.float()).abs().max().item() <= 2e-2
+    assert torch.equal(first, pa.paged_attention(q, k, v, tables, pos))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True])
+def test_k4a_widest_window_at_hd_128(cuda, quant):
+    """W 16 at hd 128, where each warp's q and o take the most registers
+    (its queries split across two warps' worth)."""
+    _k4a_held_to_reference(*_k4_inputs(1, 16, 8, 128, 64, 16,
+                                       torch.bfloat16, quant, [1024], 13))
 
 
 @pytest.mark.gpu

@@ -243,15 +243,69 @@ def test_paged_attention_plain_version_is_the_reference_attention():
 
 
 def test_key_splits_cover_the_keys_in_whole_tiles():
+    """Every key lies in exactly one split (splits × keys a split covers
+    the keys, and the last split is not empty), with or without a forced
+    count; the pinned values are the rule's at the serving shapes."""
     for slots, heads, keys in [(1, 16, 1024), (8, 16, 1024), (1, 2, 48),
-                               (3, 1, 1), (64, 16, 4096), (1, 16, 37)]:
-        splits, per = pa.key_splits(slots, heads, keys)
-        tiles = -(-keys // pa.TILE_KEYS)
-        assert splits >= 1 and per >= 1
-        assert (splits - 1) * per < tiles <= splits * per
-    assert pa.key_splits(1, 16, 1024) == (16, 1)       # 256 blocks
-    assert pa.key_splits(8, 16, 1024) == (3, 6)        # 384 blocks
-    assert pa.key_splits(64, 16, 1024) == (1, 16)
+                               (3, 1, 1), (64, 16, 4096), (1, 16, 37),
+                               (1, 1, 4096), (1, 16, 65536)]:
+        for forced in (None, 1, 3, 7, 9, 64, 1000):
+            splits, per = pa.key_splits(slots, heads, keys, forced)
+            assert 1 <= splits <= pa.MAX_SPLITS and per >= 1
+            assert splits * per >= keys > (splits - 1) * per
+            starts = [s * per for s in range(splits)]
+            covered = sorted(j for a in starts
+                             for j in range(a, min(a + per, keys)))
+            assert covered == list(range(keys))
+    assert pa.key_splits(1, 16, 1024) == (16, 64)      # 256 blocks
+    assert pa.key_splits(8, 16, 1024) == (2, 512)      # 2 blocks an SM
+    # one wave at the kernel's occupancy: 3 and 4 resident blocks an SM
+    assert pa.key_splits(8, 16, 1024, blocks_per_sm=3) == (3, 342)
+    assert pa.key_splits(8, 16, 1024, blocks_per_sm=4) == (4, 256)
+    assert pa.key_splits(64, 16, 1024) == (1, 1024)
+    assert pa.key_splits(1, 1, 4096) == (64, 64)       # the many-split case
+    assert pa.key_splits(1, 16, 1024, 9) == (9, 114)
+    assert pa.key_splits(1, 16, 1024, 64, window_floats=16 * 128) == (8, 128)
+
+
+@pytest.mark.parametrize("slots,heads,keys", [(1, 16, 1024), (16, 1, 1024),
+                                              (2, 8, 1024), (1, 16, 960)])
+def test_key_splits_fill_the_card_with_real_work(slots, heads, keys):
+    """At 16 (slot, head) pairs the grid holds at least one block per SM of
+    the H100, no split is empty, and each of a block's warps streams more
+    than one group of rows (4 keys a load for bf16 rows of 64)."""
+    splits, per = pa.key_splits(slots, heads, keys)
+    assert splits * slots * heads >= 132
+    assert keys - (splits - 1) * per > 0
+    keys_a_load = 32 // (64 * 2 // 16)
+    assert per / pa.WARPS > keys_a_load
+
+
+def test_ticket_counters_grow_only_for_a_larger_batch():
+    """The counter buffer is sized to a power of two (at least 256), reused
+    while it holds slots × heads, replaced by a zeroed larger one when it
+    does not, and the old one kept alive for graphs that captured it."""
+    assert pa.counter_slots(0, 16) == 256
+    assert pa.counter_slots(256, 16) == 256
+    assert pa.counter_slots(256, 257) == 512
+    assert pa.counter_slots(512, 300) == 512
+    assert pa.counter_slots(0, 1024) == 1024
+    dev = torch.device("cpu")
+    saved = dict(pa._counters), list(pa._retired)
+    try:
+        pa._counters.pop(dev, None)
+        first = pa._ticket_counters(dev, 16)
+        assert first.dtype == torch.int32 and first.numel() == 256
+        assert not first.any()
+        assert pa._ticket_counters(dev, 128) is first
+        grown = pa._ticket_counters(dev, 8 * 64)
+        assert grown is not first and grown.numel() == 512
+        assert not grown.any() and pa._retired[-1] is first
+        assert pa._ticket_counters(dev, 300) is grown
+    finally:
+        pa._counters.clear()
+        pa._counters.update(saved[0])
+        pa._retired[:] = saved[1]
 
 
 def test_engine_int8_gate_passes_and_tokens_match_jax():
