@@ -8,20 +8,23 @@ Run from the root of a checkout, with no arguments::
 It builds every CUDA kernel of the port from ``kernels/csrc/`` with
 ``nvcc`` (one process per source, all at once), checks in ptxas's report
 that the wgmma forward has 168 registers a thread at entry and no spills,
-that the wgmma backward's and the wgmma K3's kernels and every
-instantiation of K4a spill nothing, and that no wgmma source has its
-products serialized (C7514/C7512), then:
+that the wgmma backward's and the wgmma K3's kernels, every instantiation
+of the mma.sync flash forward and backward and of K4a spill nothing, and
+that no wgmma source has its products serialized (C7514/C7512), then:
 
 1. kernel phase — holds each flash-attention kernel (the wgmma kernel for
-   bf16 at d 64/128, the simple kernel for f32 and the other head dims)
-   against its plain PyTorch version on the card, at the main path's
-   shapes and layouts (the strided fused-QKV views, the batch bucket, the
-   ragged ``apply`` length, block edges, non-causal with Tq != Tk, d 128),
-   and times each: ``ms`` (20 back-to-back wrapper calls between CUDA
+   bf16 at d 64/128, the simple kernel for f32 and the other head dims, any
+   d % 8 == 0 in [8, 256]) against its plain PyTorch version on the card,
+   at the main path's shapes and layouts (the strided fused-QKV views, the
+   batch bucket, the ragged ``apply`` length, block edges, non-causal with
+   Tq != Tk, d 128; in f32 the f32 model's prefill and training layer; bf16
+   at d 32, 80, 96, 256; d 8, 40, 136 and 256 in both types), and times
+   each: ``ms`` (20 back-to-back wrapper calls between CUDA
    events, host included), ``device_ms`` (20 launches captured in a CUDA
    graph, replays timed with CUDA events: device only), the plain
    version, SDPA (``library_ms`` and ``library_device_ms``, timed the same
-   two ways) and the card's bound;
+   two ways) and the card's bound (f32 at 165 TFLOP/s, three TF32 products
+   at the 495 TFLOP/s peak, with the 67 TFLOP/s FMA bound beside);
 2. backward phase — holds each backward kernel (K2: dq, dk, dv; the wgmma
    backward for bf16 at d 64/128, the ``mma.sync`` one for f32 and the
    other head dims) against its plain version at the training layer (fused
@@ -82,7 +85,14 @@ products serialized (C7514/C7512), then:
 6. MoE phase — the same config with a top-1 MoE FFN of 8 experts at
    capacity 1.25, (8, no, 8): the steps as above (K7 twice per layer a
    step), a profiled step, one gradient against K7's plain versions, and
-   greedy generation from the trained model through ``DecodeEngine``.
+   greedy generation from the trained model through ``DecodeEngine``;
+7. f32 phase — the same config in f32, the model's default compute type:
+   one request served on f32 pages (a bucket-1024 prefill through the
+   simple forward, 32 greedy tokens through K4a, the decode logits held to
+   ``apply``), then rungs (8, no, 0) and (8, no, 8) (2 warm and 3 timed
+   steps, a profiled step each; the simple forward, the mma.sync / FMA
+   backward and chunked_ce.cu's K3 on every step, no wgmma flash kernel)
+   and one full-width gradient on the kernels against the plain versions.
 
 Every phase must pass: any failure exits nonzero. Output is one JSON
 object per line; the last line is ``{"ok": true, "device": {...}}``.
@@ -92,7 +102,10 @@ Without CUDA, or outside a checkout, it exits nonzero and prints no result.
 its main shapes) in this tree and in the checkout at OTHER in turns
 (OTHER, this, this, OTHER), each turn a subprocess running that tree's
 ``kernel_phase`` and ``bwd_phase`` on the bf16 d 64/128 cases, and prints
-each case's device ms per turn.
+each case's device ms per turn; ``--compare-f32 OTHER`` does the same for
+the simple forward and the mma.sync / FMA backward at F32_COMPARE_CASES.
+``--precision-f32`` holds the f32 kernels and the plain versions against
+f64 at the f32 shapes.
 """
 from __future__ import annotations
 
@@ -144,11 +157,24 @@ KERNEL_CASES = [
     # d 128
     ("3d", 16, 1, 512, 512, 128, "bfloat16", True),
     ("fused", 1, 8, 1024, 1024, 128, "bfloat16", True),
-    # the simple kernel: f32, and bf16 at other head dims
+    # the simple kernel: f32 (the table's shape, the f32 model's prefill and
+    # its training layer), and bf16 at other head dims
     ("3d", 16, 1, 256, 256, 64, "float32", True),
     ("fused", 1, 16, 1024, 1024, 64, "float32", True),
+    ("fused", 8, 16, 1024, 1024, 64, "float32", True),
     ("3d", 16, 1, 512, 512, 32, "bfloat16", True),
+    ("3d", 16, 1, 512, 512, 80, "bfloat16", True),
+    ("3d", 16, 1, 512, 512, 96, "bfloat16", True),
+    ("3d", 16, 1, 512, 512, 256, "bfloat16", True),
     ("fused", 1, 8, 129, 129, 80, "bfloat16", True),
+    # head dims the kernels took from PR 9 on: 8, 40 (d % 16 == 8), 136 and
+    # 256 (tile width 192 and 256), both types
+    ("fused", 2, 4, 130, 130, 8, "float32", True),
+    ("fused", 2, 4, 130, 130, 8, "bfloat16", True),
+    ("3d", 8, 1, 200, 200, 40, "float32", True),
+    ("3d", 8, 1, 200, 200, 40, "bfloat16", False),
+    ("fused", 1, 2, 150, 150, 136, "float32", True),
+    ("3d", 4, 1, 300, 77, 256, "float32", False),
 ]
 MAIN_CASE = {"wgmma": ("fused", 1, 16, 1024, 1024, 64, "bfloat16", True),
              "simple": ("3d", 16, 1, 256, 256, 64, "float32", True)}
@@ -186,16 +212,40 @@ BWD_CASES = [
     ("3d", 16, 1, 256, 256, 64, "float32", True),
     ("3d", 16, 1, 512, 512, 32, "bfloat16", True),
     ("fused", 1, 8, 129, 129, 80, "bfloat16", True),
+    # f32 at the f32 model's prefill shape and its training layer; bf16 at
+    # d 80, 96 and 256; the head dims taken from PR 9 on
+    ("fused", 1, 16, 1024, 1024, 64, "float32", True),
+    ("fused", 8, 16, 1024, 1024, 64, "float32", True),
+    ("3d", 16, 1, 512, 512, 80, "bfloat16", True),
+    ("3d", 16, 1, 512, 512, 96, "bfloat16", True),
+    ("3d", 16, 1, 512, 512, 256, "bfloat16", True),
+    ("fused", 2, 4, 130, 130, 8, "float32", True),
+    ("fused", 2, 4, 130, 130, 8, "bfloat16", True),
+    ("3d", 8, 1, 200, 200, 40, "float32", True),
+    ("3d", 8, 1, 200, 200, 40, "bfloat16", False),
+    ("fused", 1, 2, 150, 150, 136, "float32", True),
+    ("3d", 4, 1, 300, 77, 256, "float32", False),
 ]
 BWD_MAIN_CASE = {"bwd_wgmma": BWD_CASES[0], "bwd": BWD_CASES[7]}
 # the bench's large config (bench.py, the "large" rung)
 LARGE = dict(vocab_size=32768, n_layers=12, n_heads=16, d_model=1024,
              d_ff=4096, max_len=1024, dtype="bfloat16", fused_qkv=True)
+# the model's default compute type: the same config in f32 (f32 pages when
+# serving), the path of the simple forward and the mma.sync backward
+LARGE_F32 = dict(LARGE, dtype="float32")
+F32_RUNGS = ((8, False, 0), (8, False, 8))
+F32_TIMED_STEPS = 3
 # tolerances (PERF.md states the reasons): kernel vs plain version on the
 # same inputs, and decode logits vs the full forward over the same tokens
 TOL_O = {"bfloat16": 2e-2, "float32": 5e-5}
 TOL_LSE = 1e-3
 TOL_TEACHER_FORCED = 0.1
+# the f32 model's decode logits against apply: set from readings on the
+# H100 (PERF.md) between a sound run's (2.35e-5: f32 sums in another order
+# through 12 layers, the split forward's o within ~6e-6 of the plain
+# version's) and a control's whose forward rounds its operands to TF32
+# alone (3.55e-4), 4x over the one and 3.5x under the other
+TOL_TEACHER_FORCED_F32 = 1e-4
 # K2 vs its plain version: max |dg| over max(1, max |g_plain|) per gradient,
 # and the relative L2 error of each 64-row tile along T of each gradient
 # (its norm floored at an rms of GRAD_RMS_FLOOR, so a tile that cancels to
@@ -206,6 +256,15 @@ TOL_GRAD_TILE_L2 = {"bfloat16": 1e-3, "float32": 5e-7}
 GRAD_RMS_FLOOR = {"bfloat16": 1e-3, "float32": 1e-6}
 TOL_STEP_LOSS = 5e-5
 TOL_STEP_LEAF = 1.5e-2
+# the same for the f32 model at (8, no, 8). The loss, near 9, is a mean
+# whose own f32 rounding (an ulp is 9.5e-7 there) is all a run can read:
+# sound runs read 2-3 ulps, the TF32-alone control 1, so its limit (5
+# ulps) only catches gross faults. The leaves tell precision apart: set
+# from readings on the H100 (PERF.md) between sound runs' (1.28e-5,
+# 1.32e-5) and the control's (1.61e-4), 4x over the one and 3x under the
+# other
+TOL_STEP_LOSS_F32 = 5e-6
+TOL_STEP_LEAF_F32 = 5e-5
 # the same at the MoE phase with only K7 on its plain version: combine's f32
 # sums (fused multiply-adds against rounded products) move a bf16 ulp here
 # and there, and 12 layers carry it back to the first ones; set from the
@@ -328,9 +387,13 @@ DRAFT_LAYERS = 2
 # batch and weights at (8, False, 0): f32 sums in another order
 TOL_RUNG_LOSS = 5e-5
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 FMA
-# (no TF32 in the port), device memory bandwidth
+# (the training step's f32 GEMMs run there: TF32 is off), device memory
+# bandwidth
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
+# the rate attention's f32 work could run at: three TF32 products (the
+# split that keeps f32 accuracy) at the 495 TFLOP/s dense TF32 peak
+ATTN_PEAK_FLOPS = {"bfloat16": 989e12, "float32": 495e12 / 3}
 # the wgmma kernel's 384 threads: ptxas must budget 168 registers a thread
 # at entry, which its setmaxnreg 24 / 240 split balances to the register
 WGMMA_ENTRY_REGISTERS = 168
@@ -439,33 +502,35 @@ def _kept_pairs(t_q, t_k, causal):
             else t_q * t_k)
 
 
-def _bound(flops, nbytes, dtype):
-    t_ops, t_mem = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+def _bound(flops, nbytes, dtype, peaks=None):
+    t_ops = flops / (PEAK_FLOPS if peaks is None else peaks)[dtype]
+    t_mem = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_mem), ("operations" if t_ops >= t_mem
                                      else "bytes")
 
 
-def attention_bound_ms(bh, t_q, t_k, d, dtype, causal):
+def attention_bound_ms(bh, t_q, t_k, d, dtype, causal, peaks=None):
     """Least time for one call: the larger of its FLOPs over the peak
-    rate of its type and its bytes (q, k, v read once, o and lse written
-    once) over the memory rate. Causal counts only the kept pairs
+    rate of its type (``ATTN_PEAK_FLOPS``: f32 at a third of the TF32
+    rate, or ``peaks``) and its bytes (q, k, v read once, o and lse
+    written once) over the memory rate. Causal counts only the kept pairs
     (k_idx <= q_idx)."""
     itemsize = 2 if dtype == "bfloat16" else 4
     flops = 4.0 * bh * d * _kept_pairs(t_q, t_k, causal)
     nbytes = itemsize * bh * d * 2 * (t_q + t_k) + 4 * bh * t_q
-    return _bound(flops, nbytes, dtype)
+    return _bound(flops, nbytes, dtype, peaks or ATTN_PEAK_FLOPS)
 
 
-def attention_bwd_bound_ms(bh, t_q, t_k, d, dtype, causal):
+def attention_bwd_bound_ms(bh, t_q, t_k, d, dtype, causal, peaks=None):
     """Least time for one backward call: the five products of
     ``_bwd_blockwise`` (S = QKᵀ, dV = PᵀdO, dP = dO·Vᵀ, dQ = dS·K,
     dK = dSᵀQ), 2·d FLOPs per kept pair each, over the peak rate of the
-    type, against q, k, v, o, dO and lse read once and dq, dk, dv written
-    once over the memory rate."""
+    type (as :func:`attention_bound_ms`), against q, k, v, o, dO and lse
+    read once and dq, dk, dv written once over the memory rate."""
     itemsize = 2 if dtype == "bfloat16" else 4
     flops = 10.0 * bh * d * _kept_pairs(t_q, t_k, causal)
     nbytes = itemsize * bh * d * 4 * (t_q + t_k) + 4 * bh * t_q
-    return _bound(flops, nbytes, dtype)
+    return _bound(flops, nbytes, dtype, peaks or ATTN_PEAK_FLOPS)
 
 
 def tile_rel_l2(x, ref, rms_floor, rows=64):
@@ -572,6 +637,37 @@ def ce_wgmma_ptxas(log):
                   lambda m: "dlogits" if m.group(1) == "1" else "fwd")
 
 
+# every instantiation of the mma.sync / FMA flash kernels: the forward at
+# each (dtype, tile width), the backward's dQ and dK/dV kernels at each, and
+# its D pass at each dtype
+SIMPLE_WIDTHS = (32, 64, 96, 128, 192, 256)
+SIMPLE_INSTANTIATIONS = sorted(f"{t} w{w}" for t in ("f32", "bf16")
+                               for w in SIMPLE_WIDTHS)
+BWD_INSTANTIATIONS = sorted(
+    [f"{k} {t} w{w}" for k in ("dq", "dkdv") for t in ("f32", "bf16")
+     for w in SIMPLE_WIDTHS] + ["delta f32", "delta bf16"])
+
+
+def _dtype_name(mangled):
+    return "f32" if mangled == "f" else "bf16"
+
+
+def simple_ptxas(log):
+    """{"f32 w64": {"registers": n, "spill_bytes": n}, ...} for each
+    instantiation of ``flash_attention_fwd.cu``'s kernel."""
+    return _ptxas(log, r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)E",
+                  lambda m: f"{_dtype_name(m.group(1))} w{m.group(2)}")
+
+
+def bwd_ptxas(log):
+    """{"dq f32 w64": {...}, "delta bf16": {...}, ...} for each kernel of
+    ``flash_attention_bwd.cu``."""
+    return _ptxas(log, r"(dq|dkdv|delta)_kernelI(f|13__nv_bfloat16)"
+                  r"(?:Li(\d+)E)?",
+                  lambda m: f"{m.group(1)} {_dtype_name(m.group(2))}"
+                  + (f" w{m.group(3)}" if m.group(3) else ""))
+
+
 def bwd_wgmma_ptxas(log):
     """{"d64 dq": {"registers": n, "spill_bytes": n}, ...} for each
     instantiation of the wgmma backward: the dQ kernel and the dK/dV kernel
@@ -595,7 +691,7 @@ def kernel_phase(torch, fa):
     for case in KERNEL_CASES:
         layout, b, h, t_q, t_k, d, dtype, causal = case
         q, k, v, out, (q4, k4, v4) = case_inputs(torch, case)
-        path = "wgmma" if fa.takes_wgmma(q.dtype, d) else "simple"
+        path = fa.kernel_for(q.dtype, d)
         fa.launches_wgmma = fa.launches_simple = 0
         o, lse = fa.flash_attention_fwd(q, k, v, causal, out=out)
         torch.cuda.synchronize()
@@ -638,6 +734,9 @@ def kernel_phase(torch, fa):
                "bound_ms": bound_ms, "bound_by": bound_by,
                "device_vs_library": dev_ms / library_dev_ms,
                "device_vs_bound": dev_ms / bound_ms}
+        if dtype == "float32":      # the bound at the f32 FMA rate beside
+            row["bound_fma_ms"] = attention_bound_ms(
+                b * h, t_q, t_k, d, dtype, causal, peaks=PEAK_FLOPS)[0]
         emit(kernel_case=row)
         results[case] = row
     return results
@@ -681,7 +780,8 @@ def bwd_phase(torch, fa):
         layout, b, h, t_q, t_k, d, dtype, causal = case
         (q, k, v, out, o, lse, do, grads,
          (q4, k4, v4, do4)) = bwd_case_inputs(torch, fa, case)
-        path = ("bwd_wgmma" if fa.takes_wgmma_bwd(q.dtype, d) else "bwd")
+        path = ("bwd_wgmma" if fa.kernel_for(q.dtype, d) == "wgmma"
+                else "bwd")
         fa.launches_bwd = fa.launches_bwd_wgmma = 0
         got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal, out=grads)
         torch.cuda.synchronize()
@@ -743,6 +843,9 @@ def bwd_phase(torch, fa):
         row["library_bwd_device_ms"] = (row["library_device_ms"]
                                         - row["library_fwd_device_ms"])
         row["device_vs_bound"] = row["device_ms"] / bound_ms
+        if dtype == "float32":
+            row["bound_fma_ms"] = attention_bwd_bound_ms(
+                b * h, t_q, t_k, d, dtype, causal, peaks=PEAK_FLOPS)[0]
         row["device_vs_library_bwd"] = (row["device_ms"]
                                         / row["library_bwd_device_ms"])
         row["fwd_bwd_vs_library"] = (row["fwd_bwd_device_ms"]
@@ -1212,19 +1315,22 @@ def leaf_paths(tree, prefix=""):
     return [prefix]
 
 
-def expected_per_step(n_layers, remat, ce_chunks, moe=False):
+def expected_per_step(n_layers, remat, ce_chunks, moe=False, f32=False):
     """Launches of each kernel (ALL_KERNELS' order) in one training step of
-    the bf16 large config: the wgmma forward once per layer (twice under
-    remat: the recompute), the wgmma backward once per layer, the wgmma
-    K3f once and K3b once per ce chunk when ce_chunks (chunked_ce.cu's
-    never: d 1024 is a multiple of 64), and for a MoE model K7d and K7c
-    twice per layer (the forward's dispatch and combine, and each one's
-    backward in the other kernel; three times under remat); K4a and K4w
-    (decode only) never."""
+    the large config: in bf16 the wgmma forward once per layer (twice
+    under remat: the recompute), the wgmma backward once per layer, the
+    wgmma K3f once and K3b once per ce chunk when ce_chunks (chunked_ce.cu's
+    never: d 1024 is a multiple of 64); in f32 (``f32``) the simple forward,
+    the mma.sync / FMA backward and chunked_ce.cu's K3 in their places; for
+    a MoE model K7d and K7c twice per layer (the forward's dispatch and
+    combine, and each one's backward in the other kernel; three times under
+    remat); K4a and K4w (decode only) never."""
     L = n_layers
     k7 = (3 if remat else 2) * L if moe else 0
-    return ((2 if remat else 1) * L, 0, L, 0, 0, 0, k7, k7,
-            1 if ce_chunks else 0, ce_chunks, 0, 0)
+    fwd, k3 = (2 if remat else 1) * L, (1 if ce_chunks else 0, ce_chunks)
+    if f32:
+        return (0, fwd, 0, L) + k3 + (k7, k7, 0, 0, 0, 0)
+    return (fwd, 0, L, 0, 0, 0, k7, k7) + k3 + (0, 0)
 
 
 def slice_phase(torch, fa):
@@ -1897,11 +2003,12 @@ def plain_attention(fa):
         fa.flash_attention_fwd, fa.flash_attention_bwd = kernels
 
 
-def _train_model(torch, rung, tree_cache, moe=False):
+def _train_model(torch, rung, tree_cache, moe=False, base=None):
     """(model, fresh params on the card, n_params, tokens, targets) for one
-    rung (batch, remat, ce_chunks) of the large config: the weights of
-    ``init_jax_layout(cfg, SEED)`` (drawn once per layout and kept in
-    ``tree_cache``), tokens from a numpy seed, targets rolled by −1."""
+    rung (batch, remat, ce_chunks) of the large config (``base``: LARGE or
+    LARGE_F32): the weights of ``init_jax_layout(cfg, SEED)`` (drawn once
+    per layout and kept in ``tree_cache``; f32 masters in either compute
+    type), tokens from a numpy seed, targets rolled by −1."""
     from deeplearning4j_tpu_torch.models.transformer import (
         TransformerConfig, TransformerLM)
     from deeplearning4j_tpu_torch.models.weights import (from_jax_params,
@@ -1909,7 +2016,8 @@ def _train_model(torch, rung, tree_cache, moe=False):
     from deeplearning4j_tpu_torch.parallel.moe import MoEConfig
     from deeplearning4j_tpu_torch.tree import tree_leaves
     batch, remat, chunks = rung
-    cfg = TransformerConfig(**LARGE, remat=remat, ce_chunks=chunks,
+    cfg = TransformerConfig(**(base or LARGE), remat=remat,
+                            ce_chunks=chunks,
                             moe=MoEConfig(num_experts=MOE_EXPERTS)
                             if moe else None)
     model = TransformerLM(cfg)
@@ -1933,17 +2041,21 @@ def active_params(n_params, moe):
     return n_params - L * (MOE_EXPERTS - 1) * per_expert
 
 
-def train_rung(torch, fa, rung, tree_cache, moe=False):
-    """WARM_STEPS + TIMED_STEPS of ``make_train_step(adamw(3e-4))`` at one
-    rung (batch, remat, ce_chunks) of the large config on one batch, each
-    step launching exactly ``expected_per_step`` of every kernel. Returns
-    (row, the launches of the steps, what a profile window needs)."""
+def train_rung(torch, fa, rung, tree_cache, moe=False, base=None,
+               timed=TIMED_STEPS):
+    """WARM_STEPS + ``timed`` steps of ``make_train_step(adamw(3e-4))`` at
+    one rung (batch, remat, ce_chunks) of the large config (``base``) on one
+    batch, each step launching exactly ``expected_per_step`` of every
+    kernel. Returns (row, the launches of the steps, what a profile window
+    needs)."""
     from deeplearning4j_tpu_torch.optim.adamw import adamw
     batch, remat, chunks = rung
+    base = base or LARGE
+    f32 = base["dtype"] == "float32"
     torch.cuda.empty_cache()
     allocated_at_start = torch.cuda.memory_allocated()
     model, params, n_params, tokens, targets = _train_model(
-        torch, rung, tree_cache, moe)
+        torch, rung, tree_cache, moe, base)
     L, T = model.config.n_layers, model.config.max_len
     opt = adamw(LEARNING_RATE)
     state = opt.init(params)
@@ -1952,9 +2064,9 @@ def train_rung(torch, fa, rung, tree_cache, moe=False):
     torch.cuda.reset_peak_memory_stats()
     allocated_before = torch.cuda.memory_allocated()
     losses, step_ms = [], []
-    per_step = expected_per_step(L, remat, chunks, moe)
+    per_step = expected_per_step(L, remat, chunks, moe, f32)
     reset_all_counts()
-    for i in range(WARM_STEPS + TIMED_STEPS):    # the main path starts here
+    for i in range(WARM_STEPS + timed):          # the main path starts here
         before = all_counts()
         t = time.perf_counter()
         params, state, loss = step(params, state, tokens, targets)
@@ -1975,11 +2087,13 @@ def train_rung(torch, fa, rung, tree_cache, moe=False):
     flops_per_token = train_flops_per_token(active_params(n_params, moe), L,
                                             T, model.config.d_model)
     row = {"batch": batch, "remat": remat, "ce_chunks": chunks,
-           "moe": moe, "seq_len": T, "params": n_params,
+           "moe": moe, "dtype": base["dtype"], "seq_len": T,
+           "params": n_params,
            "active_params": active_params(n_params, moe),
            "losses": losses, "step_ms": step_ms, "ms_per_step": ms,
            "tokens_per_s": tokens_per_s, "flops_per_token": flops_per_token,
-           "mfu": tokens_per_s * flops_per_token / PEAK_FLOPS["bfloat16"],
+           "mfu": tokens_per_s * flops_per_token
+           / PEAK_FLOPS[base["dtype"]],
            "peak_memory_bytes": peak_bytes,
            # what earlier phases left allocated, and that plus the params
            # and AdamW's moments
@@ -2093,24 +2207,127 @@ def moe_train_phase(torch, fa):
     return launches
 
 
+def f32_serve_phase(torch):
+    """The f32 model (LARGE_F32, the model's default compute type) serving
+    one request through ``DecodeEngine`` in its paged mode (f32 pages): a
+    PROMPT_LENS[0]-token prompt (bucket 1024) and N_NEW greedy tokens, the
+    simple forward once per layer of the prefill and K4a once per layer of
+    each decode step, no wgmma flash kernel; the decode logits held to
+    ``apply`` over the same tokens (TOL_TEACHER_FORCED_F32). Returns each
+    kernel's launches in the run."""
+    from deeplearning4j_tpu_torch.models.generation import DecodeEngine
+    from deeplearning4j_tpu_torch.models.transformer import (
+        TransformerConfig, TransformerLM)
+    from deeplearning4j_tpu_torch.models.weights import (from_jax_params,
+                                                         init_jax_layout)
+    cfg = TransformerConfig(**LARGE_F32)
+    params = from_jax_params(init_jax_layout(cfg, SEED), cfg)
+    model = TransformerLM(cfg)
+    engine = DecodeEngine(model, params, max_len=cfg.max_len)
+    state = engine.new_state(1)
+    check(engine.paged and state.arrays["k"].dtype == torch.float32,
+          f"f32 engine: paged {engine.paged}, pool "
+          f"{state.arrays['k'].dtype}")
+    del state
+    engine.warm(1)
+    L, V, n = cfg.n_layers, cfg.vocab_size, PROMPT_LENS[0]
+    prompt = np.random.default_rng(SEED + 8).integers(0, V, (1, n)).astype(
+        np.int32)
+    torch.cuda.synchronize()
+    reset_all_counts()                   # the main path starts here
+    t = time.perf_counter()
+    toks, steps = engine.generate(prompt, N_NEW, return_logits=True)
+    torch.cuda.synchronize()
+    gen_ms = 1e3 * (time.perf_counter() - t)
+    launches = all_counts()              # ... and ends here
+    want = (0, L, 0, 0) + (0,) * 6 + ((N_NEW - 1) * L, 0)
+    check(launches == want, f"f32 serving launched {launches}, want {want} "
+          f"{ALL_KERNELS}")
+    check(toks.shape == (1, N_NEW) and bool(((toks >= 0) & (toks < V))
+                                            .all()), f"f32 tokens {toks}")
+    pre = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        engine.prefill(prompt)
+        torch.cuda.synchronize()
+        pre.append(1e3 * (time.perf_counter() - t))
+    full = np.concatenate([prompt, toks[:, :-1]], axis=1)
+    ref = model.apply(engine.params, torch.as_tensor(
+        full, device=model.device))[0, n - 1:].cpu().numpy()
+    dec = np.concatenate(steps, axis=0)
+    check(np.isfinite(dec).all() and np.isfinite(ref).all(),
+          "f32: non-finite logits")
+    diff = float(np.abs(dec - ref).max())
+    prefill_ms = statistics.median(pre)
+    emit(f32_request={"prompt_len": n, "bucket": engine.prefill_bucket(n),
+                      "pool": "float32", "prefill_ms": prefill_ms,
+                      "generate_ms": gen_ms,
+                      "decode_ms_per_token": (gen_ms - prefill_ms)
+                      / (N_NEW - 1),
+                      "teacher_forced_max_abs_diff": diff,
+                      "tolerance": TOL_TEACHER_FORCED_F32,
+                      "argmax_agree": float(np.mean(
+                          dec.argmax(-1) == ref.argmax(-1))),
+                      "launches": dict(zip(ALL_KERNELS, launches))})
+    check(diff <= TOL_TEACHER_FORCED_F32, f"f32 decode logits differ from "
+          f"apply by {diff} > {TOL_TEACHER_FORCED_F32}")
+    del engine, model, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def f32_train_phase(torch, fa):
+    """Training the f32 model at F32_RUNGS (WARM_STEPS + F32_TIMED_STEPS
+    steps each, the launches of ``expected_per_step(..., f32=True)`` every
+    step, one profiled step each); the first-step losses of the two rungs
+    equal within TOL_RUNG_LOSS; one full-width gradient on the kernels
+    against the plain versions at (8, no, 8) (TOL_STEP_LOSS_F32,
+    TOL_STEP_LEAF_F32). Returns each kernel's launches over the steps."""
+    trees, total, first = {}, [0] * len(ALL_KERNELS), {}
+    for rung in F32_RUNGS:
+        row, launches, (model, step, params, state, tokens, targets) = \
+            train_rung(torch, fa, rung, trees, base=LARGE_F32,
+                       timed=F32_TIMED_STEPS)
+        total = [a + b for a, b in zip(total, launches)]
+        first[rung] = row["losses"][0]
+        check(abs(first[rung] - first[F32_RUNGS[0]]) <= TOL_RUNG_LOSS,
+              f"f32 rung {rung}: first-step loss {first[rung]} vs "
+              f"{first[F32_RUNGS[0]]}")
+        train_profile_phase(torch, rung, row["ms_per_step"], step, params,
+                            state, tokens, targets, "train_step_f32%s_trace"
+                            ".json" % ("_ce%d" % rung[2] if rung[2] else ""),
+                            f32=True)
+        if rung == GRAD_RUNG:
+            grad_vs_plain(torch, fa, "f32_train_vs_plain", model, params,
+                          tokens, targets, TOL_STEP_LOSS_F32,
+                          TOL_STEP_LEAF_F32)
+        del model, step, params, state
+        torch.cuda.empty_cache()
+    emit(f32_rung_first_losses={str(k): v for k, v in first.items()})
+    return tuple(total)
+
+
 def train_profile_phase(torch, rung, step_ms, step, params, state, tokens,
                         targets, trace_name="train_step_trace.json",
-                        moe=False):
-    """One torch.profiler window over one training step of ``rung``. The
-    profiler's own host work stretches the window, so the device's busy
-    time is also given over ``step_ms``, the median unprofiled step."""
+                        moe=False, f32=False):
+    """One torch.profiler window over one training step of ``rung`` (of
+    the f32 model with ``f32``). The profiler's own host work stretches the
+    window, so the device's busy time is also given over ``step_ms``, the
+    median unprofiled step."""
     L = LARGE["n_layers"]
     reset_all_counts()
     row = profile_window(torch, "train_step",
                          lambda: step(params, state, tokens, targets),
                          trace_name, top=15)
-    want = expected_per_step(L, rung[1], rung[2], moe)
+    want = expected_per_step(L, rung[1], rung[2], moe, f32)
     check(all_counts() == want,
           f"profiled step launched {all_counts()}, want {want}")
     if "device_busy_us" in row:
         row["busy_over_unprofiled_step"] = (row["device_busy_us"]
                                             / (1e3 * step_ms))
-    emit(train_profile={"rung": list(rung), "moe": moe, **row})
+    emit(train_profile={"rung": list(rung), "moe": moe,
+                        "dtype": "float32" if f32 else "bfloat16", **row})
 
 
 def _top(totals, n):
@@ -2200,7 +2417,7 @@ def kernel_entry(path, cases, launches):
         "source": f"deeplearning4j_tpu_torch/kernels/csrc/{SOURCES[path]}",
         "replaces": "deeplearning4j_tpu/kernels/flash_attention.py:41",
         "launches": sum(launches.values()), "launches_by_path": launches,
-        "on_main_path": path == "wgmma",
+        "on_main_path": sum(launches.values()) > 0,
         "max_abs_err": max(r["max_abs_err_o"] for r in rows),
         "ms": main["ms"], "device_ms": main["device_ms"],
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
@@ -2224,7 +2441,7 @@ def bwd_kernel_entry(path, cases, launches):
         "source": f"deeplearning4j_tpu_torch/kernels/csrc/{SOURCES[path]}",
         "replaces": "deeplearning4j_tpu/kernels/flash_attention.py:153",
         "launches": sum(launches.values()), "launches_by_path": launches,
-        "on_main_path": path == "bwd_wgmma",
+        "on_main_path": sum(launches.values()) > 0,
         "max_abs_err": max(e for r in rows
                            for e in r["max_abs_err"].values()),
         "ms": main["ms"], "device_ms": main["device_ms"],
@@ -2262,7 +2479,7 @@ def ce_kernel_entry(kind, cases, launches):
         "replaces": "deeplearning4j_tpu/kernels/chunked_ce.py:"
                     + ("40" if fwd else "85"),
         "launches": sum(launches.values()), "launches_by_path": launches,
-        "on_main_path": wgmma,
+        "on_main_path": sum(launches.values()) > 0,
         "max_abs_err": max(r["max_abs_err_lse" if fwd else
                              "max_abs_err_dlogits"] for r in rows),
         "ms": main[f"{p}_ms"], "device_ms": main[f"{p}_device_ms"],
@@ -2306,6 +2523,121 @@ def moe_kernel_entry(kind, cases, launches):
                        MOE_CASES[0]))}
 
 
+def check_path_launches(serve, modes, train, moe, f32_serve, f32_train):
+    """Which kernels each main path launched (each an ``all_counts()``
+    tuple): the bf16 paths (serving, the serving modes, the rungs, MoE)
+    the wgmma flash kernels and never the simple forward or the mma.sync
+    backward; the f32 paths the simple forward (serving and training) and
+    the mma.sync backward (training), never a wgmma flash kernel, and
+    chunked_ce.cu's K3 (training) where bf16 launches the wgmma K3."""
+    check(serve[0] > 0 and train[0] > 0 and moe[0] > 0,
+          "a main path launched no flash_attention_fwd_wgmma")
+    check(train[2] > 0 and moe[2] > 0,
+          "training launched no flash_attention_bwd_wgmma")
+    check(serve[1] == modes[1] == train[1] == moe[1] == 0,
+          "a bf16 path launched the simple kernel")
+    check(serve[2] == serve[3] == modes[3] == train[3] == moe[3] == 0,
+          "serving launched a backward, or bf16 training the mma.sync one")
+    check(f32_serve[1] > 0 and f32_train[1] > 0 and f32_train[3] > 0,
+          f"the f32 paths launched no simple forward or mma.sync backward: "
+          f"serve {f32_serve[:4]}, train {f32_train[:4]}")
+    check(f32_serve[0] == f32_serve[2] == f32_serve[3] == 0
+          and f32_train[0] == f32_train[2] == 0,
+          f"an f32 path launched a wgmma flash kernel (or serving a "
+          f"backward): serve {f32_serve[:4]}, train {f32_train[:4]}")
+    check(all(n > 0 for n in train[8:10] + moe[6:10]),
+          f"training launched no wgmma K3f or K3b, K7d or K7c: {train}, "
+          f"{moe}")
+    check(train[4:6] == moe[4:6] == (0, 0),
+          "bf16 training launched chunked_ce.cu's K3 kernels")
+    check(f32_train[4] > 0 and f32_train[5] > 0
+          and f32_train[8:10] == (0, 0),
+          f"f32 training launched K3 off its path: {f32_train[4:10]}")
+    check(serve[4:10] == modes[4:10] == f32_serve[4:10] == (0,) * 6
+          and train[6:8] == f32_train[6:8] == (0, 0),
+          "serving launched K3 or K7, or a dense model K7")
+    check(serve[10] > 0 and serve[11] == 0 and modes[10] > 0
+          and modes[11] > 0 and f32_serve[10] > 0 and f32_serve[11] == 0
+          and train[10:] == moe[10:] == f32_train[10:] == (0, 0),
+          f"K4a or K4w off their paths: serve {serve[10:]}, modes "
+          f"{modes[10:]}, f32 serve {f32_serve[10:]}, train {train[10:]}, "
+          f"moe {moe[10:]}, f32 train {f32_train[10:]}")
+
+
+# --precision-f32: the f32 shapes of the kernel and backward phases
+F32_PRECISION_CASES = [("3d", 16, 1, 256, 256, 64, "float32", True),
+                       ("fused", 1, 16, 1024, 1024, 64, "float32", True),
+                       ("fused", 8, 16, 1024, 1024, 64, "float32", True)]
+
+
+def _attention_f64(torch, q, k, v, do, causal):
+    """o, lse and (dq, dk, dv) of attention in f64 throughout: the truth
+    the kernels and the plain versions are measured against."""
+    qd, kd, vd, dod = (t.double() for t in (q, k, v, do))
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.matmul(qd, kd.transpose(-1, -2)) * scale
+    if causal:
+        t_q, t_k = s.shape[-2:]
+        keep = (torch.arange(t_q, device=s.device)[:, None]
+                >= torch.arange(t_k, device=s.device)[None, :])
+        s = torch.where(keep, s, torch.full_like(s, -1e30))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    o = torch.matmul(p, vd) / l
+    p = p / l
+    dp = torch.matmul(dod, vd.transpose(-1, -2))
+    ds = p * (dp - (dod * o).sum(-1, keepdim=True))
+    return (o, (m + torch.log(l))[..., 0],
+            (scale * torch.matmul(ds, kd),
+             scale * torch.matmul(ds.transpose(-1, -2), qd),
+             torch.matmul(p.transpose(-1, -2), dod)))
+
+
+def precision_f32(torch, fa):
+    """At F32_PRECISION_CASES, the f32 kernels and the plain versions each
+    against f64: the forward's largest |Δo| and |Δlse|, the backward's
+    largest 64-row tile relative L2 (the f32 K2 row's measure, its floor
+    too), and the kernels against the plain versions, which is what the
+    tolerance rows hold. The backward runs on the plain forward's o and lse
+    on both sides."""
+    rows = []
+    for case in F32_PRECISION_CASES:
+        (q, k, v, out, o, lse, do, grads,
+         _sdpa) = bwd_case_inputs(torch, fa, case)
+        causal, floor = case[7], GRAD_RMS_FLOOR["float32"]
+        o_k = o.clone()
+        o_p, lse_p = fa.flash_attention_reference(q, k, v, causal)
+        o64, lse64, g64 = _attention_f64(torch, q, k, v, do, causal)
+        g_k = fa.flash_attention_bwd(q, k, v, o_p, lse_p, do, causal,
+                                     out=grads)
+        g_p = fa.flash_attention_bwd_reference(q, k, v, o_p, lse_p, do,
+                                               causal)
+        torch.cuda.synchronize()
+
+        def worst(gs, refs):
+            return max(tile_rel_l2(g, r, floor) for g, r in zip(gs, refs))
+
+        rows.append({
+            "case": case,
+            "fwd_o": {"kernel_vs_plain": (o_k - o_p).abs().max().item(),
+                      "kernel_vs_f64": (o_k.double() - o64).abs().max()
+                      .item(),
+                      "plain_vs_f64": (o_p.double() - o64).abs().max()
+                      .item()},
+            "fwd_lse": {"kernel_vs_f64": (lse.double() - lse64).abs().max()
+                        .item(),
+                        "plain_vs_f64": (lse_p.double() - lse64).abs().max()
+                        .item()},
+            "bwd_tile_l2": {"kernel_vs_plain": worst(g_k, g_p),
+                            "kernel_vs_f64": worst(g_k, g64),
+                            "plain_vs_f64": worst(g_p, g64)}})
+        emit(precision=rows[-1])
+        del o64, g64, g_p
+        torch.cuda.empty_cache()
+    return rows
+
+
 # one turn of --compare-bwd: the tree's own phases on the given cases
 _TURN = """
 import json, sys, torch, chip_smoke
@@ -2318,15 +2650,30 @@ chip_smoke.bwd_phase(torch, fa)
 """
 
 
-def compare_turns(other, this=ROOT):
-    """Device ms of K1 at MAIN_CASE["wgmma"] and the training layer, and
-    of K2 at every bf16 d 64/128 case of BWD_CASES, in the checkout at
-    ``other`` and in ``this`` in turns (other, this, this, other), each
-    turn a subprocess of that tree running its own ``kernel_phase`` and
-    ``bwd_phase``. Returns {"fwd"|"bwd": {case: {"other": [ms, ms],
-    "this": [ms, ms]}}}."""
-    fwd = [MAIN_CASE["wgmma"], KERNEL_CASES[13]]
-    bwd = [c for c in BWD_CASES if c[6] == "bfloat16" and c[5] in (64, 128)]
+# the cases --compare-f32 times in turns: the simple forward and the
+# mma.sync / FMA backward at the f32 shapes (the table's, the f32 model's
+# prefill and training layer) and bf16 at the other head dims an earlier
+# tree's kernels also take
+F32_COMPARE_CASES = [("3d", 16, 1, 256, 256, 64, "float32", True),
+                     ("fused", 1, 16, 1024, 1024, 64, "float32", True),
+                     ("fused", 8, 16, 1024, 1024, 64, "float32", True),
+                     ("3d", 16, 1, 512, 512, 32, "bfloat16", True),
+                     ("3d", 16, 1, 512, 512, 80, "bfloat16", True),
+                     ("3d", 16, 1, 512, 512, 96, "bfloat16", True)]
+
+
+def compare_turns(other, this=ROOT, fwd=None, bwd=None):
+    """Device ms of K1 at ``fwd`` and K2 at ``bwd`` (by default K1 at
+    MAIN_CASE["wgmma"] and the training layer, and K2 at every bf16 d
+    64/128 case of BWD_CASES), in the checkout at ``other`` and in
+    ``this`` in turns (other, this, this, other), each turn a subprocess of
+    that tree running its own ``kernel_phase`` and ``bwd_phase``. Returns
+    {"fwd"|"bwd": {case: {"other": [ms, ms], "this": [ms, ms]}}}."""
+    if fwd is None:
+        fwd = [MAIN_CASE["wgmma"], KERNEL_CASES[13]]
+    if bwd is None:
+        bwd = [c for c in BWD_CASES
+               if c[6] == "bfloat16" and c[5] in (64, 128)]
     arg = json.dumps([fwd, bwd])
     times = {"fwd": {}, "bwd": {}}
     for label, root in (("other", other), ("this", this), ("this", this),
@@ -2353,6 +2700,12 @@ def main() -> int:
     parser.add_argument("--compare-bwd", metavar="OTHER", type=Path,
                         help="time K1 and K2 here and in the checkout at "
                         "OTHER in turns, and nothing else")
+    parser.add_argument("--compare-f32", metavar="OTHER", type=Path,
+                        help="the same for the simple forward and the "
+                        "mma.sync / FMA backward at F32_COMPARE_CASES")
+    parser.add_argument("--precision-f32", action="store_true",
+                        help="measure the f32 kernels and the plain "
+                        "versions against f64, and nothing else")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -2374,6 +2727,14 @@ def main() -> int:
     emit(gpu=smi, torch=torch.__version__, cuda=torch.version.cuda)
     if args.compare_bwd is not None:
         emit(compare_turns=compare_turns(args.compare_bwd.resolve()))
+        return 0
+    if args.compare_f32 is not None:
+        emit(compare_turns=compare_turns(args.compare_f32.resolve(),
+                                         fwd=F32_COMPARE_CASES,
+                                         bwd=F32_COMPARE_CASES))
+        return 0
+    if args.precision_f32:
+        precision_f32(torch, fa)
         return 0
 
     t0 = time.perf_counter()
@@ -2415,6 +2776,17 @@ def main() -> int:
                       for r in report.values()),
               f"wgmma K3: want no spills in its two kernels, ptxas gave "
               f"{report}")
+    for name, parse, want in (("flash_attention_fwd", simple_ptxas,
+                               SIMPLE_INSTANTIATIONS),
+                              ("flash_attention_bwd", bwd_ptxas,
+                               BWD_INSTANTIATIONS)):
+        log = _build.build_logs.get(name)
+        if log is not None:
+            report = parse(log)
+            emit(**{f"{name}_ptxas": report})
+            check(spill_free(report, want),
+                  f"{name}: want no spills in its {len(want)} kernels, "
+                  f"ptxas gave {report}")
     log = _build.build_logs.get("paged_attention")
     if log is not None:
         report = k4a_ptxas(log)
@@ -2449,29 +2821,15 @@ def main() -> int:
     allocated("slice_phase")
     train = train_phase(torch, fa)
     moe = moe_train_phase(torch, fa)
+    allocated("moe_train_phase")
+    f32_serve = f32_serve_phase(torch)
+    f32_train = f32_train_phase(torch, fa)
     launches = {name: {"serve": serve[i], "serve_modes": modes[i],
-                       "train": train[i], "moe": moe[i]}
+                       "train": train[i], "moe": moe[i],
+                       "f32_serve": f32_serve[i], "f32_train": f32_train[i]}
                 for i, name in enumerate(ALL_KERNELS)}
     emit(main_path_launches=launches)
-    check(serve[0] > 0 and train[0] > 0 and moe[0] > 0,
-          "a main path launched no flash_attention_fwd_wgmma")
-    check(train[2] > 0 and moe[2] > 0,
-          "training launched no flash_attention_bwd_wgmma")
-    check(serve[1] == 0 and train[1] == 0 and moe[1] == 0,
-          "a main path launched the simple kernel")
-    check(serve[2] == serve[3] == train[3] == moe[3] == 0,
-          "serving launched a backward, or training the mma.sync one")
-    check(all(n > 0 for n in train[8:10] + moe[6:10]),
-          f"training launched no wgmma K3f or K3b, K7d or K7c: {train}, "
-          f"{moe}")
-    check(train[4:6] == moe[4:6] == (0, 0),
-          "bf16 training launched chunked_ce.cu's K3 kernels")
-    check(serve[4:10] == modes[4:10] == (0,) * 6 and train[6:8] == (0, 0),
-          "serving launched K3 or K7, or the dense model K7")
-    check(serve[10] > 0 and serve[11] == 0 and modes[10] > 0
-          and modes[11] > 0 and train[10:] == moe[10:] == (0, 0),
-          f"K4a or K4w off their paths: serve {serve[10:]}, modes "
-          f"{modes[10:]}, train {train[10:]}, moe {moe[10:]}")
+    check_path_launches(serve, modes, train, moe, f32_serve, f32_train)
     emit(kernels=[kernel_entry("wgmma", cases, launches["wgmma"]),
                   kernel_entry("simple", cases, launches["simple"]),
                   bwd_kernel_entry("bwd_wgmma", bwd_cases,

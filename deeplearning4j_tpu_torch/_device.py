@@ -11,8 +11,12 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     """``None`` means the card (``"cuda"``). A CUDA device without CUDA
     raises — the port never carries on on the CPU unless asked to.
 
-    Choosing the card also pins full-f32 matmuls and convolutions: TF32
-    is switched off for both, so an f32 product on the card is f32."""
+    Choosing the card also pins the port's TF32 policy: no f32 product
+    rounds its operands to TF32 alone. TF32 is switched off for PyTorch's
+    matmuls and convolutions, so their f32 products are f32; the f32
+    flash-attention forward splits each operand into two TF32 parts and
+    takes three tensor-core products, held to the f32 tolerances; its
+    backward multiplies in f32."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():

@@ -1,5 +1,8 @@
-// Flash-attention backward for Hopper (sm_90a): dq, dk, dv of attention from
-// the forward's q, k, v, o, lse and the output gradient dO.
+// Flash-attention backward for Hopper (sm_90a), the mma.sync / FMA path: dq,
+// dk, dv of attention from the forward's q, k, v, o, lse and the output
+// gradient dO, for f32 at every head dim and bf16 at the head dims the wgmma
+// backward does not take (flash_attention_bwd_wgmma.cu has bf16 at 64 and
+// 128); any d % 8 == 0 in [8, 256].
 //
 // Replaces `_bwd_blockwise` (the custom-VJP backward `_flash_bwd` of the Pallas
 // kernel, registered with `_flash.defvjp`) in
@@ -10,40 +13,49 @@
 //        exactly 0: keys past seq_k, and k_idx > q_idx when causal
 //   dV = bf16(p)^T dO          dP = dO V^T
 //   dS = bf16(p * (dP - D))    dQ = scale * dS K     dK = scale * dS^T Q
-// with low-precision operands and f32 accumulation (f32 operands: scalar FMA
-// in full f32, no TF32 anywhere in the port).
+// with bf16 operands multiplied exactly and f32 accumulation; in f32 the
+// roundings to bf16 are no-ops.
 //
 // Three kernels, FA2's split, one launch each from dl4j_flash_attention_bwd:
 //   delta_kernel - D, 8 lanes a row with 16-byte loads (flash_bwd_delta.cuh);
-//   dq kernel    - one block per (b*h, 64-row query tile), looping over the
-//                  key tiles that tile sees (up to the diagonal when causal),
-//                  dQ in f32 registers; no atomics, so dq is deterministic,
-//                  as the JAX scan is;
-//   dkdv kernel  - one block per (b*h, 64-row key tile), looping over the
-//                  query tiles that see it (from the diagonal on when
-//                  causal), dK and dV in f32 registers.
+//   dq kernel    - one block per (b*h, query tile), looping over the key
+//                  tiles that tile sees (up to the diagonal when causal), dQ
+//                  in f32 registers; no atomics, so dq is deterministic, as
+//                  the JAX scan is;
+//   dkdv kernel  - one block per (b*h, key tile), looping over the query
+//                  tiles that see it (from the diagonal on when causal), dK
+//                  and dV in f32 registers.
 // Each recomputes the scores and dP it needs (7 products in all, where the JAX
 // scan does 5), so neither the (T, T) scores nor any cross-block sum reaches
 // device memory. Each warp owns 16 rows of its block's own tile (query rows in
 // the dq kernel, key rows in the dkdv kernel, which therefore computes S^T and
-// dP^T directly).
+// dP^T directly); the tiles a block walks over are double-buffered with
+// cp.async, so the next tile's copy overlaps this tile's products. Where dK
+// and dV together would crowd a lane's registers (from W 192, and f32 from
+// W 128), the dkdv block has two groups of warps over the same key rows, one
+// for dV and one for dK, each recomputing what it needs. Tiles are W wide
+// (flash_mma.cuh), the columns past d zero.
 //
-// bf16: mma.sync m16n8k16 with f32 accumulators. S and dP stay in the
-// accumulator registers; P and dS are rounded to bf16 straight into the A
-// fragments of the next products (the accumulator layout of two neighbouring
-// 8-column tiles is the A layout of one 16-deep step), so no score tile
-// touches shared memory. Operands come from shared memory through ldmatrix
-// (rows padded by 16 bytes: the 8 rows of a fragment load hit 8 distinct bank
-// groups), and the tiles a block walks over are double-buffered with cp.async,
-// so the next tile's load overlaps this tile's products.
-// f32: the scalar path, tiles and scores staged through shared memory.
+// The products (MmaBf16 and FmaF32 below):
+// - bf16: mma.sync m16n8k16 (flash_mma.cuh); S and dP stay in the
+//   accumulator registers, and P and dS go from there into the A fragments
+//   of the next products, so no score tile touches shared memory.
+// - f32: fused multiply-adds on the CUDA cores, register-tiled, each sum in
+//   the plain version's order and rounding. The f32 rows of the tolerance
+//   table hold the backward to the plain version (cuBLAS f32, TF32 off) by
+//   a 64-row tile's relative L2 error of 5e-7, which at T 1024 is below that
+//   plain version's own distance from f64 (8.3-8.4e-7, PERF.md): a sum taken
+//   in another order, on tensor cores (whose f32 sums truncate) or in exact
+//   arithmetic, misses it. So the f32 backward keeps FMA for all five
+//   products.
 //
 // What bounds it on the H100: the five products are 10*Tq*Tk*d FLOPs per head
 // (about half when causal) against reading q, k, v, o, dO and writing dq, dk,
-// dv once, so at the training shape (T 1024, d 64, bf16) the tensor cores bound
-// it. mma.sync reaches only part of their rate on Hopper (wgmma is the full-rate
-// path, left for a redesign), and the two recomputed products cost 40 % more
-// work than the bound counts.
+// dv once, so at the training shape (T 1024, d 64) the arithmetic bounds it:
+// in bf16 the 989 TFLOP/s tensor cores, which mma.sync reaches only part of
+// (wgmma is the full-rate path); in f32 the 67 TFLOP/s FMA pipes (165 TFLOP/s
+// is what the TF32 split could reach). The two recomputed products cost 40 %
+// more work than the bound counts.
 //
 // Operands are strided (B, H, T, d) views with unit stride on d: (b, h, t)
 // strides in elements come in as arguments, each a multiple of 16 bytes, and
@@ -57,15 +69,11 @@
 #include <type_traits>
 
 #include "flash_bwd_delta.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
-constexpr int BM = 64;          // rows of a block's own tile (query or key)
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int WROWS = 16;       // rows of the block's own tile per warp
 constexpr float LOG2E = 1.4426950408889634f;
-typedef __nv_bfloat16 bf16;
 
 // (b, h, t) strides in elements of the eight operands, in this order
 enum { Q = 0, K, V, O, DO, DQ, DK, DV };
@@ -90,57 +98,240 @@ __device__ __forceinline__ bool kept(const Args& a, int qi, int ki) {
   return qi < a.seq_q && ki < a.seq_k && (!a.causal || qi >= ki);
 }
 
-// ====================================================================== bf16
-// The tiles a block walks over have KT rows: 64, or 32 above d 64, where the
-// dkdv kernel's dK and dV accumulators take twice the registers.
-template <int D> struct Tile {
-  static constexpr int LD = D + 8;        // shared-memory row stride (bf16)
-  static constexpr int KT = D <= 64 ? 64 : 32;
-  // own Q and dO (dq) or K and V (dkdv), plus two buffers of the walked pair
-  static constexpr size_t OPERAND_BYTES = (size_t)(2 * BM + 4 * KT) * LD * 2;
+// ------------------------------------------------------------ the products
+// A warp's two product shapes (flash_mma.cuh) and the elementwise step
+// between them, by dtype: scores C of the warp's 16 own rows against the KT
+// rows of a walked tile, and an accumulator Acc of the 16 rows by the head
+// dim. Both keep S, dP, P and dS in registers between the products.
+
+// bf16: mma.sync m16n8k16; C in the m16n8 accumulator layout (rows lane / 4
+// and + 8, columns 8 j + 2 (lane % 4) and + 1), P and dS rounded to bf16
+// into the A fragments of the accumulating products
+template <int W, int KT> struct MmaBf16 {
+  static constexpr int NT = KT / 8;
+  typedef float C[NT][4];
+  typedef float Acc[W / 8][4];
+  static constexpr int SCRATCH = 0;     // floats of warp scratch
+  __device__ static void zero(Acc& acc) {
+#pragma unroll
+    for (int j = 0; j < W / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+  }
+  __device__ static void scores(C& c, const bf16* sa, int r0, const bf16* sb,
+                                int d, int lane) {
+    product_abt<bf16, W, NT>(c, sa, r0, sb, lane);
+  }
+  // the warp rows (of its 16) a lane holds elements of, by slot
+  static constexpr int ROWS = 2;
+  __device__ static int row(int lane, int slot) {
+    return (lane >> 2) + 8 * slot;
+  }
+  // f(row slot, column among the tile's KT, x, y) for each element
+  template <typename F>
+  __device__ static void each(C& x, C& y, int lane, F f) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        f(e >> 1, j * 8 + 2 * (lane & 3) + (e & 1), x[j][e], y[j][e]);
+  }
+  // p = exp(s * scale - lse), in base 2; dS = p (dP - D)
+  __device__ static float prob(float s, float scale, float lse) {
+    return ex2(fmaf(s, scale * LOG2E, -lse * LOG2E));
+  }
+  __device__ static float dscore(float p, float dp, float dl) {
+    return p * (dp - dl);
+  }
+  __device__ static void accumulate(Acc& acc, const C& x, float*,
+                                    const bf16* sb, int lane) {
+    product_acc<bf16, W, NT>(acc, x, sb, lane);
+  }
+  __device__ static void store(const Acc& acc, bf16* dst, long long st,
+                               int row0, int n_rows, int d, float scale,
+                               int lane) {
+    store_rows<bf16, W>(acc, dst, st, row0, n_rows, d, scale, lane);
+  }
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 (or 4) bytes global -> shared, asynchronously; zero-filled when !in
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(in ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(in ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// rows [row0, row0 + ROWS) of a strided (n_rows, D) matrix into shared rows of
-// stride LD, zero-filled past n_rows
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long st, int row0, int n_rows) {
-  constexpr int CHUNKS = D / 8;
-  for (int i = threadIdx.x; i < ROWS * CHUNKS; i += NTHREADS) {
-    const int r = i / CHUNKS, c = i % CHUNKS;
-    const bool in = row0 + r < n_rows;
-    cp_async16(dst + r * Tile<D>::LD + c * 8,
-               in ? src + (row0 + r) * st + c * 8 : src, in);
+// f32: fused multiply-adds on the CUDA cores, each output's sum taken in
+// order (d ascending for S and dP; keys, or queries, ascending for dQ, dK and
+// dV, tile after tile), one rounding a term, and the elementwise step
+// rounded as the plain version rounds it (s * scale, then - lse, then exp;
+// dP - D, then * p). That is the order and rounding of the plain version's
+// f32 products on the card (cuBLAS with TF32 off), which the f32 rows of the
+// tolerance table hold the kernel to: a 64-row tile's relative L2 error of
+// 5e-7 is below what that plain version's own f32 sums are off by at T 1024
+// (8.3-8.4e-7 against f64), so a sum in another order, on tensor cores or
+// not, cannot meet it. Lane (rg, cg) = (lane / 8, lane % 8) holds score rows
+// rg + 4 i and columns cg + 8 c, and accumulator rows rg + 4 i by columns
+// 4 cg + 32 q .. + 3: 16-byte shared-memory loads that a quarter warp
+// shares or spreads over 8 distinct bank groups, 4 to 10 FMAs a load. The
+// score tile goes to the accumulating product through 16 x KT floats of
+// warp scratch.
+template <int W, int KT> struct FmaF32 {
+  static constexpr int NC = KT / 8;
+  static constexpr int LDX = KT + 8;    // scratch row stride: 8 banks apart
+  typedef float C[4][NC];
+  typedef float Acc[4][W / 32][4];
+  static constexpr int SCRATCH = 16 * LDX;
+  __device__ static void zero(Acc& acc) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int q = 0; q < W / 32; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][q][e] = 0.0f;
   }
-}
+  __device__ static void scores(C& c, const float* sa, int r0,
+                                const float* sb, int d, int lane) {
+    constexpr int ld = row_stride<float, W>();
+    const int rg = lane >> 3, cg = lane & 7;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int n = 0; n < NC; ++n) c[i][n] = 0.0f;
+    const float* ar = sa + (r0 + rg) * ld;
+    const float* br = sb + cg * ld;
+#pragma unroll 1
+    for (int k = 0; k < d; k += 4) {
+      float4 a[4], b[NC];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        a[i] = *reinterpret_cast<const float4*>(ar + 4 * i * ld + k);
+#pragma unroll
+      for (int n = 0; n < NC; ++n)
+        b[n] = *reinterpret_cast<const float4*>(br + 8 * n * ld + k);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int n = 0; n < NC; ++n) {
+          float t = fmaf(a[i].x, b[n].x, c[i][n]);
+          t = fmaf(a[i].y, b[n].y, t);
+          t = fmaf(a[i].z, b[n].z, t);
+          c[i][n] = fmaf(a[i].w, b[n].w, t);
+        }
+    }
+  }
+  static constexpr int ROWS = 4;
+  __device__ static int row(int lane, int slot) {
+    return (lane >> 3) + 4 * slot;
+  }
+  template <typename F>
+  __device__ static void each(C& x, C& y, int lane, F f) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int n = 0; n < NC; ++n)
+        f(i, (lane & 7) + 8 * n, x[i][n], y[i][n]);
+  }
+  __device__ static float prob(float s, float scale, float lse) {
+    return expf(__fsub_rn(__fmul_rn(s, scale), lse));
+  }
+  __device__ static float dscore(float p, float dp, float dl) {
+    return __fmul_rn(p, __fsub_rn(dp, dl));
+  }
+  __device__ static void accumulate(Acc& acc, const C& x, float* sx,
+                                    const float* sb, int lane) {
+    constexpr int ld = row_stride<float, W>();
+    const int rg = lane >> 3, cg = lane & 7;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int n = 0; n < NC; ++n)
+        sx[(rg + 4 * i) * LDX + cg + 8 * n] = x[i][n];
+    __syncwarp();
+#pragma unroll 1
+    for (int k = 0; k < KT; k += 4) {
+      float4 xv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        xv[i] = *reinterpret_cast<const float4*>(sx + (rg + 4 * i) * LDX + k);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float* br = sb + (k + kk) * ld + 4 * cg;
+#pragma unroll
+        for (int q = 0; q < W / 32; ++q) {
+          const float4 b = *reinterpret_cast<const float4*>(br + 32 * q);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float xs = kk == 0 ? xv[i].x : kk == 1 ? xv[i].y
+                           : kk == 2 ? xv[i].z : xv[i].w;
+            acc[i][q][0] = fmaf(xs, b.x, acc[i][q][0]);
+            acc[i][q][1] = fmaf(xs, b.y, acc[i][q][1]);
+            acc[i][q][2] = fmaf(xs, b.z, acc[i][q][2]);
+            acc[i][q][3] = fmaf(xs, b.w, acc[i][q][3]);
+          }
+        }
+      }
+    }
+    __syncwarp();             // every lane has read sx before it is rewritten
+  }
+  __device__ static void store(const Acc& acc, float* dst, long long st,
+                               int row0, int n_rows, int d, float scale,
+                               int lane) {
+    const int rg = lane >> 3, cg = lane & 7;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = row0 + rg + 4 * i;
+      if (r >= n_rows) continue;
+#pragma unroll
+      for (int q = 0; q < W / 32; ++q) {
+        const int col = 4 * cg + 32 * q;
+        if (col >= d) break;
+        *reinterpret_cast<float4*>(dst + r * st + col) = make_float4(
+            __fmul_rn(acc[i][q][0], scale), __fmul_rn(acc[i][q][1], scale),
+            __fmul_rn(acc[i][q][2], scale), __fmul_rn(acc[i][q][3], scale));
+      }
+    }
+  }
+};
+
+// tiling of one (dtype, tile width) instantiation
+template <typename T, int W> struct Cfg {
+  static constexpr bool F32 = std::is_same<T, float>::value;
+  // rows of a block's own tile (query rows in the dq kernel, key rows in the
+  // dkdv kernel), 16 a warp: 64, or 32 for f32 at W 256, where two own tiles
+  // of 64 rows and the ring would pass the 227 KB shared-memory opt-in
+  static constexpr int BM = F32 && W == 256 ? 32 : 64;
+  static constexpr int LD = row_stride<T, W>();
+  // rows of each tile a block walks over: 64 for bf16 at W 64, else 32
+  // (registers: 64 spills at W 32; for f32, shared memory too)
+  static constexpr int KT = !F32 && W == 64 ? 64 : 32;
+  // whether a tile's products skip the mask where no key of it is masked:
+  // masking every element is the faster code up to W 128 (the branch
+  // splits the unrolled loop), but from W 192 the branch is what keeps the
+  // dq kernel inside 255 registers
+  static constexpr bool SKIP_MASK = W >= 192;
+  typedef typename std::conditional<F32, FmaF32<W, KT>, MmaBf16<W, KT>>::type
+      M;
+  // the dkdv kernel where dK and dV together would crowd a lane's registers
+  // (from W 192, and f32 from W 128): two groups of warps over the same key
+  // rows, one accumulating dV (it recomputes S^T and P), the other dK (S^T,
+  // dP^T, P and dS)
+  static constexpr bool SPLIT = W >= 192 || (F32 && W == 128);
+  static constexpr int Q_THREADS = BM * 2;
+  static constexpr int KV_THREADS = BM * 2 * (SPLIT ? 2 : 1);
+  // own pair (Q and dO, or K and V) plus two buffers of the walked pair
+  static __host__ __device__ constexpr size_t operand_bytes() {
+    return (size_t)(2 * BM + 4 * KT) * LD * sizeof(T);
+  }
+  static __host__ __device__ constexpr size_t q_bytes() {
+    return operand_bytes() + (size_t)Q_THREADS / 32 * M::SCRATCH * 4;
+  }
+  // the dkdv kernel also stages two buffers of KT rows of lse and D
+  static __host__ __device__ constexpr size_t kv_bytes() {
+    return operand_bytes() + (size_t)KV_THREADS / 32 * M::SCRATCH * 4 +
+           4 * KT * sizeof(float);
+  }
+};
 
 // lse and D of query rows [q0, q0 + ROWS) (0 past seq_q)
 template <int ROWS>
 __device__ __forceinline__ void load_rows(float* s_lse, float* s_d,
-                                          const Args& a, int bh, int q0) {
-  for (int i = threadIdx.x; i < 2 * ROWS; i += NTHREADS) {
+                                          const Args& a, int bh, int q0,
+                                          int nthreads) {
+  for (int i = threadIdx.x; i < 2 * ROWS; i += nthreads) {
     const int r = i % ROWS;
     const bool in = q0 + r < a.seq_q;
     const float* src = (i < ROWS ? a.lse : a.delta) + (size_t)bh * a.seq_q;
@@ -148,491 +339,192 @@ __device__ __forceinline__ void load_rows(float* s_lse, float* s_d,
   }
 }
 
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// c (16 x 8, f32) += a (16 x 16) b (16 x 8), bf16 operands
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A fragment of rows r0.., columns k0.. of a row-major shared matrix
-template <int LD>
-__device__ __forceinline__ void frag_a(uint32_t (&f)[4], const bf16* s, int r0,
-                                       int k0, int lane) {
-  ldsm4(f, s + (r0 + (lane & 15)) * LD + k0 + (lane >> 4) * 8);
-}
-// B fragments of the two 8-column tiles n0.. and n0 + 8.. at depth k0.., from
-// a shared matrix stored [n][k] (f[0], f[1] the first tile, f[2], f[3] the
-// second)
-template <int LD>
-__device__ __forceinline__ void frag_b_nk(uint32_t (&f)[4], const bf16* s,
-                                          int n0, int k0, int lane) {
-  ldsm4(f, s + (n0 + (lane & 7) + (lane >> 4) * 8) * LD + k0 +
-               ((lane >> 3) & 1) * 8);
-}
-// the same from a shared matrix stored [k][n]
-template <int LD>
-__device__ __forceinline__ void frag_b_kn(uint32_t (&f)[4], const bf16* s,
-                                          int k0, int n0, int lane) {
-  ldsm4_t(f, s + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + n0 +
-                 (lane >> 4) * 8);
-}
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // round to nearest even
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-// accumulator tiles j, j + 1 (16 x 8 each) as the A fragment of one 16-deep
-// step, rounded to bf16
-__device__ __forceinline__ void to_a(uint32_t (&f)[4], const float (&c0)[4],
-                                     const float (&c1)[4]) {
-  f[0] = pack(c0[0], c0[1]);
-  f[1] = pack(c0[2], c0[3]);
-  f[2] = pack(c1[0], c1[1]);
-  f[3] = pack(c1[2], c1[3]);
-}
-
-// c (16 x N) = a-matrix rows r0.. (row-major [m][k], k = D) times the rows
-// n0.. of a matrix stored [n][k]: both of the first two products
-template <int D, int NT>
-__device__ __forceinline__ void product_abt(float (&c)[NT][4], const bf16* sa,
-                                            int r0, const bf16* sb, int lane) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[j][e] = 0.0f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t fa[4];
-    frag_a<Tile<D>::LD>(fa, sa, r0, kk * 16, lane);
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      uint32_t fb[4];
-      frag_b_nk<Tile<D>::LD>(fb, sb, np * 16, kk * 16, lane);
-      mma(c[2 * np], fa, fb[0], fb[1]);
-      mma(c[2 * np + 1], fa, fb[2], fb[3]);
-    }
-  }
-}
-
-// acc (16 x D) += x (16 x KT, in accumulator layout, rounded to bf16) times a
-// shared matrix stored [k][n] (KT rows of D)
-template <int D, int NT>
-__device__ __forceinline__ void product_acc(float (&acc)[D / 8][4],
-                                            const float (&x)[NT][4],
-                                            const bf16* sb, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < NT / 2; ++kk) {
-    uint32_t fa[4];
-    to_a(fa, x[2 * kk], x[2 * kk + 1]);
-#pragma unroll
-    for (int np = 0; np < D / 16; ++np) {
-      uint32_t fb[4];
-      frag_b_kn<Tile<D>::LD>(fb, sb, kk * 16, np * 16, lane);
-      mma(acc[2 * np], fa, fb[0], fb[1]);
-      mma(acc[2 * np + 1], fa, fb[2], fb[3]);
-    }
-  }
-}
-
-// rows row0 + lane/4 and row0 + lane/4 + 8 (of n_rows, stride st) of dst =
-// scale * acc, in bf16
-template <int D>
-__device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4],
-                                           bf16* dst, long long st, int row0,
-                                           int n_rows, float scale, int lane) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = row0 + (lane >> 2) + 8 * h;
-    if (r >= n_rows) continue;
-    bf16* row = dst + r * st + 2 * (lane & 3);
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(row + j * 8) = __floats2bfloat162_rn(
-          acc[j][2 * h] * scale, acc[j][2 * h + 1] * scale);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(NTHREADS) dq_kernel_bf16(Args a) {
-  constexpr int LD = Tile<D>::LD, KT = Tile<D>::KT, NT = KT / 8;
+template <typename T, int W>
+__global__ void __launch_bounds__((Cfg<T, W>::Q_THREADS)) dq_kernel(Args a) {
+  using C = Cfg<T, W>;
+  using M = typename C::M;
+  constexpr int BM = C::BM, KT = C::KT, NTH = C::Q_THREADS, ld = C::LD;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sDO = sQ + BM * LD;
-  bf16* sK = sDO + BM * LD;               // two buffers of KT rows
-  bf16* sV = sK + 2 * KT * LD;
+  T* sQ = reinterpret_cast<T*>(smem);
+  T* sDO = sQ + BM * ld;
+  T* sK = sDO + BM * ld;                  // two buffers of KT rows
+  T* sV = sK + 2 * KT * ld;
+  zero_pad(smem, C::operand_bytes(), a.d < W, NTH);
 
   const int bh = blockIdx.y;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;   // longest rows first
-  const int lane = threadIdx.x % 32, r0 = threadIdx.x / 32 * WROWS;
-  const bf16* kb = static_cast<const bf16*>(a.k) + head(a, K, bh);
-  const bf16* vb = static_cast<const bf16*>(a.v) + head(a, V, bh);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, r0 = warp * 16;
+  float* sx = reinterpret_cast<float*>(smem + C::operand_bytes()) +
+              warp * M::SCRATCH;
+  const T* kb = static_cast<const T*>(a.k) + head(a, K, bh);
+  const T* vb = static_cast<const T*>(a.v) + head(a, V, bh);
   const int kv_end = a.causal ? min(a.seq_k, q0 + BM) : a.seq_k;
   const int n_tiles = (kv_end + KT - 1) / KT;
 
-  load_tile<D, BM>(sQ, static_cast<const bf16*>(a.q) + head(a, Q, bh),
-                   a.st[Q][2], q0, a.seq_q);
-  load_tile<D, BM>(sDO, static_cast<const bf16*>(a.dout) + head(a, DO, bh),
-                   a.st[DO][2], q0, a.seq_q);
-  load_tile<D, KT>(sK, kb, a.st[K][2], 0, a.seq_k);
-  load_tile<D, KT>(sV, vb, a.st[V][2], 0, a.seq_k);
+  load_tile<T, W, BM, NTH>(sQ, static_cast<const T*>(a.q) + head(a, Q, bh),
+                           a.st[Q][2], q0, a.seq_q, a.d);
+  load_tile<T, W, BM, NTH>(sDO,
+                           static_cast<const T*>(a.dout) + head(a, DO, bh),
+                           a.st[DO][2], q0, a.seq_q, a.d);
+  load_tile<T, W, KT, NTH>(sK, kb, a.st[K][2], 0, a.seq_k, a.d);
+  load_tile<T, W, KT, NTH>(sV, vb, a.st[V][2], 0, a.seq_k, a.d);
   cp_async_commit();
 
-  // this lane's two query rows, their lse (in log2 units) and D
-  int qi[2];
-  float lse2[2], dl[2];
+  // lse and D of the query rows this lane holds elements of
+  int qi[M::ROWS];
+  float lse[M::ROWS], dl[M::ROWS];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    qi[h] = q0 + r0 + lane / 4 + 8 * h;
-    const bool in = qi[h] < a.seq_q;
-    const size_t at = (size_t)bh * a.seq_q + (in ? qi[h] : 0);
-    lse2[h] = in ? a.lse[at] * LOG2E : 0.0f;
-    dl[h] = in ? a.delta[at] : 0.0f;
+  for (int i = 0; i < M::ROWS; ++i) {
+    qi[i] = q0 + r0 + M::row(lane, i);
+    const bool in = qi[i] < a.seq_q;
+    const size_t at = (size_t)bh * a.seq_q + (in ? qi[i] : 0);
+    lse[i] = in ? a.lse[at] : 0.0f;
+    dl[i] = in ? a.delta[at] : 0.0f;
   }
-  const float scale2 = a.scale * LOG2E;
-  float dq[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[j][e] = 0.0f;
-
+  typename M::Acc dq;
+  M::zero(dq);
   for (int t = 0; t < n_tiles; ++t) {
     const int buf = t & 1, k0 = t * KT;
     if (t + 1 < n_tiles) {
-      load_tile<D, KT>(sK + (buf ^ 1) * KT * LD, kb, a.st[K][2], k0 + KT,
-                       a.seq_k);
-      load_tile<D, KT>(sV + (buf ^ 1) * KT * LD, vb, a.st[V][2], k0 + KT,
-                       a.seq_k);
+      load_tile<T, W, KT, NTH>(sK + (buf ^ 1) * KT * ld, kb, a.st[K][2],
+                               k0 + KT, a.seq_k, a.d);
+      load_tile<T, W, KT, NTH>(sV + (buf ^ 1) * KT * ld, vb, a.st[V][2],
+                               k0 + KT, a.seq_k, a.d);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const bf16* k_s = sK + buf * KT * LD;
-    float s[NT][4], dp[NT][4];
-    product_abt<D, NT>(s, sQ, r0, k_s, lane);                   // S
-    product_abt<D, NT>(dp, sDO, r0, sV + buf * KT * LD, lane);  // dP
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1, ki = k0 + j * 8 + 2 * (lane & 3) + (e & 1);
+    // causal: a key tile past the warp's last row adds nothing to it
+    if (!a.causal || k0 <= q0 + r0 + 15) {
+      const T* k_s = sK + buf * KT * ld;
+      typename M::C s, dp;
+      M::scores(s, sQ, r0, k_s, a.d, lane);                      // S
+      M::scores(dp, sDO, r0, sV + buf * KT * ld, a.d, lane);     // dP
+      const bool edge = !C::SKIP_MASK || k0 + KT > a.seq_k ||
+                        q0 + r0 + 16 > a.seq_q ||
+                        (a.causal && k0 + KT - 1 > q0 + r0);
+      M::each(s, dp, lane, [&](int i, int c, float& sv, float& dpv) {
         float ds = 0.0f;
-        if (kept(a, qi[h], ki))
-          ds = exp2f(fmaf(s[j][e], scale2, -lse2[h])) * (dp[j][e] - dl[h]);
-        s[j][e] = ds;
-      }
-    product_acc<D, NT>(dq, s, k_s, lane);                       // += dS K
+        if (!edge || kept(a, qi[i], k0 + c))
+          ds = M::dscore(M::prob(sv, a.scale, lse[i]), dpv, dl[i]);
+        sv = ds;
+      });
+      M::accumulate(dq, s, sx, k_s, lane);                       // += dS K
+    }
     __syncthreads();          // every warp is done with buf before its refill
   }
-  store_rows<D>(dq, static_cast<bf16*>(a.dq) + head(a, DQ, bh), a.st[DQ][2],
-                q0 + r0, a.seq_q, a.scale, lane);
+  M::store(dq, static_cast<T*>(a.dq) + head(a, DQ, bh), a.st[DQ][2], q0 + r0,
+           a.seq_q, a.d, a.scale, lane);
 }
 
-template <int D>
-__global__ void __launch_bounds__(NTHREADS) dkdv_kernel_bf16(Args a) {
-  constexpr int LD = Tile<D>::LD, KT = Tile<D>::KT, NT = KT / 8;
+template <typename T, int W>
+__global__ void __launch_bounds__((Cfg<T, W>::KV_THREADS)) dkdv_kernel(Args a) {
+  using C = Cfg<T, W>;
+  using M = typename C::M;
+  constexpr int BM = C::BM, KT = C::KT, NTH = C::KV_THREADS, ld = C::LD;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + BM * LD;
-  bf16* sQ = sV + BM * LD;                // two buffers of KT rows
-  bf16* sDO = sQ + 2 * KT * LD;
-  float* sLse = reinterpret_cast<float*>(sDO + 2 * KT * LD);   // two of KT
-  float* sD = sLse + 2 * KT;
+  T* sK = reinterpret_cast<T*>(smem);
+  T* sV = sK + BM * ld;
+  T* sQ = sV + BM * ld;                   // two buffers of KT rows
+  T* sDO = sQ + 2 * KT * ld;
+  float* sLse = reinterpret_cast<float*>(smem + C::operand_bytes());
+  float* sD = sLse + 2 * KT;              // two buffers of KT each
+  zero_pad(smem, C::operand_bytes(), a.d < W, NTH);
 
   const int bh = blockIdx.y, k0 = blockIdx.x * BM;
-  const int lane = threadIdx.x % 32, r0 = threadIdx.x / 32 * WROWS;
-  const bf16* qb = static_cast<const bf16*>(a.q) + head(a, Q, bh);
-  const bf16* dob = static_cast<const bf16*>(a.dout) + head(a, DO, bh);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* sx = sD + 2 * KT + warp * M::SCRATCH;
+  // split: warps [0, BM / 16) accumulate dV, the next BM / 16 dK, each group
+  // over all BM key rows; else every warp both, over its own 16
+  const int grp = warp / (BM / 16), r0 = warp % (BM / 16) * 16;
+  const bool want_ds = !C::SPLIT || grp == 1;
+  const T* qb = static_cast<const T*>(a.q) + head(a, Q, bh);
+  const T* dob = static_cast<const T*>(a.dout) + head(a, DO, bh);
   // causal: query tiles ending before this key tile see none of it
   const int q_begin = a.causal ? k0 / KT * KT : 0;
   const int n_tiles =
       q_begin < a.seq_q ? (a.seq_q - q_begin + KT - 1) / KT : 0;
 
-  load_tile<D, BM>(sK, static_cast<const bf16*>(a.k) + head(a, K, bh),
-                   a.st[K][2], k0, a.seq_k);
-  load_tile<D, BM>(sV, static_cast<const bf16*>(a.v) + head(a, V, bh),
-                   a.st[V][2], k0, a.seq_k);
+  load_tile<T, W, BM, NTH>(sK, static_cast<const T*>(a.k) + head(a, K, bh),
+                           a.st[K][2], k0, a.seq_k, a.d);
+  load_tile<T, W, BM, NTH>(sV, static_cast<const T*>(a.v) + head(a, V, bh),
+                           a.st[V][2], k0, a.seq_k, a.d);
   if (n_tiles > 0) {
-    load_tile<D, KT>(sQ, qb, a.st[Q][2], q_begin, a.seq_q);
-    load_tile<D, KT>(sDO, dob, a.st[DO][2], q_begin, a.seq_q);
-    load_rows<KT>(sLse, sD, a, bh, q_begin);
+    load_tile<T, W, KT, NTH>(sQ, qb, a.st[Q][2], q_begin, a.seq_q, a.d);
+    load_tile<T, W, KT, NTH>(sDO, dob, a.st[DO][2], q_begin, a.seq_q, a.d);
+    load_rows<KT>(sLse, sD, a, bh, q_begin, NTH);
   }
   cp_async_commit();
 
-  int ki[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) ki[h] = k0 + r0 + lane / 4 + 8 * h;
-  const float scale2 = a.scale * LOG2E;
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.0f;
+  // acc0: dV (dK in the split's second group); acc1: dK (unused when split)
+  typename M::Acc acc0, acc1;
+  M::zero(acc0);
+  if constexpr (!C::SPLIT) M::zero(acc1);
 
   for (int t = 0; t < n_tiles; ++t) {
     const int buf = t & 1, q0 = q_begin + t * KT;
     if (t + 1 < n_tiles) {
       const int nb = buf ^ 1;
-      load_tile<D, KT>(sQ + nb * KT * LD, qb, a.st[Q][2], q0 + KT, a.seq_q);
-      load_tile<D, KT>(sDO + nb * KT * LD, dob, a.st[DO][2], q0 + KT,
-                       a.seq_q);
-      load_rows<KT>(sLse + nb * KT, sD + nb * KT, a, bh, q0 + KT);
+      load_tile<T, W, KT, NTH>(sQ + nb * KT * ld, qb, a.st[Q][2], q0 + KT,
+                               a.seq_q, a.d);
+      load_tile<T, W, KT, NTH>(sDO + nb * KT * ld, dob, a.st[DO][2], q0 + KT,
+                               a.seq_q, a.d);
+      load_rows<KT>(sLse + nb * KT, sD + nb * KT, a, bh, q0 + KT, NTH);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const bf16* q_s = sQ + buf * KT * LD;
-    const bf16* do_s = sDO + buf * KT * LD;
-    const float* lse_s = sLse + buf * KT;
-    const float* d_s = sD + buf * KT;
-    float st[NT][4], dpt[NT][4];        // S^T and dP^T: key rows, query columns
-    product_abt<D, NT>(st, sK, r0, q_s, lane);
-    product_abt<D, NT>(dpt, sV, r0, do_s, lane);
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1, col = j * 8 + 2 * (lane & 3) + (e & 1);
+    // causal: a query tile ending before the warp's first key row sees none
+    // of the warp's keys
+    if (!a.causal || q0 + KT - 1 >= k0 + r0) {
+      const T* q_s = sQ + buf * KT * ld;
+      const T* do_s = sDO + buf * KT * ld;
+      const float* lse_s = sLse + buf * KT;
+      const float* d_s = sD + buf * KT;
+      typename M::C st, dpt;            // S^T and dP^T: key rows, query columns
+      M::scores(st, sK, r0, q_s, a.d, lane);
+      if (want_ds) M::scores(dpt, sV, r0, do_s, a.d, lane);
+      const bool edge = !C::SKIP_MASK || q0 + KT > a.seq_q ||
+                        k0 + r0 + 16 > a.seq_k ||
+                        (a.causal && q0 < k0 + r0 + 15);
+      M::each(st, dpt, lane, [&](int i, int c, float& sv, float& dpv) {
         float p = 0.0f, ds = 0.0f;
-        if (kept(a, q0 + col, ki[h])) {
-          p = exp2f(fmaf(st[j][e], scale2, -lse_s[col] * LOG2E));
-          ds = p * (dpt[j][e] - d_s[col]);
+        if (!edge || kept(a, q0 + c, k0 + r0 + M::row(lane, i))) {
+          p = M::prob(sv, a.scale, lse_s[c]);
+          if (want_ds) ds = M::dscore(p, dpv, d_s[c]);
         }
-        dpt[j][e] = p;                  // P^T, cast to v's type for dV
-        st[j][e] = ds;                  // dS^T
+        if constexpr (C::SPLIT) {
+          sv = want_ds ? ds : p;
+        } else {
+          dpv = p;                      // P^T, cast to v's type for dV
+          sv = ds;                      // dS^T
+        }
+      });
+      if constexpr (C::SPLIT) {
+        M::accumulate(acc0, st, sx, want_ds ? q_s : do_s, lane);
+      } else {
+        M::accumulate(acc0, dpt, sx, do_s, lane);           // += P^T dO
+        M::accumulate(acc1, st, sx, q_s, lane);             // += dS^T Q
       }
-    product_acc<D, NT>(dv, dpt, do_s, lane);                    // += P^T dO
-    product_acc<D, NT>(dk, st, q_s, lane);                      // += dS^T Q
+    }
     __syncthreads();          // every warp is done with buf before its refill
   }
   cp_async_wait<0>();         // no copy outlives the block (n_tiles == 0)
-  store_rows<D>(dv, static_cast<bf16*>(a.dv) + head(a, DV, bh), a.st[DV][2],
-                k0 + r0, a.seq_k, 1.0f, lane);
-  store_rows<D>(dk, static_cast<bf16*>(a.dk) + head(a, DK, bh), a.st[DK][2],
-                k0 + r0, a.seq_k, a.scale, lane);
-}
-
-// ======================================================================= f32
-constexpr int LDS = BM + 4;     // f32 score rows
-template <int D> constexpr int LDX = D + 4;   // f32 operand rows (+16 bytes)
-
-// rows [row0, row0 + 64) of a strided (n_rows, D) f32 matrix into shared rows
-// of stride LDX, zero-filled past n_rows, 16 bytes a thread
-template <int D>
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
-                                              long long st, int row0,
-                                              int n_rows) {
-  constexpr int CHUNKS = D / 4;
-  for (int i = threadIdx.x; i < BM * CHUNKS; i += NTHREADS) {
-    const int r = i / CHUNKS, c = i % CHUNKS;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_rows)
-      val = reinterpret_cast<const uint4*>(src + (row0 + r) * st)[c];
-    reinterpret_cast<uint4*>(dst + r * LDX<D>)[c] = val;
+  T* dv = static_cast<T*>(a.dv) + head(a, DV, bh);
+  T* dk = static_cast<T*>(a.dk) + head(a, DK, bh);
+  if constexpr (C::SPLIT) {
+    if (want_ds)
+      M::store(acc0, dk, a.st[DK][2], k0 + r0, a.seq_k, a.d, a.scale, lane);
+    else
+      M::store(acc0, dv, a.st[DV][2], k0 + r0, a.seq_k, a.d, 1.0f, lane);
+  } else {
+    M::store(acc0, dv, a.st[DV][2], k0 + r0, a.seq_k, a.d, 1.0f, lane);
+    M::store(acc1, dk, a.st[DK][2], k0 + r0, a.seq_k, a.d, a.scale, lane);
   }
-}
-
-// C[16][64] = A[16][D] B[64][D]^T (rows of stride LDS): A is the warp's 16 rows
-// of one tile, B a whole other tile
-template <int D>
-__device__ __forceinline__ void warp_abt_f32(const float* A, const float* B,
-                                             float* C, int lane) {
-  for (int i = lane; i < WROWS * BM; i += 32) {
-    const int r = i / BM, c = i % BM;
-    const float* ar = A + r * LDX<D>;
-    const float* br = B + c * LDX<D>;
-    float acc = 0.0f;
-#pragma unroll 16
-    for (int d = 0; d < D; ++d) acc = fmaf(ar[d], br[d], acc);
-    C[r * LDS + c] = acc;
-  }
-}
-
-// The warp's f32 accumulator of a [16][D] product, D / 2 registers a lane
-// (element lane + 32 e is row (lane + 32 e) / D, column (lane + 32 e) % D)
-template <int D> struct AccF32 {
-  float v[D / 2];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int e = 0; e < D / 2; ++e) v[e] = 0.0f;
-  }
-
-  // += A[16][64] B[64][D]: A the warp's 16 rows of P^T, dS or dS^T (stride
-  // LDS), B a whole operand tile
-  __device__ __forceinline__ void mma(const float* A, const float* B,
-                                      int lane) {
-#pragma unroll
-    for (int e = 0; e < D / 2; ++e) {
-      const int i = lane + 32 * e, r = i / D, j = i % D;
-      float acc = v[e];
-#pragma unroll 16
-      for (int c = 0; c < BM; ++c)
-        acc = fmaf(A[r * LDS + c], B[c * LDX<D> + j], acc);
-      v[e] = acc;
-    }
-  }
-
-  __device__ __forceinline__ void store(float* dst, long long st, int row0,
-                                        int n_rows, float scale, int lane) {
-#pragma unroll
-    for (int e = 0; e < D / 2; ++e) {
-      const int i = lane + 32 * e, r = i / D, j = i % D;
-      if (row0 + r < n_rows) dst[(row0 + r) * st + j] = v[e] * scale;
-    }
-  }
-};
-
-// lse and D of query rows [q0, q0 + 64) into shared memory (0 past seq_q)
-__device__ __forceinline__ void load_rows_f32(float* s_lse, float* s_d,
-                                              const Args& a, int bh, int q0) {
-  for (int i = threadIdx.x; i < BM; i += NTHREADS) {
-    const int qi = q0 + i;
-    const bool in = qi < a.seq_q;
-    s_lse[i] = in ? a.lse[(size_t)bh * a.seq_q + qi] : 0.0f;
-    s_d[i] = in ? a.delta[(size_t)bh * a.seq_q + qi] : 0.0f;
-  }
-}
-
-// four operand tiles, N_P score-sized tiles of P / dS, S and dP, lse and D
-template <int D, int N_P>
-constexpr size_t smem_bytes_f32() {
-  return (size_t)4 * BM * LDX<D> * 4 + (size_t)(N_P + 2) * BM * LDS * 4 +
-         2 * BM * 4;
-}
-
-template <int D>
-__global__ void __launch_bounds__(NTHREADS) dq_kernel_f32(Args a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* sQ = reinterpret_cast<float*>(smem);
-  float* sDO = sQ + BM * LDX<D>;
-  float* sK = sDO + BM * LDX<D>;
-  float* sV = sK + BM * LDX<D>;
-  float* sDS = sV + BM * LDX<D>;
-  float* sS = sDS + BM * LDS;
-  float* sDP = sS + BM * LDS;
-  float* sLse = sDP + BM * LDS;
-  float* sD = sLse + BM;
-
-  const int bh = blockIdx.y, q0 = blockIdx.x * BM;
-  const int lane = threadIdx.x % 32, r0 = threadIdx.x / 32 * WROWS;
-  const float* kb = static_cast<const float*>(a.k) + head(a, K, bh);
-  const float* vb = static_cast<const float*>(a.v) + head(a, V, bh);
-
-  load_tile_f32<D>(sQ, static_cast<const float*>(a.q) + head(a, Q, bh),
-                   a.st[Q][2], q0, a.seq_q);
-  load_tile_f32<D>(sDO, static_cast<const float*>(a.dout) + head(a, DO, bh),
-                   a.st[DO][2], q0, a.seq_q);
-  load_rows_f32(sLse, sD, a, bh, q0);
-  AccF32<D> dq;
-  dq.zero();
-
-  const int kv_end = a.causal ? min(a.seq_k, q0 + BM) : a.seq_k;
-  for (int k0 = 0; k0 < kv_end; k0 += BM) {
-    __syncthreads();                      // every warp is done with K, V
-    load_tile_f32<D>(sK, kb, a.st[K][2], k0, a.seq_k);
-    load_tile_f32<D>(sV, vb, a.st[V][2], k0, a.seq_k);
-    __syncthreads();
-
-    warp_abt_f32<D>(sQ + r0 * LDX<D>, sK, sS + r0 * LDS, lane);     // S
-    warp_abt_f32<D>(sDO + r0 * LDX<D>, sV, sDP + r0 * LDS, lane);   // dP
-    __syncwarp();
-    for (int i = lane; i < WROWS * BM; i += 32) {
-      const int r = r0 + i / BM, c = i % BM;
-      float ds = 0.0f;
-      if (kept(a, q0 + r, k0 + c)) {
-        const float p = expf(sS[r * LDS + c] * a.scale - sLse[r]);
-        ds = p * (sDP[r * LDS + c] - sD[r]);
-      }
-      sDS[r * LDS + c] = ds;
-    }
-    __syncwarp();
-    dq.mma(sDS + r0 * LDS, sK, lane);                             // dS K
-    __syncwarp();
-  }
-  dq.store(static_cast<float*>(a.dq) + head(a, DQ, bh), a.st[DQ][2], q0 + r0,
-           a.seq_q, a.scale, lane);
-}
-
-template <int D>
-__global__ void __launch_bounds__(NTHREADS) dkdv_kernel_f32(Args a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* sQ = reinterpret_cast<float*>(smem);
-  float* sDO = sQ + BM * LDX<D>;
-  float* sK = sDO + BM * LDX<D>;
-  float* sV = sK + BM * LDX<D>;
-  float* sDS = sV + BM * LDX<D>;          // dS^T: row = key, column = query
-  float* sP = sDS + BM * LDS;             // P^T
-  float* sS = sP + BM * LDS;              // S^T
-  float* sDP = sS + BM * LDS;             // dP^T
-  float* sLse = sDP + BM * LDS;
-  float* sD = sLse + BM;
-
-  const int bh = blockIdx.y, k0 = blockIdx.x * BM;
-  const int lane = threadIdx.x % 32, r0 = threadIdx.x / 32 * WROWS;
-  const float* qb = static_cast<const float*>(a.q) + head(a, Q, bh);
-  const float* dob = static_cast<const float*>(a.dout) + head(a, DO, bh);
-
-  load_tile_f32<D>(sK, static_cast<const float*>(a.k) + head(a, K, bh),
-                   a.st[K][2], k0, a.seq_k);
-  load_tile_f32<D>(sV, static_cast<const float*>(a.v) + head(a, V, bh),
-                   a.st[V][2], k0, a.seq_k);
-  AccF32<D> dk, dv;
-  dk.zero();
-  dv.zero();
-
-  // causal: query tiles ending before this key tile see none of it
-  const int q_begin = a.causal ? k0 : 0;
-  for (int q0 = q_begin; q0 < a.seq_q; q0 += BM) {
-    __syncthreads();                      // every warp is done with Q, dO
-    load_tile_f32<D>(sQ, qb, a.st[Q][2], q0, a.seq_q);
-    load_tile_f32<D>(sDO, dob, a.st[DO][2], q0, a.seq_q);
-    load_rows_f32(sLse, sD, a, bh, q0);
-    __syncthreads();
-
-    warp_abt_f32<D>(sK + r0 * LDX<D>, sQ, sS + r0 * LDS, lane);     // S^T
-    warp_abt_f32<D>(sV + r0 * LDX<D>, sDO, sDP + r0 * LDS, lane);   // dP^T
-    __syncwarp();
-    for (int i = lane; i < WROWS * BM; i += 32) {
-      const int r = r0 + i / BM, c = i % BM;     // key r, query c
-      float p = 0.0f, ds = 0.0f;
-      if (kept(a, q0 + c, k0 + r)) {
-        p = expf(sS[r * LDS + c] * a.scale - sLse[c]);
-        ds = p * (sDP[r * LDS + c] - sD[c]);
-      }
-      sP[r * LDS + c] = p;
-      sDS[r * LDS + c] = ds;
-    }
-    __syncwarp();
-    dv.mma(sP + r0 * LDS, sDO, lane);                             // P^T dO
-    dk.mma(sDS + r0 * LDS, sQ, lane);                             // dS^T Q
-    __syncwarp();
-  }
-  dv.store(static_cast<float*>(a.dv) + head(a, DV, bh), a.st[DV][2], k0 + r0,
-           a.seq_k, 1.0f, lane);
-  dk.store(static_cast<float*>(a.dk) + head(a, DK, bh), a.st[DK][2], k0 + r0,
-           a.seq_k, a.scale, lane);
 }
 
 // ==================================================================== launch
@@ -644,20 +536,13 @@ cudaError_t opt_in(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
-template <typename T, int D>
+template <typename T, int W>
 cudaError_t launch(const Args& a, int bh, cudaStream_t stream) {
-  constexpr bool BF16 = std::is_same<T, bf16>::value;
-  constexpr size_t smem_q =
-      BF16 ? Tile<D>::OPERAND_BYTES : smem_bytes_f32<D, 1>();
-  constexpr size_t smem_kv =
-      BF16 ? Tile<D>::OPERAND_BYTES + 4 * Tile<D>::KT * sizeof(float)
-           : smem_bytes_f32<D, 2>();
-  static_assert(smem_q <= 232448 && smem_kv <= 232448,
+  using C = Cfg<T, W>;
+  static_assert(C::q_bytes() <= 232448 && C::kv_bytes() <= 232448,
                 "over the 227 KB shared-memory opt-in");
-  auto dq = BF16 ? (void (*)(Args))dq_kernel_bf16<D> : dq_kernel_f32<D>;
-  auto dkdv = BF16 ? (void (*)(Args))dkdv_kernel_bf16<D> : dkdv_kernel_f32<D>;
-  static const cudaError_t attr_q = opt_in(dq, smem_q);
-  static const cudaError_t attr_kv = opt_in(dkdv, smem_kv);
+  static const cudaError_t attr_q = opt_in(dq_kernel<T, W>, C::q_bytes());
+  static const cudaError_t attr_kv = opt_in(dkdv_kernel<T, W>, C::kv_bytes());
   if (attr_q != cudaSuccess) return attr_q;
   if (attr_kv != cudaSuccess) return attr_kv;
   DeltaArgs da{a.o, a.dout, {a.st[O][0], a.st[O][1], a.st[O][2]},
@@ -666,26 +551,24 @@ cudaError_t launch(const Args& a, int bh, cudaStream_t stream) {
   delta_kernel<T><<<dim3((a.seq_q + 31) / 32, bh), 256, 0, stream>>>(da);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dq<<<dim3((a.seq_q + BM - 1) / BM, bh), NTHREADS, smem_q, stream>>>(a);
+  dq_kernel<T, W><<<dim3((a.seq_q + C::BM - 1) / C::BM, bh), C::Q_THREADS,
+                    C::q_bytes(), stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dkdv<<<dim3((a.seq_k + BM - 1) / BM, bh), NTHREADS, smem_kv, stream>>>(a);
+  dkdv_kernel<T, W><<<dim3((a.seq_k + C::BM - 1) / C::BM, bh),
+                      C::KV_THREADS, C::kv_bytes(), stream>>>(a);
   return cudaGetLastError();
 }
 
+// the narrowest width that holds d
 template <typename T>
 cudaError_t dispatch(const Args& a, int bh, cudaStream_t s) {
-  switch (a.d) {
-    case 16: return launch<T, 16>(a, bh, s);
-    case 32: return launch<T, 32>(a, bh, s);
-    case 48: return launch<T, 48>(a, bh, s);
-    case 64: return launch<T, 64>(a, bh, s);
-    case 80: return launch<T, 80>(a, bh, s);
-    case 96: return launch<T, 96>(a, bh, s);
-    case 112: return launch<T, 112>(a, bh, s);
-    case 128: return launch<T, 128>(a, bh, s);
-    default: return cudaErrorInvalidValue;
-  }
+  if (a.d <= 32) return launch<T, 32>(a, bh, s);
+  if (a.d <= 64) return launch<T, 64>(a, bh, s);
+  if (a.d <= 96) return launch<T, 96>(a, bh, s);
+  if (a.d <= 128) return launch<T, 128>(a, bh, s);
+  if (a.d <= 192) return launch<T, 192>(a, bh, s);
+  return launch<T, 256>(a, bh, s);
 }
 
 }  // namespace
@@ -702,7 +585,8 @@ extern "C" int dl4j_flash_attention_bwd(
     const long long* strides, float scale, int causal, int dtype,
     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (b < 1 || h < 1 || (long long)b * h > 65535 || seq_q < 1 || seq_k < 1)
+  if (b < 1 || h < 1 || (long long)b * h > 65535 || seq_q < 1 || seq_k < 1 ||
+      d < 8 || d > 256 || d % 8)
     return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q; a.k = k; a.v = v; a.o = o; a.dout = dout;

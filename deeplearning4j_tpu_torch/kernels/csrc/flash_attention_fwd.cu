@@ -1,320 +1,252 @@
-// Flash-attention forward for Hopper (sm_90a), the simple path: f32 at every
-// head dim, bf16 at the head dims the wgmma kernel does not take (16, 32, 48,
-// 80, 96, 112; flash_attention_fwd_wgmma.cu has bf16 at 64 and 128).
+// Flash-attention forward for Hopper (sm_90a), the mma.sync path: f32 at every
+// head dim, bf16 at the head dims the wgmma kernel does not take
+// (flash_attention_fwd_wgmma.cu has bf16 at 64 and 128); any d % 8 == 0 in
+// [8, 256].
 //
 // Replaces the Pallas TPU kernel `_attn_fwd_kernel` (launched by `_fwd_pallas`)
 // in deeplearning4j_tpu/kernels/flash_attention.py. It computes the same
 // function: o = softmax(q k^T * scale) v and lse = m + log l per query row,
 // with an online softmax over key tiles (f32 running max, sum and output
-// accumulator), low-precision operands with f32 accumulation, causal skip of
-// key tiles past the query tile's last row, the ragged key tail masked against
-// seq_k with the -1e30 sentinel, and o / max(l, 1e-30) at the end.
+// accumulator), causal skip of key tiles past the query tile's last row, the
+// ragged key tail masked against seq_k with the -1e30 sentinel, and
+// o / max(l, 1e-30) at the end. bf16 operands are multiplied exactly with f32
+// accumulation and P is rounded to bf16 before P V, as the reference does;
+// f32 products split each operand into two TF32 parts and take three tensor-
+// core products (flash_mma.cuh), so no operand is rounded to TF32 alone.
 //
-// What bounds it on the H100: at the prefill shapes (d = 64, T <= 1024) the
-// work is 4*T*T*d FLOPs per head against 4*T*d*itemsize bytes, i.e. T/2
-// FLOPs per byte, so above T ~ 600 (bf16) the tensor cores bound it and below
-// that the memory. This first version is neither: scores and P go through
-// shared memory between WMMA (mma.sync) tiles, so it is bound by shared-memory
-// traffic and synchronisation. What the design does about the real bounds:
-// each block keeps its Q tile and the running statistics on chip for the whole
-// key loop, so Q, K and V are read from device memory once per (query tile,
-// key tile) pair and O is written once, and the (T, T) score matrix never
-// reaches device memory. The bf16 d = 64 / 128 prefill path has the wgmma +
-// TMA redesign in flash_attention_fwd_wgmma.cu.
+// What bounds it on the H100: per head 4 Tq Tk d FLOPs (about half when
+// causal) against 2 (Tq + Tk) d itemsize bytes, so above T ~ 200 (f32, whose
+// split costs three products at the 495 TFLOP/s TF32 rate: 165 TFLOP/s) or
+// T ~ 600 (bf16; twice those when causal) the tensor cores bound it. The
+// design, FA2 in registers:
+// - a block is 4 warps over 64 query rows; each warp owns 16 rows for the
+//   whole key loop, with their S tile, P and O accumulator in registers, and
+//   their running max and sum; nothing of S or P touches shared memory;
+// - S = Q K^T and O += P V are mma.sync products (product_abt, product_acc);
+//   the online softmax runs on S's fragments: each row lives in one quad of
+//   lanes, so its max takes two shuffles, and its sum is kept per lane and
+//   joined once at the end; scores are scaled by scale * log2(e) in one
+//   multiply and exponentiated by ex2;
+// - Q is loaded once; K and V tiles of BN rows come through a two-stage
+//   cp.async ring (16-byte copies), the next tile's copy in flight while this
+//   tile's products run;
+// - a warp whose 16 rows see none of a causal key tile skips its products;
+//   query tiles are issued longest first.
 //
-// Layout: q (BH, seq_q, D), k and v (BH, seq_k, D), o like q, lse (BH, seq_q)
-// f32, all contiguous and 16-byte aligned (the Python wrapper checks this).
-// One thread block of 4 warps per (bh, 64-row query tile); warp w owns query
-// rows 16w..16w+15 of the tile for the whole kernel, so after the K/V tile is
-// staged every step of the key loop is warp-local. The online softmax walks
-// the warp's rows one at a time with each lane on two columns (consecutive
-// lanes on consecutive addresses, reductions by shuffle), and every lane
-// keeps all 16 rows' running max and sum in registers. Shared-memory rows are
-// padded by 16 bytes so that the 8-row fragment loads of WMMA do not all land
-// in the same banks.
+// Layout: q, k, v and o are (B, H, T, d) views of any strides with unit stride
+// on d and every other stride, and every base, 16-byte aligned (the Python
+// wrapper checks this; a (BH, T, d) tensor comes as (BH, 1, T, d)), so the
+// fused QKV projection is read, and o written, in place; lse is contiguous
+// (B * H, Tq) f32.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 #include <type_traits>
+
+#include "flash_mma.cuh"
 
 namespace {
 
 constexpr int BM = 64;          // query rows per block
-constexpr int BN = 64;          // key rows per tile
 constexpr int NWARPS = 4;
 constexpr int NTHREADS = NWARPS * 32;
-constexpr int WROWS = BM / NWARPS;   // 16 query rows per warp
 constexpr float NEG_INF = -1e30f;    // the reference's finite sentinel
-constexpr int LDS = BN + 4;          // f32 score rows
-typedef __nv_bfloat16 bf16;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
-// padded row strides (elements): operand tiles and P in T, O in f32
-template <typename T, int D> struct Ld {
-  static constexpr int QKV = D + 16 / (int)sizeof(T);
-  static constexpr int P = BN + 16 / (int)sizeof(T);
-  static constexpr int O = D + 4;
+// key rows a tile: 64, or 32 from W 192, where O takes 96 or 128 registers
+// a lane (16 for f32 at W 256, whose split fragments take more)
+template <typename T, int W> __host__ __device__ constexpr int key_tile() {
+  return W <= 128 ? 64 : std::is_same<T, float>::value && W == 256 ? 16 : 32;
+}
+
+template <typename T, int W>
+__host__ __device__ constexpr size_t smem_bytes() {
+  return (size_t)(BM + 4 * key_tile<T, W>()) * row_stride<T, W>() * sizeof(T);
+}
+
+struct Args {
+  const void* q; const void* k; const void* v; void* o;
+  float* lse;
+  long long st[4][3];           // (b, h, t) strides of q, k, v, o
+  int h, seq_q, seq_k, d;
+  float scale;
+  int causal;
 };
 
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_float<bf16>(float x) {
-  return __float2bfloat16(x);   // round to nearest even, as astype does
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// Copy rows [row0, row0 + BM) of a (n_rows, D) matrix into shared memory
-// rows of stride LD, zero-filling rows past the end, 16 bytes per thread.
-template <typename T, int D, int LD>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int row0,
-                                          int n_rows) {
-  constexpr int CHUNKS = D * (int)sizeof(T) / 16;
-  for (int i = threadIdx.x; i < BM * CHUNKS; i += NTHREADS) {
-    const int r = i / CHUNKS, c = i % CHUNKS;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_rows)
-      val = reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D)[c];
-    reinterpret_cast<uint4*>(dst + r * LD)[c] = val;
-  }
-}
-
-// S[16 rows of this warp][BN] = Q K^T (unscaled), f32.
-template <typename T, int D>
-__device__ __forceinline__ void warp_scores(const T* sQ, const T* sK, float* sS,
-                                            int warp, int lane) {
-  constexpr int LD = Ld<T, D>::QKV;
-  if constexpr (std::is_same<T, bf16>::value) {
-    using namespace nvcuda;
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-#pragma unroll
-    for (int nt = 0; nt < BN / 16; ++nt) {
-      wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::load_matrix_sync(a, sQ + warp * WROWS * LD + kk * 16, LD);
-        // K stored (BN, D) row-major is K^T column-major
-        wmma::load_matrix_sync(b, sK + nt * 16 * LD + kk * 16, LD);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(sS + warp * WROWS * LDS + nt * 16, acc, LDS,
-                              wmma::mem_row_major);
-    }
-  } else {
-    // f32 operands: scalar FMA in full f32 (no TF32 anywhere in the port)
-    for (int i = lane; i < WROWS * BN; i += 32) {
-      const int r = warp * WROWS + i / BN, c = i % BN;
-      const float* qr = sQ + r * LD;
-      const float* kr = sK + c * LD;
-      float acc = 0.0f;
-#pragma unroll 16
-      for (int d = 0; d < D; ++d) acc = fmaf(qr[d], kr[d], acc);
-      sS[r * LDS + c] = acc;
-    }
-  }
-}
-
-// O[16 rows of this warp][D] += P V, P in the operand type, f32 accumulation.
-template <typename T, int D>
-__device__ __forceinline__ void warp_pv(const T* sP, const T* sV, float* sO,
-                                        int warp, int lane) {
-  constexpr int LD = Ld<T, D>::QKV, LDP = Ld<T, D>::P, LDO = Ld<T, D>::O;
-  if constexpr (std::is_same<T, bf16>::value) {
-    using namespace nvcuda;
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-#pragma unroll
-    for (int dt = 0; dt < D / 16; ++dt) {
-      float* o_tile = sO + warp * WROWS * LDO + dt * 16;
-      wmma::load_matrix_sync(acc, o_tile, LDO, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) {
-        wmma::load_matrix_sync(a, sP + warp * WROWS * LDP + kk * 16, LDP);
-        wmma::load_matrix_sync(b, sV + kk * 16 * LD + dt * 16, LD);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(o_tile, acc, LDO, wmma::mem_row_major);
-    }
-  } else {
-    for (int i = lane; i < WROWS * D; i += 32) {
-      const int r = warp * WROWS + i / D, j = i % D;
-      float acc = sO[r * LDO + j];
-#pragma unroll 16
-      for (int c = 0; c < BN; ++c)
-        acc = fmaf(sP[r * LDP + c], sV[c * LD + j], acc);
-      sO[r * LDO + j] = acc;
-    }
-  }
-}
-
-template <typename T, int D>
-constexpr size_t smem_bytes() {
-  return (size_t)(3 * BM * Ld<T, D>::QKV + BM * Ld<T, D>::P) * sizeof(T) +
-         (size_t)(BM * LDS + BM * Ld<T, D>::O) * sizeof(float);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int seq_q, int seq_k, float scale,
-                 int causal) {
-  constexpr int LD = Ld<T, D>::QKV, LDP = Ld<T, D>::P, LDO = Ld<T, D>::O;
+template <typename T, int W>
+__global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(Args a) {
+  constexpr int BN = key_tile<T, W>(), NT = BN / 8, ld = row_stride<T, W>();
   extern __shared__ __align__(128) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
-  T* sK = sQ + BM * LD;
-  T* sV = sK + BN * LD;
-  T* sP = sV + BN * LD;
-  float* sS = reinterpret_cast<float*>(sP + BM * LDP);
-  float* sO = sS + BM * LDS;
+  T* sK = sQ + BM * ld;                   // two buffers of BN rows
+  T* sV = sK + 2 * BN * ld;
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const T* qb = q + (size_t)bh * seq_q * D;
-  const T* kb = k + (size_t)bh * seq_k * D;
-  const T* vb = v + (size_t)bh * seq_k * D;
+  const int bh = blockIdx.y, b = bh / a.h, hh = bh % a.h;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;   // longest rows first
+  const int lane = threadIdx.x % 32, r0 = threadIdx.x / 32 * 16;
+  const T* kb = static_cast<const T*>(a.k) + b * a.st[1][0] + hh * a.st[1][1];
+  const T* vb = static_cast<const T*>(a.v) + b * a.st[2][0] + hh * a.st[2][1];
 
-  load_tile<T, D, LD>(sQ, qb, q0, seq_q);
-  for (int i = threadIdx.x; i < BM * LDO; i += NTHREADS) sO[i] = 0.0f;
+  zero_pad(smem, smem_bytes<T, W>(), a.d < W, NTHREADS);
+  const int kv_end = a.causal ? min(a.seq_k, q0 + BM) : a.seq_k;
+  const int n_tiles = (kv_end + BN - 1) / BN;
+  const T* qb = static_cast<const T*>(a.q) + b * a.st[0][0] + hh * a.st[0][1];
+  load_tile<T, W, BM, NTHREADS>(sQ, qb, a.st[0][2], q0, a.seq_q, a.d);
+  load_tile<T, W, BN, NTHREADS>(sK, kb, a.st[1][2], 0, a.seq_k, a.d);
+  load_tile<T, W, BN, NTHREADS>(sV, vb, a.st[2][2], 0, a.seq_k, a.d);
+  cp_async_commit();
 
-  // running max and sum of the warp's 16 rows, the same in every lane
-  float m_run[WROWS], l_run[WROWS];
+  // this lane's two query rows (g and g + 8 of the warp's 16), their running
+  // max (base-2 units of the scaled scores) and this lane's part of their sum
+  int qi[2];
+  float m[2], l[2];
 #pragma unroll
-  for (int r = 0; r < WROWS; ++r) {
-    m_run[r] = NEG_INF;
-    l_run[r] = 0.0f;
+  for (int h = 0; h < 2; ++h) {
+    qi[h] = q0 + r0 + lane / 4 + 8 * h;
+    m[h] = NEG_INF;
+    l[h] = 0.0f;
   }
-
-  // causal: a key tile starting past the query tile's last row contributes
-  // nothing, so the loop stops before it
-  const int kv_end = causal ? min(seq_k, q0 + BM) : seq_k;
-  for (int kv0 = 0; kv0 < kv_end; kv0 += BN) {
-    __syncthreads();                  // every warp is done with the last K/V
-    load_tile<T, D, LD>(sK, kb, kv0, seq_k);
-    load_tile<T, D, LD>(sV, vb, kv0, seq_k);
-    __syncthreads();
-
-    warp_scores<T, D>(sQ, sK, sS, warp, lane);
-    __syncwarp();
-
-    // online softmax, one row at a time; this lane holds columns lane and
-    // lane + 32 of it
+  const float scale2 = a.scale * LOG2E;
+  float o[W / 8][4];
 #pragma unroll
-    for (int r = 0; r < WROWS; ++r) {
-      const int row = warp * WROWS + r;
-      const int q_idx = q0 + row;
-      const float* s_row = sS + row * LDS;
-      float s[2];
+  for (int j = 0; j < W / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.0f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int buf = t & 1, kv0 = t * BN;
+    if (t + 1 < n_tiles) {
+      load_tile<T, W, BN, NTHREADS>(sK + (buf ^ 1) * BN * ld, kb, a.st[1][2],
+                                    kv0 + BN, a.seq_k, a.d);
+      load_tile<T, W, BN, NTHREADS>(sV + (buf ^ 1) * BN * ld, vb, a.st[2][2],
+                                    kv0 + BN, a.seq_k, a.d);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    // causal: a tile that starts past the warp's last row adds nothing to it
+    if (!a.causal || kv0 <= q0 + r0 + 15) {
+      float s[NT][4];
+      product_abt<T, W, NT>(s, sQ, r0, sK + buf * BN * ld, lane);
+      // mask only the tiles that hold a masked key: a branch that pays off
+      // in f32, while bf16 runs faster masking every tile
+      const bool edge = std::is_same<T, bf16>::value || kv0 + BN > a.seq_k ||
+                        (a.causal && kv0 + BN - 1 > q0 + r0);
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[j][e] * scale2;
+          if (edge) {
+            const int ki = kv0 + j * 8 + 2 * (lane & 3) + (e & 1);
+            if (ki >= a.seq_k || (a.causal && ki > qi[e >> 1])) x = NEG_INF;
+          }
+          s[j][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      float alpha[2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int k_idx = kv0 + lane + 32 * h;
-        const bool keep = k_idx < seq_k && (!causal || q_idx >= k_idx);
-        s[h] = keep ? s_row[lane + 32 * h] * scale : NEG_INF;
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        alpha[h] = ex2(m[h] - mx[h]);
+        m[h] = mx[h];
+        l[h] *= alpha[h];
       }
-      const float m_new = fmaxf(m_run[r], warp_max(fmaxf(s[0], s[1])));
-      const float p0 = expf(s[0] - m_new), p1 = expf(s[1] - m_new);
-      T* p_row = sP + row * LDP;
-      p_row[lane] = from_float<T>(p0);   // P is cast to v's type before P V
-      p_row[lane + 32] = from_float<T>(p1);
-      const float alpha = expf(m_run[r] - m_new);
-      l_run[r] = l_run[r] * alpha + warp_sum(p0 + p1);
-      m_run[r] = m_new;
-      float* o_row = sO + row * LDO;
-      for (int j = lane; j < D; j += 32) o_row[j] *= alpha;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = ex2(s[j][e] - m[e >> 1]);
+          s[j][e] = p;                  // P, rounded to v's type in P V
+          l[e >> 1] += p;
+        }
+#pragma unroll
+      for (int j = 0; j < W / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
+      product_acc<T, W, NT>(o, s, sV + buf * BN * ld, lane);
     }
-    __syncwarp();
-
-    warp_pv<T, D>(sP, sV, sO, warp, lane);
-    __syncwarp();
+    __syncthreads();          // every warp is done with buf before its refill
   }
 
+  // o / max(l, 1e-30) as o times one correctly rounded reciprocal a row (a
+  // division an element would call its slow path, spilling O around it)
+  float inv[2];
 #pragma unroll
-  for (int r = 0; r < WROWS; ++r) {
-    const int row = warp * WROWS + r;
-    const int q_idx = q0 + row;
-    if (q_idx < seq_q) {
-      const float l = fmaxf(l_run[r], 1e-30f);
-      T* dst = o + ((size_t)bh * seq_q + q_idx) * D;
-      for (int j = lane; j < D; j += 32)
-        dst[j] = from_float<T>(sO[row * LDO + j] / l);
-      if (lane == 0) lse[(size_t)bh * seq_q + q_idx] = m_run[r] + logf(l);
-    }
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    l[h] = fmaxf(l[h], 1e-30f);
+    inv[h] = __frcp_rn(l[h]);
+  }
+#pragma unroll
+  for (int j = 0; j < W / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] *= inv[e >> 1];
+  store_rows<T, W>(o, static_cast<T*>(a.o) + b * a.st[3][0] + hh * a.st[3][1],
+                   a.st[3][2], q0 + r0, a.seq_q, a.d, 1.0f, lane);
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (qi[h] < a.seq_q)
+        a.lse[(size_t)bh * a.seq_q + qi[h]] = m[h] * LN2 + logf(l[h]);
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* lse, int bh, int seq_q, int seq_k, float scale,
-                   int causal, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<T, D>();
+template <typename T, int W>
+cudaError_t launch(const Args& a, int bh, cudaStream_t stream) {
   // the shared-memory opt-in, once per instantiation
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_fwd_kernel<T, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_bytes<T, W>());
   if (attr != cudaSuccess) return attr;
-  dim3 grid((seq_q + BM - 1) / BM, bh);
-  flash_fwd_kernel<T, D><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      seq_q, seq_k, scale, causal);
+  static_assert(smem_bytes<T, W>() <= 232448,
+                "over the 227 KB shared-memory opt-in");
+  dim3 grid((a.seq_q + BM - 1) / BM, bh);
+  flash_fwd_kernel<T, W><<<grid, NTHREADS, smem_bytes<T, W>(), stream>>>(a);
   return cudaGetLastError();
 }
 
-// bf16 at d = 64 and 128 is flash_attention_fwd_wgmma.cu's, not this file's
+// the narrowest width that holds d
 template <typename T>
-cudaError_t dispatch(int d, const void* q, const void* k, const void* v,
-                     void* o, void* lse, int bh, int seq_q, int seq_k,
-                     float scale, int causal, cudaStream_t s) {
-  constexpr bool F32 = std::is_same<T, float>::value;
-  switch (d) {
-    case 16: return launch<T, 16>(q, k, v, o, lse, bh, seq_q, seq_k, scale, causal, s);
-    case 32: return launch<T, 32>(q, k, v, o, lse, bh, seq_q, seq_k, scale, causal, s);
-    case 48: return launch<T, 48>(q, k, v, o, lse, bh, seq_q, seq_k, scale, causal, s);
-    case 80: return launch<T, 80>(q, k, v, o, lse, bh, seq_q, seq_k, scale, causal, s);
-    case 96: return launch<T, 96>(q, k, v, o, lse, bh, seq_q, seq_k, scale, causal, s);
-    case 112: return launch<T, 112>(q, k, v, o, lse, bh, seq_q, seq_k, scale, causal, s);
-    case 64:
-      if constexpr (F32) return launch<T, 64>(q, k, v, o, lse, bh, seq_q, seq_k, scale, causal, s);
-      return cudaErrorInvalidValue;
-    case 128:
-      if constexpr (F32) return launch<T, 128>(q, k, v, o, lse, bh, seq_q, seq_k, scale, causal, s);
-      return cudaErrorInvalidValue;
-    default: return cudaErrorInvalidValue;
-  }
+cudaError_t dispatch(const Args& a, int bh, cudaStream_t s) {
+  if (a.d <= 32) return launch<T, 32>(a, bh, s);
+  if (a.d <= 64) return launch<T, 64>(a, bh, s);
+  if (a.d <= 96) return launch<T, 96>(a, bh, s);
+  if (a.d <= 128) return launch<T, 128>(a, bh, s);
+  if (a.d <= 192) return launch<T, 192>(a, bh, s);
+  return launch<T, 256>(a, bh, s);
 }
 
 }  // namespace
 
-// Plain C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16.
-// Returns the launch's cudaError_t (0 on success); never synchronises.
-extern "C" int dl4j_flash_attention_fwd(const void* q, const void* k,
-                                        const void* v, void* o, void* lse,
-                                        int bh, int seq_q, int seq_k, int d,
-                                        float scale, int causal, int dtype,
-                                        void* stream) {
+// Plain C interface, loaded with ctypes: q, k, v, o (B, H, T, d) with (b, h,
+// t) strides in elements (unit stride on d), lse (B * H, seq_q) f32; d % 8 ==
+// 0 in [8, 256]. dtype: 0 = float32, 1 = bfloat16. Returns the launch's
+// cudaError_t (0 on success); never synchronises.
+extern "C" int dl4j_flash_attention_fwd(
+    const void* q, const void* k, const void* v, void* o, void* lse, int b,
+    int h, int seq_q, int seq_k, int d, long long q_sb, long long q_sh,
+    long long q_st, long long k_sb, long long k_sh, long long k_st,
+    long long v_sb, long long v_sh, long long v_st, long long o_sb,
+    long long o_sh, long long o_st, float scale, int causal, int dtype,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bh < 1 || bh > 65535 || seq_q < 1 || seq_k < 1)
+  if (b < 1 || h < 1 || (long long)b * h > 65535 || seq_q < 1 || seq_k < 1 ||
+      d < 8 || d > 256 || d % 8)
     return (int)cudaErrorInvalidValue;
-  if (dtype == 1)
-    return (int)dispatch<bf16>(d, q, k, v, o, lse, bh, seq_q, seq_k, scale, causal, s);
-  if (dtype == 0)
-    return (int)dispatch<float>(d, q, k, v, o, lse, bh, seq_q, seq_k, scale, causal, s);
+  Args a{q, k, v, o, static_cast<float*>(lse),
+         {{q_sb, q_sh, q_st}, {k_sb, k_sh, k_st}, {v_sb, v_sh, v_st},
+          {o_sb, o_sh, o_st}},
+         h, seq_q, seq_k, d, scale, causal};
+  if (dtype == 1) return (int)dispatch<bf16>(a, b * h, s);
+  if (dtype == 0) return (int)dispatch<float>(a, b * h, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -7,7 +7,7 @@ Replace the Pallas TPU kernel ``_attn_fwd_kernel`` (launched through
 backward ``_bwd_blockwise``. Four sources, each built with ``nvcc`` for
 ``sm_90a`` at first use (``_build.py``) and called through ctypes; each
 wrapper chooses its kernel explicitly by dtype and head dim
-(:func:`takes_wgmma`, :func:`takes_wgmma_bwd`):
+(:func:`kernel_for`):
 
 - ``csrc/flash_attention_fwd_wgmma.cu`` — bf16 at d = 64 and 128 (the
   model's prefill): ``wgmma`` for both products with scores, P and O in
@@ -15,10 +15,11 @@ wrapper chooses its kernel explicitly by dtype and head dim
   (B, H, T, d) views of any strides with unit stride on d and 16-byte
   multiples elsewhere, so the fused-QKV projection's views go in without a
   copy and o is written into a caller-given view.
-- ``csrc/flash_attention_fwd.cu`` — f32 (scalar FMA: the port allows no
-  TF32) and bf16 at the other head dims (16, 32, 48, 80, 96, 112): WMMA
-  through shared memory on contiguous (BH, T, d), 64 query rows per block.
-  Strided inputs are made contiguous for it first.
+- ``csrc/flash_attention_fwd.cu`` — f32, and bf16 at the other head dims:
+  FA2 in registers on ``mma.sync`` (bf16 m16n8k16; f32 m16n8k8 with each
+  operand split into two TF32 parts and three products, so no operand is
+  rounded to TF32 alone), scores, P and O in registers, K/V through a
+  ``cp.async`` ring, 64 query rows per block, on the same strided views.
 - ``csrc/flash_attention_bwd_wgmma.cu`` — the backward (dq, dk, dv) for
   bf16 at d = 64 and 128 (the model's training step): FA2's split into a D
   pass, a dQ kernel and a dK/dV kernel, ``wgmma`` for every product with
@@ -26,15 +27,21 @@ wrapper chooses its kernel explicitly by dtype and head dim
   reads and writes strided (B, H, T, d) views, so the fused projection's
   gradient is written in place.
 - ``csrc/flash_attention_bwd.cu`` — the backward for f32 and bf16 at the
-  other head dims, the same split through ``mma.sync`` (bf16) or scalar
-  FMA (f32), on the same strided views.
+  other head dims, the same split: bf16 through ``mma.sync`` (the
+  forward's products, ``csrc/flash_mma.cuh``), f32 through register-tiled
+  FMA summing in the plain version's order (the f32 tolerance row is
+  tighter than any other order can meet), on the same strided views.
+
+Both redesigned kernels take every head dim ``d % 8 == 0`` in [8, 256]
+(:func:`kernel_for`); the wgmma kernels keep bf16 at d 64 and 128.
 
 What bounds them on the H100: per head 4·Tq·Tk·d FLOPs forward and
 10·Tq·Tk·d backward (about half when causal) over 2·(Tq + Tk)·d·itemsize
 bytes forward and 4·(Tq + Tk)·d·itemsize backward, so in bf16 the tensor
 cores bound the forward above T ≈ 600 and the backward above T ≈ 470
-(about twice that when causal), device memory below. ``PERF.md`` holds
-the kernels' times beside the bound.
+(about twice that when causal), device memory below; the f32 forward's
+products, three TF32 products each, run at a third of the 495 TFLOP/s TF32
+rate. ``PERF.md`` holds the kernels' times beside the bound.
 
 Beside the kernels:
 
@@ -52,6 +59,9 @@ Beside the kernels:
   through: the forward kernel, and the backward kernel as its gradient.
 - ``launches_wgmma`` / ``launches_simple`` / ``launches_bwd_wgmma`` /
   ``launches_bwd`` — launches of each kernel.
+- :func:`tf32_split` / :func:`split_matmul` and the two
+  ``*_split_emulation`` functions — numpy emulations of the f32 forward's
+  products, for the tests and for predicting its error.
 """
 from __future__ import annotations
 
@@ -59,11 +69,14 @@ import ctypes
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 _NEG_INF = -1e30
 _SIMPLE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _WGMMA_DIMS = (64, 128)
+#: the head dims every kernel pair takes: multiples of 8 in [8, 256]
+HEAD_DIMS = tuple(range(8, 257, 8))
 
 #: launches of each kernel in this process (plain integers; set them to 0 to
 #: count one run's launches)
@@ -97,7 +110,8 @@ def _kernel(name: str):
                              else "dl4j_flash_bwd_error_string")
         else:
             fn = _build.bind(name, "dl4j_flash_attention_fwd",
-                             [p] * 5 + [i] * 4 + [ctypes.c_float, i, i, p],
+                             [p] * 5 + [i] * 5 + [ll] * 12
+                             + [ctypes.c_float, i, i, p],
                              "dl4j_cuda_error_string")
         _fns[name] = fn
     return fn
@@ -128,10 +142,20 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return o.to(q.dtype), (m + torch.log(l))[..., 0]
 
 
-def takes_wgmma(dtype: torch.dtype, d: int) -> bool:
-    """Whether the wgmma kernel takes operands of this dtype and head dim
-    (the simple kernel takes every other supported pair)."""
-    return dtype == torch.bfloat16 and d in _WGMMA_DIMS
+def kernel_for(dtype: torch.dtype, d: int) -> str:
+    """The kernel pair that takes attention of this dtype and head dim, for
+    the forward and the backward alike: "wgmma" (bf16 at d 64 and 128) or
+    "simple" (``flash_attention_fwd.cu`` / ``flash_attention_bwd.cu``: f32,
+    and bf16 at every other d). Raises TypeError outside f32 and bf16, and
+    ValueError for a head dim that is not a multiple of 8 in [8, 256]."""
+    if dtype not in _SIMPLE_DTYPES:
+        raise TypeError(f"flash attention takes float32 or bfloat16, not "
+                        f"{dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash attention: head dim {d} must be a multiple "
+                         f"of 8 in [8, 256]")
+    return "wgmma" if dtype == torch.bfloat16 and d in _WGMMA_DIMS \
+        else "simple"
 
 
 def _check(q, k, v, out):
@@ -152,10 +176,7 @@ def _check(q, k, v, out):
     if k.shape[:-2] != q.shape[:-2] or k.shape[-1] != q.shape[-1]:
         raise ValueError(f"flash_attention_fwd: k {tuple(k.shape)} does not "
                          f"match q {tuple(q.shape)}")
-    d = q.shape[-1]
-    if d % 16 or not 16 <= d <= 128:
-        raise ValueError(f"flash_attention_fwd: head dim {d} must be a "
-                         f"multiple of 16 in [16, 128]")
+    kernel_for(q.dtype, q.shape[-1])
     if q.shape[-2] < 1 or k.shape[-2] < 1 or q.numel() == 0:
         raise ValueError(f"flash_attention_fwd: empty operands "
                          f"{tuple(q.shape)}, {tuple(k.shape)}")
@@ -189,6 +210,15 @@ def _layout_error(t: torch.Tensor) -> Optional[str]:
     return None
 
 
+def _readable(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a contiguous copy of it where the kernels cannot read it
+    through its strides (a copy, not ``contiguous()``: a contiguous view
+    may still start off a 16-byte boundary)."""
+    if _layout_error(t) is None:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def _strided_operand(fn: str, name: str, t: torch.Tensor
                      ) -> Tuple[int, int, int, int]:
     err = _layout_error(t)
@@ -200,7 +230,7 @@ def _strided_operand(fn: str, name: str, t: torch.Tensor
 def tma_operand(name: str, t: torch.Tensor) -> Tuple[int, int, int, int]:
     """(data_ptr, stride_b, stride_h, stride_t) in elements of a
     (B, H, T, d) view, or of a (BH, T, d) one taken as (BH, 1, T, d), that
-    the wgmma kernel reads or writes as it is. Raises ValueError unless it
+    the forward kernels read or write as it is. Raises ValueError unless it
     has unit stride on d, a 16-byte aligned start, and every other stride
     of a dim longer than 1 a positive multiple of 16 bytes (TMA's rule)."""
     return _strided_operand("flash_attention_fwd", name, t)
@@ -209,7 +239,8 @@ def tma_operand(name: str, t: torch.Tensor) -> Tuple[int, int, int, int]:
 def wgmma_args(q, k, v, o, lse, causal: bool, scale: float) -> tuple:
     """The argument tuple of ``dl4j_flash_attention_fwd_wgmma`` for q, k,
     v and o, all (B, H, T, d) or all (BH, T, d), each checked by
-    :func:`tma_operand` (no launch)."""
+    :func:`tma_operand` (no launch); with the dtype code after it, that of
+    ``dl4j_flash_attention_fwd``."""
     ops = [tma_operand(n, t) for n, t in (("q", q), ("k", k), ("v", v),
                                           ("out", o))]
     if q.dim() == 3:
@@ -235,10 +266,12 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rank with Tk rows. ``out``, if given, is a view of q's shape that
     receives o (and is returned). lse has q's shape without d, f32.
 
-    A CUDA tensor launches a kernel on the current stream (or raises): the
-    wgmma kernel for bf16 at d 64 or 128, on the views as they are; the
-    simple kernel for f32 and the other head dims, on contiguous copies. A
-    CPU tensor takes :func:`flash_attention_reference`."""
+    A CUDA tensor launches a kernel on the current stream (or raises), on
+    views that meet :func:`tma_operand`'s rule as they are: the wgmma
+    kernel for bf16 at d 64 or 128 (other views raise), the simple kernel
+    for f32 and the other head dims (:func:`kernel_for`; other views go
+    through contiguous copies, as in :func:`flash_attention_bwd`). A CPU
+    tensor takes :func:`flash_attention_reference`."""
     global launches_wgmma, launches_simple
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
@@ -251,33 +284,27 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     d = q.shape[-1]
     lead, t_q = q.shape[:-2], q.shape[-2]
     lse = torch.empty((*lead, t_q), dtype=torch.float32, device=q.device)
-    if takes_wgmma(q.dtype, d):
-        o = out if out is not None else torch.empty(
-            q.shape, dtype=q.dtype, device=q.device)
+    if kernel_for(q.dtype, d) == "wgmma":
+        o = out if out is not None else torch.empty(q.shape, dtype=q.dtype,
+                                                    device=q.device)
         if (t_q + 127) // 128 > 65535:
             raise ValueError(f"flash_attention_fwd: Tq {t_q} too long")
         _call("flash_attention_fwd_wgmma",
               wgmma_args(q, k, v, o, lse, causal, scale), q.device)
         launches_wgmma += 1
         return o, lse
-    q3, k3, v3 = (t.reshape(-1, t.shape[-2], d).contiguous()
-                  for t in (q, k, v))
-    bh = q3.shape[0]
+    bh = q.shape[0] * (1 if q.dim() == 3 else q.shape[1])
     if bh > 65535:
         raise ValueError(f"flash_attention_fwd: B·H = {bh} > 65535 for "
                          f"{q.dtype} at head dim {d}")
-    for name, t in (("q", q3), ("k", k3), ("v", v3)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"flash_attention_fwd: {name} is not 16-byte "
-                             f"aligned")
-    o3 = torch.empty_like(q3)
+    q, k, v = (_readable(t) for t in (q, k, v))
+    o = out if out is not None and _layout_error(out) is None else \
+        torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _call("flash_attention_fwd",
-          (q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), o3.data_ptr(),
-           lse.data_ptr(), bh, t_q, k3.shape[1], d, float(scale),
-           int(bool(causal)), _SIMPLE_DTYPES[q.dtype]), q.device)
+          (*wgmma_args(q, k, v, o, lse, causal, scale),
+           _SIMPLE_DTYPES[q.dtype]), q.device)
     launches_simple += 1
-    o = o3.view(q.shape)
-    if out is None:
+    if out is None or o is out:
         return o, lse
     return out.copy_(o), lse
 
@@ -319,13 +346,6 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, causal: bool = False,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def takes_wgmma_bwd(dtype: torch.dtype, d: int) -> bool:
-    """Whether the wgmma backward takes gradients of this dtype and head
-    dim (``csrc/flash_attention_bwd.cu`` takes every other supported
-    pair)."""
-    return dtype == torch.bfloat16 and d in _WGMMA_DIMS
-
-
 def bwd_scratch_numel(b_h: int, t_q: int) -> int:
     """f32 scratch of the wgmma backward: D and a copy of lse, each
     (B·H, Tq rounded up to the 64-row query tile)."""
@@ -352,7 +372,7 @@ def bwd_wgmma_args(q, k, v, o, lse, do, dq, dk, dv, scratch) -> tuple:
     ``scratch`` (:func:`bwd_scratch_numel` f32) in place of D. The kernel
     reads q, k, v and dO through tensor maps, so every operand must meet
     :func:`tma_operand`'s rule, and only bf16 at d 64 or 128 is taken."""
-    if not takes_wgmma_bwd(q.dtype, q.shape[-1]):
+    if kernel_for(q.dtype, q.shape[-1]) != "wgmma":
         raise ValueError(f"flash_attention_bwd: the wgmma backward takes "
                          f"bf16 at head dim 64 or 128, not {q.dtype} at "
                          f"{q.shape[-1]}")
@@ -374,7 +394,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
     gradients (and are returned).
 
     A CUDA tensor launches a kernel (or raises): the wgmma backward for
-    bf16 at d 64 or 128 (:func:`takes_wgmma_bwd`), ``csrc/
+    bf16 at d 64 or 128 (:func:`kernel_for`), ``csrc/
     flash_attention_bwd.cu`` for the rest. The operands are read through
     their strides where they meet :func:`tma_operand`'s rule and from
     contiguous copies where not; the views in ``out`` must meet it. A CPU
@@ -408,12 +428,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
             raise ValueError(f"flash_attention_bwd: {name} "
                              f"{tuple(dst.shape)} {dst.dtype} must match "
                              f"{tuple(like.shape)} {like.dtype}")
-    q, k, v, o, do = (t if _layout_error(t) is None else t.contiguous()
-                      for t in (q, k, v, o, do))
+    q, k, v, o, do = (_readable(t) for t in (q, k, v, o, do))
     b_h = q.shape[0] * (1 if q.dim() == 3 else q.shape[1])
     if b_h > 65535:
         raise ValueError(f"flash_attention_bwd: B·H = {b_h} > 65535")
-    if takes_wgmma_bwd(q.dtype, q.shape[-1]):
+    if kernel_for(q.dtype, q.shape[-1]) == "wgmma":
         if (max(q.shape[-2], k.shape[-2]) + 127) // 128 > 65535:
             raise ValueError(f"flash_attention_bwd: T {q.shape[-2]}, "
                              f"{k.shape[-2]} too long")
@@ -480,3 +499,55 @@ class FlashAttention(torch.autograd.Function):
                             ctx.causal, ctx.scale,
                             out=_heads(dx, ctx.n_heads))
         return (None, None, None, *dx)
+
+
+# ---------------------------------------------- the TF32 split's products
+def tf32_round(x) -> np.ndarray:
+    """``cvt.rna.tf32.f32`` on a numpy array: each f32 value rounded to
+    TF32 (10 explicit mantissa bits, the low 13 bits of the f32 pattern
+    zero), to nearest with ties away from zero. Returns f32."""
+    u = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def tf32_split(x) -> Tuple[np.ndarray, np.ndarray]:
+    """(big, small), both TF32, with big = rna(x) and small = rna(x − big):
+    how the f32 forward splits each operand of a product (x − big is exact
+    in f32)."""
+    x = np.asarray(x, dtype=np.float32)
+    big = tf32_round(x)
+    return big, tf32_round(x - big)
+
+
+def split_matmul(a, b) -> np.ndarray:
+    """``a @ b`` over the last two dims as the f32 forward takes a product:
+    each operand split by :func:`tf32_split`, big·big + big·small +
+    small·big (small·small dropped), summed in f64 and rounded to f32 (the
+    tensor cores sum in f32 and truncate; that is not emulated)."""
+    (ab, as_), (bb, bs) = tf32_split(a), tf32_split(b)
+    a64, b64 = ab.astype(np.float64), bb.astype(np.float64)
+    return (a64 @ b64 + (a64 @ bs.astype(np.float64)
+                         + as_.astype(np.float64) @ b64)).astype(np.float32)
+
+
+def _causal_keep(t_q: int, t_k: int) -> np.ndarray:
+    return np.arange(t_q)[:, None] >= np.arange(t_k)[None, :]
+
+
+def flash_attention_split_emulation(q, k, v, causal: bool = False,
+                                    scale: Optional[float] = None):
+    """numpy (o, lse) of f32 attention over (..., T, d) with the f32
+    forward's products (:func:`split_matmul`) and the rest as
+    :func:`flash_attention_reference` computes it in f32."""
+    q, k, v = (np.asarray(t, dtype=np.float32) for t in (q, k, v))
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    s = split_matmul(q, np.swapaxes(k, -1, -2)) * np.float32(scale)
+    if causal:
+        s = np.where(_causal_keep(s.shape[-2], s.shape[-1]), s,
+                     np.float32(_NEG_INF))
+    m = s.max(axis=-1, keepdims=True)
+    p = np.exp(s - m)
+    l = np.maximum(p.sum(axis=-1, keepdims=True), np.float32(1e-30))
+    o = split_matmul(p, v) / l
+    return o, (m + np.log(l))[..., 0]

@@ -126,7 +126,7 @@ def test_cpu_out_receives_o_and_lse_has_q_shape():
     (torch.bfloat16, 112, False), (torch.float32, 64, False),
     (torch.float32, 128, False)])
 def test_dispatch_by_dtype_and_head_dim(dtype, d, wgmma):
-    assert fa.takes_wgmma(dtype, d) is wgmma
+    assert (fa.kernel_for(dtype, d) == "wgmma") is wgmma
 
 
 def _fused_qkv_views(b=2, t=5, h=2, hd=64, dtype=torch.bfloat16):
@@ -335,8 +335,9 @@ def test_bwd_args_reject_an_output_the_kernel_cannot_write():
     (torch.float32, 64, False), (torch.float32, 128, False)])
 def test_bwd_dispatch_by_dtype_and_head_dim(dtype, d, wgmma):
     """bf16 at d 64 and 128 (the model's layer) takes the wgmma backward;
-    every other pair the forwards take goes to the mma.sync / f32 one."""
-    assert fa.takes_wgmma_bwd(dtype, d) is wgmma
+    every other pair the forwards take goes to the mma.sync / f32 one
+    (one rule, ``fa.kernel_for``, routes both directions)."""
+    assert (fa.kernel_for(dtype, d) == "wgmma") is wgmma
 
 
 @pytest.mark.parametrize("b_h,t_q,want", [(1, 1, 2 * 64), (3, 64, 6 * 64),

@@ -7,6 +7,8 @@ only PyTorch and the CUDA toolkit::
     timeout 120 python -m pytest --noconftest -m gpu \\
         tests/test_torch_kernels_gpu.py -k "one_key_tile or one_tile"
     timeout 120 python -m pytest --noconftest -m gpu \\
+        tests/test_torch_kernels_gpu.py -k simple_one_tile
+    timeout 120 python -m pytest --noconftest -m gpu \\
         tests/test_torch_kernels_gpu.py -k bwd_wgmma_one_tile
     timeout 120 python -m pytest --noconftest -m gpu \\
         tests/test_torch_kernels_gpu.py -k ce_wgmma_one_tile
@@ -18,7 +20,8 @@ only PyTorch and the CUDA toolkit::
 in PERF.md: bf16 ``o`` atol 2e-2, f32 ``o`` atol 5e-5, ``lse`` atol 1e-3;
 the backward's are stated with its tests below. The wgmma kernels (forward
 and backward) take bf16 at d 64 and 128; the simple forward and the
-``mma.sync`` backward f32 and the other head dims.
+``mma.sync`` / FMA backward f32 and the other head dims, every d % 8 == 0
+in [8, 256].
 """
 import pytest
 import torch
@@ -39,7 +42,7 @@ def _held_to_reference(q, k, v, causal, out=None):
     fa.launches_wgmma = fa.launches_simple = 0
     o, lse = fa.flash_attention_fwd(q, k, v, causal, out=out)
     torch.cuda.synchronize()
-    wgmma = fa.takes_wgmma(q.dtype, q.shape[-1])
+    wgmma = fa.kernel_for(q.dtype, q.shape[-1]) == "wgmma"
     assert (fa.launches_wgmma, fa.launches_simple) == (
         (1, 0) if wgmma else (0, 1))
     o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal)
@@ -65,6 +68,19 @@ def test_wgmma_one_key_tile(cuda, causal):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_simple_one_tile(cuda, dtype, causal):
+    """The simple forward on one 64-row query tile against one 64-row key
+    tile, f32 (the three-product split) and bf16 at d 32: the fragment
+    layouts, the key renumbering of P V and the stores, before anything
+    larger."""
+    q, k, v = (_rand((2, 64, 32 if dtype == torch.bfloat16 else 64), 60 + i,
+                     dtype) for i in range(3))
+    _held_to_reference(q, k, v, causal)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype,causal,t_q,t_k,d", [
     (torch.bfloat16, True, 1000, 1000, 64),
     (torch.bfloat16, False, 128, 77, 64),
@@ -84,7 +100,16 @@ def test_wgmma_one_key_tile(cuda, causal):
     (torch.bfloat16, False, 300, 1000, 64),
     (torch.bfloat16, True, 129, 129, 80),
     (torch.float32, True, 129, 129, 128),
-    (torch.float32, True, 1, 1, 64)])
+    (torch.float32, True, 1, 1, 64),
+    # head dims past the old 16-128: 8, 40 (d % 16 == 8 in bf16), 136 and
+    # 256 (tile widths 192 and 256, shorter key tiles)
+    (torch.float32, True, 130, 130, 8),
+    (torch.bfloat16, True, 130, 130, 8),
+    (torch.float32, False, 77, 200, 40),
+    (torch.bfloat16, True, 200, 200, 40),
+    (torch.float32, True, 150, 150, 136),
+    (torch.float32, True, 300, 300, 256),
+    (torch.bfloat16, False, 100, 300, 256)])
 def test_flash_kernel_matches_reference(cuda, dtype, causal, t_q, t_k, d):
     q = _rand((4, t_q, d), t_q * 1000 + t_k, dtype)
     k, v = (_rand((4, t_k, d), t_q * 1000 + t_k + i, dtype)
@@ -97,17 +122,31 @@ def test_flash_kernel_matches_reference(cuda, dtype, causal, t_q, t_k, d):
     (1, 16, 1024, 64, torch.bfloat16),    # the model's prefill at 1024
     (4, 16, 128, 64, torch.bfloat16),     # the batch bucket
     (2, 8, 300, 128, torch.bfloat16),
-    (2, 4, 100, 32, torch.bfloat16),      # simple path, copied in and out
-    (1, 4, 200, 64, torch.float32)])
+    (2, 4, 100, 32, torch.bfloat16),      # the simple kernel, bf16
+    (1, 4, 200, 64, torch.float32),
+    (1, 16, 1024, 64, torch.float32),     # the f32 model's prefill
+    (8, 16, 1024, 64, torch.float32),     # the f32 training layer
+    (2, 3, 90, 40, torch.bfloat16),
+    (1, 2, 120, 256, torch.float32)])
 def test_flash_kernel_on_fused_qkv_views(cuda, b, h, t, hd, dtype):
     """The strided (B, H, T, hd) views of one fused projection, and o
     written into the (B, H, T, hd) view of a (B, T, H, hd) buffer, as
-    ``TransformerLM._attn`` calls it."""
+    ``TransformerLM._attn`` calls it: both kernels read and write the views
+    in place, so the wrapper allocates nothing beside lse."""
     c = h * hd
     qkv = _rand((b, t, 3 * c), b * t + hd, dtype)
     q, k, v = (x.reshape(b, t, h, hd).transpose(1, 2)
                for x in torch.split(qkv, c, dim=-1))
     o = torch.full((b, t, h, hd), float("nan"), device="cuda", dtype=dtype)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    fa.flash_attention_fwd(q, k, v, True, out=o.transpose(1, 2))
+    torch.cuda.synchronize()
+    # the call's peak is lse alone, (B, H, T) f32 in 512-byte blocks: no
+    # copy of q, k, v or o
+    lse_bytes = -(-4 * b * h * t // 512) * 512
+    assert torch.cuda.max_memory_allocated() - before <= lse_bytes
     got = _held_to_reference(q, k, v, True, out=o.transpose(1, 2))
     assert got.data_ptr() == o.data_ptr() and not o.isnan().any()
 
@@ -118,7 +157,10 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(TypeError):
         fa.flash_attention_fwd(q.half(), q.half(), q.half())
     with pytest.raises(ValueError, match="head dim"):
-        fa.flash_attention_fwd(q[..., :40], q[..., :40], q[..., :40])
+        fa.flash_attention_fwd(q[..., :36], q[..., :36], q[..., :36])
+    wide = torch.zeros((2, 32, 264), device="cuda", dtype=torch.float32)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_fwd(wide, wide, wide)
     with pytest.raises(ValueError, match="unit stride"):
         t = torch.zeros((2, 32, 128), device="cuda",
                         dtype=torch.bfloat16)[..., ::2]
@@ -127,6 +169,28 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
         t = torch.zeros((2, 32, 68), device="cuda",
                         dtype=torch.bfloat16)[..., :64]
         fa.flash_attention_fwd(t, t, t)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,hd", [(torch.float32, 64),
+                                      (torch.bfloat16, 40)])
+def test_simple_kernel_copies_views_it_cannot_read(cuda, dtype, hd):
+    """The simple kernel takes views outside tma_operand's rule through
+    contiguous copies, as the backward does: a non-unit stride on d, an
+    expanded (zero) stride, a start off 16 bytes, and an ``out`` of a
+    non-unit stride on d, which receives o. The backward takes the same
+    views."""
+    q = _rand((2, 3, 70, 2 * hd), 11, dtype)[..., ::2]
+    k = _rand((2, 1, 90, hd), 12, dtype).expand(2, 3, 90, hd)
+    v = _rand((2 * 3 * 90 * hd + 1,), 13, dtype)[1:].view(2, 3, 90, hd)
+    assert all(fa._layout_error(t) is not None for t in (q, k, v))
+    o = torch.full((2, 3, 70, 2 * hd), float("nan"), device="cuda",
+                   dtype=dtype)
+    got = _held_to_reference(q, k, v, True, out=o[..., ::2])
+    assert not o[..., ::2].isnan().any() and o[..., 1::2].isnan().all()
+    assert (got.float() - o[..., ::2].float()).abs().max().item() == 0
+    do = _rand((2, 3, 70, 2 * hd), 14, dtype)[..., 1::2]
+    _bwd_held_to_reference(q, k, v, True, do)
 
 
 # ------------------------------------------------------------- backward
@@ -156,7 +220,7 @@ def _bwd_held_to_reference(q, k, v, causal, do, out=None):
     fa.launches_bwd = fa.launches_bwd_wgmma = 0
     got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal, out=out)
     torch.cuda.synchronize()
-    wgmma = fa.takes_wgmma_bwd(q.dtype, q.shape[-1])
+    wgmma = fa.kernel_for(q.dtype, q.shape[-1]) == "wgmma"
     assert (fa.launches_bwd_wgmma, fa.launches_bwd) == (
         (1, 0) if wgmma else (0, 1))
     ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal)
@@ -195,6 +259,17 @@ def test_bwd_one_tile(cuda, causal):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+def test_bwd_f32_one_tile(cuda, causal):
+    """The f32 backward (FMA on the CUDA cores, each sum in the plain
+    version's order) on one 32-row query tile against one key tile, before
+    anything larger."""
+    q, k, v, do = (_rand((2, 32, 64), 30 + i, torch.float32)
+                   for i in range(4))
+    _bwd_held_to_reference(q, k, v, causal, do)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype,causal,t_q,t_k,d", [
     (torch.bfloat16, True, 1024, 1024, 64),
     (torch.bfloat16, True, 991, 991, 64),
@@ -211,7 +286,18 @@ def test_bwd_one_tile(cuda, causal):
     (torch.bfloat16, True, 200, 200, 32),
     (torch.bfloat16, True, 129, 129, 80),
     (torch.float32, True, 256, 256, 64),
-    (torch.float32, False, 20, 130, 48)])
+    (torch.float32, False, 20, 130, 48),
+    # head dims past the old 16-128; from tile width 192 (f32 from 128) the
+    # dK/dV block splits into a dV and a dK group
+    (torch.float32, True, 130, 130, 8),
+    (torch.bfloat16, True, 130, 130, 8),
+    (torch.float32, True, 200, 200, 40),
+    (torch.bfloat16, False, 77, 200, 40),
+    (torch.float32, True, 150, 150, 136),
+    (torch.float32, True, 300, 300, 256),
+    (torch.bfloat16, True, 300, 300, 256),
+    (torch.float32, False, 300, 77, 256),
+    (torch.float32, True, 1024, 1024, 64)])
 def test_bwd_kernel_matches_reference(cuda, dtype, causal, t_q, t_k, d):
     seed = t_q * 1000 + t_k + d
     q, do = (_rand((3, t_q, d), seed + i, dtype) for i in (0, 3))
@@ -224,7 +310,10 @@ def test_bwd_kernel_matches_reference(cuda, dtype, causal, t_q, t_k, d):
     (2, 16, 1024, 64, torch.bfloat16),     # the training layer, two rows
     (2, 8, 300, 128, torch.bfloat16),
     (2, 4, 100, 32, torch.bfloat16),
-    (1, 4, 200, 64, torch.float32)])
+    (1, 4, 200, 64, torch.float32),
+    (8, 16, 1024, 64, torch.float32),     # the f32 training layer
+    (2, 3, 90, 40, torch.bfloat16),
+    (1, 2, 120, 256, torch.float32)])
 def test_bwd_kernel_on_fused_qkv_views(cuda, b, h, t, hd, dtype):
     """q, k, v the views of one fused projection, dO the (B, H, T, hd) view
     of a (B, T, C) gradient, and dq, dk, dv written into the views of one
@@ -256,6 +345,35 @@ def test_autograd_function_launches_both_kernels(cuda):
     assert (fa.launches_wgmma, fa.launches_bwd_wgmma) == (1, 1)
     assert (fa.launches_simple, fa.launches_bwd) == (0, 0)
     assert g.shape == x.shape and g.isfinite().all()
+
+
+@pytest.mark.gpu
+def test_autograd_function_in_f32_launches_the_simple_pair(cuda):
+    """The f32 model's layer (fused QKV, d 64) goes through the simple
+    forward and the mma.sync / FMA backward, never a wgmma kernel, and its
+    gradient matches the plain versions' within the K2 rows."""
+    b, t, h, hd = 2, 200, 4, 64
+    x = _rand((b, t, 3 * h * hd), 6, torch.float32).requires_grad_()
+    fa.launches_wgmma = fa.launches_simple = 0
+    fa.launches_bwd = fa.launches_bwd_wgmma = 0
+    o = fa.FlashAttention.apply(h, True, hd ** -0.5, x)
+    g_o = _rand(o.shape, 7, torch.float32)
+    (g,) = torch.autograd.grad(o, x, g_o)
+    torch.cuda.synchronize()
+    assert (fa.launches_simple, fa.launches_bwd) == (1, 1)
+    assert (fa.launches_wgmma, fa.launches_bwd_wgmma) == (0, 0)
+    q, k, v = (a.reshape(b, t, h, hd).transpose(1, 2)
+               for a in torch.split(x.detach(), h * hd, -1))
+    o_ref, lse = fa.flash_attention_reference(q, k, v, True)
+    assert (o.detach().view(b, t, h, hd).transpose(1, 2) - o_ref).abs() \
+        .max().item() <= 5e-5
+    ref = fa.flash_attention_bwd_reference(
+        q, k, v, o.detach().view(b, t, h, hd).transpose(1, 2), lse,
+        g_o.view(b, t, h, hd).transpose(1, 2), True)
+    for got, want in zip(torch.split(g, h * hd, -1), ref):
+        want = want.transpose(1, 2).reshape(b, t, h * hd)
+        assert (got - want).abs().max().item() <= 1e-5 * max(
+            1.0, want.abs().max().item())
 
 
 @pytest.mark.gpu
