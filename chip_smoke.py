@@ -8,9 +8,10 @@ Run from the root of a checkout, with no arguments::
 It builds every CUDA kernel of the port from ``kernels/csrc/`` with
 ``nvcc`` (one process per source, all at once), checks in ptxas's report
 that the wgmma forward has 168 registers a thread at entry and no spills,
-that the wgmma backward's and the wgmma K3's kernels, every instantiation
-of the mma.sync flash forward and backward and of K4a spill nothing, and
-that no wgmma source has its products serialized (C7514/C7512), then:
+that the wgmma backward's and the wgmma and tf32 K3's kernels, every
+instantiation of the mma.sync flash forward and backward and of K4a spill
+nothing, and that no wgmma source has its products serialized
+(C7514/C7512), then:
 
 1. kernel phase — holds each flash-attention kernel (the wgmma kernel for
    bf16 at d 64/128, the simple kernel for f32 and the other head dims, any
@@ -38,8 +39,9 @@ that no wgmma source has its products serialized (C7514/C7512), then:
    bf16 dlogits in its backward) against autograd through the f32 product
    at the training layer;
    then K3 (chunked cross-entropy: the forward K3f and one chunk's dlogits
-   K3b; the wgmma kernels for bf16, chunked_ce.cu's for f32, and both
-   designs in turns at the training shape) and K7 (MoE dispatch K7d and
+   K3b; the wgmma kernels for bf16, the tf32 kernels and their split pass
+   for f32, and chunked_ce.cu's in turns against each at its training
+   shape) and K7 (MoE dispatch K7d and
    combine K7c, each also in its gradient mode) against their plain
    versions at the training shapes and at ragged and small ones, timed the
    same two ways beside their bounds and the library calls they stand for
@@ -91,8 +93,9 @@ that no wgmma source has its products serialized (C7514/C7512), then:
    simple forward, 32 greedy tokens through K4a, the decode logits held to
    ``apply``), then rungs (8, no, 0) and (8, no, 8) (2 warm and 3 timed
    steps, a profiled step each; the simple forward, the mma.sync / FMA
-   backward and chunked_ce.cu's K3 on every step, no wgmma flash kernel)
-   and one full-width gradient on the kernels against the plain versions.
+   backward and the tf32 K3 with its split pass on every step, no wgmma
+   flash kernel and chunked_ce.cu's K3 never) and one full-width gradient
+   on the kernels against the plain versions.
 
 Every phase must pass: any failure exits nonzero. Output is one JSON
 object per line; the last line is ``{"ok": true, "device": {...}}``.
@@ -105,7 +108,9 @@ its main shapes) in this tree and in the checkout at OTHER in turns
 each case's device ms per turn; ``--compare-f32 OTHER`` does the same for
 the simple forward and the mma.sync / FMA backward at F32_COMPARE_CASES.
 ``--precision-f32`` holds the f32 kernels and the plain versions against
-f64 at the f32 shapes.
+f64 at the f32 shapes; ``--precision-ce-f32`` holds the f32 K3 (the scalar
+FMA kernel of chunked_ce.cu and the tf32 one) and its plain versions
+against f64 at the f32 training shape, and times both kernels in turns.
 """
 from __future__ import annotations
 
@@ -185,18 +190,24 @@ SOURCES = {"wgmma": "flash_attention_fwd_wgmma.cu",
 # the launch counters of the four kernels, in the order counts() gives them
 KERNELS = ("wgmma", "simple", "bwd_wgmma", "bwd")
 # every kernel of the port, in the order all_counts() gives their launches:
-# the four flash kernels, then K3f and K3b of chunked_ce.cu (f32 and bf16 at
-# other d), K7d and K7c, then the wgmma K3f and K3b (bf16 at d % 64 == 0),
-# then K4a (paged decode attention) and K4w (int8 quantize-and-scatter)
+# the four flash kernels, then K3f and K3b of chunked_ce.cu (bf16 at other
+# d; its f32 kernel, on no path since the tf32 one), K7d and K7c, then the
+# wgmma K3f and K3b (bf16 at d % 64 == 0), then K4a (paged decode attention)
+# and K4w (int8 quantize-and-scatter), then the tf32 K3f and K3b (f32) and
+# their operands' split pass
 ALL_KERNELS = KERNELS + ("ce_fwd", "ce_dlogits", "moe_dispatch",
                          "moe_combine", "ce_fwd_wgmma", "ce_dlogits_wgmma",
-                         "paged_attention", "kv_quant_write")
+                         "paged_attention", "kv_quant_write", "ce_fwd_tf32",
+                         "ce_dlogits_tf32", "ce_split_tf32")
 SOURCES.update(ce_fwd="chunked_ce.cu", ce_dlogits="chunked_ce.cu",
                moe_dispatch="moe_route.cu", moe_combine="moe_route.cu",
                ce_fwd_wgmma="chunked_ce_wgmma.cu",
                ce_dlogits_wgmma="chunked_ce_wgmma.cu",
                paged_attention="paged_attention.cu",
-               kv_quant_write="paged_attention.cu")
+               kv_quant_write="paged_attention.cu",
+               ce_fwd_tf32="chunked_ce_tf32.cu",
+               ce_dlogits_tf32="chunked_ce_tf32.cu",
+               ce_split_tf32="chunked_ce_tf32.cu")
 # K2 (backward) cases, laid out as KERNEL_CASES: "fused" takes q, k, v from
 # one (B, T, 3·H·d) projection, o from the forward written as TransformerLM
 # writes it, dO as the (B, H, T, d) view of a (B, T, H·d) gradient, and
@@ -289,18 +300,29 @@ LEARNING_RATE = 3e-4
 MOE_EXPERTS = 8
 MOE_RUNG = (8, False, 8)
 # K3 (chunked cross-entropy) cases: (rows N, vocab V, d, dtype, ce chunks);
-# the first is the training layer (bench large config, batch 8). The bf16
-# cases take the wgmma kernels, the f32 one chunked_ce.cu's
+# the first is the training layer (bench large config, batch 8), the last
+# the same in f32 (the f32 model's training layer). The bf16 cases take the
+# wgmma kernels, the f32 ones the tf32 kernels (the small one ragged-free
+# but many splits)
 CE_CASES = [
     (8192, 32768, 1024, "bfloat16", 8),
     (4096, 32768, 1024, "bfloat16", 8),      # batch 4
     (1000, 5000, 1024, "bfloat16", 4),       # ragged rows and vocab
     (1, 384, 64, "bfloat16", 3),
     (1024, 4096, 256, "float32", 4),
+    (8192, 32768, 1024, "float32", 8),
 ]
-# the case each K3 kernel's kernels-line numbers come from
+# the case each K3 kernel's kernels-line numbers come from: the training
+# shape of its type (chunked_ce.cu's, on no path for f32, from its
+# turns against the tf32 kernels there)
 CE_MAIN_CASE = {"ce_fwd_wgmma": CE_CASES[0], "ce_dlogits_wgmma": CE_CASES[0],
-                "ce_fwd": CE_CASES[4], "ce_dlogits": CE_CASES[4]}
+                "ce_fwd": CE_CASES[5], "ce_dlogits": CE_CASES[5],
+                "ce_fwd_tf32": CE_CASES[5], "ce_dlogits_tf32": CE_CASES[5],
+                "ce_split_tf32": CE_CASES[5]}
+# where chunked_ce.cu's kernels are forced onto the operands and timed in
+# turns against the kernels that take them: the bf16 and f32 training
+# shapes
+CE_TURN_CASES = (CE_CASES[0], CE_CASES[5])
 # K7 (MoE dispatch / combine) cases: (tokens G, experts E, slots C, top_k,
 # d, dtype); the first is the training layer (G 8192, cf 1.25 top-1)
 MOE_CASES = [
@@ -391,8 +413,9 @@ TOL_RUNG_LOSS = 5e-5
 # bandwidth
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
-# the rate attention's f32 work could run at: three TF32 products (the
-# split that keeps f32 accuracy) at the 495 TFLOP/s dense TF32 peak
+# the rate f32 products on the tensor cores could run at (attention's and
+# K3's): three TF32 products (the split that keeps f32 accuracy) at the
+# 495 TFLOP/s dense TF32 peak
 ATTN_PEAK_FLOPS = {"bfloat16": 989e12, "float32": 495e12 / 3}
 # the wgmma kernel's 384 threads: ptxas must budget 168 registers a thread
 # at entry, which its setmaxnreg 24 / 240 split balances to the register
@@ -635,6 +658,19 @@ def ce_wgmma_ptxas(log):
     instantiations of the wgmma chunked cross-entropy kernel."""
     return _ptxas(log, r"ce_wgmma_kernelILb([01])E",
                   lambda m: "dlogits" if m.group(1) == "1" else "fwd")
+
+
+def ce_tf32_ptxas(log):
+    """{"fwd"|"dlogits"|"split": {"registers": n, "spill_bytes": n}} for
+    the kernels of ``chunked_ce_tf32.cu``: K3f and K3b
+    (``ce_tf32_kernel<DLOGITS>``) and the split pass."""
+    return _ptxas(
+        log, r"ce_split_kernel|ce_tf32_kernelILb([01])E",
+        lambda m: "split" if m.group(1) is None else
+        "dlogits" if m.group(1) == "1" else "fwd")
+
+
+CE_TF32_INSTANTIATIONS = ["dlogits", "fwd", "split"]
 
 
 # every instantiation of the mma.sync / FMA flash kernels: the forward at
@@ -930,7 +966,9 @@ def all_counts():
     return counts(fa) + (ce.launches_fwd, ce.launches_dlogits,
                          mr.launches_dispatch, mr.launches_combine,
                          ce.launches_fwd_wgmma, ce.launches_dlogits_wgmma,
-                         pa.launches_attend, pa.launches_quant_write)
+                         pa.launches_attend, pa.launches_quant_write,
+                         ce.launches_fwd_tf32, ce.launches_dlogits_tf32,
+                         ce.launches_split_tf32)
 
 
 def reset_all_counts():
@@ -941,6 +979,8 @@ def reset_all_counts():
     reset_counts(fa)
     ce.launches_fwd = ce.launches_dlogits = 0
     ce.launches_fwd_wgmma = ce.launches_dlogits_wgmma = 0
+    ce.launches_fwd_tf32 = ce.launches_dlogits_tf32 = 0
+    ce.launches_split_tf32 = 0
     mr.launches_dispatch = mr.launches_combine = 0
     pa.launches_attend = pa.launches_quant_write = 0
 
@@ -950,20 +990,32 @@ def delta(before):
     return tuple(a - b for a, b in zip(all_counts(), before))
 
 
-def ce_fwd_bound_ms(n, v, d, dtype):
+def ce_fwd_bound_ms(n, v, d, dtype, peaks=None):
     """K3f's least time: 2·N·V·d FLOPs of the logits over the peak of the
-    type, against x and E read once, targets read and lse written once."""
+    type (``ATTN_PEAK_FLOPS``: f32 as three TF32 products at a third of the
+    TF32 rate, or ``peaks``), against x and E read once, targets read and
+    lse written once."""
     item = 2 if dtype == "bfloat16" else 4
     return _bound(2.0 * n * v * d, item * (n + v) * d + 8 * n + 4 * n + 4,
-                  dtype)
+                  dtype, peaks or ATTN_PEAK_FLOPS)
 
 
-def ce_dlogits_bound_ms(n, c, d, dtype):
-    """One K3b launch's least time: 2·N·C·d FLOPs against x, the chunk of
-    E, targets and lse read once and the (N, C) dlogits written once."""
+def ce_dlogits_bound_ms(n, c, d, dtype, peaks=None):
+    """One K3b launch's least time: 2·N·C·d FLOPs (over the peak as in
+    :func:`ce_fwd_bound_ms`) against x, the chunk of E, targets and lse
+    read once and the (N, C) dlogits written once."""
     item = 2 if dtype == "bfloat16" else 4
     return _bound(2.0 * n * c * d,
-                  item * (n + c) * d + 12 * n + item * n * c, dtype)
+                  item * (n + c) * d + 12 * n + item * n * c, dtype,
+                  peaks or ATTN_PEAK_FLOPS)
+
+
+def ce_split_bound_ms(n, v, d):
+    """The split pass's least time: x (N, d) and E (V, d) in f32 read
+    once and their two TF32 parts, rows of d rounded up to 32, written
+    once, over the memory rate (no arithmetic to speak of)."""
+    dp = -(-d // 32) * 32
+    return _bound(0.0, 4 * (n + v) * (d + 2 * dp), "float32")
 
 
 def moe_bound_ms(rows_read, rows_written, d, dtype, index_bytes):
@@ -1017,14 +1069,14 @@ def ce_checked(torch, ce, case, x, e, t, lse_ref, cor, kernel=None):
     L2 off the targets, max |Δ| at the targets over g/N)."""
     n, v, d, dtype, chunks = case
     path = kernel or ce.kernel_for("cuda", x.dtype, d, True)
-    counters = {"wgmma": ("launches_fwd_wgmma", "launches_dlogits_wgmma"),
-                "mma_sync": ("launches_fwd", "launches_dlogits")}
+    suffix = {"wgmma": "_wgmma", "tf32": "_tf32", "mma_sync": ""}[path]
     reset_all_counts()
     lse, loss = ce.chunked_ce_fwd(x, e, t, chunks, kernel=kernel)
     torch.cuda.synchronize()
     want = [0] * len(ALL_KERNELS)
-    want[ALL_KERNELS.index("ce_fwd" + ("_wgmma" if path == "wgmma"
-                                       else ""))] = 1
+    want[ALL_KERNELS.index("ce_fwd" + suffix)] = 1
+    if path == "tf32":              # the operands' split pass first
+        want[ALL_KERNELS.index("ce_split_tf32")] = 1
     check(all_counts() == tuple(want), f"K3f {case} ({path}): launched "
           f"{all_counts()} {ALL_KERNELS}")
     err_lse = (lse - lse_ref).abs().max().item()
@@ -1037,8 +1089,8 @@ def ce_checked(torch, ce, case, x, e, t, lse_ref, cor, kernel=None):
     dlog = ce.ce_dlogits(x, e[:c], t, lse_ref, 0, gr, n, kernel=kernel)
     ref = ce.ce_dlogits_reference(x, e[:c], t, lse_ref, 0, gr, n)
     torch.cuda.synchronize()
-    check(getattr(ce, counters[path][1]) == 1, f"K3b {case} ({path}): did "
-          f"not launch")
+    check(all_counts()[ALL_KERNELS.index("ce_dlogits" + suffix)] == 1,
+          f"K3b {case} ({path}): did not launch")
     local = torch.where(t < c, t, -1)
     rel, at = dlogits_errors(dlog, ref, local, 1.0 / n)
     check(rel <= TOL_CE_DLOG_L2[dtype] and at <= TOL_CE_DLOG_TARGET[dtype],
@@ -1050,19 +1102,25 @@ def ce_checked(torch, ce, case, x, e, t, lse_ref, cor, kernel=None):
 
 def ce_phase(torch):
     """K3f and K3b against their plain versions at each of CE_CASES (the
-    wgmma kernels on the bf16 cases, chunked_ce.cu's on the f32 one),
-    timed as the flash kernels are. K3f's library time is the unchunked
-    path it replaces, two calls: the tied head's product into f32 logits
-    (``_TiedHead``, or the f32 product) and logsumexp minus the gathered
-    target logit; K3b's is that path's backward (the f32 dlogits, then the
-    head's bf16 backward), as the difference of its forward + backward and
-    its forward. K3b itself is timed per launch (one ce chunk) and as the
-    whole chunked backward (every chunk's K3b and its two products). At
-    the training shape chunked_ce.cu's kernels also run on the bf16
-    operands, held to the plain versions too, and both designs' device
-    times are taken in turns (mma.sync, wgmma, wgmma, mma.sync)."""
+    wgmma kernels on the bf16 cases, the tf32 kernels and their split pass
+    on the f32 ones), timed as the flash kernels are. K3f's library time is
+    the unchunked path it replaces, two calls: the tied head's product into
+    f32 logits (``_TiedHead``, or the f32 product with TF32 off) and
+    logsumexp minus the gathered target logit; K3b's is that path's
+    backward (the f32 dlogits, then the head's backward), as the
+    difference of its forward + backward and its forward. K3b itself is
+    timed per launch (one ce chunk, on parts split beforehand where the
+    kernel is tf32, as the backward does) and as the whole chunked backward
+    (the split, every chunk's K3b and its two products). At the two
+    training shapes (CE_TURN_CASES) chunked_ce.cu's kernels also run on the
+    same operands, held to the plain versions too, and both designs'
+    device times are taken in turns (mma.sync, new, new, mma.sync). The
+    split pass is held to its plain version bit for bit and timed at the
+    f32 cases."""
     from deeplearning4j_tpu_torch.kernels import chunked_ce as ce
     from deeplearning4j_tpu_torch.models.transformer import _TiedHead
+    # the yardstick's f32 products are f32 (the port's TF32 policy)
+    torch.backends.cuda.matmul.allow_tf32 = False
     results = {}
     for case in CE_CASES:
         n, v, d, dtype, chunks = case
@@ -1074,6 +1132,10 @@ def ce_phase(torch):
         lse_ref, cor = ce.chunked_ce_fwd_reference(x, e, t, chunks)
         path, err_lse, err_loss, err_dlog, rel, at = ce_checked(
             torch, ce, case, x, e, t, lse_ref, cor)
+        tf32 = path == "tf32"
+        parts = ce.split_tf32(x, e) if tf32 else None
+        parts0 = parts[:2] + tuple(p[:c] for p in parts[2:]) if tf32 \
+            else None
 
         def head_fwd(xs, es):
             if dt == torch.bfloat16:
@@ -1095,7 +1157,8 @@ def ce_phase(torch):
             ce.chunked_ce_fwd(x, e, t, chunks, kernel=kernel)
 
         def dlogits(kernel=None):
-            ce.ce_dlogits(x, e0, t, lse_ref, 0, gr, n, kernel=kernel)
+            ce.ce_dlogits(x, e0, t, lse_ref, 0, gr, n, kernel=kernel,
+                          parts=parts0 if kernel is None else None)
 
         def backward():
             ce.chunked_ce_bwd(x, e, t, lse_ref, gr, chunks)
@@ -1121,8 +1184,10 @@ def ce_phase(torch):
                "backward_ms": time_ms(backward, torch, iters=5, repeats=5),
                "backward_device_ms": device_ms(backward, torch, launches=5,
                                                repeats=5),
-               "library": "_TiedHead (torch.mm out_dtype=f32) + "
-                          "logsumexp - gather; its backward",
+               "library": ("_TiedHead (torch.mm out_dtype=f32)"
+                           if dt == torch.bfloat16 else
+                           "f32 product (TF32 off)")
+               + " + logsumexp - gather; its backward",
                "library_ms": time_ms(library_fwd, torch, iters=5,
                                      repeats=5),
                "library_device_ms": device_ms(library_fwd, torch,
@@ -1137,28 +1202,58 @@ def ce_phase(torch):
             n, v, d, dtype)
         row["dlogits_bound_ms"], row["dlogits_bound_by"] = \
             ce_dlogits_bound_ms(n, c, d, dtype)
+        if dtype == "float32":      # the bounds at the f32 FMA rate beside
+            row["fwd_bound_fma_ms"] = ce_fwd_bound_ms(n, v, d, dtype,
+                                                      PEAK_FLOPS)[0]
+            row["dlogits_bound_fma_ms"] = ce_dlogits_bound_ms(
+                n, c, d, dtype, PEAK_FLOPS)[0]
         row["fwd_device_vs_bound"] = row["fwd_device_ms"] / row[
             "fwd_bound_ms"]
         row["backward_device_vs_bound"] = row["backward_device_ms"] / (
             chunks * row["dlogits_bound_ms"])
-        if case == CE_CASES[0]:
-            # chunked_ce.cu's kernels on the same bf16 operands: held to
-            # the plain versions, then both designs timed in turns
+        if tf32:
+            want = ce.split_tf32_reference(x) + ce.split_tf32_reference(e)
+            exact = all(torch.equal(a.view(torch.int32),
+                                    b.view(torch.int32))
+                        for a, b in zip(parts, want))
+            check(exact, f"split pass {case}: not its plain version's bits")
+            del want
+            row["split"] = {
+                "exact": exact, "ms": time_ms(lambda: ce.split_tf32(x, e),
+                                              torch),
+                "device_ms": device_ms(lambda: ce.split_tf32(x, e), torch),
+                "plain_ms": time_ms(
+                    lambda: (ce.split_tf32_reference(x),
+                             ce.split_tf32_reference(e)), torch, iters=3,
+                    repeats=3)}
+            row["split"]["bound_ms"], row["split"]["bound_by"] = \
+                ce_split_bound_ms(n, v, d)
+        if case in CE_TURN_CASES:
+            # chunked_ce.cu's kernels on the same operands: held to the
+            # plain versions, then both designs timed in turns
             _p, *errs = ce_checked(torch, ce, case, x, e, t, lse_ref, cor,
                                    kernel="mma_sync")
-            row["mma_sync_errors"] = dict(zip(
+            old = dict(zip(
                 ("max_abs_err_lse", "abs_err_loss", "max_abs_err_dlogits",
                  "dlogits_rel_l2_off_target",
                  "dlogits_err_at_target_over_scale"), errs))
-            turns = {"fwd": {"mma_sync": [], "wgmma": []},
-                     "dlogits": {"mma_sync": [], "wgmma": []}}
-            for kernel in ("mma_sync", "wgmma", "wgmma", "mma_sync"):
+            old["fwd_ms"] = time_ms(lambda: fwd("mma_sync"), torch)
+            old["dlogits_ms"] = time_ms(lambda: dlogits("mma_sync"), torch)
+            turns = {"fwd": {"mma_sync": [], path: []},
+                     "dlogits": {"mma_sync": [], path: []}}
+            for kernel in ("mma_sync", path, path, "mma_sync"):
                 for what, fn in (("fwd", fwd), ("dlogits", dlogits)):
                     turns[what][kernel].append(device_ms(
-                        lambda: fn(kernel), torch))
+                        lambda: fn(None if kernel == path else kernel),
+                        torch))
+            for what in ("fwd", "dlogits"):
+                old[f"{what}_device_ms"] = statistics.median(
+                    turns[what]["mma_sync"])
+            row["mma_sync"] = old
             row["turns_device_ms"] = turns
         emit(ce_case=row)
         results[case] = row
+        del parts, parts0
         torch.cuda.empty_cache()
     return results
 
@@ -1273,7 +1368,8 @@ def moe_phase(torch):
 @contextlib.contextmanager
 def plain_kernels(fa, moe_only=False):
     """The plain versions in place of every kernel of the port (flash
-    attention forward and backward, K3f and K3b, K7d and K7c), or of K7's
+    attention forward and backward, K3f, K3b and the split pass, K7d and
+    K7c), or of K7's
     alone with ``moe_only``, each looked up at call time by its caller: a
     reference run of the same model on the card."""
     from deeplearning4j_tpu_torch.kernels import chunked_ce as ce
@@ -1286,14 +1382,20 @@ def plain_kernels(fa, moe_only=False):
     mr.moe_dispatch_grad = mr.dispatch_grad_reference
     if not moe_only:
         saved += [(ce, "chunked_ce_fwd", ce.chunked_ce_fwd),
-                  (ce, "ce_dlogits", ce.ce_dlogits)]
+                  (ce, "ce_dlogits", ce.ce_dlogits),
+                  (ce, "split_tf32", ce.split_tf32)]
 
         def ce_fwd(x2, emb, targets, n_chunks):
             lse, correct = ce.chunked_ce_fwd_reference(x2, emb, targets,
                                                        n_chunks)
             return lse, (lse - correct).mean()
 
-        ce.chunked_ce_fwd, ce.ce_dlogits = ce_fwd, ce.ce_dlogits_reference
+        def ce_dlogits(*args, parts=None, **kw):
+            return ce.ce_dlogits_reference(*args, **kw)
+
+        # no split pass: the backward then hands K3b no parts
+        ce.chunked_ce_fwd, ce.ce_dlogits = ce_fwd, ce_dlogits
+        ce.split_tf32 = lambda x2, emb: None
     try:
         with (contextlib.nullcontext() if moe_only
               else plain_attention(fa)):
@@ -1320,17 +1422,20 @@ def expected_per_step(n_layers, remat, ce_chunks, moe=False, f32=False):
     the large config: in bf16 the wgmma forward once per layer (twice
     under remat: the recompute), the wgmma backward once per layer, the
     wgmma K3f once and K3b once per ce chunk when ce_chunks (chunked_ce.cu's
-    never: d 1024 is a multiple of 64); in f32 (``f32``) the simple forward,
-    the mma.sync / FMA backward and chunked_ce.cu's K3 in their places; for
-    a MoE model K7d and K7c twice per layer (the forward's dispatch and
-    combine, and each one's backward in the other kernel; three times under
-    remat); K4a and K4w (decode only) never."""
+    never: d 1024 is a multiple of 64); in f32 (``f32``) the simple forward
+    and the mma.sync / FMA backward in their places, and the tf32 K3f once,
+    K3b once per ce chunk and the split pass twice (once for the forward,
+    once before the backward's chunks; chunked_ce.cu's K3 never); for a MoE
+    model K7d and K7c twice per layer (the forward's dispatch and combine,
+    and each one's backward in the other kernel; three times under remat);
+    K4a and K4w (decode only) never."""
     L = n_layers
     k7 = (3 if remat else 2) * L if moe else 0
     fwd, k3 = (2 if remat else 1) * L, (1 if ce_chunks else 0, ce_chunks)
     if f32:
-        return (0, fwd, 0, L) + k3 + (k7, k7, 0, 0, 0, 0)
-    return (fwd, 0, L, 0, 0, 0, k7, k7) + k3 + (0, 0)
+        return ((0, fwd, 0, L, 0, 0, k7, k7, 0, 0, 0, 0) + k3
+                + (2 if ce_chunks else 0,))
+    return (fwd, 0, L, 0, 0, 0, k7, k7) + k3 + (0, 0, 0, 0, 0)
 
 
 def slice_phase(torch, fa):
@@ -1359,8 +1464,8 @@ def slice_phase(torch, fa):
     L, V = cfg.n_layers, cfg.vocab_size
     # the wgmma forward once per layer of a prefill or apply, K4a once per
     # layer of each decode step (bf16 pages: K4w never), nothing else
-    per_forward = (L,) + (0,) * 11
-    per_generate = (L,) + (0,) * 9 + ((N_NEW - 1) * L, 0)
+    per_forward = (L,) + (0,) * 14
+    per_generate = (L,) + (0,) * 9 + ((N_NEW - 1) * L, 0, 0, 0, 0)
     rng = np.random.default_rng(SEED + 1)
 
     def launched(fn):
@@ -1783,7 +1888,7 @@ def serve_phase(torch, model, engine):
             k4a = steps * (L + (SPEC_K * DRAFT_LAYERS if spec else 0))
             k4w = (1 + steps * L) if int8 else 0
             want = ((L + (DRAFT_LAYERS if spec else 0),) + (0,) * 9
-                    + (k4a, k4w))
+                    + (k4a, k4w, 0, 0, 0))
             check(got == want, f"{mode} prompt {n}: launched {got}, want "
                   f"{want} {ALL_KERNELS}")
             check(toks.shape == (1, N_NEW) and bool(((toks >= 0)
@@ -1864,11 +1969,11 @@ def serve_phase(torch, model, engine):
     lb, _ = model.decode_window_paged(params, pools["bf16"], tables, win,
                                       pos, P)
     finite = bool(torch.isfinite(lq).all())
-    check(got[10:] == (L, L) and finite,
+    check(got[10:] == (L, L, 0, 0, 0) and finite,
           f"int8 window: launched {got}, finite logits {finite}")
     emit(int8_window={"prompt_len": n, "w": SPEC_K + 1,
                       "max_abs_logit_diff_vs_bf16_pages":
-                      (lq - lb).abs().max().item(), "launches": got[10:]})
+                      (lq - lb).abs().max().item(), "launches": got[10:12]})
     launches = all_counts()              # ... and ends here
     del pools, kv, lq, lb, draft, dmodel
     torch.cuda.empty_cache()
@@ -1897,7 +2002,7 @@ def decode_profile_phase(torch, engine):
     row = profile_window(torch, "decode", steps, "decode_960_trace.json",
                          top=12)
     L = LARGE["n_layers"]
-    check(all_counts() == (0,) * 10 + (4 * L, 0),
+    check(all_counts() == (0,) * 10 + (4 * L, 0, 0, 0, 0),
           f"profiled decode launched {all_counts()}")
     traced = sum(k["count"] for k in row.get("decode_kernels", ())
                  if "paged_attend_kernel" in k["name"])
@@ -2197,7 +2302,7 @@ def moe_train_phase(torch, fa):
         toks < LARGE["vocab_size"])).all()), f"MoE generate: {toks.shape}")
     check(served[6] > 0 and served[7] > 0 and served[4:6] == (0, 0)
           and served[8:10] == (0, 0)
-          and served[10:] == ((N_NEW - 1) * LARGE["n_layers"], 0),
+          and served[10:] == ((N_NEW - 1) * LARGE["n_layers"], 0, 0, 0, 0),
           f"MoE generate launched {served} {ALL_KERNELS}")
     emit(moe_generate={"batch": 2, "prompt_len": 100, "new_tokens": N_NEW,
                        "generate_ms": ms,
@@ -2240,7 +2345,7 @@ def f32_serve_phase(torch):
     torch.cuda.synchronize()
     gen_ms = 1e3 * (time.perf_counter() - t)
     launches = all_counts()              # ... and ends here
-    want = (0, L, 0, 0) + (0,) * 6 + ((N_NEW - 1) * L, 0)
+    want = (0, L, 0, 0) + (0,) * 6 + ((N_NEW - 1) * L, 0, 0, 0, 0)
     check(launches == want, f"f32 serving launched {launches}, want {want} "
           f"{ALL_KERNELS}")
     check(toks.shape == (1, N_NEW) and bool(((toks >= 0) & (toks < V))
@@ -2388,13 +2493,13 @@ def profile_window(torch, label, fn, trace_name, top=10):
             tot[1] += 1
     copies = sum(n for name, (_us, n) in by_name.items()
                  if "copy" in name.lower())
-    # every kernel of K1 and K2 (the D pass too), and of K3 (its merge
-    # too), however small
+    # every kernel of K1 and K2 (the D pass too), and of K3 (its merge and
+    # split passes too), however small
     attention = {name: tot for name, tot in by_name.items() if re.search(
         r"flash|delta_kernel|dq_kernel|dkdv_kernel", name)}
     cross_entropy = {name: tot for name, tot in by_name.items() if re.search(
-        r"ce_wgmma_kernel|ce_fwd_kernel|ce_dlogits_kernel|ce_merge_kernel",
-        name)}
+        r"ce_wgmma_kernel|ce_tf32_kernel|ce_split_kernel|ce_fwd_kernel"
+        r"|ce_dlogits_kernel|ce_merge_kernel", name)}
     decode = {name: tot for name, tot in by_name.items() if re.search(
         r"paged_attend_kernel|quant_write_kernel", name)}
     return {"wall_ms": wall_ms, "window_us": hi - lo,
@@ -2456,43 +2561,68 @@ def bwd_kernel_entry(path, cases, launches):
 
 
 def ce_kernel_entry(kind, cases, launches):
-    """The kernels-line entry of K3f or K3b: "ce_fwd_wgmma" and
-    "ce_dlogits_wgmma" (``chunked_ce_wgmma.cu``) with their numbers at the
-    training shape, "ce_fwd" and "ce_dlogits" (``chunked_ce.cu``) at the
-    f32 case (CE_MAIN_CASE). K3b's ``ms`` is one launch (one ce chunk);
-    ``backward_ms`` is the whole chunked backward (every chunk's K3b and
-    its two products), the counterpart of ``library_ms``, the unchunked
-    head's backward (a difference of two times). Each entry also carries
-    both designs' device times at the training shape, taken in turns."""
+    """The kernels-line entry of K3f, K3b or the split pass, its numbers at
+    CE_MAIN_CASE[kind]: "ce_fwd_wgmma" and "ce_dlogits_wgmma"
+    (``chunked_ce_wgmma.cu``) at the bf16 training shape, "ce_fwd_tf32",
+    "ce_dlogits_tf32" and "ce_split_tf32" (``chunked_ce_tf32.cu``) at the
+    f32 one, and "ce_fwd" and "ce_dlogits" (``chunked_ce.cu``) from their
+    forced run there. K3b's ``ms`` is one launch (one ce chunk);
+    ``backward_ms`` is the whole chunked backward (the split, every chunk's
+    K3b and its two products), the counterpart of ``library_ms``, the
+    unchunked head's backward (a difference of two times). Each K3 entry
+    also carries both designs' device times at its training shape, taken
+    in turns; an f32 entry its bound at the FMA rate beside."""
     at = CE_MAIN_CASE[kind]
     main = cases[at]
+    route = kind.rsplit("_", 1)[1] if kind.endswith(("_wgmma", "_tf32")) \
+        else "mma_sync"
+    source = f"deeplearning4j_tpu_torch/kernels/csrc/{SOURCES[kind]}"
+    if kind == "ce_split_tf32":
+        sp = main["split"]
+        return {
+            "name": "chunked_ce_split_tf32", "route": "cuda",
+            "source": source,
+            # the f32 dots of _forward_pieces and _bwd, whose operands the
+            # split pass prepares for the tensor cores
+            "replaces": "deeplearning4j_tpu/kernels/chunked_ce.py:40",
+            "launches": sum(launches.values()), "launches_by_path": launches,
+            "on_main_path": sum(launches.values()) > 0,
+            "max_abs_err": 0.0 if all(r["split"]["exact"] for r in
+                                      cases.values() if "split" in r)
+            else None,
+            "ms": sp["ms"], "device_ms": sp["device_ms"],
+            "plain_ms": sp["plain_ms"], "bound_ms": sp["bound_ms"],
+            "bound_by": sp["bound_by"], "library": None,
+            "library_ms": None, "library_device_ms": None,
+            "at": dict(zip(("n", "v", "d", "dtype", "ce_chunks"), at))}
     fwd = kind.startswith("ce_fwd")
-    wgmma = kind.endswith("_wgmma")
     p = "fwd" if fwd else "dlogits"
-    rows = [r for r in cases.values()
-            if r["path"] == ("wgmma" if wgmma else "mma_sync")]
+    own = main if main["path"] == route else main[route]
+    rows = [r for r in cases.values() if r["path"] == route] + [
+        r[route] for r in cases.values() if route in r]
     entry = {
         "name": ("chunked_ce_fwd" if fwd else "chunked_ce_dlogits")
-        + ("_wgmma" if wgmma else ""),
-        "route": "cuda",
-        "source": f"deeplearning4j_tpu_torch/kernels/csrc/{SOURCES[kind]}",
+        + ("" if route == "mma_sync" else "_" + route),
+        "route": "cuda", "source": source,
         "replaces": "deeplearning4j_tpu/kernels/chunked_ce.py:"
                     + ("40" if fwd else "85"),
         "launches": sum(launches.values()), "launches_by_path": launches,
         "on_main_path": sum(launches.values()) > 0,
         "max_abs_err": max(r["max_abs_err_lse" if fwd else
                              "max_abs_err_dlogits"] for r in rows),
-        "ms": main[f"{p}_ms"], "device_ms": main[f"{p}_device_ms"],
+        "ms": own[f"{p}_ms"], "device_ms": own[f"{p}_device_ms"],
         "plain_ms": main[f"{p}_plain_ms"], "bound_ms": main[f"{p}_bound_ms"],
         "bound_by": main[f"{p}_bound_by"], "library": main["library"],
         "library_ms": main["library_ms" if fwd else "library_bwd_ms"],
         "library_device_ms": main["library_device_ms" if fwd
                                   else "library_bwd_device_ms"],
         "at": dict(zip(("n", "v", "d", "dtype", "ce_chunks"), at))}
-    turns = cases[CE_CASES[0]].get("turns_device_ms")
+    if f"{p}_bound_fma_ms" in main:
+        entry["bound_fma_ms"] = main[f"{p}_bound_fma_ms"]
+    turns = main.get("turns_device_ms")
     if turns is not None:
         entry["turns_device_ms_at_training_shape"] = turns[p]
-    if not fwd:
+    if not fwd and own is main:
         entry["backward_ms"] = main["backward_ms"]
         entry["backward_device_ms"] = main["backward_device_ms"]
     return entry
@@ -2529,7 +2659,8 @@ def check_path_launches(serve, modes, train, moe, f32_serve, f32_train):
     the wgmma flash kernels and never the simple forward or the mma.sync
     backward; the f32 paths the simple forward (serving and training) and
     the mma.sync backward (training), never a wgmma flash kernel, and
-    chunked_ce.cu's K3 (training) where bf16 launches the wgmma K3."""
+    the tf32 K3 and its split pass (training) where bf16 launches the wgmma
+    K3; chunked_ce.cu's K3 on no path."""
     check(serve[0] > 0 and train[0] > 0 and moe[0] > 0,
           "a main path launched no flash_attention_fwd_wgmma")
     check(train[2] > 0 and moe[2] > 0,
@@ -2548,20 +2679,25 @@ def check_path_launches(serve, modes, train, moe, f32_serve, f32_train):
     check(all(n > 0 for n in train[8:10] + moe[6:10]),
           f"training launched no wgmma K3f or K3b, K7d or K7c: {train}, "
           f"{moe}")
-    check(train[4:6] == moe[4:6] == (0, 0),
-          "bf16 training launched chunked_ce.cu's K3 kernels")
-    check(f32_train[4] > 0 and f32_train[5] > 0
+    check(train[4:6] == moe[4:6] == f32_train[4:6] == (0, 0),
+          f"a training path launched chunked_ce.cu's K3 kernels: bf16 "
+          f"{train[4:6]}, MoE {moe[4:6]}, f32 {f32_train[4:6]}")
+    check(all(n > 0 for n in f32_train[12:15])
           and f32_train[8:10] == (0, 0),
-          f"f32 training launched K3 off its path: {f32_train[4:10]}")
+          f"f32 training launched K3 off its path: {f32_train[4:10]} "
+          f"{f32_train[12:15]}")
+    check(train[12:15] == moe[12:15] == (0, 0, 0),
+          "bf16 training launched the tf32 K3")
     check(serve[4:10] == modes[4:10] == f32_serve[4:10] == (0,) * 6
+          and serve[12:15] == modes[12:15] == f32_serve[12:15] == (0,) * 3
           and train[6:8] == f32_train[6:8] == (0, 0),
           "serving launched K3 or K7, or a dense model K7")
     check(serve[10] > 0 and serve[11] == 0 and modes[10] > 0
           and modes[11] > 0 and f32_serve[10] > 0 and f32_serve[11] == 0
-          and train[10:] == moe[10:] == f32_train[10:] == (0, 0),
-          f"K4a or K4w off their paths: serve {serve[10:]}, modes "
-          f"{modes[10:]}, f32 serve {f32_serve[10:]}, train {train[10:]}, "
-          f"moe {moe[10:]}, f32 train {f32_train[10:]}")
+          and train[10:12] == moe[10:12] == f32_train[10:12] == (0, 0),
+          f"K4a or K4w off their paths: serve {serve[10:12]}, modes "
+          f"{modes[10:12]}, f32 serve {f32_serve[10:12]}, train "
+          f"{train[10:12]}, moe {moe[10:12]}, f32 train {f32_train[10:12]}")
 
 
 # --precision-f32: the f32 shapes of the kernel and backward phases
@@ -2638,6 +2774,90 @@ def precision_f32(torch, fa):
     return rows
 
 
+# --precision-ce-f32: the f32 training shape of K3 (bench large config,
+# batch 8)
+CE_PRECISION_CASE = (8192, 32768, 1024, "float32", 8)
+
+
+def precision_ce_f32(torch):
+    """At CE_PRECISION_CASE, K3f's lse and K3b's dlogits of the first and
+    last chunk from the plain versions, chunked_ce.cu's FMA kernels and
+    the tf32 kernels, each against f64: the largest |Δlse|, and K3b's two
+    rows (relative L2 off the targets, largest |Δ| at them over g/N)
+    against the plain version (what TOL_CE_LSE and the f32 K3b rows hold)
+    and against f64. Every K3b reads
+    the plain version's lse, so its readings are its products' alone. Then
+    each kernel's K3f and first-chunk K3b (on parts split beforehand)
+    device ms, in turns (mma_sync, tf32, tf32, mma_sync)."""
+    from deeplearning4j_tpu_torch.kernels import chunked_ce as ce
+    case = CE_PRECISION_CASE
+    n, v, d, _dtype, chunks = case
+    c = v // chunks
+    x, e, t = ce_inputs(torch, case)
+    lse_p, _cor = ce.chunked_ce_fwd_reference(x, e, t, chunks)
+    xd = x.double()
+    m64 = torch.full((n,), -math.inf, dtype=torch.float64, device="cuda")
+    l64 = torch.zeros((n,), dtype=torch.float64, device="cuda")
+    for i in range(chunks):
+        s64 = xd @ e[i * c:(i + 1) * c].double().T
+        mn = torch.maximum(m64, s64.amax(-1))
+        l64 = l64 * torch.exp(m64 - mn) + torch.exp(s64 - mn[:, None]).sum(-1)
+        m64 = mn
+    lse64 = m64 + torch.log(l64)
+    gr = torch.ones((), device="cuda")
+    kernels = ["mma_sync", "tf32"]
+    row = {"case": case, "lse": {
+        "plain_vs_f64": (lse_p.double() - lse64).abs().max().item()}}
+    for kernel in kernels:
+        lse_k, _loss = ce.chunked_ce_fwd(x, e, t, chunks, kernel=kernel)
+        row["lse"][f"{kernel} vs plain"] = (lse_k - lse_p).abs().max().item()
+        row["lse"][f"{kernel} vs f64"] = (lse_k.double() - lse64).abs().max(
+        ).item()
+    del m64, l64, lse64
+    for i in (0, chunks - 1):
+        e_c = e[i * c:(i + 1) * c]
+        ref = ce.ce_dlogits_reference(x, e_c, t, lse_p, i * c, gr, n)
+        s64 = xd @ e_c.double().T
+        local = torch.where((t >= i * c) & (t < (i + 1) * c), t - i * c, -1)
+        onehot = torch.zeros_like(s64)
+        rows = torch.nonzero(local >= 0)[:, 0]
+        onehot[rows, local[rows]] = 1.0
+        d64 = (torch.exp(s64 - lse_p.double()[:, None]) - onehot) / n
+        del s64, onehot
+        readings = {"plain vs f64": dlogits_errors(ref.double(), d64, local,
+                                                   1.0 / n)}
+        for kernel in kernels:
+            dl = ce.ce_dlogits(x, e_c, t, lse_p, i * c, gr, n, kernel=kernel)
+            readings[f"{kernel} vs plain"] = dlogits_errors(dl, ref, local,
+                                                            1.0 / n)
+            readings[f"{kernel} vs f64"] = dlogits_errors(dl.double(), d64,
+                                                          local, 1.0 / n)
+        row[f"dlogits_chunk{i}"] = {
+            k: {"rel_l2_off_target": a, "at_target_over_scale": b}
+            for k, (a, b) in readings.items()}
+        del d64, ref, dl
+        torch.cuda.empty_cache()
+    parts = ce.split_tf32(x, e)
+    parts0 = parts[:2] + tuple(p[:c] for p in parts[2:])
+    turns = {k: {"fwd": [], "dlogits": []} for k in kernels}
+    for kernel in kernels + kernels[::-1]:
+        for what, fn in (
+                ("fwd", lambda k: ce.chunked_ce_fwd(x, e, t, chunks,
+                                                    kernel=k)),
+                ("dlogits", lambda k: ce.ce_dlogits(
+                    x, e[:c], t, lse_p, 0, gr, n, kernel=k,
+                    parts=parts0 if k == "tf32" else None))):
+            turns[kernel][what].append(device_ms(
+                lambda: fn(kernel), torch, launches=5, repeats=3))
+    row["turns_device_ms"] = turns
+    row["tolerance"] = {"lse": TOL_CE_LSE,
+                        "rel_l2_off_target": TOL_CE_DLOG_L2["float32"],
+                        "at_target_over_scale":
+                        TOL_CE_DLOG_TARGET["float32"]}
+    emit(precision_ce=row)
+    return row
+
+
 # one turn of --compare-bwd: the tree's own phases on the given cases
 _TURN = """
 import json, sys, torch, chip_smoke
@@ -2706,6 +2926,10 @@ def main() -> int:
     parser.add_argument("--precision-f32", action="store_true",
                         help="measure the f32 kernels and the plain "
                         "versions against f64, and nothing else")
+    parser.add_argument("--precision-ce-f32", action="store_true",
+                        help="measure the f32 K3 kernels and their plain "
+                        "versions against f64 at the training shape, and "
+                        "nothing else")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -2736,6 +2960,9 @@ def main() -> int:
     if args.precision_f32:
         precision_f32(torch, fa)
         return 0
+    if args.precision_ce_f32:
+        precision_ce_f32(torch)
+        return 0
 
     t0 = time.perf_counter()
     compiled = _build.build_all()
@@ -2746,7 +2973,7 @@ def main() -> int:
     emit(build={"seconds": time.perf_counter() - t0, "compiled": compiled,
                 "ptxas": ptxas})
     for name in ("flash_attention_fwd_wgmma", "flash_attention_bwd_wgmma",
-                 "chunked_ce_wgmma"):
+                 "chunked_ce_wgmma", "chunked_ce_tf32"):
         warned = serialized_wgmma(_build.build_logs.get(name, ""))
         check(not warned, f"{name}: ptxas serialized wgmma: {warned}")
     log = _build.build_logs.get("flash_attention_fwd_wgmma")
@@ -2776,6 +3003,13 @@ def main() -> int:
                       for r in report.values()),
               f"wgmma K3: want no spills in its two kernels, ptxas gave "
               f"{report}")
+    log = _build.build_logs.get("chunked_ce_tf32")
+    if log is not None:
+        report = ce_tf32_ptxas(log)
+        emit(ce_tf32_ptxas=report)
+        check(spill_free(report, CE_TF32_INSTANTIATIONS),
+              f"tf32 K3: want no spills in its "
+              f"{len(CE_TF32_INSTANTIATIONS)} kernels, ptxas gave {report}")
     for name, parse, want in (("flash_attention_fwd", simple_ptxas,
                                SIMPLE_INSTANTIATIONS),
                               ("flash_attention_bwd", bwd_ptxas,
@@ -2849,7 +3083,9 @@ def main() -> int:
                   decode_kernel_entry("paged_attention", decode_cases,
                                       launches["paged_attention"]),
                   decode_kernel_entry("kv_quant_write", decode_cases,
-                                      launches["kv_quant_write"])])
+                                      launches["kv_quant_write"])]
+         + [ce_kernel_entry(k, ce_cases, launches[k])
+            for k in ("ce_fwd_tf32", "ce_dlogits_tf32", "ce_split_tf32")])
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

@@ -1,7 +1,8 @@
 // Device and host helpers shared by the port's Hopper (sm_90a) kernels:
 // mbarriers, TMA tile loads and stores and bulk loads, wgmma descriptors and
-// products, and the host-side encoding of strided (B, H, T, d) bf16 views and
-// of row-major (rows, d) bf16 matrices as tensor maps.
+// products (bf16, and TF32 for f32 operands split in two), and the host-side
+// encoding of strided (B, H, T, d) bf16 views and of row-major (rows, d) bf16
+// and f32 matrices as tensor maps.
 //
 // Conventions of every kernel that includes this:
 // - a tile in shared memory is a stack of 64-column panels (128 bytes a
@@ -10,7 +11,8 @@
 //   atom of 8 rows);
 // - a K-major operand (rows of the product's M or N, contiguous along the
 //   depth) takes `smem_desc(panel + (kk % 4) * 32, 16, 1024)` for depth
-//   step kk of 16 columns, panel kk / 4;
+//   step kk of 16 columns, panel kk / 4 (in TF32 a panel is 32 f32
+//   columns and a depth step 8 of them: the same 32 bytes);
 // - an MN-major operand (rows of the depth, contiguous along N) takes
 //   `smem_desc(tile + kk * 2048, panel_bytes, 1024)` for depth step kk of
 //   16 rows, the next 64 columns of N `panel_bytes` on;
@@ -242,6 +244,29 @@ __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// D[64 x 128] (+)= A[64 x 8] B[8 x 128] in TF32: A and B from shared
+// memory, both K-major (tf32 takes no transpose), 128-byte rows of 32 f32
+// values whose low 13 bits the tensor cores ignore. `accumulate` 0
+// overwrites D.
+__device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64], uint64_t da,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n}\n"
+      : ACC8(d, 0), ACC8(d, 8), ACC8(d, 16), ACC8(d, 24), ACC8(d, 32),
+        ACC8(d, 40), ACC8(d, 48), ACC8(d, 56)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // D[64 x 64] += A[64 x 16] B[16 x 64]; A from registers, B from shared
 // memory MN-major (the transpose bit).
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
@@ -411,6 +436,24 @@ CUresult encode_2d(CUtensorMap* map, const void* ptr, long long rows, int d,
   cuuint32_t box[2] = {(cuuint32_t)PANEL, (cuuint32_t)box_rows};
   cuuint32_t estride[2] = {1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(ptr), gdim, gstride, box, estride,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// Encode a (rows, d) f32 matrix with unit stride on d and row stride `ld`
+// elements as a 2-D tensor map whose box is 32 columns (128 bytes) x
+// `box_rows` rows, with the 128-byte swizzle, as encode_2d does for bf16.
+CUresult encode_2d_f32(CUtensorMap* map, const void* ptr, long long rows,
+                       int d, long long ld, int box_rows) {
+  EncodeTiledFn encode = encode_fn();
+  if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
+  cuuint64_t gdim[2] = {(cuuint64_t)d, (cuuint64_t)rows};
+  cuuint64_t gstride[1] = {(cuuint64_t)(ld * 4)};   // bytes
+  cuuint32_t box[2] = {32u, (cuuint32_t)box_rows};
+  cuuint32_t estride[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
                 const_cast<void*>(ptr), gdim, gstride, box, estride,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,

@@ -406,6 +406,70 @@ def test_profile_window_lists_every_attention_kernel(tmp_path, monkeypatch):
     assert row["busy_share"] == pytest.approx(0.99)   # 99 of 100 us
 
 
+def test_f32_ce_bounds_are_three_tf32_products_and_the_fma_rate():
+    """f32 K3f at the training shape: 549.8 GFLOP, 3.33 ms as three TF32
+    products at the 495 TFLOP/s peak, 8.21 ms at the 67 TFLOP/s FMA rate;
+    the split pass moves x and E in and two parts of each out: 480 MB,
+    0.14 ms at 3.35 TB/s."""
+    flops = 2.0 * 8192 * 32768 * 1024
+    ms, by = chip_smoke.ce_fwd_bound_ms(8192, 32768, 1024, "float32")
+    assert by == "operations"
+    assert ms == pytest.approx(1e3 * flops / (495e12 / 3))
+    fma, _ = chip_smoke.ce_fwd_bound_ms(8192, 32768, 1024, "float32",
+                                        chip_smoke.PEAK_FLOPS)
+    assert fma == pytest.approx(8.206, rel=1e-3)
+    b, _ = chip_smoke.ce_dlogits_bound_ms(8192, 4096, 1024, "float32")
+    assert b == pytest.approx(ms / 8)
+    sp, by_s = chip_smoke.ce_split_bound_ms(8192, 32768, 1024)
+    assert by_s == "bytes"
+    assert sp == pytest.approx(1e3 * 4 * 40960 * 3 * 1024 / 3.35e12)
+    # rows of d 48 are written 64 wide
+    assert chip_smoke.ce_split_bound_ms(10, 6, 48)[0] == pytest.approx(
+        1e3 * 4 * 16 * (48 + 128) / 3.35e12)
+
+
+def test_ce_cases_hold_both_training_shapes():
+    """The f32 training shape is a K3 case of its own, timed in turns
+    against chunked_ce.cu's kernels as the bf16 one is; the toy f32 case
+    stays."""
+    f32 = (8192, 32768, 1024, "float32", 8)
+    assert f32 in chip_smoke.CE_CASES
+    assert (1024, 4096, 256, "float32", 4) in chip_smoke.CE_CASES
+    assert chip_smoke.CE_TURN_CASES == (chip_smoke.CE_CASES[0], f32)
+    assert chip_smoke.CE_PRECISION_CASE == f32
+    for k in ("ce_fwd", "ce_dlogits", "ce_fwd_tf32", "ce_dlogits_tf32",
+              "ce_split_tf32"):
+        assert chip_smoke.CE_MAIN_CASE[k] == f32
+
+
+_CE_TF32_PTXAS = "".join(
+    f"ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__x_18_chunk"
+    f"ed_ce_tf32_cu_y14ce_tf32_kernelILb{k}EEEv14CUtensorMap_stS1_S1_S1_NS_"
+    f"4ArgsE' for 'sm_90a'\n    0 bytes stack frame, {sp} bytes spill "
+    f"stores, 0 bytes spill loads\nptxas info    : Used 168 registers, used "
+    f"1 barriers\n"
+    for k, sp in ((0, 0), (1, 8))) + (
+    "ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__x_18_chunked"
+    "_ce_tf32_cu_y15ce_split_kernelEPKfxiS1_xiiiPfS2_S2_S2_' for 'sm_90a'\n"
+    "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+    "ptxas info    : Used 30 registers, used 0 barriers\n")
+
+
+def test_ptxas_report_of_each_ce_tf32_kernel():
+    """The tf32 K3f and K3b and the split pass, by name; a spill in one
+    fails the check."""
+    report = chip_smoke.ce_tf32_ptxas(_CE_TF32_PTXAS)
+    assert sorted(report) == chip_smoke.CE_TF32_INSTANTIATIONS
+    assert len(report) == 3
+    assert report["split"] == {"registers": 30, "spill_bytes": 0}
+    assert report["fwd"] == {"registers": 168, "spill_bytes": 0}
+    assert report["dlogits"]["spill_bytes"] == 8
+    assert not chip_smoke.spill_free(report,
+                                     chip_smoke.CE_TF32_INSTANTIATIONS)
+    report["dlogits"]["spill_bytes"] = 0
+    assert chip_smoke.spill_free(report, chip_smoke.CE_TF32_INSTANTIATIONS)
+
+
 def test_ce_bounds_at_the_training_shape():
     """K3f at the bench's large config, batch 8: 2·8192·32768·1024 =
     549.8 GFLOP, 0.556 ms at the dense bf16 peak; one K3b launch (a 4096-
@@ -440,28 +504,32 @@ def test_expected_launches_per_step():
     K3f once and K3b per ce chunk (chunked_ce.cu's never: the large
     config is bf16 at d 1024), K7 twice per MoE layer (three times under
     remat), K4a and K4w (decode only) never."""
-    assert chip_smoke.expected_per_step(12, False, 0) == (12, 0, 12, 0, 0, 0,
-                                                          0, 0, 0, 0, 0, 0)
-    assert chip_smoke.expected_per_step(12, True, 8) == (24, 0, 12, 0, 0, 0,
-                                                         0, 0, 1, 8, 0, 0)
+    assert chip_smoke.expected_per_step(12, False, 0) == (
+        12, 0, 12, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+    assert chip_smoke.expected_per_step(12, True, 8) == (
+        24, 0, 12, 0, 0, 0, 0, 0, 1, 8, 0, 0, 0, 0, 0)
     assert chip_smoke.expected_per_step(12, False, 8, moe=True) == (
-        12, 0, 12, 0, 0, 0, 24, 24, 1, 8, 0, 0)
+        12, 0, 12, 0, 0, 0, 24, 24, 1, 8, 0, 0, 0, 0, 0)
     assert chip_smoke.expected_per_step(2, True, 0, moe=True)[6:] == (
-        6, 6, 0, 0, 0, 0)
-    assert len(chip_smoke.ALL_KERNELS) == 12
+        6, 6, 0, 0, 0, 0, 0, 0, 0)
+    assert len(chip_smoke.ALL_KERNELS) == 15
     assert chip_smoke.ALL_KERNELS[:4] == chip_smoke.KERNELS
     assert chip_smoke.ALL_KERNELS[8:10] == ("ce_fwd_wgmma",
                                             "ce_dlogits_wgmma")
     assert {chip_smoke.SOURCES[k] for k in chip_smoke.ALL_KERNELS[8:10]} == {
         "chunked_ce_wgmma.cu"}
-    assert chip_smoke.ALL_KERNELS[10:] == ("paged_attention",
-                                           "kv_quant_write")
-    assert {chip_smoke.SOURCES[k] for k in chip_smoke.ALL_KERNELS[10:]} == {
-        "paged_attention.cu"}
+    assert chip_smoke.ALL_KERNELS[10:12] == ("paged_attention",
+                                             "kv_quant_write")
+    assert {chip_smoke.SOURCES[k] for k in chip_smoke.ALL_KERNELS[10:12]} \
+        == {"paged_attention.cu"}
+    assert chip_smoke.ALL_KERNELS[12:] == ("ce_fwd_tf32", "ce_dlogits_tf32",
+                                           "ce_split_tf32")
+    assert {chip_smoke.SOURCES[k] for k in chip_smoke.ALL_KERNELS[12:]} == {
+        "chunked_ce_tf32.cu"}
 
 
 def test_all_counts_reads_every_counter_in_order():
-    """all_counts gives the twelve counters in ALL_KERNELS' order, and
+    """all_counts gives the fifteen counters in ALL_KERNELS' order, and
     reset_all_counts zeroes every one."""
     from deeplearning4j_tpu_torch.kernels import chunked_ce as ce
     from deeplearning4j_tpu_torch.kernels import flash_attention as fa
@@ -472,17 +540,20 @@ def test_all_counts_reads_every_counter_in_order():
              (ce, "launches_fwd"), (ce, "launches_dlogits"),
              (mr, "launches_dispatch"), (mr, "launches_combine"),
              (ce, "launches_fwd_wgmma"), (ce, "launches_dlogits_wgmma"),
-             (pa, "launches_attend"), (pa, "launches_quant_write")]
+             (pa, "launches_attend"), (pa, "launches_quant_write"),
+             (ce, "launches_fwd_tf32"), (ce, "launches_dlogits_tf32"),
+             (ce, "launches_split_tf32")]
     saved = [getattr(m, n) for m, n in names]
     try:
         for i, (m, n) in enumerate(names):
             setattr(m, n, i + 1)
-        assert chip_smoke.all_counts() == tuple(range(1, 13))
+        assert chip_smoke.all_counts() == tuple(range(1, 16))
         before = chip_smoke.all_counts()
         pa.launches_attend += 5
-        assert chip_smoke.delta(before) == (0,) * 10 + (5, 0)
+        ce.launches_split_tf32 += 2
+        assert chip_smoke.delta(before) == (0,) * 10 + (5, 0, 0, 0, 2)
         chip_smoke.reset_all_counts()
-        assert chip_smoke.all_counts() == (0,) * 12
+        assert chip_smoke.all_counts() == (0,) * 15
     finally:
         for (m, n), v in zip(names, saved):
             setattr(m, n, v)
@@ -510,10 +581,12 @@ def test_dlogits_errors_see_a_wrong_softmax_beside_the_targets():
 
 
 def test_kernels_line_entries_of_k3_and_k7():
-    """K3f and K3b (both designs), K7d and K7c get kernels-line entries
-    with every key the line needs: the wgmma K3 and K7 from their cases'
-    first (training-layer) row, chunked_ce.cu's K3 from the f32 case, each
-    K3 entry with both designs' turns at the training shape."""
+    """K3f and K3b (all three designs), the split pass, K7d and K7c get
+    kernels-line entries with every key the line needs: the wgmma K3 and K7
+    from their cases' first (training-layer) row, the tf32 K3 and the split
+    from the f32 training case, chunked_ce.cu's K3 from its forced run
+    there; each K3 entry with both designs' turns at its training shape,
+    the f32 ones with the FMA-rate bound beside."""
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -524,33 +597,57 @@ def test_kernels_line_entries_of_k3_and_k7():
                   library_bwd_ms=3.0, library_bwd_device_ms=3.0,
                   backward_ms=4.0, backward_device_ms=4.0,
                   max_abs_err_lse=1e-5, max_abs_err_dlogits=1e-6)
-    ce_cases = {c: dict(ce_row, path="mma_sync" if c[3] == "float32"
+    ce_cases = {c: dict(ce_row, path="tf32" if c[3] == "float32"
                         else "wgmma") for c in chip_smoke.CE_CASES}
+    f32_main = chip_smoke.CE_MAIN_CASE["ce_fwd_tf32"]
+    assert f32_main == (8192, 32768, 1024, "float32", 8)
     turns = {w: {"mma_sync": [3.0, 3.1], "wgmma": [1.0, 1.1]}
              for w in ("fwd", "dlogits")}
+    turns32 = {w: {"mma_sync": [20.0, 20.1], "tf32": [4.5, 4.6]}
+               for w in ("fwd", "dlogits")}
     ce_cases[chip_smoke.CE_CASES[0]].update(turns_device_ms=turns,
                                             fwd_ms=7.0, max_abs_err_lse=2e-5)
-    ce_cases[chip_smoke.CE_CASES[4]].update(fwd_ms=9.0)
+    ce_cases[f32_main].update(
+        turns_device_ms=turns32, fwd_ms=5.0, fwd_bound_fma_ms=8.2,
+        dlogits_bound_fma_ms=1.0,
+        mma_sync={"fwd_ms": 21.0, "fwd_device_ms": 20.05,
+                  "dlogits_ms": 2.3, "dlogits_device_ms": 2.2,
+                  "max_abs_err_lse": 3e-6, "max_abs_err_dlogits": 4e-9},
+        split={"exact": True, "ms": 0.2, "device_ms": 0.18,
+               "plain_ms": 9.0, "bound_ms": 0.14, "bound_by": "bytes"})
     launches = {"serve": 0, "train": 21, "moe": 7}
-    # chunked_ce.cu's K3 runs on the f32 model's path only
-    off_path = {"serve": 0, "train": 0, "moe": 0}
+    # chunked_ce.cu's K3 runs on no main path since the tf32 kernels
+    off_path = {"serve": 0, "train": 0, "moe": 0, "f32_train": 0}
+    on_f32 = dict(off_path, f32_train=5)
     fwd = chip_smoke.ce_kernel_entry("ce_fwd", ce_cases, off_path)
     dlog = chip_smoke.ce_kernel_entry("ce_dlogits", ce_cases, off_path)
     fwd_w = chip_smoke.ce_kernel_entry("ce_fwd_wgmma", ce_cases, launches)
     dlog_w = chip_smoke.ce_kernel_entry("ce_dlogits_wgmma", ce_cases,
                                         launches)
-    assert (fwd_w["ms"], fwd["ms"]) == (7.0, 9.0)
-    assert (fwd_w["max_abs_err"], fwd["max_abs_err"]) == (2e-5, 1e-5)
+    fwd_t = chip_smoke.ce_kernel_entry("ce_fwd_tf32", ce_cases, on_f32)
+    dlog_t = chip_smoke.ce_kernel_entry("ce_dlogits_tf32", ce_cases, on_f32)
+    split = chip_smoke.ce_kernel_entry("ce_split_tf32", ce_cases, on_f32)
+    assert (fwd_w["ms"], fwd_t["ms"], fwd["ms"]) == (7.0, 5.0, 21.0)
+    assert (fwd["device_ms"], dlog["device_ms"]) == (20.05, 2.2)
+    assert (fwd_w["max_abs_err"], fwd["max_abs_err"]) == (2e-5, 3e-6)
     assert fwd_w["name"] == "chunked_ce_fwd_wgmma" and fwd_w["on_main_path"]
+    assert fwd_t["name"] == "chunked_ce_fwd_tf32" and fwd_t["on_main_path"]
+    assert dlog_t["name"] == "chunked_ce_dlogits_tf32"
     assert dlog_w["source"].endswith("csrc/chunked_ce_wgmma.cu")
+    assert dlog_t["source"].endswith("csrc/chunked_ce_tf32.cu")
     assert fwd["source"].endswith("csrc/chunked_ce.cu")
     assert not fwd["on_main_path"] and fwd["at"]["dtype"] == "float32"
-    on_f32 = chip_smoke.ce_kernel_entry("ce_fwd", ce_cases,
-                                        dict(off_path, f32_train=2))
-    assert on_f32["on_main_path"] and on_f32["launches"] == 2
-    for entry in (fwd, dlog, fwd_w, dlog_w):
+    assert fwd_t["launches"] == split["launches"] == 5
+    assert (fwd_t["bound_fma_ms"], dlog_t["bound_fma_ms"]) == (8.2, 1.0)
+    assert "bound_fma_ms" not in fwd_w
+    for entry, t in ((fwd, turns32), (dlog, turns32), (fwd_w, turns),
+                     (dlog_w, turns), (fwd_t, turns32), (dlog_t, turns32)):
         what = "fwd" if "fwd" in entry["name"] else "dlogits"
-        assert entry["turns_device_ms_at_training_shape"] == turns[what]
+        assert entry["turns_device_ms_at_training_shape"] == t[what]
+    assert dlog_t["backward_ms"] == 4.0 and "backward_ms" not in dlog
+    assert split["name"] == "chunked_ce_split_tf32"
+    assert (split["max_abs_err"], split["bound_by"], split["library_ms"]) \
+        == (0.0, "bytes", None)
     moe_row = {f"{p}_{k}": 1.0 for p in ("dispatch", "combine")
                for k in ("ms", "device_ms", "plain_ms", "bound_ms",
                          "library_ms", "library_device_ms")}
@@ -561,14 +658,17 @@ def test_kernels_line_entries_of_k3_and_k7():
     moe_cases = {c: dict(moe_row) for c in chip_smoke.MOE_CASES}
     disp = chip_smoke.moe_kernel_entry("moe_dispatch", moe_cases, launches)
     comb = chip_smoke.moe_kernel_entry("moe_combine", moe_cases, launches)
-    for entry in (fwd, dlog, fwd_w, dlog_w, disp, comb):
+    for entry in (fwd, dlog, fwd_w, dlog_w, fwd_t, dlog_t, split, disp,
+                  comb):
         for key in keys:
             assert key in entry, (entry["name"], key)
         assert entry["route"] == "cuda" and entry["launches"] == (
-            0 if entry is fwd or entry is dlog else 28)
+            0 if entry is fwd or entry is dlog else 5
+            if entry in (fwd_t, dlog_t, split) else 28)
     assert fwd["replaces"].endswith("chunked_ce.py:40")
     assert dlog["replaces"].endswith("chunked_ce.py:85")
-    assert dlog["library_ms"] == 3.0 and dlog["backward_ms"] == 4.0
+    assert dlog_t["replaces"].endswith("chunked_ce.py:85")
+    assert dlog_w["library_ms"] == 3.0 and dlog_w["backward_ms"] == 4.0
     assert disp["source"].endswith("csrc/moe_route.cu")
     assert disp["replaces"].endswith("moe.py:132")
     assert comb["replaces"].endswith("moe.py:143")
@@ -580,7 +680,7 @@ def test_plain_kernels_swaps_every_kernel_out_and_back():
     from deeplearning4j_tpu_torch.kernels import flash_attention as fa
     from deeplearning4j_tpu_torch.kernels import moe_route as mr
     names = [(fa, "flash_attention_fwd"), (fa, "flash_attention_bwd"),
-             (ce, "chunked_ce_fwd"), (ce, "ce_dlogits"),
+             (ce, "chunked_ce_fwd"), (ce, "ce_dlogits"), (ce, "split_tf32"),
              (mr, "moe_dispatch"), (mr, "moe_combine"),
              (mr, "moe_dispatch_grad")]
     before = [getattr(m, n) for m, n in names]
@@ -787,12 +887,13 @@ def test_f32_attention_bound_is_three_tf32_products():
 
 def test_expected_launches_per_step_of_the_f32_model():
     """f32: the simple forward and the mma.sync / FMA backward once per
-    layer, chunked_ce.cu's K3 (not the wgmma one) with ce_chunks, no wgmma
-    flash kernel."""
+    layer, the tf32 K3 with ce_chunks (K3f once, K3b a chunk, the split
+    pass for the forward and before the backward's chunks; neither
+    chunked_ce.cu's nor the wgmma one), no wgmma flash kernel."""
     assert chip_smoke.expected_per_step(12, False, 0, f32=True) == (
-        0, 12, 0, 12, 0, 0, 0, 0, 0, 0, 0, 0)
+        0, 12, 0, 12, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
     assert chip_smoke.expected_per_step(12, False, 8, f32=True) == (
-        0, 12, 0, 12, 1, 8, 0, 0, 0, 0, 0, 0)
+        0, 12, 0, 12, 0, 0, 0, 0, 0, 0, 0, 0, 1, 8, 2)
     assert chip_smoke.expected_per_step(12, True, 8, f32=True)[:4] == (
         0, 24, 0, 12)
     assert chip_smoke.F32_RUNGS == ((8, False, 0), (8, False, 8))
@@ -803,12 +904,13 @@ def test_expected_launches_per_step_of_the_f32_model():
 def _path_launches():
     """Plausible per-path launches, ALL_KERNELS' order."""
     L, n = 12, 31
-    serve = (4 * L, 0, 0, 0, 0, 0, 0, 0, 0, 0, 4 * n * L, 0)
-    modes = (3 * L, 0, 0, 0, 0, 0, 0, 0, 0, 0, 900, 300)
-    train = (5 * L, 0, 5 * L, 0, 0, 0, 0, 0, 3, 24, 0, 0)
-    moe = (L, 0, L, 0, 0, 0, 2 * L, 2 * L, 1, 8, 0, 0)
-    f32_serve = (0, L, 0, 0, 0, 0, 0, 0, 0, 0, n * L, 0)
-    f32_train = (0, 2 * L, 0, 2 * L, 1, 8, 0, 0, 0, 0, 0, 0)
+    none = (0, 0, 0)
+    serve = (4 * L, 0, 0, 0, 0, 0, 0, 0, 0, 0, 4 * n * L, 0) + none
+    modes = (3 * L, 0, 0, 0, 0, 0, 0, 0, 0, 0, 900, 300) + none
+    train = (5 * L, 0, 5 * L, 0, 0, 0, 0, 0, 3, 24, 0, 0) + none
+    moe = (L, 0, L, 0, 0, 0, 2 * L, 2 * L, 1, 8, 0, 0) + none
+    f32_serve = (0, L, 0, 0, 0, 0, 0, 0, 0, 0, n * L, 0) + none
+    f32_train = (0, 2 * L, 0, 2 * L, 0, 0, 0, 0, 0, 0, 0, 0, 1, 8, 2)
     return [serve, modes, train, moe, f32_serve, f32_train]
 
 
@@ -820,8 +922,13 @@ def _path_launches():
     (2, 1, "bf16 training on the simple forward"),
     (0, 1, "bf16 serving on the simple forward"),
     (2, 3, "bf16 training on the mma.sync backward"),
-    (5, 4, "f32 training without chunked_ce.cu's K3f"),
+    (5, 4, "f32 training on chunked_ce.cu's K3f"),
     (5, 8, "f32 training on the wgmma K3f"),
+    (5, 12, "f32 training without the tf32 K3f"),
+    (5, 13, "f32 training without the tf32 K3b"),
+    (5, 14, "f32 training without the split pass"),
+    (2, 12, "bf16 training on the tf32 K3f"),
+    (0, 14, "serving launching the split pass"),
     (4, 3, "f32 serving launching a backward")])
 def test_path_launch_checks_catch_each_misroute(path, kernel, what):
     paths = _path_launches()

@@ -123,10 +123,115 @@ def test_cpu_tensors_take_the_plain_versions():
     (_j), (tx, te, tt) = _inputs("float32", 2)
     tce.launches_fwd = tce.launches_dlogits = 0
     tce.launches_fwd_wgmma = tce.launches_dlogits_wgmma = 0
+    tce.launches_fwd_tf32 = tce.launches_dlogits_tf32 = 0
+    tce.launches_split_tf32 = 0
     x = tx.clone().requires_grad_()
     torch.autograd.grad(tce.chunked_softmax_xent(x, te, tt, 2), x)
     assert (tce.launches_fwd, tce.launches_dlogits, tce.launches_fwd_wgmma,
-            tce.launches_dlogits_wgmma) == (0, 0, 0, 0)
+            tce.launches_dlogits_wgmma, tce.launches_fwd_tf32,
+            tce.launches_dlogits_tf32, tce.launches_split_tf32) == (0,) * 7
+
+
+def test_split_tf32_parts_are_tf32_and_sum_to_x_within_2_to_minus_22():
+    """big and small clear the low 13 bits of their f32 patterns; x − big
+    is exact in f32 and small rounds it once more to TF32, so big + small
+    is x to 2^-22·|x| (exact for the values whose remainder fits 11 bits:
+    a 24-bit f32 mantissa does not fit two 11-bit parts in general); the
+    columns past d are zero, up to a multiple of 32; big matches the flash
+    forward's split (``fa.tf32_split``) bit for bit."""
+    from deeplearning4j_tpu_torch.kernels import flash_attention as tfa
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(np.concatenate([
+        rng.standard_normal((64, 48), dtype=np.float32),
+        (rng.standard_normal((16, 48)) * 1e-20).astype(np.float32),
+        np.float32(2.0) ** rng.integers(-8, 8, (8, 48)).astype(np.float32)]))
+    big, small = tce.split_tf32_reference(x)
+    assert big.shape == small.shape == (88, 64)
+    assert big.dtype == small.dtype == torch.float32
+    for part in (big, small):
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+        assert not part[:, 48:].any()
+    b, s_ = big[:, :48].double(), small[:, :48].double()
+    x64 = x.double()
+    assert torch.equal((x - big[:, :48]).double(), x64 - b)   # exact in f32
+    assert ((b + s_ - x64).abs() <= 2.0 ** -22 * x64.abs()).all()
+    assert torch.equal(b[-8:] + s_[-8:], x64[-8:])            # powers of 2
+    fb, fs = tfa.tf32_split(x.numpy())
+    assert np.array_equal(fb, big[:, :48].numpy())
+    assert np.array_equal(fs, small[:, :48].numpy())
+
+
+@pytest.mark.parametrize("n_chunks", [2, 4, 8])
+def test_split_emulation_matches_jax_loss_and_grads(n_chunks, monkeypatch):
+    """The tf32 kernels' products (``split_logits_emulation``: the split
+    parts, three products a 32-deep panel, small first, promoted sums) in
+    place of the plain versions' f32 logits, through the whole autograd
+    function on the CPU, against the JAX ``chunked_softmax_xent`` and its
+    ``jax.grad`` under the K3 f32 rows (loss atol 2e-6, dx and dE atol
+    1e-7), at the inputs those rows were set for (d 32: one panel; at
+    d 80 the plain version itself reads 1.3e-7 in dE)."""
+    (jx, je, jt), (tx, te, tt) = _inputs("float32", n_chunks, seed=7)
+    jl, (jdx, jde) = jax.value_and_grad(
+        jce.chunked_softmax_xent, argnums=(0, 1))(jx, je, jt, n_chunks)
+    monkeypatch.setattr(tce, "_f32_logits", tce.split_logits_emulation)
+    x, e = tx.clone().requires_grad_(), te.clone().requires_grad_()
+    loss = tce.chunked_softmax_xent(x, e, tt, n_chunks)
+    dx, de = torch.autograd.grad(loss, (x, e))
+    assert abs(loss.item() - float(jl)) <= 2e-6
+    np.testing.assert_allclose(_np(dx), np.asarray(jdx), atol=1e-7)
+    np.testing.assert_allclose(_np(de), np.asarray(jde), atol=1e-7)
+    # the emulated logits are not the plain ones: the split is in the path
+    x2 = tx.reshape(-1, 32)
+    assert not torch.equal(tce.split_logits_emulation(x2, te), x2 @ te.T)
+
+
+@pytest.mark.parametrize("d", [64, 96])
+def test_split_emulation_over_panels_meets_the_k3_f32_rows(d, monkeypatch):
+    """Over more than one 32-deep panel (2 at d 64, 3 at d 96), the
+    emulated kernels' lse and every chunk's dlogits against the plain
+    versions under the rows the card holds the f32 K3 kernels to
+    (``chip_smoke.TOL_CE_LSE``, ``TOL_CE_DLOG_L2`` and
+    ``TOL_CE_DLOG_TARGET``). Here the JAX rows above (atol 1e-7 on dE)
+    miss even for the plain version, whose f32 sums run in another order
+    than JAX's. A partial sum added per panel is not the sum over all of d
+    at once: the panels change the logits."""
+    import chip_smoke
+    n_chunks = 4
+    (_j), (tx, te, tt) = _inputs("float32", n_chunks, d=d, seed=9)
+    x2, t = tx.reshape(-1, d), tt.reshape(-1).long()
+    n, c = x2.shape[0], te.shape[0] // n_chunks
+    lse_p, _ = tce.chunked_ce_fwd_reference(x2, te, t, n_chunks)
+    g = torch.tensor(2.5)
+    plain = [tce.ce_dlogits_reference(x2, te[i * c:(i + 1) * c], t, lse_p,
+                                      i * c, g, n) for i in range(n_chunks)]
+    monkeypatch.setattr(tce, "_f32_logits", tce.split_logits_emulation)
+    lse_e, _ = tce.chunked_ce_fwd_reference(x2, te, t, n_chunks)
+    assert (lse_e - lse_p).abs().max().item() <= chip_smoke.TOL_CE_LSE
+    for i in range(n_chunks):
+        got = tce.ce_dlogits_reference(x2, te[i * c:(i + 1) * c], t, lse_p,
+                                       i * c, g, n)
+        local = torch.where((t >= i * c) & (t < (i + 1) * c), t - i * c, -1)
+        rel, at = chip_smoke.dlogits_errors(got, plain[i], local, 2.5 / n)
+        assert rel <= chip_smoke.TOL_CE_DLOG_L2["float32"], (i, rel)
+        assert at <= chip_smoke.TOL_CE_DLOG_TARGET["float32"], (i, at)
+    assert not torch.equal(tce.split_logits_emulation(x2, te),
+                           tce.split_logits_emulation(x2, te, panel=d))
+
+
+def test_cpu_backward_splits_nothing():
+    """On the CPU the backward takes the plain dlogits: no split pass and
+    no parts; ``split_tf32`` of CPU tensors is the plain version's."""
+    (_j), (tx, te, tt) = _inputs("float32", 4, seed=2)
+    tce.launches_split_tf32 = tce.launches_dlogits_tf32 = 0
+    x2 = tx.reshape(-1, 32)
+    lse, _ = tce.chunked_ce_fwd_reference(x2, te, tt.reshape(-1).long(), 4)
+    dx, de = tce.chunked_ce_bwd(x2, te, tt.reshape(-1).long(), lse,
+                                torch.tensor(1.0), 4)
+    assert dx.shape == x2.shape and de.shape == te.shape
+    assert (tce.launches_split_tf32, tce.launches_dlogits_tf32) == (0, 0)
+    got = tce.split_tf32(x2, te)
+    want = tce.split_tf32_reference(x2) + tce.split_tf32_reference(te)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("device,dtype,d,aligned,want", [
@@ -137,8 +242,9 @@ def test_cpu_tensors_take_the_plain_versions():
     ("cuda", torch.bfloat16, 192, True, "wgmma"),
     ("cuda", torch.bfloat16, 32, True, "mma_sync"),  # bf16 at other d
     ("cuda", torch.bfloat16, 96, True, "mma_sync"),
-    ("cuda", torch.float32, 1024, True, "mma_sync"),  # f32 at any d
-    ("cuda", torch.float32, 16, True, "mma_sync"),
+    ("cuda", torch.float32, 1024, True, "tf32"),  # f32 at any d % 16 == 0
+    ("cuda", torch.float32, 16, True, "tf32"),
+    ("cuda", torch.float32, 48, True, "tf32"),     # a padded last panel
     ("cuda", torch.bfloat16, 1024, False, ValueError),  # off the 16-B grid
     ("cuda", torch.float32, 256, False, ValueError),
     ("cuda", torch.bfloat16, 40, True, ValueError),     # 80 B a row

@@ -13,6 +13,8 @@ only PyTorch and the CUDA toolkit::
     timeout 120 python -m pytest --noconftest -m gpu \\
         tests/test_torch_kernels_gpu.py -k ce_wgmma_one_tile
     timeout 120 python -m pytest --noconftest -m gpu \\
+        tests/test_torch_kernels_gpu.py -k ce_tf32_one_tile
+    timeout 120 python -m pytest --noconftest -m gpu \\
         tests/test_torch_kernels_gpu.py -k k4a_one_tile
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 
@@ -469,7 +471,26 @@ def _ce_inputs(n, v, d, dtype, seed):
 
 def _ce_counts(ce):
     return (ce.launches_fwd, ce.launches_dlogits, ce.launches_fwd_wgmma,
-            ce.launches_dlogits_wgmma)
+            ce.launches_dlogits_wgmma, ce.launches_fwd_tf32,
+            ce.launches_dlogits_tf32, ce.launches_split_tf32)
+
+
+def _ce_reset(ce):
+    ce.launches_fwd = ce.launches_dlogits = 0
+    ce.launches_fwd_wgmma = ce.launches_dlogits_wgmma = 0
+    ce.launches_fwd_tf32 = ce.launches_dlogits_tf32 = 0
+    ce.launches_split_tf32 = 0
+
+
+def _ce_want(path, k3f, k3b, splits=None):
+    """_ce_counts after ``k3f`` K3f and ``k3b`` K3b launches on ``path``
+    (each tf32 call without parts splits first)."""
+    at = {"mma_sync": (0, 1), "wgmma": (2, 3), "tf32": (4, 5)}[path]
+    want = [0] * 7
+    want[at[0]], want[at[1]] = k3f, k3b
+    if path == "tf32":
+        want[6] = k3f + k3b if splits is None else splits
+    return tuple(want)
 
 
 def _ce_held_to_reference(n, v, d, dtype, seed=0, n_chunks=2, kernel=None,
@@ -487,12 +508,10 @@ def _ce_held_to_reference(n, v, d, dtype, seed=0, n_chunks=2, kernel=None,
         k = min(n, 4 + at.numel())
         t[4:k] = at[: k - 4]
     path = kernel or ce.kernel_for("cuda", dtype, d, True)
-    wgmma = path == "wgmma"
-    ce.launches_fwd = ce.launches_dlogits = 0
-    ce.launches_fwd_wgmma = ce.launches_dlogits_wgmma = 0
+    _ce_reset(ce)
     lse, loss = ce.chunked_ce_fwd(x, e, t, n_chunks, kernel=kernel)
     torch.cuda.synchronize()
-    assert _ce_counts(ce) == ((0, 0, 1, 0) if wgmma else (1, 0, 0, 0))
+    assert _ce_counts(ce) == _ce_want(path, 1, 0)
     lse_ref, cor = ce.chunked_ce_fwd_reference(x, e, t, n_chunks)
     assert (lse - lse_ref).abs().max().item() <= 1e-4
     assert abs(loss.item() - (lse_ref - cor).mean().item()) <= 1e-4
@@ -509,8 +528,7 @@ def _ce_held_to_reference(n, v, d, dtype, seed=0, n_chunks=2, kernel=None,
         assert rel <= (5e-3 if bf16 else 1e-5), (i, rel)
         assert at <= (2 ** -7 if bf16 else 1e-5), (i, at)
     torch.cuda.synchronize()
-    assert _ce_counts(ce) == ((0, 0, 1, n_chunks) if wgmma
-                              else (1, n_chunks, 0, 0))
+    assert _ce_counts(ce) == _ce_want(path, 1, n_chunks)
 
 
 @pytest.mark.gpu
@@ -532,6 +550,52 @@ def test_ce_wgmma_one_tile(cuda, d):
     the descriptors, one pass of the ring, the staging swizzle and the TMA
     store, before anything larger."""
     _ce_held_to_reference(128, 256, d, torch.bfloat16, n_chunks=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [32, 64])
+def test_ce_tf32_one_tile(cuda, d):
+    """The tf32 K3f and K3b on one 128 × 256 block tile (one block, one
+    split, one K3b tile; one and two 32-column panels of d), after the
+    split pass: the TF32 descriptors, one pass of the ring, the epilogue's
+    stores, before anything larger."""
+    _ce_held_to_reference(128, 256, d, torch.float32, n_chunks=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,v,d,n_chunks", [
+    (8192, 32768, 1024, 8),    # the f32 training layer (batch 8)
+    (1000, 5000, 1024, 4),     # ragged rows, vocab and chunks (C 1250)
+    (1, 384, 256, 3),          # one row at d 256; chunks of 128
+    (129, 520, 48, 2),         # d not a multiple of 32: a padded panel
+    (1000, 5000, 96, 4),       # three panels at ragged rows and vocab
+    (300, 2304, 80, 9),        # more ring stages than panels a tile
+])
+def test_ce_tf32_matches_reference(cuda, n, v, d, n_chunks):
+    """The tf32 kernels at the training shape and at ragged ones, with
+    targets on 256-column tile edges and on chunk edges (every chunk past
+    the first starts at col0 > 0)."""
+    _ce_held_to_reference(n, v, d, torch.float32, seed=n + v + d,
+                          n_chunks=n_chunks, edges=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,v,d,ld", [(8192, 32768, 1024, 1024),
+                                      (257, 640, 48, 52)])
+def test_split_tf32_matches_plain(cuda, n, v, d, ld):
+    """The split pass against split_tf32_reference, bit for bit, for
+    rows ``ld`` apart (a column view of a wider buffer past d)."""
+    from deeplearning4j_tpu_torch.kernels import chunked_ce as ce
+    x = _rand((n, ld), 5, torch.float32)[:, :d]
+    e = _rand((v, ld), 6, torch.float32)[:, :d]
+    _ce_reset(ce)
+    got = ce.split_tf32(x, e)
+    torch.cuda.synchronize()
+    assert ce.launches_split_tf32 == 1
+    want = ce.split_tf32_reference(x) + ce.split_tf32_reference(e)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.is_contiguous()
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 @pytest.mark.gpu
@@ -567,30 +631,44 @@ def test_chunked_softmax_xent_on_the_card_matches_plain(cuda, monkeypatch):
     """The autograd function (K3f, then K3b and the two products per
     chunk) against the same function with the plain versions swapped in:
     the loss within 1e-4, dx and dE by relative L2 within 5e-3 (bf16)."""
-    ce, x, e, t = _ce_inputs(512, 2048, 128, torch.bfloat16, 9)
+    _autograd_vs_plain(monkeypatch, torch.bfloat16, 5e-3)
+
+
+@pytest.mark.gpu
+def test_chunked_softmax_xent_f32_on_the_card_matches_plain(cuda,
+                                                            monkeypatch):
+    """The same in f32 on the tf32 kernels: one split pass for the
+    forward and one before the backward's chunks, whose K3b read row views
+    of E's parts; dx and dE by relative L2 within the f32 K3b row (1e-5)."""
+    _autograd_vs_plain(monkeypatch, torch.float32, 1e-5)
+
+
+def _autograd_vs_plain(monkeypatch, dtype, tol):
+    ce, x, e, t = _ce_inputs(512, 2048, 128, dtype, 9)
+    path = ce.kernel_for("cuda", dtype, 128, True)
     xs, es = (a.detach().requires_grad_() for a in (x, e))
-    ce.launches_fwd = ce.launches_dlogits = 0
-    ce.launches_fwd_wgmma = ce.launches_dlogits_wgmma = 0
+    _ce_reset(ce)
     loss = ce.chunked_softmax_xent(xs.view(2, 256, 128), es, t.view(2, 256),
                                    4)
     dx, de = torch.autograd.grad(loss, (xs, es))
-    assert _ce_counts(ce) == (0, 0, 1, 4)     # the wgmma kernels
+    assert _ce_counts(ce) == _ce_want(path, 1, 4, splits=2)
     monkeypatch.setattr(ce, "chunked_ce_fwd", lambda x2, emb, tg, k: (
         lambda lc: (lc[0], (lc[0] - lc[1]).mean()))(
             ce.chunked_ce_fwd_reference(x2, emb, tg, k)))
-    monkeypatch.setattr(ce, "ce_dlogits", ce.ce_dlogits_reference)
-    ce.launches_fwd = ce.launches_dlogits = 0
-    ce.launches_fwd_wgmma = ce.launches_dlogits_wgmma = 0
+    monkeypatch.setattr(ce, "ce_dlogits", lambda *a, parts=None, **k:
+                        ce.ce_dlogits_reference(*a, **k))
+    monkeypatch.setattr(ce, "split_tf32", lambda x2, emb: None)
+    _ce_reset(ce)
     xs2, es2 = (a.detach().requires_grad_() for a in (x, e))
     ref = ce.chunked_softmax_xent(xs2.view(2, 256, 128), es2,
                                   t.view(2, 256), 4)
     dx_ref, de_ref = torch.autograd.grad(ref, (xs2, es2))
-    assert _ce_counts(ce) == (0, 0, 0, 0)
+    assert _ce_counts(ce) == (0,) * 7
     assert abs(loss.item() - ref.item()) <= 1e-4
     for a, b in ((dx, dx_ref), (de, de_ref)):
-        assert a.dtype == torch.bfloat16
+        assert a.dtype == dtype
         assert ((a.float() - b.float()).norm() / b.float().norm()).item() \
-            <= 5e-3
+            <= tol
 
 
 @pytest.mark.gpu
@@ -621,6 +699,15 @@ def test_ce_kernels_reject_what_they_do_not_take(cuda):
     ce.chunked_ce_fwd(x[:, :32].contiguous(), e[:, :32].contiguous(), t, 2)
     torch.cuda.synchronize()
     assert (ce.launches_fwd, ce.launches_fwd_wgmma) == (1, 0)
+    # the tf32 kernel is f32 only, and its parts must be split_tf32's
+    with pytest.raises(ValueError, match="tf32"):
+        ce.chunked_ce_fwd(x, e, t, 2, kernel="tf32")
+    xf, ef = x.float(), e.float()
+    xb, xs_, eb, es = ce.split_tf32(xf, ef)
+    with pytest.raises(ValueError, match="parts"):
+        ce.ce_dlogits(xf, ef[:128], t, torch.zeros(64, device="cuda"), 0,
+                      torch.ones((), device="cuda"), 64,
+                      parts=(xb, xs_, eb, es))
 
 
 # ---------------------------------------------- K7: MoE dispatch / combine

@@ -15,7 +15,17 @@ several ways from the same numpy inputs:
   reduction (as cuBLAS's f32 GEMMs sum), against kernels whose products
   take 8-term chunks, each summed exactly and added to the f32 accumulator
   with one rounding (``mma3``, ``mma4``), or that keep sequential FMA for
-  S and dP (``fma_s_dp``).
+  S and dP (``fma_s_dp``);
+- the chunked cross-entropy's product at d 1024 (``ce_card_model``): the
+  tf32 K3b's logits x·E_cᵀ with each of the three split products an
+  instruction of its own over 8-deep steps, the accumulator rounded after
+  each to nearest (``rn``) or toward zero (``rz``: the tensor cores' f32
+  sums truncate), or with the sums promoted (``promoted``: each 32-deep
+  panel's products truncated into a zeroed partial sum, added to the f32
+  accumulator to nearest); the dlogits ``exp(s − lse)`` of each way against
+  the plain version's (sequential FMA) and f64's, by the K3b row's measure
+  (relative L2 off the targets). ``rz`` also models the f32 flash forward
+  (``flash_rz``), whose split o PERF.md §6 reads on the card.
 
 Run from the root of the checkout: ``python -m tools.f32_rehearsal``.
 """
@@ -78,6 +88,73 @@ def mm_mma(four, chunk=8):
             acc = (acc.astype(np.float64) + c).astype(np.float32)
         return acc
     return mm
+
+
+def _rz(val):
+    """f64 values rounded toward zero to f32."""
+    r = val.astype(np.float32)
+    over = np.abs(r.astype(np.float64)) > np.abs(val)
+    r[over] = np.nextafter(r[over], np.float32(0))
+    return r
+
+
+def mm_tc(mode, chunk=8, panel=32):
+    """The split products as a tensor core takes them: per 8-deep step
+    three instructions (small·big, big·small, big·big), each adding its 8
+    exact products to the f32 accumulator with one rounding, to nearest
+    (``rn``) or toward zero (``rz``); ``promoted``: the ``rz`` sums of each
+    ``panel``-deep panel in a zeroed partial sum, added to the accumulator
+    to nearest."""
+    def mm(a, b):
+        (ab, as_), (bb, bs) = fa.tf32_split(a), fa.tf32_split(b)
+        terms = [(x.astype(np.float64), y.astype(np.float64))
+                 for x, y in ((as_, bb), (ab, bs), (ab, bb))]
+        acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+        for p0 in range(0, a.shape[1], panel):
+            part = (np.zeros_like(acc) if mode == "promoted" else acc)
+            for k0 in range(p0, min(p0 + panel, a.shape[1]), chunk):
+                for x, y in terms:
+                    val = (part.astype(np.float64)
+                           + x[:, k0:k0 + chunk] @ y[k0:k0 + chunk])
+                    part = (val.astype(np.float32) if mode == "rn"
+                            else _rz(val))
+            acc = ((acc.astype(np.float64) + part).astype(np.float32)
+                   if mode == "promoted" else part)
+        return acc
+    return mm
+
+
+def ce_card_model(n=32, c=4096, d=1024):
+    """One K3b chunk at the training layer's d and scales (x ~ N(0, 1),
+    E ~ 0.02 N(0, 1), chip_smoke's ce_inputs), ``n`` rows: each way's
+    dlogits relative L2 against the plain version's and f64's, and its
+    largest |Δlogit| against f64; the flash forward's o (T 256, d 64)
+    under the ``rz`` model against f64."""
+    rng = np.random.default_rng(n + c + d)
+    x = rng.standard_normal((n, d), dtype=np.float32)
+    e = (0.02 * rng.standard_normal((c, d))).astype(np.float32)
+    s64 = x.astype(np.float64) @ e.astype(np.float64).T
+    plain = mm_fma(x, e.T)
+    lse = np.log(np.exp(plain.astype(np.float64)).sum(-1))[:, None]
+
+    def rel(s, ref):
+        p, q = np.exp(s.astype(np.float64) - lse), np.exp(ref - lse)
+        return float(np.linalg.norm(p - q) / np.linalg.norm(q))
+
+    res = {"plain": {"vs_f64": rel(plain, s64),
+                     "max_dlogit_vs_f64": float(np.abs(plain - s64).max())}}
+    for mode in ("rn", "rz", "promoted"):
+        got = mm_tc(mode)(x, e.T)
+        res[mode] = {"vs_plain": rel(got, plain.astype(np.float64)),
+                     "vs_f64": rel(got, s64),
+                     "max_dlogit_vs_f64": float(np.abs(got - s64).max())}
+    q, k, v = (rng.standard_normal((256, 64), dtype=np.float32)
+               for _ in range(3))
+    o64, _ = forward(*(t.astype(np.float64) for t in (q, k, v)), True,
+                     lambda a, b: a @ b)
+    o_rz, _ = forward(q, k, v, True, mm_tc("rz"))
+    res["flash_rz_o_vs_f64"] = float(np.abs(o_rz - o64).max())
+    return {"case": [n, c, d], "ce_card_model": res}
 
 
 def forward(q, k, v, causal, mm):
@@ -193,6 +270,7 @@ def main() -> None:
     for tq, d, causal in ((256, 64, True), (1024, 64, True),
                           (130, 48, False)):
         print(json.dumps(card_model(tq, d, causal)), flush=True)
+    print(json.dumps(ce_card_model()), flush=True)
 
 
 if __name__ == "__main__":
