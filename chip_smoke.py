@@ -9,8 +9,8 @@ It builds every CUDA kernel of the port from ``kernels/csrc/`` with
 ``nvcc`` (one process per source, all at once), checks in ptxas's report
 that the wgmma forward has 168 registers a thread at entry and no spills,
 that the wgmma backward's and the wgmma and tf32 K3's kernels, every
-instantiation of the mma.sync flash forward and backward and of K4a spill
-nothing, and that no wgmma source has its products serialized
+instantiation of the mma.sync flash forward and backward, of K4a and of
+K4w spill nothing, and that no wgmma source has its products serialized
 (C7514/C7512), then:
 
 1. kernel phase — holds each flash-attention kernel (the wgmma kernel for
@@ -55,18 +55,25 @@ nothing, and that no wgmma source has its products serialized
    the pages plus SDPA, which K4a must not lose to at 16 heads of 64; K4a
    must give the same bits on a second call and in every output of three
    CUDA-graph replays, and its split count is swept at the main decode
-   step and the verify window (``decode_split_sweep``);
+   step and the verify window (``decode_split_sweep``); then K4a+w (the
+   decode step's store in K4a's launch, every decode path's kernel) on
+   bf16, int8 and f32 pages and the dense cache, against its plain version
+   (o at K4a's tolerance) and against the two-launch path it replaces (the
+   store's own launch, then K4a: o and every pool byte the same, the trash
+   page aside), timed in turns with that path at the decode step and B 8,
+   W 5; K4w (the prefill insert's, first) beside its bound;
 3. slice phase — serves generation from ``TransformerLM`` at the full
    width of the bench's large config (vocab 32768, 12 layers, 16 heads,
    d_model 1024, d_ff 4096, max_len 1024, bf16, fused QKV; random weights
    from a numpy seed through ``from_jax_params``) through ``DecodeEngine``
    in its default paged mode, checks the tokens and logits, and checks that
    every prefill and ``apply`` launched the wgmma kernel exactly once per
-   layer and the simple kernel never, and every decode step K4a once per
-   layer;
+   layer and the simple kernel never, and every decode step K4a+w once per
+   layer (K4a alone and K4w never);
 4. profile phase — one ``torch.profiler`` window over a single prefill at
-   bucket 1024, and one over 4 decode steps after a 960-token prompt: the
-   device's busy share and the top device kernels; then the serving modes
+   bucket 1024, and one over 4 decode steps after a 960-token prompt on
+   bf16 pages and one on int8 pages: the device's busy share, kernels a
+   step and the top device kernels; then the serving modes
    at full width: int8 pages with plain decode, bf16 pages with speculative
    decoding (a 2-layer truncated draft with a dense cache, spec_k 4), and
    both: the int8 gate's record (the pool int8 if and only if it passed),
@@ -111,6 +118,9 @@ the simple forward and the mma.sync / FMA backward at F32_COMPARE_CASES.
 f64 at the f32 shapes; ``--precision-ce-f32`` holds the f32 K3 (the scalar
 FMA kernel of chunked_ce.cu and the tf32 one) and its plain versions
 against f64 at the f32 training shape, and times both kernels in turns.
+``--compare-decode OTHER`` profiles and times decode steps over bf16 and
+int8 pages at the large config here and in the checkout at OTHER in turns
+(kernels a step, device busy time a step, host ms a step).
 """
 from __future__ import annotations
 
@@ -194,11 +204,12 @@ KERNELS = ("wgmma", "simple", "bwd_wgmma", "bwd")
 # d; its f32 kernel, on no path since the tf32 one), K7d and K7c, then the
 # wgmma K3f and K3b (bf16 at d % 64 == 0), then K4a (paged decode attention)
 # and K4w (int8 quantize-and-scatter), then the tf32 K3f and K3b (f32) and
-# their operands' split pass
+# their operands' split pass, then K4a+w (the decode store in K4a's launch)
 ALL_KERNELS = KERNELS + ("ce_fwd", "ce_dlogits", "moe_dispatch",
                          "moe_combine", "ce_fwd_wgmma", "ce_dlogits_wgmma",
                          "paged_attention", "kv_quant_write", "ce_fwd_tf32",
-                         "ce_dlogits_tf32", "ce_split_tf32")
+                         "ce_dlogits_tf32", "ce_split_tf32",
+                         "paged_attention_write")
 SOURCES.update(ce_fwd="chunked_ce.cu", ce_dlogits="chunked_ce.cu",
                moe_dispatch="moe_route.cu", moe_combine="moe_route.cu",
                ce_fwd_wgmma="chunked_ce_wgmma.cu",
@@ -207,7 +218,8 @@ SOURCES.update(ce_fwd="chunked_ce.cu", ce_dlogits="chunked_ce.cu",
                kv_quant_write="paged_attention.cu",
                ce_fwd_tf32="chunked_ce_tf32.cu",
                ce_dlogits_tf32="chunked_ce_tf32.cu",
-               ce_split_tf32="chunked_ce_tf32.cu")
+               ce_split_tf32="chunked_ce_tf32.cu",
+               paged_attention_write="paged_attention.cu")
 # K2 (backward) cases, laid out as KERNEL_CASES: "fused" takes q, k, v from
 # one (B, T, 3·H·d) projection, o from the forward written as TransformerLM
 # writes it, dO as the (B, H, T, d) view of a (B, T, H·d) gradient, and
@@ -391,15 +403,27 @@ K4A_INSTANTIATIONS = sorted(
 # K4w cases: (slots B, window W, layers, page tokens P, rows' dtype); B = 1
 # with W > 1 layer is a prefill insert (rows of a T-token bucket into whole
 # pages, zero-padded), else a decode or verify window (one layer). Each has
-# an all-zero row. The first is the main path's decode step.
+# an all-zero row. The first is the main path's, the insert at bucket 1024
+# (since K4a+w stores the decode rows, K4w's only caller).
 QUANT_CASES = [
+    (1, 1024, 12, 64, "bfloat16"),      # the insert at bucket 1024
+    (1, 32, 12, 64, "bfloat16"),        # bucket 32 into one padded page
     (1, 1, 1, 64, "bfloat16"),
     (1, 5, 1, 64, "bfloat16"),
     (8, 5, 1, 64, "bfloat16"),
     (2, 5, 1, 16, "float32"),
-    (1, 1024, 12, 64, "bfloat16"),      # the insert at bucket 1024
-    (1, 32, 12, 64, "bfloat16"),        # bucket 32 into one padded page
 ]
+# K4a+w cases (DECODE_CASES' shapes, the window's rows stored in the
+# launch): bf16 pages, int8 pages and the dense cache at the decode step,
+# the verify window at B 8, a window past S with a free slot, f32 pages.
+# The first three, and B 8 W 5 on bf16 pages, are timed in turns against
+# the two-launch path (the store's own launch, then K4a).
+FUSED_CASES = [DECODE_CASES[0], DECODE_CASES[7], DECODE_CASES[11],
+               DECODE_CASES[6], DECODE_CASES[10], DECODE_CASES[12],
+               DECODE_CASES[17], DECODE_CASES[16]]
+FUSED_TURN_CASES = FUSED_CASES[:4]
+FUSED_MAIN_CASE = {"paged_attention_write": DECODE_CASES[0],
+                   "int8": DECODE_CASES[7], "dense": DECODE_CASES[11]}
 # the serving modes at full width: int8 pages with plain decode, bf16 pages
 # with speculative decoding (a 2-layer truncated draft with a dense cache,
 # spec_k 4), and both
@@ -628,6 +652,30 @@ def k4a_ptxas(log):
         lambda m: (("bf16" if m.group(1) == "1" else "f32") + "/"
                    + ("int8" if m.group(2) == "1" else "same")
                    + f" w{m.group(3)} e{m.group(4)}"))
+
+
+K4W_INSTANTIATIONS = ["bf16", "f32"]
+
+
+def k4a_readonly_loads(sass):
+    """{function: 64- and 128-bit loads through the read-only path} for
+    each K4a instantiation in ``cuobjdump -sass`` output. K4a+w reads back
+    rows its block stored in the same launch, which that path need not
+    see, so the pool loads must take the coherent one: every count 0."""
+    out = {}
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = fn.split("\n", 1)[0].strip()
+        if "paged_attend_kernel" in name:
+            out[name] = len(re.findall(
+                r"LDG\.E\.(?:64|128)\.CONSTANT|LDG\.E\.CONSTANT\.(?:64|128)",
+                fn))
+    return out
+
+
+def k4w_ptxas(log):
+    """{"bf16": {...}, "f32": {...}}: K4w's ``quant_write_kernel<T>``."""
+    return _ptxas(log, r"quant_write_kernelI(13__nv_bfloat16|f)E",
+                  lambda m: "f32" if m.group(1) == "f" else "bf16")
 
 
 def spill_free(report, want):
@@ -968,7 +1016,7 @@ def all_counts():
                          ce.launches_fwd_wgmma, ce.launches_dlogits_wgmma,
                          pa.launches_attend, pa.launches_quant_write,
                          ce.launches_fwd_tf32, ce.launches_dlogits_tf32,
-                         ce.launches_split_tf32)
+                         ce.launches_split_tf32, pa.launches_attend_write)
 
 
 def reset_all_counts():
@@ -983,6 +1031,16 @@ def reset_all_counts():
     ce.launches_split_tf32 = 0
     mr.launches_dispatch = mr.launches_combine = 0
     pa.launches_attend = pa.launches_quant_write = 0
+    pa.launches_attend_write = 0
+
+
+def launch_counts(**named):
+    """A launch tuple in ALL_KERNELS' order: the ``named`` kernels' counts,
+    0 for every other kernel."""
+    unknown = set(named) - set(ALL_KERNELS)
+    if unknown:
+        raise ValueError(f"no such kernels: {sorted(unknown)}")
+    return tuple(named.get(k, 0) for k in ALL_KERNELS)
 
 
 def delta(before):
@@ -1428,14 +1486,18 @@ def expected_per_step(n_layers, remat, ce_chunks, moe=False, f32=False):
     once before the backward's chunks; chunked_ce.cu's K3 never); for a MoE
     model K7d and K7c twice per layer (the forward's dispatch and combine,
     and each one's backward in the other kernel; three times under remat);
-    K4a and K4w (decode only) never."""
+    K4a, K4w and K4a+w (decode only) never."""
     L = n_layers
     k7 = (3 if remat else 2) * L if moe else 0
-    fwd, k3 = (2 if remat else 1) * L, (1 if ce_chunks else 0, ce_chunks)
+    fwd, k3f = (2 if remat else 1) * L, 1 if ce_chunks else 0
     if f32:
-        return ((0, fwd, 0, L, 0, 0, k7, k7, 0, 0, 0, 0) + k3
-                + (2 if ce_chunks else 0,))
-    return (fwd, 0, L, 0, 0, 0, k7, k7) + k3 + (0, 0, 0, 0, 0)
+        return launch_counts(simple=fwd, bwd=L, moe_dispatch=k7,
+                             moe_combine=k7, ce_fwd_tf32=k3f,
+                             ce_dlogits_tf32=ce_chunks,
+                             ce_split_tf32=2 if ce_chunks else 0)
+    return launch_counts(wgmma=fwd, bwd_wgmma=L, moe_dispatch=k7,
+                         moe_combine=k7, ce_fwd_wgmma=k3f,
+                         ce_dlogits_wgmma=ce_chunks)
 
 
 def slice_phase(torch, fa):
@@ -1462,10 +1524,11 @@ def slice_phase(torch, fa):
                 "seconds": time.perf_counter() - t0,
                 "page_tokens": engine.page_tokens})
     L, V = cfg.n_layers, cfg.vocab_size
-    # the wgmma forward once per layer of a prefill or apply, K4a once per
-    # layer of each decode step (bf16 pages: K4w never), nothing else
-    per_forward = (L,) + (0,) * 14
-    per_generate = (L,) + (0,) * 9 + ((N_NEW - 1) * L, 0, 0, 0, 0)
+    # the wgmma forward once per layer of a prefill or apply, K4a+w once
+    # per layer of each decode step (bf16 pages: K4w never), nothing else
+    per_forward = launch_counts(wgmma=L)
+    per_generate = launch_counts(wgmma=L,
+                                 paged_attention_write=(N_NEW - 1) * L)
     rng = np.random.default_rng(SEED + 1)
 
     def launched(fn):
@@ -1580,6 +1643,11 @@ def k4a_bound_ms(case, pos):
     q and the positions read and o written once; against 4·hd operations
     per (query, needed key, head) in f32, the kernel's arithmetic (scalar
     FMAs: the f32 peak)."""
+    return _bound(*k4a_bound_parts(case, pos), "float32")
+
+
+def k4a_bound_parts(case, pos):
+    """(operations, bytes) of :func:`k4a_bound_ms`."""
     B, W, H, hd, P, n_lp, dtype, pool, _ctx, _trash = case
     S = P * n_lp
     item = 2 if dtype == "bfloat16" else 4
@@ -1591,7 +1659,7 @@ def k4a_bound_ms(case, pos):
               + 4 * int(np.ceil(keys / P).sum()) + 4 * B * W
               + 2 * B * W * H * hd * item)
     flops = 4.0 * H * hd * float(np.minimum(pos + 1, S).sum())
-    return _bound(flops, nbytes, "float32")
+    return flops, nbytes
 
 
 def k4w_bound_ms(n_valid, n_rows, layers, c, dtype):
@@ -1601,6 +1669,83 @@ def k4w_bound_ms(n_valid, n_rows, layers, c, dtype):
     item = 2 if dtype == "bfloat16" else 4
     return _bound(0.0, layers * (2 * n_valid * c * item + 2 * n_rows * c
                                  + 8 * n_rows) + 8 * n_rows, dtype)
+
+
+def k4aw_inputs(torch, case):
+    """K4a's inputs for one of DECODE_CASES (a P = S case as the dense
+    cache: B pages of S tokens, no trash page), with q and the window's k
+    and v rows as strided views of one projection, and each row's flat
+    pool row ``dst``: through the table, past S to the trash page (paged)
+    or dropped (-1, dense). Returns (q, k, v, pools, tables, pos, dst,
+    dense)."""
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    B, W, H, hd, P, n_lp, dtype, pool, ctx, trash = case
+    _q, pools, tables, pos = k4_inputs(torch, case)
+    dense = n_lp == 1 and not trash and pool != "int8"
+    C, S = H * hd, P * n_lp
+    g = torch.Generator(device="cuda").manual_seed(B * 29 + W + hd + P)
+    proj = torch.randn((B, W, 3 * C), generator=g, device="cuda").to(
+        getattr(torch, dtype))
+    q, k, v = (proj[..., i * C:(i + 1) * C].view(B, W, H, hd)
+               for i in range(3))
+    pos64 = pos.long()
+    if dense:
+        tables = pa.dense_tables(B, "cuda")
+        pools = (pools[0][:B].contiguous(), pools[1][:B].contiguous(),
+                 None, None)
+        dst = torch.where(pos64 < S, torch.arange(
+            B, device="cuda")[:, None] * S + pos64, -1)
+    else:
+        lp = (pos64 // P).clamp(max=n_lp - 1)
+        page = torch.where(pos64 < S, tables.long().gather(1, lp),
+                           pools[0].shape[0] - 1)
+        dst = page * P + pos64 % P
+    return q, k, v, pools, tables, pos, dst.to(torch.int32), dense
+
+
+def two_launch_store(torch, k, v, pools, dst):
+    """The store K4a+w folds in, as the decode path ran it before: K4w on
+    int8 pools, else one ``index_put_`` of the rows into each pool (the
+    kept rows gathered first where some are dropped; integer indices made
+    here, once: CUDA-graph safe). Returns a function of no arguments doing
+    it in place."""
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    kp, vp, ks, vs = pools
+    if ks is not None:
+        P = kp.shape[1]
+        phys, off = dst // P, dst % P
+        return lambda: pa.kv_quant_write(k, v, phys, off, kp, vp, ks, vs)
+    flat_k = kp.view(-1, *kp.shape[2:])
+    flat_v = vp.view(-1, *vp.shape[2:])
+    if bool((dst >= 0).all()):
+        at = dst.long()
+
+        def store():
+            flat_k[at] = k
+            flat_v[at] = v
+        return store
+    bi, wi = torch.nonzero(dst >= 0, as_tuple=True)
+    at = dst.long()[bi, wi]
+
+    def store_kept():
+        flat_k[at] = k[bi, wi]
+        flat_v[at] = v[bi, wi]
+    return store_kept
+
+
+def k4aw_bound_ms(case, pos, dst):
+    """K4a+w's least time: K4a's (:func:`k4a_bound_ms`) plus the window's k
+    and v rows read once from the projection, the stored rows written once
+    (int8 rows with their f32 scales) and their pool rows ``dst`` read."""
+    B, W, H, hd, P, n_lp, dtype, pool, _ctx, _trash = case
+    item = 2 if dtype == "bfloat16" else 4
+    kv_item = 1 if pool == "int8" else item
+    stored = int((dst >= 0).sum().item())
+    flops, nbytes = k4a_bound_parts(case, pos)
+    nbytes += (2 * B * W * H * hd * item + 4 * B * W
+               + 2 * stored * (H * hd * kv_item + (4 if pool == "int8"
+                                                   else 0)))
+    return _bound(flops, nbytes, "float32")
 
 
 def quant_inputs(torch, case):
@@ -1711,6 +1856,8 @@ def decode_kernel_phase(torch):
               if c[2:4] == (16, 64) and r["device_vs_library"] > 1.0}
     check(not slower, f"K4a slower than the gather + SDPA at H 16, hd 64: "
           f"{slower}")
+    for case in FUSED_CASES:
+        results[("fused",) + case] = fused_decode_case(torch, case)
     for case in QUANT_CASES:
         B, W, layers, P, dtype = case
         k, v, phys, off, pools = quant_inputs(torch, case)
@@ -1748,6 +1895,98 @@ def decode_kernel_phase(torch):
         emit(quant_write_case=row)
         results[("quant",) + case] = row
     return results
+
+
+def fused_decode_case(torch, case):
+    """K4a+w at one of FUSED_CASES: o of the live slots the same bits as
+    the two-launch path's (the store's own launch, then K4a) and within
+    TOL_O of the plain version's (the scatter, the gather and the
+    reference attention); the pools and scales the same bytes as both,
+    the trash page aside (free slots and rows past S write it in no fixed
+    order); the same bits on a second call and across CUDA-graph replays.
+    Times it (``device_ms`` from graph replays, ``ms`` with the host), the
+    two-launch path in turns with it (fused, two, two, fused) at
+    FUSED_TURN_CASES, and the plain version."""
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    B, W, H, hd, P, n_lp, dtype, pool, ctx, trash = case
+    q, k, v, pools, tables, pos, dst, dense = k4aw_inputs(torch, case)
+
+    def clones():
+        return tuple(None if x is None else x.clone() for x in pools)
+
+    fused, two, plain = clones(), clones(), clones()
+    reset_all_counts()
+    o = pa.paged_attention_write(q, k, v, fused[0], fused[1], tables, pos,
+                                 dst, fused[2], fused[3])
+    torch.cuda.synchronize()
+    check(all_counts() == launch_counts(paged_attention_write=1),
+          f"K4a+w {case}: launched {all_counts()}")
+    store = two_launch_store(torch, k, v, two, dst)
+
+    def two_launches():
+        store()
+        return pa.paged_attention(q, two[0], two[1], tables, pos, two[2],
+                                  two[3])
+
+    o2 = two_launches()
+    ref = pa.paged_attention_write_reference(q, k, v, *plain[:2], tables,
+                                             pos, dst, *plain[2:])
+    torch.cuda.synchronize()
+    live = [b for b in range(B) if b not in trash]
+    err = (o[live].float() - ref[live].float()).abs().max().item()
+    check(math.isfinite(err) and err <= TOL_O[dtype],
+          f"paged_attention_write {case}: max |do| {err} > {TOL_O[dtype]}")
+    check(torch.equal(o[live], o2[live]), f"paged_attention_write {case}: "
+          f"o differs from the two-launch path's")
+    keep = slice(None) if dense else slice(0, -1)
+    for name, a, b, c in zip(("k", "v", "k_scale", "v_scale"), fused, two,
+                             plain):
+        if a is not None:
+            check(torch.equal(a[keep], b[keep])
+                  and torch.equal(a[keep], c[keep]),
+                  f"paged_attention_write {case}: the {name} pool differs "
+                  f"from the two-launch path's or the plain version's")
+
+    def kernel():
+        return pa.paged_attention_write(q, k, v, fused[0], fused[1], tables,
+                                        pos, dst, fused[2], fused[3])
+
+    exact = exactness(o, kernel(), graph_outputs(kernel, torch))
+    check(exact["deterministic"] and exact["replay_exact"],
+          f"paged_attention_write {case}: not the same bits run to run "
+          f"{exact}")
+    bound_ms, bound_by = k4aw_bound_ms(case, pos, dst)
+    row = {"b": B, "w": W, "h": H, "hd": hd, "page_tokens": P,
+           "pages_a_slot": n_lp, "dtype": dtype,
+           "pool": "dense" if dense else pool, "contexts": list(ctx),
+           "trash_slots": list(trash),
+           "splits": pa.attend_splits(q, fused[0], fused[1], tables)[0],
+           "max_abs_err": err, "two_launch_exact": True,
+           "ms": time_ms(kernel, torch),
+           "two_launch_ms": time_ms(two_launches, torch),
+           "plain_ms": time_ms(lambda: pa.paged_attention_write_reference(
+               q, k, v, *plain[:2], tables, pos, dst, *plain[2:]), torch,
+               iters=5, repeats=5),
+           "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+           **exact}
+    if case in FUSED_TURN_CASES:
+        # the two-launch path's store is PyTorch's index_put_ on pages of
+        # q's dtype: captured in the graph as the kernels are
+        turns = [(label, device_ms(fn, torch)) for label, fn in (
+            ("fused", kernel), ("two", two_launches), ("two", two_launches),
+            ("fused", kernel))]
+        row["device_ms_turns"] = turns
+        row["device_ms"] = statistics.mean(t for lb, t in turns
+                                           if lb == "fused")
+        row["two_launch_device_ms"] = statistics.mean(
+            t for lb, t in turns if lb == "two")
+        row["fused_vs_two_launch"] = (row["device_ms"]
+                                      / row["two_launch_device_ms"])
+    else:
+        row["device_ms"] = device_ms(kernel, torch)
+    row["device_vs_bound"] = row["device_ms"] / bound_ms
+    emit(fused_decode_case=row)
+    return row
 
 
 def split_sweep(torch, case, candidates):
@@ -1885,10 +2124,13 @@ def serve_phase(torch, model, engine):
             got = delta(before)
             rounds = eng.spec_stats["rounds"] - rounds0
             steps = rounds if spec else N_NEW - 1
-            k4a = steps * (L + (SPEC_K * DRAFT_LAYERS if spec else 0))
-            k4w = (1 + steps * L) if int8 else 0
-            want = ((L + (DRAFT_LAYERS if spec else 0),) + (0,) * 9
-                    + (k4a, k4w, 0, 0, 0))
+            # K4a+w a layer a step (the draft's dense steps too); K4w once,
+            # the prefill's insert into int8 pages, and never on decode
+            want = launch_counts(
+                wgmma=L + (DRAFT_LAYERS if spec else 0),
+                kv_quant_write=1 if int8 else 0,
+                paged_attention_write=steps * (
+                    L + (SPEC_K * DRAFT_LAYERS if spec else 0)))
             check(got == want, f"{mode} prompt {n}: launched {got}, want "
                   f"{want} {ALL_KERNELS}")
             check(toks.shape == (1, N_NEW) and bool(((toks >= 0)
@@ -1946,7 +2188,7 @@ def serve_phase(torch, model, engine):
         del eng, state, st, bst
     # an int8 pool through decode_window_paged at full width, whatever the
     # gate decided: the prompt's rows written by K4w, a W = SPEC_K + 1
-    # window, against the same window over bf16 pages
+    # window (K4a+w), against the same window over bf16 pages
     n = PROMPT_LENS[0]
     _f, _l, kv, t = engine.prefill(prompts[n])
     npb = -(-kv["k"].shape[2] // P)
@@ -1969,11 +2211,12 @@ def serve_phase(torch, model, engine):
     lb, _ = model.decode_window_paged(params, pools["bf16"], tables, win,
                                       pos, P)
     finite = bool(torch.isfinite(lq).all())
-    check(got[10:] == (L, L, 0, 0, 0) and finite,
+    check(got == launch_counts(paged_attention_write=L) and finite,
           f"int8 window: launched {got}, finite logits {finite}")
     emit(int8_window={"prompt_len": n, "w": SPEC_K + 1,
                       "max_abs_logit_diff_vs_bf16_pages":
-                      (lq - lb).abs().max().item(), "launches": got[10:12]})
+                      (lq - lb).abs().max().item(),
+                      "launches": dict(zip(ALL_KERNELS, got))})
     launches = all_counts()              # ... and ends here
     del pools, kv, lq, lb, draft, dmodel
     torch.cuda.empty_cache()
@@ -1982,60 +2225,84 @@ def serve_phase(torch, model, engine):
 
 def decode_profile_phase(torch, engine):
     """One torch.profiler window over 4 decode steps of one slot after a
-    960-token prompt: the device's busy share and the device time by
-    kernel, K4a's among them."""
+    960-token prompt, on bf16 pages (``engine``) and on int8 pages (an
+    engine with ``kv_quant``, its gate passed): the device's busy share,
+    the kernels a step and the device time by kernel, K4a+w's among them
+    (one launch a layer a step, K4w none)."""
+    from deeplearning4j_tpu_torch.models.generation import DecodeEngine
     prompt = np.random.default_rng(SEED + 7).integers(
         0, LARGE["vocab_size"], (1, PROFILE_PROMPT)).astype(np.int32)
-    first, _l, kv, t = engine.prefill(prompt)
-    state = engine.insert_slot(engine.new_state(1), kv, 0)
-    toks, pos = first, np.full((1,), t, np.int32)
-    toks, _l, state = engine.decode(state, toks, pos, 1)     # warm
-    torch.cuda.synchronize()
-
-    def steps():
-        nonlocal toks, pos
-        for i in range(4):
-            pos = pos + 1
-            toks, _lg, _st = engine.decode(state, toks, pos, 2 + i)
-
-    reset_all_counts()
-    row = profile_window(torch, "decode", steps, "decode_960_trace.json",
-                         top=12)
     L = LARGE["n_layers"]
-    check(all_counts() == (0,) * 10 + (4 * L, 0, 0, 0, 0),
-          f"profiled decode launched {all_counts()}")
-    traced = sum(k["count"] for k in row.get("decode_kernels", ())
-                 if "paged_attend_kernel" in k["name"])
-    check(traced == 4 * L or not TRACE_ON_DEVICE,
-          f"profiled decode traced {traced} K4a kernels, not one a layer "
-          f"a step ({4 * L})")
-    emit(decode_profile={"prompt_len": PROFILE_PROMPT, "steps": 4,
-                         "kernels_per_step": row.get("kernels", 0) / 4,
-                         **row})
+    int8 = DecodeEngine(engine.model, engine.params, max_len=engine.max_len,
+                        kv_quant=True)
+    for pool, eng in (("bfloat16", engine), ("int8", int8)):
+        first, _l, kv, t = eng.prefill(prompt)
+        state = eng.insert_slot(eng.new_state(1), kv, 0)
+        check((state.arrays["k"].dtype == torch.int8) == (pool == "int8"),
+              f"decode profile: a {state.arrays['k'].dtype} pool for {pool}")
+        toks, pos = first, np.full((1,), t, np.int32)
+        toks, _l, state = eng.decode(state, toks, pos, 1)     # warm
+        torch.cuda.synchronize()
+
+        def steps():
+            nonlocal toks, pos
+            for i in range(4):
+                pos = pos + 1
+                toks, _lg, _st = eng.decode(state, toks, pos, 2 + i)
+
+        reset_all_counts()
+        name = "decode_960_trace.json" if pool == "bfloat16" else \
+            "decode_960_int8_trace.json"
+        row = profile_window(torch, "decode", steps, name, top=12)
+        check(all_counts() == launch_counts(paged_attention_write=4 * L),
+              f"profiled decode ({pool}) launched {all_counts()}")
+        traced = {k["name"]: k["count"] for k in row.get("decode_kernels",
+                                                         ())}
+        fused = sum(n for k, n in traced.items()
+                    if "paged_attend_kernel" in k)
+        quant = sum(n for k, n in traced.items() if "quant_write" in k)
+        check((fused == 4 * L and quant == 0) or not TRACE_ON_DEVICE,
+              f"profiled decode ({pool}) traced {fused} K4a+w and {quant} "
+              f"K4w kernels, not one K4a+w a layer a step ({4 * L})")
+        emit(decode_profile={"prompt_len": PROFILE_PROMPT, "steps": 4,
+                             "pool": pool,
+                             "kernels_per_step": row.get("kernels", 0) / 4,
+                             **row})
+        del state, kv
+    del int8
+    torch.cuda.empty_cache()
 
 
 def decode_kernel_entry(kind, cases, launches):
     """The kernels-line entry of K4a ("paged_attention", its numbers at the
-    main path's decode step, bf16 pages; its int8 and dense-view cases
-    beside them) or K4w ("kv_quant_write", at the decode step's rows; no
+    decode step on bf16 pages; its int8 and dense-view cases beside them;
+    since K4a+w no main path calls it alone), K4a+w
+    ("paged_attention_write", the same shapes, with the two-launch path's
+    times beside) or K4w ("kv_quant_write", at the bucket-1024 insert; no
     single library call computes it)."""
-    k4a = kind == "paged_attention"
-    main = cases[DECODE_MAIN_CASE[kind] if k4a
-                 else ("quant",) + QUANT_CASES[0]]
-    rows = [r for c, r in cases.items() if (c[0] != "quant") == k4a]
+    group = {"paged_attention": lambda c: c[0] not in ("quant", "fused"),
+             "paged_attention_write": lambda c: c[0] == "fused",
+             "kv_quant_write": lambda c: c[0] == "quant"}[kind]
+    key = {"paged_attention": DECODE_MAIN_CASE["paged_attention"],
+           "paged_attention_write": ("fused",)
+           + FUSED_MAIN_CASE["paged_attention_write"],
+           "kv_quant_write": ("quant",) + QUANT_CASES[0]}[kind]
+    main = cases[key]
+    rows = [r for c, r in cases.items() if group(c)]
     entry = {
         "name": kind, "route": "cuda",
         "source": f"deeplearning4j_tpu_torch/kernels/csrc/{SOURCES[kind]}",
-        "replaces": "deeplearning4j_tpu/models/transformer.py:"
-                    + ("827" if k4a else "107"),
+        "replaces": "deeplearning4j_tpu/models/transformer.py:" + {
+            "paged_attention": "827", "paged_attention_write": "861",
+            "kv_quant_write": "107"}[kind],
         "launches": sum(launches.values()), "launches_by_path": launches,
-        "on_main_path": True,
+        "on_main_path": kind != "paged_attention",
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main["ms"], "device_ms": main["device_ms"],
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": main["library_ms"],
         "library_device_ms": main.get("library_device_ms")}
-    if k4a:
+    if kind == "paged_attention":
         entry["library"] = "gather of the slot's pages + SDPA (bool mask)"
         entry["at"] = dict(zip(("b", "w", "h", "hd", "page_tokens",
                                 "pages_a_slot", "dtype", "pool", "contexts",
@@ -2045,6 +2312,18 @@ def decode_kernel_entry(kind, cases, launches):
             entry[other.split("_")[-1]] = {
                 k: r[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
                                   "library_ms", "library_device_ms")}
+    elif kind == "paged_attention_write":
+        entry["library"] = None
+        entry["at"] = dict(zip(("b", "w", "h", "hd", "page_tokens",
+                                "pages_a_slot", "dtype", "pool", "contexts",
+                                "trash_slots"), FUSED_MAIN_CASE[kind]))
+        entry["two_launch_device_ms"] = main["two_launch_device_ms"]
+        entry["two_launch_ms"] = main["two_launch_ms"]
+        for other in ("int8", "dense"):
+            r = cases[("fused",) + FUSED_MAIN_CASE[other]]
+            entry[other] = {k: r[k] for k in (
+                "ms", "device_ms", "plain_ms", "bound_ms",
+                "two_launch_device_ms", "two_launch_ms")}
     else:
         entry["at"] = dict(zip(("b", "w", "layers", "page_tokens", "dtype"),
                                QUANT_CASES[0]))
@@ -2302,7 +2581,7 @@ def moe_train_phase(torch, fa):
         toks < LARGE["vocab_size"])).all()), f"MoE generate: {toks.shape}")
     check(served[6] > 0 and served[7] > 0 and served[4:6] == (0, 0)
           and served[8:10] == (0, 0)
-          and served[10:] == ((N_NEW - 1) * LARGE["n_layers"], 0, 0, 0, 0),
+          and served[10:] == (0,) * 5 + ((N_NEW - 1) * LARGE["n_layers"],),
           f"MoE generate launched {served} {ALL_KERNELS}")
     emit(moe_generate={"batch": 2, "prompt_len": 100, "new_tokens": N_NEW,
                        "generate_ms": ms,
@@ -2316,7 +2595,7 @@ def f32_serve_phase(torch):
     """The f32 model (LARGE_F32, the model's default compute type) serving
     one request through ``DecodeEngine`` in its paged mode (f32 pages): a
     PROMPT_LENS[0]-token prompt (bucket 1024) and N_NEW greedy tokens, the
-    simple forward once per layer of the prefill and K4a once per layer of
+    simple forward once per layer of the prefill and K4a+w once per layer of
     each decode step, no wgmma flash kernel; the decode logits held to
     ``apply`` over the same tokens (TOL_TEACHER_FORCED_F32). Returns each
     kernel's launches in the run."""
@@ -2345,7 +2624,7 @@ def f32_serve_phase(torch):
     torch.cuda.synchronize()
     gen_ms = 1e3 * (time.perf_counter() - t)
     launches = all_counts()              # ... and ends here
-    want = (0, L, 0, 0) + (0,) * 6 + ((N_NEW - 1) * L, 0, 0, 0, 0)
+    want = launch_counts(simple=L, paged_attention_write=(N_NEW - 1) * L)
     check(launches == want, f"f32 serving launched {launches}, want {want} "
           f"{ALL_KERNELS}")
     check(toks.shape == (1, N_NEW) and bool(((toks >= 0) & (toks < V))
@@ -2660,7 +2939,8 @@ def check_path_launches(serve, modes, train, moe, f32_serve, f32_train):
     backward; the f32 paths the simple forward (serving and training) and
     the mma.sync backward (training), never a wgmma flash kernel, and
     the tf32 K3 and its split pass (training) where bf16 launches the wgmma
-    K3; chunked_ce.cu's K3 on no path."""
+    K3; chunked_ce.cu's K3 on no path; K4a+w on every serving path and K4a
+    on none, K4w on the int8 serving modes only (the prefill's insert)."""
     check(serve[0] > 0 and train[0] > 0 and moe[0] > 0,
           "a main path launched no flash_attention_fwd_wgmma")
     check(train[2] > 0 and moe[2] > 0,
@@ -2692,12 +2972,14 @@ def check_path_launches(serve, modes, train, moe, f32_serve, f32_train):
           and serve[12:15] == modes[12:15] == f32_serve[12:15] == (0,) * 3
           and train[6:8] == f32_train[6:8] == (0, 0),
           "serving launched K3 or K7, or a dense model K7")
-    check(serve[10] > 0 and serve[11] == 0 and modes[10] > 0
-          and modes[11] > 0 and f32_serve[10] > 0 and f32_serve[11] == 0
-          and train[10:12] == moe[10:12] == f32_train[10:12] == (0, 0),
-          f"K4a or K4w off their paths: serve {serve[10:12]}, modes "
-          f"{modes[10:12]}, f32 serve {f32_serve[10:12]}, train "
-          f"{train[10:12]}, moe {moe[10:12]}, f32 train {f32_train[10:12]}")
+    k4 = [(t[10], t[11], t[15]) for t in (serve, modes, f32_serve, train,
+                                          moe, f32_train)]
+    check(serve[15] > 0 and modes[15] > 0 and f32_serve[15] > 0
+          and serve[10] == modes[10] == f32_serve[10] == 0
+          and serve[11] == f32_serve[11] == 0 and modes[11] > 0
+          and k4[3:] == [(0, 0, 0)] * 3,
+          f"K4a, K4w or K4a+w off their paths (serve, modes, f32 serve, "
+          f"train, moe, f32 train): {k4}")
 
 
 # --precision-f32: the f32 shapes of the kernel and backward phases
@@ -2882,6 +3164,101 @@ F32_COMPARE_CASES = [("3d", 16, 1, 256, 256, 64, "float32", True),
                      ("3d", 16, 1, 512, 512, 96, "bfloat16", True)]
 
 
+# one turn of --compare-decode: the tree's own K4a and K4w at the given
+# cases, then its own engine over bf16 and int8 pages after a
+# PROFILE_PROMPT-token prompt, at the large config
+_DECODE_TURN = """
+import json, statistics, sys, time
+import numpy as np, torch, chip_smoke
+cases, quant = json.loads(sys.argv[1])
+chip_smoke.DECODE_CASES = [tuple(tuple(x) if isinstance(x, list) else x
+                                 for x in c) for c in cases]
+chip_smoke.QUANT_CASES = [tuple(c) for c in quant]
+chip_smoke.SPLIT_SWEEP = {}
+chip_smoke.FUSED_CASES = []
+chip_smoke.decode_kernel_phase(torch)
+from deeplearning4j_tpu_torch.models.generation import DecodeEngine
+from deeplearning4j_tpu_torch.models.transformer import (TransformerConfig,
+                                                         TransformerLM)
+from deeplearning4j_tpu_torch.models.weights import (from_jax_params,
+                                                     init_jax_layout)
+cfg = TransformerConfig(**chip_smoke.LARGE)
+params = from_jax_params(init_jax_layout(cfg, chip_smoke.SEED), cfg)
+model = TransformerLM(cfg)
+prompt = np.random.default_rng(chip_smoke.SEED + 7).integers(
+    0, cfg.vocab_size, (1, chip_smoke.PROFILE_PROMPT)).astype(np.int32)
+for quant in (False, True):
+    eng = DecodeEngine(model, params, max_len=cfg.max_len, kv_quant=quant)
+    first, _l, kv, t = eng.prefill(prompt)
+
+    def ready():
+        state = eng.insert_slot(eng.new_state(1), kv, 0)
+        toks, pos = first, np.full((1,), t, np.int32)
+        toks, _l, state = eng.decode(state, toks, pos, 1)
+        torch.cuda.synchronize()
+        return [state, toks, pos]
+
+    def steps(at, n):
+        state, toks, pos = at
+        start = time.perf_counter()
+        for i in range(n):
+            pos = pos + 1
+            toks, _l, state = eng.decode(state, toks, pos, 2 + i)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - start) / n
+
+    at = ready()
+    row = chip_smoke.profile_window(torch, "decode", lambda: steps(at, 4),
+                                    f"turn_decode_{int(quant)}.json")
+    ms = [steps(ready(), 24) for _ in range(3)]
+    print(json.dumps({"decode_turn": {
+        "pool": "int8" if quant else "bfloat16",
+        "int8_pool": eng.kv_quant, "kernels_per_step": row["kernels"] / 4,
+        "device_busy_us_per_step": row["device_busy_us"] / 4,
+        "busy_share": row["busy_share"],
+        "host_ms_per_step": statistics.median(ms)}}), flush=True)
+    del eng, kv
+"""
+
+
+def compare_decode(other, this=ROOT):
+    """Each tree's K4a at the decode step on bf16 and int8 pages, the dense
+    view and B 8, W 5, and its K4w at the bucket-1024 insert (device ms),
+    then decode at the large config over bf16 and int8 pages: kernels a
+    step and device busy time a step from a profiled window of 4 steps,
+    and host ms a step over 24 steps (median of 3); in the checkout at
+    ``other`` and in ``this`` in turns (other, this, this, other), each
+    turn a subprocess of that tree. Returns {what: {"other": [x, x],
+    "this": [x, x]}}."""
+    arg = json.dumps([[DECODE_CASES[i] for i in (0, 7, 11, 6)],
+                      [QUANT_CASES[0]]])
+    out = {}
+    for label, root in (("other", other), ("this", this), ("this", this),
+                        ("other", other)):
+        run = subprocess.run([sys.executable, "-c", _DECODE_TURN, arg],
+                             cwd=root, capture_output=True, text=True,
+                             timeout=900)
+        check(run.returncode == 0, f"decode turn in {root} failed:\n"
+              f"{run.stdout[-4000:]}\n{run.stderr[-4000:]}")
+        for line in run.stdout.splitlines():
+            row = json.loads(line) if line.startswith("{") else {}
+            if "decode_turn" in row:
+                r = row["decode_turn"]
+                key = f"decode {r['pool']}"
+            elif "decode_case" in row:
+                r = row["decode_case"]["device_ms"]
+                key = "K4a " + " ".join(str(row["decode_case"][k]) for k in (
+                    "b", "w", "page_tokens", "pool", "contexts"))
+            elif "quant_write_case" in row:
+                r = row["quant_write_case"]["device_ms"]
+                key = "K4w " + " ".join(str(row["quant_write_case"][k])
+                                        for k in ("b", "w", "layers"))
+            else:
+                continue
+            out.setdefault(key, {}).setdefault(label, []).append(r)
+    return out
+
+
 def compare_turns(other, this=ROOT, fwd=None, bwd=None):
     """Device ms of K1 at ``fwd`` and K2 at ``bwd`` (by default K1 at
     MAIN_CASE["wgmma"] and the training layer, and K2 at every bf16 d
@@ -2923,6 +3300,10 @@ def main() -> int:
     parser.add_argument("--compare-f32", metavar="OTHER", type=Path,
                         help="the same for the simple forward and the "
                         "mma.sync / FMA backward at F32_COMPARE_CASES")
+    parser.add_argument("--compare-decode", metavar="OTHER", type=Path,
+                        help="profile and time decode steps over bf16 and "
+                        "int8 pages here and in the checkout at OTHER in "
+                        "turns, and nothing else")
     parser.add_argument("--precision-f32", action="store_true",
                         help="measure the f32 kernels and the plain "
                         "versions against f64, and nothing else")
@@ -2956,6 +3337,9 @@ def main() -> int:
         emit(compare_turns=compare_turns(args.compare_f32.resolve(),
                                          fwd=F32_COMPARE_CASES,
                                          bwd=F32_COMPARE_CASES))
+        return 0
+    if args.compare_decode is not None:
+        emit(compare_decode=compare_decode(args.compare_decode.resolve()))
         return 0
     if args.precision_f32:
         precision_f32(torch, fa)
@@ -3028,6 +3412,20 @@ def main() -> int:
         check(spill_free(report, K4A_INSTANTIATIONS),
               f"K4a: want no spills in its {len(K4A_INSTANTIATIONS)} "
               f"instantiations, ptxas gave {report}")
+        report = k4w_ptxas(log)
+        emit(k4w_ptxas=report)
+        check(spill_free(report, K4W_INSTANTIATIONS),
+              f"K4w: want no spills in its {len(K4W_INSTANTIATIONS)} "
+              f"instantiations, ptxas gave {report}")
+        sass = subprocess.run(
+            [str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass",
+             str(_build._target("paged_attention"))], capture_output=True,
+            text=True, check=True, timeout=300).stdout
+        loads = k4a_readonly_loads(sass)
+        emit(k4a_readonly_loads=sum(loads.values()), functions=len(loads))
+        check(len(loads) == len(K4A_INSTANTIATIONS)
+              and not any(loads.values()),
+              f"K4a: pool loads through the read-only path {loads}")
 
     def allocated(after):
         emit(allocated={"after": after,
@@ -3085,7 +3483,9 @@ def main() -> int:
                   decode_kernel_entry("kv_quant_write", decode_cases,
                                       launches["kv_quant_write"])]
          + [ce_kernel_entry(k, ce_cases, launches[k])
-            for k in ("ce_fwd_tf32", "ce_dlogits_tf32", "ce_split_tf32")])
+            for k in ("ce_fwd_tf32", "ce_dlogits_tf32", "ce_split_tf32")]
+         + [decode_kernel_entry("paged_attention_write", decode_cases,
+                                launches["paged_attention_write"])])
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

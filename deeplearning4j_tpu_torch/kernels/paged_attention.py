@@ -1,5 +1,6 @@
 """Paged decode attention (K4): the W-window attention over a KV page pool
-(K4a) and the int8 quantize-and-scatter of KV rows (K4w).
+(K4a), the same launch storing the window's rows first (K4a+w), and the
+int8 quantize-and-scatter of KV rows (K4w).
 
 Counterpart of the lax formulation on the JAX package's serving path:
 ``TransformerLM.decode_window_paged`` (its page gather and dequantizing
@@ -20,15 +21,24 @@ for Hopper in ``csrc/paged_attention.cu``, built with ``nvcc`` for
   partials in split order. A dense cache (B, S, H, hd) is the pool of B
   pages of S tokens with the table ``arange(B)[:, None]``
   (:func:`dense_tables`).
+- K4a+w (:func:`paged_attention_write`): the decode step's store and
+  attention in K4a's one launch: each block first writes its head's slice
+  of the window rows its split owns (:func:`store_split`) into the pool at
+  their flat rows ``dst`` (int8 pools quantized as K4w does), then attends
+  as K4a, reading them back. Every decode path of the model (dense, bf16,
+  f32 or int8 pages) takes it: one launch a layer a step.
 - K4w (:func:`kv_quant_write`): :func:`quantize_kv_rows_reference` of the
   k and v rows, written into an int8 pool and its scale grid at explicit
-  (page, row) coordinates, bit-exact with the plain version.
+  (page, row) coordinates, bit-exact with the plain version; the prefill
+  insert's, all layers in one launch.
 
 Beside them their plain versions (``*_reference``): the gather of each
-slot's pages followed by the reference's attention, and the quantization
-followed by ``index_put_``. A CPU tensor takes the plain version; a CUDA
-tensor launches the kernel or raises. ``launches_attend`` /
-``launches_quant_write`` count the launches of each kernel.
+slot's pages followed by the reference's attention, the scatter of the
+window's rows (:func:`store_window_reference`) before it, and the
+quantization followed by ``index_put_``. A CPU tensor takes the plain
+version; a CUDA tensor launches the kernel or raises.
+``launches_attend``, ``launches_attend_write`` and ``launches_quant_write``
+count the launches of each.
 
 What bounds them on the H100: memory. K4a at the bench's large config
 (H 16, hd 64) reads 4096 B a cached position a layer from bf16 pages, 2048
@@ -62,6 +72,7 @@ INV_127 = 0.007874015718698502
 #: launches of each kernel in this process (plain integers; set them to 0 to
 #: count one run's launches)
 launches_attend = 0
+launches_attend_write = 0
 launches_quant_write = 0
 
 _fns = {}
@@ -75,7 +86,7 @@ def _kernel(fn: str):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         # the stream is the last argument of both launches
         args = {"dl4j_paged_attention":
-                [p, ll, ll, ll] + [p] * 10 + [i] * 10 + [p],
+                [p, ll, ll, ll] + [p] * 10 + [i] * 10 + [p, p, ll, ll, p, p],
                 "dl4j_paged_attention_blocks_per_sm": [i] * 5,
                 "dl4j_kv_quant_write":
                 [p, p, ll, ll, ll, i, i, i, i, p, p, i, p, p, p, p, ll, ll,
@@ -142,6 +153,37 @@ def paged_attention_reference(q, k_pool, v_pool, tables, pos,
         gather_pages(v_pool, v_scale, tables, q.dtype), mask)
 
 
+def store_window_reference(k, v, dst, k_pool, v_pool, k_scale=None,
+                           v_scale=None, quantize: Optional[Callable] = None):
+    """The plain version of K4a+w's store: the window's rows ``k``, ``v``
+    (B, W, H, hd) into the pools (n_pages, P, H, hd) at their flat rows
+    ``dst`` (B, W) (page · P + row; -1: dropped), in place; int8 pools take
+    ``quantize`` (default :func:`quantize_kv_rows_reference`) of the rows
+    and their scales."""
+    keep = dst >= 0
+    at = dst[keep].long()
+    for rows, pool, scale in ((k, k_pool, k_scale), (v, v_pool, v_scale)):
+        flat = pool.view(-1, *pool.shape[2:])
+        if scale is None:
+            flat[at] = rows[keep].to(pool.dtype)
+        else:
+            q8, sc = (quantize or quantize_kv_rows_reference)(rows[keep])
+            flat[at] = q8
+            scale.view(-1)[at] = sc
+
+
+def paged_attention_write_reference(q, k, v, k_pool, v_pool, tables, pos,
+                                    dst, k_scale=None, v_scale=None,
+                                    quantize: Optional[Callable] = None
+                                    ) -> torch.Tensor:
+    """The plain version of K4a+w: :func:`store_window_reference`, then
+    :func:`paged_attention_reference`."""
+    store_window_reference(k, v, dst, k_pool, v_pool, k_scale, v_scale,
+                           quantize)
+    return paged_attention_reference(q, k_pool, v_pool, tables, pos,
+                                     k_scale, v_scale)
+
+
 def kv_quant_write_reference(k_rows, v_rows, phys, off, k_pool, v_pool,
                              k_scale, v_scale,
                              quantize: Optional[Callable] = None):
@@ -195,6 +237,20 @@ def key_splits(slots: int, heads: int, keys: int,
                         MERGE_FLOATS // window_floats))
     per = -(-keys // splits)
     return -(-keys // per), per
+
+
+def store_split(positions, keys: int, splits: int, per: int):
+    """The split whose block stores each window row in K4a+w, from the
+    row's position (an int or an integer tensor): the split whose key range
+    holds it, ``position // per``, or the last split for a position past
+    the slot's ``keys`` (a trash-page row, or the dense cache's clamped last
+    row, key ``keys`` − 1, which the last split reads). Every head's block
+    of that split stores the head's slice. The kernel's rule, kept here for
+    the tests."""
+    if isinstance(positions, torch.Tensor):
+        return torch.where(positions < keys, positions // per,
+                           torch.full_like(positions, splits - 1))
+    return positions // per if positions < keys else splits - 1
 
 
 def counter_slots(have: int, need: int) -> int:
@@ -310,6 +366,62 @@ def _check_attend(q, k_pool, v_pool, tables, k_scale, v_scale):
     return quant
 
 
+def _launch_attend(q, k_pool, v_pool, tables, pos, k_scale, v_scale,
+                   splits, new=None) -> torch.Tensor:
+    """One launch of K4a on the card (``new`` = (k, v, dst): K4a+w's
+    store first); checks the operands and returns o."""
+    quant = _check_attend(q, k_pool, v_pool, tables, k_scale, v_scale)
+    B, W, H, hd = q.shape
+    P, n_lp = k_pool.shape[1], tables.shape[1]
+    if pos.shape != (B, W):
+        raise ValueError(f"paged_attention: pos must be (B, W) = {(B, W)}, "
+                         f"got {tuple(pos.shape)}")
+    k_new = v_new = dst = None
+    n_sb = n_sw = 0
+    if new is not None:
+        k_new, v_new, dst = new
+        for name, rows in (("k", k_new), ("v", v_new)):
+            if (rows.shape != q.shape or rows.dtype != q.dtype
+                    or rows.device != q.device or rows.stride(-1) != 1
+                    or rows.stride(-2) != hd
+                    or rows.stride() != k_new.stride()):
+                raise ValueError(
+                    f"paged_attention_write: {name} rows must be (B, W, H, "
+                    f"hd) = {tuple(q.shape)} in {q.dtype}, each (H, hd) row "
+                    f"contiguous, k and v alike; got {tuple(rows.shape)} "
+                    f"strides {rows.stride()}")
+        if dst.shape != (B, W):
+            raise ValueError(f"paged_attention_write: dst must be (B, W) = "
+                             f"{(B, W)}, got {tuple(dst.shape)}")
+        dst = _int32(dst, q.device)
+        n_sb, n_sw = k_new.stride(0), k_new.stride(1)
+    tables, pos = _int32(tables, q.device), _int32(pos, q.device)
+    splits, per = attend_splits(q, k_pool, v_pool, tables, splits)
+    out = torch.empty((B, W, H, hd), dtype=q.dtype, device=q.device)
+    o_part = ml_part = counters = None
+    if splits > 1:
+        o_part = torch.empty((B, H, splits, W, hd), dtype=torch.float32,
+                             device=q.device)
+        ml_part = torch.empty((B, H, splits, W, 2), dtype=torch.float32,
+                              device=q.device)
+        counters = _ticket_counters(q.device, B * H)
+    from deeplearning4j_tpu_torch.kernels import _build
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    sb, sw, sh, _ = q.stride()
+    _build.call("paged_attention", _kernel("dl4j_paged_attention"),
+                (q.data_ptr(), sb, sw, sh, k_pool.data_ptr(),
+                 v_pool.data_ptr(), ptr(k_scale if quant else None),
+                 ptr(v_scale if quant else None), tables.data_ptr(),
+                 pos.data_ptr(), out.data_ptr(), ptr(o_part), ptr(ml_part),
+                 ptr(counters), B, W, H, hd, P, n_lp, splits, per,
+                 _DTYPES[q.dtype], int(quant), ptr(k_new), ptr(v_new), n_sb,
+                 n_sw, ptr(dst)), q.device)
+    return out
+
+
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     v_pool: torch.Tensor, tables: torch.Tensor,
                     pos: torch.Tensor, k_scale: Optional[torch.Tensor] = None,
@@ -326,36 +438,41 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if q.device.type == "cpu":
         return paged_attention_reference(q, k_pool, v_pool, tables, pos,
                                          k_scale, v_scale)
-    quant = _check_attend(q, k_pool, v_pool, tables, k_scale, v_scale)
-    B, W, H, hd = q.shape
-    P, n_lp = k_pool.shape[1], tables.shape[1]
-    if pos.shape != (B, W):
-        raise ValueError(f"paged_attention: pos must be (B, W) = {(B, W)}, "
-                         f"got {tuple(pos.shape)}")
-    tables, pos = _int32(tables, q.device), _int32(pos, q.device)
-    splits, per = attend_splits(q, k_pool, v_pool, tables, splits)
-    out = torch.empty((B, W, H, hd), dtype=q.dtype, device=q.device)
-    o_part = ml_part = counters = None
-    if splits > 1:
-        o_part = torch.empty((B, H, splits, W, hd), dtype=torch.float32,
-                             device=q.device)
-        ml_part = torch.empty((B, H, splits, W, 2), dtype=torch.float32,
-                              device=q.device)
-        counters = _ticket_counters(q.device, B * H)
-    from deeplearning4j_tpu_torch.kernels import _build
-    sb, sw, sh, _ = q.stride()
-    _build.call("paged_attention", _kernel("dl4j_paged_attention"),
-                (q.data_ptr(), sb, sw, sh, k_pool.data_ptr(),
-                 v_pool.data_ptr(),
-                 k_scale.data_ptr() if quant else None,
-                 v_scale.data_ptr() if quant else None,
-                 tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
-                 None if o_part is None else o_part.data_ptr(),
-                 None if ml_part is None else ml_part.data_ptr(),
-                 None if counters is None else counters.data_ptr(),
-                 B, W, H, hd, P, n_lp, splits, per, _DTYPES[q.dtype],
-                 int(quant)), q.device)
+    out = _launch_attend(q, k_pool, v_pool, tables, pos, k_scale, v_scale,
+                         splits)
     launches_attend += 1
+    return out
+
+
+def paged_attention_write(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          k_pool: torch.Tensor, v_pool: torch.Tensor,
+                          tables: torch.Tensor, pos: torch.Tensor,
+                          dst: torch.Tensor,
+                          k_scale: Optional[torch.Tensor] = None,
+                          v_scale: Optional[torch.Tensor] = None,
+                          splits: Optional[int] = None,
+                          quantize: Optional[Callable] = None
+                          ) -> torch.Tensor:
+    """The decode step's store and attention (K4a+w): the window's k and v
+    rows (B, W, H, hd), shaped and typed as q with each (H, hd) row
+    contiguous (strided views of the projection), go into the pools at
+    their flat rows ``dst`` (B, W) (page · P + row, inside the pool, as
+    table entries must be; -1: dropped), int8 pools quantized with their
+    scales; then o as :func:`paged_attention`
+    gives it, the new rows among the keys. A CUDA tensor launches K4a once
+    with the store in its prologue (or raises); a CPU tensor takes
+    :func:`paged_attention_write_reference` with ``quantize`` (default
+    :func:`quantize_kv_rows_reference`). Rows of two slots must not share
+    a pool row, except on a page whose readers' outputs are discarded (the
+    trash page): the launch orders no writes between blocks."""
+    global launches_attend_write
+    if q.device.type == "cpu":
+        return paged_attention_write_reference(q, k, v, k_pool, v_pool,
+                                               tables, pos, dst, k_scale,
+                                               v_scale, quantize)
+    out = _launch_attend(q, k_pool, v_pool, tables, pos, k_scale, v_scale,
+                         splits, (k, v, dst))
+    launches_attend_write += 1
     return out
 
 

@@ -3,9 +3,9 @@
 Counterpart of ``deeplearning4j_tpu/models/generation.py`` for single-
 batch serving: prefill over a prompt padded to a power-of-two bucket (the
 flash kernel runs there), then one decode step per token against a KV
-cache, with sampling on the device; decode attention runs in K4a
-(``kernels/paged_attention.py``) on every path. Three composing levers, as
-in the JAX engine:
+cache, with sampling on the device; each decode step's store and
+attention run in one K4a+w launch a layer (``kernels/paged_attention.py``)
+on every path. Three composing levers, as in the JAX engine:
 
 - **Paged cache** (default; ``DL4J_TPU_KV_PAGE_TOKENS``, 0 = the dense
   per-slot cache): k/v live in a pool of fixed-size pages shared by every
@@ -13,10 +13,11 @@ in the JAX engine:
   table maps logical to physical pages, with the pool's last page as the
   trash page free slots point at.
 - **int8 pages** (``kv_quant`` / ``DL4J_TPU_KV_QUANT=1``, paged only):
-  int8 rows with per-row f32 scales, written by K4w and dequantized inside
-  K4a; a numerics gate at the first state build (an eager probe against
-  the dense cache, teacher-forced) falls back to pages of the compute dtype
-  with a loud warning when the logits diverge beyond ``quant_tol``.
+  int8 rows with per-row f32 scales, written by K4w at the prefill insert
+  and by K4a+w on decode, and dequantized inside K4a; a numerics gate at
+  the first state build (an eager probe against the dense cache,
+  teacher-forced) falls back to pages of the compute dtype with a loud
+  warning when the logits diverge beyond ``quant_tol``.
 - **Speculative decoding** (``draft=`` + ``spec_k``; kill switch
   ``DL4J_TPU_SPEC_DECODE=0``): the draft proposes ``spec_k`` tokens from
   its own dense cache, one W = k + 1 window verifies them on the target,

@@ -19,13 +19,16 @@ plain versions on the CPU (``kernels/flash_attention.py``); the JAX
 package's TPU crossover policy is not carried over. The chunked
 cross-entropy (``kernels/chunked_ce.py``) and the MoE token movement
 (``kernels/moe_route.py``) likewise run in CUDA kernels on the card, and
-so does decode attention on every decode path, dense and paged, bf16, f32
-or int8 pages (K4a, ``kernels/paged_attention.py``, with K4w quantizing and
-writing the rows of an int8 pool). The decode steps
+so does every decode path's store and attention, dense and paged, bf16,
+f32 or int8 pages: one launch a layer (K4a+w,
+``kernels/paged_attention.py``, which quantizes the rows of an int8 pool
+as K4w does). The decode steps
 update the cache tensors in place (the JAX functions return new arrays) and
 return them, so a caller keeps one cache allocation for a whole generation;
 the train step updates params and optimizer state in place (the JAX step
-donates them). ``pipeline_stages > 1`` needs a device mesh and raises.
+donates them). A model trained with ``pipeline_stages`` runs here on one
+device, its blocks one after another in the reference's stage-major order,
+as the JAX model runs them without a mesh.
 """
 from __future__ import annotations
 
@@ -81,7 +84,13 @@ class TransformerConfig:
     moe: Optional[MoEConfig] = None   # replace the dense FFN with the MoE
                                       # FFN (parallel/moe.py)
     moe_aux_weight: float = 0.01      # Switch load-balance aux-loss weight
-    pipeline_stages: int = 0          # > 1 needs a device mesh: raises
+    pipeline_stages: int = 0          # > 1: the JAX params stack the blocks
+                                      # (S, L/S, ...); one device runs them
+                                      # in order (weights.py unstacks)
+    microbatches: int = 0             # the JAX pipeline's micro-batches (0
+                                      # = 2·stages); no effect on one device
+    pipeline_schedule: str = "gpipe"  # "gpipe" or "1f1b"; no effect on one
+                                      # device
     ce_chunks: int = 0                # > 0: the chunked cross-entropy
                                       # (kernels/chunked_ce.py); the
                                       # (B, T, V) logits never materialise
@@ -114,10 +123,22 @@ class TransformerConfig:
             if self.vocab_size % self.ce_chunks:
                 raise ValueError(f"vocab_size {self.vocab_size} must divide "
                                  f"into ce_chunks {self.ce_chunks}")
+        if self.pipeline_schedule not in ("gpipe", "1f1b"):
+            raise ValueError(
+                f"pipeline_schedule must be 'gpipe' or '1f1b' "
+                f"(got {self.pipeline_schedule!r})")
         if self.pipeline_stages > 1:
-            raise NotImplementedError(
-                "TransformerConfig.pipeline_stages needs a device mesh; "
-                "not ported yet (see ROADMAP.md, queue 1, item 9)")
+            if self.n_layers % self.pipeline_stages:
+                raise ValueError("n_layers must divide into pipeline_stages")
+            if self.scan_layers:
+                raise ValueError("pipeline_stages and scan_layers are "
+                                 "mutually exclusive")
+            if self.moe is not None:
+                raise ValueError(
+                    "pipeline_stages + moe is not supported yet (the MoE aux "
+                    "loss cannot cross the pipeline's shard_map boundary)")
+            if not self.microbatches:
+                self.microbatches = 2 * self.pipeline_stages
 
 
 _M64 = 0xFFFFFFFFFFFFFFFF
@@ -442,16 +463,24 @@ class TransformerLM:
         x = params["tok_emb"][tokens.long()] + params["pos_emb"][pos]
         return x.to(self.config.dtype)
 
-    def _decode_layers(self, params, x, attend):
-        """Shared decode body: per layer, project the window and let
-        ``attend(li, q, k, v)`` store the window's k/v rows and return the
-        attention output (B, W, H, hd); then the output projection and the
-        FFN. Returns f32 logits."""
+    def _decode_layers(self, params, x, pools, tables, pos, dst,
+                       scales=None):
+        """Shared decode body: per layer, project the window, store its k/v
+        rows into layer ``li`` of ``pools`` (k, v) at their flat rows
+        ``dst`` (B, W) (-1: dropped) and attend through ``tables`` at
+        ``pos`` (B, W), in one K4a+w launch (int8 pools with ``scales``,
+        quantized by :func:`quantize_kv_rows` on the CPU); then the output
+        projection and the FFN. Returns f32 logits."""
         c = self.config
         B, W, _ = x.shape
+        tables, pos, dst = tables.int(), pos.int(), dst.int()
         for li, blk in enumerate(params["blocks"]):
             q, k, v = self._qkv(blk["attn"], self._ln(blk["ln1"], x))
-            o = attend(li, q, k, v)
+            sk, sv = (None, None) if scales is None else (scales[0][li],
+                                                          scales[1][li])
+            o = pa.paged_attention_write(q, k, v, pools[0][li], pools[1][li],
+                                         tables, pos, dst, sk, sv,
+                                         quantize=quantize_kv_rows)
             x = x + o.reshape(B, W, c.d_model) @ blk["attn"]["wo"]
             x = x + self._ffn(blk, self._ln(blk["ln2"], x))
         return self._head(params["tok_emb"], self._ln(params["ln_f"], x))
@@ -467,18 +496,11 @@ class TransformerLM:
         B = tokens.shape[0]
         S = cache["k"].shape[2]
         x = self._window_embed(params, tokens[:, None], positions[:, None])
-        at = positions.clamp(0, S - 1)
-        bidx = torch.arange(B, device=x.device)
-        tables = pa.dense_tables(B, x.device)
-        pos_w = positions[:, None].int()
-
-        def attend(li, q, k, v):
-            ck, cv = cache["k"][li], cache["v"][li]
-            ck[bidx, at] = k[:, 0]
-            cv[bidx, at] = v[:, 0]
-            return pa.paged_attention(q, ck, cv, tables, pos_w)
-
-        logits = self._decode_layers(params, x, attend)
+        # the dense cache as B pages of S tokens: slot b's row at b·S + pos
+        dst = torch.arange(B, device=x.device) * S + positions.clamp(0, S - 1)
+        logits = self._decode_layers(
+            params, x, (cache["k"], cache["v"]), pa.dense_tables(B, x.device),
+            positions[:, None], dst[:, None])
         return logits[:, 0], cache
 
     def decode_window_math(self, params, cache, tokens, positions):
@@ -493,19 +515,11 @@ class TransformerLM:
         pos_w = positions.long()[:, None] + torch.arange(
             W, device=tokens.device)[None, :]
         x = self._window_embed(params, tokens, pos_w)
-        keep = pos_w < S
-        bidx = torch.arange(B, device=x.device)[:, None].expand(B, W)[keep]
-        at = pos_w[keep]
-        tables = pa.dense_tables(B, x.device)
-        pos32 = pos_w.int()
-
-        def attend(li, q, k, v):
-            ck, cv = cache["k"][li], cache["v"][li]
-            ck[bidx, at] = k[keep]
-            cv[bidx, at] = v[keep]
-            return pa.paged_attention(q, ck, cv, tables, pos32)
-
-        return self._decode_layers(params, x, attend), cache
+        dst = torch.where(pos_w < S, torch.arange(
+            B, device=x.device)[:, None] * S + pos_w, -1)
+        return self._decode_layers(params, x, (cache["k"], cache["v"]),
+                                   pa.dense_tables(B, x.device), pos_w,
+                                   dst), cache
 
     # ------------------------------------------------------- paged cache
     def init_paged_cache(self, n_pages: int, page_tokens: int,
@@ -534,17 +548,16 @@ class TransformerLM:
         """Paged W-window decode: scatter the window's k/v rows into the
         pool through the per-slot page table ``tables`` (B,
         pages_per_slot) in place, then attend through the table under the
-        causal mask (K4a). Rows past the last logical page go to the trash
-        page (the last physical page). An int8 pool (``k_scale`` present)
-        takes its rows quantized (K4w: :func:`quantize_kv_rows` on the CPU)
-        and is dequantized inside the attention. Returns (logits (B, W, V)
-        f32, pool)."""
+        causal mask, one K4a+w launch a layer. Rows past the last logical
+        page go to the trash page (the last physical page). An int8 pool
+        (``k_scale`` present) takes its rows quantized (on the CPU by
+        :func:`quantize_kv_rows`) and is dequantized inside the attention.
+        Returns (logits (B, W, V) f32, pool)."""
         params = self._cast_params(params)
         B, W = tokens.shape
         P = int(page_tokens)
         n_lp = tables.shape[1]
         S = n_lp * P
-        quant = "k_scale" in pool
         pos_w = positions.long()[:, None] + torch.arange(
             W, device=tokens.device)[None, :]
         x = self._window_embed(params, tokens, pos_w)
@@ -553,20 +566,8 @@ class TransformerLM:
         lp = torch.clamp(pos_w // P, max=n_lp - 1)
         phys = torch.where(pos_w < S, tables.long()[bidx, lp],
                            torch.full_like(pos_w, trash))
-        off = pos_w % P
-        # the kernels' int32 operands, made once a step and not per layer
-        tables32, pos32 = tables.int(), pos_w.int()
-        phys32, off32 = (phys.int(), off.int()) if quant else (phys, off)
-
-        def attend(li, q, k, v):
-            pk, pv = pool["k"][li], pool["v"][li]
-            if quant:
-                sk, sv = pool["k_scale"][li], pool["v_scale"][li]
-                pa.kv_quant_write(k, v, phys32, off32, pk, pv, sk, sv,
-                                  quantize=quantize_kv_rows)
-                return pa.paged_attention(q, pk, pv, tables32, pos32, sk, sv)
-            pk[phys, off] = k
-            pv[phys, off] = v
-            return pa.paged_attention(q, pk, pv, tables32, pos32)
-
-        return self._decode_layers(params, x, attend), pool
+        scales = ((pool["k_scale"], pool["v_scale"]) if "k_scale" in pool
+                  else None)
+        return self._decode_layers(params, x, (pool["k"], pool["v"]), tables,
+                                   pos_w, phys * P + pos_w % P,
+                                   scales), pool

@@ -5,8 +5,10 @@
 dicts/lists of numpy arrays (``jax.tree.map(np.asarray, params)`` gives
 it) and returns the port's params: the same dict layout, f32 torch
 tensors on one device, blocks always as a per-layer list (the JAX
-``scan_layers`` storage stacks every block leaf on a leading layer axis;
-it is unstacked here). ``to_jax_params`` goes the other way, so params
+``scan_layers`` storage stacks every block leaf on a leading layer axis,
+the ``pipeline_stages`` storage on leading (stage, layer-in-stage) axes;
+both are unstacked here, stage-major, in the order the JAX model runs the
+blocks). ``to_jax_params`` goes the other way, so params
 trained in either package can be compared or carried on in the other;
 ``adamw_state_to_numpy`` / ``adamw_state_from_numpy`` do the same for
 AdamW's moments.
@@ -55,11 +57,26 @@ def _stack(blocks):
     return np.stack(blocks)
 
 
+def _stack_blocks(blocks, c):
+    """Per-layer blocks → the JAX storage of ``c``: the list itself, one
+    leading layer axis (``scan_layers``) or (stage, layer-in-stage) axes
+    (``pipeline_stages > 1``)."""
+    if not blocks:
+        return blocks
+    if c.scan_layers:
+        return _stack(blocks)
+    if c.pipeline_stages > 1:
+        lps = c.n_layers // c.pipeline_stages
+        return _stack([_stack(blocks[s:s + lps])
+                       for s in range(0, c.n_layers, lps)])
+    return blocks
+
+
 def init_jax_layout(config, seed: int = 0) -> Dict:
     """A random f32 param tree in the JAX ``init_params`` layout: N(0,
     0.02²) weights and embeddings, unit LN gains, zero biases, drawn from
-    ``np.random.default_rng(seed)``; block leaves stacked when
-    ``config.scan_layers``."""
+    ``np.random.default_rng(seed)``; block leaves stacked as
+    ``config.scan_layers`` or ``config.pipeline_stages`` store them."""
     c = config
     rng = np.random.default_rng(seed)
 
@@ -73,8 +90,7 @@ def init_jax_layout(config, seed: int = 0) -> Dict:
                  "b": np.zeros(c.d_model, np.float32)},
         "blocks": [_block_layout(c, normal) for _ in range(c.n_layers)],
     }
-    if c.scan_layers and tree["blocks"]:
-        tree["blocks"] = _stack(tree["blocks"])
+    tree["blocks"] = _stack_blocks(tree["blocks"], c)
     return tree
 
 
@@ -82,6 +98,40 @@ def _unstack(tree, i):
     if isinstance(tree, dict):
         return {k: _unstack(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _leaf_shapes(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {p: s for k, v in tree.items()
+                for p, s in _leaf_shapes(v, f"{prefix}/{k}").items()}
+    return {prefix: tuple(np.shape(tree))}
+
+
+def _unstack_blocks(blocks, c) -> list:
+    """The JAX block storage → per-layer blocks, stage-major for
+    ``pipeline_stages``. Raises when the storage's leading axes disagree
+    with the config's layers or stages."""
+    if not isinstance(blocks, dict):
+        if c.pipeline_stages > 1 and c.n_layers:
+            raise ValueError(f"param tree has a list of blocks, config says "
+                             f"pipeline_stages={c.pipeline_stages} (blocks "
+                             f"stacked (S, L/S, ...))")
+        return list(blocks)
+    lead = {s[:2] for s in _leaf_shapes(blocks).values()}
+    if c.pipeline_stages > 1:
+        S, lps = c.pipeline_stages, c.n_layers // c.pipeline_stages
+        if lead != {(S, lps)}:
+            raise ValueError(f"stage-stacked blocks lead with "
+                             f"{sorted(lead)}, config wants (S={S}, "
+                             f"L/S={lps}) from pipeline_stages={S}, "
+                             f"n_layers={c.n_layers}")
+        return [_unstack(_unstack(blocks, s), i)
+                for s in range(S) for i in range(lps)]
+    lead = {s[:1] for s in _leaf_shapes(blocks).values()}
+    if len(lead) != 1:
+        raise ValueError(f"stacked blocks lead with {sorted(lead)}, not one "
+                         f"layer axis")
+    return [_unstack(blocks, i) for i in range(lead.pop()[0])]
 
 
 def from_jax_params(tree: Dict, config,
@@ -92,10 +142,7 @@ def from_jax_params(tree: Dict, config,
     ``config`` and raises on a mismatch."""
     dev = resolve_device(device)
     c = config
-    blocks = tree["blocks"]
-    if isinstance(blocks, dict):                 # scan_layers storage
-        n = int(np.shape(blocks["attn"]["wo"])[0])
-        blocks = [_unstack(blocks, i) for i in range(n)]
+    blocks = _unstack_blocks(tree["blocks"], c)
     if len(blocks) != c.n_layers:
         raise ValueError(f"param tree has {len(blocks)} blocks, config "
                          f"says n_layers={c.n_layers}")
@@ -110,14 +157,17 @@ def from_jax_params(tree: Dict, config,
         if ffn not in blk:
             raise ValueError(f"block {i} has no {ffn!r} params, as "
                              f"moe={c.moe} wants")
-        if ffn == "moe":
-            E, d, f = c.moe.num_experts, c.d_model, c.moe.d_ff
-            want = {"Wg": (d, E), "W1": (E, d, f), "b1": (E, f),
-                    "W2": (E, f, d), "b2": (E, d)}
-            got = {k: tuple(np.shape(v)) for k, v in blk["moe"].items()}
+    if blocks:
+        want = _leaf_shapes(_block_layout(
+            c, lambda *shape: np.broadcast_to(np.float32(0), shape)))
+        for i, blk in enumerate(blocks):
+            got = _leaf_shapes(blk)
             if got != want:
-                raise ValueError(f"block {i} MoE params {got} do not match "
-                                 f"the config's {want}")
+                bad = sorted(k for k in set(got) | set(want)
+                             if got.get(k) != want.get(k))
+                raise ValueError(f"block {i} leaves {bad} have shapes "
+                                 f"{[got.get(k) for k in bad]}, config wants "
+                                 f"{[want.get(k) for k in bad]}")
     expect = {"tok_emb": (c.vocab_size, c.d_model),
               "pos_emb": (c.max_len, c.d_model)}
     for name, shape in expect.items():
@@ -146,8 +196,8 @@ def from_jax_params(tree: Dict, config,
 def to_jax_params(params: Dict, config) -> Dict:
     """The port's params (or any tree in their layout, such as AdamW's
     moments) → numpy f32 leaves in the JAX ``init_params`` layout, block
-    leaves stacked on a leading layer axis when ``config.scan_layers``:
-    the inverse of :func:`from_jax_params`."""
+    leaves stacked as ``config.scan_layers`` or ``config.pipeline_stages``
+    store them: the inverse of :func:`from_jax_params`."""
     def conv(t):
         if isinstance(t, dict):
             return {k: conv(v) for k, v in t.items()}
@@ -157,11 +207,10 @@ def to_jax_params(params: Dict, config) -> Dict:
     if len(blocks) != config.n_layers:
         raise ValueError(f"params have {len(blocks)} blocks, config says "
                          f"n_layers={config.n_layers}")
-    if config.scan_layers and blocks:
-        blocks = _stack(blocks)
     return {"tok_emb": conv(params["tok_emb"]),
             "pos_emb": conv(params["pos_emb"]),
-            "ln_f": conv(params["ln_f"]), "blocks": blocks}
+            "ln_f": conv(params["ln_f"]),
+            "blocks": _stack_blocks(blocks, config)}
 
 
 def adamw_state_to_numpy(state: AdamWState, config) -> Dict:

@@ -503,16 +503,16 @@ def test_expected_launches_per_step():
     """K1 twice per layer under remat (its recompute), K2 once, the wgmma
     K3f once and K3b per ce chunk (chunked_ce.cu's never: the large
     config is bf16 at d 1024), K7 twice per MoE layer (three times under
-    remat), K4a and K4w (decode only) never."""
+    remat), K4a, K4w and K4a+w (decode only) never."""
     assert chip_smoke.expected_per_step(12, False, 0) == (
-        12, 0, 12, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+        12, 0, 12, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
     assert chip_smoke.expected_per_step(12, True, 8) == (
-        24, 0, 12, 0, 0, 0, 0, 0, 1, 8, 0, 0, 0, 0, 0)
+        24, 0, 12, 0, 0, 0, 0, 0, 1, 8, 0, 0, 0, 0, 0, 0)
     assert chip_smoke.expected_per_step(12, False, 8, moe=True) == (
-        12, 0, 12, 0, 0, 0, 24, 24, 1, 8, 0, 0, 0, 0, 0)
+        12, 0, 12, 0, 0, 0, 24, 24, 1, 8, 0, 0, 0, 0, 0, 0)
     assert chip_smoke.expected_per_step(2, True, 0, moe=True)[6:] == (
-        6, 6, 0, 0, 0, 0, 0, 0, 0)
-    assert len(chip_smoke.ALL_KERNELS) == 15
+        6, 6, 0, 0, 0, 0, 0, 0, 0, 0)
+    assert len(chip_smoke.ALL_KERNELS) == 16
     assert chip_smoke.ALL_KERNELS[:4] == chip_smoke.KERNELS
     assert chip_smoke.ALL_KERNELS[8:10] == ("ce_fwd_wgmma",
                                             "ce_dlogits_wgmma")
@@ -522,14 +522,16 @@ def test_expected_launches_per_step():
                                              "kv_quant_write")
     assert {chip_smoke.SOURCES[k] for k in chip_smoke.ALL_KERNELS[10:12]} \
         == {"paged_attention.cu"}
-    assert chip_smoke.ALL_KERNELS[12:] == ("ce_fwd_tf32", "ce_dlogits_tf32",
-                                           "ce_split_tf32")
-    assert {chip_smoke.SOURCES[k] for k in chip_smoke.ALL_KERNELS[12:]} == {
-        "chunked_ce_tf32.cu"}
+    assert chip_smoke.ALL_KERNELS[12:15] == ("ce_fwd_tf32", "ce_dlogits_tf32",
+                                             "ce_split_tf32")
+    assert {chip_smoke.SOURCES[k] for k in chip_smoke.ALL_KERNELS[12:15]} \
+        == {"chunked_ce_tf32.cu"}
+    assert chip_smoke.ALL_KERNELS[15] == "paged_attention_write"
+    assert chip_smoke.SOURCES["paged_attention_write"] == "paged_attention.cu"
 
 
 def test_all_counts_reads_every_counter_in_order():
-    """all_counts gives the fifteen counters in ALL_KERNELS' order, and
+    """all_counts gives the sixteen counters in ALL_KERNELS' order, and
     reset_all_counts zeroes every one."""
     from deeplearning4j_tpu_torch.kernels import chunked_ce as ce
     from deeplearning4j_tpu_torch.kernels import flash_attention as fa
@@ -542,18 +544,19 @@ def test_all_counts_reads_every_counter_in_order():
              (ce, "launches_fwd_wgmma"), (ce, "launches_dlogits_wgmma"),
              (pa, "launches_attend"), (pa, "launches_quant_write"),
              (ce, "launches_fwd_tf32"), (ce, "launches_dlogits_tf32"),
-             (ce, "launches_split_tf32")]
+             (ce, "launches_split_tf32"), (pa, "launches_attend_write")]
     saved = [getattr(m, n) for m, n in names]
     try:
         for i, (m, n) in enumerate(names):
             setattr(m, n, i + 1)
-        assert chip_smoke.all_counts() == tuple(range(1, 16))
+        assert chip_smoke.all_counts() == tuple(range(1, 17))
         before = chip_smoke.all_counts()
         pa.launches_attend += 5
         ce.launches_split_tf32 += 2
-        assert chip_smoke.delta(before) == (0,) * 10 + (5, 0, 0, 0, 2)
+        pa.launches_attend_write += 3
+        assert chip_smoke.delta(before) == (0,) * 10 + (5, 0, 0, 0, 2, 3)
         chip_smoke.reset_all_counts()
-        assert chip_smoke.all_counts() == (0,) * 15
+        assert chip_smoke.all_counts() == (0,) * 16
     finally:
         for (m, n), v in zip(names, saved):
             setattr(m, n, v)
@@ -728,6 +731,93 @@ def test_k4w_bound_is_rows_read_and_int8_written():
                                             + 8 * 64) + 8 * 64) / 3.35e12)
 
 
+def test_k4aw_bound_adds_the_store_to_k4a():
+    """K4a+w's bound is K4a's plus the window's k and v rows read from the
+    projection, the stored rows written (int8 with their scales) and their
+    pool rows read; a dropped row (-1) is not written."""
+    import torch
+    case = chip_smoke.DECODE_CASES[0]
+    pos = torch.tensor([[1023]])
+    base = 1024 * 4096 + 4 * 16 + 4 + 2 * 1024 * 2
+    ms, by = chip_smoke.k4aw_bound_ms(case, pos, torch.tensor([[70]]))
+    want = base + 2 * 1024 * 2 + 4 + 2 * 1024 * 2
+    assert by == "bytes" and ms == pytest.approx(1e3 * want / 3.35e12)
+    dropped, _ = chip_smoke.k4aw_bound_ms(case, pos, torch.tensor([[-1]]))
+    assert dropped == pytest.approx(1e3 * (want - 4096) / 3.35e12)
+    ms8, _ = chip_smoke.k4aw_bound_ms(chip_smoke.DECODE_CASES[7], pos,
+                                      torch.tensor([[70]]))
+    want8 = (1024 * 2056 + 68 + 4096) + 2 * 1024 * 2 + 4 + 2 * (1024 + 4)
+    assert ms8 == pytest.approx(1e3 * want8 / 3.35e12)
+
+
+def test_launch_counts_names_each_kernel():
+    """A launch tuple in ALL_KERNELS' order from the kernels' names, 0 for
+    the rest; a name that is no kernel raises."""
+    got = chip_smoke.launch_counts(wgmma=12, paged_attention_write=372,
+                                   kv_quant_write=1)
+    assert len(got) == len(chip_smoke.ALL_KERNELS) == 16
+    assert dict(zip(chip_smoke.ALL_KERNELS, got)) == dict(
+        {k: 0 for k in chip_smoke.ALL_KERNELS}, wgmma=12,
+        paged_attention_write=372, kv_quant_write=1)
+    with pytest.raises(ValueError, match="no such kernels"):
+        chip_smoke.launch_counts(paged_attention_fused=1)
+
+
+def test_fused_cases_are_the_decode_steps_and_the_verify_window():
+    """K4a+w is checked at DECODE_CASES' main step on bf16 and int8 pages
+    and the dense view, the verify window at B 8, a window past S with a
+    free slot, and f32 pages; the first four are timed in turns against
+    the two-launch path; K4w's first case is the bucket-1024 insert."""
+    d = chip_smoke.DECODE_CASES
+    assert chip_smoke.FUSED_TURN_CASES == [d[0], d[7], d[11], d[6]]
+    assert d[17] in chip_smoke.FUSED_CASES and d[16] in chip_smoke.FUSED_CASES
+    assert [c[7] for c in chip_smoke.FUSED_CASES[:3]] == ["same", "int8",
+                                                          "same"]
+    assert chip_smoke.FUSED_CASES[2][4:6] == (1024, 1)     # the dense view
+    assert chip_smoke.QUANT_CASES[0] == (1, 1024, 12, 64, "bfloat16")
+    assert chip_smoke.FUSED_MAIN_CASE["paged_attention_write"] == d[0]
+
+
+def test_k4w_ptxas_report_reads_both_instantiations():
+    """K4w's two instantiations (bf16, f32 rows) are read from ptxas's
+    report apart from K4a's, and a spill in either fails the check."""
+    def entry(t, spill):
+        name = (f"_ZN51_GLOBAL__N__0830ad88_18_paged_attention_cu_0889000418"
+                f"quant_write_kernelI{t}EEvNS_9QuantArgsE")
+        return (f"ptxas info    : Compiling entry function '{name}' for "
+                f"'sm_90a'\n    0 bytes stack frame, {spill} bytes spill "
+                f"stores, {spill} bytes spill loads\nptxas info    : Used "
+                f"48 registers, used 0 barriers\n")
+    log = entry("f", 0) + entry("13__nv_bfloat16", 0)
+    report = chip_smoke.k4w_ptxas(log)
+    assert report == {"f32": {"registers": 48, "spill_bytes": 0},
+                      "bf16": {"registers": 48, "spill_bytes": 0}}
+    assert chip_smoke.spill_free(report, chip_smoke.K4W_INSTANTIATIONS)
+    assert chip_smoke.k4a_ptxas(log) == {}
+    spilled = chip_smoke.k4w_ptxas(entry("f", 8) + entry("13__nv_bfloat16",
+                                                         0))
+    assert not chip_smoke.spill_free(spilled, chip_smoke.K4W_INSTANTIATIONS)
+
+
+def test_k4a_readonly_loads_counts_wide_constant_loads_per_kernel():
+    """The SASS check of K4a+w's coherence: 64- and 128-bit loads through
+    the read-only path are counted in each K4a function and nowhere else
+    (K4w may read its rows that way)."""
+    def fn(name, *ops):
+        return (f"\n\tFunction : _ZN1x{name}\n" + "".join(
+            f"        /*0{i}0*/   {op} R8, desc[UR6][R40.64] ;\n"
+            for i, op in enumerate(ops)))
+    sass = ("code for sm_90a" + fn("19paged_attend_kernelILi1ELi0ELi1ELi8EE",
+                                   "LDG.E.128.STRONG.SM", "LDG.E.CONSTANT")
+            + fn("19paged_attend_kernelILi1ELi1ELi1ELi16EE",
+                 "LDG.E.64.STRONG.SM")
+            + fn("18quant_write_kernelIfEE", "LDG.E.128.CONSTANT"))
+    loads = chip_smoke.k4a_readonly_loads(sass)
+    assert len(loads) == 2 and sum(loads.values()) == 0
+    bad = sass.replace("LDG.E.64.STRONG.SM", "LDG.E.64.CONSTANT")
+    assert sorted(chip_smoke.k4a_readonly_loads(bad).values()) == [0, 1]
+
+
 def test_near_tie_step_finds_the_first_close_top_two():
     import numpy as np
     steps = [np.array([[0.0, 2.0, 1.0]]), np.array([[0.5, 0.55, 0.1]]),
@@ -738,10 +828,12 @@ def test_near_tie_step_finds_the_first_close_top_two():
 
 
 def test_kernels_line_entries_of_k4():
-    """K4a and K4w get kernels-line entries with every key the line needs:
-    K4a's numbers at the main decode step with its int8 and dense-view
-    cases beside them, K4w's at the decode step's rows with no library
-    call."""
+    """K4a, K4w and K4a+w get kernels-line entries with every key the line
+    needs: K4a's numbers at the main decode step with its int8 and
+    dense-view cases beside them (no main path calls it alone since
+    K4a+w), K4w's at the bucket-1024 insert with no library call, K4a+w's
+    at the decode step on bf16 pages with the two-launch path's times and
+    its int8 and dense cases beside."""
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -755,19 +847,32 @@ def test_kernels_line_entries_of_k4():
         cases[("quant",) + c] = dict(row, bound_by="bytes", max_abs_err=0.0,
                                      library_ms=None)
     cases[("quant",) + chip_smoke.QUANT_CASES[0]].update(ms=3.0)
+    for c in chip_smoke.FUSED_CASES:
+        cases[("fused",) + c] = dict(row, bound_by="bytes", max_abs_err=2e-3,
+                                     library_ms=None, two_launch_ms=2.0,
+                                     two_launch_device_ms=1.5)
+    cases[("fused",) + chip_smoke.DECODE_CASES[0]].update(ms=9.0)
     launches = {"serve": 372, "serve_modes": 900, "train": 0, "moe": 0}
     a = chip_smoke.decode_kernel_entry("paged_attention", cases, launches)
     w = chip_smoke.decode_kernel_entry("kv_quant_write", cases, launches)
-    for entry in (a, w):
+    f = chip_smoke.decode_kernel_entry("paged_attention_write", cases,
+                                       launches)
+    for entry in (a, w, f):
         for key in keys:
             assert key in entry, (entry["name"], key)
         assert entry["route"] == "cuda" and entry["launches"] == 1272
         assert entry["source"].endswith("csrc/paged_attention.cu")
     assert a["replaces"].endswith("transformer.py:827")
     assert w["replaces"].endswith("transformer.py:107")
+    assert f["replaces"].endswith("transformer.py:861")
     assert (a["ms"], a["int8"]["ms"], a["max_abs_err"]) == (7.0, 8.0, 4e-3)
     assert a["dense"]["ms"] == 1.0 and a["at"]["pool"] == "same"
+    assert not a["on_main_path"] and w["on_main_path"] and f["on_main_path"]
     assert (w["ms"], w["library_ms"], w["max_abs_err"]) == (3.0, None, 0.0)
+    assert w["at"]["layers"] == 12 and w["at"]["w"] == 1024
+    assert (f["ms"], f["library_ms"], f["max_abs_err"]) == (9.0, None, 2e-3)
+    assert f["two_launch_device_ms"] == 1.5
+    assert f["int8"]["two_launch_ms"] == 2.0 and f["at"]["w"] == 1
 
 
 def _k4a_entry(types, wm, e, spill=0):
@@ -891,9 +996,9 @@ def test_expected_launches_per_step_of_the_f32_model():
     pass for the forward and before the backward's chunks; neither
     chunked_ce.cu's nor the wgmma one), no wgmma flash kernel."""
     assert chip_smoke.expected_per_step(12, False, 0, f32=True) == (
-        0, 12, 0, 12, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+        0, 12, 0, 12, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
     assert chip_smoke.expected_per_step(12, False, 8, f32=True) == (
-        0, 12, 0, 12, 0, 0, 0, 0, 0, 0, 0, 0, 1, 8, 2)
+        0, 12, 0, 12, 0, 0, 0, 0, 0, 0, 0, 0, 1, 8, 2, 0)
     assert chip_smoke.expected_per_step(12, True, 8, f32=True)[:4] == (
         0, 24, 0, 12)
     assert chip_smoke.F32_RUNGS == ((8, False, 0), (8, False, 8))
@@ -902,15 +1007,16 @@ def test_expected_launches_per_step_of_the_f32_model():
 
 
 def _path_launches():
-    """Plausible per-path launches, ALL_KERNELS' order."""
+    """Plausible per-path launches, ALL_KERNELS' order: decode through
+    K4a+w (the last), K4w only for the int8 modes' prefill inserts."""
     L, n = 12, 31
     none = (0, 0, 0)
-    serve = (4 * L, 0, 0, 0, 0, 0, 0, 0, 0, 0, 4 * n * L, 0) + none
-    modes = (3 * L, 0, 0, 0, 0, 0, 0, 0, 0, 0, 900, 300) + none
-    train = (5 * L, 0, 5 * L, 0, 0, 0, 0, 0, 3, 24, 0, 0) + none
-    moe = (L, 0, L, 0, 0, 0, 2 * L, 2 * L, 1, 8, 0, 0) + none
-    f32_serve = (0, L, 0, 0, 0, 0, 0, 0, 0, 0, n * L, 0) + none
-    f32_train = (0, 2 * L, 0, 2 * L, 0, 0, 0, 0, 0, 0, 0, 0, 1, 8, 2)
+    serve = (4 * L, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0) + none + (4 * n * L,)
+    modes = (3 * L, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 12) + none + (900,)
+    train = (5 * L, 0, 5 * L, 0, 0, 0, 0, 0, 3, 24, 0, 0) + none + (0,)
+    moe = (L, 0, L, 0, 0, 0, 2 * L, 2 * L, 1, 8, 0, 0) + none + (0,)
+    f32_serve = (0, L, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0) + none + (n * L,)
+    f32_train = (0, 2 * L, 0, 2 * L, 0, 0, 0, 0, 0, 0, 0, 0, 1, 8, 2, 0)
     return [serve, modes, train, moe, f32_serve, f32_train]
 
 
@@ -929,7 +1035,15 @@ def _path_launches():
     (5, 14, "f32 training without the split pass"),
     (2, 12, "bf16 training on the tf32 K3f"),
     (0, 14, "serving launching the split pass"),
-    (4, 3, "f32 serving launching a backward")])
+    (4, 3, "f32 serving launching a backward"),
+    (0, 15, "serving without K4a+w"),
+    (1, 15, "the serving modes without K4a+w"),
+    (4, 15, "f32 serving without K4a+w"),
+    (0, 10, "serving on K4a alone (the store in its own launch)"),
+    (1, 10, "the serving modes on K4a alone"),
+    (0, 11, "bf16 serving launching K4w"),
+    (1, 11, "the int8 modes without K4w's prefill insert"),
+    (2, 15, "training launching K4a+w")])
 def test_path_launch_checks_catch_each_misroute(path, kernel, what):
     paths = _path_launches()
     chip_smoke.check_path_launches(*paths)

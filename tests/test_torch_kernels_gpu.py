@@ -1017,3 +1017,180 @@ def test_k4w_is_bit_exact(cuda, dtype):
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert (got[2][1:, 1, 4:] == 1.0).all() and (got[2][0] == 0).all()
+
+
+# K4a+w (the store in K4a's launch) against the two-launch path (K4w for
+# int8 pools, index_put_ otherwise, then K4a): o, pools and scales the same
+# bits, the trash page aside (slots write it in no fixed order); against
+# the plain version at K4a's tolerance. Inputs and the two-launch path are
+# chip_smoke.py's (``k4aw_inputs``, ``two_launch_store``), cases laid out
+# as its DECODE_CASES (a P = S case is the dense cache).
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    (1, 1, 1, 64, 64, 1, "bfloat16", "int8", (64,), ()),        # one tile
+    (1, 1, 1, 64, 64, 1, "bfloat16", "same", (64,), ()),        # dense
+    (1, 1, 16, 64, 64, 16, "bfloat16", "same", (1024,), ()),    # the step
+    (1, 1, 16, 64, 64, 16, "bfloat16", "int8", (1024,), ()),
+    (1, 1, 16, 64, 1024, 1, "bfloat16", "same", (1024,), ()),
+    (1, 1, 16, 64, 64, 16, "bfloat16", "same", (37,), ()),
+    (8, 5, 16, 64, 64, 16, "bfloat16", "int8", (37, 500, 960, 1024) * 2,
+     ()),
+    (8, 5, 16, 64, 64, 16, "bfloat16", "same", (37, 500, 960, 1024) * 2,
+     ()),
+    # a window crossing a page edge, one past S, and a free slot
+    (3, 5, 16, 64, 64, 4, "bfloat16", "int8", (258, 66, 300), (2,)),
+    (3, 5, 16, 64, 64, 4, "bfloat16", "same", (258, 66, 300), (2,)),
+    (2, 5, 16, 64, 256, 1, "bfloat16", "same", (258, 66), ()),   # drops
+    (2, 3, 4, 128, 16, 9, "float32", "same", (100, 7), ()),
+    (2, 3, 4, 128, 16, 9, "float32", "int8", (100, 7), ()),
+    (1, 16, 8, 128, 64, 16, "bfloat16", "int8", (1024,), ()),
+])
+def test_k4aw_matches_the_two_launch_path(cuda, case):
+    import chip_smoke
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    B, trash = case[0], case[-1]
+    q, k, v, pools, tables, pos, dst, dense = chip_smoke.k4aw_inputs(torch,
+                                                                     case)
+    fused, two, plain = ([None if x is None else x.clone() for x in pools]
+                         for _ in range(3))
+    pa.launches_attend = pa.launches_attend_write = 0
+    pa.launches_quant_write = 0
+    o = pa.paged_attention_write(q, k, v, fused[0], fused[1], tables, pos,
+                                 dst, fused[2], fused[3])
+    torch.cuda.synchronize()
+    assert (pa.launches_attend, pa.launches_attend_write,
+            pa.launches_quant_write) == (0, 1, 0)
+    chip_smoke.two_launch_store(torch, k, v, two, dst)()
+    o2 = pa.paged_attention(q, two[0], two[1], tables, pos, two[2], two[3])
+    ref = pa.paged_attention_write_reference(q, k, v, plain[0], plain[1],
+                                             tables, pos, dst, plain[2],
+                                             plain[3])
+    live = [b for b in range(B) if b not in trash]
+    assert torch.equal(o[live], o2[live])
+    atol = 2e-2 if q.dtype == torch.bfloat16 else 5e-5
+    assert (o[live].float() - ref[live].float()).abs().max().item() <= atol
+    keep = slice(None) if dense else slice(0, -1)       # the trash aside
+    for a, b, c in zip(fused, two, plain):
+        if a is not None:
+            assert torch.equal(a[keep], b[keep])
+            assert torch.equal(a[keep], c[keep])
+    assert not torch.equal(fused[0][keep], pools[0][keep])   # it wrote
+    if dense and int(pos.max()) >= fused[0].shape[1]:        # rows past S
+        assert int((dst < 0).sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", ["int8", "same"])
+def test_k4aw_gives_the_same_bits_in_graph_replays(cuda, pool):
+    """The store writes the same rows every launch, so 20 launches captured
+    in one CUDA graph give the eager o over 3 replays, and every ticket
+    counter is back at 0."""
+    import chip_smoke
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    q, k, v, (kp, vp, ks, vs), tables, pos, dst, _ = chip_smoke.k4aw_inputs(
+        torch, (8, 5, 16, 64, 64, 16, "bfloat16", pool, (1024,) * 8, ()))
+
+    def call():
+        return pa.paged_attention_write(q, k, v, kp, vp, tables, pos, dst,
+                                        ks, vs)
+
+    first = call()
+    assert torch.equal(first, call())
+    outs = chip_smoke.graph_outputs(call, torch)
+    assert len(outs) == 60 and all(torch.equal(first, o) for o in outs)
+    assert not pa._counters[q.device].any()
+
+
+@pytest.mark.gpu
+def test_k4aw_rejects_rows_it_does_not_take(cuda):
+    import chip_smoke
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    q, k, v, (kp, vp, _ks, _vs), tables, pos, dst, _ = chip_smoke.k4aw_inputs(
+        torch, (1, 2, 4, 64, 16, 2, "bfloat16", "same", (10,), ()))
+    with pytest.raises(ValueError, match="rows"):
+        pa.paged_attention_write(q, k.float(), v, kp, vp, tables, pos, dst)
+    with pytest.raises(ValueError, match="rows"):
+        pa.paged_attention_write(q, k.transpose(2, 3), v, kp, vp, tables,
+                                 pos, dst)
+    with pytest.raises(ValueError, match="dst"):
+        pa.paged_attention_write(q, k, v, kp, vp, tables, pos, dst[:, :1])
+
+
+@pytest.mark.gpu
+def test_k4w_insert_is_bit_exact_at_every_quant_case(cuda):
+    """The warp-a-row K4w at every QUANT_CASES shape of ``chip_smoke.py``
+    (decode windows and the bucket-1024 and bucket-32 prefill inserts of 12
+    layers, each with an all-zero row), and a row of 2048 elements (read
+    twice) and one whose pieces are not 16-byte aligned: pools and scales
+    equal the plain version's to the bit."""
+    import chip_smoke
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    for case in chip_smoke.QUANT_CASES:
+        k, v, phys, off, pools = chip_smoke.quant_inputs(torch, case)
+        got, want = pools(), pools()
+        pa.kv_quant_write(k, v, phys, off, *got)
+        pa.kv_quant_write_reference(k, v, phys, off, *want)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), case
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for H, hd, lo in ((32, 64, 0), (4, 40, 1)):
+        rows = torch.randn((2, 1, 6, H * hd + lo), generator=g,
+                           device="cuda").to(torch.bfloat16)
+        k = rows[0, ..., lo:].view(1, 6, H, hd)
+        v = rows[1, ..., lo:].view(1, 6, H, hd)
+        phys = torch.tensor([[0, 0, 1, 1, 2, 2]], dtype=torch.int32,
+                            device="cuda")
+        off = torch.tensor([[0, 3, 1, 2, 0, 3]], dtype=torch.int32,
+                           device="cuda")
+        got = [torch.zeros((3, 4, H, hd), dtype=torch.int8, device="cuda")
+               for _ in range(2)] + [torch.zeros((3, 4), device="cuda")
+                                     for _ in range(2)]
+        want = [x.clone() for x in got]
+        pa.kv_quant_write(k, v, phys, off, *got)
+        pa.kv_quant_write_reference(k, v, phys, off, *want)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), (H, hd, lo)
+
+
+@pytest.mark.gpu
+def test_k4w_is_bit_exact_over_every_bf16_value(cuda):
+    """K4w divides by the row's scale on the IEEE division's fast path,
+    its reciprocal computed once a row, where the scale lies in [2^-100,
+    2^100], and by the division itself outside. Every finite bf16 value,
+    at row maxima from 2^-120 to 2^120 (three mantissas each, and both
+    edges of that window): rows of 1023 values of |x| <= the maximum and
+    the maximum itself, through K4w and its plain version, give pools and
+    scales equal to the bit; and f32 rows at log-uniform maxima."""
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    every = torch.arange(65536, dtype=torch.int32, device="cuda").to(
+        torch.int16).view(torch.bfloat16).float()
+    every = every[torch.isfinite(every)]
+    maxima = [m * 2.0 ** e for e in list(range(-120, 121, 12))
+              + [-94, -93, -92, 106, 107, 108]
+              for m in (1.0, 1.5078125, 1.9921875)]
+    rows = []
+    for i, amax in enumerate(maxima):
+        vals = every[every.abs() <= amax]
+        pad = -vals.numel() % 1023
+        vals = torch.cat([vals, vals.new_zeros(pad)]).view(-1, 1023)
+        top = vals.new_full((vals.shape[0], 1), amax if i % 2 else -amax)
+        rows.append(torch.cat([vals, top], dim=1))
+    g = torch.Generator(device="cuda").manual_seed(9)
+    f32 = torch.randn((1024, 1024), generator=g, device="cuda") * torch.exp2(
+        torch.rand((1024, 1), generator=g, device="cuda") * 240 - 120)
+    for x in (torch.cat(rows).to(torch.bfloat16), f32):
+        R = x.shape[0]
+        k, v = x.view(1, R, 16, 64), (-x).view(1, R, 16, 64)
+        t = torch.arange(R, device="cuda", dtype=torch.int32)[None]
+        n_pages = -(-R // 64)
+        got = [torch.zeros((n_pages, 64, 16, 64), dtype=torch.int8,
+                           device="cuda") for _ in range(2)] + [
+            torch.zeros((n_pages, 64), device="cuda") for _ in range(2)]
+        want = [a.clone() for a in got]
+        pa.kv_quant_write(k, v, t // 64, t % 64, *got)
+        pa.kv_quant_write_reference(k, v, t // 64, t % 64, *want)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), (x.dtype, (a != b).sum().item())

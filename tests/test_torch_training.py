@@ -236,8 +236,9 @@ def test_adamw_state_round_trip():
 
 
 def test_unported_training_options_raise():
-    """Every single-device option trains now; only pipeline_stages > 1,
-    which needs a device mesh, still raises."""
+    """Every single-device option trains now, pipeline_stages > 1 among
+    them; it raises only where the reference's config does (stages with
+    scan_layers or moe)."""
     tm = ttr.TransformerLM(ttr.TransformerConfig(**KW, dropout=0.1),
                            device="cpu")
     tp = tm.init_params(0)
@@ -249,5 +250,12 @@ def test_unported_training_options_raise():
     for ok in (dict(remat=True), dict(remat=True, remat_policy="dots"),
                dict(ce_chunks=61), dict(moe=MoEConfig(num_experts=2))):
         ttr.TransformerConfig(**KW, **ok)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttr.TransformerConfig(**KW, pipeline_stages=2)
+    staged = ttr.TransformerLM(ttr.TransformerConfig(**KW, pipeline_stages=2),
+                               device="cpu")
+    assert bool(torch.isfinite(staged.loss_fn(staged.init_params(0), toks,
+                                              toks)))
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        ttr.TransformerConfig(**KW, pipeline_stages=2, scan_layers=True)
+    with pytest.raises(ValueError, match="moe is not supported"):
+        ttr.TransformerConfig(**KW, pipeline_stages=2,
+                              moe=MoEConfig(num_experts=2))

@@ -75,11 +75,15 @@ def test_from_jax_params_rejects_mismatched_layout():
 
 
 def test_config_rejects_unported_features_and_takes_dtype_strings():
-    """pipeline_stages > 1 (it needs a device mesh) is the one option that
-    raises; a MoE config must be the port's own."""
+    """pipeline_stages > 1 runs on one device and takes the reference's
+    checks, raised as ValueError; a MoE config must be the port's own."""
     assert ttr.TransformerConfig(dtype="bfloat16").dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttr.TransformerConfig(pipeline_stages=2)
+    cfg = ttr.TransformerConfig(pipeline_stages=2)
+    assert (cfg.microbatches, cfg.pipeline_schedule) == (4, "gpipe")
+    with pytest.raises(ValueError, match="divide into pipeline_stages"):
+        ttr.TransformerConfig(n_layers=3, pipeline_stages=2)
+    with pytest.raises(ValueError, match="pipeline_schedule"):
+        ttr.TransformerConfig(pipeline_schedule="x")
     with pytest.raises(TypeError, match="MoEConfig"):
         ttr.TransformerConfig(moe=object())
     assert ttr.TransformerConfig(ce_chunks=4).ce_chunks == 4
