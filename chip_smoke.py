@@ -82,6 +82,20 @@ K4w spill nothing, and that no wgmma source has its products serialized
    round, the accept ratio, prefill ms, ms per emitted token and the
    resident cache bytes, and an int8 pool through ``decode_window_paged``
    whatever the gate decided;
+   then the continuous-batching ``GenerationPipeline`` on the same engine
+   (``pipeline_phase``): 8 client threads (two prompts at each length,
+   starts staggered over 0-30 ms, 32 greedy tokens) into 4 slots on bf16
+   pages (fault-free; one request alone; one ``generation.step`` crash
+   mid-run, whose journaled requests, re-prefilled, must finish with the
+   fault-free run's tokens but for a flip at a near tie; a profiler window
+   of 4 whole steps at 4 active slots) and on
+   int8 pages with speculative decoding; each request's tokens against
+   its prompt alone up to the first near tie, every page returned, no new
+   step signature and no ``memory_allocated`` growth after warm-up, K1,
+   K4a+w (and K4w on int8 pages) launched and nothing else; then a pool of
+   half the slots' pages, which must shed ``CachePagesExhausted`` typed
+   and admit again; time to first token, ms per emitted token, tokens/s,
+   active slots and host ms a step, the snapshot and the cost model;
 5. training phase — ``make_train_step(adamw(3e-4))`` at the same config on
    each of bench.py's rungs (batch, remat, ce_chunks) = (8, no, 0),
    (8, no, 8), (8, yes, 8), (4, yes, 8): 2 warm and 5 timed steps on one
@@ -131,6 +145,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -413,14 +428,24 @@ QUANT_CASES = [
     (8, 5, 1, 64, "bfloat16"),
     (2, 5, 1, 16, "float32"),
 ]
+# K4a+w at the pipeline's shapes: 4 slots at the prompt lengths' contexts
+# (each slot at its own position) in the decode step on bf16 pages, the
+# verify window (spec_k 4) on int8 pages, and the draft's decode step on
+# its dense cache
+PIPE_FUSED_CASES = [
+    (4, 1, 16, 64, 64, 16, "bfloat16", "same", (37, 200, 500, 960), ()),
+    (4, 5, 16, 64, 64, 16, "bfloat16", "int8", (37, 200, 500, 960), ()),
+    (4, 1, 16, 64, 1024, 1, "bfloat16", "same", (37, 200, 500, 960), ()),
+]
 # K4a+w cases (DECODE_CASES' shapes, the window's rows stored in the
 # launch): bf16 pages, int8 pages and the dense cache at the decode step,
-# the verify window at B 8, a window past S with a free slot, f32 pages.
-# The first three, and B 8 W 5 on bf16 pages, are timed in turns against
-# the two-launch path (the store's own launch, then K4a).
+# the verify window at B 8, a window past S with a free slot, f32 pages,
+# and the pipeline's shapes. The first three, and B 8 W 5 on bf16 pages,
+# are timed in turns against the two-launch path (the store's own launch,
+# then K4a).
 FUSED_CASES = [DECODE_CASES[0], DECODE_CASES[7], DECODE_CASES[11],
                DECODE_CASES[6], DECODE_CASES[10], DECODE_CASES[12],
-               DECODE_CASES[17], DECODE_CASES[16]]
+               DECODE_CASES[17], DECODE_CASES[16], *PIPE_FUSED_CASES]
 FUSED_TURN_CASES = FUSED_CASES[:4]
 FUSED_MAIN_CASE = {"paged_attention_write": DECODE_CASES[0],
                    "int8": DECODE_CASES[7], "dense": DECODE_CASES[11]}
@@ -2043,6 +2068,20 @@ def near_tie_step(steps):
     return None
 
 
+def flip_gap(torch, model, params, prompt, want, got, at):
+    """Where two greedy streams of one prompt first differ (token ``at``):
+    the gap between their two tokens' logits there, teacher-forced by
+    ``apply`` over the prompt and ``want``'s tokens before it. At most
+    TOL_TEACHER_FORCED is a near tie, which another rounding of the cache
+    rows may flip."""
+    full = np.concatenate([prompt, want[:at]])[None]
+    with torch.inference_mode():
+        row = model.apply(params, torch.as_tensor(full, device=model.device))
+    logits = row[0, -1].float().cpu().numpy()
+    return {"at": at, "want": int(want[at]), "got": int(got[at]),
+            "gap": float(abs(logits[want[at]] - logits[got[at]]))}
+
+
 def serve_phase(torch, model, engine):
     """The three serving modes at full width against the default engine
     (bf16 pages, plain decode): (a) int8 pages with plain decode, (b) bf16
@@ -2221,6 +2260,394 @@ def serve_phase(torch, model, engine):
     del pools, kv, lq, lb, draft, dmodel
     torch.cuda.empty_cache()
     return launches
+
+
+PIPE_SLOTS = 4
+PIPE_STAGGER_S = 0.030     # client starts spread over 0-30 ms
+PIPE_FAULT_AT = 10         # the chaos point fires after request 0's 11th token
+PIPE_SHED_PROMPT = 490     # bucket 512: 8 pages at admission, a 9th at 512
+PIPE_PROFILE_STEPS = 4
+
+
+class StepGate:
+    """Holds a pipeline's decode thread at step boundaries. Inside the
+    ``with`` block ``engine.decode`` is wrapped so that the thread waits at
+    the start of each step until it is let through; :meth:`held` waits
+    until it is held, and :meth:`run` lets ``steps`` whole steps through
+    and returns once the thread is held at the start of the next, so a
+    window around :meth:`run` holds those steps (their host work between
+    decode calls too) and nothing else. Leaving the block releases it."""
+
+    def __init__(self, engine, steps, timeout=120.0):
+        self.engine, self.steps, self.timeout = engine, steps, timeout
+        self._cv = threading.Condition()
+        self._entered = 0          # decode calls begun inside the block
+        self._allowed = 0          # decode calls let through
+
+    def __enter__(self):
+        real = type(self.engine).decode
+
+        def decode(*args, **kwargs):
+            with self._cv:
+                self._entered += 1
+                n = self._entered
+                self._cv.notify_all()
+                released = self._cv.wait_for(lambda: self._allowed >= n,
+                                             self.timeout)
+            if not released:
+                raise RuntimeError("step gate: step never let through")
+            return real(self.engine, *args, **kwargs)
+
+        self.engine.decode = decode
+        return self
+
+    def __exit__(self, *exc):
+        del self.engine.decode
+        with self._cv:
+            self._allowed = float("inf")
+            self._cv.notify_all()
+
+    def _held_now(self):
+        return self._entered > self._allowed
+
+    def held(self) -> bool:
+        with self._cv:
+            return self._cv.wait_for(self._held_now, self.timeout)
+
+    def run(self):
+        with self._cv:
+            self._allowed += self.steps
+            self._cv.notify_all()
+            ok = self._cv.wait_for(self._held_now, self.timeout)
+        check(ok, f"step gate: {self.steps} steps never ended")
+
+
+def pipeline_phase(torch, model, engine):
+    """The port's ``GenerationPipeline`` on the large-config engine: 8
+    client threads (two prompts at each of PROMPT_LENS, starts staggered
+    over 0-30 ms, greedy, N_NEW tokens each) into PIPE_SLOTS slots, on bf16
+    pages with plain decode (fault-free, then with one ``generation.step``
+    crash mid-run, then a profiled window of 4 steps at 4 active slots) and
+    on int8 pages with speculative decoding (the DRAFT_LAYERS-layer draft,
+    spec_k SPEC_K); then a pool of half the slots' pages, which must shed
+    typed and admit again. Checks each request's tokens against its run's
+    engine decoding the prompt alone (up to that run's first near tie),
+    the fault drill's tokens against the fault-free run's (exact, but for
+    a flip at a near tie: the survivors' emitted rows are re-prefilled
+    through the prefill's matmul shapes, see :func:`flip_gap`), every
+    page returned, no new step signature and no memory growth after
+    warm-up, and each kernel's launches. Returns the launches of the
+    pipeline runs."""
+    from deeplearning4j_tpu_torch.models.generation import (
+        DECODE_FN, PREFILL_FN, PROPOSE_FN, VERIFY_FN, DecodeEngine)
+    from deeplearning4j_tpu_torch.models.transformer import (
+        TransformerConfig, TransformerLM)
+    from deeplearning4j_tpu_torch.observability import (compile_watch,
+                                                        cost_model)
+    from deeplearning4j_tpu_torch.parallel.generation import (
+        GenerationPipeline, _GenMetrics)
+    from deeplearning4j_tpu_torch.resilience import faults
+    from deeplearning4j_tpu_torch.resilience.policy import CachePagesExhausted
+    cfg = model.config
+    V, params = cfg.vocab_size, engine.params
+    rng = np.random.default_rng(SEED + 9)
+    prompts = [rng.integers(0, V, (n,)).astype(np.int32)
+               for _ in range(2) for n in PROMPT_LENS]
+    dmodel = TransformerLM(TransformerConfig(**dict(LARGE,
+                                                    n_layers=DRAFT_LAYERS)))
+    draft = DecodeEngine(dmodel, {"tok_emb": params["tok_emb"],
+                                  "pos_emb": params["pos_emb"],
+                                  "ln_f": params["ln_f"],
+                                  "blocks": params["blocks"][:DRAFT_LAYERS]},
+                         max_len=cfg.max_len, page_tokens=0)
+    int8 = DecodeEngine(model, params, max_len=cfg.max_len, kv_quant=True)
+    spec = DecodeEngine(model, params, max_len=cfg.max_len, kv_quant=True,
+                        draft=draft, spec_k=SPEC_K)
+    watch = compile_watch.global_compile_watch()
+    obs = _GenMetrics.get()
+
+    def solo(eng):
+        """Each prompt alone through ``eng``'s own greedy decode: tokens
+        and the first step whose top-2 logit gap is at most
+        TOL_TEACHER_FORCED."""
+        out = []
+        for p in prompts:
+            toks, steps = eng.generate(p[None], N_NEW, return_logits=True)
+            out.append((toks[0], near_tie_step(steps)))
+        return out
+
+    refs = {"bf16": solo(engine), "int8_spec": solo(int8)}
+    check(int8.kv_quant and spec.new_state(1).arrays["k"].dtype
+          == torch.int8, f"int8 gate: {int8.quant_gate} {spec.quant_gate}")
+
+    def counters():
+        return {fn: watch.count_for(fn)
+                for fn in (PREFILL_FN, DECODE_FN, VERIFY_FN, PROPOSE_FN)}
+
+    def warm(eng, gp):
+        eng.warm(PIPE_SLOTS)
+        gp.generate(prompts[3], max_new_tokens=4)   # the pool's first use
+        torch.cuda.synchronize()
+        return counters(), torch.cuda.memory_allocated()
+
+    def drive(gp, label, idx, fault_at=None, stagger=PIPE_STAGGER_S):
+        """One client thread a prompt; starts spread over ``stagger``
+        seconds. Returns each request's tokens (or exception), time to
+        first token and latency (ms), the run's wall seconds and its
+        per-step books."""
+        n = len(idx)
+        res, ttft, lat = [None] * n, [None] * n, [None] * n
+        plan = faults.FaultPlan([faults.FaultSpec(
+            "generation.step", "crash", rate=1.0, count=1)])
+
+        def client(j, t_go):
+            def on_token(tok, k):
+                if k == 0:
+                    ttft[j] = 1e3 * (time.perf_counter() - t_go)
+                if fault_at is not None and j == 0 and k == fault_at:
+                    faults.install(plan)
+            try:
+                res[j] = gp.generate(prompts[idx[j]], max_new_tokens=N_NEW,
+                                     on_token=on_token)
+            except Exception as e:        # checked by the caller
+                res[j] = e
+            lat[j] = 1e3 * (time.perf_counter() - t_go)
+
+        before, steps0 = all_counts(), (obs.step_latency.count,
+                                        obs.step_latency.sum,
+                                        obs.occupancy.sum)
+        t0 = time.perf_counter()
+        threads = []
+        for j in range(n):
+            go = t0 + stagger * j / max(1, n - 1)
+            time.sleep(max(0.0, go - time.perf_counter()))
+            th = threading.Thread(target=client,
+                                  args=(j, time.perf_counter()))
+            th.start()
+            threads.append(th)
+        for th in threads:
+            th.join(timeout=300)
+        check(not any(th.is_alive() for th in threads),
+              f"pipeline {label}: a request hung")
+        wall = time.perf_counter() - t0
+        faults.clear()
+        torch.cuda.synchronize()
+        st = gp._cache
+        check(st.alloc.free_count == st.alloc.total,
+              f"pipeline {label}: {st.alloc.in_use} pages still in use")
+        steps = obs.step_latency.count - steps0[0]
+        return {"results": res, "ttft_ms": ttft, "latency_ms": lat,
+                "wall_s": wall, "launches": delta(before), "steps": steps,
+                "host_ms_per_step": 1e3 * (obs.step_latency.sum - steps0[1])
+                / max(1, steps),
+                "mean_active_slots": PIPE_SLOTS * (obs.occupancy.sum
+                                                   - steps0[2])
+                / max(1, steps)}
+
+    def tokens_ok(label, run, idx, ref):
+        for j, i in enumerate(idx):
+            got = run["results"][j]
+            check(isinstance(got, np.ndarray) and got.shape == (N_NEW,),
+                  f"pipeline {label} request {j} (prompt "
+                  f"{prompts[i].size}): {got!r}")
+            want, tie = ref[i]
+            upto = N_NEW if tie is None else tie
+            check(np.array_equal(got[:upto], want[:upto]),
+                  f"pipeline {label} request {j}: tokens differ from the "
+                  f"prompt alone before step {upto} (its first near tie: "
+                  f"{tie})")
+
+    def record(label, run, idx, gp):
+        toks = sum(len(r) for r in run["results"]
+                   if isinstance(r, np.ndarray))
+        per_tok = [(lat - tt) / (N_NEW - 1) for lat, tt, r in zip(
+            run["latency_ms"], run["ttft_ms"], run["results"])
+            if isinstance(r, np.ndarray)]
+        ttft = {}
+        for j, i in enumerate(idx):
+            ttft.setdefault(int(prompts[i].size), []).append(
+                run["ttft_ms"][j])
+        emit(pipeline_run={
+            "run": label, "requests": len(idx), "slots": PIPE_SLOTS,
+            "tokens": toks, "wall_s": run["wall_s"],
+            "tokens_per_s": toks / run["wall_s"],
+            "ms_per_emitted_token": statistics.mean(per_tok),
+            "ttft_ms_by_prompt_len": ttft, "steps": run["steps"],
+            "host_ms_per_step": run["host_ms_per_step"],
+            "mean_active_slots": run["mean_active_slots"],
+            "launches": dict(zip(ALL_KERNELS, run["launches"])),
+            "spec_accept_ratio": gp.engine.spec_accept_ratio()})
+
+    everyone = list(range(len(prompts)))
+    launches = [0] * len(ALL_KERNELS)
+
+    def add(run):
+        for k, n in enumerate(run["launches"]):
+            launches[k] += n
+
+    # ---- bf16 pages, plain decode: fault-free, fault drill, profile
+    gp = GenerationPipeline(engine, slots=PIPE_SLOTS, max_new_tokens=N_NEW)
+    try:
+        sig0, mem0 = warm(engine, gp)
+        reset_all_counts()               # the main path starts here
+        base = drive(gp, "bf16", everyone)
+        tokens_ok("bf16", base, everyone, refs["bf16"])
+        record("bf16", base, everyone, gp)
+        check(base["launches"][ALL_KERNELS.index("kv_quant_write")] == 0,
+              f"bf16 pipeline launched K4w: {base['launches']}")
+        add(base)
+        single = drive(gp, "bf16_one_request", [0])
+        tokens_ok("bf16_one_request", single, [0], refs["bf16"])
+        record("bf16_one_request", single, [0], gp)
+        add(single)
+        injected0 = faults.snapshot()["injected"].get(
+            "generation.step:crash", 0)
+        restore = {}
+        replace = gp._replace_survivors
+
+        def timed_replace(survivors, error):
+            t = time.perf_counter()
+            replace(survivors, error)
+            torch.cuda.synchronize()
+            restore.update(
+                ms=1e3 * (time.perf_counter() - t),
+                survivors=len(survivors),
+                emitted_tokens=[len(req.out) for _slot, req in survivors],
+                prompt_tokens=[int(req.x.size) for _slot, req in survivors])
+
+        gp._replace_survivors = timed_replace
+        drill = drive(gp, "bf16_fault", everyone, fault_at=PIPE_FAULT_AT)
+        del gp._replace_survivors
+        add(drill)
+        fired = faults.snapshot()["injected"].get(
+            "generation.step:crash", 0) - injected0
+        check(fired == 1, f"fault drill: {fired} crashes fired, want 1")
+        flips = {}
+        for j in everyone:
+            got, want = drill["results"][j], base["results"][j]
+            check(isinstance(got, np.ndarray) and got.shape == want.shape,
+                  f"fault drill request {j}: {got!r}")
+            at = np.flatnonzero(got != want)
+            if at.size:
+                flips[j] = flip_gap(torch, model, params, prompts[j], want,
+                                    got, int(at[0]))
+        emit(pipeline_fault_restore={
+            **restore, "ms_per_emitted_token": restore.get("ms", 0.0)
+            / max(1, sum(restore.get("emitted_tokens", []))),
+            "exact_requests": len(everyone) - len(flips),
+            "flips": flips, "tolerance": TOL_TEACHER_FORCED})
+        check(restore.get("survivors", 0) > 0,
+              f"fault drill: no session restored {restore}")
+        for j, flip in flips.items():
+            check(flip["gap"] <= TOL_TEACHER_FORCED,
+                  f"fault drill request {j}: differs from the fault-free "
+                  f"run at token {flip['at']}, where its two tokens' "
+                  f"logits are {flip['gap']} apart (not a near tie)")
+        record("bf16_fault", drill, everyone, gp)
+        # a profiler window of PIPE_PROFILE_STEPS whole steps with every
+        # slot decoding: it starts and ends with the decode thread held at
+        # a step's start
+        prof_box = {}
+
+        def longest():
+            prof_box["run"] = drive(gp, "bf16_profile", [0, 1, 2, 3],
+                                    stagger=0.0)
+
+        th = threading.Thread(target=longest)
+        th.start()
+        deadline = time.monotonic() + 120
+        while ((gp._n_active() < PIPE_SLOTS or gp._waiting is not None
+                or gp._queue.qsize()) and time.monotonic() < deadline):
+            time.sleep(0.0005)
+        check(gp._n_active() == PIPE_SLOTS, "profile: slots never filled")
+        with StepGate(engine, PIPE_PROFILE_STEPS) as gate:
+            check(gate.held(), "profile: no step began")
+            step0 = gp._step
+            row = profile_window(torch, "pipeline", gate.run,
+                                 "pipeline_decode_trace.json", top=12)
+            steps = gp._step - step0
+            full = gp._n_active() == PIPE_SLOTS
+        check(steps == PIPE_PROFILE_STEPS and full,
+              f"profile: {steps} steps in the window, slots full {full}")
+        th.join(timeout=300)
+        check(not th.is_alive(), "profile run hung")
+        add(prof_box["run"])
+        n = PIPE_PROFILE_STEPS
+        emit(pipeline_profile={
+            "steps": n, "slots": PIPE_SLOTS,
+            "kernels_per_step": row.get("kernels", 0) / n,
+            "device_busy_us_per_step": row.get("device_busy_us", 0.0) / n,
+            "window_ms_per_step": row.get("window_us", 0.0) / 1e3 / n,
+            **row})
+        emit(pipeline_snapshot=gp.snapshot())
+        torch.cuda.synchronize()
+        mem1 = torch.cuda.memory_allocated()
+        check(counters() == sig0, f"bf16 pipeline: new step signatures "
+              f"after warm-up {sig0} -> {counters()}")
+        check(abs(mem1 - mem0) <= 0.01 * mem0,
+              f"bf16 pipeline: memory_allocated {mem0} -> {mem1}")
+        emit(pipeline_steady={"run": "bf16", "signatures": sig0,
+                              "decode_compile_count":
+                              engine.decode_compile_count(),
+                              "allocated_after_warm": mem0,
+                              "allocated_after_runs": mem1})
+    finally:
+        gp.shutdown()
+
+    # ---- int8 pages, speculative decoding
+    gp = GenerationPipeline(spec, slots=PIPE_SLOTS, max_new_tokens=N_NEW)
+    try:
+        sig0, mem0 = warm(spec, gp)
+        run = drive(gp, "int8_spec", everyone)
+        tokens_ok("int8_spec", run, everyone, refs["int8_spec"])
+        record("int8_spec", run, everyone, gp)
+        check(run["launches"][ALL_KERNELS.index("kv_quant_write")] > 0,
+              f"int8 pipeline launched no K4w: {run['launches']}")
+        add(run)
+        torch.cuda.synchronize()
+        mem1 = torch.cuda.memory_allocated()
+        check(counters() == sig0, f"int8 spec pipeline: new step "
+              f"signatures after warm-up {sig0} -> {counters()}")
+        check(abs(mem1 - mem0) <= 0.01 * mem0,
+              f"int8 spec pipeline: memory_allocated {mem0} -> {mem1}")
+        emit(pipeline_steady={"run": "int8_spec", "signatures": sig0,
+                              "allocated_after_warm": mem0,
+                              "allocated_after_runs": mem1})
+        emit(pipeline_snapshot=gp.snapshot())
+    finally:
+        gp.shutdown()
+
+    # ---- half the pages: typed sheds, then admission again
+    pool = PIPE_SLOTS * engine.pages_per_slot // 2
+    gp = GenerationPipeline(engine, slots=PIPE_SLOTS, max_new_tokens=N_NEW,
+                            cache_pages=pool)
+    try:
+        shed_prompts = [rng.integers(0, V, (PIPE_SHED_PROMPT,)).astype(
+            np.int32) for _ in range(PIPE_SLOTS)]
+        prompts.extend(shed_prompts)
+        idx = list(range(len(prompts) - PIPE_SLOTS, len(prompts)))
+        run = drive(gp, "bf16_half_pool", idx, stagger=0.0)
+        add(run)
+        kinds = ["ok" if isinstance(r, np.ndarray) else
+                 "shed" if isinstance(r, CachePagesExhausted) else repr(r)
+                 for r in run["results"]]
+        check(set(kinds) <= {"ok", "shed"} and "shed" in kinds,
+              f"half pool: want typed CachePagesExhausted sheds, got "
+              f"{kinds}")
+        after = drive(gp, "bf16_half_pool_after", [0, 3])
+        add(after)
+        check(all(isinstance(r, np.ndarray) and r.shape == (N_NEW,)
+                  for r in after["results"]),
+              f"half pool: later requests failed {after['results']}")
+        emit(pipeline_shed={"cache_pages": pool, "prompt_len":
+                            PIPE_SHED_PROMPT, "outcomes": kinds,
+                            "later_requests_finished": 2})
+    finally:
+        gp.shutdown()
+    emit(pipeline_cost=cost_model.global_cost_model().snapshot())
+    del spec, int8, draft, dmodel
+    torch.cuda.empty_cache()
+    return tuple(launches)
 
 
 def decode_profile_phase(torch, engine):
@@ -2932,7 +3359,8 @@ def moe_kernel_entry(kind, cases, launches):
                        MOE_CASES[0]))}
 
 
-def check_path_launches(serve, modes, train, moe, f32_serve, f32_train):
+def check_path_launches(serve, modes, train, moe, f32_serve, f32_train,
+                        pipeline):
     """Which kernels each main path launched (each an ``all_counts()``
     tuple): the bf16 paths (serving, the serving modes, the rungs, MoE)
     the wgmma flash kernels and never the simple forward or the mma.sync
@@ -2980,6 +3408,13 @@ def check_path_launches(serve, modes, train, moe, f32_serve, f32_train):
           and k4[3:] == [(0, 0, 0)] * 3,
           f"K4a, K4w or K4a+w off their paths (serve, modes, f32 serve, "
           f"train, moe, f32 train): {k4}")
+    named = dict(zip(ALL_KERNELS, pipeline))
+    check(named["wgmma"] > 0 and named["paged_attention_write"] > 0
+          and named["kv_quant_write"] > 0 and named["paged_attention"] == 0
+          and named["simple"] == 0 and sum(
+              n for k, n in named.items() if k not in (
+                  "wgmma", "paged_attention_write", "kv_quant_write")) == 0,
+          f"the pipeline launched kernels off its path: {named}")
 
 
 # --precision-f32: the f32 shapes of the kernel and backward phases
@@ -3448,6 +3883,7 @@ def main() -> int:
     profile_phase(torch, fa, engine)
     decode_profile_phase(torch, engine)
     modes = serve_phase(torch, _model, engine)
+    pipeline = pipeline_phase(torch, _model, engine)
     del engine, _model
     torch.cuda.empty_cache()
     allocated("slice_phase")
@@ -3457,11 +3893,13 @@ def main() -> int:
     f32_serve = f32_serve_phase(torch)
     f32_train = f32_train_phase(torch, fa)
     launches = {name: {"serve": serve[i], "serve_modes": modes[i],
+                       "pipeline": pipeline[i],
                        "train": train[i], "moe": moe[i],
                        "f32_serve": f32_serve[i], "f32_train": f32_train[i]}
                 for i, name in enumerate(ALL_KERNELS)}
     emit(main_path_launches=launches)
-    check_path_launches(serve, modes, train, moe, f32_serve, f32_train)
+    check_path_launches(serve, modes, train, moe, f32_serve, f32_train,
+                        pipeline)
     emit(kernels=[kernel_entry("wgmma", cases, launches["wgmma"]),
                   kernel_entry("simple", cases, launches["simple"]),
                   bwd_kernel_entry("bwd_wgmma", bwd_cases,

@@ -3,9 +3,11 @@
 A package of its own beside the JAX one, which stays the reference: it
 imports torch, numpy and the standard library, and nothing of JAX or of
 ``deeplearning4j_tpu``. It serves ``TransformerLM`` generation (prefill +
-paged KV-cache decode through ``DecodeEngine``) and trains it on one
-NVIDIA H100 (``make_train_step`` with ``optim.adamw``), with full-sequence
-attention and its gradient in hand-written CUDA flash kernels
+paged KV-cache decode through ``DecodeEngine``, continuous batching of
+concurrent requests through ``parallel.generation.GenerationPipeline``)
+and trains it on one NVIDIA H100 (``make_train_step`` with
+``optim.adamw``), with attention, its gradient, the chunked cross-entropy,
+MoE token movement and paged decode attention in hand-written CUDA kernels
 (``kernels/csrc/``).
 
 Entry points (``TransformerLM``, ``DecodeEngine``, ``from_jax_params``)

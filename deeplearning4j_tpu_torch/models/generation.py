@@ -25,13 +25,19 @@ on every path. Three composing levers, as in the JAX engine:
   numpy generator, keeps the emitted distribution the target's (greedy:
   the plain decode's tokens).
 
-PyTorch runs eagerly, so there is no executable set to compile: the JAX
-engine's jit wrappers, compile-watch probes and cost-model accounting
-(``account_spec``, ``account_decode``, ``decode_compile_count``) have no
-counterpart here. Caches are updated in place. Sampling is greedy argmax
-or top-k/temperature drawn from a ``torch.Generator`` seeded from ``(seed,
-step)``: deterministic within the port, not the JAX package's threefry
-bits. The serving pipeline on top is not ported yet (see ``ROADMAP.md``).
+PyTorch runs eagerly, so there is no executable set to compile. What
+stands in for the JAX engine's traces is the first run of a step at a new
+signature — (function name, mode, slots or batch, bucket or window W,
+page dtype) — which the engine notes with ``compile_watch`` once
+(``decode_compile_count`` reads the decode entry's count, so the
+zero-steady-state-retrace assertions carry over), and the cost model's
+FLOPs and bytes are counted analytically from the config and the step's
+shapes (``step_cost``, ``prefill_cost``; ``account_decode``,
+``account_spec``, ``account_prefill``). Caches are updated in place.
+Sampling is greedy argmax or top-k/temperature drawn from a
+``torch.Generator`` seeded from ``(seed, step)``: deterministic within
+the port, not the JAX package's threefry bits. The serving half on top is
+``parallel/generation.py`` (``GenerationPipeline``).
 """
 from __future__ import annotations
 
@@ -39,6 +45,7 @@ import bisect
 import dataclasses
 import logging
 import os
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -48,9 +55,19 @@ import torch.nn.functional as F
 from deeplearning4j_tpu_torch._device import resolve_device
 from deeplearning4j_tpu_torch.kernels import paged_attention as pa
 from deeplearning4j_tpu_torch.models import transformer as _tr
+from deeplearning4j_tpu_torch.observability import compile_watch as _cw
+from deeplearning4j_tpu_torch.observability import cost_model as _cost
 from deeplearning4j_tpu_torch.resilience.policy import CachePagesExhausted
+from deeplearning4j_tpu_torch.tree import tree_leaves
 
 _log = logging.getLogger(__name__)
+
+#: compile-watch / cost-model entry-point names (the zero-steady-state-
+#: retrace assertions and the cost model's rows key on these)
+PREFILL_FN = "TransformerLM.prefill"
+DECODE_FN = "TransformerLM.decode_step"
+VERIFY_FN = "TransformerLM.spec_verify"
+PROPOSE_FN = "DraftLM.spec_propose"
 
 #: default KV page size in tokens (``DL4J_TPU_KV_PAGE_TOKENS``; 0 = dense)
 KV_PAGE_TOKENS_DEFAULT = 64
@@ -318,8 +335,29 @@ class DecodeEngine:
         self.spec_stats = {"rounds": 0, "proposed": 0, "accepted": 0}
         self.params = model._cast_params(
             _to_device(params, self.device))
+        #: the step signatures that have run (compile_watch counts the
+        #: first run of each, as the JAX engine's jit caches count traces)
+        self._signatures = set()
+        self._signatures_lock = threading.Lock()
+
+    def _note_signature(self, fn: str, mode: str, batch: int, width: int,
+                        dtype, *arg_trees):
+        """Note the first run of ``fn`` at (mode, batch, bucket or W,
+        dtype) with ``compile_watch``; a repeat notes nothing."""
+        key = (fn, mode, int(batch), int(width), str(dtype))
+        with self._signatures_lock:
+            if key in self._signatures:
+                return
+            self._signatures.add(key)
+        _cw.note_trace(fn, *arg_trees, mode=mode, batch=int(batch),
+                       width=int(width), dtype=str(dtype).replace(
+                           "torch.", ""))
 
     # ------------------------------------------------------------- cache
+    def new_cache(self, slots: int) -> DecodeState:
+        """Back-compat spelling of :meth:`new_state`."""
+        return self.new_state(slots)
+
     def new_state(self, slots: int,
                   pages: Optional[int] = None) -> DecodeState:
         """Cache state for ``slots`` sequences. Paged: a pool of
@@ -550,7 +588,10 @@ class DecodeEngine:
         """Pad ``prompt`` (B, T) to its bucket and run the prefill.
         Returns (first_token (B,), logits (B, T_bucket, V), kv, t)."""
         padded, t = self._pad_prompt(prompt)
-        logits, kv = self.model.prefill(self.params, self._ids(padded))
+        ids = self._ids(padded)
+        self._note_signature(PREFILL_FN, "prefill", ids.shape[0],
+                             ids.shape[1], self.model.config.dtype, ids)
+        logits, kv = self.model.prefill(self.params, ids)
         first = self._sample(logits[:, t - 1], step)
         return first, logits, kv, t
 
@@ -568,15 +609,19 @@ class DecodeEngine:
                     raise CachePagesExhausted(
                         f"page pool exhausted backing slot {b} at "
                         f"position {int(pos)}")
+            tok, pos = self._ids(tokens), self._ids(positions)
+            self._note_signature(DECODE_FN, "paged", tok.shape[0], 1,
+                                 cache.arrays["k"].dtype, tok, pos)
             logits, _ = self.model.decode_window_paged(
                 self.params, cache.arrays, self._tables(cache),
-                self._ids(tokens)[:, None], self._ids(positions),
-                self.page_tokens)
+                tok[:, None], pos, self.page_tokens)
             logits = logits[:, 0]
             return self._sample(logits, step), logits, cache
         arrays = cache.arrays if isinstance(cache, DecodeState) else cache
-        logits, _ = self.model.decode_step_math(
-            self.params, arrays, self._ids(tokens), self._ids(positions))
+        tok, pos = self._ids(tokens), self._ids(positions)
+        self._note_signature(DECODE_FN, "dense", tok.shape[0], 1,
+                             arrays["k"].dtype, tok, pos)
+        logits, _ = self.model.decode_step_math(self.params, arrays, tok, pos)
         return self._sample(logits, step), logits, cache
 
     def insert_slot(self, cache, kv, slot: int):
@@ -621,6 +666,8 @@ class DecodeEngine:
         (B, k), the draft's logits (B, k, V)). Proposal j is drawn with the
         draft's sampler at step ``step·(k+1) + j``."""
         d, k = self.draft, self.spec_k
+        self._note_signature(PROPOSE_FN, "dense", tokens.shape[0], k,
+                             state.draft_cache["k"].dtype, tokens, positions)
         t, pos = tokens, positions
         props, dlogits = [], []
         for j in range(k):
@@ -656,6 +703,8 @@ class DecodeEngine:
         pos = self._ids(pos_host)
         props, dlog = self._propose(state, tok, pos, step)
         win = torch.cat([tok[:, None], props], dim=1)          # (B, k+1)
+        self._note_signature(VERIFY_FN, state.mode, win.shape[0], k + 1,
+                             state.arrays["k"].dtype, win, pos)
         if state.mode == "paged":
             logits, _ = self.model.decode_window_paged(
                 self.params, state.arrays, self._tables(state), win, pos,
@@ -711,16 +760,20 @@ class DecodeEngine:
         return (self.spec_stats["accepted"] / p) if p else None
 
     def warm(self, slots: int) -> List[int]:
-        """Run one prefill + insert per bucket (the draft's too in spec
-        mode) and one decode step at ``slots`` against a throwaway state
-        (first-call costs such as library handles and allocator growth;
-        the quant gate runs at the state's build), then one speculative
-        round, which leaves ``spec_stats`` as it found them. Returns the
+        """Run the engine's whole step set against a THROWAWAY state: one
+        prefill + insert per bucket (the draft's too in spec mode), one
+        decode step at ``slots`` and, in spec mode, one speculative round,
+        which leaves ``spec_stats`` as it found them. Each step runs once
+        at its serving signature (``compile_watch`` notes it; first-call
+        costs such as library handles and allocator growth are paid here;
+        the quant gate runs at the state's build), and the decode step and
+        each prefill bucket are accounted in the cost model. Returns the
         buckets."""
         state = self.new_state(slots)
         for bucket in self.prefill_buckets:
             _first, _logits, kv, _t = self.prefill(
                 np.zeros((1, bucket), np.int32))
+            self.account_prefill(1, bucket)
             state = self.insert_slot(state, kv, 0)
             if self.spec:
                 self.insert_draft_slot(state, 0,
@@ -729,6 +782,7 @@ class DecodeEngine:
             self.ensure_slot_pages(state, s, 0)
         zeros = np.zeros((slots,), np.int32)
         self.decode(state, zeros, zeros, 0)
+        self.account_decode(state, zeros, zeros, 0)
         if self.spec:
             for s in range(slots):
                 self.ensure_slot_pages(state, s, self.spec_k)
@@ -736,6 +790,118 @@ class DecodeEngine:
             self.spec_step(state, zeros, zeros, 0, range(slots))
             self.spec_stats = stats
         return list(self.prefill_buckets)
+
+    # ----------------------------------------------- compile + cost books
+    def decode_compile_count(self) -> int:
+        """Compile-watch count of the decode entry point (first runs at a
+        new signature) — the steady-state-zero-retrace assertion
+        surface."""
+        return _cw.global_compile_watch().count_for(DECODE_FN)
+
+    def _token_flops(self) -> int:
+        """Matmul FLOPs of one token through the trunk and the tied head:
+        the fused QKV and output projections (8·d²), the MLP (4·d·d_ff;
+        MoE: top_k experts and the router) and the head (2·d·V)."""
+        c = self.model.config
+        d = c.d_model
+        ffn = 4 * d * c.d_ff
+        if c.moe is not None:
+            ffn = ffn * c.moe.top_k + 2 * d * c.moe.num_experts
+        return c.n_layers * (8 * d * d + ffn) + 2 * d * c.vocab_size
+
+    def _weight_bytes(self) -> int:
+        """Bytes of the cast weights a step reads in full: every leaf but
+        the position table, whose rows are counted per token."""
+        total = sum(t.numel() * t.element_size()
+                    for t in tree_leaves(self.params))
+        pe = self.params["pos_emb"]
+        return int(total - pe.numel() * pe.element_size())
+
+    def step_cost(self, batch: int, window: int, positions,
+                  kv_dtype, kv_scaled: bool = False) -> Tuple[int, int]:
+        """Analytic (FLOPs, bytes) of one step of ``batch`` slots, each a
+        ``window`` of queries from ``positions[b]``. FLOPs: the matmuls of
+        batch·W tokens (:meth:`_token_flops`) plus attention over each
+        query's live context, 4·d·L a key (query j of slot b attends
+        positions[b] + j + 1 keys). Bytes: the weights once, a position
+        row a token, each slot's context rows of k and v read once, the
+        window's rows written (``kv_dtype``, with an f32 scale each when
+        ``kv_scaled``), and the f32 logits written. A prefill is the
+        window from position 0 (:meth:`prefill_cost`)."""
+        c = self.model.config
+        L, d, W = c.n_layers, c.d_model, int(window)
+        pos = [int(p) for p in positions]
+        if len(pos) != batch:
+            raise ValueError(f"{len(pos)} positions for a batch of {batch}")
+        tokens = batch * W
+        keys = sum(W * p + W * (W + 1) // 2 for p in pos)
+        flops = tokens * self._token_flops() + 4 * L * d * keys
+        item = torch.empty((), dtype=kv_dtype).element_size()
+        row = 2 * (d * item + (4 if kv_scaled else 0))      # k and v rows
+        act = torch.empty((), dtype=c.dtype).element_size()
+        nbytes = (self._weight_bytes() + tokens * d * act
+                  + L * row * (sum(pos) + tokens)
+                  + tokens * c.vocab_size * 4)
+        return flops, int(nbytes)
+
+    def prefill_cost(self, batch: int, bucket: int) -> Tuple[int, int]:
+        """Analytic (FLOPs, bytes) of a (batch, bucket) prefill: causal
+        attention over T(T+1)/2 keys a prompt, the k/v rows written in the
+        compute dtype, logits for every position."""
+        return self.step_cost(batch, bucket, [0] * batch,
+                              self.model.config.dtype)
+
+    @staticmethod
+    def _kv_layout(arrays: Dict):
+        return arrays["k"].dtype, "k_scale" in arrays
+
+    def _maybe_account(self, fn: str, cost):
+        """Cost-model accounting, once per new signature of ``fn`` (keyed
+        to compile_watch's count, as the reference keys it to traces):
+        ``cost()`` returns the step's analytic (FLOPs, bytes)."""
+        try:
+            cm = _cost.global_cost_model()
+            if _cost.cost_model_enabled() and cm.needs_account(fn, fn):
+                _cost.note_device(self.device)
+                cm.account(fn, cost, probe_fn=fn)
+        except Exception:       # accounting is telemetry, never the path
+            pass
+
+    def account_prefill(self, batch: int, bucket: int):
+        """Prefill cost accounting at a (batch, bucket) signature."""
+        self._maybe_account(PREFILL_FN,
+                            lambda: self.prefill_cost(batch, bucket))
+
+    def account_spec(self, state: DecodeState, tokens, positions,
+                     step: int):
+        """Cost accounting for the speculative pair: the draft's k
+        one-token steps (``PROPOSE_FN``) and the target's W = k + 1 verify
+        (``VERIFY_FN``) each get their own entry (a spec round's work is
+        never booked against the one-token decode step that did not
+        run)."""
+        pos = [int(p) for p in np.asarray(positions)]
+        B, k = len(pos), self.spec_k
+        d = self.draft
+        ddt, dsc = self._kv_layout(state.draft_cache)
+
+        def propose():
+            parts = [d.step_cost(B, 1, [p + j for p in pos], ddt, dsc)
+                     for j in range(k)]
+            return (sum(f for f, _ in parts), sum(b for _, b in parts))
+
+        self._maybe_account(PROPOSE_FN, propose)
+        dt, sc = self._kv_layout(state.arrays)
+        self._maybe_account(VERIFY_FN,
+                            lambda: self.step_cost(B, k + 1, pos, dt, sc))
+
+    def account_decode(self, cache, tokens, positions, step: int):
+        """Decode-step cost accounting at the signature in flight (the
+        pipeline calls this after a step that ran at a new signature)."""
+        arrays = cache.arrays if isinstance(cache, DecodeState) else cache
+        pos = [int(p) for p in np.asarray(positions)]
+        dt, sc = self._kv_layout(arrays)
+        self._maybe_account(DECODE_FN,
+                            lambda: self.step_cost(len(pos), 1, pos, dt, sc))
 
     # ------------------------------------------------- convenience loop
     def generate(self, prompts, max_new_tokens: int,

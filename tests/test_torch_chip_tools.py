@@ -778,6 +778,59 @@ def test_fused_cases_are_the_decode_steps_and_the_verify_window():
     assert chip_smoke.FUSED_MAIN_CASE["paged_attention_write"] == d[0]
 
 
+@pytest.mark.parametrize("window, pool, page_tokens", [
+    (1, "same", 64), (chip_smoke.SPEC_K + 1, "int8", 64), (1, "same", 1024)],
+    ids=["decode_bf16_pages", "verify_int8_pages", "draft_dense"])
+def test_fused_cases_hold_the_pipelines_shapes(window, pool, page_tokens):
+    """The pipeline runs K4a+w with PIPE_SLOTS slots, each at its own
+    position: the decode step on bf16 pages, the verify window on int8
+    pages and the draft's step on its dense cache; each of those shapes is
+    a K4a+w case held to its plain version."""
+    ctx = tuple(sorted(chip_smoke.PROMPT_LENS))
+    n_lp = 1024 // page_tokens
+    case = (chip_smoke.PIPE_SLOTS, window, 16, 64, page_tokens, n_lp,
+            "bfloat16", pool, ctx, ())
+    assert case in chip_smoke.PIPE_FUSED_CASES
+    assert case in chip_smoke.FUSED_CASES
+
+
+class _Engine:
+    def __init__(self):
+        self.calls = 0
+
+    def decode(self, n):
+        self.calls += 1
+        return n
+
+
+def test_step_gate_lets_whole_steps_through():
+    """The gate holds the decode thread at a step's start, lets exactly
+    ``steps`` calls through on run(), returns with the thread held at the
+    next one, and releases it (and unwraps decode) on leaving."""
+    import threading
+    eng = _Engine()
+    stop = threading.Event()
+    done = []
+
+    def loop():
+        while not stop.is_set():
+            done.append(eng.decode(len(done)))
+
+    with chip_smoke.StepGate(eng, 3, timeout=10) as gate:
+        th = threading.Thread(target=loop)
+        th.start()
+        assert gate.held()
+        assert eng.calls == 0
+        gate.run()
+        assert eng.calls == 3 and done == [0, 1, 2]
+        gate.run()
+        assert eng.calls == 6
+        stop.set()
+    th.join(timeout=10)
+    assert not th.is_alive()
+    assert eng.calls == 7 and "decode" not in vars(eng)
+
+
 def test_k4w_ptxas_report_reads_both_instantiations():
     """K4w's two instantiations (bf16, f32 rows) are read from ptxas's
     report apart from K4a's, and a spill in either fails the check."""
@@ -1008,7 +1061,8 @@ def test_expected_launches_per_step_of_the_f32_model():
 
 def _path_launches():
     """Plausible per-path launches, ALL_KERNELS' order: decode through
-    K4a+w (the last), K4w only for the int8 modes' prefill inserts."""
+    K4a+w (the last), K4w only for the int8 modes' prefill inserts (the
+    serving modes and the pipeline's int8 run)."""
     L, n = 12, 31
     none = (0, 0, 0)
     serve = (4 * L, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0) + none + (4 * n * L,)
@@ -1017,7 +1071,8 @@ def _path_launches():
     moe = (L, 0, L, 0, 0, 0, 2 * L, 2 * L, 1, 8, 0, 0) + none + (0,)
     f32_serve = (0, L, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0) + none + (n * L,)
     f32_train = (0, 2 * L, 0, 2 * L, 0, 0, 0, 0, 0, 0, 0, 0, 1, 8, 2, 0)
-    return [serve, modes, train, moe, f32_serve, f32_train]
+    pipeline = (20 * L, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 8) + none + (2000,)
+    return [serve, modes, train, moe, f32_serve, f32_train, pipeline]
 
 
 @pytest.mark.parametrize("path,kernel,what", [
@@ -1043,7 +1098,13 @@ def _path_launches():
     (1, 10, "the serving modes on K4a alone"),
     (0, 11, "bf16 serving launching K4w"),
     (1, 11, "the int8 modes without K4w's prefill insert"),
-    (2, 15, "training launching K4a+w")])
+    (2, 15, "training launching K4a+w"),
+    (6, 0, "the pipeline without the wgmma forward"),
+    (6, 1, "the pipeline on the simple forward"),
+    (6, 15, "the pipeline without K4a+w"),
+    (6, 10, "the pipeline on K4a alone"),
+    (6, 11, "the pipeline without K4w's int8 prefill insert"),
+    (6, 4, "the pipeline launching K3")])
 def test_path_launch_checks_catch_each_misroute(path, kernel, what):
     paths = _path_launches()
     chip_smoke.check_path_launches(*paths)
@@ -1142,3 +1203,33 @@ def test_attention_f64_is_the_plain_versions_in_f64():
     assert chip_smoke.F32_PRECISION_CASES == [
         c for c in chip_smoke.BWD_CASES if c[6] == "float32"
         and c[5] == 64]
+
+
+def test_flip_gap_reads_the_teacher_forced_row_of_the_differing_token():
+    """flip_gap's row is the one that predicts token ``at``: under greedy
+    on the CPU (f32) its argmax is the stream's token there, and the gap
+    is that logit less the other stream's token's."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.models import generation as tgen
+    from deeplearning4j_tpu_torch.models import transformer as ttr
+    cfg = ttr.TransformerConfig(vocab_size=61, n_layers=2, n_heads=2,
+                                d_model=32, max_len=64)
+    model = ttr.TransformerLM(cfg, device="cpu")
+    params = model.init_params(0)
+    eng = tgen.DecodeEngine(model, params, max_len=48, device="cpu")
+    prompt = np.random.default_rng(5).integers(0, 61, (9,)).astype(np.int32)
+    want = eng.generate(prompt[None], 6)[0]
+    full = torch.as_tensor(np.concatenate([prompt, want[:-1]])[None])
+    with torch.inference_mode():
+        rows = model.apply(params, full)[0, prompt.size - 1:].numpy()
+    for at in (0, 3):
+        other = int(np.argsort(rows[at])[-2])
+        got = want.copy()
+        got[at] = other
+        flip = chip_smoke.flip_gap(torch, model, params, prompt, want, got,
+                                   at)
+        assert flip["want"] == int(want[at]) == int(rows[at].argmax())
+        assert flip["got"] == other
+        assert flip["gap"] == pytest.approx(
+            float(rows[at][want[at]] - rows[at][other]), abs=1e-5)
