@@ -96,6 +96,28 @@ K4w spill nothing, and that no wgmma source has its products serialized
    half the slots' pages, which must shed ``CachePagesExhausted`` typed
    and admit again; time to first token, ms per emitted token, tokens/s,
    active slots and host ms a step, the snapshot and the cost model;
+   then the serving plane on the same engine (``frontdoor_phase``):
+   ``ModelRegistry.deploy_generative`` at 4 slots (its warm-up) behind
+   ``FrontDoor`` on 127.0.0.1, one request at a time at each prompt
+   length, plain JSON and SSE (the same tokens exactly, and the engine's
+   greedy decode up to its first near tie), 8 concurrent SSE clients
+   (time to first token, ms per emitted token, tokens/s) beside the same
+   8 requests straight into the pipeline, an idempotent replay that runs
+   no generation, the reference's statuses (404 for an unknown version
+   and ``/v1/classify``, 504 for a 1 ms deadline, 400, 429 with
+   ``Retry-After`` at a full in-flight gate, every reply with
+   ``X-Dl4j-Trace-Id``), a canary of ``g2`` walked shadow → canary → ramp
+   → full through ``/admin/rollout`` while a client keeps sending, and
+   ``retire("g1")`` with no request dropped; K1 and K4a+w launched and
+   nothing else; then ``fleet_phase``: the reference's session-failover
+   drill (``benchmarks/http_load.py`` ``run_session_failover``) against
+   two workers of ``python -m deeplearning4j_tpu_torch.tools.serve`` on
+   the card (the demo model, f32, under the drill's fault spec), one
+   SIGKILLed with every stream mid-flight: completion, gapless ids and
+   the undisturbed run's greedy tokens for every stream, every live
+   session of the killed worker adopted by the survivor, the resume
+   latency reported, and the survivor's own launches after its warm-up
+   (K1's simple forward and K4a+w, nothing else) as the fleet path's;
 5. training phase — ``make_train_step(adamw(3e-4))`` at the same config on
    each of bench.py's rungs (batch, remat, ce_chunks) = (8, no, 0),
    (8, no, 8), (8, yes, 8), (4, yes, 8): 2 warm and 5 timed steps on one
@@ -147,6 +169,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -205,6 +228,12 @@ KERNEL_CASES = [
     ("3d", 8, 1, 200, 200, 40, "bfloat16", False),
     ("fused", 1, 2, 150, 150, 136, "float32", True),
     ("3d", 4, 1, 300, 77, 256, "float32", False),
+    # the serving fleet's demo model (f32, 2 heads of 16): a prefill in
+    # each of its buckets (16, 32, 48; an adoption's re-prefill of prompt
+    # and emitted tokens lands mostly in 32)
+    ("fused", 1, 2, 16, 16, 16, "float32", True),
+    ("fused", 1, 2, 32, 32, 16, "float32", True),
+    ("fused", 1, 2, 48, 48, 16, "float32", True),
 ]
 MAIN_CASE = {"wgmma": ("fused", 1, 16, 1024, 1024, 64, "bfloat16", True),
              "simple": ("3d", 16, 1, 256, 256, 64, "float32", True)}
@@ -263,6 +292,12 @@ BWD_CASES = [
     ("3d", 8, 1, 200, 200, 40, "bfloat16", False),
     ("fused", 1, 2, 150, 150, 136, "float32", True),
     ("3d", 4, 1, 300, 77, 256, "float32", False),
+    # the serving fleet's demo model (f32, 2 heads of 16): a prefill in
+    # each of its buckets (16, 32, 48; an adoption's re-prefill of prompt
+    # and emitted tokens lands mostly in 32)
+    ("fused", 1, 2, 16, 16, 16, "float32", True),
+    ("fused", 1, 2, 32, 32, 16, "float32", True),
+    ("fused", 1, 2, 48, 48, 16, "float32", True),
 ]
 BWD_MAIN_CASE = {"bwd_wgmma": BWD_CASES[0], "bwd": BWD_CASES[7]}
 # the bench's large config (bench.py, the "large" rung)
@@ -443,9 +478,16 @@ PIPE_FUSED_CASES = [
 # and the pipeline's shapes. The first three, and B 8 W 5 on bf16 pages,
 # are timed in turns against the two-launch path (the store's own launch,
 # then K4a).
+# K4a+w at the serving fleet's demo model: 8 slots, 2 heads of 16, f32
+# pages of 48 tokens (one a slot), contexts of a drill's streams
+FLEET_FUSED_CASES = [
+    (8, 1, 2, 16, 48, 1, "float32", "same", (4, 9, 12, 17, 6, 20, 22, 7),
+     ()),
+]
 FUSED_CASES = [DECODE_CASES[0], DECODE_CASES[7], DECODE_CASES[11],
                DECODE_CASES[6], DECODE_CASES[10], DECODE_CASES[12],
-               DECODE_CASES[17], DECODE_CASES[16], *PIPE_FUSED_CASES]
+               DECODE_CASES[17], DECODE_CASES[16], *PIPE_FUSED_CASES,
+               *FLEET_FUSED_CASES]
 FUSED_TURN_CASES = FUSED_CASES[:4]
 FUSED_MAIN_CASE = {"paged_attention_write": DECODE_CASES[0],
                    "int8": DECODE_CASES[7], "dense": DECODE_CASES[11]}
@@ -1032,31 +1074,14 @@ def reset_counts(fa):
 
 def all_counts():
     """Launches of every kernel of the port, in the order of ALL_KERNELS."""
-    from deeplearning4j_tpu_torch.kernels import chunked_ce as ce
-    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
-    from deeplearning4j_tpu_torch.kernels import moe_route as mr
-    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
-    return counts(fa) + (ce.launches_fwd, ce.launches_dlogits,
-                         mr.launches_dispatch, mr.launches_combine,
-                         ce.launches_fwd_wgmma, ce.launches_dlogits_wgmma,
-                         pa.launches_attend, pa.launches_quant_write,
-                         ce.launches_fwd_tf32, ce.launches_dlogits_tf32,
-                         ce.launches_split_tf32, pa.launches_attend_write)
+    from deeplearning4j_tpu_torch.kernels import launch_counts
+    named = launch_counts()
+    return tuple(named[k] for k in ALL_KERNELS)
 
 
 def reset_all_counts():
-    from deeplearning4j_tpu_torch.kernels import chunked_ce as ce
-    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
-    from deeplearning4j_tpu_torch.kernels import moe_route as mr
-    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
-    reset_counts(fa)
-    ce.launches_fwd = ce.launches_dlogits = 0
-    ce.launches_fwd_wgmma = ce.launches_dlogits_wgmma = 0
-    ce.launches_fwd_tf32 = ce.launches_dlogits_tf32 = 0
-    ce.launches_split_tf32 = 0
-    mr.launches_dispatch = mr.launches_combine = 0
-    pa.launches_attend = pa.launches_quant_write = 0
-    pa.launches_attend_write = 0
+    from deeplearning4j_tpu_torch.kernels import reset_launch_counts
+    reset_launch_counts()
 
 
 def launch_counts(**named):
@@ -2650,6 +2675,760 @@ def pipeline_phase(torch, model, engine):
     return tuple(launches)
 
 
+# ------------------------------------------------------------ serving plane
+FD_SLOTS = 4
+FD_STAGGER_S = 0.030       # the 8 SSE clients start over 0-30 ms
+FD_CANARY_NEW = 8          # tokens a request during the rollout
+FD_TIMEOUT_S = 120.0       # any one HTTP call of the phase
+#: the reference's session-failover drill (benchmarks/http_load.py
+#: ``run_session_failover``): its fault spec, streams and tokens
+FLEET_FAULTS = ("generation.step:latency:1.0,generation.step:crash:0.02:2,"
+                "generation.adopt:error:0.5:2")
+FLEET_STREAMS = 8
+FLEET_NEW = 16
+FLEET_SPINUP_S = 240.0     # workers start, load the kernels and warm up
+FLEET_STREAM_S = 180.0     # every stream's socket and join
+#: a drill stream may differ from the undisturbed run only where the two
+#: tokens' logits, teacher-forced, are this close (f32 demo model: the
+#: adoption's re-prefill rounds its rows otherwise than decode steps did)
+TOL_FLEET_FLIP = 1e-4
+
+
+def http_call(addr, path, doc=None, headers=None, timeout=FD_TIMEOUT_S,
+              raw=None):
+    """(status, JSON body, headers) of one request: a POST of ``doc`` (or
+    of the bytes ``raw``), a GET when both are None."""
+    import urllib.error
+    import urllib.request
+    hdrs = {"Content-Type": "application/json", **(headers or {})}
+    data = raw if raw is not None else (
+        json.dumps(doc).encode() if doc is not None else None)
+    req = urllib.request.Request(addr + path, data=data, headers=hdrs)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read() or b"{}"), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        body = e.read()
+        try:
+            payload = json.loads(body or b"{}")
+        except ValueError:
+            payload = {"raw": body.decode(errors="replace")}
+        return e.code, payload, dict(e.headers)
+
+
+class SseClient(threading.Thread):
+    """One streamed ``/v1/generate`` of ``doc`` to ``addr`` (``http://host:
+    port``) over a raw socket: the response's status and headers, every
+    (event, data) pair in wire order, each token's ``id:`` and receive time
+    (``time.monotonic``), the terminal ``done`` or ``error`` event, and the
+    time the request was sent. Every read has a timeout. ``run()`` on the
+    caller's thread is a blocking call; ``start()`` streams beside it."""
+
+    def __init__(self, addr, doc, headers=None, timeout=FLEET_STREAM_S):
+        super().__init__(daemon=True)
+        host, port = addr.split("//", 1)[1].rsplit(":", 1)
+        self.doc = dict(doc, stream=True)
+        self._addr, self._headers = (host, int(port)), dict(headers or {})
+        self.timeout = timeout
+        self.ids, self.toks, self.at, self.events = [], [], [], []
+        self.status, self.headers = None, {}
+        self.done = self.error = self.exc = self.sent_at = None
+
+    def _head(self, blob):
+        lines = blob.decode("latin-1").split("\r\n")
+        self.status = int(lines[0].split()[1])
+        for ln in lines[1:]:
+            k, _, v = ln.partition(":")
+            self.headers[k.strip()] = v.strip()
+
+    def _line(self, ln, state):
+        if ln.startswith(b"id:"):
+            state["id"] = int(ln[3:].strip())
+        elif ln.startswith(b"event:"):
+            state["event"] = ln[6:].strip().decode()
+        elif ln.startswith(b"data:"):
+            ev, data = state["event"], json.loads(ln[5:].strip())
+            self.events.append((ev, data))
+            if ev == "token":
+                if state["id"] is not None:
+                    self.ids.append(state["id"])
+                state["id"] = None
+                self.toks.append(data["token"])
+                self.at.append(time.monotonic())
+            elif ev == "done":
+                self.done = data
+            elif ev == "error":
+                self.error = data
+
+    def run(self):
+        import socket
+        try:
+            body = json.dumps(self.doc).encode()
+            extra = "".join(f"{k}: {v}\r\n"
+                            for k, v in self._headers.items()).encode()
+            s = socket.create_connection(self._addr, timeout=self.timeout)
+            s.settimeout(self.timeout)
+            self.sent_at = time.monotonic()
+            s.sendall(b"POST /v1/generate HTTP/1.1\r\nHost: x\r\n"
+                      b"Content-Type: application/json\r\n" + extra
+                      + b"Content-Length: " + str(len(body)).encode()
+                      + b"\r\nConnection: close\r\n\r\n" + body)
+            buf, head, state = b"", True, {"id": None, "event": None}
+            while True:
+                try:
+                    data = s.recv(65536)
+                except OSError as e:
+                    self.exc = e
+                    break
+                if not data:
+                    break
+                buf += data
+                if head:
+                    if b"\r\n\r\n" not in buf:
+                        continue
+                    blob, _, buf = buf.partition(b"\r\n\r\n")
+                    self._head(blob)
+                    head = False
+                while b"\n" in buf:
+                    ln, _, buf = buf.partition(b"\n")
+                    self._line(ln.strip(), state)
+            s.close()
+        except Exception as e:          # graded by the caller
+            self.exc = e
+
+
+def _serve_stats(clients):
+    """TTFT (request sent to the first token event), ms per emitted token
+    after the first, and tokens/s over the whole wall, of finished
+    streams."""
+    done = [c for c in clients if c.at]
+    t0 = min(c.sent_at for c in done)
+    t1 = max(c.at[-1] for c in done)
+    toks = sum(len(c.toks) for c in done)
+    return {"ttft_ms": [1e3 * (c.at[0] - c.sent_at) for c in done],
+            "ms_per_emitted_token": statistics.mean(
+                1e3 * (c.at[-1] - c.at[0]) / max(1, len(c.at) - 1)
+                for c in done),
+            "tokens": toks, "wall_s": t1 - t0, "tokens_per_s": toks / (t1 - t0)}
+
+
+def frontdoor_phase(torch, model, engine):
+    """The serving plane in-process at full width: ``deploy_generative``
+    of ``engine`` (the large config, bf16 pages) as ``g1`` at FD_SLOTS
+    slots behind ``FrontDoor`` on 127.0.0.1. One request at a time at each
+    of PROMPT_LENS, N_NEW greedy tokens, plain JSON and SSE (the same
+    tokens exactly, and the engine's own greedy decode up to its first
+    near tie); 8 concurrent SSE clients into FD_SLOTS slots (TTFT, ms per
+    emitted token, tokens/s, the decode thread's host ms a step) in turns
+    with the same 8 as plain JSON requests and straight into the
+    pipeline; a canary of ``g2`` (the same weights) walked shadow → canary
+    → ramp → full through ``/admin/rollout`` with ``/debug/frontdoor``
+    read at each stage and ``serving.snapshot()`` (the ``/debug/deploy``
+    payload) beside it, while a client keeps sending requests, then
+    ``retire("g1")``, with no request dropped; an idempotent replay that
+    runs no generation; the reference's status mapping. Returns every
+    kernel's launches in the phase."""
+    from deeplearning4j_tpu_torch import serving
+    from deeplearning4j_tpu_torch.parallel.generation import _GenMetrics
+    from deeplearning4j_tpu_torch.serving import (FrontDoor, ModelRegistry,
+                                                  ServingRouter)
+    from deeplearning4j_tpu_torch.serving import idempotency as idem
+    V = model.config.vocab_size
+    rng = np.random.default_rng(SEED + 13)
+    prompts = [rng.integers(0, V, (n,)).astype(np.int32)
+               for _ in range(2) for n in PROMPT_LENS]
+    solo = []
+    for p in prompts:
+        toks, steps = engine.generate(p[None], N_NEW, return_logits=True)
+        solo.append((toks[0].tolist(), near_tie_step(steps)))
+
+    def same_as_solo(i, got, label):
+        want, tie = solo[i]
+        upto = N_NEW if tie is None else tie
+        check(len(got) == N_NEW and got[:upto] == want[:upto],
+              f"frontdoor {label} (prompt {prompts[i].size}): tokens "
+              f"differ from the engine's greedy decode before step {upto} "
+              f"(its first near tie: {tie})")
+
+    obs = _GenMetrics.get()
+    reg = ModelRegistry()
+    fd = fd_busy = None
+    try:
+        dv = reg.deploy_generative("g1", engine, slots=FD_SLOTS,
+                                   max_new_tokens=N_NEW)
+        emit(frontdoor_deploy={"version": "g1",
+                               "warmup_seconds": dv.warmup_seconds,
+                               "warmed_buckets": dv.warmed_buckets,
+                               "slots": FD_SLOTS})
+        router = ServingRouter(reg, "g1")
+        fd = FrontDoor(gen_router=router, host="127.0.0.1", port=0).start()
+        addr = fd.get_address()
+        reset_all_counts()                   # this path starts here
+        for i in range(len(PROMPT_LENS)):
+            doc = {"prompt": prompts[i].tolist(), "max_new_tokens": N_NEW}
+            code, plain, hdrs = http_call(addr, "/v1/generate", doc)
+            check(code == 200 and hdrs.get("X-Dl4j-Trace-Id"),
+                  f"frontdoor plain request: {code} {plain}")
+            c = SseClient(addr, doc, timeout=FD_TIMEOUT_S)
+            c.run()
+            check(c.done is not None and c.error is None and c.exc is None,
+                  f"frontdoor SSE request: {c.error} {c.exc}")
+            check(c.toks == plain["tokens"] == c.done["tokens"]
+                  and c.ids == list(range(N_NEW)),
+                  f"frontdoor: SSE tokens {c.toks} ids {c.ids} against "
+                  f"plain {plain['tokens']}")
+            same_as_solo(i, c.toks, "single request")
+        single = delta((0,) * len(ALL_KERNELS))
+
+        # 8 concurrent SSE clients, and the same 8 straight into the
+        # pipeline (its host cost without the HTTP layer), in turns
+        gp = dv.gp
+
+        def steps_books():
+            return obs.step_latency.count, obs.step_latency.sum
+
+        def host_ms(before):
+            n = obs.step_latency.count - before[0]
+            return 1e3 * (obs.step_latency.sum - before[1]) / max(1, n)
+
+        def over_http():
+            clients = [SseClient(addr, {"prompt": p.tolist(),
+                                        "max_new_tokens": N_NEW},
+                                 timeout=FD_TIMEOUT_S) for p in prompts]
+            before = steps_books()
+            t0 = time.monotonic()
+            for j, c in enumerate(clients):
+                time.sleep(max(0.0, t0 + FD_STAGGER_S * j
+                               / (len(clients) - 1) - time.monotonic()))
+                c.start()
+            for c in clients:
+                c.join(FD_TIMEOUT_S)
+            for j, c in enumerate(clients):
+                check(not c.is_alive() and c.done is not None
+                      and c.error is None, f"frontdoor client {j}: "
+                      f"{c.error} {c.exc}")
+                same_as_solo(j, c.toks, f"concurrent client {j}")
+            return {**_serve_stats(clients),
+                    "host_ms_per_step": host_ms(before)}
+
+        def over_http_json():
+            """The same 8 as plain JSON requests: no per-token work on the
+            handler threads (no TTFT: the tokens come at the end)."""
+            out = [None] * len(prompts)
+
+            def client(j):
+                out[j] = http_call(addr, "/v1/generate",
+                                   {"prompt": prompts[j].tolist(),
+                                    "max_new_tokens": N_NEW})
+
+            before = steps_books()
+            threads = []
+            t0 = time.monotonic()
+            for j in range(len(prompts)):
+                time.sleep(max(0.0, t0 + FD_STAGGER_S * j
+                               / (len(prompts) - 1) - time.monotonic()))
+                th = threading.Thread(target=client, args=(j,),
+                                      daemon=True)
+                th.start()
+                threads.append(th)
+            for th in threads:
+                th.join(FD_TIMEOUT_S)
+            wall = time.monotonic() - t0
+            for j, r in enumerate(out):
+                check(r is not None and r[0] == 200,
+                      f"frontdoor JSON client {j}: {r}")
+                same_as_solo(j, r[1]["tokens"], f"JSON client {j}")
+            toks = sum(len(r[1]["tokens"]) for r in out)
+            return {"tokens": toks, "wall_s": wall,
+                    "tokens_per_s": toks / wall,
+                    "host_ms_per_step": host_ms(before)}
+
+        def in_process():
+            done = [None] * len(prompts)
+            sent, seen = [None] * len(prompts), [[] for _ in prompts]
+
+            def client(j):
+                def on_token(tok, k):
+                    seen[j].append(time.monotonic())
+                sent[j] = time.monotonic()
+                done[j] = gp.generate(prompts[j], max_new_tokens=N_NEW,
+                                      on_token=on_token)
+
+            before = steps_books()
+            threads = []
+            t0 = time.monotonic()
+            for j in range(len(prompts)):
+                time.sleep(max(0.0, t0 + FD_STAGGER_S * j
+                               / (len(prompts) - 1) - time.monotonic()))
+                th = threading.Thread(target=client, args=(j,),
+                                      daemon=True)
+                th.start()
+                threads.append(th)
+            for th in threads:
+                th.join(FD_TIMEOUT_S)
+            check(all(d is not None for d in done),
+                  "frontdoor: an in-process request did not finish")
+            for j, d in enumerate(done):
+                same_as_solo(j, d.tolist(), f"in-process request {j}")
+            return {**_serve_stats([types.SimpleNamespace(
+                at=seen[j], sent_at=sent[j], toks=done[j].tolist())
+                for j in range(len(prompts))]),
+                "host_ms_per_step": host_ms(before)}
+
+        turns = [("http_sse", over_http()), ("in_process", in_process()),
+                 ("http_json", over_http_json()),
+                 ("http_json", over_http_json()),
+                 ("in_process", in_process()), ("http_sse", over_http())]
+
+        def mean_of(kind, key):
+            vals = [r[key] if key != "ttft_ms" else statistics.mean(r[key])
+                    for k, r in turns if k == kind and key in r]
+            return statistics.mean(vals) if vals else None
+
+        emit(frontdoor_serve={
+            "requests": len(prompts), "slots": FD_SLOTS, "new": N_NEW,
+            "turns": turns, **{f"{kind}_{key}": mean_of(kind, key)
+                               for kind in ("http_sse", "http_json",
+                                            "in_process")
+                               for key in ("ttft_ms", "ms_per_emitted_token",
+                                           "tokens_per_s",
+                                           "host_ms_per_step")}})
+
+        # idempotency: a repeated key replays and runs no generation
+        key = {idem.IDEMPOTENCY_HEADER: "chip-smoke-K1"}
+        doc = {"prompt": prompts[3].tolist(), "max_new_tokens": N_NEW}
+        code, first, h1 = http_call(addr, "/v1/generate", doc, key)
+        admitted, before = obs.requests.value, all_counts()
+        code2, again, h2 = http_call(addr, "/v1/generate", doc, key)
+        admitted2, after = obs.requests.value, all_counts()
+        replays = idem.snapshot()
+        check(code == code2 == 200 and again["tokens"] == first["tokens"]
+              and h2.get(idem.REPLAY_HEADER) == "1"
+              and idem.REPLAY_HEADER not in h1
+              and replays["entries"]["chip-smoke-K1"]["executions"] == 1
+              and admitted2 == admitted and after == before,
+              f"idempotent replay: {code} {code2} {h2} {replays}, "
+              f"admitted {admitted} -> {admitted2}, launches "
+              f"{delta(before)}")
+        same_as_solo(3, first["tokens"], "idempotent request")
+        emit(frontdoor_idempotency={
+            "tokens_equal": True, "executions": 1,
+            "pipeline_admitted_during_replay": admitted2 - admitted,
+            "launches_during_replay": sum(after) - sum(before)})
+
+        # statuses, each with the trace header
+        statuses = {}
+
+        def status(label, code, body, hdrs):
+            check(hdrs.get("X-Dl4j-Trace-Id"),
+                  f"frontdoor {label}: no X-Dl4j-Trace-Id ({code})")
+            statuses[label] = (code, body.get("error"))
+
+        status("unknown_version", *http_call(
+            addr, "/admin/rollout", {"lane": "generative",
+                                     "candidate": "nope"}))
+        status("classify", *http_call(addr, "/v1/classify",
+                                      {"inputs": [[0.0] * 4]}))
+        status("deadline_1ms", *http_call(
+            addr, "/v1/generate", {"prompt": prompts[0].tolist(),
+                                   "max_new_tokens": N_NEW,
+                                   "deadline_ms": 1.0}))
+        status("malformed", *http_call(addr, "/v1/generate", raw=b"{"))
+        fd_busy = FrontDoor(gen_router=router, host="127.0.0.1", port=0,
+                            max_inflight=0).start()
+        code, body, hdrs = http_call(fd_busy.get_address(), "/v1/generate",
+                                     {"prompt": [1, 2, 3]})
+        status("inflight_full", code, body, hdrs)
+        retry_after = hdrs.get("Retry-After")
+        fd_busy.stop()
+        fd_busy = None
+        want = {"unknown_version": (404, "KeyError"),
+                "classify": (404, "KeyError"),
+                "deadline_1ms": (504, "DeadlineExceeded"),
+                "malformed": (400, "BadRequest"),
+                "inflight_full": (429, "ShedError")}
+        emit(frontdoor_statuses={**{k: list(v) for k, v in
+                                    statuses.items()},
+                                 "retry_after": retry_after})
+        check(statuses == want and retry_after == "1",
+              f"frontdoor statuses {statuses}, Retry-After {retry_after}; "
+              f"want {want} and 1")
+
+        # canary of g2 (the same weights) walked to full while a client
+        # keeps sending requests, then g1 retired: nothing dropped
+        reg.deploy_generative("g2", engine, slots=FD_SLOTS,
+                              max_new_tokens=N_NEW)
+        stop = threading.Event()
+        background = []
+
+        def keep_sending():
+            j = 0
+            while not stop.is_set():
+                p = prompts[3 + 4 * (j % 2)]
+                code, body, _h = http_call(
+                    addr, "/v1/generate", {"prompt": p.tolist(),
+                                           "max_new_tokens": FD_CANARY_NEW,
+                                           "request_key": f"bg-{j}"})
+                background.append((code, body.get("tokens"), j % 2))
+                j += 1
+
+        policy = {"start_stage": "shadow", "shadow_fraction": 1.0,
+                  "canary_fraction": 0.5, "ramp_fractions": [0.75],
+                  "window_requests": 2, "healthy_windows": 1,
+                  "min_requests": 2, "min_shadow": 1,
+                  "latency_ratio_degraded": None,
+                  "latency_ratio_failing": None,
+                  "drain_timeout_s": FD_TIMEOUT_S}
+        code, ro, _h = http_call(addr, "/admin/rollout",
+                                 {"lane": "generative", "candidate": "g2",
+                                  "policy": policy})
+        check(code == 200 and ro["stage"] == "shadow",
+              f"begin_rollout: {code} {ro}")
+        bg = threading.Thread(target=keep_sending, daemon=True)
+        bg.start()
+        stages, deploys = ["shadow"], []
+        deadline = time.monotonic() + FD_TIMEOUT_S
+        while time.monotonic() < deadline:
+            code, snap, _h = http_call(addr, "/debug/frontdoor")
+            gen = snap["generative"]
+            stage = (gen["rollout"] or {}).get("stage")
+            if stage != stages[-1]:
+                stages.append(stage)
+                deploys.append({"stage": stage, "deploy": [
+                    {v["version"]: v["state"] for v in r["versions"]}
+                    for r in serving.snapshot()["registries"]
+                    if any(v["version"] in ("g1", "g2")
+                           for v in r["versions"])]})
+            if stage in ("full", "rolled_back"):
+                break
+            time.sleep(0.05)
+        check(stages[-1] == "full" and "canary" in stages
+              and "ramp" in stages,
+              f"canary walk: {stages}")
+        retired = reg.retire("g1", drain_timeout_s=FD_TIMEOUT_S)
+        stop.set()
+        bg.join(FD_TIMEOUT_S)
+        check(not bg.is_alive(), "the background client hung")
+        dropped = [b for b in background if b[0] != 200]
+        check(retired and not dropped and background
+              and router.snapshot()["primary"] == "g2",
+              f"retire g1: drained {retired}, dropped {dropped}, "
+              f"primary {router.snapshot()['primary']}")
+        for code, toks, which in background:
+            want, tie = solo[3 + 4 * which]
+            upto = FD_CANARY_NEW if tie is None else min(tie, FD_CANARY_NEW)
+            check(toks[:upto] == want[:upto],
+                  f"a request during the rollout: {toks} against the "
+                  f"engine's {want[:FD_CANARY_NEW]} (first near tie {tie})")
+        emit(frontdoor_canary={
+            "stages": stages, "deploy_at_each_stage": deploys,
+            "requests_during_rollout": len(background),
+            "dropped": len(dropped), "g1_retired_drained": retired,
+            "primary": router.snapshot()["primary"],
+            "history": router.snapshot()["rollout"]["history"]})
+        launches = delta((0,) * len(ALL_KERNELS))
+        named = dict(zip(ALL_KERNELS, launches))
+        emit(frontdoor_launches={"single_requests": dict(zip(
+            ALL_KERNELS, single)), "phase": named})
+        check(named["wgmma"] > 0 and named["paged_attention_write"] > 0
+              and sum(n for k, n in named.items()
+                      if k not in ("wgmma", "paged_attention_write")) == 0,
+              f"the front door path launched kernels off its path: {named}")
+        return launches
+    finally:
+        if fd_busy is not None:
+            fd_busy.stop()
+        if fd is not None:
+            fd.stop()
+        reg.shutdown(drain_timeout_s=FD_TIMEOUT_S)
+
+
+def _announce(proc, timeout):
+    """The fleet's announce line from ``tools.serve``'s stdout, read on a
+    helper thread so the wait is bounded."""
+    import queue
+    lines = queue.Queue()
+
+    def pump():
+        for line in proc.stdout:
+            lines.put(line)
+        lines.put(None)
+
+    threading.Thread(target=pump, daemon=True).start()
+    deadline = time.monotonic() + timeout
+    while True:
+        left = deadline - time.monotonic()
+        if left <= 0:
+            raise RuntimeError(f"no fleet announce within {timeout} s")
+        try:
+            line = lines.get(timeout=left)
+        except queue.Empty:
+            continue
+        if line is None:
+            raise RuntimeError("tools.serve exited before announcing")
+        try:
+            doc = json.loads(line)
+        except ValueError:
+            continue
+        if isinstance(doc, dict) and "fleet" in doc:
+            return doc
+
+
+def session_failover_drill(device, state_dir, baseline_fn, gap_fn=None,
+                           spinup_s=FLEET_SPINUP_S,
+                           stream_s=FLEET_STREAM_S):
+    """The reference's session-failover drill (``benchmarks/http_load.py``
+    ``run_session_failover``) against the port's server: ``python -m
+    deeplearning4j_tpu_torch.tools.serve --workers 2`` on ``device`` with
+    FLEET_FAULTS in the workers' environment; FLEET_STREAMS SSE streams of
+    FLEET_NEW tokens through its proxy; the worker with the highest id
+    SIGKILLed once every stream has two tokens and every session a record
+    in the store; every stream graded for completion, a gapless ``id:``
+    sequence and tokens equal to ``baseline_fn(prompts, FLEET_NEW)`` (the
+    undisturbed run). A differing stream is passed to ``gap_fn(i,
+    want, got, at)`` for its teacher-forced top-2 gap. The record also
+    says which sessions the killed worker owned live at the kill and which
+    of them the survivor adopted (owner and a bumped fence in the store),
+    and holds the survivor's own kernel launches after its warm-up
+    (``survivor_launches``, written by the worker when the fleet stops;
+    tools.serve's DL4J_TPU_LAUNCH_COUNTS_DIR). Every wait is bounded and
+    the fleet is stopped in a ``finally``. Returns the drill's record,
+    keyed as the reference's ``SESS_r01.json``."""
+    import os
+    import signal
+    import subprocess
+    from deeplearning4j_tpu_torch.serving import SharedStore
+    from deeplearning4j_tpu_torch.tools.serve import LAUNCH_COUNTS_ENV
+    n_streams, n_new = FLEET_STREAMS, FLEET_NEW
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(1, 61, (int(rng.integers(4, 8)),)).tolist()
+               for _ in range(n_streams)]
+    baselines = baseline_fn(prompts, n_new)
+    counts_dir = Path(state_dir).with_name(Path(state_dir).name + "-launches")
+    counts_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ)
+    env.pop("DL4J_TPU_SESSIONS", None)        # the drill grades the ON path
+    env["DL4J_TPU_SESSION_JOURNAL_STEPS"] = "1"
+    env["DL4J_TPU_FAULTS"] = FLEET_FAULTS
+    env[LAUNCH_COUNTS_ENV] = str(counts_dir)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "deeplearning4j_tpu_torch.tools.serve",
+         "--workers", "2", "--port", "0", "--state-dir", str(state_dir),
+         "--slots", str(n_streams), "--no-respawn", "--device", device,
+         "--spinup-timeout-s", str(spinup_s)],
+        stdout=subprocess.PIPE, text=True, env=env, cwd=str(ROOT))
+    try:
+        fleet = _announce(proc, spinup_s + 30)
+        addr = fleet["address"]
+        deadline = time.monotonic() + 60
+        while True:
+            try:
+                code, _b, _h = http_call(addr, "/debug/frontdoor",
+                                         timeout=5.0)
+                if code == 200:
+                    break
+            except OSError:
+                pass
+            check(time.monotonic() < deadline, "the fleet never answered")
+            time.sleep(0.5)
+        store = SharedStore(str(state_dir))
+        workers = store.read().get("workers") or {}
+        victim = sorted(workers)[-1]             # spare the leader
+        survivor = sorted(workers)[0]
+        victim_pid = int(workers[victim]["pid"])
+        streams = [SseClient(addr, {"prompt": p, "max_new_tokens": n_new},
+                             timeout=stream_s) for p in prompts]
+        for st in streams:
+            st.start()
+            time.sleep(0.05)
+        # every stream two tokens in (the reference's moment) and every
+        # session journaled once: a session with no record in the store
+        # has nothing a survivor can adopt, in either package, and the
+        # journal commits at most every DL4J_TPU_SESSION_FLUSH_MS
+        deadline = time.monotonic() + stream_s
+        while time.monotonic() < deadline and not (
+                all(len(st.ids) >= 2 or st.done is not None
+                    for st in streams)
+                and len(store.read().get("sessions") or {}) >= n_streams):
+            time.sleep(0.05)
+        inflight_at_kill = [len(st.ids) for st in streams]
+        at_kill = store.read().get("sessions") or {}
+        os.kill(victim_pid, signal.SIGKILL)
+        killed_at = time.monotonic()
+        for st in streams:
+            st.join(stream_s)
+        orphans = {sid: int(r.get("fence") or 0) for sid, r in
+                   at_kill.items() if r.get("owner") == victim
+                   and r.get("status") == "live"}
+        after = store.read().get("sessions") or {}
+        adopted = sorted(
+            sid for sid, fence in orphans.items()
+            if (after.get(sid) or {}).get("owner") == survivor
+            and int(after[sid].get("fence") or 0) > fence)
+        complete = seq_exact = match = 0
+        resume_lat, failures, flips = [], [], {}
+        for i, (st, base) in enumerate(zip(streams, baselines)):
+            gapless = st.ids == list(range(len(st.ids)))
+            ok_done = st.done is not None and not st.is_alive()
+            ok_match = st.toks == base
+            complete += ok_done
+            seq_exact += gapless and len(st.ids) == n_new
+            match += ok_match
+            if not (gapless and ok_done and ok_match):
+                failures.append({"stream": i, "n": len(st.ids),
+                                 "gapless": gapless, "done": ok_done,
+                                 "match": ok_match, "error": st.error,
+                                 "exc": repr(st.exc)})
+                if (gap_fn is not None and len(st.toks) == len(base)
+                        and not ok_match):
+                    at = next(k for k, (a, b) in enumerate(
+                        zip(base, st.toks)) if a != b)
+                    flips[i] = gap_fn(prompts[i], base, st.toks, at)
+            post = [t for t in st.at if t > killed_at]
+            if inflight_at_kill[i] < n_new and post:
+                resume_lat.append(post[0] - killed_at)
+        try:
+            sessions = http_call(addr, "/debug/sessions", timeout=10.0)[1]
+        except OSError:
+            sessions = {}
+        rec = {
+            "metric": "sess_failover", "device": device,
+            "sess_completion": complete / n_streams,
+            "sess_seq_exact": seq_exact / n_streams,
+            "sess_greedy_match": match / n_streams,
+            "sess_streams": n_streams, "inflight_at_kill": inflight_at_kill,
+            "journaled_at_kill": len(at_kill),
+            "victim_live_at_kill": len(orphans),
+            "adopted_by_survivor": len(adopted),
+            "resume_latency_ms": (1e3 * max(resume_lat)
+                                  if resume_lat else None),
+            "resume_latency_ms_all": sorted(1e3 * t for t in resume_lat),
+            "resumed_streams": len(resume_lat),
+            "survivor_sessions": len(sessions.get("sessions") or []),
+            "survivor_worker": survivor,
+            "killed_worker": victim, "failures": failures, "flips": flips,
+            "session_faults": FLEET_FAULTS, "workers": 2,
+            "prompts": prompts, "baselines": baselines}
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+    counts = counts_dir / f"{survivor}.json"
+    check(counts.exists(), f"the survivor {survivor} wrote no launch counts")
+    rec["survivor_launches"] = json.loads(counts.read_text())
+    return rec
+
+
+def check_drill(rec):
+    """What the drill must show besides the streams' grades: every stream
+    still in flight at the kill, the killed worker owning at least one
+    live session then, and the survivor adopting every one of them."""
+    check(all(n < FLEET_NEW for n in rec["inflight_at_kill"]),
+          f"fleet drill: a stream had ended before the kill: "
+          f"{rec['inflight_at_kill']}")
+    check(rec["victim_live_at_kill"] >= 1
+          and rec["adopted_by_survivor"] == rec["victim_live_at_kill"],
+          f"fleet drill: {rec['victim_live_at_kill']} live sessions of the "
+          f"killed worker, {rec['adopted_by_survivor']} adopted by the "
+          f"survivor")
+
+
+def demo_baselines(device, slots=FLEET_STREAMS):
+    """A ``baseline_fn`` for :func:`session_failover_drill`: the demo
+    model the workers deploy, in this process on ``device``, each prompt
+    through a ``GenerationPipeline`` undisturbed. Returns (the function,
+    the engine)."""
+    from deeplearning4j_tpu_torch.parallel.generation import (
+        GenerationPipeline)
+    from deeplearning4j_tpu_torch.tools.serve import demo_engine
+    engine = demo_engine(device)
+
+    def baseline(prompts, n_new):
+        with GenerationPipeline(engine, slots=slots,
+                                max_new_tokens=n_new) as gp:
+            return [gp.generate(np.asarray(p, np.int32),
+                                max_new_tokens=n_new).tolist()
+                    for p in prompts]
+
+    return baseline, engine
+
+
+def fleet_phase(torch):
+    """The reference's session-failover drill on the card: two workers of
+    the port's ``tools.serve`` (the demo ``g1``), one SIGKILLed with every
+    stream mid-flight, under FLEET_FAULTS; completion, sequence exactness
+    and greedy match against the same demo model's undisturbed run in
+    this process must each be 1.0 (a differing stream only at a flip whose
+    teacher-forced gap is at most TOL_FLEET_FLIP), and the survivor must
+    adopt every live session of the killed worker. Returns the survivor's
+    launches after its warm-up, in ALL_KERNELS' order: it served its own
+    streams and re-prefilled and decoded every adopted one."""
+    import tempfile
+    baseline, engine = demo_baselines("cuda")
+    model, params = engine.model, engine.params
+
+    def gap(prompt, want, got, at):
+        return flip_gap(torch, model, params, np.asarray(prompt, np.int32),
+                        np.asarray(want), np.asarray(got), at)
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="dl4j-fleet-") as tmp:
+        rec = session_failover_drill("cuda", Path(tmp) / "store", baseline,
+                                     gap)
+    rec["seconds"] = time.perf_counter() - t0
+    rec["baseline_top2_gaps"] = baseline_gaps(torch, model, params,
+                                              rec.pop("prompts"),
+                                              rec.pop("baselines"))
+    emit(fleet_drill=rec)
+    for i, flip in rec["flips"].items():
+        check(flip["gap"] <= TOL_FLEET_FLIP,
+              f"fleet drill stream {i}: differs from the undisturbed run "
+              f"at token {flip['at']}, gap {flip['gap']} (not a near tie)")
+    check(rec["sess_completion"] == 1.0 and rec["sess_seq_exact"] == 1.0,
+          f"fleet drill: completion {rec['sess_completion']}, seq exact "
+          f"{rec['sess_seq_exact']}: {rec['failures']}")
+    check(rec["sess_greedy_match"] == 1.0
+          or len(rec["flips"]) == FLEET_STREAMS
+          - round(rec["sess_greedy_match"] * FLEET_STREAMS),
+          f"fleet drill: greedy match {rec['sess_greedy_match']} with "
+          f"unexplained streams: {rec['failures']}")
+    check_drill(rec)
+    named = rec["survivor_launches"]
+    return tuple(named[k] for k in ALL_KERNELS)
+
+
+def baseline_gaps(torch, model, params, prompts, streams):
+    """The readings behind TOL_FLEET_FLIP: teacher-forced over each
+    undisturbed stream, the top-2 logit gap at every token (the margin a
+    rounding of the re-prefilled rows would have to cross to flip it) —
+    the smallest, and how many are at most TOL_FLEET_FLIP — and the
+    largest |logit| gap between that whole-sequence apply and each
+    stream's own prefix applies (the same rows at other lengths, so other
+    rounding: what a restore's re-prefill perturbs)."""
+    gaps, moved = [], 0.0
+    with torch.inference_mode():
+        for p, toks in zip(prompts, streams):
+            full = np.asarray(list(p) + list(toks[:-1]), np.int32)[None]
+            logits = model.apply(params, torch.as_tensor(
+                full, device=model.device))[0].float()
+            rows = logits[len(p) - 1:]
+            top = torch.topk(rows, 2, dim=-1).values
+            gaps += (top[:, 0] - top[:, 1]).cpu().tolist()
+            for k in range(1, len(toks)):
+                part = model.apply(params, torch.as_tensor(
+                    full[:, :len(p) + k - 1], device=model.device))
+                moved = max(moved, float((part[0, -1].float()
+                                          - logits[len(p) + k - 2])
+                                         .abs().max()))
+    return {"min": min(gaps), "at_most_tol": sum(g <= TOL_FLEET_FLIP
+                                                 for g in gaps),
+            "tokens": len(gaps), "max_logit_shift": moved}
+
+
 def decode_profile_phase(torch, engine):
     """One torch.profiler window over 4 decode steps of one slot after a
     960-token prompt, on bf16 pages (``engine``) and on int8 pages (an
@@ -3360,7 +4139,7 @@ def moe_kernel_entry(kind, cases, launches):
 
 
 def check_path_launches(serve, modes, train, moe, f32_serve, f32_train,
-                        pipeline):
+                        pipeline, frontdoor, fleet):
     """Which kernels each main path launched (each an ``all_counts()``
     tuple): the bf16 paths (serving, the serving modes, the rungs, MoE)
     the wgmma flash kernels and never the simple forward or the mma.sync
@@ -3368,7 +4147,9 @@ def check_path_launches(serve, modes, train, moe, f32_serve, f32_train,
     the mma.sync backward (training), never a wgmma flash kernel, and
     the tf32 K3 and its split pass (training) where bf16 launches the wgmma
     K3; chunked_ce.cu's K3 on no path; K4a+w on every serving path and K4a
-    on none, K4w on the int8 serving modes only (the prefill's insert)."""
+    on none, K4w on the int8 serving modes only (the prefill's insert);
+    the front door K1's wgmma forward and K4a+w only, the fleet's demo
+    model (f32, head dim 16) the simple forward and K4a+w only."""
     check(serve[0] > 0 and train[0] > 0 and moe[0] > 0,
           "a main path launched no flash_attention_fwd_wgmma")
     check(train[2] > 0 and moe[2] > 0,
@@ -3415,6 +4196,14 @@ def check_path_launches(serve, modes, train, moe, f32_serve, f32_train,
               n for k, n in named.items() if k not in (
                   "wgmma", "paged_attention_write", "kv_quant_write")) == 0,
           f"the pipeline launched kernels off its path: {named}")
+    for label, path, on in (("front door", frontdoor,
+                             ("wgmma", "paged_attention_write")),
+                            ("fleet demo", fleet,
+                             ("simple", "paged_attention_write"))):
+        named = dict(zip(ALL_KERNELS, path))
+        check(all(named[k] > 0 for k in on)
+              and sum(n for k, n in named.items() if k not in on) == 0,
+              f"the {label} path launched kernels off its path: {named}")
 
 
 # --precision-f32: the f32 shapes of the kernel and backward phases
@@ -3884,22 +4673,26 @@ def main() -> int:
     decode_profile_phase(torch, engine)
     modes = serve_phase(torch, _model, engine)
     pipeline = pipeline_phase(torch, _model, engine)
+    frontdoor = frontdoor_phase(torch, _model, engine)
     del engine, _model
     torch.cuda.empty_cache()
     allocated("slice_phase")
+    fleet = fleet_phase(torch)
+    allocated("fleet_phase")
     train = train_phase(torch, fa)
     moe = moe_train_phase(torch, fa)
     allocated("moe_train_phase")
     f32_serve = f32_serve_phase(torch)
     f32_train = f32_train_phase(torch, fa)
     launches = {name: {"serve": serve[i], "serve_modes": modes[i],
-                       "pipeline": pipeline[i],
+                       "pipeline": pipeline[i], "frontdoor": frontdoor[i],
+                       "fleet": fleet[i],
                        "train": train[i], "moe": moe[i],
                        "f32_serve": f32_serve[i], "f32_train": f32_train[i]}
                 for i, name in enumerate(ALL_KERNELS)}
     emit(main_path_launches=launches)
     check_path_launches(serve, modes, train, moe, f32_serve, f32_train,
-                        pipeline)
+                        pipeline, frontdoor, fleet)
     emit(kernels=[kernel_entry("wgmma", cases, launches["wgmma"]),
                   kernel_entry("simple", cases, launches["simple"]),
                   bwd_kernel_entry("bwd_wgmma", bwd_cases,

@@ -759,7 +759,7 @@ class DecodeEngine:
         p = self.spec_stats["proposed"]
         return (self.spec_stats["accepted"] / p) if p else None
 
-    def warm(self, slots: int) -> List[int]:
+    def warm(self, slots: int, note=None) -> List[int]:
         """Run the engine's whole step set against a THROWAWAY state: one
         prefill + insert per bucket (the draft's too in spec mode), one
         decode step at ``slots`` and, in spec mode, one speculative round,
@@ -767,10 +767,14 @@ class DecodeEngine:
         at its serving signature (``compile_watch`` notes it; first-call
         costs such as library handles and allocator growth are paid here;
         the quant gate runs at the state's build), and the decode step and
-        each prefill bucket are accounted in the cost model. Returns the
+        each prefill bucket are accounted in the cost model. ``note(**a)``
+        (optional) is called before each step that runs a signature for
+        the first time, so the caller can declare its cause. Returns the
         buckets."""
         state = self.new_state(slots)
         for bucket in self.prefill_buckets:
+            if note is not None:
+                note(bucket=bucket)
             _first, _logits, kv, _t = self.prefill(
                 np.zeros((1, bucket), np.int32))
             self.account_prefill(1, bucket)
@@ -778,12 +782,16 @@ class DecodeEngine:
             if self.spec:
                 self.insert_draft_slot(state, 0,
                                        np.zeros((1, bucket), np.int32))
+        if note is not None:
+            note(decode_slots=slots)
         for s in range(slots):
             self.ensure_slot_pages(state, s, 0)
         zeros = np.zeros((slots,), np.int32)
         self.decode(state, zeros, zeros, 0)
         self.account_decode(state, zeros, zeros, 0)
         if self.spec:
+            if note is not None:
+                note(spec_k=self.spec_k)
             for s in range(slots):
                 self.ensure_slot_pages(state, s, self.spec_k)
             stats = dict(self.spec_stats)

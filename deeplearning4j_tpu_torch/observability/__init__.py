@@ -7,10 +7,12 @@ exports what the ported modules provide — the registry, tracing and the
 trace store, the straggler detector, the flight recorder, the SLO rules,
 the compile watch (first runs of engine step signatures), the host part
 of numerics, device memory from ``torch.cuda.memory_stats`` and the
-analytic cost model. The reference's ``profile_capture``, ``timeseries``,
-``watchtower`` and ``federation`` and the listener-bus
-``MetricsReportingListener`` are not ported yet (ROADMAP queue 1 items 5
-and 6).
+analytic cost model, and the fleet plane the serving tier reads — the
+``timeseries`` rings, the ``watchtower``'s burn-rate and change-point
+alerts, and cross-process ``federation`` of traces, metrics and health.
+The reference's ``profile_capture`` and the listener-bus
+``MetricsReportingListener`` are not ported yet (ROADMAP queue 1 items 6
+and 8).
 
 Quick tour::
 
@@ -57,6 +59,13 @@ from deeplearning4j_tpu_torch.observability.cost_model import (
     CostModel, cost_model_enabled, global_cost_model,
     reset_global_cost_model)
 from deeplearning4j_tpu_torch.observability.slo import PerfRegressionRule
+from deeplearning4j_tpu_torch.observability.timeseries import (
+    TimeseriesStore, global_timeseries, reset_global_timeseries,
+    watchtower_enabled)
+from deeplearning4j_tpu_torch.observability.watchtower import (
+    AlertManager, BurnRateDetector, ChangePointDetector, Detector,
+    ThresholdDetector, Watchtower, default_detectors, global_watchtower,
+    reset_global_watchtower)
 
 #: ergonomic aliases
 metrics = global_registry
@@ -84,4 +93,9 @@ __all__ = [
     "device_memory",
     "CostModel", "cost_model_enabled", "global_cost_model",
     "reset_global_cost_model", "PerfRegressionRule",
+    "TimeseriesStore", "global_timeseries", "reset_global_timeseries",
+    "watchtower_enabled",
+    "AlertManager", "BurnRateDetector", "ChangePointDetector", "Detector",
+    "ThresholdDetector", "Watchtower", "default_detectors",
+    "global_watchtower", "reset_global_watchtower",
 ]

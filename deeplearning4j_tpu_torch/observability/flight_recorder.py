@@ -33,6 +33,8 @@ A bundle is a directory under ``DL4J_TPU_POSTMORTEM_DIR`` (default
   port's training and serving loops that read those knobs)
 - ``compiles.json`` — compile-watch ring: the first run of every
   engine step signature, with the args' shapes
+- ``deploy.json`` — versioned serving: deployed versions (lifecycle,
+  warmup, in-flight), rollout stage/share and its SLO verdicts
 - ``numerics.json`` — recent non-finite loss/grad events + last published
   numerics health per model kind
 - ``resilience.json`` — fault plan + injection counts, circuit-breaker
@@ -41,6 +43,12 @@ A bundle is a directory under ``DL4J_TPU_POSTMORTEM_DIR`` (default
 - ``tenants.json`` — multi-tenant QoS: per-tenant policies (weights,
   tiers, quotas), live bucket levels, and request/token/shed/cost
   counters (a death under load must name who was flooding)
+- ``frontdoor.json`` — the HTTP serving front door: in-flight gate,
+  lane routers, and the shared-store fleet view (multi-process mode)
+- ``fleet.json`` — the fleet robustness layer: leader lease/term,
+  demotions, store corruption/rebuild evidence, idempotency journal
+- ``timeseries.json`` — the ringed registry timeseries and the
+  watchtower's alert state (when the watchtower is enabled)
 - ``generation.json`` — the generative decode layer: per-pipeline slot
   tables (who was decoding, at which position), queue depth, cache size
 - ``sessions.json`` — the durable generation sessions: journal
@@ -52,10 +60,8 @@ A bundle is a directory under ``DL4J_TPU_POSTMORTEM_DIR`` (default
 - ``traces.json`` — the trace store's pinned and recent traces (when
   ``trace_store`` is enabled)
 
-The port's copy leaves out the reference's ``elastic.json``,
-``deploy.json``, ``frontdoor.json``, ``fleet.json`` and
-``timeseries.json`` sections: the elastic layer, the serving plane and
-the watchtower are not ported yet (ROADMAP queue 1 items 5 and 7).
+The port's copy leaves out the reference's ``elastic.json`` section:
+the elastic layer is not ported yet (ROADMAP queue 1 item 7).
 
 Kill switch: ``DL4J_TPU_FLIGHT_RECORDER=0`` disables the watchdog and the
 crash hooks; explicit ``dump()`` calls always work.
@@ -342,6 +348,10 @@ class FlightRecorder:
         # per-tenant counters — a death under a flooding tenant must
         # name who was flooding and who was shed
         section("tenants.json", self._write_tenants)
+        # the serving layer: deployed versions, rollout stage/share and
+        # the SLO verdicts behind them — a death mid-canary must name
+        # which model had the traffic
+        section("deploy.json", self._write_deploy)
         # the PR-6 cost observatory: per-fn cost/MFU/roofline at the
         # moment of death — a postmortem for "it got slow, then it hung"
         section("perf.json", self._write_perf)
@@ -353,6 +363,15 @@ class FlightRecorder:
         # sessions a survivor can adopt (section absent with
         # DL4J_TPU_SESSIONS=0 never exercised)
         section("sessions.json", self._write_sessions)
+        # the HTTP front door: in-flight gate, lane routers, and (multi-
+        # process mode) the shared fleet view — a death under load must
+        # name what the wire surface was doing
+        section("frontdoor.json", self._write_frontdoor)
+        # the fleet robustness layer: leader lease/term, demotions,
+        # store corruption/rebuild evidence, idempotency journal — a
+        # death during a fleet chaos run must name who led, under which
+        # term, and what was (or was not) executed twice
+        section("fleet.json", self._write_fleet)
         # the trace-intelligence layer: the incident's pinned trace ids
         # assembled FLEET-WIDE (via the installed assembler) — a
         # coordinated capture ships the full cross-process request
@@ -361,6 +380,13 @@ class FlightRecorder:
             trace_store_enabled)
         if trace_store_enabled():
             section("traces.json", self._write_traces)
+        # the watchtower layer: the ringed registry timeseries (the
+        # minutes BEFORE the trip) and the alert lifecycle state at the
+        # moment of death — section absent with the switch off
+        from deeplearning4j_tpu_torch.observability.timeseries import (
+            watchtower_enabled)
+        if watchtower_enabled():
+            section("timeseries.json", self._write_timeseries)
         if reason.startswith("incident:"):
             # a coordinated peer capture: stamp the fleet-wide incident
             # id INTO the bundle so a postmortem directory groups every
@@ -425,6 +451,12 @@ class FlightRecorder:
             json.dump(resilience.snapshot(), f, indent=2, default=str)
 
     @staticmethod
+    def _write_deploy(path: str):
+        from deeplearning4j_tpu_torch import serving
+        with open(path, "w") as f:
+            json.dump(serving.snapshot(), f, indent=2, default=str)
+
+    @staticmethod
     def _write_tenants(path: str):
         from deeplearning4j_tpu_torch.resilience import qos
         with open(path, "w") as f:
@@ -451,12 +483,54 @@ class FlightRecorder:
             json.dump({"pipelines": pipelines}, f, indent=2, default=str)
 
     @staticmethod
+    def _write_frontdoor(path: str):
+        # sys.modules guard, same rationale as _write_generation
+        import sys as _sys
+        fdm = _sys.modules.get("deeplearning4j_tpu_torch.serving.frontdoor")
+        payload = (fdm.snapshot_all() if fdm is not None
+                   else {"frontdoors": []})
+        with open(path, "w") as f:
+            json.dump(payload, f, indent=2, default=str)
+
+    @staticmethod
+    def _write_fleet(path: str):
+        # sys.modules guard, same rationale as _write_generation
+        import sys as _sys
+        fdm = _sys.modules.get("deeplearning4j_tpu_torch.serving.frontdoor")
+        if fdm is not None:
+            payload = fdm.fleet_snapshot()
+        else:
+            idm = _sys.modules.get(
+                "deeplearning4j_tpu_torch.serving.idempotency")
+            payload = {"idempotency": (idm.snapshot() if idm is not None
+                                       else {}),
+                       "frontdoors": []}
+        with open(path, "w") as f:
+            json.dump(payload, f, indent=2, default=str)
+
+    @staticmethod
     def _write_sessions(path: str):
         # sys.modules guard, same rationale as _write_generation
         import sys as _sys
         sm = _sys.modules.get("deeplearning4j_tpu_torch.serving.session")
         payload = (sm.snapshot() if sm is not None
                    else {"enabled": None, "sessions": []})
+        with open(path, "w") as f:
+            json.dump(payload, f, indent=2, default=str)
+
+    @staticmethod
+    def _write_timeseries(path: str):
+        from deeplearning4j_tpu_torch.observability.timeseries import (
+            global_timeseries)
+        # sys.modules guard for the watchtower (same rationale as
+        # _write_generation): a process that never beat it gets None,
+        # not a fresh import under the import lock
+        import sys as _sys
+        wt = _sys.modules.get(
+            "deeplearning4j_tpu_torch.observability.watchtower")
+        payload = global_timeseries().snapshot()
+        payload["alerts"] = (wt.global_watchtower().alerts.snapshot()
+                             if wt is not None else None)
         with open(path, "w") as f:
             json.dump(payload, f, indent=2, default=str)
 

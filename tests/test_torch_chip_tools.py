@@ -816,15 +816,19 @@ def test_step_gate_lets_whole_steps_through():
         while not stop.is_set():
             done.append(eng.decode(len(done)))
 
-    with chip_smoke.StepGate(eng, 3, timeout=10) as gate:
-        th = threading.Thread(target=loop)
-        th.start()
-        assert gate.held()
-        assert eng.calls == 0
-        gate.run()
-        assert eng.calls == 3 and done == [0, 1, 2]
-        gate.run()
-        assert eng.calls == 6
+    th = threading.Thread(daemon=True, target=loop)
+    try:
+        with chip_smoke.StepGate(eng, 3, timeout=10) as gate:
+            th.start()
+            assert gate.held()
+            assert eng.calls == 0
+            gate.run()
+            assert eng.calls == 3 and done == [0, 1, 2]
+            gate.run()
+            assert eng.calls == 6
+            stop.set()
+    finally:
+        # a failed check must not leave the loop spinning past the gate
         stop.set()
     th.join(timeout=10)
     assert not th.is_alive()
@@ -1062,7 +1066,8 @@ def test_expected_launches_per_step_of_the_f32_model():
 def _path_launches():
     """Plausible per-path launches, ALL_KERNELS' order: decode through
     K4a+w (the last), K4w only for the int8 modes' prefill inserts (the
-    serving modes and the pipeline's int8 run)."""
+    serving modes and the pipeline's int8 run); the front door on bf16
+    pages, the fleet's f32 demo model on the simple forward."""
     L, n = 12, 31
     none = (0, 0, 0)
     serve = (4 * L, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0) + none + (4 * n * L,)
@@ -1072,7 +1077,10 @@ def _path_launches():
     f32_serve = (0, L, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0) + none + (n * L,)
     f32_train = (0, 2 * L, 0, 2 * L, 0, 0, 0, 0, 0, 0, 0, 0, 1, 8, 2, 0)
     pipeline = (20 * L, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 8) + none + (2000,)
-    return [serve, modes, train, moe, f32_serve, f32_train, pipeline]
+    frontdoor = (45 * L, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0) + none + (5868,)
+    fleet = (0, 16, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0) + none + (240,)
+    return [serve, modes, train, moe, f32_serve, f32_train, pipeline,
+            frontdoor, fleet]
 
 
 @pytest.mark.parametrize("path,kernel,what", [
@@ -1104,7 +1112,15 @@ def _path_launches():
     (6, 15, "the pipeline without K4a+w"),
     (6, 10, "the pipeline on K4a alone"),
     (6, 11, "the pipeline without K4w's int8 prefill insert"),
-    (6, 4, "the pipeline launching K3")])
+    (6, 4, "the pipeline launching K3"),
+    (7, 0, "the front door without the wgmma forward"),
+    (7, 15, "the front door without K4a+w"),
+    (7, 1, "the front door on the simple forward"),
+    (7, 11, "the front door launching K4w on bf16 pages"),
+    (8, 1, "the fleet's f32 demo without the simple forward"),
+    (8, 15, "the fleet's demo without K4a+w"),
+    (8, 0, "the fleet's f32 demo on the wgmma forward"),
+    (8, 10, "the fleet's demo on K4a alone")])
 def test_path_launch_checks_catch_each_misroute(path, kernel, what):
     paths = _path_launches()
     chip_smoke.check_path_launches(*paths)
@@ -1233,3 +1249,90 @@ def test_flip_gap_reads_the_teacher_forced_row_of_the_differing_token():
         assert flip["got"] == other
         assert flip["gap"] == pytest.approx(
             float(rows[at][want[at]] - rows[at][other]), abs=1e-5)
+
+
+def test_cases_hold_a_prefill_in_every_bucket_of_the_fleet_demo():
+    """The fleet's workers prefill (and re-prefill adopted sessions) in
+    every bucket of the demo engine: K1's simple forward and its backward
+    are held to their plain versions at each one."""
+    from deeplearning4j_tpu_torch.models.generation import (
+        default_prefill_buckets)
+    from deeplearning4j_tpu_torch.tools.serve import (DEMO_CONFIG,
+                                                      DEMO_MAX_LEN)
+    hd = DEMO_CONFIG["d_model"] // DEMO_CONFIG["n_heads"]
+    for t in default_prefill_buckets(DEMO_MAX_LEN):
+        case = ("fused", 1, DEMO_CONFIG["n_heads"], t, t, hd, "float32",
+                True)
+        assert case in chip_smoke.KERNEL_CASES
+        assert case in chip_smoke.BWD_CASES
+
+
+def test_kernel_counters_are_named_in_all_kernels_order():
+    """The package's counter table names every kernel chip_smoke reports,
+    in ALL_KERNELS' order, and ``reset_launch_counts`` zeroes them."""
+    from deeplearning4j_tpu_torch import kernels
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    assert tuple(kernels.COUNTERS) == chip_smoke.ALL_KERNELS
+    saved = kernels.launch_counts()
+    try:
+        pa.launches_attend_write = 7
+        assert kernels.launch_counts()["paged_attention_write"] == 7
+        kernels.reset_launch_counts()
+        assert set(kernels.launch_counts().values()) == {0}
+    finally:
+        for name, (mod, attr) in kernels.COUNTERS.items():
+            setattr(kernels._module(mod), attr, saved[name])
+
+
+def test_worker_writes_its_launch_counts_by_name(tmp_path):
+    """What a stopped worker leaves for the fleet drill: the process's
+    counters by kernel name, whole (no temporary file left)."""
+    import json
+    from deeplearning4j_tpu_torch import kernels
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+    from deeplearning4j_tpu_torch.tools import serve
+    saved = fa.launches_simple
+    try:
+        fa.launches_simple = 3
+        serve._write_launch_counts(str(tmp_path), "w0")
+    finally:
+        fa.launches_simple = saved
+    doc = json.loads((tmp_path / "w0.json").read_text())
+    assert list(doc) == list(kernels.COUNTERS) and doc["simple"] == 3
+    assert [p.name for p in tmp_path.iterdir()] == ["w0.json"]
+
+
+@pytest.mark.parametrize("inflight, live, adopted, ok", [
+    ([10, 9, 8, 3], 4, 4, True),
+    ([16, 9, 8, 3], 4, 4, False),      # a stream ended before the kill
+    ([10, 9, 8, 3], 0, 0, False),      # the killed worker owned nothing
+    ([10, 9, 8, 3], 4, 3, False),      # one orphan left unadopted
+])
+def test_check_drill_needs_streams_in_flight_and_every_orphan_adopted(
+        inflight, live, adopted, ok):
+    rec = {"inflight_at_kill": [min(n, chip_smoke.FLEET_NEW)
+                                for n in inflight],
+           "victim_live_at_kill": live, "adopted_by_survivor": adopted}
+    if ok:
+        chip_smoke.check_drill(rec)
+    else:
+        with pytest.raises(AssertionError):
+            chip_smoke.check_drill(rec)
+
+
+def test_baseline_gaps_read_each_tokens_top2_margin():
+    """On the CPU (f32) the teacher-forced rows of a greedy stream pick
+    its tokens, every margin is positive, and another length of the same
+    rows moves a logit by f32 rounding only."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.tools.serve import demo_engine
+    eng = demo_engine("cpu")
+    prompts = [[5, 2, 9, 7], [3, 3, 8, 1, 4, 6]]
+    streams = [eng.generate(np.asarray(p, np.int32)[None], 6)[0].tolist()
+               for p in prompts]
+    got = chip_smoke.baseline_gaps(torch, eng.model, eng.params, prompts,
+                                   streams)
+    assert got["tokens"] == 12 and got["min"] > 0
+    assert 0 <= got["at_most_tol"] <= got["tokens"]
+    assert got["max_logit_shift"] < 1e-4

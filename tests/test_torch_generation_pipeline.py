@@ -151,7 +151,7 @@ def _concurrent(gp, prompts, n_new, stagger_s=0.0, **kw):
         except BaseException as e:       # the caller asserts on it
             out[i] = e
 
-    threads = [threading.Thread(target=run, args=(i,))
+    threads = [threading.Thread(daemon=True, target=run, args=(i,))
                for i in range(len(prompts))]
     for t in threads:
         t.start()
@@ -222,7 +222,7 @@ def test_fault_mid_run_resumes_the_fault_free_stream(sampler, spec):
                 kw = {"on_token": on_token} if i == 0 else {}
                 outs[i] = gp.generate(prompts[i], **kw).tolist()
 
-            ts = [threading.Thread(target=one, args=(i,)) for i in (0, 1)]
+            ts = [threading.Thread(daemon=True, target=one, args=(i,)) for i in (0, 1)]
             ts[0].start()
             assert entered.wait(JOIN_S)
             ts[1].start()
@@ -309,7 +309,7 @@ def test_zero_steady_state_decode_recompiles():
                   for fn in ("TransformerLM.prefill",
                              "TransformerLM.decode_step")}
         threads = [threading.Thread(
-            target=gp.generate, args=(_prompt(3 + i),),
+            daemon=True, target=gp.generate, args=(_prompt(3 + i),),
             kwargs={"max_new_tokens": 5}) for i in range(6)]
         for t in threads:
             t.start()
@@ -332,7 +332,7 @@ def test_queue_full_sheds_and_deadline_walk_away():
             except Exception as e:
                 results.append(("err", e))
 
-        threads = [threading.Thread(target=long_one) for _ in range(6)]
+        threads = [threading.Thread(daemon=True, target=long_one) for _ in range(6)]
         for t in threads:
             t.start()
             time.sleep(0.01)
@@ -350,7 +350,7 @@ def test_queue_full_sheds_and_deadline_walk_away():
     with pytest.raises(ShutdownError):
         gp.generate(_prompt(3))
     with GenerationPipeline(eng, slots=1, max_new_tokens=43) as gp2:
-        t = threading.Thread(target=lambda: gp2.generate(
+        t = threading.Thread(daemon=True, target=lambda: gp2.generate(
             _prompt(5), max_new_tokens=43))
         t.start()
         time.sleep(0.01)                 # the long request owns the slot
@@ -388,7 +388,7 @@ def _chaos(gp):
             with lock:
                 outcomes.append(("UNEXPECTED", repr(e)))
 
-    threads = [threading.Thread(target=one, args=(i,)) for i in range(12)]
+    threads = [threading.Thread(daemon=True, target=one, args=(i,)) for i in range(12)]
     for t in threads:
         t.start()
     _join(threads)
@@ -508,13 +508,13 @@ def test_reclamation_victim_is_the_youngest_request():
                 results[name] = e
 
         elder = threading.Thread(
-            target=run, args=("elder", _prompt(9, seed=1), 30))
+            daemon=True, target=run, args=("elder", _prompt(9, seed=1), 30))
         elder.start()
         deadline = time.monotonic() + 20
         while gp._n_active() == 0 and time.monotonic() < deadline:
             time.sleep(0.005)
         younger = threading.Thread(
-            target=run, args=("younger", _prompt(20, seed=2), 25))
+            daemon=True, target=run, args=("younger", _prompt(20, seed=2), 25))
         younger.start()
         _join([elder, younger])
         assert isinstance(results["younger"], CachePagesExhausted), results
@@ -606,7 +606,7 @@ def test_zero_steady_state_retraces_paged_and_spec():
                "TransformerLM.spec_verify", "DraftLM.spec_propose")
         before = {fn: watch.count_for(fn) for fn in fns}
         threads = [threading.Thread(
-            target=gp.generate, args=(_prompt(3 + i),),
+            daemon=True, target=gp.generate, args=(_prompt(3 + i),),
             kwargs={"max_new_tokens": 5}) for i in range(6)]
         for t in threads:
             t.start()

@@ -398,7 +398,7 @@ def test_wgmma_kernels_launch_from_a_thread_that_has_no_context(cuda):
         except Exception as e:      # re-raised on the test's thread
             errors.append(e)
 
-    worker = threading.Thread(target=run)
+    worker = threading.Thread(daemon=True, target=run)
     worker.start()
     worker.join()
     assert not errors, errors

@@ -377,7 +377,8 @@ def test_concurrent_first_runs_note_one_signature():
             for j in range(300):
                 eng._note_signature("race.fn", "paged", j, 1, torch.float32)
 
-        threads = [threading.Thread(target=run) for _ in range(16)]
+        threads = [threading.Thread(target=run, daemon=True)
+                   for _ in range(16)]
         for t in threads:
             t.start()
         for t in threads:
@@ -614,7 +615,6 @@ _SWITCHES = ("read only by the in-step checks, so a port switch would "
 _NO_LOWERING = ("no AOT re-lowering in the port: the cost thunk counts "
                 "analytically and runs nothing")
 _PI = "ParallelInference waits for the DL4J network: ROADMAP queue 1 item 8"
-_SERVING = "the serving plane: ROADMAP queue 1 item 5"
 #: module → (reference-only names, port-only names), each with a reason
 COPIED = {
     "observability/registry": ({}, {}),
@@ -640,20 +640,16 @@ COPIED = {
         {"note_device": "the port reads the platform from the accounted "
                         "step's device, not jax.devices()"}),
     "observability/__init__": (
-        {**{n: "profile capture, timeseries and watchtower: ROADMAP queue "
-               "1 items 5 and 6" for n in (
-                   "ProfileCapture", "global_profile_capture",
-                   "profile_enabled", "reset_global_profile_capture",
-                   "TimeseriesStore", "global_timeseries",
-                   "reset_global_timeseries", "watchtower_enabled",
-                   "AlertManager", "BurnRateDetector",
-                   "ChangePointDetector", "Detector", "ThresholdDetector",
-                   "Watchtower", "default_detectors", "global_watchtower",
-                   "reset_global_watchtower")},
+        {**{n: "profile capture: ROADMAP queue 1 item 6" for n in (
+            "ProfileCapture", "global_profile_capture", "profile_enabled",
+            "reset_global_profile_capture")},
          **{n: _SWITCHES for n in ("numerics_enabled",
                                    "skip_on_nonfinite")},
          "MetricsReportingListener": "the listener bus (optim.listeners): "
                                      "ROADMAP queue 1 item 8"}, {}),
+    "observability/timeseries": ({}, {}),
+    "observability/watchtower": ({}, {}),
+    "observability/federation": ({}, {}),
     "resilience/faults": ({}, {}),
     "resilience/policy": ({}, {}),
     "resilience/qos": ({}, {}),
@@ -664,15 +660,18 @@ COPIED = {
              "ElasticCheckpointer", "HostLostError", "elastic_enabled")}},
         {}),
     "serving/session": ({}, {}),
-    "serving/__init__": (
-        {n: _SERVING for n in (
-            "ModelRegistry", "DeployedVersion", "CanaryRollout",
-            "RolloutPolicy", "RolloutState", "ServingRouter",
-            "rollout_enabled", "snapshot", "FrontDoor", "frontdoor_enabled",
-            "SharedStore", "SharedServingState", "RolloutConflictError",
-            "StoreLockTimeout", "fleet_fence_enabled", "fleet_snapshot",
-            "ResultJournal", "IDEMPOTENCY_HEADER", "idempotency_enabled")},
-        {}),
+    "serving/__init__": ({}, {}),
+    "serving/errors": ({}, {}),
+    "serving/metrics": ({}, {}),
+    "serving/rollout": ({}, {}),
+    "serving/router": ({}, {}),
+    "serving/registry": ({}, {}),
+    "serving/idempotency": ({}, {}),
+    "serving/shared_state": ({}, {}),
+    "serving/frontdoor": (
+        {}, {"default_bind_host": "the UI server's one-line knob reader, "
+                                  "copied beside its user: the UI server "
+                                  "is not ported"}),
     "parallel/inference": ({"ParallelInference": _PI,
                             "InferenceMode": _PI}, {}),
     "parallel/generation": ({}, {}),
