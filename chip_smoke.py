@@ -138,7 +138,28 @@ K4w spill nothing, and that no wgmma source has its products serialized
    steps, a profiled step each; the simple forward, the mma.sync / FMA
    backward and the tf32 K3 with its split pass on every step, no wgmma
    flash kernel and chunked_ce.cu's K3 never) and one full-width gradient
-   on the kernels against the plain versions.
+   on the kernels against the plain versions;
+8. network phase — the DL4J network stack: zoo ResNet-50 through
+   ``ComputationGraph`` at benchmarks/resnet_bench.py's config (224x224x3,
+   1000 classes, batch 32, Nesterovs(0.1, 0.9), seeded N(0, 1) images and
+   one-hot labels): (a) the f32 net on the card against the same net on
+   the CPU at batch 4 (training-mode probabilities, loss, every gradient
+   leaf, the params and BN statistics after one step) under
+   TOL_NET_F32, with a control on TF32 convolutions that must read above
+   it; (b) bf16 against f32 on the card (TOL_NET_BF16 from above,
+   FLOOR_NET_BF16 from below); (c) 20 bf16 steps
+   on one batch: the loss finite and falling, the BN statistics moving,
+   ``evaluate``'s accuracy; (d) ``output()`` per-example on the running
+   statistics; then host ms a step, images/s, device ms, busy share and
+   kernels a step (a profiler window of 3 steps), own peak memory, bf16
+   and f32, in turns with a plain-PyTorch ResNet-50 (``nn.Conv2d``,
+   ``nn.BatchNorm2d``, ``SGD(nesterov=True)``); the 53 BatchNormalizations
+   of that step (forward and backward) by the port's route and by the
+   library's (``torch.native_batch_norm``, ``F.batch_norm``) in turns,
+   with their agreement; then LeNet through
+   ``MultiLayerNetwork`` at batch 64 over a ``ListDataSetIterator``
+   through ``DevicePrefetchIterator`` (images/s, ``output``,
+   ``evaluate``). No kernel of the port may launch on these paths.
 
 Every phase must pass: any failure exits nonzero. Output is one JSON
 object per line; the last line is ``{"ok": true, "device": {...}}``.
@@ -157,6 +178,7 @@ against f64 at the f32 training shape, and times both kernels in turns.
 ``--compare-decode OTHER`` profiles and times decode steps over bf16 and
 int8 pages at the large config here and in the checkout at OTHER in turns
 (kernels a step, device busy time a step, host ms a step).
+``--network`` runs the network phase alone (it builds no kernel).
 """
 from __future__ import annotations
 
@@ -4138,8 +4160,554 @@ def moe_kernel_entry(kind, cases, launches):
                        MOE_CASES[0]))}
 
 
+# ---------------------------------------------------------------- network
+# zoo ResNet-50 as benchmarks/resnet_bench.py configures it (:133-154,
+# :186-190): 224x224x3, 1000 classes, batch 32, Nesterovs(0.1, 0.9),
+# numpy-seeded N(0, 1) images and one-hot labels; bf16 and f32
+NET_SHAPE = (224, 224, 3)
+NET_CLASSES = 1000
+NET_BATCH = 32
+NET_LR, NET_MOMENTUM = 0.1, 0.9
+NET_CHECK_BATCH = 4        # (a): the same net on the card and on the CPU
+NET_FIT_STEPS = 20         # (c): bf16 steps on one fixed batch
+NET_STATS_STEPS = 30       # (d): running statistics 1 - 0.9^30 = 0.96 in
+NET_WARM, NET_TIMED, NET_PROFILED = 2, 5, 3
+LENET_BATCH, LENET_BATCHES = 64, 20
+# ResNet-50 at init is in the chaotic regime of deep BatchNormalization
+# nets: its trunk gradients move far under rounding. On the CPU at 224²,
+# batch 4, against f64 (PERF.md tolerance table): f32 reads |Δloss|
+# 8.8e-6, probabilities 2.9e-5, the worst gradient leaf 0.032 (median
+# 0.024); TF32 (conv operands rounded to 10 mantissa bits) 1.9e-4, 3.0e-2,
+# 0.88; bf16 0.071, 0.115, and trunk gradients with no likeness left (1.32
+# over all leaves) but the output layer's W at 0.098.
+# (a) f32 on the card against the same net on the CPU, carried weights:
+# two f32 computations, each that far from f64; the TF32 control must
+# read above. "step" is each leaf's displacement after one step (∝ its
+# gradient), "state" each BN statistic's (a forward quantity).
+TOL_NET_F32 = {"probs": 1e-3, "loss": 1e-4, "grad": 0.2, "step": 0.2,
+               "state": 1e-3}
+# (b) bf16 against f32 on the card: the forward and the output layer's
+# gradient, 3× the CPU readings (batch 32 here); the trunk's gradients
+# are reported, not held (they decorrelate at init under any rounding
+# coarser than f32's)
+TOL_NET_BF16 = {"probs": 0.3, "loss": 0.2, "head_grad": 0.3}
+# and from below: bf16 must read above (a)'s f32 rows, which two f32 runs
+# meet (card vs CPU 2.56e-5 and 9.5e-7), so a bf16 policy that computed
+# in f32 fails
+FLOOR_NET_BF16 = {"probs": TOL_NET_F32["probs"], "loss": TOL_NET_F32["loss"]}
+# (d) output() of 4 images alone against the same 4 within the batch of
+# 32: inference normalizes by the running statistics, so each example's
+# output is its own (f32 sums only); a forward on batch statistics is not
+TOL_NET_INVARIANT = 1e-4
+
+
+def rel_l2(got, want, floor=1e-30):
+    """‖got − want‖ / ‖want‖ over float64 numpy copies."""
+    g = np.asarray(got, dtype=np.float64)
+    w = np.asarray(want, dtype=np.float64)
+    return float(np.linalg.norm(g - w) / max(np.linalg.norm(w), floor))
+
+
+def tree_errors(got, want, base=None):
+    """{"layer/param": relative L2} over the leaves of two-level trees of
+    numpy arrays; with ``base`` (the tree before a step), the errors of
+    the displacements got − base against want − base."""
+    out = {}
+    for k in sorted(want):
+        for p in sorted(want[k]):
+            g, w = got[k][p], want[k][p]
+            if base is not None:
+                g, w = g - base[k][p], w - base[k][p]
+            out[f"{k}/{p}"] = rel_l2(g, w)
+    return out
+
+
+def worst(errors):
+    """(largest error, its leaf) of a ``tree_errors`` dict."""
+    leaf = max(errors, key=errors.get)
+    return errors[leaf], leaf
+
+
+def rows_failed(report, rows):
+    """The names of ``rows`` that ``report`` (same keys, each a number)
+    reads above: an empty list passes."""
+    return sorted(k for k, limit in rows.items() if not report[k] <= limit)
+
+
+def floors_failed(report, floors):
+    """The names of ``floors`` that ``report`` does not read above."""
+    return sorted(k for k, floor in floors.items() if not report[k] > floor)
+
+
+def train_mode_probs(net, x):
+    """The output layer's probabilities in training mode (BatchNormalization
+    on the batch's statistics; an untrained net's running statistics are
+    their init, on which a deep net's outputs saturate)."""
+    return net.feedForward(x, train=True)["output"].cpu().numpy()
+
+
+def network_report(torch, card, cpu_out, x, y, base):
+    """Card against CPU (dicts of numpy trees) for check (a): the
+    training-mode probabilities' relative L2, |Δloss|, the worst gradient
+    leaf, and after one step the worst param displacement and BN state."""
+    from deeplearning4j_tpu_torch.nn.params import tree_to_numpy
+    probs = train_mode_probs(card, x)
+    loss, grads = card.computeGradientAndScore(x, y)
+    g_err = tree_errors(tree_to_numpy(grads), cpu_out["grads"])
+    card.fit(x, y)
+    s_err = tree_errors(tree_to_numpy(card.param_tree()), cpu_out["params"],
+                        base=base)
+    st_err = tree_errors(tree_to_numpy(card.state_tree()), cpu_out["states"],
+                         base=cpu_out["states0"])
+    return {"probs": rel_l2(probs, cpu_out["probs"]),
+            "loss": abs(loss - cpu_out["loss"]),
+            "grad": worst(g_err)[0], "grad_leaf": worst(g_err)[1],
+            "step": worst(s_err)[0], "step_leaf": worst(s_err)[1],
+            "state": worst(st_err)[0], "state_leaf": worst(st_err)[1]}
+
+
+def network_data(n, shape=None, classes=None, seed=SEED):
+    """resnet_bench.py's data: N(0, 1) images, one-hot labels, from a
+    numpy seed (default: NET_SHAPE, NET_CLASSES)."""
+    shape = NET_SHAPE if shape is None else shape
+    classes = NET_CLASSES if classes is None else classes
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n,) + tuple(shape), dtype=np.float32)
+    y = np.eye(classes, dtype=np.float32)[rng.integers(0, classes, n)]
+    return x, y
+
+
+def zoo_resnet(data_type):
+    from deeplearning4j_tpu_torch.models.zoo import ResNet50
+    from deeplearning4j_tpu_torch.optim.updaters import Nesterovs
+    return ResNet50(num_classes=NET_CLASSES, input_shape=NET_SHAPE,
+                    updater=Nesterovs(NET_LR, momentum=NET_MOMENTUM),
+                    data_type=data_type)
+
+
+def carry_net(src, dst):
+    """``dst`` gets ``src``'s params, BN states and updater state."""
+    dst.set_param_tree(src.param_tree())
+    dst.set_state_tree(src.state_tree())
+    dst.set_updater_state(src.updater_state())
+
+
+def plain_resnet50(torch, classes=None):
+    """The yardstick: the same ResNet-50 (stride on the first 1x1 of a
+    projection block, no conv bias, zero padding 3 before the 7x7/2 stem)
+    in plain PyTorch modules: ``nn.Conv2d``, ``nn.BatchNorm2d``,
+    ``nn.Linear``, channels-last memory. Never on the port's path."""
+    nn = torch.nn
+
+    def conv_bn(cin, cout, k, stride=1, pad=0):
+        return [nn.Conv2d(cin, cout, k, stride, pad, bias=False),
+                nn.BatchNorm2d(cout, eps=1e-5, momentum=0.1)]
+
+    class Block(nn.Module):
+        def __init__(self, cin, m, stride, project):
+            super().__init__()
+            self.body = nn.Sequential(
+                *conv_bn(cin, m, 1, stride), nn.ReLU(inplace=True),
+                *conv_bn(m, m, 3, 1, 1), nn.ReLU(inplace=True),
+                *conv_bn(m, 4 * m, 1))
+            self.short = (nn.Sequential(*conv_bn(cin, 4 * m, 1, stride))
+                          if project else nn.Identity())
+
+        def forward(self, x):
+            return torch.relu(self.body(x) + self.short(x))
+
+    layers = [nn.ZeroPad2d(3), *conv_bn(3, 64, 7, 2), nn.ReLU(inplace=True),
+              nn.MaxPool2d(3, 2, 1)]
+    cin = 64
+    for m, blocks, stride in ((64, 3, 1), (128, 4, 2), (256, 6, 2),
+                              (512, 3, 2)):
+        for i in range(blocks):
+            layers.append(Block(cin, m, stride if i == 0 else 1, i == 0))
+            cin = 4 * m
+    layers += [nn.AdaptiveAvgPool2d(1), nn.Flatten()]
+
+    class Net(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.trunk = nn.Sequential(*layers)
+            self.head = nn.Linear(2048, NET_CLASSES if classes is None
+                                  else classes)
+
+    return Net()
+
+
+def plain_step(torch, model, opt, bf16):
+    """One train step of the yardstick on NHWC batches: the trunk under
+    bf16 autocast (the port's policy: hidden layers bf16, the head, loss,
+    masters and updater f32), soft-label cross-entropy, SGD(Nesterov)."""
+    import torch.nn.functional as F
+
+    def step(x, y):
+        xc = x.permute(0, 3, 1, 2)
+        with torch.autocast("cuda", dtype=torch.bfloat16, enabled=bf16):
+            h = model.trunk(xc)
+        loss = F.cross_entropy(model.head(h.float()), y)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        return loss
+    return step
+
+
+def step_timing(torch, step):
+    """Host ms per step: the median of NET_TIMED steps after NET_WARM, each
+    ending in a synchronise."""
+    for _ in range(NET_WARM):
+        step()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(NET_TIMED):
+        t = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t))
+    return statistics.median(times), times
+
+
+def bn_route_inputs(torch, net, batch, dtype, dev, seed=SEED):
+    """One case for each BatchNormalization of ``net`` at ``batch``: (the
+    layer, an N(0, 1) NHWC input of its shape in ``dtype``, gamma and beta
+    in ``dtype`` as the policy casts a hidden layer's params, its running
+    statistics, an N(0, 1) upstream gradient)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params, states = net.param_tree(), net.state_tree()
+    cases = []
+    for name in sorted(states):
+        t = net.conf.activation_types[name]
+        shape = (batch, t.height, t.width, t.channels)
+        x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        dy = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        g, b = (params[name][p].detach().to(dtype).requires_grad_()
+                for p in ("gamma", "beta"))
+        cases.append((net.conf.nodes[name].layer, x.requires_grad_(), g, b,
+                      states[name], dy))
+    return cases
+
+
+def bn_port(layer, x, g, b, state):
+    """The port's route: ``BatchNormalization.apply`` in training."""
+    return layer.apply({"gamma": g, "beta": b}, x, training=True,
+                       state=state)
+
+
+def bn_native(torch, layer, x, g, b, state):
+    """The library route: ``torch.native_batch_norm`` in training with no
+    running statistics (the batch's biased variance normalizes), on the
+    NHWC tensor's channels-last NCHW view; the running statistics decay
+    as the reference's do, from its saved mean and inverse std (var =
+    invstd^-2 − eps)."""
+    out, mean, invstd = torch.native_batch_norm(
+        x.permute(0, 3, 1, 2), g, b, None, None, True, 0.0, layer.eps)
+    var = invstd.detach().pow(-2) - layer.eps
+    d = layer.decay
+    return out.permute(0, 2, 3, 1), {
+        "mean": d * state["mean"] + (1 - d) * mean.detach(),
+        "var": d * state["var"] + (1 - d) * var}
+
+
+def bn_dispatch(torch, layer, x, g, b, state):
+    """``F.batch_norm`` in training with no running statistics, the
+    dispatcher's choice of kernel (cuDNN's for f32); apply only, so it
+    gives no running update."""
+    import torch.nn.functional as F
+    out = F.batch_norm(x.permute(0, 3, 1, 2), None, None, g, b, True, 0.0,
+                       layer.eps)
+    return out.permute(0, 2, 3, 1), state
+
+
+def bn_route_agreement(torch, route, cases):
+    """``route`` against the port's on the same cases: the worst relative
+    L2 of the output, of dx, dgamma and dbeta, and (where ``route`` gives
+    a running update) of the new running mean and var."""
+    worst = {}
+    for layer, x, g, b, state, dy in cases:
+        res = []
+        for fn in (bn_port, route):
+            out, new = fn(layer, x, g, b, state)
+            grads = torch.autograd.grad(out, (x, g, b), dy)
+            res.append(dict(zip(("out", "dx", "dgamma", "dbeta"),
+                                (out, *grads))))
+            if new is not state:
+                res[-1].update(mean=new["mean"], var=new["var"])
+        for key, got in res[1].items():
+            # on the tensors' device, in f64: 340 M activations at batch 32
+            g, w = got.detach().double(), res[0][key].detach().double()
+            err = float(torch.linalg.vector_norm(g - w)
+                        / torch.linalg.vector_norm(w).clamp_min(1e-30))
+            worst[key] = max(worst.get(key, 0.0), err)
+    return worst
+
+
+def bn_routes(torch, net, dtype, dev):
+    """Every BatchNormalization of ResNet-50's step at NET_BATCH, forward
+    and backward, by three routes in turns (port, native, dispatch,
+    dispatch, native, port): ms by CUDA events (median of NET_TIMED after
+    NET_WARM), device ms and kernels from a profiler window of one pass,
+    and each library route's agreement with the port's."""
+    tdtype = getattr(torch, dtype)
+    cases = bn_route_inputs(torch, net, NET_BATCH, tdtype, dev)
+    routes = {"port": bn_port,
+              "native": lambda *a: bn_native(torch, *a),
+              "dispatch": lambda *a: bn_dispatch(torch, *a)}
+
+    def one_pass(fn):
+        for layer, x, g, b, state, dy in cases:
+            out, _new = fn(layer, x, g, b, state)
+            torch.autograd.grad(out, (x, g, b), dy)
+
+    timed = {k: [] for k in routes}
+    for who in ("port", "native", "dispatch", "dispatch", "native", "port"):
+        for _ in range(NET_WARM):
+            one_pass(routes[who])
+        for _ in range(NET_TIMED):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            one_pass(routes[who])
+            end.record()
+            torch.cuda.synchronize()
+            timed[who].append(start.elapsed_time(end))
+    out = {"dtype": dtype, "layers": len(cases), "batch": NET_BATCH}
+    for who, fn in routes.items():
+        p = profile_window(torch, f"bn_{who}_{dtype}",
+                           lambda f=fn: one_pass(f),
+                           f"bn_{who}_{dtype}_trace.json", top=4)
+        out[who] = {"ms": statistics.median(timed[who]),
+                    "device_ms": p.get("device_busy_us", 0) / 1e3,
+                    "kernels": p.get("kernels"),
+                    "top_kernels": p.get("top_kernels")}
+    out["native_vs_port"] = bn_route_agreement(torch, routes["native"],
+                                               cases)
+    out["dispatch_vs_port"] = bn_route_agreement(torch, routes["dispatch"],
+                                                 cases)
+    return out
+
+
+def network_phase(torch):
+    """The DL4J network stack on the card (see NET_* above): checks (a)-(d)
+    of PERF.md's network rows, then the timings of ResNet-50 in bf16 and
+    f32 in turns with the plain-PyTorch yardstick, then LeNet through
+    ``MultiLayerNetwork`` over a prefetching iterator. Returns the port
+    kernels' launches over these paths (all must be 0)."""
+    from deeplearning4j_tpu_torch._device import resolve_device
+    from deeplearning4j_tpu_torch.data import (DataSet,
+                                               DevicePrefetchIterator,
+                                               ListDataSetIterator)
+    from deeplearning4j_tpu_torch.models.zoo import LeNet
+    from deeplearning4j_tpu_torch.nn.params import tree_to_numpy
+    t_phase = time.perf_counter()
+    dev = resolve_device(None)
+    reset_all_counts()
+    x, y = network_data(NET_BATCH)
+    xs, ys = x[:NET_CHECK_BATCH], y[:NET_CHECK_BATCH]
+    out = {}
+
+    # (a) f32 on the card against the same net on the CPU
+    cpu = zoo_resnet("float32").init_model(device="cpu")
+    base = tree_to_numpy(cpu.param_tree())
+    loss, grads = cpu.computeGradientAndScore(xs, ys)
+    cpu_out = {"probs": train_mode_probs(cpu, xs), "loss": loss,
+               "grads": tree_to_numpy(grads),
+               "states0": tree_to_numpy(cpu.state_tree())}
+    cpu.fit(xs, ys)
+    cpu_out["params"] = tree_to_numpy(cpu.param_tree())
+    cpu_out["states"] = tree_to_numpy(cpu.state_tree())
+    fresh = zoo_resnet("float32").init_model(device="cpu")
+    reports = {}
+    for label, tf32 in (("f32", False), ("tf32_control", True)):
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            card = zoo_resnet("float32").init_model(device=dev)
+            torch.backends.cudnn.allow_tf32 = tf32   # init pins it off
+            carry_net(fresh, card)
+            reports[label] = network_report(torch, card, cpu_out, xs, ys,
+                                            base)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        del card
+    failed = rows_failed(reports["f32"], TOL_NET_F32)
+    control = rows_failed(reports["tf32_control"], TOL_NET_F32)
+    emit(network_card_vs_cpu=reports, rows=TOL_NET_F32, failed=failed,
+         control_failed=control)
+    check(not failed, f"(a) f32 card vs CPU above its rows: {failed}")
+    check(bool(control), "(a) the TF32 control passed the f32 rows: they "
+          "cannot tell TF32 from f32")
+    del cpu, fresh, cpu_out
+
+    # (d) inference uses the running statistics. A net whose updater is
+    # NoOp fits the batch of 32 NET_STATS_STEPS times: its params stay and
+    # its running statistics approach the batch's. Then 4 images alone and
+    # the same 4 within the 32 give the same outputs, and a forward on the
+    # 4 images' own batch statistics does not.
+    from deeplearning4j_tpu_torch.models.zoo import ResNet50
+    from deeplearning4j_tpu_torch.optim.updaters import NoOp
+    stats_net = ResNet50(num_classes=NET_CLASSES, input_shape=NET_SHAPE,
+                         updater=NoOp()).init_model(device=dev)
+    w0 = stats_net.param_tree()["conv1"]["W"].clone()
+    for _ in range(NET_STATS_STEPS):
+        stats_net.fit(x, y)
+    alone = stats_net.output(xs)
+    within = stats_net.output(x)[:NET_CHECK_BATCH]
+    batch_stats = stats_net.feedForward(xs, train=True)["output"]
+    inv = rel_l2(within.cpu().numpy(), alone.cpu().numpy())
+    off = rel_l2(batch_stats.cpu().numpy(), alone.cpu().numpy())
+    same_w = bool(torch.equal(stats_net.param_tree()["conv1"]["W"], w0))
+    emit(network_inference_uses_running_stats={
+        "alone_vs_within_batch": inv, "batch_stats_vs_running": off,
+        "row": TOL_NET_INVARIANT, "params_unchanged": same_w})
+    check(same_w and inv <= TOL_NET_INVARIANT < off,
+          f"(d) output() is not per-example on running statistics: "
+          f"{inv}, batch statistics {off}, params kept {same_w}")
+    del stats_net
+
+    # (b) bf16 against f32 on the card, full batch, the same weights
+    f32_net = zoo_resnet("float32").init_model(device=dev)
+    bf16_net = zoo_resnet("bfloat16").init_model(device=dev)
+    carry_net(f32_net, bf16_net)
+    l32, g32 = f32_net.computeGradientAndScore(x, y)
+    l16, g16 = bf16_net.computeGradientAndScore(x, y)
+    g32, g16 = tree_to_numpy(g32), tree_to_numpy(g16)
+    flat = lambda g: np.concatenate([g[k][p].ravel() for k in sorted(g)
+                                     for p in sorted(g[k])])
+    g_err = tree_errors(g16, g32)
+    rep_b = {"probs": rel_l2(train_mode_probs(bf16_net, x),
+                             train_mode_probs(f32_net, x)),
+             "loss": abs(l16 - l32),
+             "head_grad": rel_l2(g16["output"]["W"], g32["output"]["W"]),
+             "grad_all_leaves": rel_l2(flat(g16), flat(g32)),
+             "worst_grad_leaf": worst(g_err)}
+    failed = rows_failed(rep_b, TOL_NET_BF16)
+    too_close = floors_failed(rep_b, FLOOR_NET_BF16)
+    emit(network_bf16_vs_f32=rep_b, rows=TOL_NET_BF16, failed=failed,
+         floors=FLOOR_NET_BF16, floors_failed=too_close)
+    check(not failed, f"(b) bf16 vs f32 above its rows: {failed}")
+    check(not too_close, f"(b) bf16 reads as close to f32 as f32 does: "
+          f"{too_close}")
+    del f32_net, g32, g16
+    torch.cuda.empty_cache()
+
+    # (c) 20 bf16 steps on one fixed batch
+    bf16_net.score_every = 1
+    losses = []
+    mean0 = bf16_net.state_tree()["conv1_bn"]["mean"].clone()
+    for _ in range(NET_FIT_STEPS):
+        bf16_net.fit(x, y)
+        losses.append(bf16_net.score())
+    moved = float((bf16_net.state_tree()["conv1_bn"]["mean"]
+                   - mean0).abs().max())
+    ev = bf16_net.evaluate(ListDataSetIterator([DataSet(x, y)]))
+    emit(network_fit_losses=losses, bn_mean_moved=moved,
+         evaluate_accuracy=ev.accuracy())
+    check(all(math.isfinite(v) for v in losses)
+          and losses[-1] < losses[0] and min(losses[-5:]) < losses[0],
+          f"(c) 20 bf16 steps: the loss did not fall: {losses}")
+    check(moved > 0, "(c) the BN running statistics did not move")
+    del bf16_net
+    torch.cuda.empty_cache()
+
+    # timings: the port and the yardstick in turns (port, plain, plain,
+    # port), bf16 then f32; a profiler window of 3 steps of each
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    xd = torch.as_tensor(x, device=dev)
+    yd = torch.as_tensor(y, device=dev)
+    rows, bn_rows = [], []
+    for dtype in ("bfloat16", "float32"):
+        bf16 = dtype == "bfloat16"
+        net = zoo_resnet(dtype).init_model(device=dev)
+        twin = plain_resnet50(torch).to(dev).to(
+            memory_format=torch.channels_last)
+        opt = torch.optim.SGD(twin.parameters(), lr=NET_LR,
+                              momentum=NET_MOMENTUM, nesterov=True)
+        runs = {"port": lambda: net.fit(xd, yd),
+                "plain": plain_step(torch, twin, opt, bf16)}
+        runs["plain"] = (lambda s=runs["plain"]: s(xd, yd))
+        timed = {"port": [], "plain": []}
+        peaks = {}
+        for who in ("port", "plain", "plain", "port"):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ms, _all = step_timing(torch, runs[who])
+            peaks[who] = max(peaks.get(who, 0),
+                             torch.cuda.max_memory_allocated() - before)
+            timed[who].append(ms)
+        prof = {who: profile_window(
+            torch, f"network_{who}_{dtype}",
+            lambda f=runs[who]: [f() for _ in range(NET_PROFILED)],
+            f"network_{who}_{dtype}_trace.json", top=12)
+            for who in ("port", "plain")}
+        flops = net.step_cost(NET_BATCH)[0]
+        for who in ("port", "plain"):
+            ms = statistics.median(timed[who])
+            p = prof[who]
+            dev_ms = (p["device_busy_us"] / 1e3 / NET_PROFILED
+                      if "device_busy_us" in p else None)
+            rows.append({
+                "model": who, "dtype": dtype, "gpu": smi,
+                "host_ms_per_step": ms, "turns_ms": timed[who],
+                "images_per_s": NET_BATCH / (ms / 1e3),
+                "tflops_per_s": flops / (ms / 1e3) / 1e12,
+                "device_ms_per_step": dev_ms,
+                "busy_share": p.get("busy_share"),
+                "kernels_per_step": (p["kernels"] / NET_PROFILED
+                                     if "kernels" in p else None),
+                "own_peak_bytes": peaks[who],
+                "top_ops": p.get("top_ops"),
+                "top_kernels": p.get("top_kernels")})
+        del twin, opt, runs
+        torch.cuda.empty_cache()
+        bn_rows.append(bn_routes(torch, net, dtype, dev))
+        del net
+        torch.cuda.empty_cache()
+    for r in rows:
+        emit(network_timing=r)
+    for r in bn_rows:
+        emit(network_bn_routes=r)
+    out["resnet50"] = rows
+
+    # LeNet through MultiLayerNetwork: fit over a ListDataSetIterator
+    # through DevicePrefetchIterator, then output and evaluate
+    lx, ly = network_data(LENET_BATCH * LENET_BATCHES, shape=(28, 28, 1),
+                          classes=10, seed=SEED + 1)
+    batches = [DataSet(lx[i:i + LENET_BATCH], ly[i:i + LENET_BATCH])
+               for i in range(0, len(lx), LENET_BATCH)]
+    lenet = LeNet().init_model(device=dev)
+    it = DevicePrefetchIterator(ListDataSetIterator(batches), device=dev)
+    lenet.fit(it, epochs=1)                  # warm
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    lenet.fit(it, epochs=1)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t
+    probs = lenet.output(lx[:LENET_BATCH])
+    acc = lenet.evaluate(ListDataSetIterator(batches)).accuracy()
+    lenet_row = {"gpu": smi, "batch": LENET_BATCH, "batches": len(batches),
+                 "images_per_s": len(lx) / epoch_s,
+                 "ms_per_step": 1e3 * epoch_s / len(batches),
+                 "score": lenet.score(), "evaluate_accuracy": acc,
+                 "output_shape": list(probs.shape)}
+    emit(network_lenet=lenet_row)
+    check(tuple(probs.shape) == (LENET_BATCH, 10)
+          and bool(torch.isfinite(probs).all())
+          and math.isfinite(lenet_row["score"]),
+          f"LeNet: output {tuple(probs.shape)}, score {lenet_row['score']}")
+    del lenet, it
+    torch.cuda.empty_cache()
+    launches = all_counts()
+    emit(network_phase_seconds=time.perf_counter() - t_phase,
+         network_launches=dict(zip(ALL_KERNELS, launches)))
+    return launches
+
+
 def check_path_launches(serve, modes, train, moe, f32_serve, f32_train,
-                        pipeline, frontdoor, fleet):
+                        pipeline, frontdoor, fleet, network):
     """Which kernels each main path launched (each an ``all_counts()``
     tuple): the bf16 paths (serving, the serving modes, the rungs, MoE)
     the wgmma flash kernels and never the simple forward or the mma.sync
@@ -4149,7 +4717,8 @@ def check_path_launches(serve, modes, train, moe, f32_serve, f32_train,
     K3; chunked_ce.cu's K3 on no path; K4a+w on every serving path and K4a
     on none, K4w on the int8 serving modes only (the prefill's insert);
     the front door K1's wgmma forward and K4a+w only, the fleet's demo
-    model (f32, head dim 16) the simple forward and K4a+w only."""
+    model (f32, head dim 16) the simple forward and K4a+w only; the DL4J
+    network paths (ResNet-50, LeNet) no kernel of the port at all."""
     check(serve[0] > 0 and train[0] > 0 and moe[0] > 0,
           "a main path launched no flash_attention_fwd_wgmma")
     check(train[2] > 0 and moe[2] > 0,
@@ -4204,6 +4773,8 @@ def check_path_launches(serve, modes, train, moe, f32_serve, f32_train,
         check(all(named[k] > 0 for k in on)
               and sum(n for k, n in named.items() if k not in on) == 0,
               f"the {label} path launched kernels off its path: {named}")
+    check(not any(network), f"the network paths launched port kernels: "
+          f"{dict(zip(ALL_KERNELS, network))}")
 
 
 # --precision-f32: the f32 shapes of the kernel and backward phases
@@ -4531,6 +5102,9 @@ def main() -> int:
     parser.add_argument("--precision-f32", action="store_true",
                         help="measure the f32 kernels and the plain "
                         "versions against f64, and nothing else")
+    parser.add_argument("--network", action="store_true",
+                        help="run only the DL4J network phase (ResNet-50 "
+                        "and LeNet), which builds no kernel")
     parser.add_argument("--precision-ce-f32", action="store_true",
                         help="measure the f32 K3 kernels and their plain "
                         "versions against f64 at the training shape, and "
@@ -4570,6 +5144,11 @@ def main() -> int:
         return 0
     if args.precision_ce_f32:
         precision_ce_f32(torch)
+        return 0
+    if args.network:
+        network = network_phase(torch)
+        check(not any(network), f"the network paths launched port kernels: "
+              f"{dict(zip(ALL_KERNELS, network))}")
         return 0
 
     t0 = time.perf_counter()
@@ -4684,15 +5263,19 @@ def main() -> int:
     allocated("moe_train_phase")
     f32_serve = f32_serve_phase(torch)
     f32_train = f32_train_phase(torch, fa)
+    torch.cuda.empty_cache()
+    allocated("f32_train_phase")
+    network = network_phase(torch)
     launches = {name: {"serve": serve[i], "serve_modes": modes[i],
                        "pipeline": pipeline[i], "frontdoor": frontdoor[i],
                        "fleet": fleet[i],
                        "train": train[i], "moe": moe[i],
-                       "f32_serve": f32_serve[i], "f32_train": f32_train[i]}
+                       "f32_serve": f32_serve[i], "f32_train": f32_train[i],
+                       "network": network[i]}
                 for i, name in enumerate(ALL_KERNELS)}
     emit(main_path_launches=launches)
     check_path_launches(serve, modes, train, moe, f32_serve, f32_train,
-                        pipeline, frontdoor, fleet)
+                        pipeline, frontdoor, fleet, network)
     emit(kernels=[kernel_entry("wgmma", cases, launches["wgmma"]),
                   kernel_entry("simple", cases, launches["simple"]),
                   bwd_kernel_entry("bwd_wgmma", bwd_cases,

@@ -8,11 +8,14 @@ concurrent requests through ``parallel.generation.GenerationPipeline``)
 and trains it on one NVIDIA H100 (``make_train_step`` with
 ``optim.adamw``), with attention, its gradient, the chunked cross-entropy,
 MoE token movement and paged decode attention in hand-written CUDA kernels
-(``kernels/csrc/``).
+(``kernels/csrc/``). It builds, trains and runs DL4J networks
+(``nn.multilayer.MultiLayerNetwork``, ``nn.graph.ComputationGraph``, the
+zoo's ``ResNet50``, ``LeNet`` and ``SimpleCNN``) with cuDNN convolutions.
 
-Entry points (``TransformerLM``, ``DecodeEngine``, ``from_jax_params``)
-run on the card unless the caller passes ``device="cpu"``; without CUDA
-they raise rather than fall back.
+Entry points (``TransformerLM``, ``DecodeEngine``, ``from_jax_params``,
+the networks and ``ZooModel.init_model``) run on the card unless the
+caller passes ``device="cpu"``; without CUDA they raise rather than fall
+back.
 """
 from deeplearning4j_tpu_torch._device import resolve_device
 

@@ -1,0 +1,150 @@
+"""Classification evaluation: the ``Evaluation`` of
+``deeplearning4j_tpu/eval/classification.py``, analog of
+``org.nd4j.evaluation.classification.Evaluation`` (accuracy / precision /
+recall / F1 / confusion matrix / top-N). Its ROC, binary and calibration
+evaluations wait with ``evaluateROC*`` (ROADMAP queue 1 item 8).
+
+Host-side numpy accumulation; inputs accept torch tensors (on any
+device) and numpy arrays.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+
+def _np(x):
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().cpu().numpy()
+    return np.asarray(x)
+
+
+class Evaluation:
+    """Multi-class classification metrics (ref: Evaluation)."""
+
+    def __init__(self, num_classes: Optional[int] = None, labels_names=None,
+                 top_n: int = 1):
+        self.num_classes = num_classes
+        self.labels_names = labels_names
+        self._cm: Optional[np.ndarray] = None
+        # ref: Evaluation(int topN) — top-N accuracy alongside top-1
+        self.top_n = int(top_n)
+        self._topn_hits = 0
+        self._topn_total = 0
+
+    def _ensure(self, n):
+        if self._cm is None:
+            self.num_classes = self.num_classes or n
+            self._cm = np.zeros((self.num_classes, self.num_classes), dtype=np.int64)
+
+    def topNAccuracy(self) -> float:
+        """ref: Evaluation#topNAccuracy (0.0 when top_n == 1 unused)."""
+        if self._topn_total == 0:
+            return 0.0
+        return self._topn_hits / self._topn_total
+
+    top_n_accuracy = topNAccuracy
+
+    def eval(self, labels, predictions, mask=None):
+        """labels: one-hot or int; predictions: probabilities or int classes.
+        Rank-3 (N,T,C) inputs flatten over time with optional mask (ref:
+        evalTimeSeries)."""
+        y, p, m = _np(labels), _np(predictions), _np(mask)
+        if y.ndim == 3:  # time series
+            n, t = y.shape[:2]
+            y = y.reshape(n * t, -1)
+            p = p.reshape(n * t, -1)
+            m = m.reshape(n * t) if m is not None else None
+        y_idx = y.argmax(-1) if y.ndim > 1 and y.shape[-1] > 1 else y.astype(int).ravel()
+        p_idx = p.argmax(-1) if p.ndim > 1 and p.shape[-1] > 1 else p.astype(int).ravel()
+        if self.top_n > 1:
+            if p.ndim > 1 and p.shape[-1] > 1:
+                kn = min(self.top_n, p.shape[-1])
+                topk = np.argpartition(-p, kn - 1, axis=-1)[:, :kn]
+                hits = (topk == y_idx[:, None]).any(axis=1)
+            else:
+                # integer-class predictions carry no ranking: top-N
+                # degrades to top-1 so the denominator tracks accuracy's
+                hits = (p_idx == y_idx)
+            if m is not None:
+                hits = hits[m.astype(bool).ravel()]
+            self._topn_hits += int(hits.sum())
+            self._topn_total += int(hits.shape[0])
+        n_cls = max(y.shape[-1] if y.ndim > 1 else y_idx.max() + 1,
+                    p.shape[-1] if p.ndim > 1 else p_idx.max() + 1)
+        self._ensure(int(n_cls))
+        if m is not None:
+            keep = m.astype(bool).ravel()
+            y_idx, p_idx = y_idx[keep], p_idx[keep]
+        np.add.at(self._cm, (y_idx, p_idx), 1)
+        return self
+
+    # ------------------------------------------------------------- metrics
+    def confusion_matrix(self) -> np.ndarray:
+        return self._cm
+
+    def accuracy(self) -> float:
+        total = self._cm.sum()
+        return float(np.trace(self._cm) / total) if total else 0.0
+
+    def _tp(self, c):
+        return self._cm[c, c]
+
+    def _fp(self, c):
+        return self._cm[:, c].sum() - self._cm[c, c]
+
+    def _fn(self, c):
+        return self._cm[c, :].sum() - self._cm[c, c]
+
+    def precision(self, cls: Optional[int] = None) -> float:
+        if cls is not None:
+            denom = self._tp(cls) + self._fp(cls)
+            return float(self._tp(cls) / denom) if denom else 0.0
+        vals = [self.precision(c) for c in range(self.num_classes) if self._cm[c, :].sum() > 0]
+        return float(np.mean(vals)) if vals else 0.0
+
+    def recall(self, cls: Optional[int] = None) -> float:
+        if cls is not None:
+            denom = self._tp(cls) + self._fn(cls)
+            return float(self._tp(cls) / denom) if denom else 0.0
+        vals = [self.recall(c) for c in range(self.num_classes) if self._cm[c, :].sum() > 0]
+        return float(np.mean(vals)) if vals else 0.0
+
+    def f1(self, cls: Optional[int] = None) -> float:
+        p, r = self.precision(cls), self.recall(cls)
+        return 2 * p * r / (p + r) if (p + r) else 0.0
+
+    def false_positive_rate(self, cls: int) -> float:
+        tn = self._cm.sum() - self._cm[cls, :].sum() - self._fp(cls)
+        denom = self._fp(cls) + tn
+        return float(self._fp(cls) / denom) if denom else 0.0
+
+    def matthews_correlation(self, cls: int) -> float:
+        tp, fp, fn = self._tp(cls), self._fp(cls), self._fn(cls)
+        tn = self._cm.sum() - tp - fp - fn
+        denom = np.sqrt(float((tp + fp) * (tp + fn) * (tn + fp) * (tn + fn)))
+        return float((tp * tn - fp * fn) / denom) if denom else 0.0
+
+    def stats(self) -> str:
+        lines = [
+            "========================Evaluation Metrics========================",
+            f" # of classes: {self.num_classes}",
+            f" Accuracy:  {self.accuracy():.4f}",
+            *([f" Top {self.top_n} Accuracy: {self.topNAccuracy():.4f}"]
+              if self.top_n > 1 else []),
+            f" Precision: {self.precision():.4f}",
+            f" Recall:    {self.recall():.4f}",
+            f" F1 Score:  {self.f1():.4f}",
+            "",
+            "=========================Confusion Matrix=========================",
+            str(self._cm),
+        ]
+        return "\n".join(lines)
+
+    # camelCase parity
+    confusionMatrix = confusion_matrix
+    falsePositiveRate = false_positive_rate

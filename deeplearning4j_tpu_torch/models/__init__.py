@@ -1,1 +1,2 @@
-"""Models of the port: ``TransformerLM`` and its ``DecodeEngine``."""
+"""Models of the port: ``TransformerLM`` and its ``DecodeEngine``, and
+the DL4J model zoo (``models.zoo``)."""

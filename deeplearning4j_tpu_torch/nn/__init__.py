@@ -1,1 +1,3 @@
-"""Network helpers of the port (counterparts of ``deeplearning4j_tpu.nn``)."""
+"""The DL4J network stack of the port (counterpart of
+``deeplearning4j_tpu.nn``): ``multilayer``, ``graph``, ``graph_conf``,
+``conf/`` and their helpers."""

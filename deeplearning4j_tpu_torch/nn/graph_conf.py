@@ -1,0 +1,497 @@
+"""ComputationGraph configuration: a DAG of layers and graph vertices.
+
+Counterpart of ``deeplearning4j_tpu/nn/graph_conf.py`` (the reference's
+``ComputationGraphConfiguration``, its ``GraphBuilder`` and the vertices of
+``org.deeplearning4j.nn.graph.vertex.impl``). A vertex is a function over
+its input activations; autograd differentiates the whole DAG. Ported
+vertices: ``MergeVertex``, ``ElementWiseVertex``, ``SubsetVertex``,
+``L2NormalizeVertex``, ``ScaleVertex``, ``ShiftVertex``, ``StackVertex``,
+``UnstackVertex``, ``ReshapeVertex``, ``PoolHelperVertex``, ``L2Vertex``,
+``PreprocessorVertex`` and ``LambdaVertex``; the time-series and attention
+vertices wait (ROADMAP queue 1 item 8).
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.nn.conf.layers import Layer, layer_from_dict
+from deeplearning4j_tpu_torch.optim import updaters as _upd
+
+_VERTEX_TYPES: Dict[str, type] = {}
+
+
+def register_vertex(cls):
+    _VERTEX_TYPES[cls.__name__] = cls
+    return cls
+
+
+def vertex_from_dict(d: dict) -> "GraphVertex":
+    d = dict(d)
+    cls = _VERTEX_TYPES[d.pop("@vertex")]
+    field_names = {f.name for f in dataclasses.fields(cls)}
+    return cls(**{k: (tuple(v) if isinstance(v, list) else v)
+                  for k, v in d.items() if k in field_names})
+
+
+@dataclasses.dataclass
+class GraphVertex:
+    """Parameterless DAG node combining/transforming activations
+    (ref: org.deeplearning4j.nn.conf.graph.GraphVertex)."""
+
+    def to_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        d["@vertex"] = type(self).__name__
+        return d
+
+    def apply(self, inputs: Sequence[torch.Tensor]) -> torch.Tensor:
+        raise NotImplementedError
+
+    def output_type(self, input_types: Sequence[InputType]) -> InputType:
+        return input_types[0]
+
+
+@register_vertex
+@dataclasses.dataclass
+class MergeVertex(GraphVertex):
+    """Concatenate along the channel (last) axis (ref: vertex.impl.MergeVertex;
+    reference concatenates dim 1 in NCHW == last axis in our NHWC layout)."""
+
+    def apply(self, inputs):
+        return torch.cat(list(inputs), dim=-1)
+
+    def output_type(self, input_types):
+        t0 = input_types[0]
+        if t0.kind == "cnn":
+            return InputType.convolutional(t0.height, t0.width,
+                                           sum(t.channels for t in input_types))
+        if t0.kind == "rnn":
+            return InputType.recurrent(sum(t.size for t in input_types),
+                                       t0.timeseries_length)
+        return InputType.feed_forward(sum(t.size for t in input_types))
+
+
+@register_vertex
+@dataclasses.dataclass
+class ElementWiseVertex(GraphVertex):
+    """Pointwise combine (ref: vertex.impl.ElementWiseVertex, ops
+    Add/Subtract/Product/Average/Max)."""
+    op: str = "add"
+
+    def apply(self, inputs):
+        op = self.op.lower()
+        if op == "add":
+            out = inputs[0]
+            for x in inputs[1:]:
+                out = out + x
+            return out
+        if op in ("sub", "subtract"):
+            return inputs[0] - inputs[1]
+        if op in ("prod", "product", "mul"):
+            out = inputs[0]
+            for x in inputs[1:]:
+                out = out * x
+            return out
+        if op in ("avg", "average"):
+            return sum(inputs) / len(inputs)
+        if op == "max":
+            out = inputs[0]
+            for x in inputs[1:]:
+                out = torch.maximum(out, x)
+            return out
+        if op == "min":
+            out = inputs[0]
+            for x in inputs[1:]:
+                out = torch.minimum(out, x)
+            return out
+        raise ValueError(f"Unknown ElementWiseVertex op {self.op!r}")
+
+
+@register_vertex
+@dataclasses.dataclass
+class SubsetVertex(GraphVertex):
+    """Channel-range subset [from, to] inclusive (ref: vertex.impl.SubsetVertex)."""
+    from_idx: int = 0
+    to_idx: int = 0
+
+    def apply(self, inputs):
+        return inputs[0][..., self.from_idx:self.to_idx + 1]
+
+    def output_type(self, input_types):
+        n = self.to_idx - self.from_idx + 1
+        t = input_types[0]
+        if t.kind == "cnn":
+            return InputType.convolutional(t.height, t.width, n)
+        if t.kind == "rnn":
+            return InputType.recurrent(n, t.timeseries_length)
+        return InputType.feed_forward(n)
+
+
+@register_vertex
+@dataclasses.dataclass
+class L2NormalizeVertex(GraphVertex):
+    """L2-normalize over all non-batch axes (ref: vertex.impl.L2NormalizeVertex)."""
+    eps: float = 1e-8
+
+    def apply(self, inputs):
+        x = inputs[0]
+        dims = tuple(range(1, x.dim()))
+        norm = torch.sqrt(torch.sum(torch.square(x), dim=dims, keepdim=True)
+                          + self.eps)
+        return x / norm
+
+
+@register_vertex
+@dataclasses.dataclass
+class ScaleVertex(GraphVertex):
+    """Multiply by a fixed scalar (ref: vertex.impl.ScaleVertex)."""
+    scale: float = 1.0
+
+    def apply(self, inputs):
+        return inputs[0] * self.scale
+
+
+@register_vertex
+@dataclasses.dataclass
+class ShiftVertex(GraphVertex):
+    """Add a fixed scalar (ref: vertex.impl.ShiftVertex)."""
+    shift: float = 0.0
+
+    def apply(self, inputs):
+        return inputs[0] + self.shift
+
+
+@register_vertex
+@dataclasses.dataclass
+class StackVertex(GraphVertex):
+    """Stack minibatches along batch axis (ref: vertex.impl.StackVertex)."""
+
+    def apply(self, inputs):
+        return torch.cat(list(inputs), dim=0)
+
+
+@register_vertex
+@dataclasses.dataclass
+class UnstackVertex(GraphVertex):
+    """Take the i-th of n equal batch slices (ref: vertex.impl.UnstackVertex)."""
+    from_idx: int = 0
+    stack_size: int = 1
+
+    def apply(self, inputs):
+        x = inputs[0]
+        n = x.shape[0] // self.stack_size
+        return x[self.from_idx * n:(self.from_idx + 1) * n]
+
+
+@register_vertex
+@dataclasses.dataclass
+class ReshapeVertex(GraphVertex):
+    """Reshape non-batch dims (ref: vertex.impl.ReshapeVertex)."""
+    shape: Tuple[int, ...] = ()
+
+    def apply(self, inputs):
+        x = inputs[0]
+        return torch.reshape(x, (x.shape[0],) + tuple(self.shape))
+
+
+@register_vertex
+@dataclasses.dataclass
+class PoolHelperVertex(GraphVertex):
+    """Crop first row/col (GoogLeNet import compat; ref: vertex.impl.PoolHelperVertex)."""
+
+    def apply(self, inputs):
+        return inputs[0][:, 1:, 1:, :]
+
+
+@register_vertex
+@dataclasses.dataclass
+class L2Vertex(GraphVertex):
+    """Pairwise L2 distance between two inputs, per example
+    (ref: vertex.impl.L2Vertex — used by siamese/triplet setups)."""
+    eps: float = 1e-8
+
+    def apply(self, inputs):
+        a, b = inputs[0], inputs[1]
+        diff = (a - b).reshape(a.shape[0], -1)
+        return torch.sqrt(torch.sum(diff * diff, dim=1, keepdim=True)
+                          + self.eps)
+
+    def output_type(self, input_types):
+        return InputType.feed_forward(1)
+
+
+@register_vertex
+@dataclasses.dataclass
+class PreprocessorVertex(GraphVertex):
+    """Wrap an InputPreProcessor as a standalone vertex
+    (ref: vertex.impl.PreprocessorVertex)."""
+    preprocessor: Optional[dict] = None
+    _pp: "object" = dataclasses.field(default=None, repr=False,
+                                      compare=False)
+
+    @staticmethod
+    def wrap(pp) -> "PreprocessorVertex":
+        v = PreprocessorVertex(preprocessor=pp.to_dict())
+        v._materialize()
+        return v
+
+    def _materialize(self):
+        if self._pp is None and self.preprocessor is not None:
+            from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
+                preprocessor_from_dict)
+            self._pp = preprocessor_from_dict(self.preprocessor)
+
+    def to_dict(self) -> dict:
+        # the materialized _pp object must never leak into JSON
+        return {"@vertex": type(self).__name__,
+                "preprocessor": self.preprocessor}
+
+    def apply(self, inputs):
+        self._materialize()
+        return self._pp.pre_process(inputs[0])
+
+    def output_type(self, input_types):
+        self._materialize()
+        if hasattr(self._pp, "output_type"):
+            return self._pp.output_type(input_types[0])
+        return input_types[0]
+
+
+class LambdaVertex(GraphVertex):
+    """User-defined vertex fn (ref: SameDiffLambdaVertex). Not JSON-serializable."""
+
+    def __init__(self, fn, out_type=None):
+        self.fn = fn
+        self.out_type = out_type
+
+    def to_dict(self):
+        raise TypeError("LambdaVertex is not serializable")
+
+    def apply(self, inputs):
+        return self.fn(*inputs)
+
+    def output_type(self, input_types):
+        return self.out_type or input_types[0]
+
+
+# ---------------------------------------------------------------------------
+# Graph nodes + configuration
+
+@dataclasses.dataclass
+class GraphNode:
+    name: str
+    inputs: List[str]
+    layer: Optional[Layer] = None
+    vertex: Optional[GraphVertex] = None
+
+
+class GraphBuilder:
+    """ref: ComputationGraphConfiguration.GraphBuilder fluent DSL."""
+
+    def __init__(self, nn_conf):
+        self._conf = nn_conf
+        self._inputs: List[str] = []
+        self._input_types: List[InputType] = []
+        self._nodes: Dict[str, GraphNode] = {}
+        self._outputs: List[str] = []
+        self._backprop_type = "standard"
+        self._tbptt_fwd = 20
+        self._tbptt_bwd = 20
+
+    def add_inputs(self, *names) -> "GraphBuilder":
+        self._inputs.extend(names)
+        return self
+
+    addInputs = add_inputs
+
+    def set_input_types(self, *types) -> "GraphBuilder":
+        self._input_types = list(types)
+        return self
+
+    setInputTypes = set_input_types
+
+    def add_layer(self, name: str, layer: Layer, *inputs) -> "GraphBuilder":
+        self._nodes[name] = GraphNode(name, list(inputs), layer=layer)
+        return self
+
+    addLayer = add_layer
+
+    def add_vertex(self, name: str, vertex: GraphVertex, *inputs) -> "GraphBuilder":
+        self._nodes[name] = GraphNode(name, list(inputs), vertex=vertex)
+        return self
+
+    addVertex = add_vertex
+
+    def set_outputs(self, *names) -> "GraphBuilder":
+        self._outputs = list(names)
+        return self
+
+    setOutputs = set_outputs
+
+    def gradient_checkpointing(self, enabled: bool = True,
+                               policy: Optional[str] = None) -> "GraphBuilder":
+        """Rematerialise every hidden layer node during training (see
+        ListBuilder.gradient_checkpointing; ``policy`` names a save
+        policy — nn/_remat.py)."""
+        self._remat = bool(enabled)
+        self._remat_policy = policy
+        return self
+
+    gradientCheckpointing = gradient_checkpointing
+
+    def backprop_type(self, t: str) -> "GraphBuilder":
+        self._backprop_type = t
+        return self
+
+    def t_bptt_length(self, fwd: int, bwd: Optional[int] = None) -> "GraphBuilder":
+        self._tbptt_fwd = fwd
+        self._tbptt_bwd = bwd if bwd is not None else fwd
+        return self
+
+    def build(self) -> "ComputationGraphConfiguration":
+        c = self._conf
+        cfg = ComputationGraphConfiguration(
+            network_inputs=self._inputs,
+            input_types=self._input_types,
+            nodes=self._nodes,
+            network_outputs=self._outputs,
+            seed=c._seed,
+            updater=c._updater,
+            dtype=c._dtype,
+            remat=getattr(self, "_remat", False),
+            remat_policy=getattr(self, "_remat_policy", None),
+            backprop_type=self._backprop_type,
+            tbptt_fwd_length=self._tbptt_fwd,
+            tbptt_bwd_length=self._tbptt_bwd,
+            grad_normalization=c._grad_normalization,
+            grad_norm_threshold=c._grad_norm_threshold,
+        )
+        cfg._apply_defaults_and_shapes(c.global_defaults())
+        return cfg
+
+
+@dataclasses.dataclass
+class ComputationGraphConfiguration:
+    """Built DAG config (ref: ComputationGraphConfiguration; topo order is
+    computed once at build time — Kahn's algorithm, the analog of
+    ComputationGraph#topologicalSortOrder)."""
+    network_inputs: List[str]
+    input_types: List[InputType]
+    nodes: Dict[str, GraphNode]
+    network_outputs: List[str]
+    seed: int = 12345
+    updater: object = None
+    dtype: str = "float32"
+    remat: bool = False
+    remat_policy: Optional[str] = None
+    backprop_type: str = "standard"
+    tbptt_fwd_length: int = 20
+    tbptt_bwd_length: int = 20
+    grad_normalization: Optional[str] = None
+    grad_norm_threshold: float = 1.0
+    topo_order: List[str] = dataclasses.field(default_factory=list)
+    activation_types: Dict[str, InputType] = dataclasses.field(default_factory=dict)
+
+    def _toposort(self) -> List[str]:
+        indeg = {n: 0 for n in self.nodes}
+        children: Dict[str, List[str]] = {n: [] for n in self.nodes}
+        for node in self.nodes.values():
+            for src in node.inputs:
+                if src in self.nodes:
+                    indeg[node.name] += 1
+                    children[src].append(node.name)
+                elif src not in self.network_inputs:
+                    raise ValueError(f"Vertex {node.name!r} input {src!r} unknown")
+        # deterministic order: insertion order among ready nodes
+        ready = [n for n in self.nodes if indeg[n] == 0]
+        order = []
+        while ready:
+            n = ready.pop(0)
+            order.append(n)
+            for ch in children[n]:
+                indeg[ch] -= 1
+                if indeg[ch] == 0:
+                    ready.append(ch)
+        if len(order) != len(self.nodes):
+            cyc = [n for n in self.nodes if n not in order]
+            raise ValueError(f"Graph has a cycle involving {cyc}")
+        return order
+
+    def _apply_defaults_and_shapes(self, defaults: dict):
+        self.topo_order = self._toposort()
+        types: Dict[str, InputType] = {}
+        for name, t in zip(self.network_inputs, self.input_types):
+            types[name] = t
+        for name in self.topo_order:
+            node = self.nodes[name]
+            in_types = [types.get(src) for src in node.inputs]
+            if node.layer is not None:
+                node.layer.apply_global_defaults(defaults)
+                if in_types and in_types[0] is not None:
+                    if hasattr(node.layer, "set_n_in_multi"):
+                        node.layer.set_n_in_multi(in_types)
+                    else:
+                        node.layer.set_n_in(in_types[0])
+                    types[name] = node.layer.output_type(in_types[0])
+            else:
+                if all(t is not None for t in in_types) and in_types:
+                    try:
+                        types[name] = node.vertex.output_type(in_types)
+                    except Exception:
+                        pass
+        self.activation_types = types
+
+    # ------------------------------------------------------------- serialization
+    def to_json(self) -> str:
+        return json.dumps({
+            "network_inputs": self.network_inputs,
+            "input_types": [t.to_dict() for t in self.input_types],
+            "nodes": [{
+                "name": n.name, "inputs": n.inputs,
+                "layer": n.layer.to_dict() if n.layer is not None else None,
+                "vertex": n.vertex.to_dict() if n.vertex is not None else None,
+            } for n in (self.nodes[k] for k in self.topo_order)],
+            "network_outputs": self.network_outputs,
+            "seed": self.seed,
+            "updater": self.updater.to_dict() if self.updater is not None else None,
+            "dtype": self.dtype,
+            "remat": self.remat,
+            "remat_policy": self.remat_policy,
+            "backprop_type": self.backprop_type,
+            "tbptt_fwd_length": self.tbptt_fwd_length,
+            "tbptt_bwd_length": self.tbptt_bwd_length,
+            "grad_normalization": self.grad_normalization,
+            "grad_norm_threshold": self.grad_norm_threshold,
+        }, indent=2)
+
+    @staticmethod
+    def from_json(s: str) -> "ComputationGraphConfiguration":
+        d = json.loads(s)
+        nodes = {}
+        for nd_ in d["nodes"]:
+            nodes[nd_["name"]] = GraphNode(
+                nd_["name"], list(nd_["inputs"]),
+                layer=layer_from_dict(nd_["layer"]) if nd_.get("layer") else None,
+                vertex=vertex_from_dict(nd_["vertex"]) if nd_.get("vertex") else None)
+        cfg = ComputationGraphConfiguration(
+            network_inputs=d["network_inputs"],
+            input_types=[InputType.from_dict(t) for t in d.get("input_types", [])],
+            nodes=nodes,
+            network_outputs=d["network_outputs"],
+            seed=d.get("seed", 12345),
+            updater=_upd.Updater.from_dict(d["updater"]) if d.get("updater") else None,
+            dtype=d.get("dtype", "float32"),
+            remat=d.get("remat", False),
+            remat_policy=d.get("remat_policy"),
+            backprop_type=d.get("backprop_type", "standard"),
+            tbptt_fwd_length=d.get("tbptt_fwd_length", 20),
+            tbptt_bwd_length=d.get("tbptt_bwd_length", 20),
+            grad_normalization=d.get("grad_normalization"),
+            grad_norm_threshold=d.get("grad_norm_threshold", 1.0),
+        )
+        cfg._apply_defaults_and_shapes({})
+        return cfg

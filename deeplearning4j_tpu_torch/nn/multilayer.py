@@ -1,0 +1,188 @@
+"""MultiLayerNetwork: the sequential-network runtime.
+
+Counterpart of ``deeplearning4j_tpu/nn/multilayer.py`` (the reference's
+``org.deeplearning4j.nn.multilayer.MultiLayerNetwork``). The param API,
+the fit loop, the deferred score and the numerics live in
+``nn/_network.py``; this class walks the layer stack.
+
+Mixed precision (``data_type="bfloat16"``): hidden layers compute in
+bf16; the final layer, the loss, the master weights, the updater state
+and the running statistics stay f32, and states are cast back to their
+stored dtype after each step.
+
+TBPTT, ``rnnTimeStep``, ``pretrain``, ``save`` / ``load``,
+``evaluateROC*`` and ``evaluateRegression`` wait with the recurrent layers
+and ``utils/serialization`` (ROADMAP queue 1 item 8).
+"""
+from __future__ import annotations
+
+from typing import List
+
+import torch
+
+from deeplearning4j_tpu_torch.nn._network import (NetworkBase, layer_flops,
+                                                  remat_apply)
+from deeplearning4j_tpu_torch.nn._precision import (_COMPUTE_DTYPES,
+                                                    _cast_float, cast_params,
+                                                    recast_like)
+from deeplearning4j_tpu_torch.nn.conf import layers as L
+from deeplearning4j_tpu_torch.nn.conf.configuration import (
+    MultiLayerConfiguration)
+
+_MASK_AWARE = (L.GlobalPoolingLayer,)
+
+
+def _maybe_unflatten_input(x, input_type):
+    """A ``convolutional_flat`` input type means callers feed (N, H*W*C)
+    rows that conv stacks consume as NHWC."""
+    if input_type is not None and input_type.kind == "cnn_flat" and x.dim() == 2:
+        return x.reshape(x.shape[0], input_type.height, input_type.width,
+                         input_type.channels)
+    return x
+
+
+class MultiLayerNetwork(NetworkBase):
+    """Sequential net: init → fit/output/evaluate. It lives on the card
+    unless ``device="cpu"``."""
+
+    def __init__(self, conf: MultiLayerConfiguration, device=None):
+        super().__init__(conf, device)
+        self.layers: List[L.Layer] = conf.layers
+
+    def _param_layers(self):
+        return [(str(i), layer) for i, layer in enumerate(self.layers)]
+
+    def getParam(self, key: str) -> torch.Tensor:
+        lidx, pname = key.split("_", 1)
+        return self._params[lidx][pname]
+
+    # --------------------------------------------------------------- forward
+    def _forward(self, params, states, x, training, gen, mask=None,
+                 collect=False, up_to=None):
+        """Run the layer stack; returns (final activation | activation
+        list, new_states)."""
+        acts = []
+        new_states = dict(states)
+        h = _maybe_unflatten_input(x, self.conf.input_type)
+        batch_n = x.shape[0]
+        preprocs = self.conf.input_pre_processors or {}
+        n_layers = len(self.layers) if up_to is None else up_to
+        cdtype = _COMPUTE_DTYPES.get(getattr(self.conf, "dtype", "float32"))
+        last_idx = len(self.layers) - 1
+        if cdtype is not None:
+            h = _cast_float(h, cdtype)
+        for i, layer in enumerate(self.layers[:n_layers]):
+            if i in preprocs:
+                h = preprocs[i].pre_process(h, batch_size=batch_n)
+            lkey = str(i)
+            lp = params.get(lkey, {})
+            if cdtype is not None and i < last_idx:
+                lp = cast_params(lp, cdtype)
+            elif cdtype is not None:
+                h = _cast_float(h, torch.float32)   # final layer in f32
+            lst = states.get(lkey)
+            kwargs = {}
+            if mask is not None and isinstance(layer, _MASK_AWARE):
+                kwargs["mask"] = mask
+            if training and getattr(self.conf, "remat", False) \
+                    and i < last_idx:
+                h, st = remat_apply(layer, lp, h, lst, gen, kwargs,
+                                    getattr(self.conf, "remat_policy", None))
+            else:
+                h, st = layer.apply(lp, h, training=training, gen=gen,
+                                    state=lst, **kwargs)
+            if lst is not None and st is not None:
+                if cdtype is not None:
+                    st = recast_like(lst, st)
+                new_states[lkey] = st
+            if collect:
+                acts.append(_cast_float(h, torch.float32)
+                            if cdtype is not None else h)
+        if cdtype is not None and not collect:
+            h = _cast_float(h, torch.float32)
+        return (acts if collect else h), new_states
+
+    def _loss_fn(self, params, states, inputs, labels, fmasks, lmasks, gen):
+        x, y = inputs[0], labels[0]
+        mask = fmasks[0] if fmasks else None
+        label_mask = lmasks[0] if lmasks else None
+        last = len(self.layers) - 1
+        h, new_states = self._forward(params, states, x, True, gen,
+                                      mask=mask, up_to=last)
+        preprocs = self.conf.input_pre_processors or {}
+        if last in preprocs:
+            h = preprocs[last].pre_process(h, batch_size=x.shape[0])
+        loss = self.layers[-1].loss(params.get(str(last), {}), h, y,
+                                    mask=label_mask, training=True, gen=gen)
+        loss = loss + self._regularization_penalty(params,
+                                                   self._param_layers())
+        return loss, new_states
+
+    # ------------------------------------------------------- argument forms
+    @staticmethod
+    def _xy_args(x, y):
+        return (x,), (y,), None, None
+
+    @staticmethod
+    def _ds_args(ds):
+        fm = getattr(ds, "features_mask", None)
+        lm = getattr(ds, "labels_mask", None)
+        return ((ds.features,), (ds.labels,),
+                None if fm is None else (fm,), None if lm is None else (lm,))
+
+    def _gradient_args(self, x, labels, mask=None, label_mask=None):
+        return ((self._to_device(x),), (self._to_device(labels),),
+                None if mask is None else (self._to_device(mask),),
+                None if label_mask is None else (self._to_device(label_mask),))
+
+    # ------------------------------------------------------------- inference
+    def output(self, x, train: bool = False, mask=None) -> torch.Tensor:
+        """Output-layer activations in inference mode: BatchNormalization
+        uses its running statistics, dropout is off (ref: #output)."""
+        if not self._initialized:
+            self.init()
+        with torch.no_grad():
+            h, _ = self._forward(self._params, self._states,
+                                 self._to_device(x), False, None,
+                                 mask=self._to_device(mask))
+        return h
+
+    def feedForward(self, x, train: bool = False) -> List[torch.Tensor]:
+        """All layer activations, input first (ref: #feedForward)."""
+        x = self._to_device(x)
+        with torch.no_grad():
+            acts, _ = self._forward(self._params, self._states, x, train,
+                                    self._gen if train else None,
+                                    collect=True)
+        return [x] + acts
+
+    # ------------------------------------------------------------ accounting
+    def _forward_flops(self, batch: int) -> int:
+        it = self.conf.input_type
+        total = 0
+        for layer in self.layers:
+            total += layer_flops(layer, it, batch)
+            it = layer.output_type(it) if it is not None else None
+        return total
+
+    # ---------------------------------------------------------------- misc
+    def summary(self) -> str:
+        lines = [f"{'idx':<4}{'layer':<28}{'nParams':>10}  out"]
+        it = self.conf.input_type
+        for i, layer in enumerate(self.layers):
+            out_t = layer.output_type(it) if it is not None else None
+            it = out_t if out_t is not None else it
+            lines.append(f"{i:<4}{type(layer).__name__:<28}"
+                         f"{layer.n_params():>10}  "
+                         f"{out_t.batch_shape() if out_t else '?'}")
+        lines.append(f"Total params: {self.numParams()}")
+        return "\n".join(lines)
+
+    def clone(self) -> "MultiLayerNetwork":
+        net = MultiLayerNetwork(
+            MultiLayerConfiguration.from_json(self.conf.to_json()),
+            device=self.device)
+        net.init()
+        net.set_param_tree(self._params)
+        net.set_state_tree(self._states)
+        return net

@@ -10,9 +10,9 @@ of numerics, device memory from ``torch.cuda.memory_stats`` and the
 analytic cost model, and the fleet plane the serving tier reads — the
 ``timeseries`` rings, the ``watchtower``'s burn-rate and change-point
 alerts, and cross-process ``federation`` of traces, metrics and health.
-The reference's ``profile_capture`` and the listener-bus
-``MetricsReportingListener`` are not ported yet (ROADMAP queue 1 items 6
-and 8).
+The listener-bus ``MetricsReportingListener`` is re-exported lazily, as
+in the reference; ``profile_capture`` is not ported yet (ROADMAP queue 1
+item 6).
 
 Quick tour::
 
@@ -53,7 +53,7 @@ from deeplearning4j_tpu_torch.observability.compile_watch import (
     CompileWatch, RetraceStormRule, compile_watch_enabled,
     global_compile_watch, reset_global_compile_watch)
 from deeplearning4j_tpu_torch.observability.numerics import (
-    DivergenceRule)
+    DivergenceRule, numerics_enabled, skip_on_nonfinite)
 from deeplearning4j_tpu_torch.observability import device_memory
 from deeplearning4j_tpu_torch.observability.cost_model import (
     CostModel, cost_model_enabled, global_cost_model,
@@ -81,7 +81,7 @@ __all__ = [
     "trace_sink",
     "TraceStore", "global_trace_store", "reset_global_trace_store",
     "store_span_close", "store_span_open", "trace_store_enabled",
-    "StragglerDetector",
+    "StragglerDetector", "MetricsReportingListener",
     "FlightRecorder", "global_flight_recorder",
     "reset_global_flight_recorder",
     "ErrorRateRule", "GaugeThresholdRule", "LatencyQuantileRule",
@@ -89,7 +89,7 @@ __all__ = [
     "reset_global_slo_engine",
     "CompileWatch", "RetraceStormRule", "compile_watch_enabled",
     "global_compile_watch", "reset_global_compile_watch",
-    "DivergenceRule",
+    "DivergenceRule", "numerics_enabled", "skip_on_nonfinite",
     "device_memory",
     "CostModel", "cost_model_enabled", "global_cost_model",
     "reset_global_cost_model", "PerfRegressionRule",
@@ -99,3 +99,13 @@ __all__ = [
     "ThresholdDetector", "Watchtower", "default_detectors",
     "global_watchtower", "reset_global_watchtower",
 ]
+
+
+def __getattr__(name):
+    # lazy: MetricsReportingListener lives on the listener bus
+    # (optim.listeners), which itself publishes into this package
+    if name == "MetricsReportingListener":
+        from deeplearning4j_tpu_torch.optim.listeners import (
+            MetricsReportingListener)
+        return MetricsReportingListener
+    raise AttributeError(name)

@@ -27,10 +27,9 @@ A bundle is a directory under ``DL4J_TPU_POSTMORTEM_DIR`` (default
 - ``trace.json``   — Chrome trace of the global span ring (open in Perfetto)
 - ``metrics.prom`` — Prometheus snapshot of the global registry
 - ``threads.txt``  — every thread's Python stack (``sys._current_frames``)
-- ``config.json``  — reason, armed operations, progress counters, SLO
-  health report, device-memory snapshot, and the ``DL4J_TPU_*``
-  environment (the reference's async-runtime knob snapshot waits for the
-  port's training and serving loops that read those knobs)
+- ``config.json``  — reason, armed operations, progress counters, the
+  async-runtime knob snapshot (the fit loops' knobs), SLO health report,
+  device-memory snapshot, and the ``DL4J_TPU_*`` environment
 - ``compiles.json`` — compile-watch ring: the first run of every
   engine step signature, with the args' shapes
 - ``deploy.json`` — versioned serving: deployed versions (lifecycle,
@@ -575,6 +574,7 @@ class FlightRecorder:
             f.write("\n".join(lines))
 
     def _write_config(self, path: str, reason: str):
+        from deeplearning4j_tpu_torch import async_runtime
         with self._lock:
             armed = dict(self._armed)
             progress = dict(self._progress_counts)
@@ -587,6 +587,7 @@ class FlightRecorder:
             "armed": armed,
             "progress_counts": progress,
             "seconds_since_progress": time.monotonic() - self._last_progress,
+            "async_runtime": async_runtime.snapshot(),
             "env": {k: v for k, v in os.environ.items()
                     if k.startswith("DL4J_TPU_")},
         }

@@ -1,0 +1,151 @@
+"""The standard ops the ported layers call: counterparts of the JAX
+package's ``ops/standard.py`` entries ``conv2d``, ``maxpool2d``,
+``avgpool2d``, ``pnormpool2d``, ``batchnorm``, ``lrn`` and
+``dropout_inverted``, as plain functions (the op registry is not ported).
+
+Activations are NHWC and conv weights HWIO, as in the reference. A
+contiguous NHWC tensor ``x`` gives ``x.permute(0, 3, 1, 2)``, an NCHW view
+in channels-last memory, so cuDNN runs its NHWC kernels without a copy,
+and its result permutes back the same way. ``padding`` is ``"SAME"``,
+``"VALID"``, an int or pair (symmetric), or a pair of (lo, hi) pairs.
+"SAME" follows lax: the odd row of padding goes at the end, which
+``F.conv2d(padding="same")`` cannot do at stride 2, so asymmetric padding
+is applied to the NHWC input first.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def _pair(v):
+    return (int(v), int(v)) if isinstance(v, int) else tuple(int(a) for a in v)
+
+
+def same_pads(size: int, kernel: int, stride: int, dilation: int = 1):
+    """lax's "SAME" (lo, hi) padding of one spatial dim."""
+    eff = (kernel - 1) * dilation + 1
+    out = -(-size // stride)
+    total = max((out - 1) * stride + eff - size, 0)
+    return total // 2, total - total // 2
+
+
+def resolve_pads(padding, spatial, kernel, strides, dilation=(1, 1)):
+    """[(lo, hi), (lo, hi)] of the two spatial dims."""
+    if isinstance(padding, str):
+        if padding.upper() == "VALID":
+            return [(0, 0), (0, 0)]
+        if padding.upper() != "SAME":
+            raise ValueError(f"unknown padding {padding!r}")
+        return [same_pads(s, k, st, d) for s, k, st, d in
+                zip(spatial, kernel, strides, dilation)]
+    if isinstance(padding, int):
+        padding = (padding, padding)
+    if all(isinstance(p, (tuple, list)) for p in padding):
+        return [(int(lo), int(hi)) for lo, hi in padding]
+    return [(int(p), int(p)) for p in padding]
+
+
+def _nchw(x):
+    return x.permute(0, 3, 1, 2)
+
+
+def _nhwc(x):
+    return x.permute(0, 2, 3, 1)
+
+
+def _pad_nhwc(x, pads, value=0.0):
+    (t, b), (l, r) = pads
+    return F.pad(x, (0, 0, l, r, t, b), value=value)
+
+
+def conv2d(x, w, b=None, strides=(1, 1), padding="SAME", dilation=(1, 1)):
+    """NHWC ``x`` * HWIO ``w`` (+ ``b``): ``lax.conv_general_dilated`` with
+    ("NHWC", "HWIO", "NHWC"), as cuDNN's ``F.conv2d``."""
+    strides, dilation = _pair(strides), _pair(dilation)
+    pads = resolve_pads(padding, x.shape[1:3], w.shape[:2], strides,
+                        dilation)
+    if any(lo != hi for lo, hi in pads):
+        x = _pad_nhwc(x, pads)
+        pads = [(0, 0), (0, 0)]
+    out = _nhwc(F.conv2d(_nchw(x), w.permute(3, 2, 0, 1), None, strides,
+                         (pads[0][0], pads[1][0]), dilation))
+    # the bias is added after the product, as the reference adds it: its
+    # gradient is then the same bf16 sum on both sides
+    return out + b if b is not None else out
+
+
+def _window_sum(x, kernel, strides):
+    """Unpadded sum over each window (NHWC in, NHWC out)."""
+    return _nhwc(F.avg_pool2d(_nchw(x), kernel, strides, divisor_override=1))
+
+
+def _symmetric_fits(pads, kernel):
+    return all(lo == hi and lo <= k // 2 for (lo, hi), k in zip(pads, kernel))
+
+
+def _pool_args(kernel, strides):
+    kernel = _pair(kernel)
+    return kernel, kernel if strides is None else _pair(strides)
+
+
+def maxpool2d(x, kernel=(2, 2), strides=None, padding="VALID"):
+    """Max over windows; padded cells are −inf."""
+    kernel, strides = _pool_args(kernel, strides)
+    pads = resolve_pads(padding, x.shape[1:3], kernel, strides)
+    if _symmetric_fits(pads, kernel):
+        return _nhwc(F.max_pool2d(_nchw(x), kernel, strides,
+                                  (pads[0][0], pads[1][0])))
+    x = _pad_nhwc(x, pads, value=float("-inf"))
+    return _nhwc(F.max_pool2d(_nchw(x), kernel, strides))
+
+
+def avgpool2d(x, kernel=(2, 2), strides=None, padding="VALID"):
+    """Mean over each window's real cells: padding is not counted."""
+    kernel, strides = _pool_args(kernel, strides)
+    pads = resolve_pads(padding, x.shape[1:3], kernel, strides)
+    if _symmetric_fits(pads, kernel):
+        return _nhwc(F.avg_pool2d(_nchw(x), kernel, strides,
+                                  (pads[0][0], pads[1][0]),
+                                  count_include_pad=False))
+    sums = _window_sum(_pad_nhwc(x, pads), kernel, strides)
+    ones = _pad_nhwc(torch.ones_like(x[..., :1]), pads)
+    return sums / _window_sum(ones, kernel, strides)
+
+
+def pnormpool2d(x, kernel=(2, 2), strides=None, padding="VALID", pnorm=2):
+    """(sum over the window of |x|^p)^(1/p); padding adds 0."""
+    kernel, strides = _pool_args(kernel, strides)
+    pads = resolve_pads(padding, x.shape[1:3], kernel, strides)
+    s = _window_sum(_pad_nhwc(torch.abs(x) ** pnorm, pads), kernel, strides)
+    return s ** (1.0 / pnorm)
+
+
+def batchnorm(x, mean, variance, gamma=None, beta=None, epsilon=1e-5):
+    """Normalize the last axis by ``mean`` and ``variance``: the
+    per-channel algebra folds into one scale and one shift in >= f32, then
+    one elementwise pass over the activation, cast back to its dtype."""
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    scale = torch.rsqrt(variance.to(acc) + epsilon)
+    if gamma is not None:
+        scale = scale * gamma.to(acc)
+    shift = mean.to(acc) * scale
+    if beta is not None:
+        shift = shift - beta.to(acc)
+    return (x.to(acc) * scale - shift).to(x.dtype)
+
+
+def lrn(x, depth_radius=5, bias=1.0, alpha=1.0, beta=0.5):
+    """Local response normalization over the channel (last) axis."""
+    d = int(depth_radius)
+    c = x.shape[-1]
+    sq = F.pad(torch.square(x), (d, d))
+    window = sum(sq[..., i:i + c] for i in range(2 * d + 1))
+    return x / torch.pow(bias + alpha * window, beta)
+
+
+def dropout_inverted(x, gen, p=0.5):
+    """DL4J dropout: ``p`` is the RETAIN probability; kept entries are
+    ``x / p``. ``gen`` is a ``torch.Generator`` on ``x``'s device."""
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < p
+    return torch.where(keep, x / p, torch.zeros_like(x))

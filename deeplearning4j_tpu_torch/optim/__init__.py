@@ -1,1 +1,3 @@
-"""Optimizers of the port, with optax's interface (``init`` / ``update``)."""
+"""Optimizers of the port: ``adamw`` and the DL4J updaters over
+``transforms`` (optax's interface and state, ``init`` / ``update``),
+schedules and training listeners."""

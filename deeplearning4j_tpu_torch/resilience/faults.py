@@ -25,7 +25,7 @@ Named injection points are threaded through the hot paths:
                             to its cached view; sync retries next beat)
 ``store.write``             SharedStore atomic commit (sync merges its
                             window counters back and retries)
-``train.step``              MLN/CG ``_fit_batch`` before the jitted step
+``train.step``              MLN/CG ``_fit_batch`` before the train step
 ``checkpoint.save``         CheckpointListener / preemption / recovery saves
 ``checkpoint.restore``      ResilientTrainer checkpoint restore
 ``allreduce``               ShardedTrainer sharded step entry
@@ -37,9 +37,8 @@ Fault kinds:
 - ``crash``   — raise a *non-transient* :class:`InjectedFault` (forces the
   restore-from-checkpoint path instead of in-place retry)
 - ``latency`` — sleep ``latency_seconds`` (default 0.05)
-- ``nan``     — corrupt the batch/inputs to NaN (in the reference it
-  composes with ``DL4J_TPU_NUMERICS_SKIP=1``, which the port's numerics
-  lacks until its in-step checks are ported).
+- ``nan``     — corrupt the batch/inputs to NaN (composes with
+  ``DL4J_TPU_NUMERICS_SKIP=1``, which then skips that step's update).
   Only valid at the points that own an array (``data.next_batch``,
   ``train.step``) — specs naming other points are rejected at parse
 
@@ -389,6 +388,9 @@ class FaultRegistry:
 def _nanify(value):
     if isinstance(value, (tuple, list)):
         return type(value)(_nanify(v) for v in value)
+    if _is_tensor(value):
+        return (value.new_full(value.shape, float("nan"))
+                if value.is_floating_point() else value)
     arr = np.asarray(value)
     if np.issubdtype(arr.dtype, np.floating):
         return np.full(arr.shape, np.nan, arr.dtype)
@@ -400,7 +402,15 @@ def _nanifiable(value) -> bool:
     would actually poison."""
     if isinstance(value, (tuple, list)):
         return any(_nanifiable(v) for v in value)
+    if _is_tensor(value):
+        return value.is_floating_point()
     return np.issubdtype(np.asarray(value).dtype, np.floating)
+
+
+def _is_tensor(value) -> bool:
+    """A torch tensor (on any device), without importing torch here."""
+    return type(value).__module__.startswith("torch") and hasattr(
+        value, "is_floating_point")
 
 
 # ------------------------------------------------------------ metric handles

@@ -4,6 +4,7 @@ It runs on the card; what it computes from shapes and text (the bound it
 holds each kernel to, the profiler's busy share, the ptxas report it
 checks the wgmma kernel's build against) is checked here.
 """
+import numpy as np
 import pytest
 
 import chip_smoke
@@ -1079,8 +1080,9 @@ def _path_launches():
     pipeline = (20 * L, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 8) + none + (2000,)
     frontdoor = (45 * L, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0) + none + (5868,)
     fleet = (0, 16, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0) + none + (240,)
+    network = (0,) * 16
     return [serve, modes, train, moe, f32_serve, f32_train, pipeline,
-            frontdoor, fleet]
+            frontdoor, fleet, network]
 
 
 @pytest.mark.parametrize("path,kernel,what", [
@@ -1120,7 +1122,11 @@ def _path_launches():
     (8, 1, "the fleet's f32 demo without the simple forward"),
     (8, 15, "the fleet's demo without K4a+w"),
     (8, 0, "the fleet's f32 demo on the wgmma forward"),
-    (8, 10, "the fleet's demo on K4a alone")])
+    (8, 10, "the fleet's demo on K4a alone"),
+    (9, 0, "the network paths launching the wgmma forward"),
+    (9, 1, "the network paths launching the simple forward"),
+    (9, 9, "the network paths launching the wgmma K3b"),
+    (9, 15, "the network paths launching K4a+w")])
 def test_path_launch_checks_catch_each_misroute(path, kernel, what):
     paths = _path_launches()
     chip_smoke.check_path_launches(*paths)
@@ -1336,3 +1342,138 @@ def test_baseline_gaps_read_each_tokens_top2_margin():
     assert got["tokens"] == 12 and got["min"] > 0
     assert 0 <= got["at_most_tol"] <= got["tokens"]
     assert got["max_logit_shift"] < 1e-4
+
+
+def test_network_phase_uses_resnet_bench_s_config():
+    """benchmarks/resnet_bench.py's ResNet-50: 224x224x3, 1000 classes,
+    batch 32, Nesterovs(0.1, 0.9); seeded N(0, 1) images, one-hot labels."""
+    assert (chip_smoke.NET_SHAPE, chip_smoke.NET_CLASSES,
+            chip_smoke.NET_BATCH) == ((224, 224, 3), 1000, 32)
+    conf = chip_smoke.zoo_resnet("bfloat16").conf()
+    assert conf.updater.to_dict() == {"learning_rate": 0.1, "momentum": 0.9,
+                                      "@updater": "Nesterovs"}
+    assert conf.dtype == "bfloat16"
+    x, y = chip_smoke.network_data(3, shape=(4, 4, 3), classes=5, seed=1)
+    x2, y2 = chip_smoke.network_data(3, shape=(4, 4, 3), classes=5, seed=1)
+    assert x.dtype == np.float32 and x.shape == (3, 4, 4, 3)
+    assert np.array_equal(x, x2) and np.array_equal(y, y2)
+    assert (y.sum(-1) == 1).all() and y.shape == (3, 5)
+
+
+def test_tree_errors_read_each_leaf_and_each_displacement():
+    want = {"a": {"W": np.ones((2, 2)), "b": np.zeros(2) + 2}}
+    got = {"a": {"W": np.ones((2, 2)) * 1.1, "b": np.zeros(2) + 2}}
+    errs = chip_smoke.tree_errors(got, want)
+    assert abs(errs["a/W"] - 0.1) < 1e-12 and errs["a/b"] == 0
+    assert chip_smoke.worst(errs) == (errs["a/W"], "a/W")
+    base = {"a": {"W": np.ones((2, 2)) * 0.9, "b": np.zeros(2) + 1}}
+    d = chip_smoke.tree_errors(got, want, base=base)
+    # displacements 0.2 against 0.1: off by 1 relative
+    assert abs(d["a/W"] - 1.0) < 1e-12 and d["a/b"] == 0
+
+
+def test_rows_failed_names_each_row_read_above_and_nan():
+    rows = {"loss": 1e-4, "grad": 0.2}
+    assert chip_smoke.rows_failed({"loss": 5e-5, "grad": 0.1}, rows) == []
+    assert chip_smoke.rows_failed({"loss": 2e-4, "grad": 0.1}, rows) == [
+        "loss"]
+    assert chip_smoke.rows_failed({"loss": float("nan"), "grad": 0.9},
+                                  rows) == ["grad", "loss"]
+
+
+def test_network_rows_part_f32_from_the_tf32_readings():
+    """The f32 rows sit above f32's CPU readings against f64 and below
+    TF32's (PERF.md), so the TF32 control fails them."""
+    f32 = {"probs": 2.9e-5, "loss": 8.8e-6, "grad": 0.032, "step": 0.032,
+           "state": 2.9e-5}
+    tf32 = {"probs": 3.0e-2, "loss": 1.9e-4, "grad": 0.88, "step": 0.88,
+            "state": 3.0e-2}
+    rows = chip_smoke.TOL_NET_F32
+    assert chip_smoke.rows_failed(f32, rows) == []
+    assert chip_smoke.rows_failed(tf32, rows) == sorted(rows)
+
+
+def test_floors_failed_names_each_floor_not_read_above_and_nan():
+    floors = {"probs": 1e-3, "loss": 1e-4}
+    assert chip_smoke.floors_failed({"probs": 0.1, "loss": 0.03},
+                                    floors) == []
+    assert chip_smoke.floors_failed({"probs": 2.6e-5, "loss": 0.03},
+                                    floors) == ["probs"]
+    assert chip_smoke.floors_failed({"probs": float("nan"), "loss": 1e-4},
+                                    floors) == ["loss", "probs"]
+
+
+def test_bf16_floors_part_bf16_from_f32():
+    """(b)'s floors sit above what two f32 runs read (the CPU against
+    f64, PERF.md) and below bf16's readings, so a bf16 policy that
+    computed in f32 fails them."""
+    floors = chip_smoke.FLOOR_NET_BF16
+    f32 = {"probs": 2.9e-5, "loss": 8.8e-6}
+    bf16 = {"probs": 0.115, "loss": 0.071, "head_grad": 0.098}
+    assert chip_smoke.floors_failed(f32, floors) == sorted(floors)
+    assert chip_smoke.floors_failed(bf16, floors) == []
+    assert chip_smoke.rows_failed(bf16, chip_smoke.TOL_NET_BF16) == []
+
+
+@pytest.fixture(scope="module")
+def bn_cases():
+    import torch
+    from deeplearning4j_tpu_torch.models.zoo import ResNet50
+    net = ResNet50(num_classes=10, input_shape=(32, 32, 3)).init_model(
+        device="cpu")
+    # batch 8: at least 8 values a channel (1x1 at the last stage; at 2,
+    # two values normalize to ±1 whatever the route, and the folded
+    # apply's cancellation shows)
+    return chip_smoke.bn_route_inputs(torch, net, 8, torch.float32,
+                                      torch.device("cpu"))
+
+
+def test_bn_route_inputs_cover_every_batchnorm_at_its_shape(bn_cases):
+    assert len(bn_cases) == 53
+    layer, x, g, b, state, dy = bn_cases[0]
+    assert x.shape == dy.shape and x.shape[-1] == g.shape[0] == layer.n_out
+    assert x.requires_grad and g.requires_grad and b.requires_grad
+    assert {c[1].shape[1] for c in bn_cases} == {16, 8, 4, 2, 1}
+
+
+def test_bn_library_routes_agree_with_the_port_and_see_unbiased_var(
+        bn_cases):
+    """The native route (with its running update from the saved inverse
+    std) and the dispatcher's route compute the port's BatchNormalization
+    on the CPU; a running update from the unbiased variance does not."""
+    import torch
+    native = chip_smoke.bn_route_agreement(
+        torch, lambda *a: chip_smoke.bn_native(torch, *a), bn_cases)
+    assert sorted(native) == ["dbeta", "dgamma", "dx", "mean", "out", "var"]
+    assert max(native.values()) < 1e-5, native
+    disp = chip_smoke.bn_route_agreement(
+        torch, lambda *a: chip_smoke.bn_dispatch(torch, *a), bn_cases)
+    assert sorted(disp) == ["dbeta", "dgamma", "dx", "out"]
+    assert max(disp.values()) < 1e-5, disp
+
+    def unbiased(layer, x, g, b, state):
+        out, new = chip_smoke.bn_native(torch, layer, x, g, b, state)
+        n = x.numel() // x.shape[-1]
+        var = x.detach().reshape(n, -1).var(0, unbiased=True)
+        return out, {"mean": new["mean"],
+                     "var": layer.decay * state["var"]
+                     + (1 - layer.decay) * var}
+    wrong = chip_smoke.bn_route_agreement(torch, unbiased, bn_cases)
+    assert wrong["var"] > 1e-3 and wrong["out"] < 1e-5
+
+
+def test_plain_resnet50_has_the_port_s_parameters():
+    import torch
+    twin = chip_smoke.plain_resnet50(torch, classes=1000)
+    assert sum(p.numel() for p in twin.parameters()) == 25_557_032
+    convs = [m for m in twin.modules() if isinstance(m, torch.nn.Conv2d)]
+    assert len(convs) == 53 and all(m.bias is None for m in convs)
+
+
+def test_network_phase_flop_count_is_741_gflop_a_step():
+    """The FLOPs the phase divides by (``step_cost``): 3 × 2 × the
+    multiply-adds of ResNet-50 at 224² (3.86e9 an image) × batch 32."""
+    net = chip_smoke.zoo_resnet("float32").init_model(device="cpu")
+    flops = net.step_cost(chip_smoke.NET_BATCH)[0]
+    assert flops == 3 * net._forward_flops(chip_smoke.NET_BATCH)
+    assert abs(flops / 741e9 - 1) < 0.002

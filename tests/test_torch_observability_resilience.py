@@ -552,8 +552,9 @@ def test_device_memory_reports_nothing_without_cuda():
 
 def test_postmortem_bundle_writes_every_section(tmp_path):
     """Each section of a bundle is written, none as an ``.error`` file (no
-    lazy import fails into its ``except``), and ``config.json`` reports
-    only what the port has: no async-runtime knobs that nothing reads."""
+    lazy import fails into its ``except``), and ``config.json`` and
+    ``numerics.json`` carry the reference's keys: the async-runtime knobs
+    the fit loops read, and the numerics switches."""
     import json
     from deeplearning4j_tpu_torch.observability.flight_recorder import (
         FlightRecorder)
@@ -566,9 +567,12 @@ def test_postmortem_bundle_writes_every_section(tmp_path):
     assert {"config.json", "numerics.json", "compiles.json",
             "resilience.json", "trace.json"} <= set(names)
     cfg = json.loads((bundle / "config.json").read_text())
-    assert cfg["reason"] == "test" and "async_runtime" not in cfg
+    assert cfg["reason"] == "test"
+    assert {"async_enabled", "prefetch_depth", "score_sync_every",
+            "numerics_enabled"} <= set(cfg["async_runtime"])
     num = json.loads((bundle / "numerics.json").read_text())
-    assert set(num) == {"nonfinite_events", "last_published"}
+    assert set(num) == {"enabled", "skip_on_nonfinite", "nonfinite_events",
+                        "last_published"}
     assert num["nonfinite_events"][0]["kind"] == "loss"
 
 
@@ -609,9 +613,7 @@ def _public(path):
     return {n for n in names if not n.startswith("_")}
 
 
-_IN_STEP = "the JAX train step's in-graph checks: ROADMAP queue 1 item 6"
-_SWITCHES = ("read only by the in-step checks, so a port switch would "
-             "report a policy nothing applies: ROADMAP queue 1 item 6")
+_NET = "waits with the rest of the DL4J network stack: ROADMAP queue 1 item 8"
 _NO_LOWERING = ("no AOT re-lowering in the port: the cost thunk counts "
                 "analytically and runs nothing")
 _PI = "ParallelInference waits for the DL4J network: ROADMAP queue 1 item 8"
@@ -625,11 +627,7 @@ COPIED = {
     "observability/flight_recorder": ({}, {}),
     "observability/train_metrics": ({}, {}),
     "observability/device_memory": ({}, {}),
-    "observability/numerics": (
-        {**{n: _IN_STEP for n in ("health_terms", "select",
-                                  "stamp_step", "publish")},
-         **{n: _SWITCHES for n in ("numerics_enabled",
-                                   "skip_on_nonfinite")}}, {}),
+    "observability/numerics": ({}, {}),
     "observability/compile_watch": (
         {"suppress_probes": _NO_LOWERING,
          "probes_suppressed": _NO_LOWERING}, {}),
@@ -642,11 +640,7 @@ COPIED = {
     "observability/__init__": (
         {**{n: "profile capture: ROADMAP queue 1 item 6" for n in (
             "ProfileCapture", "global_profile_capture", "profile_enabled",
-            "reset_global_profile_capture")},
-         **{n: _SWITCHES for n in ("numerics_enabled",
-                                   "skip_on_nonfinite")},
-         "MetricsReportingListener": "the listener bus (optim.listeners): "
-                                     "ROADMAP queue 1 item 8"}, {}),
+            "reset_global_profile_capture")}}, {}),
     "observability/timeseries": ({}, {}),
     "observability/watchtower": ({}, {}),
     "observability/federation": ({}, {}),
@@ -675,6 +669,65 @@ COPIED = {
     "parallel/inference": ({"ParallelInference": _PI,
                             "InferenceMode": _PI}, {}),
     "parallel/generation": ({}, {}),
+    "async_runtime": (
+        {"compile_cache_dir": "no XLA compile cache",
+         "configure_compile_cache": "no XLA compile cache",
+         "inflight_limit": _PI, "default_buckets": _PI}, {}),
+    "optim/listeners": (
+        {"CheckpointListener": "utils/serialization: " + _NET}, {}),
+    "eval/classification": (
+        {n: "evaluateROC*: " + _NET for n in (
+            "ROC", "ROCMultiClass", "ROCBinary", "EvaluationBinary",
+            "EvaluationCalibration")}, {}),
+    "data/iterators": (
+        {n: _NET for n in ("AsyncDataSetIterator",
+                           "MultipleEpochsIterator")}, {}),
+    "data/dataset": ({}, {}),
+    "nn/conf/inputs": ({}, {}),
+    "nn/conf/preprocessors": ({}, {}),
+    "nn/conf/dropout": ({}, {}),
+    "nn/conf/configuration": ({}, {}),
+    "nn/conf/layers": (
+        {n: _NET for n in (
+            "Bidirectional", "CenterLossOutputLayer", "CnnLossLayer",
+            "Convolution1DLayer", "Convolution3D", "Cropping2D",
+            "CrossAttentionLayer", "Deconvolution2D", "EmbeddingLayer",
+            "EmbeddingSequenceLayer", "GRU", "GravesLSTM", "LAMBDA_REGISTRY",
+            "LSTM", "LambdaLayer", "LastTimeStep", "LayerNormalization",
+            "LearnedSelfAttentionLayer", "PermuteLayer",
+            "RecurrentAttentionLayer", "RepeatVectorLayer", "ReshapeLayer",
+            "RnnOutputLayer", "SelfAttentionLayer", "SeparableConvolution2D",
+            "SimpleRnn", "SpatialDropoutLayer", "Upsampling2D",
+            "deconv_pad_pairs")}, {}),
+    "nn/graph_conf": (
+        {n: "time-series and attention vertices: " + _NET for n in (
+            "AdditiveAttentionVertex", "DotProductAttentionVertex",
+            "DotVertex", "DuplicateToTimeSeriesVertex", "LastTimeStepVertex",
+            "ReverseTimeSeriesVertex")}, {}),
+    "nn/weightnoise": (
+        {n: "weight noise: " + _NET for n in (
+            "DropConnect", "WeightNoise", "noise_from_dict")}, {}),
+    "nn/params": (
+        {"param_layout": "the port's flat order is leaf_keys'",
+         "params_view": "the NDArray write-through view: ROADMAP queue 1 "
+                        "item 10"},
+        {n: "tree <-> tensor helpers the JAX package has from jax.tree "
+            "and jnp.asarray" for n in ("leaf_keys", "to_tensor",
+                                        "tree_to_device", "tree_to_numpy")}),
+    "nn/activations": ({}, {}),
+    "nn/losses": ({}, {}),
+    "nn/weights": ({}, {}),
+    "nn/_precision": ({}, {}),
+    "nn/_step_tail": ({}, {}),
+    "nn/multilayer": ({"log": "the port's fit loop logs nothing"}, {}),
+    "nn/graph": ({}, {}),
+    "optim/schedules": ({}, {}),
+    "optim/updaters": ({}, {}),
+    "models/zoo/base": ({}, {}),
+    "models/zoo/resnet": ({}, {}),
+    "models/zoo/cnn_small": (
+        {"AlexNet": "the other zoo models: " + _NET,
+         "TextGenerationLSTM": "the recurrent layers: " + _NET}, {}),
 }
 
 

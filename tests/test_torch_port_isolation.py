@@ -46,6 +46,21 @@ def test_port_has_modules_to_check():
                  "deeplearning4j_tpu_torch/resilience/faults.py",
                  "deeplearning4j_tpu_torch/resilience/policy.py",
                  "deeplearning4j_tpu_torch/resilience/qos.py",
+                 "deeplearning4j_tpu_torch/async_runtime.py",
+                 *(f"deeplearning4j_tpu_torch/nn/{m}.py"
+                   for m in ("activations", "weights", "losses", "params",
+                             "_precision", "_step_tail", "_network",
+                             "weightnoise", "multilayer", "graph",
+                             "graph_conf", "conf/configuration",
+                             "conf/layers", "conf/inputs",
+                             "conf/preprocessors", "conf/dropout")),
+                 *(f"deeplearning4j_tpu_torch/{m}.py"
+                   for m in ("optim/updaters", "optim/schedules",
+                             "optim/transforms", "optim/listeners",
+                             "ops/standard", "data/dataset",
+                             "data/iterators", "eval/classification",
+                             "models/zoo/base", "models/zoo/resnet",
+                             "models/zoo/cnn_small")),
                  *(f"deeplearning4j_tpu_torch/observability/{m}.py"
                    for m in ("__init__", "registry", "trace_store",
                              "tracing", "slo", "numerics", "compile_watch",
