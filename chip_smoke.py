@@ -160,6 +160,24 @@ K4w spill nothing, and that no wgmma source has its products serialized
    ``MultiLayerNetwork`` at batch 64 over a ``ListDataSetIterator``
    through ``DevicePrefetchIterator`` (images/s, ``output``,
    ``evaluate``). No kernel of the port may launch on these paths.
+9. recurrent phase — the char-RNNs (``RNN_*`` and R1-R4 below): K11f and
+   K11b (the fused LSTM cell) against their plain versions at R1's and
+   R2's cell shapes, bit-identical from launch to launch, timed beside
+   their bound, the plain versions and aten's ``_thnn_fused_lstm_cell``;
+   then (a) R1 (the zoo ``TextGenerationLSTM``: 2 × LSTM(256), 47
+   characters, batch 32, 1000 characters, TBPTT 50) and R2 (GravesLSTM
+   200, BASELINE.json configs[2]) in f32 on the card against the same nets
+   on the CPU over one fit (TOL_RNN_F32), a TF32 control failing; (c)
+   ``rnnTimeStep`` one character at a time against ``output()``, and
+   ``rnnClearPreviousState``; (d) R1 bf16 against f32 (TOL_RNN_BF16 from
+   above, FLOOR_RNN_BF16 from below); (e) R3 (R1's layers as a
+   ``ComputationGraph``) against R1, and R4 (Bidirectional LSTM →
+   ``LastTimeStepVertex``, ragged masks) against each row alone; host ms
+   and device ms a chunk, characters/s, busy share, kernels a chunk, K11's
+   share and own peak memory of R1 (f32, bf16) and R2 in turns with a
+   plain twin (cuDNN's ``nn.LSTM``); one layer over a chunk against
+   cuDNN; ``rnnTimeStep`` sampling at batch 1. The recurrent path is one
+   fit of R1: K11f and K11b 2 × 1000 times each, nothing else.
 
 Every phase must pass: any failure exits nonzero. Output is one JSON
 object per line; the last line is ``{"ok": true, "device": {...}}``.
@@ -178,7 +196,8 @@ against f64 at the f32 training shape, and times both kernels in turns.
 ``--compare-decode OTHER`` profiles and times decode steps over bf16 and
 int8 pages at the large config here and in the checkout at OTHER in turns
 (kernels a step, device busy time a step, host ms a step).
-``--network`` runs the network phase alone (it builds no kernel).
+``--network`` runs the network phase alone (it builds no kernel);
+``--recurrent`` the recurrent phase alone (it builds only K11).
 """
 from __future__ import annotations
 
@@ -270,12 +289,14 @@ KERNELS = ("wgmma", "simple", "bwd_wgmma", "bwd")
 # d; its f32 kernel, on no path since the tf32 one), K7d and K7c, then the
 # wgmma K3f and K3b (bf16 at d % 64 == 0), then K4a (paged decode attention)
 # and K4w (int8 quantize-and-scatter), then the tf32 K3f and K3b (f32) and
-# their operands' split pass, then K4a+w (the decode store in K4a's launch)
+# their operands' split pass, then K4a+w (the decode store in K4a's launch),
+# then K11f and K11b (the fused LSTM cell)
 ALL_KERNELS = KERNELS + ("ce_fwd", "ce_dlogits", "moe_dispatch",
                          "moe_combine", "ce_fwd_wgmma", "ce_dlogits_wgmma",
                          "paged_attention", "kv_quant_write", "ce_fwd_tf32",
                          "ce_dlogits_tf32", "ce_split_tf32",
-                         "paged_attention_write")
+                         "paged_attention_write", "rnn_cell_fwd",
+                         "rnn_cell_bwd")
 SOURCES.update(ce_fwd="chunked_ce.cu", ce_dlogits="chunked_ce.cu",
                moe_dispatch="moe_route.cu", moe_combine="moe_route.cu",
                ce_fwd_wgmma="chunked_ce_wgmma.cu",
@@ -285,7 +306,8 @@ SOURCES.update(ce_fwd="chunked_ce.cu", ce_dlogits="chunked_ce.cu",
                ce_fwd_tf32="chunked_ce_tf32.cu",
                ce_dlogits_tf32="chunked_ce_tf32.cu",
                ce_split_tf32="chunked_ce_tf32.cu",
-               paged_attention_write="paged_attention.cu")
+               paged_attention_write="paged_attention.cu",
+               rnn_cell_fwd="rnn_cell.cu", rnn_cell_bwd="rnn_cell.cu")
 # K2 (backward) cases, laid out as KERNEL_CASES: "fused" takes q, k, v from
 # one (B, T, 3·H·d) projection, o from the forward written as TransformerLM
 # writes it, dO as the (B, H, T, d) view of a (B, T, H·d) gradient, and
@@ -3809,7 +3831,8 @@ def moe_train_phase(torch, fa):
         toks < LARGE["vocab_size"])).all()), f"MoE generate: {toks.shape}")
     check(served[6] > 0 and served[7] > 0 and served[4:6] == (0, 0)
           and served[8:10] == (0, 0)
-          and served[10:] == (0,) * 5 + ((N_NEW - 1) * LARGE["n_layers"],),
+          and served[10:16] == (0,) * 5 + ((N_NEW - 1) * LARGE["n_layers"],)
+          and served[16:] == (0, 0),
           f"MoE generate launched {served} {ALL_KERNELS}")
     emit(moe_generate={"batch": 2, "prompt_len": 100, "new_tokens": N_NEW,
                        "generate_ms": ms,
@@ -4009,6 +4032,8 @@ def profile_window(torch, label, fn, trace_name, top=10):
         r"|ce_dlogits_kernel|ce_merge_kernel", name)}
     decode = {name: tot for name, tot in by_name.items() if re.search(
         r"paged_attend_kernel|quant_write_kernel", name)}
+    rnn = {name: tot for name, tot in by_name.items() if re.search(
+        r"lstm_fwd_kernel|lstm_bwd_kernel", name)}
     return {"wall_ms": wall_ms, "window_us": hi - lo,
             "device_busy_us": busy, "busy_share": busy / (hi - lo),
             "kernels": sum(n for _us, n in by_name.values()),
@@ -4016,7 +4041,8 @@ def profile_window(torch, label, fn, trace_name, top=10):
             "top_kernels": _top(by_name, top), "top_ops": _top(by_op, top),
             "attention_kernels": _top(attention, len(attention)),
             "ce_kernels": _top(cross_entropy, len(cross_entropy)),
-            "decode_kernels": _top(decode, len(decode))}
+            "decode_kernels": _top(decode, len(decode)),
+            "rnn_kernels": _top(rnn, len(rnn))}
 
 
 def kernel_entry(path, cases, launches):
@@ -4706,8 +4732,762 @@ def network_phase(torch):
     return launches
 
 
+# ---------------------------------------------------------------- recurrent
+# The char-RNNs of PERF.md's recurrent rows. R1: the zoo TextGenerationLSTM
+# at its full width (2 × LSTM(256), RnnOutputLayer softmax/mcxent over 47
+# characters, Adam(1e-3), TBPTT 50). R2: BASELINE.json configs[2], the
+# GravesLSTM char-RNN, at the layer width, minibatch, example length and
+# TBPTT length of dl4j-examples' GravesLSTMCharModellingExample (200, 32,
+# 1000, 50), built through ListBuilder (seed 12345, xavier, l2 1e-4,
+# Adam(5e-3)). R3: R1's layers as a ComputationGraph. R4: a masked
+# sequence classifier, Bidirectional(LSTM 256, concat) →
+# LastTimeStepVertex → OutputLayer, batch 32, T 200, lengths 50-200.
+RNN_CHARS = 47
+RNN_BATCH = 32
+RNN_SEQ = 1000             # characters a sequence: one fit is 20 chunks
+RNN_TBPTT = 50
+RNN_WIDTH = {"R1": 256, "R2": 200}
+R1_LR, R2_LR, R2_L2 = 1e-3, 5e-3, 1e-4
+R4_T, R4_CLASSES, R4_LENS = 200, 5, (50, 200)
+RNN_STREAM_STEPS = 200     # (c): one character a call
+RNN_SAMPLE_CHARS = 300     # rnnTimeStep sampling at batch 1
+# K11 alone (b): (N, H, peepholes, masked) at R1's and R2's shapes
+K11_CASES = [(RNN_BATCH, h, peep, masked) for h in (256, 200)
+             for peep in (False, True) for masked in (False, True)]
+K11_MAIN_CASE = (RNN_BATCH, 256, False, False)     # R1's cell
+# (a) R1 and R2 in f32, card against CPU over one fit: the fitted nets'
+# output on the first chunk (relative L2), each chunk's loss (largest
+# |Δ|; a loss is ~190), each leaf's displacement (relative L2 of the
+# worst leaf) and the final carries (relative L2, worst of h and c over
+# both layers). Set from CPU readings of f32 against f64 (rnn_readings):
+# R1 1.0e-7, 1.8e-5, 1.1e-5, 1.0e-6; R2 1.0e-7, 2.7e-5, 8.2e-6, 4.7e-6.
+# Two f32 runs read up to twice that apart; the rows sit 3.7-10× above
+# the readings. A control whose products round to TF32 must read above.
+TOL_RNN_F32 = {"probs": 1e-6, "loss": 2e-4, "step": 1e-4, "carry": 3e-5}
+# (b) K11f / K11b against their plain versions: max |Δ| over
+# max(1, max |plain|) (test_torch_kernels_gpu.py's K11 rows)
+TOL_K11 = {"fwd": 4e-6, "bwd": 1e-5}
+# (c) rnnTimeStep one character at a time against output() over the
+# sequence: f32 sums of the same products in another batching
+TOL_RNN_STREAM = 1e-5
+# (d) R1 bf16 against f32 on the card, same weights: the output on the
+# first chunk before any fit (relative L2) and each chunk's loss over one
+# fit (largest |Δ|). CPU readings 3.0e-4 and 9.2e-3 (the hidden layers'
+# params round to bf16, and the first layer's x·W); rows 10× those. From
+# below, above (a)'s rows, which two f32 runs meet: a bf16 policy that
+# computed in f32 fails.
+TOL_RNN_BF16 = {"loss": 0.1, "probs": 3e-3}
+FLOOR_RNN_BF16 = {"loss": TOL_RNN_F32["loss"],
+                  "probs": TOL_RNN_F32["probs"]}
+# (e) R3 (the graph) against R1 (the sequential net): the same products
+# in the same order; R4's masked rows against each row alone, unpadded:
+# other GEMM shapes, f32 sums in another order
+TOL_RNN_GRAPH = {"r3_loss": 1e-5, "r4_alone": 1e-5}
+
+
+def char_stream(n, t, seed=SEED):
+    """(x, y): ``n`` sequences of ``t`` one-hot characters of a seeded
+    first-order Markov chain over RNN_CHARS (each character's successor
+    drawn from a Dirichlet(0.1) row), and the same shifted by one."""
+    rng = np.random.default_rng(seed)
+    cum = rng.dirichlet(np.full(RNN_CHARS, 0.1), size=RNN_CHARS).cumsum(1)
+    idx = np.empty((n, t + 1), np.int64)
+    idx[:, 0] = rng.integers(0, RNN_CHARS, n)
+    u = rng.random((n, t))
+    for k in range(t):
+        idx[:, k + 1] = np.minimum(
+            (u[:, k, None] > cum[idx[:, k]]).sum(1), RNN_CHARS - 1)
+    eye = np.eye(RNN_CHARS, dtype=np.float32)
+    return eye[idx[:, :-1]], eye[idx[:, 1:]]
+
+
+def r1_model(data_type="float32"):
+    from deeplearning4j_tpu_torch.models.zoo import TextGenerationLSTM
+    from deeplearning4j_tpu_torch.optim.updaters import Adam
+    return TextGenerationLSTM(total_unique_characters=RNN_CHARS,
+                              tbptt_length=RNN_TBPTT,
+                              updater=Adam(R1_LR), data_type=data_type)
+
+
+def r2_conf(data_type="float32"):
+    from deeplearning4j_tpu_torch.nn.conf.configuration import (
+        BackpropType, NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.layers import (GravesLSTM,
+                                                         RnnOutputLayer)
+    from deeplearning4j_tpu_torch.optim.updaters import Adam
+    w = RNN_WIDTH["R2"]
+    return (NeuralNetConfiguration.builder().seed(12345).l2(R2_L2)
+            .weight_init("xavier").updater(Adam(R2_LR))
+            .data_type(data_type).list()
+            .layer(GravesLSTM(n_in=RNN_CHARS, n_out=w, activation="tanh"))
+            .layer(GravesLSTM(n_out=w, activation="tanh"))
+            .layer(RnnOutputLayer(n_out=RNN_CHARS, activation="softmax",
+                                  loss_function="mcxent"))
+            .backprop_type(BackpropType.TruncatedBPTT)
+            .t_bptt_length(RNN_TBPTT)
+            .set_input_type(InputType.recurrent(RNN_CHARS)).build())
+
+
+def rnn_net(name, dev, data_type="float32"):
+    """R1 or R2 on ``dev``."""
+    if name == "R1":
+        return r1_model(data_type).init_model(device=dev)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    return MultiLayerNetwork(r2_conf(data_type), device=dev).init()
+
+
+def r3_graph(dev):
+    """R1's layers as a ComputationGraph (input "in", layers "0", "1",
+    "2" named as R1's keys, so R1's trees load as they are)."""
+    from deeplearning4j_tpu_torch.nn.conf.configuration import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.layers import layer_from_dict
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    conf = r1_model().conf()
+    b = (NeuralNetConfiguration.builder().seed(conf.seed)
+         .updater(conf.updater).weight_init("xavier").graph_builder()
+         .add_inputs("in").set_input_types(conf.input_type))
+    src = "in"
+    for i, layer in enumerate(conf.layers):
+        b.add_layer(str(i), layer_from_dict(layer.to_dict()), src)
+        src = str(i)
+    g = (b.set_outputs(src).backprop_type("tbptt")
+         .t_bptt_length(RNN_TBPTT).build())
+    return ComputationGraph(g, device=dev).init()
+
+
+def r4_graph(dev):
+    from deeplearning4j_tpu_torch.nn.conf.configuration import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.layers import (LSTM,
+                                                         Bidirectional,
+                                                         OutputLayer)
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.graph_conf import LastTimeStepVertex
+    from deeplearning4j_tpu_torch.optim.updaters import Adam
+    g = (NeuralNetConfiguration.builder().seed(7).updater(Adam(R1_LR))
+         .weight_init("xavier").graph_builder().add_inputs("in")
+         .set_input_types(InputType.recurrent(RNN_CHARS))
+         .add_layer("bi", Bidirectional.wrap(LSTM(n_out=256,
+                                                  activation="tanh")), "in")
+         .add_vertex("last", LastTimeStepVertex(), "bi")
+         .add_layer("out", OutputLayer(n_out=R4_CLASSES,
+                                       activation="softmax",
+                                       loss_function="mcxent"), "last")
+         .set_outputs("out").build())
+    return ComputationGraph(g, device=dev).init()
+
+
+class _ChunkScores:
+    """A listener keeping every TBPTT chunk's score."""
+
+    def __init__(self):
+        self.scores = []
+
+    def iteration_done(self, model, iteration, epoch, score):
+        self.scores.append(score)
+
+    def on_epoch_start(self, model, epoch):
+        pass
+
+    def on_epoch_end(self, model, epoch):
+        pass
+
+
+def tbptt_fit_record(net, x, y):
+    """One ``fit`` of ``net`` on (x, y): each chunk's loss, the params
+    after it and the last chunk's final carries (all numpy, f32)."""
+    from deeplearning4j_tpu_torch.nn.params import tree_to_numpy
+    rec, carried = _ChunkScores(), []
+    step = net._train_step
+
+    def spy(*args, **kwargs):
+        out = step(*args, **kwargs)
+        carried.append(out[2])
+        return out
+
+    net.setListeners(rec)
+    net._train_step = spy
+    try:
+        net.fit(x, y)
+    finally:
+        del net._train_step
+        net.setListeners([])
+    carries = {k: [c.float().cpu().numpy() for c in v]
+               for k, v in carried[-1].items()}
+    return {"losses": rec.scores, "params": tree_to_numpy(net.param_tree()),
+            "carries": carries}
+
+
+def tbptt_fit_f64(net, x, y):
+    """:func:`tbptt_fit_record`'s quantities for the same fit taken in f64
+    on the CPU: ``net``'s own loss, layers and updater chain on f64 copies
+    of its params and updater state (the truth for the f32 rows)."""
+    from deeplearning4j_tpu_torch.nn import params as _flat
+    from deeplearning4j_tpu_torch.nn._step_tail import finish_train_step
+    from deeplearning4j_tpu_torch.optim import transforms as T
+    torch = __import__("torch")
+    params = {k: {p: v.detach().cpu().double() for p, v in layer.items()}
+              for k, layer in net.param_tree().items()}
+    opt = T.map_state(lambda t: t.detach().cpu().double(),
+                      net.updater_state())
+    keys = _flat.leaf_keys(params)
+    xt = torch.tensor(x, dtype=torch.float64)
+    yt = torch.tensor(y, dtype=torch.float64)
+    carries, losses = {}, []
+    for start in range(0, xt.shape[1], net.conf.tbptt_fwd_length):
+        end = start + net.conf.tbptt_fwd_length
+        leaves = [params[k][p].requires_grad_() for k, p in keys]
+        loss, _, new = net._loss_fn(params, {}, (xt[:, start:end],),
+                                    (yt[:, start:end],), None, None, None,
+                                    carries)
+        grads = torch.autograd.grad(loss, leaves)
+        with torch.no_grad():
+            new_leaves, opt, _, _ = finish_train_step(
+                net._opt, [t.detach() for t in leaves], opt, list(grads),
+                loss.detach(), [False] * len(leaves))
+        params = {k: {} for k in params}
+        for (k, p), t in zip(keys, new_leaves):
+            params[k][p] = t.detach()
+        carries = {k: tuple(c.detach() for c in v) for k, v in new.items()}
+        losses.append(float(loss.detach()))
+    return {"losses": losses,
+            "params": {k: {p: v.numpy() for p, v in layer.items()}
+                       for k, layer in params.items()},
+            "carries": {k: [c.numpy() for c in v]
+                        for k, v in carries.items()}}
+
+
+def tbptt_report(got, want, base):
+    """``got`` against ``want`` (each from :func:`tbptt_fit_record`): the
+    largest |Δ| of a chunk's loss, the worst leaf's displacement (relative
+    L2 against ``base``, the params before the fit) and the worst final
+    carry (relative L2)."""
+    steps = tree_errors(got["params"], want["params"], base=base)
+    carry = max(rel_l2(a, b) for k in want["carries"]
+                for a, b in zip(got["carries"][k], want["carries"][k]))
+    return {"loss": float(np.max(np.abs(np.subtract(got["losses"],
+                                                    want["losses"])))),
+            "step": worst(steps)[0], "step_leaf": worst(steps)[1],
+            "carry": carry}
+
+
+def rnn_readings(name, seq=RNN_SEQ):
+    """CPU readings for (a)'s rows: ``name``'s f32 fit against the same
+    fit in f64 (``tbptt_report``), and the fitted net's output on the
+    first chunk against the same forward in f64 (``probs``)."""
+    import torch
+    from deeplearning4j_tpu_torch.nn.params import tree_to_numpy
+    x, y = char_stream(RNN_BATCH, seq)
+    net = rnn_net(name, "cpu")
+    base = tree_to_numpy(net.param_tree())
+    truth = tbptt_fit_f64(net, x, y)
+    out = tbptt_report(tbptt_fit_record(net, x, y), truth, base)
+    x64 = torch.tensor(x[:, :RNN_TBPTT], dtype=torch.float64)
+    with torch.no_grad():
+        p64, _, _ = net._forward(
+            {k: {p: v.double() for p, v in layer.items()}
+             for k, layer in net.param_tree().items()}, {}, x64, False,
+            None)
+    out["probs"] = rel_l2(net.output(x[:, :RNN_TBPTT]).numpy(),
+                          p64.numpy())
+    return out
+
+
+def k11_inputs(torch, case, seed=SEED):
+    """One step's operands on the card at ``case`` = (N, H, peepholes,
+    masked): z, b, c_prev, h_prev, the peepholes (3, H) or None, a mask
+    (N,) with every third row 0 or None, and the backward's dy, dh, dc."""
+    n, hd, peep, masked = case
+    g = torch.Generator(device="cuda").manual_seed(seed + hd)
+    rnd = lambda *s: torch.randn(*s, generator=g, device="cuda")
+    z, b, c0, h0 = rnd(n, 4 * hd), rnd(4 * hd), rnd(n, hd), rnd(n, hd)
+    p = 0.5 * rnd(3, hd) if peep else None
+    m = ((torch.arange(n, device="cuda") % 3 != 2).float() if masked
+         else None)
+    return z, b, c0, h0, p, m, rnd(n, hd), rnd(n, hd), rnd(n, hd)
+
+
+def k11_bound_ms(n, hd, peep, masked, which):
+    """One K11 launch's least time: every operand the function needs read
+    once and every output it makes written once (f32), over the memory
+    rate; its ~20 FLOPs an element are nothing against that. K11f reads
+    z, b, c_prev, h_prev (and the peepholes, the mask) and writes h, c,
+    the gates and, under a mask, the output h·m (with no mask the output
+    is h). K11b reads dy, dh, dc, the gates, c, c_prev (and the
+    peepholes, the mask) and writes dz, dc_prev and, under a mask, dh_pass
+    (0 with no mask, and not written); with peepholes it adds into the
+    three (N, H) peephole buffers. K11b has no bias operand."""
+    nh = n * hd
+    small = (4 * 3 * hd if peep else 0) + (4 * n if masked else 0)
+    if which == "fwd":
+        nbytes = (4 * (4 * nh + 2 * nh + 2 * nh + 4 * nh
+                       + (nh if masked else 0)) + 4 * 4 * hd + small)
+    else:
+        nbytes = (4 * (3 * nh + 4 * nh + 2 * nh + 4 * nh + nh
+                       + (nh if masked else 0)) + small
+                  + (2 * 4 * 3 * nh if peep else 0))
+    return _bound(0.0, nbytes, "float32")
+
+
+def k11_phase(torch):
+    """(b): K11f and K11b against their plain versions at R1's and R2's
+    cell shapes (with and without peepholes, unmasked and masked), each
+    launch's bits equal from call to call, and their times: ``device_ms``
+    (20 launches in a CUDA graph), ``ms`` (20 wrapper calls, host
+    included), the plain version, the bound and, where the cell is aten's
+    (LSTM, tanh, no mask), ``_thnn_fused_lstm_cell`` and its backward.
+    Returns {case: row}."""
+    from deeplearning4j_tpu_torch.kernels import rnn_cell as rc
+    rows = {}
+    aten = torch.ops.aten
+    for case in K11_CASES:
+        n, hd, peep, masked = case
+        z, b, c0, h0, p, m, dy, dh, dc = k11_inputs(torch, case)
+        before = all_counts()
+        out = rc.lstm_cell_fwd(z, b, c0, h0, p, m, 0)
+        ref = rc.cell_fwd_reference(z, b, c0, h0, p, m, 0)
+        dpeep = torch.zeros((3, n, hd), device="cuda") if peep else None
+        got_b = rc.lstm_cell_bwd(dy, dh, dc, ref[3], ref[2], c0, p, m, 0,
+                                 dpeep=dpeep)
+        ref_b = rc.cell_bwd_reference(dy, dh, dc, ref[3], ref[2], c0, p, m,
+                                      0)
+        torch.cuda.synchronize()
+        check(delta(before) == launch_counts(rnn_cell_fwd=1, rnn_cell_bwd=1),
+              f"K11 {case}: launches {delta(before)}")
+        err_f = max(((a - r).abs().max() / r.abs().max().clamp_min(1.0)
+                     ).item() for a, r in zip(out, ref))
+        check((got_b[2] is None) == (ref_b[2] is None) == (m is None),
+              f"K11 {case}: dh_pass is written only under a mask")
+        pairs = [(a, r) for a, r in zip(got_b, ref_b[:3])
+                 if r is not None] + ([(dpeep, ref_b[3])] if peep else [])
+        err_b = max(((a - r).abs().max() / r.abs().max().clamp_min(1.0)
+                     ).item() for a, r in pairs)
+        abs_f = max((a - r).abs().max().item() for a, r in zip(out, ref))
+        abs_b = max((a - r).abs().max().item() for a, r in pairs)
+        again = rc.lstm_cell_fwd(z, b, c0, h0, p, m, 0)
+        dpeep2 = torch.zeros_like(dpeep) if peep else None
+        again_b = rc.lstm_cell_bwd(dy, dh, dc, ref[3], ref[2], c0, p, m, 0,
+                                   dpeep=dpeep2)
+        same = (all(bool(a.equal(b_)) for a, b_ in zip(again, out))
+                and all(bool(a.equal(b_)) for a, b_ in zip(again_b, got_b)
+                        if a is not None)
+                and (not peep or bool(dpeep2.equal(dpeep))))
+        # no output buffer unmasked, as LSTMLayer calls it (the output is h)
+        fwd_buf = (None if m is None else torch.empty_like(c0),
+                   torch.empty_like(c0), torch.empty_like(c0),
+                   torch.empty_like(z))
+        dz_buf = torch.empty_like(z)
+        fwd = lambda: rc.lstm_cell_fwd(z, b, c0, h0, p, m, 0, out=fwd_buf)
+        bwd = lambda: rc.lstm_cell_bwd(dy, dh, dc, ref[3], ref[2], c0, p, m,
+                                       0, dz=dz_buf, dpeep=dpeep)
+        row = {"case": dict(zip(("n", "h", "peepholes", "masked"), case)),
+               "max_rel_err": {"fwd": err_f, "bwd": err_b},
+               "max_abs_err": {"fwd": abs_f, "bwd": abs_b},
+               "bit_identical": same,
+               "fwd_ms": time_ms(fwd, torch),
+               "fwd_device_ms": device_ms(fwd, torch),
+               "bwd_ms": time_ms(bwd, torch),
+               "bwd_device_ms": device_ms(bwd, torch),
+               "fwd_plain_ms": time_ms(
+                   lambda: rc.cell_fwd_reference(z, b, c0, h0, p, m, 0),
+                   torch),
+               "bwd_plain_ms": time_ms(
+                   lambda: rc.cell_bwd_reference(dy, dh, dc, ref[3], ref[2],
+                                                 c0, p, m, 0), torch)}
+        for which in ("fwd", "bwd"):
+            row[f"{which}_bound_ms"], row[f"{which}_bound_by"] = \
+                k11_bound_ms(n, hd, peep, masked, which)
+        row["library"] = None
+        if not peep and not masked:
+            row.update(k11_library(torch, aten, z, b, c0, h0))
+        rows[case] = row
+        emit(k11_case=row)
+        check(err_f <= TOL_K11["fwd"] and err_b <= TOL_K11["bwd"],
+              f"K11 {case}: {err_f} / {err_b} over {TOL_K11}")
+        check(same, f"K11 {case}: a second launch gave other bits")
+    return rows
+
+
+def k11_library(torch, aten, z, b, c0, h0):
+    """aten's fused LSTM cell on the same step (LSTM, tanh, no mask):
+    ``_thnn_fused_lstm_cell(input_gates, hidden_gates, cx, input_bias,
+    hidden_bias)`` with the input gates z, zero hidden gates and a zero
+    hidden bias, and its backward ``_thnn_fused_lstm_cell_backward_impl``;
+    its agreement with K11f's h and c and its times, or why it was not
+    measured (a yardstick: the port never calls it)."""
+    from deeplearning4j_tpu_torch.kernels import rnn_cell as rc
+    try:
+        cell = aten._thnn_fused_lstm_cell
+        cell_bwd = aten._thnn_fused_lstm_cell_backward_impl
+        zero, zero_b = torch.zeros_like(z), torch.zeros_like(b)
+        hy, cy, ws = cell(z, zero, c0, b, zero_b)
+        gh, gc = torch.randn_like(hy), torch.randn_like(cy)
+        fwd = lambda: cell(z, zero, c0, b, zero_b)
+        bwd = lambda: cell_bwd(gh, gc, c0, cy, ws, True)
+        bwd()
+        torch.cuda.synchronize()
+    except (AttributeError, RuntimeError) as e:
+        return {"library": "_thnn_fused_lstm_cell",
+                "library_ms": None, "library_error": str(e)[:300]}
+    _y, h, c, _g = rc.lstm_cell_fwd(z, b, c0, h0, None, None, 0)
+    return {"library": "_thnn_fused_lstm_cell",
+            "library_vs_k11": {"h": (hy - h).abs().max().item(),
+                               "c": (cy - c).abs().max().item()},
+            "library_ms": time_ms(fwd, torch),
+            "library_device_ms": device_ms(fwd, torch),
+            "library_bwd_ms": time_ms(bwd, torch),
+            "library_bwd_device_ms": device_ms(bwd, torch)}
+
+
+def layer_vs_cudnn(torch, dev):
+    """One LSTM layer (R1's second: 256 → 256, N 32) over one 50-step
+    chunk, forward and backward: the port's layer Function (K11 a step)
+    against cuDNN's ``nn.LSTM`` (one layer, the same gate order and
+    weights), in turns; ms by CUDA events (host included) and device ms
+    and kernels from a profiler window of one pass each."""
+    from deeplearning4j_tpu_torch.nn.conf.layers import LSTM
+    layer = LSTM(n_in=256, n_out=256)
+    layer.apply_global_defaults({})
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    params = {k: (0.05 * torch.randn(s, generator=g, device=dev))
+              .requires_grad_() for k, s in layer.param_shapes().items()}
+    x = torch.randn((RNN_BATCH, RNN_TBPTT, 256), generator=g,
+                    device=dev).requires_grad_()
+    twin = torch.nn.LSTM(256, 256, batch_first=True).to(dev)
+    with torch.no_grad():
+        twin.weight_ih_l0.copy_(params["W"].t())
+        twin.weight_hh_l0.copy_(params["RW"].t())
+        twin.bias_ih_l0.copy_(params["b"])
+        twin.bias_hh_l0.zero_()
+    zeros = layer.initial_carry(RNN_BATCH, dev)
+
+    def port():
+        y, _ = layer.run(params, x, zeros)
+        y.backward(torch.ones_like(y))
+
+    def cudnn():
+        y, _ = twin(x)
+        y.backward(torch.ones_like(y))
+
+    with torch.no_grad():
+        agree = (layer.run(params, x, zeros)[0] - twin(x)[0]).abs().max()
+    timed = {"port": [], "cudnn": []}
+    for who in ("port", "cudnn", "cudnn", "port"):
+        timed[who].append(time_ms(port if who == "port" else cudnn, torch,
+                                  iters=10, repeats=5))
+    out = {"shape": {"n": RNN_BATCH, "t": RNN_TBPTT, "n_in": 256, "h": 256},
+           "output_max_abs_diff": agree.item()}
+    for who, fn in (("port", port), ("cudnn", cudnn)):
+        p = profile_window(torch, f"lstm_layer_{who}", fn,
+                           f"lstm_layer_{who}_trace.json", top=6)
+        out[who] = {"ms": statistics.median(timed[who]),
+                    "turns_ms": timed[who],
+                    "device_ms": p.get("device_busy_us", 0) / 1e3,
+                    "kernels": p.get("kernels"),
+                    "top_kernels": p.get("top_kernels")}
+    return out
+
+
+def plain_char_rnn(torch, width, dev, bf16=False):
+    """The yardstick: a 2-layer char-RNN in plain PyTorch modules (cuDNN's
+    ``nn.LSTM``, ``nn.Linear``), ``F.cross_entropy`` over every step,
+    ``torch.optim.Adam``, the carries detached every RNN_TBPTT steps; with
+    ``bf16`` the LSTM under bf16 autocast (``fit.dtype`` records the type
+    it computed in). Never on the port's path. Returns fit(x, y) over a
+    whole sequence."""
+    import torch.nn.functional as F
+    lstm = torch.nn.LSTM(RNN_CHARS, width, num_layers=2,
+                         batch_first=True).to(dev)
+    head = torch.nn.Linear(width, RNN_CHARS).to(dev)
+    opt = torch.optim.Adam(list(lstm.parameters()) + list(head.parameters()),
+                           lr=R1_LR)
+
+    def fit(x, y):
+        state = None
+        for s in range(0, x.shape[1], RNN_TBPTT):
+            xs, ys = x[:, s:s + RNN_TBPTT], y[:, s:s + RNN_TBPTT]
+            with torch.autocast("cuda", dtype=torch.bfloat16, enabled=bf16):
+                h, state = lstm(xs, state)
+            fit.dtype = str(h.dtype)
+            loss = F.cross_entropy(head(h.float()).flatten(0, 1),
+                                   ys.argmax(-1).flatten())
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+            state = tuple(t.detach() for t in state)
+        return loss
+    return fit
+
+
+def fit_timing(torch, fit):
+    """Host ms of one whole fit (ending in a synchronise), after one warm
+    fit: the median of two."""
+    fit()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(2):
+        t = time.perf_counter()
+        fit()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t))
+    return statistics.median(times)
+
+
+def rnn_timing(torch, label, net, x, y, twin_fit, smi, chunks):
+    """Host ms a chunk, characters/s, device ms, busy share and kernels a
+    chunk (a profiler window of one whole fit), top device ops, K11's
+    share of the device time and own peak memory, for the port's ``net``
+    and (where ``twin_fit`` is given) the plain twin, in turns (port,
+    twin, twin, port)."""
+    runs = {"port": lambda: net.fit(x, y)}
+    if twin_fit is not None:
+        runs["twin"] = lambda: twin_fit(x, y)
+    order = (("port", "twin", "twin", "port") if twin_fit is not None
+             else ("port", "port"))
+    timed, peaks = {k: [] for k in runs}, {}
+    for who in order:
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        timed[who].append(fit_timing(torch, runs[who]))
+        peaks[who] = max(peaks.get(who, 0),
+                         torch.cuda.max_memory_allocated() - before)
+    rows = []
+    for who, fn in runs.items():
+        p = profile_window(torch, f"{label}_{who}", fn,
+                           f"{label}_{who}_trace.json", top=12)
+        k11_us = sum(k["us"] for k in p.get("rnn_kernels") or [])
+        ms = statistics.median(timed[who]) / chunks
+        busy = p.get("device_busy_us")
+        rows.append({
+            "net": label, "model": who, "gpu": smi,
+            "host_ms_per_chunk": ms,
+            "turns_ms_per_fit": timed[who],
+            "chars_per_s": RNN_BATCH * RNN_TBPTT / (ms / 1e3),
+            "device_ms_per_chunk": (busy / 1e3 / chunks
+                                    if busy is not None else None),
+            "busy_share": p.get("busy_share"),
+            "kernels_per_chunk": (p["kernels"] / chunks
+                                  if "kernels" in p else None),
+            "k11_share": (k11_us / busy if busy else None),
+            "own_peak_bytes": peaks[who],
+            "top_ops": p.get("top_ops"), "top_kernels": p.get("top_kernels")})
+    return rows
+
+
+def recurrent_phase(torch):
+    """The recurrent slice on the card (R1-R4 above): checks (a)-(e) of
+    PERF.md's recurrent rows, K11 alone (b), the timings and the
+    recurrent path's launches: every count 0 just before one fit of R1 in
+    f32, read just after (2 × 1000 K11f and K11b, nothing else). Returns
+    (that launch tuple, the K11 rows)."""
+    from deeplearning4j_tpu_torch._device import resolve_device
+    from deeplearning4j_tpu_torch.nn.params import tree_to_numpy
+    t_phase = time.perf_counter()
+    dev = resolve_device(None)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    k11_rows = k11_phase(torch)
+    chunks = RNN_SEQ // RNN_TBPTT
+    x, y = char_stream(RNN_BATCH, RNN_SEQ)
+
+    # (a) R1 and R2 in f32: the card against the CPU, one fit each; the
+    # launch count of the recurrent path is R1's card fit
+    reports, launches = {}, None
+    for name in ("R1", "R2"):
+        cpu = rnn_net(name, "cpu")
+        base = tree_to_numpy(cpu.param_tree())
+        card = rnn_net(name, dev)
+        carry_net(cpu, card)
+        control = rnn_net(name, dev)
+        carry_net(cpu, control)
+        cpu_out = tbptt_fit_record(cpu, x, y)
+        if name == "R1":
+            reset_all_counts()
+        card_out = tbptt_fit_record(card, x, y)
+        if name == "R1":
+            launches = all_counts()
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            ctl_out = tbptt_fit_record(control, x, y)
+            ctl_probs = control.output(x[:, :RNN_TBPTT]).cpu().numpy()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        reports[name] = {"f32": tbptt_report(card_out, cpu_out, base),
+                         "tf32_control": tbptt_report(ctl_out, cpu_out,
+                                                      base),
+                         "losses_first_last": [card_out["losses"][0],
+                                               card_out["losses"][-1]]}
+        # the fitted nets' outputs on the first chunk
+        cpu_probs = cpu.output(x[:, :RNN_TBPTT]).cpu().numpy()
+        reports[name]["f32"]["probs"] = rel_l2(
+            card.output(x[:, :RNN_TBPTT]).cpu().numpy(), cpu_probs)
+        reports[name]["tf32_control"]["probs"] = rel_l2(ctl_probs,
+                                                        cpu_probs)
+        del cpu, card, control
+    failed = {n: rows_failed(r["f32"], TOL_RNN_F32)
+              for n, r in reports.items()}
+    control = {n: rows_failed(r["tf32_control"], TOL_RNN_F32)
+               for n, r in reports.items()}
+    emit(recurrent_card_vs_cpu=reports, rows=TOL_RNN_F32, failed=failed,
+         control_failed=control)
+    check(not any(failed.values()), f"(a) f32 card vs CPU above its rows: "
+          f"{failed}")
+    check(all(control.values()), f"(a) a TF32 control passed the f32 rows: "
+          f"{control}")
+    check(launches == launch_counts(rnn_cell_fwd=2 * RNN_SEQ,
+                                    rnn_cell_bwd=2 * RNN_SEQ),
+          f"the recurrent path (one fit of R1) launched "
+          f"{dict(zip(ALL_KERNELS, launches))}")
+
+    # (c) streaming: rnnTimeStep one character at a time against output()
+    net = rnn_net("R1", dev)
+    xs = x[:, :RNN_STREAM_STEPS]
+    full = net.output(xs)
+    net.rnnClearPreviousState()
+    steps = torch.stack([net.rnnTimeStep(xs[:, t])
+                         for t in range(RNN_STREAM_STEPS)], 1)
+    stream_err = (steps - full).abs().max().item()
+    kept = net.rnnGetPreviousState(0)
+    net.rnnClearPreviousState()
+    cleared = net.rnnGetPreviousState(0)
+    restart = (net.rnnTimeStep(xs[:, 0]) - full[:, 0]).abs().max().item()
+    # sampling at batch 1, as examples/char_lstm.py does
+    rng = np.random.default_rng(SEED)
+    eye = np.eye(RNN_CHARS, dtype=np.float32)
+    net.rnnClearPreviousState()
+    ch = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(RNN_SAMPLE_CHARS):
+        p_ = net.rnnTimeStep(eye[None, ch]).double().cpu().numpy().ravel()
+        ch = int(rng.choice(RNN_CHARS, p=p_ / p_.sum()))
+    sample_ms = 1e3 * (time.perf_counter() - t0) / RNN_SAMPLE_CHARS
+    emit(recurrent_streaming={"max_abs_err": stream_err,
+                              "row": TOL_RNN_STREAM,
+                              "restart_err": restart,
+                              "kept_layers": None if kept is None
+                              else len(kept),
+                              "cleared_is_none": cleared is None,
+                              "sample_ms_per_char": sample_ms,
+                              "gpu": smi})
+    check(stream_err <= TOL_RNN_STREAM and restart <= TOL_RNN_STREAM,
+          f"(c) rnnTimeStep vs output(): {stream_err}, after a clear "
+          f"{restart}")
+    check(kept is not None and len(kept) == 2 and cleared is None,
+          "(c) rnnGetPreviousState before / after rnnClearPreviousState")
+
+    # (d) R1 bf16 against f32, same weights, one fit each
+    f32_net = rnn_net("R1", dev)
+    bf16_net = rnn_net("R1", dev, "bfloat16")
+    carry_net(f32_net, bf16_net)
+    probs = rel_l2(bf16_net.output(x[:, :RNN_TBPTT]).cpu().numpy(),
+                   f32_net.output(x[:, :RNN_TBPTT]).cpu().numpy())
+    o32 = tbptt_fit_record(f32_net, x, y)
+    o16 = tbptt_fit_record(bf16_net, x, y)
+    rep_d = {"loss": float(np.max(np.abs(np.subtract(o16["losses"],
+                                                     o32["losses"])))),
+             "probs": probs}
+    failed = rows_failed(rep_d, TOL_RNN_BF16)
+    too_close = floors_failed(rep_d, FLOOR_RNN_BF16)
+    emit(recurrent_bf16_vs_f32=rep_d, rows=TOL_RNN_BF16, failed=failed,
+         floors=FLOOR_RNN_BF16, floors_failed=too_close,
+         bf16_losses_first_last=[o16["losses"][0], o16["losses"][-1]])
+    check(not failed, f"(d) bf16 vs f32 above its rows: {failed}")
+    check(not too_close, f"(d) bf16 reads as close to f32 as f32 does: "
+          f"{too_close}")
+
+    # (e) R3, R1's layers as a graph with R1's weights, against R1; R4's
+    # masked rows against each row alone
+    seq_net = rnn_net("R1", dev)
+    graph = r3_graph(dev)
+    carry_net(seq_net, graph)
+    o_seq = tbptt_fit_record(seq_net, x, y)
+    o_graph = tbptt_fit_record(graph, x, y)
+    r3 = float(np.max(np.abs(np.subtract(o_graph["losses"],
+                                         o_seq["losses"]))))
+    r4 = r4_graph(dev)
+    rng = np.random.default_rng(SEED + 4)
+    lens = rng.integers(R4_LENS[0], R4_LENS[1] + 1, RNN_BATCH)
+    x4, _ = char_stream(RNN_BATCH, R4_T, seed=SEED + 4)
+    mask4 = (np.arange(R4_T)[None, :] < lens[:, None]).astype(np.float32)
+    x4 = x4 * mask4[..., None]
+    y4 = np.eye(R4_CLASSES, dtype=np.float32)[
+        rng.integers(0, R4_CLASSES, RNN_BATCH)]
+    batch_out = r4.output(x4, masks=[mask4]).cpu().numpy()
+    alone = np.concatenate([r4.output(x4[i:i + 1, :lens[i]]).cpu().numpy()
+                            for i in range(RNN_BATCH)])
+    r4_err = float(np.abs(batch_out - alone).max())
+    from deeplearning4j_tpu_torch.data.dataset import MultiDataSet
+    r4.fit(MultiDataSet([x4], [y4], [mask4], None))
+    r4_loss = r4.score()
+    rep_e = {"r3_loss": r3, "r4_alone": r4_err}
+    failed = rows_failed(rep_e, TOL_RNN_GRAPH)
+    emit(recurrent_graph=rep_e, rows=TOL_RNN_GRAPH, failed=failed,
+         r4_fit_loss=r4_loss, r4_lengths=[int(lens.min()), int(lens.max())])
+    check(not failed and math.isfinite(r4_loss),
+          f"(e) graph against sequential / R4 masked vs alone: {rep_e}, "
+          f"fit loss {r4_loss}")
+    del seq_net, graph, r4, f32_net, bf16_net, net
+    torch.cuda.empty_cache()
+
+    # timings: R1 f32 and bf16 (each with the twin, bf16 under autocast),
+    # R2 f32 (with a twin of its widths; cuDNN has no peepholes)
+    xd, yd = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+    rows = []
+    for label, name, dtype, width in (("r1_f32", "R1", "float32", 256),
+                                      ("r1_bf16", "R1", "bfloat16", 256),
+                                      ("r2_f32", "R2", "float32", 200)):
+        net = rnn_net(name, dev, dtype)
+        twin = plain_char_rnn(torch, width, dev, bf16=dtype == "bfloat16")
+        try:
+            twin(xd[:, :RNN_TBPTT], yd[:, :RNN_TBPTT])
+        except RuntimeError as e:      # a yardstick the library lacks
+            emit(recurrent_twin_error={"net": label, "error": str(e)[:300]})
+            twin = None
+        rows += rnn_timing(torch, label, net, xd, yd, twin, smi, chunks)
+        if twin is not None:
+            rows[-1]["twin_compute_dtype"] = twin.dtype
+        del net, twin
+        torch.cuda.empty_cache()
+    for r in rows:
+        emit(recurrent_timing=r)
+    emit(recurrent_lstm_layer_vs_cudnn=layer_vs_cudnn(torch, dev), gpu=smi)
+    emit(recurrent_phase_seconds=time.perf_counter() - t_phase,
+         recurrent_launches=dict(zip(ALL_KERNELS, launches)))
+    return launches, k11_rows
+
+
+def k11_kernel_entry(which, rows, launches):
+    """The kernels-line entry of K11f ("rnn_cell_fwd") or K11b
+    ("rnn_cell_bwd"), its numbers at K11_MAIN_CASE (R1's cell)."""
+    p = "fwd" if which == "rnn_cell_fwd" else "bwd"
+    main = rows[K11_MAIN_CASE]
+    lib = {"fwd": ("library_ms", "library_device_ms"),
+           "bwd": ("library_bwd_ms", "library_bwd_device_ms")}[p]
+    return {
+        "name": f"lstm_cell_{p}", "route": "cuda",
+        "source": "deeplearning4j_tpu_torch/kernels/csrc/rnn_cell.cu",
+        # LSTM.step (and GravesLSTM.step, :980) in _RnnBase.run's scan
+        "replaces": "deeplearning4j_tpu/nn/conf/layers.py:951",
+        "launches": sum(launches.values()), "launches_by_path": launches,
+        "on_main_path": sum(launches.values()) > 0,
+        "max_abs_err": max(r["max_abs_err"][p] for r in rows.values()),
+        "ms": main[f"{p}_ms"], "device_ms": main[f"{p}_device_ms"],
+        "plain_ms": main[f"{p}_plain_ms"], "bound_ms": main[f"{p}_bound_ms"],
+        "bound_by": main[f"{p}_bound_by"],
+        "library": main.get("library"),
+        "library_ms": main.get(lib[0]),
+        "library_device_ms": main.get(lib[1]),
+        "at": main["case"]}
+
+
 def check_path_launches(serve, modes, train, moe, f32_serve, f32_train,
-                        pipeline, frontdoor, fleet, network):
+                        pipeline, frontdoor, fleet, network, recurrent):
     """Which kernels each main path launched (each an ``all_counts()``
     tuple): the bf16 paths (serving, the serving modes, the rungs, MoE)
     the wgmma flash kernels and never the simple forward or the mma.sync
@@ -4718,7 +5498,10 @@ def check_path_launches(serve, modes, train, moe, f32_serve, f32_train,
     on none, K4w on the int8 serving modes only (the prefill's insert);
     the front door K1's wgmma forward and K4a+w only, the fleet's demo
     model (f32, head dim 16) the simple forward and K4a+w only; the DL4J
-    network paths (ResNet-50, LeNet) no kernel of the port at all."""
+    network paths (ResNet-50, LeNet) no kernel of the port at all; the
+    recurrent path (one fit of R1: 20 chunks of 50 steps, 2 LSTM layers)
+    K11f and K11b 2 × 1000 times each and nothing else, and no other path
+    K11."""
     check(serve[0] > 0 and train[0] > 0 and moe[0] > 0,
           "a main path launched no flash_attention_fwd_wgmma")
     check(train[2] > 0 and moe[2] > 0,
@@ -4775,6 +5558,20 @@ def check_path_launches(serve, modes, train, moe, f32_serve, f32_train,
               f"the {label} path launched kernels off its path: {named}")
     check(not any(network), f"the network paths launched port kernels: "
           f"{dict(zip(ALL_KERNELS, network))}")
+    check(recurrent == launch_counts(rnn_cell_fwd=2 * RNN_SEQ,
+                                     rnn_cell_bwd=2 * RNN_SEQ),
+          f"the recurrent path launched "
+          f"{dict(zip(ALL_KERNELS, recurrent))}")
+    k11 = [ALL_KERNELS.index("rnn_cell_fwd"), ALL_KERNELS.index("rnn_cell_bwd")]
+    others = (serve, modes, train, moe, f32_serve, f32_train, pipeline,
+              frontdoor, fleet, network)
+    check(all(path[i] == 0 for path in others for i in k11),
+          "a path other than the recurrent one launched K11")
+
+
+def rnn_cell_ptxas(log):
+    """{"fwd"|"bwd": {"registers": n, "spill_bytes": n}}: K11's kernels."""
+    return _ptxas(log, r"lstm_(fwd|bwd)_kernel", lambda m: m.group(1))
 
 
 # --precision-f32: the f32 shapes of the kernel and backward phases
@@ -5086,6 +5883,16 @@ def compare_turns(other, this=ROOT, fwd=None, bwd=None):
     return times
 
 
+def check_rnn_cell_build(build):
+    """K11's two kernels spill nothing (when compiled in this run)."""
+    log = build.build_logs.get("rnn_cell")
+    if log is not None:
+        report = rnn_cell_ptxas(log)
+        emit(rnn_cell_ptxas=report)
+        check(spill_free(report, ["bwd", "fwd"]),
+              f"K11: want no spills in its two kernels, ptxas gave {report}")
+
+
 def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -5105,6 +5912,9 @@ def main() -> int:
     parser.add_argument("--network", action="store_true",
                         help="run only the DL4J network phase (ResNet-50 "
                         "and LeNet), which builds no kernel")
+    parser.add_argument("--recurrent", action="store_true",
+                        help="run only the recurrent phase (the char-RNNs "
+                        "R1-R4 and K11), which builds only K11")
     parser.add_argument("--precision-ce-f32", action="store_true",
                         help="measure the f32 K3 kernels and their plain "
                         "versions against f64 at the training shape, and "
@@ -5149,6 +5959,16 @@ def main() -> int:
         network = network_phase(torch)
         check(not any(network), f"the network paths launched port kernels: "
               f"{dict(zip(ALL_KERNELS, network))}")
+        return 0
+    if args.recurrent:
+        t0 = time.perf_counter()
+        _build.load("rnn_cell")
+        emit(build={"seconds": time.perf_counter() - t0})
+        check_rnn_cell_build(_build)
+        recurrent, k11_rows = recurrent_phase(torch)
+        emit(kernels=[k11_kernel_entry(k, k11_rows, {
+            "recurrent": recurrent[ALL_KERNELS.index(k)]})
+            for k in ("rnn_cell_fwd", "rnn_cell_bwd")])
         return 0
 
     t0 = time.perf_counter()
@@ -5208,6 +6028,7 @@ def main() -> int:
             check(spill_free(report, want),
                   f"{name}: want no spills in its {len(want)} kernels, "
                   f"ptxas gave {report}")
+    check_rnn_cell_build(_build)
     log = _build.build_logs.get("paged_attention")
     if log is not None:
         report = k4a_ptxas(log)
@@ -5266,16 +6087,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     allocated("f32_train_phase")
     network = network_phase(torch)
+    torch.cuda.empty_cache()
+    recurrent, k11_rows = recurrent_phase(torch)
     launches = {name: {"serve": serve[i], "serve_modes": modes[i],
                        "pipeline": pipeline[i], "frontdoor": frontdoor[i],
                        "fleet": fleet[i],
                        "train": train[i], "moe": moe[i],
                        "f32_serve": f32_serve[i], "f32_train": f32_train[i],
-                       "network": network[i]}
+                       "network": network[i], "recurrent": recurrent[i]}
                 for i, name in enumerate(ALL_KERNELS)}
     emit(main_path_launches=launches)
     check_path_launches(serve, modes, train, moe, f32_serve, f32_train,
-                        pipeline, frontdoor, fleet, network)
+                        pipeline, frontdoor, fleet, network, recurrent)
     emit(kernels=[kernel_entry("wgmma", cases, launches["wgmma"]),
                   kernel_entry("simple", cases, launches["simple"]),
                   bwd_kernel_entry("bwd_wgmma", bwd_cases,
@@ -5299,7 +6122,9 @@ def main() -> int:
          + [ce_kernel_entry(k, ce_cases, launches[k])
             for k in ("ce_fwd_tf32", "ce_dlogits_tf32", "ce_split_tf32")]
          + [decode_kernel_entry("paged_attention_write", decode_cases,
-                                launches["paged_attention_write"])])
+                                launches["paged_attention_write"])]
+         + [k11_kernel_entry(k, k11_rows, launches[k])
+            for k in ("rnn_cell_fwd", "rnn_cell_bwd")])
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

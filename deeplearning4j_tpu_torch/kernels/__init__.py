@@ -25,6 +25,8 @@ COUNTERS = {
     "ce_dlogits_tf32": ("chunked_ce", "launches_dlogits_tf32"),
     "ce_split_tf32": ("chunked_ce", "launches_split_tf32"),
     "paged_attention_write": ("paged_attention", "launches_attend_write"),
+    "rnn_cell_fwd": ("rnn_cell", "launches_cell_fwd"),
+    "rnn_cell_bwd": ("rnn_cell", "launches_cell_bwd"),
 }
 
 

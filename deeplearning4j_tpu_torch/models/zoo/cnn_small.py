@@ -1,16 +1,17 @@
-"""Small sequential zoo CNNs: counterpart of the ``LeNet`` and
-``SimpleCNN`` of ``deeplearning4j_tpu/models/zoo/cnn_small.py`` (ref:
-``org.deeplearning4j.zoo.model.{LeNet,SimpleCNN}``). ``AlexNet`` and
-``TextGenerationLSTM`` wait with the other zoo models (ROADMAP queue 1
-item 8).
+"""Small sequential zoo models: counterpart of the ``LeNet``,
+``SimpleCNN`` and ``TextGenerationLSTM`` of
+``deeplearning4j_tpu/models/zoo/cnn_small.py`` (ref:
+``org.deeplearning4j.zoo.model.{LeNet,SimpleCNN,TextGenerationLSTM}``).
+``AlexNet`` waits with the other zoo models (ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 
-from deeplearning4j_tpu_torch.nn.conf.configuration import NeuralNetConfiguration
+from deeplearning4j_tpu_torch.nn.conf.configuration import (
+    BackpropType, NeuralNetConfiguration)
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import (
-    BatchNormalization, ConvolutionLayer, DenseLayer, DropoutLayer,
-    OutputLayer, SubsamplingLayer)
+    LSTM, BatchNormalization, ConvolutionLayer, DenseLayer, DropoutLayer,
+    OutputLayer, RnnOutputLayer, SubsamplingLayer)
 from deeplearning4j_tpu_torch.optim.updaters import Adam
 from deeplearning4j_tpu_torch.models.zoo.base import ZooModel
 
@@ -89,3 +90,33 @@ class SimpleCNN(ZooModel):
         b.layer(OutputLayer(n_out=self.num_classes, activation="softmax",
                             loss_function="mcxent"))
         return b.set_input_type(InputType.convolutional(h, w, c)).build()
+
+
+class TextGenerationLSTM(ZooModel):
+    """ref: zoo.model.TextGenerationLSTM — the char-level 2 × LSTM(256)
+    language model, trained by truncated BPTT."""
+
+    def __init__(self, total_unique_characters: int = 47, seed: int = 123,
+                 tbptt_length: int = 50, updater=None,
+                 data_type: str = "float32"):
+        self.n_chars = total_unique_characters
+        self.seed = seed
+        self.tbptt_length = tbptt_length
+        self.updater = updater
+        self.data_type = data_type
+
+    def conf(self):
+        return (NeuralNetConfiguration.builder()
+                .seed(self.seed)
+                .updater(self.updater or Adam(1e-3))
+                .data_type(self.data_type)
+                .weight_init("xavier")
+                .list()
+                .layer(LSTM(n_in=self.n_chars, n_out=256, activation="tanh"))
+                .layer(LSTM(n_out=256, activation="tanh"))
+                .layer(RnnOutputLayer(n_out=self.n_chars, activation="softmax",
+                                      loss_function="mcxent"))
+                .backprop_type(BackpropType.TruncatedBPTT)
+                .t_bptt_length(self.tbptt_length)
+                .set_input_type(InputType.recurrent(self.n_chars))
+                .build())

@@ -25,6 +25,7 @@ import torch
 from deeplearning4j_tpu_torch import async_runtime as _async
 from deeplearning4j_tpu_torch._device import resolve_device
 from deeplearning4j_tpu_torch.nn import params as _flat
+from deeplearning4j_tpu_torch.nn._precision import _cast_float
 from deeplearning4j_tpu_torch.nn._step_tail import finish_train_step
 from deeplearning4j_tpu_torch.nn.conf import layers as L
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
@@ -58,17 +59,43 @@ def grad_transform(conf) -> T.Transform:
     return T.Chain(*chain)
 
 
-def layer_flops(layer, in_type: Optional[InputType], batch: int) -> int:
+#: gates of each recurrent layer: the column blocks of its W and RW
+_GATES = ((L.LSTM, 4), (L.GRU, 3), (L.SimpleRnn, 1))
+
+
+def layer_flops(layer, in_type: Optional[InputType], batch: int,
+                t: Optional[int] = None) -> int:
     """Forward FLOPs of one layer's products at ``batch`` (2 per
     multiply-add): a convolution's 2·N·Ho·Wo·kh·kw·Cin·Cout, a dense
-    layer's 2·N·n_in·n_out; elementwise work, pooling and normalization
-    count 0."""
+    layer's 2·N·n_in·n_out, once per timestep on a time series (the
+    ``RnnOutputLayer`` too); a recurrent layer's 2·N·T·(n_in + H)·G·H
+    with G its gates (4, 3, 1), twice under ``Bidirectional``. T is ``t``,
+    else the input type's length, else 1 (FLOPs a step). Elementwise
+    work, pooling, normalization and embedding gathers count 0."""
+    steps = t
+    if steps is None:
+        known = (in_type is not None and in_type.kind == "rnn"
+                 and in_type.timeseries_length > 0)
+        steps = in_type.timeseries_length if known else 1
+    if isinstance(layer, L.Bidirectional):
+        layer._materialize()
+        return 2 * layer_flops(layer._fwd_layer, in_type, batch, t)
+    if isinstance(layer, L.LastTimeStep):
+        layer._materialize()
+        return layer_flops(layer._inner_layer, in_type, batch, t)
+    for cls, gates in _GATES:
+        if isinstance(layer, cls):
+            return (2 * batch * steps * (layer.n_in + layer.n_out) * gates
+                    * layer.n_out)
     if isinstance(layer, L.ConvolutionLayer) and in_type is not None:
         ho, wo = layer._spatial_out(in_type)
         kh, kw = layer.kernel_size
         return 2 * batch * ho * wo * kh * kw * layer.n_in * layer.n_out
     if isinstance(layer, L.DenseLayer):
-        return 2 * batch * layer.n_in * layer.n_out
+        per_step = 2 * batch * layer.n_in * layer.n_out
+        rnn = isinstance(layer, L.RnnOutputLayer) or (
+            in_type is not None and in_type.kind == "rnn")
+        return per_step * (steps if rnn else 1)
     return 0
 
 
@@ -109,6 +136,8 @@ class NetworkBase:
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(conf.seed))
         self._signatures = set()     # step signatures run (compile_watch)
+        #: rnnTimeStep's carries between calls, by layer key
+        self._rnn_state: Dict[str, tuple] = {}
         self._initialized = False
 
     # ------------------------------------------------------------------ init
@@ -228,21 +257,25 @@ class NetworkBase:
                     penalty = penalty + 0.5 * l2 * torch.sum(torch.square(arr))
         return penalty
 
-    def _loss_fn(self, params, states, inputs, labels, fmasks, lmasks, gen):
-        """(loss, new_states) of a training forward."""
+    def _loss_fn(self, params, states, inputs, labels, fmasks, lmasks, gen,
+                 carries=None):
+        """(loss, new_states, new_carries) of a training forward; with
+        ``carries`` (a dict, TBPTT) the recurrent layers start from them
+        and ``new_carries`` holds their final carries, else it is None."""
         raise NotImplementedError
 
-    def _value_and_grad(self, inputs, labels, fmasks, lmasks, gen):
-        """(loss, new_states, grads) at the current params; ``grads`` a
-        list in flat order."""
+    def _value_and_grad(self, inputs, labels, fmasks, lmasks, gen,
+                        carries=None):
+        """(loss, new_states, new_carries, keys, leaves, grads) at the
+        current params; ``grads`` a list in flat order."""
         keys = _flat.leaf_keys(self._params)
         leaves = [self._params[k][p] for k, p in keys]
         for t in leaves:
             t.requires_grad_(True)
         try:
-            loss, new_states = self._loss_fn(self._params, self._states,
-                                             inputs, labels, fmasks, lmasks,
-                                             gen)
+            loss, new_states, new_carries = self._loss_fn(
+                self._params, self._states, inputs, labels, fmasks, lmasks,
+                gen, carries)
             grads = (torch.autograd.grad(loss, leaves, allow_unused=True)
                      if leaves else ())
         finally:
@@ -250,11 +283,14 @@ class NetworkBase:
                 t.requires_grad_(False)
         grads = [torch.zeros_like(t) if g is None else g
                  for t, g in zip(leaves, grads)]
-        return loss.detach(), new_states, keys, leaves, grads
+        return loss.detach(), new_states, new_carries, keys, leaves, grads
 
-    def _train_step(self, inputs, labels, fmasks, lmasks):
-        loss, new_states, keys, leaves, grads = self._value_and_grad(
-            inputs, labels, fmasks, lmasks, self._gen)
+    def _train_step(self, inputs, labels, fmasks, lmasks, carries=None):
+        """One step; returns (loss, health, new_carries). The carries
+        leave detached: gradients stop at a TBPTT chunk's boundary."""
+        loss, new_states, new_carries, keys, leaves, grads = \
+            self._value_and_grad(inputs, labels, fmasks, lmasks, self._gen,
+                                 carries)
         frozen = [k in self._frozen for k, _ in keys]
         with torch.no_grad():
             new_leaves, self._opt_state, (new_states,), health = \
@@ -263,13 +299,16 @@ class NetworkBase:
                                   guarded=((new_states, self._states),))
         self._set_leaves(keys, new_leaves)
         self._states = new_states
-        return loss, health
+        if new_carries is not None:
+            new_carries = {k: tuple(c.detach() for c in v)
+                           for k, v in new_carries.items()}
+        return loss, health, new_carries
 
     def computeGradientAndScore(self, *args, **kwargs):
         """(score, grads): the gradient tree ``{layer: {param: tensor}}``
         at the current params (ref: Model#computeGradientAndScore)."""
         inputs, labels, fmasks, lmasks = self._gradient_args(*args, **kwargs)
-        loss, _, keys, _, grads = self._value_and_grad(
+        loss, _, _, keys, _, grads = self._value_and_grad(
             inputs, labels, fmasks, lmasks, self._gen)
         tree = {k: {} for k in self._params}
         for (k, p), g in zip(keys, grads):
@@ -352,11 +391,13 @@ class NetworkBase:
         if pend:
             _num.publish(self, pend)
 
-    def _note_signature(self, fn, inputs, labels, fmasks, lmasks):
+    def _note_signature(self, fn, inputs, labels, fmasks, lmasks,
+                        carried=False):
         """compile_watch's stand-in for a trace: the first step at each
-        (shapes, dtypes, frozen set)."""
+        (shapes, dtypes, masks, carries, frozen set)."""
         key = (tuple((tuple(x.shape), x.dtype) for x in inputs + labels),
-               fmasks is None, lmasks is None, frozenset(self._frozen))
+               fmasks is None, lmasks is None, carried,
+               frozenset(self._frozen))
         if key in self._signatures:
             return
         self._signatures.add(key)
@@ -382,6 +423,12 @@ class NetworkBase:
                            _faults.corrupt("train.step", inputs))
         batch_n = int(inputs[0].shape[0]) if inputs else 0
         self._last_batch_size = batch_n
+        series = [int(x.shape[1]) for x in inputs if x.dim() == 3]
+        if getattr(self.conf, "backprop_type", "standard") == "tbptt" \
+                and series:
+            self._fit_tbptt(inputs, labels, fmasks, lmasks, max(series),
+                            data_wait)
+            return
         # deferred loss fetch: listeners need a float score every step,
         # otherwise the fetch happens every score_every steps, at epoch
         # end, and on score()
@@ -394,7 +441,8 @@ class NetworkBase:
         t0 = time.perf_counter()
         with _span("train_step", model=kind, iteration=self._iteration,
                    batch=batch_n):
-            loss, health = self._train_step(inputs, labels, fmasks, lmasks)
+            loss, health, _ = self._train_step(inputs, labels, fmasks,
+                                               lmasks)
             if health is not None:
                 self._pending_health.append(_num.stamp_step(health))
             if sync_now:
@@ -415,7 +463,8 @@ class NetworkBase:
                     _num.publish(self, old)
         t1 = time.perf_counter()
         _cost.on_step(fn, getattr(self, "_cost_fn_name", None) or fn,
-                      t1 - t0, lambda: self.step_cost(batch_n))
+                      t1 - t0, lambda: self.step_cost(
+                          batch_n, max(series) if series else None))
         self._iteration += 1
         with _span("listeners", model=kind):
             for lst in self._listeners:
@@ -426,19 +475,85 @@ class NetworkBase:
             time.perf_counter() - t1, data_wait, pipelined=defer_mode)
         _flight().progress("train_step")
 
+    def _fit_tbptt(self, inputs, labels, fmasks, lmasks, t_total,
+                   data_wait=None):
+        """Truncated BPTT: the time axis in chunks of
+        ``tbptt_fwd_length`` (3-D inputs and labels; masks from 2-D), one
+        train step each, the recurrent carries taken into the next chunk
+        detached, so gradients stop at chunk boundaries
+        (``tbptt_bwd_length`` is not read, as in the reference). The score
+        is fetched at every chunk; each chunk is an iteration with its own
+        ``train_step_tbptt`` span and listener call; examples and
+        ``data_wait`` count at chunk 0 only."""
+        kind = type(self).__name__
+        fn = f"{kind}._train_step"
+        fwd = self.conf.tbptt_fwd_length
+        batch_n = self._last_batch_size
+        carries = {}
+        self._pending_score = None   # TBPTT stays per-chunk synchronous
+
+        def chunk(seq, start, end, min_ndim):
+            if seq is None:
+                return None
+            return tuple(a[:, start:end] if a is not None
+                         and a.dim() >= min_ndim else a for a in seq)
+
+        for start in range(0, t_total, fwd):
+            end = min(start + fwd, t_total)
+            ci, cl = chunk(inputs, start, end, 3), chunk(labels, start, end, 3)
+            fm = chunk(fmasks, start, end, 2)
+            lm = chunk(lmasks, start, end, 2)
+            self._note_signature(fn, ci, cl, fm, lm, carried=bool(carries))
+            t0 = time.perf_counter()
+            with _span("train_step_tbptt", model=kind,
+                       iteration=self._iteration, t_start=start):
+                loss, health, carries = self._train_step(ci, cl, fm, lm,
+                                                         carries)
+                self._score = float(loss)
+                if health is not None:          # per-chunk synchronous
+                    self._pending_health.append(_num.stamp_step(health))
+                    self._drain_numerics()
+            t1 = time.perf_counter()
+            _cost.on_step(fn, getattr(self, "_cost_fn_name", None) or fn,
+                          t1 - t0, lambda n=end - start: self.step_cost(
+                              batch_n, n))
+            self._iteration += 1
+            for lst in self._listeners:
+                lst.iteration_done(self, self._iteration, self._epoch,
+                                   self._score)
+            # examples (and data_wait) count once a batch: every chunk
+            # sees the same examples
+            _tm.for_model(self).record_step(
+                batch_n if start == 0 else 0, self._score, t1 - t0,
+                time.perf_counter() - t1, data_wait if start == 0 else None)
+            _flight().progress("train_step")
+
+    # ------------------------------------------------------- rnn streaming
+    def rnnClearPreviousState(self):
+        """Forget the carries ``rnnTimeStep`` kept: the next call starts
+        from zero carries."""
+        self._rnn_state = {}
+
+    def rnnGetPreviousState(self, key):
+        """The carries ``rnnTimeStep`` kept for a layer (its index in a
+        ``MultiLayerNetwork``, its name in a ``ComputationGraph``), or
+        None."""
+        return self._rnn_state.get(str(key))
+
     # ------------------------------------------------------- accounting
-    def _forward_flops(self, batch: int) -> int:
+    def _forward_flops(self, batch: int, t: Optional[int] = None) -> int:
         raise NotImplementedError
 
-    def step_cost(self, batch: int):
-        """Analytic (FLOPs, bytes) of one train step at ``batch``: FLOPs by
+    def step_cost(self, batch: int, t: Optional[int] = None):
+        """Analytic (FLOPs, bytes) of one train step at ``batch`` (and
+        ``t`` timesteps, where the net takes a time series): FLOPs by
         :func:`train_flops`; bytes as every param, its gradient and the
         updater state read and written once in f32 (a floor: activations'
         traffic is not counted)."""
         n = self.numParams()
-        n_state = sum(t.numel() for t in T.state_leaves(self._opt_state)
-                      if isinstance(t, torch.Tensor))
-        return (float(train_flops(self._forward_flops(batch))),
+        n_state = sum(a.numel() for a in T.state_leaves(self._opt_state)
+                      if isinstance(a, torch.Tensor))
+        return (float(train_flops(self._forward_flops(batch, t))),
                 float(4 * (3 * n + 2 * n_state)))
 
     # ----------------------------------------------------------- inference
@@ -448,7 +563,7 @@ class NetworkBase:
             return self._sync_score()
         inputs, labels, _, _ = self._ds_args(dataset)
         with torch.no_grad():
-            loss, _ = self._loss_fn(
+            loss, _, _ = self._loss_fn(
                 self._params, self._states,
                 tuple(self._to_device(x) for x in inputs),
                 tuple(self._to_device(y) for y in labels), None, None, None)
@@ -488,6 +603,21 @@ def as_tuple(x) -> tuple:
     if isinstance(x, (list, tuple)):
         return tuple(x)
     return (x,)
+
+
+def run_recurrent(layer, lp, h, carries, key, training, gen, mask):
+    """(output, final carry) of the recurrent ``layer`` started from
+    ``carries[key]`` (zero carries where missing: TBPTT's first chunk,
+    streaming's first call); the final carry is cast back to the dtype of
+    the one it started from, so the carries keep their dtype across
+    chunks (the reference's ``recast_like``)."""
+    carry0 = carries.get(key)
+    if carry0 is None:
+        carry0 = layer.carry_for(h)
+    out, carry = layer.run(lp, layer._maybe_dropout(h, training, gen),
+                           carry0, mask=mask)
+    return out, tuple(_cast_float(c, c0.dtype)
+                      for c, c0 in zip(carry, carry0))
 
 
 def remat_apply(layer, lp, x, state, gen, kwargs, policy_name=None):

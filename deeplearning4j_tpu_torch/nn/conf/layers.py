@@ -17,9 +17,13 @@ Conventions (the reference's):
 Ported here: ``Layer``, ``DenseLayer``, ``OutputLayer``, ``LossLayer``,
 ``ActivationLayer``, ``DropoutLayer``, ``FlattenLayer``,
 ``ConvolutionLayer``, ``SubsamplingLayer``, ``ZeroPaddingLayer``,
-``GlobalPoolingLayer``, ``BatchNormalization`` and
-``LocalResponseNormalization``. The recurrent, attention, 1-D/3-D,
-embedding and ``layers2`` layers wait (ROADMAP queue 1 item 8).
+``GlobalPoolingLayer``, ``BatchNormalization``,
+``LocalResponseNormalization``, ``EmbeddingLayer``,
+``EmbeddingSequenceLayer`` and the recurrent layers (``LSTM``,
+``GravesLSTM``, ``GRU``, ``SimpleRnn``, ``Bidirectional``,
+``RnnOutputLayer``, ``LastTimeStep``; their time loops in
+``kernels/rnn_cell.py``). The attention, 1-D/3-D and ``layers2`` layers
+wait (ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ from deeplearning4j_tpu_torch.nn import weights as _winit
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType, conv_out_size
 from deeplearning4j_tpu_torch.ops import standard as _ops
 from deeplearning4j_tpu_torch.ops.moments import one_pass_moments
+from deeplearning4j_tpu_torch.ops.standard import promote_mm
 
 _LAYER_TYPES: Dict[str, type] = {}
 
@@ -198,7 +203,7 @@ class DenseLayer(Layer):
     def _affine(self, params, x):
         if x.dim() >= 4 or (x.dim() == 3 and x.shape[-1] != self.n_in):
             x = x.reshape(x.shape[0], -1)   # implicit CNN→FF flatten
-        z = x @ params["W"]
+        z = promote_mm(x, params["W"])
         if self.has_bias:
             z = z + params["b"]
         return z
@@ -494,3 +499,448 @@ class LocalResponseNormalization(Layer):
     def apply(self, params, x, training=False, gen=None, state=None):
         return _ops.lrn(x, depth_radius=self.n // 2, bias=self.k,
                         alpha=self.alpha, beta=self.beta), state
+
+
+# ---------------------------------------------------------------- embedding
+@register_layer
+@dataclasses.dataclass
+class EmbeddingLayer(Layer):
+    """Index → vector: (N,) or (N, 1) indices → (N, n_out), a gather."""
+    n_in: Optional[int] = None   # vocab
+    n_out: Optional[int] = None
+    has_bias: bool = False
+
+    def set_n_in(self, input_type: InputType):
+        if self.n_in is None:
+            self.n_in = input_type.array_elements()
+
+    def output_type(self, input_type: InputType) -> InputType:
+        return InputType.feed_forward(self.n_out)
+
+    def param_shapes(self):
+        shapes = {"W": (self.n_in, self.n_out)}
+        if self.has_bias:
+            shapes["b"] = (self.n_out,)
+        return shapes
+
+    def init_params(self, gen):
+        p = {"W": _winit.init(self.weight_init, gen, (self.n_in, self.n_out),
+                              self.n_in, self.n_out)}
+        if self.has_bias:
+            p["b"] = torch.zeros((self.n_out,))
+        return p
+
+    def apply(self, params, x, training=False, gen=None, state=None):
+        idx = x.long()
+        if idx.dim() == 2 and idx.shape[1] == 1:
+            idx = idx[:, 0]
+        z = params["W"][idx]
+        if self.has_bias:
+            z = z + params["b"]
+        return self._act(z), state
+
+
+@register_layer
+@dataclasses.dataclass
+class EmbeddingSequenceLayer(EmbeddingLayer):
+    """(N, T) indices → (N, T, n_out)."""
+    input_length: int = -1
+
+    def output_type(self, input_type: InputType) -> InputType:
+        return InputType.recurrent(self.n_out, self.input_length)
+
+
+# ---------------------------------------------------------------- recurrent
+@dataclasses.dataclass
+class _RnnBase(Layer):
+    """A recurrent layer: ``run`` is the time loop over ``step``, with the
+    reference's mask semantics (a masked step freezes the carry and zeroes
+    the output; the float mask counts as set where it is nonzero). The
+    carries are f32. Here the loop runs the torch ``step`` under autograd;
+    an LSTM on K11's route runs ``kernels/rnn_cell.py``'s ``LSTMLayer``, one
+    autograd node a layer."""
+    n_in: Optional[int] = None
+    n_out: Optional[int] = None
+
+    def apply_global_defaults(self, defaults: dict):
+        # recurrent layers default to tanh, not identity
+        if self.activation is None and defaults.get("activation") is None:
+            self.activation = "tanh"
+        super().apply_global_defaults(defaults)
+
+    def set_n_in(self, input_type: InputType):
+        if self.n_in is None:
+            self.n_in = input_type.size
+
+    def output_type(self, input_type: InputType) -> InputType:
+        return InputType.recurrent(self.n_out, input_type.timeseries_length)
+
+    def initial_carry(self, batch: int, device=None, dtype=torch.float32):
+        return (torch.zeros((batch, self.n_out), device=device,
+                            dtype=dtype),)
+
+    def carry_for(self, x):
+        """Zero carries for the input ``x``: f32, as the reference's (f64
+        for an f64 input)."""
+        return self.initial_carry(x.shape[0], x.device,
+                                  torch.promote_types(x.dtype,
+                                                      torch.float32))
+
+    def step(self, params, carry, x_t):
+        raise NotImplementedError
+
+    def run(self, params, x, carry0, mask=None):
+        """(N, T, C) + carry → ((N, T, H), final carry)."""
+        carry, outs = tuple(carry0), []
+        for t in range(x.shape[1]):
+            new, h = self.step(params, carry, x[:, t])
+            if mask is not None:
+                m = mask[:, t, None]
+                keep = m != 0
+                new = tuple(torch.where(keep, a, b)
+                            for a, b in zip(new, carry))
+                h = h * m
+            carry = new
+            outs.append(h)
+        return torch.stack(outs, dim=1), carry
+
+    def apply(self, params, x, training=False, gen=None, state=None,
+              mask=None):
+        x = self._maybe_dropout(x, training, gen)
+        out, _ = self.run(params, x, self.carry_for(x), mask=mask)
+        return out, state
+
+
+@register_layer
+@dataclasses.dataclass
+class LSTM(_RnnBase):
+    """Fused-gate LSTM, gate order (i, f, g, o). Its time loop is K11's
+    layer Function (``kernels/rnn_cell.py`` ``LSTMLayer``: the hand CUDA
+    cell on the card, its plain version on the CPU) when K11 takes the
+    cell activation (``rnn_cell.ACTIVATIONS``: tanh, identity, relu,
+    sigmoid, hardtanh, softsign); with any other activation it is the
+    plain step in ``_RnnBase.run``'s loop. The route follows from the
+    configuration (:meth:`cell_route`), never from a failed launch."""
+    forget_gate_bias_init: float = 1.0
+
+    def param_shapes(self):
+        # order W (input), RW (recurrent), b
+        return {"W": (self.n_in, 4 * self.n_out),
+                "RW": (self.n_out, 4 * self.n_out),
+                "b": (4 * self.n_out,)}
+
+    def init_params(self, gen):
+        h = self.n_out
+        b = torch.zeros((4 * h,))
+        b[h:2 * h] = self.forget_gate_bias_init      # the forget gate
+        return {
+            "W": _winit.init(self.weight_init, gen, (self.n_in, 4 * h),
+                             self.n_in, h),
+            "RW": _winit.init(self.weight_init, gen, (h, 4 * h), h, h),
+            "b": b,
+        }
+
+    def initial_carry(self, batch: int, device=None, dtype=torch.float32):
+        return tuple(torch.zeros((batch, self.n_out), device=device,
+                                 dtype=dtype) for _ in range(2))
+
+    def cell_route(self) -> str:
+        """"k11" (the fused cell) or "step" (the plain step in a loop)."""
+        from deeplearning4j_tpu_torch.kernels.rnn_cell import act_code
+        return "step" if act_code(self.activation or "identity") is None \
+            else "k11"
+
+    def _peepholes(self, params):
+        return None, None, None
+
+    def run(self, params, x, carry0, mask=None):
+        if self.cell_route() != "k11":
+            return super().run(params, x, carry0, mask)
+        from deeplearning4j_tpu_torch.kernels import rnn_cell
+        p_i, p_f, p_o = self._peepholes(params)
+        y, h, c = rnn_cell.LSTMLayer.apply(
+            rnn_cell.act_code(self.activation or "identity"), x,
+            params["W"], params["RW"], params["b"], p_i, p_f, p_o,
+            carry0[0], carry0[1], mask)
+        return y, (h, c)
+
+    def step(self, params, carry, x_t):
+        h_prev, c_prev = carry
+        z = (promote_mm(x_t, params["W"]) + promote_mm(h_prev, params["RW"])
+             + params["b"])
+        i, f, g, o = torch.chunk(z, 4, dim=-1)
+        c = torch.sigmoid(f) * c_prev + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * self._act(c)
+        return (h, c), h
+
+
+@register_layer
+@dataclasses.dataclass
+class GravesLSTM(LSTM):
+    """LSTM with peephole connections ``pI``, ``pF``, ``pO`` (the char-RNN
+    BASELINE config's layer); K11 takes them."""
+
+    def param_shapes(self):
+        shapes = dict(super().param_shapes())
+        shapes["pI"] = (self.n_out,)
+        shapes["pF"] = (self.n_out,)
+        shapes["pO"] = (self.n_out,)
+        return shapes
+
+    def init_params(self, gen):
+        p = super().init_params(gen)
+        for k in ("pI", "pF", "pO"):
+            p[k] = torch.zeros((self.n_out,))
+        return p
+
+    def _peepholes(self, params):
+        return params["pI"], params["pF"], params["pO"]
+
+    def step(self, params, carry, x_t):
+        h_prev, c_prev = carry
+        z = (promote_mm(x_t, params["W"]) + promote_mm(h_prev, params["RW"])
+             + params["b"])
+        i, f, g, o = torch.chunk(z, 4, dim=-1)
+        i = torch.sigmoid(i + params["pI"] * c_prev)
+        f = torch.sigmoid(f + params["pF"] * c_prev)
+        c = f * c_prev + i * torch.tanh(g)
+        o = torch.sigmoid(o + params["pO"] * c)
+        h = o * self._act(c)
+        return (h, c), h
+
+
+@register_layer
+@dataclasses.dataclass
+class GRU(_RnnBase):
+    """GRU, gate order (r, u, n), the reset gate applied after the
+    recurrent product (``reset_after``); ``recurrent_bias`` adds that
+    formulation's recurrent bias ``bR``. No kernel yet (ROADMAP queue 2,
+    K12): its step runs in ``_RnnBase.run``'s loop."""
+    recurrent_bias: bool = False
+
+    def param_shapes(self):
+        shapes = {"W": (self.n_in, 3 * self.n_out),
+                  "RW": (self.n_out, 3 * self.n_out),
+                  "b": (3 * self.n_out,)}
+        if self.recurrent_bias:
+            shapes["bR"] = (3 * self.n_out,)
+        return shapes
+
+    def init_params(self, gen):
+        h = self.n_out
+        p = {
+            "W": _winit.init(self.weight_init, gen, (self.n_in, 3 * h),
+                             self.n_in, h),
+            "RW": _winit.init(self.weight_init, gen, (h, 3 * h), h, h),
+            "b": torch.zeros((3 * h,)),
+        }
+        if self.recurrent_bias:
+            p["bR"] = torch.zeros((3 * h,))
+        return p
+
+    def step(self, params, carry, x_t):
+        (h_prev,) = carry
+        hn = self.n_out
+        zx = promote_mm(x_t, params["W"]) + params["b"]
+        zh = promote_mm(h_prev, params["RW"])
+        if self.recurrent_bias:
+            zh = zh + params["bR"]
+        r = torch.sigmoid(zx[..., :hn] + zh[..., :hn])
+        u = torch.sigmoid(zx[..., hn:2 * hn] + zh[..., hn:2 * hn])
+        n = self._act(zx[..., 2 * hn:] + r * zh[..., 2 * hn:])
+        h = (1 - u) * n + u * h_prev
+        return (h,), h
+
+
+@register_layer
+@dataclasses.dataclass
+class SimpleRnn(_RnnBase):
+    """Vanilla RNN; its step runs in ``_RnnBase.run``'s loop."""
+
+    def param_shapes(self):
+        return {"W": (self.n_in, self.n_out),
+                "RW": (self.n_out, self.n_out),
+                "b": (self.n_out,)}
+
+    def init_params(self, gen):
+        return {
+            "W": _winit.init(self.weight_init, gen, (self.n_in, self.n_out),
+                             self.n_in, self.n_out),
+            "RW": _winit.init(self.weight_init, gen, (self.n_out, self.n_out),
+                              self.n_out, self.n_out),
+            "b": torch.zeros((self.n_out,)),
+        }
+
+    def step(self, params, carry, x_t):
+        (h_prev,) = carry
+        h = self._act(promote_mm(x_t, params["W"])
+                      + promote_mm(h_prev, params["RW"]) + params["b"])
+        return (h,), h
+
+
+@register_layer
+@dataclasses.dataclass
+class Bidirectional(Layer):
+    """A recurrent layer run both ways, the backward one over the reversed
+    sequence (and mask); modes concat, add, mul and average; the two
+    layers' params prefixed ``f_`` and ``b_``."""
+    fwd: Optional[dict] = None   # serialized inner layer conf
+    mode: str = "concat"
+
+    _fwd_layer: Any = dataclasses.field(default=None, repr=False,
+                                        compare=False)
+    _bwd_layer: Any = dataclasses.field(default=None, repr=False,
+                                        compare=False)
+
+    @staticmethod
+    def wrap(inner: _RnnBase, mode: str = "concat") -> "Bidirectional":
+        b = Bidirectional(fwd=inner.to_dict(), mode=mode)
+        b._materialize()
+        return b
+
+    def _materialize(self):
+        if self._fwd_layer is None and self.fwd is not None:
+            self._fwd_layer = layer_from_dict(self.fwd)
+            self._bwd_layer = layer_from_dict(self.fwd)
+
+    def apply_global_defaults(self, defaults):
+        super().apply_global_defaults(defaults)
+        self._materialize()
+        self._fwd_layer.apply_global_defaults(defaults)
+        self._bwd_layer.apply_global_defaults(defaults)
+
+    def set_n_in(self, input_type: InputType):
+        self._materialize()
+        self._fwd_layer.set_n_in(input_type)
+        self._bwd_layer.set_n_in(input_type)
+        self.fwd = self._fwd_layer.to_dict()
+
+    def output_type(self, input_type: InputType) -> InputType:
+        inner = self._fwd_layer.output_type(input_type)
+        if self.mode == "concat":
+            return InputType.recurrent(inner.size * 2,
+                                       inner.timeseries_length)
+        return inner
+
+    def param_shapes(self):
+        self._materialize()
+        shapes = {}
+        for k, v in self._fwd_layer.param_shapes().items():
+            shapes["f_" + k] = v
+        for k, v in self._bwd_layer.param_shapes().items():
+            shapes["b_" + k] = v
+        return shapes
+
+    def init_params(self, gen):
+        p = {}
+        for k, v in self._fwd_layer.init_params(gen).items():
+            p["f_" + k] = v
+        for k, v in self._bwd_layer.init_params(gen).items():
+            p["b_" + k] = v
+        return p
+
+    def apply(self, params, x, training=False, gen=None, state=None,
+              mask=None):
+        fp = {k[2:]: v for k, v in params.items() if k.startswith("f_")}
+        bp = {k[2:]: v for k, v in params.items() if k.startswith("b_")}
+        out_f, _ = self._fwd_layer.apply(fp, x, training, gen, None,
+                                         mask=mask)
+        x_rev = torch.flip(x, dims=(1,))
+        m_rev = torch.flip(mask, dims=(1,)) if mask is not None else None
+        out_b, _ = self._bwd_layer.apply(bp, x_rev, training, gen, None,
+                                         mask=m_rev)
+        out_b = torch.flip(out_b, dims=(1,))
+        if self.mode == "concat":
+            return torch.cat([out_f, out_b], dim=-1), state
+        if self.mode == "add":
+            return out_f + out_b, state
+        if self.mode == "mul":
+            return out_f * out_b, state
+        if self.mode == "average":
+            return 0.5 * (out_f + out_b), state
+        raise ValueError(self.mode)
+
+
+@register_layer
+@dataclasses.dataclass
+class RnnOutputLayer(OutputLayer):
+    """Per-timestep output head on (N, T, C), its loss over every step
+    (a (N, T) label mask weights the steps)."""
+
+    def set_n_in(self, input_type: InputType):
+        if self.n_in is None:
+            self.n_in = input_type.size
+
+    def output_type(self, input_type: InputType) -> InputType:
+        return InputType.recurrent(self.n_out, input_type.timeseries_length)
+
+    def _logits(self, params, x):
+        z = promote_mm(x, params["W"])
+        if self.has_bias:
+            z = z + params["b"]
+        return z
+
+    def apply(self, params, x, training=False, gen=None, state=None):
+        x = self._maybe_dropout(x, training, gen)
+        return self._act(self._logits(params, x)), state
+
+    def loss(self, params, x, labels, mask=None, training=False, gen=None,
+             state=None):
+        x = self._maybe_dropout(x, training, gen)
+        z = self._logits(params, x)
+        fused = _loss.get_fused(self.loss_function, self.activation)
+        if fused is not None:
+            return fused(z, labels, mask)
+        return _loss.get(self.loss_function)(self._act(z), labels, mask)
+
+
+@register_layer
+@dataclasses.dataclass
+class LastTimeStep(Layer):
+    """Wraps a layer and collapses its (N, T, C) output to (N, C) at the
+    last step, or under a mask at index sum(mask) − 1 (the reference's
+    rule, which an interior gap in the mask misplaces; ROADMAP queue 3)."""
+    inner: Optional[dict] = None
+    _inner_layer: Any = dataclasses.field(default=None, repr=False,
+                                          compare=False)
+
+    @staticmethod
+    def wrap(inner: Layer) -> "LastTimeStep":
+        lts = LastTimeStep(inner=inner.to_dict())
+        lts._materialize()
+        return lts
+
+    def _materialize(self):
+        if self._inner_layer is None and self.inner is not None:
+            self._inner_layer = layer_from_dict(self.inner)
+
+    def apply_global_defaults(self, defaults):
+        super().apply_global_defaults(defaults)
+        self._materialize()
+        self._inner_layer.apply_global_defaults(defaults)
+
+    def set_n_in(self, input_type):
+        self._materialize()
+        self._inner_layer.set_n_in(input_type)
+        self.inner = self._inner_layer.to_dict()
+
+    def output_type(self, input_type):
+        t = self._inner_layer.output_type(input_type)
+        return InputType.feed_forward(t.size)
+
+    def param_shapes(self):
+        self._materialize()
+        return self._inner_layer.param_shapes()
+
+    def init_params(self, gen):
+        return self._inner_layer.init_params(gen)
+
+    def apply(self, params, x, training=False, gen=None, state=None,
+              mask=None):
+        out, state = self._inner_layer.apply(params, x, training, gen, state,
+                                             mask=mask)
+        if mask is not None:
+            last = torch.clamp_min(torch.sum(mask, dim=1).int() - 1, 0)
+            return out[torch.arange(out.shape[0], device=out.device),
+                       last.long()], state
+        return out[:, -1], state

@@ -12,8 +12,11 @@ updater state and stored states stay f32. Activations handed to a caller
 are f32. Only those are cast: the JAX package casts every activation and
 lets XLA drop the unused casts, which eager PyTorch would all run.
 
-TBPTT, ``rnnTimeStep``, ``save`` / ``load`` and ``evaluateROC*`` wait
-(ROADMAP queue 1 item 8).
+Recurrent nodes run from carries in truncated BPTT (``nn/_network.py``'s
+``_fit_tbptt``: 3-D inputs and labels chunked, masks from 2-D) and in
+``rnnTimeStep`` streaming; a vertex whose class sets ``takes_mask`` gets
+the first feature mask (``LastTimeStepVertex``). ``save`` / ``load`` and
+``evaluateROC*`` wait (ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -22,7 +25,8 @@ from typing import Dict
 import torch
 
 from deeplearning4j_tpu_torch.nn._network import (NetworkBase, as_tuple,
-                                                  layer_flops, remat_apply)
+                                                  layer_flops, remat_apply,
+                                                  run_recurrent)
 from deeplearning4j_tpu_torch.nn._precision import (_COMPUTE_DTYPES,
                                                     _cast_float, cast_params,
                                                     recast_like)
@@ -31,7 +35,8 @@ from deeplearning4j_tpu_torch.nn.graph_conf import (
     ComputationGraphConfiguration)
 from deeplearning4j_tpu_torch.nn.multilayer import _maybe_unflatten_input
 
-_MASK_AWARE = (L.GlobalPoolingLayer,)
+_MASK_AWARE = (L._RnnBase, L.Bidirectional, L.LastTimeStep,
+               L.GlobalPoolingLayer)
 
 
 def _ds_masks(ds, which: str):
@@ -61,11 +66,16 @@ class ComputationGraph(NetworkBase):
         return self._params[lname][pname]
 
     # --------------------------------------------------------------- forward
-    def _forward(self, params, states, inputs, training, gen, masks=None):
+    def _forward(self, params, states, inputs, training, gen, masks=None,
+                 carries=None):
         """Topological walk of the DAG; returns ({name: activation},
-        new_states). Hidden activations stay in the compute dtype."""
+        new_states, new_carries). Hidden activations stay in the compute
+        dtype. With ``carries`` (a dict by node name: TBPTT, streaming) the
+        recurrent layers start from theirs (zero where missing) and
+        ``new_carries`` holds their final ones."""
         acts: Dict[str, torch.Tensor] = {}
         new_states = dict(states)
+        new_carries = {}
         cdtype = _COMPUTE_DTYPES.get(getattr(self.conf, "dtype", "float32"))
         out_names = set(self.conf.network_outputs)
         in_types = (list(self.conf.input_types)
@@ -81,7 +91,10 @@ class ComputationGraph(NetworkBase):
             if cdtype is not None and name in out_names:
                 srcs = [_f32(s) for s in srcs]
             if node.layer is None:
-                acts[name] = node.vertex.apply(srcs)
+                if mask is not None and node.vertex.takes_mask:
+                    acts[name] = node.vertex.apply(srcs, mask=mask)
+                else:
+                    acts[name] = node.vertex.apply(srcs)
                 continue
             layer = node.layer
             lp = params.get(name, {})
@@ -92,7 +105,11 @@ class ComputationGraph(NetworkBase):
             if mask is not None and isinstance(layer, _MASK_AWARE):
                 kwargs["mask"] = mask
             lx = srcs if getattr(layer, "multi_input", False) else srcs[0]
-            if remat and name not in out_names:
+            if carries is not None and isinstance(layer, L._RnnBase):
+                h, new_carries[name] = run_recurrent(
+                    layer, lp, lx, carries, name, training, gen, mask)
+                st = lst
+            elif remat and name not in out_names:
                 h, st = remat_apply(layer, lp, lx, lst, gen, kwargs,
                                     getattr(self.conf, "remat_policy", None))
             else:
@@ -103,11 +120,12 @@ class ComputationGraph(NetworkBase):
                     st = recast_like(lst, st)
                 new_states[name] = st
             acts[name] = h
-        return acts, new_states
+        return acts, new_states, new_carries
 
-    def _loss_fn(self, params, states, inputs, labels, fmasks, lmasks, gen):
-        acts, new_states = self._forward(params, states, inputs, True, gen,
-                                         masks=fmasks)
+    def _loss_fn(self, params, states, inputs, labels, fmasks, lmasks, gen,
+                 carries=None):
+        acts, new_states, new_carries = self._forward(
+            params, states, inputs, True, gen, masks=fmasks, carries=carries)
         total = 0.0
         for i, out_name in enumerate(self.conf.network_outputs):
             node = self.conf.nodes[out_name]
@@ -123,7 +141,8 @@ class ComputationGraph(NetworkBase):
                                             training=True, gen=gen)
         total = total + self._regularization_penalty(params,
                                                      self._param_layers())
-        return total, new_states
+        return total, new_states, (new_carries if carries is not None
+                                   else None)
 
     # ------------------------------------------------------- argument forms
     @staticmethod
@@ -155,12 +174,39 @@ class ComputationGraph(NetworkBase):
         masks = (None if masks is None
                  else tuple(self._to_device(m) for m in masks))
         with torch.no_grad():
-            acts, _ = self._forward(self._params, self._states, arrs, False,
-                                    None, masks=masks)
+            acts, _, _ = self._forward(self._params, self._states, arrs,
+                                       False, None, masks=masks)
         outs = tuple(_f32(acts[n]) for n in self.conf.network_outputs)
         return outs[0] if len(outs) == 1 else outs
 
     outputSingle = output
+
+    def rnnTimeStep(self, *inputs):
+        """Stateful streaming inference (ref: ComputationGraph#rnnTimeStep):
+        the recurrent nodes carry their state across calls; inputs
+        (N, T, C), or (N, C) for one step. A single output unwrapped."""
+        if not self._initialized:
+            self.init()
+        if len(inputs) == 1 and isinstance(inputs[0], (list, tuple)):
+            inputs = tuple(inputs[0])
+        arrs, single = [], False
+        for x in inputs:
+            x = self._to_device(x)
+            if x.dim() == 2:
+                single = True
+                x = x[:, None, :]
+            arrs.append(x)
+        carries = self._rnn_state
+        with torch.no_grad():
+            acts, _, new = self._forward(self._params, self._states,
+                                         tuple(arrs), False, None,
+                                         carries=carries)
+        self._rnn_state = {**carries, **new}
+        outs = []
+        for n in self.conf.network_outputs:
+            h = _f32(acts[n])
+            outs.append(h[:, -1] if single and h.dim() == 3 else h)
+        return outs[0] if len(outs) == 1 else tuple(outs)
 
     def feedForward(self, *inputs, train: bool = False
                     ) -> Dict[str, torch.Tensor]:
@@ -169,16 +215,16 @@ class ComputationGraph(NetworkBase):
             inputs = tuple(inputs[0])
         arrs = tuple(self._to_device(x) for x in inputs)
         with torch.no_grad():
-            acts, _ = self._forward(self._params, self._states, arrs, train,
-                                    self._gen if train else None)
+            acts, _, _ = self._forward(self._params, self._states, arrs,
+                                       train, self._gen if train else None)
         return {k: _f32(v) for k, v in acts.items()}
 
     # ------------------------------------------------------------ accounting
-    def _forward_flops(self, batch: int) -> int:
+    def _forward_flops(self, batch: int, t=None) -> int:
         types = self.conf.activation_types
         return sum(layer_flops(self.conf.nodes[name].layer,
                                types.get(self.conf.nodes[name].inputs[0]),
-                               batch)
+                               batch, t)
                    for name, _ in self._param_layers())
 
     # ---------------------------------------------------------------- misc

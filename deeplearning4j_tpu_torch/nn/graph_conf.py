@@ -7,8 +7,10 @@ its input activations; autograd differentiates the whole DAG. Ported
 vertices: ``MergeVertex``, ``ElementWiseVertex``, ``SubsetVertex``,
 ``L2NormalizeVertex``, ``ScaleVertex``, ``ShiftVertex``, ``StackVertex``,
 ``UnstackVertex``, ``ReshapeVertex``, ``PoolHelperVertex``, ``L2Vertex``,
-``PreprocessorVertex`` and ``LambdaVertex``; the time-series and attention
-vertices wait (ROADMAP queue 1 item 8).
+``PreprocessorVertex``, ``LambdaVertex`` and the time-series vertices
+(``LastTimeStepVertex``, ``DuplicateToTimeSeriesVertex``,
+``ReverseTimeSeriesVertex``); the attention vertices wait (ROADMAP queue 1
+item 8).
 """
 from __future__ import annotations
 
@@ -41,7 +43,11 @@ def vertex_from_dict(d: dict) -> "GraphVertex":
 @dataclasses.dataclass
 class GraphVertex:
     """Parameterless DAG node combining/transforming activations
-    (ref: org.deeplearning4j.nn.conf.graph.GraphVertex)."""
+    (ref: org.deeplearning4j.nn.conf.graph.GraphVertex). A class that sets
+    ``takes_mask`` gets the network's first feature mask as ``apply``'s
+    ``mask``."""
+
+    takes_mask = False
 
     def to_dict(self) -> dict:
         d = dataclasses.asdict(self)
@@ -222,6 +228,56 @@ class L2Vertex(GraphVertex):
 
     def output_type(self, input_types):
         return InputType.feed_forward(1)
+
+
+@register_vertex
+@dataclasses.dataclass
+class LastTimeStepVertex(GraphVertex):
+    """(N, T, C) → (N, C) at the last step whose mask is set (not
+    sum(mask) − 1: a mask with an interior gap, [1, 0, 1, 0], picks index
+    2), index 0 for a row whose mask is all zero; the last step without a
+    mask."""
+
+    takes_mask = True
+
+    def apply(self, inputs, mask=None):
+        x = inputs[0]
+        if mask is None:
+            return x[:, -1]
+        t_len = x.shape[1]
+        set_ = torch.flip(mask, dims=(1,)) > 0
+        last = t_len - 1 - torch.argmax(set_.int(), dim=1)
+        last = torch.where(torch.sum(mask, dim=1) > 0, last,
+                           torch.zeros_like(last))
+        return x[torch.arange(x.shape[0], device=x.device), last]
+
+    def output_type(self, input_types):
+        return InputType.feed_forward(input_types[0].size)
+
+
+@register_vertex
+@dataclasses.dataclass
+class DuplicateToTimeSeriesVertex(GraphVertex):
+    """(N, C) → (N, T, C), T taken from a time series: inputs [vector,
+    series] (a seq2seq decoder broadcasting an encoder's summary)."""
+
+    def apply(self, inputs):
+        vec, series = inputs[0], inputs[1]
+        return vec[:, None, :].expand(vec.shape[0], series.shape[1],
+                                      vec.shape[-1])
+
+    def output_type(self, input_types):
+        return InputType.recurrent(input_types[0].size,
+                                   input_types[1].timeseries_length)
+
+
+@register_vertex
+@dataclasses.dataclass
+class ReverseTimeSeriesVertex(GraphVertex):
+    """The time axis of (N, T, C) reversed."""
+
+    def apply(self, inputs):
+        return torch.flip(inputs[0], dims=(1,))
 
 
 @register_vertex

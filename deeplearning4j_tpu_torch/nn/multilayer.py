@@ -10,9 +10,13 @@ bf16; the final layer, the loss, the master weights, the updater state
 and the running statistics stay f32, and states are cast back to their
 stored dtype after each step.
 
-TBPTT, ``rnnTimeStep``, ``pretrain``, ``save`` / ``load``,
-``evaluateROC*`` and ``evaluateRegression`` wait with the recurrent layers
-and ``utils/serialization`` (ROADMAP queue 1 item 8).
+Recurrent layers run from carries where the caller keeps them: truncated
+BPTT (``backprop_type("tbptt")``, ``nn/_network.py``'s ``_fit_tbptt``) and
+``rnnTimeStep`` streaming; the carries stay f32 under the bf16 policy.
+
+``pretrain``, ``save`` / ``load``, ``evaluateROC*`` and
+``evaluateRegression`` wait with ``utils/serialization`` (ROADMAP queue 1
+item 8).
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ from typing import List
 import torch
 
 from deeplearning4j_tpu_torch.nn._network import (NetworkBase, layer_flops,
-                                                  remat_apply)
+                                                  remat_apply, run_recurrent)
 from deeplearning4j_tpu_torch.nn._precision import (_COMPUTE_DTYPES,
                                                     _cast_float, cast_params,
                                                     recast_like)
@@ -29,7 +33,8 @@ from deeplearning4j_tpu_torch.nn.conf import layers as L
 from deeplearning4j_tpu_torch.nn.conf.configuration import (
     MultiLayerConfiguration)
 
-_MASK_AWARE = (L.GlobalPoolingLayer,)
+_MASK_AWARE = (L._RnnBase, L.Bidirectional, L.LastTimeStep,
+               L.GlobalPoolingLayer)
 
 
 def _maybe_unflatten_input(x, input_type):
@@ -58,11 +63,14 @@ class MultiLayerNetwork(NetworkBase):
 
     # --------------------------------------------------------------- forward
     def _forward(self, params, states, x, training, gen, mask=None,
-                 collect=False, up_to=None):
+                 collect=False, up_to=None, carries=None):
         """Run the layer stack; returns (final activation | activation
-        list, new_states)."""
+        list, new_states, new_carries). With ``carries`` (a dict by layer
+        key: TBPTT, streaming) the recurrent layers start from theirs (zero
+        where missing) and ``new_carries`` holds their final ones."""
         acts = []
         new_states = dict(states)
+        new_carries = {}
         h = _maybe_unflatten_input(x, self.conf.input_type)
         batch_n = x.shape[0]
         preprocs = self.conf.input_pre_processors or {}
@@ -84,7 +92,11 @@ class MultiLayerNetwork(NetworkBase):
             kwargs = {}
             if mask is not None and isinstance(layer, _MASK_AWARE):
                 kwargs["mask"] = mask
-            if training and getattr(self.conf, "remat", False) \
+            st = None
+            if isinstance(layer, L._RnnBase) and carries is not None:
+                h, new_carries[lkey] = run_recurrent(
+                    layer, lp, h, carries, lkey, training, gen, mask)
+            elif training and getattr(self.conf, "remat", False) \
                     and i < last_idx:
                 h, st = remat_apply(layer, lp, h, lst, gen, kwargs,
                                     getattr(self.conf, "remat_policy", None))
@@ -100,15 +112,17 @@ class MultiLayerNetwork(NetworkBase):
                             if cdtype is not None else h)
         if cdtype is not None and not collect:
             h = _cast_float(h, torch.float32)
-        return (acts if collect else h), new_states
+        return (acts if collect else h), new_states, new_carries
 
-    def _loss_fn(self, params, states, inputs, labels, fmasks, lmasks, gen):
+    def _loss_fn(self, params, states, inputs, labels, fmasks, lmasks, gen,
+                 carries=None):
         x, y = inputs[0], labels[0]
         mask = fmasks[0] if fmasks else None
         label_mask = lmasks[0] if lmasks else None
         last = len(self.layers) - 1
-        h, new_states = self._forward(params, states, x, True, gen,
-                                      mask=mask, up_to=last)
+        h, new_states, new_carries = self._forward(
+            params, states, x, True, gen, mask=mask, up_to=last,
+            carries=carries)
         preprocs = self.conf.input_pre_processors or {}
         if last in preprocs:
             h = preprocs[last].pre_process(h, batch_size=x.shape[0])
@@ -116,7 +130,8 @@ class MultiLayerNetwork(NetworkBase):
                                     mask=label_mask, training=True, gen=gen)
         loss = loss + self._regularization_penalty(params,
                                                    self._param_layers())
-        return loss, new_states
+        return loss, new_states, (new_carries if carries is not None
+                                  else None)
 
     # ------------------------------------------------------- argument forms
     @staticmethod
@@ -142,26 +157,43 @@ class MultiLayerNetwork(NetworkBase):
         if not self._initialized:
             self.init()
         with torch.no_grad():
-            h, _ = self._forward(self._params, self._states,
-                                 self._to_device(x), False, None,
-                                 mask=self._to_device(mask))
+            h, _, _ = self._forward(self._params, self._states,
+                                    self._to_device(x), False, None,
+                                    mask=self._to_device(mask))
         return h
+
+    def rnnTimeStep(self, x) -> torch.Tensor:
+        """Stateful streaming inference (ref: #rnnTimeStep): the recurrent
+        layers carry their state across calls. ``x`` is (N, T, C), or
+        (N, C) for one step (then the output is (N, C) too)."""
+        if not self._initialized:
+            self.init()
+        x = self._to_device(x)
+        single = x.dim() == 2
+        if single:
+            x = x[:, None, :]
+        carries = self._rnn_state
+        with torch.no_grad():
+            h, _, new = self._forward(self._params, self._states, x, False,
+                                      None, carries=carries)
+        self._rnn_state = {**carries, **new}
+        return h[:, -1] if single and h.dim() == 3 else h
 
     def feedForward(self, x, train: bool = False) -> List[torch.Tensor]:
         """All layer activations, input first (ref: #feedForward)."""
         x = self._to_device(x)
         with torch.no_grad():
-            acts, _ = self._forward(self._params, self._states, x, train,
-                                    self._gen if train else None,
-                                    collect=True)
+            acts, _, _ = self._forward(self._params, self._states, x, train,
+                                       self._gen if train else None,
+                                       collect=True)
         return [x] + acts
 
     # ------------------------------------------------------------ accounting
-    def _forward_flops(self, batch: int) -> int:
+    def _forward_flops(self, batch: int, t=None) -> int:
         it = self.conf.input_type
         total = 0
         for layer in self.layers:
-            total += layer_flops(layer, it, batch)
+            total += layer_flops(layer, it, batch, t)
             it = layer.output_type(it) if it is not None else None
         return total
 

@@ -1,7 +1,9 @@
 """The standard ops the ported layers call: counterparts of the JAX
 package's ``ops/standard.py`` entries ``conv2d``, ``maxpool2d``,
 ``avgpool2d``, ``pnormpool2d``, ``batchnorm``, ``lrn`` and
-``dropout_inverted``, as plain functions (the op registry is not ported).
+``dropout_inverted``, as plain functions (the op registry is not ported),
+and ``promote_mm``, the dtype rule of ``jnp.matmul`` that the layers'
+products follow.
 
 Activations are NHWC and conv weights HWIO, as in the reference. A
 contiguous NHWC tensor ``x`` gives ``x.permute(0, 3, 1, 2)``, an NCHW view
@@ -16,6 +18,16 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+
+def promote_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in the promoted type of the two, as ``jnp.matmul`` takes
+    mixed types (f32 @ bf16 → f32; the bf16 → f32 cast is exact), where
+    ``torch.matmul`` refuses them."""
+    if a.dtype != b.dtype:
+        dt = torch.promote_types(a.dtype, b.dtype)
+        a, b = a.to(dt), b.to(dt)
+    return a @ b
 
 
 def _pair(v):

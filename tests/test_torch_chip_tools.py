@@ -506,14 +506,14 @@ def test_expected_launches_per_step():
     config is bf16 at d 1024), K7 twice per MoE layer (three times under
     remat), K4a, K4w and K4a+w (decode only) never."""
     assert chip_smoke.expected_per_step(12, False, 0) == (
-        12, 0, 12, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+        12, 0, 12, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
     assert chip_smoke.expected_per_step(12, True, 8) == (
-        24, 0, 12, 0, 0, 0, 0, 0, 1, 8, 0, 0, 0, 0, 0, 0)
+        24, 0, 12, 0, 0, 0, 0, 0, 1, 8, 0, 0, 0, 0, 0, 0, 0, 0)
     assert chip_smoke.expected_per_step(12, False, 8, moe=True) == (
-        12, 0, 12, 0, 0, 0, 24, 24, 1, 8, 0, 0, 0, 0, 0, 0)
+        12, 0, 12, 0, 0, 0, 24, 24, 1, 8, 0, 0, 0, 0, 0, 0, 0, 0)
     assert chip_smoke.expected_per_step(2, True, 0, moe=True)[6:] == (
-        6, 6, 0, 0, 0, 0, 0, 0, 0, 0)
-    assert len(chip_smoke.ALL_KERNELS) == 16
+        6, 6, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+    assert len(chip_smoke.ALL_KERNELS) == 18
     assert chip_smoke.ALL_KERNELS[:4] == chip_smoke.KERNELS
     assert chip_smoke.ALL_KERNELS[8:10] == ("ce_fwd_wgmma",
                                             "ce_dlogits_wgmma")
@@ -529,15 +529,19 @@ def test_expected_launches_per_step():
         == {"chunked_ce_tf32.cu"}
     assert chip_smoke.ALL_KERNELS[15] == "paged_attention_write"
     assert chip_smoke.SOURCES["paged_attention_write"] == "paged_attention.cu"
+    assert chip_smoke.ALL_KERNELS[16:] == ("rnn_cell_fwd", "rnn_cell_bwd")
+    assert {chip_smoke.SOURCES[k] for k in chip_smoke.ALL_KERNELS[16:]} == {
+        "rnn_cell.cu"}
 
 
 def test_all_counts_reads_every_counter_in_order():
-    """all_counts gives the sixteen counters in ALL_KERNELS' order, and
+    """all_counts gives the eighteen counters in ALL_KERNELS' order, and
     reset_all_counts zeroes every one."""
     from deeplearning4j_tpu_torch.kernels import chunked_ce as ce
     from deeplearning4j_tpu_torch.kernels import flash_attention as fa
     from deeplearning4j_tpu_torch.kernels import moe_route as mr
     from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    from deeplearning4j_tpu_torch.kernels import rnn_cell as rc
     names = [(fa, "launches_wgmma"), (fa, "launches_simple"),
              (fa, "launches_bwd_wgmma"), (fa, "launches_bwd"),
              (ce, "launches_fwd"), (ce, "launches_dlogits"),
@@ -545,19 +549,22 @@ def test_all_counts_reads_every_counter_in_order():
              (ce, "launches_fwd_wgmma"), (ce, "launches_dlogits_wgmma"),
              (pa, "launches_attend"), (pa, "launches_quant_write"),
              (ce, "launches_fwd_tf32"), (ce, "launches_dlogits_tf32"),
-             (ce, "launches_split_tf32"), (pa, "launches_attend_write")]
+             (ce, "launches_split_tf32"), (pa, "launches_attend_write"),
+             (rc, "launches_cell_fwd"), (rc, "launches_cell_bwd")]
     saved = [getattr(m, n) for m, n in names]
     try:
         for i, (m, n) in enumerate(names):
             setattr(m, n, i + 1)
-        assert chip_smoke.all_counts() == tuple(range(1, 17))
+        assert chip_smoke.all_counts() == tuple(range(1, 19))
         before = chip_smoke.all_counts()
         pa.launches_attend += 5
         ce.launches_split_tf32 += 2
         pa.launches_attend_write += 3
-        assert chip_smoke.delta(before) == (0,) * 10 + (5, 0, 0, 0, 2, 3)
+        rc.launches_cell_bwd += 4
+        assert chip_smoke.delta(before) == (0,) * 10 + (5, 0, 0, 0, 2, 3,
+                                                        0, 4)
         chip_smoke.reset_all_counts()
-        assert chip_smoke.all_counts() == (0,) * 16
+        assert chip_smoke.all_counts() == (0,) * 18
     finally:
         for (m, n), v in zip(names, saved):
             setattr(m, n, v)
@@ -756,7 +763,7 @@ def test_launch_counts_names_each_kernel():
     the rest; a name that is no kernel raises."""
     got = chip_smoke.launch_counts(wgmma=12, paged_attention_write=372,
                                    kv_quant_write=1)
-    assert len(got) == len(chip_smoke.ALL_KERNELS) == 16
+    assert len(got) == len(chip_smoke.ALL_KERNELS) == 18
     assert dict(zip(chip_smoke.ALL_KERNELS, got)) == dict(
         {k: 0 for k in chip_smoke.ALL_KERNELS}, wgmma=12,
         paged_attention_write=372, kv_quant_write=1)
@@ -1054,9 +1061,9 @@ def test_expected_launches_per_step_of_the_f32_model():
     pass for the forward and before the backward's chunks; neither
     chunked_ce.cu's nor the wgmma one), no wgmma flash kernel."""
     assert chip_smoke.expected_per_step(12, False, 0, f32=True) == (
-        0, 12, 0, 12, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+        0, 12, 0, 12, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
     assert chip_smoke.expected_per_step(12, False, 8, f32=True) == (
-        0, 12, 0, 12, 0, 0, 0, 0, 0, 0, 0, 0, 1, 8, 2, 0)
+        0, 12, 0, 12, 0, 0, 0, 0, 0, 0, 0, 0, 1, 8, 2, 0, 0, 0)
     assert chip_smoke.expected_per_step(12, True, 8, f32=True)[:4] == (
         0, 24, 0, 12)
     assert chip_smoke.F32_RUNGS == ((8, False, 0), (8, False, 8))
@@ -1066,23 +1073,29 @@ def test_expected_launches_per_step_of_the_f32_model():
 
 def _path_launches():
     """Plausible per-path launches, ALL_KERNELS' order: decode through
-    K4a+w (the last), K4w only for the int8 modes' prefill inserts (the
-    serving modes and the pipeline's int8 run); the front door on bf16
-    pages, the fleet's f32 demo model on the simple forward."""
+    K4a+w, K4w only for the int8 modes' prefill inserts (the serving modes
+    and the pipeline's int8 run); the front door on bf16 pages, the
+    fleet's f32 demo model on the simple forward; the recurrent path K11f
+    and K11b (the last two) 2 × 1000 times each."""
     L, n = 12, 31
-    none = (0, 0, 0)
-    serve = (4 * L, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0) + none + (4 * n * L,)
-    modes = (3 * L, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 12) + none + (900,)
-    train = (5 * L, 0, 5 * L, 0, 0, 0, 0, 0, 3, 24, 0, 0) + none + (0,)
-    moe = (L, 0, L, 0, 0, 0, 2 * L, 2 * L, 1, 8, 0, 0) + none + (0,)
-    f32_serve = (0, L, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0) + none + (n * L,)
-    f32_train = (0, 2 * L, 0, 2 * L, 0, 0, 0, 0, 0, 0, 0, 0, 1, 8, 2, 0)
-    pipeline = (20 * L, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 8) + none + (2000,)
-    frontdoor = (45 * L, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0) + none + (5868,)
-    fleet = (0, 16, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0) + none + (240,)
-    network = (0,) * 16
+    none, k11 = (0, 0, 0), (0, 0)
+    serve = (4 * L, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0) + none + (4 * n * L,) \
+        + k11
+    modes = (3 * L, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 12) + none + (900,) + k11
+    train = (5 * L, 0, 5 * L, 0, 0, 0, 0, 0, 3, 24, 0, 0) + none + (0,) + k11
+    moe = (L, 0, L, 0, 0, 0, 2 * L, 2 * L, 1, 8, 0, 0) + none + (0,) + k11
+    f32_serve = (0, L, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0) + none + (n * L,) + k11
+    f32_train = (0, 2 * L, 0, 2 * L, 0, 0, 0, 0, 0, 0, 0, 0, 1, 8, 2, 0) \
+        + k11
+    pipeline = (20 * L, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 8) + none + (2000,) \
+        + k11
+    frontdoor = (45 * L, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0) + none + (5868,) \
+        + k11
+    fleet = (0, 16, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0) + none + (240,) + k11
+    network = (0,) * 18
+    recurrent = (0,) * 16 + (2000, 2000)
     return [serve, modes, train, moe, f32_serve, f32_train, pipeline,
-            frontdoor, fleet, network]
+            frontdoor, fleet, network, recurrent]
 
 
 @pytest.mark.parametrize("path,kernel,what", [
@@ -1126,7 +1139,13 @@ def _path_launches():
     (9, 0, "the network paths launching the wgmma forward"),
     (9, 1, "the network paths launching the simple forward"),
     (9, 9, "the network paths launching the wgmma K3b"),
-    (9, 15, "the network paths launching K4a+w")])
+    (9, 15, "the network paths launching K4a+w"),
+    (10, 16, "the recurrent path without K11f"),
+    (10, 17, "the recurrent path without K11b"),
+    (10, 0, "the recurrent path launching the wgmma forward"),
+    (2, 16, "training launching K11f"),
+    (9, 17, "the network paths launching K11b"),
+    (6, 16, "the pipeline launching K11f")])
 def test_path_launch_checks_catch_each_misroute(path, kernel, what):
     paths = _path_launches()
     chip_smoke.check_path_launches(*paths)
@@ -1477,3 +1496,72 @@ def test_network_phase_flop_count_is_741_gflop_a_step():
     flops = net.step_cost(chip_smoke.NET_BATCH)[0]
     assert flops == 3 * net._forward_flops(chip_smoke.NET_BATCH)
     assert abs(flops / 741e9 - 1) < 0.002
+
+
+# ------------------------------------------------------ the recurrent phase
+def test_char_stream_is_seeded_one_hot_and_shifted():
+    x, y = chip_smoke.char_stream(4, 30)
+    x2, y2 = chip_smoke.char_stream(4, 30)
+    assert x.shape == y.shape == (4, 30, chip_smoke.RNN_CHARS)
+    assert (x == x2).all() and (y == y2).all()
+    assert (x.sum(-1) == 1).all() and (y.sum(-1) == 1).all()
+    np.testing.assert_array_equal(x[:, 1:], y[:, :-1])
+
+
+def test_k11_bound_counts_every_operand_once():
+    """K11f at R1's cell with no mask: z (N, 4H), b (4H), c_prev and h_prev
+    read, h, c and the gates (N, 4H) written (the output is h), f32, over
+    3.35 TB/s; under a mask it also reads the mask (N) and writes y. K11b
+    reads dy, dh, dc, the gates, c and c_prev (no bias) and writes dz and
+    dc_prev, and under a mask reads the mask and writes dh_pass; the
+    peepholes add their (3, H) and, in the backward, the (3, N, H) sums
+    read and written."""
+    nh = 32 * 256
+    ms, by = chip_smoke.k11_bound_ms(32, 256, False, False, "fwd")
+    assert by == "bytes"
+    assert ms == pytest.approx(1e3 * (4 * 12 * nh + 16 * 256) / 3.35e12)
+    ms, _ = chip_smoke.k11_bound_ms(32, 256, True, True, "fwd")
+    want = 4 * 13 * nh + 16 * 256 + 12 * 256 + 4 * 32
+    assert ms == pytest.approx(1e3 * want / 3.35e12)
+    ms, _ = chip_smoke.k11_bound_ms(32, 256, False, False, "bwd")
+    assert ms == pytest.approx(1e3 * 4 * 14 * nh / 3.35e12)
+    ms, _ = chip_smoke.k11_bound_ms(32, 256, True, True, "bwd")
+    want = 4 * 15 * nh + 12 * 256 + 4 * 32 + 24 * nh
+    assert ms == pytest.approx(1e3 * want / 3.35e12)
+
+
+def test_tbptt_report_reads_zero_against_itself():
+    rec = {"losses": [1.0, 2.0], "params": {"0": {"W": np.ones((2, 2))}},
+           "carries": {"0": [np.ones(3), np.ones(3)]}}
+    base = {"0": {"W": np.zeros((2, 2))}}
+    rep = chip_smoke.tbptt_report(rec, rec, base)
+    assert rep["loss"] == rep["step"] == rep["carry"] == 0.0
+    other = dict(rec, losses=[1.0, 2.5])
+    assert chip_smoke.tbptt_report(other, rec, base)["loss"] == 0.5
+
+
+def test_r3_graph_takes_r1_weights_and_fits_alike():
+    """R3 (R1's layers as a ComputationGraph) loads R1's trees as they are
+    and runs the same TBPTT chunks: equal chunk losses on the CPU."""
+    r1 = chip_smoke.rnn_net("R1", "cpu")
+    r3 = chip_smoke.r3_graph("cpu")
+    assert r3.param_tree().keys() == r1.param_tree().keys()
+    chip_smoke.carry_net(r1, r3)
+    x, y = chip_smoke.char_stream(2, 2 * chip_smoke.RNN_TBPTT)
+    a = chip_smoke.tbptt_fit_record(r1, x, y)
+    b = chip_smoke.tbptt_fit_record(r3, x, y)
+    assert len(a["losses"]) == len(b["losses"]) == 2
+    np.testing.assert_allclose(a["losses"], b["losses"], atol=1e-5)
+    assert sorted(a["carries"]) == sorted(b["carries"]) == ["0", "1"]
+
+
+def test_rnn_readings_hold_f32_near_f64_on_the_cpu():
+    """The CPU readings behind (a)'s rows, on a 2-chunk sequence: R2's f32
+    fit against the same fit in f64 reads at f32's level, far under the
+    rows (which sit over the full-length readings)."""
+    got = chip_smoke.rnn_readings("R2", seq=2 * chip_smoke.RNN_TBPTT)
+    assert set(got) >= {"loss", "step", "carry", "probs"}
+    assert 0 < got["probs"] < chip_smoke.TOL_RNN_F32["probs"]
+    assert got["loss"] < chip_smoke.TOL_RNN_F32["loss"]
+    assert got["step"] < chip_smoke.TOL_RNN_F32["step"]
+    assert got["carry"] < chip_smoke.TOL_RNN_F32["carry"]

@@ -16,6 +16,8 @@ only PyTorch and the CUDA toolkit::
         tests/test_torch_kernels_gpu.py -k ce_tf32_one_tile
     timeout 120 python -m pytest --noconftest -m gpu \\
         tests/test_torch_kernels_gpu.py -k k4a_one_tile
+    timeout 120 python -m pytest --noconftest -m gpu \\
+        tests/test_torch_kernels_gpu.py -k k11_one_tile
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 
 (``--noconftest`` because the suite's conftest sets up JAX.) Tolerances as
@@ -1194,3 +1196,153 @@ def test_k4w_is_bit_exact_over_every_bf16_value(cuda):
         torch.cuda.synchronize()
         for a, b in zip(got, want):
             assert torch.equal(a, b), (x.dtype, (a != b).sum().item())
+
+
+# ------------------------------------------- K11: the fused LSTM cell
+# K11f/K11b against their plain versions on the card: the same f32
+# formulas, but the kernel contracts multiply-adds into FMAs and calls
+# CUDA's expf/tanhf (≤ 2 ulp) where torch runs its own elementwise
+# kernels; each output passes ≤ ~8 roundings on either side: forward
+# max |Δ| ≤ 4e-6 × max(1, max |ref|), backward 1e-5 × max(1, max |ref|)
+# (dz multiplies four rounded factors). Launches are bit-identical from
+# call to call (no atomics).
+K11_FWD_TOL, K11_BWD_TOL = 4e-6, 1e-5
+
+
+def _k11_case(n, hd, peep, masked, seed):
+    from deeplearning4j_tpu_torch.kernels import rnn_cell as rc
+    z, c0, h0 = (_rand(s, seed + i, torch.float32) for i, s in
+                 enumerate(((n, 4 * hd), (n, hd), (n, hd))))
+    b = _rand((4 * hd,), seed + 3, torch.float32)
+    p = _rand((3, hd), seed + 4, torch.float32) * 0.5 if peep else None
+    m = None
+    if masked:
+        m = (torch.arange(n, device="cuda") % 3 != 1).float()
+        m[0] = 0.5
+    return rc, z, b, c0, h0, p, m
+
+
+def _k11_close(got, ref, tol):
+    top = max(ref.abs().max().item(), 1.0)
+    assert (got - ref).abs().max().item() <= tol * top
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("peep", [False, True])
+def test_k11_one_tile(cuda, peep):
+    """One block's worth: 4 rows of 32 units, forward and backward."""
+    rc, z, b, c0, h0, p, m = _k11_case(4, 32, peep, False, 70)
+    y, h, c, g = rc.lstm_cell_fwd(z, b, c0, h0, p, m, 0)
+    ref = rc.cell_fwd_reference(z, b, c0, h0, p, m, 0)
+    torch.cuda.synchronize()
+    for a, r in zip((y, h, c, g), ref):
+        _k11_close(a, r, K11_FWD_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", [0, 1, 2, 3, 4, 5])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("peep", [False, True])
+@pytest.mark.parametrize("n,hd", [(32, 256), (32, 200), (1, 256), (7, 33)])
+def test_k11_matches_plain(cuda, n, hd, peep, masked, act):
+    rc, z, b, c0, h0, p, m = _k11_case(n, hd, peep, masked, 80 + act)
+    rc.launches_cell_fwd = rc.launches_cell_bwd = 0
+    y, h, c, g = rc.lstm_cell_fwd(z, b, c0, h0, p, m, act)
+    ref = rc.cell_fwd_reference(z, b, c0, h0, p, m, act)
+    for a, r in zip((y, h, c, g), ref):
+        _k11_close(a, r, K11_FWD_TOL)
+    dy, dh, dc = (_rand((n, hd), 90 + i, torch.float32) for i in range(3))
+    dpeep = torch.zeros((3, n, hd), device="cuda") if peep else None
+    dz, dcp, dh_pass = rc.lstm_cell_bwd(dy, dh, dc, ref[3], ref[2], c0, p,
+                                        m, act, dpeep=dpeep)
+    rz, rcp, rh, rp = rc.cell_bwd_reference(dy, dh, dc, ref[3], ref[2], c0,
+                                            p, m, act)
+    torch.cuda.synchronize()
+    assert (rc.launches_cell_fwd, rc.launches_cell_bwd) == (1, 1)
+    # dh_pass is made only under a mask (0 otherwise, and not written)
+    assert (dh_pass is None) == (rh is None) == (not masked)
+    for a, r in ((dz, rz), (dcp, rcp)) + (((dh_pass, rh),) if masked
+                                         else ()) + (
+            ((dpeep, rp),) if peep else ()):
+        _k11_close(a, r, K11_BWD_TOL)
+    again = rc.lstm_cell_fwd(z, b, c0, h0, p, m, act)
+    assert all(torch.equal(a, b_) for a, b_ in zip(again, (y, h, c, g)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("peep", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_layer_on_the_card_matches_plain(cuda, monkeypatch, peep,
+                                              dtype, masked):
+    """The layer Function over a 50-step chunk at the char-RNN's width
+    (N 32, n_in 47, H 256) through K11, ragged-masked or not (then the
+    output is h and K11b writes no dh_pass), against the same Function
+    with the plain cell swapped in: the output, carries and every gradient
+    within relative L2 1e-5 (f32 sums of the same products); in bf16 the
+    gradients of the bf16 params and input are bf16, where one f32
+    difference can flip an entry's rounding by a bf16 ulp (2^-8): 1e-3
+    (a card reads 7.6e-5)."""
+    from deeplearning4j_tpu_torch.kernels import rnn_cell as rc
+    from deeplearning4j_tpu_torch.nn.conf import layers as TL
+    layer = (TL.GravesLSTM if peep else TL.LSTM)(n_in=47, n_out=256)
+    layer.apply_global_defaults({})
+    g = torch.Generator(device="cuda").manual_seed(5)
+    params = {k: (0.1 * torch.randn(s, generator=g, device="cuda")).to(dtype)
+              for k, s in layer.param_shapes().items()}
+    x = torch.randn((32, 50, 47), generator=g, device="cuda").to(dtype)
+    mask = (torch.arange(50, device="cuda")[None, :]
+            < torch.randint(20, 51, (32, 1), generator=g,
+                            device="cuda")).float() if masked else None
+
+    def run():
+        ps = {k: v.detach().requires_grad_() for k, v in params.items()}
+        xs = x.detach().requires_grad_()
+        y, (h, c) = layer.run(ps, xs, layer.initial_carry(32, "cuda"),
+                              mask=mask)
+        grads = torch.autograd.grad(y.square().sum() + h.sum() + c.sum(),
+                                    [*ps.values(), xs])
+        return [y, h, c, *grads]
+
+    rc.launches_cell_fwd = rc.launches_cell_bwd = 0
+    got = run()
+    assert (rc.launches_cell_fwd, rc.launches_cell_bwd) == (50, 50)
+
+    def plain_fwd(z, b, c_prev, h_prev, peep_, m, act, out=None):
+        res = rc.cell_fwd_reference(z, b, c_prev, h_prev, peep_, m, act)
+        for buf, val in zip(out, res):
+            if buf is not None:
+                buf.copy_(val)
+        return out
+
+    def plain_bwd(dy, dh, dc, gates, c, c_prev, peep_, m, act, dz=None,
+                  dpeep=None):
+        rz, rcp, rh, rp = rc.cell_bwd_reference(dy, dh, dc, gates, c,
+                                                c_prev, peep_, m, act)
+        if dpeep is not None:
+            dpeep += rp
+        dz.copy_(rz)
+        return dz, rcp, rh
+
+    monkeypatch.setattr(rc, "lstm_cell_fwd", plain_fwd)
+    monkeypatch.setattr(rc, "lstm_cell_bwd", plain_bwd)
+    want = run()
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        err = ((a.float() - b.float()).norm()
+               / b.float().norm().clamp_min(1e-30)).item()
+        assert err <= (1e-5 if a.dtype == torch.float32 else 1e-3)
+
+
+@pytest.mark.gpu
+def test_k11_rejects_what_it_does_not_take(cuda):
+    rc, z, b, c0, h0, p, m = _k11_case(4, 32, False, False, 99)
+    with pytest.raises(ValueError, match="float32"):
+        rc.lstm_cell_fwd(z.bfloat16(), b, c0, h0, p, m, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        rc.lstm_cell_fwd(z.t().contiguous().t(), b, c0, h0, p, m, 0)
+    with pytest.raises(ValueError, match="activation"):
+        rc.lstm_cell_fwd(z, b, c0, h0, p, m, 6)
+    with pytest.raises(ValueError, match="dpeep"):
+        rc.lstm_cell_bwd(None, c0, c0, torch.zeros_like(z), c0, c0,
+                         torch.zeros((3, 32), device="cuda"), None, 0)

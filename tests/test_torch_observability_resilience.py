@@ -689,21 +689,19 @@ COPIED = {
     "nn/conf/configuration": ({}, {}),
     "nn/conf/layers": (
         {n: _NET for n in (
-            "Bidirectional", "CenterLossOutputLayer", "CnnLossLayer",
+            "CenterLossOutputLayer", "CnnLossLayer",
             "Convolution1DLayer", "Convolution3D", "Cropping2D",
-            "CrossAttentionLayer", "Deconvolution2D", "EmbeddingLayer",
-            "EmbeddingSequenceLayer", "GRU", "GravesLSTM", "LAMBDA_REGISTRY",
-            "LSTM", "LambdaLayer", "LastTimeStep", "LayerNormalization",
+            "CrossAttentionLayer", "Deconvolution2D", "LAMBDA_REGISTRY",
+            "LambdaLayer", "LayerNormalization",
             "LearnedSelfAttentionLayer", "PermuteLayer",
             "RecurrentAttentionLayer", "RepeatVectorLayer", "ReshapeLayer",
-            "RnnOutputLayer", "SelfAttentionLayer", "SeparableConvolution2D",
-            "SimpleRnn", "SpatialDropoutLayer", "Upsampling2D",
+            "SelfAttentionLayer", "SeparableConvolution2D",
+            "SpatialDropoutLayer", "Upsampling2D",
             "deconv_pad_pairs")}, {}),
     "nn/graph_conf": (
-        {n: "time-series and attention vertices: " + _NET for n in (
+        {n: "attention vertices: " + _NET for n in (
             "AdditiveAttentionVertex", "DotProductAttentionVertex",
-            "DotVertex", "DuplicateToTimeSeriesVertex", "LastTimeStepVertex",
-            "ReverseTimeSeriesVertex")}, {}),
+            "DotVertex")}, {}),
     "nn/weightnoise": (
         {n: "weight noise: " + _NET for n in (
             "DropConnect", "WeightNoise", "noise_from_dict")}, {}),
@@ -726,8 +724,7 @@ COPIED = {
     "models/zoo/base": ({}, {}),
     "models/zoo/resnet": ({}, {}),
     "models/zoo/cnn_small": (
-        {"AlexNet": "the other zoo models: " + _NET,
-         "TextGenerationLSTM": "the recurrent layers: " + _NET}, {}),
+        {"AlexNet": "the other zoo models: " + _NET}, {}),
 }
 
 

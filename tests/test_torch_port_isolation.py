@@ -36,6 +36,7 @@ def test_port_has_modules_to_check():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     for must in ("chip_smoke.py",
                  "deeplearning4j_tpu_torch/kernels/flash_attention.py",
+                 "deeplearning4j_tpu_torch/kernels/rnn_cell.py",
                  "deeplearning4j_tpu_torch/models/generation.py",
                  "deeplearning4j_tpu_torch/optim/adamw.py",
                  "deeplearning4j_tpu_torch/parallel/generation.py",

@@ -123,3 +123,70 @@ def test_init_pretrained_is_local_only(tmp_path, monkeypatch):
     with pytest.raises(FileNotFoundError, match="no network"):
         t_zoo.ResNet50().init_pretrained()
     assert not t_zoo.ResNet50().pretrained_available("imagenet")
+
+
+# ------------------------------------------------------ TextGenerationLSTM
+def test_text_generation_lstm_conf_equals_reference():
+    j, t = j_zoo.TextGenerationLSTM().conf(), t_zoo.TextGenerationLSTM().conf()
+    assert [l.to_dict() for l in t.layers] == [l.to_dict() for l in j.layers]
+    assert [l.param_shapes() for l in t.layers] == \
+        [l.param_shapes() for l in j.layers]
+    assert t.to_json() == j.to_json()
+    assert t.backprop_type == j.backprop_type == "tbptt"
+    assert t.tbptt_fwd_length == j.tbptt_fwd_length == 50
+    net = t_zoo.TextGenerationLSTM().init_model(device="cpu")
+    assert net.numParams() == sum(l.n_params() for l in j.layers) == (
+        4 * 256 * (47 + 256 + 1) + 4 * 256 * (256 + 256 + 1) + 256 * 47 + 47)
+    assert [l.cell_route() for l in net.layers[:2]] == ["k11", "k11"]
+
+
+def test_text_generation_lstm_takes_one_tbptt_fit():
+    m = t_zoo.TextGenerationLSTM(total_unique_characters=11, tbptt_length=4)
+    net = m.init_model(device="cpu")
+    rng = np.random.default_rng(0)
+    eye = np.eye(11, dtype=np.float32)
+    x, y = eye[rng.integers(0, 11, (2, 10))], eye[rng.integers(0, 11, (2, 10))]
+    w0 = net.param_tree()["0"]["RW"].clone()
+    net.fit(x, y)
+    assert net.getIterationCount() == 3          # chunks of 4, 4 and 2
+    assert np.isfinite(net.score())
+    assert not bool((net.param_tree()["0"]["RW"] == w0).all())
+    net.rnnClearPreviousState()
+    out = net.rnnTimeStep(x[:, 0])
+    assert tuple(out.shape) == (2, 11)
+    np.testing.assert_allclose(out.sum(-1).numpy(), 1.0, rtol=1e-5)
+
+
+def _lstm_flops(n, t, n_in, h, gates=4):
+    return 2 * n * t * (n_in + h) * gates * h
+
+
+@pytest.mark.parametrize("t", [None, 50, 1000])
+def test_recurrent_flops_equal_a_hand_formula(t):
+    """The char-RNNs' forward FLOPs: each LSTM 2·N·T·(n_in + H)·4·H, the
+    RnnOutputLayer 2·N·T·H·V, per timestep (T from the call, else 1: the
+    zoo's input type has no length)."""
+    steps = 1 if t is None else t
+    net = t_zoo.TextGenerationLSTM().init_model(device="cpu")
+    want = (_lstm_flops(32, steps, 47, 256) + _lstm_flops(32, steps, 256, 256)
+            + 2 * 32 * steps * 256 * 47)
+    assert net._forward_flops(32, t) == want
+    assert net.step_cost(32, t)[0] == train_flops(want)
+    from deeplearning4j_tpu_torch.nn.conf import layers as TL
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn._network import layer_flops
+    it = InputType.recurrent(200, 50)
+    graves = TL.GravesLSTM(n_in=200, n_out=200)
+    assert layer_flops(graves, it, 32) == _lstm_flops(32, 50, 200, 200)
+    gru = TL.GRU(n_in=8, n_out=16)
+    assert layer_flops(gru, it, 2, 7) == _lstm_flops(2, 7, 8, 16, gates=3)
+    rnn = TL.SimpleRnn(n_in=8, n_out=16)
+    assert layer_flops(rnn, it, 2, 7) == _lstm_flops(2, 7, 8, 16, gates=1)
+    bi = TL.Bidirectional.wrap(TL.LSTM(n_in=8, n_out=16))
+    assert layer_flops(bi, it, 2, 7) == 2 * _lstm_flops(2, 7, 8, 16)
+    last = TL.LastTimeStep.wrap(TL.GRU(n_in=8, n_out=16))
+    assert layer_flops(last, it, 2, 7) == _lstm_flops(2, 7, 8, 16, gates=3)
+    dense = TL.DenseLayer(n_in=200, n_out=10)
+    assert layer_flops(dense, it, 32) == 2 * 32 * 50 * 200 * 10
+    assert layer_flops(dense, InputType.feed_forward(200), 32) == \
+        2 * 32 * 200 * 10
