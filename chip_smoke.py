@@ -161,9 +161,14 @@ K4w spill nothing, and that no wgmma source has its products serialized
    through ``DevicePrefetchIterator`` (images/s, ``output``,
    ``evaluate``). No kernel of the port may launch on these paths.
 9. recurrent phase — the char-RNNs (``RNN_*`` and R1-R4 below): K11f and
-   K11b (the fused LSTM cell) against their plain versions at R1's and
-   R2's cell shapes, bit-identical from launch to launch, timed beside
+   K11b (the fused LSTM cell a step) against their plain versions at R1's
+   and R2's cell shapes, bit-identical from launch to launch, timed beside
    their bound, the plain versions and aten's ``_thnn_fused_lstm_cell``;
+   K11Lf and K11Lb (the persistent layer kernels: a layer over a chunk in
+   one launch, in clusters of 8 CTAs) the same at R1's and R2's layer
+   shapes over a 50-step chunk (TOL_K11L), timed beside their bound, the
+   plain loop and one layer of cuDNN's ``nn.LSTM``; a layer past K11L's
+   widest (H 512) over a chunk on K11 a step against the plain versions;
    then (a) R1 (the zoo ``TextGenerationLSTM``: 2 × LSTM(256), 47
    characters, batch 32, 1000 characters, TBPTT 50) and R2 (GravesLSTM
    200, BASELINE.json configs[2]) in f32 on the card against the same nets
@@ -177,7 +182,8 @@ K4w spill nothing, and that no wgmma source has its products serialized
    share and own peak memory of R1 (f32, bf16) and R2 in turns with a
    plain twin (cuDNN's ``nn.LSTM``); one layer over a chunk against
    cuDNN; ``rnnTimeStep`` sampling at batch 1. The recurrent path is one
-   fit of R1: K11f and K11b 2 × 1000 times each, nothing else.
+   fit of R1: K11Lf and K11Lb 2 × 20 times each (a layer and chunk),
+   nothing else; the wide layer's K11f and K11b 50 times each.
 
 Every phase must pass: any failure exits nonzero. Output is one JSON
 object per line; the last line is ``{"ok": true, "device": {...}}``.
@@ -196,8 +202,11 @@ against f64 at the f32 training shape, and times both kernels in turns.
 ``--compare-decode OTHER`` profiles and times decode steps over bf16 and
 int8 pages at the large config here and in the checkout at OTHER in turns
 (kernels a step, device busy time a step, host ms a step).
+``--compare-k11l OTHER...`` times K11Lf and K11Lb at R1's and R2's layer
+shapes here and in each checkout at OTHER in turns.
 ``--network`` runs the network phase alone (it builds no kernel);
-``--recurrent`` the recurrent phase alone (it builds only K11).
+``--recurrent`` the recurrent phase alone (it builds only rnn_cell.cu,
+K11 and K11L).
 """
 from __future__ import annotations
 
@@ -290,13 +299,14 @@ KERNELS = ("wgmma", "simple", "bwd_wgmma", "bwd")
 # wgmma K3f and K3b (bf16 at d % 64 == 0), then K4a (paged decode attention)
 # and K4w (int8 quantize-and-scatter), then the tf32 K3f and K3b (f32) and
 # their operands' split pass, then K4a+w (the decode store in K4a's launch),
-# then K11f and K11b (the fused LSTM cell)
+# then K11f and K11b (the fused LSTM cell a step), then K11Lf and K11Lb
+# (the persistent LSTM layer kernels)
 ALL_KERNELS = KERNELS + ("ce_fwd", "ce_dlogits", "moe_dispatch",
                          "moe_combine", "ce_fwd_wgmma", "ce_dlogits_wgmma",
                          "paged_attention", "kv_quant_write", "ce_fwd_tf32",
                          "ce_dlogits_tf32", "ce_split_tf32",
                          "paged_attention_write", "rnn_cell_fwd",
-                         "rnn_cell_bwd")
+                         "rnn_cell_bwd", "rnn_layer_fwd", "rnn_layer_bwd")
 SOURCES.update(ce_fwd="chunked_ce.cu", ce_dlogits="chunked_ce.cu",
                moe_dispatch="moe_route.cu", moe_combine="moe_route.cu",
                ce_fwd_wgmma="chunked_ce_wgmma.cu",
@@ -307,7 +317,8 @@ SOURCES.update(ce_fwd="chunked_ce.cu", ce_dlogits="chunked_ce.cu",
                ce_dlogits_tf32="chunked_ce_tf32.cu",
                ce_split_tf32="chunked_ce_tf32.cu",
                paged_attention_write="paged_attention.cu",
-               rnn_cell_fwd="rnn_cell.cu", rnn_cell_bwd="rnn_cell.cu")
+               rnn_cell_fwd="rnn_cell.cu", rnn_cell_bwd="rnn_cell.cu",
+               rnn_layer_fwd="rnn_cell.cu", rnn_layer_bwd="rnn_cell.cu")
 # K2 (backward) cases, laid out as KERNEL_CASES: "fused" takes q, k, v from
 # one (B, T, 3·H·d) projection, o from the forward written as TransformerLM
 # writes it, dO as the (B, H, T, d) view of a (B, T, H·d) gradient, and
@@ -3832,7 +3843,7 @@ def moe_train_phase(torch, fa):
     check(served[6] > 0 and served[7] > 0 and served[4:6] == (0, 0)
           and served[8:10] == (0, 0)
           and served[10:16] == (0,) * 5 + ((N_NEW - 1) * LARGE["n_layers"],)
-          and served[16:] == (0, 0),
+          and served[16:] == (0,) * 4,
           f"MoE generate launched {served} {ALL_KERNELS}")
     emit(moe_generate={"batch": 2, "prompt_len": 100, "new_tokens": N_NEW,
                        "generate_ms": ms,
@@ -4033,7 +4044,7 @@ def profile_window(torch, label, fn, trace_name, top=10):
     decode = {name: tot for name, tot in by_name.items() if re.search(
         r"paged_attend_kernel|quant_write_kernel", name)}
     rnn = {name: tot for name, tot in by_name.items() if re.search(
-        r"lstm_fwd_kernel|lstm_bwd_kernel", name)}
+        r"lstm_(layer_)?(fwd|bwd)_kernel", name)}
     return {"wall_ms": wall_ms, "window_us": hi - lo,
             "device_busy_us": busy, "busy_share": busy / (hi - lo),
             "kernels": sum(n for _us, n in by_name.values()),
@@ -4755,6 +4766,12 @@ RNN_SAMPLE_CHARS = 300     # rnnTimeStep sampling at batch 1
 K11_CASES = [(RNN_BATCH, h, peep, masked) for h in (256, 200)
              for peep in (False, True) for masked in (False, True)]
 K11_MAIN_CASE = (RNN_BATCH, 256, False, False)     # R1's cell
+# K11L alone (b'): the whole layer over a chunk, (N, H, peepholes, masked)
+# at R1's and R2's layer shapes, T = RNN_TBPTT
+K11L_CASES = K11_CASES
+K11L_MAIN_CASE = K11_MAIN_CASE                     # R1's second layer
+# the wide layer past K11L's widest (H 512, one chunk): the per-step route
+WIDE_LAYER = (RNN_BATCH, 512)
 # (a) R1 and R2 in f32, card against CPU over one fit: the fitted nets'
 # output on the first chunk (relative L2), each chunk's loss (largest
 # |Δ|; a loss is ~190), each leaf's displacement (relative L2 of the
@@ -4767,6 +4784,16 @@ TOL_RNN_F32 = {"probs": 1e-6, "loss": 2e-4, "step": 1e-4, "carry": 3e-5}
 # (b) K11f / K11b against their plain versions: max |Δ| over
 # max(1, max |plain|) (test_torch_kernels_gpu.py's K11 rows)
 TOL_K11 = {"fwd": 4e-6, "bwd": 1e-5}
+# (b') K11Lf / K11Lb against their plain versions (the reference's loop,
+# addmm and the plain cell) over the chunk, every output: max |Δ| over
+# max(1, max |plain|). Set before the first chip run from CPU readings of
+# the plain layer in f32 against f64 (k11l_readings: 32 draws at
+# K11L_CASES, ≤ 1.8e-6 forward, ≤ 7.2e-7 backward): two f32 sums in other
+# orders read up to twice that, and the cell's elementwise part K11's rows
+TOL_K11L = {"fwd": 1e-5, "bwd": 1e-5}
+# the wide layer (K11 a step) against the plain versions: relative L2 of
+# the output, carries and every gradient (the card test's f32 row)
+TOL_WIDE_LAYER = 1e-5
 # (c) rnnTimeStep one character at a time against output() over the
 # sequence: f32 sums of the same products in another batching
 TOL_RNN_STREAM = 1e-5
@@ -5142,6 +5169,254 @@ def k11_library(torch, aten, z, b, c0, h0):
             "library_bwd_device_ms": device_ms(bwd, torch)}
 
 
+def k11l_inputs(torch, case, dev="cuda", seed=SEED, t_len=RNN_TBPTT):
+    """A layer's operands over a chunk at ``case`` = (N, H, peepholes,
+    masked), f32 on ``dev``: {xw (T, N, 4H), rw (H, 4H) of scale H^-1/2,
+    b, peep (3, H) of scale 0.1 or None, m (T, N) or None, h0, c0}, and
+    the backward's dy (T, N, H), dh, dc. The mask keeps each row's first
+    20-50 steps, cuts an interior gap into row 1 and zeroes row 2."""
+    n, hd, peep, masked = case
+    g = torch.Generator(device=dev).manual_seed(seed + hd)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev)
+    ops = {"xw": rnd(t_len, n, 4 * hd), "rw": rnd(hd, 4 * hd) / hd ** 0.5,
+           "b": 0.1 * rnd(4 * hd), "peep": 0.1 * rnd(3, hd) if peep else None,
+           "m": None, "h0": rnd(n, hd), "c0": rnd(n, hd)}
+    if masked:
+        keep = torch.randint(20, t_len + 1, (n,), generator=g, device=dev)
+        m = (torch.arange(t_len, device=dev)[:, None] < keep[None, :]).float()
+        m[t_len // 5:t_len // 3, 1] = 0
+        m[:, 2] = 0
+        ops["m"] = m.contiguous()
+    return ops, rnd(t_len, n, hd), rnd(n, hd), rnd(n, hd)
+
+
+def k11l_errors(got, ref):
+    """max |Δ| over max(1, max |ref|), worst output, and max |Δ|."""
+    pairs = [(a, r) for a, r in zip(got, ref) if r is not None]
+    rel = max(((a - r).abs().max() / r.abs().max().clamp_min(1.0)).item()
+              for a, r in pairs)
+    return rel, max((a - r).abs().max().item() for a, r in pairs)
+
+
+def k11l_readings(cases=K11L_CASES, seeds=range(4), t_len=RNN_TBPTT):
+    """CPU readings behind TOL_K11L: the plain layer in f32 against the
+    same layer in f64 over ``t_len`` steps, forward and backward (on the
+    f32 forward's own carries and gates), {"fwd": worst, "bwd": worst}
+    over the cases and seeds."""
+    import torch
+    from deeplearning4j_tpu_torch.kernels import rnn_cell as rc
+    d = lambda t: None if t is None else t.double()
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for case in cases:
+        for seed in seeds:
+            ops, dy, dh, dc = k11l_inputs(torch, case, "cpu", SEED + seed,
+                                          t_len)
+            f32 = rc.layer_fwd_reference(**ops, act=0)
+            f64 = rc.layer_fwd_reference(
+                **{k: d(v) for k, v in ops.items()}, act=0)
+            got = rc.layer_bwd_reference(dy, dh, dc, f32[3], f32[2],
+                                         ops["c0"], ops["rw"], ops["peep"],
+                                         ops["m"], 0)
+            want = rc.layer_bwd_reference(
+                d(dy), d(dh), d(dc), f64[3], f64[2], d(ops["c0"]),
+                d(ops["rw"]), d(ops["peep"]), d(ops["m"]), 0)
+            worst["fwd"] = max(worst["fwd"], k11l_errors(f32, f64)[0])
+            worst["bwd"] = max(worst["bwd"], k11l_errors(got, want)[0])
+    return worst
+
+
+def k11l_bound_ms(n, hd, peep, masked, which, t_len=RNN_TBPTT):
+    """One K11L launch's least time: the larger of its recurrent product
+    (2·N·T·H·4H FLOPs each way, f32 at 67 TFLOP/s; the cell's ~20 FLOPs an
+    element are left out) and its bytes (every operand read once and every
+    output written once, f32). K11Lf reads X·W, RW, b, h0, c0 (and the
+    peepholes, the mask) and writes h, c and the gates a step (and, under
+    a mask, the output h·m); K11Lb reads dy, dh, dc, the gates, c a step,
+    c0 and RW (and the peepholes, the mask) and writes dz a step, dh0,
+    dc0 (and the peephole sums (3, N, H))."""
+    nh, tnh = n * hd, t_len * n * hd
+    small = (3 * hd if peep else 0) + (t_len * n if masked else 0)
+    if which == "fwd":
+        floats = (4 * tnh + 4 * hd * hd + 4 * hd + 2 * nh + 2 * tnh
+                  + 4 * tnh + (tnh if masked else 0) + small)
+    else:
+        floats = (tnh + 2 * nh + 4 * tnh + tnh + nh + 4 * hd * hd + small
+                  + 4 * tnh + 2 * nh + (3 * nh if peep else 0))
+    return _bound(2.0 * t_len * n * hd * 4 * hd, 4 * floats, "float32")
+
+
+def k11l_phase(torch):
+    """(b'): K11Lf and K11Lb against their plain versions over one chunk
+    at R1's and R2's layer shapes (with and without peepholes, unmasked
+    and ragged-masked), each launch's bits equal from call to call, and
+    their times: ``device_ms`` (20 launches in a CUDA graph), ``ms`` (20
+    wrapper calls, host included), the plain versions, the bound and,
+    where cuDNN computes the layer (LSTM, tanh, no mask), one layer of
+    ``nn.LSTM`` (its input product included): forward (``_VF.lstm`` under
+    no_grad) and forward + backward. Returns {case: row}."""
+    from deeplearning4j_tpu_torch.kernels import rnn_cell as rc
+    rows = {}
+    for case in K11L_CASES:
+        n, hd, peep, masked = case
+        ops, dy, dh, dc = k11l_inputs(torch, case)
+        before = all_counts()
+        got = rc.lstm_layer_fwd(**ops, act=0)
+        ref = rc.layer_fwd_reference(**ops, act=0)
+        args = (dy, dh, dc, ref[3], ref[2], ops["c0"], ops["rw"],
+                ops["peep"], ops["m"], 0)
+        got_b = rc.lstm_layer_bwd(*args)
+        ref_b = rc.layer_bwd_reference(*args)
+        torch.cuda.synchronize()
+        check(delta(before) == launch_counts(rnn_layer_fwd=1,
+                                             rnn_layer_bwd=1),
+              f"K11L {case}: launches {delta(before)}")
+        check((got[0] is None) == (ref[0] is None) == (not masked)
+              and (got_b[3] is None) == (not peep),
+              f"K11L {case}: the output is made only under a mask, the "
+              f"peephole sums only with peepholes")
+        err_f, abs_f = k11l_errors(got, ref)
+        err_b, abs_b = k11l_errors(got_b, ref_b)
+        again = rc.lstm_layer_fwd(**ops, act=0)
+        again_b = rc.lstm_layer_bwd(*args)
+        same = all((a is None and b is None) or bool(a.equal(b))
+                   for a, b in zip(again + again_b, got + got_b))
+        fwd = lambda: rc.lstm_layer_fwd(**ops, act=0)
+        bwd = lambda: rc.lstm_layer_bwd(*args)
+        row = {"case": dict(zip(("n", "h", "peepholes", "masked"), case),
+                            t=RNN_TBPTT),
+               "cluster": rc.layer_cluster(hd), "rows": rc.layer_rows(n),
+               "smem": {w: rc.layer_geometry(w, hd, rc.layer_cluster(hd),
+                                             rc.layer_rows(n))["smem"]
+                        for w in ("fwd", "bwd")},
+               "clusters_fit": {w: rc.layer_clusters(
+                   w, hd, rc.layer_cluster(hd), rc.layer_rows(n),
+                   ops["xw"].device) for w in ("fwd", "bwd")},
+               "max_rel_err": {"fwd": err_f, "bwd": err_b},
+               "max_abs_err": {"fwd": abs_f, "bwd": abs_b},
+               "bit_identical": same,
+               "fwd_ms": time_ms(fwd, torch),
+               "fwd_device_ms": device_ms(fwd, torch),
+               "bwd_ms": time_ms(bwd, torch),
+               "bwd_device_ms": device_ms(bwd, torch),
+               "fwd_plain_ms": time_ms(
+                   lambda: rc.layer_fwd_reference(**ops, act=0), torch,
+                   iters=3, repeats=3),
+               "bwd_plain_ms": time_ms(
+                   lambda: rc.layer_bwd_reference(*args), torch, iters=3,
+                   repeats=3)}
+        for which in ("fwd", "bwd"):
+            row[f"{which}_bound_ms"], row[f"{which}_bound_by"] = \
+                k11l_bound_ms(n, hd, peep, masked, which)
+        row["library"] = None
+        if not peep and not masked:
+            row.update(k11l_library(torch, n, hd))
+        rows[case] = row
+        emit(k11l_case=row)
+        check(err_f <= TOL_K11L["fwd"] and err_b <= TOL_K11L["bwd"],
+              f"K11L {case}: {err_f} / {err_b} over {TOL_K11L}")
+        check(same, f"K11L {case}: a second launch gave other bits")
+    return rows
+
+
+def k11l_library(torch, n, hd, calls=10):
+    """cuDNN's one LSTM layer (``nn.LSTM(H, H)``, N rows, RNN_TBPTT steps;
+    its input product X·W included, which K11Lf takes done): the forward
+    alone under no_grad (``_VF.lstm``) and forward + backward; ms with the
+    host by CUDA events, device ms from a profiler window over ``calls``
+    calls (no CUDA graph: cuDNN's RNN is not captured). A yardstick: the
+    port never calls it."""
+    twin = torch.nn.LSTM(hd, hd, batch_first=True).cuda()
+    x = torch.randn((n, RNN_TBPTT, hd), device="cuda")
+
+    def fwd():
+        with torch.no_grad():
+            return twin(x)[0]
+
+    def fwd_bwd():
+        xs = x.detach().requires_grad_()
+        y, _ = twin(xs)
+        y.backward(torch.ones_like(y))
+
+    out = {"library": "nn.LSTM (cuDNN), one layer",
+           "library_ms": time_ms(fwd, torch),
+           "library_fwd_bwd_ms": time_ms(fwd_bwd, torch, iters=10)}
+    for key, fn in (("library_device_ms", fwd),
+                    ("library_fwd_bwd_device_ms", fwd_bwd)):
+        p = profile_window(torch, f"k11l_{key}",
+                           lambda: [fn() for _ in range(calls)],
+                           f"k11l_{key}_trace.json", top=4)
+        busy = p.get("device_busy_us")
+        out[key] = None if busy is None else busy / 1e3 / calls
+    return out
+
+
+def wide_layer_phase(torch):
+    """The per-step route on the card: an LSTM layer past K11L's widest
+    (WIDE_LAYER: N 32, H 512, n_in 512) over one chunk, forward and
+    backward, against the same layer with the plain versions swapped in
+    (relative L2 of the output, carries and every gradient); its launches
+    (K11f and K11b a step each, no K11L) and its time. Returns the launch
+    tuple."""
+    from deeplearning4j_tpu_torch.kernels import rnn_cell as rc
+    from deeplearning4j_tpu_torch.nn.conf.layers import LSTM
+    n, hd = WIDE_LAYER
+    layer = LSTM(n_in=hd, n_out=hd)
+    layer.apply_global_defaults({})
+    check(layer.cell_route() == "k11",
+          f"H {hd}: route {layer.cell_route()}, not the per-step one")
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    params = {k: 0.05 * torch.randn(s, generator=g, device="cuda")
+              for k, s in layer.param_shapes().items()}
+    x = torch.randn((n, RNN_TBPTT, hd), generator=g, device="cuda")
+
+    def run():
+        ps = {k: v.detach().requires_grad_() for k, v in params.items()}
+        xs = x.detach().requires_grad_()
+        y, (h, c) = layer.run(ps, xs, layer.initial_carry(n, "cuda"))
+        grads = torch.autograd.grad(y.square().sum() + h.sum() + c.sum(),
+                                    [*ps.values(), xs])
+        return [y, h, c, *grads]
+
+    reset_all_counts()
+    got = run()
+    torch.cuda.synchronize()
+    launches = all_counts()
+    saved = rc.lstm_cell_fwd, rc.lstm_cell_bwd
+
+    def plain_fwd(z, b, c_prev, h_prev, peep, m, act, out=None):
+        for buf, val in zip(out, rc.cell_fwd_reference(z, b, c_prev, h_prev,
+                                                       peep, m, act)):
+            if buf is not None:
+                buf.copy_(val)
+        return out
+
+    def plain_bwd(dy, dh, dc, gates, c, c_prev, peep, m, act, dz=None,
+                  dpeep=None):
+        rz, rcp, rh, _ = rc.cell_bwd_reference(dy, dh, dc, gates, c, c_prev,
+                                               peep, m, act)
+        dz.copy_(rz)
+        return dz, rcp, rh
+
+    rc.lstm_cell_fwd, rc.lstm_cell_bwd = plain_fwd, plain_bwd
+    try:
+        want = run()
+    finally:
+        rc.lstm_cell_fwd, rc.lstm_cell_bwd = saved
+    err = max(rel_l2(a.detach().cpu().numpy(), b.detach().cpu().numpy())
+              for a, b in zip(got, want))
+    emit(recurrent_wide_layer={"n": n, "h": hd, "t": RNN_TBPTT,
+                               "route": layer.cell_route(),
+                               "max_rel_l2": err, "row": TOL_WIDE_LAYER,
+                               "ms": time_ms(run, torch, iters=3, repeats=3),
+                               "launches": dict(zip(ALL_KERNELS, launches))})
+    check(err <= TOL_WIDE_LAYER, f"the wide layer (K11 a step) against "
+          f"the plain versions: {err} over {TOL_WIDE_LAYER}")
+    check(launches == launch_counts(rnn_cell_fwd=RNN_TBPTT,
+                                    rnn_cell_bwd=RNN_TBPTT),
+          f"the wide layer launched {dict(zip(ALL_KERNELS, launches))}")
+    return launches
+
+
 def layer_vs_cudnn(torch, dev):
     """One LSTM layer (R1's second: 256 → 256, N 32) over one 50-step
     chunk, forward and backward: the port's layer Function (K11 a step)
@@ -5238,8 +5513,9 @@ def fit_timing(torch, fit):
 
 def rnn_timing(torch, label, net, x, y, twin_fit, smi, chunks):
     """Host ms a chunk, characters/s, device ms, busy share and kernels a
-    chunk (a profiler window of one whole fit), top device ops, K11's
-    share of the device time and own peak memory, for the port's ``net``
+    chunk (a profiler window of one whole fit), top device ops, the
+    share of the device time in rnn_cell.cu's kernels (K11L on R1 and R2)
+    and own peak memory, for the port's ``net``
     and (where ``twin_fit`` is given) the plain twin, in turns (port,
     twin, twin, port)."""
     runs = {"port": lambda: net.fit(x, y)}
@@ -5280,10 +5556,11 @@ def rnn_timing(torch, label, net, x, y, twin_fit, smi, chunks):
 
 def recurrent_phase(torch):
     """The recurrent slice on the card (R1-R4 above): checks (a)-(e) of
-    PERF.md's recurrent rows, K11 alone (b), the timings and the
-    recurrent path's launches: every count 0 just before one fit of R1 in
-    f32, read just after (2 × 1000 K11f and K11b, nothing else). Returns
-    (that launch tuple, the K11 rows)."""
+    PERF.md's recurrent rows, K11 alone (b), K11L alone (b'), the wide
+    layer on K11 a step, the timings and the recurrent path's launches:
+    every count 0 just before one fit of R1 in f32, read just after (K11Lf
+    and K11Lb once a layer and chunk, 2 × 20 each, nothing else). Returns
+    (that launch tuple, the wide layer's, the K11 rows, the K11L rows)."""
     from deeplearning4j_tpu_torch._device import resolve_device
     from deeplearning4j_tpu_torch.nn.params import tree_to_numpy
     t_phase = time.perf_counter()
@@ -5292,6 +5569,8 @@ def recurrent_phase(torch):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     k11_rows = k11_phase(torch)
+    k11l_rows = k11l_phase(torch)
+    wide = wide_layer_phase(torch)
     chunks = RNN_SEQ // RNN_TBPTT
     x, y = char_stream(RNN_BATCH, RNN_SEQ)
 
@@ -5339,8 +5618,8 @@ def recurrent_phase(torch):
           f"{failed}")
     check(all(control.values()), f"(a) a TF32 control passed the f32 rows: "
           f"{control}")
-    check(launches == launch_counts(rnn_cell_fwd=2 * RNN_SEQ,
-                                    rnn_cell_bwd=2 * RNN_SEQ),
+    check(launches == launch_counts(rnn_layer_fwd=2 * chunks,
+                                    rnn_layer_bwd=2 * chunks),
           f"the recurrent path (one fit of R1) launched "
           f"{dict(zip(ALL_KERNELS, launches))}")
 
@@ -5458,13 +5737,15 @@ def recurrent_phase(torch):
         emit(recurrent_timing=r)
     emit(recurrent_lstm_layer_vs_cudnn=layer_vs_cudnn(torch, dev), gpu=smi)
     emit(recurrent_phase_seconds=time.perf_counter() - t_phase,
-         recurrent_launches=dict(zip(ALL_KERNELS, launches)))
-    return launches, k11_rows
+         recurrent_launches=dict(zip(ALL_KERNELS, launches)),
+         wide_layer_launches=dict(zip(ALL_KERNELS, wide)))
+    return launches, wide, k11_rows, k11l_rows
 
 
 def k11_kernel_entry(which, rows, launches):
     """The kernels-line entry of K11f ("rnn_cell_fwd") or K11b
-    ("rnn_cell_bwd"), its numbers at K11_MAIN_CASE (R1's cell)."""
+    ("rnn_cell_bwd"), its numbers at K11_MAIN_CASE (R1's cell); its path
+    is the wide layer's since K11L runs R1's."""
     p = "fwd" if which == "rnn_cell_fwd" else "bwd"
     main = rows[K11_MAIN_CASE]
     lib = {"fwd": ("library_ms", "library_device_ms"),
@@ -5486,8 +5767,36 @@ def k11_kernel_entry(which, rows, launches):
         "at": main["case"]}
 
 
+def k11l_kernel_entry(which, rows, launches):
+    """The kernels-line entry of K11Lf ("rnn_layer_fwd") or K11Lb
+    ("rnn_layer_bwd"), its numbers at K11L_MAIN_CASE (R1's second layer
+    over a chunk); library_ms is cuDNN's one layer forward, or forward and
+    backward for K11Lb (its input product and weight gradients
+    included)."""
+    p = "fwd" if which == "rnn_layer_fwd" else "bwd"
+    main = rows[K11L_MAIN_CASE]
+    lib = {"fwd": ("library_ms", "library_device_ms"),
+           "bwd": ("library_fwd_bwd_ms", "library_fwd_bwd_device_ms")}[p]
+    return {
+        "name": f"lstm_layer_{p}", "route": "cuda",
+        "source": "deeplearning4j_tpu_torch/kernels/csrc/rnn_cell.cu",
+        # _RnnBase.run's lax.scan over LSTM.step / GravesLSTM.step
+        "replaces": "deeplearning4j_tpu/nn/conf/layers.py:895",
+        "launches": sum(launches.values()), "launches_by_path": launches,
+        "on_main_path": sum(launches.values()) > 0,
+        "max_abs_err": max(r["max_abs_err"][p] for r in rows.values()),
+        "ms": main[f"{p}_ms"], "device_ms": main[f"{p}_device_ms"],
+        "plain_ms": main[f"{p}_plain_ms"], "bound_ms": main[f"{p}_bound_ms"],
+        "bound_by": main[f"{p}_bound_by"],
+        "library": main.get("library"),
+        "library_ms": main.get(lib[0]),
+        "library_device_ms": main.get(lib[1]),
+        "at": main["case"]}
+
+
 def check_path_launches(serve, modes, train, moe, f32_serve, f32_train,
-                        pipeline, frontdoor, fleet, network, recurrent):
+                        pipeline, frontdoor, fleet, network, recurrent,
+                        wide):
     """Which kernels each main path launched (each an ``all_counts()``
     tuple): the bf16 paths (serving, the serving modes, the rungs, MoE)
     the wgmma flash kernels and never the simple forward or the mma.sync
@@ -5500,8 +5809,9 @@ def check_path_launches(serve, modes, train, moe, f32_serve, f32_train,
     model (f32, head dim 16) the simple forward and K4a+w only; the DL4J
     network paths (ResNet-50, LeNet) no kernel of the port at all; the
     recurrent path (one fit of R1: 20 chunks of 50 steps, 2 LSTM layers)
-    K11f and K11b 2 × 1000 times each and nothing else, and no other path
-    K11."""
+    K11Lf and K11Lb 2 × 20 times each and nothing else, the wide layer
+    (one chunk past K11L's widest) K11f and K11b 50 times each and nothing
+    else, and no other path K11 or K11L."""
     check(serve[0] > 0 and train[0] > 0 and moe[0] > 0,
           "a main path launched no flash_attention_fwd_wgmma")
     check(train[2] > 0 and moe[2] > 0,
@@ -5558,20 +5868,51 @@ def check_path_launches(serve, modes, train, moe, f32_serve, f32_train,
               f"the {label} path launched kernels off its path: {named}")
     check(not any(network), f"the network paths launched port kernels: "
           f"{dict(zip(ALL_KERNELS, network))}")
-    check(recurrent == launch_counts(rnn_cell_fwd=2 * RNN_SEQ,
-                                     rnn_cell_bwd=2 * RNN_SEQ),
+    check_recurrent_launches(recurrent, wide, (
+        serve, modes, train, moe, f32_serve, f32_train, pipeline, frontdoor,
+        fleet, network))
+
+
+def recurrent_kernel_entries(launches, k11_rows, k11l_rows):
+    """The kernels-line entries of K11f, K11b, K11Lf and K11Lb;
+    ``launches`` maps each kernel to its launches by path."""
+    return ([k11_kernel_entry(k, k11_rows, launches[k])
+             for k in ("rnn_cell_fwd", "rnn_cell_bwd")]
+            + [k11l_kernel_entry(k, k11l_rows, launches[k])
+               for k in ("rnn_layer_fwd", "rnn_layer_bwd")])
+
+
+def check_recurrent_launches(recurrent, wide, others=()):
+    """The recurrent paths' launches: one fit of R1 K11Lf and K11Lb once a
+    layer and chunk (2 × 20 each) and nothing else, the wide layer K11f
+    and K11b once a step (50 each) and nothing else, and no path of
+    ``others`` K11 or K11L."""
+    chunks = 2 * (RNN_SEQ // RNN_TBPTT)
+    check(recurrent == launch_counts(rnn_layer_fwd=chunks,
+                                     rnn_layer_bwd=chunks),
           f"the recurrent path launched "
           f"{dict(zip(ALL_KERNELS, recurrent))}")
-    k11 = [ALL_KERNELS.index("rnn_cell_fwd"), ALL_KERNELS.index("rnn_cell_bwd")]
-    others = (serve, modes, train, moe, f32_serve, f32_train, pipeline,
-              frontdoor, fleet, network)
+    check(wide == launch_counts(rnn_cell_fwd=RNN_TBPTT,
+                                rnn_cell_bwd=RNN_TBPTT),
+          f"the wide layer launched {dict(zip(ALL_KERNELS, wide))}")
+    k11 = [ALL_KERNELS.index(k) for k in ("rnn_cell_fwd", "rnn_cell_bwd",
+                                          "rnn_layer_fwd", "rnn_layer_bwd")]
     check(all(path[i] == 0 for path in others for i in k11),
-          "a path other than the recurrent one launched K11")
+          "a path other than the recurrent ones launched K11 or K11L")
+
+
+#: rnn_cell.cu's kernels: K11f, K11b and K11Lf, K11Lb at 1, 2 and 4 rows
+#: a cluster
+RNN_CELL_INSTANTIATIONS = ["bwd", "fwd"] + [
+    f"layer_{w} r{r}" for w in ("fwd", "bwd") for r in (1, 2, 4)]
 
 
 def rnn_cell_ptxas(log):
-    """{"fwd"|"bwd": {"registers": n, "spill_bytes": n}}: K11's kernels."""
-    return _ptxas(log, r"lstm_(fwd|bwd)_kernel", lambda m: m.group(1))
+    """{"fwd"|"bwd"|"layer_fwd r4"|...: {"registers": n, "spill_bytes":
+    n}}: rnn_cell.cu's kernels."""
+    return _ptxas(log, r"lstm_(layer_)?(fwd|bwd)_kernel(ILi(\d)E)?",
+                  lambda m: (f"layer_{m.group(2)} r{m.group(4)}"
+                             if m.group(1) else m.group(2)))
 
 
 # --precision-f32: the f32 shapes of the kernel and backward phases
@@ -5883,14 +6224,69 @@ def compare_turns(other, this=ROOT, fwd=None, bwd=None):
     return times
 
 
+# one turn of --compare-k11l: the tree's own K11Lf and K11Lb at the given
+# cases, each one launch against the plain versions (the error, not
+# checked: an ablated tree computes something else) and its device ms
+_K11L_TURN = """
+import json, sys, torch, chip_smoke
+from deeplearning4j_tpu_torch.kernels import rnn_cell as rc
+for case in json.loads(sys.argv[1]):
+    ops, dy, dh, dc = chip_smoke.k11l_inputs(torch, tuple(case))
+    ref = rc.layer_fwd_reference(**ops, act=0)
+    args = (dy, dh, dc, ref[3], ref[2], ops["c0"], ops["rw"], ops["peep"],
+            ops["m"], 0)
+    err = [chip_smoke.k11l_errors(rc.lstm_layer_fwd(**ops, act=0), ref)[0],
+           chip_smoke.k11l_errors(rc.lstm_layer_bwd(*args),
+                                  rc.layer_bwd_reference(*args))[0]]
+    print(json.dumps({"k11l_turn": {
+        "case": case, "max_rel_err": err,
+        "fwd_device_ms": chip_smoke.device_ms(
+            lambda: rc.lstm_layer_fwd(**ops, act=0), torch),
+        "bwd_device_ms": chip_smoke.device_ms(
+            lambda: rc.lstm_layer_bwd(*args), torch)}}))
+"""
+
+
+def compare_k11l(others, this=ROOT, cases=(K11L_MAIN_CASE,
+                                           (RNN_BATCH, 200, True, False))):
+    """Device ms of K11Lf and K11Lb at ``cases`` in the checkouts at
+    ``others`` and in ``this``, in turns (others in order, this twice,
+    others in reverse), each turn a subprocess of that tree timing its own
+    kernels. Returns {case: {tree: {"fwd": [ms...], "bwd": [ms...],
+    "max_rel_err": [fwd, bwd]}}}."""
+    trees = [(str(o), o) for o in others]
+    order = trees + [("this", this)] * 2 + trees[::-1]
+    arg = json.dumps([list(c) for c in cases])
+    times = {}
+    for label, root in order:
+        run = subprocess.run([sys.executable, "-c", _K11L_TURN, arg],
+                             cwd=root, capture_output=True, text=True,
+                             timeout=900)
+        check(run.returncode == 0, f"turn in {root} failed:\n"
+              f"{run.stdout[-4000:]}\n{run.stderr[-4000:]}")
+        for line in run.stdout.splitlines():
+            r = (json.loads(line) if line.startswith("{") else {}).get(
+                "k11l_turn")
+            if r:
+                got = times.setdefault(" ".join(map(str, r["case"])),
+                                       {}).setdefault(
+                    label, {"fwd": [], "bwd": []})
+                got["fwd"].append(r["fwd_device_ms"])
+                got["bwd"].append(r["bwd_device_ms"])
+                got["max_rel_err"] = r["max_rel_err"]
+    return times
+
+
 def check_rnn_cell_build(build):
-    """K11's two kernels spill nothing (when compiled in this run)."""
+    """K11's and K11L's kernels spill nothing (when compiled in this
+    run)."""
     log = build.build_logs.get("rnn_cell")
     if log is not None:
         report = rnn_cell_ptxas(log)
         emit(rnn_cell_ptxas=report)
-        check(spill_free(report, ["bwd", "fwd"]),
-              f"K11: want no spills in its two kernels, ptxas gave {report}")
+        check(spill_free(report, RNN_CELL_INSTANTIATIONS),
+              f"K11, K11L: want no spills in their "
+              f"{len(RNN_CELL_INSTANTIATIONS)} kernels, ptxas gave {report}")
 
 
 def main() -> int:
@@ -5914,7 +6310,11 @@ def main() -> int:
                         "and LeNet), which builds no kernel")
     parser.add_argument("--recurrent", action="store_true",
                         help="run only the recurrent phase (the char-RNNs "
-                        "R1-R4 and K11), which builds only K11")
+                        "R1-R4, K11 and K11L), which builds only "
+                        "rnn_cell.cu")
+    parser.add_argument("--compare-k11l", metavar="OTHER", type=Path,
+                        nargs="+", help="time K11Lf and K11Lb here and in "
+                        "the checkouts at OTHER in turns, and nothing else")
     parser.add_argument("--precision-ce-f32", action="store_true",
                         help="measure the f32 K3 kernels and their plain "
                         "versions against f64 at the training shape, and "
@@ -5946,6 +6346,10 @@ def main() -> int:
                                          fwd=F32_COMPARE_CASES,
                                          bwd=F32_COMPARE_CASES))
         return 0
+    if args.compare_k11l is not None:
+        emit(compare_k11l=compare_k11l([o.resolve()
+                                        for o in args.compare_k11l]))
+        return 0
     if args.compare_decode is not None:
         emit(compare_decode=compare_decode(args.compare_decode.resolve()))
         return 0
@@ -5965,10 +6369,11 @@ def main() -> int:
         _build.load("rnn_cell")
         emit(build={"seconds": time.perf_counter() - t0})
         check_rnn_cell_build(_build)
-        recurrent, k11_rows = recurrent_phase(torch)
-        emit(kernels=[k11_kernel_entry(k, k11_rows, {
-            "recurrent": recurrent[ALL_KERNELS.index(k)]})
-            for k in ("rnn_cell_fwd", "rnn_cell_bwd")])
+        recurrent, wide, k11_rows, k11l_rows = recurrent_phase(torch)
+        check_recurrent_launches(recurrent, wide)
+        emit(kernels=recurrent_kernel_entries(
+            {k: {"recurrent": recurrent[i], "wide_layer": wide[i]}
+             for i, k in enumerate(ALL_KERNELS)}, k11_rows, k11l_rows))
         return 0
 
     t0 = time.perf_counter()
@@ -6088,17 +6493,19 @@ def main() -> int:
     allocated("f32_train_phase")
     network = network_phase(torch)
     torch.cuda.empty_cache()
-    recurrent, k11_rows = recurrent_phase(torch)
+    recurrent, wide, k11_rows, k11l_rows = recurrent_phase(torch)
     launches = {name: {"serve": serve[i], "serve_modes": modes[i],
                        "pipeline": pipeline[i], "frontdoor": frontdoor[i],
                        "fleet": fleet[i],
                        "train": train[i], "moe": moe[i],
                        "f32_serve": f32_serve[i], "f32_train": f32_train[i],
-                       "network": network[i], "recurrent": recurrent[i]}
+                       "network": network[i], "recurrent": recurrent[i],
+                       "wide_layer": wide[i]}
                 for i, name in enumerate(ALL_KERNELS)}
     emit(main_path_launches=launches)
     check_path_launches(serve, modes, train, moe, f32_serve, f32_train,
-                        pipeline, frontdoor, fleet, network, recurrent)
+                        pipeline, frontdoor, fleet, network, recurrent,
+                        wide)
     emit(kernels=[kernel_entry("wgmma", cases, launches["wgmma"]),
                   kernel_entry("simple", cases, launches["simple"]),
                   bwd_kernel_entry("bwd_wgmma", bwd_cases,
@@ -6123,8 +6530,7 @@ def main() -> int:
             for k in ("ce_fwd_tf32", "ce_dlogits_tf32", "ce_split_tf32")]
          + [decode_kernel_entry("paged_attention_write", decode_cases,
                                 launches["paged_attention_write"])]
-         + [k11_kernel_entry(k, k11_rows, launches[k])
-            for k in ("rnn_cell_fwd", "rnn_cell_bwd")])
+         + recurrent_kernel_entries(launches, k11_rows, k11l_rows))
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

@@ -27,6 +27,8 @@ COUNTERS = {
     "paged_attention_write": ("paged_attention", "launches_attend_write"),
     "rnn_cell_fwd": ("rnn_cell", "launches_cell_fwd"),
     "rnn_cell_bwd": ("rnn_cell", "launches_cell_bwd"),
+    "rnn_layer_fwd": ("rnn_cell", "launches_layer_fwd"),
+    "rnn_layer_bwd": ("rnn_cell", "launches_layer_bwd"),
 }
 
 

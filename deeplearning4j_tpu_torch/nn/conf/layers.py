@@ -557,8 +557,8 @@ class _RnnBase(Layer):
     reference's mask semantics (a masked step freezes the carry and zeroes
     the output; the float mask counts as set where it is nonzero). The
     carries are f32. Here the loop runs the torch ``step`` under autograd;
-    an LSTM on K11's route runs ``kernels/rnn_cell.py``'s ``LSTMLayer``, one
-    autograd node a layer."""
+    an LSTM on a kernel's route runs ``kernels/rnn_cell.py``'s
+    ``LSTMLayer``, one autograd node a layer."""
     n_in: Optional[int] = None
     n_out: Optional[int] = None
 
@@ -614,12 +614,13 @@ class _RnnBase(Layer):
 @register_layer
 @dataclasses.dataclass
 class LSTM(_RnnBase):
-    """Fused-gate LSTM, gate order (i, f, g, o). Its time loop is K11's
-    layer Function (``kernels/rnn_cell.py`` ``LSTMLayer``: the hand CUDA
-    cell on the card, its plain version on the CPU) when K11 takes the
+    """Fused-gate LSTM, gate order (i, f, g, o). Its time loop is the
+    layer Function ``kernels/rnn_cell.py`` ``LSTMLayer`` when K11 takes the
     cell activation (``rnn_cell.ACTIVATIONS``: tanh, identity, relu,
-    sigmoid, hardtanh, softsign); with any other activation it is the
-    plain step in ``_RnnBase.run``'s loop. The route follows from the
+    sigmoid, hardtanh, softsign): on the card one K11L launch a layer each
+    way up to ``rnn_cell.MAX_LAYER_HIDDEN`` units, K11 a step past it; the
+    plain versions on the CPU. With any other activation it is the plain
+    step in ``_RnnBase.run``'s loop. The route follows from the
     configuration (:meth:`cell_route`), never from a failed launch."""
     forget_gate_bias_init: float = 1.0
 
@@ -645,21 +646,23 @@ class LSTM(_RnnBase):
                                  dtype=dtype) for _ in range(2))
 
     def cell_route(self) -> str:
-        """"k11" (the fused cell) or "step" (the plain step in a loop)."""
-        from deeplearning4j_tpu_torch.kernels.rnn_cell import act_code
-        return "step" if act_code(self.activation or "identity") is None \
-            else "k11"
+        """"k11_layer" (the whole layer a K11L launch), "k11" (the fused
+        cell a step, for a layer too wide for K11L) or "step" (the plain
+        step in a loop): ``rnn_cell.cell_route``."""
+        from deeplearning4j_tpu_torch.kernels.rnn_cell import cell_route
+        return cell_route(self.activation or "identity", self.n_out)
 
     def _peepholes(self, params):
         return None, None, None
 
     def run(self, params, x, carry0, mask=None):
-        if self.cell_route() != "k11":
+        route = self.cell_route()
+        if route == "step":
             return super().run(params, x, carry0, mask)
         from deeplearning4j_tpu_torch.kernels import rnn_cell
         p_i, p_f, p_o = self._peepholes(params)
         y, h, c = rnn_cell.LSTMLayer.apply(
-            rnn_cell.act_code(self.activation or "identity"), x,
+            rnn_cell.act_code(self.activation or "identity"), route, x,
             params["W"], params["RW"], params["b"], p_i, p_f, p_o,
             carry0[0], carry0[1], mask)
         return y, (h, c)

@@ -506,14 +506,14 @@ def test_expected_launches_per_step():
     config is bf16 at d 1024), K7 twice per MoE layer (three times under
     remat), K4a, K4w and K4a+w (decode only) never."""
     assert chip_smoke.expected_per_step(12, False, 0) == (
-        12, 0, 12, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+        12, 0, 12, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
     assert chip_smoke.expected_per_step(12, True, 8) == (
-        24, 0, 12, 0, 0, 0, 0, 0, 1, 8, 0, 0, 0, 0, 0, 0, 0, 0)
+        24, 0, 12, 0, 0, 0, 0, 0, 1, 8, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
     assert chip_smoke.expected_per_step(12, False, 8, moe=True) == (
-        12, 0, 12, 0, 0, 0, 24, 24, 1, 8, 0, 0, 0, 0, 0, 0, 0, 0)
+        12, 0, 12, 0, 0, 0, 24, 24, 1, 8, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
     assert chip_smoke.expected_per_step(2, True, 0, moe=True)[6:] == (
-        6, 6, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
-    assert len(chip_smoke.ALL_KERNELS) == 18
+        6, 6, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+    assert len(chip_smoke.ALL_KERNELS) == 20
     assert chip_smoke.ALL_KERNELS[:4] == chip_smoke.KERNELS
     assert chip_smoke.ALL_KERNELS[8:10] == ("ce_fwd_wgmma",
                                             "ce_dlogits_wgmma")
@@ -529,13 +529,14 @@ def test_expected_launches_per_step():
         == {"chunked_ce_tf32.cu"}
     assert chip_smoke.ALL_KERNELS[15] == "paged_attention_write"
     assert chip_smoke.SOURCES["paged_attention_write"] == "paged_attention.cu"
-    assert chip_smoke.ALL_KERNELS[16:] == ("rnn_cell_fwd", "rnn_cell_bwd")
+    assert chip_smoke.ALL_KERNELS[16:] == ("rnn_cell_fwd", "rnn_cell_bwd",
+                                           "rnn_layer_fwd", "rnn_layer_bwd")
     assert {chip_smoke.SOURCES[k] for k in chip_smoke.ALL_KERNELS[16:]} == {
         "rnn_cell.cu"}
 
 
 def test_all_counts_reads_every_counter_in_order():
-    """all_counts gives the eighteen counters in ALL_KERNELS' order, and
+    """all_counts gives the twenty counters in ALL_KERNELS' order, and
     reset_all_counts zeroes every one."""
     from deeplearning4j_tpu_torch.kernels import chunked_ce as ce
     from deeplearning4j_tpu_torch.kernels import flash_attention as fa
@@ -550,21 +551,23 @@ def test_all_counts_reads_every_counter_in_order():
              (pa, "launches_attend"), (pa, "launches_quant_write"),
              (ce, "launches_fwd_tf32"), (ce, "launches_dlogits_tf32"),
              (ce, "launches_split_tf32"), (pa, "launches_attend_write"),
-             (rc, "launches_cell_fwd"), (rc, "launches_cell_bwd")]
+             (rc, "launches_cell_fwd"), (rc, "launches_cell_bwd"),
+             (rc, "launches_layer_fwd"), (rc, "launches_layer_bwd")]
     saved = [getattr(m, n) for m, n in names]
     try:
         for i, (m, n) in enumerate(names):
             setattr(m, n, i + 1)
-        assert chip_smoke.all_counts() == tuple(range(1, 19))
+        assert chip_smoke.all_counts() == tuple(range(1, 21))
         before = chip_smoke.all_counts()
         pa.launches_attend += 5
         ce.launches_split_tf32 += 2
         pa.launches_attend_write += 3
         rc.launches_cell_bwd += 4
+        rc.launches_layer_fwd += 6
         assert chip_smoke.delta(before) == (0,) * 10 + (5, 0, 0, 0, 2, 3,
-                                                        0, 4)
+                                                        0, 4, 6, 0)
         chip_smoke.reset_all_counts()
-        assert chip_smoke.all_counts() == (0,) * 18
+        assert chip_smoke.all_counts() == (0,) * 20
     finally:
         for (m, n), v in zip(names, saved):
             setattr(m, n, v)
@@ -763,7 +766,7 @@ def test_launch_counts_names_each_kernel():
     the rest; a name that is no kernel raises."""
     got = chip_smoke.launch_counts(wgmma=12, paged_attention_write=372,
                                    kv_quant_write=1)
-    assert len(got) == len(chip_smoke.ALL_KERNELS) == 18
+    assert len(got) == len(chip_smoke.ALL_KERNELS) == 20
     assert dict(zip(chip_smoke.ALL_KERNELS, got)) == dict(
         {k: 0 for k in chip_smoke.ALL_KERNELS}, wgmma=12,
         paged_attention_write=372, kv_quant_write=1)
@@ -1061,9 +1064,9 @@ def test_expected_launches_per_step_of_the_f32_model():
     pass for the forward and before the backward's chunks; neither
     chunked_ce.cu's nor the wgmma one), no wgmma flash kernel."""
     assert chip_smoke.expected_per_step(12, False, 0, f32=True) == (
-        0, 12, 0, 12, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+        0, 12, 0, 12, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
     assert chip_smoke.expected_per_step(12, False, 8, f32=True) == (
-        0, 12, 0, 12, 0, 0, 0, 0, 0, 0, 0, 0, 1, 8, 2, 0, 0, 0)
+        0, 12, 0, 12, 0, 0, 0, 0, 0, 0, 0, 0, 1, 8, 2, 0, 0, 0, 0, 0)
     assert chip_smoke.expected_per_step(12, True, 8, f32=True)[:4] == (
         0, 24, 0, 12)
     assert chip_smoke.F32_RUNGS == ((8, False, 0), (8, False, 8))
@@ -1075,10 +1078,11 @@ def _path_launches():
     """Plausible per-path launches, ALL_KERNELS' order: decode through
     K4a+w, K4w only for the int8 modes' prefill inserts (the serving modes
     and the pipeline's int8 run); the front door on bf16 pages, the
-    fleet's f32 demo model on the simple forward; the recurrent path K11f
-    and K11b (the last two) 2 × 1000 times each."""
+    fleet's f32 demo model on the simple forward; the recurrent path
+    K11Lf and K11Lb (the last two) 2 × 20 times each, the wide layer K11f
+    and K11b (the two before) 50 times each."""
     L, n = 12, 31
-    none, k11 = (0, 0, 0), (0, 0)
+    none, k11 = (0, 0, 0), (0, 0, 0, 0)
     serve = (4 * L, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0) + none + (4 * n * L,) \
         + k11
     modes = (3 * L, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 12) + none + (900,) + k11
@@ -1092,10 +1096,11 @@ def _path_launches():
     frontdoor = (45 * L, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0) + none + (5868,) \
         + k11
     fleet = (0, 16, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0) + none + (240,) + k11
-    network = (0,) * 18
-    recurrent = (0,) * 16 + (2000, 2000)
+    network = (0,) * 20
+    recurrent = (0,) * 18 + (40, 40)
+    wide = (0,) * 16 + (50, 50, 0, 0)
     return [serve, modes, train, moe, f32_serve, f32_train, pipeline,
-            frontdoor, fleet, network, recurrent]
+            frontdoor, fleet, network, recurrent, wide]
 
 
 @pytest.mark.parametrize("path,kernel,what", [
@@ -1145,7 +1150,17 @@ def _path_launches():
     (10, 0, "the recurrent path launching the wgmma forward"),
     (2, 16, "training launching K11f"),
     (9, 17, "the network paths launching K11b"),
-    (6, 16, "the pipeline launching K11f")])
+    (6, 16, "the pipeline launching K11f"),
+    (10, 18, "the recurrent path without K11Lf"),
+    (10, 19, "the recurrent path without K11Lb"),
+    (10, 17, "the recurrent path launching K11b beside K11L"),
+    (11, 16, "the wide layer without K11f"),
+    (11, 17, "the wide layer without K11b"),
+    (11, 18, "the wide layer launching K11Lf"),
+    (11, 0, "the wide layer launching the wgmma forward"),
+    (2, 18, "training launching K11Lf"),
+    (9, 19, "the network paths launching K11Lb"),
+    (7, 18, "the front door launching K11Lf")])
 def test_path_launch_checks_catch_each_misroute(path, kernel, what):
     paths = _path_launches()
     chip_smoke.check_path_launches(*paths)
@@ -1565,3 +1580,117 @@ def test_rnn_readings_hold_f32_near_f64_on_the_cpu():
     assert got["loss"] < chip_smoke.TOL_RNN_F32["loss"]
     assert got["step"] < chip_smoke.TOL_RNN_F32["step"]
     assert got["carry"] < chip_smoke.TOL_RNN_F32["carry"]
+
+
+def test_k11l_bound_counts_the_product_and_every_operand_once():
+    """K11Lf at R1's second layer (N 32, T 50, H 256), no mask: the
+    recurrent product 2·N·T·H·4H = 0.839 GFLOP at 67 TFLOP/s (12.5 µs)
+    against X·W, RW, b, h0 and c0 read and h, c and the gates of every
+    step written (17.6 MB, 5.2 µs): bound by operations; K11Lb the same
+    product against dy, the gates, c of every step, dh, dc, c0 and RW read
+    and dz, dh0 and dc0 written."""
+    n, t, hd = 32, 50, 256
+    flops = 2 * n * t * hd * 4 * hd
+    ms, by = chip_smoke.k11l_bound_ms(n, hd, False, False, "fwd")
+    assert by == "operations"
+    assert ms == pytest.approx(1e3 * flops / 67e12)
+    assert ms == pytest.approx(0.0125, rel=2e-2)
+    tnh, nh = t * n * hd, n * hd
+    fwd_bytes = 4 * (4 * tnh + 4 * hd * hd + 4 * hd + 2 * nh + 6 * tnh)
+    bwd_bytes = 4 * (6 * tnh + 3 * nh + 4 * hd * hd + 4 * tnh + 2 * nh)
+    assert fwd_bytes / 3.35e12 < flops / 67e12
+    assert chip_smoke.k11l_bound_ms(n, hd, False, False, "bwd") == (
+        pytest.approx(1e3 * max(flops / 67e12, bwd_bytes / 3.35e12)),
+        "operations")
+    # at one step and one row the bytes bound it
+    ms1, by1 = chip_smoke.k11l_bound_ms(1, 256, True, True, "fwd", t_len=1)
+    assert by1 == "bytes"
+    want = 4 * (4 * 256 + 4 * 256 * 256 + 4 * 256 + 2 * 256 + 6 * 256
+                + 256 + 3 * 256 + 1)
+    assert ms1 == pytest.approx(1e3 * want / 3.35e12)
+
+
+def test_k11l_readings_sit_under_the_rows_on_the_cpu():
+    """The CPU readings behind TOL_K11L, on two of its cases and one
+    draw: the plain layer in f32 against f64 over a chunk reads at f32's
+    level, at least 4× under the rows."""
+    got = chip_smoke.k11l_readings(
+        cases=[chip_smoke.K11L_MAIN_CASE, (32, 200, True, True)], seeds=[0])
+    for which in ("fwd", "bwd"):
+        assert 0 < got[which] <= chip_smoke.TOL_K11L[which] / 4
+
+
+def test_k11l_inputs_mask_cuts_gaps_and_zero_rows():
+    import torch
+    ops, dy, dh, dc = chip_smoke.k11l_inputs(torch, (32, 8, True, True),
+                                             "cpu")
+    m = ops["m"]
+    assert m.shape == (chip_smoke.RNN_TBPTT, 32) and m.is_contiguous()
+    # every row keeps its first 20 steps but row 2 (none) and row 1's
+    # gap (steps 10-15)
+    assert not m[:, 2].any() and not m[10:16, 1].any()
+    assert m[:20].sum() == 20 * 31 - 6
+    assert ops["peep"].shape == (3, 8) and dy.shape == (50, 32, 8)
+    plain, _, _, _ = chip_smoke.k11l_inputs(torch, (4, 8, False, False),
+                                            "cpu")
+    assert plain["m"] is None and plain["peep"] is None
+
+
+_LAYER_PTXAS = "".join(
+    f"ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__x_11_rnn_"
+    f"cell_cu_x{name}' for 'sm_90a'\n"
+    f"    16 bytes stack frame, {spill} bytes spill stores, 0 bytes spill "
+    f"loads\nptxas info    : Used {regs} registers, used 1 barriers\n"
+    for name, spill, regs in (
+        ("21lstm_layer_fwd_kernelILi4EEEvPKf", 0, 109),
+        ("21lstm_layer_bwd_kernelILi4EEEvPKf", 0, 98),
+        ("21lstm_layer_fwd_kernelILi2EEEvPKf", 0, 75),
+        ("21lstm_layer_bwd_kernelILi2EEEvPKf", 0, 76),
+        ("21lstm_layer_fwd_kernelILi1EEEvPKf", 0, 65),
+        ("21lstm_layer_bwd_kernelILi1EEEvPKf", 8, 64),
+        ("15lstm_fwd_kernelEPKf", 0, 32), ("15lstm_bwd_kernelEPKf", 0, 32)))
+
+
+def test_rnn_cell_ptxas_reads_every_k11_and_k11l_kernel():
+    report = chip_smoke.rnn_cell_ptxas(_LAYER_PTXAS)
+    assert sorted(report) == sorted(chip_smoke.RNN_CELL_INSTANTIATIONS)
+    assert report["layer_fwd r4"] == {"spill_bytes": 0, "registers": 109}
+    assert report["fwd"]["registers"] == 32
+    assert not chip_smoke.spill_free(report,
+                                     chip_smoke.RNN_CELL_INSTANTIATIONS)
+    report["layer_bwd r1"]["spill_bytes"] = 0
+    assert chip_smoke.spill_free(report, chip_smoke.RNN_CELL_INSTANTIATIONS)
+
+
+def test_recurrent_kernel_entries_take_each_kernel_from_its_path():
+    """K11f/K11b report the wide layer's launches (their path since K11L
+    runs R1), K11Lf/K11Lb the R1 fit's; every entry has the contract's
+    keys, K11L's library the cuDNN layer (forward, forward + backward)."""
+    row = lambda p: {"max_abs_err": {"fwd": 1e-7, "bwd": 2e-7},
+                     "fwd_ms": 0.1, "fwd_device_ms": 0.05, "bwd_ms": 0.2,
+                     "bwd_device_ms": 0.06, "fwd_plain_ms": 3.0,
+                     "bwd_plain_ms": 4.0, "fwd_bound_ms": 0.0125,
+                     "bwd_bound_ms": 0.0125, "fwd_bound_by": "operations",
+                     "bwd_bound_by": "operations", "case": {"h": 256},
+                     "library": p, "library_ms": 0.3,
+                     "library_device_ms": 0.2, "library_bwd_ms": 0.4,
+                     "library_bwd_device_ms": 0.01,
+                     "library_fwd_bwd_ms": 0.9,
+                     "library_fwd_bwd_device_ms": 0.7}
+    k11 = {chip_smoke.K11_MAIN_CASE: row("aten")}
+    k11l = {chip_smoke.K11L_MAIN_CASE: row("cudnn")}
+    names = chip_smoke.ALL_KERNELS
+    launches = {k: {"recurrent": 40 * (k.startswith("rnn_layer")),
+                    "wide_layer": 50 * (k.startswith("rnn_cell"))}
+                for k in names}
+    got = chip_smoke.recurrent_kernel_entries(launches, k11, k11l)
+    assert [e["name"] for e in got] == ["lstm_cell_fwd", "lstm_cell_bwd",
+                                        "lstm_layer_fwd", "lstm_layer_bwd"]
+    assert [e["launches"] for e in got] == [50, 50, 40, 40]
+    keys = {"name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms"}
+    assert all(keys <= set(e) and e["route"] == "cuda" for e in got)
+    assert got[2]["replaces"].endswith("layers.py:895")
+    assert (got[2]["library_ms"], got[3]["library_ms"]) == (0.3, 0.9)
+    assert got[3]["max_abs_err"] == 2e-7

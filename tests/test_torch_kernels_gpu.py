@@ -18,6 +18,8 @@ only PyTorch and the CUDA toolkit::
         tests/test_torch_kernels_gpu.py -k k4a_one_tile
     timeout 120 python -m pytest --noconftest -m gpu \\
         tests/test_torch_kernels_gpu.py -k k11_one_tile
+    timeout 120 python -m pytest --noconftest -m gpu \\
+        tests/test_torch_kernels_gpu.py -k k11l_one_tile
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 
 (``--noconftest`` because the suite's conftest sets up JAX.) Tolerances as
@@ -1270,23 +1272,29 @@ def test_k11_matches_plain(cuda, n, hd, peep, masked, act):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("route,hd", [("k11_layer", 256), ("k11", 256),
+                                      ("k11", 512)])
 @pytest.mark.parametrize("masked", [True, False])
 @pytest.mark.parametrize("peep", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_lstm_layer_on_the_card_matches_plain(cuda, monkeypatch, peep,
-                                              dtype, masked):
+                                              dtype, masked, route, hd):
     """The layer Function over a 50-step chunk at the char-RNN's width
-    (N 32, n_in 47, H 256) through K11, ragged-masked or not (then the
-    output is h and K11b writes no dh_pass), against the same Function
-    with the plain cell swapped in: the output, carries and every gradient
-    within relative L2 1e-5 (f32 sums of the same products); in bf16 the
-    gradients of the bf16 params and input are bf16, where one f32
-    difference can flip an entry's rounding by a bf16 ulp (2^-8): 1e-3
-    (a card reads 7.6e-5)."""
+    (N 32, n_in 47, H 256) on its route (K11L, one launch each way) and
+    on the per-step route (K11 a step, as a layer past K11L's width, H 512,
+    takes it), ragged-masked or not (then the output is h and no dh_pass
+    is written), against the same Function with the plain versions
+    swapped in: the output, carries and every gradient within relative L2
+    1e-5 (f32 sums of the same products); in bf16 the gradients of the
+    bf16 params and input are bf16, where one f32 difference can flip an
+    entry's rounding by a bf16 ulp (2^-8): 1e-3 (a card reads 7.6e-5)."""
     from deeplearning4j_tpu_torch.kernels import rnn_cell as rc
     from deeplearning4j_tpu_torch.nn.conf import layers as TL
-    layer = (TL.GravesLSTM if peep else TL.LSTM)(n_in=47, n_out=256)
+    layer = (TL.GravesLSTM if peep else TL.LSTM)(n_in=47, n_out=hd)
     layer.apply_global_defaults({})
+    assert layer.cell_route() == ("k11_layer" if hd <= rc.MAX_LAYER_HIDDEN
+                                  else "k11")
+    monkeypatch.setattr(layer, "cell_route", lambda: route)
     g = torch.Generator(device="cuda").manual_seed(5)
     params = {k: (0.1 * torch.randn(s, generator=g, device="cuda")).to(dtype)
               for k, s in layer.param_shapes().items()}
@@ -1305,8 +1313,12 @@ def test_lstm_layer_on_the_card_matches_plain(cuda, monkeypatch, peep,
         return [y, h, c, *grads]
 
     rc.launches_cell_fwd = rc.launches_cell_bwd = 0
+    rc.launches_layer_fwd = rc.launches_layer_bwd = 0
     got = run()
-    assert (rc.launches_cell_fwd, rc.launches_cell_bwd) == (50, 50)
+    per_step = route == "k11"
+    assert (rc.launches_cell_fwd, rc.launches_cell_bwd,
+            rc.launches_layer_fwd, rc.launches_layer_bwd) == (
+        (50, 50, 0, 0) if per_step else (0, 0, 1, 1))
 
     def plain_fwd(z, b, c_prev, h_prev, peep_, m, act, out=None):
         res = rc.cell_fwd_reference(z, b, c_prev, h_prev, peep_, m, act)
@@ -1326,6 +1338,8 @@ def test_lstm_layer_on_the_card_matches_plain(cuda, monkeypatch, peep,
 
     monkeypatch.setattr(rc, "lstm_cell_fwd", plain_fwd)
     monkeypatch.setattr(rc, "lstm_cell_bwd", plain_bwd)
+    monkeypatch.setattr(rc, "lstm_layer_fwd", rc.layer_fwd_reference)
+    monkeypatch.setattr(rc, "lstm_layer_bwd", rc.layer_bwd_reference)
     want = run()
     for a, b in zip(got, want):
         assert a.dtype == b.dtype
@@ -1346,3 +1360,153 @@ def test_k11_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="dpeep"):
         rc.lstm_cell_bwd(None, c0, c0, torch.zeros_like(z), c0, c0,
                          torch.zeros((3, 32), device="cuda"), None, 0)
+
+
+# ------------------------------- K11L: the persistent LSTM layer kernels
+# K11Lf/K11Lb against their plain versions (the reference's loop, cuBLAS's
+# addmm and the plain cell) on the card: max |Δ| ≤ 1e-5 × max(1, max |ref|)
+# for every output each way. The CPU reading of the plain layer in f32
+# against f64 over 50 steps at R1's and R2's shapes (32 draws, peepholes
+# of scale 0.1) is ≤ 1.8e-6 forward and ≤ 7.2e-7 backward; two f32 sums in
+# other orders read up to twice that, and the elementwise part K11's rows
+# (4e-6, 1e-5). Relaunches are bit-identical (no atomics).
+K11L_TOL = {"fwd": 1e-5, "bwd": 1e-5}
+
+
+def _k11l_case(t_len, n, hd, peep, masked, seed):
+    from deeplearning4j_tpu_torch.kernels import rnn_cell as rc
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=g, device="cuda")
+    ops = {"xw": rnd(t_len, n, 4 * hd), "rw": rnd(hd, 4 * hd) / hd ** 0.5,
+           "b": 0.1 * rnd(4 * hd), "peep": 0.1 * rnd(3, hd) if peep else None,
+           "m": None, "h0": rnd(n, hd), "c0": rnd(n, hd)}
+    if masked:
+        keep = torch.randint(1, t_len + 1, (n,), generator=g, device="cuda")
+        m = (torch.arange(t_len, device="cuda")[:, None]
+             < keep[None, :]).float()
+        m[t_len // 3:t_len // 2, 1 % n] = 0     # an interior gap
+        m[:, 2 % n] = 0                          # an all-zero row
+        m[0, 0] = 0.5                            # a fractional weight
+        ops["m"] = m.contiguous()
+    return rc, ops, rnd(t_len, n, hd), rnd(n, hd), rnd(n, hd)
+
+
+def _k11l_err(got, ref):
+    return max(((a - r).abs().max() / r.abs().max().clamp_min(1.0)).item()
+               for a, r in zip(got, ref) if r is not None)
+
+
+def _k11l_held(t_len, n, hd, peep, masked, act, seed):
+    """Both kernels once against the plain versions, then again for the
+    bits; returns the launch counts."""
+    rc, ops, dy, dh, dc = _k11l_case(t_len, n, hd, peep, masked, seed)
+    rc.launches_layer_fwd = rc.launches_layer_bwd = 0
+    rc.launches_cell_fwd = rc.launches_cell_bwd = 0
+    got = rc.lstm_layer_fwd(**ops, act=act)
+    ref = rc.layer_fwd_reference(**ops, act=act)
+    torch.cuda.synchronize()
+    assert (got[0] is None) == (ref[0] is None) == (not masked)
+    assert _k11l_err(got, ref) <= K11L_TOL["fwd"]
+    # the backward on the plain forward's carries and gates
+    args = (dy, dh, dc, ref[3], ref[2], ops["c0"], ops["rw"], ops["peep"],
+            ops["m"], act)
+    got_b = rc.lstm_layer_bwd(*args)
+    ref_b = rc.layer_bwd_reference(*args)
+    torch.cuda.synchronize()
+    assert (got_b[3] is None) == (ref_b[3] is None) == (not peep)
+    assert _k11l_err(got_b, ref_b) <= K11L_TOL["bwd"]
+    again = rc.lstm_layer_fwd(**ops, act=act)
+    again_b = rc.lstm_layer_bwd(*args)
+    for a, b in zip(again + again_b, got + got_b):
+        assert (a is None and b is None) or torch.equal(a, b)
+    return (rc.launches_layer_fwd, rc.launches_layer_bwd,
+            rc.launches_cell_fwd, rc.launches_cell_bwd)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("peep", [False, True])
+def test_k11l_one_tile(cuda, peep):
+    """One cluster of 8 CTAs, 4 rows, 32 units (4 a CTA), 3 steps."""
+    assert _k11l_held(3, 4, 32, peep, False, 0, 60) == (2, 2, 0, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("peep", [False, True])
+@pytest.mark.parametrize("t_len,n,hd", [(50, 32, 256), (50, 32, 200)])
+def test_k11l_matches_plain_at_the_char_rnn_shapes(cuda, t_len, n, hd, peep,
+                                                   masked):
+    """R1's (LSTM 256) and R2's (GravesLSTM 200) layers over a chunk."""
+    assert _k11l_held(t_len, n, hd, peep, masked, 0, 70 + hd) == (
+        2, 2, 0, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", [0, 1, 2, 3, 4, 5])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("t_len,n,hd", [
+    (1, 1, 256),        # rnnTimeStep at batch 1: one step, one row
+    (5, 7, 33),         # ragged rows and units (U 5, the last CTA 3)
+    (4, 20, 305),       # the widest layer of 8-CTA clusters, 3 row blocks
+    (3, 9, 400)])       # 16-CTA clusters (non-portable)
+def test_k11l_matches_plain_at_the_edges(cuda, t_len, n, hd, masked, act):
+    assert _k11l_held(t_len, n, hd, True, masked, act, 80 + act) == (
+        2, 2, 0, 0)
+
+
+@pytest.mark.gpu
+def test_k11l_geometry_and_occupancy_agree_with_the_card(cuda):
+    """The C side's shared memory a block equals ``layer_geometry``'s, and
+    at least one cluster of each shape K11L launches fits the card."""
+    import ctypes
+    from deeplearning4j_tpu_torch.kernels import _build
+    from deeplearning4j_tpu_torch.kernels import rnn_cell as rc
+    fn = _build.load("rnn_cell").dl4j_lstm_layer_smem
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    dev = torch.device("cuda", torch.cuda.current_device())
+    for hd in (1, 6, 33, 200, 256, 305, 306, 400, rc.MAX_LAYER_HIDDEN):
+        cluster = rc.layer_cluster(hd)
+        for rows in (1, 2, 4):
+            for i, which in enumerate(("fwd", "bwd")):
+                assert fn(i, hd, cluster, rows) == rc.layer_geometry(
+                    which, hd, cluster, rows)["smem"]
+                assert rc.layer_clusters(which, hd, cluster, rows, dev) >= 1
+
+
+@pytest.mark.gpu
+def test_k11l_refuses_a_cluster_that_does_not_fit(cuda, monkeypatch):
+    """A layer whose 8-CTA blocks would need more than 227 KB each (H 512)
+    is refused by the occupancy check before any launch."""
+    from deeplearning4j_tpu_torch.kernels import rnn_cell as rc
+    monkeypatch.setattr(rc, "layer_cluster", lambda hd: 8)
+    rc_, ops, dy, dh, dc = _k11l_case(2, 4, 512, False, False, 90)
+    rc.launches_layer_fwd = 0
+    with pytest.raises(RuntimeError, match="no cluster"):
+        rc.lstm_layer_fwd(**ops, act=0)
+    assert rc.launches_layer_fwd == 0
+
+
+@pytest.mark.gpu
+def test_k11l_rejects_what_it_does_not_take(cuda):
+    from deeplearning4j_tpu_torch.kernels import rnn_cell as rc
+    _, ops, dy, dh, dc = _k11l_case(3, 4, 32, True, True, 95)
+    for key, bad in (("xw", ops["xw"].bfloat16()),
+                     ("rw", ops["rw"][:, :64].contiguous()),
+                     ("m", ops["m"].t().contiguous().t()),
+                     ("h0", ops["h0"].cpu()),
+                     ("peep", ops["peep"][:2].contiguous())):
+        with pytest.raises(ValueError, match=f"{key} must be"):
+            rc.lstm_layer_fwd(**dict(ops, **{key: bad}), act=0)
+    with pytest.raises(ValueError, match="activation"):
+        rc.lstm_layer_fwd(**ops, act=6)
+    with pytest.raises(ValueError, match="float32"):
+        rc.lstm_layer_bwd(dy.double(), dh, dc, ops["xw"], dy, ops["c0"],
+                          ops["rw"], ops["peep"], ops["m"], 0)
+    wide = rc.MAX_LAYER_HIDDEN + 1
+    with pytest.raises(ValueError, match="widest"):
+        rc.lstm_layer_fwd(torch.zeros((1, 1, 4 * wide), device="cuda"),
+                          torch.zeros((wide, 4 * wide), device="cuda"),
+                          None, None, None,
+                          torch.zeros((1, wide), device="cuda"),
+                          torch.zeros((1, wide), device="cuda"), 0)

@@ -135,8 +135,14 @@ def test_layer_run_matches_reference(kind, kw, masked):
     ("LSTM", "identity", "k11"), ("LSTM", "elu", "step"),
     ("GravesLSTM", "swish", "step")])
 def test_cell_route_follows_the_configured_activation(kind, act, route):
+    """``route`` is the route past K11L's widest layer; within it an
+    activation K11 takes runs the whole layer on K11L ("k11_layer")."""
+    from deeplearning4j_tpu_torch.kernels import rnn_cell as rc
     _, t = _pair(kind, activation=act)
-    assert t.cell_route() == route
+    assert t.cell_route() == ("k11_layer" if route == "k11" else route)
+    wide = getattr(TL, kind)(n_in=C, n_out=rc.MAX_LAYER_HIDDEN + 1,
+                             activation=act)
+    assert wide.cell_route() == route
 
 
 def test_tanh_is_the_recurrent_default():

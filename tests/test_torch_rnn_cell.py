@@ -135,7 +135,7 @@ def test_plain_cell_backward_is_autograd_of_the_forward(act, peep, masked):
 @pytest.mark.parametrize("act", ACTS)
 def test_layer_function_matches_reference_vjp(act, peep, masked):
     j, t = _layer(JL, peep, act), _layer(TL, peep, act)
-    assert t.cell_route() == "k11"
+    assert t.cell_route() == "k11_layer"
     p = _params(j, 3)
     rng = np.random.default_rng(4)
     x = rng.standard_normal((N, T, C)).astype(np.float32)

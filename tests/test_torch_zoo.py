@@ -137,7 +137,8 @@ def test_text_generation_lstm_conf_equals_reference():
     net = t_zoo.TextGenerationLSTM().init_model(device="cpu")
     assert net.numParams() == sum(l.n_params() for l in j.layers) == (
         4 * 256 * (47 + 256 + 1) + 4 * 256 * (256 + 256 + 1) + 256 * 47 + 47)
-    assert [l.cell_route() for l in net.layers[:2]] == ["k11", "k11"]
+    # both LSTM(256) layers run on K11L, one launch a layer and call
+    assert [l.cell_route() for l in net.layers[:2]] == ["k11_layer"] * 2
 
 
 def test_text_generation_lstm_takes_one_tbptt_fit():
