@@ -159,7 +159,11 @@ K4w spill nothing, and that no wgmma source has its products serialized
    with their agreement; then LeNet through
    ``MultiLayerNetwork`` at batch 64 over a ``ListDataSetIterator``
    through ``DevicePrefetchIterator`` (images/s, ``output``,
-   ``evaluate``). No kernel of the port may launch on these paths.
+   ``evaluate``); then the zoo's VGG16 and Darknet19 at 224², batch 32:
+   (a) f32 on the card against the CPU at batch 4 (the same dropout masks
+   on both), (b) bf16 against f32, and their timings in turns with plain
+   twins; VGG19 and AlexNet (a) only. No kernel of the port may launch on
+   these paths.
 9. recurrent phase — the char-RNNs (``RNN_*`` and R1-R4 below): K11f and
    K11b (the fused LSTM cell a step) against their plain versions at R1's
    and R2's cell shapes, bit-identical from launch to launch, timed beside
@@ -184,6 +188,23 @@ K4w spill nothing, and that no wgmma source has its products serialized
    cuDNN; ``rnnTimeStep`` sampling at batch 1. The recurrent path is one
    fit of R1: K11Lf and K11Lb 2 × 20 times each (a layer and chunk),
    nothing else; the wide layer's K11f and K11b 50 times each.
+10. attention phase (before the network phase; ``--attention`` runs it
+   alone after the build) — K1 and K2 with a key mask against their plain
+   versions (MASKED_CASES: A1's shape and lengths, an interior gap with a
+   masked first tile, an element with no key handed over as the op hands
+   it, A2's widths, a query of one), masked keys' dk and dv exactly 0,
+   timed at A1's shape beside the unmasked kernels, the bound of the kept
+   pairs and SDPA with the additive -1e30 mask; then A1 (``A1_*``: an
+   embedding of 32768 → 1024, two ``SelfAttentionLayer``s of 16 heads of
+   64, masked mean, 10 classes, T 1024, key lengths 256-1024): (a) f32 on
+   the card against the CPU, 3 masked fits and ``output`` in bf16 and f32
+   at batch 8 with exactly a layer's K1 a forward and K2 a backward and
+   the op's plain route never, (b) bf16 against f32; A2 (cross attention
+   with and without a key input, learned queries, the three vertices in a
+   graph; recurrent attention and a one-head self attention under a mask)
+   f32 on the card against the CPU; A1's step timed in turns with a plain
+   twin (``nn.Linear``, SDPA with the additive mask). The attention path
+   is A1's runs, "attention_modules" A2's.
 
 Every phase must pass: any failure exits nonzero. Output is one JSON
 object per line; the last line is ``{"ok": true, "device": {...}}``.
@@ -205,6 +226,7 @@ int8 pages at the large config here and in the checkout at OTHER in turns
 ``--compare-k11l OTHER...`` times K11Lf and K11Lb at R1's and R2's layer
 shapes here and in each checkout at OTHER in turns.
 ``--network`` runs the network phase alone (it builds no kernel);
+``--attention`` the attention phase alone (after building every kernel);
 ``--recurrent`` the recurrent phase alone (it builds only rnn_cell.cu,
 K11 and K11L).
 """
@@ -300,13 +322,16 @@ KERNELS = ("wgmma", "simple", "bwd_wgmma", "bwd")
 # and K4w (int8 quantize-and-scatter), then the tf32 K3f and K3b (f32) and
 # their operands' split pass, then K4a+w (the decode store in K4a's launch),
 # then K11f and K11b (the fused LSTM cell a step), then K11Lf and K11Lb
-# (the persistent LSTM layer kernels)
+# (the persistent LSTM layer kernels); last the one count that is no
+# kernel's: ``attention_plain``, calls of the attention op on the card that
+# took its plain version by its stated rule (0 on every path)
 ALL_KERNELS = KERNELS + ("ce_fwd", "ce_dlogits", "moe_dispatch",
                          "moe_combine", "ce_fwd_wgmma", "ce_dlogits_wgmma",
                          "paged_attention", "kv_quant_write", "ce_fwd_tf32",
                          "ce_dlogits_tf32", "ce_split_tf32",
                          "paged_attention_write", "rnn_cell_fwd",
-                         "rnn_cell_bwd", "rnn_layer_fwd", "rnn_layer_bwd")
+                         "rnn_cell_bwd", "rnn_layer_fwd", "rnn_layer_bwd",
+                         "attention_plain")
 SOURCES.update(ce_fwd="chunked_ce.cu", ce_dlogits="chunked_ce.cu",
                moe_dispatch="moe_route.cu", moe_combine="moe_route.cu",
                ce_fwd_wgmma="chunked_ce_wgmma.cu",
@@ -566,6 +591,13 @@ ATTN_PEAK_FLOPS = {"bfloat16": 989e12, "float32": 495e12 / 3}
 # the wgmma kernel's 384 threads: ptxas must budget 168 registers a thread
 # at entry, which its setmaxnreg 24 / 240 split balances to the register
 WGMMA_ENTRY_REGISTERS = 168
+# the wgmma kernels' instantiations (the key mask a template parameter
+# since PR 17): the forward at d 64 and 128, the backward's dQ and dK/dV
+# kernels at each, each unmasked and masked
+WGMMA_INSTANTIATIONS = (64, 128, "64 masked", "128 masked")
+BWD_WGMMA_INSTANTIATIONS = tuple(
+    f"d{d} {k}{m}" for d in (64, 128) for k in ("dq", "dkdv")
+    for m in ("", " masked"))
 # the profile phase fails when the trace holds no device work; only a CPU
 # rehearsal of the phase sets this to False
 TRACE_ON_DEVICE = True
@@ -810,9 +842,11 @@ def spill_free(report, want):
 
 def wgmma_ptxas(log):
     """{head dim: {"registers": n, "spill_bytes": n}} for each
-    instantiation of the wgmma forward."""
-    return _ptxas(log, r"flash_fwd_wgmma_kernelILi(\d+)E",
-                  lambda m: int(m.group(1)))
+    instantiation of the wgmma forward, the key-masked ones as "64 masked"
+    and "128 masked"."""
+    return _ptxas(log, r"flash_fwd_wgmma_kernelILi(\d+)E(?:Lb([01])E)?",
+                  lambda m: int(m.group(1)) if m.group(2) != "1"
+                  else f"{m.group(1)} masked")
 
 
 def serialized_wgmma(log):
@@ -852,35 +886,50 @@ SIMPLE_INSTANTIATIONS = sorted(f"{t} w{w}" for t in ("f32", "bf16")
 BWD_INSTANTIATIONS = sorted(
     [f"{k} {t} w{w}" for k in ("dq", "dkdv") for t in ("f32", "bf16")
      for w in SIMPLE_WIDTHS] + ["delta f32", "delta bf16"])
+# since PR 17 each of them but the D pass also with the key mask, a
+# template parameter: "f32 w64 masked", "dq bf16 w32 masked", ...
+SIMPLE_MASKED_INSTANTIATIONS = [f"{k} masked" for k in SIMPLE_INSTANTIATIONS]
+BWD_MASKED_INSTANTIATIONS = [f"{k} masked" for k in BWD_INSTANTIATIONS
+                             if not k.startswith("delta")]
 
 
 def _dtype_name(mangled):
     return "f32" if mangled == "f" else "bf16"
 
 
+def _masked(flag):
+    return " masked" if flag == "1" else ""
+
+
 def simple_ptxas(log):
     """{"f32 w64": {"registers": n, "spill_bytes": n}, ...} for each
-    instantiation of ``flash_attention_fwd.cu``'s kernel."""
-    return _ptxas(log, r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)E",
-                  lambda m: f"{_dtype_name(m.group(1))} w{m.group(2)}")
+    instantiation of ``flash_attention_fwd.cu``'s kernel ("f32 w64
+    masked" with the key mask)."""
+    return _ptxas(log, r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)E"
+                  r"(?:Lb([01])E)?",
+                  lambda m: f"{_dtype_name(m.group(1))} w{m.group(2)}"
+                  + _masked(m.group(3)))
 
 
 def bwd_ptxas(log):
     """{"dq f32 w64": {...}, "delta bf16": {...}, ...} for each kernel of
-    ``flash_attention_bwd.cu``."""
+    ``flash_attention_bwd.cu`` ("dq f32 w64 masked" with the key mask)."""
     return _ptxas(log, r"(dq|dkdv|delta)_kernelI(f|13__nv_bfloat16)"
-                  r"(?:Li(\d+)E)?",
+                  r"(?:Li(\d+)E)?(?:Lb([01])E)?",
                   lambda m: f"{m.group(1)} {_dtype_name(m.group(2))}"
-                  + (f" w{m.group(3)}" if m.group(3) else ""))
+                  + (f" w{m.group(3)}" if m.group(3) else "")
+                  + _masked(m.group(4)))
 
 
 def bwd_wgmma_ptxas(log):
     """{"d64 dq": {"registers": n, "spill_bytes": n}, ...} for each
     instantiation of the wgmma backward: the dQ kernel and the dK/dV kernel
-    at each head dim."""
-    return _ptxas(log, r"flash_bwd_wgmma_kernelILi(\d+)ELb([01])E",
+    at each head dim, unmasked and key-masked ("d64 dq masked", ...)."""
+    return _ptxas(log, r"flash_bwd_wgmma_kernelILi(\d+)ELb([01])E"
+                  r"(?:Lb([01])E)?",
                   lambda m: f"d{m.group(1)} "
-                  + ("dkdv" if m.group(2) == "1" else "dq"))
+                  + ("dkdv" if m.group(2) == "1" else "dq")
+                  + (" masked" if m.group(3) == "1" else ""))
 
 
 def kernel_phase(torch, fa):
@@ -3631,13 +3680,14 @@ def plain_attention(fa):
     call time): a reference run of the same model on the card."""
     kernels = fa.flash_attention_fwd, fa.flash_attention_bwd
 
-    def fwd(q, k, v, causal=False, scale=None, out=None):
-        o, lse = fa.flash_attention_reference(q, k, v, causal, scale)
+    def fwd(q, k, v, causal=False, scale=None, out=None, kmask=None):
+        o, lse = fa.flash_attention_reference(q, k, v, causal, scale, kmask)
         return (o if out is None else out.copy_(o)), lse
 
-    def bwd(q, k, v, o, lse, do, causal=False, scale=None, out=None):
+    def bwd(q, k, v, o, lse, do, causal=False, scale=None, out=None,
+            kmask=None):
         grads = fa.flash_attention_bwd_reference(q, k, v, o, lse, do,
-                                                 causal, scale)
+                                                 causal, scale, kmask)
         return grads if out is None else tuple(
             dst.copy_(x) for dst, x in zip(out, grads))
 
@@ -3843,7 +3893,7 @@ def moe_train_phase(torch, fa):
     check(served[6] > 0 and served[7] > 0 and served[4:6] == (0, 0)
           and served[8:10] == (0, 0)
           and served[10:16] == (0,) * 5 + ((N_NEW - 1) * LARGE["n_layers"],)
-          and served[16:] == (0,) * 4,
+          and served[16:] == (0,) * 5,
           f"MoE generate launched {served} {ALL_KERNELS}")
     emit(moe_generate={"batch": 2, "prompt_len": 100, "new_tokens": N_NEW,
                        "generate_ms": ms,
@@ -4056,9 +4106,10 @@ def profile_window(torch, label, fn, trace_name, top=10):
             "rnn_kernels": _top(rnn, len(rnn))}
 
 
-def kernel_entry(path, cases, launches):
+def kernel_entry(path, cases, launches, masked=None):
     """The kernels-line entry of one forward kernel; ``launches`` maps each
-    main path (serve, train) to its count."""
+    main path (serve, train) to its count; with ``masked`` (the attention
+    phase's rows) the key-masked kernel's numbers at A1's shape."""
     rows = [r for r in cases.values() if r["path"] == path]
     main = cases[MAIN_CASE[path]]
     return {
@@ -4073,10 +4124,11 @@ def kernel_entry(path, cases, launches):
         "bound_by": main["bound_by"], "library_ms": main["library_ms"],
         "library_device_ms": main["library_device_ms"],
         "at": dict(zip(("layout", "b", "h", "t_q", "t_k", "d", "dtype",
-                        "causal"), MAIN_CASE[path]))}
+                        "causal"), MAIN_CASE[path])),
+        **({"masked": masked_kernel_entry(path, masked)} if masked else {})}
 
 
-def bwd_kernel_entry(path, cases, launches):
+def bwd_kernel_entry(path, cases, launches, masked=None):
     """The kernels-line entry of one K2 kernel ("bwd_wgmma" or "bwd"), its
     numbers at BWD_MAIN_CASE[path]. Its ``library_ms`` is SDPA's forward
     and backward, beside ``fwd_bwd_ms``: K1 + K2 on the same inputs (no
@@ -4101,7 +4153,8 @@ def bwd_kernel_entry(path, cases, launches):
         "fwd_bwd_ms": main["fwd_bwd_ms"],
         "fwd_bwd_device_ms": main["fwd_bwd_device_ms"],
         "at": dict(zip(("layout", "b", "h", "t_q", "t_k", "d", "dtype",
-                        "causal"), BWD_MAIN_CASE[path]))}
+                        "causal"), BWD_MAIN_CASE[path])),
+        **({"masked": masked_kernel_entry(path, masked)} if masked else {})}
 
 
 def ce_kernel_entry(kind, cases, launches):
@@ -4260,7 +4313,10 @@ def tree_errors(got, want, base=None):
 
 
 def worst(errors):
-    """(largest error, its leaf) of a ``tree_errors`` dict."""
+    """(largest error, its leaf) of a ``tree_errors`` dict; (0.0, None)
+    for an empty one (a net with no BN statistics)."""
+    if not errors:
+        return 0.0, None
     leaf = max(errors, key=errors.get)
     return errors[leaf], leaf
 
@@ -4279,8 +4335,11 @@ def floors_failed(report, floors):
 def train_mode_probs(net, x):
     """The output layer's probabilities in training mode (BatchNormalization
     on the batch's statistics; an untrained net's running statistics are
-    their init, on which a deep net's outputs saturate)."""
-    return net.feedForward(x, train=True)["output"].cpu().numpy()
+    their init, on which a deep net's outputs saturate): a graph's
+    "output" node, a sequential net's last layer."""
+    acts = net.feedForward(x, train=True)
+    out = acts["output"] if isinstance(acts, dict) else acts[-1]
+    return out.float().cpu().numpy()
 
 
 def network_report(torch, card, cpu_out, x, y, base):
@@ -4525,6 +4584,229 @@ def bn_routes(torch, net, dtype, dev):
     return out
 
 
+# The zoo models that with ResNet-50 make BASELINE.json's configs[1]:
+# VGG16 and Darknet19 take (a), (b) and the timings; VGG19 and AlexNet (a)
+# only, to keep the script inside its time limit. Each at 224², 1000
+# classes, batch 32 (NET_*), its zoo updater (Nesterov; VGG and AlexNet
+# lr 1e-2, Darknet19 1e-3). (a) uses ResNet-50's rows (TOL_NET_F32), (b)
+# TOL_NET_BF16 and FLOOR_NET_BF16.
+ZOO_FULL = ("VGG16", "Darknet19")
+ZOO_CHECKED = ("VGG19", "AlexNet")
+ZOO_LR = {"VGG16": 1e-2, "VGG19": 1e-2, "AlexNet": 1e-2, "Darknet19": 1e-3}
+
+
+def zoo_model(name, data_type):
+    from deeplearning4j_tpu_torch.models import zoo
+    return getattr(zoo, name)(num_classes=NET_CLASSES, input_shape=NET_SHAPE,
+                              data_type=data_type)
+
+
+@contextlib.contextmanager
+def shared_dropout():
+    """The port's dropout drawing each mask from a CPU generator seeded
+    afresh at every call (so a mask depends on its shape alone), moved to
+    the activation's device: check (a)'s card and CPU nets drop the same
+    units (VGG's and AlexNet's dense layers)."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import standard
+    plain = standard.dropout_inverted
+
+    def same(x, gen, p=0.5):
+        g = torch.Generator().manual_seed(SEED)
+        keep = (torch.rand(x.shape, generator=g) < p).to(x.device)
+        return torch.where(keep, x / p, torch.zeros_like(x))
+
+    standard.dropout_inverted = same
+    try:
+        yield
+    finally:
+        standard.dropout_inverted = plain
+
+
+def head_key(net):
+    """The output layer's key in a net's param tree."""
+    layers = getattr(net, "layers", None)
+    return (net.conf.network_outputs[0] if layers is None
+            else str(len(layers) - 1))
+
+
+def zoo_card_vs_cpu(torch, name, dev, xs, ys):
+    """Check (a) of one zoo model: f32 on the card against the same net on
+    the CPU at NET_CHECK_BATCH, carried weights, the same dropout masks."""
+    from deeplearning4j_tpu_torch.nn.params import tree_to_numpy
+    with shared_dropout():
+        cpu = zoo_model(name, "float32").init_model(device="cpu")
+        base = tree_to_numpy(cpu.param_tree())
+        loss, grads = cpu.computeGradientAndScore(xs, ys)
+        cpu_out = {"probs": train_mode_probs(cpu, xs), "loss": loss,
+                   "grads": tree_to_numpy(grads),
+                   "states0": tree_to_numpy(cpu.state_tree())}
+        cpu.fit(xs, ys)
+        cpu_out["params"] = tree_to_numpy(cpu.param_tree())
+        cpu_out["states"] = tree_to_numpy(cpu.state_tree())
+        fresh = zoo_model(name, "float32").init_model(device="cpu")
+        card = zoo_model(name, "float32").init_model(device=dev)
+        carry_net(fresh, card)
+        rep = network_report(torch, card, cpu_out, xs, ys, base)
+    failed = rows_failed(rep, TOL_NET_F32)
+    emit(zoo_card_vs_cpu={"model": name, **rep}, rows=TOL_NET_F32,
+         failed=failed)
+    check(not failed, f"(a) {name} f32 card vs CPU above its rows: {failed}")
+
+
+def zoo_bf16_vs_f32(torch, name, dev, x, y):
+    """Check (b) of one zoo model: bf16 against f32 on the card at
+    NET_BATCH, the same weights and dropout masks."""
+    from deeplearning4j_tpu_torch.nn.params import tree_to_numpy
+    with shared_dropout():
+        f32_net = zoo_model(name, "float32").init_model(device=dev)
+        bf16_net = zoo_model(name, "bfloat16").init_model(device=dev)
+        carry_net(f32_net, bf16_net)
+        l32, g32 = f32_net.computeGradientAndScore(x, y)
+        l16, g16 = bf16_net.computeGradientAndScore(x, y)
+        head = head_key(f32_net)
+        g32, g16 = tree_to_numpy(g32), tree_to_numpy(g16)
+        rep = {"probs": rel_l2(train_mode_probs(bf16_net, x),
+                               train_mode_probs(f32_net, x)),
+               "loss": abs(l16 - l32),
+               "head_grad": rel_l2(g16[head]["W"], g32[head]["W"]),
+               "worst_grad_leaf": worst(tree_errors(g16, g32))}
+    failed = rows_failed(rep, TOL_NET_BF16)
+    too_close = floors_failed(rep, FLOOR_NET_BF16)
+    emit(zoo_bf16_vs_f32={"model": name, **rep}, rows=TOL_NET_BF16,
+         failed=failed, floors=FLOOR_NET_BF16, floors_failed=too_close)
+    check(not failed, f"(b) {name} bf16 vs f32 above its rows: {failed}")
+    check(not too_close, f"(b) {name} bf16 reads as close to f32 as f32 "
+          f"does: {too_close}")
+    del f32_net, bf16_net
+    torch.cuda.empty_cache()
+
+
+def _twin(torch, trunk, head):
+    """A plain-PyTorch net as ``plain_step`` takes it: ``trunk`` and
+    ``head`` modules."""
+    class Net(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.trunk, self.head = trunk, head
+    return Net()
+
+
+def plain_vgg(torch, name):
+    """VGG16 / VGG19 in plain modules: 3x3 ``nn.Conv2d`` (padding 1) and
+    ReLU, 2x2 max pools, then dropout (p 0.5) before each dense layer of
+    4096 (the port drops a dense layer's input), the ``nn.Linear`` head."""
+    from deeplearning4j_tpu_torch.models.zoo import vgg
+    nn = torch.nn
+    layers, cin = [], 3
+    for n_convs, cout in (vgg._VGG16_BLOCKS if name == "VGG16"
+                          else vgg._VGG19_BLOCKS):
+        for _ in range(n_convs):
+            layers += [nn.Conv2d(cin, cout, 3, padding=1),
+                       nn.ReLU(inplace=True)]
+            cin = cout
+        layers.append(nn.MaxPool2d(2, 2))
+    side = NET_SHAPE[0] // 32
+    layers += [nn.Flatten(), nn.Dropout(0.5),
+               nn.Linear(512 * side * side, 4096), nn.ReLU(inplace=True),
+               nn.Dropout(0.5), nn.Linear(4096, 4096), nn.ReLU(inplace=True)]
+    return _twin(torch, nn.Sequential(*layers), nn.Linear(4096, NET_CLASSES))
+
+
+def plain_darknet19(torch):
+    """Darknet19 in plain modules: bias-free ``nn.Conv2d`` ("same"),
+    ``nn.BatchNorm2d``, LeakyReLU(0.1), 2x2 max pools, a 1x1 convolution
+    to the classes, global average pooling, the ``nn.Linear`` output."""
+    nn = torch.nn
+    plan = [32, "M", 64, "M", 128, (64, 1), 128, "M", 256, (128, 1), 256,
+            "M", 512, (256, 1), 512, (256, 1), 512, "M", 1024, (512, 1),
+            1024, (512, 1), 1024]
+    layers, cin = [], 3
+    for p in plan:
+        if p == "M":
+            layers.append(nn.MaxPool2d(2, 2))
+            continue
+        cout, k = p if isinstance(p, tuple) else (p, 3)
+        layers += [nn.Conv2d(cin, cout, k, padding=k // 2, bias=False),
+                   nn.BatchNorm2d(cout, eps=1e-5, momentum=0.1),
+                   nn.LeakyReLU(0.1, inplace=True)]
+        cin = cout
+    layers += [nn.Conv2d(cin, NET_CLASSES, 1), nn.AdaptiveAvgPool2d(1),
+               nn.Flatten()]
+    return _twin(torch, nn.Sequential(*layers),
+                 nn.Linear(NET_CLASSES, NET_CLASSES))
+
+
+def zoo_timing(torch, name, dev, xd, yd, smi):
+    """Host ms a step, images/s, device ms, busy share, kernels a step
+    (a profiler window of NET_PROFILED steps) and own peak memory of one
+    zoo model in bf16 and f32, in turns with its plain twin (port, plain,
+    plain, port), the twin under its zoo updater's lr and momentum."""
+    rows = []
+    for dtype in ("bfloat16", "float32"):
+        bf16 = dtype == "bfloat16"
+        net = zoo_model(name, dtype).init_model(device=dev)
+        twin = (plain_vgg(torch, name) if name.startswith("VGG")
+                else plain_darknet19(torch)).to(dev).to(
+            memory_format=torch.channels_last)
+        opt = torch.optim.SGD(twin.parameters(), lr=ZOO_LR[name],
+                              momentum=NET_MOMENTUM, nesterov=True)
+        tstep = plain_step(torch, twin, opt, bf16)
+        runs = {"port": lambda: net.fit(xd, yd),
+                "plain": lambda: tstep(xd, yd)}
+        timed, peaks = {"port": [], "plain": []}, {}
+        for who in ("port", "plain", "plain", "port"):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ms, _all = step_timing(torch, runs[who])
+            peaks[who] = max(peaks.get(who, 0),
+                             torch.cuda.max_memory_allocated() - before)
+            timed[who].append(ms)
+        flops = net.step_cost(NET_BATCH)[0]
+        for who in ("port", "plain"):
+            p = profile_window(
+                torch, f"zoo_{name}_{who}_{dtype}",
+                lambda f=runs[who]: [f() for _ in range(NET_PROFILED)],
+                f"zoo_{name}_{who}_{dtype}_trace.json", top=12)
+            ms = statistics.median(timed[who])
+            busy = p.get("device_busy_us")
+            rows.append({
+                "net": name, "model": who, "dtype": dtype, "gpu": smi,
+                "host_ms_per_step": ms, "turns_ms": timed[who],
+                "images_per_s": NET_BATCH / (ms / 1e3),
+                "tflops_per_s": flops / (ms / 1e3) / 1e12,
+                "device_ms_per_step": (busy / 1e3 / NET_PROFILED
+                                       if busy is not None else None),
+                "busy_share": p.get("busy_share"),
+                "kernels_per_step": (p["kernels"] / NET_PROFILED
+                                     if "kernels" in p else None),
+                "own_peak_bytes": peaks[who],
+                "top_ops": p.get("top_ops"),
+                "top_kernels": p.get("top_kernels")})
+        del net, twin, opt, runs
+        torch.cuda.empty_cache()
+    for r in rows:
+        emit(zoo_timing=r)
+    return rows
+
+
+def zoo_phase(torch, dev, x, y, smi):
+    """(a) of every zoo model of ZOO_FULL and ZOO_CHECKED, then (b) and
+    the timings of ZOO_FULL's."""
+    xs, ys = x[:NET_CHECK_BATCH], y[:NET_CHECK_BATCH]
+    for name in ZOO_FULL + ZOO_CHECKED:
+        zoo_card_vs_cpu(torch, name, dev, xs, ys)
+        torch.cuda.empty_cache()
+    xd = torch.as_tensor(x, device=dev)
+    yd = torch.as_tensor(y, device=dev)
+    rows = {}
+    for name in ZOO_FULL:
+        zoo_bf16_vs_f32(torch, name, dev, x, y)
+        rows[name] = zoo_timing(torch, name, dev, xd, yd, smi)
+    return rows
+
+
 def network_phase(torch):
     """The DL4J network stack on the card (see NET_* above): checks (a)-(d)
     of PERF.md's network rows, then the timings of ResNet-50 in bf16 and
@@ -4708,6 +4990,7 @@ def network_phase(torch):
     for r in bn_rows:
         emit(network_bn_routes=r)
     out["resnet50"] = rows
+    out["zoo"] = zoo_phase(torch, dev, x, y, smi)
 
     # LeNet through MultiLayerNetwork: fit over a ListDataSetIterator
     # through DevicePrefetchIterator, then output and evaluate
@@ -4741,6 +5024,695 @@ def network_phase(torch):
     emit(network_phase_seconds=time.perf_counter() - t_phase,
          network_launches=dict(zip(ALL_KERNELS, launches)))
     return launches
+
+
+# ---------------------------------------------------------------- attention
+# The attention slice (PERF.md's attention rows). A1: a MultiLayerNetwork
+# sequence classifier at the widths of bench.py's large config (vocab
+# 32768, d_model 1024, 16 heads of 64, T 1024): EmbeddingSequenceLayer →
+# SelfAttentionLayer × 2 → GlobalPoolingLayer(avg) under the mask →
+# OutputLayer(softmax, mcxent) over 10 classes, batch 8, Nesterovs(1e-2,
+# 0.9), a seeded key mask of lengths in [256, 1024], f32 and bf16. A2: the
+# other attention modules at small widths (heads of 16-32, T ≤ 128): a
+# ComputationGraph of CrossAttentionLayer without and with a key input,
+# LearnedSelfAttentionLayer and the three vertices, and a MultiLayerNetwork
+# of RecurrentAttentionLayer and a one-head SelfAttentionLayer under a mask
+# (a graph hands the recurrent layer no mask, as the reference's).
+A1_VOCAB, A1_WIDTH, A1_HEADS, A1_SEQ = 32768, 1024, 16, 1024
+A1_BATCH, A1_CLASSES, A1_MIN_LEN = 8, 10, 256
+A1_CHECK_BATCH = 2          # (a): the same net on the card and on the CPU
+A1_FIT_STEPS = 3
+A1_LR, A1_MOMENTUM = 1e-2, 0.9
+A2_BATCH, A2_TQ, A2_TK, A2_T = 4, 96, 128, 64
+# masked K1/K2 cases: (name, B, H, Tq, Tk, d, dtype, mask). Every operand
+# is the (B, H, T, d) view of its own (B, T, H·d) projection, as the
+# attention layers hand them over, o the (B, H, Tq, d) view of a (B, Tq,
+# H, d) buffer. Masks (``key_mask_np``): "a1" A1's seeded lengths, "gap"
+# an interior gap, a masked first 128 keys and ragged lengths, "empty" one
+# element that keeps no key, handed over as the op hands it (every key
+# kept, q zeroed), "none" the same shape unmasked.
+MASKED_CASES = [
+    ("a1", 8, 16, 1024, 1024, 64, "bfloat16", "a1"),
+    ("a1", 8, 16, 1024, 1024, 64, "float32", "a1"),
+    ("a1_unmasked", 8, 16, 1024, 1024, 64, "bfloat16", "none"),
+    ("a1_unmasked", 8, 16, 1024, 1024, 64, "float32", "none"),
+    ("gap", 4, 16, 300, 700, 64, "bfloat16", "gap"),
+    ("gap", 4, 4, 300, 700, 128, "bfloat16", "gap"),
+    ("gap", 4, 16, 300, 700, 64, "float32", "gap"),
+    ("empty", 4, 16, 256, 256, 64, "bfloat16", "empty"),
+    ("empty", 4, 16, 256, 256, 64, "float32", "empty"),
+    ("a2", 4, 4, 96, 128, 16, "float32", "gap"),
+    ("a2_step", 4, 4, 1, 64, 16, "float32", "gap"),
+    ("a2", 4, 2, 96, 128, 32, "bfloat16", "gap"),
+]
+MASKED_TIMED = ("a1", "a1_unmasked")
+MASKED_MAIN_CASE = {"wgmma": MASKED_CASES[0], "simple": MASKED_CASES[1],
+                    "bwd_wgmma": MASKED_CASES[0], "bwd": MASKED_CASES[1]}
+# (a) A1 and A2 f32 on the card against the same nets on the CPU, carried
+# weights: the kernels (the f32 forward's three TF32 products, the FMA
+# backward) against their plain versions in f32. Gradients are held over
+# all leaves at once ("grad"; ``model_report`` says why) and by the output
+# layer's W; "step" is every param's displacement after one step (∝ the
+# gradient under Nesterov). Set before the first chip run from CPU readings
+# of the nets in f32 against f64 (``a1_readings``, PERF.md): A1 probs
+# 5.8e-8, loss 1.9e-7, grad 1.6e-7, head 5.3e-7, step 3.6e-6; A2's graph
+# 6.0e-8, 2.8e-8, 3.7e-7, 1.9e-7 and MLN 5.7e-8, 1.1e-7, 2.0e-7, 1.3e-7.
+# The card's f32 forward adds its split products' ~1e-6 relative, so the
+# rows sit 10-100x over the readings, and far under what a wrong mask
+# (O(1)) or a product rounded to TF32 alone (~1e-4) reads.
+TOL_A1_F32 = {"probs": 1e-6, "loss": 2e-6, "grad": 5e-5, "head_grad": 5e-5,
+              "step": 2e-4}
+TOL_A2_F32 = {"probs": 1e-6, "loss": 1e-6, "grad": 5e-5, "head_grad": 5e-5}
+# (b) A1 bf16 against f32 on the card, batch 8, the same weights: 30x the
+# CPU reading at batch 1 (probs 3.2e-6, loss 2.9e-6, grad 3.5e-4, head
+# 6.2e-3; near-uniform probabilities at init keep the first two small);
+# from below above (a)'s f32 rows, so a bf16 policy that computed in f32
+# fails (the loss, a mean over the batch, is not held from below: its
+# bf16 reading sits within 1.5x of (a)'s row)
+TOL_A1_BF16 = {"probs": 1e-4, "loss": 1e-4, "grad": 1e-2, "head_grad": 0.1}
+FLOOR_A1_BF16 = {k: TOL_A1_F32[k] for k in ("probs", "grad", "head_grad")}
+
+
+def key_mask_np(kind, b, t_k, seed=SEED):
+    """(B, Tk) bool key masks of MASKED_CASES (None for "none")."""
+    if kind == "none":
+        return None
+    rng = np.random.default_rng(seed + t_k)
+    low = A1_MIN_LEN if kind == "a1" else max(1, t_k // 2)
+    lengths = rng.integers(low, t_k + 1, b)
+    m = np.arange(t_k)[None, :] < lengths[:, None]
+    if kind == "gap":                     # a masked first tile
+        m[0, :min(128, lengths[0] - 1)] = False
+        m[1 % b, t_k // 4:t_k // 2] = False   # an interior gap
+    if kind == "empty":
+        m[1 % b] = False
+    return m
+
+
+def a1_mask(n, seed=SEED):
+    """A1's (N, T) f32 feature mask: lengths in [A1_MIN_LEN, T]."""
+    return key_mask_np("a1", n, A1_SEQ, seed).astype(np.float32)
+
+
+def masked_case_inputs(torch, case, seed=SEED):
+    """q, k, v (views of projections), the key mask on the card (for an
+    "empty" case with the op's handling applied), o's view, dO and three
+    views that receive dq, dk, dv, all as the attention layers lay them
+    out."""
+    _name, b, h, t_q, t_k, d, dtype, kind = case
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(
+        seed + b * 7919 + t_q * 101 + t_k + d)
+    c = h * d
+
+    def proj(t):
+        return torch.randn((b, t, c), generator=g, device="cuda",
+                           dtype=dt).view(b, t, h, d).transpose(1, 2)
+
+    q, k, v, do = proj(t_q), proj(t_k), proj(t_k), proj(t_q)
+    m = key_mask_np(kind, b, t_k, seed)
+    kmask = None if m is None else torch.as_tensor(m, device="cuda")
+    if kind == "empty":
+        kept = kmask.any(dim=-1)
+        kmask = kmask | ~kept[:, None]
+        q = q * kept[:, None, None, None].to(dt)
+    out = torch.empty((b, t_q, h, d), device="cuda", dtype=dt).transpose(1, 2)
+    grads = tuple(torch.empty((b, t, h, d), device="cuda", dtype=dt)
+                  .transpose(1, 2) for t in (t_q, t_k, t_k))
+    return q, k, v, kmask, out, do, grads
+
+
+def masked_bound_ms(kmask, h, t_q, t_k, d, dtype, backward=False):
+    """Least time of one masked call: the FLOPs of the pairs this mask
+    keeps (4·d a pair forward, 10·d backward, as ``attention_bound_ms``)
+    over the type's peak, against q, k, v (o, dO), the mask's bytes and
+    the outputs read or written once over the memory rate."""
+    itemsize = 2 if dtype == "bfloat16" else 4
+    b, kept = kmask.shape[0], int(kmask.sum())
+    flops = (10.0 if backward else 4.0) * h * d * t_q * kept
+    tensors = 4 * (t_q + t_k) if backward else 2 * (t_q + t_k)
+    nbytes = itemsize * b * h * d * tensors + 4 * b * h * t_q + b * t_k
+    return _bound(flops, nbytes, dtype, ATTN_PEAK_FLOPS)
+
+
+def masked_kernel_phase(torch, fa):
+    """Masked K1 and K2 against their plain versions at MASKED_CASES (by
+    the K1/K2 rows: TOL_O, TOL_LSE, TOL_GRAD and the 64-row tiles'
+    relative L2), masked keys' dk and dv exactly 0; at MASKED_TIMED, ms
+    and device ms of each direction beside the plain versions, the bound
+    of the kept pairs and SDPA with the additive -1e30 mask (forward, and
+    forward and backward)."""
+    import torch.nn.functional as F
+    rows = {}
+    for case in MASKED_CASES:
+        name, b, h, t_q, t_k, d, dtype, kind = case
+        q, k, v, kmask, out, do, grads = masked_case_inputs(torch, case)
+        path = fa.kernel_for(q.dtype, d)
+        reset_counts(fa)
+        o, lse = fa.flash_attention_fwd(q, k, v, out=out, kmask=kmask)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, out=grads,
+                                     kmask=kmask)
+        torch.cuda.synchronize()
+        want = ((1, 0, 1, 0) if path == "wgmma" else (0, 1, 0, 1))
+        check(counts(fa) == want and o.data_ptr() == out.data_ptr()
+              and all(x is y for x, y in zip(got, grads)),
+              f"masked {case}: launched {counts(fa)}, want {want}, or did "
+              f"not write into the caller's views")
+        o_ref, lse_ref = fa.flash_attention_reference(q, k, v, kmask=kmask)
+        err_o = (o.float() - o_ref.float()).abs().max().item()
+        err_lse = (lse - lse_ref).abs().max().item()
+        check(math.isfinite(err_o) and err_o <= TOL_O[dtype]
+              and math.isfinite(err_lse) and err_lse <= TOL_LSE,
+              f"masked K1 {case}: max |do| {err_o}, |dlse| {err_lse}")
+        ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                               kmask=kmask)
+        errs, tile_l2 = {}, {}
+        for gname, x, r in zip(("dq", "dk", "dv"), got, ref):
+            err = (x.float() - r.float()).abs().max().item()
+            limit = TOL_GRAD[dtype] * max(1.0, r.float().abs().max().item())
+            tile_l2[gname] = tile_rel_l2(x, r, GRAD_RMS_FLOOR[dtype])
+            check(math.isfinite(err) and err <= limit
+                  and tile_l2[gname] <= TOL_GRAD_TILE_L2[dtype],
+                  f"masked K2 {case}: {gname} max |d| {err} > {limit} or "
+                  f"a tile's relative L2 {tile_l2[gname]}")
+            errs[gname] = err
+        gone = 0.0
+        if kmask is not None:
+            kept = kmask[:, None, :, None]
+            gone = max(float(g.float().masked_fill(kept, 0).abs().max())
+                       for g in got[1:])
+        check(gone == 0.0, f"masked K2 {case}: a masked key's dk or dv "
+              f"reads {gone}")
+        row = {"name": name, "path": path, "b": b, "h": h, "t_q": t_q,
+               "t_k": t_k, "d": d, "dtype": dtype, "mask": kind,
+               "kept_keys": (None if kmask is None
+                             else int(kmask.sum().item())),
+               "max_abs_err_o": err_o, "max_abs_err_lse": err_lse,
+               "max_abs_err_grad": errs, "max_tile_rel_l2": tile_l2}
+        if name in MASKED_TIMED:
+            q4, k4, v4 = (x.detach() for x in (q, k, v))
+            add = None
+            if kmask is not None:
+                add = torch.zeros(kmask.shape, device="cuda",
+                                  dtype=q.dtype).masked_fill(~kmask, -1e30)
+                add = add[:, None, None, :]
+
+            def fwd():
+                fa.flash_attention_fwd(q, k, v, out=out, kmask=kmask)
+
+            def bwd():
+                fa.flash_attention_bwd(q, k, v, o, lse, do, out=grads,
+                                       kmask=kmask)
+
+            def library():
+                F.scaled_dot_product_attention(q4, k4, v4, attn_mask=add)
+
+            def library_fwd_bwd():
+                xs = [x.detach().requires_grad_() for x in (q4, k4, v4)]
+                y = F.scaled_dot_product_attention(*xs, attn_mask=add)
+                torch.autograd.grad(y, xs, do)
+
+            if kmask is not None:
+                bound, bound_by = masked_bound_ms(kmask.cpu().numpy(), h,
+                                                  t_q, t_k, d, dtype)
+                bwd_bound, bwd_by = masked_bound_ms(
+                    kmask.cpu().numpy(), h, t_q, t_k, d, dtype, True)
+            else:
+                bound, bound_by = attention_bound_ms(b * h, t_q, t_k, d,
+                                                     dtype, False)
+                bwd_bound, bwd_by = attention_bwd_bound_ms(
+                    b * h, t_q, t_k, d, dtype, False)
+            row.update({
+                "ms": time_ms(fwd, torch), "device_ms": device_ms(fwd, torch),
+                "bwd_ms": time_ms(bwd, torch),
+                "bwd_device_ms": device_ms(bwd, torch),
+                "plain_ms": time_ms(lambda: fa.flash_attention_reference(
+                    q, k, v, kmask=kmask), torch, iters=3, repeats=3),
+                "bwd_plain_ms": time_ms(
+                    lambda: fa.flash_attention_bwd_reference(
+                        q, k, v, o, lse, do, kmask=kmask), torch, iters=3,
+                    repeats=3),
+                "library_ms": time_ms(library, torch),
+                "library_device_ms": device_ms(library, torch),
+                "library_fwd_bwd_ms": time_ms(library_fwd_bwd, torch),
+                "library_fwd_bwd_device_ms": device_ms(library_fwd_bwd,
+                                                       torch),
+                "bound_ms": bound, "bound_by": bound_by,
+                "bwd_bound_ms": bwd_bound, "bwd_bound_by": bwd_by})
+            row["library_bwd_device_ms"] = (row["library_fwd_bwd_device_ms"]
+                                            - row["library_device_ms"])
+        emit(masked_kernel_case=row)
+        rows[case] = row
+    return rows
+
+
+def a1_conf(data_type):
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.conf.configuration import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.optim.updaters import Nesterovs
+    return (NeuralNetConfiguration.builder().seed(SEED)
+            .updater(Nesterovs(A1_LR, momentum=A1_MOMENTUM))
+            .data_type(data_type).weight_init("xavier").list()
+            .layer(L.EmbeddingSequenceLayer(n_in=A1_VOCAB, n_out=A1_WIDTH,
+                                            input_length=A1_SEQ))
+            .layer(L.SelfAttentionLayer(n_heads=A1_HEADS))
+            .layer(L.SelfAttentionLayer(n_heads=A1_HEADS))
+            .layer(L.GlobalPoolingLayer(pooling_type="avg"))
+            .layer(L.OutputLayer(n_out=A1_CLASSES, activation="softmax",
+                                 loss_function="mcxent"))
+            .set_input_type(InputType.recurrent(1, A1_SEQ)).build())
+
+
+def a1_net(data_type, dev):
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    return MultiLayerNetwork(a1_conf(data_type), device=dev).init()
+
+
+def a1_data(n, seed=SEED):
+    """(token ids (N, T) int64, one-hot labels, the (N, T) mask)."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, A1_VOCAB, (n, A1_SEQ)).astype(np.int64)
+    y = np.eye(A1_CLASSES, dtype=np.float32)[rng.integers(0, A1_CLASSES, n)]
+    return x, y, a1_mask(n, seed=seed)
+
+
+def a2_graph_conf():
+    """A2's graph: inputs q (N, 96, 64), kv (N, 128, 64), key (N, 128,
+    32); cross attention (4 heads of 16) over kv, cross attention with a
+    key input and biases (2 heads of 32), a learned bank of 96 queries
+    (4 heads of 16) over kv, the dot-product vertex (cross over kv), the
+    causal additive vertex (cross_k over learned), the dot vertex of the
+    two, merged, pooled, a softmax output of 5."""
+    from deeplearning4j_tpu_torch.nn import graph_conf as gc
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.conf.configuration import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.optim.updaters import Nesterovs
+    return (NeuralNetConfiguration.builder().seed(SEED)
+            .updater(Nesterovs(A1_LR, momentum=A1_MOMENTUM))
+            .weight_init("xavier").graph_builder()
+            .add_inputs("q", "kv", "key")
+            .set_input_types(InputType.recurrent(64, A2_TQ),
+                             InputType.recurrent(64, A2_TK),
+                             InputType.recurrent(32, A2_TK))
+            .add_layer("cross", L.CrossAttentionLayer(n_heads=4), "q", "kv")
+            .add_layer("cross_k", L.CrossAttentionLayer(
+                n_heads=2, qkv_bias=True), "q", "kv", "key")
+            .add_layer("learned", L.LearnedSelfAttentionLayer(
+                n_heads=4, n_queries=A2_TQ), "kv")
+            .add_vertex("dpa", gc.DotProductAttentionVertex(), "cross", "kv")
+            .add_vertex("add", gc.AdditiveAttentionVertex(causal=True),
+                        "cross_k", "learned")
+            .add_vertex("dot", gc.DotVertex(axes=2), "dpa", "add")
+            .add_vertex("merge", gc.MergeVertex(), "dpa", "add", "dot")
+            .add_layer("pool", L.GlobalPoolingLayer(pooling_type="avg"),
+                       "merge")
+            .add_layer("out", L.OutputLayer(n_out=5, activation="softmax",
+                                            loss_function="mcxent"), "pool")
+            .set_outputs("out").build())
+
+
+def a2_mln_conf():
+    """A2's MultiLayerNetwork: RecurrentAttentionLayer (32 → 64, 4 heads
+    of 16, tanh) and a one-head SelfAttentionLayer without projections
+    (d 64) under the mask, pooled, a softmax output of 5."""
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.conf.configuration import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.optim.updaters import Nesterovs
+    return (NeuralNetConfiguration.builder().seed(SEED)
+            .updater(Nesterovs(A1_LR, momentum=A1_MOMENTUM))
+            .weight_init("xavier").list()
+            .layer(L.RecurrentAttentionLayer(n_out=64, n_heads=4,
+                                             activation="tanh"))
+            .layer(L.SelfAttentionLayer(project_input=False))
+            .layer(L.GlobalPoolingLayer(pooling_type="avg"))
+            .layer(L.OutputLayer(n_out=5, activation="softmax",
+                                 loss_function="mcxent"))
+            .set_input_type(InputType.recurrent(32, A2_T)).build())
+
+
+def a2_data(seed=SEED):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.standard_normal(s, dtype=np.float32)
+    graph_in = (f(A2_BATCH, A2_TQ, 64), f(A2_BATCH, A2_TK, 64),
+                f(A2_BATCH, A2_TK, 32))
+    labels = np.eye(5, dtype=np.float32)[rng.integers(0, 5, A2_BATCH)]
+    mask = key_mask_np("gap", A2_BATCH, A2_T, seed).astype(np.float32)
+    return graph_in, f(A2_BATCH, A2_T, 32), labels, mask
+
+
+def a2_nets(dev):
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    return (ComputationGraph(a2_graph_conf(), device=dev).init(),
+            MultiLayerNetwork(a2_mln_conf(), device=dev).init())
+
+
+def model_report(net, ref, x, y, mask, base=None):
+    """Check (a)'s readings of ``net`` against ``ref`` (a dict from the
+    same computation on the other device or in f64): probabilities'
+    relative L2, |Δloss|, the worst gradient leaf and, with ``base``,
+    the worst param displacement after one step; plus the raw readings
+    of ``net`` (numpy) for use as a ``ref``."""
+    from deeplearning4j_tpu_torch.nn.params import tree_to_numpy
+    graph = isinstance(x, tuple)
+    probs = (net.output(*x) if graph else net.output(x, mask=mask))
+    loss, grads = (net.computeGradientAndScore(x, y) if graph else
+                   net.computeGradientAndScore(x, y, mask=mask))
+    out = {"probs": probs.float().cpu().numpy(), "loss": loss,
+           "grads": tree_to_numpy(grads)}
+    if base is not None:
+        from deeplearning4j_tpu_torch.data import DataSet
+        net.fit(DataSet(x, y, mask, None))
+        out["params"] = tree_to_numpy(net.param_tree())
+    if ref is None:
+        return out
+    # a key projection's bias shifts every key of a query alike, and the
+    # softmax does not see it: its gradient is 0 in exact arithmetic, so
+    # it is read by its largest entry, not held relatively
+    # it is read by its largest entry, not held relatively. The gradients
+    # are held over all leaves at once ("grad"): the queries' and keys'
+    # projections of a layer whose softmax is near uniform (random
+    # weights) have gradients that cancel far below their terms, whose
+    # rounding then reads as a large relative error of that leaf alone
+    # (reported, "worst_leaf")
+    def flat(tree, base=None):
+        return np.concatenate([
+            (tree[k][p] - (base[k][p] if base is not None else 0)).ravel()
+            for k in sorted(tree) for p in sorted(tree[k]) if p != "bk"])
+
+    head = head_key(net)
+    g_err = {k: e for k, e in tree_errors(out["grads"], ref["grads"]).items()
+             if not k.endswith("/bk")}
+    rep = {"probs": rel_l2(out["probs"], ref["probs"]),
+           "loss": abs(loss - ref["loss"]),
+           "grad": rel_l2(flat(out["grads"]), flat(ref["grads"])),
+           "head_grad": rel_l2(out["grads"][head]["W"],
+                               ref["grads"][head]["W"]),
+           "worst_leaf": worst(g_err),
+           "bk_grad_max_abs": max([float(np.abs(g["bk"]).max())
+                                   for g in out["grads"].values()
+                                   if "bk" in g] or [0.0])}
+    if base is not None:
+        rep["step"] = rel_l2(flat(out["params"], base),
+                             flat(ref["params"], base))
+    return rep
+
+
+def _f64_copy(net, make):
+    """A net built by ``make()`` on the CPU carrying ``net``'s params as
+    f64 (its updater state fresh): the readings' truth."""
+    import torch
+    twin = make()
+    twin.set_param_tree(net.param_tree())
+    twin._params = {k: {p: v.double() for p, v in layer.items()}
+                    for k, layer in twin._params.items()}
+    twin._opt_state = twin._opt.init(twin._leaves())
+    return twin
+
+
+def a1_readings(batch=1):
+    """CPU readings for (a)'s rows: A1 (at ``batch``) and A2 in f32
+    against the same nets in f64 (the attention op's plain route in f64,
+    its kernels' plain versions in f32), the same readings (a) takes; and
+    A1 bf16 against f32 for (b)."""
+    import torch
+    from deeplearning4j_tpu_torch.nn.params import tree_to_numpy
+    out = {}
+    x, y, m = a1_data(batch)
+    net = a1_net("float32", "cpu")
+    base = tree_to_numpy(net.param_tree())
+    f64 = _f64_copy(net, lambda: a1_net("float32", "cpu"))
+    truth = model_report(f64, None, x, y.astype(np.float64),
+                         m.astype(np.float64), base)
+    out["a1_f32_vs_f64"] = model_report(net, truth, x, y, m, base)
+    bf16 = a1_net("bfloat16", "cpu")
+    f32 = a1_net("float32", "cpu")
+    ref = model_report(f32, None, x, y, m)
+    out["a1_bf16_vs_f32"] = model_report(bf16, ref, x, y, m)
+    graph_in, xr, yl, mr = a2_data()
+    for label, net in zip(("a2_graph", "a2_mln"), a2_nets("cpu")):
+        make = (lambda i=label: a2_nets("cpu")[0 if i == "a2_graph" else 1])
+        f64 = _f64_copy(net, make)
+        xs = (graph_in if label == "a2_graph" else xr)
+        x64 = (tuple(a.astype(np.float64) for a in xs)
+               if label == "a2_graph" else xs.astype(np.float64))
+        truth = model_report(f64, None, x64, yl.astype(np.float64),
+                             None if label == "a2_graph"
+                             else mr.astype(np.float64))
+        out[f"{label}_f32_vs_f64"] = model_report(
+            net, truth, xs, yl, None if label == "a2_graph" else mr)
+    return out
+
+
+def plain_a1(torch):
+    """The yardstick: A1 in plain PyTorch modules (``nn.Embedding``,
+    ``nn.Linear`` projections, SDPA with the additive -1e30 key mask,
+    the masked mean, ``nn.Linear`` head), SGD(Nesterov). Never on the
+    port's path."""
+    nn = torch.nn
+
+    class Twin(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.emb = nn.Embedding(A1_VOCAB, A1_WIDTH)
+            self.proj = nn.ModuleList(
+                nn.ModuleList(nn.Linear(A1_WIDTH, A1_WIDTH, bias=False)
+                              for _ in range(4)) for _ in range(2))
+            self.head = nn.Linear(A1_WIDTH, A1_CLASSES)
+
+    return Twin()
+
+
+def plain_a1_step(torch, model, opt, bf16):
+    import torch.nn.functional as F
+    hs = A1_WIDTH // A1_HEADS
+
+    def step(x, y, m):
+        n, t = x.shape
+        add = torch.zeros(m.shape, device=m.device).masked_fill(
+            m == 0, -1e30)[:, None, None, :]
+        with torch.autocast("cuda", dtype=torch.bfloat16, enabled=bf16):
+            h = model.emb(x)
+            for wq, wk, wv, wo in model.proj:
+                q, k, v = (w(h).view(n, t, A1_HEADS, hs).transpose(1, 2)
+                           for w in (wq, wk, wv))
+                a = F.scaled_dot_product_attention(q, k, v,
+                                                   attn_mask=add.to(q.dtype))
+                h = wo(a.transpose(1, 2).reshape(n, t, A1_WIDTH))
+            mm = m[..., None].to(h.dtype)
+            pooled = (h * mm).sum(1) / mm.sum(1).clamp_min(1.0)
+        loss = F.cross_entropy(model.head(pooled.float()), y)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        return loss
+    return step
+
+
+def attention_timing(torch, dev, smi):
+    """A1 at batch 8: host ms a step, sequences/s, tokens/s, device ms,
+    busy share, kernels a step and the flash kernels' share (a profiler
+    window of NET_PROFILED steps), own peak memory; bf16 then f32, in turns
+    with the plain twin (port, plain, plain, port)."""
+    from deeplearning4j_tpu_torch.data import DataSet
+    x, y, m = a1_data(A1_BATCH, seed=SEED + 1)
+    xd, yd, md = (torch.as_tensor(a, device=dev) for a in (x, y, m))
+    ds = DataSet(xd, yd, md, None)
+    rows = []
+    for dtype in ("bfloat16", "float32"):
+        bf16 = dtype == "bfloat16"
+        net = a1_net(dtype, dev)
+        twin = plain_a1(torch).to(dev)
+        opt = torch.optim.SGD(twin.parameters(), lr=A1_LR,
+                              momentum=A1_MOMENTUM, nesterov=True)
+        tstep = plain_a1_step(torch, twin, opt, bf16)
+        runs = {"port": lambda: net.fit(ds),
+                "plain": lambda: tstep(xd, yd, md)}
+        timed, peaks = {"port": [], "plain": []}, {}
+        for who in ("port", "plain", "plain", "port"):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ms, _all = step_timing(torch, runs[who])
+            peaks[who] = max(peaks.get(who, 0),
+                             torch.cuda.max_memory_allocated() - before)
+            timed[who].append(ms)
+        flops = net.step_cost(A1_BATCH)[0]
+        for who in ("port", "plain"):
+            p = profile_window(
+                torch, f"attention_{who}_{dtype}",
+                lambda f=runs[who]: [f() for _ in range(NET_PROFILED)],
+                f"attention_{who}_{dtype}_trace.json", top=12)
+            ms = statistics.median(timed[who])
+            busy = p.get("device_busy_us")
+            att_us = sum(k["us"] for k in p.get("attention_kernels") or [])
+            rows.append({
+                "model": who, "dtype": dtype, "gpu": smi,
+                "host_ms_per_step": ms, "turns_ms": timed[who],
+                "sequences_per_s": A1_BATCH / (ms / 1e3),
+                "tokens_per_s": A1_BATCH * A1_SEQ / (ms / 1e3),
+                "kept_tokens": int(m.sum()),
+                "tflops_per_s": flops / (ms / 1e3) / 1e12,
+                "device_ms_per_step": (busy / 1e3 / NET_PROFILED
+                                       if busy is not None else None),
+                "busy_share": p.get("busy_share"),
+                "kernels_per_step": (p["kernels"] / NET_PROFILED
+                                     if "kernels" in p else None),
+                "flash_share": (att_us / busy if busy else None),
+                "own_peak_bytes": peaks[who],
+                "top_ops": p.get("top_ops"),
+                "top_kernels": p.get("top_kernels")})
+        del net, twin, opt, runs
+        torch.cuda.empty_cache()
+    for r in rows:
+        emit(attention_timing=r)
+    return rows
+
+
+def attention_phase(torch, fa):
+    """The attention slice on the card: masked K1/K2 against their plain
+    versions (``masked_kernel_phase``); (a) A1 f32 on the card against the
+    same net on the CPU at A1_CHECK_BATCH (TOL_A1_F32); A1 in bf16 and f32
+    at batch 8: A1_FIT_STEPS masked fits and ``output``, the loss finite,
+    the flash kernels launched once a layer each way (bf16: the wgmma
+    pair, f32: the simple forward and the mma.sync / FMA backward), the
+    op's plain route never; (b) bf16 against f32 (TOL_A1_BF16 from above,
+    FLOOR_A1_BF16 from below); A2's nets f32 on the card against the CPU
+    (TOL_A2_F32), with their launches; then the timings in turns with the
+    plain twin. Returns (the masked rows, A1's launches, A2's)."""
+    from deeplearning4j_tpu_torch._device import resolve_device
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.nn.params import tree_to_numpy
+    t_phase = time.perf_counter()
+    dev = resolve_device(None)
+    masked = masked_kernel_phase(torch, fa)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+
+    # (a) A1 f32, card against CPU
+    x, y, m = a1_data(A1_CHECK_BATCH)
+    cpu = a1_net("float32", "cpu")
+    base = tree_to_numpy(cpu.param_tree())
+    card = a1_net("float32", dev)
+    carry_net(cpu, card)
+    cpu_out = model_report(cpu, None, x, y, m, base)
+    rep = model_report(card, cpu_out, x, y, m, base)
+    failed = rows_failed(rep, TOL_A1_F32)
+    emit(a1_card_vs_cpu=rep, rows=TOL_A1_F32, failed=failed)
+    check(not failed, f"(a) A1 f32 card vs CPU above its rows: {failed}")
+    del cpu, card, cpu_out
+
+    # A1 at batch 8, each dtype: masked fits and output, the path's launches
+    x, y, m = a1_data(A1_BATCH)
+    ds = DataSet(x, y, m, None)
+    launches = {}
+    for dtype in ("bfloat16", "float32"):
+        net = a1_net(dtype, dev)
+        net.score_every = 1
+        reset_all_counts()
+        losses = []
+        for _ in range(A1_FIT_STEPS):
+            net.fit(ds)
+            losses.append(net.score())
+        probs = net.output(x, mask=m)
+        torch.cuda.synchronize()
+        launches[dtype] = all_counts()
+        fwd, bwd = (("wgmma", "bwd_wgmma") if dtype == "bfloat16"
+                    else ("simple", "bwd"))
+        layers = 2
+        want = launch_counts(**{fwd: layers * (A1_FIT_STEPS + 1),
+                                bwd: layers * A1_FIT_STEPS})
+        emit(a1_fit={"dtype": dtype, "losses": losses,
+                     "probs_shape": list(probs.shape),
+                     "launches": dict(zip(ALL_KERNELS, launches[dtype]))})
+        check(all(math.isfinite(v) for v in losses)
+              and tuple(probs.shape) == (A1_BATCH, A1_CLASSES)
+              and bool(torch.isfinite(probs).all()),
+              f"A1 {dtype}: losses {losses}, output {tuple(probs.shape)}")
+        check(launches[dtype] == want,
+              f"A1 {dtype} launched {dict(zip(ALL_KERNELS, launches[dtype]))}"
+              f", want {dict(zip(ALL_KERNELS, want))}")
+        del net
+
+    # (b) bf16 against f32, the same weights, batch 8
+    f32, bf16 = a1_net("float32", dev), a1_net("bfloat16", dev)
+    carry_net(f32, bf16)
+    ref = model_report(f32, None, x, y, m)
+    rep_b = model_report(bf16, ref, x, y, m)
+    failed = rows_failed(rep_b, TOL_A1_BF16)
+    too_close = floors_failed(rep_b, FLOOR_A1_BF16)
+    emit(a1_bf16_vs_f32=rep_b, rows=TOL_A1_BF16, failed=failed,
+         floors=FLOOR_A1_BF16, floors_failed=too_close)
+    check(not failed, f"(b) A1 bf16 vs f32 above its rows: {failed}")
+    check(not too_close, f"(b) A1 bf16 reads as close to f32 as f32 does: "
+          f"{too_close}")
+    del f32, bf16
+    torch.cuda.empty_cache()
+
+    # A2, f32, card against CPU, and its launches
+    graph_in, xr, yl, mr = a2_data()
+    cpu_nets, card_nets = a2_nets("cpu"), a2_nets(dev)
+    reset_all_counts()
+    a2_rows = {}
+    for label, cpu_net, card_net, xs, mask in (
+            ("graph", cpu_nets[0], card_nets[0], graph_in, None),
+            ("mln", cpu_nets[1], card_nets[1], xr, mr)):
+        carry_net(cpu_net, card_net)
+        cpu_out = model_report(cpu_net, None, xs, yl, mask)
+        a2_rows[label] = model_report(card_net, cpu_out, xs, yl, mask)
+    a2_launches = all_counts()
+    failed = {k: rows_failed(r, TOL_A2_F32) for k, r in a2_rows.items()}
+    emit(a2_card_vs_cpu=a2_rows, rows=TOL_A2_F32, failed=failed,
+         a2_launches=dict(zip(ALL_KERNELS, a2_launches)))
+    check(not any(failed.values()),
+          f"A2 f32 card vs CPU above its rows: {failed}")
+    named_a2 = dict(zip(ALL_KERNELS, a2_launches))
+    check(named_a2["simple"] > 0 and named_a2["bwd"] > 0
+          and sum(n for k, n in named_a2.items()
+                  if k not in ("simple", "bwd")) == 0,
+          f"A2 launched off its path: {named_a2}")
+    del cpu_nets, card_nets
+
+    timing = attention_timing(torch, dev, smi)
+    a1 = tuple(a + b for a, b in zip(launches["bfloat16"],
+                                      launches["float32"]))
+    emit(attention_phase_seconds=time.perf_counter() - t_phase,
+         attention_launches=dict(zip(ALL_KERNELS, a1)))
+    return masked, timing, a1, a2_launches
+
+
+def masked_kernel_entry(path, rows):
+    """The masked rows' fields of a flash kernel's entry in the kernels
+    line, at MASKED_MAIN_CASE[path] (A1's shape)."""
+    main = rows[MASKED_MAIN_CASE[path]]
+    unmasked = next(r for r in rows.values()
+                    if r["name"] == "a1_unmasked"
+                    and r["dtype"] == main["dtype"])
+    bwd = path.startswith("bwd")
+    fwd_path = {"bwd_wgmma": "wgmma", "bwd": "simple"}.get(path, path)
+    mine = [r for r in rows.values() if r["path"] == fwd_path]
+    key = "bwd_" if bwd else ""
+    errs = ([e for r in mine for e in r["max_abs_err_grad"].values()] if bwd
+            else [r["max_abs_err_o"] for r in mine])
+    return {"max_abs_err": max(errs),
+            "ms": main[f"{key}ms"], "device_ms": main[f"{key}device_ms"],
+            "plain_ms": main[f"{key}plain_ms"],
+            "bound_ms": main[f"{key}bound_ms"],
+            "bound_by": main[f"{key}bound_by"],
+            "library_ms": (main["library_fwd_bwd_ms"] if bwd
+                           else main["library_ms"]),
+            "library_device_ms": (main["library_bwd_device_ms"] if bwd
+                                  else main["library_device_ms"]),
+            "unmasked_device_ms": unmasked[f"{key}device_ms"],
+            "at": dict(zip(("name", "b", "h", "t_q", "t_k", "d", "dtype",
+                            "mask"), MASKED_MAIN_CASE[path]))}
 
 
 # ---------------------------------------------------------------- recurrent
@@ -6315,6 +7287,9 @@ def main() -> int:
     parser.add_argument("--compare-k11l", metavar="OTHER", type=Path,
                         nargs="+", help="time K11Lf and K11Lb here and in "
                         "the checkouts at OTHER in turns, and nothing else")
+    parser.add_argument("--attention", action="store_true",
+                        help="run only the attention phase (masked K1/K2, "
+                        "A1 and A2) after building the kernels")
     parser.add_argument("--precision-ce-f32", action="store_true",
                         help="measure the f32 K3 kernels and their plain "
                         "versions against f64 at the training shape, and "
@@ -6376,6 +7351,7 @@ def main() -> int:
              for i, k in enumerate(ALL_KERNELS)}, k11_rows, k11l_rows))
         return 0
 
+    t_script = time.perf_counter()
     t0 = time.perf_counter()
     compiled = _build.build_all()
     ptxas = [ln.strip() for log in _build.build_logs.values()
@@ -6392,19 +7368,20 @@ def main() -> int:
     if log is not None:     # compiled in this run, not an earlier library
         report = wgmma_ptxas(log)
         emit(wgmma_ptxas=report)
-        check(sorted(report) == [64, 128] and all(
+        check(set(report) == set(WGMMA_INSTANTIATIONS) and all(
             r.get("registers") == WGMMA_ENTRY_REGISTERS
             and r.get("spill_bytes") == 0 for r in report.values()),
             f"wgmma kernel: want {WGMMA_ENTRY_REGISTERS} registers and no "
-            f"spills at d 64 and 128, ptxas gave {report}")
+            f"spills at d 64 and 128, unmasked and masked, ptxas gave "
+            f"{report}")
     log = _build.build_logs.get("flash_attention_bwd_wgmma")
     if log is not None:
         report = bwd_wgmma_ptxas(log)
         emit(bwd_wgmma_ptxas=report)
-        check(sorted(report) == ["d128 dkdv", "d128 dq", "d64 dkdv", "d64 dq"]
+        check(set(report) == set(BWD_WGMMA_INSTANTIATIONS)
               and all("registers" in r and r.get("spill_bytes") == 0
                       for r in report.values()),
-              f"wgmma backward: want no spills in its four kernels, ptxas "
+              f"wgmma backward: want no spills in its eight kernels, ptxas "
               f"gave {report}")
     log = _build.build_logs.get("chunked_ce_wgmma")
     if log is not None:
@@ -6423,9 +7400,11 @@ def main() -> int:
               f"tf32 K3: want no spills in its "
               f"{len(CE_TF32_INSTANTIATIONS)} kernels, ptxas gave {report}")
     for name, parse, want in (("flash_attention_fwd", simple_ptxas,
-                               SIMPLE_INSTANTIATIONS),
+                               SIMPLE_INSTANTIATIONS
+                               + SIMPLE_MASKED_INSTANTIATIONS),
                               ("flash_attention_bwd", bwd_ptxas,
-                               BWD_INSTANTIATIONS)):
+                               BWD_INSTANTIATIONS
+                               + BWD_MASKED_INSTANTIATIONS)):
         log = _build.build_logs.get(name)
         if log is not None:
             report = parse(log)
@@ -6456,61 +7435,86 @@ def main() -> int:
               and not any(loads.values()),
               f"K4a: pool loads through the read-only path {loads}")
 
+    if args.attention:
+        masked, _timing, a1, a2 = attention_phase(torch, fa)
+        emit(attention_launches={"attention": dict(zip(ALL_KERNELS, a1)),
+                                 "attention_modules": dict(zip(ALL_KERNELS,
+                                                               a2))})
+        return 0
+
     def allocated(after):
         emit(allocated={"after": after,
                         "bytes": torch.cuda.memory_allocated()})
 
-    cases = kernel_phase(torch, fa)
+    seconds = {"build": time.perf_counter() - t0}
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    cases = timed("kernel_phase", kernel_phase, torch, fa)
     allocated("kernel_phase")
-    bwd_cases = bwd_phase(torch, fa)
+    bwd_cases = timed("bwd_phase", bwd_phase, torch, fa)
     allocated("bwd_phase")
-    head_phase(torch)
+    timed("head_phase", head_phase, torch)
     allocated("head_phase")
-    ce_cases = ce_phase(torch)
+    ce_cases = timed("ce_phase", ce_phase, torch)
     allocated("ce_phase")
-    moe_cases = moe_phase(torch)
+    moe_cases = timed("moe_phase", moe_phase, torch)
     allocated("moe_phase")
-    decode_cases = decode_kernel_phase(torch)
+    decode_cases = timed("decode_kernel_phase", decode_kernel_phase, torch)
     allocated("decode_kernel_phase")
     torch.cuda.empty_cache()
-    engine, _model, serve = slice_phase(torch, fa)
-    profile_phase(torch, fa, engine)
-    decode_profile_phase(torch, engine)
-    modes = serve_phase(torch, _model, engine)
-    pipeline = pipeline_phase(torch, _model, engine)
-    frontdoor = frontdoor_phase(torch, _model, engine)
+    engine, _model, serve = timed("slice_phase", slice_phase, torch, fa)
+    timed("profile_phase", profile_phase, torch, fa, engine)
+    timed("decode_profile_phase", decode_profile_phase, torch, engine)
+    modes = timed("serve_phase", serve_phase, torch, _model, engine)
+    pipeline = timed("pipeline_phase", pipeline_phase, torch, _model, engine)
+    frontdoor = timed("frontdoor_phase", frontdoor_phase, torch, _model,
+                      engine)
     del engine, _model
     torch.cuda.empty_cache()
     allocated("slice_phase")
-    fleet = fleet_phase(torch)
+    fleet = timed("fleet_phase", fleet_phase, torch)
     allocated("fleet_phase")
-    train = train_phase(torch, fa)
-    moe = moe_train_phase(torch, fa)
+    train = timed("train_phase", train_phase, torch, fa)
+    moe = timed("moe_train_phase", moe_train_phase, torch, fa)
     allocated("moe_train_phase")
-    f32_serve = f32_serve_phase(torch)
-    f32_train = f32_train_phase(torch, fa)
+    f32_serve = timed("f32_serve_phase", f32_serve_phase, torch)
+    f32_train = timed("f32_train_phase", f32_train_phase, torch, fa)
     torch.cuda.empty_cache()
     allocated("f32_train_phase")
-    network = network_phase(torch)
+    masked, _timing, attention, attention_modules = timed(
+        "attention_phase", attention_phase, torch, fa)
     torch.cuda.empty_cache()
-    recurrent, wide, k11_rows, k11l_rows = recurrent_phase(torch)
-    launches = {name: {"serve": serve[i], "serve_modes": modes[i],
-                       "pipeline": pipeline[i], "frontdoor": frontdoor[i],
-                       "fleet": fleet[i],
-                       "train": train[i], "moe": moe[i],
-                       "f32_serve": f32_serve[i], "f32_train": f32_train[i],
-                       "network": network[i], "recurrent": recurrent[i],
-                       "wide_layer": wide[i]}
+    allocated("attention_phase")
+    network = timed("network_phase", network_phase, torch)
+    torch.cuda.empty_cache()
+    recurrent, wide, k11_rows, k11l_rows = timed(
+        "recurrent_phase", recurrent_phase, torch)
+    paths = {"serve": serve, "serve_modes": modes, "pipeline": pipeline,
+             "frontdoor": frontdoor, "fleet": fleet, "train": train,
+             "moe": moe, "f32_serve": f32_serve, "f32_train": f32_train,
+             "network": network, "recurrent": recurrent, "wide_layer": wide,
+             "attention": attention, "attention_modules": attention_modules}
+    launches = {name: {path: counts_[i] for path, counts_ in paths.items()}
                 for i, name in enumerate(ALL_KERNELS)}
     emit(main_path_launches=launches)
     check_path_launches(serve, modes, train, moe, f32_serve, f32_train,
                         pipeline, frontdoor, fleet, network, recurrent,
                         wide)
-    emit(kernels=[kernel_entry("wgmma", cases, launches["wgmma"]),
-                  kernel_entry("simple", cases, launches["simple"]),
+    check(not any(launches["attention_plain"].values()),
+          f"the attention op took its plain route on the card: "
+          f"{launches['attention_plain']}")
+    check_recurrent_launches(recurrent, wide, (attention, attention_modules))
+    emit(kernels=[kernel_entry("wgmma", cases, launches["wgmma"], masked),
+                  kernel_entry("simple", cases, launches["simple"], masked),
                   bwd_kernel_entry("bwd_wgmma", bwd_cases,
-                                   launches["bwd_wgmma"]),
-                  bwd_kernel_entry("bwd", bwd_cases, launches["bwd"]),
+                                   launches["bwd_wgmma"], masked),
+                  bwd_kernel_entry("bwd", bwd_cases, launches["bwd"],
+                                   masked),
                   ce_kernel_entry("ce_fwd", ce_cases, launches["ce_fwd"]),
                   ce_kernel_entry("ce_dlogits", ce_cases,
                                   launches["ce_dlogits"]),
@@ -6531,6 +7535,8 @@ def main() -> int:
          + [decode_kernel_entry("paged_attention_write", decode_cases,
                                 launches["paged_attention_write"])]
          + recurrent_kernel_entries(launches, k11_rows, k11l_rows))
+    seconds["script"] = time.perf_counter() - t_script
+    emit(phase_seconds=seconds)
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

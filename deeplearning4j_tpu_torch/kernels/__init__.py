@@ -2,8 +2,11 @@
 
 Each wrapper adds one to a module-level counter where it launches its
 kernel, and nowhere else (a CPU tensor takes the plain version and counts
-nothing). :func:`launch_counts` reads every counter of this process by
-kernel name; :func:`reset_launch_counts` zeroes them.
+nothing). One count is no kernel's: ``attention_plain``, the calls of
+``ops.standard.dot_product_attention`` on the card that took the op's
+plain version by its stated rule. :func:`launch_counts` reads every
+counter of this process by name; :func:`reset_launch_counts` zeroes
+them.
 """
 import importlib
 
@@ -29,6 +32,7 @@ COUNTERS = {
     "rnn_cell_bwd": ("rnn_cell", "launches_cell_bwd"),
     "rnn_layer_fwd": ("rnn_cell", "launches_layer_fwd"),
     "rnn_layer_bwd": ("rnn_cell", "launches_layer_bwd"),
+    "attention_plain": ("flash_attention", "plain_route_calls"),
 }
 
 

@@ -10,7 +10,8 @@
 // function with the same rounding points:
 //   D  = rowsum(f32 dO * f32 O)
 //   p  = exp(s * scale - lse) in f32, masked keys (the -1e30 sentinel there)
-//        exactly 0: keys past seq_k, and k_idx > q_idx when causal
+//        exactly 0: keys past seq_k, k_idx > q_idx when causal, and keys
+//        whose byte in the optional key mask (the forward's) is 0
 //   dV = bf16(p)^T dO          dP = dO V^T
 //   dS = bf16(p * (dP - D))    dQ = scale * dS K     dK = scale * dS^T Q
 // with bf16 operands multiplied exactly and f32 accumulation; in f32 the
@@ -61,7 +62,11 @@
 // strides in elements come in as arguments, each a multiple of 16 bytes, and
 // every base 16-byte aligned (the Python wrapper checks this), so the fused
 // QKV projection's views are read, and its gradient written, in place. lse
-// and D are contiguous (B*H, Tq) f32.
+// and D are contiguous (B*H, Tq) f32; the key mask, if given, (B, kmask_ld)
+// bytes, zero past seq_k. The mask is a template parameter: the unmasked
+// instantiations are the kernels as they were; the masked dQ kernel tests
+// each key's byte on every tile, the masked dK/dV kernel (whose keys are
+// its own rows) reads its rows' bytes once.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -87,6 +92,8 @@ struct Args {
   int h, seq_q, seq_k, d;
   float scale;
   int causal;
+  const uint8_t* kmask;         // (B, kmask_ld) key bytes, or null
+  long long kmask_ld;
 };
 
 // element offset of head bh's (T, d) matrix in an operand
@@ -96,6 +103,11 @@ __device__ __forceinline__ long long head(const Args& a, int which, int bh) {
 
 __device__ __forceinline__ bool kept(const Args& a, int qi, int ki) {
   return qi < a.seq_q && ki < a.seq_k && (!a.causal || qi >= ki);
+}
+
+// the key-mask row of head bh's batch element
+__device__ __forceinline__ const uint8_t* mask_row(const Args& a, int bh) {
+  return a.kmask + (bh / a.h) * a.kmask_ld;
 }
 
 // ------------------------------------------------------------ the products
@@ -287,8 +299,8 @@ template <int W, int KT> struct FmaF32 {
   }
 };
 
-// tiling of one (dtype, tile width) instantiation
-template <typename T, int W> struct Cfg {
+// tiling of one (dtype, tile width, key mask) instantiation
+template <typename T, int W, bool MASK> struct Cfg {
   static constexpr bool F32 = std::is_same<T, float>::value;
   // rows of a block's own tile (query rows in the dq kernel, key rows in the
   // dkdv kernel), 16 a warp: 64, or 32 for f32 at W 256, where two own tiles
@@ -306,10 +318,12 @@ template <typename T, int W> struct Cfg {
   typedef typename std::conditional<F32, FmaF32<W, KT>, MmaBf16<W, KT>>::type
       M;
   // the dkdv kernel where dK and dV together would crowd a lane's registers
-  // (from W 192, and f32 from W 128): two groups of warps over the same key
-  // rows, one accumulating dV (it recomputes S^T and P), the other dK (S^T,
-  // dP^T, P and dS)
-  static constexpr bool SPLIT = W >= 192 || (F32 && W == 128);
+  // (from W 192, and f32 from W 128; bf16 at W 128 under a key mask, whose
+  // kept-row bits spill 48 bytes there): two groups of warps over the same
+  // key rows, one accumulating dV (it recomputes S^T and P), the other dK
+  // (S^T, dP^T, P and dS)
+  static constexpr bool SPLIT = W >= 192 || (F32 && W == 128) ||
+                                (MASK && W == 128);
   static constexpr int Q_THREADS = BM * 2;
   static constexpr int KV_THREADS = BM * 2 * (SPLIT ? 2 : 1);
   // own pair (Q and dO, or K and V) plus two buffers of the walked pair
@@ -339,9 +353,10 @@ __device__ __forceinline__ void load_rows(float* s_lse, float* s_d,
   }
 }
 
-template <typename T, int W>
-__global__ void __launch_bounds__((Cfg<T, W>::Q_THREADS)) dq_kernel(Args a) {
-  using C = Cfg<T, W>;
+template <typename T, int W, bool MASK>
+__global__ void __launch_bounds__((Cfg<T, W, MASK>::Q_THREADS))
+    dq_kernel(Args a) {
+  using C = Cfg<T, W, MASK>;
   using M = typename C::M;
   constexpr int BM = C::BM, KT = C::KT, NTH = C::Q_THREADS, ld = C::LD;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -360,6 +375,7 @@ __global__ void __launch_bounds__((Cfg<T, W>::Q_THREADS)) dq_kernel(Args a) {
   const T* vb = static_cast<const T*>(a.v) + head(a, V, bh);
   const int kv_end = a.causal ? min(a.seq_k, q0 + BM) : a.seq_k;
   const int n_tiles = (kv_end + KT - 1) / KT;
+  const uint8_t* km = MASK ? mask_row(a, bh) : nullptr;
 
   load_tile<T, W, BM, NTH>(sQ, static_cast<const T*>(a.q) + head(a, Q, bh),
                            a.st[Q][2], q0, a.seq_q, a.d);
@@ -402,12 +418,14 @@ __global__ void __launch_bounds__((Cfg<T, W>::Q_THREADS)) dq_kernel(Args a) {
       typename M::C s, dp;
       M::scores(s, sQ, r0, k_s, a.d, lane);                      // S
       M::scores(dp, sDO, r0, sV + buf * KT * ld, a.d, lane);     // dP
-      const bool edge = !C::SKIP_MASK || k0 + KT > a.seq_k ||
+      const bool edge = !C::SKIP_MASK || MASK || k0 + KT > a.seq_k ||
                         q0 + r0 + 16 > a.seq_q ||
                         (a.causal && k0 + KT - 1 > q0 + r0);
       M::each(s, dp, lane, [&](int i, int c, float& sv, float& dpv) {
         float ds = 0.0f;
-        if (!edge || kept(a, qi[i], k0 + c))
+        bool keep = !edge || kept(a, qi[i], k0 + c);
+        if constexpr (MASK) keep = keep && k0 + c < a.seq_k && km[k0 + c];
+        if (keep)
           ds = M::dscore(M::prob(sv, a.scale, lse[i]), dpv, dl[i]);
         sv = ds;
       });
@@ -419,9 +437,10 @@ __global__ void __launch_bounds__((Cfg<T, W>::Q_THREADS)) dq_kernel(Args a) {
            a.seq_q, a.d, a.scale, lane);
 }
 
-template <typename T, int W>
-__global__ void __launch_bounds__((Cfg<T, W>::KV_THREADS)) dkdv_kernel(Args a) {
-  using C = Cfg<T, W>;
+template <typename T, int W, bool MASK>
+__global__ void __launch_bounds__((Cfg<T, W, MASK>::KV_THREADS))
+    dkdv_kernel(Args a) {
+  using C = Cfg<T, W, MASK>;
   using M = typename C::M;
   constexpr int BM = C::BM, KT = C::KT, NTH = C::KV_THREADS, ld = C::LD;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -444,6 +463,12 @@ __global__ void __launch_bounds__((Cfg<T, W>::KV_THREADS)) dkdv_kernel(Args a) {
   const T* dob = static_cast<const T*>(a.dout) + head(a, DO, bh);
   // causal: query tiles ending before this key tile see none of it
   const int q_begin = a.causal ? k0 / KT * KT : 0;
+  // masked: whether each key row this lane holds elements of is kept (the
+  // mask's row is padded past seq_k with zeros)
+  bool row_kept[M::ROWS];
+#pragma unroll
+  for (int i = 0; i < M::ROWS; ++i)
+    row_kept[i] = !MASK || mask_row(a, bh)[k0 + r0 + M::row(lane, i)];
   const int n_tiles =
       q_begin < a.seq_q ? (a.seq_q - q_begin + KT - 1) / KT : 0;
 
@@ -488,12 +513,13 @@ __global__ void __launch_bounds__((Cfg<T, W>::KV_THREADS)) dkdv_kernel(Args a) {
       typename M::C st, dpt;            // S^T and dP^T: key rows, query columns
       M::scores(st, sK, r0, q_s, a.d, lane);
       if (want_ds) M::scores(dpt, sV, r0, do_s, a.d, lane);
-      const bool edge = !C::SKIP_MASK || q0 + KT > a.seq_q ||
+      const bool edge = !C::SKIP_MASK || MASK || q0 + KT > a.seq_q ||
                         k0 + r0 + 16 > a.seq_k ||
                         (a.causal && q0 < k0 + r0 + 15);
       M::each(st, dpt, lane, [&](int i, int c, float& sv, float& dpv) {
         float p = 0.0f, ds = 0.0f;
-        if (!edge || kept(a, q0 + c, k0 + r0 + M::row(lane, i))) {
+        if ((!edge || kept(a, q0 + c, k0 + r0 + M::row(lane, i))) &&
+            row_kept[i]) {
           p = M::prob(sv, a.scale, lse_s[c]);
           if (want_ds) ds = M::dscore(p, dpv, d_s[c]);
         }
@@ -536,13 +562,15 @@ cudaError_t opt_in(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
-template <typename T, int W>
+template <typename T, int W, bool MASK>
 cudaError_t launch(const Args& a, int bh, cudaStream_t stream) {
-  using C = Cfg<T, W>;
+  using C = Cfg<T, W, MASK>;
   static_assert(C::q_bytes() <= 232448 && C::kv_bytes() <= 232448,
                 "over the 227 KB shared-memory opt-in");
-  static const cudaError_t attr_q = opt_in(dq_kernel<T, W>, C::q_bytes());
-  static const cudaError_t attr_kv = opt_in(dkdv_kernel<T, W>, C::kv_bytes());
+  static const cudaError_t attr_q =
+      opt_in(dq_kernel<T, W, MASK>, C::q_bytes());
+  static const cudaError_t attr_kv =
+      opt_in(dkdv_kernel<T, W, MASK>, C::kv_bytes());
   if (attr_q != cudaSuccess) return attr_q;
   if (attr_kv != cudaSuccess) return attr_kv;
   DeltaArgs da{a.o, a.dout, {a.st[O][0], a.st[O][1], a.st[O][2]},
@@ -551,24 +579,24 @@ cudaError_t launch(const Args& a, int bh, cudaStream_t stream) {
   delta_kernel<T><<<dim3((a.seq_q + 31) / 32, bh), 256, 0, stream>>>(da);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dq_kernel<T, W><<<dim3((a.seq_q + C::BM - 1) / C::BM, bh), C::Q_THREADS,
-                    C::q_bytes(), stream>>>(a);
+  dq_kernel<T, W, MASK><<<dim3((a.seq_q + C::BM - 1) / C::BM, bh),
+                          C::Q_THREADS, C::q_bytes(), stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dkdv_kernel<T, W><<<dim3((a.seq_k + C::BM - 1) / C::BM, bh),
-                      C::KV_THREADS, C::kv_bytes(), stream>>>(a);
+  dkdv_kernel<T, W, MASK><<<dim3((a.seq_k + C::BM - 1) / C::BM, bh),
+                            C::KV_THREADS, C::kv_bytes(), stream>>>(a);
   return cudaGetLastError();
 }
 
 // the narrowest width that holds d
-template <typename T>
+template <typename T, bool MASK>
 cudaError_t dispatch(const Args& a, int bh, cudaStream_t s) {
-  if (a.d <= 32) return launch<T, 32>(a, bh, s);
-  if (a.d <= 64) return launch<T, 64>(a, bh, s);
-  if (a.d <= 96) return launch<T, 96>(a, bh, s);
-  if (a.d <= 128) return launch<T, 128>(a, bh, s);
-  if (a.d <= 192) return launch<T, 192>(a, bh, s);
-  return launch<T, 256>(a, bh, s);
+  if (a.d <= 32) return launch<T, 32, MASK>(a, bh, s);
+  if (a.d <= 64) return launch<T, 64, MASK>(a, bh, s);
+  if (a.d <= 96) return launch<T, 96, MASK>(a, bh, s);
+  if (a.d <= 128) return launch<T, 128, MASK>(a, bh, s);
+  if (a.d <= 192) return launch<T, 192, MASK>(a, bh, s);
+  return launch<T, 256, MASK>(a, bh, s);
 }
 
 }  // namespace
@@ -576,6 +604,7 @@ cudaError_t dispatch(const Args& a, int bh, cudaStream_t s) {
 // Plain C interface, loaded with ctypes. strides: 24 (b, h, t) strides in
 // elements of q, k, v, o, dO, dq, dk, dv, in that order. lse and delta (the
 // D scratch) are contiguous (b*h, seq_q) f32. dtype: 0 = float32, 1 = bfloat16.
+// kmask: null, or (b, kmask_ld) bytes, nonzero where a key is kept.
 // Returns the first failing launch's cudaError_t (0 on success); never
 // synchronises.
 extern "C" int dl4j_flash_attention_bwd(
@@ -583,7 +612,7 @@ extern "C" int dl4j_flash_attention_bwd(
     const void* dout, const void* lse, void* dq, void* dk, void* dv,
     void* delta, int b, int h, int seq_q, int seq_k, int d,
     const long long* strides, float scale, int causal, int dtype,
-    void* stream) {
+    const void* kmask, long long kmask_ld, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (b < 1 || h < 1 || (long long)b * h > 65535 || seq_q < 1 || seq_k < 1 ||
       d < 8 || d > 256 || d % 8)
@@ -598,8 +627,14 @@ extern "C" int dl4j_flash_attention_bwd(
   a.h = h; a.seq_q = seq_q; a.seq_k = seq_k; a.d = d;
   a.scale = scale;
   a.causal = causal;
-  if (dtype == 1) return (int)dispatch<bf16>(a, b * h, s);
-  if (dtype == 0) return (int)dispatch<float>(a, b * h, s);
+  a.kmask = static_cast<const uint8_t*>(kmask);
+  a.kmask_ld = kmask_ld;
+  if (dtype == 1)
+    return (int)(kmask ? dispatch<bf16, true>(a, b * h, s)
+                       : dispatch<bf16, false>(a, b * h, s));
+  if (dtype == 0)
+    return (int)(kmask ? dispatch<float, true>(a, b * h, s)
+                       : dispatch<float, false>(a, b * h, s));
   return (int)cudaErrorInvalidValue;
 }
 

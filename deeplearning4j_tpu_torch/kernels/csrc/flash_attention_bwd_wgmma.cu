@@ -7,7 +7,8 @@
 // computes the same function with the same rounding points:
 //   D  = rowsum(f32 dO * f32 O)
 //   p  = exp(s * scale - lse) in f32, masked keys exactly 0: keys past
-//        seq_k, and k_idx > q_idx (absolute indices) when causal
+//        seq_k, k_idx > q_idx (absolute indices) when causal, and keys whose
+//        byte in the optional key mask (the forward's) is 0
 //   dV = bf16(p)^T dO          dP = dO V^T
 //   dS = bf16(p * (dP - D))    dQ = scale * dS K     dK = scale * dS^T Q
 // with bf16 operands and f32 accumulation. The exponentials are ex2.approx of
@@ -47,6 +48,13 @@
 //   strides that are multiples of 16 bytes, read through tensor maps, so the
 //   fused-QKV projection's views go in as they are and its gradient is
 //   written in place.
+// - The key mask is a template parameter: the unmasked instantiations are
+//   the kernels as they were. Masked ((B, ld) bytes, ld a multiple of 128,
+//   zero past seq_k), the dQ kernel streams each key tile's 64 bytes with it
+//   (a bulk copy into the stage's mask slot) and the dK/dV kernel, whose
+//   keys are its own rows, reads its two rows' bytes once. A warp votes on
+//   its keys: all kept is computed as unmasked, none kept gives P = 0 with
+//   no exponentials, and only a mix tests its keys one by one.
 
 #include "hopper_wgmma.cuh"
 #include "flash_bwd_delta.cuh"
@@ -69,15 +77,21 @@ enum { Q = 0, K, V, O, DO, DQ, DK, DV };
 // tiles), then STAGES stages of U and W (one 64-row tile each, and in the
 // dK/dV kernel the tile's lse and D), then the mbarriers. A 64-row tile is
 // its d / 64 panels one after another.
-template <int D, bool KV> struct Smem {
+template <int D, bool KV, bool MASK> struct Smem {
   static constexpr int PANELS = D / PANEL;
   static constexpr int UNIT = PANELS * PANEL_BYTES;   // one 64-row tile
   static constexpr int OWN = 2 * UNIT;                // BLOCK rows of X or Y
   static constexpr int STAGE = 2 * UNIT + (KV ? 1024 : 0);
   static constexpr int RING = 2 * OWN;                // offset of the ring
   static constexpr int BARRIERS = RING + STAGES * STAGE;
-  // + 1024 for aligning the base, + own, full[STAGES], empty[STAGES]
-  static constexpr int BYTES = 1024 + BARRIERS + 8 * (1 + 2 * STAGES);
+  // own, full[STAGES], empty[STAGES], then (the masked dQ kernel) each
+  // stage's key-mask bytes
+  static constexpr int MASKS = BARRIERS + 64;
+  static_assert(8 * (1 + 2 * STAGES) <= 64, "the mbarriers overlap the masks");
+  // + 1024 for aligning the base
+  static constexpr int BYTES =
+      1024 + (MASK && !KV ? MASKS + STAGES * TILE
+                          : BARRIERS + 8 * (1 + 2 * STAGES));
   static constexpr uint32_t STAGE_TX = 2 * UNIT + (KV ? STATS_BYTES : 0);
   static_assert(BYTES <= 227 * 1024, "over the H100's shared memory opt-in");
 };
@@ -92,6 +106,8 @@ struct BwdArgs {
   int h, seq_q, seq_k, q_pad;
   float scale;
   int causal;
+  const uint8_t* kmask;   // (B, kmask_ld) key bytes, or null
+  long long kmask_ld;
 };
 
 // Acc[64 x 64] = A[64 x d] B[64 x d]^T: A the warpgroup's 64 own rows, B a
@@ -141,16 +157,18 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
 
 // The two consumer warpgroups: 64 own rows each, the whole streamed loop,
 // then the epilogue. KV: own rows are keys, streamed rows queries (dK, dV);
-// otherwise own rows are queries, streamed rows keys (dQ).
-template <int D, bool KV>
+// otherwise own rows are queries, streamed rows keys (dQ). MASK: under the
+// key mask (``masks``: the dQ kernel's stages of key-mask bytes).
+template <int D, bool KV, bool MASK>
 __device__ __forceinline__ void consume(uint32_t sX, uint32_t sY,
                                         uint32_t sRing,
                                         const uint8_t* ring_ptr,
+                                        const uint8_t* masks,
                                         uint32_t bar_own, uint32_t bar_full,
                                         uint32_t bar_empty, int r0, int t0,
                                         int n, int b, int h, int bh,
                                         const BwdArgs& a) {
-  using S = Smem<D, KV>;
+  using S = Smem<D, KV, MASK>;
   const int wg = threadIdx.x / 128, t = threadIdx.x % 128, lane = t % 32;
   const int w0 = r0 + wg * TILE;              // this warpgroup's first row
   const int row_a = w0 + (t / 32) * 16 + lane / 4, row_b = row_a + 8;
@@ -164,6 +182,16 @@ __device__ __forceinline__ void consume(uint32_t sX, uint32_t sY,
   for (int i = 0; i < D / 2; ++i) {
     if constexpr (KV) acc1[i] = 0.0f;
     acc2[i] = 0.0f;
+  }
+  // the dK/dV kernel's keys under a key mask: kept or not, and whether
+  // the warp's 16 keys are all kept or all masked
+  bool keep_a = true, keep_b = true, warp_kept = true, warp_dropped = false;
+  if constexpr (KV && MASK) {
+    const uint8_t* km = a.kmask + b * a.kmask_ld;
+    keep_a = km[row_a] != 0;        // the mask's row is padded to 128 keys
+    keep_b = km[row_b] != 0;
+    warp_kept = __all_sync(0xffffffffu, keep_a && keep_b);
+    warp_dropped = !__any_sync(0xffffffffu, keep_a || keep_b);
   }
   // the dQ kernel's rows: -lse * log2(e) and D
   float nl_a = 0.0f, nl_b = 0.0f, d_a = 0.0f, d_b = 0.0f;
@@ -196,27 +224,35 @@ __device__ __forceinline__ void consume(uint32_t sX, uint32_t sY,
     reg_fence(sacc);
 
     // P in place of S, exactly 0 where masked; only a tile that crosses the
-    // diagonal or the ragged end needs the mask
+    // diagonal or the ragged end, or keeps some keys of the key mask and
+    // not all, needs the mask element by element
     if constexpr (KV) {
       const bool masked = c0 + TILE > a.seq_q ||
-                          (a.causal && c0 < w0 + TILE - 1);
+                          (a.causal && c0 < w0 + TILE - 1) || !warp_kept;
       const float* lse_t = reinterpret_cast<const float*>(
           ring_ptr + s * S::STAGE + 2 * S::UNIT);
+      if (!warp_dropped) {
 #pragma unroll
-      for (int g = 0; g < 8; ++g) {
-        const int c = 8 * g + col0;           // query columns c, c + 1
-        const float2 l = *reinterpret_cast<const float2*>(lse_t + c);
-        const float nl0 = -l.x * LOG2E, nl1 = -l.y * LOG2E;
+        for (int g = 0; g < 8; ++g) {
+          const int c = 8 * g + col0;           // query columns c, c + 1
+          const float2 l = *reinterpret_cast<const float2*>(lse_t + c);
+          const float nl0 = -l.x * LOG2E, nl1 = -l.y * LOG2E;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = 4 * g + e;
-          float p = fast_exp2(fmaf(sacc[i], scale2, (e & 1) ? nl1 : nl0));
-          if (masked) {
-            const int q = c0 + c + (e & 1), k = (e & 2) ? row_b : row_a;
-            if (!(q < a.seq_q && (!a.causal || q >= k))) p = 0.0f;
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * g + e;
+            float p = fast_exp2(fmaf(sacc[i], scale2, (e & 1) ? nl1 : nl0));
+            if (masked) {
+              const int q = c0 + c + (e & 1), k = (e & 2) ? row_b : row_a;
+              bool keep = q < a.seq_q && (!a.causal || q >= k);
+              if constexpr (MASK) keep = keep && ((e & 2) ? keep_b : keep_a);
+              if (!keep) p = 0.0f;
+            }
+            sacc[i] = p;
           }
-          sacc[i] = p;
         }
+      } else {                        // the warp's keys all masked: P = 0
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sacc[i] = 0.0f;
       }
       // dV += bf16(P^T) dO, while dP^T may still be in flight
       pack_a<TILE>(pf, sacc);
@@ -225,17 +261,33 @@ __device__ __forceinline__ void consume(uint32_t sX, uint32_t sY,
       issue_rs<D>(acc1, pf, sW);
       wgmma_wait<1>();
     } else {
+      const uint8_t* km = MASK ? masks + s * TILE : nullptr;
+      bool keep_all = true, keep_none = false;
+      if constexpr (MASK) {       // the tile's 64 bytes, a word a lane
+        const uint32_t w = lane < TILE / 4
+            ? reinterpret_cast<const uint32_t*>(km)[lane] : 0x01010101u;
+        keep_all = __all_sync(0xffffffffu, w == 0x01010101u);
+        keep_none = !__any_sync(0xffffffffu, lane < TILE / 4 && w != 0u);
+      }
       const bool masked = c0 + TILE > a.seq_k ||
-                          (a.causal && c0 + TILE - 1 > w0);
+                          (a.causal && c0 + TILE - 1 > w0) || !keep_all;
+      if (!keep_none) {
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        float p = fast_exp2(fmaf(sacc[i], scale2, (i & 2) ? nl_b : nl_a));
-        if (masked) {
-          const int k = c0 + 8 * (i / 4) + col0 + (i & 1);
-          const int q = (i & 2) ? row_b : row_a;
-          if (!(k < a.seq_k && (!a.causal || q >= k))) p = 0.0f;
+        for (int i = 0; i < 32; ++i) {
+          float p = fast_exp2(fmaf(sacc[i], scale2, (i & 2) ? nl_b : nl_a));
+          if (masked) {
+            const int col = 8 * (i / 4) + col0 + (i & 1);
+            const int k = c0 + col;
+            const int q = (i & 2) ? row_b : row_a;
+            bool keep = k < a.seq_k && (!a.causal || q >= k);
+            if constexpr (MASK) keep = keep && km[col];
+            if (!keep) p = 0.0f;
+          }
+          sacc[i] = p;
         }
-        sacc[i] = p;
+      } else {                    // no key of the tile kept: P = 0
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sacc[i] = 0.0f;
       }
       wgmma_wait<0>();
     }
@@ -287,14 +339,14 @@ __device__ __forceinline__ void consume(uint32_t sX, uint32_t sY,
 
 // ---------------------------------------------------------------- the kernel
 
-template <int D, bool KV>
+template <int D, bool KV, bool MASK>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
                        const __grid_constant__ CUtensorMap tm_y,
                        const __grid_constant__ CUtensorMap tm_u,
                        const __grid_constant__ CUtensorMap tm_w, int perm_x,
                        int perm_y, int perm_u, int perm_w, BwdArgs a) {
-  using S = Smem<D, KV>;
+  using S = Smem<D, KV, MASK>;
   constexpr int PANELS = S::PANELS;
   extern __shared__ uint8_t smem_raw[];
   // 128-byte swizzle atoms are 1024 bytes: align every tile to them
@@ -304,6 +356,7 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
   const uint32_t bar_own = base + S::BARRIERS;
   const uint32_t bar_full = bar_own + 8;                // [STAGES]
   const uint32_t bar_empty = bar_full + 8 * STAGES;     // [STAGES]
+  const uint32_t sMask = base + S::MASKS;   // [STAGES][TILE], the dQ kernel
 
   const int bh = blockIdx.x;
   const int b = bh / a.h, h = bh % a.h;
@@ -357,7 +410,12 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
         const uint32_t full = bar_full + 8 * s;
         const uint32_t sU = sRing + s * S::STAGE, sW = sU + S::UNIT;
         const int row = t0 + j * TILE;
-        mbar_expect_tx(full, S::STAGE_TX);
+        // the masked dQ kernel: the key tile's mask bytes of batch element b
+        constexpr bool mask_tile = MASK && !KV;
+        mbar_expect_tx(full, S::STAGE_TX + (mask_tile ? TILE : 0));
+        if constexpr (mask_tile)
+          bulk_load(sMask + s * TILE, a.kmask + b * a.kmask_ld + row, TILE,
+                    full);
         outer_coords(perm_u, row, h, b, c1, c2, c3);
         for (int p = 0; p < PANELS; ++p)
           tma_load_4d(sU + p * PANEL_BYTES, &tm_u, full, p * PANEL, c1, c2,
@@ -376,23 +434,27 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
   } else {
     // ------------------------------------------------------------ consumers
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
-    consume<D, KV>(sX, sY, sRing, smem_raw + (sRing - raw), bar_own,
-                   bar_full, bar_empty, r0, t0, n, b, h, bh, a);
+    consume<D, KV, MASK>(sX, sY, sRing, smem_raw + (sRing - raw),
+                         MASK && !KV ? smem_raw + (sMask - raw) : nullptr,
+                         bar_own, bar_full, bar_empty, r0, t0, n, b, h, bh,
+                         a);
   }
 }
 
 // ------------------------------------------------------------------ host side
 
-template <int D>
+template <int D, bool MASK>
 int launch(const CUtensorMap* tm, const int* perm, const DeltaArgs& da,
            const BwdArgs& a, int bh, cudaStream_t stream) {
   // the shared-memory opt-ins, once per instantiation
   static const cudaError_t attr_q = cudaFuncSetAttribute(
-      flash_bwd_wgmma_kernel<D, false>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D, false>::BYTES);
+      flash_bwd_wgmma_kernel<D, false, MASK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Smem<D, false, MASK>::BYTES);
   static const cudaError_t attr_kv = cudaFuncSetAttribute(
-      flash_bwd_wgmma_kernel<D, true>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D, true>::BYTES);
+      flash_bwd_wgmma_kernel<D, true, MASK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Smem<D, true, MASK>::BYTES);
   if (attr_q != cudaSuccess) return (int)attr_q;
   if (attr_kv != cudaSuccess) return (int)attr_kv;
   delta_kernel<__nv_bfloat16>
@@ -400,17 +462,17 @@ int launch(const CUtensorMap* tm, const int* perm, const DeltaArgs& da,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // dQ: own Q and dO, streamed K and V
-  flash_bwd_wgmma_kernel<D, false>
+  flash_bwd_wgmma_kernel<D, false, MASK>
       <<<dim3(bh, (a.seq_q + BLOCK - 1) / BLOCK), NTHREADS,
-         Smem<D, false>::BYTES, stream>>>(tm[Q], tm[DO], tm[K], tm[V],
+         Smem<D, false, MASK>::BYTES, stream>>>(tm[Q], tm[DO], tm[K], tm[V],
                                           perm[Q], perm[DO], perm[K], perm[V],
                                           a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // dK, dV: own K and V, streamed Q and dO
-  flash_bwd_wgmma_kernel<D, true>
+  flash_bwd_wgmma_kernel<D, true, MASK>
       <<<dim3(bh, (a.seq_k + BLOCK - 1) / BLOCK), NTHREADS,
-         Smem<D, true>::BYTES, stream>>>(tm[K], tm[V], tm[Q], tm[DO],
+         Smem<D, true, MASK>::BYTES, stream>>>(tm[K], tm[V], tm[Q], tm[DO],
                                          perm[K], perm[V], perm[Q], perm[DO],
                                          a);
   return (int)cudaGetLastError();
@@ -423,17 +485,23 @@ int launch(const CUtensorMap* tm, const int* perm, const DeltaArgs& da,
 // on d; strides: 24 (b, h, t) strides in elements of q, k, v, o, dO, dq, dk,
 // dv, in that order, each a multiple of 16 bytes. lse is contiguous f32
 // (B * H, seq_q); scratch holds 2 * B * H * q_pad f32, q_pad = seq_q rounded
-// up to 64 (D, then the padded copy of lse). Returns 0 on success, a
+// up to 64 (D, then the padded copy of lse). kmask: null, or (B, kmask_ld)
+// bytes, nonzero where a key is kept, zero past seq_k, 16-byte aligned with
+// kmask_ld a multiple of 128. Returns 0 on success, a
 // cudaError_t from a launch, or -CUresult when a tensor map cannot be
 // encoded. Never synchronises.
 extern "C" int dl4j_flash_attention_bwd_wgmma(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* dq, void* dk, void* dv,
     void* scratch, int b, int h, int seq_q, int seq_k, int d,
-    const long long* strides, float scale, int causal, void* stream) {
+    const long long* strides, float scale, int causal, const void* kmask,
+    long long kmask_ld, void* stream) {
   if (b < 1 || h < 1 || (long long)b * h > 65535 || seq_q < 1 || seq_k < 1 ||
       (seq_q + BLOCK - 1) / BLOCK > 65535 ||
-      (seq_k + BLOCK - 1) / BLOCK > 65535 || (d != 64 && d != 128))
+      (seq_k + BLOCK - 1) / BLOCK > 65535 || (d != 64 && d != 128) ||
+      (kmask && (reinterpret_cast<uintptr_t>(kmask) % 16 ||
+                 kmask_ld % BLOCK ||
+                 kmask_ld < (seq_k + BLOCK - 1) / BLOCK * BLOCK)))
     return (int)cudaErrorInvalidValue;
   if (cudaError_t err = bind_context()) return (int)err;
   const long long(*st)[3] = reinterpret_cast<const long long(*)[3]>(strides);
@@ -464,9 +532,14 @@ extern "C" int dl4j_flash_attention_bwd_wgmma(
   a.h = h; a.seq_q = seq_q; a.seq_k = seq_k; a.q_pad = q_pad;
   a.scale = scale;
   a.causal = causal;
+  a.kmask = static_cast<const uint8_t*>(kmask);
+  a.kmask_ld = kmask_ld;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64) return launch<64>(tm, perm, da, a, b * h, s);
-  return launch<128>(tm, perm, da, a, b * h, s);
+  if (d == 64)
+    return a.kmask ? launch<64, true>(tm, perm, da, a, b * h, s)
+                   : launch<64, false>(tm, perm, da, a, b * h, s);
+  return a.kmask ? launch<128, true>(tm, perm, da, a, b * h, s)
+                 : launch<128, false>(tm, perm, da, a, b * h, s);
 }
 
 extern "C" const char* dl4j_flash_bwd_wgmma_error_string(int err) {

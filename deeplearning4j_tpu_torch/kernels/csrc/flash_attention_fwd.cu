@@ -9,7 +9,13 @@
 // with an online softmax over key tiles (f32 running max, sum and output
 // accumulator), causal skip of key tiles past the query tile's last row, the
 // ragged key tail masked against seq_k with the -1e30 sentinel, and
-// o / max(l, 1e-30) at the end. bf16 operands are multiplied exactly with f32
+// o / max(l, 1e-30) at the end. An optional key mask (one byte a key of each
+// batch element, shared by its heads; the attention layers' sequence masks)
+// masks a key with the same sentinel where its byte is 0. A row whose first
+// tiles keep no key takes P = exp(0) there until its first kept key rescales
+// them by exp(-1e30 - m) = 0, so any row that keeps a key is exact; a row
+// that keeps none is not defined, and the callers never hand one over
+// (ops/standard.py). bf16 operands are multiplied exactly with f32
 // accumulation and P is rounded to bf16 before P V, as the reference does;
 // f32 products split each operand into two TF32 parts and take three tensor-
 // core products (flash_mma.cuh), so no operand is rounded to TF32 alone.
@@ -37,7 +43,10 @@
 // on d and every other stride, and every base, 16-byte aligned (the Python
 // wrapper checks this; a (BH, T, d) tensor comes as (BH, 1, T, d)), so the
 // fused QKV projection is read, and o written, in place; lse is contiguous
-// (B * H, Tq) f32.
+// (B * H, Tq) f32; the key mask, if given, is (B, kmask_ld) bytes, zero past
+// seq_k. The mask is a template parameter: the unmasked instantiations are
+// the kernel as it was, the masked ones test it on every tile, a lane's keys
+// of a tile read as 16-bit pairs into one word of bits.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -56,14 +65,18 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
 // key rows a tile: 64, or 32 from W 192, where O takes 96 or 128 registers
-// a lane (16 for f32 at W 256, whose split fragments take more)
-template <typename T, int W> __host__ __device__ constexpr int key_tile() {
-  return W <= 128 ? 64 : std::is_same<T, float>::value && W == 256 ? 16 : 32;
+// a lane (16 at W 256 for f32, whose split fragments take more, and under a
+// key mask, whose bits spilled 160 bytes at 32)
+template <typename T, int W, bool MASK>
+__host__ __device__ constexpr int key_tile() {
+  return W <= 128 ? 64
+         : W == 256 && (std::is_same<T, float>::value || MASK) ? 16 : 32;
 }
 
-template <typename T, int W>
+template <typename T, int W, bool MASK>
 __host__ __device__ constexpr size_t smem_bytes() {
-  return (size_t)(BM + 4 * key_tile<T, W>()) * row_stride<T, W>() * sizeof(T);
+  return (size_t)(BM + 4 * key_tile<T, W, MASK>()) * row_stride<T, W>() *
+         sizeof(T);
 }
 
 struct Args {
@@ -73,11 +86,14 @@ struct Args {
   int h, seq_q, seq_k, d;
   float scale;
   int causal;
+  const uint8_t* kmask;         // (B, kmask_ld) key bytes, or null
+  long long kmask_ld;
 };
 
-template <typename T, int W>
+template <typename T, int W, bool MASK>
 __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(Args a) {
-  constexpr int BN = key_tile<T, W>(), NT = BN / 8, ld = row_stride<T, W>();
+  constexpr int BN = key_tile<T, W, MASK>(), NT = BN / 8;
+  constexpr int ld = row_stride<T, W>();
   extern __shared__ __align__(128) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
   T* sK = sQ + BM * ld;                   // two buffers of BN rows
@@ -88,8 +104,9 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(Args a) {
   const int lane = threadIdx.x % 32, r0 = threadIdx.x / 32 * 16;
   const T* kb = static_cast<const T*>(a.k) + b * a.st[1][0] + hh * a.st[1][1];
   const T* vb = static_cast<const T*>(a.v) + b * a.st[2][0] + hh * a.st[2][1];
+  const uint8_t* km = MASK ? a.kmask + b * a.kmask_ld : nullptr;
 
-  zero_pad(smem, smem_bytes<T, W>(), a.d < W, NTHREADS);
+  zero_pad(smem, smem_bytes<T, W, MASK>(), a.d < W, NTHREADS);
   const int kv_end = a.causal ? min(a.seq_k, q0 + BM) : a.seq_k;
   const int n_tiles = (kv_end + BN - 1) / BN;
   const T* qb = static_cast<const T*>(a.q) + b * a.st[0][0] + hh * a.st[0][1];
@@ -133,9 +150,25 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(Args a) {
       float s[NT][4];
       product_abt<T, W, NT>(s, sQ, r0, sK + buf * BN * ld, lane);
       // mask only the tiles that hold a masked key: a branch that pays off
-      // in f32, while bf16 runs faster masking every tile
-      const bool edge = std::is_same<T, bf16>::value || kv0 + BN > a.seq_k ||
+      // in f32, while bf16 runs faster masking every tile; under a key mask
+      // every tile
+      const bool edge = std::is_same<T, bf16>::value || MASK ||
+                        kv0 + BN > a.seq_k ||
                         (a.causal && kv0 + BN - 1 > q0 + r0);
+      // masked: this lane's keys of the tile (kv0 + 8 j + 2 (lane % 4) and
+      // + 1), two bits a 16-bit load (the mask's rows are 16-bit aligned and
+      // padded with zeros past seq_k)
+      uint32_t kept = 0;
+      if constexpr (MASK) {
+        const uint16_t* pairs =
+            reinterpret_cast<const uint16_t*>(km + kv0 + 2 * (lane & 3));
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const uint32_t w = pairs[4 * j];
+          kept |= (uint32_t)((w & 0xffu) != 0u) << (2 * j) |
+                  (uint32_t)((w >> 8) != 0u) << (2 * j + 1);
+        }
+      }
       float mx[2] = {m[0], m[1]};
 #pragma unroll
       for (int j = 0; j < NT; ++j)
@@ -144,7 +177,10 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(Args a) {
           float x = s[j][e] * scale2;
           if (edge) {
             const int ki = kv0 + j * 8 + 2 * (lane & 3) + (e & 1);
-            if (ki >= a.seq_k || (a.causal && ki > qi[e >> 1])) x = NEG_INF;
+            bool drop = ki >= a.seq_k || (a.causal && ki > qi[e >> 1]);
+            if constexpr (MASK)
+              drop = drop || !((kept >> (2 * j + (e & 1))) & 1u);
+            if (drop) x = NEG_INF;
           }
           s[j][e] = x;
           mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -199,44 +235,47 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(Args a) {
   }
 }
 
-template <typename T, int W>
+template <typename T, int W, bool MASK>
 cudaError_t launch(const Args& a, int bh, cudaStream_t stream) {
   // the shared-memory opt-in, once per instantiation
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_bytes<T, W>());
+      flash_fwd_kernel<T, W, MASK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_bytes<T, W, MASK>());
   if (attr != cudaSuccess) return attr;
-  static_assert(smem_bytes<T, W>() <= 232448,
+  static_assert(smem_bytes<T, W, MASK>() <= 232448,
                 "over the 227 KB shared-memory opt-in");
   dim3 grid((a.seq_q + BM - 1) / BM, bh);
-  flash_fwd_kernel<T, W><<<grid, NTHREADS, smem_bytes<T, W>(), stream>>>(a);
+  flash_fwd_kernel<T, W, MASK>
+      <<<grid, NTHREADS, smem_bytes<T, W, MASK>(), stream>>>(a);
   return cudaGetLastError();
 }
 
 // the narrowest width that holds d
-template <typename T>
+template <typename T, bool MASK>
 cudaError_t dispatch(const Args& a, int bh, cudaStream_t s) {
-  if (a.d <= 32) return launch<T, 32>(a, bh, s);
-  if (a.d <= 64) return launch<T, 64>(a, bh, s);
-  if (a.d <= 96) return launch<T, 96>(a, bh, s);
-  if (a.d <= 128) return launch<T, 128>(a, bh, s);
-  if (a.d <= 192) return launch<T, 192>(a, bh, s);
-  return launch<T, 256>(a, bh, s);
+  if (a.d <= 32) return launch<T, 32, MASK>(a, bh, s);
+  if (a.d <= 64) return launch<T, 64, MASK>(a, bh, s);
+  if (a.d <= 96) return launch<T, 96, MASK>(a, bh, s);
+  if (a.d <= 128) return launch<T, 128, MASK>(a, bh, s);
+  if (a.d <= 192) return launch<T, 192, MASK>(a, bh, s);
+  return launch<T, 256, MASK>(a, bh, s);
 }
 
 }  // namespace
 
 // Plain C interface, loaded with ctypes: q, k, v, o (B, H, T, d) with (b, h,
 // t) strides in elements (unit stride on d), lse (B * H, seq_q) f32; d % 8 ==
-// 0 in [8, 256]. dtype: 0 = float32, 1 = bfloat16. Returns the launch's
-// cudaError_t (0 on success); never synchronises.
+// 0 in [8, 256]. dtype: 0 = float32, 1 = bfloat16. kmask: null, or (B,
+// kmask_ld) bytes, nonzero where a key is kept, zero past seq_k. Returns the
+// launch's cudaError_t (0 on success); never synchronises.
 extern "C" int dl4j_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse, int b,
     int h, int seq_q, int seq_k, int d, long long q_sb, long long q_sh,
     long long q_st, long long k_sb, long long k_sh, long long k_st,
     long long v_sb, long long v_sh, long long v_st, long long o_sb,
     long long o_sh, long long o_st, float scale, int causal, int dtype,
-    void* stream) {
+    const void* kmask, long long kmask_ld, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (b < 1 || h < 1 || (long long)b * h > 65535 || seq_q < 1 || seq_k < 1 ||
       d < 8 || d > 256 || d % 8)
@@ -244,9 +283,14 @@ extern "C" int dl4j_flash_attention_fwd(
   Args a{q, k, v, o, static_cast<float*>(lse),
          {{q_sb, q_sh, q_st}, {k_sb, k_sh, k_st}, {v_sb, v_sh, v_st},
           {o_sb, o_sh, o_st}},
-         h, seq_q, seq_k, d, scale, causal};
-  if (dtype == 1) return (int)dispatch<bf16>(a, b * h, s);
-  if (dtype == 0) return (int)dispatch<float>(a, b * h, s);
+         h, seq_q, seq_k, d, scale, causal,
+         static_cast<const uint8_t*>(kmask), kmask_ld};
+  if (dtype == 1)
+    return (int)(kmask ? dispatch<bf16, true>(a, b * h, s)
+                       : dispatch<bf16, false>(a, b * h, s));
+  if (dtype == 0)
+    return (int)(kmask ? dispatch<float, true>(a, b * h, s)
+                       : dispatch<float, false>(a, b * h, s));
   return (int)cudaErrorInvalidValue;
 }
 

@@ -10,9 +10,15 @@
 // and the rest set to the finite sentinel -1e30, P rounded to bf16 before
 // P V, the row sum taken over the unrounded f32 P, o / max(l, 1e-30) and
 // lse in f32. The exponentials are ex2.approx of one FFMA on the raw score
-// (scale * log2(e) folded in); the sentinel is applied to the raw score, and
-// since key 0 is kept for every row no row is ever fully masked, so this
-// matches the reference wherever the reference is defined by a kept key.
+// (scale * log2(e) folded in); the sentinel is applied to the raw score.
+// Without a key mask key 0 is kept for every row, so a row's max is finite
+// from the first tile on. An optional key mask (one byte a key of each batch
+// element, shared by its heads: the attention layers' sequence masks) masks
+// a key where its byte is 0; then a row's first tiles may keep no key, and
+// while its max is still the sentinel its P is 0 (not ex2 of the FFMA, whose
+// rounding at 1e30 is itself ~1e22): the first kept key rescales nothing. A
+// row that keeps no key at all gives o = 0; the callers never hand one over
+// (ops/standard.py). Wherever a row keeps a key this matches the reference.
 //
 // What bounds it on the H100: per (batch, head) 4 * Tq * Tk * d FLOPs (about
 // half when causal) over 2 * (2 Tq + 2 Tk) * d bytes. At the prefill shapes
@@ -55,6 +61,13 @@
 // - Operands are 4-D (B, H, T, d) views with unit stride on d and any other
 //   strides that are multiples of 16 bytes: the fused-QKV projection's views
 //   go in as they are, and o is written into a caller-given strided view.
+// - The key mask is a template parameter: the unmasked instantiations are
+//   the kernel as it was, and the masked ones carry the mask's bytes of each
+//   K/V tile with it (a 128-byte bulk copy into the tile's stage; the mask
+//   is (B, ld) bytes, ld a multiple of 128, zero past seq_k) and test every
+//   key of every tile. A warp's vote on whole tiles (kept whole: unmasked
+//   path; masked whole: no exponentials) measured slower than the per-key
+//   test at A1's shape (PERF.md, PR 17).
 //
 // The PTX helpers, the wgmma products and the tensor-map encoding are shared
 // with the backward in hopper_wgmma.cuh.
@@ -71,7 +84,7 @@ constexpr int NTHREADS = NCONSUMER + NPRODUCER;
 constexpr int BOX_BYTES = PANEL * 128 * 2;  // one TMA box: 128 rows x 128 B
 constexpr float NEG_INF = -1e30f;     // the reference's finite sentinel
 
-template <int D> struct Smem {
+template <int D, bool MASK> struct Smem {
   // K/V ring depth: a third stage measured faster only at d 128 (PERF.md),
   // where it still fits: 32 KB of Q + 3 x 64 KB of K/V < 227 KB
   static constexpr int STAGES = D == 128 ? 3 : 2;
@@ -80,8 +93,13 @@ template <int D> struct Smem {
   static constexpr int KV = PANELS * BOX_BYTES;        // BN rows, K or V
   static constexpr int STAGE = 2 * KV;                 // K then V
   static constexpr int BARRIERS = Q + STAGES * STAGE;  // offset of mbarriers
-  // + 1024 for aligning the base, + q_full, full[STAGES], empty[STAGES]
-  static constexpr int BYTES = 1024 + BARRIERS + 8 * (1 + 2 * STAGES);
+  // q_full, full[STAGES], empty[STAGES], then (masked) each stage's
+  // key-mask bytes
+  static constexpr int MASKS = BARRIERS + 64;
+  static_assert(8 * (1 + 2 * STAGES) <= 64, "the mbarriers overlap the masks");
+  // + 1024 for aligning the base
+  static constexpr int BYTES = 1024 + (MASK ? MASKS + STAGES * BN
+                                            : BARRIERS + 8 * (1 + 2 * STAGES));
   static_assert(BYTES <= 227 * 1024, "over the H100's shared memory opt-in");
 };
 
@@ -135,23 +153,29 @@ __device__ __forceinline__ void issue_pv(float (&o_acc)[D / 2],
   wgmma_commit();
 }
 
-// The sentinel on keys out of range or in the future, the new row max, and
-// P = exp(s * scale - m * scale) in place (f32), as ex2.approx of one FFMA on
-// the raw score: m is kept in raw-score units. Returns the two rows' rescale
-// factors for O; adds P's row sums into l after rescaling it.
+// The sentinel on keys out of range, in the future or (MASK) masked
+// (``kmask``: the tile's key-mask bytes in shared memory), the new row max,
+// and P = exp(s * scale - m * scale) in place (f32), as ex2.approx of one
+// FFMA on the raw score: m is kept in raw-score units. Returns the two rows'
+// rescale factors for O; adds P's row sums into l after rescaling it.
+template <bool MASK>
 __device__ __forceinline__ void softmax_scores(float (&sacc)[64], Rows& r,
                                                int kv0, int seq_k,
                                                float scale, int causal,
+                                               const uint8_t* kmask,
                                                float& alpha0, float& alpha1) {
-  const bool masked = kv0 + BN > seq_k ||
+  const bool masked = MASK || kv0 + BN > seq_k ||
                       (causal && kv0 + BN - 1 > r.q0_wg);
 #pragma unroll
   for (int i = 0; i < 64; ++i) {
     float x = sacc[i];
     if (masked) {
-      const int k_idx = kv0 + 8 * (i / 4) + r.col0 + (i & 1);
+      const int col = 8 * (i / 4) + r.col0 + (i & 1);
+      const int k_idx = kv0 + col;
       const int q_idx = (i & 2) ? r.qrow1 : r.qrow0;
-      if (!(k_idx < seq_k && (!causal || q_idx >= k_idx))) x = NEG_INF;
+      bool keep = k_idx < seq_k && (!causal || q_idx >= k_idx);
+      if constexpr (MASK) keep = keep && kmask[col];
+      if (!keep) x = NEG_INF;
     }
     sacc[i] = x;
   }
@@ -167,9 +191,16 @@ __device__ __forceinline__ void softmax_scores(float (&sacc)[64], Rows& r,
   mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
   const float mn0 = fmaxf(r.m0, mx0), mn1 = fmaxf(r.m1, mx1);
   float ls0 = 0.0f, ls1 = 0.0f;
-  // key 0 is kept for every row, so m is finite from the first tile on and
-  // -m * c never meets the sentinel
-  const float c = scale * LOG2E, mc0 = -mn0 * c, mc1 = -mn1 * c;
+  // without a key mask key 0 is kept for every row, so m is finite from the
+  // first tile on; under one a row whose every key so far is masked gets
+  // P = 0 (its max the sentinel: -inf as the FFMA's addend), so the first
+  // kept key rescales nothing
+  const float c = scale * LOG2E;
+  float mc0 = -mn0 * c, mc1 = -mn1 * c;
+  if constexpr (MASK) {
+    if (mn0 == NEG_INF) mc0 = -INFINITY;
+    if (mn1 == NEG_INF) mc1 = -INFINITY;
+  }
   alpha0 = fast_exp2((r.m0 - mn0) * c);
   alpha1 = fast_exp2((r.m1 - mn1) * c);
 #pragma unroll
@@ -199,15 +230,17 @@ __device__ __forceinline__ void rescale_o(float (&o_acc)[D / 2], float alpha0,
   }
 }
 
-// The two consumer warpgroups: 64 query rows each, the whole key loop.
-template <int D>
+// The two consumer warpgroups: 64 query rows each, the whole key loop;
+// ``masks`` the stages' key-mask bytes (MASK).
+template <int D, bool MASK>
 __device__ __forceinline__ void consume(uint32_t sQ, uint32_t sKV,
+                                        const uint8_t* masks,
                                         uint32_t bar_q, uint32_t bar_full,
                                         uint32_t bar_empty, int n_tiles,
                                         int q0, int b, int h, int bh,
                                         const OutArgs& out, int seq_q,
                                         int seq_k, float scale, int causal) {
-  using S = Smem<D>;
+  using S = Smem<D, MASK>;
   constexpr int STAGES = S::STAGES;
   Rows r;
   r.wg = threadIdx.x / 128;
@@ -244,7 +277,8 @@ __device__ __forceinline__ void consume(uint32_t sQ, uint32_t sKV,
   named_arrive(other_turn);
   wgmma_wait<0>();
   reg_fence(sacc);
-  softmax_scores(sacc, r, 0, seq_k, scale, causal, alpha0, alpha1);
+  softmax_scores<MASK>(sacc, r, 0, seq_k, scale, causal, masks, alpha0,
+                       alpha1);
   pack_a<BN>(pf, sacc);                   // O is still zero: nothing to rescale
   for (int j = 1; j < n_tiles; ++j) {
     const int s = j % STAGES, sp = (j - 1) % STAGES;
@@ -258,7 +292,8 @@ __device__ __forceinline__ void consume(uint32_t sQ, uint32_t sKV,
     named_arrive(other_turn);
     wgmma_wait<1>();                  // S_j done; P_{j-1} V_{j-1} may not be
     reg_fence(sacc);
-    softmax_scores(sacc, r, j * BN, seq_k, scale, causal, alpha0, alpha1);
+    softmax_scores<MASK>(sacc, r, j * BN, seq_k, scale, causal,
+                         MASK ? masks + s * BN : nullptr, alpha0, alpha1);
     wgmma_wait<0>();
     reg_fence(o_acc);
     reg_fence(pf);
@@ -308,15 +343,15 @@ __device__ __forceinline__ void consume(uint32_t sQ, uint32_t sKV,
 
 // ---------------------------------------------------------------- the kernel
 
-template <int D>
+template <int D, bool MASK>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
                        int perm_q, int perm_k, int perm_v, OutArgs out,
                        int n_heads, int seq_q, int seq_k, float scale,
-                       int causal) {
-  using S = Smem<D>;
+                       int causal, const uint8_t* kmask, long long kmask_ld) {
+  using S = Smem<D, MASK>;
   constexpr int PANELS = S::PANELS, STAGES = S::STAGES;
   extern __shared__ uint8_t smem_raw[];
   // 128-byte swizzle atoms are 1024 bytes: align every tile to them
@@ -327,6 +362,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t bar_q = base + S::BARRIERS;
   const uint32_t bar_full = bar_q + 8;                  // [STAGES]
   const uint32_t bar_empty = bar_full + 8 * STAGES;     // [STAGES]
+  const uint32_t sMask = base + S::MASKS;               // [STAGES][BN]
 
   const int bh = blockIdx.x;
   const int b = bh / n_heads, h = bh % n_heads;
@@ -364,7 +400,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
           mbar_wait(bar_empty + 8 * s, ((j / STAGES) - 1) & 1);
         const uint32_t full = bar_full + 8 * s;
         const uint32_t sK = sKV + s * S::STAGE, sV = sK + S::KV;
-        mbar_expect_tx(full, S::STAGE);
+        mbar_expect_tx(full, S::STAGE + (MASK ? BN : 0));
+        if constexpr (MASK)   // this tile's key bytes of batch element b
+          bulk_load(sMask + s * BN, kmask + b * kmask_ld + j * BN, BN, full);
         outer_coords(perm_k, j * BN, h, b, c1, c2, c3);
         for (int p = 0; p < PANELS; ++p)
           tma_load_4d(sK + p * BOX_BYTES, &tm_k, full, p * PANEL, c1, c2, c3);
@@ -376,25 +414,29 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   } else {
     // ------------------------------------------------------------ consumers
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
-    consume<D>(sQ, sKV, bar_q, bar_full, bar_empty, n_tiles, q0, b, h, bh,
-               out, seq_q, seq_k, scale, causal);
+    consume<D, MASK>(sQ, sKV, MASK ? smem_raw + (sMask - raw) : nullptr,
+                     bar_q, bar_full, bar_empty, n_tiles, q0, b, h, bh, out,
+                     seq_q, seq_k, scale, causal);
   }
 }
 
 // ------------------------------------------------------------------ host side
 
-template <int D>
+template <int D, bool MASK>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
            int pq, int pk, int pv, OutArgs out, int batch, int heads,
-           int seq_q, int seq_k, float scale, int causal, cudaStream_t stream) {
+           int seq_q, int seq_k, float scale, int causal,
+           const uint8_t* kmask, long long kmask_ld, cudaStream_t stream) {
   // the shared-memory opt-in, once per instantiation
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Smem<D>::BYTES);
+      flash_fwd_wgmma_kernel<D, MASK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D, MASK>::BYTES);
   if (attr != cudaSuccess) return (int)attr;
   dim3 grid(batch * heads, (seq_q + BM - 1) / BM);
-  flash_fwd_wgmma_kernel<D><<<grid, NTHREADS, Smem<D>::BYTES, stream>>>(
-      tq, tk, tv, pq, pk, pv, out, heads, seq_q, seq_k, scale, causal);
+  flash_fwd_wgmma_kernel<D, MASK>
+      <<<grid, NTHREADS, Smem<D, MASK>::BYTES, stream>>>(
+      tq, tk, tv, pq, pk, pv, out, heads, seq_q, seq_k, scale, causal, kmask,
+      kmask_ld);
   return (int)cudaGetLastError();
 }
 
@@ -402,7 +444,9 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
 
 // Plain C interface, loaded with ctypes. q (B, H, seq_q, d), k and v
 // (B, H, seq_k, d), o like q: bf16 views with unit stride on d, strides given
-// in elements. lse: contiguous f32 (B * H, seq_q). Returns 0 on success, a
+// in elements. lse: contiguous f32 (B * H, seq_q). kmask: null, or (B,
+// kmask_ld) bytes, nonzero where a key is kept, zero past seq_k, 16-byte
+// aligned with kmask_ld a multiple of 128. Returns 0 on success, a
 // cudaError_t from the launch, or -CUresult when a tensor map cannot be
 // encoded. Never synchronises.
 extern "C" int dl4j_flash_attention_fwd_wgmma(
@@ -410,9 +454,12 @@ extern "C" int dl4j_flash_attention_fwd_wgmma(
     int heads, int seq_q, int seq_k, int d, long long q_sb, long long q_sh,
     long long q_st, long long k_sb, long long k_sh, long long k_st,
     long long v_sb, long long v_sh, long long v_st, long long o_sb,
-    long long o_sh, long long o_st, float scale, int causal, void* stream) {
+    long long o_sh, long long o_st, float scale, int causal,
+    const void* kmask, long long kmask_ld, void* stream) {
   if (batch < 1 || heads < 1 || seq_q < 1 || seq_k < 1 ||
-      (seq_q + BM - 1) / BM > 65535 || (d != 64 && d != 128))
+      (seq_q + BM - 1) / BM > 65535 || (d != 64 && d != 128) ||
+      (kmask && (reinterpret_cast<uintptr_t>(kmask) % 16 || kmask_ld % BN ||
+                 kmask_ld < (seq_k + BN - 1) / BN * BN)))
     return (int)cudaErrorInvalidValue;
   if (cudaError_t err = bind_context()) return (int)err;
   CUtensorMap tq, tk, tv;
@@ -427,11 +474,18 @@ extern "C" int dl4j_flash_attention_fwd_wgmma(
   OutArgs out{static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), o_sb,
               o_sh, o_st};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint8_t* km = static_cast<const uint8_t*>(kmask);
+  if (d == 64 && km)
+    return launch<64, true>(tq, tk, tv, pq, pk, pv, out, batch, heads, seq_q,
+                            seq_k, scale, causal, km, kmask_ld, s);
   if (d == 64)
-    return launch<64>(tq, tk, tv, pq, pk, pv, out, batch, heads, seq_q, seq_k,
-                      scale, causal, s);
-  return launch<128>(tq, tk, tv, pq, pk, pv, out, batch, heads, seq_q, seq_k,
-                     scale, causal, s);
+    return launch<64, false>(tq, tk, tv, pq, pk, pv, out, batch, heads, seq_q,
+                             seq_k, scale, causal, km, kmask_ld, s);
+  if (km)
+    return launch<128, true>(tq, tk, tv, pq, pk, pv, out, batch, heads, seq_q,
+                             seq_k, scale, causal, km, kmask_ld, s);
+  return launch<128, false>(tq, tk, tv, pq, pk, pv, out, batch, heads, seq_q,
+                            seq_k, scale, causal, km, kmask_ld, s);
 }
 
 extern "C" const char* dl4j_flash_wgmma_error_string(int err) {

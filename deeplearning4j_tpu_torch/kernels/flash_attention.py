@@ -35,6 +35,18 @@ wrapper chooses its kernel explicitly by dtype and head dim
 Both redesigned kernels take every head dim ``d % 8 == 0`` in [8, 256]
 (:func:`kernel_for`); the wgmma kernels keep bf16 at d 64 and 128.
 
+Every kernel takes an optional key mask: (B, Tk), one byte a key of each
+batch element (B·H for a (BH, T, d) operand), shared by its heads, a key
+kept where it is nonzero; the attention layers' sequence masks
+(``ops/standard.py`` ``dot_product_attention``). Masked keys meet the same
+-1e30 sentinel as the causal mask and the ragged tail, so wherever a row
+keeps a key the kernels compute the plain version's function. A row that
+keeps no key is not defined on the card, where the plain version averages
+v (the softmax of a constant row); its callers never hand one over. The
+mask is a template parameter of every kernel: with no mask the kernels are
+the unmasked instantiations (a null pointer), unchanged; the masked ones
+read the mask as :func:`key_mask_rows` lays it out.
+
 What bounds them on the H100: per head 4·Tq·Tk·d FLOPs forward and
 10·Tq·Tk·d backward (about half when causal) over 2·(Tq + Tk)·d·itemsize
 bytes forward and 4·(Tq + Tk)·d·itemsize backward, so in bf16 the tensor
@@ -55,8 +67,9 @@ Beside the kernels:
   (B, H, T, d), returning o.
 - :func:`flash_attention_bwd_reference` / :func:`flash_attention_bwd` —
   the backward's plain version and its wrapper, as the forward's.
-- :class:`FlashAttention` — the ``autograd.Function`` the model trains
-  through: the forward kernel, and the backward kernel as its gradient.
+- :class:`FlashAttention` — the ``autograd.Function`` the model and the
+  attention layers train through: the forward kernel, and the backward
+  kernel as its gradient.
 - ``launches_wgmma`` / ``launches_simple`` / ``launches_bwd_wgmma`` /
   ``launches_bwd`` — launches of each kernel.
 - :func:`tf32_split` / :func:`split_matmul` and the two
@@ -84,6 +97,9 @@ launches_wgmma = 0
 launches_simple = 0
 launches_bwd = 0
 launches_bwd_wgmma = 0
+#: calls of ``ops.standard.dot_product_attention`` on the card that took
+#: its plain version by ``attention_route``'s rule (no kernel's launches)
+plain_route_calls = 0
 
 _fns = {}
 
@@ -97,7 +113,7 @@ def _kernel(name: str):
         if name == "flash_attention_fwd_wgmma":
             fn = _build.bind(name, "dl4j_flash_attention_fwd_wgmma",
                              [p] * 5 + [i] * 5 + [ll] * 12
-                             + [ctypes.c_float, i, p],
+                             + [ctypes.c_float, i, p, ll, p],
                              "dl4j_flash_wgmma_error_string")
         elif name in ("flash_attention_bwd", "flash_attention_bwd_wgmma"):
             wgmma = name.endswith("wgmma")
@@ -105,35 +121,76 @@ def _kernel(name: str):
             fn = _build.bind(name, f"dl4j_{name}",
                              [p] * 10 + [i] * 5
                              + [ctypes.POINTER(ll), ctypes.c_float, i]
-                             + [i] * (not wgmma) + [p],
+                             + [i] * (not wgmma) + [p, ll, p],
                              "dl4j_flash_bwd_wgmma_error_string" if wgmma
                              else "dl4j_flash_bwd_error_string")
         else:
             fn = _build.bind(name, "dl4j_flash_attention_fwd",
                              [p] * 5 + [i] * 5 + [ll] * 12
-                             + [ctypes.c_float, i, i, p],
+                             + [ctypes.c_float, i, i, p, ll, p],
                              "dl4j_cuda_error_string")
         _fns[name] = fn
     return fn
 
 
+#: the kernels' key-mask rows are padded with zeros to a multiple of this
+#: many bytes (a wgmma key tile), so every tile's bytes are one aligned copy
+MASK_ROW_BYTES = 128
+
+
+def key_mask_rows(kmask: torch.Tensor, t_k: int) -> torch.Tensor:
+    """The kernels' layout of a (B, Tk) key mask (bool or integer, a key
+    kept where nonzero): contiguous (B, ld) uint8, ld = Tk rounded up to
+    :data:`MASK_ROW_BYTES`, 1 where kept and 0 past Tk. A tensor already
+    in that layout (uint8, (B, ld), contiguous, zero past Tk: what this
+    returned) is returned as it is."""
+    ld = -(-t_k // MASK_ROW_BYTES) * MASK_ROW_BYTES
+    if kmask.dim() != 2 or kmask.shape[1] not in (t_k, ld):
+        raise ValueError(f"flash attention: the key mask must be (B, Tk = "
+                         f"{t_k}), got {tuple(kmask.shape)}")
+    if (kmask.dtype == torch.uint8 and kmask.shape[1] == ld
+            and kmask.is_contiguous() and kmask.data_ptr() % 16 == 0):
+        return kmask
+    rows = torch.zeros((kmask.shape[0], ld), dtype=torch.uint8,
+                       device=kmask.device)
+    rows[:, :t_k] = kmask[:, :t_k] != 0
+    return rows
+
+
+def _keep(q: torch.Tensor, t_k: int, causal: bool,
+          kmask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """Where attention over (..., Tq, Tk) keeps a key: ``k_idx <= q_idx``
+    when causal, and the (B, Tk) key mask's nonzero keys broadcast over the
+    heads (q (B, H, T, d); for (BH, T, d) one row a BH); None if all."""
+    keep = None
+    if causal:
+        keep = (torch.arange(q.shape[-2], device=q.device)[:, None]
+                >= torch.arange(t_k, device=q.device)[None, :])
+    if kmask is not None:
+        km = kmask[:, :t_k] != 0
+        km = km[:, None, None, :] if q.dim() == 4 else km[:, None, :]
+        keep = km if keep is None else keep & km
+    return keep
+
+
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, causal: bool = False,
-                              scale: Optional[float] = None
+                              scale: Optional[float] = None,
+                              kmask: Optional[torch.Tensor] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernels over (..., T, d): f32 scores
     from the operands times ``scale``, keys masked with the -1e30
-    sentinel (``k_idx <= q_idx`` when causal), P cast to v's dtype before
-    an f32-accumulated P·V, ``o / max(l, 1e-30)``. Returns (o in q's
-    dtype, lse f32 of shape (..., T_q))."""
+    sentinel (``k_idx <= q_idx`` when causal; where the (B, Tk) key mask
+    ``kmask`` is 0), P cast to v's dtype before an f32-accumulated P·V,
+    ``o / max(l, 1e-30)``. Returns (o in q's dtype, lse f32 of shape
+    (..., T_q)). A row that keeps no key averages v here (the kernels do
+    not define it)."""
     d = q.shape[-1]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    if causal:
-        t_q, t_k = s.shape[-2], s.shape[-1]
-        keep = (torch.arange(t_q, device=s.device)[:, None]
-                >= torch.arange(t_k, device=s.device)[None, :])
+    keep = _keep(q, k.shape[-2], causal, kmask)
+    if keep is not None:
         s = torch.where(keep, s, torch.full_like(s, _NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
@@ -253,6 +310,19 @@ def wgmma_args(q, k, v, o, lse, causal: bool, scale: float) -> tuple:
             float(scale), int(bool(causal)))
 
 
+def _mask_arg(fn: str, kmask, q: torch.Tensor, t_k: int):
+    """(the kernels' mask rows or None, (pointer or None, row bytes)) of a
+    key mask for q's batch."""
+    if kmask is None:
+        return None, (None, 0)
+    if kmask.device != q.device or kmask.shape[0] != q.shape[0]:
+        raise ValueError(f"{fn}: the key mask {tuple(kmask.shape)} on "
+                         f"{kmask.device} must be (B = {q.shape[0]}, Tk) on "
+                         f"{q.device}")
+    rows = key_mask_rows(kmask, t_k)
+    return rows, (rows.data_ptr(), rows.shape[1])
+
+
 def _call(name, args, device):
     from deeplearning4j_tpu_torch.kernels import _build
     _build.call(name, _kernel(name), args, device)
@@ -260,11 +330,14 @@ def _call(name, args, device):
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = False, scale: Optional[float] = None,
-                        out: Optional[torch.Tensor] = None
+                        out: Optional[torch.Tensor] = None,
+                        kmask: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o, lse) for q (BH, Tq, d) or (B, H, Tq, d) and k, v of the same
     rank with Tk rows. ``out``, if given, is a view of q's shape that
     receives o (and is returned). lse has q's shape without d, f32.
+    ``kmask``, if given, is the (B, Tk) key mask (or
+    :func:`key_mask_rows` of it), on q's device.
 
     A CUDA tensor launches a kernel on the current stream (or raises), on
     views that meet :func:`tma_operand`'s rule as they are: the wgmma
@@ -276,11 +349,12 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
-        o, lse = flash_attention_reference(q, k, v, causal, scale)
+        o, lse = flash_attention_reference(q, k, v, causal, scale, kmask)
         if out is None:
             return o, lse
         return out.copy_(o), lse
     _check(q, k, v, out)
+    _rows, mask = _mask_arg("flash_attention_fwd", kmask, q, k.shape[-2])
     d = q.shape[-1]
     lead, t_q = q.shape[:-2], q.shape[-2]
     lse = torch.empty((*lead, t_q), dtype=torch.float32, device=q.device)
@@ -290,7 +364,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if (t_q + 127) // 128 > 65535:
             raise ValueError(f"flash_attention_fwd: Tq {t_q} too long")
         _call("flash_attention_fwd_wgmma",
-              wgmma_args(q, k, v, o, lse, causal, scale), q.device)
+              (*wgmma_args(q, k, v, o, lse, causal, scale), *mask),
+              q.device)
         launches_wgmma += 1
         return o, lse
     bh = q.shape[0] * (1 if q.dim() == 3 else q.shape[1])
@@ -302,7 +377,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _call("flash_attention_fwd",
           (*wgmma_args(q, k, v, o, lse, causal, scale),
-           _SIMPLE_DTYPES[q.dtype]), q.device)
+           _SIMPLE_DTYPES[q.dtype], *mask), q.device)
     launches_simple += 1
     if out is None or o is out:
         return o, lse
@@ -319,11 +394,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 # ------------------------------------------------------------- backward
 def flash_attention_bwd_reference(q, k, v, o, lse, do, causal: bool = False,
-                                  scale: Optional[float] = None):
+                                  scale: Optional[float] = None,
+                                  kmask: Optional[torch.Tensor] = None):
     """Plain PyTorch version of the backward over (..., T, d), with the
     rounding points of the JAX ``_bwd_blockwise``: D = rowsum(f32 dO ∘ f32
-    O); p = exp(s − lse) in f32 from f32 scores (masked keys at the −1e30
-    sentinel give exactly 0); dV = p cast to v's dtype, times dO; dP =
+    O); p = exp(s − lse) in f32 from f32 scores (masked keys, causal or by
+    the (B, Tk) key mask ``kmask``, at the −1e30 sentinel give exactly 0
+    where the row keeps a key); dV = p cast to v's dtype, times dO; dP =
     dO·Vᵀ; dS = p ∘ (dP − D) cast to q's dtype; dQ = scale·dS·K and dK =
     scale·dSᵀ·Q; every product accumulated in f32. Returns (dq, dk, dv) in
     the dtypes of q, k, v."""
@@ -332,10 +409,8 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, causal: bool = False,
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     delta = (dof * o.float()).sum(-1, keepdim=True)
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
-    if causal:
-        t_q, t_k = s.shape[-2], s.shape[-1]
-        keep = (torch.arange(t_q, device=s.device)[:, None]
-                >= torch.arange(t_k, device=s.device)[None, :])
+    keep = _keep(q, k.shape[-2], causal, kmask)
+    if keep is not None:
         s = torch.where(keep, s, torch.full_like(s, _NEG_INF))
     p = torch.exp(s - lse.float()[..., None])
     dv = torch.matmul(p.to(v.dtype).float().transpose(-1, -2), dof)
@@ -387,11 +462,12 @@ def bwd_wgmma_args(q, k, v, o, lse, do, dq, dk, dv, scratch) -> tuple:
 def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
                         scale: Optional[float] = None,
                         out: Optional[Tuple[torch.Tensor, torch.Tensor,
-                                            torch.Tensor]] = None):
+                                            torch.Tensor]] = None,
+                        kmask: Optional[torch.Tensor] = None):
     """(dq, dk, dv) of attention for the forward's (q, k, v, o, lse) and
     the output gradient ``do``, over (BH, T, d) or (B, H, T, d). ``out``,
     if given, is three views of q's, k's and v's shapes that receive the
-    gradients (and are returned).
+    gradients (and are returned). ``kmask``: the forward's key mask.
 
     A CUDA tensor launches a kernel (or raises): the wgmma backward for
     bf16 at d 64 or 128 (:func:`kernel_for`), ``csrc/
@@ -404,7 +480,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
         grads = flash_attention_bwd_reference(q, k, v, o, lse, do, causal,
-                                              scale)
+                                              scale, kmask)
         if out is None:
             return grads
         return tuple(dst.copy_(g) for dst, g in zip(out, grads))
@@ -428,6 +504,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
             raise ValueError(f"flash_attention_bwd: {name} "
                              f"{tuple(dst.shape)} {dst.dtype} must match "
                              f"{tuple(like.shape)} {like.dtype}")
+    _rows, mask = _mask_arg("flash_attention_bwd", kmask, q, k.shape[-2])
     q, k, v, o, do = (_readable(t) for t in (q, k, v, o, do))
     b_h = q.shape[0] * (1 if q.dim() == 3 else q.shape[1])
     if b_h > 65535:
@@ -442,36 +519,42 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
                                        *out, scratch)
         _call("flash_attention_bwd_wgmma",
               (*args, (ctypes.c_longlong * 24)(*strides), float(scale),
-               int(bool(causal))), q.device)
+               int(bool(causal)), *mask), q.device)
         launches_bwd_wgmma += 1
         return out
     delta = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
     args, strides = bwd_args(q, k, v, o, lse.contiguous(), do, *out, delta)
     _call("flash_attention_bwd",
           (*args, (ctypes.c_longlong * 24)(*strides), float(scale),
-           int(bool(causal)), _SIMPLE_DTYPES[q.dtype]), q.device)
+           int(bool(causal)), _SIMPLE_DTYPES[q.dtype], *mask), q.device)
     launches_bwd += 1
     return out
 
 
 def _heads(x, n_heads):
     """(q, k, v) as (B, H, T, hd) views of one (B, T, 3C) projection or of
-    three (B, T, C) ones."""
+    three (B, T, C) ones (k and v may have another T than q), or the three
+    (B, H, T, hd) views as they are."""
     if len(x) == 1:
         x = torch.split(x[0], x[0].shape[-1] // 3, dim=-1)
-    b, t, c = x[0].shape
-    return tuple(a.view(b, t, n_heads, c // n_heads).transpose(1, 2)
-                 for a in x)
+    if x[0].dim() == 4:
+        return tuple(x)
+    return tuple(a.view(a.shape[0], a.shape[1], n_heads,
+                        a.shape[2] // n_heads).transpose(1, 2) for a in x)
 
 
 class FlashAttention(torch.autograd.Function):
-    """Differentiable attention in the model's layout: ``apply(n_heads,
-    causal, scale, qkv)`` for the fused (B, T, 3C) projection, or
-    ``apply(n_heads, causal, scale, q, k, v)`` for three (B, T, C) ones;
-    returns o as (B, T, C).
+    """Differentiable attention: ``apply(n_heads, causal, scale, qkv)`` for
+    the model's fused (B, T, 3C) projection, ``apply(n_heads, causal,
+    scale, q, k, v)`` for three (B, T, C) ones (k and v of their own T)
+    or for three (B, H, T, hd) views (``n_heads`` unread), and with a
+    fourth input after q, k and v, the (B, Tk) key mask, which takes no
+    gradient. Returns o as (B, Tq, C), or for 4-D inputs as the (B, H,
+    Tq, hd) view of a (B, Tq, H, hd) buffer.
 
     Forward: :func:`flash_attention_fwd` on the (B, H, T, hd) views, o
-    written through the (B, H, T, hd) view of a (B, T, H, hd) buffer.
+    written through the (B, H, T, hd) view of a (B, T, H, hd) buffer, the
+    mask laid out once (:func:`key_mask_rows`) for both directions.
     Backward: :func:`flash_attention_bwd`, the gradients written straight
     into one buffer shaped like each input (for the fused projection, one
     (B, T, 3C) gradient), so nothing is copied or concatenated around the
@@ -479,26 +562,38 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, n_heads, causal, scale, *x):
+        kmask = None
+        if len(x) == 4:
+            *x, kmask = x
+            kmask = key_mask_rows(kmask, x[1].shape[-2 if x[1].dim() == 4
+                                                    else 1])
         q, k, v = _heads(x, n_heads)
         b, h, t, hd = q.shape
         o = torch.empty((b, t, h, hd), dtype=q.dtype, device=q.device)
+        # the unmasked call is the model's, unchanged
+        masked = {} if kmask is None else {"kmask": kmask}
         _o, lse = flash_attention_fwd(q, k, v, causal, scale,
-                                      out=o.transpose(1, 2))
-        ctx.save_for_backward(*x, o, lse)
+                                      out=o.transpose(1, 2), **masked)
+        ctx.save_for_backward(*x, o, lse, kmask)
         ctx.n_heads, ctx.causal, ctx.scale = n_heads, causal, scale
+        ctx.masked = kmask is not None
+        if x[0].dim() == 4:
+            return o.transpose(1, 2)
         return o.view(b, t, h * hd)
 
     @staticmethod
     def backward(ctx, do):
-        *x, o, lse = ctx.saved_tensors
+        *x, o, lse, kmask = ctx.saved_tensors
         dx = [torch.empty(a.shape, dtype=a.dtype, device=a.device)
               for a in x]
         b, t, h, hd = o.shape
+        do = (do if do.dim() == 4
+              else do.reshape(b, t, h, hd).transpose(1, 2))
+        masked = {} if kmask is None else {"kmask": kmask}
         flash_attention_bwd(*_heads(x, ctx.n_heads), o.transpose(1, 2), lse,
-                            do.reshape(b, t, h, hd).transpose(1, 2),
-                            ctx.causal, ctx.scale,
-                            out=_heads(dx, ctx.n_heads))
-        return (None, None, None, *dx)
+                            do, ctx.causal, ctx.scale,
+                            out=_heads(dx, ctx.n_heads), **masked)
+        return (None, None, None, *dx) + ((None,) if ctx.masked else ())
 
 
 # ---------------------------------------------- the TF32 split's products

@@ -1,8 +1,7 @@
-"""Small sequential zoo models: counterpart of the ``LeNet``,
-``SimpleCNN`` and ``TextGenerationLSTM`` of
+"""Small sequential zoo models: counterpart of
 ``deeplearning4j_tpu/models/zoo/cnn_small.py`` (ref:
-``org.deeplearning4j.zoo.model.{LeNet,SimpleCNN,TextGenerationLSTM}``).
-``AlexNet`` waits with the other zoo models (ROADMAP queue 1 item 8).
+``org.deeplearning4j.zoo.model.{LeNet,SimpleCNN,AlexNet,
+TextGenerationLSTM}``).
 """
 from __future__ import annotations
 
@@ -11,8 +10,9 @@ from deeplearning4j_tpu_torch.nn.conf.configuration import (
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import (
     LSTM, BatchNormalization, ConvolutionLayer, DenseLayer, DropoutLayer,
-    OutputLayer, RnnOutputLayer, SubsamplingLayer)
-from deeplearning4j_tpu_torch.optim.updaters import Adam
+    LocalResponseNormalization, OutputLayer, RnnOutputLayer,
+    SubsamplingLayer)
+from deeplearning4j_tpu_torch.optim.updaters import Adam, Nesterovs
 from deeplearning4j_tpu_torch.models.zoo.base import ZooModel
 
 
@@ -90,6 +90,55 @@ class SimpleCNN(ZooModel):
         b.layer(OutputLayer(n_out=self.num_classes, activation="softmax",
                             loss_function="mcxent"))
         return b.set_input_type(InputType.convolutional(h, w, c)).build()
+
+
+class AlexNet(ZooModel):
+    """ref: zoo.model.AlexNet — the one-tower variant with LRN as in the
+    original: N(0, 1) weight init ("normal"), relu, the 11x11/4 stem with
+    integer padding 2, biases 1.0 on conv 2, 4, 5 and the dense layers,
+    LRN at its defaults (k 2, n 5, alpha 1e-4, beta 0.75)."""
+    input_shape = (224, 224, 3)
+
+    def __init__(self, num_classes: int = 1000, seed: int = 123,
+                 input_shape=(224, 224, 3), updater=None,
+                 data_type: str = "float32"):
+        self.num_classes = num_classes
+        self.seed = seed
+        self.input_shape = tuple(input_shape)
+        self.updater = updater
+        self.data_type = data_type
+
+    def conf(self):
+        h, w, c = self.input_shape
+        return (NeuralNetConfiguration.builder()
+                .seed(self.seed)
+                .updater(self.updater or Nesterovs(1e-2, 0.9))
+                .data_type(self.data_type)
+                .weight_init("normal")
+                .activation("relu")
+                .list()
+                .layer(ConvolutionLayer(kernel_size=(11, 11), stride=(4, 4),
+                                        padding=2, n_out=96))
+                .layer(LocalResponseNormalization())
+                .layer(SubsamplingLayer(kernel_size=(3, 3), stride=(2, 2)))
+                .layer(ConvolutionLayer(kernel_size=(5, 5), padding=2,
+                                        n_out=256, bias_init=1.0))
+                .layer(LocalResponseNormalization())
+                .layer(SubsamplingLayer(kernel_size=(3, 3), stride=(2, 2)))
+                .layer(ConvolutionLayer(kernel_size=(3, 3), padding=1,
+                                        n_out=384))
+                .layer(ConvolutionLayer(kernel_size=(3, 3), padding=1,
+                                        n_out=384, bias_init=1.0))
+                .layer(ConvolutionLayer(kernel_size=(3, 3), padding=1,
+                                        n_out=256, bias_init=1.0))
+                .layer(SubsamplingLayer(kernel_size=(3, 3), stride=(2, 2)))
+                .layer(DenseLayer(n_out=4096, bias_init=1.0, dropout=0.5))
+                .layer(DenseLayer(n_out=4096, bias_init=1.0, dropout=0.5))
+                .layer(OutputLayer(n_out=self.num_classes,
+                                   activation="softmax",
+                                   loss_function="mcxent"))
+                .set_input_type(InputType.convolutional(h, w, c))
+                .build())
 
 
 class TextGenerationLSTM(ZooModel):

@@ -63,20 +63,60 @@ def grad_transform(conf) -> T.Transform:
 _GATES = ((L.LSTM, 4), (L.GRU, 3), (L.SimpleRnn, 1))
 
 
+def _length(in_type: Optional[InputType], t: Optional[int]) -> int:
+    """T: ``t``, else the input type's length, else 1 (a step)."""
+    if t is not None:
+        return t
+    known = (in_type is not None and in_type.kind == "rnn"
+             and in_type.timeseries_length > 0)
+    return in_type.timeseries_length if known else 1
+
+
+def attention_flops(layer, batch: int, t_q: int, t_k: int) -> int:
+    """An attention layer's forward FLOPs: its projections (2 per
+    multiply-add) plus 4·N·H·Tq·Tk·hs for the scores and their product
+    with V (``RecurrentAttentionLayer``: T steps of one query each)."""
+    n = batch
+    if isinstance(layer, L.RecurrentAttentionLayer):
+        hs = layer.n_heads * layer.head_size
+        return (2 * n * t_q * (layer.n_in * layer.n_out + 2 * layer.n_in * hs
+                               + 2 * layer.n_out * hs)
+                + 4 * n * t_q * t_k * hs)
+    if isinstance(layer, L.LearnedSelfAttentionLayer):
+        hs = layer.n_heads * layer.head_size
+        q = layer.n_queries
+        return (2 * n * t_k * 2 * layer.n_in * hs + 2 * n * q * hs * layer.n_out
+                + 4 * n * q * t_k * hs)
+    if isinstance(layer, L.CrossAttentionLayer):
+        hs = layer.n_heads * layer.head_size
+        kv, kk = layer._dims()
+        return (2 * n * t_q * (layer.n_in + layer.n_out) * hs
+                + 2 * n * t_k * (kv + kk) * hs + 4 * n * t_q * t_k * hs)
+    if not layer.project_input:        # one head of width n_in
+        return 4 * n * t_q * t_k * layer.n_in
+    hs = layer.n_heads * layer.head_size
+    return (2 * n * t_q * (3 * layer.n_in + layer.n_out) * hs
+            + 4 * n * t_q * t_k * hs)
+
+
 def layer_flops(layer, in_type: Optional[InputType], batch: int,
-                t: Optional[int] = None) -> int:
+                t: Optional[int] = None,
+                kv_type: Optional[InputType] = None) -> int:
     """Forward FLOPs of one layer's products at ``batch`` (2 per
     multiply-add): a convolution's 2·N·Ho·Wo·kh·kw·Cin·Cout, a dense
     layer's 2·N·n_in·n_out, once per timestep on a time series (the
     ``RnnOutputLayer`` too); a recurrent layer's 2·N·T·(n_in + H)·G·H
-    with G its gates (4, 3, 1), twice under ``Bidirectional``. T is ``t``,
-    else the input type's length, else 1 (FLOPs a step). Elementwise
-    work, pooling, normalization and embedding gathers count 0."""
-    steps = t
-    if steps is None:
-        known = (in_type is not None and in_type.kind == "rnn"
-                 and in_type.timeseries_length > 0)
-        steps = in_type.timeseries_length if known else 1
+    with G its gates (4, 3, 1), twice under ``Bidirectional``; an
+    attention layer's :func:`attention_flops` (a cross-attention layer's
+    keys as long as ``kv_type``, its second input). T is ``t``, else the
+    input type's length, else 1 (FLOPs a step). Elementwise work,
+    pooling, normalization and embedding gathers count 0."""
+    steps = _length(in_type, t)
+    if isinstance(layer, (L.SelfAttentionLayer, L.LearnedSelfAttentionLayer,
+                          L.RecurrentAttentionLayer)):
+        t_k = (_length(kv_type, t) if isinstance(layer, L.CrossAttentionLayer)
+               else steps)
+        return attention_flops(layer, batch, steps, t_k)
     if isinstance(layer, L.Bidirectional):
         layer._materialize()
         return 2 * layer_flops(layer._fwd_layer, in_type, batch, t)

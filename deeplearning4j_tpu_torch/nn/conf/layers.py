@@ -22,8 +22,13 @@ Ported here: ``Layer``, ``DenseLayer``, ``OutputLayer``, ``LossLayer``,
 ``EmbeddingSequenceLayer`` and the recurrent layers (``LSTM``,
 ``GravesLSTM``, ``GRU``, ``SimpleRnn``, ``Bidirectional``,
 ``RnnOutputLayer``, ``LastTimeStep``; their time loops in
-``kernels/rnn_cell.py``). The attention, 1-D/3-D and ``layers2`` layers
-wait (ROADMAP queue 1 item 8).
+``kernels/rnn_cell.py``) and the attention layers
+(``SelfAttentionLayer``, ``CrossAttentionLayer``,
+``LearnedSelfAttentionLayer``, ``RecurrentAttentionLayer``: each computes
+``ops.standard.dot_product_attention``, which runs on the flash kernels
+K1/K2 with the sequence mask as a key mask). The other layers of the
+reference (``CenterLossOutputLayer``, the 1-D/3-D and deconvolution
+layers, ``layers2``) wait (ROADMAP queue 1 item 8.3).
 """
 from __future__ import annotations
 
@@ -947,3 +952,272 @@ class LastTimeStep(Layer):
             return out[torch.arange(out.shape[0], device=out.device),
                        last.long()], state
         return out[:, -1], state
+
+
+# ---------------------------------------------------------------- attention
+@register_layer
+@dataclasses.dataclass
+class SelfAttentionLayer(Layer):
+    """Multi-head self-attention over (N, T, C): with ``project_input``
+    the Q, K, V projections (``Wq``, ``Wk``, ``Wv``; biases with
+    ``qkv_bias``, as Keras imports carry them) and the output projection
+    ``Wo``; without, one head of width n_in over the input itself. The
+    sequence mask masks keys. Attention is
+    ``ops.standard.dot_product_attention`` on the (N, H, T, head_size)
+    views of the projections (no copy on the kernels' route)."""
+    n_in: Optional[int] = None
+    n_out: Optional[int] = None
+    n_heads: int = 1
+    head_size: Optional[int] = None
+    project_input: bool = True
+    qkv_bias: bool = False
+
+    def set_n_in(self, input_type: InputType):
+        if self.n_in is None:
+            self.n_in = input_type.size
+        if self.n_out is None:
+            self.n_out = self.n_in
+        if self.head_size is None:
+            self.head_size = self.n_out // self.n_heads
+
+    def output_type(self, input_type: InputType) -> InputType:
+        return InputType.recurrent(
+            self.n_out if self.project_input else self.n_in,
+            input_type.timeseries_length)
+
+    def param_shapes(self):
+        if not self.project_input:
+            return {}
+        hs = self.n_heads * self.head_size
+        shapes = {"Wq": (self.n_in, hs), "Wk": (self.n_in, hs),
+                  "Wv": (self.n_in, hs), "Wo": (hs, self.n_out)}
+        if self.qkv_bias:
+            shapes.update({"bq": (hs,), "bk": (hs,), "bv": (hs,),
+                           "bo": (self.n_out,)})
+        return shapes
+
+    def _projection_params(self, gen, shapes):
+        """Xavier-style draws of each weight in ``shapes`` by its own fans,
+        zero biases; insertion order is ``shapes``'."""
+        p = {}
+        for name, shape in shapes.items():
+            if name.startswith("b"):
+                p[name] = torch.zeros(shape)
+            else:
+                p[name] = _winit.init(self.weight_init, gen, shape,
+                                      shape[0], shape[1])
+        return p
+
+    def init_params(self, gen):
+        if not self.project_input:
+            return {}
+        return self._projection_params(gen, self.param_shapes())
+
+    def _heads(self, z):
+        """(N, T, H·hs) → the (N, H, T, hs) view."""
+        return z.reshape(z.shape[0], z.shape[1], self.n_heads,
+                         self.head_size).transpose(1, 2)
+
+    def _project(self, params, x, w, b):
+        z = promote_mm(x, params[w])
+        if self.qkv_bias:
+            z = z + params[b]
+        return self._heads(z)
+
+    def _out(self, params, out, n, t):
+        """(N, H, T, hs) attention → (N, T, n_out) through ``Wo``."""
+        out = out.transpose(1, 2).reshape(n, t, -1)
+        out = promote_mm(out, params["Wo"])
+        if self.qkv_bias:
+            out = out + params["bo"]
+        return out
+
+    def apply(self, params, x, training=False, gen=None, state=None,
+              mask=None):
+        n, t, _ = x.shape
+        if self.project_input:
+            q = self._project(params, x, "Wq", "bq")
+            k = self._project(params, x, "Wk", "bk")
+            v = self._project(params, x, "Wv", "bv")
+        else:
+            q = k = v = x[:, None]          # one head
+        attn_mask = None
+        if mask is not None:
+            attn_mask = (mask != 0)[:, None, None, :]   # (N, 1, 1, T) keys
+        out = _ops.dot_product_attention(q, k, v, mask=attn_mask)
+        if self.project_input:
+            out = self._out(params, out, n, t)
+        else:
+            out = out.transpose(1, 2).reshape(n, t, -1)
+        return self._act(out), state
+
+
+@register_layer
+@dataclasses.dataclass
+class CrossAttentionLayer(SelfAttentionLayer):
+    """Multi-head cross attention: queries from the first input, keys and
+    values from the second (Keras ``MultiHeadAttention(query, value[,
+    key])``). Inputs ``[query (N, Tq, Cq), value (N, Tkv, Ckv)[, key (N,
+    Tkv, Ckv)]]``; output (N, Tq, n_out). It refuses a sequence mask: the
+    network's mask follows the query input."""
+    kv_in: Optional[int] = None        # value feature dim
+    key_in: Optional[int] = None       # key feature dim (defaults kv_in)
+    multi_input = True                 # the graph hands apply every input
+
+    def set_n_in_multi(self, input_types):
+        self.set_n_in(input_types[0])
+        if self.kv_in is None and len(input_types) > 1 \
+                and input_types[1] is not None:
+            self.kv_in = getattr(input_types[1], "size", None) or self.n_in
+        if self.key_in is None and len(input_types) > 2 \
+                and input_types[2] is not None:
+            self.key_in = getattr(input_types[2], "size", None)
+
+    def _dims(self):
+        kv = self.kv_in if self.kv_in is not None else self.n_in
+        return kv, (self.key_in if self.key_in is not None else kv)
+
+    def param_shapes(self):
+        hs = self.n_heads * self.head_size
+        kv, kk = self._dims()
+        shapes = {"Wq": (self.n_in, hs), "Wk": (kk, hs), "Wv": (kv, hs),
+                  "Wo": (hs, self.n_out)}
+        if self.qkv_bias:
+            shapes.update({"bq": (hs,), "bk": (hs,), "bv": (hs,),
+                           "bo": (self.n_out,)})
+        return shapes
+
+    def init_params(self, gen):
+        return self._projection_params(gen, self.param_shapes())
+
+    def apply(self, params, xs, training=False, gen=None, state=None,
+              mask=None):
+        if mask is not None:
+            raise ValueError(
+                "CrossAttentionLayer does not support sequence masks: the "
+                "network mask follows the query input, but attention "
+                "masking needs the key/value sequence's mask")
+        xq, xv = xs[0], xs[1]
+        xk = xs[2] if len(xs) > 2 else xv
+        n, tq, _ = xq.shape
+        q = self._project(params, xq, "Wq", "bq")
+        k = self._project(params, xk, "Wk", "bk")
+        v = self._project(params, xv, "Wv", "bv")
+        out = _ops.dot_product_attention(q, k, v)
+        return self._act(self._out(params, out, n, tq)), state
+
+
+@register_layer
+@dataclasses.dataclass
+class LearnedSelfAttentionLayer(Layer):
+    """Attention with a learned bank ``Q`` of ``n_queries`` query vectors
+    over the input sequence: (N, T, C) → (N, n_queries, n_out). The
+    sequence mask masks keys. The bank is broadcast over the batch (stride
+    0), which the op hands the kernels as a contiguous copy."""
+    n_in: Optional[int] = None
+    n_out: Optional[int] = None
+    n_heads: int = 1
+    head_size: Optional[int] = None
+    n_queries: int = 1
+
+    def set_n_in(self, input_type: InputType):
+        if self.n_in is None:
+            self.n_in = input_type.size
+        if self.n_out is None:
+            self.n_out = self.n_in
+        if self.head_size is None:
+            self.head_size = self.n_out // self.n_heads
+
+    def output_type(self, input_type: InputType) -> InputType:
+        return InputType.recurrent(self.n_out, self.n_queries)
+
+    def param_shapes(self):
+        hs = self.n_heads * self.head_size
+        return {"Q": (self.n_queries, hs), "Wk": (self.n_in, hs),
+                "Wv": (self.n_in, hs), "Wo": (hs, self.n_out)}
+
+    def init_params(self, gen):
+        hs = self.n_heads * self.head_size
+        fans = {"Q": (hs, hs), "Wk": (self.n_in, hs), "Wv": (self.n_in, hs),
+                "Wo": (hs, self.n_out)}
+        return {name: _winit.init(self.weight_init, gen, shape, *fans[name])
+                for name, shape in self.param_shapes().items()}
+
+    def apply(self, params, x, training=False, gen=None, state=None,
+              mask=None):
+        n, t, _ = x.shape
+        nh, hs = self.n_heads, self.head_size
+        q = params["Q"].expand((n,) + tuple(params["Q"].shape))
+        q = q.reshape(n, self.n_queries, nh, hs).transpose(1, 2)
+        k = promote_mm(x, params["Wk"]).reshape(n, t, nh, hs).transpose(1, 2)
+        v = promote_mm(x, params["Wv"]).reshape(n, t, nh, hs).transpose(1, 2)
+        attn_mask = None
+        if mask is not None:
+            attn_mask = (mask != 0)[:, None, None, :]
+        out = _ops.dot_product_attention(q, k, v, mask=attn_mask)
+        out = out.transpose(1, 2).reshape(n, self.n_queries, -1)
+        return self._act(promote_mm(out, params["Wo"])), state
+
+
+@register_layer
+@dataclasses.dataclass
+class RecurrentAttentionLayer(Layer):
+    """A recurrent layer whose recurrent input is attention over the whole
+    input sequence queried by the previous hidden state: ``h_t =
+    act(x_t·W + attn(q = h_{t-1}·Wq, kv = x)·Wr + b)``. The reference's
+    ``lax.scan`` is a plain loop here, as GRU's: each step one query
+    against the whole sequence through the same op (keys and values
+    projected once). The sequence mask masks keys only; h0 is zero in
+    the input's dtype."""
+    n_in: Optional[int] = None
+    n_out: Optional[int] = None
+    n_heads: int = 1
+    head_size: Optional[int] = None
+
+    def set_n_in(self, input_type: InputType):
+        if self.n_in is None:
+            self.n_in = input_type.size
+        if self.n_out is None:
+            self.n_out = self.n_in
+        if self.head_size is None:
+            self.head_size = self.n_out // self.n_heads
+
+    def output_type(self, input_type: InputType) -> InputType:
+        return InputType.recurrent(self.n_out, input_type.timeseries_length)
+
+    def param_shapes(self):
+        hs = self.n_heads * self.head_size
+        return {"W": (self.n_in, self.n_out), "Wr": (hs, self.n_out),
+                "b": (self.n_out,), "Wq": (self.n_out, hs),
+                "Wk": (self.n_in, hs), "Wv": (self.n_in, hs)}
+
+    def init_params(self, gen):
+        p = {}
+        for name, shape in self.param_shapes().items():
+            if name == "b":
+                p[name] = torch.full(shape, float(self.bias_init))
+            else:
+                p[name] = _winit.init(self.weight_init, gen, shape, *shape)
+        return p
+
+    def apply(self, params, x, training=False, gen=None, state=None,
+              mask=None):
+        n, t, _ = x.shape
+        nh, hs = self.n_heads, self.head_size
+        # keys and values over the whole sequence, once (N, nh, T, hs)
+        k = promote_mm(x, params["Wk"]).reshape(n, t, nh, hs).transpose(1, 2)
+        v = promote_mm(x, params["Wv"]).reshape(n, t, nh, hs).transpose(1, 2)
+        key_mask = None
+        if mask is not None:
+            key_mask = (mask != 0)[:, None, None, :]
+        xw = promote_mm(x, params["W"])       # (N, T, n_out), out of the loop
+        h = torch.zeros((n, self.n_out), dtype=x.dtype, device=x.device)
+        outs = []
+        for step in range(t):
+            q = promote_mm(h, params["Wq"]).reshape(n, nh, 1, hs)
+            a = _ops.dot_product_attention(q, k, v, mask=key_mask)
+            a = a.reshape(n, nh * hs)
+            h = self._act(xw[:, step] + promote_mm(a, params["Wr"])
+                          + params["b"])
+            outs.append(h)
+        return torch.stack(outs, dim=1), state

@@ -35,8 +35,12 @@ from deeplearning4j_tpu_torch.nn.graph_conf import (
     ComputationGraphConfiguration)
 from deeplearning4j_tpu_torch.nn.multilayer import _maybe_unflatten_input
 
+#: layers handed the first feature mask, as the reference's list:
+#: ``SelfAttentionLayer`` (so ``CrossAttentionLayer``, which refuses it) but
+#: not the learned or recurrent attention layers, which the graph runs
+#: unmasked (ROADMAP queue 3)
 _MASK_AWARE = (L._RnnBase, L.Bidirectional, L.LastTimeStep,
-               L.GlobalPoolingLayer)
+               L.SelfAttentionLayer, L.GlobalPoolingLayer)
 
 
 def _ds_masks(ds, which: str):
@@ -222,10 +226,12 @@ class ComputationGraph(NetworkBase):
     # ------------------------------------------------------------ accounting
     def _forward_flops(self, batch: int, t=None) -> int:
         types = self.conf.activation_types
-        return sum(layer_flops(self.conf.nodes[name].layer,
-                               types.get(self.conf.nodes[name].inputs[0]),
-                               batch, t)
-                   for name, _ in self._param_layers())
+        total = 0
+        for name, layer in self._param_layers():
+            ins = self.conf.nodes[name].inputs
+            total += layer_flops(layer, types.get(ins[0]), batch, t,
+                                 types.get(ins[1]) if len(ins) > 1 else None)
+        return total
 
     # ---------------------------------------------------------------- misc
     def summary(self) -> str:

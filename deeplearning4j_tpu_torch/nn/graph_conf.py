@@ -7,10 +7,11 @@ its input activations; autograd differentiates the whole DAG. Ported
 vertices: ``MergeVertex``, ``ElementWiseVertex``, ``SubsetVertex``,
 ``L2NormalizeVertex``, ``ScaleVertex``, ``ShiftVertex``, ``StackVertex``,
 ``UnstackVertex``, ``ReshapeVertex``, ``PoolHelperVertex``, ``L2Vertex``,
-``PreprocessorVertex``, ``LambdaVertex`` and the time-series vertices
+``PreprocessorVertex``, ``LambdaVertex``, the time-series vertices
 (``LastTimeStepVertex``, ``DuplicateToTimeSeriesVertex``,
-``ReverseTimeSeriesVertex``); the attention vertices wait (ROADMAP queue 1
-item 8).
+``ReverseTimeSeriesVertex``) and the Keras-import vertices ``DotVertex``,
+``DotProductAttentionVertex`` and ``AdditiveAttentionVertex`` (no DL4J
+analog; plain torch, as the reference leaves them to XLA).
 """
 from __future__ import annotations
 
@@ -278,6 +279,125 @@ class ReverseTimeSeriesVertex(GraphVertex):
 
     def apply(self, inputs):
         return torch.flip(inputs[0], dims=(1,))
+
+
+@register_vertex
+@dataclasses.dataclass
+class DotVertex(GraphVertex):
+    """Keras ``Dot`` merge: the batched dot of two inputs over ``axes``
+    (one axis for both, or a pair), output (N, *rest_a, *rest_b): two (N,
+    T, D) inputs over axis 2 give the (N, T, T') similarities, rank-2
+    inputs (N, 1) as Keras. ``normalize`` L2-normalizes along the dot axes
+    first (cosine proximity). A Keras-import helper with no DL4J analog:
+    plain torch (one batched matmul)."""
+    axes: int = -1
+    normalize: bool = False
+
+    def _axes(self, ndim_a, ndim_b):
+        if isinstance(self.axes, (tuple, list)):
+            ax_a, ax_b = self.axes
+        else:
+            ax_a = ax_b = self.axes
+        return ax_a % ndim_a, ax_b % ndim_b
+
+    def apply(self, inputs):
+        a, b = _promoted(inputs[0], inputs[1])
+        ax_a, ax_b = self._axes(a.dim(), b.dim())
+        if self.normalize:
+            a = a / torch.clamp_min(torch.linalg.vector_norm(
+                a, dim=ax_a, keepdim=True), 1e-12)
+            b = b / torch.clamp_min(torch.linalg.vector_norm(
+                b, dim=ax_b, keepdim=True), 1e-12)
+        a = torch.movedim(a, ax_a, -1)
+        b = torch.movedim(b, ax_b, 1)
+        rest_a, rest_b = a.shape[1:-1], b.shape[2:]
+        out = torch.bmm(a.reshape(a.shape[0], -1, a.shape[-1]),
+                        b.reshape(b.shape[0], b.shape[1], -1))
+        out = out.reshape((a.shape[0],) + tuple(rest_a) + tuple(rest_b))
+        if out.dim() == 1:                      # rank-2 inputs: Keras (N, 1)
+            out = out[:, None]
+        return out
+
+    def output_type(self, input_types):
+        ta, tb = input_types[0], input_types[1]
+        if ta.kind == "ff" and tb.kind == "ff":
+            return InputType.feed_forward(1)
+        if ta.kind == "rnn" and tb.kind == "rnn":
+            # (N, T, D)·(N, T', D) over the feature axis → (N, T, T')
+            ax_a, ax_b = self._axes(3, 3)
+            if ax_a == 2 and ax_b == 2:
+                return InputType.recurrent(tb.timeseries_length,
+                                           ta.timeseries_length)
+            # contracting time: (N, D, D')
+            return InputType.recurrent(tb.size, ta.size)
+        raise ValueError(
+            f"DotVertex: unsupported input kinds ({ta.kind}, {tb.kind})")
+
+
+def _promoted(*xs):
+    """The inputs in their promoted dtype, as jnp's products take mixed
+    types."""
+    dt = xs[0].dtype
+    for x in xs[1:]:
+        dt = torch.promote_types(dt, x.dtype)
+    return tuple(x.to(dt) for x in xs)
+
+
+def _attend(scores, v, causal: bool):
+    """The attention vertices' shared tail: a causal mask by the sentinel
+    -1e9 (not the layers' -1e30), the softmax over keys in the scores'
+    own dtype (bf16 stays bf16), then the product with v."""
+    if causal:
+        tq, tk = scores.shape[1], scores.shape[2]
+        keep = (torch.arange(tq, device=scores.device)[:, None]
+                >= torch.arange(tk, device=scores.device)[None, :])
+        scores = torch.where(keep[None], scores,
+                             torch.tensor(-1e9, dtype=scores.dtype))
+    e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    return torch.bmm(*_promoted(p, v))
+
+
+@register_vertex
+@dataclasses.dataclass
+class DotProductAttentionVertex(GraphVertex):
+    """Dot-product attention over [query, value] or [query, value, key]
+    (Keras ``Attention`` with use_scale=False: unscaled): q (N, Tq, d), v
+    (N, Tv, dv), k (N, Tv, d); out = softmax(q·kᵀ)·v. A Keras-import
+    helper with no DL4J analog: plain torch, not the flash kernels (no
+    scale, the -1e9 sentinel and a softmax in the input dtype)."""
+    causal: bool = False
+
+    def apply(self, inputs):
+        q, v = inputs[0], inputs[1]
+        k = inputs[2] if len(inputs) > 2 else v
+        q, k = _promoted(q, k)
+        return _attend(torch.bmm(q, k.transpose(1, 2)), v, self.causal)
+
+    def output_type(self, input_types):
+        return InputType.recurrent(input_types[1].size,
+                                   input_types[0].timeseries_length)
+
+
+@register_vertex
+@dataclasses.dataclass
+class AdditiveAttentionVertex(GraphVertex):
+    """Bahdanau-style additive attention over [query, value] (Keras
+    ``AdditiveAttention`` with use_scale=False): scores sum(tanh(q + k))
+    over features. A Keras-import helper with no DL4J analog: plain
+    torch."""
+    causal: bool = False
+
+    def apply(self, inputs):
+        q, v = inputs[0], inputs[1]
+        k = inputs[2] if len(inputs) > 2 else v
+        s = torch.sum(torch.tanh(q[:, :, None, :] + k[:, None, :, :]),
+                      dim=-1)
+        return _attend(s, v, self.causal)
+
+    def output_type(self, input_types):
+        return InputType.recurrent(input_types[1].size,
+                                   input_types[0].timeseries_length)
 
 
 @register_vertex

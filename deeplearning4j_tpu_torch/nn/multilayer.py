@@ -33,8 +33,12 @@ from deeplearning4j_tpu_torch.nn.conf import layers as L
 from deeplearning4j_tpu_torch.nn.conf.configuration import (
     MultiLayerConfiguration)
 
+#: layers handed the input's sequence mask, as the reference's list: the
+#: mask is handed on unchanged even after a ``LearnedSelfAttentionLayer``
+#: has made the time axis ``n_queries`` long (ROADMAP queue 3)
 _MASK_AWARE = (L._RnnBase, L.Bidirectional, L.LastTimeStep,
-               L.GlobalPoolingLayer)
+               L.SelfAttentionLayer, L.GlobalPoolingLayer,
+               L.LearnedSelfAttentionLayer, L.RecurrentAttentionLayer)
 
 
 def _maybe_unflatten_input(x, input_type):

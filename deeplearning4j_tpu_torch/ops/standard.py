@@ -1,9 +1,13 @@
 """The standard ops the ported layers call: counterparts of the JAX
 package's ``ops/standard.py`` entries ``conv2d``, ``maxpool2d``,
-``avgpool2d``, ``pnormpool2d``, ``batchnorm``, ``lrn`` and
-``dropout_inverted``, as plain functions (the op registry is not ported),
-and ``promote_mm``, the dtype rule of ``jnp.matmul`` that the layers'
-products follow.
+``avgpool2d``, ``pnormpool2d``, ``batchnorm``, ``lrn``,
+``dropout_inverted`` and ``dot_product_attention``, as plain functions
+(the op registry is not ported), and ``promote_mm``, the dtype rule of
+``jnp.matmul`` that the layers' products follow.
+
+``dot_product_attention`` runs on the hand flash kernels K1/K2
+(``kernels/flash_attention.py``) wherever :func:`attention_route` says
+they take it, with the layers' key mask; elsewhere on its plain version.
 
 Activations are NHWC and conv weights HWIO, as in the reference. A
 contiguous NHWC tensor ``x`` gives ``x.permute(0, 3, 1, 2)``, an NCHW view
@@ -16,8 +20,13 @@ is applied to the NHWC input first.
 """
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
+
+from deeplearning4j_tpu_torch.kernels import flash_attention as _fa
 
 
 def promote_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -161,3 +170,94 @@ def dropout_inverted(x, gen, p=0.5):
     ``x / p``. ``gen`` is a ``torch.Generator`` on ``x``'s device."""
     keep = torch.rand(x.shape, generator=gen, device=x.device) < p
     return torch.where(keep, x / p, torch.zeros_like(x))
+
+
+# ---------------------------------------------------------------- attention
+_MASK_SENTINEL = -1e30
+
+
+def key_mask_of(mask: Optional[torch.Tensor], q: torch.Tensor,
+                k: torch.Tensor) -> Optional[torch.Tensor]:
+    """The (N, Tk) bool key mask that ``mask`` amounts to when it is one:
+    shaped (N or 1, 1, 1, Tk), broadcast over heads and queries (the
+    attention layers' ``mask[:, None, None, :]``); else None."""
+    if mask is None or mask.dim() != 4:
+        return None
+    n, t_k = q.shape[0], k.shape[-2]
+    if mask.shape[1:] != (1, 1, t_k) or mask.shape[0] not in (1, n):
+        return None
+    return (mask[:, 0, 0, :] != 0).expand(n, t_k)
+
+
+def attention_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None) -> str:
+    """Where :func:`dot_product_attention` runs, by one stated rule:
+    "kernel" (``fa.FlashAttention``: K1/K2 on the card, their plain
+    versions on the CPU) for 4-D (N, H, T, d) q and k, v of one shape
+    (no broadcasting), all float32 or all bfloat16, a head dim d % 8 == 0
+    in [8, 256] (``fa.HEAD_DIMS``), and no mask or a key mask
+    (:func:`key_mask_of`); "plain" (the op's plain version) for every
+    other call: f64 (the gradcheck harness), mixed dtypes, other head
+    dims, masks over queries. It reads shapes and dtypes only."""
+    if (q.dim() != 4 or k.dim() != 4 or k.shape != v.shape
+            or q.shape[:2] != k.shape[:2] or q.shape[-1] != k.shape[-1]
+            or q.dtype not in (torch.float32, torch.bfloat16)
+            or not q.dtype == k.dtype == v.dtype
+            or q.shape[-1] not in _fa.HEAD_DIMS
+            or q.shape[-2] < 1 or k.shape[-2] < 1):
+        return "plain"
+    if mask is not None and key_mask_of(mask, q, k) is None:
+        return "plain"
+    return "kernel"
+
+
+def dot_product_attention_plain(q, k, v, mask=None, scaled=True):
+    """The reference op's arithmetic: scores accumulated in at least f32
+    (f64 inputs stay f64), divided by sqrt(d) when ``scaled``, masked keys
+    set to the finite sentinel -1e30 (a row that keeps no key averages
+    v), softmax, the weights cast to q's dtype, then their product with
+    v."""
+    acc = torch.promote_types(q.dtype, torch.float32)
+    scores = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2))
+    if scaled:
+        scores = scores / torch.sqrt(torch.tensor(float(q.shape[-1]),
+                                                  dtype=acc))
+    if mask is not None:
+        scores = torch.where(mask != 0, scores,
+                             torch.tensor(_MASK_SENTINEL, dtype=acc))
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    return promote_mm(w, v)
+
+
+def dot_product_attention(q, k, v, mask=None, scaled=True):
+    """(..., heads, seq, d) attention, the reference op
+    ``dot_product_attention``: softmax(q·kᵀ / sqrt(d)) · v over f32 (f64)
+    scores, keys masked by ``mask`` with the -1e30 sentinel.
+
+    By :func:`attention_route`: on "kernel", ``fa.FlashAttention`` with
+    the key mask. A batch element whose keys are all masked must average
+    v evenly and send no gradient to q or k, as the reference's softmax of
+    a constant row does; the kernels do not define such a row. So, with no
+    host sync, the element is handed to them with every key kept and q
+    zeroed
+    (the product inside autograd): its scores are then 0, P exactly 1/Tk,
+    and dq = dk = 0. On "plain", :func:`dot_product_attention_plain`; on
+    the card that adds one to the ``attention_plain`` count
+    (``kernels/__init__.py``)."""
+    if attention_route(q, k, v, mask) == "plain":
+        if q.is_cuda:
+            _fa.plain_route_calls += 1
+        return dot_product_attention_plain(q, k, v, mask, scaled)
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scaled else 1.0
+    kmask = key_mask_of(mask, q, k)
+    extra = ()
+    if kmask is not None:
+        kept = kmask.any(dim=-1)
+        extra = (kmask | ~kept[:, None],)
+        q = q * kept[:, None, None, None].to(q.dtype)
+    if q.is_cuda:
+        # views the kernels cannot read (a query bank broadcast over the
+        # batch has stride 0) go in as contiguous copies
+        q, k, v = (_fa._readable(t) for t in (q, k, v))
+    return _fa.FlashAttention.apply(q.shape[1], False, scale, q, k, v,
+                                    *extra)

@@ -506,14 +506,14 @@ def test_expected_launches_per_step():
     config is bf16 at d 1024), K7 twice per MoE layer (three times under
     remat), K4a, K4w and K4a+w (decode only) never."""
     assert chip_smoke.expected_per_step(12, False, 0) == (
-        12, 0, 12, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+        12, 0, 12, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
     assert chip_smoke.expected_per_step(12, True, 8) == (
-        24, 0, 12, 0, 0, 0, 0, 0, 1, 8, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+        24, 0, 12, 0, 0, 0, 0, 0, 1, 8, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
     assert chip_smoke.expected_per_step(12, False, 8, moe=True) == (
-        12, 0, 12, 0, 0, 0, 24, 24, 1, 8, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+        12, 0, 12, 0, 0, 0, 24, 24, 1, 8, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
     assert chip_smoke.expected_per_step(2, True, 0, moe=True)[6:] == (
-        6, 6, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
-    assert len(chip_smoke.ALL_KERNELS) == 20
+        6, 6, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+    assert len(chip_smoke.ALL_KERNELS) == 21
     assert chip_smoke.ALL_KERNELS[:4] == chip_smoke.KERNELS
     assert chip_smoke.ALL_KERNELS[8:10] == ("ce_fwd_wgmma",
                                             "ce_dlogits_wgmma")
@@ -529,14 +529,17 @@ def test_expected_launches_per_step():
         == {"chunked_ce_tf32.cu"}
     assert chip_smoke.ALL_KERNELS[15] == "paged_attention_write"
     assert chip_smoke.SOURCES["paged_attention_write"] == "paged_attention.cu"
-    assert chip_smoke.ALL_KERNELS[16:] == ("rnn_cell_fwd", "rnn_cell_bwd",
-                                           "rnn_layer_fwd", "rnn_layer_bwd")
-    assert {chip_smoke.SOURCES[k] for k in chip_smoke.ALL_KERNELS[16:]} == {
-        "rnn_cell.cu"}
+    assert chip_smoke.ALL_KERNELS[16:20] == ("rnn_cell_fwd", "rnn_cell_bwd",
+                                             "rnn_layer_fwd", "rnn_layer_bwd")
+    assert {chip_smoke.SOURCES[k] for k in chip_smoke.ALL_KERNELS[16:20]} \
+        == {"rnn_cell.cu"}
+    # the last count is no kernel's: the attention op's plain route
+    assert chip_smoke.ALL_KERNELS[20] == "attention_plain"
+    assert "attention_plain" not in chip_smoke.SOURCES
 
 
 def test_all_counts_reads_every_counter_in_order():
-    """all_counts gives the twenty counters in ALL_KERNELS' order, and
+    """all_counts gives the twenty-one counters in ALL_KERNELS' order, and
     reset_all_counts zeroes every one."""
     from deeplearning4j_tpu_torch.kernels import chunked_ce as ce
     from deeplearning4j_tpu_torch.kernels import flash_attention as fa
@@ -552,12 +555,13 @@ def test_all_counts_reads_every_counter_in_order():
              (ce, "launches_fwd_tf32"), (ce, "launches_dlogits_tf32"),
              (ce, "launches_split_tf32"), (pa, "launches_attend_write"),
              (rc, "launches_cell_fwd"), (rc, "launches_cell_bwd"),
-             (rc, "launches_layer_fwd"), (rc, "launches_layer_bwd")]
+             (rc, "launches_layer_fwd"), (rc, "launches_layer_bwd"),
+             (fa, "plain_route_calls")]
     saved = [getattr(m, n) for m, n in names]
     try:
         for i, (m, n) in enumerate(names):
             setattr(m, n, i + 1)
-        assert chip_smoke.all_counts() == tuple(range(1, 21))
+        assert chip_smoke.all_counts() == tuple(range(1, 22))
         before = chip_smoke.all_counts()
         pa.launches_attend += 5
         ce.launches_split_tf32 += 2
@@ -565,9 +569,9 @@ def test_all_counts_reads_every_counter_in_order():
         rc.launches_cell_bwd += 4
         rc.launches_layer_fwd += 6
         assert chip_smoke.delta(before) == (0,) * 10 + (5, 0, 0, 0, 2, 3,
-                                                        0, 4, 6, 0)
+                                                        0, 4, 6, 0, 0)
         chip_smoke.reset_all_counts()
-        assert chip_smoke.all_counts() == (0,) * 20
+        assert chip_smoke.all_counts() == (0,) * 21
     finally:
         for (m, n), v in zip(names, saved):
             setattr(m, n, v)
@@ -766,7 +770,7 @@ def test_launch_counts_names_each_kernel():
     the rest; a name that is no kernel raises."""
     got = chip_smoke.launch_counts(wgmma=12, paged_attention_write=372,
                                    kv_quant_write=1)
-    assert len(got) == len(chip_smoke.ALL_KERNELS) == 20
+    assert len(got) == len(chip_smoke.ALL_KERNELS) == 21
     assert dict(zip(chip_smoke.ALL_KERNELS, got)) == dict(
         {k: 0 for k in chip_smoke.ALL_KERNELS}, wgmma=12,
         paged_attention_write=372, kv_quant_write=1)
@@ -1064,9 +1068,9 @@ def test_expected_launches_per_step_of_the_f32_model():
     pass for the forward and before the backward's chunks; neither
     chunked_ce.cu's nor the wgmma one), no wgmma flash kernel."""
     assert chip_smoke.expected_per_step(12, False, 0, f32=True) == (
-        0, 12, 0, 12, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+        0, 12, 0, 12, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
     assert chip_smoke.expected_per_step(12, False, 8, f32=True) == (
-        0, 12, 0, 12, 0, 0, 0, 0, 0, 0, 0, 0, 1, 8, 2, 0, 0, 0, 0, 0)
+        0, 12, 0, 12, 0, 0, 0, 0, 0, 0, 0, 0, 1, 8, 2, 0, 0, 0, 0, 0, 0)
     assert chip_smoke.expected_per_step(12, True, 8, f32=True)[:4] == (
         0, 24, 0, 12)
     assert chip_smoke.F32_RUNGS == ((8, False, 0), (8, False, 8))
@@ -1079,8 +1083,8 @@ def _path_launches():
     K4a+w, K4w only for the int8 modes' prefill inserts (the serving modes
     and the pipeline's int8 run); the front door on bf16 pages, the
     fleet's f32 demo model on the simple forward; the recurrent path
-    K11Lf and K11Lb (the last two) 2 × 20 times each, the wide layer K11f
-    and K11b (the two before) 50 times each."""
+    K11Lf and K11Lb 2 × 20 times each, the wide layer K11f and K11b 50
+    times each; the attention op's plain route (the last count) never."""
     L, n = 12, 31
     none, k11 = (0, 0, 0), (0, 0, 0, 0)
     serve = (4 * L, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0) + none + (4 * n * L,) \
@@ -1099,8 +1103,9 @@ def _path_launches():
     network = (0,) * 20
     recurrent = (0,) * 18 + (40, 40)
     wide = (0,) * 16 + (50, 50, 0, 0)
-    return [serve, modes, train, moe, f32_serve, f32_train, pipeline,
-            frontdoor, fleet, network, recurrent, wide]
+    return [path + (0,) for path in (
+        serve, modes, train, moe, f32_serve, f32_train, pipeline, frontdoor,
+        fleet, network, recurrent, wide)]
 
 
 @pytest.mark.parametrize("path,kernel,what", [
@@ -1694,3 +1699,149 @@ def test_recurrent_kernel_entries_take_each_kernel_from_its_path():
     assert got[2]["replaces"].endswith("layers.py:895")
     assert (got[2]["library_ms"], got[3]["library_ms"]) == (0.3, 0.9)
     assert got[3]["max_abs_err"] == 2e-7
+
+
+# ------------------------------------------------------- the attention slice
+@pytest.mark.parametrize("kind", ["a1", "gap", "none"])
+def test_attention_cases_keep_a_key_in_every_row(kind):
+    """The kernels' masked cases hand over rows that each keep a key (a row
+    with none is the op's to avoid); "gap" masks the first tile and an
+    interior run; "empty" leaves one element with no key, which the phase
+    hands over as the op does."""
+    for _name, b, _h, _tq, t_k, _d, _dt, k in chip_smoke.MASKED_CASES:
+        m = chip_smoke.key_mask_np(k, b, t_k)
+        if m is None:
+            continue
+        assert m.shape == (b, t_k)
+        if k == "empty":
+            assert not m[1].any() and m[[0, 2, 3]].any(axis=1).all()
+        else:
+            assert m.any(axis=1).all()
+    m = chip_smoke.key_mask_np(kind, 4, 700)
+    if kind == "gap":
+        assert not m[0, :64].any() and not m[1, 175:350].any()
+    if kind == "a1":
+        assert (m.sum(axis=1) >= chip_smoke.A1_MIN_LEN).all()
+    if kind == "none":
+        assert m is None
+
+
+def test_masked_bound_counts_the_pairs_the_mask_keeps():
+    m = np.zeros((2, 256), bool)
+    m[0, :100] = True
+    m[1, :28] = True
+    ms, by = chip_smoke.masked_bound_ms(m, 16, 256, 256, 64, "bfloat16")
+    flops = 4.0 * 16 * 64 * 256 * 128
+    nbytes = 2 * 2 * 16 * 64 * 2 * 512 + 4 * 2 * 16 * 256 + 2 * 256
+    assert (ms, by) == chip_smoke._bound(flops, nbytes, "bfloat16",
+                                         chip_smoke.ATTN_PEAK_FLOPS)
+    ms_b, _ = chip_smoke.masked_bound_ms(m, 16, 256, 256, 64, "bfloat16",
+                                         backward=True)
+    assert ms_b >= ms
+
+
+def test_shared_dropout_draws_one_mask_for_both_devices():
+    """Under ``shared_dropout`` a mask depends on its shape alone (the CPU
+    and card nets of check (a) drop the same units); the port's own
+    dropout comes back after it."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import standard
+    plain = standard.dropout_inverted
+    x = torch.ones((4, 64))
+    with chip_smoke.shared_dropout():
+        a = standard.dropout_inverted(x, None, p=0.5)
+        b = standard.dropout_inverted(x * 3, torch.Generator(), p=0.5)
+    assert standard.dropout_inverted is plain
+    assert torch.equal(a != 0, b != 0) and set(a.unique().tolist()) <= {0, 2}
+
+
+def test_attention_nets_are_the_slice_s_widths():
+    """A1 at the large config's widths; A2 and the zoo twins' parameter
+    counts those of the port's nets; the output layer's key of each net."""
+    import torch
+    conf = chip_smoke.a1_conf("bfloat16")
+    emb, att1, att2, pool, out = conf.layers
+    assert (emb.n_in, emb.n_out) == (32768, 1024)
+    for att in (att1, att2):
+        assert (att.n_heads, att.head_size, att.n_in) == (16, 64, 1024)
+    assert out.n_out == chip_smoke.A1_CLASSES
+    for name in ("VGG16", "VGG19"):
+        twin = chip_smoke.plain_vgg(torch, name)
+        conf = chip_smoke.zoo_model(name, "float32").conf()
+        assert sum(p.numel() for p in twin.parameters()) == sum(
+            layer.n_params() for layer in conf.layers)
+    twin = chip_smoke.plain_darknet19(torch)
+    conf = chip_smoke.zoo_model("Darknet19", "float32").conf()
+    assert sum(p.numel() for p in twin.parameters()) == sum(
+        n.layer.n_params() for n in conf.nodes.values() if n.layer)
+    graph, mln = chip_smoke.a2_nets("cpu")
+    assert chip_smoke.head_key(graph) == "out"
+    assert chip_smoke.head_key(mln) == "3"
+
+
+_MASKED_PTXAS = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122flash_fwd_wgmma_kernelILi128ELb1EEEv14CUtensorMap_stS1_S1_iii7OutArgsiiifiPKhx' for 'sm_90a'
+    0 bytes stack frame, {s} bytes spill stores, {s} bytes spill loads
+ptxas info    : Used 168 registers, used 16 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122flash_fwd_wgmma_kernelILi128ELb0EEEv14CUtensorMap_stS1_S1_iii7OutArgsiiifiPKhx' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 16 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122flash_bwd_wgmma_kernelILi64ELb0ELb1EEEv14CUtensorMap_stS1_S1_S1_iiiiNS_7BwdArgsE' for 'sm_90a'
+    0 bytes stack frame, {s} bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122flash_bwd_wgmma_kernelILi64ELb1ELb0EEEv14CUtensorMap_stS1_S1_S1_iiiiNS_7BwdArgsE' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+"""
+
+
+@pytest.mark.parametrize("spill", [0, 92])
+def test_ptxas_report_names_the_key_masked_instantiations(spill):
+    """Since the key mask is a template parameter, the masked wgmma
+    kernels read apart from the unmasked ones (their spills too), and the
+    eight backward and four forward instantiations are what the script
+    holds to the budget."""
+    fwd = chip_smoke.wgmma_ptxas(_MASKED_PTXAS.format(s=spill))
+    assert fwd == {"128 masked": {"registers": 168,
+                                  "spill_bytes": 2 * spill},
+                   128: {"registers": 168, "spill_bytes": 0}}
+    bwd = chip_smoke.bwd_wgmma_ptxas(_MASKED_PTXAS.format(s=spill))
+    assert bwd == {"d64 dq masked": {"registers": 168, "spill_bytes": spill},
+                   "d64 dkdv": {"registers": 168, "spill_bytes": 0}}
+    assert set(fwd) <= set(chip_smoke.WGMMA_INSTANTIATIONS)
+    assert set(bwd) <= set(chip_smoke.BWD_WGMMA_INSTANTIATIONS)
+    assert len(chip_smoke.BWD_WGMMA_INSTANTIATIONS) == 8
+
+
+def test_ptxas_report_of_the_key_masked_mma_sync_kernels():
+    """The simple forward's and the mma.sync / FMA backward's key-masked
+    instantiations (a template parameter) read apart from the unmasked
+    ones; the D pass has none; the full report is the two lists."""
+    log = "".join(
+        f"ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__x_22_"
+        f"flash_attention_bwd_cu_y{len(k) + 7}{k}_kernelI{t}Li{w}ELb{m}EEv"
+        f"NS_4ArgsE' for 'sm_90a'\n    0 bytes stack frame, "
+        f"{48 if (k, t, w, m) == ('dkdv', '13__nv_bfloat16', 128, 1) else 0}"
+        f" bytes spill stores, 0 bytes spill loads\nptxas info    : Used "
+        f"255 registers\n"
+        for k in ("dq", "dkdv") for t in ("f", "13__nv_bfloat16")
+        for w in chip_smoke.SIMPLE_WIDTHS for m in (0, 1))
+    log += "".join(
+        f"ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__x_22_"
+        f"flash_attention_bwd_cu_y12delta_kernelI{t}EvNS_9DeltaArgsE' for "
+        f"'sm_90a'\n    0 bytes stack frame, 0 bytes spill stores, 0 bytes "
+        f"spill loads\nptxas info    : Used 36 registers\n"
+        for t in ("f", "13__nv_bfloat16"))
+    report = chip_smoke.bwd_ptxas(log)
+    want = chip_smoke.BWD_INSTANTIATIONS + chip_smoke.BWD_MASKED_INSTANTIATIONS
+    assert sorted(report) == sorted(want) and len(report) == 50
+    assert report["dkdv bf16 w128 masked"]["spill_bytes"] == 48
+    assert report["dkdv bf16 w128"]["spill_bytes"] == 0
+    assert not chip_smoke.spill_free(report, want)
+    fwd = chip_smoke.simple_ptxas(
+        "ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__x_22_"
+        "flash_attention_fwd_cu_y16flash_fwd_kernelIfLi256ELb1EEEvNS_4ArgsE'"
+        " for 'sm_90a'\n    0 bytes stack frame, 0 bytes spill stores, 0 "
+        "bytes spill loads\nptxas info    : Used 252 registers\n")
+    assert fwd == {"f32 w256 masked": {"registers": 252, "spill_bytes": 0}}
+    assert "f32 w256 masked" in chip_smoke.SIMPLE_MASKED_INSTANTIATIONS

@@ -1510,3 +1510,151 @@ def test_k11l_rejects_what_it_does_not_take(cuda):
                           None, None, None,
                           torch.zeros((1, wide), device="cuda"),
                           torch.zeros((1, wide), device="cuda"), 0)
+
+
+# ------------------------------------------------------------ the key mask
+# K1/K2 with a (B, Tk) key mask against their plain versions, by the rows
+# above (every row keeps a key: a row that keeps none is the op's to
+# avoid), each operand the (B, H, T, d) view of its own (B, T, H·d)
+# projection, as the attention layers hand them over; masked keys' dk and
+# dv are exactly 0. An f32 tile that misses the tile row must be as close
+# to f64 as the plain version's (within 5 %): under a mask few keys share a
+# query's softmax, dS = P (dP - D) cancels, and the plain version's dP,
+# summed in cuBLAS's order (which the kernel follows only where its
+# tiling allows), reads its own rounding, further from f64 there than the
+# tile row (PERF.md: at d 256 the two read 5.2e-7 apart). The attention op, with a batch element whose keys are
+# all masked, against its plain version on the card: K1's and K2's rows.
+def _masked_case(b, h, t_q, t_k, d, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def proj(t):
+        return torch.randn((b, t, h * d), generator=g, device="cuda",
+                           dtype=dtype).view(b, t, h, d).transpose(1, 2)
+
+    q, k, v, do = proj(t_q), proj(t_k), proj(t_k), proj(t_q)
+    lengths = torch.randint(1, t_k + 1, (b,), generator=g, device="cuda")
+    kmask = torch.arange(t_k, device="cuda")[None, :] < lengths[:, None]
+    kmask[0, :min(128, int(lengths[0]) - 1)] = False   # a masked first tile
+    if b > 1 and int(lengths[1]) > 8:                  # an interior gap
+        kmask[1, 2:int(lengths[1]) // 2] = False
+    return q, k, v, do, kmask
+
+
+def _f64_gradients(q, k, v, do, kmask):
+    """dq, dk, dv of the attention op's plain version in f64."""
+    from deeplearning4j_tpu_torch.ops import standard as ops
+    xs = [x.detach().double().requires_grad_() for x in (q, k, v)]
+    ops.dot_product_attention_plain(*xs, mask=kmask[:, None, None, :]) \
+        .backward(do.double())
+    return [x.grad for x in xs]
+
+
+def _masked_held_to_reference(q, k, v, do, kmask):
+    reset = (fa.launches_wgmma, fa.launches_simple, fa.launches_bwd_wgmma,
+             fa.launches_bwd)
+    o, lse = fa.flash_attention_fwd(q, k, v, kmask=kmask)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, kmask=kmask)
+    torch.cuda.synchronize()
+    wgmma = fa.kernel_for(q.dtype, q.shape[-1]) == "wgmma"
+    launched = tuple(a - b for a, b in zip(
+        (fa.launches_wgmma, fa.launches_simple, fa.launches_bwd_wgmma,
+         fa.launches_bwd), reset))
+    assert launched == ((1, 0, 1, 0) if wgmma else (0, 1, 0, 1))
+    o_ref, lse_ref = fa.flash_attention_reference(q, k, v, kmask=kmask)
+    bf16 = q.dtype == torch.bfloat16
+    assert (o.float() - o_ref.float()).abs().max().item() <= (
+        2e-2 if bf16 else 5e-5)
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, kmask=kmask)
+    tol, tile_tol, floor = (1e-2, 1e-3, 1e-3) if bf16 else (1e-5, 5e-7, 1e-6)
+    truth = None
+    for i, (g, r) in enumerate(zip(got, ref)):
+        scale = max(r.float().abs().max().item(), 1.0)
+        assert (g.float() - r.float()).abs().max().item() <= tol * scale
+        if bf16 or _max_tile_rel_l2(g, r, floor) <= tile_tol:
+            continue
+        if truth is None:
+            truth = _f64_gradients(q, k, v, do, kmask)
+        assert _max_tile_rel_l2(g, truth[i], floor) <= 1.05 * \
+            _max_tile_rel_l2(r, truth[i], floor)
+    kept = kmask[:, None, :, None]
+    for g in got[1:]:
+        assert g.float().masked_fill(kept, 0).abs().max().item() == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64),
+                                     (torch.float32, 64),
+                                     (torch.bfloat16, 32)])
+def test_masked_one_tile(cuda, dtype, d):
+    """One tile of queries and keys under a key mask (row 0 keeps keys
+    40-63 only, so its first tile's first columns are masked; row 1 keeps
+    0-9 and 30-63): the mask's bulk copy into the wgmma kernels' stages
+    and its predicates, before anything larger."""
+    q, k, v, do, _ = _masked_case(2, 2, 64, 64, d, dtype, 5)
+    kmask = torch.ones((2, 64), dtype=torch.bool, device="cuda")
+    kmask[0, :40] = False
+    kmask[1, 10:30] = False
+    _masked_held_to_reference(q, k, v, do, kmask)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,t_q,t_k,d", [
+    (torch.bfloat16, 1024, 1024, 64), (torch.float32, 1024, 1024, 64),
+    (torch.bfloat16, 300, 700, 64), (torch.bfloat16, 300, 700, 128),
+    (torch.float32, 300, 700, 64), (torch.bfloat16, 1, 200, 64),
+    (torch.float32, 1, 200, 16), (torch.float32, 96, 128, 16),
+    (torch.bfloat16, 96, 128, 32), (torch.float32, 130, 130, 8),
+    (torch.bfloat16, 100, 200, 120), (torch.float32, 100, 200, 120),
+    (torch.bfloat16, 77, 300, 256), (torch.float32, 77, 300, 256)])
+def test_masked_kernels_match_plain(cuda, dtype, t_q, t_k, d):
+    b = 2 if t_q * t_k > 500000 else 4
+    _masked_held_to_reference(*_masked_case(b, 4, t_q, t_k, d, dtype,
+                                            t_q + t_k + d))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_op_on_the_card_matches_its_plain_version(cuda, dtype):
+    """``ops.dot_product_attention`` (K1/K2 with the key mask, a batch
+    element with every key masked handed over with every key kept and q
+    zeroed) against the op's plain version on the same inputs: o and the
+    gradients of q, k and v, by K1's and K2's rows; the fully masked
+    element averages v and sends q and k nothing."""
+    from deeplearning4j_tpu_torch.ops import standard as ops
+    q, k, v, do, kmask = _masked_case(3, 4, 200, 300, 64, dtype, 9)
+    kmask[2] = False
+    mask = kmask[:, None, None, :]
+    xs = [x.detach().requires_grad_() for x in (q, k, v)]
+    ys = [x.detach().requires_grad_() for x in (q, k, v)]
+    fa.plain_route_calls = 0
+    o = ops.dot_product_attention(*xs, mask=mask)
+    o.backward(do)
+    o_ref = ops.dot_product_attention_plain(*ys, mask=mask)
+    o_ref.backward(do)
+    assert fa.plain_route_calls == 0
+    bf16 = dtype == torch.bfloat16
+    assert (o.float() - o_ref.float()).abs().max().item() <= (
+        2e-2 if bf16 else 5e-5)
+    mean_v = v[2].float().mean(dim=1, keepdim=True)
+    assert (o[2].float() - mean_v).abs().max().item() <= (
+        2e-2 if bf16 else 5e-5)
+    for x, y in zip(xs, ys):
+        scale = max(y.grad.float().abs().max().item(), 1.0)
+        assert (x.grad.float() - y.grad.float()).abs().max().item() <= (
+            (1e-2 if bf16 else 1e-5) * scale)
+    assert not xs[0].grad[2].any() and not xs[1].grad[2].any()
+
+
+@pytest.mark.gpu
+def test_masked_kernels_reject_a_mask_of_another_shape(cuda):
+    q = torch.zeros((2, 2, 8, 64), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="key mask"):
+        fa.flash_attention_fwd(q, q, q, kmask=torch.ones(
+            (2, 9), dtype=torch.bool, device="cuda"))
+    with pytest.raises(ValueError, match="key mask"):
+        fa.flash_attention_fwd(q, q, q, kmask=torch.ones(
+            (3, 8), dtype=torch.bool, device="cuda"))
+    with pytest.raises(ValueError, match="key mask"):
+        fa.flash_attention_fwd(q, q, q, kmask=torch.ones((2, 8),
+                                                         dtype=torch.bool))

@@ -691,17 +691,12 @@ COPIED = {
         {n: _NET for n in (
             "CenterLossOutputLayer", "CnnLossLayer",
             "Convolution1DLayer", "Convolution3D", "Cropping2D",
-            "CrossAttentionLayer", "Deconvolution2D", "LAMBDA_REGISTRY",
-            "LambdaLayer", "LayerNormalization",
-            "LearnedSelfAttentionLayer", "PermuteLayer",
-            "RecurrentAttentionLayer", "RepeatVectorLayer", "ReshapeLayer",
-            "SelfAttentionLayer", "SeparableConvolution2D",
+            "Deconvolution2D", "LAMBDA_REGISTRY",
+            "LambdaLayer", "LayerNormalization", "PermuteLayer",
+            "RepeatVectorLayer", "ReshapeLayer", "SeparableConvolution2D",
             "SpatialDropoutLayer", "Upsampling2D",
             "deconv_pad_pairs")}, {}),
-    "nn/graph_conf": (
-        {n: "attention vertices: " + _NET for n in (
-            "AdditiveAttentionVertex", "DotProductAttentionVertex",
-            "DotVertex")}, {}),
+    "nn/graph_conf": ({}, {}),
     "nn/weightnoise": (
         {n: "weight noise: " + _NET for n in (
             "DropConnect", "WeightNoise", "noise_from_dict")}, {}),
@@ -723,8 +718,11 @@ COPIED = {
     "optim/updaters": ({}, {}),
     "models/zoo/base": ({}, {}),
     "models/zoo/resnet": ({}, {}),
-    "models/zoo/cnn_small": (
-        {"AlexNet": "the other zoo models: " + _NET}, {}),
+    "models/zoo/cnn_small": ({}, {}),
+    "models/zoo/vgg": ({}, {}),
+    "models/zoo/darknet": (
+        {n: "Yolo2OutputLayer: " + _NET for n in ("TinyYOLO", "YOLO2")},
+        {}),
 }
 
 

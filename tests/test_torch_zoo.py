@@ -1,9 +1,11 @@
-"""The port's zoo models against the JAX package's: ResNet-50
-(``ComputationGraph``), LeNet and SimpleCNN (``MultiLayerNetwork``) have
-the same layers and vertices, names, inputs, param shapes and parameter
-counts; ResNet-50's analytic FLOP count equals a hand formula. No
-full-size forward runs here (too slow for the CPU tier); the card runs
-ResNet-50 at full width in ``chip_smoke.py``'s ``network_phase``.
+"""The port's zoo models against the JAX package's: ResNet-50 and
+Darknet19 (``ComputationGraph``), LeNet, SimpleCNN, VGG16, VGG19 and
+AlexNet (``MultiLayerNetwork``) have the same layers and vertices, names,
+inputs, param shapes and parameter counts; ResNet-50's and VGG16's
+analytic FLOP counts equal hand formulas. No full-size forward runs here
+(too slow for the CPU tier); the card runs ResNet-50, VGG16, VGG19,
+Darknet19 and AlexNet at full width in ``chip_smoke.py``'s
+``network_phase``.
 """
 import numpy as np
 import pytest
@@ -89,18 +91,71 @@ def test_resnet50_flops_equal_a_hand_formula():
         _resnet50_forward_flops(2, hw=64, classes=10)
 
 
-@pytest.mark.parametrize("name", ["LeNet", "SimpleCNN"])
+@pytest.mark.parametrize("name", ["LeNet", "SimpleCNN", "VGG16", "VGG19",
+                                  "Darknet19", "AlexNet"])
 def test_small_zoo_confs_equal_reference(name):
+    """Node for node at the models' own input size; the parameter count of
+    a net initialised at 64² with 10 classes (the 224² nets are 60-145 M
+    parameters, which this tier does not allocate) equals the reference
+    conf's at that size."""
     j = getattr(j_zoo, name)().conf()
     t = getattr(t_zoo, name)().conf()
-    assert [type(l).__name__ for l in t.layers] == \
-        [type(l).__name__ for l in j.layers]
-    assert [l.param_shapes() for l in t.layers] == \
-        [l.param_shapes() for l in j.layers]
-    assert [l.to_dict() for l in t.layers] == [l.to_dict() for l in j.layers]
+    if hasattr(j, "layers"):
+        assert [type(l).__name__ for l in t.layers] == \
+            [type(l).__name__ for l in j.layers]
+        assert [l.param_shapes() for l in t.layers] == \
+            [l.param_shapes() for l in j.layers]
+        assert [l.to_dict() for l in t.layers] == \
+            [l.to_dict() for l in j.layers]
+    else:
+        assert _graph_nodes(t) == _graph_nodes(j)
     assert t.to_json() == j.to_json()
-    net = getattr(t_zoo, name)().init_model(device="cpu")
-    assert net.numParams() == sum(l.n_params() for l in j.layers)
+    small = ({} if name in ("LeNet", "SimpleCNN")
+             else dict(input_shape=(64, 64, 3), num_classes=10))
+    net = getattr(t_zoo, name)(**small).init_model(device="cpu")
+    js = getattr(j_zoo, name)(**small).conf()
+    layers = (js.layers if hasattr(js, "layers") else
+              [n.layer for n in js.nodes.values() if n.layer is not None])
+    assert net.numParams() == sum(l.n_params() for l in layers)
+
+
+@pytest.mark.parametrize("name,want", [
+    ("VGG16", 138357544), ("VGG19", 143667240), ("AlexNet", 62378344),
+    ("Darknet19", 21843376)])
+def test_zoo_param_counts_at_224(name, want):
+    """At 224², 1000 classes (VGG16 and VGG19's published 138.4 M and
+    143.7 M; AlexNet's one-tower 62.4 M; Darknet19 with its BN's gamma
+    and beta), from the confs on both sides."""
+    counts = []
+    for zoo in (j_zoo, t_zoo):
+        conf = getattr(zoo, name)().conf()
+        layers = (conf.layers if hasattr(conf, "layers") else
+                  [n.layer for n in conf.nodes.values()
+                   if n.layer is not None])
+        counts.append(sum(l.n_params() for l in layers))
+    assert counts == [want, want]
+
+
+def _vgg16_forward_flops(batch, hw=224, classes=1000):
+    """2 a multiply-add: 3x3 "same" convolutions block by block (each
+    block at a half the previous spatial size), then the three dense
+    layers over the 7x7x512 map."""
+    blocks = [(64, [3, 64]), (128, [64, 128]), (256, [128, 256, 256]),
+              (512, [256, 512, 512]), (512, [512, 512, 512])]
+    total, side = 0, hw
+    for c_out, c_ins in blocks:
+        total += sum(side * side * 9 * c_in * c_out for c_in in c_ins)
+        side //= 2
+    total += side * side * 512 * 4096 + 4096 * 4096 + 4096 * classes
+    return 2 * batch * total
+
+
+def test_vgg16_flops_equal_a_hand_formula():
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    net = MultiLayerNetwork(t_zoo.VGG16().conf(), device="cpu")
+    assert net._forward_flops(2) == _vgg16_forward_flops(2)
+    assert _vgg16_forward_flops(1) == 30940528640    # 15.47 GMACs an image
+    assert net.step_cost(32)[0] == train_flops(_vgg16_forward_flops(32))
 
 
 def test_lenet_flops():
