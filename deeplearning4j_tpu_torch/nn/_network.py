@@ -17,6 +17,7 @@ Compile accounting notes the first run of each step signature
 """
 from __future__ import annotations
 
+import math
 import time
 from typing import Dict, List, Optional
 
@@ -29,6 +30,8 @@ from deeplearning4j_tpu_torch.nn._precision import _cast_float
 from deeplearning4j_tpu_torch.nn._step_tail import finish_train_step
 from deeplearning4j_tpu_torch.nn.conf import layers as L
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.nn.conf.variational import (
+    VariationalAutoencoder)
 from deeplearning4j_tpu_torch.observability import compile_watch as _cw
 from deeplearning4j_tpu_torch.observability import cost_model as _cost
 from deeplearning4j_tpu_torch.observability import numerics as _num
@@ -108,9 +111,12 @@ def layer_flops(layer, in_type: Optional[InputType], batch: int,
     ``RnnOutputLayer`` too); a recurrent layer's 2·N·T·(n_in + H)·G·H
     with G its gates (4, 3, 1), twice under ``Bidirectional``; an
     attention layer's :func:`attention_flops` (a cross-attention layer's
-    keys as long as ``kv_type``, its second input). T is ``t``, else the
-    input type's length, else 1 (FLOPs a step). Elementwise work,
-    pooling, normalization and embedding gathers count 0."""
+    keys as long as ``kv_type``, its second input); the convolution-like
+    layers' :func:`conv_flops`; a capsule layer's predictions and routing
+    products; a VAE's encoder (its forward emits the posterior mean); a
+    wrapper its inner layer's. T is ``t``, else the input type's length,
+    else 1 (FLOPs a step). Elementwise work, pooling, normalization and
+    embedding gathers count 0."""
     steps = _length(in_type, t)
     if isinstance(layer, (L.SelfAttentionLayer, L.LearnedSelfAttentionLayer,
                           L.RecurrentAttentionLayer)):
@@ -127,16 +133,78 @@ def layer_flops(layer, in_type: Optional[InputType], batch: int,
         if isinstance(layer, cls):
             return (2 * batch * steps * (layer.n_in + layer.n_out) * gates
                     * layer.n_out)
-    if isinstance(layer, L.ConvolutionLayer) and in_type is not None:
-        ho, wo = layer._spatial_out(in_type)
-        kh, kw = layer.kernel_size
-        return 2 * batch * ho * wo * kh * kw * layer.n_in * layer.n_out
+    if isinstance(layer, (L.FrozenLayer, L.FrozenLayerWithBackprop,
+                          L.MaskZeroLayer)):
+        layer._materialize()
+        return layer_flops(layer._inner_layer, in_type, batch, t)
+    if in_type is not None:
+        conv = conv_flops(layer, in_type, batch)
+        if conv is not None:
+            return conv
+    if isinstance(layer, L.CapsuleLayer):
+        i, j = layer.input_capsules, layer.capsules
+        d, e = layer.capsule_dimensions, layer.input_capsule_dimensions
+        return 2 * batch * i * j * d * (e + 2 * layer.routings - 1)
+    if isinstance(layer, VariationalAutoencoder):
+        sizes = (layer.n_in,) + layer.encoder_layer_sizes
+        return (sum(2 * batch * a * b for a, b in zip(sizes, sizes[1:]))
+                + 2 * 2 * batch * sizes[-1] * layer.n_out)
     if isinstance(layer, L.DenseLayer):
         per_step = 2 * batch * layer.n_in * layer.n_out
         rnn = isinstance(layer, L.RnnOutputLayer) or (
             in_type is not None and in_type.kind == "rnn")
         return per_step * (steps if rnn else 1)
     return 0
+
+
+def conv_flops(layer, in_type: InputType, batch: int) -> Optional[int]:
+    """A convolution-like layer's forward FLOPs, 2 a multiply-add, from its
+    input and output types; None for any other layer. Each output point of
+    a convolution (2-D, 1-D, 3-D, locally connected, the primary capsules)
+    takes its window · Cin · Cout; a depthwise one its window · m a
+    channel, a separable one that plus its 1×1 product; a transposed one
+    (2-D, 3-D) each INPUT point's window · Cin · Cout; ConvLSTM2D a step
+    its input and recurrent convolutions into the four gates."""
+    out = layer.output_type(in_type)
+    if isinstance(layer, (L.ConvolutionLayer, L.LocallyConnected2D)):
+        kh, kw = layer.kernel_size
+        return (2 * batch * out.height * out.width * kh * kw * layer.n_in
+                * layer.n_out)
+    if isinstance(layer, L.PrimaryCapsules):
+        kh, kw = layer.kernel_size
+        oh, ow = layer._out_hw()
+        return (2 * batch * oh * ow * kh * kw * layer.n_in * layer.channels
+                * layer.capsule_dimensions)
+    if isinstance(layer, (L.SeparableConvolution2D,
+                          L.DepthwiseConvolution2D)):
+        kh, kw = layer.kernel_size
+        cm = layer.n_in * layer.depth_multiplier
+        pw = (cm * layer.n_out
+              if isinstance(layer, L.SeparableConvolution2D) else 0)
+        return 2 * batch * out.height * out.width * (kh * kw * cm + pw)
+    if isinstance(layer, (L.Convolution1DLayer, L.LocallyConnected1D)):
+        return (2 * batch * out.timeseries_length * layer.kernel_size
+                * layer.n_in * layer.n_out)
+    if isinstance(layer, L.SeparableConvolution1D):
+        cm = layer.n_in * layer.depth_multiplier
+        return (2 * batch * out.timeseries_length
+                * (layer.kernel_size * cm + cm * layer.n_out))
+    if isinstance(layer, L.Convolution3D):
+        return (2 * batch * out.depth * out.height * out.width
+                * math.prod(layer.kernel_size) * layer.n_in * layer.n_out)
+    if isinstance(layer, L.Deconvolution2D):
+        kh, kw = layer.kernel_size
+        return (2 * batch * in_type.height * in_type.width * kh * kw
+                * layer.n_in * layer.n_out)
+    if isinstance(layer, L.Deconvolution3D):
+        return (2 * batch * in_type.depth * in_type.height * in_type.width
+                * math.prod(layer.kernel_size) * layer.n_in * layer.n_out)
+    if isinstance(layer, L.ConvLSTM2D):
+        kh, kw = layer.kernel_size
+        f = layer.n_out
+        return (2 * batch * max(in_type.depth, 1) * out.height * out.width
+                * kh * kw * (layer.n_in + f) * 4 * f)
+    return None
 
 
 def train_flops(forward_flops: int) -> int:
@@ -191,9 +259,6 @@ class NetworkBase:
         gen = torch.Generator().manual_seed(int(self.conf.seed))
         params, states, shapes = {}, {}, {}
         for key, layer in self._param_layers():
-            if getattr(layer, "weight_noise", None) is not None:
-                raise NotImplementedError(
-                    f"layer {key}: weight noise is not ported yet")
             shapes[key] = dict(layer.param_shapes())
             params[key] = layer.init_params(gen) if layer.has_params() else {}
             st = layer.init_state()
@@ -643,6 +708,16 @@ def as_tuple(x) -> tuple:
     if isinstance(x, (list, tuple)):
         return tuple(x)
     return (x,)
+
+
+def with_weight_noise(layer, lp, training, gen):
+    """``lp`` as the layer's training forward sees it: under its
+    ``weight_noise`` (DropConnect, WeightNoise) when training with a
+    generator, else as it is (the reference's forward walks)."""
+    wn = getattr(layer, "weight_noise", None)
+    if wn is None or not training or gen is None:
+        return lp
+    return wn.apply(lp, gen, layer=layer)
 
 
 def run_recurrent(layer, lp, h, carries, key, training, gen, mask):

@@ -14,25 +14,19 @@ Conventions (the reference's):
 - the ``dropout`` field is the RETAIN probability;
 - param dict insertion order defines the flat-param-vector layout.
 
-Ported here: ``Layer``, ``DenseLayer``, ``OutputLayer``, ``LossLayer``,
-``ActivationLayer``, ``DropoutLayer``, ``FlattenLayer``,
-``ConvolutionLayer``, ``SubsamplingLayer``, ``ZeroPaddingLayer``,
-``GlobalPoolingLayer``, ``BatchNormalization``,
-``LocalResponseNormalization``, ``EmbeddingLayer``,
-``EmbeddingSequenceLayer`` and the recurrent layers (``LSTM``,
-``GravesLSTM``, ``GRU``, ``SimpleRnn``, ``Bidirectional``,
-``RnnOutputLayer``, ``LastTimeStep``; their time loops in
-``kernels/rnn_cell.py``) and the attention layers
-(``SelfAttentionLayer``, ``CrossAttentionLayer``,
-``LearnedSelfAttentionLayer``, ``RecurrentAttentionLayer``: each computes
-``ops.standard.dot_product_attention``, which runs on the flash kernels
-K1/K2 with the sequence mask as a key mask). The other layers of the
-reference (``CenterLossOutputLayer``, the 1-D/3-D and deconvolution
-layers, ``layers2``) wait (ROADMAP queue 1 item 8.3).
+Every class of the reference's ``layers.py`` is here, and its tranche
+``layers2.py`` is re-exported at the end (``nn/conf/layers2.py``). The
+convolutions are cuDNN's on NHWC views (``ops/standard.py``); the
+recurrent layers' time loops are in ``kernels/rnn_cell.py``; the attention
+layers compute ``ops.standard.dot_product_attention``, which runs on the
+flash kernels K1/K2 with the sequence mask as a key mask. A layer's
+``weight_noise`` (``nn/weightnoise.py``) acts on its weights in the
+networks' training forward.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -66,6 +60,9 @@ def layer_from_dict(d: dict) -> "Layer":
 
 
 def _revive(k, v):
+    if k == "weight_noise" and isinstance(v, dict):
+        from deeplearning4j_tpu_torch.nn.weightnoise import noise_from_dict
+        return noise_from_dict(v)
     if k == "dropout" and isinstance(v, dict):
         from deeplearning4j_tpu_torch.nn.conf.dropout import dropout_from_dict
         return dropout_from_dict(v)
@@ -99,14 +96,16 @@ class Layer:
     l2: Optional[float] = None
     dropout: Optional[float] = None     # retain probability
     bias_init: float = 0.0
-    # weight noise (a dict in the reference's JSON): not ported yet, so a
-    # network with it set raises at init (nn/_network.py)
+    # a DropConnect or WeightNoise (nn/weightnoise.py): applied to the
+    # layer's weights by the networks' training forward
     weight_noise: Any = None
 
     # ---------------- config protocol
     def to_dict(self) -> dict:
         d = {k: v for k, v in dataclasses.asdict(self).items()
              if not k.startswith("_") and (v is not None or k in ("name",))}
+        if self.weight_noise is not None:
+            d["weight_noise"] = self.weight_noise.to_dict()
         from deeplearning4j_tpu_torch.nn.conf.dropout import IDropout
         if isinstance(self.dropout, IDropout):
             d["dropout"] = self.dropout.to_dict()
@@ -237,6 +236,57 @@ class OutputLayer(DenseLayer):
 
 @register_layer
 @dataclasses.dataclass
+class CenterLossOutputLayer(OutputLayer):
+    """Softmax head plus center loss: each example's feature vector is
+    pulled toward its class center, weighted by ``lambda_``; the centers
+    (one per class, in feature space) move toward the features at rate
+    ``alpha``. As in the reference, the centers are parameters driven by a
+    split loss: ``pull`` with the centers detached, ``update`` with the
+    features detached, so the optimizer moves a center at lr · alpha
+    (alpha composes with the learning rate). ``gradient_check=True`` keeps
+    both terms without the detaches."""
+    alpha: float = 0.05
+    lambda_: float = 2e-4
+    gradient_check: bool = False
+    #: centers are statistics, not weights: no L1/L2, no weight noise
+    non_weight_params = ("centers",)
+
+    def param_shapes(self):
+        shapes = super().param_shapes()
+        shapes["centers"] = (self.n_out, self.n_in)
+        return shapes
+
+    def init_params(self, gen):
+        p = super().init_params(gen)
+        p["centers"] = torch.zeros((self.n_out, self.n_in))
+        return p
+
+    def loss(self, params, x, labels, mask=None, training=False, gen=None,
+             state=None):
+        x = self._maybe_dropout(x, training, gen)
+        if x.dim() >= 4 or (x.dim() == 3 and x.shape[-1] != self.n_in):
+            x = x.reshape(x.shape[0], -1)
+        head = {k: v for k, v in params.items() if k != "centers"}
+        ce = OutputLayer.loss(self, head, x, labels, mask=mask)
+        cy = promote_mm(labels.to(params["centers"].dtype),
+                        params["centers"])            # (N, n_in)
+        w = (torch.ones((x.shape[0],), dtype=x.dtype, device=x.device)
+             if mask is None else mask.reshape(-1).to(x.dtype))
+
+        def sq(a, b):
+            return torch.sum(w * torch.sum(torch.square(a - b), dim=-1)) \
+                / torch.maximum(torch.sum(w), torch.ones((), dtype=w.dtype,
+                                                         device=w.device))
+
+        if self.gradient_check:
+            return ce + 0.5 * (self.lambda_ + self.alpha) * sq(x, cy)
+        pull = 0.5 * self.lambda_ * sq(x, cy.detach())
+        update = 0.5 * self.alpha * sq(x.detach(), cy)
+        return ce + pull + update
+
+
+@register_layer
+@dataclasses.dataclass
 class LossLayer(Layer):
     """Loss without params."""
     loss_function: str = "mse"
@@ -269,6 +319,28 @@ class DropoutLayer(Layer):
 
 @register_layer
 @dataclasses.dataclass
+class SpatialDropoutLayer(Layer):
+    """Channel-wise dropout: whole feature maps drop together. ``dropout``
+    is the retain probability, one draw per (example, channel)."""
+
+    def apply(self, params, x, training=False, gen=None, state=None):
+        from deeplearning4j_tpu_torch.nn.conf.dropout import IDropout
+        if isinstance(self.dropout, IDropout):
+            raise ValueError(
+                "SpatialDropoutLayer defines its own channel-wise scheme; "
+                "IDropout objects are not composable here — use a plain "
+                "retain probability")
+        if not training or gen is None or self.dropout is None \
+                or self.dropout >= 1.0:
+            return x, state
+        keep = self.dropout
+        shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
+        mask = torch.rand(shape, generator=gen, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x)), state
+
+
+@register_layer
+@dataclasses.dataclass
 class FlattenLayer(Layer):
     """(N, ...) → (N, ∏dims) row-major (NHWC order)."""
 
@@ -277,6 +349,87 @@ class FlattenLayer(Layer):
 
     def apply(self, params, x, training=False, gen=None, state=None):
         return x.reshape(x.shape[0], -1), state
+
+
+@register_layer
+@dataclasses.dataclass
+class ReshapeLayer(Layer):
+    """Row-wise reshape to ``target_shape`` (one -1 resolved from the
+    input's size); the batch dim is untouched."""
+    target_shape: Tuple[int, ...] = ()
+
+    def __post_init__(self):
+        self.target_shape = tuple(int(s) for s in self.target_shape)
+
+    def _resolved(self, total: Optional[int]) -> Tuple[int, ...]:
+        t = self.target_shape
+        if -1 not in t:
+            return t
+        if t.count(-1) > 1:
+            raise ValueError(f"reshape target {t} has multiple -1 dims")
+        if not total:
+            raise ValueError(
+                f"reshape target {t} needs a known input size to resolve -1")
+        known = math.prod(d for d in t if d != -1)
+        return tuple(total // known if d == -1 else d for d in t)
+
+    def output_type(self, input_type: InputType) -> InputType:
+        t = self._resolved(input_type.array_elements())
+        self.target_shape = t            # pinned for apply
+        if len(t) == 1:
+            return InputType.feed_forward(t[0])
+        if len(t) == 2:
+            return InputType.recurrent(t[1], t[0])
+        if len(t) == 3:
+            return InputType.convolutional(t[0], t[1], t[2])
+        raise ValueError(f"unsupported reshape target {t}")
+
+    def apply(self, params, x, training=False, gen=None, state=None):
+        shape = self._resolved(math.prod(x.shape[1:]))
+        return x.reshape((x.shape[0],) + shape), state
+
+
+@register_layer
+@dataclasses.dataclass
+class PermuteLayer(Layer):
+    """Permute the non-batch dims, 1-indexed as Keras' ``Permute``."""
+    dims: Tuple[int, ...] = ()
+
+    def __post_init__(self):
+        self.dims = tuple(int(d) for d in self.dims)
+
+    def output_type(self, input_type: InputType) -> InputType:
+        if input_type.kind == "rnn" and self.dims == (2, 1):
+            tsl = input_type.timeseries_length
+            if tsl is None or tsl < 0:
+                raise ValueError(
+                    "Permute((2,1)) on variable-length recurrent input: the "
+                    "permuted feature size would be the (unknown) sequence "
+                    "length — fix the input length")
+            return InputType.recurrent(tsl, input_type.size)
+        if input_type.kind == "cnn" and len(self.dims) == 3:
+            hwc = (input_type.height, input_type.width, input_type.channels)
+            return InputType.convolutional(*(hwc[d - 1] for d in self.dims))
+        raise ValueError(
+            f"Permute dims {self.dims} unsupported for input kind "
+            f"{input_type.kind!r}")
+
+    def apply(self, params, x, training=False, gen=None, state=None):
+        return x.permute((0,) + self.dims), state
+
+
+@register_layer
+@dataclasses.dataclass
+class RepeatVectorLayer(Layer):
+    """(N, C) → (N, n, C)."""
+    n: int = 1
+
+    def output_type(self, input_type: InputType) -> InputType:
+        return InputType.recurrent(input_type.size, self.n)
+
+    def apply(self, params, x, training=False, gen=None, state=None):
+        return torch.repeat_interleave(x[:, None, :], int(self.n),
+                                       dim=1), state
 
 
 # ---------------------------------------------------------------------- conv
@@ -349,6 +502,147 @@ class ConvolutionLayer(_ConvBase):
         return self._act(z), state
 
 
+def deconv_pad_pairs(kernel_size, stride, dilation, padding,
+                     output_padding):
+    """Explicit (lo, hi) pads of the stride-dilated input of a transposed
+    convolution (out = (in − 1)·s + lo + hi − k_eff + 2), the reference's
+    rule for Deconvolution2D/3D: forward padding p gives lo = hi =
+    k_eff − 1 − p, and Keras' output_padding extends the high side.
+    "same": without output_padding pad_total = k_eff − s (TF's forward
+    "same" split, the odd pad high); with it pad_total = 2·(k_eff // 2) −
+    op."""
+    keff = tuple((k - 1) * d + 1 for k, d in zip(kernel_size, dilation))
+    op = output_padding or (0,) * len(keff)
+    if isinstance(padding, str) and padding.lower() == "same":
+        pairs = []
+        for k, s, o in zip(keff, stride, op):
+            total = (max(k - s, 0) if output_padding is None
+                     else 2 * (k // 2) - o)
+            lo_f = total // 2
+            pairs.append((k - 1 - lo_f, k - 1 - (total - lo_f)))
+        return pairs
+    pads = (0,) * len(keff) if isinstance(padding, str) else padding
+    return [(k - 1 - p, k - 1 - p + o) for k, p, o in zip(keff, pads, op)]
+
+
+def _deconv_pads(layer):
+    """The pads of a Deconvolution2D/3D's ``lax.conv_transpose``: a plain
+    layer (no output_padding, no dilation) with string padding takes lax's
+    own "SAME"/"VALID" rule, every other one ``deconv_pad_pairs``."""
+    plain = (not layer.output_padding
+             and all(d == 1 for d in layer.dilation))
+    if plain and isinstance(layer.padding, str):
+        return _ops.conv_transpose_same_valid(layer.kernel_size,
+                                              layer.stride, layer.padding)
+    return deconv_pad_pairs(layer.kernel_size, layer.stride, layer.dilation,
+                            layer.padding, layer.output_padding)
+
+
+@register_layer
+@dataclasses.dataclass
+class Deconvolution2D(_ConvBase):
+    """Transposed convolution (Keras ``Conv2DTranspose``, with
+    output_padding and dilation): ``W`` (kh, kw, n_in, n_out), the
+    reference's ``lax.conv_transpose(x, W.transpose(0, 1, 3, 2),
+    transpose_kernel=True)`` under its explicit pads, computed as
+    ``ops.standard.conv_transpose``: cuDNN's ``F.conv_transpose2d``
+    unpadded, then cropped to the reference's asymmetric pads."""
+    output_padding: Optional[Tuple[int, int]] = None
+
+    def _k_eff(self):
+        return tuple((k - 1) * d + 1
+                     for k, d in zip(self.kernel_size, self.dilation))
+
+    def _pad_pairs(self):
+        return deconv_pad_pairs(self.kernel_size, self.stride,
+                                self.dilation, self.padding,
+                                self.output_padding)
+
+    def output_type(self, input_type: InputType) -> InputType:
+        same = isinstance(self.padding, str) and self.padding.lower() == "same"
+        if same and not self.output_padding \
+                and all(d == 1 for d in self.dilation):
+            h = input_type.height * self.stride[0]
+            w = input_type.width * self.stride[1]
+        else:
+            keff = self._k_eff()
+            pairs = self._pad_pairs()
+            h = (self.stride[0] * (input_type.height - 1) + sum(pairs[0])
+                 - keff[0] + 2)
+            w = (self.stride[1] * (input_type.width - 1) + sum(pairs[1])
+                 - keff[1] + 2)
+        return InputType.convolutional(h, w, self.n_out)
+
+    def param_shapes(self):
+        kh, kw = self.kernel_size
+        shapes = {"W": (kh, kw, self.n_in, self.n_out)}
+        if self.has_bias:
+            shapes["b"] = (self.n_out,)
+        return shapes
+
+    def init_params(self, gen):
+        kh, kw = self.kernel_size
+        p = {"W": _winit.init(self.weight_init, gen,
+                              (kh, kw, self.n_in, self.n_out),
+                              kh * kw * self.n_in, kh * kw * self.n_out)}
+        if self.has_bias:
+            p["b"] = torch.full((self.n_out,), float(self.bias_init))
+        return p
+
+    def apply(self, params, x, training=False, gen=None, state=None):
+        x = self._maybe_dropout(x, training, gen)
+        z = _ops.conv_transpose(x, params["W"], self.stride,
+                                _deconv_pads(self), self.dilation)
+        if self.has_bias:
+            z = z + params["b"]
+        return self._act(z), state
+
+
+@register_layer
+@dataclasses.dataclass
+class SeparableConvolution2D(_ConvBase):
+    """Depthwise-separable convolution: ``dW`` (kh, kw, n_in, m) convolves
+    each input channel with its m filters (``ops.standard
+    .depthwise_conv2d``: cuDNN's grouped convolution, groups n_in, channel
+    c's filter j at output channel c·m + j), then ``pW`` (1, 1, n_in·m,
+    n_out) mixes them (a 1×1 convolution, plus ``b``)."""
+    depth_multiplier: int = 1
+
+    def output_type(self, input_type: InputType) -> InputType:
+        h, w = self._spatial_out(input_type)
+        return InputType.convolutional(h, w, self.n_out)
+
+    def param_shapes(self):
+        kh, kw = self.kernel_size
+        m = self.depth_multiplier
+        shapes = {"dW": (kh, kw, self.n_in, m),
+                  "pW": (1, 1, self.n_in * m, self.n_out)}
+        if self.has_bias:
+            shapes["b"] = (self.n_out,)
+        return shapes
+
+    def init_params(self, gen):
+        kh, kw = self.kernel_size
+        m = self.depth_multiplier
+        p = {"dW": _winit.init(self.weight_init, gen, (kh, kw, self.n_in, m),
+                               kh * kw * self.n_in, kh * kw * m),
+             "pW": _winit.init(self.weight_init, gen,
+                               (1, 1, self.n_in * m, self.n_out),
+                               self.n_in * m, self.n_out)}
+        if self.has_bias:
+            p["b"] = torch.full((self.n_out,), float(self.bias_init))
+        return p
+
+    def apply(self, params, x, training=False, gen=None, state=None):
+        x = self._maybe_dropout(x, training, gen)
+        z = _ops.depthwise_conv2d(x, params["dW"], strides=self.stride,
+                                  padding=self._lax_padding(),
+                                  dilation=self.dilation)
+        z = _ops.conv2d(z, params["pW"], params.get("b"), strides=(1, 1),
+                        padding="VALID")
+        return self._act(z), state
+
+
 @register_layer
 @dataclasses.dataclass
 class SubsamplingLayer(Layer):
@@ -390,6 +684,30 @@ class SubsamplingLayer(Layer):
 
 @register_layer
 @dataclasses.dataclass
+class Upsampling2D(Layer):
+    """Nearest (each row and column repeated) or bilinear (``jax.image
+    .resize``'s, ``ops.standard.resize_bilinear``) upsampling by
+    ``size``."""
+    size: Tuple[int, int] = (2, 2)
+    interpolation: str = "nearest"
+
+    def __post_init__(self):
+        self.size = _pair(self.size)
+
+    def output_type(self, input_type: InputType) -> InputType:
+        return InputType.convolutional(input_type.height * self.size[0],
+                                       input_type.width * self.size[1],
+                                       input_type.channels)
+
+    def apply(self, params, x, training=False, gen=None, state=None):
+        if self.interpolation == "bilinear":
+            h, w = x.shape[1] * self.size[0], x.shape[2] * self.size[1]
+            return _ops.resize_bilinear(x, (h, w)), state
+        return _ops.upsampling2d(x, self.size), state
+
+
+@register_layer
+@dataclasses.dataclass
 class ZeroPaddingLayer(Layer):
     padding: Tuple[int, int, int, int] = (1, 1, 1, 1)  # top,bottom,left,right
 
@@ -405,6 +723,26 @@ class ZeroPaddingLayer(Layer):
     def apply(self, params, x, training=False, gen=None, state=None):
         t, b, l, r = self.padding
         return F.pad(x, (0, 0, l, r, t, b)), state
+
+
+@register_layer
+@dataclasses.dataclass
+class Cropping2D(Layer):
+    cropping: Tuple[int, int, int, int] = (0, 0, 0, 0)  # top,bottom,left,right
+
+    def __post_init__(self):
+        self.cropping = _pad4(self.cropping)
+
+    def output_type(self, input_type: InputType) -> InputType:
+        t, b, l, r = self.cropping
+        return InputType.convolutional(input_type.height - t - b,
+                                       input_type.width - l - r,
+                                       input_type.channels)
+
+    def apply(self, params, x, training=False, gen=None, state=None):
+        t, b, l, r = self.cropping
+        return x[:, t:x.shape[1] - b or None,
+                 l:x.shape[2] - r or None, :], state
 
 
 @register_layer
@@ -1221,3 +1559,232 @@ class RecurrentAttentionLayer(Layer):
                           + params["b"])
             outs.append(h)
         return torch.stack(outs, dim=1), state
+
+
+# ------------------------------------------------------------ conv1d/conv3d
+@register_layer
+@dataclasses.dataclass
+class Convolution1DLayer(Layer):
+    """1-D convolution over (N, T, C) sequences (``ops.standard.conv1d``).
+    ``padding``: an int, "same", or "causal" (left pad (k − 1)·dilation)."""
+    kernel_size: int = 3
+    stride: int = 1
+    padding: Any = 0
+    dilation: int = 1
+    n_in: Optional[int] = None
+    n_out: Optional[int] = None
+    has_bias: bool = True
+
+    def set_n_in(self, input_type: InputType):
+        if self.n_in is None:
+            self.n_in = input_type.size
+
+    def output_type(self, input_type: InputType) -> InputType:
+        t = input_type.timeseries_length
+        if t is None or t < 0:
+            return InputType.recurrent(self.n_out, -1)
+        if isinstance(self.padding, str):  # same/causal keep ceil(T/s)
+            t_out = -(-t // self.stride)
+        else:
+            t_out = conv_out_size(t, self.kernel_size, self.stride,
+                                  self.padding, self.dilation)
+        return InputType.recurrent(self.n_out, t_out)
+
+    def param_shapes(self):
+        shapes = {"W": (self.kernel_size, self.n_in, self.n_out)}
+        if self.has_bias:
+            shapes["b"] = (self.n_out,)
+        return shapes
+
+    def init_params(self, gen):
+        k = self.kernel_size
+        p = {"W": _winit.init(self.weight_init, gen, (k, self.n_in, self.n_out),
+                              k * self.n_in, k * self.n_out)}
+        if self.has_bias:
+            p["b"] = torch.full((self.n_out,), float(self.bias_init))
+        return p
+
+    def apply(self, params, x, training=False, gen=None, state=None):
+        x = self._maybe_dropout(x, training, gen)
+        pad = self.padding
+        if isinstance(pad, str) and pad.lower() == "causal":
+            left = (self.kernel_size - 1) * self.dilation
+            x = F.pad(x, (0, 0, left, 0))
+            pad = 0
+        z = _ops.conv1d(x, params["W"], params.get("b"), stride=self.stride,
+                        padding=(pad.upper() if isinstance(pad, str)
+                                 else [(pad, pad)]),
+                        dilation=self.dilation)
+        return self._act(z), state
+
+
+def _triple(v):
+    return (v, v, v) if isinstance(v, int) else tuple(v)
+
+
+@register_layer
+@dataclasses.dataclass
+class Convolution3D(Layer):
+    """3-D convolution over NDHWC volumes (``ops.standard.conv3d``:
+    ``F.conv3d`` on the NCDHW view)."""
+    kernel_size: Tuple[int, int, int] = (3, 3, 3)
+    stride: Tuple[int, int, int] = (1, 1, 1)
+    padding: Any = 0
+    dilation: Tuple[int, int, int] = (1, 1, 1)
+    n_in: Optional[int] = None
+    n_out: Optional[int] = None
+    has_bias: bool = True
+
+    def __post_init__(self):
+        self.kernel_size = _triple(self.kernel_size)
+        self.stride = _triple(self.stride)
+        self.dilation = _triple(self.dilation)
+        if not isinstance(self.padding, str):
+            self.padding = _triple(self.padding)
+
+    def set_n_in(self, input_type: InputType):
+        if self.n_in is None:
+            self.n_in = input_type.channels
+
+    def output_type(self, input_type: InputType) -> InputType:
+        same = isinstance(self.padding, str) and self.padding.lower() == "same"
+        pads = (0, 0, 0) if same else self.padding
+        d, h, w = (conv_out_size(s, k, st, p, dl, same)
+                   for s, k, st, p, dl in zip(
+                       (input_type.depth, input_type.height, input_type.width),
+                       self.kernel_size, self.stride, pads, self.dilation))
+        return InputType.convolutional3d(d, h, w, self.n_out)
+
+    def param_shapes(self):
+        kd, kh, kw = self.kernel_size
+        shapes = {"W": (kd, kh, kw, self.n_in, self.n_out)}
+        if self.has_bias:
+            shapes["b"] = (self.n_out,)
+        return shapes
+
+    def init_params(self, gen):
+        vol = math.prod(self.kernel_size)
+        p = {"W": _winit.init(self.weight_init, gen,
+                              self.kernel_size + (self.n_in, self.n_out),
+                              vol * self.n_in, vol * self.n_out)}
+        if self.has_bias:
+            p["b"] = torch.full((self.n_out,), float(self.bias_init))
+        return p
+
+    def apply(self, params, x, training=False, gen=None, state=None):
+        x = self._maybe_dropout(x, training, gen)
+        pad = (self.padding.upper() if isinstance(self.padding, str)
+               else [(p, p) for p in self.padding])
+        z = _ops.conv3d(x, params["W"], params.get("b"), strides=self.stride,
+                        padding=pad, dilation=self.dilation)
+        return self._act(z), state
+
+
+@register_layer
+@dataclasses.dataclass
+class CnnLossLayer(Layer):
+    """Per-pixel loss over NHWC activations, no params; a label mask of
+    (N, H, W) or (N, H, W, 1) weights the pixels."""
+    loss_function: str = "mcxent"
+
+    def apply(self, params, x, training=False, gen=None, state=None):
+        return self._act(x), state
+
+    def loss(self, params, x, labels, mask=None, training=False, gen=None,
+             state=None):
+        n, h, w, c = x.shape
+        z = x.reshape(n * h * w, c)
+        lbl = labels.reshape(n * h * w, -1)
+        m = None if mask is None else mask.reshape(n * h * w)
+        fused = _loss.get_fused(self.loss_function,
+                                self.activation or "identity")
+        if fused is not None:
+            return fused(z, lbl, m)
+        return _loss.get(self.loss_function)(self._act(z), lbl, m)
+
+
+@register_layer
+@dataclasses.dataclass
+class LayerNormalization(Layer):
+    """Layer norm over the last axis with a learned gain and bias, its
+    statistics in >= f32 (``one_pass_moments``)."""
+    n_out: Optional[int] = None
+    eps: float = 1e-3
+    axis: int = -1
+
+    def set_n_in(self, input_type: InputType):
+        rank = len(input_type.batch_shape())
+        if self.axis not in (-1, rank - 1):
+            raise ValueError(
+                f"LayerNormalization normalizes the last axis; got "
+                f"axis={self.axis} for rank-{rank} input")
+        if self.n_out is None:
+            self.n_out = (input_type.channels
+                          if input_type.kind in ("cnn", "cnn3d")
+                          else input_type.size)
+
+    def param_shapes(self):
+        return {"gamma": (self.n_out,), "beta": (self.n_out,)}
+
+    def init_params(self, gen):
+        return {"gamma": torch.ones((self.n_out,)),
+                "beta": torch.zeros((self.n_out,))}
+
+    def apply(self, params, x, training=False, gen=None, state=None):
+        acc = torch.promote_types(x.dtype, torch.float32)
+        xf = x.to(acc)
+        mu, var = one_pass_moments(xf, -1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + self.eps)
+        y = y * params["gamma"].to(acc) + params["beta"].to(acc)
+        return self._act(y.to(x.dtype)), state
+
+
+#: lambda bodies by name: a body is code and does not serialize, so JSON
+#: stores the name and revival looks the body up here
+LAMBDA_REGISTRY: Dict[str, Any] = {}
+
+
+@register_layer
+@dataclasses.dataclass
+class LambdaLayer(Layer):
+    """A torch function as a layer. It serializes by name: a LambdaLayer
+    built with a body and a name registers it in ``LAMBDA_REGISTRY``; one
+    revived by name takes its body from there, and raises if none is
+    registered."""
+    fn: Any = None
+    output_type_fn: Any = None       # optional InputType -> InputType
+
+    def __post_init__(self):
+        if self.fn is None and self.name:
+            entry = LAMBDA_REGISTRY.get(self.name)
+            if entry is None:
+                raise ValueError(
+                    f"LambdaLayer {self.name!r}: body not registered — "
+                    f"build it once with its fn, or put (fn, output_type_fn) "
+                    f"in LAMBDA_REGISTRY[{self.name!r}], before loading")
+            self.fn, self.output_type_fn = entry
+        elif self.fn is not None and self.name:
+            LAMBDA_REGISTRY.setdefault(self.name,
+                                       (self.fn, self.output_type_fn))
+
+    def apply(self, params, x, training=False, gen=None, state=None):
+        return self.fn(x), state
+
+    def output_type(self, input_type):
+        if self.output_type_fn is not None:
+            return self.output_type_fn(input_type)
+        return input_type
+
+    def to_dict(self):
+        return {"@layer": "LambdaLayer", "name": self.name}
+
+
+# layers2.py's tranche, re-exported so that one ``layers`` module holds
+# every layer (and ``layer_from_dict`` revives them all)
+from deeplearning4j_tpu_torch.nn.conf.layers2 import (  # noqa: E402,F401
+    CapsuleLayer, CapsuleStrengthLayer, ConvLSTM2D, Cropping1D, Cropping3D,
+    Deconvolution3D, DepthwiseConvolution2D, FrozenLayer, PrimaryCapsules,
+    FrozenLayerWithBackprop, LocallyConnected1D, LocallyConnected2D,
+    MaskLayer, MaskZeroLayer, PReLULayer, SeparableConvolution1D,
+    Subsampling1DLayer, Subsampling3DLayer, Upsampling1D, Upsampling3D,
+    ZeroPadding1DLayer, ZeroPadding3DLayer)

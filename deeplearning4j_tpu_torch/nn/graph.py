@@ -26,7 +26,8 @@ import torch
 
 from deeplearning4j_tpu_torch.nn._network import (NetworkBase, as_tuple,
                                                   layer_flops, remat_apply,
-                                                  run_recurrent)
+                                                  run_recurrent,
+                                                  with_weight_noise)
 from deeplearning4j_tpu_torch.nn._precision import (_COMPUTE_DTYPES,
                                                     _cast_float, cast_params,
                                                     recast_like)
@@ -104,6 +105,7 @@ class ComputationGraph(NetworkBase):
             lp = params.get(name, {})
             if cdtype is not None and name not in out_names:
                 lp = cast_params(lp, cdtype)
+            lp = with_weight_noise(layer, lp, training, gen)
             lst = states.get(name)
             kwargs = {}
             if mask is not None and isinstance(layer, _MASK_AWARE):

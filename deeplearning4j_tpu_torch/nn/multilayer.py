@@ -14,7 +14,9 @@ Recurrent layers run from carries where the caller keeps them: truncated
 BPTT (``backprop_type("tbptt")``, ``nn/_network.py``'s ``_fit_tbptt``) and
 ``rnnTimeStep`` streaming; the carries stay f32 under the bf16 policy.
 
-``pretrain``, ``save`` / ``load``, ``evaluateROC*`` and
+``pretrain`` / ``pretrainLayer`` train a pretrainable layer (the
+``VariationalAutoencoder``) on its own loss, upstream layers in
+inference. ``save`` / ``load``, ``evaluateROC*`` and
 ``evaluateRegression`` wait with ``utils/serialization`` (ROADMAP queue 1
 item 8).
 """
@@ -25,7 +27,8 @@ from typing import List
 import torch
 
 from deeplearning4j_tpu_torch.nn._network import (NetworkBase, layer_flops,
-                                                  remat_apply, run_recurrent)
+                                                  remat_apply, run_recurrent,
+                                                  with_weight_noise)
 from deeplearning4j_tpu_torch.nn._precision import (_COMPUTE_DTYPES,
                                                     _cast_float, cast_params,
                                                     recast_like)
@@ -92,6 +95,7 @@ class MultiLayerNetwork(NetworkBase):
                 lp = cast_params(lp, cdtype)
             elif cdtype is not None:
                 h = _cast_float(h, torch.float32)   # final layer in f32
+            lp = with_weight_noise(layer, lp, training, gen)
             lst = states.get(lkey)
             kwargs = {}
             if mask is not None and isinstance(layer, _MASK_AWARE):
@@ -153,6 +157,73 @@ class MultiLayerNetwork(NetworkBase):
         return ((self._to_device(x),), (self._to_device(labels),),
                 None if mask is None else (self._to_device(mask),),
                 None if label_mask is None else (self._to_device(label_mask),))
+
+    # ------------------------------------------------------------- pretrain
+    def pretrain(self, data, epochs: int = 1):
+        """Layerwise unsupervised pretraining of every pretrainable layer
+        (ref: MultiLayerNetwork#pretrain)."""
+        for i, layer in enumerate(self.layers):
+            if getattr(layer, "is_pretrain_layer", lambda: False)():
+                self.pretrainLayer(i, data, epochs)
+        return self
+
+    def pretrainLayer(self, layer_idx: int, data, epochs: int = 1,
+                      eps=None):
+        """Unsupervised pretraining of one layer (ref:
+        MultiLayerNetwork#pretrainLayer): the activations of the layers
+        before it (in inference) feed its ``pretrain_loss``, and only its
+        params move, under a fresh updater state of the network's chain.
+        ``data``: a DataSet, an array, or an iterable of either. ``eps``:
+        the layer's draws, one a step in step order (else drawn from the
+        network's generator)."""
+        if not self._initialized:
+            self.init()
+        layer = self.layers[layer_idx]
+        if not hasattr(layer, "pretrain_loss"):
+            raise ValueError(f"layer {layer_idx} ({type(layer).__name__}) is "
+                             "not pretrainable")
+        from deeplearning4j_tpu_torch.optim.transforms import apply_updates
+        key = str(layer_idx)
+        names = list(self._params[key])
+        leaves = [self._params[key][n] for n in names]
+        opt_state = self._opt.init(leaves)
+        draws = iter(eps) if eps is not None else None
+        self._pending_score = None   # pretraining scores are synchronous
+        for _ in range(epochs):
+            if hasattr(data, "reset"):
+                data.reset()
+            single = hasattr(data, "features") or hasattr(data, "shape")
+            for ds in ([data] if single else data):
+                x = self._to_device(ds.features if hasattr(ds, "features")
+                                    else ds)
+                with torch.no_grad():
+                    h, _, _ = self._forward(self._params, self._states, x,
+                                            False, None, up_to=layer_idx)
+                for t in leaves:
+                    t.requires_grad_(True)
+                try:
+                    loss = layer.pretrain_loss(
+                        dict(zip(names, leaves)), h, gen=self._gen,
+                        eps=(None if draws is None
+                             else self._to_device(next(draws))))
+                    grads = torch.autograd.grad(loss, leaves,
+                                                allow_unused=True)
+                finally:
+                    for t in leaves:
+                        t.requires_grad_(False)
+                grads = [torch.zeros_like(t) if g is None else g
+                         for t, g in zip(leaves, grads)]
+                with torch.no_grad():
+                    updates, opt_state = self._opt.update(grads, opt_state,
+                                                          leaves)
+                    leaves = apply_updates(leaves, updates)
+                self._score = float(loss.detach())
+                self._iteration += 1
+                for lst in self._listeners:
+                    lst.iteration_done(self, self._iteration, self._epoch,
+                                       self._score)
+        self._params = {**self._params, key: dict(zip(names, leaves))}
+        return self
 
     # ------------------------------------------------------------- inference
     def output(self, x, train: bool = False, mask=None) -> torch.Tensor:

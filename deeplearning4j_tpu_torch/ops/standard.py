@@ -1,9 +1,13 @@
 """The standard ops the ported layers call: counterparts of the JAX
-package's ``ops/standard.py`` entries ``conv2d``, ``maxpool2d``,
-``avgpool2d``, ``pnormpool2d``, ``batchnorm``, ``lrn``,
-``dropout_inverted`` and ``dot_product_attention``, as plain functions
-(the op registry is not ported), and ``promote_mm``, the dtype rule of
-``jnp.matmul`` that the layers' products follow.
+package's ``ops/standard.py`` entries ``conv1d``, ``conv2d``, ``conv3d``,
+``depthwise_conv2d``, ``maxpool2d``, ``avgpool2d``, ``pnormpool2d``,
+``maxpool3d``, ``avgpool3d``, ``upsampling2d``, ``resize_bilinear``,
+``batchnorm``, ``lrn``, ``dropout_inverted`` and
+``dot_product_attention``, as plain functions (the op registry is not
+ported); ``conv_transpose``, the transposed convolution that the
+deconvolution layers take from ``lax.conv_transpose``; and
+``promote_mm``, the dtype rule of ``jnp.matmul`` that the layers'
+products follow.
 
 ``dot_product_attention`` runs on the hand flash kernels K1/K2
 (``kernels/flash_attention.py``) wherever :func:`attention_route` says
@@ -122,13 +126,16 @@ def maxpool2d(x, kernel=(2, 2), strides=None, padding="VALID"):
 
 
 def avgpool2d(x, kernel=(2, 2), strides=None, padding="VALID"):
-    """Mean over each window's real cells: padding is not counted."""
+    """Mean over each window's real cells: padding is not counted. A padded
+    pooling is each window's sum over the zero-padded input over its count
+    of real cells: ``F.avg_pool2d(count_include_pad=False)`` with padding
+    computes the right forward on the card, but its backward over a
+    channels-last input is not the forward's gradient there (NASNet's
+    3x3/1 pools read 104 % off the CPU's)."""
     kernel, strides = _pool_args(kernel, strides)
     pads = resolve_pads(padding, x.shape[1:3], kernel, strides)
-    if _symmetric_fits(pads, kernel):
-        return _nhwc(F.avg_pool2d(_nchw(x), kernel, strides,
-                                  (pads[0][0], pads[1][0]),
-                                  count_include_pad=False))
+    if all(lo == hi == 0 for lo, hi in pads):
+        return _nhwc(F.avg_pool2d(_nchw(x), kernel, strides))
     sums = _window_sum(_pad_nhwc(x, pads), kernel, strides)
     ones = _pad_nhwc(torch.ones_like(x[..., :1]), pads)
     return sums / _window_sum(ones, kernel, strides)
@@ -170,6 +177,175 @@ def dropout_inverted(x, gen, p=0.5):
     ``x / p``. ``gen`` is a ``torch.Generator`` on ``x``'s device."""
     keep = torch.rand(x.shape, generator=gen, device=x.device) < p
     return torch.where(keep, x / p, torch.zeros_like(x))
+
+
+# ------------------------------------------------- 1-D, 3-D and grouped
+def _pads_nd(padding, spatial, kernel, strides, dilation):
+    """[(lo, hi)] of each spatial dim for an N-d op (lax's rules)."""
+    nd = len(spatial)
+    if isinstance(padding, str):
+        if padding.upper() == "VALID":
+            return [(0, 0)] * nd
+        if padding.upper() != "SAME":
+            raise ValueError(f"unknown padding {padding!r}")
+        return [same_pads(s, k, st, d) for s, k, st, d in
+                zip(spatial, kernel, strides, dilation)]
+    if isinstance(padding, int):
+        padding = (padding,) * nd
+    if all(isinstance(p, (tuple, list)) for p in padding):
+        return [(int(lo), int(hi)) for lo, hi in padding]
+    return [(int(p), int(p)) for p in padding]
+
+
+def _channels_first(x):
+    return x.permute(0, x.dim() - 1, *range(1, x.dim() - 1))
+
+
+def _channels_last(x):
+    return x.permute(0, *range(2, x.dim()), 1)
+
+
+def _pad_spatial(x, pads, value=0.0):
+    """Pad the spatial dims of a channels-last ``x`` by (lo, hi) pairs."""
+    flat = [0, 0]
+    for lo, hi in reversed(pads):
+        flat += [lo, hi]
+    return F.pad(x, flat, value=value)
+
+
+def conv1d(x, w, b=None, stride=1, padding="SAME", dilation=1):
+    """(N, T, C) ``x`` * (k, C, O) ``w``: the 2-D convolution over a
+    (N, T, 1, C) view with a (k, 1, C, O) kernel."""
+    if not isinstance(padding, str):
+        pads = _pads_nd(padding, (x.shape[1],), (w.shape[0],), (stride,),
+                        (dilation,))
+        padding = [pads[0], (0, 0)]
+    out = conv2d(x[:, :, None, :], w[:, None], None, (int(stride), 1),
+                 padding, (int(dilation), 1))[:, :, 0, :]
+    return out + b if b is not None else out
+
+
+def conv3d(x, w, b=None, strides=(1, 1, 1), padding="SAME",
+           dilation=(1, 1, 1)):
+    """NDHWC ``x`` * DHWIO ``w``: cuDNN's ``F.conv3d`` on the NCDHW view;
+    lax's asymmetric "SAME" padding applied to the input first."""
+    strides, dilation = tuple(strides), tuple(dilation)
+    pads = _pads_nd(padding, x.shape[1:4], w.shape[:3], strides, dilation)
+    if any(lo != hi for lo, hi in pads):
+        x = _pad_spatial(x, pads)
+        pads = [(0, 0)] * 3
+    out = _channels_last(F.conv3d(_channels_first(x),
+                                  w.permute(4, 3, 0, 1, 2), None, strides,
+                                  tuple(lo for lo, _ in pads), dilation))
+    return out + b if b is not None else out
+
+
+def depthwise_conv2d(x, w, b=None, strides=(1, 1), padding="SAME",
+                     dilation=(1, 1)):
+    """Depthwise convolution: ``w`` (kh, kw, C, m) convolves input channel
+    c with its m filters into output channels c·m … c·m + m − 1, the
+    reference's ``feature_group_count`` reshape of ``w`` to (kh, kw, 1,
+    C·m). cuDNN's grouped ``F.conv2d`` (groups C) orders its output
+    channels the same way: channel o in group o // m."""
+    strides, dilation = _pair(strides), _pair(dilation)
+    kh, kw, c, m = w.shape
+    pads = resolve_pads(padding, x.shape[1:3], (kh, kw), strides, dilation)
+    if any(lo != hi for lo, hi in pads):
+        x = _pad_nhwc(x, pads)
+        pads = [(0, 0), (0, 0)]
+    weight = w.reshape(kh, kw, c * m).permute(2, 0, 1)[:, None]
+    out = _nhwc(F.conv2d(_nchw(x), weight, None, strides,
+                         (pads[0][0], pads[1][0]), dilation, groups=c))
+    return out + b if b is not None else out
+
+
+def conv_transpose(x, w, strides, pads, dilation):
+    """``lax.conv_transpose(x, w.swap(I, O), strides, pads, rhs_dilation,
+    transpose_kernel=True)`` over channels-last ``x`` (1-3 spatial dims)
+    and a (*k, I, O) kernel ``w``: the convolution of the stride-dilated
+    input with the flipped kernel under explicit (lo, hi) ``pads``. cuDNN's
+    ``F.conv_transposeNd`` pads symmetrically, so it runs unpadded (the
+    dilated input padded by k_eff − 1 each side) and its output is cropped,
+    or padded with zeros where a pad exceeds k_eff − 1."""
+    nd = x.dim() - 2
+    fn = (F.conv_transpose1d, F.conv_transpose2d, F.conv_transpose3d)[nd - 1]
+    weight = w.permute(nd, nd + 1, *range(nd))        # (I, O, *k)
+    full = _channels_last(fn(_channels_first(x), weight, None,
+                             tuple(strides), 0, 0, 1, tuple(dilation)))
+    crops = []
+    for k, d, (lo, hi) in zip(w.shape[:nd], dilation, pads):
+        keff = (k - 1) * d + 1
+        crops.append((keff - 1 - lo, keff - 1 - hi))
+    if any(c < 0 for pair in crops for c in pair):
+        full = _pad_spatial(full, [(max(-a, 0), max(-b, 0))
+                                   for a, b in crops])
+        crops = [(max(a, 0), max(b, 0)) for a, b in crops]
+    idx = [slice(None)] + [slice(a, full.shape[i + 1] - b)
+                           for i, (a, b) in enumerate(crops)] + [slice(None)]
+    return full[tuple(idx)]
+
+
+def conv_transpose_same_valid(kernel, strides, padding):
+    """The (lo, hi) pads ``lax.conv_transpose`` derives for "SAME" or
+    "VALID" (its ``_conv_transpose_padding``), per spatial dim."""
+    pads = []
+    for k, s in zip(kernel, strides):
+        if padding.upper() == "SAME":
+            total = k + s - 2
+            lo = k - 1 if s > k - 1 else -(-total // 2)
+        elif padding.upper() == "VALID":
+            total = k + s - 2 + max(k - s, 0)
+            lo = k - 1
+        else:
+            raise ValueError(f"unknown padding {padding!r}")
+        pads.append((lo, total - lo))
+    return pads
+
+
+def _pool3d_args(kernel, strides):
+    kernel = (kernel,) * 3 if isinstance(kernel, int) else tuple(kernel)
+    if strides is None:
+        return kernel, kernel
+    return kernel, ((strides,) * 3 if isinstance(strides, int)
+                    else tuple(strides))
+
+
+def maxpool3d(x, kernel=(2, 2, 2), strides=None, padding="VALID"):
+    """Max over NDHWC windows; padded cells are −inf."""
+    kernel, strides = _pool3d_args(kernel, strides)
+    pads = _pads_nd(padding, x.shape[1:4], kernel, strides, (1, 1, 1))
+    x = _pad_spatial(x, pads, value=float("-inf"))
+    return _channels_last(F.max_pool3d(_channels_first(x), kernel, strides))
+
+
+def avgpool3d(x, kernel=(2, 2, 2), strides=None, padding="VALID"):
+    """Mean over each NDHWC window's real cells: padding not counted."""
+    kernel, strides = _pool3d_args(kernel, strides)
+    pads = _pads_nd(padding, x.shape[1:4], kernel, strides, (1, 1, 1))
+
+    def window_sum(a):
+        return _channels_last(F.avg_pool3d(
+            _channels_first(_pad_spatial(a, pads)), kernel, strides,
+            divisor_override=1))
+
+    return window_sum(x) / window_sum(torch.ones_like(x[..., :1]))
+
+
+def upsampling2d(x, size=2):
+    """Nearest upsampling of NHWC ``x``: each row and column repeated."""
+    sh, sw = _pair(size)
+    return torch.repeat_interleave(torch.repeat_interleave(x, sh, dim=1),
+                                   sw, dim=2)
+
+
+def resize_bilinear(x, size):
+    """``jax.image.resize(method="bilinear", antialias=False)`` of NHWC
+    ``x`` to ``size`` (H, W): half-pixel centres, no filtering when it
+    shrinks, which is ``F.interpolate``'s bilinear mode with
+    ``align_corners=False`` and no antialias."""
+    return _nhwc(F.interpolate(_nchw(x), size=(int(size[0]), int(size[1])),
+                               mode="bilinear", align_corners=False,
+                               antialias=False))
 
 
 # ---------------------------------------------------------------- attention

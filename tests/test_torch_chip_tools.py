@@ -1103,9 +1103,10 @@ def _path_launches():
     network = (0,) * 20
     recurrent = (0,) * 18 + (40, 40)
     wide = (0,) * 16 + (50, 50, 0, 0)
+    detection = (0,) * 20
     return [path + (0,) for path in (
         serve, modes, train, moe, f32_serve, f32_train, pipeline, frontdoor,
-        fleet, network, recurrent, wide)]
+        fleet, network, recurrent, wide, detection)]
 
 
 @pytest.mark.parametrize("path,kernel,what", [
@@ -1165,7 +1166,15 @@ def _path_launches():
     (11, 0, "the wide layer launching the wgmma forward"),
     (2, 18, "training launching K11Lf"),
     (9, 19, "the network paths launching K11Lb"),
-    (7, 18, "the front door launching K11Lf")])
+    (7, 18, "the front door launching K11Lf"),
+    (12, 0, "the detection path launching the wgmma forward"),
+    (12, 1, "the detection path launching the simple forward"),
+    (12, 3, "the detection path launching the mma.sync backward"),
+    (12, 8, "the detection path launching the wgmma K3f"),
+    (12, 15, "the detection path launching K4a+w"),
+    (12, 16, "the detection path launching K11f"),
+    (12, 19, "the detection path launching K11Lb"),
+    (12, 20, "the detection path taking the attention op's plain route")])
 def test_path_launch_checks_catch_each_misroute(path, kernel, what):
     paths = _path_launches()
     chip_smoke.check_path_launches(*paths)
@@ -1845,3 +1854,62 @@ def test_ptxas_report_of_the_key_masked_mma_sync_kernels():
         "bytes spill loads\nptxas info    : Used 252 registers\n")
     assert fwd == {"f32 w256 masked": {"registers": 252, "spill_bytes": 0}}
     assert "f32 w256 masked" in chip_smoke.SIMPLE_MASKED_INSTANTIATIONS
+
+
+# --------------------------------------------------------- detection
+def test_detection_data_holds_one_to_three_boxes_an_image():
+    x, y = chip_smoke.detection_data(6, (96, 128, 3), 5, seed=2)
+    assert x.shape == (6, 96, 128, 3) and y.shape == (6, 3, 4, 9)
+    obj = y[..., 4:].sum(-1)
+    assert set(np.unique(obj)) <= {0.0, 1.0}
+    per_image = obj.reshape(6, -1).sum(-1)
+    assert per_image.min() >= 1 and per_image.max() <= 3
+    box = y[obj > 0][:, :4]
+    sides = box[:, 2:] - box[:, :2]
+    assert (sides >= 0.5).all() and (sides <= 6.0).all()
+    centre = 0.5 * (box[:, :2] + box[:, 2:])
+    cells = np.stack(np.nonzero(obj), -1)[:, 1:]
+    assert (np.floor(centre[:, ::-1]) == cells).all()
+    x2, y2 = chip_smoke.detection_data(6, (96, 128, 3), 5, seed=2)
+    assert np.array_equal(x, x2) and np.array_equal(y, y2)
+
+
+def test_plain_yolo_loss_is_the_layer_loss():
+    """The twin's plainly written loss equals Yolo2OutputLayer's on the
+    same activations and labels."""
+    import torch
+    from deeplearning4j_tpu_torch.models.zoo.darknet import _YOLO2_PRIORS
+    from deeplearning4j_tpu_torch.nn.conf.objdetect import Yolo2OutputLayer
+    _, y = chip_smoke.detection_data(4, (160, 160, 3), 20, seed=3)
+    out = torch.randn(4, 5, 5, 125, generator=torch.Generator()
+                      .manual_seed(0))
+    want = Yolo2OutputLayer(boxes=_YOLO2_PRIORS).loss({}, out,
+                                                      torch.tensor(y))
+    got = chip_smoke.plain_yolo_loss(torch, out, torch.tensor(y),
+                                     _YOLO2_PRIORS)
+    assert float(got) == pytest.approx(float(want), rel=1e-6)
+
+
+@pytest.mark.parametrize("name,twin", [("YOLO2", "plain_yolo2"),
+                                       ("Xception", "plain_xception")])
+def test_plain_twins_have_the_port_s_parameters(name, twin):
+    import torch
+    from deeplearning4j_tpu_torch.models import zoo
+    conf = getattr(zoo, name)().conf()
+    want = sum(n.layer.n_params() for n in conf.nodes.values()
+               if n.layer is not None)
+    model = getattr(chip_smoke, twin)(torch)
+    assert sum(p.numel() for p in model.parameters()) == want
+
+
+def test_zoo_data_sizes_each_model_at_its_input():
+    for name, (shape, classes) in chip_smoke.ZOO_INPUT.items():
+        if name in ("UNet", "YOLO2", "TinyYOLO"):
+            continue
+        model = chip_smoke.zoo_model(name, "float32")
+        assert model.input_shape == shape and model.num_classes == classes
+    x, y = chip_smoke.zoo_data("UNet", 2)
+    assert x.shape == (2, 512, 512, 3) and y.shape == (2, 512, 512, 1)
+    assert set(np.unique(y)) == {0.0, 1.0}
+    assert chip_smoke.zoo_model("VGG16", "float32").input_shape == (224, 224,
+                                                                    3)

@@ -687,19 +687,14 @@ COPIED = {
     "nn/conf/preprocessors": ({}, {}),
     "nn/conf/dropout": ({}, {}),
     "nn/conf/configuration": ({}, {}),
-    "nn/conf/layers": (
-        {n: _NET for n in (
-            "CenterLossOutputLayer", "CnnLossLayer",
-            "Convolution1DLayer", "Convolution3D", "Cropping2D",
-            "Deconvolution2D", "LAMBDA_REGISTRY",
-            "LambdaLayer", "LayerNormalization", "PermuteLayer",
-            "RepeatVectorLayer", "ReshapeLayer", "SeparableConvolution2D",
-            "SpatialDropoutLayer", "Upsampling2D",
-            "deconv_pad_pairs")}, {}),
+    "nn/conf/layers": ({}, {}),
+    "nn/conf/layers2": ({}, {}),
+    "nn/conf/objdetect": (
+        {n: "a jnp helper: the port calls torch.sigmoid and compares "
+            "torch.arange" for n in ("jax_sigmoid", "jax_one_hot")}, {}),
+    "nn/conf/variational": ({}, {}),
     "nn/graph_conf": ({}, {}),
-    "nn/weightnoise": (
-        {n: "weight noise: " + _NET for n in (
-            "DropConnect", "WeightNoise", "noise_from_dict")}, {}),
+    "nn/weightnoise": ({}, {}),
     "nn/params": (
         {"param_layout": "the port's flat order is leaf_keys'",
          "params_view": "the NDArray write-through view: ROADMAP queue 1 "
@@ -720,9 +715,13 @@ COPIED = {
     "models/zoo/resnet": ({}, {}),
     "models/zoo/cnn_small": ({}, {}),
     "models/zoo/vgg": ({}, {}),
-    "models/zoo/darknet": (
-        {n: "Yolo2OutputLayer: " + _NET for n in ("TinyYOLO", "YOLO2")},
-        {}),
+    "models/zoo/darknet": ({}, {}),
+    "models/zoo/squeezenet": ({}, {}),
+    "models/zoo/unet": ({}, {}),
+    "models/zoo/xception": ({}, {}),
+    "models/zoo/inception": ({}, {}),
+    "models/zoo/facenet": ({}, {}),
+    "models/zoo/__init__": ({}, {}),
 }
 
 

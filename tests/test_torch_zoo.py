@@ -1,11 +1,12 @@
-"""The port's zoo models against the JAX package's: ResNet-50 and
-Darknet19 (``ComputationGraph``), LeNet, SimpleCNN, VGG16, VGG19 and
-AlexNet (``MultiLayerNetwork``) have the same layers and vertices, names,
-inputs, param shapes and parameter counts; ResNet-50's and VGG16's
-analytic FLOP counts equal hand formulas. No full-size forward runs here
-(too slow for the CPU tier); the card runs ResNet-50, VGG16, VGG19,
-Darknet19 and AlexNet at full width in ``chip_smoke.py``'s
-``network_phase``.
+"""The port's zoo models against the JAX package's: every model has the
+same layers and vertices, names, inputs, param shapes and parameter
+counts (at full size, from the confs); ResNet-50's and VGG16's analytic
+FLOP counts equal hand formulas; the eight models of the last layers
+(SqueezeNet, UNet, Xception, InceptionResNetV1, NASNet,
+FaceNetNN4Small2, TinyYOLO, YOLO2) run forward at 32²-64² against the
+JAX nets on the same params. No full-size forward runs here (too slow for
+the CPU tier); the card runs the zoo at full width in ``chip_smoke.py``'s
+``network_phase`` and ``detection_phase``.
 """
 import numpy as np
 import pytest
@@ -91,8 +92,12 @@ def test_resnet50_flops_equal_a_hand_formula():
         _resnet50_forward_flops(2, hw=64, classes=10)
 
 
+NEW_MODELS = ["SqueezeNet", "UNet", "Xception", "InceptionResNetV1",
+              "NASNet", "FaceNetNN4Small2", "TinyYOLO", "YOLO2"]
+
+
 @pytest.mark.parametrize("name", ["LeNet", "SimpleCNN", "VGG16", "VGG19",
-                                  "Darknet19", "AlexNet"])
+                                  "Darknet19", "AlexNet"] + NEW_MODELS)
 def test_small_zoo_confs_equal_reference(name):
     """Node for node at the models' own input size; the parameter count of
     a net initialised at 64² with 10 classes (the 224² nets are 60-145 M
@@ -134,6 +139,91 @@ def test_zoo_param_counts_at_224(name, want):
                    if n.layer is not None])
         counts.append(sum(l.n_params() for l in layers))
     assert counts == [want, want]
+
+
+@pytest.mark.parametrize("name,want", [
+    ("SqueezeNet", 1235496), ("UNet", 31031745), ("Xception", 22855952),
+    ("InceptionResNetV1", 6829320), ("NASNet", 1715548),
+    ("FaceNetNN4Small2", 3986312), ("TinyYOLO", 15861773),
+    ("YOLO2", 38823965)])
+def test_new_zoo_param_counts_at_full_size(name, want):
+    """At each model's own input size and class count (1000; UNet 1,
+    TinyYOLO and YOLO2 20 VOC classes), from the confs on both sides:
+    Xception's published 22.9 M, YOLO2's 50.7 M less its passthrough."""
+    counts = []
+    for zoo in (j_zoo, t_zoo):
+        conf = getattr(zoo, name)().conf()
+        counts.append(sum(n.layer.n_params() for n in conf.nodes.values()
+                          if n.layer is not None))
+    assert counts == [want, want]
+
+
+#: the forward parity's sizes: input side, classes, depth cuts
+SMALL = {"SqueezeNet": dict(input_shape=(64, 64, 3), num_classes=10),
+         "UNet": dict(input_shape=(32, 32, 3)),
+         "Xception": dict(input_shape=(64, 64, 3), num_classes=10),
+         "InceptionResNetV1": dict(input_shape=(64, 64, 3), num_classes=10,
+                                   blocks=(1, 1, 1)),
+         "NASNet": dict(input_shape=(64, 64, 3), num_classes=10,
+                        num_blocks=1, penultimate_filters=96),
+         "FaceNetNN4Small2": dict(input_shape=(64, 64, 3), num_classes=10,
+                                  width_mult=0.25),
+         "TinyYOLO": dict(input_shape=(64, 64, 3), num_classes=3),
+         "YOLO2": dict(input_shape=(64, 64, 3), num_classes=3)}
+#: models without dropout, whose training loss is held too
+NO_DROPOUT = ("Xception", "NASNet", "FaceNetNN4Small2", "TinyYOLO", "YOLO2")
+
+
+def _labels_for(name, conf, n, rng):
+    out = conf.activation_types[conf.nodes[conf.network_outputs[0]]
+                                .inputs[0]]
+    if name in ("TinyYOLO", "YOLO2"):
+        h, w, c = out.height, out.width, SMALL[name]["num_classes"]
+        y = np.zeros((n, h, w, 4 + c), np.float32)
+        y[:, 0, 0, :4] = (0.2, 0.3, 1.4, 1.1)
+        y[:, 0, 0, 4] = 1.0
+        return y
+    if name == "UNet":
+        return rng.uniform(0, 1, (n, out.height, out.width, 1)).astype(
+            np.float32)
+    return np.eye(10, dtype=np.float32)[rng.integers(0, 10, n)]
+
+
+@pytest.mark.parametrize("name", NEW_MODELS)
+def test_new_zoo_forward_matches_reference(name):
+    """The JAX net's params and BN statistics carried into the port's:
+    inference outputs within relative L2 1e-4 (f32 through 20-90 layers,
+    activations growing on unit running variances) and, for the models
+    without dropout, the training loss within relative 1e-4."""
+    import jax
+    import jax.numpy as jnp
+    from deeplearning4j_tpu.nn.graph import ComputationGraph as JG
+    kw = SMALL[name]
+    ref = JG(getattr(j_zoo, name)(**kw).conf()).init()
+    net = getattr(t_zoo, name)(**kw).init_model(device="cpu")
+    net.set_param_tree(jax.tree.map(np.asarray, ref.param_tree()))
+    net.set_state_tree(jax.tree.map(np.asarray, ref.state_tree()))
+    assert net.numParams() == ref.numParams()
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2,) + kw["input_shape"]).astype(np.float32)
+    want = np.asarray(ref.output(x))
+    got = net.output(x).numpy()
+    assert got.shape == want.shape
+    err = np.linalg.norm(got - want) / np.linalg.norm(want)
+    assert err <= 1e-4, err
+    if name in NO_DROPOUT:
+        y = _labels_for(name, ref.conf, 2, rng)
+        loss = jax.jit(lambda p, s, a, b: ref._loss_fn(
+            p, s, (a,), (b,), None, None, None)[0])(
+                ref.param_tree(), ref.state_tree(), jnp.asarray(x),
+                jnp.asarray(y))
+        got_loss = net.score(_dataset(x, y))
+        assert abs(got_loss - float(loss)) <= 1e-4 * abs(float(loss))
+
+
+def _dataset(x, y):
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    return DataSet(x, y)
 
 
 def _vgg16_forward_flops(batch, hw=224, classes=1000):
