@@ -224,6 +224,24 @@ K4w spill nothing, and that no wgmma source has its products serialized
    each on the card against the CPU (TOL_SMALL). The detection path
    launches no kernel of the port and never the attention op's plain
    route.
+12. transfer phase (after the detection phase; ``--transfer`` runs it
+   alone, building no kernel) — DL4J's fine-tuning recipe (``TR_*``) on
+   the zoo ResNet-50 at 224², batch 32, f32, full depth: a source net's 2
+   Adam steps through ``save_pretrained`` / ``init_pretrained`` (every
+   param, state and updater leaf bitwise); ``TransferLearning.GraphBuilder``
+   frozen to "avgpool" under ``EarlyStoppingGraphTrainer`` with a
+   ``LocalFileModelSaver`` and a ``CheckpointListener`` on seeded
+   synthetic images of 5 classes (a fitted normalizer,
+   ``AsyncDataSetIterator``): frozen params and updater state bitwise
+   kept, the head and the frozen BN statistics moved; the best zip
+   re-scored; the newest checkpoint resumed beside in-memory copies;
+   ``evaluate`` and ``evaluateROCMultiClass``, the best zip on the CPU;
+   LeNet on MNIST: ``nout_replace``, featurize, L-BFGS and CG card against
+   CPU, a DL4J-format zip; the frozen-trunk step's images/s in f32 and
+   bf16 in turns with a plain twin whose trunk takes no gradient, save and
+   restore seconds, zip MB, the early-stopping run's seconds and epochs,
+   L-BFGS ms an iteration. No kernel of the port, nor the attention op's
+   plain route.
 
 Every phase must pass: any failure exits nonzero. Output is one JSON
 object per line; the last line is ``{"ok": true, "device": {...}}``.
@@ -246,9 +264,11 @@ int8 pages at the large config here and in the checkout at OTHER in turns
 shapes here and in each checkout at OTHER in turns.
 ``--network`` runs the network phase alone (it builds no kernel);
 ``--detection`` the detection phase alone (no kernel either);
+``--transfer`` the transfer phase alone (no kernel either);
 ``--readings [MODEL...]`` takes the CPU readings the new zoo models' and
 the small paths' rows were set from (f32 against f64, bf16 against f32;
-no card needed), printed and written to OUT_DIR/``zoo_readings.json``;
+no card needed), printed and written to OUT_DIR/``zoo_readings.json``
+(``--readings transfer``: the solver row's readings);
 ``--attention`` the attention phase alone (after building every kernel);
 ``--recurrent`` the recurrent phase alone (it builds only rnn_cell.cu,
 K11 and K11L).
@@ -5702,6 +5722,579 @@ def detection_phase(torch, smi=None):
     return launches, rows
 
 
+# ----------------------------------------------------------------- transfer
+# The transfer phase (PERF.md's transfer rows): DL4J's fine-tuning recipe
+# on the zoo ResNet-50 at NET_SHAPE, batch NET_BATCH, f32, full depth.
+# (a) a source net fits TR_SOURCE_STEPS Adam steps, goes into a temporary
+# pretrained cache by ``save_pretrained`` and comes back by
+# ``init_pretrained`` onto the card: every param, state and updater leaf
+# bitwise, outputs no further from the source's than two of its own calls;
+# (b) ``TransferLearning.GraphBuilder`` freezes everything up to "avgpool",
+# re-draws "output" and takes Adam(TR_LR); ``EarlyStoppingGraphTrainer``
+# fits it on TR_TRAIN_BATCHES batches of seeded synthetic images of
+# TR_CLASSES classes (a fitted NormalizerStandardize, served by
+# AsyncDataSetIterator) and scores TR_HELD_BATCHES held-out batches, with a
+# LocalFileModelSaver and a CheckpointListener every epoch (keep_last 2):
+# frozen params and their updater state bitwise unchanged, the output layer
+# moved, the frozen BatchNormalizations' running statistics moved (the
+# reference's behaviour); (c) the saved best model re-scores its recorded
+# score; (d) the newest checkpoint resumes one batch beside two in-memory
+# copies of the same state, within the copies' own spread; (e) evaluate
+# and ROC on the card, the best zip restored on the CPU scores held-out
+# images within the network phase's f32 card-vs-CPU row; then LeNet on
+# MNIST (synthetic unless the IDX files are there, NormalizerMinMaxScaler):
+# (f) ``nout_replace`` + ``set_feature_extractor`` and featurize, (g)
+# L-BFGS and conjugate gradient on the card beside the CPU port, (h) a
+# DL4J-format zip restored on the card. No kernel of the port runs here.
+TR_CLASSES = 5
+TR_TRAIN_BATCHES, TR_HELD_BATCHES = 8, 2
+TR_SOURCE_STEPS = 2
+TR_SOURCE_LR, TR_LR = 1e-3, 1e-4
+TR_PATIENCE, TR_MAX_EPOCHS = 2, 4
+TR_CPU_IMAGES = 4
+TR_LENET_BATCH, TR_LENET_EXAMPLES = 64, 1024
+TR_LENET_HIDDEN = 256          # the dense layer's width after nout_replace
+TR_SOLVER_ITERS = 5
+TR_SOLVERS = ("lbfgs", "conjugate_gradient")
+# (c) the best zip's re-score: the same params on the same card and batch
+# through the same algorithms (reads 0 where cuDNN is deterministic; a
+# loss of ~7 carries f32 rounding of ~5e-7 relative at most)
+# (e) the best model on the CPU against the card: the network phase's f32
+# card-vs-CPU probabilities row (ResNet-50, 224², inference mode here)
+# (g) each solver iteration's score on the card against the CPU port's
+# trajectory: see TOL_TRANSFER_SOLVER
+TOL_TRANSFER = {"best_rescore_rel": 1e-6, "cpu_probs": TOL_NET_F32["probs"]}
+# relative; set from CPU readings (``--readings transfer``): a one-ulp
+# nudge of LeNet's start moves its five L-BFGS / CG scores by at most
+# 3.0e-7 / 3.6e-7 relative, and the line searches' smallest Armijo margin
+# is 0.0087; the row sits ~30× over the nudge (cuDNN's orders against the
+# CPU's read 2-3× f32's own on ResNet-50, network rows) and far under the
+# margins, so no accept or reject can flip inside it
+TOL_TRANSFER_SOLVER = 1e-5
+
+
+def transfer_data(n, seed):
+    """``n`` seeded synthetic NET_SHAPE images of TR_CLASSES classes (the
+    vision iterators' generator: a class-coloured grating plus noise) as
+    pixels in [0, 255], NHWC f32, labels one-hot over NET_CLASSES outputs
+    (the graph's head keeps the pretrained net's width)."""
+    from deeplearning4j_tpu_torch.data.vision import _synthetic_images
+    imgs, labels = _synthetic_images(n, TR_CLASSES, NET_SHAPE[0],
+                                     NET_SHAPE[2], seed)
+    return ((255.0 * imgs).astype(np.float32),
+            np.eye(NET_CLASSES, dtype=np.float32)[labels])
+
+
+def unequal_leaves(torch, a, b):
+    """The ``layer/param`` leaves of two two-level trees that are not
+    bitwise equal (or not in both)."""
+    keys = sorted({(k, p) for k in a for p in a[k]}
+                  | {(k, p) for k in b for p in b[k]})
+    return [f"{k}/{p}" for k, p in keys
+            if p not in a.get(k, {}) or p not in b.get(k, {})
+            or not torch.equal(a[k][p], b[k][p])]
+
+
+def unequal_updater_leaves(torch, a, b):
+    """Indices of the leaves of two optimizer states (``optim/transforms``
+    layout) that differ; ["length"] when they do not line up."""
+    from deeplearning4j_tpu_torch.optim.transforms import state_leaves
+    la, lb = state_leaves(a), state_leaves(b)
+    if len(la) != len(lb):
+        return ["length"]
+    return [i for i, (x, y) in enumerate(zip(la, lb))
+            if not (torch.equal(x, y) if isinstance(x, torch.Tensor)
+                    else x == y)]
+
+
+def param_lists(state, n):
+    """The param-shaped lists (``n`` tensors) inside an optimizer state."""
+    if isinstance(state, dict):
+        for v in state.values():
+            yield from param_lists(v, n)
+    elif isinstance(state, (list, tuple)):
+        if len(state) == n and all(hasattr(t, "shape") for t in state):
+            yield state
+        else:
+            for v in state:
+                yield from param_lists(v, n)
+
+
+def frozen_updater_leaves(net):
+    """Clones of every updater-state tensor of ``net``'s frozen leaves."""
+    from deeplearning4j_tpu_torch.nn.params import leaf_keys
+    keys = leaf_keys(net.param_tree())
+    idx = [i for i, (k, _) in enumerate(keys) if k in net._frozen]
+    return [lst[i].clone() for lst in param_lists(net.updater_state(),
+                                                  len(keys)) for i in idx]
+
+
+def tree_max_abs(torch, a, b):
+    """max |a − b| over the leaves of two two-level trees and, with
+    optimizer states under ``"_updater"``, their tensors."""
+    from deeplearning4j_tpu_torch.optim.transforms import state_leaves
+    worst = 0.0
+    for k in a:
+        if k == "_updater":
+            pairs = [(x, y) for x, y in zip(state_leaves(a[k]),
+                                            state_leaves(b[k]))
+                     if isinstance(x, torch.Tensor)]
+        else:
+            pairs = [(a[k][p], b[k][p]) for p in a[k]]
+        for x, y in pairs:
+            worst = max(worst, float((x.float() - y.float()).abs().max()))
+    return worst
+
+
+def net_snapshot(net):
+    return {**net.param_tree(), "_updater": net.updater_state()}
+
+
+def solver_gaps(card, cpu):
+    """Each iteration's |card − cpu| / max(1, |cpu|) over two score
+    trajectories of the same length (else None)."""
+    if len(card) != len(cpu):
+        return None
+    return [abs(a - b) / max(1.0, abs(b)) for a, b in zip(card, cpu)]
+
+
+def armijo_margins(trials):
+    """(iteration, step, score − bound) of a solver's line-search trials."""
+    return [(it, alpha, score - bound) for it, alpha, score, bound in trials]
+
+
+def lenet_batches(torch, batch=TR_LENET_BATCH, examples=TR_LENET_EXAMPLES):
+    """MNIST through ``MnistDataSetIterator`` (its synthetic glyphs unless
+    the IDX files are there) and a fitted ``NormalizerMinMaxScaler``:
+    (the normalized DataSets, synthetic or not)."""
+    from deeplearning4j_tpu_torch.data import (MnistDataSetIterator,
+                                               NormalizerMinMaxScaler)
+    it = MnistDataSetIterator(batch, train=True, num_examples=examples)
+    norm = NormalizerMinMaxScaler().fit(it)
+    it.reset()
+    return [norm.transform(ds) for ds in it], it.synthetic
+
+
+def run_solver(torch, net, algo, x, y):
+    """(scores a iteration, line-search trials, host ms an iteration) of
+    ``algo`` over TR_SOLVER_ITERS iterations on one batch."""
+    from deeplearning4j_tpu_torch.optim.listeners import (
+        CollectScoresListener)
+    from deeplearning4j_tpu_torch.optim.solvers import Solver
+    scores = CollectScoresListener()
+    net.setListeners(scores)
+    solver = (Solver.Builder().model(net).configure(algo)
+              .max_iterations(TR_SOLVER_ITERS).build())
+    if net.device.type == "cuda":
+        torch.cuda.synchronize()
+    t = time.perf_counter()
+    solver.optimize(x, y)
+    ms = 1e3 * (time.perf_counter() - t) / TR_SOLVER_ITERS
+    net.setListeners()
+    return scores.scores, solver.optimizer.trials, ms
+
+
+def transfer_readings():
+    """CPU readings for TOL_TRANSFER_SOLVER: LeNet's L-BFGS and CG score
+    trajectories from the port's init and from the same params moved by
+    one f32 ulp (``np.nextafter`` away from 0), the largest relative gap
+    a solver's five scores show."""
+    import torch
+    from deeplearning4j_tpu_torch.models.zoo import LeNet
+    batches, synthetic = lenet_batches(torch)
+    x, y = batches[0].features, batches[0].labels
+    out = {"synthetic": synthetic}
+    for algo in TR_SOLVERS:
+        runs = []
+        for nudge in (False, True):
+            net = LeNet().init_model(device="cpu")
+            if nudge:
+                tree = {k: {p: np.nextafter(
+                    v.numpy(), np.where(v.numpy() < 0, -np.inf, np.inf),
+                    dtype=np.float32) for p, v in layer.items()}
+                    for k, layer in net.param_tree().items()}
+                net.set_param_tree(tree)
+            runs.append(run_solver(torch, net, algo, x, y))
+        gaps = solver_gaps(runs[1][0], runs[0][0])
+        out[algo] = {"scores": runs[0][0], "nudged": runs[1][0],
+                     "gaps": gaps, "worst": max(gaps) if gaps else None,
+                     "margins": armijo_margins(runs[0][1])}
+    return out
+
+
+def resnet_transfer(dtype, dev, source=None):
+    """The fine-tuning net: ``source`` (else a fresh zoo ResNet-50 in
+    ``dtype``) through ``GraphBuilder``: Adam(TR_LR), frozen up to
+    "avgpool", "output" re-drawn."""
+    from deeplearning4j_tpu_torch.models.zoo import ResNet50
+    from deeplearning4j_tpu_torch.nn.transferlearning import (
+        FineTuneConfiguration, TransferLearning)
+    from deeplearning4j_tpu_torch.optim.updaters import Adam
+    if source is None:
+        source = ResNet50(num_classes=NET_CLASSES, input_shape=NET_SHAPE,
+                          updater=Adam(TR_SOURCE_LR),
+                          data_type=dtype).init_model(device=dev)
+    return (TransferLearning.GraphBuilder(source)
+            .fine_tune_configuration(FineTuneConfiguration(
+                updater=Adam(TR_LR)))
+            .set_feature_extractor("avgpool").reinit_layer("output").build())
+
+
+def transfer_timing(torch, dev, smi, x, y):
+    """The frozen-trunk fine-tune step, f32 and bf16, in turns (port,
+    plain, plain, port) with the plain ResNet-50 twin whose trunk has
+    ``requires_grad`` off and whose head takes Adam(TR_LR); then a
+    profiler window of NET_PROFILED steps of each (device ms, busy share,
+    kernels a step, top device ops)."""
+    xd, yd = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+    rows = []
+    for dtype in ("float32", "bfloat16"):
+        bf16 = dtype == "bfloat16"
+        net = resnet_transfer(dtype, dev)
+        twin = plain_resnet50(torch).to(dev).to(
+            memory_format=torch.channels_last)
+        for p in twin.trunk.parameters():
+            p.requires_grad_(False)
+        opt = torch.optim.Adam(twin.head.parameters(), lr=TR_LR)
+        plain = plain_step(torch, twin, opt, bf16)
+        runs = {"port": lambda: net.fit(xd, yd),
+                "plain": lambda: plain(xd, yd)}
+        timed = {"port": [], "plain": []}
+        for who in ("port", "plain", "plain", "port"):
+            ms, _all = step_timing(torch, runs[who])
+            timed[who].append(ms)
+        prof = {who: profile_window(
+            torch, f"transfer_{who}_{dtype}",
+            lambda f=runs[who]: [f() for _ in range(NET_PROFILED)],
+            f"transfer_{who}_{dtype}_trace.json", top=8)
+            for who in ("port", "plain")}
+        for who in ("port", "plain"):
+            ms = statistics.median(timed[who])
+            p = prof[who]
+            rows.append({"model": who, "dtype": dtype, "gpu": smi,
+                         "host_ms_per_step": ms, "turns_ms": timed[who],
+                         "images_per_s": NET_BATCH / (ms / 1e3),
+                         "device_ms_per_step": (
+                             p["device_busy_us"] / 1e3 / NET_PROFILED
+                             if "device_busy_us" in p else None),
+                         "busy_share": p.get("busy_share"),
+                         "kernels_per_step": (p["kernels"] / NET_PROFILED
+                                              if "kernels" in p else None),
+                         "top_ops": p.get("top_ops")})
+        del net, twin, opt, runs
+        torch.cuda.empty_cache()
+    return rows
+
+
+def transfer_phase(torch, smi=None):
+    """The fine-tuning recipe on the card (see TR_* above). Returns the
+    port kernels' launches over it (all must be 0)."""
+    import os
+    import tempfile
+    from deeplearning4j_tpu_torch._device import resolve_device
+    from deeplearning4j_tpu_torch.data import (AsyncDataSetIterator,
+                                               DataSet, ListDataSetIterator,
+                                               NormalizerStandardize)
+    from deeplearning4j_tpu_torch.models.zoo import LeNet, ResNet50
+    from deeplearning4j_tpu_torch.modelimport import dl4j_zip
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.graph_conf import (
+        ComputationGraphConfiguration)
+    from deeplearning4j_tpu_torch.nn.transferlearning import (
+        FineTuneConfiguration, TransferLearning, TransferLearningHelper)
+    from deeplearning4j_tpu_torch.optim import earlystopping as es
+    from deeplearning4j_tpu_torch.optim.listeners import CheckpointListener
+    from deeplearning4j_tpu_torch.optim.updaters import Adam
+    from deeplearning4j_tpu_torch.utils.serialization import (
+        ModelSerializer, checkpoint_candidates)
+    t_phase = time.perf_counter()
+    dev = resolve_device(None)
+    if smi is None:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60).stdout.strip()
+    reset_all_counts()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_transfer_")
+    root = tmp.name
+    out = {"gpu": smi}
+    try:
+        # (a) the pretrained round trip
+        x, y = network_data(NET_BATCH)
+        zoo = ResNet50(num_classes=NET_CLASSES, input_shape=NET_SHAPE,
+                       updater=Adam(TR_SOURCE_LR))
+        src = zoo.init_model(device=dev)
+        for _ in range(TR_SOURCE_STEPS):
+            src.fit(x, y)
+        torch.cuda.synchronize()
+        cache = os.environ.get("DL4J_TPU_ZOO_CACHE")
+        os.environ["DL4J_TPU_ZOO_CACHE"] = os.path.join(root, "zoo")
+        try:
+            t = time.perf_counter()
+            path = zoo.save_pretrained(src, "imagenet")
+            save_s = time.perf_counter() - t
+            t = time.perf_counter()
+            got = zoo.init_pretrained("imagenet")
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t
+        finally:
+            if cache is None:
+                del os.environ["DL4J_TPU_ZOO_CACHE"]
+            else:
+                os.environ["DL4J_TPU_ZOO_CACHE"] = cache
+        xs = x[:NET_CHECK_BATCH]
+        o1, o2, og = src.output(xs), src.output(xs), got.output(xs)
+        rep_a = {"save_s": save_s, "restore_s": restore_s,
+                 "zip_mb": os.path.getsize(path) / 2**20,
+                 "device": str(got.device),
+                 "params": unequal_leaves(torch, got.param_tree(),
+                                          src.param_tree()),
+                 "states": unequal_leaves(torch, got.state_tree(),
+                                          src.state_tree()),
+                 "updater": unequal_updater_leaves(
+                     torch, got.updater_state(), src.updater_state()),
+                 "meta": [got.getIterationCount(), got.getEpochCount()],
+                 "output_gap": float((og - o1).abs().max()),
+                 "two_calls_gap": float((o2 - o1).abs().max())}
+        emit(transfer_pretrained=rep_a)
+        check(got.device.type == "cuda", f"(a) init_pretrained landed on "
+              f"{got.device}, not the card")
+        check(not (rep_a["params"] or rep_a["states"] or rep_a["updater"]),
+              f"(a) the restored net is not the saved one bit for bit: "
+              f"{rep_a}")
+        check(rep_a["meta"] == [TR_SOURCE_STEPS, 0],
+              f"(a) meta gave iteration and epoch {rep_a['meta']}")
+        check(rep_a["output_gap"] <= rep_a["two_calls_gap"],
+              f"(a) outputs {rep_a['output_gap']} from the source's, two "
+              f"calls of the source {rep_a['two_calls_gap']}")
+        del src, o1, o2, og
+
+        # (b) fine-tune under early stopping and checkpoints
+        tx, ty = transfer_data(NET_BATCH * TR_TRAIN_BATCHES, SEED + 11)
+        hx, hy = transfer_data(NET_BATCH * TR_HELD_BATCHES, SEED + 12)
+        norm = NormalizerStandardize().fit(DataSet(tx, ty))
+
+        def batches(xa, ya):
+            return [norm.transform(DataSet(xa[i:i + NET_BATCH],
+                                           ya[i:i + NET_BATCH]))
+                    for i in range(0, len(xa), NET_BATCH)]
+        train_sets, held_sets = batches(tx, ty), batches(hx, hy)
+        del tx, hx
+        ft = resnet_transfer("float32", dev, source=got)
+        del got
+        frozen_params = {k: {p: v.clone() for p, v in layer.items()}
+                         for k, layer in ft.param_tree().items()
+                         if k in ft._frozen}
+        frozen_opt = frozen_updater_leaves(ft)
+        head0 = ft.param_tree()["output"]["W"].clone()
+        stats0 = {k: {s: v.clone() for s, v in layer.items()}
+                  for k, layer in ft.state_tree().items() if k in ft._frozen}
+        best_dir, ck_dir = (os.path.join(root, "best"),
+                            os.path.join(root, "checkpoints"))
+        saver = es.LocalFileModelSaver(best_dir)
+        ck = CheckpointListener(ck_dir, save_every_n_epochs=1, keep_last=2)
+        ft.setListeners(ck)
+        cfg = (es.EarlyStoppingConfiguration.Builder()
+               .score_calculator(es.DataSetLossCalculator(
+                   ListDataSetIterator(held_sets)))
+               .epoch_termination_conditions(
+                   es.ScoreImprovementEpochTerminationCondition(TR_PATIENCE),
+                   es.MaxEpochsTerminationCondition(TR_MAX_EPOCHS))
+               .model_saver(saver).build())
+        train_it = AsyncDataSetIterator(ListDataSetIterator(train_sets))
+        try:
+            t = time.perf_counter()
+            result = es.EarlyStoppingGraphTrainer(cfg, ft, train_it).fit()
+            torch.cuda.synchronize()
+            es_s = time.perf_counter() - t
+        finally:
+            train_it.close()
+        ft.setListeners()
+        moved_stats = [f"{k}/{s}" for k in stats0 for s in stats0[k]
+                       if not torch.equal(stats0[k][s],
+                                          ft.state_tree()[k][s])]
+        frozen_opt_after = frozen_updater_leaves(ft)
+        rep_b = {"seconds": es_s, "epochs": result.total_epochs,
+                 "reason": result.termination_reason,
+                 "details": result.termination_details,
+                 "best_epoch": result.best_model_epoch,
+                 "best_score": result.best_model_score,
+                 "score_vs_epoch": result.score_vs_epoch,
+                 "iterations": ft.getIterationCount(),
+                 "frozen_layers": len(ft._frozen),
+                 "frozen_params_changed": unequal_leaves(
+                     torch, {k: ft.param_tree()[k] for k in frozen_params},
+                     frozen_params),
+                 "frozen_updater_changed": sum(
+                     not torch.equal(a, b)
+                     for a, b in zip(frozen_opt, frozen_opt_after)),
+                 "frozen_updater_leaves": len(frozen_opt),
+                 "head_moved": not torch.equal(
+                     head0, ft.param_tree()["output"]["W"]),
+                 "frozen_bn_stats_moved": len(moved_stats),
+                 "checkpoints": sorted(os.listdir(ck_dir))}
+        emit(transfer_early_stopping=rep_b)
+        check(rep_b["epochs"] >= 1 and rep_b["iterations"]
+              == rep_b["epochs"] * TR_TRAIN_BATCHES,
+              f"(b) the trainer ran {rep_b['epochs']} epochs, "
+              f"{rep_b['iterations']} steps")
+        check(not rep_b["frozen_params_changed"]
+              and rep_b["frozen_updater_changed"] == 0
+              and len(frozen_opt) == len(frozen_opt_after) > 0,
+              f"(b) frozen params or their updater state moved: {rep_b}")
+        check(rep_b["head_moved"], "(b) the output layer did not move")
+        check(rep_b["frozen_bn_stats_moved"] > 0,
+              "(b) the frozen BN running statistics did not move (the "
+              "reference's step moves them)")
+        check(len(rep_b["checkpoints"]) == min(2, rep_b["epochs"]),
+              f"(b) keep_last 2 left {rep_b['checkpoints']}")
+
+        # (c) the best model re-scores its recorded score
+        best = saver.get_best_model()
+        rescore = es.DataSetLossCalculator(
+            ListDataSetIterator(held_sets)).calculate_score(best)
+        rel = abs(rescore - result.best_model_score) / abs(
+            result.best_model_score)
+        emit(transfer_best_rescore={"rescore": rescore, "rel": rel,
+                                    "row": TOL_TRANSFER["best_rescore_rel"],
+                                    "device": str(best.device)})
+        check(best.device.type == "cuda", f"(c) the best model landed on "
+              f"{best.device}")
+        check(rel <= TOL_TRANSFER["best_rescore_rel"],
+              f"(c) the best zip re-scores {rescore} against "
+              f"{result.best_model_score}")
+
+        # (d) resume from the newest checkpoint beside in-memory copies
+        newest = checkpoint_candidates(ck_dir)[0]
+        resumed = ModelSerializer.restore(newest)
+        # a zip carries no frozen set (as the reference's): re-freeze
+        resumed._frozen = set(ft._frozen)
+        same_state = not (unequal_leaves(torch, resumed.param_tree(),
+                                         ft.param_tree())
+                          or unequal_updater_leaves(
+                              torch, resumed.updater_state(),
+                              ft.updater_state()))
+        copies = []
+        for _ in range(2):
+            c = ComputationGraph(ComputationGraphConfiguration.from_json(
+                ft.conf.to_json()), device=dev).init()
+            carry_net(ft, c)
+            c._frozen = set(ft._frozen)
+            copies.append(c)
+        xb, yb = train_sets[0].features, train_sets[0].labels
+        for net in [resumed] + copies:
+            net.fit(xb, yb)
+        row_d = tree_max_abs(torch, net_snapshot(copies[0]),
+                             net_snapshot(copies[1]))
+        err_d = tree_max_abs(torch, net_snapshot(resumed),
+                             net_snapshot(copies[0]))
+        emit(transfer_resume={"checkpoint": os.path.basename(newest),
+                              "same_state_before": same_state,
+                              "device": str(resumed.device),
+                              "max_abs": err_d, "copies_max_abs": row_d})
+        check(resumed.device.type == "cuda" and same_state,
+              f"(d) the newest checkpoint is not the trained state "
+              f"({resumed.device}, {same_state})")
+        check(err_d <= row_d, f"(d) the resumed step is {err_d} from an "
+              f"in-memory copy's, two copies {row_d}")
+        del resumed, copies, ft
+        torch.cuda.empty_cache()
+
+        # (e) evaluate on the card, the best zip on the CPU
+        ev = best.evaluate(ListDataSetIterator(held_sets))
+        roc = best.evaluateROCMultiClass(ListDataSetIterator(held_sets))
+        aucs = [roc.calculate_auc(c) for c in range(TR_CLASSES)]
+        cpu_best = saver.get_best_model(device="cpu")
+        xs = held_sets[0].features[:TR_CPU_IMAGES]
+        p_card = best.output(xs).cpu().numpy()
+        p_cpu = cpu_best.output(xs).numpy()
+        rep_e = {"accuracy": ev.accuracy(), "auc_by_class": aucs,
+                 "cpu_vs_card_probs": rel_l2(p_cpu, p_card),
+                 "row": TOL_TRANSFER["cpu_probs"]}
+        emit(transfer_evaluate=rep_e)
+        check(all(0.0 <= a <= 1.0 for a in aucs)
+              and math.isfinite(rep_e["accuracy"]),
+              f"(e) evaluation gave {rep_e}")
+        check(rep_e["cpu_vs_card_probs"] <= TOL_TRANSFER["cpu_probs"],
+              f"(e) the best model on the CPU reads "
+              f"{rep_e['cpu_vs_card_probs']} from the card's")
+        del best, cpu_best
+        torch.cuda.empty_cache()
+
+        # (f) LeNet on MNIST: nout_replace, a frozen prefix, featurize
+        lenet_sets, synthetic = lenet_batches(torch)
+        lenet = LeNet().init_model(device=dev)
+        lenet.fit(ListDataSetIterator(lenet_sets), epochs=1)
+        tl = (TransferLearning.Builder(lenet)
+              .fine_tune_configuration(FineTuneConfiguration(
+                  updater=Adam(1e-3)))
+              .nout_replace(4, TR_LENET_HIDDEN).set_feature_extractor(3)
+              .build())
+        x0, y0 = lenet_sets[0].features, lenet_sets[0].labels
+        feat = TransferLearningHelper(tl).featurize(lenet_sets[0]).features
+        f_tl, f_src = tl.feedForward(x0)[4], lenet.feedForward(x0)[4]
+        frozen_w = tl.param_tree()["0"]["W"].clone()
+        tl.fit(ListDataSetIterator(lenet_sets[:4]), epochs=1)
+        rep_f = {"synthetic": synthetic,
+                 "featurize_is_feedforward": bool(torch.equal(feat, f_tl)),
+                 "featurize_is_source": bool(torch.equal(feat, f_src)),
+                 "frozen_kept": bool(torch.equal(
+                     frozen_w, tl.param_tree()["0"]["W"])),
+                 "hidden": list(tl.param_tree()["4"]["W"].shape)}
+        emit(transfer_lenet=rep_f)
+        check(rep_f["featurize_is_feedforward"] and rep_f["featurize_is_source"]
+              and rep_f["frozen_kept"]
+              and rep_f["hidden"][1] == TR_LENET_HIDDEN,
+              f"(f) LeNet transfer: {rep_f}")
+
+        # (g) L-BFGS and CG on the card beside the CPU port
+        rep_g = {}
+        for algo in TR_SOLVERS:
+            card = LeNet().init_model(device=dev)
+            cpu = LeNet().init_model(device="cpu")
+            cpu.set_param_tree(card.param_tree())
+            c_scores, c_trials, c_ms = run_solver(torch, card, algo, x0, y0)
+            h_scores, _, h_ms = run_solver(torch, cpu, algo, x0, y0)
+            gaps = solver_gaps(c_scores, h_scores)
+            rep_g[algo] = {"scores": c_scores, "cpu_scores": h_scores,
+                           "gaps": gaps, "ms_per_iteration": c_ms,
+                           "cpu_ms_per_iteration": h_ms,
+                           "margins": armijo_margins(c_trials)}
+        emit(transfer_solvers=rep_g, row=TOL_TRANSFER_SOLVER, gpu=smi)
+        for algo, r in rep_g.items():
+            check(r["gaps"] is not None
+                  and len(r["scores"]) == TR_SOLVER_ITERS
+                  and r["scores"][-1] < r["scores"][0]
+                  and max(r["gaps"]) <= TOL_TRANSFER_SOLVER,
+                  f"(g) {algo}: {r}")
+
+        # (h) a DL4J-format zip, restored on the card
+        zpath = os.path.join(root, "lenet_dl4j.zip")
+        dl4j_zip.write_model(lenet, zpath)
+        back = dl4j_zip.restore_multi_layer_network(zpath)
+        o1, o2, ob = lenet.output(x0), lenet.output(x0), back.output(x0)
+        rep_h = {"device": str(back.device),
+                 "params": unequal_leaves(torch, back.param_tree(),
+                                          lenet.param_tree()),
+                 "output_gap": float((ob - o1).abs().max()),
+                 "two_calls_gap": float((o2 - o1).abs().max())}
+        emit(transfer_dl4j_zip=rep_h)
+        check(back.device.type == "cuda" and not rep_h["params"]
+              and rep_h["output_gap"] <= rep_h["two_calls_gap"],
+              f"(h) the DL4J zip's restore: {rep_h}")
+        del lenet, tl, back
+
+        out["timing"] = transfer_timing(torch, dev, smi, *transfer_data(
+            NET_BATCH, SEED + 13))
+        for r in out["timing"]:
+            emit(transfer_timing=r)
+    finally:
+        tmp.cleanup()
+    launches = all_counts()
+    emit(transfer_phase_seconds=time.perf_counter() - t_phase,
+         transfer_launches=dict(zip(ALL_KERNELS, launches)))
+    return launches
+
+
 def _keeps_f64(net):
     """``net`` (an ``_f64_copy``) taking its float inputs and labels as
     f64 (the port's entry points make floats f32)."""
@@ -7526,7 +8119,7 @@ def k11l_kernel_entry(which, rows, launches):
 
 def check_path_launches(serve, modes, train, moe, f32_serve, f32_train,
                         pipeline, frontdoor, fleet, network, recurrent,
-                        wide, detection):
+                        wide, detection, transfer):
     """Which kernels each main path launched (each an ``all_counts()``
     tuple): the bf16 paths (serving, the serving modes, the rungs, MoE)
     the wgmma flash kernels and never the simple forward or the mma.sync
@@ -7537,9 +8130,10 @@ def check_path_launches(serve, modes, train, moe, f32_serve, f32_train,
     on none, K4w on the int8 serving modes only (the prefill's insert);
     the front door K1's wgmma forward and K4a+w only, the fleet's demo
     model (f32, head dim 16) the simple forward and K4a+w only; the DL4J
-    network paths (ResNet-50, LeNet, the zoo) and the detection path
-    (YOLO2, the VAE, DropConnect, deconvolution) no kernel of the port at
-    all, nor the attention op's plain route; the
+    network paths (ResNet-50, LeNet, the zoo), the detection path
+    (YOLO2, the VAE, DropConnect, deconvolution) and the transfer path
+    (persistence, transfer learning, early stopping, the solvers) no
+    kernel of the port at all, nor the attention op's plain route; the
     recurrent path (one fit of R1: 20 chunks of 50 steps, 2 LSTM layers)
     K11Lf and K11Lb 2 × 20 times each and nothing else, the wide layer
     (one chunk past K11L's widest) K11f and K11b 50 times each and nothing
@@ -7602,9 +8196,11 @@ def check_path_launches(serve, modes, train, moe, f32_serve, f32_train,
           f"{dict(zip(ALL_KERNELS, network))}")
     check(not any(detection), f"the detection path launched port kernels: "
           f"{dict(zip(ALL_KERNELS, detection))}")
+    check(not any(transfer), f"the transfer path launched port kernels: "
+          f"{dict(zip(ALL_KERNELS, transfer))}")
     check_recurrent_launches(recurrent, wide, (
         serve, modes, train, moe, f32_serve, f32_train, pipeline, frontdoor,
-        fleet, network, detection))
+        fleet, network, detection, transfer))
 
 
 def recurrent_kernel_entries(launches, k11_rows, k11l_rows):
@@ -8051,6 +8647,12 @@ def main() -> int:
                         "(these MODELs', else every one's) and the small "
                         "paths' rows (f32 against f64, bf16 against f32), "
                         "and nothing else; needs no card")
+    parser.add_argument("--transfer", action="store_true",
+                        help="run only the transfer phase (a pretrained "
+                        "ResNet-50's zip round trip, fine-tuning under early "
+                        "stopping and checkpoints, resume, evaluation; "
+                        "LeNet's transfer, solvers and DL4J zip), which "
+                        "builds no kernel")
     parser.add_argument("--recurrent", action="store_true",
                         help="run only the recurrent phase (the char-RNNs "
                         "R1-R4, K11 and K11L), which builds only "
@@ -8068,10 +8670,14 @@ def main() -> int:
     args = parser.parse_args()
     import torch
     if args.readings is not None:
-        readings = (zoo_readings(tuple(args.readings)) if args.readings
-                    else zoo_readings())
+        name = "zoo_readings.json"
+        if args.readings == ["transfer"]:
+            readings, name = transfer_readings(), "transfer_readings.json"
+        else:
+            readings = (zoo_readings(tuple(args.readings)) if args.readings
+                        else zoo_readings())
         OUT_DIR.mkdir(parents=True, exist_ok=True)
-        (OUT_DIR / "zoo_readings.json").write_text(
+        (OUT_DIR / name).write_text(
             json.dumps(readings, default=str, indent=1))
         return 0
     if not torch.cuda.is_available():
@@ -8121,6 +8727,13 @@ def main() -> int:
         detection, _rows = detection_phase(torch, smi)
         check(not any(detection), f"the detection path launched port "
               f"kernels: {dict(zip(ALL_KERNELS, detection))}")
+        return 0
+    if args.transfer:
+        t0 = time.perf_counter()
+        transfer = transfer_phase(torch, smi)
+        check(not any(transfer), f"the transfer path launched port "
+              f"kernels: {dict(zip(ALL_KERNELS, transfer))}")
+        emit(phase_seconds={"transfer_phase": time.perf_counter() - t0})
         return 0
     if args.recurrent:
         t0 = time.perf_counter()
@@ -8277,6 +8890,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     detection, _rows = timed("detection_phase", detection_phase, torch, smi)
     torch.cuda.empty_cache()
+    transfer = timed("transfer_phase", transfer_phase, torch, smi)
+    torch.cuda.empty_cache()
     recurrent, wide, k11_rows, k11l_rows = timed(
         "recurrent_phase", recurrent_phase, torch)
     paths = {"serve": serve, "serve_modes": modes, "pipeline": pipeline,
@@ -8284,13 +8899,13 @@ def main() -> int:
              "moe": moe, "f32_serve": f32_serve, "f32_train": f32_train,
              "network": network, "recurrent": recurrent, "wide_layer": wide,
              "attention": attention, "attention_modules": attention_modules,
-             "detection": detection}
+             "detection": detection, "transfer": transfer}
     launches = {name: {path: counts_[i] for path, counts_ in paths.items()}
                 for i, name in enumerate(ALL_KERNELS)}
     emit(main_path_launches=launches)
     check_path_launches(serve, modes, train, moe, f32_serve, f32_train,
                         pipeline, frontdoor, fleet, network, recurrent,
-                        wide, detection)
+                        wide, detection, transfer)
     check(not any(launches["attention_plain"].values()),
           f"the attention op took its plain route on the card: "
           f"{launches['attention_plain']}")

@@ -1,8 +1,9 @@
 """DataSet iterators: counterpart of ``deeplearning4j_tpu/data/iterators.py``
 (the reference's ``DataSetIterator``, ``ListDataSetIterator``,
-``ArrayDataSetIterator`` and the device prefetch the fit loops wrap an
-iterator in). ``AsyncDataSetIterator`` and ``MultipleEpochsIterator`` wait
-(ROADMAP queue 1 item 8)."""
+``ArrayDataSetIterator``, ``AsyncDataSetIterator``, ``MultipleEpochsIterator``
+and the device prefetch the fit loops wrap an iterator in).
+``record_reader_iterator.py`` comes with ``datavec/`` (ROADMAP queue 1
+item 10)."""
 from __future__ import annotations
 
 import queue
@@ -183,6 +184,43 @@ class ArrayDataSetIterator(DataSetIterator):
         return self.batch_size
 
 
+class _Failure:
+    """An error a producer thread met, handed to the consumer in the
+    queue so it surfaces at the batch it failed on."""
+    __slots__ = ("error",)
+
+    def __init__(self, error):
+        self.error = error
+
+
+class MultipleEpochsIterator(DataSetIterator):
+    """(ref: MultipleEpochsIterator) — repeat a backing iterator N times."""
+
+    def __init__(self, epochs: int, backing: DataSetIterator):
+        self._backing = backing
+        self._epochs = epochs
+        self._cur = 0
+
+    def has_next(self) -> bool:
+        if self._backing.has_next():
+            return True
+        if self._cur + 1 < self._epochs:
+            self._cur += 1
+            self._backing.reset()
+            return self._backing.has_next()
+        return False
+
+    def next(self) -> DataSet:
+        return self._backing.next()
+
+    def reset(self):
+        self._cur = 0
+        self._backing.reset()
+
+    def batch(self) -> int:
+        return self._backing.batch()
+
+
 def _put_tree(v, put):
     """Apply ``put`` to every array in a (possibly tuple-valued) field."""
     if v is None:
@@ -216,37 +254,23 @@ def _place_dataset(ds, put):
     return out
 
 
-class DevicePrefetchIterator(DataSetIterator):
-    """Double-buffered device prefetch. A background thread pulls batch
-    *k+1* from the backing iterator and copies it to the card while step
-    *k* runs, so the fit loop dequeues batches already on the card.
-
-    On CUDA each array is copied into pinned host memory and sent by a
-    non-blocking copy on a side stream; the batch carries an event
-    recorded after its copies, and ``next()`` makes the consumer's stream
-    wait on that event (a device-side wait, not a host block) and records
-    the tensors' use on that stream for the caching allocator. On the CPU
-    a batch becomes CPU tensors.
-
-    ``device`` (default: the card) is where batches land.
-    """
+class _PrefetchIterator(DataSetIterator):
+    """A daemon producer thread pulls batches from the backing iterator
+    through ``_place`` into a bounded queue of ``depth``; the consumer
+    takes them from the queue. The producer starts lazily, at the first
+    ``has_next``/``next``; ``reset`` and ``close`` stop it and join it
+    under a timeout, so a consumer that walks away never leaves a thread
+    behind a full queue. An error the backing iterator raises reaches the
+    consumer after the last good batch."""
 
     _SENTINEL = object()
+    _THREAD_NAME = "dl4j-prefetch"
+    #: seconds ``reset`` / ``close`` wait for the producer to exit
+    JOIN_TIMEOUT = 5.0
 
-    class _Failure:
-        __slots__ = ("error",)
-
-        def __init__(self, error):
-            self.error = error
-
-    def __init__(self, backing: DataSetIterator, depth: Optional[int] = None,
-                 device=None):
-        from deeplearning4j_tpu_torch._device import resolve_device
+    def __init__(self, backing: DataSetIterator, depth: int):
         self._backing = backing
-        self._device = resolve_device(device)
-        self._side_stream = None
-        self._depth = max(1, depth if depth is not None
-                          else _async.prefetch_depth())
+        self._depth = max(1, depth)
         self._hits = 0
         self._waits = 0
         self._queue: Optional[queue.Queue] = None
@@ -257,46 +281,10 @@ class DevicePrefetchIterator(DataSetIterator):
         # consuming; spawning the thread on first access instead of here
         # avoids burning thread spawns and device transfers per reset
 
-    @classmethod
-    def wrap(cls, iterator, depth: Optional[int] = None, device=None):
-        """Wrap a DataSetIterator for device prefetch when the async
-        runtime is enabled; anything else (plain lists, generators,
-        already-wrapped iterators, kill switch off) passes through."""
-        if (not _async.async_enabled()
-                or isinstance(iterator, DevicePrefetchIterator)
-                or not isinstance(iterator, DataSetIterator)):
-            return iterator
-        return cls(iterator, depth=depth, device=device)
-
     def _place(self, ds):
-        dev = self._device
-        if dev.type != "cuda":
-            return _place_dataset(ds, lambda a: torch.as_tensor(a, device=dev))
-        if self._side_stream is None:
-            self._side_stream = torch.cuda.Stream(device=dev)
-
-        def put(a):
-            host = torch.as_tensor(a)
-            if host.device.type == "cpu":
-                host = host.pin_memory()
-            return host.to(dev, non_blocking=True)
-
-        with torch.cuda.stream(self._side_stream):
-            out = _place_dataset(ds, put)
-            ready = torch.cuda.Event()
-            ready.record(self._side_stream)
-        out._ready_event = ready
-        return out
+        return ds
 
     def _hand_over(self, ds):
-        """Make the consumer's stream wait for ``ds``'s copies (CUDA)."""
-        ready = getattr(ds, "_ready_event", None)
-        if ready is None:
-            return ds
-        stream = torch.cuda.current_stream(self._device)
-        stream.wait_event(ready)
-        _put_tree_all(ds, lambda t: t.record_stream(stream))
-        del ds._ready_event
         return ds
 
     def _start(self):
@@ -340,10 +328,9 @@ class DevicePrefetchIterator(DataSetIterator):
                             with _span("prefetch_place", iterator=kind):
                                 item = place(backing.next())
                         except Exception as e:  # surface on consumer side
-                            item = DevicePrefetchIterator._Failure(e)
+                            item = _Failure(e)
                         put_stop_aware(item)
-                        if isinstance(item,
-                                      DevicePrefetchIterator._Failure):
+                        if isinstance(item, _Failure):
                             return
                 finally:
                     # the sentinel MUST be delivered (a full queue here is
@@ -353,7 +340,7 @@ class DevicePrefetchIterator(DataSetIterator):
                     put_stop_aware(self._SENTINEL)
 
         self._thread = threading.Thread(target=producer, daemon=True,
-                                        name="dl4j-device-prefetch")
+                                        name=self._THREAD_NAME)
         self._thread.start()
         self._advance()
 
@@ -377,7 +364,7 @@ class DevicePrefetchIterator(DataSetIterator):
         total = self._hits + self._waits
         if total:
             ratio.set(self._hits / total)
-        if isinstance(item, DevicePrefetchIterator._Failure):
+        if isinstance(item, _Failure):
             # don't raise here: next() calls _advance AFTER taking the
             # (valid) current batch — raising now would drop it. Surface
             # the error on the NEXT has_next()/next() access instead.
@@ -403,7 +390,7 @@ class DevicePrefetchIterator(DataSetIterator):
             # past the end there is no producer left to feed the queue —
             # blocking in _advance would hang forever (DL4J's next() throws
             # NoSuchElementException here)
-            raise StopIteration("DevicePrefetchIterator exhausted")
+            raise StopIteration(f"{type(self).__name__} exhausted")
         ds = self._next_item
         self._advance()
         return self._hand_over(ds)
@@ -418,7 +405,7 @@ class DevicePrefetchIterator(DataSetIterator):
                 self._queue.get_nowait()
         except queue.Empty:
             pass
-        self._thread.join(timeout=5)
+        self._thread.join(timeout=self.JOIN_TIMEOUT)
         self._thread = None
         self._next_item = None
 
@@ -435,6 +422,86 @@ class DevicePrefetchIterator(DataSetIterator):
         return self._backing.batch()
 
     def overlap_ratio(self) -> float:
-        """Fraction of handoffs where the batch was already on device."""
+        """Fraction of handoffs where the batch was already queued."""
         total = self._hits + self._waits
         return self._hits / total if total else 0.0
+
+
+class DevicePrefetchIterator(_PrefetchIterator):
+    """Double-buffered device prefetch. A background thread pulls batch
+    *k+1* from the backing iterator and copies it to the card while step
+    *k* runs, so the fit loop dequeues batches already on the card.
+
+    On CUDA each array is copied into pinned host memory and sent by a
+    non-blocking copy on a side stream; the batch carries an event
+    recorded after its copies, and ``next()`` makes the consumer's stream
+    wait on that event (a device-side wait, not a host block) and records
+    the tensors' use on that stream for the caching allocator. On the CPU
+    a batch becomes CPU tensors.
+
+    ``device`` (default: the card) is where batches land.
+    """
+
+    _THREAD_NAME = "dl4j-device-prefetch"
+
+    def __init__(self, backing: DataSetIterator, depth: Optional[int] = None,
+                 device=None):
+        from deeplearning4j_tpu_torch._device import resolve_device
+        super().__init__(backing, depth if depth is not None
+                         else _async.prefetch_depth())
+        self._device = resolve_device(device)
+        self._side_stream = None
+
+    @classmethod
+    def wrap(cls, iterator, depth: Optional[int] = None, device=None):
+        """Wrap a DataSetIterator for device prefetch when the async
+        runtime is enabled; anything else (plain lists, generators,
+        already-wrapped iterators, kill switch off) passes through."""
+        if (not _async.async_enabled()
+                or isinstance(iterator, DevicePrefetchIterator)
+                or not isinstance(iterator, DataSetIterator)):
+            return iterator
+        return cls(iterator, depth=depth, device=device)
+
+    def _place(self, ds):
+        dev = self._device
+        if dev.type != "cuda":
+            return _place_dataset(ds, lambda a: torch.as_tensor(a, device=dev))
+        if self._side_stream is None:
+            self._side_stream = torch.cuda.Stream(device=dev)
+
+        def put(a):
+            host = torch.as_tensor(a)
+            if host.device.type == "cpu":
+                host = host.pin_memory()
+            return host.to(dev, non_blocking=True)
+
+        with torch.cuda.stream(self._side_stream):
+            out = _place_dataset(ds, put)
+            ready = torch.cuda.Event()
+            ready.record(self._side_stream)
+        out._ready_event = ready
+        return out
+
+    def _hand_over(self, ds):
+        """Make the consumer's stream wait for ``ds``'s copies (CUDA)."""
+        ready = getattr(ds, "_ready_event", None)
+        if ready is None:
+            return ds
+        stream = torch.cuda.current_stream(self._device)
+        stream.wait_event(ready)
+        _put_tree_all(ds, lambda t: t.record_stream(stream))
+        del ds._ready_event
+        return ds
+
+
+class AsyncDataSetIterator(_PrefetchIterator):
+    """Background-thread prefetch wrapper (ref: AsyncDataSetIterator;
+    queue-based producer/consumer, bounded buffer of ``queue_size``).
+    Batches stay where the backing iterator made them: the fit loops'
+    device prefetch moves them to the card."""
+
+    _THREAD_NAME = "dl4j-async-iterator"
+
+    def __init__(self, backing: DataSetIterator, queue_size: int = 4):
+        super().__init__(backing, queue_size)

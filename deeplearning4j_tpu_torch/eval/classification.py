@@ -1,8 +1,8 @@
 """Classification evaluation: the ``Evaluation`` of
 ``deeplearning4j_tpu/eval/classification.py``, analog of
 ``org.nd4j.evaluation.classification.Evaluation`` (accuracy / precision /
-recall / F1 / confusion matrix / top-N). Its ROC, binary and calibration
-evaluations wait with ``evaluateROC*`` (ROADMAP queue 1 item 8).
+recall / F1 / confusion matrix / top-N), ``ROC``, ``ROCMultiClass``,
+``ROCBinary``, ``EvaluationBinary`` and ``EvaluationCalibration``.
 
 Host-side numpy accumulation; inputs accept torch tensors (on any
 device) and numpy arrays.
@@ -19,7 +19,10 @@ def _np(x):
     if x is None:
         return None
     if isinstance(x, torch.Tensor):
-        return x.detach().float().cpu().numpy()
+        t = x.detach()
+        if t.is_floating_point() and t.dtype != torch.float64:
+            t = t.float()
+        return t.cpu().numpy()
     return np.asarray(x)
 
 
@@ -148,3 +151,177 @@ class Evaluation:
     # camelCase parity
     confusionMatrix = confusion_matrix
     falsePositiveRate = false_positive_rate
+
+
+#: the trapezoid rule (``np.trapz`` before numpy 2.0)
+_trapezoid = getattr(np, "trapezoid", None) or np.trapz
+
+
+class ROC:
+    """Binary ROC/AUC with exact thresholds (ref: org.nd4j.evaluation.ROC
+    with thresholdSteps=0 → exact mode)."""
+
+    def __init__(self):
+        self._scores = []
+        self._labels = []
+
+    def eval(self, labels, predictions):
+        y, p = _np(labels), _np(predictions)
+        if y.ndim > 1 and y.shape[-1] == 2:
+            y = y[..., 1]
+            p = p[..., 1]
+        self._labels.append(y.ravel())
+        self._scores.append(p.ravel())
+        return self
+
+    def _sorted(self):
+        y = np.concatenate(self._labels)
+        s = np.concatenate(self._scores)
+        order = np.argsort(-s, kind="stable")
+        return y[order], s[order]
+
+    def calculate_auc(self) -> float:
+        y, _ = self._sorted()
+        pos = y.sum()
+        neg = len(y) - pos
+        if pos == 0 or neg == 0:
+            return 0.5
+        tps = np.cumsum(y)
+        fps = np.cumsum(1 - y)
+        tpr = np.concatenate([[0], tps / pos])
+        fpr = np.concatenate([[0], fps / neg])
+        return float(_trapezoid(tpr, fpr))
+
+    def calculate_auprc(self) -> float:
+        y, _ = self._sorted()
+        pos = y.sum()
+        if pos == 0:
+            return 0.0
+        tps = np.cumsum(y)
+        precision = tps / np.arange(1, len(y) + 1)
+        recall = tps / pos
+        return float(_trapezoid(precision, recall))
+
+    calculateAUC = calculate_auc
+    calculateAUCPR = calculate_auprc
+
+
+class ROCMultiClass:
+    """One-vs-all ROC per class (ref: ROCMultiClass)."""
+
+    def __init__(self):
+        self._rocs = {}
+
+    def eval(self, labels, predictions):
+        y, p = _np(labels), _np(predictions)
+        for c in range(y.shape[-1]):
+            self._rocs.setdefault(c, ROC()).eval(y[..., c], p[..., c])
+        return self
+
+    def calculate_auc(self, cls: int) -> float:
+        return self._rocs[cls].calculate_auc()
+
+    def average_auc(self) -> float:
+        return float(np.mean([r.calculate_auc() for r in self._rocs.values()]))
+
+    calculateAUC = calculate_auc
+    calculateAverageAUC = average_auc
+
+
+class ROCBinary(ROCMultiClass):
+    """Per-output binary ROC for multi-label sigmoid outputs (ref:
+    org.nd4j.evaluation.classification.ROCBinary). Same per-column
+    accumulation as ROCMultiClass (one-vs-all ≡ independent binary outputs);
+    adds 1-D promotion, num_labels and per-output AUPRC."""
+
+    def eval(self, labels, predictions):
+        y, p = _np(labels), _np(predictions)
+        if y.ndim == 1:
+            y, p = y[:, None], p[:, None]
+        return super().eval(y, p)
+
+    def num_labels(self) -> int:
+        return len(self._rocs)
+
+    def calculate_auprc(self, output: int) -> float:
+        return self._rocs[output].calculate_auprc()
+
+    calculateAUCPR = calculate_auprc
+
+
+class EvaluationBinary:
+    """Per-output binary metrics for multi-label sigmoid outputs
+    (ref: EvaluationBinary)."""
+
+    def __init__(self, threshold: float = 0.5):
+        self.threshold = threshold
+        self._tp = self._fp = self._tn = self._fn = None
+
+    def eval(self, labels, predictions):
+        y, p = _np(labels), _np(predictions)
+        pred = (p >= self.threshold).astype(int)
+        y = y.astype(int)
+        if self._tp is None:
+            n = y.shape[-1]
+            self._tp = np.zeros(n, np.int64)
+            self._fp = np.zeros(n, np.int64)
+            self._tn = np.zeros(n, np.int64)
+            self._fn = np.zeros(n, np.int64)
+        self._tp += ((pred == 1) & (y == 1)).sum(0)
+        self._fp += ((pred == 1) & (y == 0)).sum(0)
+        self._tn += ((pred == 0) & (y == 0)).sum(0)
+        self._fn += ((pred == 0) & (y == 1)).sum(0)
+        return self
+
+    def accuracy(self, out: int) -> float:
+        total = self._tp[out] + self._fp[out] + self._tn[out] + self._fn[out]
+        return float((self._tp[out] + self._tn[out]) / total) if total else 0.0
+
+    def precision(self, out: int) -> float:
+        d = self._tp[out] + self._fp[out]
+        return float(self._tp[out] / d) if d else 0.0
+
+    def recall(self, out: int) -> float:
+        d = self._tp[out] + self._fn[out]
+        return float(self._tp[out] / d) if d else 0.0
+
+    def f1(self, out: int) -> float:
+        p, r = self.precision(out), self.recall(out)
+        return 2 * p * r / (p + r) if (p + r) else 0.0
+
+
+class EvaluationCalibration:
+    """Reliability/calibration histograms (ref: EvaluationCalibration)."""
+
+    def __init__(self, bins: int = 10):
+        self.bins = bins
+        self._counts = np.zeros(bins, np.int64)
+        self._correct = np.zeros(bins, np.int64)
+        self._conf_sum = np.zeros(bins, np.float64)
+
+    def eval(self, labels, predictions):
+        y, p = _np(labels), _np(predictions)
+        y_idx = y.argmax(-1).ravel()
+        p_idx = p.argmax(-1).ravel()
+        conf = p.max(-1).ravel()
+        b = np.clip((conf * self.bins).astype(int), 0, self.bins - 1)
+        np.add.at(self._counts, b, 1)
+        np.add.at(self._correct, b, (y_idx == p_idx).astype(int))
+        np.add.at(self._conf_sum, b, conf)
+        return self
+
+    def reliability(self):
+        """(bin_confidence, bin_accuracy, bin_count) triples."""
+        with np.errstate(invalid="ignore"):
+            acc = np.where(self._counts > 0,
+                           self._correct / np.maximum(self._counts, 1), 0.0)
+            conf = np.where(self._counts > 0,
+                            self._conf_sum / np.maximum(self._counts, 1), 0.0)
+        return conf, acc, self._counts
+
+    def expected_calibration_error(self) -> float:
+        conf, acc, counts = self.reliability()
+        total = counts.sum()
+        if total == 0:
+            return 0.0
+        return float(np.sum(counts / total * np.abs(conf - acc)))

@@ -1,9 +1,10 @@
 """Model-zoo base: counterpart of ``deeplearning4j_tpu/models/zoo/base.py``
 (the reference's ``ZooModel``). ``init_model`` builds the network on the
 card unless ``device="cpu"``. Pretrained weights load only from a local
-cache, as in the reference; their loader waits for
-``utils/serialization`` (ROADMAP queue 1 item 8), so ``init_pretrained``
-raises when the file is missing and when it is there.
+cache (``DL4J_TPU_ZOO_CACHE``), as in the reference: ``init_pretrained``
+restores a zip from it through ``ModelSerializer.restore`` (either
+package's zips, or a DL4J artifact) onto the card unless
+``device="cpu"``, and ``save_pretrained`` writes one there.
 """
 from __future__ import annotations
 
@@ -55,7 +56,8 @@ class ZooModel:
         return os.path.join(self.pretrained_cache_dir(),
                             f"{type(self).__name__.lower()}_{pretrained_type}.zip")
 
-    def init_pretrained(self, pretrained_type: str = PretrainedType.IMAGENET):
+    def init_pretrained(self, pretrained_type: str = PretrainedType.IMAGENET,
+                        device=None):
         """ref: ZooModel#initPretrained — local cache only."""
         path = self._pretrained_path(pretrained_type)
         if not os.path.exists(path):
@@ -63,8 +65,19 @@ class ZooModel:
                 f"No pretrained weights for {type(self).__name__} "
                 f"({pretrained_type}) at {path}. This environment has no "
                 f"network egress; place the checkpoint there manually.")
-        raise NotImplementedError(
-            "loading a DL4J zip waits for the port's utils/serialization")
+        from deeplearning4j_tpu_torch.utils.serialization import (
+            ModelSerializer)
+        return ModelSerializer.restore(path, device=device)
+
+    initPretrained = init_pretrained
 
     def pretrained_available(self, pretrained_type: str) -> bool:
         return os.path.exists(self._pretrained_path(pretrained_type))
+
+    def save_pretrained(self, net, pretrained_type: str) -> str:
+        """Publish a trained net into the local pretrained cache — the
+        producer side of ``init_pretrained``. Returns the written path."""
+        os.makedirs(self.pretrained_cache_dir(), exist_ok=True)
+        path = self._pretrained_path(pretrained_type)
+        net.save(path)
+        return path

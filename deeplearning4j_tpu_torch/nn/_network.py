@@ -674,10 +674,9 @@ class NetworkBase:
                 tuple(self._to_device(y) for y in labels), None, None, None)
         return float(loss)
 
-    def evaluate(self, iterator):
-        """Classification evaluation over an iterator (ref: #evaluate)."""
-        from deeplearning4j_tpu_torch.eval.classification import Evaluation
-        ev = Evaluation()
+    def _eval_with(self, ev, iterator, masked=False):
+        """Feed ``ev`` the first output and first labels of every batch of
+        ``iterator`` (the label mask too where ``masked``)."""
         if hasattr(iterator, "reset"):
             iterator.reset()
         for ds in iterator:
@@ -685,8 +684,42 @@ class NetworkBase:
             out = self.output(*inputs)
             if isinstance(out, tuple):
                 out = out[0]
-            ev.eval(labels[0], out, mask=getattr(ds, "labels_mask", None))
+            if masked:
+                ev.eval(labels[0], out, mask=getattr(ds, "labels_mask", None))
+            else:
+                ev.eval(labels[0], out)
         return ev
+
+    def evaluate(self, iterator):
+        """Classification evaluation over an iterator (ref: #evaluate)."""
+        from deeplearning4j_tpu_torch.eval.classification import Evaluation
+        return self._eval_with(Evaluation(), iterator, masked=True)
+
+    def evaluateROC(self, iterator, threshold_steps: int = 0):
+        """ref: #evaluateROC (binary outputs); ``threshold_steps`` is taken
+        for the reference's signature: the ROC is exact-threshold."""
+        from deeplearning4j_tpu_torch.eval.classification import ROC
+        return self._eval_with(ROC(), iterator)
+
+    def evaluateROCMultiClass(self, iterator, threshold_steps: int = 0):
+        """ref: #evaluateROCMultiClass (one-vs-all, exact thresholds)."""
+        from deeplearning4j_tpu_torch.eval.classification import (
+            ROCMultiClass)
+        return self._eval_with(ROCMultiClass(), iterator)
+
+    def evaluateRegression(self, iterator):
+        """ref: #evaluateRegression."""
+        from deeplearning4j_tpu_torch.eval.regression import (
+            RegressionEvaluation)
+        return self._eval_with(RegressionEvaluation(), iterator)
+
+    # ---------------------------------------------------------- persistence
+    def save(self, path, save_updater: bool = True):
+        """Write the net as a zip in the JAX package's layout
+        (``utils/serialization.py``): each tensor copied to the host once."""
+        from deeplearning4j_tpu_torch.utils.serialization import (
+            ModelSerializer)
+        ModelSerializer.write_model(self, path, save_updater)
 
     def predict(self, *inputs) -> torch.Tensor:
         """Argmax class predictions (ref: #predict)."""

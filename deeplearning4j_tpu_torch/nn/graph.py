@@ -15,8 +15,8 @@ lets XLA drop the unused casts, which eager PyTorch would all run.
 Recurrent nodes run from carries in truncated BPTT (``nn/_network.py``'s
 ``_fit_tbptt``: 3-D inputs and labels chunked, masks from 2-D) and in
 ``rnnTimeStep`` streaming; a vertex whose class sets ``takes_mask`` gets
-the first feature mask (``LastTimeStepVertex``). ``save`` / ``load`` and
-``evaluateROC*`` wait (ROADMAP queue 1 item 8).
+the first feature mask (``LastTimeStepVertex``). ``save`` / ``load`` go
+through ``utils/serialization.py``.
 """
 from __future__ import annotations
 
@@ -234,6 +234,17 @@ class ComputationGraph(NetworkBase):
             total += layer_flops(layer, types.get(ins[0]), batch, t,
                                  types.get(ins[1]) if len(ins) > 1 else None)
         return total
+
+    # ----------------------------------------------------------- persistence
+    @staticmethod
+    def load(path, load_updater: bool = True,
+             device=None) -> "ComputationGraph":
+        """Restore a zip (either package's, or a DL4J artifact) onto
+        ``device`` (default: the card)."""
+        from deeplearning4j_tpu_torch.utils.serialization import (
+            ModelSerializer)
+        return ModelSerializer.restore_computation_graph(
+            path, load_updater, device=device)
 
     # ---------------------------------------------------------------- misc
     def summary(self) -> str:

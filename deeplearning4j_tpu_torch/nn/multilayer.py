@@ -16,9 +16,8 @@ BPTT (``backprop_type("tbptt")``, ``nn/_network.py``'s ``_fit_tbptt``) and
 
 ``pretrain`` / ``pretrainLayer`` train a pretrainable layer (the
 ``VariationalAutoencoder``) on its own loss, upstream layers in
-inference. ``save`` / ``load``, ``evaluateROC*`` and
-``evaluateRegression`` wait with ``utils/serialization`` (ROADMAP queue 1
-item 8).
+inference. ``save`` / ``load`` go through ``utils/serialization.py``;
+``evaluateROC*`` and ``evaluateRegression`` live in ``nn/_network.py``.
 """
 from __future__ import annotations
 
@@ -271,6 +270,17 @@ class MultiLayerNetwork(NetworkBase):
             total += layer_flops(layer, it, batch, t)
             it = layer.output_type(it) if it is not None else None
         return total
+
+    # ----------------------------------------------------------- persistence
+    @staticmethod
+    def load(path, load_updater: bool = True,
+             device=None) -> "MultiLayerNetwork":
+        """Restore a zip (either package's, or a DL4J artifact) onto
+        ``device`` (default: the card)."""
+        from deeplearning4j_tpu_torch.utils.serialization import (
+            ModelSerializer)
+        return ModelSerializer.restore_multi_layer_network(
+            path, load_updater, device=device)
 
     # ---------------------------------------------------------------- misc
     def summary(self) -> str:

@@ -1,0 +1,2 @@
+"""Utilities of the port: counterpart of ``deeplearning4j_tpu.utils``
+(``serialization``; the rest waits in ROADMAP queue 1 item 10)."""

@@ -1104,9 +1104,10 @@ def _path_launches():
     recurrent = (0,) * 18 + (40, 40)
     wide = (0,) * 16 + (50, 50, 0, 0)
     detection = (0,) * 20
+    transfer = (0,) * 20
     return [path + (0,) for path in (
         serve, modes, train, moe, f32_serve, f32_train, pipeline, frontdoor,
-        fleet, network, recurrent, wide, detection)]
+        fleet, network, recurrent, wide, detection, transfer)]
 
 
 @pytest.mark.parametrize("path,kernel,what", [
@@ -1913,3 +1914,111 @@ def test_zoo_data_sizes_each_model_at_its_input():
     assert set(np.unique(y)) == {0.0, 1.0}
     assert chip_smoke.zoo_model("VGG16", "float32").input_shape == (224, 224,
                                                                     3)
+
+
+# ----------------------------------------------------------------- transfer
+def test_transfer_phase_runs_resnet50_at_full_size():
+    assert chip_smoke.NET_SHAPE == (224, 224, 3)
+    assert chip_smoke.NET_BATCH == 32 and chip_smoke.NET_CLASSES == 1000
+    assert (chip_smoke.TR_TRAIN_BATCHES, chip_smoke.TR_HELD_BATCHES) == (8, 2)
+    assert (chip_smoke.TR_PATIENCE, chip_smoke.TR_MAX_EPOCHS) == (2, 4)
+    assert chip_smoke.TOL_TRANSFER["cpu_probs"] == \
+        chip_smoke.TOL_NET_F32["probs"]
+
+
+def test_transfer_data_is_seeded_and_one_hot_over_the_head(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "NET_SHAPE", (16, 16, 3))
+    x, y = chip_smoke.transfer_data(12, 3)
+    x2, y2 = chip_smoke.transfer_data(12, 3)
+    assert x.shape == (12, 16, 16, 3) and x.dtype == np.float32
+    np.testing.assert_array_equal(x, x2)
+    np.testing.assert_array_equal(y, y2)
+    assert 0.0 <= x.min() and x.max() <= 255.0
+    assert y.shape == (12, chip_smoke.NET_CLASSES)
+    assert (y.sum(1) == 1).all()
+    assert set(np.nonzero(y)[1]) <= set(range(chip_smoke.TR_CLASSES))
+
+
+def _small_net():
+    from deeplearning4j_tpu_torch.nn.conf import configuration as cfg
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.optim.updaters import Adam
+    conf = (cfg.NeuralNetConfiguration.builder().seed(1).updater(Adam(0.1))
+            .list().layer(L.DenseLayer(n_in=3, n_out=4, activation="tanh"))
+            .layer(L.DenseLayer(n_in=4, n_out=4, activation="tanh"))
+            .layer(L.OutputLayer(n_in=4, n_out=2, activation="softmax",
+                                 loss_function="mcxent")).build())
+    return MultiLayerNetwork(conf, device="cpu").init()
+
+
+def test_leaf_comparisons_see_one_changed_bit():
+    import torch
+    a, b = _small_net(), _small_net()
+    assert chip_smoke.unequal_leaves(torch, a.param_tree(),
+                                     b.param_tree()) == []
+    assert chip_smoke.unequal_updater_leaves(
+        torch, a.updater_state(), b.updater_state()) == []
+    w = b.param_tree()["1"]["W"]
+    w.view(-1)[3] = torch.nextafter(w.view(-1)[3], torch.tensor(9.0))
+    assert chip_smoke.unequal_leaves(torch, a.param_tree(),
+                                     b.param_tree()) == ["1/W"]
+    assert chip_smoke.unequal_leaves(torch, a.param_tree(),
+                                     {"0": {}}) != []
+    x = np.random.default_rng(0).standard_normal((5, 3)).astype(np.float32)
+    y = np.eye(2, dtype=np.float32)[[0, 1, 0, 1, 1]]
+    b.fit(x, y)
+    bad = chip_smoke.unequal_updater_leaves(torch, a.updater_state(),
+                                            b.updater_state())
+    assert bad and 0 in bad                # the count, then mu and nu
+    assert chip_smoke.tree_max_abs(
+        torch, chip_smoke.net_snapshot(a), chip_smoke.net_snapshot(a)) == 0.0
+    assert chip_smoke.tree_max_abs(
+        torch, chip_smoke.net_snapshot(a), chip_smoke.net_snapshot(b)) > 0.0
+
+
+def test_frozen_updater_leaves_are_the_frozen_layers_mu_and_nu():
+    net = _small_net()
+    net._frozen = {"0"}
+    x = np.random.default_rng(0).standard_normal((5, 3)).astype(np.float32)
+    y = np.eye(2, dtype=np.float32)[[0, 1, 0, 1, 1]]
+    net.fit(x, y)
+    frozen = chip_smoke.frozen_updater_leaves(net)
+    assert len(frozen) == 4                 # W and b, mu and nu
+    assert all(float(t.abs().sum()) == 0 for t in frozen)
+    net._frozen = {"1"}
+    assert all(float(t.abs().sum()) > 0
+               for t in chip_smoke.frozen_updater_leaves(net))
+
+
+def test_solver_gaps_and_margins():
+    assert chip_smoke.solver_gaps([2.0, 1.0], [2.0, 1.5]) == [0.0, 0.5 / 1.5]
+    assert chip_smoke.solver_gaps([0.5], [0.25]) == [0.25]    # floor of 1
+    assert chip_smoke.solver_gaps([1.0], [1.0, 2.0]) is None
+    assert chip_smoke.armijo_margins([(0, 1.0, 2.0, 2.5),
+                                      (0, 0.5, 3.0, 2.5)]) == [
+        (0, 1.0, -0.5), (0, 0.5, 0.5)]
+
+
+def test_transfer_readings_sit_under_the_solver_row():
+    """The readings the row was set from: a one-ulp nudge of LeNet's start
+    moves no score by a tenth of the row, and every line-search trial's
+    Armijo margin is far outside it."""
+    r = chip_smoke.transfer_readings()
+    for algo in chip_smoke.TR_SOLVERS:
+        assert len(r[algo]["scores"]) == chip_smoke.TR_SOLVER_ITERS
+        assert r[algo]["scores"][-1] < r[algo]["scores"][0]
+        assert r[algo]["worst"] <= chip_smoke.TOL_TRANSFER_SOLVER / 10
+        assert min(abs(m) for _, _, m in r[algo]["margins"]) > \
+            100 * chip_smoke.TOL_TRANSFER_SOLVER
+
+
+@pytest.mark.parametrize("kernel", [0, 1, 9, 15, 18, 20])
+def test_path_launch_checks_catch_a_transfer_launch(kernel):
+    paths = _path_launches()
+    chip_smoke.check_path_launches(*paths)
+    bad = list(paths[-1])
+    bad[kernel] = 3
+    paths[-1] = tuple(bad)
+    with pytest.raises(AssertionError):
+        chip_smoke.check_path_launches(*paths)

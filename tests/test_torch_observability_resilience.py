@@ -673,15 +673,21 @@ COPIED = {
         {"compile_cache_dir": "no XLA compile cache",
          "configure_compile_cache": "no XLA compile cache",
          "inflight_limit": _PI, "default_buckets": _PI}, {}),
-    "optim/listeners": (
-        {"CheckpointListener": "utils/serialization: " + _NET}, {}),
-    "eval/classification": (
-        {n: "evaluateROC*: " + _NET for n in (
-            "ROC", "ROCMultiClass", "ROCBinary", "EvaluationBinary",
-            "EvaluationCalibration")}, {}),
-    "data/iterators": (
-        {n: _NET for n in ("AsyncDataSetIterator",
-                           "MultipleEpochsIterator")}, {}),
+    "optim/listeners": ({}, {}),
+    "optim/earlystopping": ({}, {}),
+    "optim/solvers": ({}, {}),
+    "eval/classification": ({}, {}),
+    "eval/regression": ({}, {}),
+    "eval/__init__": ({}, {}),
+    "data/iterators": ({}, {}),
+    "data/normalizers": (
+        {}, {"NORMALIZERS": "normalizer.json's type -> class, which the "
+                            "reference's restore_normalizer keeps inline"}),
+    "data/mnist": ({}, {}),
+    "data/vision": ({}, {}),
+    "utils/serialization": ({}, {}),
+    "modelimport/dl4j_zip": ({}, {}),
+    "nn/transferlearning": ({}, {}),
     "data/dataset": ({}, {}),
     "nn/conf/inputs": ({}, {}),
     "nn/conf/preprocessors": ({}, {}),

@@ -52,14 +52,20 @@ def test_port_has_modules_to_check():
                    for m in ("activations", "weights", "losses", "params",
                              "_precision", "_step_tail", "_network",
                              "weightnoise", "multilayer", "graph",
-                             "graph_conf", "conf/configuration",
+                             "graph_conf", "transferlearning",
+                             "conf/configuration",
                              "conf/layers", "conf/inputs",
                              "conf/preprocessors", "conf/dropout")),
                  *(f"deeplearning4j_tpu_torch/{m}.py"
                    for m in ("optim/updaters", "optim/schedules",
                              "optim/transforms", "optim/listeners",
+                             "optim/earlystopping", "optim/solvers",
                              "ops/standard", "data/dataset",
-                             "data/iterators", "eval/classification",
+                             "data/iterators", "data/normalizers",
+                             "data/mnist", "data/vision",
+                             "eval/classification", "eval/regression",
+                             "utils/serialization",
+                             "modelimport/dl4j_zip",
                              "models/zoo/base", "models/zoo/resnet",
                              "models/zoo/cnn_small")),
                  *(f"deeplearning4j_tpu_torch/observability/{m}.py"
