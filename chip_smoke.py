@@ -242,6 +242,37 @@ K4w spill nothing, and that no wgmma source has its products serialized
    restore seconds, zip MB, the early-stopping run's seconds and epochs,
    L-BFGS ms an iteration. No kernel of the port, nor the attention op's
    plain route.
+13. scoring phase (after the transfer phase; ``--scoring`` runs it alone,
+   building no kernel) — the fine-tune → serve loop (``SC_*``) on the zoo
+   ResNet-50 at 224², full depth, its trunk's BN statistics set from a
+   batch of data (``calibrate_bn``): (1) the transfer recipe's fine-tuning
+   (f32, frozen to "avgpool", batch 32, 12 seeded batches) under a
+   ``ResilientTrainer`` (checkpoints every 4 iterations, keep 2) through
+   a transient ``train.step`` error (retried in place), a crash (restore,
+   fast-forward) and a batch that crashes twice (quarantined): restarts,
+   restores and quarantines as counted, frozen leaves bitwise, params and
+   updater leaves no further from an undisturbed run than two undisturbed
+   runs are; (2) ``ModelRegistry.deploy`` of the healed net in f32 and
+   bf16 (batch_limit 32, every bucket 1-32 warmed), 16 client threads of
+   32 requests (every 4th of 3 images) of held-out images of every class
+   through ``ParallelInference``, each request's probabilities (bf16: a
+   sample's) held against ``net.output`` of its images alone, the f32
+   references' images further apart than the row, a row shift planted in
+   ``_distribute`` caught, no bucket miss after the warm-up; images/s,
+   p50/p99 latency, occupancy, bucket fill, a profiler window (host and
+   device ms, busy share and kernels a batch, the copies' time under
+   kernels of other streams), ``inflight_limit`` 1, 2 (f32) and a
+   direct batch-32 ``output`` loop in turns; (3) a ``FrontDoor`` over the
+   scoring router: a plain JSON classify equal to the in-process
+   ``ParallelInference.output``, the healed net's zip restored as v2 and
+   canaried over ``/v1/classify`` to full (every shadow comparison a
+   match, promoted), v3 under the ``serving.canary`` chaos point rolled
+   back, no client request failed; (4) ``global_profile_capture()
+   .capture(steps=8)`` under traffic: cuDNN convolution kernels in
+   ``top_ops``, their device time within the capture's wall time. The
+   fleet phase's workers deploy the demo scoring nets too, and each
+   answers one ``/v1/classify`` with the demo net's probabilities. No
+   kernel of the port, nor the attention op's plain route.
 
 Every phase must pass: any failure exits nonzero. Output is one JSON
 object per line; the last line is ``{"ok": true, "device": {...}}``.
@@ -265,10 +296,12 @@ shapes here and in each checkout at OTHER in turns.
 ``--network`` runs the network phase alone (it builds no kernel);
 ``--detection`` the detection phase alone (no kernel either);
 ``--transfer`` the transfer phase alone (no kernel either);
+``--scoring`` the scoring phase alone (no kernel either);
 ``--readings [MODEL...]`` takes the CPU readings the new zoo models' and
 the small paths' rows were set from (f32 against f64, bf16 against f32;
 no card needed), printed and written to OUT_DIR/``zoo_readings.json``
-(``--readings transfer``: the solver row's readings);
+(``--readings transfer``: the solver row's readings; ``--readings
+scoring``: the scoring rows', OUT_DIR/``scoring_readings.json``);
 ``--attention`` the attention phase alone (after building every kernel);
 ``--recurrent`` the recurrent phase alone (it builds only rnn_cell.cu,
 K11 and K11L).
@@ -3381,6 +3414,7 @@ def session_failover_drill(device, state_dir, baseline_fn, gap_fn=None,
             time.sleep(0.5)
         store = SharedStore(str(state_dir))
         workers = store.read().get("workers") or {}
+        classify = classify_workers(device, workers)
         victim = sorted(workers)[-1]             # spare the leader
         survivor = sorted(workers)[0]
         victim_pid = int(workers[victim]["pid"])
@@ -3456,6 +3490,7 @@ def session_failover_drill(device, state_dir, baseline_fn, gap_fn=None,
             "survivor_worker": survivor,
             "killed_worker": victim, "failures": failures, "flips": flips,
             "session_faults": FLEET_FAULTS, "workers": 2,
+            "classify": classify,
             "prompts": prompts, "baselines": baselines}
     finally:
         proc.terminate()
@@ -3468,6 +3503,38 @@ def session_failover_drill(device, state_dir, baseline_fn, gap_fn=None,
     check(counts.exists(), f"the survivor {survivor} wrote no launch counts")
     rec["survivor_launches"] = json.loads(counts.read_text())
     return rec
+
+
+def classify_workers(device, workers):
+    """One ``POST /v1/classify`` of 3 seeded rows straight to each worker
+    of the fleet (``workers``: the store's entries): its status and the
+    largest |Δ| of its probabilities from the demo scoring net's (the
+    workers' ``v1``) in this process on ``device``, by worker id."""
+    from deeplearning4j_tpu_torch.tools.serve import (DEMO_SCORING_IN,
+                                                      demo_scoring_net)
+    xs = np.random.default_rng(SEED + 41).standard_normal(
+        (3, DEMO_SCORING_IN)).astype(np.float32)
+    want = demo_scoring_net(device).output(xs).float().cpu().numpy()
+    out = {}
+    for wid, w in sorted(workers.items()):
+        code, body, _h = http_call(f"http://127.0.0.1:{int(w['port'])}",
+                                   "/v1/classify", {"inputs": xs.tolist()},
+                                   timeout=30.0)
+        got = np.asarray(body.get("outputs", []), np.float32)
+        out[wid] = {"status": code, "version": body.get("version"),
+                    "max_abs": (float(np.abs(got - want).max())
+                                if got.shape == want.shape else None)}
+    return out
+
+
+def check_classify(rec):
+    """Every worker of the drill answered its classify request with 200
+    and the demo net's probabilities within TOL_FLEET_CLASSIFY."""
+    got = rec["classify"]
+    check(len(got) == rec["workers"] and all(
+        c["status"] == 200 and c["max_abs"] is not None
+        and c["max_abs"] <= TOL_FLEET_CLASSIFY for c in got.values()),
+        f"fleet classify: {got} (row {TOL_FLEET_CLASSIFY})")
 
 
 def check_drill(rec):
@@ -3544,6 +3611,7 @@ def fleet_phase(torch):
           f"fleet drill: greedy match {rec['sess_greedy_match']} with "
           f"unexplained streams: {rec['failures']}")
     check_drill(rec)
+    check_classify(rec)
     named = rec["survivor_launches"]
     return tuple(named[k] for k in ALL_KERNELS)
 
@@ -6295,6 +6363,816 @@ def transfer_phase(torch, smi=None):
     return launches
 
 
+# ------------------------------------------------------------------ scoring
+# The scoring phase (PERF.md's scoring rows): the fine-tune → serve loop on
+# the zoo ResNet-50 at 224², full depth. The trunk stands in for a
+# pretrained one: seeded init with its BatchNormalization statistics set
+# from one batch of the data (``calibrate_bn``; at their init a deep
+# trunk's outputs saturate, so every image would score alike). (1)
+# Healing, f32: the transfer
+# recipe (frozen to "avgpool", Adam(TR_LR) on the head, batch 32) over
+# SC_TRAIN_BATCHES seeded batches under a ResilientTrainer (checkpoints
+# every SC_CKPT_EVERY iterations, keep SC_KEEP), with train.step faults
+# keyed to the net's iteration: a transient error at SC_TRANSIENT_AT
+# (retried in place), a crash at SC_CRASH_AT (restore, fast-forward) and a
+# batch that crashes twice at SC_POISON_AT (quarantined); held against two
+# undisturbed runs over the same batches without the quarantined one. (2)
+# Scoring, f32 and bf16: ModelRegistry.deploy of the healed net
+# (batch_limit 32, buckets 1-32, every bucket warmed), SC_CLIENTS client
+# threads of SC_REQUESTS requests each (every SC_WIDE_EVERY-th of SC_WIDE
+# images) of held-out images of every class, each request held against
+# net.output of its images alone (bf16: every SC_BF16_SAMPLE-th); the f32
+# check must tell images apart (every image's probabilities further than
+# the row from every other's) and fails when a row shift is planted in
+# ParallelInference._distribute; images/s, latency, occupancy, bucket
+# fill, a profiler window (with how long the copies run under kernels of
+# other streams), inflight_limit 1, 2 and a direct batch-32 output loop
+# in turns, one of each (bf16: the direct loop alone).
+# (3) Canary over POST /v1/classify: v2 (the healed net's zip restored)
+# walks to full and promotes; v3 under the serving.canary chaos point rolls
+# back; no incumbent request fails. (4) A profile capture during traffic.
+# No kernel of the port runs here.
+SC_TRAIN_BATCHES = 12
+SC_CKPT_EVERY, SC_KEEP = 4, 2
+#: the net's iteration at which each train.step fault fires, and its kinds
+#: in firing order (the poisoned batch crashes on its first two attempts)
+SC_FAULTS = {3: ["error"], 7: ["crash"], 9: ["crash", "crash"]}
+SC_MAX_RESTARTS = 4
+SC_BATCH_LIMIT, SC_MAX_WAIT_MS = 32, 5.0
+SC_CLIENTS, SC_REQUESTS = 16, 32
+SC_WIDE_EVERY, SC_WIDE = 4, 3          # every 4th request carries 3 images
+SC_PROFILE_STEPS = 8
+SC_WINDOW_CLIENTS, SC_WINDOW_REQUESTS = 4, 8     # the profiler window
+SC_BF16_SAMPLE = 8          # bf16: every 8th request held to its row
+SC_CALIBRATION = 32         # images that set the trunk's BN statistics
+SC_DIRECT_BATCHES = 24
+SC_TIMEOUT_S = 300.0
+# a request's probabilities in its padded bucket against the same images
+# through net.output alone: the same net and weights, another batch size
+# (cuDNN picks algorithms per batch size: f32 sums in another order).
+# f32: 4× the CPU readings on the served recipe (``--readings scoring``:
+# BN statistics set from data, fine-tuned, at 64² and 96²), each batch of
+# 2-32 against each image alone: 1.30e-4 / 4.0e-5 (oneDNN's batch-1 path
+# against its batched one; 3 images at batch 3 against the same in 32:
+# 1.2e-6 / 9.8e-7); every pair of distinct images reads ≥ 0.18 apart
+# there, ~350× this row. bf16: its hidden activations
+# round to bf16 after sums in another order, a one-ulp flip where the f32
+# sums straddle a rounding boundary, carried through 50 layers: bounded
+# by the whole of bf16's rounding (TOL_NET_BF16's row; the CPU reads
+# 3.0e-6 / 2.4e-6 where oneDNN's bf16 sums agree, but cuDNN's need not)
+TOL_SCORING = {"float32": 5e-4, "bfloat16": TOL_NET_BF16["probs"]}
+# the fleet's classify answers against the demo net in this process: the
+# same f32 products on the same card in another process, a few ulps of
+# probabilities ≤ 1
+TOL_FLEET_CLASSIFY = 1e-6
+#: cuDNN convolution kernels by name (Hopper's implicit-GEMM fprop, the
+#: older implicit sgemm and winograd kernels, cuDNN's own namespace)
+CONV_KERNEL = re.compile(r"conv|fprop|implicit_gemm|implicit_convolve|"
+                         r"winograd|cudnn|xmma", re.IGNORECASE)
+
+
+@contextlib.contextmanager
+def positional_train_faults(net, plan, faults=None):
+    """``train.step`` faults keyed to ``net``'s iteration: when the step at
+    iteration ``i`` is attempted and ``plan[i]`` still holds kinds, the
+    first is taken off and raised as an ``InjectedFault`` (before the
+    step touches any param, where the fault point sits). Other points
+    pass. ``faults`` is the fault module patched (default: the port's).
+    Yields the list of (iteration, kind) fired."""
+    from unittest import mock
+    if faults is None:
+        from deeplearning4j_tpu_torch.resilience import faults
+    left = {i: list(kinds) for i, kinds in plan.items()}
+    fired = []
+
+    def check(point):
+        if point != "train.step":
+            return
+        kinds = left.get(net._iteration)
+        if kinds:
+            kind = kinds.pop(0)
+            fired.append((net._iteration, kind))
+            raise faults.InjectedFault(point, kind)
+
+    with mock.patch.object(faults, "armed", return_value=True), \
+            mock.patch.object(faults, "check", side_effect=check), \
+            mock.patch.object(faults, "corrupt",
+                              side_effect=lambda point, value: value):
+        yield fired
+
+
+def counter_value(name, **labels):
+    """A counter's value in the process registry (0 when absent)."""
+    from deeplearning4j_tpu_torch.observability import global_registry
+    inst = global_registry().get(name)
+    if inst is None:
+        return 0.0
+    return float(inst.labels(**labels).value if labels else inst.value)
+
+
+def histogram_mean(name):
+    """(sum, count) of an unlabelled histogram in the process registry."""
+    from deeplearning4j_tpu_torch.observability import global_registry
+    inst = global_registry().get(name)
+    return (0.0, 0) if inst is None else (float(inst.sum), int(inst.count))
+
+
+def healing_drill(net, sets, root, plan=None, max_restarts=None,
+                  every=None, keep=None, trainer=None, iterator=None,
+                  faults=None, counter=None):
+    """``net`` fit once over ``sets`` (a list of DataSets) by a
+    ``ResilientTrainer`` checkpointing into ``root`` under
+    :func:`positional_train_faults`. ``trainer``, ``iterator``, ``faults``
+    and ``counter`` (a name → value reader) default to the port's
+    ``ResilientTrainer``, ``ListDataSetIterator``, fault module and
+    :func:`counter_value`; a test passes the JAX package's to run the
+    same drill there. Returns the drill's record: the
+    faults fired, restarts, restores and quarantines (counter deltas),
+    the quarantined positions, the final iteration, the checkpoints left,
+    seconds."""
+    import os
+    if trainer is None:
+        from deeplearning4j_tpu_torch.data import (
+            ListDataSetIterator as iterator)
+        from deeplearning4j_tpu_torch.resilience import (
+            ResilientTrainer as trainer)
+    counter = counter_value if counter is None else counter
+    plan = SC_FAULTS if plan is None else plan
+    max_restarts = SC_MAX_RESTARTS if max_restarts is None else max_restarts
+    every = SC_CKPT_EVERY if every is None else every
+    keep = SC_KEEP if keep is None else keep
+    restores0 = counter("dl4j_checkpoint_restores_total")
+    quarantined0 = counter("dl4j_data_quarantined_total")
+    rt = trainer(net, root, max_restarts=max_restarts,
+                 checkpoint_every_iterations=every, keep_checkpoints=keep,
+                 quarantine_after=2)
+    t = time.perf_counter()
+    with positional_train_faults(net, plan, faults) as fired:
+        rt.fit(iterator(sets), epochs=1)
+    seconds = time.perf_counter() - t
+    return {"fired": [list(f) for f in fired], "restarts": rt.restarts,
+            "restores": counter("dl4j_checkpoint_restores_total")
+            - restores0,
+            "quarantines": counter("dl4j_data_quarantined_total")
+            - quarantined0,
+            "iterations": net._iteration, "seconds": seconds,
+            "checkpoints": sorted(os.listdir(root))}
+
+
+def healing_expected(plan=None, n_batches=None):
+    """What :func:`healing_drill` must count for ``plan`` over
+    ``n_batches``: every crash one restart and one restore, a batch that
+    crashes twice one quarantine, a transient error none, and one
+    iteration a batch that is not quarantined."""
+    plan = SC_FAULTS if plan is None else plan
+    n_batches = SC_TRAIN_BATCHES if n_batches is None else n_batches
+    crashes = sum(k == "crash" for kinds in plan.values() for k in kinds)
+    poisoned = sum(kinds.count("crash") >= 2 for kinds in plan.values())
+    return {"restarts": crashes, "restores": crashes,
+            "quarantines": poisoned, "iterations": n_batches - poisoned}
+
+
+def calibrate_bn(torch, net, x):
+    """Set every BatchNormalization layer's running mean and variance of
+    ``net`` to the statistics its input has in one training-mode forward
+    of ``x`` (each layer normalised by its batch's statistics, as in
+    training): a trunk at its init then normalises data like the
+    pretrained trunk it stands in for. Nothing else of the net moves."""
+    from deeplearning4j_tpu_torch.nn.conf.layers import BatchNormalization
+    bns = [node.layer for node in net.conf.nodes.values()
+           if isinstance(node.layer, BatchNormalization)]
+    decays = [layer.decay for layer in bns]
+    for layer in bns:
+        layer.decay = 0.0
+    try:
+        with torch.no_grad():
+            _acts, states, _ = net._forward(net._params, net._states,
+                                            (net._to_device(x),), True, None)
+    finally:
+        for layer, d in zip(bns, decays):
+            layer.decay = d
+    net.set_state_tree(states)
+    return len(bns)
+
+
+def scoring_images(n, seed=SEED + 31, norm=None):
+    """``n`` held-out images of the transfer recipe's classes (drawn
+    from their own seed), through ``norm`` (the fitted normaliser) when
+    given: (images, class of each)."""
+    from deeplearning4j_tpu_torch.data import DataSet
+    x, y = transfer_data(n, seed)
+    if norm is not None:
+        x = np.asarray(norm.transform(DataSet(x, y)).features)
+    return x, y.argmax(1)
+
+
+def scoring_sizes(requests=None):
+    """Each client's request sizes: one image, SC_WIDE every
+    SC_WIDE_EVERY-th."""
+    requests = SC_REQUESTS if requests is None else requests
+    return [SC_WIDE if r % SC_WIDE_EVERY == SC_WIDE_EVERY - 1 else 1
+            for r in range(requests)]
+
+
+def scoring_requests(x, clients=None, requests=None):
+    """``x`` cut into each client's requests (SC_CLIENTS of SC_REQUESTS
+    by default, sized by :func:`scoring_sizes`), in order."""
+    clients = SC_CLIENTS if clients is None else clients
+    sizes = scoring_sizes(requests)
+    check(len(x) >= clients * sum(sizes),
+          f"{len(x)} images for {clients} clients of {sum(sizes)}")
+    out, off = [], 0
+    for _ in range(clients):
+        mine = []
+        for s in sizes:
+            mine.append(x[off:off + s])
+            off += s
+        out.append(mine)
+    return out
+
+
+def scoring_traffic(output, reqs, timeout_s=None):
+    """Every client of ``reqs`` in its own thread, its requests one after
+    another through ``output``, all released together. Returns (each
+    request's result by (client, request), each request's seconds, the
+    traffic's wall seconds); fails on any error or hang."""
+    timeout_s = SC_TIMEOUT_S if timeout_s is None else timeout_s
+    results, lat, errors = {}, [], []
+    lock = threading.Lock()
+    gate = threading.Barrier(len(reqs) + 1)
+
+    def client(c):
+        gate.wait()
+        for r, x in enumerate(reqs[c]):
+            t = time.perf_counter()
+            try:
+                out = output(x)
+            except Exception as e:
+                with lock:
+                    errors.append((c, r, repr(e)))
+                continue
+            dt = time.perf_counter() - t
+            with lock:
+                results[(c, r)] = out
+                lat.append(dt)
+
+    threads = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(len(reqs))]
+    for th in threads:
+        th.start()
+    gate.wait()
+    t0 = time.perf_counter()
+    for th in threads:
+        th.join(timeout_s)
+    wall = time.perf_counter() - t0
+    check(not any(th.is_alive() for th in threads),
+          "a scoring client hung")
+    check(not errors, f"scoring requests failed: {errors[:4]}")
+    return results, lat, wall
+
+
+def scoring_references(net, reqs, every=1):
+    """``net.output`` of each request's images alone, by (client,
+    request), for every ``every``-th request (by client + request, so
+    that each client's sample mixes sizes)."""
+    return {(c, r): net.output(x).float().cpu().numpy()
+            for c, mine in enumerate(reqs) for r, x in enumerate(mine)
+            if (c + r) % every == 0}
+
+
+def scoring_errors(wants, results):
+    """Each request's relative L2 error against its reference, by
+    (client, request), over the requests of ``wants`` in ``results``."""
+    return {k: rel_l2(results[k], w) for k, w in wants.items()
+            if k in results}
+
+
+def separation(wants):
+    """The smallest relative L2 distance from one image's probabilities
+    to another's, over every image of ``wants`` (the references' rows):
+    a request handed another image's row reads at least this far off."""
+    rows = np.concatenate([np.asarray(w, np.float64).reshape(
+        len(w), -1) for w in wants.values()])
+    sq = np.sum(rows * rows, axis=1)
+    d2 = np.maximum(sq[:, None] + sq[None, :] - 2.0 * rows @ rows.T, 0.0)
+    np.fill_diagonal(d2, np.inf)
+    return float(np.min(np.sqrt(d2) / np.sqrt(sq)[:, None]))
+
+
+def planted_row_shift(pi, reqs, wants):
+    """``reqs`` through ``pi`` with a fault planted in its
+    ``_distribute``: each batch's output rows rolled by one, so a request
+    gets its neighbour's rows. Returns each request's error against
+    ``wants``; the row must catch it."""
+    real = pi._distribute
+
+    def shifted(batch, out):
+        real(batch, np.roll(np.asarray(out), 1, axis=0))
+    pi._distribute = shifted
+    try:
+        results, _lat, _wall = scoring_traffic(pi.output, reqs)
+    finally:
+        del pi._distribute
+    return scoring_errors(wants, results)
+
+
+def copy_overlap(trace):
+    """From a Chrome trace (a path): the copies between host and card,
+    their device µs, and the µs of them that ran while a kernel of
+    another stream ran (the overlap the upload and download streams are
+    for), with the streams of each."""
+    events = [e for e in json.loads(Path(trace).read_text())[
+        "traceEvents"] if e.get("ph") == "X"]
+    kernels = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            kernels.setdefault(e.get("args", {}).get("stream"), []).append(
+                (float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+    out = {"copies": 0, "copy_us": 0.0, "under_kernels_us": 0.0,
+           "copy_streams": [], "kernel_streams": sorted(
+               kernels, key=lambda k: -1 if k is None else k)}
+    for e in events:
+        if e.get("cat") != "gpu_memcpy":
+            continue
+        s, t = float(e["ts"]), float(e["ts"]) + float(e["dur"])
+        stream = e.get("args", {}).get("stream")
+        others = [iv for k, ivs in kernels.items() if k != stream
+                  for iv in ivs if iv[0] < t and iv[1] > s]
+        out["copies"] += 1
+        out["copy_us"] += t - s
+        out["under_kernels_us"] += _union_us(others, s, t)
+        if stream not in out["copy_streams"]:
+            out["copy_streams"].append(stream)
+    return out
+
+
+def direct_loop(torch, net, reqs, batches=None):
+    """images/s of ``net.output`` over host batches of SC_BATCH_LIMIT from
+    the traffic's images, each result copied back (what a caller without
+    ParallelInference does)."""
+    batches = SC_DIRECT_BATCHES if batches is None else batches
+    x = np.concatenate([x for mine in reqs for x in mine])
+    n = SC_BATCH_LIMIT
+    xs = [x[(i * n) % (len(x) - n):][:n] for i in range(batches)]
+    net.output(xs[0]).cpu()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for xb in xs:
+        net.output(xb).cpu()
+    return batches * n / (time.perf_counter() - t)
+
+
+SC_TURNS = ("inflight_1", "inflight_2", "direct_32")
+
+
+def scoring_run(torch, reg, version, net, dtype, reqs, smi, every=1,
+                capture=False, plant=False, turns=SC_TURNS):
+    """Deploy ``net`` (compute type ``dtype``) as ``version`` (every bucket
+    warmed) and, for an "inflight_1" turn, as ``version``-if1
+    (inflight_limit 1); the traffic through
+    the first, every ``every``-th request held to TOL_SCORING against
+    ``net.output`` of its images alone, and how far apart those
+    references' images lie (:func:`separation`); bucket outcomes over it;
+    one profiler window and the copies' overlap in its trace; with
+    ``plant``, a row shift planted in ``_distribute``
+    (:func:`planted_row_shift`); ``turns`` (of inflight 1, 2 and the
+    direct loop), one of each in that order; with ``capture``, a profile
+    capture during half the clients' traffic. Returns (the record, the
+    deployed version)."""
+    from deeplearning4j_tpu_torch.observability import (
+        global_profile_capture)
+    sample = reqs[0][0][:1]
+    row = TOL_SCORING[dtype]
+    t = time.perf_counter()
+    dv = reg.deploy(version, net, sample_input=sample,
+                    batch_limit=SC_BATCH_LIMIT, max_wait_ms=SC_MAX_WAIT_MS)
+    deploy_s = time.perf_counter() - t
+    dv1 = (reg.deploy(f"{version}-if1", net, sample_input=sample,
+                      batch_limit=SC_BATCH_LIMIT,
+                      max_wait_ms=SC_MAX_WAIT_MS, inflight_limit=1)
+           if "inflight_1" in turns else None)
+    hits0 = counter_value("dl4j_inference_bucket_total", outcome="hit")
+    miss0 = counter_value("dl4j_inference_bucket_total", outcome="miss")
+    batches0 = counter_value("dl4j_inference_batches_total")
+    occ0, fill0 = (histogram_mean("dl4j_inference_batch_occupancy"),
+                   histogram_mean("dl4j_inference_bucket_fill"))
+    results, lat, wall = scoring_traffic(dv.pi.output, reqs)
+    occ1, fill1 = (histogram_mean("dl4j_inference_batch_occupancy"),
+                   histogram_mean("dl4j_inference_bucket_fill"))
+    batches = counter_value("dl4j_inference_batches_total") - batches0
+    images = sum(len(x) for mine in reqs for x in mine)
+    t = time.perf_counter()
+    wants = scoring_references(net, reqs, every)
+    errs = scoring_errors(wants, results)
+    rec = {"version": version, "dtype": dtype, "gpu": smi,
+           "warmup_seconds":
+           dv.warmup_seconds, "deploy_seconds": deploy_s,
+           "warmed_buckets": dv.warmed_buckets,
+           "requests": len(results), "images": images,
+           "images_per_s": images / wall,
+           "latency_ms_p50": 1e3 * float(np.percentile(lat, 50)),
+           "latency_ms_p99": 1e3 * float(np.percentile(lat, 99)),
+           "batches": batches,
+           "occupancy": (occ1[0] - occ0[0]) / max(1, occ1[1] - occ0[1]),
+           "bucket_fill": (fill1[0] - fill0[0]) / max(1, fill1[1] - fill0[1]),
+           "bucket_hits": counter_value("dl4j_inference_bucket_total",
+                                        outcome="hit") - hits0,
+           "bucket_misses": counter_value("dl4j_inference_bucket_total",
+                                          outcome="miss") - miss0,
+           "checked_requests": len(errs),
+           "rel_l2_max": max(errs.values()),
+           "rel_l2_median": float(np.median(list(errs.values()))),
+           "row": row, "separation": separation(wants),
+           "classes_predicted": len({int(a) for w in wants.values()
+                                     for a in np.argmax(w, axis=1)}),
+           "top_probability_median": float(np.median(np.concatenate(
+               [np.max(w, axis=1) for w in wants.values()]))),
+           "references_seconds": time.perf_counter() - t}
+    small = [mine[:SC_WINDOW_REQUESTS] for mine in reqs[:SC_WINDOW_CLIENTS]]
+    b0 = counter_value("dl4j_inference_batches_total")
+    prof = profile_window(torch, f"scoring_{dtype}",
+                          lambda: scoring_traffic(dv.pi.output, small),
+                          f"scoring_{dtype}_trace.json", top=8)
+    nb = max(1.0, counter_value("dl4j_inference_batches_total") - b0)
+    rec.update({"window_batches": nb,
+                "host_ms_per_batch": prof["wall_ms"] / nb,
+                "device_ms_per_batch": (prof["device_busy_us"] / 1e3 / nb
+                                        if "device_busy_us" in prof
+                                        else "not measured"),
+                "busy_share": prof.get("busy_share"),
+                "kernels_per_batch": (prof["kernels"] / nb
+                                      if "kernels" in prof
+                                      else "not measured"),
+                "copies": copy_overlap(
+                    OUT_DIR / f"scoring_{dtype}_trace.json"),
+                "top_ops": prof.get("top_ops")})
+    if plant:
+        perrs = planted_row_shift(dv.pi, small, wants)
+        rec["planted_row_shift"] = {
+            "requests": len(perrs),
+            "over_row": sum(e > row for e in perrs.values()),
+            "max_rel_l2": max(perrs.values())}
+    runs = {"inflight_1": lambda: scoring_traffic(dv1.pi.output, reqs)[2],
+            "inflight_2": lambda: scoring_traffic(dv.pi.output, reqs)[2],
+            "direct_32": lambda: images / direct_loop(torch, net, reqs)}
+    rec["turns_images_per_s"] = {who: images / runs[who]()
+                                 for who in turns}
+    rec.update({f"{k}_images_per_s": v
+                for k, v in rec["turns_images_per_s"].items()})
+    if capture:
+        bg = threading.Thread(target=scoring_traffic,
+                              args=(dv.pi.output, reqs[:len(reqs) // 2]),
+                              daemon=True)
+        bg.start()
+        cap = global_profile_capture().capture(steps=SC_PROFILE_STEPS,
+                                               timeout_s=30.0)
+        bg.join(SC_TIMEOUT_S)
+        device_s = sum(r["total_seconds"] for r in cap.get("top_ops", []))
+        rec["profile_capture"] = {
+            "steps_seen": cap["steps_seen"],
+            "duration_seconds": cap["duration_seconds"],
+            "source": cap.get("source"), "parse_error":
+            cap.get("parse_error"), "top_ops_seconds": device_s,
+            "top_ops": cap.get("top_ops", [])[:8],
+            "modules": cap.get("modules", [])[:4]}
+        check(not bg.is_alive(), "the traffic under the capture hung")
+        check(cap["steps_seen"] >= SC_PROFILE_STEPS
+              and cap.get("source") == "device" and cap.get("top_ops")
+              and any(CONV_KERNEL.search(r["op"]) for r in cap["top_ops"])
+              and device_s <= cap["duration_seconds"],
+              f"(4) the profile capture: {rec['profile_capture']}")
+    if dv1 is not None:
+        reg.retire(f"{version}-if1")
+    return rec, dv
+
+
+def canary_drill(torch, reg, net_v2, x_check, images, timeout_s=120.0):
+    """(3): a FrontDoor with the scoring router on 127.0.0.1 over ``reg``'s
+    "v1"; a plain JSON classify of ``x_check`` equal to v1's in-process
+    ``ParallelInference.output``; ``net_v2`` deployed as "v2" and walked
+    shadow → canary → ramp → full over /admin/rollout while a client
+    keeps sending ``images`` (one a request), every shadow comparison a
+    match, v2 promoted, v1 retired; "v3" (``net_v2`` again) under the
+    serving.canary chaos point rolled back. No client request fails."""
+    from deeplearning4j_tpu_torch.resilience import faults
+    from deeplearning4j_tpu_torch.serving import FrontDoor, ServingRouter
+    router = ServingRouter(reg, "v1")
+    fd = FrontDoor(router, host="127.0.0.1", port=0).start()
+    addr = fd.get_address()
+    sample = x_check[:1]
+    rec = {}
+    try:
+        code, body, _h = http_call(addr, "/v1/classify",
+                                   {"inputs": x_check.tolist()})
+        inproc = reg.get("v1").pi.output(x_check)
+        got = np.asarray(body.get("outputs"), np.float32)
+        rec["json_equals_inprocess"] = bool(
+            code == 200 and got.shape == inproc.shape
+            and np.array_equal(got, inproc))
+        check(rec["json_equals_inprocess"],
+              f"(3) /v1/classify gave {code} {got.shape}, not "
+              f"ParallelInference.output's {inproc.shape} values")
+        enc = [json.dumps(x[None].tolist()).encode() for x in images]
+        stop = threading.Event()
+        sent = []
+
+        def keep_sending():
+            j = 0
+            while not stop.is_set():
+                raw = (b'{"request_key": "bg-%d", "inputs": ' % j
+                       + enc[j % len(enc)] + b'}')
+                code, body, _h = http_call(addr, "/v1/classify", raw=raw)
+                sent.append((code, body.get("version"), j % len(enc),
+                             body.get("outputs")))
+                j += 1
+
+        def walk(candidate, policy):
+            code, ro, _h = http_call(addr, "/admin/rollout",
+                                     {"lane": "scoring",
+                                      "candidate": candidate,
+                                      "policy": policy})
+            check(code == 200 and ro["stage"] == "shadow",
+                  f"(3) begin_rollout {candidate}: {code} {ro}")
+            stages = ["shadow"]
+            deadline = time.monotonic() + timeout_s
+            while time.monotonic() < deadline:
+                _c, snap, _h = http_call(addr, "/debug/frontdoor")
+                stage = (snap["scoring"]["rollout"] or {}).get("stage")
+                if stage != stages[-1]:
+                    stages.append(stage)
+                if stage in ("full", "rolled_back"):
+                    break
+                time.sleep(0.05)
+            return stages
+
+        policy = {"start_stage": "shadow", "shadow_fraction": 1.0,
+                  "canary_fraction": 0.5, "ramp_fractions": [0.75],
+                  "window_requests": 2, "healthy_windows": 1,
+                  "min_requests": 2, "min_shadow": 2,
+                  "latency_ratio_degraded": None,
+                  "latency_ratio_failing": None,
+                  "drain_timeout_s": timeout_s}
+        bg = threading.Thread(target=keep_sending, daemon=True)
+        t = time.perf_counter()
+        reg.deploy("v2", net_v2, sample_input=sample,
+                   batch_limit=SC_BATCH_LIMIT, max_wait_ms=SC_MAX_WAIT_MS)
+        bg.start()
+        stages = walk("v2", policy)
+        promote_s = time.perf_counter() - t
+        primary = router.snapshot()["primary"]
+        retired = reg.retire("v1", drain_timeout_s=timeout_s)
+        shadow = {o: counter_value("dl4j_serving_shadow_total",
+                                   version="v2", outcome=o)
+                  for o in ("match", "diverged", "error")}
+        reg.deploy("v3", net_v2, sample_input=sample,
+                   batch_limit=SC_BATCH_LIMIT, max_wait_ms=SC_MAX_WAIT_MS)
+        faults.install(faults.FaultPlan(
+            [faults.FaultSpec("serving.canary", "error", rate=1.0)],
+            seed=SEED))
+        try:
+            stages3 = walk("v3", policy)
+        finally:
+            faults.clear()
+        primary3 = router.snapshot()["primary"]
+        stop.set()
+        bg.join(timeout_s)
+        check(not bg.is_alive(), "(3) the background client hung")
+        refs = [reg.get(primary3).net.output(x[None]).float().cpu().numpy()
+                for x in images]
+        failed = [s[:3] for s in sent if s[0] != 200]
+        worst_err = max((rel_l2(np.asarray(s[3], np.float32), refs[s[2]])
+                         for s in sent if s[0] == 200), default=None)
+        rec.update({"v2_stages": stages, "v2_promote_seconds": promote_s,
+                    "primary_after_v2": primary, "v1_retired_drained":
+                    retired, "shadow": shadow, "v3_stages": stages3,
+                    "primary_after_v3": primary3,
+                    "requests_during_rollouts": len(sent),
+                    "failed": failed, "worst_rel_l2": worst_err,
+                    "row": TOL_SCORING["float32"]})
+        check(stages[-1] == "full" and "canary" in stages and "ramp" in stages
+              and primary == "v2" and retired,
+              f"(3) v2's canary walk: {stages}, primary {primary}, v1 "
+              f"drained {retired}")
+        check(shadow["match"] >= 1 and shadow["diverged"] == 0
+              and shadow["error"] == 0, f"(3) v2's shadow scores {shadow}")
+        check(stages3[-1] == "rolled_back" and primary3 == "v2",
+              f"(3) v3 under serving.canary faults: {stages3}, primary "
+              f"{primary3}")
+        check(sent and not failed
+              and worst_err <= TOL_SCORING["float32"],
+              f"(3) requests during the rollouts: {len(sent)} sent, failed "
+              f"{failed[:4]}, worst error {worst_err}")
+        return rec
+    finally:
+        fd.stop()
+
+
+def scoring_phase(torch, smi=None):
+    """The fine-tune → serve loop on the card (see SC_* above). Returns
+    the port kernels' launches over it (all must be 0)."""
+    import os
+    import tempfile
+    from deeplearning4j_tpu_torch._device import resolve_device
+    from deeplearning4j_tpu_torch.async_runtime import default_buckets
+    from deeplearning4j_tpu_torch.data import (DataSet, ListDataSetIterator,
+                                               NormalizerStandardize)
+    from deeplearning4j_tpu_torch.models.zoo import ResNet50
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.graph_conf import (
+        ComputationGraphConfiguration)
+    from deeplearning4j_tpu_torch.optim.updaters import Adam
+    from deeplearning4j_tpu_torch.serving import ModelRegistry
+    from deeplearning4j_tpu_torch.utils.serialization import ModelSerializer
+    t_phase = time.perf_counter()
+    dev = resolve_device(None)
+    if smi is None:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60).stdout.strip()
+    reset_all_counts()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_scoring_")
+    root = tmp.name
+    reg = ModelRegistry()
+    seconds = {}
+    try:
+        # (1) healing, f32, over a trunk whose BN statistics are set
+        # from a batch of its own seed
+        t = time.perf_counter()
+        tx, ty = transfer_data(NET_BATCH * SC_TRAIN_BATCHES, SEED + 21)
+        norm = NormalizerStandardize().fit(DataSet(tx, ty))
+        sets = [norm.transform(DataSet(tx[i:i + NET_BATCH],
+                                       ty[i:i + NET_BATCH]))
+                for i in range(0, len(tx), NET_BATCH)]
+        del tx
+        source = ResNet50(num_classes=NET_CLASSES, input_shape=NET_SHAPE,
+                          updater=Adam(TR_SOURCE_LR),
+                          data_type="float32").init_model(device=dev)
+        calibrate_bn(torch, source, scoring_images(SC_CALIBRATION,
+                                                   SEED + 22, norm)[0])
+        healed = resnet_transfer("float32", dev, source=source)
+        del source
+
+        def twin():
+            c = ComputationGraph(ComputationGraphConfiguration.from_json(
+                healed.conf.to_json()), device=dev).init()
+            carry_net(healed, c)
+            c._frozen = set(healed._frozen)
+            return c
+        runs = [twin(), twin()]
+        frozen0 = {k: {p: v.clone() for p, v in layer.items()}
+                   for k, layer in healed.param_tree().items()
+                   if k in healed._frozen}
+        poisoned = [i for i, kinds in SC_FAULTS.items()
+                    if kinds.count("crash") >= 2]
+        clean = [s for i, s in enumerate(sets) if i not in poisoned]
+        for u in runs:
+            u.fit(ListDataSetIterator(clean))
+        torch.cuda.synchronize()
+        rec = healing_drill(healed, sets, os.path.join(root, "heal"))
+        torch.cuda.synchronize()
+        want = healing_expected()
+        row = tree_max_abs(torch, net_snapshot(runs[0]),
+                           net_snapshot(runs[1]))
+        err = tree_max_abs(torch, net_snapshot(healed),
+                           net_snapshot(runs[0]))
+        rec.update({"gpu": smi, "max_abs": err, "undisturbed_max_abs": row,
+                    "frozen_changed": unequal_leaves(
+                        torch, {k: healed.param_tree()[k] for k in frozen0},
+                        frozen0) + unequal_leaves(
+                        torch, {k: healed.param_tree()[k] for k in frozen0},
+                        {k: runs[0].param_tree()[k] for k in frozen0}),
+                    "expected": want})
+        emit(scoring_healing=rec)
+        check(all(rec[k] == v for k, v in want.items()),
+              f"(1) the healing drill counted {rec}, want {want}")
+        check(not rec["frozen_changed"], f"(1) frozen leaves moved: "
+              f"{rec['frozen_changed'][:4]}")
+        check(err <= row, f"(1) the healed net is {err} from an "
+              f"undisturbed run, two undisturbed runs {row}")
+        del runs
+        torch.cuda.empty_cache()
+        seconds["healing"] = time.perf_counter() - t
+
+        # (2) scoring, f32 then bf16, on held-out images of every class;
+        # (4) the capture under f32 traffic
+        t = time.perf_counter()
+        hx, _cls = scoring_images(
+            SC_CLIENTS * sum(scoring_sizes()), SEED + 31, norm)
+        reqs = scoring_requests(hx)
+        rec32, _dv = scoring_run(torch, reg, "v1", healed, "float32", reqs,
+                                 smi, capture=True, plant=True)
+        bf16 = resnet_transfer("bfloat16", dev)
+        carry_net(healed, bf16)
+        bf16._frozen = set(healed._frozen)
+        rec16, _dv = scoring_run(torch, reg, "v1-bf16", bf16, "bfloat16",
+                                 reqs, smi, every=SC_BF16_SAMPLE,
+                                 turns=("direct_32",))
+        reg.retire("v1-bf16")
+        del bf16
+        for r in (rec32, rec16):
+            emit(scoring=r)
+            check(r["requests"] == SC_CLIENTS * SC_REQUESTS
+                  and r["bucket_misses"] == 0
+                  and r["warmed_buckets"] == list(
+                      default_buckets(SC_BATCH_LIMIT)),
+                  f"(2) {r['version']}: {r['requests']} requests, "
+                  f"{r['bucket_misses']} bucket misses after warm-up, "
+                  f"warmed {r['warmed_buckets']}")
+            check(r["rel_l2_max"] <= r["row"],
+                  f"(2) {r['version']}: a request's probabilities are "
+                  f"{r['rel_l2_max']} from net.output alone (row "
+                  f"{r['row']})")
+        # the f32 check tells every image from every other, and catches
+        # a row shift planted in _distribute
+        check(rec32["separation"] > rec32["row"]
+              and rec32["planted_row_shift"]["max_rel_l2"] > rec32["row"],
+              f"(2) the f32 check cannot tell requests apart: images "
+              f"{rec32['separation']} apart, a planted row shift reads "
+              f"{rec32['planted_row_shift']} (row {rec32['row']})")
+        seconds["scoring"] = time.perf_counter() - t
+
+        # (3) canary over /v1/classify with the healed net's zip as v2
+        t = time.perf_counter()
+        path = os.path.join(root, "healed.zip")
+        ModelSerializer.write_model(healed, path)
+        v2 = ModelSerializer.restore(path)
+        check(v2.device.type == "cuda", f"(3) v2 restored on {v2.device}")
+        rec3 = canary_drill(torch, reg, v2, reqs[0][0],
+                            [mine[0][0] for mine in reqs[:4]])
+        rec3["gpu"] = smi
+        emit(scoring_canary=rec3)
+        seconds["canary"] = time.perf_counter() - t
+    finally:
+        reg.shutdown()
+        tmp.cleanup()
+    launches = all_counts()
+    emit(scoring_phase_seconds=time.perf_counter() - t_phase,
+         scoring_parts_seconds=seconds,
+         scoring_launches=dict(zip(ALL_KERNELS, launches)))
+    return launches
+
+
+def scoring_readings(sides=(64, 96), n=64, fits=4):
+    """CPU readings for TOL_SCORING at each side of ``sides`` (NET_SHAPE
+    cut to it): the scoring phase's recipe (a ResNet-50 whose BN
+    statistics are set from SC_CALIBRATION images, ``fits`` batches of
+    NET_BATCH fine-tuning its head) and its bf16 copy; for each, ``n``
+    held-out images' probabilities in batches of 2-32 against each image
+    alone (the largest relative L2 a batch size), 3 images at batch 3
+    against the same within 32, the separation of the references, the
+    classes predicted and the top probabilities."""
+    import torch
+    global NET_SHAPE
+    from deeplearning4j_tpu_torch.data import (DataSet, ListDataSetIterator,
+                                               NormalizerStandardize)
+    from deeplearning4j_tpu_torch.models.zoo import ResNet50
+    from deeplearning4j_tpu_torch.optim.updaters import Adam
+    shape, out = NET_SHAPE, {}
+    try:
+        for side in sides:
+            NET_SHAPE = (side, side, NET_SHAPE[2])
+            tx, ty = transfer_data(NET_BATCH * fits, SEED + 21)
+            norm = NormalizerStandardize().fit(DataSet(tx, ty))
+            src = ResNet50(num_classes=NET_CLASSES, input_shape=NET_SHAPE,
+                           updater=Adam(TR_SOURCE_LR),
+                           data_type="float32").init_model(device="cpu")
+            calibrate_bn(torch, src, scoring_images(SC_CALIBRATION,
+                                                    SEED + 22, norm)[0])
+            net = resnet_transfer("float32", "cpu", source=src)
+            for i in range(0, len(tx), NET_BATCH):
+                net.fit(ListDataSetIterator([norm.transform(DataSet(
+                    tx[i:i + NET_BATCH], ty[i:i + NET_BATCH]))]))
+            bf16 = resnet_transfer("bfloat16", "cpu")
+            carry_net(net, bf16)
+            hx, _cls = scoring_images(n, SEED + 31, norm)
+            for dtype, m in (("float32", net), ("bfloat16", bf16)):
+                def probs(x):
+                    return m.output(x).float().numpy()
+                alone = np.concatenate([probs(hx[i:i + 1])
+                                        for i in range(n)])
+                rec = {}
+                for b in (2, 4, 8, 16, 32):
+                    got = np.concatenate([probs(hx[i:i + b])
+                                          for i in range(0, n, b)])
+                    rec[f"batch_{b}"] = max(rel_l2(got[i], alone[i])
+                                            for i in range(n))
+                within = probs(hx[:32])
+                rec["three_in_32"] = max(
+                    rel_l2(within[i:i + 3], probs(hx[i:i + 3]))
+                    for i in range(0, 30, 3))
+                rec["separation"] = separation(
+                    {(i, 0): alone[i:i + 1] for i in range(n)})
+                rec["classes_predicted"] = len(set(alone.argmax(1)))
+                rec["top_probability"] = [float(alone.max(1).min()),
+                                          float(np.median(alone.max(1))),
+                                          float(alone.max(1).max())]
+                out[f"{dtype}_{side}"] = rec
+                emit(scoring_reading={f"{dtype}_{side}": rec})
+    finally:
+        NET_SHAPE = shape
+    return out
+
+
 def _keeps_f64(net):
     """``net`` (an ``_f64_copy``) taking its float inputs and labels as
     f64 (the port's entry points make floats f32)."""
@@ -8119,7 +8997,7 @@ def k11l_kernel_entry(which, rows, launches):
 
 def check_path_launches(serve, modes, train, moe, f32_serve, f32_train,
                         pipeline, frontdoor, fleet, network, recurrent,
-                        wide, detection, transfer):
+                        wide, detection, transfer, scoring):
     """Which kernels each main path launched (each an ``all_counts()``
     tuple): the bf16 paths (serving, the serving modes, the rungs, MoE)
     the wgmma flash kernels and never the simple forward or the mma.sync
@@ -8131,8 +9009,9 @@ def check_path_launches(serve, modes, train, moe, f32_serve, f32_train,
     the front door K1's wgmma forward and K4a+w only, the fleet's demo
     model (f32, head dim 16) the simple forward and K4a+w only; the DL4J
     network paths (ResNet-50, LeNet, the zoo), the detection path
-    (YOLO2, the VAE, DropConnect, deconvolution) and the transfer path
-    (persistence, transfer learning, early stopping, the solvers) no
+    (YOLO2, the VAE, DropConnect, deconvolution), the transfer path
+    (persistence, transfer learning, early stopping, the solvers) and the
+    scoring path (healing, ParallelInference, the canary, the capture) no
     kernel of the port at all, nor the attention op's plain route; the
     recurrent path (one fit of R1: 20 chunks of 50 steps, 2 LSTM layers)
     K11Lf and K11Lb 2 × 20 times each and nothing else, the wide layer
@@ -8198,9 +9077,17 @@ def check_path_launches(serve, modes, train, moe, f32_serve, f32_train,
           f"{dict(zip(ALL_KERNELS, detection))}")
     check(not any(transfer), f"the transfer path launched port kernels: "
           f"{dict(zip(ALL_KERNELS, transfer))}")
+    check_scoring_launches(scoring)
     check_recurrent_launches(recurrent, wide, (
         serve, modes, train, moe, f32_serve, f32_train, pipeline, frontdoor,
-        fleet, network, detection, transfer))
+        fleet, network, detection, transfer, scoring))
+
+
+def check_scoring_launches(scoring):
+    """The scoring path launches no hand kernel and never the attention
+    op's plain route (the last of ALL_KERNELS)."""
+    check(not any(scoring), f"the scoring path launched port kernels: "
+          f"{dict(zip(ALL_KERNELS, scoring))}")
 
 
 def recurrent_kernel_entries(launches, k11_rows, k11l_rows):
@@ -8653,6 +9540,11 @@ def main() -> int:
                         "stopping and checkpoints, resume, evaluation; "
                         "LeNet's transfer, solvers and DL4J zip), which "
                         "builds no kernel")
+    parser.add_argument("--scoring", action="store_true",
+                        help="run only the scoring phase (a ResilientTrainer "
+                        "healing drill, ParallelInference traffic, a canary "
+                        "over /v1/classify, a profile capture), which "
+                        "builds no kernel")
     parser.add_argument("--recurrent", action="store_true",
                         help="run only the recurrent phase (the char-RNNs "
                         "R1-R4, K11 and K11L), which builds only "
@@ -8673,6 +9565,8 @@ def main() -> int:
         name = "zoo_readings.json"
         if args.readings == ["transfer"]:
             readings, name = transfer_readings(), "transfer_readings.json"
+        elif args.readings == ["scoring"]:
+            readings, name = scoring_readings(), "scoring_readings.json"
         else:
             readings = (zoo_readings(tuple(args.readings)) if args.readings
                         else zoo_readings())
@@ -8734,6 +9628,12 @@ def main() -> int:
         check(not any(transfer), f"the transfer path launched port "
               f"kernels: {dict(zip(ALL_KERNELS, transfer))}")
         emit(phase_seconds={"transfer_phase": time.perf_counter() - t0})
+        return 0
+    if args.scoring:
+        t0 = time.perf_counter()
+        scoring = scoring_phase(torch, smi)
+        check_scoring_launches(scoring)
+        emit(phase_seconds={"scoring_phase": time.perf_counter() - t0})
         return 0
     if args.recurrent:
         t0 = time.perf_counter()
@@ -8892,6 +9792,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     transfer = timed("transfer_phase", transfer_phase, torch, smi)
     torch.cuda.empty_cache()
+    scoring = timed("scoring_phase", scoring_phase, torch, smi)
+    torch.cuda.empty_cache()
     recurrent, wide, k11_rows, k11l_rows = timed(
         "recurrent_phase", recurrent_phase, torch)
     paths = {"serve": serve, "serve_modes": modes, "pipeline": pipeline,
@@ -8899,13 +9801,14 @@ def main() -> int:
              "moe": moe, "f32_serve": f32_serve, "f32_train": f32_train,
              "network": network, "recurrent": recurrent, "wide_layer": wide,
              "attention": attention, "attention_modules": attention_modules,
-             "detection": detection, "transfer": transfer}
+             "detection": detection, "transfer": transfer,
+             "scoring": scoring}
     launches = {name: {path: counts_[i] for path, counts_ in paths.items()}
                 for i, name in enumerate(ALL_KERNELS)}
     emit(main_path_launches=launches)
     check_path_launches(serve, modes, train, moe, f32_serve, f32_train,
                         pipeline, frontdoor, fleet, network, recurrent,
-                        wide, detection, transfer)
+                        wide, detection, transfer, scoring)
     check(not any(launches["attention_plain"].values()),
           f"the attention op took its plain route on the card: "
           f"{launches['attention_plain']}")

@@ -10,7 +10,10 @@ and trains it on one NVIDIA H100 (``make_train_step`` with
 MoE token movement and paged decode attention in hand-written CUDA kernels
 (``kernels/csrc/``). It builds, trains and runs DL4J networks
 (``nn.multilayer.MultiLayerNetwork``, ``nn.graph.ComputationGraph``, the
-zoo's ``ResNet50``, ``LeNet`` and ``SimpleCNN``) with cuDNN convolutions.
+zoo's ``ResNet50``, ``LeNet`` and ``SimpleCNN``) with cuDNN convolutions,
+serves them (``parallel.inference.ParallelInference``, the ``serving``
+plane's scoring lane) and heals their training
+(``resilience.recovery.ResilientTrainer``).
 
 Entry points (``TransformerLM``, ``DecodeEngine``, ``from_jax_params``,
 the networks and ``ZooModel.init_model``) run on the card unless the

@@ -13,11 +13,17 @@ cadence (``async_runtime.score_sync_every``) or an epoch end needs it, so
 the host runs ahead of the card instead of waiting on every step.
 Compile accounting notes the first run of each step signature
 (``compile_watch``), and ``cost_model`` gets an analytic FLOP count
-(:func:`layer_flops`) in place of XLA's ``cost_analysis``.
+(:func:`layer_flops`) in place of XLA's ``cost_analysis``. ``output``
+notes its first run at each input signature under the reference's
+``<Net>._output_jit`` (the serving probe: each ``ParallelInference``
+bucket is one such signature, and its FLOPs are :meth:`output_cost`).
+The train step and ``output`` run inside ``torch.profiler`` ranges of
+those names, which a profile capture reads as its per-module times.
 """
 from __future__ import annotations
 
 import math
+import threading
 import time
 from typing import Dict, List, Optional
 
@@ -244,6 +250,8 @@ class NetworkBase:
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(conf.seed))
         self._signatures = set()     # step signatures run (compile_watch)
+        self._output_signatures = set()   # output() signatures run
+        self._signature_lock = threading.Lock()
         #: rnnTimeStep's carries between calls, by layer key
         self._rnn_state: Dict[str, tuple] = {}
         self._initialized = False
@@ -508,6 +516,20 @@ class NetworkBase:
         self._signatures.add(key)
         _cw.note_trace(fn, inputs, labels, fmasks, lmasks)
 
+    def _note_output_signature(self, inputs, masks):
+        """The serving probe, compile_watch's stand-in for a trace of the
+        reference's ``_output_jit``: the first ``output`` at each (shapes,
+        dtypes, masks). Serving threads call ``output`` concurrently, so
+        the check and the add are one step."""
+        key = (tuple((tuple(x.shape), x.dtype) for x in inputs),
+               None if masks is None else tuple(
+                   None if m is None else tuple(m.shape) for m in masks))
+        with self._signature_lock:
+            if key in self._output_signatures:
+                return
+            self._output_signatures.add(key)
+        _cw.note_trace(f"{type(self).__name__}._output_jit", inputs, masks)
+
     def _fit_batch(self, inputs, labels, fmasks=None, lmasks=None,
                    data_wait=None):
         if not self._initialized:
@@ -545,7 +567,7 @@ class NetworkBase:
         self._note_signature(fn, inputs, labels, fmasks, lmasks)
         t0 = time.perf_counter()
         with _span("train_step", model=kind, iteration=self._iteration,
-                   batch=batch_n):
+                   batch=batch_n), torch.profiler.record_function(fn):
             loss, health, _ = self._train_step(inputs, labels, fmasks,
                                                lmasks)
             if health is not None:
@@ -660,6 +682,15 @@ class NetworkBase:
                       if isinstance(a, torch.Tensor))
         return (float(train_flops(self._forward_flops(batch, t))),
                 float(4 * (3 * n + 2 * n_state)))
+
+    def output_cost(self, batch: int, x=None):
+        """Analytic (FLOPs, bytes) of one ``output`` at ``batch`` rows, the
+        serving bucket's count: the forward's products (:func:`layer_flops`)
+        and every param read once in f32 plus the input ``x`` (a floor:
+        activations' traffic is not counted)."""
+        nbytes = 0 if x is None else int(getattr(x, "nbytes", 0))
+        return (float(self._forward_flops(batch)),
+                float(4 * self.numParams() + nbytes))
 
     # ----------------------------------------------------------- inference
     def score(self, dataset=None) -> float:

@@ -179,7 +179,9 @@ class ComputationGraph(NetworkBase):
         arrs = tuple(self._to_device(x) for x in inputs)
         masks = (None if masks is None
                  else tuple(self._to_device(m) for m in masks))
-        with torch.no_grad():
+        self._note_output_signature(arrs, masks)
+        with torch.no_grad(), torch.profiler.record_function(
+                "ComputationGraph._output_jit"):
             acts, _, _ = self._forward(self._params, self._states, arrs,
                                        False, None, masks=masks)
         outs = tuple(_f32(acts[n]) for n in self.conf.network_outputs)

@@ -230,10 +230,12 @@ class MultiLayerNetwork(NetworkBase):
         uses its running statistics, dropout is off (ref: #output)."""
         if not self._initialized:
             self.init()
-        with torch.no_grad():
-            h, _, _ = self._forward(self._params, self._states,
-                                    self._to_device(x), False, None,
-                                    mask=self._to_device(mask))
+        x, mask = self._to_device(x), self._to_device(mask)
+        self._note_output_signature((x,), None if mask is None else (mask,))
+        with torch.no_grad(), torch.profiler.record_function(
+                "MultiLayerNetwork._output_jit"):
+            h, _, _ = self._forward(self._params, self._states, x, False,
+                                    None, mask=mask)
         return h
 
     def rnnTimeStep(self, x) -> torch.Tensor:

@@ -11,8 +11,9 @@ analytic cost model, and the fleet plane the serving tier reads — the
 ``timeseries`` rings, the ``watchtower``'s burn-rate and change-point
 alerts, and cross-process ``federation`` of traces, metrics and health.
 The listener-bus ``MetricsReportingListener`` is re-exported lazily, as
-in the reference; ``profile_capture`` is not ported yet (ROADMAP queue 1
-item 6).
+in the reference; ``profile_capture`` takes on-demand ``torch.profiler``
+captures of a running process (per-kernel device time, per-range host
+time).
 
 Quick tour::
 
@@ -29,7 +30,8 @@ Quick tour::
 Kill switches: ``DL4J_TPU_METRICS=0`` (instruments and spans become
 no-ops), ``DL4J_TPU_TRACE=0`` (spans only), ``DL4J_TPU_FLIGHT_RECORDER=0``
 (watchdog + crash hooks), ``DL4J_TPU_COMPILE_WATCH=0`` (first-run
-accounting), ``DL4J_TPU_COST_MODEL=0`` (cost accounting).
+accounting), ``DL4J_TPU_COST_MODEL=0`` (cost accounting),
+``DL4J_TPU_PROFILE=0`` (profile captures refused).
 """
 from deeplearning4j_tpu_torch.observability.registry import (
     Counter, Gauge, Histogram, MetricsRegistry, DEFAULT_BUCKETS,
@@ -59,6 +61,9 @@ from deeplearning4j_tpu_torch.observability.cost_model import (
     CostModel, cost_model_enabled, global_cost_model,
     reset_global_cost_model)
 from deeplearning4j_tpu_torch.observability.slo import PerfRegressionRule
+from deeplearning4j_tpu_torch.observability.profile_capture import (
+    ProfileCapture, global_profile_capture, profile_enabled,
+    reset_global_profile_capture)
 from deeplearning4j_tpu_torch.observability.timeseries import (
     TimeseriesStore, global_timeseries, reset_global_timeseries,
     watchtower_enabled)
@@ -93,6 +98,8 @@ __all__ = [
     "device_memory",
     "CostModel", "cost_model_enabled", "global_cost_model",
     "reset_global_cost_model", "PerfRegressionRule",
+    "ProfileCapture", "global_profile_capture", "profile_enabled",
+    "reset_global_profile_capture",
     "TimeseriesStore", "global_timeseries", "reset_global_timeseries",
     "watchtower_enabled",
     "AlertManager", "BurnRateDetector", "ChangePointDetector", "Detector",

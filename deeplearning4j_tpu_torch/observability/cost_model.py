@@ -29,9 +29,15 @@ so steady-state cost is one dict lookup and an int compare.
 
 Surfaces: ``perf.json`` in flight-recorder bundles, :meth:`snapshot`.
 
+Serving buckets (:func:`maybe_account_bucket`) count a DL4J network's
+forward the same way: its products' FLOPs at the bucket's rows, from the
+layers' ``InputType`` chain (``nn/_network.py`` ``layer_flops``).
+
 Known approximation: the analytic count holds the matmuls, the attention
 products and the bytes that must move, and leaves out elementwise work
-(LayerNorm, GELU, softmax, sampling), which XLA's count includes.
+(LayerNorm, GELU, softmax, sampling, BatchNormalization, pooling), which
+XLA's count includes. Serving MFU is a lower bound: a bucket's duration
+runs from dispatch to completion and includes pipeline queueing.
 
 Kill switch: ``DL4J_TPU_COST_MODEL=0`` (accounting + MFU timing no-op)
 under the ``DL4J_TPU_METRICS=0`` master.
@@ -416,6 +422,48 @@ def on_step(probe_fn: str, fn: str, seconds: float,
     if cm.needs_account(fn, probe_fn):
         cm.account(fn, cost_thunk, probe_fn=probe_fn)
     cm.observe_time(fn, seconds)
+
+
+def bucket_fn(model, target: int) -> str:
+    """Per-serving-bucket entry name, e.g.
+    ``MultiLayerNetwork._output_jit[b8]`` — bounded cardinality (the
+    bucket set is log2(batch_limit)+1 per model kind). The name keeps the
+    reference's ``_output_jit``: the port's serving probe notes its first
+    runs under that name (``nn/_network.py``)."""
+    return f"{type(model).__name__}._output_jit[b{int(target)}]"
+
+
+def maybe_account_bucket(model, target: int, x):
+    """Account one serving shape bucket (called after the batch that ran
+    it). Keyed to the model's ``_output_jit`` first-run count: a bucket
+    run at a new signature — or a different same-class model running its
+    first bucket — refreshes every bucket's FLOPs on next use. The thunk
+    counts analytically (``output_cost``: the products' FLOPs at
+    ``target`` rows, the params and ``x`` read once) and runs nothing on
+    the card. Two same-class models serving the SAME bucket shape share
+    one entry (the last to account wins), as in the reference. A model
+    without ``output_cost`` (a caller's wrapper) is not accounted."""
+    if not cost_model_enabled():
+        return
+    cost = getattr(model, "output_cost", None)
+    if cost is None:
+        return
+    fn = bucket_fn(model, target)
+    probe = f"{type(model).__name__}._output_jit"
+    cm = global_cost_model()
+    if not cm.needs_account(fn, probe_fn=probe):
+        return
+    note_device(getattr(model, "device", "cpu"))
+    cm.account(fn, lambda: cost(int(target), x), probe_fn=probe)
+
+
+def observe_bucket_time(model, target: int, seconds: float):
+    """Feed one device-batch dispatch→complete duration into the bucket's
+    MFU (under multi-in-flight dispatch this includes queueing, so
+    serving MFU is a lower bound — see module doc)."""
+    if not cost_model_enabled():
+        return
+    global_cost_model().observe_time(bucket_fn(model, target), seconds)
 
 
 @on_registry_reset

@@ -14,10 +14,19 @@ Counterpart of ``deeplearning4j_tpu/resilience/__init__.py``, lean:
   :class:`ShedError`, :class:`CircuitOpenError`, ...).
 - :mod:`~deeplearning4j_tpu_torch.resilience.qos` — per-tenant fair
   queueing, quotas and priority preemption.
+- :mod:`~deeplearning4j_tpu_torch.resilience.recovery` —
+  :class:`ResilientTrainer` (restore newest checkpoint → fast-forward →
+  resume, bounded restarts) and :class:`SkippingIterator` (quarantine
+  repeatedly failing batches, ``dl4j_data_quarantined_total``), exported
+  lazily as in the reference.
 
-The reference's ``recovery`` (``ResilientTrainer``, ``SkippingIterator``)
-and ``elastic`` layers are not ported yet (ROADMAP queue 1 items 6 and
-7), so :func:`snapshot` has no ``elastic`` section.
+Admission control (bounded-queue load shedding, per-request deadlines,
+fail-fast circuit gating) lives in ``parallel/inference.py`` and
+``parallel/generation.py`` and publishes ``dl4j_inference_shed_total``
+and ``dl4j_decode_shed_total``.
+
+The reference's ``elastic`` layer waits for multi-GPU training (ROADMAP
+queue 1 item 7), so :func:`snapshot` has no ``elastic`` section.
 
 Kill switch: ``DL4J_TPU_RESILIENCE=0`` disarms everything. :func:`snapshot`
 feeds the flight recorder's ``resilience.json`` bundle section.
@@ -38,6 +47,7 @@ __all__ = [
     "DeadlineExceeded", "ResilienceError", "RestartBudgetExhausted",
     "RetryBudget", "RetryPolicy", "ShedError", "ShutdownError",
     "TransientError", "default_deadline_ms", "is_transient",
+    "ResilientTrainer", "SkippingIterator", "newest_checkpoint",
     "snapshot",
 ]
 
@@ -58,3 +68,12 @@ def snapshot() -> dict:
         "tenants": qos.snapshot(),
         "events": faults.events(),
     }
+
+
+def __getattr__(name):
+    # recovery imports the data/listener layers — lazy so importing the
+    # resilience package from those layers' hot paths can never cycle
+    if name in ("ResilientTrainer", "SkippingIterator", "newest_checkpoint"):
+        from deeplearning4j_tpu_torch.resilience import recovery
+        return getattr(recovery, name)
+    raise AttributeError(name)

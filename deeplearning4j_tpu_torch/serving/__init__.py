@@ -1,22 +1,26 @@
-"""Serving plane of the port: versioned generative deploys, canary
-rollout, drain, the HTTP/SSE front door and the multi-process fleet.
+"""Serving plane of the port: versioned scoring and generative deploys,
+canary rollout, drain, the HTTP/SSE front door and the multi-process
+fleet.
 
 Counterpart of ``deeplearning4j_tpu/serving/__init__.py``, with the same
-exports and :func:`snapshot`. The modules are the reference's, each
-serving the generative lane over the port's ``GenerationPipeline``:
+exports and :func:`snapshot`:
 
 - :mod:`~deeplearning4j_tpu_torch.serving.registry` — :class:`ModelRegistry`:
+  ``deploy(version, net, sample_input=...)`` builds a
+  ``ParallelInference`` and runs every shape bucket on the card, and
   ``deploy_generative(version, engine)`` builds a ``GenerationPipeline``
-  and runs every prefill bucket, the slot insert and the decode step
+  and runs every prefill bucket, the slot insert and the decode step,
   before the version admits traffic; ``retire(version)`` drains.
 - :mod:`~deeplearning4j_tpu_torch.serving.rollout` — :class:`CanaryRollout`:
   the shadow → canary → ramp → full / rolled-back state machine, graded
   by per-version SLO rules.
 - :mod:`~deeplearning4j_tpu_torch.serving.router` — :class:`ServingRouter`:
-  the ``generate()`` front-end with the deterministic hash split.
+  the ``output()`` / ``generate()`` front-end with the deterministic hash
+  split and shadow scoring.
 - :mod:`~deeplearning4j_tpu_torch.serving.frontdoor` — :class:`FrontDoor`:
-  ``POST /v1/generate`` (JSON or per-token SSE), the ``/admin`` and
-  ``/debug`` surfaces, session adoption and the fleet sync loop.
+  ``POST /v1/classify`` (JSON), ``POST /v1/generate`` (JSON or per-token
+  SSE), the ``/admin`` and ``/debug`` surfaces, session adoption and the
+  fleet sync loop.
 - :mod:`~deeplearning4j_tpu_torch.serving.shared_state` —
   :class:`SharedStore` + :class:`SharedServingState`: the file-backed
   store N worker processes coordinate through, with lease-fenced
@@ -25,12 +29,6 @@ serving the generative lane over the port's ``GenerationPipeline``:
   :class:`ResultJournal`: the ``X-Dl4j-Idempotency-Key`` replay journal.
 - :mod:`~deeplearning4j_tpu_torch.serving.session` — :class:`Session` +
   :class:`SessionJournal`: durable generation sessions.
-
-The scoring lane — ``ModelRegistry.deploy``, the router's ``output``,
-``POST /v1/classify`` — serves a DL4J network through
-``ParallelInference`` and waits for it (ROADMAP queue 1 item 8); until
-then ``/v1/classify`` answers 404, as the reference does with no scoring
-deploy behind its door.
 """
 from deeplearning4j_tpu_torch.serving.errors import (RolloutConflictError,
                                                StoreLockTimeout)

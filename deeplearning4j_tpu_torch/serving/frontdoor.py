@@ -50,11 +50,11 @@ hardened as a traffic surface:
   leader's stage transitions (promote/drain) locally.
 
 The port's door (counterpart of ``deeplearning4j_tpu/serving/
-frontdoor.py``) serves the generative lane over ``GenerationPipeline``.
-The scoring lane's router (``output`` / ``output_on`` over
-``ParallelInference``) waits for ROADMAP queue 1 item 8, so a door is
-built with ``router=None`` and ``/v1/classify`` answers 404, as the
-reference's does when that lane is absent.
+frontdoor.py``) serves both lanes: ``router=`` the scoring lane
+(``ServingRouter.output`` / ``output_on`` over ``ParallelInference``),
+``gen_router=`` the generative lane over ``GenerationPipeline``. A door
+built without a scoring router answers ``/v1/classify`` with 404, as the
+reference's does.
 
 Observability: ``dl4j_http_*`` series on ``/metrics``, a ``/debug/
 frontdoor`` endpoint (also folded into flight-recorder bundles as

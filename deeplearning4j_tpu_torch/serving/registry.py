@@ -1,33 +1,34 @@
 """Versioned model registry: deploy with warm-up, retire with drain.
 
-Counterpart of ``deeplearning4j_tpu/serving/registry.py`` for generative
-versions. :meth:`ModelRegistry.deploy_generative` builds a
-``GenerationPipeline`` over a ``DecodeEngine`` and runs the engine's
-whole step set once (``DecodeEngine.warm``: every prefill bucket, the
-slot insert, the decode step and, with a draft, the speculative pair)
-before the version admits traffic, so the first real request pays no
-first-call cost — library handles, allocator growth, the int8 quant
-gate. ``compile_watch`` notes each warm-up step with the cause
-``serving_warmup``, as the reference does.
+Counterpart of ``deeplearning4j_tpu/serving/registry.py``, both lanes:
 
-What the port leaves out, and why:
+- **Scoring** (:meth:`ModelRegistry.deploy`): a ``ParallelInference``
+  over a DL4J network, and — given a ``sample_input`` — a zero batch run
+  through the serve path's forward at EVERY configured bucket before the
+  version admits traffic. Each bucket's first-call cost on the card (its
+  cuDNN algorithm choice, allocator growth, library handles) is paid
+  there, the buckets are marked seen, so the first real batch of any
+  bucket is a hit, and each bucket's cost is accounted.
+- **Generative** (:meth:`ModelRegistry.deploy_generative`): a
+  ``GenerationPipeline`` over a ``DecodeEngine``, whose whole step set
+  runs once (``DecodeEngine.warm``: every prefill bucket, the slot
+  insert, the decode step and, with a draft, the speculative pair) — the
+  int8 quant gate is decided there too.
 
-- The reference's persistent XLA compile cache
-  (``async_runtime.configure_compile_cache``, ``DL4J_TPU_COMPILE_CACHE``)
-  has no counterpart: the port runs eager steps and has no compiled
-  executables to keep on disk. ``snapshot()`` keeps the
-  ``compile_cache_dir`` key, always ``None``.
-- The scoring lane, ``deploy`` and its bucket ``_warmup``, serves a
-  DL4J network through ``ParallelInference``, which the port does not
-  have yet (ROADMAP queue 1 item 8); a version here is always
-  generative.
+``compile_watch`` notes each warm-up first run with the cause
+``serving_warmup``, as the reference does. The reference's persistent XLA
+compile cache (``async_runtime.configure_compile_cache``,
+``DL4J_TPU_COMPILE_CACHE``) has no counterpart: the port runs eager steps
+and has no compiled executables to keep on disk. ``snapshot()`` keeps the
+``compile_cache_dir`` key, always ``None``.
 
 Retire goes through **graceful drain**: the version stops admitting, the
 router's in-flight requests complete (bounded wait on the version's
 in-flight count), any stragglers resolve with the typed
-``ShutdownError`` via ``GenerationPipeline.shutdown`` — never dropped,
-never double-resolved — and only then do the decode thread, breaker and
-KV-cache pages release.
+``ShutdownError`` via ``ParallelInference.shutdown`` /
+``GenerationPipeline.shutdown`` — never dropped, never double-resolved —
+and only then do the serve threads, breaker and device buffers (a
+generative version's KV-cache pages) release.
 """
 from __future__ import annotations
 
@@ -37,7 +38,11 @@ import time
 import weakref
 from typing import Dict, List, Optional
 
+import numpy as np
+
 from deeplearning4j_tpu_torch.observability import compile_watch as _cw
+from deeplearning4j_tpu_torch.observability import cost_model as _cost
+from deeplearning4j_tpu_torch.parallel.inference import ParallelInference
 from deeplearning4j_tpu_torch.resilience import faults as _faults
 from deeplearning4j_tpu_torch.resilience.policy import CircuitBreaker
 from deeplearning4j_tpu_torch.serving.metrics import serving_metrics
@@ -47,16 +52,18 @@ WARMING, LIVE, DRAINING, RETIRED = "warming", "live", "draining", "retired"
 
 
 class DeployedVersion:
-    """One live model version: its ``GenerationPipeline`` (generative
-    decode), lifecycle state, warmup record, and the in-flight count
-    graceful drain waits on. The router enters :meth:`track` around
-    every request it sends here."""
+    """One live model version: its ``ParallelInference`` (scoring) or
+    ``GenerationPipeline`` (generative decode), lifecycle state, warmup
+    record, and the in-flight count graceful drain waits on. The router
+    enters :meth:`track` around every request it sends here."""
 
-    def __init__(self, version: str, net, gp):
+    def __init__(self, version: str, net, pi: Optional[ParallelInference],
+                 gp=None):
         self.version = version
         self.net = net
+        self.pi = pi
         self.gp = gp
-        self.kind = "generative"
+        self.kind = "generative" if gp is not None else "scoring"
         self.state = WARMING
         self.admitting = False
         self.deployed_at = time.time()
@@ -112,13 +119,16 @@ class DeployedVersion:
                     break
                 self._cond.wait(remaining)
             drained = self._inflight == 0
+        if self.pi is not None:
+            self.pi.shutdown()
         if self.gp is not None:
             self.gp.shutdown()
         with self._cond:
             self.state = RETIRED
-        # release the strong refs so the device buffers (the KV-cache
-        # pages) can go with the version (callers keep their own net
-        # reference)
+        # release the strong refs so the device buffers (including a
+        # generative version's KV-cache pages) can go with the version
+        # (callers keep their own net reference)
+        self.pi = None
         self.gp = None
         self.net = None
         self._drain_done.set()
@@ -190,6 +200,32 @@ class ModelRegistry:
         dv.admitting = True
         return dv
 
+    def deploy(self, version: str, net, sample_input=None,
+               warmup: bool = True, **pi_kwargs) -> DeployedVersion:
+        """Build a ``ParallelInference`` over ``net`` and (with a
+        ``sample_input`` example to take shapes/dtype from) run every
+        shape bucket once on the net's device before marking the version
+        eligible for traffic. ``pi_kwargs`` pass through to the
+        ``ParallelInference`` constructor; a per-version circuit breaker
+        is installed unless the caller provides one."""
+        def build():
+            pi_kwargs.setdefault(
+                "breaker",
+                CircuitBreaker(f"inference.device_execute:{version}"))
+            return DeployedVersion(version, net,
+                                   ParallelInference(net, **pi_kwargs))
+
+        def warm(dv):
+            if warmup and sample_input is not None:
+                return self._warmup(dv, np.asarray(sample_input))
+            return []
+
+        dv = self._deploy_scaffold(version, build, warm)
+        _faults.record_event("serving_deploy", version=version,
+                             warmup_seconds=round(dv.warmup_seconds, 4),
+                             buckets=len(dv.warmed_buckets))
+        return dv
+
     # -------------------------------------------------- generative deploy
     def deploy_generative(self, version: str, engine, warmup: bool = True,
                           **gp_kwargs) -> DeployedVersion:
@@ -215,7 +251,7 @@ class ModelRegistry:
             gp_kwargs.setdefault(
                 "breaker", CircuitBreaker(f"generation.step:{version}"))
             gp = GenerationPipeline(engine, **gp_kwargs)
-            return DeployedVersion(version, engine.model, gp)
+            return DeployedVersion(version, engine.model, None, gp=gp)
 
         def warm(dv):
             if warmup:
@@ -236,6 +272,32 @@ class ModelRegistry:
         as a warmup so /debug/compiles names the deploy behind it."""
         return engine.warm(
             slots, note=lambda **a: _cw.note_cause("serving_warmup", **a))
+
+    @staticmethod
+    def _warmup(dv: DeployedVersion, sample: np.ndarray) -> List[int]:
+        """Run a zero batch per configured bucket through the serve path's
+        forward, waiting for each result — every bucket's first-call cost
+        on the card is paid before real traffic arrives. ``sample`` is
+        one example (or a batch; the leading axis is replaced by the
+        bucket size)."""
+        pi, net = dv.pi, dv.net
+        trailing = sample.shape[1:] if sample.ndim > 1 else sample.shape
+        warmed: List[int] = []
+        for bucket in pi.bucket_sizes:
+            x = np.zeros((bucket,) + tuple(trailing), sample.dtype)
+            # the first run this provokes is claimed as a warmup, not a
+            # bucket miss — compile_watch names the deploy behind it
+            _cw.note_cause("serving_warmup", version=dv.version,
+                           bucket=bucket)
+            pi._forward(x)                 # run + wait: the bucket is warm
+            # bucket bookkeeping: the serve loop must read these shapes
+            # as hits (they HAVE run for this instance), and no
+            # bucket_miss cause may dangle on the first real batch
+            pi._seen_buckets.add((bucket,))
+            net.__dict__.setdefault("_cw_seen_buckets", set()).add((bucket,))
+            _cost.maybe_account_bucket(net, bucket, x)
+            warmed.append(bucket)
+        return warmed
 
     # ------------------------------------------------------------ queries
     def get(self, version: str) -> DeployedVersion:

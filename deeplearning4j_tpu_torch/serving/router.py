@@ -1,10 +1,10 @@
-"""ServingRouter: the versioned ``generate()`` front-end.
+"""ServingRouter: the versioned ``output()`` / ``generate()`` front-end.
 
-Counterpart of ``deeplearning4j_tpu/serving/router.py``'s generative
-lane. Composes the registry's versions with the policies that already
-live inside each ``GenerationPipeline`` (per-request deadlines, bounded
-queues/shedding, a per-version circuit breaker) and adds the rollout
-split on top:
+Counterpart of ``deeplearning4j_tpu/serving/router.py``, both lanes.
+Composes the registry's versions with the policies that already live
+inside each ``ParallelInference`` (scoring) and ``GenerationPipeline``
+(generative) — per-version deadlines, bounded queues/shedding, a
+per-version circuit breaker — and adds the rollout split on top:
 
 - traffic is split **deterministically by request hash** — the same
   request (or explicit ``request_key``) always lands on the same
@@ -14,16 +14,16 @@ split on top:
   rollout can be rehearsed under injected latency/error faults and the
   SLO gate proven to roll back;
 - every routed request lands in the ``dl4j_serving_version_*`` series
-  the rollout grader reads.
-
-The reference's scoring lane (``output``, ``_serve``, ``_shadow_score``,
-``output_on``) serves a DL4J network through ``ParallelInference`` and
-comes with it (ROADMAP queue 1 item 8).
+  the rollout grader reads;
+- in the SHADOW stage a sampled share of incumbent requests is scored
+  on the candidate too and compared (``match`` / ``diverged`` /
+  ``error``), never touching the incumbent's response.
 
 Kill switch ``DL4J_TPU_ROLLOUT=0`` (resolved at construction, like the
-other hot-path switches): ``generate()`` is a passthrough to the primary
-version's ``GenerationPipeline.generate`` — no hashing, no extra series,
-no fault point — and ``begin_rollout`` refuses.
+other hot-path switches): ``output()`` / ``generate()`` are passthroughs
+to the primary version's ``ParallelInference.output`` /
+``GenerationPipeline.generate`` — no hashing, no extra series, no fault
+point — and ``begin_rollout`` refuses.
 """
 from __future__ import annotations
 
@@ -53,7 +53,8 @@ _TYPED_OUTCOMES = TYPED_OUTCOMES
 
 def rollout_enabled() -> bool:
     """``DL4J_TPU_ROLLOUT`` kill switch (``0`` = single-version
-    passthrough, byte-identical to direct ``GenerationPipeline`` use)."""
+    passthrough, byte-identical to direct ``ParallelInference`` /
+    ``GenerationPipeline`` use)."""
     return os.environ.get("DL4J_TPU_ROLLOUT", "1") != "0"
 
 
@@ -74,7 +75,7 @@ def request_fraction(x, request_key=None) -> float:
 
 
 class ServingRouter:
-    """Routes ``generate()`` across a registry's versions; owns at most
+    """Routes ``output()`` across a registry's versions; owns at most
     one active :class:`CanaryRollout` at a time."""
 
     _live: "weakref.WeakSet[ServingRouter]" = weakref.WeakSet()
@@ -138,6 +139,51 @@ class ServingRouter:
         old, self._primary = self._primary, rollout.candidate
         old.drain(timeout_s=rollout.policy.drain_timeout_s)
 
+    # ------------------------------------------------------------- output
+    def output(self, x, deadline_ms: Optional[float] = None,
+               request_key=None, tenant=None) -> np.ndarray:
+        if not self._enabled:
+            # kill switch: byte-identical single-version passthrough.
+            # A kind mismatch is a wiring error (ValueError); a scoring
+            # primary whose pi is gone was DRAINED — that is the typed
+            # lifecycle outcome, same as _serve raises
+            if self._primary.kind != "scoring":
+                raise ValueError(
+                    f"version {self._primary.version!r} is a "
+                    f"{self._primary.kind} deploy — output() needs a "
+                    "scoring deploy")
+            if self._primary.pi is None:
+                raise ShutdownError(
+                    f"version {self._primary.version!r} is not admitting "
+                    f"(state={self._primary.state})")
+            return self._primary.pi.output(x, deadline_ms=deadline_ms,
+                                           tenant=tenant)
+        rollout = self._rollout
+        if rollout is None or not rollout.active:
+            return self._serve(self._primary, x, deadline_ms,
+                               tenant=tenant)
+        # time-mode rollouts grade on EVERY routed request, not only
+        # candidate-involved ones — a low-traffic candidate must not
+        # stall its own evaluation clock
+        rollout.maybe_timed_evaluate()
+        frac = request_fraction(x, request_key)
+        candidate = rollout.candidate
+        if (rollout.share > 0.0 and frac < rollout.share
+                and candidate.admitting):
+            try:
+                return self._serve(candidate, x, deadline_ms, canary=True,
+                                   tenant=tenant)
+            finally:
+                rollout.record_candidate_event()
+        out = self._serve(self._primary, x, deadline_ms, tenant=tenant)
+        if (rollout.stage == RolloutState.SHADOW and candidate.admitting
+                and frac < rollout.policy.shadow_fraction):
+            try:
+                self._shadow_score(rollout, x, out)
+            finally:
+                rollout.record_candidate_event()
+        return out
+
     # ----------------------------------------------------------- generate
     def generate(self, prompt, max_new_tokens: Optional[int] = None,
                  eos_id: Optional[int] = None,
@@ -146,16 +192,16 @@ class ServingRouter:
                  tenant=None, session_id: Optional[str] = None) -> np.ndarray:
         """Route one generation request across the registry's
         GENERATIVE versions — same deterministic hash split, per-version
-        series, canary chaos point, and SLO-graded rollout as the
-        reference's scoring ``output``; shadow scoring compares the full
-        emitted token sequence (any mismatch is a divergence — sampled decode shadows
+        series, canary chaos point, and SLO-graded rollout as
+        :meth:`output`; shadow scoring compares the full emitted token
+        sequence (any mismatch is a divergence — sampled decode shadows
         should pin greedy or share the engine seed). ``on_token``
         streams per-token at step boundaries (the HTTP/SSE surface) —
         threaded to whichever version the hash split serves; shadow
         generations never stream."""
         if not self._enabled:
-            # kind mismatch = ValueError, a drained generative primary =
-            # typed ShutdownError
+            # same split as output(): kind mismatch = ValueError, a
+            # drained generative primary = typed ShutdownError
             if self._primary.kind != "generative":
                 raise ValueError(
                     f"version {self._primary.version!r} is a "
@@ -277,6 +323,70 @@ class ServingRouter:
         if error is not None and not isinstance(error, _TYPED_OUTCOMES):
             obs.errors(dv.version).inc()
 
+    def _serve(self, dv, x, deadline_ms, canary: bool = False,
+               tenant=None) -> np.ndarray:
+        if dv.kind == "generative":
+            raise ValueError(
+                f"version {dv.version!r} is a generative deploy — use "
+                "generate(), not output()")
+        # capture the pipeline BEFORE tracking: a concurrent drain nulls
+        # dv.pi after its in-flight wait — a request racing that window
+        # must land on the (shut down) instance and resolve typed, not
+        # explode on None
+        pi = dv.pi
+        if not dv.admitting or pi is None:
+            raise ShutdownError(
+                f"version {dv.version!r} is not admitting "
+                f"(state={dv.state})")
+        t0 = time.perf_counter()
+        try:
+            with dv.track():
+                if canary and _faults.armed():
+                    # the canary chaos point: latency faults stretch the
+                    # measured canary latency, error faults feed its
+                    # error rate — exactly what the SLO gate grades
+                    _faults.check("serving.canary")
+                out = pi.output(x, deadline_ms=deadline_ms,
+                                tenant=tenant)
+        except Exception as e:
+            self._account(dv, t0, error=e)
+            raise
+        self._account(dv, t0)
+        return out
+
+    def _shadow_score(self, rollout: CanaryRollout, x, incumbent_out):
+        """Score the same request on the candidate and compare outputs.
+        Shadow work must never affect the user's response: errors are
+        absorbed into the candidate's series, not raised."""
+        dv = rollout.candidate
+        obs = serving_metrics()
+        pi = dv.pi
+        if pi is None:
+            return
+        t0 = time.perf_counter()
+        try:
+            with dv.track():
+                if _faults.armed():
+                    _faults.check("serving.canary")
+                out = pi.output(x)
+        # graftlint: disable=typed-errors — shadow traffic: a candidate
+        # failure is SCORED (error counted per version), never allowed
+        # to touch the incumbent's already-delivered response
+        except Exception as e:
+            self._account(dv, t0, error=e)
+            obs.shadow(dv.version, "error").inc()
+            return
+        self._account(dv, t0)
+        policy = rollout.policy
+        try:
+            match = bool(np.allclose(np.asarray(out),
+                                     np.asarray(incumbent_out),
+                                     rtol=policy.divergence_rtol,
+                                     atol=policy.divergence_atol))
+        except Exception:  # graftlint: disable=typed-errors — comparison
+            match = False  # failure (shape mismatch) IS a divergence score
+        obs.shadow(dv.version, "match" if match else "diverged").inc()
+
     # ----------------------------------------------- shared-store serving
     # The multi-process front door routes by the SHARED store's stage and
     # share (every worker must agree on the split), then serves the
@@ -284,6 +394,13 @@ class ServingRouter:
     # drain tracking, and canary chaos point as the local rollout path,
     # without the local CanaryRollout state machine (the store's leader
     # grades the fleet-aggregated windows instead).
+
+    def output_on(self, version: str, x,
+                  deadline_ms: Optional[float] = None,
+                  canary: bool = False, tenant=None) -> np.ndarray:
+        """Serve one scoring request on the NAMED version."""
+        return self._serve(self._registry.get(version), x, deadline_ms,
+                           canary=canary, tenant=tenant)
 
     def generate_on(self, version: str, prompt,
                     max_new_tokens: Optional[int] = None,

@@ -1,9 +1,9 @@
 #!/usr/bin/env python
-"""Multi-process generative serving: N front-door workers, one version set.
+"""Multi-process serving: N front-door workers, one version set.
 
 ``python -m deeplearning4j_tpu_torch.tools.serve --workers 2 --port 8080
 --state-dir /tmp/fleet`` spawns N worker processes, each a full serving
-stack on the card — the demo generative deploy with warm-up, a
+stack on the card — the demo scoring and generative deploys with warm-up, a
 :class:`FrontDoor` bound to an ephemeral port, and a
 :class:`SharedServingState` handle on the file-backed store — plus a
 small proxy on ``--port`` that spreads client connections across the
@@ -28,10 +28,12 @@ pieces:
 
 Workers run on the card (``--device`` defaults to ``cuda``; the CPU
 serves only when asked, ``--device cpu``). They serve the reference
-demo's generative ``g1`` (a ``TransformerLM`` of vocab 61, 2 layers,
-d_model 32, random weights from seed 0; :func:`demo_engine`). The
-reference's scoring ``v1``/``v2`` serve DL4J networks through
-``ParallelInference`` and wait for it (ROADMAP queue 1 item 8). Real
+demo's deploys: the scoring ``v1`` and ``v2`` (two equal DL4J nets, a
+dense layer of 8 over 4 inputs and a softmax of 3, seed 1:
+:func:`demo_scoring_net`; a canary of ``v2`` passes its SLO gate) through
+``ParallelInference`` on ``POST /v1/classify``, and the generative ``g1``
+(a ``TransformerLM`` of vocab 61, 2 layers, d_model 32, random weights
+from seed 0; :func:`demo_engine`) on ``POST /v1/generate``. Real
 deployments embed :class:`FrontDoor` + :class:`SharedServingState`
 directly.
 
@@ -211,13 +213,46 @@ def demo_engine(device=None, seed: int = 0):
                         max_len=DEMO_MAX_LEN, device=device)
 
 
+#: the demo scoring nets' input width and their batching knobs
+DEMO_SCORING_IN = 4
+DEMO_SCORING_KW = dict(batch_limit=4, max_wait_ms=1.0)
+
+
+def demo_scoring_net(device=None, seed: int = 1):
+    """The demo scoring net (the reference demo's ``make_net``): a dense
+    layer of 8 (relu) over 4 inputs and a softmax output of 3, Adam(1e-2),
+    weights from ``seed`` on ``device`` (``None`` = the card)."""
+    from deeplearning4j_tpu_torch.nn.conf.configuration import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.layers import (DenseLayer,
+                                                         OutputLayer)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.optim.updaters import Adam
+    conf = (NeuralNetConfiguration.builder()
+            .seed(seed).updater(Adam(1e-2)).list()
+            .layer(DenseLayer(n_in=DEMO_SCORING_IN, n_out=8,
+                              activation="relu"))
+            .layer(OutputLayer(n_in=8, n_out=3, activation="softmax",
+                               loss_function="mcxent"))
+            .build())
+    return MultiLayerNetwork(conf, device=device).init()
+
+
 def _build_demo(slots: int, device=None):
-    """The demo deploy: one tiny greedy TransformerLM as ``g1``."""
+    """The demo deploys: two equal scoring nets (``v1``/``v2`` — a canary
+    of ``v2`` should PASS its SLO gate) and one tiny greedy
+    TransformerLM as ``g1``."""
+    import numpy as np
+
     from deeplearning4j_tpu_torch.serving import ModelRegistry, ServingRouter
+    sample = np.zeros((1, DEMO_SCORING_IN), dtype="f4")
     reg = ModelRegistry()
+    for version in ("v1", "v2"):
+        reg.deploy(version, demo_scoring_net(device), sample_input=sample,
+                   **DEMO_SCORING_KW)
     reg.deploy_generative("g1", demo_engine(device), slots=slots,
                           max_new_tokens=16)
-    return reg, ServingRouter(reg, "g1")
+    return reg, ServingRouter(reg, "v1"), ServingRouter(reg, "g1")
 
 
 def _retrying(what, fn, attempts: int = 8, delay_s: float = 0.1):
@@ -240,7 +275,7 @@ def run_worker(args) -> int:
     from deeplearning4j_tpu_torch.serving import (FrontDoor, SharedServingState,
                                             SharedStore)
 
-    reg, gen_router = _build_demo(args.slots, args.device)
+    reg, router, gen_router = _build_demo(args.slots, args.device)
     counts_dir = os.environ.get(LAUNCH_COUNTS_ENV)
     if counts_dir:
         # count what serving launches, not the warm-up
@@ -248,9 +283,11 @@ def run_worker(args) -> int:
         reset_launch_counts()
     shared = SharedServingState(SharedStore(args.state_dir),
                                 args.worker_id)
+    _retrying("ensure_lane(scoring)",
+              lambda: shared.ensure_lane("scoring", "v1"))
     _retrying("ensure_lane(generative)",
               lambda: shared.ensure_lane("generative", "g1"))
-    fd = FrontDoor(None, gen_router, shared=shared, host=args.host,
+    fd = FrontDoor(router, gen_router, shared=shared, host=args.host,
                    port=(args.port if args.reuseport else 0),
                    reuse_port=args.reuseport,
                    max_inflight=args.max_inflight).start()

@@ -1,2 +1,3 @@
 """Utilities of the port: counterpart of ``deeplearning4j_tpu.utils``
-(``serialization``; the rest waits in ROADMAP queue 1 item 10)."""
+(``serialization``, ``preemption``; the rest waits in ROADMAP queue 1
+item 10)."""

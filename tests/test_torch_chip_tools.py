@@ -4,6 +4,8 @@ It runs on the card; what it computes from shapes and text (the bound it
 holds each kernel to, the profiler's busy share, the ptxas report it
 checks the wgmma kernel's build against) is checked here.
 """
+import json
+
 import numpy as np
 import pytest
 
@@ -1084,7 +1086,8 @@ def _path_launches():
     and the pipeline's int8 run); the front door on bf16 pages, the
     fleet's f32 demo model on the simple forward; the recurrent path
     K11Lf and K11Lb 2 × 20 times each, the wide layer K11f and K11b 50
-    times each; the attention op's plain route (the last count) never."""
+    times each; the attention op's plain route (the last count) never;
+    the network, detection, transfer and scoring paths nothing."""
     L, n = 12, 31
     none, k11 = (0, 0, 0), (0, 0, 0, 0)
     serve = (4 * L, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0) + none + (4 * n * L,) \
@@ -1105,9 +1108,10 @@ def _path_launches():
     wide = (0,) * 16 + (50, 50, 0, 0)
     detection = (0,) * 20
     transfer = (0,) * 20
+    scoring = (0,) * 20
     return [path + (0,) for path in (
         serve, modes, train, moe, f32_serve, f32_train, pipeline, frontdoor,
-        fleet, network, recurrent, wide, detection, transfer)]
+        fleet, network, recurrent, wide, detection, transfer, scoring)]
 
 
 @pytest.mark.parametrize("path,kernel,what", [
@@ -2017,8 +2021,58 @@ def test_transfer_readings_sit_under_the_solver_row():
 def test_path_launch_checks_catch_a_transfer_launch(kernel):
     paths = _path_launches()
     chip_smoke.check_path_launches(*paths)
-    bad = list(paths[-1])
+    bad = list(paths[13])
     bad[kernel] = 3
-    paths[-1] = tuple(bad)
+    paths[13] = tuple(bad)
     with pytest.raises(AssertionError):
         chip_smoke.check_path_launches(*paths)
+
+
+@pytest.mark.parametrize("kernel", [0, 1, 9, 15, 18, 20])
+def test_path_launch_checks_catch_a_scoring_launch(kernel):
+    """A hand kernel, or the attention op's plain route, launched on the
+    scoring path fails the whole check and the scoring phase's own
+    (``--scoring`` alone)."""
+    paths = _path_launches()
+    chip_smoke.check_path_launches(*paths)
+    chip_smoke.check_scoring_launches(paths[14])
+    bad = list(paths[14])
+    bad[kernel] = 3
+    paths[14] = tuple(bad)
+    with pytest.raises(AssertionError):
+        chip_smoke.check_path_launches(*paths)
+    with pytest.raises(AssertionError):
+        chip_smoke.check_scoring_launches(paths[14])
+
+
+def test_copy_overlap_counts_copies_under_other_streams_kernels(tmp_path):
+    """``copy_overlap`` reads a Chrome trace: a copy's time under kernels
+    of other streams counts (once where two overlap), its own stream's
+    kernels do not."""
+    def ev(cat, ts, dur, stream, name="k"):
+        return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur,
+                "args": {"stream": stream}}
+    trace = tmp_path / "t.json"
+    trace.write_text(json.dumps({"traceEvents": [
+        ev("kernel", 0, 100, 7), ev("kernel", 150, 50, 7),
+        ev("kernel", 60, 30, 9),
+        ev("gpu_memcpy", 50, 120, 20, "Memcpy HtoD (Pinned -> Device)"),
+        ev("gpu_memcpy", 120, 10, 7, "Memcpy DtoH (Device -> Pageable)"),
+        {"ph": "i", "cat": "kernel", "ts": 0}]}))
+    got = chip_smoke.copy_overlap(trace)
+    assert got["copies"] == 2 and got["copy_us"] == 130.0
+    assert got["under_kernels_us"] == 70.0
+    assert got["copy_streams"] == [20, 7]
+    assert got["kernel_streams"] == [7, 9]
+
+
+def test_separation_is_the_nearest_other_image():
+    """``separation``: the smallest ‖w_i − w_j‖ / ‖w_i‖ over the rows of
+    every reference, a 3-image request's rows each counting."""
+    wants = {(0, 0): np.array([[0.6, 0.4]]),
+             (0, 1): np.array([[0.5, 0.5], [0.1, 0.9], [0.62, 0.38]])}
+    rows = np.array([[0.6, 0.4], [0.5, 0.5], [0.1, 0.9], [0.62, 0.38]])
+    want = min(np.linalg.norm(rows[i] - rows[j]) / np.linalg.norm(rows[i])
+               for i in range(4) for j in range(4) if i != j)
+    assert chip_smoke.separation(wants) == pytest.approx(want, rel=1e-9)
+    assert want < 0.05

@@ -616,7 +616,6 @@ def _public(path):
 _NET = "waits with the rest of the DL4J network stack: ROADMAP queue 1 item 8"
 _NO_LOWERING = ("no AOT re-lowering in the port: the cost thunk counts "
                 "analytically and runs nothing")
-_PI = "ParallelInference waits for the DL4J network: ROADMAP queue 1 item 8"
 #: module → (reference-only names, port-only names), each with a reason
 COPIED = {
     "observability/registry": ({}, {}),
@@ -632,15 +631,20 @@ COPIED = {
         {"suppress_probes": _NO_LOWERING,
          "probes_suppressed": _NO_LOWERING}, {}),
     "observability/cost_model": (
-        {"parse_cost_analysis": "no XLA cost_analysis to parse",
-         "bucket_fn": _PI, "maybe_account_bucket": _PI,
-         "observe_bucket_time": _PI},
+        {"parse_cost_analysis": "no XLA cost_analysis to parse"},
         {"note_device": "the port reads the platform from the accounted "
                         "step's device, not jax.devices()"}),
-    "observability/__init__": (
-        {**{n: "profile capture: ROADMAP queue 1 item 6" for n in (
-            "ProfileCapture", "global_profile_capture", "profile_enabled",
-            "reset_global_profile_capture")}}, {}),
+    "observability/__init__": ({}, {}),
+    "observability/profile_capture": ({}, {}),
+    "profiler/xprof": (
+        {}, {"TRACE_FILE": "the Chrome-trace file stop() writes: "
+                           "torch.profiler exports one JSON where "
+                           "jax.profiler writes an XPlane directory"}),
+    "profiler/performance": ({}, {}),
+    "profiler/__init__": (
+        {n: "the eager-op profiler instruments the ops registry's "
+            "exec_op: ROADMAP queue 1 item 9" for n in (
+                "OpProfiler", "ProfilerConfig")}, {}),
     "observability/timeseries": ({}, {}),
     "observability/watchtower": ({}, {}),
     "observability/federation": ({}, {}),
@@ -648,11 +652,11 @@ COPIED = {
     "resilience/policy": ({}, {}),
     "resilience/qos": ({}, {}),
     "resilience/__init__": (
-        {**{n: "resilience.recovery: ROADMAP queue 1 item 6" for n in (
-            "ResilientTrainer", "SkippingIterator", "newest_checkpoint")},
-         **{n: "resilience.elastic: ROADMAP queue 1 item 7" for n in (
-             "ElasticCheckpointer", "HostLostError", "elastic_enabled")}},
+        {n: "resilience.elastic: ROADMAP queue 1 item 7" for n in (
+            "ElasticCheckpointer", "HostLostError", "elastic_enabled")},
         {}),
+    "resilience/recovery": ({}, {}),
+    "utils/preemption": ({}, {}),
     "serving/session": ({}, {}),
     "serving/__init__": ({}, {}),
     "serving/errors": ({}, {}),
@@ -666,13 +670,11 @@ COPIED = {
         {}, {"default_bind_host": "the UI server's one-line knob reader, "
                                   "copied beside its user: the UI server "
                                   "is not ported"}),
-    "parallel/inference": ({"ParallelInference": _PI,
-                            "InferenceMode": _PI}, {}),
+    "parallel/inference": ({}, {}),
     "parallel/generation": ({}, {}),
     "async_runtime": (
         {"compile_cache_dir": "no XLA compile cache",
-         "configure_compile_cache": "no XLA compile cache",
-         "inflight_limit": _PI, "default_buckets": _PI}, {}),
+         "configure_compile_cache": "no XLA compile cache"}, {}),
     "optim/listeners": ({}, {}),
     "optim/earlystopping": ({}, {}),
     "optim/solvers": ({}, {}),

@@ -130,6 +130,7 @@ def test_two_worker_fleet_survives_a_sigkill_mid_stream(tmp_path):
     assert rec["resumed_streams"] >= 1        # some stream failed over
     assert rec["killed_worker"] == "w1"
     chip_smoke.check_drill(rec)     # in flight at the kill, orphans adopted
+    chip_smoke.check_classify(rec)  # each worker's v1 answers /v1/classify
     # the survivor's own counters, written at its stop: on the CPU every
     # wrapper takes its plain version, so none counts a launch
     assert rec["survivor_worker"] == "w0"
