@@ -273,6 +273,24 @@ K4w spill nothing, and that no wgmma source has its products serialized
    fleet phase's workers deploy the demo scoring nets too, and each
    answers one ``/v1/classify`` with the demo net's probabilities. No
    kernel of the port, nor the attention op's plain route.
+14. SameDiff phase (last; ``--samediff`` runs it alone after building the
+   flash kernels) — HuggingFace's BERT-base (``SD_*``), frozen to a TF
+   GraphDef and shipped as a skeleton (its weights stripped;
+   ``modelimport/skeletons/``), filled from SEED, imported by the port's
+   ``TFGraphMapper``, its weights promoted to variables and a [CLS] head
+   attached: (a) at (2, 128) on the card against the port's CPU on the
+   same weights (f32, TF32 off): last_hidden_state under a ragged mask,
+   the first gradient's every leaf, 3 Adam steps' losses (``TOL_SD``);
+   (b) ``SameDiff.fit`` at (32, 128), Adam 2e-5, 2 warm-up and 10 timed
+   steps: samples/s, host ms a step, a profiled step's device busy time,
+   busy share and kernels, the import's seconds, peak memory, every loss
+   finite; then the moments pass (``DL4J_TPU_GRAPH_OPT``) off and on in
+   turns, host ms, device ms and kernels a step of each; (c) a SameDiff graph over ``sd.nn.multi_head_dot_product_
+   attention`` at BERT-base's widths (32, 12 heads of 64, T 128, ragged key
+   mask): ``output`` and ``calculate_gradients`` on K1/K2 against the same
+   graph on the op's plain version (the f32 K1/K2 rows). The imported path
+   launches no kernel of the port (its attention is BatchMatMulV2 +
+   Softmax); (c) launches K1 and K2.
 
 Every phase must pass: any failure exits nonzero. Output is one JSON
 object per line; the last line is ``{"ok": true, "device": {...}}``.
@@ -304,7 +322,8 @@ no card needed), printed and written to OUT_DIR/``zoo_readings.json``
 scoring``: the scoring rows', OUT_DIR/``scoring_readings.json``);
 ``--attention`` the attention phase alone (after building every kernel);
 ``--recurrent`` the recurrent phase alone (it builds only rnn_cell.cu,
-K11 and K11L).
+K11 and K11L); ``--samediff`` the SameDiff phase alone (it builds only the
+flash sources).
 """
 from __future__ import annotations
 
@@ -4745,12 +4764,15 @@ ZOO_CHECK_BATCH = {"YOLO2": 2, "TinyYOLO": 2, "Xception": 2, "UNet": 2}
 # floors at (a)'s rows.
 #
 # The models under Adam or RmsProp hold their step where
-# ``agreed_step_errors`` says (the two gradients agree within STEP_AGREE
-# and clear STEP_CLEAR × the updater's eps): such a step is about ±lr for
-# an element within rounding of 0, and lr·g / eps below eps, so there it
-# magnifies rounding (UNet's every-element step read 0.27 card against
-# CPU, above ResNet-50's 0.2 row, against 0.032 f32 against f64; held
-# where the gradients agree alone, 0.071). Readings of the held step, f32
+# ``agreed_step_errors`` says (the two gradients the steps applied agree
+# within STEP_AGREE and clear STEP_CLEAR × the updater's eps): such a step
+# is about ±lr for an element within rounding of 0, and lr·g / eps below
+# eps, so there it magnifies rounding (UNet's every-element step read
+# 0.27 card against CPU, above ResNet-50's 0.2 row, against 0.032 f32
+# against f64; held where the gradients agree alone, 0.071). Masked by
+# another backward pass than the step's, UNet's held step read
+# 1.9e-6-3.2e-6 over four card runs, and one element of opposite sign
+# alone reads 1.8e-3 in conv4_1/W. Readings of the held step, f32
 # against f64: YOLO2 4.2e-6, TinyYOLO 3.1e-6, UNet 1.6e-6, NASNet
 # 2.4e-5, FaceNetNN4Small2 3.0e-5 (rows 1e-3), InceptionResNetV1 6.4e-3
 # (RmsProp's first step lr·g / (0.22·|g| + eps) keeps ~eps / (0.22·|g|)
@@ -4874,13 +4896,31 @@ def elementwise(net):
 def zoo_run(net, x, y):
     """Check (a)'s readings of one net: training-mode probabilities, the
     loss and gradients, then the params and BN statistics after one step
-    (numpy)."""
+    (numpy), and the gradients that step applied ("step_grads"): a second
+    backward pass, which on the card may round otherwise than the first
+    (atomic sums)."""
     from deeplearning4j_tpu_torch.nn.params import tree_to_numpy
     out = {"probs": train_mode_probs(net, x),
            "states0": tree_to_numpy(net.state_tree())}
     out["loss"], grads = net.computeGradientAndScore(x, y)
     out["grads"] = tree_to_numpy(grads)
-    net.fit(x, y)
+    seen = []
+    plain = net._value_and_grad
+
+    def recorded(*a, **kw):
+        res = plain(*a, **kw)
+        seen.append(res)
+        return res
+
+    net._value_and_grad = recorded
+    try:
+        net.fit(x, y)
+    finally:
+        del net._value_and_grad
+    (_, _, _, keys, _, step_grads), = seen
+    out["step_grads"] = {k: {} for k in out["grads"]}
+    for (k, p), g in zip(keys, step_grads):
+        out["step_grads"][k][p] = g.detach().cpu().numpy()
     out["params"] = tree_to_numpy(net.param_tree())
     out["states"] = tree_to_numpy(net.state_tree())
     return out
@@ -4895,11 +4935,16 @@ def agreed_step_errors(got, want, base, eps):
     so one within rounding of 0 moves ±lr on either side at random; and
     one below eps moves by lr·g / eps, its gradient's rounding magnified
     1/eps times. Where neither holds the step's relative error is at most
-    STEP_AGREE / STEP_CLEAR."""
+    STEP_AGREE / STEP_CLEAR. The gradients are those the step applied
+    ("step_grads"). In a leaf of n elements that each move by about lr,
+    one element that moves +lr on one side and −lr on the other reads
+    2 / √n alone, over a 1e-3 row wherever n < 4e6 (UNet's conv4_1/W:
+    1.18e6); so a mask taken from another backward pass, whose rounding
+    may differ on the card (atomic sums), can let such an element in."""
     errs, out, total = {}, 0, 0
     for k in sorted(want["params"]):
         for p in sorted(want["params"][k]):
-            gg, gw = got["grads"][k][p], want["grads"][k][p]
+            gg, gw = got["step_grads"][k][p], want["step_grads"][k][p]
             keep = ((np.abs(gg - gw) <= STEP_AGREE * np.abs(gw))
                     & (np.abs(gw) >= STEP_CLEAR * eps))
             dg = (got["params"][k][p] - base[k][p])[keep]
@@ -4918,7 +4963,8 @@ def zoo_compare(got, want, base, floor=0.0, elementwise=None):
     norm floored at ``floor`` of its tree's (``tree_errors``). Under an
     updater that scales each element (``elementwise``: its eps, or None)
     the step is held where ``agreed_step_errors`` says, the step over
-    every element reported as "step_all"."""
+    every element reported as "step_all", and held where the gradients
+    of the other backward pass agree as "step_other_pass"."""
     g_err = tree_errors(got["grads"], want["grads"], floor=floor)
     s_err = tree_errors(got["params"], want["params"], base=base,
                         floor=floor)
@@ -4926,9 +4972,17 @@ def zoo_compare(got, want, base, floor=0.0, elementwise=None):
                          base=want["states0"], floor=floor)
     extra = {}
     if elementwise is not None:
-        extra = {"step_all": worst(s_err)[0], "step_all_leaf": worst(s_err)[1]}
+        drift = worst(tree_errors(got["step_grads"], got["grads"]))
+        extra = {"step_all": worst(s_err)[0], "step_all_leaf": worst(s_err)[1],
+                 "step_grad_drift": drift[0],
+                 "step_grad_drift_leaf": drift[1]}
         s_err, extra["step_left_out"] = agreed_step_errors(
             got, want, base, elementwise)
+        # the same step masked by the other backward pass's gradients
+        other = agreed_step_errors({**got, "step_grads": got["grads"]},
+                                   {**want, "step_grads": want["grads"]},
+                                   base, elementwise)[0]
+        extra["step_other_pass"] = worst(other)[0]
     return {**extra, "probs": rel_l2(got["probs"], want["probs"]),
             "loss": abs(got["loss"] - want["loss"]),
             "loss_rel": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
@@ -9506,6 +9560,338 @@ def check_rnn_cell_build(build):
               f"{len(RNN_CELL_INSTANTIATIONS)} kernels, ptxas gave {report}")
 
 
+# ----------------------------------------- SameDiff and TF GraphDef import
+# BERT-base (BASELINE.json configs[3]: "SameDiff TF-import: BERT-base
+# fine-tune"): HuggingFace's TFBertModel frozen to a GraphDef, shipped as a
+# skeleton (modelimport/skeletons/, written by tools/bert_skeleton.py) and
+# filled from SEED here; imported by the port's TF importer, its weights
+# promoted to variables and a [CLS] head attached, then SameDiff.fit
+SD_CHECK_SKELETON = "bert_base_b2_t128"     # (a) card against CPU
+SD_FIT_SKELETON = "bert_base_b32_t128"      # (b) the fine-tune
+SD_CHECK_SHAPE, SD_FIT_SHAPE = (2, 128), (32, 128)   # (batch, seq) of each
+SD_VOCAB, SD_HIDDEN, SD_CLASSES = 30522, 768, 2
+SD_LR = 2e-5
+SD_CHECK_STEPS = 3
+SD_WARM, SD_TIMED = 2, 10
+# (b)'s moments pass off and on (DL4J_TPU_GRAPH_OPT), in turns after the
+# timed steps: each turn one untimed step, SD_OPT_STEPS timed, one profiled
+SD_OPT_TURNS = ("0", "1", "1", "0")
+SD_OPT_STEPS = 5
+SD_MIN_PROMOTE = 512                        # elements: the weight tensors
+SD_RAGGED_KEEP = 100                        # (a): mask[1, 100:] = 0
+SD_ATTENTION = (32, 12, 128, 64)            # (c): B, heads, T, head dim
+# (a)'s rows (PERF.md states the reasons): the card's imported BERT-base
+# against the port's CPU on the same weights, f32, TF32 off
+TOL_SD = {"last_hidden_state": 5e-4, "loss": 1e-4, "grad": 1e-4}
+# a gradient leaf under SD_ZERO_SHARE of the whole gradient's norm is zero
+# in exact arithmetic and reads rounding: only such a leaf's norm is
+# floored, at SD_GRAD_FLOOR of the whole
+SD_ZERO_SHARE = 1e-6
+SD_GRAD_FLOOR = 1e-3
+
+
+def sd_promote(sd, min_size=SD_MIN_PROMOTE):
+    """Every float constant over ``min_size`` elements made trainable (the
+    imported encoder's weights); returns the count."""
+    n = 0
+    for var in list(sd.variables()):
+        if (var.var_type.value == "CONSTANT" and var.shape
+                and var.dtype.is_floating_point
+                and int(np.prod(var.shape)) > min_size):
+            var.convert_to_variable()
+            n += 1
+    return n
+
+
+def sd_output_name(gd):
+    """The frozen graph's output: its last Identity node."""
+    return [n.name for n in gd.node if n.op == "Identity"][-1]
+
+
+def sd_attach_head(sd, gd, lr=SD_LR, seed=SEED):
+    """A linear head on the [CLS] position, softmax cross-entropy and an
+    Adam training config. The head's weights are drawn (normal, 0.02) so
+    the trunk's first gradient is not zero."""
+    from deeplearning4j_tpu_torch.autodiff.samediff import TrainingConfig
+    from deeplearning4j_tpu_torch.optim.updaters import Adam
+
+    hidden = sd.get_variable(sd_output_name(gd))            # (B, T, H)
+    cls = hidden[:, 0]
+    w = sd.var("head_w", init=np.random.default_rng(seed).normal(
+        0.0, 0.02, (SD_HIDDEN, SD_CLASSES)).astype(np.float32))
+    b = sd.var("head_b", init=np.zeros((SD_CLASSES,), np.float32))
+    logits = cls.mmul(w) + b
+    lab = sd.placeholder("label", (None, SD_CLASSES))
+    sd.loss.softmax_cross_entropy(lab, logits).rename("loss")
+    sd.set_training_config(TrainingConfig(
+        updater=Adam(lr), data_set_feature_mapping=["input_ids",
+                                                    "attention_mask"],
+        data_set_label_mapping=["label"], loss_variables=["loss"]))
+    return sd
+
+
+def sd_batches(n, batch, seq, seed=SEED, ragged=False):
+    """``n`` MultiDataSets of token ids, attention masks and one-hot labels
+    (numpy, from ``seed``); ``ragged`` masks row 1 past SD_RAGGED_KEEP."""
+    from deeplearning4j_tpu_torch.data.dataset import MultiDataSet
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        ids = rng.integers(0, SD_VOCAB, (batch, seq)).astype(np.int32)
+        mask = np.ones((batch, seq), np.int32)
+        if ragged:
+            mask[1, SD_RAGGED_KEEP:] = 0
+        y = np.eye(SD_CLASSES, dtype=np.float32)[
+            rng.integers(0, SD_CLASSES, batch)]
+        out.append(MultiDataSet([ids, mask], [y]))
+    return out
+
+
+def sd_feed(ds):
+    return {"input_ids": ds.features[0], "attention_mask": ds.features[1],
+            "label": ds.labels[0]}
+
+
+def sd_card_vs_cpu(torch):
+    """(a): the (2, 128) BERT-base imported on the card and on the CPU from
+    one filled skeleton; last_hidden_state under a ragged mask, the first
+    gradient and 3 Adam steps, each side against the other."""
+    from deeplearning4j_tpu_torch.modelimport import tf_skeleton
+    from deeplearning4j_tpu_torch.modelimport.tfimport import TFGraphMapper
+
+    gd = tf_skeleton.fill_skeleton(
+        tf_skeleton.load_skeleton(SD_CHECK_SKELETON), SEED)
+    out_name = sd_output_name(gd)
+    card = TFGraphMapper.import_graph(gd, device=None)
+    cpu = TFGraphMapper.import_graph(gd, device="cpu")
+    data = sd_batches(SD_CHECK_STEPS, *SD_CHECK_SHAPE, seed=SEED + 1,
+                      ragged=True)
+    feed = sd_feed(data[0])
+    h_card = card.output(feed, out_name)[out_name].cpu().numpy()
+    h_cpu = cpu.output(feed, out_name)[out_name].numpy()
+    check(np.isfinite(h_card).all(), "(a) the card's last_hidden_state "
+          "holds a non-finite value under the ragged mask")
+    for sd in (card, cpu):
+        sd_promote(sd)
+        sd_attach_head(sd, gd)
+    g_card = card.calculate_gradients(feed)
+    g_cpu = cpu.calculate_gradients(feed)
+    got = {n: g_card[n].cpu().numpy() for n in g_cpu}
+    want = {n: g_cpu[n].numpy() for n in g_cpu}
+    raw = {n: rel_l2(got[n], want[n]) for n in want}
+    norms = {n: float(np.linalg.norm(w.astype(np.float64)))
+             for n, w in want.items()}
+    whole = math.sqrt(sum(v * v for v in norms.values()))
+    # the key projections' biases have a zero gradient in exact arithmetic
+    # (q·bk shifts a query's every score alike), so they read rounding;
+    # only leaves that small are floored, and each is printed
+    floored = sorted(n for n in want if norms[n] < SD_ZERO_SHARE * whole)
+    grads = dict(raw)
+    for n in floored:
+        grads[n] = rel_l2(got[n], want[n], floor=SD_GRAD_FLOOR * whole)
+    held = [n for n in want if n not in floored]
+    smallest = min(held, key=norms.get)
+    l_card = list(card.fit(data))
+    l_cpu = list(cpu.fit(data))
+    report = {"last_hidden_state": float(np.abs(h_card - h_cpu).max()),
+              "loss": max(abs(a - b) for a, b in zip(l_card, l_cpu)),
+              "grad": max(grads.values())}
+    failed = rows_failed(report, TOL_SD)
+    worst_leaf = max(grads, key=grads.get)
+    worst_held = max(held, key=raw.get)
+    emit(samediff_card_vs_cpu=report, rows=TOL_SD, failed=failed,
+         trainable=len(g_cpu), worst_grad_leaf=worst_leaf,
+         grad_norm=whole, zero_share=SD_ZERO_SHARE, grad_floor=SD_GRAD_FLOOR,
+         floored={n: {"norm": norms[n], "rel_l2_unfloored": raw[n],
+                      "rel_l2": grads[n]} for n in floored},
+         worst_unfloored={"leaf": worst_held, "norm": norms[worst_held],
+                          "rel_l2": raw[worst_held]},
+         smallest_unfloored={"leaf": smallest, "norm": norms[smallest],
+                             "rel_l2": raw[smallest]},
+         losses_card=l_card, losses_cpu=l_cpu)
+    check(not failed, f"(a) the card's BERT-base against the CPU's: "
+          f"{failed} over {TOL_SD}: {report} (worst leaf {worst_leaf})")
+    return report
+
+
+def sd_fine_tune(torch, smi):
+    """(b): the (32, 128) BERT-base filled, imported onto the card, fit
+    with Adam for SD_WARM warm-up and SD_TIMED timed steps; then the
+    moments pass off and on in turns (``sd_opt_turns``)."""
+    from deeplearning4j_tpu_torch.modelimport import tf_skeleton
+    from deeplearning4j_tpu_torch.modelimport.tfimport import TFGraphMapper
+
+    t0 = time.perf_counter()
+    gd = tf_skeleton.fill_skeleton(
+        tf_skeleton.load_skeleton(SD_FIT_SKELETON), SEED)
+    t1 = time.perf_counter()
+    sd = TFGraphMapper.import_graph(gd, device=None)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    promoted = sd_promote(sd)
+    sd_attach_head(sd, gd)
+    batch, seq = SD_FIT_SHAPE
+    data = sd_batches(SD_WARM + SD_TIMED + 1 + SD_OPT_STEPS + 2, batch, seq,
+                      seed=SEED + 2)
+    torch.cuda.reset_peak_memory_stats()
+    losses = list(sd.fit(data[:SD_WARM]))
+    torch.cuda.synchronize()
+    step_ms = []
+    for ds in data[SD_WARM:SD_WARM + SD_TIMED]:
+        t = time.perf_counter()
+        losses += list(sd.fit(ds))          # ends in float(loss): synced
+        step_ms.append(1e3 * (time.perf_counter() - t))
+    prof = profile_window(torch, "samediff_step",
+                          lambda: sd.fit(data[SD_WARM + SD_TIMED]),
+                          "samediff_bert_step_trace.json")
+    turns = sd_opt_turns(torch, sd, data[SD_WARM + SD_TIMED + 1:], losses)
+    check(all(np.isfinite(losses)), f"(b) a non-finite loss: {losses}")
+    mean_ms = float(np.mean(step_ms))
+    n_params = sum(int(np.prod(sd.get_variable(n).shape))
+                   for n in sd.trainable_names())
+    report = {"batch": batch, "seq": seq, "trainable_tensors": promoted + 2,
+              "params": n_params, "ops": len(sd.ops()),
+              "fill_s": t1 - t0, "import_s": t2 - t1,
+              "step_ms": step_ms, "step_ms_mean": mean_ms,
+              "step_ms_median": float(np.median(step_ms)),
+              "samples_per_s": batch * 1e3 / mean_ms,
+              "profiled_step": prof,
+              "kernels_per_step": prof.get("kernels"),
+              "device_busy_ms_per_step": (prof.get("device_busy_us", 0.0)
+                                          / 1e3),
+              "busy_share": prof.get("busy_share"),
+              "peak_bytes": torch.cuda.max_memory_allocated(),
+              "graph_opt_turns": turns,
+              "losses": losses, "gpu": smi}
+    emit(samediff_fine_tune=report)
+    del sd, gd
+    return report
+
+
+def sd_opt_turns(torch, sd, data, losses):
+    """(b)'s fit with ``DL4J_TPU_GRAPH_OPT`` set by SD_OPT_TURNS, one turn
+    after another on the same graph: each turn one untimed step (the walk
+    is built once for each setting), SD_OPT_STEPS timed steps and one
+    profiled. Appends the losses to ``losses``; returns, per turn, the
+    setting, the rewritten motifs, host ms a step and the profiled step's
+    device ms and kernels. The switch is put back as it was."""
+    import os
+
+    from deeplearning4j_tpu_torch.autodiff.passes import fuse_two_pass_moments
+
+    motifs = fuse_two_pass_moments(sd.ops())[1]
+    before = os.environ.get("DL4J_TPU_GRAPH_OPT")
+    turns = []
+    try:
+        for i, opt in enumerate(SD_OPT_TURNS):
+            os.environ["DL4J_TPU_GRAPH_OPT"] = opt
+            losses += list(sd.fit(data[0]))
+            step_ms = []
+            for ds in data[1:1 + SD_OPT_STEPS]:
+                t = time.perf_counter()
+                losses += list(sd.fit(ds))
+                step_ms.append(1e3 * (time.perf_counter() - t))
+            prof = profile_window(torch, f"samediff_opt{opt}_{i}",
+                                  lambda: sd.fit(data[-1]),
+                                  f"samediff_opt{opt}_{i}_trace.json")
+            turns.append({"graph_opt": opt,
+                          "motifs_rewritten": motifs if opt == "1" else 0,
+                          "step_ms": step_ms,
+                          "step_ms_median": float(np.median(step_ms)),
+                          "device_busy_ms": prof.get("device_busy_us", 0.0)
+                          / 1e3,
+                          "kernels": prof.get("kernels"),
+                          "busy_share": prof.get("busy_share")})
+    finally:
+        if before is None:
+            os.environ.pop("DL4J_TPU_GRAPH_OPT", None)
+        else:
+            os.environ["DL4J_TPU_GRAPH_OPT"] = before
+    emit(samediff_graph_opt_turns=turns)
+    return turns
+
+
+def sd_attention_graph(torch, dev, plain):
+    """(c)'s graph: q, k, v variables at BERT-base's widths, a ragged key
+    mask placeholder, the registry's attention (or, with ``plain``, its
+    plain version as a lambda op) and a seeded projection as the loss."""
+    from deeplearning4j_tpu_torch.autodiff.samediff import SameDiff
+    from deeplearning4j_tpu_torch.ops import standard as std
+
+    b, h, t, d = SD_ATTENTION
+    rng = np.random.default_rng(SEED + 3)
+    sd = SameDiff.create(dev)
+    q, k, v = (sd.var(n, init=rng.standard_normal((b, h, t, d)).astype(
+        np.float32)) for n in ("q", "k", "v"))
+    mask = sd.placeholder("mask", (b, 1, 1, t), torch.bool)
+    if plain:
+        att = sd.lambda_op(std.dot_product_attention_plain, q, k, v, mask)
+    else:
+        att = sd.nn.multi_head_dot_product_attention(q, k, v, mask)
+    proj = sd.constant(rng.standard_normal((b, h, t, d)).astype(np.float32))
+    (att * proj).sum().rename("loss")
+    att.rename("att")
+    sd.set_loss_variables("loss")
+    keep = rng.integers(t // 2, t + 1, b)
+    feed = {"mask": (np.arange(t)[None, :] < keep[:, None])[:, None, None]}
+    return sd, feed
+
+
+def sd_attention_check(torch):
+    """(c): the registry's attention in a SameDiff graph on the card (K1 in
+    output, K2 in calculate_gradients) against the same graph on the op's
+    plain version, at the f32 K1/K2 rows; returns the launches."""
+    sd, feed = sd_attention_graph(torch, None, plain=False)
+    ref, _ = sd_attention_graph(torch, None, plain=True)
+    before = all_counts()
+    o = sd.output(feed, "att")["att"]
+    g = sd.calculate_gradients(feed)
+    torch.cuda.synchronize()
+    launched = delta(before)
+    o_ref = ref.output(feed, "att")["att"]
+    g_ref = ref.calculate_gradients(feed)
+    err_o = float((o - o_ref).abs().max())
+    err_g = {n: float((g[n] - g_ref[n]).abs().max()
+                      / max(1.0, float(g_ref[n].abs().max())))
+             for n in ("q", "k", "v")}
+    named = dict(zip(ALL_KERNELS, launched))
+    emit(samediff_attention={"shape": SD_ATTENTION, "max_abs_err_o": err_o,
+                             "grad_err": err_g, "launches": named,
+                             "tol_o": TOL_O["float32"],
+                             "tol_grad": TOL_GRAD["float32"]})
+    check(err_o <= TOL_O["float32"], f"(c) SameDiff attention output "
+          f"{err_o} over {TOL_O['float32']}")
+    check(max(err_g.values()) <= TOL_GRAD["float32"], f"(c) SameDiff "
+          f"attention gradients {err_g} over {TOL_GRAD['float32']}")
+    check(named["simple"] >= 1 and named["bwd"] >= 1,
+          f"(c) the SameDiff attention graph did not launch K1 and K2: "
+          f"{named}")
+    return launched
+
+
+def samediff_phase(torch, smi=None):
+    """SameDiff and TF import on the card: (a) the imported BERT-base
+    against the port's CPU, (b) its fine-tune at (32, 128), (c) the
+    registry's attention op through SameDiff on K1/K2. Returns (the
+    imported path's launches over (a) and (b), (c)'s launches); the
+    imported path must launch no port kernel (its attention is
+    BatchMatMulV2 + Softmax)."""
+    reset_all_counts()
+    sd_card_vs_cpu(torch)
+    torch.cuda.empty_cache()
+    sd_fine_tune(torch, smi)
+    imported = all_counts()
+    torch.cuda.empty_cache()
+    check(not any(imported), f"the imported BERT path launched port "
+          f"kernels: {dict(zip(ALL_KERNELS, imported))}")
+    reset_all_counts()
+    attention = sd_attention_check(torch)
+    torch.cuda.empty_cache()
+    return imported, attention
+
+
+
 def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -9555,6 +9941,11 @@ def main() -> int:
     parser.add_argument("--attention", action="store_true",
                         help="run only the attention phase (masked K1/K2, "
                         "A1 and A2) after building the kernels")
+    parser.add_argument("--samediff", action="store_true",
+                        help="run only the SameDiff phase (the TF-imported "
+                        "BERT-base against the CPU and fine-tuned at (32, "
+                        "128), the attention op through SameDiff on K1/K2) "
+                        "after building the flash kernels")
     parser.add_argument("--precision-ce-f32", action="store_true",
                         help="measure the f32 K3 kernels and their plain "
                         "versions against f64 at the training shape, and "
@@ -9634,6 +10025,18 @@ def main() -> int:
         scoring = scoring_phase(torch, smi)
         check_scoring_launches(scoring)
         emit(phase_seconds={"scoring_phase": time.perf_counter() - t0})
+        return 0
+    if args.samediff:
+        t0 = time.perf_counter()
+        _build.load("flash_attention_fwd")
+        _build.load("flash_attention_bwd")
+        emit(build={"seconds": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        imported, attention = samediff_phase(torch, smi)
+        emit(samediff_launches={
+            "samediff_import": dict(zip(ALL_KERNELS, imported)),
+            "samediff_attention": dict(zip(ALL_KERNELS, attention))},
+            phase_seconds={"samediff_phase": time.perf_counter() - t0})
         return 0
     if args.recurrent:
         t0 = time.perf_counter()
@@ -9796,13 +10199,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     recurrent, wide, k11_rows, k11l_rows = timed(
         "recurrent_phase", recurrent_phase, torch)
+    torch.cuda.empty_cache()
+    samediff_import, samediff_attention = timed(
+        "samediff_phase", samediff_phase, torch, smi)
     paths = {"serve": serve, "serve_modes": modes, "pipeline": pipeline,
              "frontdoor": frontdoor, "fleet": fleet, "train": train,
              "moe": moe, "f32_serve": f32_serve, "f32_train": f32_train,
              "network": network, "recurrent": recurrent, "wide_layer": wide,
              "attention": attention, "attention_modules": attention_modules,
              "detection": detection, "transfer": transfer,
-             "scoring": scoring}
+             "scoring": scoring, "samediff_import": samediff_import,
+             "samediff_attention": samediff_attention}
     launches = {name: {path: counts_[i] for path, counts_ in paths.items()}
                 for i, name in enumerate(ALL_KERNELS)}
     emit(main_path_launches=launches)

@@ -1,17 +1,26 @@
-"""The standard ops the ported layers call: counterparts of the JAX
-package's ``ops/standard.py`` entries ``conv1d``, ``conv2d``, ``conv3d``,
-``depthwise_conv2d``, ``maxpool2d``, ``avgpool2d``, ``pnormpool2d``,
-``maxpool3d``, ``avgpool3d``, ``upsampling2d``, ``resize_bilinear``,
-``batchnorm``, ``lrn``, ``dropout_inverted`` and
-``dot_product_attention``, as plain functions (the op registry is not
-ported); ``conv_transpose``, the transposed convolution that the
-deconvolution layers take from ``lax.conv_transpose``; and
-``promote_mm``, the dtype rule of ``jnp.matmul`` that the layers'
-products follow.
+"""The standard ops: counterparts of the JAX package's ``ops/standard.py``.
+
+Two halves. The plain functions the ported layers call (``conv1d``,
+``conv2d``, ``conv3d``, ``depthwise_conv2d``, ``maxpool2d``,
+``avgpool2d``, ``pnormpool2d``, ``maxpool3d``, ``avgpool3d``,
+``upsampling2d``, ``resize_bilinear``, ``batchnorm``, ``lrn``,
+``dropout_inverted``, ``dot_product_attention``; ``conv_transpose``, the
+transposed convolution the deconvolution layers take from
+``lax.conv_transpose``; ``promote_mm``, the dtype rule of ``jnp.matmul``
+that the layers' products follow). And, at the end of the module, the
+op registry's entries (``ops/registry.py``): every op the reference
+registers in its ``ops/standard.py``, under the same names, aliases and
+signatures; the three of its other op modules that the TF import of a
+BERT graph and the graph passes reach (``reduce_all``, ``reduce_any``,
+``stop_gradient``); and the four that its later op modules rebind
+standard names to (``realdiv``, ``truncatediv``, ``reverse``,
+``batched_gemm``), so a name means one op in both packages.
 
 ``dot_product_attention`` runs on the hand flash kernels K1/K2
 (``kernels/flash_attention.py``) wherever :func:`attention_route` says
 they take it, with the layers' key mask; elsewhere on its plain version.
+The registry's ``dot_product_attention`` is this function, so a SameDiff
+graph's attention takes the kernels by the same rule.
 
 Activations are NHWC and conv weights HWIO, as in the reference. A
 contiguous NHWC tensor ``x`` gives ``x.permute(0, 3, 1, 2)``, an NCHW view
@@ -27,6 +36,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -437,3 +447,939 @@ def dot_product_attention(q, k, v, mask=None, scaled=True):
         q, k, v = (_fa._readable(t) for t in (q, k, v))
     return _fa.FlashAttention.apply(q.shape[1], False, scale, q, k, v,
                                     *extra)
+
+
+# ======================================================= the op registry
+# Every op of the reference's ``ops/standard.py``, registered under its
+# name and aliases with the reference's signature: tensors positional,
+# attributes as keywords. The graph engine and the TF importer run ops by
+# these names. Integer results come back int32 (``registry.OpDef``).
+from deeplearning4j_tpu_torch.ops import dtypes as _dt  # noqa: E402
+from deeplearning4j_tpu_torch.ops.moments import (  # noqa: E402
+    one_pass_moments as _one_pass_moments)
+from deeplearning4j_tpu_torch.ops.registry import register  # noqa: E402
+from deeplearning4j_tpu_torch.ops import registry as _registry  # noqa: E402
+
+
+def _axes(axis, ndim):
+    """A reduction's dims: None is every dim, an int one dim."""
+    if axis is None:
+        return tuple(range(ndim))
+    if isinstance(axis, (list, tuple)):
+        return tuple(int(a) for a in axis)
+    return (int(axis),)
+
+
+def _floatish(x):
+    return x if (x.is_floating_point() or x.is_complex()) else x.float()
+
+
+# --------------------------------------------------------------- arithmetic
+register("add", lambda a, b: a + b, aliases=["Add"])
+register("sub", lambda a, b: a - b, aliases=["Sub", "subtract"])
+register("mul", lambda a, b: a * b, aliases=["Mul", "multiply"])
+register("div", lambda a, b: torch.true_divide(a, b),
+         aliases=["Div", "RealDiv", "truediv"])
+register("floordiv", lambda a, b: torch.floor_divide(a, b),
+         aliases=["FloorDiv"])
+register("mod", lambda a, b: torch.remainder(a, b), aliases=["FloorMod", "Mod"])
+register("pow", lambda a, b: torch.pow(a, b), aliases=["Pow"])
+register("squaredsubtract", lambda a, b: torch.square(a - b),
+         aliases=["SquaredDifference"])
+register("maximum", torch.maximum, aliases=["Maximum"])
+register("minimum", torch.minimum, aliases=["Minimum"])
+register("neg", torch.neg, aliases=["Neg"])
+register("reciprocal", torch.reciprocal, aliases=["Reciprocal"])
+
+
+@register("truncate_div", aliases=["TruncateDiv"])
+def _truncate_div(a, b):
+    """``lax.div``: C division, truncating toward zero on integers."""
+    if a.is_floating_point() or b.is_floating_point():
+        return a / b
+    return torch.div(a, b, rounding_mode="trunc")
+
+
+# --------------------------------------------------------------- elementwise
+for _n, _f, _al in [
+    ("abs", torch.abs, ["Abs"]), ("exp", torch.exp, ["Exp"]),
+    ("log", torch.log, ["Log"]), ("log1p", torch.log1p, ["Log1p"]),
+    ("sqrt", torch.sqrt, ["Sqrt"]), ("rsqrt", torch.rsqrt, ["Rsqrt"]),
+    ("square", torch.square, ["Square"]), ("sin", torch.sin, ["Sin"]),
+    ("cos", torch.cos, ["Cos"]), ("tan", torch.tan, ["Tan"]),
+    ("asin", torch.asin, ["Asin"]), ("acos", torch.acos, ["Acos"]),
+    ("atan", torch.atan, ["Atan"]), ("sinh", torch.sinh, ["Sinh"]),
+    ("cosh", torch.cosh, ["Cosh"]), ("tanh", torch.tanh, ["Tanh"]),
+    ("asinh", torch.asinh, []), ("acosh", torch.acosh, []),
+    ("atanh", torch.atanh, []),
+    ("erf", torch.special.erf, ["Erf"]), ("erfc", torch.special.erfc, ["Erfc"]),
+    ("floor", torch.floor, ["Floor"]), ("ceil", torch.ceil, ["Ceil"]),
+    ("round", torch.round, ["Round"]), ("sign", torch.sign, ["Sign"]),
+    ("isnan", torch.isnan, ["IsNan"]), ("isinf", torch.isinf, ["IsInf"]),
+    ("isfinite", torch.isfinite, ["IsFinite"]),
+]:
+    register(_n, _f, aliases=_al)
+
+
+@register("clipbyvalue", aliases=["ClipByValue", "clip_by_value"])
+def _clipbyvalue(x, lo=None, hi=None, clip_value_min=None,
+                 clip_value_max=None):
+    return torch.clamp(x, lo if lo is not None else clip_value_min,
+                       hi if hi is not None else clip_value_max)
+
+
+@register("clipbynorm", aliases=["ClipByNorm"])
+def _clipbynorm(x, clipnorm=1.0):
+    n = torch.sqrt(torch.sum(torch.square(x)))
+    return torch.where(n > clipnorm, x * (clipnorm / n), x)
+
+
+# -------------------------------------------------------------- activations
+register("sigmoid", torch.sigmoid, aliases=["Sigmoid"])
+register("relu", torch.relu, aliases=["Relu"])
+register("relu6", F.relu6, aliases=["Relu6"])
+register("elu", F.elu, aliases=["Elu"])
+register("selu", F.selu, aliases=["Selu"])
+# jax.nn.gelu's default is the tanh approximation
+register("gelu", lambda x: F.gelu(x, approximate="tanh"), aliases=["Gelu"])
+register("softplus", lambda x: torch.logaddexp(x, torch.zeros_like(x)),
+         aliases=["Softplus"])
+register("softsign", lambda x: x / (1 + torch.abs(x)), aliases=["Softsign"])
+register("swish", F.silu, aliases=["silu"])
+register("mish", F.mish)
+# reference/Keras/ONNX semantics clip(0.2x+0.5, 0, 1), not relu6(x+3)/6
+register("hard_sigmoid", lambda x: torch.clamp(0.2 * x + 0.5, 0.0, 1.0),
+         aliases=["HardSigmoid"])
+register("hard_tanh", lambda x: torch.clamp(x, -1.0, 1.0),
+         aliases=["HardTanh"])
+register("leakyrelu", lambda x, alpha=0.01: F.leaky_relu(x, alpha),
+         aliases=["LeakyRelu", "leaky_relu"])
+register("prelu", lambda x, alpha: torch.where(x >= 0, x, alpha * x),
+         aliases=["PRelu"])
+register("cube", lambda x: x ** 3)
+register("rationaltanh", lambda x: 1.7159 * torch.tanh(2.0 * x / 3.0))
+register("rectifiedtanh", lambda x: torch.clamp_min(torch.tanh(x), 0.0))
+register("thresholdedrelu", lambda x, theta=1.0:
+         torch.where(x > theta, x, torch.zeros_like(x)))
+register("softmax", lambda x, axis=-1: torch.softmax(x, dim=axis),
+         aliases=["Softmax"])
+register("log_softmax", lambda x, axis=-1: torch.log_softmax(x, dim=axis),
+         aliases=["LogSoftmax"])
+
+
+# --------------------------------------------------------------- reductions
+def _red(fn, floats=False):
+    def op(x, axis=None, keepdims=False, keep_dims=None):
+        kd = bool(keepdims if keep_dims is None else keep_dims)
+        dims = _axes(axis, x.dim())
+        if floats:
+            x = _floatish(x)
+        # no dim to reduce (a 0-d input, or axis=()): None, x unchanged
+        return fn(x, dims or None, kd)
+    return op
+
+
+def _sum(x, dims, kd):
+    if dims is None:
+        return x.to(torch.int32) if x.dtype == torch.bool else x
+    return torch.sum(x, dim=dims, keepdim=kd)
+
+
+def _mean(x, dims, kd):
+    return x if dims is None else torch.mean(x, dim=dims, keepdim=kd)
+
+
+def _amax(x, dims, kd):
+    return x if dims is None else torch.amax(x, dim=dims, keepdim=kd)
+
+
+def _amin(x, dims, kd):
+    return x if dims is None else torch.amin(x, dim=dims, keepdim=kd)
+
+
+def _prod(x, dims, kd):
+    if dims is None:
+        return x
+    for d in sorted((d % x.dim() for d in dims), reverse=True):
+        x = torch.prod(x, dim=d, keepdim=kd)
+    return x
+
+
+def _all(x, dims, kd):
+    if dims is None:
+        return x.bool()
+    return torch.all(x.bool(), dim=dims, keepdim=kd)
+
+
+def _any(x, dims, kd):
+    if dims is None:
+        return x.bool()
+    return torch.any(x.bool(), dim=dims, keepdim=kd)
+
+
+register("reduce_sum", _red(_sum), aliases=["Sum", "sum"])
+register("reduce_mean", _red(_mean, floats=True), aliases=["Mean", "mean"])
+register("reduce_max", _red(_amax), aliases=["Max"])
+register("reduce_min", _red(_amin), aliases=["Min"])
+register("reduce_prod", _red(_prod), aliases=["Prod"])
+register("reduce_norm1", _red(
+    lambda x, d, kd: _sum(torch.abs(x), d, kd)))
+register("reduce_norm2", _red(
+    lambda x, d, kd: torch.sqrt(_sum(x * x, d, kd)), floats=True))
+register("reduce_normmax", _red(
+    lambda x, d, kd: _amax(torch.abs(x), d, kd)))
+# ops/extended.py's boolean reductions, which the TF rules for All/Any emit
+register("reduce_all", _red(_all), aliases=["All"])
+register("reduce_any", _red(_any), aliases=["Any"])
+
+
+@register("reduce_variance")
+def _reduce_variance(x, axis=None, keepdims=False, bias_corrected=False):
+    return torch.var(_floatish(x), dim=_axes(axis, x.dim()),
+                     correction=1 if bias_corrected else 0, keepdim=keepdims)
+
+
+@register("reduce_stdev")
+def _reduce_stdev(x, axis=None, keepdims=False, bias_corrected=False):
+    return torch.std(_floatish(x), dim=_axes(axis, x.dim()),
+                     correction=1 if bias_corrected else 0, keepdim=keepdims)
+
+
+@register("reduce_logsumexp")
+def _reduce_logsumexp(x, axis=None, keepdims=False):
+    return torch.logsumexp(_floatish(x), dim=_axes(axis, x.dim()),
+                           keepdim=keepdims)
+
+
+register("argmax", lambda x, axis=None: torch.argmax(x, dim=axis),
+         aliases=["ArgMax"])
+register("argmin", lambda x, axis=None: torch.argmin(x, dim=axis),
+         aliases=["ArgMin"])
+
+
+def _cum(fn, x, axis, exclusive, reverse, init):
+    if reverse:
+        x = torch.flip(x, (axis,))
+    out = fn(x, dim=axis)
+    if exclusive:
+        head = torch.full_like(out.narrow(axis, 0, 1), init)
+        out = torch.cat([head, out.narrow(axis, 0, x.shape[axis] - 1)],
+                        dim=axis)
+    if reverse:
+        out = torch.flip(out, (axis,))
+    return out
+
+
+register("cumsum", lambda x, axis=0, exclusive=False, reverse=False:
+         _cum(torch.cumsum, x, axis, exclusive, reverse, 0.0),
+         aliases=["Cumsum"])
+register("cumprod", lambda x, axis=0, exclusive=False, reverse=False:
+         _cum(torch.cumprod, x, axis, exclusive, reverse, 1.0),
+         aliases=["Cumprod"])
+
+
+# -------------------------------------------------------------------- shape
+register("reshape", lambda x, shape: torch.reshape(
+    x, tuple(int(s) for s in shape)), aliases=["Reshape"])
+
+
+@register("transpose", aliases=["Transpose", "permute"])
+def _transpose(x, perm=None, axes=None):
+    perm = perm if perm is not None else axes
+    if perm is None:
+        perm = tuple(reversed(range(x.dim())))
+    return x.permute(*[int(p) for p in perm])
+
+
+@register("squeeze", aliases=["Squeeze"])
+def _squeeze(x, axis=None):
+    if axis is None:
+        return torch.squeeze(x)
+    dims = tuple(axis) if isinstance(axis, (list, tuple)) else (int(axis),)
+    for d in dims:
+        if x.shape[d] != 1:
+            raise ValueError(f"cannot squeeze axis {d} of size "
+                             f"{x.shape[d]}")
+    return torch.squeeze(x, dim=dims) if dims else x
+
+
+register("expand_dims", lambda x, axis=0: torch.unsqueeze(x, int(axis)),
+         aliases=["ExpandDims"])
+register("concat", lambda *xs, axis=0: torch.cat(xs, dim=axis),
+         aliases=["Concat", "ConcatV2"])
+register("stack", lambda *xs, axis=0: torch.stack(xs, dim=axis),
+         aliases=["Stack", "Pack"])
+register("unstack", lambda x, axis=0, num=None: tuple(torch.unbind(x, axis)),
+         num_outputs=-1, aliases=["Unstack", "Unpack"])
+register("tile", lambda x, reps: torch.tile(x, tuple(int(r) for r in reps)),
+         aliases=["Tile"])
+
+
+@register("flip", aliases=["ReverseV2", "reverse"])
+def _flip(x, axis):
+    dims = range(x.dim()) if axis is None else (
+        axis if isinstance(axis, (list, tuple)) else (axis,))
+    return torch.flip(x, [int(d) for d in dims])
+
+
+@register("slice", aliases=["Slice"])
+def _slice(x, begin, size):
+    """``lax.dynamic_slice``: a start is clamped so the slice fits."""
+    for i, (b, s) in enumerate(zip(begin, size)):
+        n = x.shape[i]
+        s = n - int(b) if int(s) == -1 else int(s)
+        b = min(max(int(b), 0), n - s)
+        x = x.narrow(i, b, s)
+    return x
+
+
+def _slice_axis(x, axis, sl):
+    n = x.shape[axis]
+    start, stop, step = sl.indices(n)
+    count = len(range(start, stop, step))
+    if step > 0:
+        return x.narrow(axis, start, 0) if count == 0 else \
+            x.narrow(axis, start, (count - 1) * step + 1)[
+                (slice(None),) * axis + (slice(None, None, step),)]
+    if count == 0:
+        return x.narrow(axis, 0, 0)
+    flipped = torch.flip(x, (axis,))
+    return flipped.narrow(axis, n - 1 - start, (count - 1) * -step + 1)[
+        (slice(None),) * axis + (slice(None, None, -step),)]
+
+
+@register("strided_slice", aliases=["StridedSlice"])
+def _strided_slice(x, begin, end, strides=None):
+    """Python slicing per axis (None = full extent in the stride's
+    direction); torch has no negative step, so a reversed axis is sliced
+    out of its flip."""
+    strides = strides if strides is not None else [1] * len(begin)
+    as_int = lambda v: None if v is None else int(v)   # noqa: E731
+    for axis, (b, e, s) in enumerate(zip(begin, end, strides)):
+        x = _slice_axis(x, axis, slice(as_int(b), as_int(e), as_int(s)))
+    return x
+
+
+def _take(x, indices, axis=0):
+    """``jnp.take``: negative indices count from the end."""
+    axis = int(axis) % x.dim()
+    idx = indices.long()
+    idx = torch.where(idx < 0, idx + x.shape[axis], idx)
+    out = torch.index_select(x, axis, idx.reshape(-1))
+    return out.reshape(tuple(x.shape[:axis]) + tuple(idx.shape)
+                       + tuple(x.shape[axis + 1:]))
+
+
+register("gather", _take, aliases=["Gather", "GatherV2"])
+
+
+@register("split", num_outputs=-1, aliases=["Split"])
+def _split(x, num_split=2, axis=0):
+    n = int(num_split)
+    if x.shape[axis] % n:
+        raise ValueError(f"array split does not result in an equal "
+                         f"division: {x.shape[axis]} by {n}")
+    return tuple(torch.split(x, x.shape[axis] // n, dim=axis))
+
+
+@register("split_v", num_outputs=-1, aliases=["SplitV"])
+def _split_v(x, size_splits, axis=0):
+    cuts = np.cumsum([int(s) for s in size_splits[:-1]]).tolist()
+    return tuple(torch.tensor_split(x, cuts, dim=axis))
+
+
+register("einsum", lambda *xs, equation: torch.einsum(equation, *xs),
+         aliases=["Einsum"])
+register("gather_nd", lambda x, indices:
+         x[tuple(indices.long().unbind(-1))], aliases=["GatherNd"])
+
+
+@register("scatter_update", aliases=["ScatterUpdate"])
+def _scatter_update(ref, indices, updates):
+    return torch.index_put(ref, (indices.long(),), updates.to(ref.dtype))
+
+
+@register("scatter_add", aliases=["ScatterAdd"])
+def _scatter_add(ref, indices, updates):
+    return torch.index_put(ref, (indices.long(),), updates.to(ref.dtype),
+                           accumulate=True)
+
+
+def _mirror_index(n, lo, hi, symmetric, device):
+    """Source index of each padded position along one axis (numpy's
+    "reflect" leaves the edge out, "symmetric" repeats it)."""
+    idx = np.arange(-lo, n + hi)
+    period = 2 * n if symmetric else 2 * (n - 1)
+    if period == 0:
+        return torch.zeros(len(idx), dtype=torch.long, device=device)
+    m = np.mod(idx, period)
+    if symmetric:
+        src = np.where(m < n, m, period - 1 - m)
+    else:
+        src = np.where(m < n, m, period - m)
+    return torch.as_tensor(src, dtype=torch.long, device=device)
+
+
+@register("pad", aliases=["Pad", "PadV2"])
+def _pad(x, paddings, mode="CONSTANT", constant_values=0, value=None):
+    pads = [tuple(int(v) for v in p) for p in paddings]
+    mode = str(mode).upper()
+    if mode == "CONSTANT":
+        cv = constant_values if value is None else value
+        flat = []
+        for lo, hi in reversed(pads):
+            flat += [lo, hi]
+        return F.pad(x, flat, value=float(cv) if x.is_floating_point()
+                     else int(cv))
+    if mode not in ("REFLECT", "SYMMETRIC"):
+        raise ValueError(f"unknown pad mode {mode!r}")
+    for axis, (lo, hi) in enumerate(pads):
+        if lo or hi:
+            idx = _mirror_index(x.shape[axis], lo, hi, mode == "SYMMETRIC",
+                                x.device)
+            x = torch.index_select(x, axis, idx)
+    return x
+
+
+def _scalar(v, dtype, device):
+    return torch.tensor(v, dtype=dtype, device=device)
+
+
+register("shape_of", lambda x: torch.tensor(tuple(x.shape), dtype=torch.int32,
+                                            device=x.device),
+         aliases=["Shape"])
+register("size", lambda x: _scalar(x.numel(), torch.int32, x.device),
+         aliases=["Size"])
+register("rank", lambda x: _scalar(x.dim(), torch.int32, x.device),
+         aliases=["Rank"])
+register("cast", lambda x, dtype: x.to(_dt.to_torch(dtype)), aliases=["Cast"])
+register("identity", lambda x: x, aliases=["Identity"])
+# lax.stop_gradient (ops/longtail.py): the graph pass reads through it
+register("stop_gradient", lambda x: x.detach(),
+         aliases=["StopGradient", "stopgradient"])
+
+
+@register("fill", aliases=["Fill"])
+def _fill(shape, value):
+    dims = tuple(int(s) for s in shape)
+    if isinstance(value, torch.Tensor):
+        return value.reshape(()).expand(dims).contiguous()
+    return torch.full(dims, value, device=shape.device
+                      if isinstance(shape, torch.Tensor) else None)
+
+
+register("zeros_like", torch.zeros_like, aliases=["ZerosLike"])
+register("ones_like", torch.ones_like, aliases=["OnesLike"])
+
+
+@register("linspace", aliases=["LinSpace"])
+def _linspace(start, stop, num):
+    dev = start.device if isinstance(start, torch.Tensor) else None
+    return torch.linspace(float(start), float(stop), int(num), device=dev)
+
+
+@register("range", aliases=["Range"])
+def _range(start, limit, delta):
+    vals = [v.item() if isinstance(v, torch.Tensor) else v
+            for v in (start, limit, delta)]
+    dev = start.device if isinstance(start, torch.Tensor) else None
+    if all(isinstance(v, (int, bool)) for v in vals):
+        return torch.arange(*vals, dtype=torch.int32, device=dev)
+    return torch.arange(*vals, dtype=torch.float32, device=dev)
+
+
+@register("one_hot", aliases=["OneHot", "onehot"])
+def _one_hot(indices, depth, on_value=1.0, off_value=0.0, axis=-1,
+             dtype=None):
+    depth = int(depth)
+    nd = indices.dim() + 1
+    a = int(axis) % nd
+    shape = [1] * nd
+    shape[a] = depth
+    cls = torch.arange(depth, device=indices.device).reshape(shape)
+    hot = (indices.unsqueeze(a) == cls).to(torch.float32)
+    out = hot * (on_value - off_value) + off_value
+    return out.to(_dt.to_torch(dtype)) if dtype is not None else out
+
+
+@register("where", aliases=["Where", "Select", "SelectV2"])
+def _where(cond, x=None, y=None):
+    if x is not None:
+        return torch.where(cond.bool(), x, y)
+    return torch.nonzero(cond)
+
+
+register("broadcast_to", lambda x, shape: torch.broadcast_to(
+    x, tuple(int(s) for s in shape)), aliases=["BroadcastTo"])
+
+
+@register("space_to_depth", aliases=["SpaceToDepth"])
+def _space_to_depth(x, block_size=2):
+    b = int(block_size)
+    n, h, w, c = x.shape
+    x = x.reshape(n, h // b, b, w // b, b, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(n, h // b, w // b, c * b * b)
+
+
+@register("depth_to_space", aliases=["DepthToSpace"])
+def _depth_to_space(x, block_size=2):
+    b = int(block_size)
+    n, h, w, c = x.shape
+    x = x.reshape(n, h, w, b, b, c // (b * b))
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(n, h * b, w * b, c // (b * b))
+
+
+# -------------------------------------------------------------- comparisons
+register("equals", torch.eq, aliases=["Equal", "eq"])
+register("not_equals", torch.ne, aliases=["NotEqual", "neq"])
+register("greater", torch.gt, aliases=["Greater", "gt"])
+register("greater_equal", torch.ge, aliases=["GreaterEqual", "gte"])
+register("less", torch.lt, aliases=["Less", "lt"])
+register("less_equal", torch.le, aliases=["LessEqual", "lte"])
+register("boolean_and", torch.logical_and, aliases=["LogicalAnd"])
+register("boolean_or", torch.logical_or, aliases=["LogicalOr"])
+register("boolean_not", torch.logical_not, aliases=["LogicalNot"])
+register("boolean_xor", torch.logical_xor, aliases=["LogicalXor"])
+
+
+# ------------------------------------------------------------------- linalg
+@register("matmul", aliases=["MatMul", "mmul", "BatchMatMul", "BatchMatMulV2"])
+def _matmul(a, b, transpose_a=False, transpose_b=False, transA=None,
+            transB=None):
+    ta = transpose_a if transA is None else bool(transA)
+    tb = transpose_b if transB is None else bool(transB)
+    if ta:
+        a = a.transpose(-1, -2)
+    if tb:
+        b = b.transpose(-1, -2)
+    if a.dtype in (torch.bfloat16, torch.float16):
+        # preferred_element_type f32: the half inputs widen exactly
+        return promote_mm(a.float(), b.float())
+    return promote_mm(a, b)
+
+
+@register("tensordot", aliases=["tensormmul"])
+def _tensordot(a, b, axes):
+    if isinstance(axes, (list, tuple)):
+        axes = [list(np.atleast_1d(ax).tolist()) for ax in axes]
+    return torch.tensordot(a, b, dims=axes)
+
+
+register("diag", torch.diag, aliases=["Diag"])
+register("diag_part", lambda x: torch.diagonal(x, 0, 0, 1),
+         aliases=["DiagPart"])
+register("matrix_inverse", torch.linalg.inv, aliases=["MatrixInverse"])
+register("matrix_determinant", torch.linalg.det,
+         aliases=["MatrixDeterminant"])
+register("cholesky", torch.linalg.cholesky, aliases=["Cholesky"])
+register("qr", lambda x, mode="reduced": tuple(torch.linalg.qr(x, mode=mode)),
+         num_outputs=2, aliases=["Qr"])
+register("svd", lambda x, full_matrices=False: tuple(
+    torch.linalg.svd(x, full_matrices=full_matrices)),
+    num_outputs=3, aliases=["Svd"])
+register("trace", lambda x: torch.diagonal(x, 0, 0, 1).sum(-1),
+         aliases=["Trace"])
+register("lstsq", lambda a, b: torch.linalg.lstsq(a, b).solution)
+
+
+@register("triangular_solve")
+def _triangular_solve(a, b, lower=True):
+    vec = b.dim() == a.dim() - 1
+    out = torch.linalg.solve_triangular(a, b.unsqueeze(-1) if vec else b,
+                                        upper=not lower)
+    return out.squeeze(-1) if vec else out
+
+
+register("solve", torch.linalg.solve, aliases=["MatrixSolve"])
+
+
+@register("matrix_band_part", aliases=["MatrixBandPart"])
+def _band_part(x, lower, upper):
+    lower, upper = int(lower), int(upper)
+    m, n = x.shape[-2], x.shape[-1]
+    i = torch.arange(m, device=x.device)[:, None]
+    j = torch.arange(n, device=x.device)[None, :]
+    keep = ((i - j) <= (lower if lower >= 0 else m)) & \
+        ((j - i) <= (upper if upper >= 0 else n))
+    return torch.where(keep, x, torch.zeros_like(x))
+
+
+# ------------------------------------------------------------- convolutions
+def _explicit_pads(padding, spatial, kernel, strides, dilation):
+    """The reference's ``_pad_attr`` and lax's "SAME"/"VALID" rules, as
+    (lo, hi) per spatial dim."""
+    return _pads_nd(padding, spatial, kernel, strides, dilation)
+
+
+register("conv1d", conv1d, aliases=["Conv1D"])
+
+
+@register("conv2d", aliases=["Conv2D"])
+def _conv2d_op(x, w, b=None, strides=(1, 1), padding="SAME",
+               dilation=(1, 1), groups=1):
+    if int(groups) == 1:
+        return conv2d(x, w, b, strides, padding, dilation)
+    strides, dilation = _pair(strides), _pair(dilation)
+    pads = resolve_pads(padding, x.shape[1:3], w.shape[:2], strides,
+                        dilation)
+    x = _pad_nhwc(x, pads)
+    out = _nhwc(F.conv2d(_nchw(x), w.permute(3, 2, 0, 1), None, strides, 0,
+                         dilation, groups=int(groups)))
+    return out + b if b is not None else out
+
+
+@register("conv2d_nchw")
+def _conv2d_nchw(x, w, b=None, strides=(1, 1), padding=((0, 0), (0, 0)),
+                 dilation=(1, 1), groups=1):
+    strides, dilation = _pair(strides), _pair(dilation)
+    pads = _explicit_pads(padding, x.shape[2:4], w.shape[2:4], strides,
+                          dilation)
+    x = F.pad(x, (pads[1][0], pads[1][1], pads[0][0], pads[0][1]))
+    out = F.conv2d(x, w, None, strides, 0, dilation, groups=int(groups))
+    return out + b.reshape(1, -1, 1, 1) if b is not None else out
+
+
+def _pool_nchw_pad(x, padding, value):
+    (t, bo), (l, r) = [tuple(int(v) for v in p) for p in padding]
+    return F.pad(x, (l, r, t, bo), value=value)
+
+
+@register("maxpool2d_nchw")
+def _maxpool2d_nchw(x, kernel=(2, 2), strides=(2, 2),
+                    padding=((0, 0), (0, 0))):
+    x = _pool_nchw_pad(x, padding, float("-inf"))
+    return F.max_pool2d(x, tuple(kernel), tuple(strides))
+
+
+@register("avgpool2d_nchw")
+def _avgpool2d_nchw(x, kernel=(2, 2), strides=(2, 2),
+                    padding=((0, 0), (0, 0)), count_include_pad=False):
+    s = F.avg_pool2d(_pool_nchw_pad(x, padding, 0.0), tuple(kernel),
+                     tuple(strides), divisor_override=1)
+    if count_include_pad:
+        return s / float(np.prod(kernel))
+    ones = _pool_nchw_pad(torch.ones_like(x[:, :1]), padding, 0.0)
+    return s / F.avg_pool2d(ones, tuple(kernel), tuple(strides),
+                            divisor_override=1)
+
+
+register("global_avgpool_nchw", lambda x: torch.mean(
+    x, dim=tuple(range(2, x.dim())), keepdim=True))
+
+
+@register("batchnorm_nchw")
+def _batchnorm_nchw(x, scale, offset, mean, var, epsilon=1e-5):
+    shp = (1, -1) + (1,) * (x.dim() - 2)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    s = torch.rsqrt(var.to(acc) + epsilon) * scale.to(acc)
+    sh = mean.to(acc) * s - offset.to(acc)
+    return (x.to(acc) * s.reshape(shp) - sh.reshape(shp)).to(x.dtype)
+
+
+register("conv3d", conv3d, aliases=["Conv3D"])
+register("depthwise_conv2d", depthwise_conv2d,
+         aliases=["DepthwiseConv2dNative", "sconv2d_depthwise"])
+
+
+@register("deconv2d", aliases=["Conv2DTranspose", "Conv2DBackpropInput"])
+def _deconv2d(x, w, b=None, strides=(1, 1), padding="SAME",
+              transpose_kernel=False):
+    """``lax.conv_transpose`` over NHWC/HWIO. ``transpose_kernel=True`` is
+    a conv GRADIENT (TF Conv2DBackpropInput, filter (H, W, out, in));
+    False the correlation form of the Keras/ONNX layers."""
+    strides = _pair(strides)
+    kernel = tuple(w.shape[:2])
+    if isinstance(padding, str):
+        pads = conv_transpose_same_valid(kernel, strides, padding)
+    else:
+        pads = [(p, p) for p in _pair(padding)]
+    kern = w.transpose(2, 3) if transpose_kernel else torch.flip(w, (0, 1))
+    out = conv_transpose(x, kern, strides, pads, (1, 1))
+    return out + b if b is not None else out
+
+
+register("maxpool2d", maxpool2d, aliases=["MaxPool", "max_pool_2d",
+                                          "MaxPoolV2"])
+register("avgpool2d", avgpool2d, aliases=["AvgPool", "avg_pool_2d"])
+register("pnormpool2d", pnormpool2d)
+register("maxpool3d", maxpool3d, aliases=["MaxPool3D"])
+register("avgpool3d", avgpool3d, aliases=["AvgPool3D"])
+register("global_avgpool2d", lambda x: torch.mean(x, dim=(1, 2)))
+register("upsampling2d", upsampling2d, aliases=["ResizeNearestNeighbor"])
+register("resize_bilinear", resize_bilinear, aliases=["ResizeBilinear"])
+
+
+@register("im2col")
+def _im2col(x, kernel, strides=(1, 1), padding="VALID"):
+    """NHWC → (N, OH, OW, C·KH·KW), channel-major features (the
+    ``conv_general_dilated_patches`` layout)."""
+    kh, kw = (int(k) for k in kernel)
+    strides = _pair(strides)
+    if isinstance(padding, str):
+        pads = resolve_pads(padding, x.shape[1:3], (kh, kw), strides)
+    else:
+        pads = [(int(p), int(p)) for p in padding]
+    x = _pad_nhwc(x, pads)
+    n, h, w, c = x.shape
+    cols = F.unfold(_nchw(x), (kh, kw), stride=strides)
+    oh = (h - kh) // strides[0] + 1
+    ow = (w - kw) // strides[1] + 1
+    return cols.reshape(n, c * kh * kw, oh, ow).permute(0, 2, 3, 1)
+
+
+# ------------------------------------------------------------ normalization
+@register("batchnorm", aliases=["FusedBatchNorm", "FusedBatchNormV2",
+                                "FusedBatchNormV3"])
+def _batchnorm_op(x, mean, variance, gamma=None, beta=None, epsilon=1e-5,
+                  axis=-1):
+    shp = [1] * x.dim()
+    shp[axis] = x.shape[axis]
+    acc = torch.promote_types(x.dtype, torch.float32)
+    scale = torch.rsqrt(variance.to(acc) + epsilon)
+    if gamma is not None:
+        scale = scale * gamma.to(acc)
+    shift = mean.to(acc) * scale
+    if beta is not None:
+        shift = shift - beta.to(acc)
+    return (x.to(acc) * scale.reshape(shp) - shift.reshape(shp)).to(x.dtype)
+
+
+@register("layer_norm", aliases=["LayerNorm"])
+def _layer_norm(x, gamma=None, beta=None, axis=-1, epsilon=1e-5):
+    mean, var = _one_pass_moments(x, _axes(axis, x.dim()), keepdim=True)
+    out = (x - mean) * torch.rsqrt(var + epsilon)
+    if gamma is not None:
+        out = out * gamma
+    if beta is not None:
+        out = out + beta
+    return out.to(x.dtype)
+
+
+register("lrn", lrn, aliases=["LRN"])
+
+
+@register("standardize")
+def _standardize(x, axis=-1, epsilon=1e-5):
+    mean = torch.mean(x, dim=axis, keepdim=True)
+    std = torch.std(x, dim=axis, correction=0, keepdim=True)
+    return (x - mean) / (std + epsilon)
+
+
+@register("l2_normalize", aliases=["L2Normalize"])
+def _l2_normalize(x, axis=-1, epsilon=1e-12):
+    return x * torch.rsqrt(torch.clamp_min(
+        torch.sum(torch.square(x), dim=axis, keepdim=True), epsilon))
+
+
+# ------------------------------------------------------------------- losses
+@register("softmax_cross_entropy", aliases=["SoftmaxCrossEntropyWithLogits"])
+def _softmax_cross_entropy(logits, labels, axis=-1):
+    return -torch.sum(labels * torch.log_softmax(logits, dim=axis), dim=axis)
+
+
+@register("sparse_softmax_cross_entropy",
+          aliases=["SparseSoftmaxCrossEntropyWithLogits"])
+def _sparse_softmax_cross_entropy(logits, labels):
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, -1, labels.long().unsqueeze(-1))[..., 0]
+
+
+@register("sigmoid_cross_entropy")
+def _sigmoid_cross_entropy(logits, labels):
+    return (torch.clamp_min(logits, 0) - logits * labels
+            + torch.log1p(torch.exp(-torch.abs(logits))))
+
+
+# ---------------------------------------------------------------- recurrent
+@register("lstm_cell", aliases=["LSTMBlockCell"])
+def _lstm_cell(x, h_prev, c_prev, w, b, forget_bias=1.0):
+    """One LSTM step; w (input + hidden, 4·hidden), gates i, f, g, o."""
+    z = promote_mm(torch.cat([x, h_prev], dim=-1), w) + b
+    i, f, g, o = torch.chunk(z, 4, dim=-1)
+    c = torch.sigmoid(f + forget_bias) * c_prev + torch.sigmoid(i) * \
+        torch.tanh(g)
+    h = torch.sigmoid(o) * torch.tanh(c)
+    return h, c
+
+
+@register("gru_cell", aliases=["GRUCell"])
+def _gru_cell(x, h_prev, w_rz, w_h, b_rz, b_h):
+    xh = torch.cat([x, h_prev], dim=-1)
+    rz = torch.sigmoid(promote_mm(xh, w_rz) + b_rz)
+    r, z = torch.chunk(rz, 2, dim=-1)
+    h_tilde = torch.tanh(promote_mm(torch.cat([x, r * h_prev], dim=-1), w_h)
+                         + b_h)
+    return (1.0 - z) * h_tilde + z * h_prev
+
+
+@register("sru_cell")
+def _sru_cell(x, c_prev, w, b):
+    z = promote_mm(x, w)
+    xt, f, r = torch.chunk(z, 3, dim=-1)
+    bf, br = torch.chunk(b, 2, dim=-1)
+    f = torch.sigmoid(f + bf)
+    r = torch.sigmoid(r + br)
+    c = f * c_prev + (1 - f) * xt
+    h = r * torch.tanh(c) + (1 - r) * x[..., :c.shape[-1]]
+    return h, c
+
+
+# ---------------------------------------------------------------- attention
+# the routed op: K1/K2 wherever ``attention_route`` says "kernel"
+register("dot_product_attention", dot_product_attention,
+         aliases=["MultiHeadDotProductAttention"])
+
+
+# ------------------------------------------------------------------- random
+# ``key`` is a ``torch.Generator`` on the output's device (the graph
+# engine derives one per node from the execution seed).
+@register("dropout")
+def _dropout(x, key, rate=0.5):
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=key, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+@register("random_normal", aliases=["RandomStandardNormal"])
+def _random_normal(key, shape, mean=0.0, stddev=1.0, dtype="float32"):
+    return mean + stddev * torch.randn(
+        tuple(int(s) for s in shape), generator=key, device=key.device,
+        dtype=_dt.to_torch(dtype))
+
+
+@register("random_uniform", aliases=["RandomUniform"])
+def _random_uniform(key, shape, minval=0.0, maxval=1.0, dtype="float32"):
+    u = torch.rand(tuple(int(s) for s in shape), generator=key,
+                   device=key.device, dtype=_dt.to_torch(dtype))
+    return u * (maxval - minval) + minval
+
+
+@register("random_bernoulli")
+def _random_bernoulli(key, shape, p=0.5):
+    u = torch.rand(tuple(int(s) for s in shape), generator=key,
+                   device=key.device)
+    return (u < p).to(torch.float32)
+
+
+register("dropout_inverted", dropout_inverted)
+
+
+# -------------------------------------------------------------- image / misc
+@register("non_max_suppression", aliases=["NonMaxSuppressionV3"])
+def _non_max_suppression(boxes, scores, max_output_size=10,
+                         iou_threshold=0.5, score_threshold=float("-inf")):
+    """Greedy NMS over a fixed ``max_output_size`` (padded with -1), in
+    the reference's order of steps."""
+    n = boxes.shape[0]
+    ys1, xs1, ys2, xs2 = boxes.unbind(-1)
+    y1, y2 = torch.minimum(ys1, ys2), torch.maximum(ys1, ys2)
+    x1, x2 = torch.minimum(xs1, xs2), torch.maximum(xs1, xs2)
+    areas = (y2 - y1) * (x2 - x1)
+    valid = torch.ones(n, dtype=torch.bool, device=boxes.device)
+    minus_inf = torch.tensor(float("-inf"), dtype=scores.dtype,
+                             device=scores.device)
+    out = []
+    for _ in range(int(max_output_size)):
+        masked = torch.where(valid, scores, minus_inf)
+        best = torch.argmax(masked)
+        ok = valid[best] & (masked[best] >= score_threshold)
+        out.append(torch.where(ok, best, torch.full_like(best, -1)))
+        yy1 = torch.maximum(y1[best], y1)
+        xx1 = torch.maximum(x1[best], x1)
+        yy2 = torch.minimum(y2[best], y2)
+        xx2 = torch.minimum(x2[best], x2)
+        inter = torch.clamp_min(yy2 - yy1, 0.0) * torch.clamp_min(
+            xx2 - xx1, 0.0)
+        ious = inter / (areas[best] + areas - inter + 1e-9)
+        valid = valid & (ious <= iou_threshold) & ok
+    return torch.stack(out) if out else torch.zeros(
+        0, dtype=torch.int32, device=boxes.device)
+
+
+@register("confusion_matrix", aliases=["ConfusionMatrix"])
+def _confusion_matrix(labels, predictions, num_classes):
+    n = int(num_classes)
+    idx = labels.long() * n + predictions.long()
+    counts = torch.bincount(idx.reshape(-1), minlength=n * n)[:n * n]
+    return counts.reshape(n, n)
+
+
+@register("top_k", aliases=["TopKV2", "TopK"], num_outputs=2)
+def _top_k(x, k=1, sorted=True):
+    return tuple(torch.topk(x, int(k), dim=-1, largest=True, sorted=True))
+
+
+@register("in_top_k", aliases=["InTopKV2"])
+def _in_top_k(predictions, targets, k=1):
+    idx = torch.topk(predictions, int(k), dim=-1).indices
+    return torch.any(idx == targets.long()[:, None], dim=-1)
+
+
+@register("segment_sum", aliases=["SegmentSum"])
+def _segment_sum(data, segment_ids, num_segments=None):
+    n = int(num_segments) if num_segments is not None else \
+        int(segment_ids.max()) + 1
+    out = torch.zeros((n,) + tuple(data.shape[1:]), dtype=data.dtype,
+                      device=data.device)
+    return out.index_add(0, segment_ids.long(), data)
+
+
+@register("sequence_mask", aliases=["SequenceMask"])
+def _sequence_mask(lengths, maxlen=None):
+    m = int(maxlen) if maxlen is not None else int(lengths.max())
+    return torch.arange(m, device=lengths.device)[None, :] < lengths[:, None]
+
+
+@register("reverse_sequence", aliases=["ReverseSequence"])
+def _reverse_sequence(x, seq_lengths, seq_axis=1, batch_axis=0):
+    x = torch.movedim(x, (batch_axis, seq_axis), (0, 1))
+    t = x.shape[1]
+    idx = torch.arange(t, device=x.device)[None, :]
+    lens = seq_lengths.long()[:, None]
+    gather_idx = torch.where(idx < lens, lens - 1 - idx, idx)
+    gather_idx = gather_idx.reshape(gather_idx.shape + (1,) * (x.dim() - 2))
+    out = torch.take_along_dim(x, gather_idx.expand(
+        gather_idx.shape[:2] + x.shape[2:]), dim=1)
+    return torch.movedim(out, (0, 1), (batch_axis, seq_axis))
+
+
+# ----------------------------------------------- threshold codec (Strom 2015)
+@register("encode_threshold")
+def _encode_threshold(grad, threshold=1e-3):
+    """Sparse 1-bit gradient encoding: (flat sign int8, residual)."""
+    flat = grad.reshape(-1)
+    over = torch.abs(flat) >= threshold
+    sign = torch.sign(flat)
+    signs = torch.where(over, sign, torch.zeros_like(sign)).to(torch.int8)
+    residual = torch.where(over, flat - sign * threshold, flat)
+    return signs, residual
+
+
+@register("decode_threshold")
+def _decode_threshold(signs, threshold=1e-3, shape=None):
+    out = signs.to(torch.float32) * threshold
+    return out.reshape(tuple(shape)) if shape is not None else out
+
+
+# ------------------------------------------- names the reference rebinds
+# The reference's later op modules (ops/extended.py, tranche4, tranche5)
+# rebind some of the names above. Where the op they rebind to is plain
+# arithmetic it is registered here as there, so a name means one op in
+# both packages; the three names whose later ops are not ported yet are
+# unbound rather than left meaning another op.
+register("realdiv", lambda x, y: torch.true_divide(x, y), aliases=["RealDiv"])
+register("truncatediv", lambda x, y: torch.trunc(torch.true_divide(x, y))
+         .to(x.dtype), aliases=["TruncateDiv"])
+
+
+@register("reverse", aliases=["Reverse", "ReverseV2"])
+def _reverse(x, axis):
+    axis = (axis,) if isinstance(axis, int) else tuple(axis)
+    return torch.flip(x, axis)
+
+
+register("batched_gemm", promote_mm,
+         aliases=["BatchedGemm", "batch_matmul", "BatchMatMul",
+                  "BatchMatMulV2"])
+_registry.unbind("LSTMBlockCell", "ResizeNearestNeighbor",
+                 "SoftmaxCrossEntropyWithLogits")

@@ -1425,6 +1425,64 @@ def test_tree_errors_read_each_leaf_and_each_displacement():
     assert abs(d["a/W"] - 1.0) < 1e-12 and d["a/b"] == 0
 
 
+def _held_step_case(n=10_000, flip=7):
+    """Two sides of an Adam first step (lr 1, eps 1e-8) over one leaf of
+    ``n`` elements, every gradient 1 but ``got``'s step applied -1 at
+    ``flip``, a second backward pass that rounded that element otherwise
+    than the first."""
+    base = {"a": {"W": np.zeros(n)}}
+    g = np.ones(n)
+    applied = g.copy()
+    applied[flip] = -1.0
+    step = lambda grad: {"a": {"W": -grad / (np.abs(grad) + 1e-8)}}
+    want = {"grads": {"a": {"W": g}}, "step_grads": {"a": {"W": g}},
+            "params": step(g)}
+    got = {"grads": {"a": {"W": g.copy()}},
+           "step_grads": {"a": {"W": applied}}, "params": step(applied)}
+    return got, want, base
+
+
+def test_held_step_is_masked_by_the_gradients_the_step_applied():
+    """One element of opposite sign in a leaf of n reads 2 / √n alone: a
+    mask from another backward pass (the computed gradients) keeps it,
+    the mask from the step's own leaves it out."""
+    n = 10_000
+    got, want, base = _held_step_case(n)
+    errs, left = chip_smoke.agreed_step_errors(got, want, base, 1e-8)
+    assert errs["a/W"] < 1e-12 and left == pytest.approx(1 / n)
+    stale = {**got, "step_grads": got["grads"]}
+    errs, left = chip_smoke.agreed_step_errors(stale, want, base, 1e-8)
+    assert errs["a/W"] == pytest.approx(2 / np.sqrt(n)) and left == 0
+
+
+def test_zoo_run_records_the_gradients_its_step_applied():
+    """``zoo_run``'s "step_grads" are what ``fit`` applied: on the CPU
+    the computed gradients to the bit (the same dropout masks), and
+    Adam's first step lr·g / (|g| + eps) over them; the net keeps no
+    wrapper."""
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.nn.params import tree_to_numpy
+    net = zoo.UNet(num_classes=1, input_shape=(16, 16, 3),
+                   data_type="float32").init_model(device="cpu")
+    before = tree_to_numpy(net.param_tree())
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 16, 16, 3), dtype=np.float32)
+    y = (rng.uniform(size=(2, 16, 16, 1)) < 0.5).astype(np.float32)
+    with chip_smoke.shared_dropout():
+        out = chip_smoke.zoo_run(net, x, y)
+    assert "_value_and_grad" not in vars(net)
+    u = net.conf.updater
+    lr, eps = float(u.learning_rate), float(u.epsilon)
+    for k in out["grads"]:
+        for p, g in out["grads"][k].items():
+            applied = out["step_grads"][k][p]
+            assert np.array_equal(applied, g)
+            moved = out["params"][k][p] - before[k][p]
+            np.testing.assert_allclose(
+                moved, -lr * applied / (np.abs(applied) + eps),
+                rtol=1e-3, atol=1e-6)
+
+
 def test_rows_failed_names_each_row_read_above_and_nan():
     rows = {"loss": 1e-4, "grad": 0.2}
     assert chip_smoke.rows_failed({"loss": 5e-5, "grad": 0.1}, rows) == []

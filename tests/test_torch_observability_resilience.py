@@ -641,10 +641,21 @@ COPIED = {
                            "torch.profiler exports one JSON where "
                            "jax.profiler writes an XPlane directory"}),
     "profiler/performance": ({}, {}),
-    "profiler/__init__": (
-        {n: "the eager-op profiler instruments the ops registry's "
-            "exec_op: ROADMAP queue 1 item 9" for n in (
-                "OpProfiler", "ProfilerConfig")}, {}),
+    "profiler/__init__": ({}, {}),
+    "profiler/op_profiler": ({}, {}),
+    "autodiff/__init__": ({}, {}),
+    "autodiff/samediff": ({}, {}),
+    "autodiff/passes": ({}, {}),
+    "autodiff/validation": ({}, {}),
+    "autodiff/flatgraph": ({}, {}),
+    "modelimport/tfimport": ({}, {}),
+    "modelimport/tf_v1_control_flow": ({}, {}),
+    "modelimport/common": ({}, {}),
+    "ops/registry": (
+        {}, {"UnknownOpError": "the KeyError get() raises, naming what "
+                               "the registry does not hold yet",
+             "unbind": "drops the names the reference's unported op "
+                       "modules rebind"}),
     "observability/timeseries": ({}, {}),
     "observability/watchtower": ({}, {}),
     "observability/federation": ({}, {}),

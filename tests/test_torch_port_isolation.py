@@ -72,7 +72,17 @@ def test_port_has_modules_to_check():
                    for m in ("__init__", "registry", "trace_store",
                              "tracing", "slo", "numerics", "compile_watch",
                              "cost_model", "straggler", "device_memory",
-                             "flight_recorder", "train_metrics"))):
+                             "flight_recorder", "train_metrics")),
+                 *(f"deeplearning4j_tpu_torch/{m}.py"
+                   for m in ("ops/registry", "ops/dtypes",
+                             "autodiff/__init__", "autodiff/samediff",
+                             "autodiff/passes", "autodiff/validation",
+                             "autodiff/flatgraph", "modelimport/tf_proto",
+                             "modelimport/tf_skeleton", "modelimport/common",
+                             "modelimport/tfimport",
+                             "modelimport/tf_v1_control_flow",
+                             "profiler/op_profiler",
+                             "tools/bert_skeleton"))):
         assert must in names and (ROOT / must).exists()
 
 
@@ -81,6 +91,67 @@ def test_port_has_modules_to_check():
 def test_no_jax_or_jax_package_imports(path):
     bad = sorted(set(_top_level_imports(path)) & FORBIDDEN)
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+# the skeleton tool freezes a TF BERT; nothing of the package imports it,
+# and it imports TF and transformers inside its functions only
+TF_TOOL = ROOT / "deeplearning4j_tpu_torch" / "tools" / "bert_skeleton.py"
+TF_NAMES = {"tensorflow", "transformers", "keras", "tf_keras"}
+
+
+def _module_level_imports(path: Path):
+    """The top packages of the imports run when ``path`` is imported (its
+    module body, not its functions)."""
+    def walk(body):
+        for node in body:
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                 ast.Lambda)):
+                continue
+            if isinstance(node, ast.Import):
+                yield from (a.name.split(".")[0] for a in node.names)
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                yield node.module.split(".")[0]
+            for field in ("body", "orelse", "finalbody", "handlers"):
+                yield from walk(getattr(node, field, []) or [])
+    return set(walk(ast.parse(path.read_text(), filename=str(path)).body))
+
+
+@pytest.mark.parametrize("path", FILES,
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_tensorflow_in_the_package(path):
+    """No module of the port imports TF or transformers anywhere; the
+    skeleton tool only inside its functions."""
+    names = (_module_level_imports(path) if path == TF_TOOL
+             else set(_top_level_imports(path)))
+    assert not names & TF_NAMES, f"{path.relative_to(ROOT)}: {names & TF_NAMES}"
+
+
+def test_graph_engine_and_importer_import_no_jax_or_tf():
+    """Importing the graph engine, the TF importer and the op profiler in
+    a fresh interpreter pulls in neither JAX, nor TF, nor the JAX
+    package; and the importer reads a GraphDef from bytes there."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys; sys.path.insert(0, %r)\n"
+        "import deeplearning4j_tpu_torch.autodiff\n"
+        "import deeplearning4j_tpu_torch.modelimport.tfimport as t\n"
+        "import deeplearning4j_tpu_torch.profiler.op_profiler\n"
+        "from deeplearning4j_tpu_torch.modelimport import tf_skeleton\n"
+        "gd = tf_skeleton.fill_skeleton(tf_skeleton.load_skeleton("
+        "'bert_mini_b2_t8'), 0)\n"
+        "sd = t.TFGraphMapper.import_graph(gd.SerializeToString(), "
+        "device='cpu')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'tensorflow', 'transformers', "
+        "'deeplearning4j_tpu'))\n"
+        "print(len(sd.ops()), bad)\n") % str(ROOT)
+    out = subprocess.run([sys.executable, "-I", "-c", code],
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    n_ops, bad = out.stdout.strip().split(" ", 1)
+    assert int(n_ops) > 100 and bad == "[]", out.stdout
 
 
 PORT = "deeplearning4j_tpu_torch"
