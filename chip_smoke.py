@@ -273,7 +273,7 @@ K4w spill nothing, and that no wgmma source has its products serialized
    fleet phase's workers deploy the demo scoring nets too, and each
    answers one ``/v1/classify`` with the demo net's probabilities. No
    kernel of the port, nor the attention op's plain route.
-14. SameDiff phase (last; ``--samediff`` runs it alone after building the
+14. SameDiff phase (``--samediff`` runs it alone after building the
    flash kernels) — HuggingFace's BERT-base (``SD_*``), frozen to a TF
    GraphDef and shipped as a skeleton (its weights stripped;
    ``modelimport/skeletons/``), filled from SEED, imported by the port's
@@ -291,6 +291,25 @@ K4w spill nothing, and that no wgmma source has its products serialized
    graph on the op's plain version (the f32 K1/K2 rows). The imported path
    launches no kernel of the port (its attention is BatchMatMulV2 +
    Softmax); (c) launches K1 and K2.
+15. ONNX phase (last; ``--onnx`` runs it alone after building the four
+   flash sources) — the zoo's ResNet-50 (network_phase's configuration),
+   its BatchNormalization statistics set from 32 images, authored as an
+   ONNX model by ``tools/onnx_resnet.py`` and imported by the port's
+   ``OnnxGraphMapper``: (a) at (2, 3, 224, 224) on the card against the
+   port's CPU (logits, probabilities; imported trainable, the first
+   gradient's every leaf and 3 Adam steps' losses in lock-step,
+   ``TOL_ONNX``); (b) on the card against the port's NHWC
+   ComputationGraph on the same weights, 32 images, the logits' spread
+   above ``ONNX_SPREAD_FLOOR``; (c) served at batch 32, 224², f32 (2
+   warm-up and 10 timed ``output`` calls) and fine-tuned (2 warm-up and 5
+   timed ``fit`` steps): images/s, host and device ms, kernels and busy
+   share of a call and a step, import and authoring seconds, peak memory,
+   every loss finite; (d) the registry's fused attention ops
+   (``multi_head_dot_product_attention``, ``dot_product_attention_v2``,
+   the ``_bp`` op) at BERT-base's widths, f32 and bf16, key-masked and
+   causal, on K1/K2 against the same graphs on the ops' plain versions.
+   (a)-(c) launch no kernel of the port; every path of (d) launches K1
+   and K2 and takes no plain route.
 
 Every phase must pass: any failure exits nonzero. Output is one JSON
 object per line; the last line is ``{"ok": true, "device": {...}}``.
@@ -323,7 +342,7 @@ scoring``: the scoring rows', OUT_DIR/``scoring_readings.json``);
 ``--attention`` the attention phase alone (after building every kernel);
 ``--recurrent`` the recurrent phase alone (it builds only rnn_cell.cu,
 K11 and K11L); ``--samediff`` the SameDiff phase alone (it builds only the
-flash sources).
+flash sources); ``--onnx`` the ONNX phase alone (the four flash sources).
 """
 from __future__ import annotations
 
@@ -9891,6 +9910,461 @@ def samediff_phase(torch, smi=None):
     return imported, attention
 
 
+# ------------------------------------------- ONNX import (the op registry)
+# The zoo's ResNet-50 (network_phase's configuration: 224²x3, 1000
+# classes, numpy-seeded N(0, 1) images) authored as an ONNX model in NCHW
+# by tools/onnx_resnet.py from the net's seeded weights, its
+# BatchNormalization statistics first set from ONNX_CALIB images
+# (calibrate_bn), then imported by the port's ONNX importer
+ONNX_CHECK_BATCH = 2                 # (a) card against the port's CPU
+ONNX_BATCH = 32                      # (b) and (c)
+ONNX_CALIB = 32
+ONNX_CHECK_STEPS = 3
+ONNX_LR = 1e-4
+ONNX_WARM, ONNX_TIMED = 2, 10        # (c) output calls
+ONNX_FIT_WARM, ONNX_FIT_TIMED = 2, 5  # (c) fit steps
+# (a) and (b) are the same f32 function with sums in another order over 53
+# convolutions: network_phase's ResNet-50 f32 card-vs-CPU rows
+# (TOL_NET_F32: probabilities max |Δ| 1e-3, loss 1e-4, the worst
+# gradient leaf's relative L2 0.2), logits by relative L2 at the
+# probabilities' 1e-3
+TOL_ONNX = {"probs": TOL_NET_F32["probs"], "logits": 1e-3,
+            "loss": TOL_NET_F32["loss"], "grad": TOL_NET_F32["grad"]}
+# (b) the logits must separate the 32 images: their standard deviation
+# over the batch, averaged over the classes, above this floor (constant
+# outputs read 0)
+ONNX_SPREAD_FLOOR = 1e-2
+# (d) the registry's fused attention ops at BERT-base's widths
+# (SD_ATTENTION: B, heads, T, head dim), f32 and bf16, (causal, masked)
+# on the kernels against the same graph on the ops' plain versions, at
+# the K1/K2 rows (TOL_O, TOL_GRAD): outputs max |Δ|, gradients max |Δ|
+# over max(1, max |g|)
+ONNX_ATT_VARIANTS = ((False, True), (True, False))
+# a bf16 gradient leaves the kernels through a bf16 projection, one more
+# rounding of the output's size: the bf16 output row holds it
+TOL_ONNX_GRAD = {"float32": TOL_GRAD["float32"], "bfloat16": TOL_O["bfloat16"]}
+K1_NAMES, K2_NAMES = ("wgmma", "simple"), ("bwd_wgmma", "bwd")
+
+
+def onnx_net(torch, dev):
+    """The zoo ResNet-50 on ``dev`` with its BN statistics calibrated on
+    ONNX_CALIB seeded images."""
+    net = zoo_resnet("float32").init_model(device=dev)
+    x, _ = network_data(ONNX_CALIB, seed=SEED + 41)
+    calibrate_bn(torch, net, x)
+    return net
+
+
+def onnx_logits(torch, net, x):
+    """The NHWC net's logits: the output layer's affine map of its
+    input."""
+    with torch.no_grad():
+        acts, _, _ = net._forward(net._params, net._states,
+                                  (net._to_device(x),), False, None)
+        node = net.conf.nodes["output"]
+        p = net._params["output"]
+        return (acts[node.inputs[0]].float() @ p["W"] + p["b"]).cpu().numpy()
+
+
+def onnx_trainable(sd):
+    """Labels, softmax cross-entropy on the imported logits, Adam."""
+    from deeplearning4j_tpu_torch.autodiff.samediff import TrainingConfig
+    from deeplearning4j_tpu_torch.optim.updaters import Adam
+
+    lab = sd.placeholder("labels", (None, NET_CLASSES))
+    sd.loss.softmax_cross_entropy(lab, sd.get_variable("logits")).rename(
+        "loss")
+    sd.set_training_config(TrainingConfig(
+        updater=Adam(ONNX_LR), data_set_feature_mapping=["input"],
+        data_set_label_mapping=["labels"], loss_variables=["loss"]))
+    return sd
+
+
+def onnx_batches(n, batch, seed):
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    out = []
+    for i in range(n):
+        x, y = network_data(batch, seed=seed + i)
+        out.append(DataSet(np.ascontiguousarray(x.transpose(0, 3, 1, 2)), y))
+    return out
+
+
+def moved(tree, device):
+    """``tree`` (dicts, lists, tuples and named tuples of tensors) with
+    every tensor on ``device``, its containers' types kept."""
+    if hasattr(tree, "to") and hasattr(tree, "device"):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return type(tree)((k, moved(v, device)) for k, v in tree.items())
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(moved(v, device) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(moved(v, device) for v in tree)
+    return tree
+
+
+def onnx_card_vs_cpu(torch, model):
+    """(a): the authored model imported on the card and on the port's CPU
+    at (2, 3, 224, 224): logits and probabilities; then imported
+    trainable, the first gradient's per-leaf relative L2 and 3 Adam steps'
+    losses in lock-step: after each step the card takes the CPU's
+    parameters and Adam state, so every step's loss is the same function
+    of the same state on both sides. (Run free, the two trajectories part:
+    the first gradient's leaves already differ by ~2 % between two f32
+    computations, the chaotic regime network_phase's rows record, and
+    Adam turns that into losses 0.03-0.1 apart by the third step.)"""
+    from deeplearning4j_tpu_torch.modelimport.onnximport import (
+        OnnxGraphMapper)
+    data = onnx_batches(ONNX_CHECK_STEPS, ONNX_CHECK_BATCH, SEED + 43)
+    feed = {"input": data[0].features}
+    outs = []
+    for dev in (None, "cpu"):
+        sd = OnnxGraphMapper.import_model(model, device=dev)
+        got = sd.output(feed, ["logits", "output"])
+        outs.append({k: v.float().cpu().numpy() for k, v in got.items()})
+        del sd
+    card, cpu = outs
+    check(all(np.isfinite(v).all() for v in card.values()),
+          "(a) non-finite imported outputs on the card")
+    sds = [onnx_trainable(OnnxGraphMapper.import_model(
+        model, trainable=True, device=dev)) for dev in (None, "cpu")]
+    grads = []
+    for sd in sds:
+        g = sd.calculate_gradients(dict(feed, labels=data[0].labels))
+        grads.append({n: t.float().cpu().numpy() for n, t in g.items()})
+    losses = [[], []]
+    for ds in data:
+        for side, sd in zip(losses, sds):
+            side += [float(v) for v in sd.fit([ds])]
+        on_card, on_cpu = sds
+        for n in on_cpu.trainable_names():
+            on_card._values[n] = on_cpu._values[n].to(on_card.device)
+        on_card._opt_state = moved(on_cpu._opt_state, on_card.device)
+    del sds
+    torch.cuda.empty_cache()
+    leaf = {n: rel_l2(grads[0][n], grads[1][n]) for n in grads[1]}
+    report = {"probs": float(np.abs(card["output"] - cpu["output"]).max()),
+              "logits": rel_l2(card["logits"], cpu["logits"]),
+              "loss": max(abs(a - b) for a, b in zip(*losses)),
+              "grad": max(leaf.values())}
+    failed = rows_failed(report, TOL_ONNX)
+    worst = max(leaf, key=leaf.get)
+    emit(onnx_card_vs_cpu=report, rows=TOL_ONNX, failed=failed,
+         trainable=len(leaf), worst_grad_leaf=worst,
+         median_grad_leaf=statistics.median(leaf.values()),
+         losses_card=losses[0], losses_cpu=losses[1])
+    check(all(math.isfinite(v) for v in losses[0]),
+          f"(a) non-finite losses {losses[0]}")
+    check(not failed, f"(a) the imported ResNet-50 on the card against the "
+          f"CPU's: {failed} over {TOL_ONNX}: {report} (worst leaf {worst})")
+    return report
+
+
+def onnx_vs_graph(torch, net, model):
+    """(b): the imported graph's output on the card against the port's
+    NHWC ComputationGraph on the same weights, ONNX_BATCH images; the
+    logits must separate the images."""
+    from deeplearning4j_tpu_torch.modelimport.onnximport import (
+        OnnxGraphMapper)
+    x, _ = network_data(ONNX_BATCH, seed=SEED + 47)
+    sd = OnnxGraphMapper.import_model(model)
+    got = sd.output({"input": np.ascontiguousarray(x.transpose(0, 3, 1, 2))},
+                    ["logits", "output"])
+    probs = got["output"].float().cpu().numpy()
+    logits = got["logits"].float().cpu().numpy()
+    want_p = net.output(x).float().cpu().numpy()
+    want_l = onnx_logits(torch, net, x)
+    spread = float(np.std(logits, axis=0).mean())
+    report = {"probs": float(np.abs(probs - want_p).max()),
+              "logits": rel_l2(logits, want_l)}
+    failed = rows_failed(report, {k: TOL_ONNX[k] for k in report})
+    emit(onnx_vs_graph=report, logit_spread=spread,
+         spread_floor=ONNX_SPREAD_FLOOR, failed=failed,
+         top1_agree=float((probs.argmax(1) == want_p.argmax(1)).mean()))
+    check(not failed, f"(b) the imported ResNet-50 against the NHWC "
+          f"ComputationGraph: {failed}: {report}")
+    check(spread > ONNX_SPREAD_FLOOR, f"(b) the logits do not separate the "
+          f"images: spread {spread} <= {ONNX_SPREAD_FLOOR}")
+    del sd
+    return report
+
+
+def onnx_serve_and_fit(torch, model, smi):
+    """(c): the imported graph served at ONNX_BATCH, 224², f32:
+    ONNX_WARM + ONNX_TIMED output calls; then imported trainable and fit,
+    ONNX_FIT_WARM + ONNX_FIT_TIMED steps; host ms, device ms and kernels
+    per call and step, the busy share, images/s, every loss."""
+    from deeplearning4j_tpu_torch.modelimport.onnximport import (
+        OnnxGraphMapper)
+    t0 = time.perf_counter()
+    sd = OnnxGraphMapper.import_model(model)
+    import_s = time.perf_counter() - t0
+    data = onnx_batches(ONNX_FIT_WARM + ONNX_FIT_TIMED, ONNX_BATCH,
+                        SEED + 53)
+    feed = {"input": data[0].features}
+
+    def call():
+        sd.output(feed, "output")
+
+    for _ in range(ONNX_WARM):
+        call()
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(ONNX_TIMED):
+        t = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        host.append(1e3 * (time.perf_counter() - t))
+    prof = profile_window(torch, "onnx_output",
+                          lambda: [call() for _ in range(3)],
+                          "onnx_output_trace.json")
+    serve = {"host_ms": statistics.median(host), "host_ms_all": host,
+             "images_per_s": ONNX_BATCH * 1e3 / statistics.median(host),
+             "device_ms": prof.get("device_busy_us", 0) / 3e3,
+             "kernels_per_call": prof.get("kernels", 0) / 3,
+             "busy_share": prof.get("busy_share"),
+             "top_kernels": prof.get("top_kernels")}
+    del sd
+    torch.cuda.empty_cache()
+    sd = onnx_trainable(OnnxGraphMapper.import_model(model, trainable=True))
+    losses, host = [], []
+    for i, ds in enumerate(data):
+        t = time.perf_counter()
+        losses += [float(v) for v in sd.fit([ds])]
+        torch.cuda.synchronize()
+        if i >= ONNX_FIT_WARM:
+            host.append(1e3 * (time.perf_counter() - t))
+    prof = profile_window(torch, "onnx_fit", lambda: sd.fit([data[-1]]),
+                          "onnx_fit_trace.json")
+    fit = {"host_ms": statistics.median(host), "host_ms_all": host,
+           "images_per_s": ONNX_BATCH * 1e3 / statistics.median(host),
+           "device_ms": prof.get("device_busy_us", 0) / 1e3,
+           "kernels_per_step": prof.get("kernels", 0),
+           "busy_share": prof.get("busy_share"),
+           "top_kernels": prof.get("top_kernels"), "losses": losses}
+    del sd
+    torch.cuda.empty_cache()
+    emit(onnx_serve={"gpu": smi, "batch": ONNX_BATCH, "import_s": import_s,
+                     **serve},
+         onnx_fit={"gpu": smi, "batch": ONNX_BATCH, "lr": ONNX_LR, **fit})
+    check(all(math.isfinite(v) for v in losses),
+          f"(c) non-finite fit losses {losses}")
+    return serve, fit
+
+
+def plain_mha(q, k, v, wq, wk, wv, wo, mask=None, causal=False):
+    """The fused attention op's plain version (ops.standard
+    .attention_plain for its core), for the comparison only."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import standard as std
+
+    def proj(x, w):
+        return torch.einsum("ntd,dhk->nhtk", x, w)
+
+    o = std.attention_plain(proj(q, wq), proj(k, wk), proj(v, wv), mask,
+                            causal)
+    return torch.einsum("nhtk,hkd->ntd", o, wo)
+
+
+def onnx_attention_graph(torch, op, dtype, causal, masked, plain):
+    """One SameDiff graph at SD_ATTENTION's widths running ``op`` (the
+    registry's op, or with ``plain`` its plain version as a lambda op)
+    over seeded variables, with a ragged key mask placeholder when
+    ``masked``; a seeded projection of its output is the loss."""
+    from deeplearning4j_tpu_torch.autodiff.samediff import SameDiff
+    from deeplearning4j_tpu_torch.ops import registry
+    from deeplearning4j_tpu_torch.ops import standard as std
+
+    b, h, t, d = SD_ATTENTION
+    dm = h * d
+    rng = np.random.default_rng(SEED + 61)
+    sd = SameDiff.create()
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+
+    def var(name, shape, scale=1.0):
+        v = sd.var(name, init=(rng.standard_normal(shape) * scale).astype(
+            np.float32))
+        return sd._op("cast", v, dtype=dtype) if dtype != "float32" else v
+
+    mask = (sd.placeholder("mask", (b, 1, 1, t), torch.bool) if masked
+            else None)
+    if op == "dot_product_attention_v2":
+        ins = [var(n, (b, h, t, d)) for n in ("q", "k", "v")]
+        shape_out = (b, h, t, d)
+        if plain:
+            out = sd.lambda_op(lambda q, k, v, *m: std.attention_plain(
+                q, k, v, m[0] if m else None, causal, 1.0 / math.sqrt(d)),
+                *ins, *([mask] if masked else []))
+        elif masked:
+            # the op takes its mask by keyword (its fourth place is scale)
+            out = sd.lambda_op(lambda q, k, v, m: registry.exec_op(
+                op, q, k, v, causal=causal, mask=m), *ins, mask)
+        else:
+            out = sd._op(op, *ins, causal=causal)
+    else:
+        ins = [var(n, (b, t, dm)) for n in ("q", "k", "v")]
+        ins += [var(n, (dm, h, d), 1 / math.sqrt(dm))
+                for n in ("wq", "wk", "wv")]
+        ins += [var("wo", (h, d, dm), 1 / math.sqrt(dm))]
+        shape_out = (b, t, dm)
+        args = ins + ([mask] if masked else [])
+        if plain:
+            out = sd.lambda_op(lambda *a: plain_mha(*a, causal=causal),
+                               *args)
+        else:
+            out = sd._op(op, *args, causal=causal)
+    out.rename("att")
+    proj = sd.constant(rng.standard_normal(shape_out).astype(np.float32))
+    (sd._op("cast", out, dtype="float32") * proj).sum().rename("loss")
+    sd.set_loss_variables("loss")
+    keep = rng.integers(t // 2, t + 1, b)
+    feed = ({"mask": (np.arange(t)[None, :] < keep[:, None])[:, None, None]}
+            if masked else {})
+    return sd, feed
+
+
+def onnx_bp_graph(torch, dtype, causal, masked, plain):
+    """``multi_head_dot_product_attention_bp`` in a graph (or, with
+    ``plain``, autograd of the plain version as a lambda op): the seven
+    gradients of a seeded cotangent."""
+    from deeplearning4j_tpu_torch.autodiff.samediff import SameDiff
+    from deeplearning4j_tpu_torch.ops.tranche4 import vjp
+
+    b, h, t, d = SD_ATTENTION
+    dm = h * d
+    rng = np.random.default_rng(SEED + 67)
+    sd = SameDiff.create()
+    arrs = [rng.standard_normal((b, t, dm)) for _ in range(3)]
+    arrs += [rng.standard_normal((dm, h, d)) / math.sqrt(dm)
+             for _ in range(3)]
+    arrs += [rng.standard_normal((h, d, dm)) / math.sqrt(dm),
+             rng.standard_normal((b, t, dm))]
+    ins = [sd.constant(a.astype(np.float32)) for a in arrs]
+    if dtype != "float32":
+        ins = [sd._op("cast", v, dtype=dtype) for v in ins]
+    mask = ([sd.placeholder("mask", (b, 1, 1, t), torch.bool)] if masked
+            else [])
+    if plain:
+        outs = sd.lambda_op(lambda *a: vjp(
+            lambda *x: plain_mha(*x, *a[8:], causal=causal), a[:7], a[7]),
+            *ins, *mask, n_out=7)
+    else:
+        outs = sd._op("multi_head_dot_product_attention_bp", *ins, *mask,
+                      causal=causal)
+    names = [f"d{n}" for n in ("q", "k", "v", "wq", "wk", "wv", "wo")]
+    for o, n in zip(outs, names):
+        o.rename(n)
+    keep = rng.integers(t // 2, t + 1, b)
+    feed = ({"mask": (np.arange(t)[None, :] < keep[:, None])[:, None, None]}
+            if masked else {})
+    return sd, feed, names
+
+
+def _max_err(got, want):
+    return float((got.float() - want.float()).abs().max())
+
+
+def _rel_err(got, want):
+    return _max_err(got, want) / max(1.0, float(want.float().abs().max()))
+
+
+def onnx_attention_check(torch):
+    """(d): the fused attention ops of the registry on the card at
+    BERT-base's widths, f32 and bf16, causal and key-masked: each graph's
+    output (K1) and gradients (K2), and the ``_bp`` op (K1 and K2), against
+    the same graphs on the ops' plain versions; every path must launch K1
+    and K2 and take no plain route. Returns the launches summed."""
+    total = [0] * len(ALL_KERNELS)
+    rows = []
+    for dtype in ("float32", "bfloat16"):
+        for causal, masked in ONNX_ATT_VARIANTS:
+            for op in ("multi_head_dot_product_attention",
+                       "dot_product_attention_v2", "bp"):
+                if op == "bp":
+                    sd, feed, names = onnx_bp_graph(torch, dtype, causal,
+                                                    masked, False)
+                    ref, _, _ = onnx_bp_graph(torch, dtype, causal, masked,
+                                              True)
+                    before = all_counts()
+                    got = sd.output(feed, names)
+                    torch.cuda.synchronize()
+                    launched = delta(before)
+                    want = ref.output(feed, names)
+                    err_o = 0.0
+                    err_g = {n: _rel_err(got[n], want[n]) for n in names}
+                else:
+                    sd, feed = onnx_attention_graph(torch, op, dtype, causal,
+                                                    masked, False)
+                    ref, _ = onnx_attention_graph(torch, op, dtype, causal,
+                                                  masked, True)
+                    before = all_counts()
+                    o = sd.output(feed, "att")["att"]
+                    g = sd.calculate_gradients(feed)
+                    torch.cuda.synchronize()
+                    launched = delta(before)
+                    o_ref = ref.output(feed, "att")["att"]
+                    g_ref = ref.calculate_gradients(feed)
+                    err_o = _max_err(o, o_ref)
+                    err_g = {n: _rel_err(g[n], g_ref[n]) for n in g_ref}
+                named = dict(zip(ALL_KERNELS, launched))
+                total = [a + b for a, b in zip(total, launched)]
+                row = {"op": op, "dtype": dtype, "causal": causal,
+                       "masked": masked, "max_abs_err_o": err_o,
+                       "grad_err": max(err_g.values()),
+                       "k1": sum(named[k] for k in K1_NAMES),
+                       "k2": sum(named[k] for k in K2_NAMES),
+                       "plain_routes": named["attention_plain"],
+                       "tol_o": TOL_O[dtype],
+                       "tol_grad": TOL_ONNX_GRAD[dtype]}
+                rows.append(row)
+                del sd, ref
+                check(err_o <= TOL_O[dtype], f"(d) {row}: output over "
+                      f"{TOL_O[dtype]}")
+                check(row["grad_err"] <= TOL_ONNX_GRAD[dtype], f"(d) {row}: "
+                      f"gradients over {TOL_ONNX_GRAD[dtype]}")
+                check(row["k1"] >= 1 and row["k2"] >= 1
+                      and row["plain_routes"] == 0,
+                      f"(d) {row}: K1 and K2 not both launched, or a plain "
+                      f"route taken")
+    torch.cuda.empty_cache()
+    emit(onnx_attention={"shape": SD_ATTENTION, "rows": rows})
+    return total
+
+
+def onnx_phase(torch, smi=None):
+    """ONNX import on the card: (a) the authored ResNet-50 against the
+    port's CPU, (b) against the NHWC ComputationGraph, (c) served at
+    batch 32 and fine-tuned, (d) the registry's fused attention ops on
+    K1/K2. Returns ((a)-(c)'s launches, (d)'s); (a)-(c) must launch no
+    port kernel (their convolutions are cuDNN's)."""
+    from deeplearning4j_tpu_torch.tools import onnx_resnet
+    reset_all_counts()
+    t0 = time.perf_counter()
+    net = onnx_net(torch, None)
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    check_model = onnx_resnet.to_onnx(net, ONNX_CHECK_BATCH)
+    model = onnx_resnet.to_onnx(net, ONNX_BATCH)
+    author_s = (time.perf_counter() - t1) / 2
+    emit(onnx_model={"bytes": len(model), "author_s": author_s,
+                     "net_s": t1 - t0})
+    onnx_card_vs_cpu(torch, check_model)
+    del check_model
+    torch.cuda.empty_cache()
+    onnx_vs_graph(torch, net, model)
+    del net
+    torch.cuda.empty_cache()
+    onnx_serve_and_fit(torch, model, smi)
+    emit(onnx_peak_memory={"bytes": torch.cuda.max_memory_allocated()})
+    del model
+    imported = all_counts()
+    check(not any(imported), f"the imported ONNX path launched port "
+          f"kernels: {dict(zip(ALL_KERNELS, imported))}")
+    reset_all_counts()
+    attention = onnx_attention_check(torch)
+    return imported, attention
+
+
 
 def main() -> int:
     import argparse
@@ -9946,6 +10420,12 @@ def main() -> int:
                         "BERT-base against the CPU and fine-tuned at (32, "
                         "128), the attention op through SameDiff on K1/K2) "
                         "after building the flash kernels")
+    parser.add_argument("--onnx", action="store_true",
+                        help="run only the ONNX phase (the authored "
+                        "ResNet-50 imported against the CPU and the NHWC "
+                        "graph, served and fine-tuned at batch 32, the "
+                        "registry's fused attention ops on K1/K2) after "
+                        "building the flash kernels")
     parser.add_argument("--precision-ce-f32", action="store_true",
                         help="measure the f32 K3 kernels and their plain "
                         "versions against f64 at the training shape, and "
@@ -10037,6 +10517,23 @@ def main() -> int:
             "samediff_import": dict(zip(ALL_KERNELS, imported)),
             "samediff_attention": dict(zip(ALL_KERNELS, attention))},
             phase_seconds={"samediff_phase": time.perf_counter() - t0})
+        return 0
+    if args.onnx:
+        t0 = time.perf_counter()
+        # the four flash libraries, one nvcc each, all started together
+        started = {n: _build._start(n) for n in (
+            "flash_attention_fwd", "flash_attention_bwd",
+            "flash_attention_fwd_wgmma", "flash_attention_bwd_wgmma")}
+        for n, st in started.items():
+            if st is not None:
+                _build._finish(n, st)
+        emit(build={"seconds": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        imported, attention = onnx_phase(torch, smi)
+        emit(onnx_launches={
+            "onnx_import": dict(zip(ALL_KERNELS, imported)),
+            "onnx_attention": dict(zip(ALL_KERNELS, attention))},
+            phase_seconds={"onnx_phase": time.perf_counter() - t0})
         return 0
     if args.recurrent:
         t0 = time.perf_counter()
@@ -10202,6 +10699,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     samediff_import, samediff_attention = timed(
         "samediff_phase", samediff_phase, torch, smi)
+    torch.cuda.empty_cache()
+    onnx_import, onnx_attention = timed("onnx_phase", onnx_phase, torch, smi)
     paths = {"serve": serve, "serve_modes": modes, "pipeline": pipeline,
              "frontdoor": frontdoor, "fleet": fleet, "train": train,
              "moe": moe, "f32_serve": f32_serve, "f32_train": f32_train,
@@ -10209,7 +10708,8 @@ def main() -> int:
              "attention": attention, "attention_modules": attention_modules,
              "detection": detection, "transfer": transfer,
              "scoring": scoring, "samediff_import": samediff_import,
-             "samediff_attention": samediff_attention}
+             "samediff_attention": samediff_attention,
+             "onnx_import": onnx_import, "onnx_attention": onnx_attention}
     launches = {name: {path: counts_[i] for path, counts_ in paths.items()}
                 for i, name in enumerate(ALL_KERNELS)}
     emit(main_path_launches=launches)
@@ -10219,7 +10719,8 @@ def main() -> int:
     check(not any(launches["attention_plain"].values()),
           f"the attention op took its plain route on the card: "
           f"{launches['attention_plain']}")
-    check_recurrent_launches(recurrent, wide, (attention, attention_modules))
+    check_recurrent_launches(recurrent, wide, (attention, attention_modules,
+                                               onnx_attention))
     emit(kernels=[kernel_entry("wgmma", cases, launches["wgmma"], masked),
                   kernel_entry("simple", cases, launches["simple"], masked),
                   bwd_kernel_entry("bwd_wgmma", bwd_cases,

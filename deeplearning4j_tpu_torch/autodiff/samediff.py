@@ -34,15 +34,19 @@ Persistence: the reference's zip (``graph.json`` + ``values.npz``, with
 The updater state is the port's ``optim/updaters.py`` chain, whose leaves
 line up one for one with the reference's optax state.
 
+The ops that draw without a key (``random_normal_gen``, ``normal``,
+``bernoulli_sample`` and the rest of the ops taking a ``generator``
+keyword) get a generator on the graph's device seeded from (execution
+seed, node index); a ``seed`` attribute seeds their own.
+
 Not ported here: ``set_mesh`` (data-parallel training over several
-cards, ROADMAP queue 1 item 7), and the ``SDImage``/``SDBitwise`` methods
-whose ops live in the reference's ``ops/extended.py`` (queue 1 item 9's
-rest): they raise.
+cards, ROADMAP queue 1 item 7): it raises.
 """
 from __future__ import annotations
 
 import collections.abc as _abc
 import enum
+import inspect
 import io
 import json
 import warnings
@@ -605,10 +609,7 @@ class SDRandom(_Namespace):
 
 
 class SDBitwise(_Namespace):
-    """Ref: ``SDBitwise``. Its ops live in the reference's
-    ``ops/extended.py``, which the port's registry does not hold yet
-    (ROADMAP queue 1 item 9's rest): each method raises
-    ``registry.UnknownOpError`` naming its op."""
+    """Ref: ``SDBitwise``: the bitwise ops of ``ops/extended.py``."""
 
     def and_(self, a, b): return self._op("bitwise_and", a, b)
     def or_(self, a, b): return self._op("bitwise_or", a, b)
@@ -624,10 +625,8 @@ class SDBitwise(_Namespace):
 
 
 class SDImage(_Namespace):
-    """Ref: ``SDImage``. ``resize_bilinear`` and ``non_max_suppression``
-    run (their ops are standard); the others' ops live in the reference's
-    ``ops/extended.py`` (ROADMAP queue 1 item 9's rest) and raise
-    ``registry.UnknownOpError``."""
+    """Ref: ``SDImage``: the image ops of ``ops/standard.py`` and
+    ``ops/extended.py``."""
 
     def resize_bilinear(self, x, h, w):
         return self._op("resize_bilinear", x, size=(h, w))
@@ -702,6 +701,20 @@ def _infer(fn, inputs, attrs):
 
 _RANDOM_OPS = {"random_normal", "random_uniform", "random_bernoulli",
                "dropout", "dropout_inverted"}
+_DRAWS: Dict[str, bool] = {}
+
+
+def _draws(op_name: str) -> bool:
+    """Whether a registry op draws from a ``generator`` keyword."""
+    hit = _DRAWS.get(op_name)
+    if hit is None:
+        try:
+            params = inspect.signature(op_registry.get(op_name).fn).parameters
+            hit = "generator" in params
+        except (TypeError, ValueError):
+            hit = False
+        _DRAWS[op_name] = hit
+    return hit
 
 
 class SameDiff:
@@ -1150,6 +1163,10 @@ class SameDiff:
                     res = op.fn(*args)
                 elif "__random_index__" in op.attrs:
                     res = self._run_random(op, args, rng_seed)
+                elif _draws(op.op_name):
+                    res = op_registry.exec_op(
+                        op.op_name, *args, generator=self._generator(
+                            _fold(rng_seed, 1 + op_idx)), **op.attrs)
                 else:
                     res = op_registry.exec_op(op.op_name, *args, **op.attrs)
                 if len(op.outputs) == 1:

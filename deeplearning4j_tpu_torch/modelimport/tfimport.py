@@ -6,11 +6,10 @@ tensorflow``'s ``OpMappingRegistry``/``ImportGraph`` and
 A per-op mapping-rule registry walks the GraphDef topologically, turning
 each node into registry ops of a :class:`SameDiff`; structural inputs
 (axes, shapes, perms, paddings) are constant-folded at import time. The
-rules are the reference's, every one registered. A rule whose registry op
-the port does not hold yet (the reference's ``ops/extended.py``,
-``longtail``, ``tranche4``-``tranche6``: ROADMAP queue 1 item 9's rest)
-raises :class:`TFImportError` naming the op when a graph reaches it; it
-never emits zeros or skips the node.
+rules are the reference's, every one registered, and every registry op
+they emit is the port's (the port's registry holds the reference's);
+a rule whose op were missing would raise :class:`TFImportError` naming
+it, never emit zeros or skip the node.
 
 The GraphDef is read by the port's own wire codec (``tf_proto.py``): no
 TF, no protobuf. A graph skeleton (``tf_skeleton.py``: the structure with
@@ -1150,9 +1149,7 @@ def _map_nodes(ctx: _ImportCtx, nodes, skip=frozenset()):
         except _op_registry.UnknownOpError as e:
             raise TFImportError(
                 f"TF op {node.op!r} (node {node.name!r}) maps to registry op "
-                f"{e.name!r}, which the port does not hold yet (the "
-                f"reference's ops/extended.py, longtail and tranche4-6: "
-                f"ROADMAP queue 1 item 9's rest)") from e
+                f"{e.name!r}, which the port's registry does not hold") from e
         outs = out if isinstance(out, (list, tuple)) else [out]
         for i, o in enumerate(outs):
             ctx.vars[f"{node.name}:{i}"] = o

@@ -27,10 +27,7 @@ class UnknownOpError(KeyError):
         self.name = name
 
     def __str__(self):
-        return (f"Unknown op: {self.name!r}. {len(names())} ops "
-                f"registered: the reference's ops/standard.py; its "
-                f"ops/extended.py, longtail and tranche4-6 are ROADMAP "
-                f"queue 1 item 9's rest")
+        return f"Unknown op: {self.name!r}. {len(names())} ops registered."
 
 
 def _int32(out):
@@ -88,12 +85,6 @@ def alias(existing: str, *spellings: str):
                 f"alias {s!r} already bound to op {bound.name!r}; "
                 f"refusing to rebind to {op.name!r}")
         _REGISTRY[s] = op
-
-
-def unbind(*spellings: str):
-    """Remove names from the registry (an op keeps its other names)."""
-    for s in spellings:
-        _REGISTRY.pop(s, None)
 
 
 def register_platform(name: str, fn: Callable):

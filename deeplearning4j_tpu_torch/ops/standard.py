@@ -376,15 +376,19 @@ def key_mask_of(mask: Optional[torch.Tensor], q: torch.Tensor,
 
 
 def attention_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    mask: Optional[torch.Tensor] = None) -> str:
-    """Where :func:`dot_product_attention` runs, by one stated rule:
-    "kernel" (``fa.FlashAttention``: K1/K2 on the card, their plain
-    versions on the CPU) for 4-D (N, H, T, d) q and k, v of one shape
-    (no broadcasting), all float32 or all bfloat16, a head dim d % 8 == 0
-    in [8, 256] (``fa.HEAD_DIMS``), and no mask or a key mask
-    (:func:`key_mask_of`); "plain" (the op's plain version) for every
-    other call: f64 (the gradcheck harness), mixed dtypes, other head
-    dims, masks over queries. It reads shapes and dtypes only."""
+                    mask: Optional[torch.Tensor] = None,
+                    causal: bool = False) -> str:
+    """Where :func:`routed_attention` runs, by one stated rule: "kernel"
+    (``fa.FlashAttention``: K1/K2 on the card, their plain versions on the
+    CPU) for 4-D (N, H, T, d) q and k, v of one shape (no broadcasting),
+    all float32 or all bfloat16, a head dim d % 8 == 0 in [8, 256]
+    (``fa.HEAD_DIMS``), and no mask or a key mask (:func:`key_mask_of`),
+    causal (top-left aligned, as the kernels' mask is) or not, but not a
+    causal mask together with a key mask; "plain" (the op's plain
+    version) for every other call: f64 (the gradcheck harness), mixed
+    dtypes, other head dims, masks over queries, and causal with a key
+    mask, whose rows that keep no key the kernels do not define. It reads
+    shapes and dtypes only."""
     if (q.dim() != 4 or k.dim() != 4 or k.shape != v.shape
             or q.shape[:2] != k.shape[:2] or q.shape[-1] != k.shape[-1]
             or q.dtype not in (torch.float32, torch.bfloat16)
@@ -392,49 +396,59 @@ def attention_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or q.shape[-1] not in _fa.HEAD_DIMS
             or q.shape[-2] < 1 or k.shape[-2] < 1):
         return "plain"
-    if mask is not None and key_mask_of(mask, q, k) is None:
+    if mask is not None and (causal or key_mask_of(mask, q, k) is None):
         return "plain"
     return "kernel"
 
 
-def dot_product_attention_plain(q, k, v, mask=None, scaled=True):
-    """The reference op's arithmetic: scores accumulated in at least f32
-    (f64 inputs stay f64), divided by sqrt(d) when ``scaled``, masked keys
-    set to the finite sentinel -1e30 (a row that keeps no key averages
-    v), softmax, the weights cast to q's dtype, then their product with
-    v."""
+def attention_plain(q, k, v, mask=None, causal=False, scale=None):
+    """The reference ops' arithmetic: scores accumulated in at least f32
+    (f64 inputs stay f64), times ``scale`` (divided by sqrt(d) when it is
+    None), keys past the query (``causal``, top-left aligned) and masked
+    keys set to the finite sentinel -1e30 (a row that keeps no key
+    averages v), softmax, the weights cast to q's dtype, then their
+    product with v."""
     acc = torch.promote_types(q.dtype, torch.float32)
     scores = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2))
-    if scaled:
+    if scale is None:
         scores = scores / torch.sqrt(torch.tensor(float(q.shape[-1]),
                                                   dtype=acc))
+    else:
+        scores = scores * float(scale)
+    sentinel = torch.tensor(_MASK_SENTINEL, dtype=acc)
+    if causal:
+        t_q, t_k = scores.shape[-2], scores.shape[-1]
+        keep = (torch.arange(t_q, device=q.device)[:, None]
+                >= torch.arange(t_k, device=q.device)[None, :])
+        scores = torch.where(keep, scores, sentinel)
     if mask is not None:
-        scores = torch.where(mask != 0, scores,
-                             torch.tensor(_MASK_SENTINEL, dtype=acc))
+        scores = torch.where(mask != 0, scores, sentinel)
     w = torch.softmax(scores, dim=-1).to(q.dtype)
     return promote_mm(w, v)
 
 
-def dot_product_attention(q, k, v, mask=None, scaled=True):
-    """(..., heads, seq, d) attention, the reference op
-    ``dot_product_attention``: softmax(q·kᵀ / sqrt(d)) · v over f32 (f64)
-    scores, keys masked by ``mask`` with the -1e30 sentinel.
+def dot_product_attention_plain(q, k, v, mask=None, scaled=True):
+    """The reference op ``dot_product_attention``'s arithmetic
+    (:func:`attention_plain` at 1/sqrt(d), or at 1 unscaled)."""
+    return attention_plain(q, k, v, mask, False, None if scaled else 1.0)
 
-    By :func:`attention_route`: on "kernel", ``fa.FlashAttention`` with
-    the key mask. A batch element whose keys are all masked must average
-    v evenly and send no gradient to q or k, as the reference's softmax of
-    a constant row does; the kernels do not define such a row. So, with no
-    host sync, the element is handed to them with every key kept and q
-    zeroed
-    (the product inside autograd): its scores are then 0, P exactly 1/Tk,
-    and dq = dk = 0. On "plain", :func:`dot_product_attention_plain`; on
-    the card that adds one to the ``attention_plain`` count
-    (``kernels/__init__.py``)."""
-    if attention_route(q, k, v, mask) == "plain":
+
+def routed_attention(q, k, v, mask=None, causal=False, scale=None):
+    """(..., heads, seq, d) attention by :func:`attention_route`: on
+    "kernel", ``fa.FlashAttention`` with the key mask, ``causal`` and
+    ``scale`` (1/sqrt(d) when None). A batch element whose keys are all
+    masked must average v evenly and send no gradient to q or k, as the
+    reference's softmax of a constant row does; the kernels do not define
+    such a row. So, with no host sync, the element is handed to them with
+    every key kept and q zeroed (the product inside autograd): its scores
+    are then 0, P exactly 1/Tk, and dq = dk = 0. On "plain",
+    :func:`attention_plain`; on the card that adds one to the
+    ``attention_plain`` count (``kernels/__init__.py``)."""
+    if attention_route(q, k, v, mask, causal) == "plain":
         if q.is_cuda:
             _fa.plain_route_calls += 1
-        return dot_product_attention_plain(q, k, v, mask, scaled)
-    scale = 1.0 / math.sqrt(q.shape[-1]) if scaled else 1.0
+        return attention_plain(q, k, v, mask, causal, scale)
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
     kmask = key_mask_of(mask, q, k)
     extra = ()
     if kmask is not None:
@@ -445,8 +459,16 @@ def dot_product_attention(q, k, v, mask=None, scaled=True):
         # views the kernels cannot read (a query bank broadcast over the
         # batch has stride 0) go in as contiguous copies
         q, k, v = (_fa._readable(t) for t in (q, k, v))
-    return _fa.FlashAttention.apply(q.shape[1], False, scale, q, k, v,
+    return _fa.FlashAttention.apply(q.shape[1], bool(causal), scale, q, k, v,
                                     *extra)
+
+
+def dot_product_attention(q, k, v, mask=None, scaled=True):
+    """(..., heads, seq, d) attention, the reference op
+    ``dot_product_attention``: softmax(q·kᵀ / sqrt(d)) · v over f32 (f64)
+    scores, keys masked by ``mask`` with the -1e30 sentinel; K1/K2 where
+    :func:`attention_route` says "kernel" (:func:`routed_attention`)."""
+    return routed_attention(q, k, v, mask, False, None if scaled else 1.0)
 
 
 # ======================================================= the op registry
@@ -458,7 +480,6 @@ from deeplearning4j_tpu_torch.ops import dtypes as _dt  # noqa: E402
 from deeplearning4j_tpu_torch.ops.moments import (  # noqa: E402
     one_pass_moments as _one_pass_moments)
 from deeplearning4j_tpu_torch.ops.registry import register  # noqa: E402
-from deeplearning4j_tpu_torch.ops import registry as _registry  # noqa: E402
 
 
 def _axes(axis, ndim):
@@ -930,12 +951,15 @@ def _depth_to_space(x, block_size=2):
 
 
 # -------------------------------------------------------------- comparisons
-register("equals", torch.eq, aliases=["Equal", "eq"])
-register("not_equals", torch.ne, aliases=["NotEqual", "neq"])
-register("greater", torch.gt, aliases=["Greater", "gt"])
-register("greater_equal", torch.ge, aliases=["GreaterEqual", "gte"])
-register("less", torch.lt, aliases=["Less", "lt"])
-register("less_equal", torch.le, aliases=["LessEqual", "lte"])
+register("equals", lambda a, b: torch.eq(a, b), aliases=["Equal", "eq"])
+register("not_equals", lambda a, b: torch.ne(a, b),
+         aliases=["NotEqual", "neq"])
+register("greater", lambda a, b: torch.gt(a, b), aliases=["Greater", "gt"])
+register("greater_equal", lambda a, b: torch.ge(a, b),
+         aliases=["GreaterEqual", "gte"])
+register("less", lambda a, b: torch.lt(a, b), aliases=["Less", "lt"])
+register("less_equal", lambda a, b: torch.le(a, b),
+         aliases=["LessEqual", "lte"])
 register("boolean_and", torch.logical_and, aliases=["LogicalAnd"])
 register("boolean_or", torch.logical_or, aliases=["LogicalOr"])
 register("boolean_not", torch.logical_not, aliases=["LogicalNot"])
@@ -1364,9 +1388,10 @@ def _decode_threshold(signs, threshold=1e-3, shape=None):
 # ------------------------------------------- names the reference rebinds
 # The reference's later op modules (ops/extended.py, tranche4, tranche5)
 # rebind some of the names above. Where the op they rebind to is plain
-# arithmetic it is registered here as there, so a name means one op in
-# both packages; the three names whose later ops are not ported yet are
-# unbound rather than left meaning another op.
+# arithmetic it is registered here as there; the port's own later modules
+# (ops/__init__.py imports them in the reference's order) rebind the rest
+# (LSTMBlockCell, ResizeNearestNeighbor, SoftmaxCrossEntropyWithLogits),
+# so every name ends bound to the op it means in the reference.
 register("realdiv", lambda x, y: torch.true_divide(x, y), aliases=["RealDiv"])
 register("truncatediv", lambda x, y: torch.trunc(torch.true_divide(x, y))
          .to(x.dtype), aliases=["TruncateDiv"])
@@ -1381,5 +1406,3 @@ def _reverse(x, axis):
 register("batched_gemm", promote_mm,
          aliases=["BatchedGemm", "batch_matmul", "BatchMatMul",
                   "BatchMatMulV2"])
-_registry.unbind("LSTMBlockCell", "ResizeNearestNeighbor",
-                 "SoftmaxCrossEntropyWithLogits")

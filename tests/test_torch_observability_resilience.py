@@ -652,10 +652,26 @@ COPIED = {
     "modelimport/tf_v1_control_flow": ({}, {}),
     "modelimport/common": ({}, {}),
     "ops/registry": (
-        {}, {"UnknownOpError": "the KeyError get() raises, naming what "
-                               "the registry does not hold yet",
-             "unbind": "drops the names the reference's unported op "
-                       "modules rebind"}),
+        {}, {"UnknownOpError": "the KeyError get() raises, naming the "
+                               "op"}),
+    "ops/extended": (
+        {}, {"ctc_loss_lattice": "optax's CTC lattice, which the reference "
+                                 "imports",
+             "sample_gamma": "a gamma sampler drawing from a generator "
+                             "(torch's takes none)"}),
+    "ops/longtail": ({}, {}),
+    "ops/tranche4": (
+        {}, {"generator_for": "the drawing ops' generator (the reference "
+                              "reads its global random state)",
+             "vjp": "autograd standing for jax.vjp in the _bp ops",
+             "resize_weights": "jax.image.resize's weight matrices, which "
+                               "the reference calls"}),
+    "ops/tranche5": ({}, {}),
+    "ops/tranche6": (
+        {"jax_vmap_scatter": "a jax.vmap helper: the port scatters with "
+                             "one torch.scatter"}, {}),
+    "modelimport/onnx_proto": ({}, {}),
+    "modelimport/onnximport": ({}, {}),
     "observability/timeseries": ({}, {}),
     "observability/watchtower": ({}, {}),
     "observability/federation": ({}, {}),

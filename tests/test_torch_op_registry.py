@@ -508,29 +508,47 @@ def _reference_standard_names():
     return names
 
 
-# names the reference's later op modules rebind to ops the port does not
-# hold yet: the port leaves them unbound
-UNBOUND = {"LSTMBlockCell", "ResizeNearestNeighbor",
-           "SoftmaxCrossEntropyWithLogits"}
-
-
 def test_every_reference_standard_name_resolves_alike():
     """Each name resolves to the op it means in the reference's registry
-    (with its later modules loaded), or, for UNBOUND, to none."""
+    (with its later modules loaded): the names its later modules rebind
+    (LSTMBlockCell, ResizeNearestNeighbor, SoftmaxCrossEntropyWithLogits)
+    to the later ops in both."""
     names = _reference_standard_names()
     assert len(names) > 300
-    for n in sorted(names - UNBOUND):
+    for n in sorted(names):
         assert TR.has(n), n
         assert TR.get(n).name == JR.get(n).name, n
         assert TR.get(n).num_outputs == JR.get(n).num_outputs, n
-    for n in UNBOUND:
-        assert not TR.has(n) and JR.get(n).name != n
+    for n, later in [("LSTMBlockCell", "lstm_block_cell"),
+                     ("ResizeNearestNeighbor", "resize_nearest_neighbor"),
+                     ("SoftmaxCrossEntropyWithLogits",
+                      "softmax_cross_entropy_with_logits")]:
+        assert TR.get(n).name == JR.get(n).name == later
     swept = {c[1] for c in CASES}
-    canon = {TR.get(n).name for n in names - UNBOUND}
+    canon = {TR.get(n).name for n in names} & {
+        TR.get(n).name for n in names if TR.get(n).name in _standard_ops()}
     untested = canon - {TR.get(n).name for n in swept} - {
         "qr", "svd", "random_normal", "random_uniform", "random_bernoulli",
         "dropout", "dropout_inverted"}
     assert not untested, sorted(untested)
+
+
+def _standard_ops():
+    """The canonical names ``ops/standard.py``'s own registrations give."""
+    tree = ast.parse((ROOT / "deeplearning4j_tpu/ops/standard.py")
+                     .read_text())
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call) and getattr(node.func, "id", "") \
+                == "register" and node.args and isinstance(
+                    node.args[0], ast.Constant):
+            out.add(node.args[0].value)
+        if isinstance(node, ast.For) and isinstance(node.iter, ast.List):
+            for elt in node.iter.elts:
+                if isinstance(elt, ast.Tuple) and isinstance(
+                        elt.elts[0], ast.Constant):
+                    out.add(elt.elts[0].value)
+    return out
 
 
 def test_alias_collision_rule():

@@ -82,7 +82,11 @@ def test_port_has_modules_to_check():
                              "modelimport/tfimport",
                              "modelimport/tf_v1_control_flow",
                              "profiler/op_profiler",
-                             "tools/bert_skeleton"))):
+                             "tools/bert_skeleton", "ops/extended",
+                             "ops/longtail", "ops/tranche4", "ops/tranche5",
+                             "ops/tranche6", "modelimport/onnx_proto",
+                             "modelimport/onnximport",
+                             "tools/onnx_resnet"))):
         assert must in names and (ROOT / must).exists()
 
 
@@ -96,7 +100,8 @@ def test_no_jax_or_jax_package_imports(path):
 # the skeleton tool freezes a TF BERT; nothing of the package imports it,
 # and it imports TF and transformers inside its functions only
 TF_TOOL = ROOT / "deeplearning4j_tpu_torch" / "tools" / "bert_skeleton.py"
-TF_NAMES = {"tensorflow", "transformers", "keras", "tf_keras"}
+TF_NAMES = {"tensorflow", "transformers", "keras", "tf_keras", "h5py",
+            "onnx", "onnxruntime"}
 
 
 def _module_level_imports(path: Path):
@@ -119,8 +124,9 @@ def _module_level_imports(path: Path):
 @pytest.mark.parametrize("path", FILES,
                          ids=lambda p: p.relative_to(ROOT).as_posix())
 def test_no_tensorflow_in_the_package(path):
-    """No module of the port imports TF or transformers anywhere; the
-    skeleton tool only inside its functions."""
+    """No module of the port imports TF, transformers, h5py or the onnx
+    packages anywhere; the skeleton tool TF and transformers only inside
+    its functions."""
     names = (_module_level_imports(path) if path == TF_TOOL
              else set(_top_level_imports(path)))
     assert not names & TF_NAMES, f"{path.relative_to(ROOT)}: {names & TF_NAMES}"
@@ -138,14 +144,16 @@ def test_graph_engine_and_importer_import_no_jax_or_tf():
         "import deeplearning4j_tpu_torch.autodiff\n"
         "import deeplearning4j_tpu_torch.modelimport.tfimport as t\n"
         "import deeplearning4j_tpu_torch.profiler.op_profiler\n"
+        "import deeplearning4j_tpu_torch.modelimport.onnximport\n"
+        "import deeplearning4j_tpu_torch.tools.onnx_resnet\n"
         "from deeplearning4j_tpu_torch.modelimport import tf_skeleton\n"
         "gd = tf_skeleton.fill_skeleton(tf_skeleton.load_skeleton("
         "'bert_mini_b2_t8'), 0)\n"
         "sd = t.TFGraphMapper.import_graph(gd.SerializeToString(), "
         "device='cpu')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'tensorflow', 'transformers', "
-        "'deeplearning4j_tpu'))\n"
+        "('jax', 'jaxlib', 'tensorflow', 'transformers', 'h5py', 'onnx', "
+        "'ml_dtypes', 'deeplearning4j_tpu'))\n"
         "print(len(sd.ops()), bad)\n") % str(ROOT)
     out = subprocess.run([sys.executable, "-I", "-c", code],
                          capture_output=True, text=True, timeout=300)
