@@ -291,7 +291,7 @@ K4w spill nothing, and that no wgmma source has its products serialized
    graph on the op's plain version (the f32 K1/K2 rows). The imported path
    launches no kernel of the port (its attention is BatchMatMulV2 +
    Softmax); (c) launches K1 and K2.
-15. ONNX phase (last; ``--onnx`` runs it alone after building the four
+15. ONNX phase (``--onnx`` runs it alone after building the four
    flash sources) — the zoo's ResNet-50 (network_phase's configuration),
    its BatchNormalization statistics set from 32 images, authored as an
    ONNX model by ``tools/onnx_resnet.py`` and imported by the port's
@@ -310,6 +310,31 @@ K4w spill nothing, and that no wgmma source has its products serialized
    causal, on K1/K2 against the same graphs on the ops' plain versions.
    (a)-(c) launch no kernel of the port; every path of (d) launches K1
    and K2 and takes no plain route.
+16. distributed phase (last; ``--distributed`` runs it alone after
+   building threshold.cu and the flash sources) — data-parallel training
+   over a one-rank NCCL process group: (a) K6 (K6e, K6d, K6s-enc, K6s-dec
+   of ``threshold.cu``) against its plain versions at ResNet-50's bucket
+   (23.9 M elements at 200 classes), BERT-base's 109.48 M and the edges
+   (1, 33, 2^20 + 7 elements; no hits, every hit, a capacity below the
+   hits, t = 0, NaN, ±inf, −0.0, malformed buffers): signs, counts,
+   entries, n, sparse residuals and decodes exact (a NaN for a NaN), the
+   scale terms and Σ residual'² relative ``TOL_K6_SCALAR``, a second
+   launch bit-identical; each timed (``device_ms``, ``ms``, the plain
+   version, the bound) beside NCCL's all-reduce of the int8 wire and of
+   the f32 bucket at world size 1 (a device copy); (b) the path:
+   ``SharedTrainingMaster`` (adaptive threshold) over
+   ``SparkComputationGraph`` and the zoo ResNet-50 on
+   ``TinyImageNetDataSetIterator`` (64², 200 classes, batch 32, f32),
+   ``DIST_STEPS`` steps, each exchange against the plain one on the same
+   captured g and residual, K6e and K6d launched once a step and nothing
+   else, three all-reduces a step; (c) the kill switch
+   (``DL4J_TPU_GRAD_COMPRESS=0``): the dense trainer against the net's own
+   fit, within what two own fits differ by; (d) ``gradCompression.npz``:
+   restore-resume against the in-memory continuation, within what two
+   restored copies differ by; (e) SameDiff ``set_mesh`` on the BERT-base
+   skeleton at (2, 128) against no mesh (``TOL_SD``'s loss row); then the
+   net's own fit, the dense and the compressed trainer in turns, profiled
+   (K6's share of the compressed step's device time).
 
 Every phase must pass: any failure exits nonzero. Output is one JSON
 object per line; the last line is ``{"ok": true, "device": {...}}``.
@@ -339,6 +364,10 @@ the small paths' rows were set from (f32 against f64, bf16 against f32;
 no card needed), printed and written to OUT_DIR/``zoo_readings.json``
 (``--readings transfer``: the solver row's readings; ``--readings
 scoring``: the scoring rows', OUT_DIR/``scoring_readings.json``);
+``--distributed`` the distributed phase alone (it builds threshold.cu
+and the flash sources); ``--ranks N`` trains data-parallel over N cards,
+one process each over NCCL (the dense and the compressed trainer on
+ResNet-50 at 64², the ranks' params held equal, NCCL's all-reduce timed);
 ``--attention`` the attention phase alone (after building every kernel);
 ``--recurrent`` the recurrent phase alone (it builds only rnn_cell.cu,
 K11 and K11L); ``--samediff`` the SameDiff phase alone (it builds only the
@@ -349,6 +378,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -356,6 +386,7 @@ import sys
 import threading
 import time
 import types
+import zipfile
 from pathlib import Path
 
 import numpy as np
@@ -436,7 +467,8 @@ KERNELS = ("wgmma", "simple", "bwd_wgmma", "bwd")
 # and K4w (int8 quantize-and-scatter), then the tf32 K3f and K3b (f32) and
 # their operands' split pass, then K4a+w (the decode store in K4a's launch),
 # then K11f and K11b (the fused LSTM cell a step), then K11Lf and K11Lb
-# (the persistent LSTM layer kernels); last the one count that is no
+# (the persistent LSTM layer kernels), then K6e, K6d, K6s-enc and K6s-dec
+# (the threshold codec); last the one count that is no
 # kernel's: ``attention_plain``, calls of the attention op on the card that
 # took its plain version by its stated rule (0 on every path)
 ALL_KERNELS = KERNELS + ("ce_fwd", "ce_dlogits", "moe_dispatch",
@@ -445,7 +477,8 @@ ALL_KERNELS = KERNELS + ("ce_fwd", "ce_dlogits", "moe_dispatch",
                          "ce_dlogits_tf32", "ce_split_tf32",
                          "paged_attention_write", "rnn_cell_fwd",
                          "rnn_cell_bwd", "rnn_layer_fwd", "rnn_layer_bwd",
-                         "attention_plain")
+                         "k6_encode", "k6_decode", "k6s_encode",
+                         "k6s_decode", "attention_plain")
 SOURCES.update(ce_fwd="chunked_ce.cu", ce_dlogits="chunked_ce.cu",
                moe_dispatch="moe_route.cu", moe_combine="moe_route.cu",
                ce_fwd_wgmma="chunked_ce_wgmma.cu",
@@ -457,7 +490,9 @@ SOURCES.update(ce_fwd="chunked_ce.cu", ce_dlogits="chunked_ce.cu",
                ce_split_tf32="chunked_ce_tf32.cu",
                paged_attention_write="paged_attention.cu",
                rnn_cell_fwd="rnn_cell.cu", rnn_cell_bwd="rnn_cell.cu",
-               rnn_layer_fwd="rnn_cell.cu", rnn_layer_bwd="rnn_cell.cu")
+               rnn_layer_fwd="rnn_cell.cu", rnn_layer_bwd="rnn_cell.cu",
+               k6_encode="threshold.cu", k6_decode="threshold.cu",
+               k6s_encode="threshold.cu", k6s_decode="threshold.cu")
 # K2 (backward) cases, laid out as KERNEL_CASES: "fused" takes q, k, v from
 # one (B, T, 3·H·d) projection, o from the forward written as TransformerLM
 # writes it, dO as the (B, H, T, d) view of a (B, T, H·d) gradient, and
@@ -4042,7 +4077,7 @@ def moe_train_phase(torch, fa):
     check(served[6] > 0 and served[7] > 0 and served[4:6] == (0, 0)
           and served[8:10] == (0, 0)
           and served[10:16] == (0,) * 5 + ((N_NEW - 1) * LARGE["n_layers"],)
-          and served[16:] == (0,) * 5,
+          and served[16:] == (0,) * (len(ALL_KERNELS) - 16),
           f"MoE generate launched {served} {ALL_KERNELS}")
     emit(moe_generate={"batch": 2, "prompt_len": 100, "new_tokens": N_NEW,
                        "generate_ms": ms,
@@ -4252,6 +4287,8 @@ def profile_window(torch, label, fn, trace_name, top=10):
         r"paged_attend_kernel|quant_write_kernel", name)}
     rnn = {name: tot for name, tot in by_name.items() if re.search(
         r"lstm_(layer_)?(fwd|bwd)_kernel", name)}
+    k6 = {name: tot for name, tot in by_name.items() if re.search(
+        r"k6e_|k6d_|k6s_", name)}
     return {"wall_ms": wall_ms, "window_us": hi - lo,
             "device_busy_us": busy, "busy_share": busy / (hi - lo),
             "kernels": sum(n for _us, n in by_name.values()),
@@ -4260,7 +4297,8 @@ def profile_window(torch, label, fn, trace_name, top=10):
             "attention_kernels": _top(attention, len(attention)),
             "ce_kernels": _top(cross_entropy, len(cross_entropy)),
             "decode_kernels": _top(decode, len(decode)),
-            "rnn_kernels": _top(rnn, len(rnn))}
+            "rnn_kernels": _top(rnn, len(rnn)),
+            "k6_kernels": _top(k6, len(k6))}
 
 
 def kernel_entry(path, cases, launches, masked=None):
@@ -10366,6 +10404,876 @@ def onnx_phase(torch, smi=None):
 
 
 
+# ------------------------------------------------------------ distributed
+# Data-parallel training and the compressed gradient exchange (K6): the
+# zoo ResNet-50 on TinyImageNetDataSetIterator's seeded synthetic images
+# (64²x3, 200 classes; the reference's BASELINE configs[4], SharedTraining-
+# Master gradient sharing), batch 32 a worker, f32, through
+# SharedTrainingMaster → SparkComputationGraph over a one-rank NCCL group
+DIST_SHAPE = (64, 64, 3)
+DIST_CLASSES = 200
+DIST_BATCH = 32
+DIST_STEPS = 12            # (b): compressed steps on the path
+DIST_CHECK_STEPS = 3       # (c): the kill switch's dense steps
+DIST_SAVE_AT = 6           # (d): steps before gradCompression.npz is saved
+DIST_SD_STEPS = 3          # (e): SameDiff Adam steps
+DIST_PROFILED = 4          # steps in each timing turn's profiler window
+# K6's timed sizes: ResNet-50's bucket at 200 classes (the net's own count)
+# and BERT-base's parameters
+BERT_BASE_PARAMS = 109_482_240
+K6_T = 2e-3                # 4.6 % of N(0, 1e-3) entries fire
+K6_EDGE_SIZES = (1, 33, 2 ** 20 + 7)
+K6_MALFORMED = ([5, 3, 3, -3, 1, 2], [4, 9, -12, 2, 100000], [50, 1, -2, 3],
+                [-3, 1, 2, 3], [2, -2 ** 31, 1])
+# (a): the scale terms and Σ residual'² against the plain version, relative
+# (f32 sums in another order); everything else exact, NaN for NaN
+TOL_K6_SCALAR = 1e-6
+
+
+def nan_same(torch, a, b):
+    """Equal bit for bit where not NaN, NaN where the other is NaN (the
+    card's arithmetic gives NaN its own payload)."""
+    if not a.is_floating_point():
+        return bool(torch.equal(a, b))
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb)) and bool(torch.equal(
+        a[~na].contiguous().view(torch.int32),
+        b[~nb].contiguous().view(torch.int32)))
+
+
+def nan_abs_err(torch, a, b):
+    """max |a − b| where both are finite (0 for none)."""
+    a, b = a.double(), b.double()
+    ok = torch.isfinite(a) & torch.isfinite(b)
+    return float((a[ok] - b[ok]).abs().max()) if bool(ok.any()) else 0.0
+
+
+def scalar_rel(a, b):
+    a, b = float(a), float(b)
+    if math.isnan(a) and math.isnan(b):
+        return 0.0
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def k6_values(torch, n, seed, dev, scale=1e-3, specials=False):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(n, generator=g, device=dev) * scale
+    if specials and n >= 8:
+        x[:8] = torch.tensor([float("nan"), float("inf"), float("-inf"),
+                              -0.0, 0.0, 2e-3, -2e-3, 1e-3], device=dev)
+    return x
+
+
+def k6_dense_row(torch, K, n, t, dev, seed=SEED, specials=False):
+    """K6e then K6d against their plain versions on one bucket."""
+    g = k6_values(torch, n, seed, dev, specials=specials)
+    r = k6_values(torch, n, seed + 1, dev, scale=1e-4)
+    thr = torch.tensor(t, dtype=torch.float32, device=dev)
+    s, p = K.encode_dense(g, r, thr)
+    s2, p2 = K.encode_dense(g, r, thr)
+    s_ref, p_ref = K.encode_dense_reference(g, r, thr)
+    wire = s.clone()
+    d, nr, q = K.decode_dense(g, r, s, wire, p, 1)
+    d2, nr2, q2 = K.decode_dense(g, r, s, wire, p, 1)
+    d_ref, nr_ref, q_ref = K.decode_dense_reference(g, r, s, wire, p, 1)
+    return {"n": n, "t": t, "specials": specials,
+            "fired": int((s != 0).sum()),
+            "signs_exact": bool(torch.equal(s, s_ref)),
+            "has_exact": float(p[1]) == float(p_ref[1]),
+            "scale_rel": scalar_rel(p[0], p_ref[0]),
+            "frac_rel": scalar_rel(p[2], p_ref[2]),
+            "decoded_exact": nan_same(torch, d, d_ref),
+            "residual_exact": nan_same(torch, nr, nr_ref),
+            "res_sq_rel": scalar_rel(q, q_ref),
+            "repeat_exact": (bool(torch.equal(s, s2))
+                             and nan_same(torch, p, p2)
+                             and nan_same(torch, d, d2)
+                             and nan_same(torch, nr, nr2)
+                             and nan_same(torch, q, q2)),
+            "encode_err": nan_abs_err(torch, p, p_ref),
+            "decode_err": max(nan_abs_err(torch, d, d_ref),
+                              nan_abs_err(torch, nr, nr_ref),
+                              nan_abs_err(torch, q, q_ref))}
+
+
+def k6_sparse_row(torch, K, n, t, cap, dev, seed=SEED, specials=False):
+    """K6s-enc (both inputs) and K6s-dec (both outputs) against their plain
+    versions."""
+    x = k6_values(torch, n, seed, dev, specials=specials)
+    e, res = K.threshold_encode(x, t, cap)
+    e2, res2 = K.threshold_encode(x, t, cap)
+    e_ref, res_ref = K.threshold_encode_reference(x, t, cap)
+    d = K.threshold_decode(e, t, (n,))
+    d2 = K.threshold_decode(e, t, (n,))
+    d_ref = K.threshold_decode_reference(e, t, (n,))
+    signs = torch.where(x.abs() >= t, torch.sign(x),
+                        torch.zeros((), device=dev)).to(torch.int8)
+    es = K.sparse_from_dense(signs, cap)
+    es_ref = K.sparse_from_dense_reference(signs, cap)
+    m = K.dense_from_sparse(es, n)
+    m_ref = K.dense_from_sparse_reference(es, n)
+    return {"n": n, "t": t, "capacity": cap, "specials": specials,
+            "kept": int(e[0]),
+            "entries_exact": bool(torch.equal(e, e_ref)),
+            "residual_exact": nan_same(torch, res, res_ref),
+            "decode_exact": nan_same(torch, d, d_ref),
+            "from_dense_exact": bool(torch.equal(es, es_ref)),
+            "mask_exact": bool(torch.equal(m, m_ref)),
+            "repeat_exact": (bool(torch.equal(e, e2))
+                             and nan_same(torch, res, res2)
+                             and nan_same(torch, d, d2)),
+            "encode_err": nan_abs_err(torch, res, res_ref),
+            "decode_err": nan_abs_err(torch, d, d_ref)}
+
+
+def k6_malformed_row(torch, K, enc, dev):
+    e = torch.tensor(enc, dtype=torch.int32, device=dev)
+    size = 8
+    return {"encoded": enc,
+            "decode_exact": nan_same(torch, K.threshold_decode(e, 0.25,
+                                                               (size,)),
+                                     K.threshold_decode_reference(
+                                         e, 0.25, (size,))),
+            "mask_exact": bool(torch.equal(
+                K.dense_from_sparse(e, size),
+                K.dense_from_sparse_reference(e, size)))}
+
+
+K6_EXACT = ("signs_exact", "has_exact", "decoded_exact", "residual_exact",
+            "repeat_exact", "entries_exact", "decode_exact",
+            "from_dense_exact", "mask_exact")
+
+
+def k6_row_ok(row):
+    return (all(row.get(k, True) for k in K6_EXACT)
+            and all(row.get(k, 0.0) <= TOL_K6_SCALAR
+                    for k in ("scale_rel", "frac_rel", "res_sq_rel")))
+
+
+def k6_timing(torch, K, n, dev):
+    """K6e, K6d, K6s-enc and K6s-dec at ``n`` elements: ``device_ms``
+    (CUDA-graph replays), ``ms`` (host included), the plain version's ms
+    and each kernel's bound (the bytes it must move at 3.35 TB/s); beside
+    them NCCL's all-reduce of the int8 wire and of the f32 bucket at world
+    size 1, which is a device copy, not a bandwidth."""
+    import torch.distributed as dist
+    g = k6_values(torch, n, SEED, dev)
+    r = k6_values(torch, n, SEED + 1, dev, scale=1e-4)
+    thr = torch.tensor(K6_T, dtype=torch.float32, device=dev)
+    s = torch.empty(n, dtype=torch.int8, device=dev)
+    p = torch.empty(3, dtype=torch.float32, device=dev)
+    K.encode_dense(g, r, thr, signs=s, packed=p)
+    wire = s.clone()
+    dbuf, nbuf = torch.empty_like(g), torch.empty_like(g)
+    qbuf = torch.empty((), dtype=torch.float32, device=dev)
+    cap = n // 10
+    e, _res = K.threshold_encode(g, K6_T, cap)
+    fired = int(e[0])
+
+    def enc():
+        K.encode_dense(g, r, thr, signs=s, packed=p)
+
+    def dec():
+        K.decode_dense(g, r, s, wire, p, 1, decoded=dbuf, new_residual=nbuf,
+                       res_sq=qbuf)
+
+    def s_enc():
+        return K.threshold_encode(g, K6_T, cap)
+
+    def s_dec():
+        return K.threshold_decode(e, K6_T, (n,))
+
+    plain = {"encode": lambda: K.encode_dense_reference(g, r, thr),
+             "decode": lambda: K.decode_dense_reference(g, r, s, wire, p, 1),
+             "sparse_encode": lambda: K.threshold_encode_reference(
+                 g, K6_T, cap),
+             "sparse_decode": lambda: K.threshold_decode_reference(
+                 e, K6_T, (n,))}
+    bytes_ = {"encode": 9 * n, "decode": 18 * n,
+              "sparse_encode": 8 * n + 4 * (cap + 1),
+              "sparse_decode": 4 * (cap + 1) + 4 * n}
+    row = {"n": n, "t": K6_T, "fired": fired, "capacity": cap}
+    for name, fn in (("encode", enc), ("decode", dec),
+                     ("sparse_encode", s_enc), ("sparse_decode", s_dec)):
+        row[f"{name}_device_ms"] = device_ms(fn, torch)
+        row[f"{name}_ms"] = time_ms(fn, torch)
+        row[f"{name}_plain_ms"] = time_ms(plain[name], torch, iters=5,
+                                          repeats=3)
+        row[f"{name}_bound_ms"] = 1e3 * bytes_[name] / PEAK_BYTES
+        row[f"{name}_bound_by"] = "bytes"
+    if dist.is_initialized():
+        row["nccl_allreduce_int8_ms"] = time_ms(
+            lambda: dist.all_reduce(wire), torch)
+        row["nccl_allreduce_f32_ms"] = time_ms(
+            lambda: dist.all_reduce(dbuf), torch)
+        row["nccl_note"] = ("world size 1: NCCL's all-reduce is a device "
+                            "copy, not a bandwidth")
+    del g, r, s, wire, dbuf, nbuf, e
+    return row
+
+
+def k6_phase(torch, bucket, dev):
+    """(a): K6 against its plain versions at the ResNet-50 bucket, BERT-
+    base's size and the edges, and timed at the two sizes."""
+    from deeplearning4j_tpu_torch.kernels import threshold as K
+    rows = []
+    for n in (bucket, BERT_BASE_PARAMS):
+        rows.append(k6_dense_row(torch, K, n, K6_T, dev))
+        torch.cuda.empty_cache()
+    for n in K6_EDGE_SIZES:
+        for t in (1e-3, 0.0, 1.0):         # some, every and no hits
+            rows.append(k6_dense_row(torch, K, n, t, dev, seed=n))
+    for t in (1e-3, 0.0):
+        rows.append(k6_dense_row(torch, K, 33, t, dev, specials=True))
+    for n, t, cap in ((bucket, K6_T, bucket // 10), (1, 5e-4, 1),
+                      (33, 1e-3, 40), (2 ** 20 + 7, K6_T, 2 ** 17),
+                      (2 ** 20 + 7, 5e-4, 1000), (33, 1.0, 40),
+                      (33, 0.0, 40), (33, 1e-3, 0)):
+        rows.append(k6_sparse_row(torch, K, n, t, cap, dev, seed=n))
+    for t in (1e-3, 0.0, float("inf")):
+        rows.append(k6_sparse_row(torch, K, 33, t, 40, dev, specials=True))
+    rows += [k6_malformed_row(torch, K, enc, dev) for enc in K6_MALFORMED]
+    failed = [r for r in rows if not k6_row_ok(r)]
+    emit(k6_rows=rows, rows={"exact": list(K6_EXACT),
+                             "scalar_rel": TOL_K6_SCALAR})
+    check(not failed, f"(a) K6 against its plain versions: {failed}")
+    timing = [k6_timing(torch, K, n, dev) for n in (bucket,
+                                                    BERT_BASE_PARAMS)]
+    torch.cuda.empty_cache()
+    emit(k6_timing=timing)
+    return rows, timing
+
+
+def dist_net(dev):
+    from deeplearning4j_tpu_torch.models.zoo.resnet import ResNet50
+    return ResNet50(num_classes=DIST_CLASSES, input_shape=DIST_SHAPE,
+                    data_type="float32").init_model(device=dev)
+
+
+def dist_batches(n, seed=SEED):
+    return network_data(n * DIST_BATCH, DIST_SHAPE, DIST_CLASSES, seed)
+
+
+class _Scores:
+    """A listener that keeps every step's loss."""
+
+    def __init__(self):
+        self.scores = []
+
+    def iteration_done(self, net, iteration, epoch, score):
+        self.scores.append(float(score))
+
+    def on_epoch_start(self, net, epoch):
+        pass
+
+    def on_epoch_end(self, net, epoch):
+        pass
+
+
+def dist_path(torch, dev):
+    """(b): SharedTrainingMaster (adaptive threshold) over
+    SparkComputationGraph and the zoo ResNet-50 on TinyImageNet, one-rank
+    NCCL group, DIST_STEPS steps; every exchange held against the plain
+    one on the same captured g and residual. Returns (the path's launches,
+    its report)."""
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch.data.vision import (
+        TinyImageNetDataSetIterator)
+    from deeplearning4j_tpu_torch.kernels import threshold as K
+    from deeplearning4j_tpu_torch.observability import global_registry
+    from deeplearning4j_tpu_torch.parallel import compression as comp
+    from deeplearning4j_tpu_torch.parallel.master import (
+        SharedTrainingMaster, SparkComputationGraph)
+    net = dist_net(dev)
+    scores = _Scores()
+    net.setListeners(scores)
+    tm = (SharedTrainingMaster.Builder().batch_size_per_worker(DIST_BATCH)
+          .threshold_algorithm("adaptive").build())
+    spark = SparkComputationGraph(None, net, tm)
+    data = TinyImageNetDataSetIterator(DIST_BATCH,
+                                       num_examples=DIST_BATCH * DIST_STEPS,
+                                       num_classes=DIST_CLASSES)
+    steps = []
+    real = comp.exchange_buckets
+
+    def spy(gs, residuals, thresholds, group, n, decoded=None,
+            new_residuals=None):
+        g0 = [g.clone() for g in gs]
+        r0 = [r.clone() for r in residuals]
+        t0 = [t.clone() for t in thresholds]
+        out = real(gs, residuals, thresholds, group, n, decoded,
+                   new_residuals)
+        for g, r, t, e in zip(g0, r0, t0, out):
+            s_ref, p_ref = K.encode_dense_reference(g, r, t)
+            d_ref, nr_ref, q_ref = K.decode_dense_reference(
+                g, r, e.signs, e.wire, e.packed, n)
+            steps.append({
+                "threshold": float(t), "frac": float(e.frac),
+                "fired": int((e.signs != 0).sum()),
+                "signs_exact": bool(torch.equal(e.signs, s_ref)),
+                "scale_rel": scalar_rel(e.packed[0], p_ref[0]),
+                "frac_rel": scalar_rel(e.packed[2], p_ref[2]),
+                "decoded_exact": nan_same(torch, e.decoded, d_ref),
+                "residual_exact": nan_same(torch, e.residual, nr_ref),
+                "res_sq_rel": scalar_rel(e.res_sq, q_ref)})
+        return out
+
+    reset_all_counts()
+    comp.allreduce_calls = 0
+    comp.exchange_buckets = spy
+    try:
+        t0 = time.perf_counter()
+        spark.fit(data)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        comp.exchange_buckets = real
+    launches = all_counts()
+    calls = comp.allreduce_calls
+    trainer = spark._trainer
+    layout = trainer._comp_layout
+    ratio = global_registry().get("dl4j_grad_compression_ratio")
+    report = {"steps": len(scores.scores), "seconds": seconds,
+              "losses": scores.scores,
+              "thresholds": [s["threshold"] for s in steps],
+              "encoded_fraction": [s["frac"] for s in steps],
+              "fired": [s["fired"] for s in steps],
+              "bucket_elements": layout.total_elements(),
+              "payload_bytes": comp.payload_bytes(layout, 1),
+              "dense_bytes": comp.dense_bytes(layout),
+              "dl4j_grad_compression_ratio": ratio.value,
+              "allreduce_calls": calls,
+              "backend": dist.get_backend(),
+              "rows_failed": [i for i, s in enumerate(steps)
+                              if not k6_row_ok(s)],
+              "launches": dict(zip(ALL_KERNELS, launches))}
+    emit(distributed_path=report)
+    check(dist.get_backend() == "nccl" or not TRACE_ON_DEVICE,
+          f"(b) the process group runs {dist.get_backend()}, not NCCL")
+    check(len(steps) == DIST_STEPS and not report["rows_failed"],
+          f"(b) the exchanges against the plain one on the same g and "
+          f"residual: {len(steps)} steps, failed {report['rows_failed']}: "
+          f"{[steps[i] for i in report['rows_failed']]}")
+    check(len(scores.scores) == DIST_STEPS
+          and all(math.isfinite(x) for x in scores.scores),
+          f"(b) losses {scores.scores}")
+    check(calls == 3 * DIST_STEPS,
+          f"(b) {calls} all-reduces over {DIST_STEPS} steps (want 3 a "
+          f"step: the scalars, the signs, the loss and states)")
+    check(report["payload_bytes"] < report["dense_bytes"],
+          f"(b) payload {report['payload_bytes']} not under dense "
+          f"{report['dense_bytes']}")
+    del spark, trainer, net
+    return launches, report
+
+
+def _state_max_abs(torch, a, b):
+    """max |a − b| over params, layer states and updater leaves."""
+    from deeplearning4j_tpu_torch.optim import transforms as T
+    worst = {}
+    for what, ta, tb in (("params", a.param_tree(), b.param_tree()),
+                         ("states", a.state_tree(), b.state_tree())):
+        worst[what] = max((float((ta[k][p] - tb[k][p]).abs().max())
+                           for k in ta for p in ta[k]), default=0.0)
+    la = [t for t in T.state_leaves(a.updater_state())
+          if isinstance(t, torch.Tensor)]
+    lb = [t for t in T.state_leaves(b.updater_state())
+          if isinstance(t, torch.Tensor)]
+    worst["updater"] = max((float((x - y).abs().max())
+                            for x, y in zip(la, lb)), default=0.0)
+    return worst
+
+
+@contextlib.contextmanager
+def deterministic_cudnn(torch):
+    prev = (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = prev
+
+
+def dist_kill_switch(torch, dev):
+    """(c): DL4J_TPU_GRAD_COMPRESS=0 — the dense ShardedTrainer at world
+    size 1 against the net's own fit, DIST_CHECK_STEPS steps on the same
+    weights and batches; within what two calls of the net's own fit differ
+    by (deterministic cuDNN algorithms)."""
+    from deeplearning4j_tpu_torch.parallel.trainer import ShardedTrainer
+    x, y = dist_batches(DIST_CHECK_STEPS, seed=SEED + 3)
+    prev = os.environ.get("DL4J_TPU_GRAD_COMPRESS")
+    os.environ["DL4J_TPU_GRAD_COMPRESS"] = "0"
+    try:
+        with deterministic_cudnn(torch):
+            a, b, c = dist_net(dev), dist_net(dev), dist_net(dev)
+            tr = ShardedTrainer(a, grad_compression="adaptive")
+            for i in range(DIST_CHECK_STEPS):
+                sl = slice(i * DIST_BATCH, (i + 1) * DIST_BATCH)
+                xd = torch.as_tensor(x[sl], device=dev)
+                yd = torch.as_tensor(y[sl], device=dev)
+                tr.fit(xd, yd)
+                b.fit(xd, yd)
+                c.fit(xd, yd)
+            compressed = tr._compression is not None
+            got = _state_max_abs(torch, a, b)
+            floor = _state_max_abs(torch, b, c)
+    finally:
+        if prev is None:
+            os.environ.pop("DL4J_TPU_GRAD_COMPRESS", None)
+        else:
+            os.environ["DL4J_TPU_GRAD_COMPRESS"] = prev
+    report = {"dense_vs_own_fit": got, "own_fit_twice": floor,
+              "compressed": compressed, "steps": DIST_CHECK_STEPS}
+    emit(distributed_kill_switch=report)
+    check(not compressed, "(c) the kill switch left compression on")
+    check(all(got[k] <= floor[k] for k in got),
+          f"(c) the dense trainer against the net's own fit {got}, two "
+          f"fits {floor}")
+    return report
+
+
+def _comp_snapshot(torch, net):
+    st = net._grad_compression_state
+    return {"params": {k: {p: t.clone() for p, t in layer.items()}
+                       for k, layer in net.param_tree().items()},
+            "residual": [r.clone() for r in st["residual"]],
+            "threshold": [t.clone() for t in st["threshold"]]}
+
+
+def _snap_diff(a, b):
+    return {"params": max(float((a["params"][k][p] - b["params"][k][p])
+                                .abs().max())
+                          for k in a["params"] for p in a["params"][k]),
+            "residual": max(float((x - y).abs().max())
+                            for x, y in zip(a["residual"], b["residual"])),
+            "threshold": max(abs(float(x) - float(y))
+                             for x, y in zip(a["threshold"],
+                                             b["threshold"]))}
+
+
+def dist_checkpoint(torch, dev):
+    """(d): gradCompression.npz — DIST_SAVE_AT compressed steps, save,
+    then one step in memory against one step of each of two restored
+    copies."""
+    import tempfile
+    from deeplearning4j_tpu_torch.parallel.trainer import ShardedTrainer
+    from deeplearning4j_tpu_torch.utils.serialization import ModelSerializer
+    x, y = dist_batches(DIST_SAVE_AT + 1, seed=SEED + 4)
+
+    def batch(i):
+        sl = slice(i * DIST_BATCH, (i + 1) * DIST_BATCH)
+        return (torch.as_tensor(x[sl], device=dev),
+                torch.as_tensor(y[sl], device=dev))
+
+    with deterministic_cudnn(torch), tempfile.TemporaryDirectory() as tmp:
+        net = dist_net(dev)
+        tr = ShardedTrainer(net, grad_compression="adaptive")
+        for i in range(DIST_SAVE_AT):
+            tr.fit(*batch(i))
+        path = os.path.join(tmp, "resnet50_compressed.zip")
+        net.save(path)
+        with zipfile.ZipFile(path) as zf:
+            members = zf.namelist()
+        tr.fit(*batch(DIST_SAVE_AT))
+        memory = _comp_snapshot(torch, net)
+        del tr, net
+        copies = []
+        for _ in range(2):
+            back = ModelSerializer.restore(path)
+            ShardedTrainer(back, grad_compression="adaptive").fit(
+                *batch(DIST_SAVE_AT))
+            copies.append(_comp_snapshot(torch, back))
+            del back
+    got = _snap_diff(memory, copies[0])
+    floor = _snap_diff(copies[0], copies[1])
+    report = {"restored_vs_memory": got, "two_copies": floor,
+              "zip_has_grad_compression": "gradCompression.npz" in members}
+    emit(distributed_checkpoint=report)
+    check(report["zip_has_grad_compression"],
+          "(d) the zip holds no gradCompression.npz")
+    check(all(got[k] <= floor[k] for k in got),
+          f"(d) restore-resume against the in-memory continuation {got}, "
+          f"two restored copies {floor}")
+    return report
+
+
+def dist_samediff(torch, dev):
+    """(e): set_mesh at world size 1 on the filled BERT-base skeleton at
+    (2, 128), DIST_SD_STEPS Adam steps against the same graph without a
+    mesh; losses within samediff_phase (a)'s row."""
+    from deeplearning4j_tpu_torch.modelimport import tf_skeleton
+    from deeplearning4j_tpu_torch.modelimport.tfimport import TFGraphMapper
+    from deeplearning4j_tpu_torch.parallel.mesh import MeshSpec
+    gd = tf_skeleton.fill_skeleton(
+        tf_skeleton.load_skeleton(SD_CHECK_SKELETON), SEED)
+    data = sd_batches(DIST_SD_STEPS, *SD_CHECK_SHAPE, seed=SEED + 5)
+    losses = {}
+    for mesh in (True, False):
+        sd = TFGraphMapper.import_graph(gd, device=dev)
+        sd_promote(sd)
+        sd_attach_head(sd, gd)
+        if mesh:
+            sd.set_mesh(MeshSpec.data_parallel().build(device=dev))
+        losses["mesh" if mesh else "alone"] = list(sd.fit(data))
+        del sd
+        torch.cuda.empty_cache()
+    err = max(abs(a - b) for a, b in zip(losses["mesh"], losses["alone"]))
+    report = {"losses": losses, "max_loss_diff": err,
+              "row": TOL_SD["loss"]}
+    emit(distributed_samediff=report)
+    check(err <= TOL_SD["loss"] and all(math.isfinite(v) for v in
+                                        losses["mesh"]),
+          f"(e) SameDiff under set_mesh against no mesh: {report}")
+    return report
+
+
+def dist_timing(torch, dev, smi):
+    """The net's own fit, the dense ShardedTrainer and the compressed one
+    on one fixed batch, in turns (own, dense, compressed, compressed,
+    dense, own): host ms a step and images/s; then a profiler window of
+    DIST_PROFILED steps of each: device ms a step, busy share, kernels a
+    step, and K6's share of the compressed step's device time."""
+    from deeplearning4j_tpu_torch.parallel.trainer import ShardedTrainer
+    x, y = dist_batches(1, seed=SEED + 6)
+    xd, yd = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+    own, dense, compressed = dist_net(dev), dist_net(dev), dist_net(dev)
+    tr_dense = ShardedTrainer(dense)
+    tr_comp = ShardedTrainer(compressed, grad_compression="adaptive")
+    runs = {"own_fit": lambda: own.fit(xd, yd),
+            "dense_trainer": lambda: tr_dense.fit(xd, yd),
+            "compressed_trainer": lambda: tr_comp.fit(xd, yd)}
+    timed = {k: [] for k in runs}
+    for who in ("own_fit", "dense_trainer", "compressed_trainer",
+                "compressed_trainer", "dense_trainer", "own_fit"):
+        ms, _all = step_timing(torch, runs[who])
+        timed[who].append(ms)
+    rows = []
+    for who, fn in runs.items():
+        p = profile_window(
+            torch, f"distributed_{who}",
+            lambda f=fn: [f() for _ in range(DIST_PROFILED)],
+            f"distributed_{who}_trace.json", top=8)
+        ms = statistics.median(timed[who])
+        row = {"path": who, "gpu": smi, "host_ms_per_step": ms,
+               "turns_ms": timed[who],
+               "images_per_s": DIST_BATCH / (ms / 1e3),
+               "device_ms_per_step": (p["device_busy_us"] / 1e3
+                                      / DIST_PROFILED
+                                      if "device_busy_us" in p else None),
+               "busy_share": p.get("busy_share"),
+               "kernels_per_step": (p["kernels"] / DIST_PROFILED
+                                    if "kernels" in p else None),
+               "top_ops": p.get("top_ops")}
+        k6 = p.get("k6_kernels")
+        if who == "compressed_trainer" and k6 is not None \
+                and p.get("device_busy_us"):
+            k6_us = sum(v["us"] for v in k6)
+            row["k6_kernels"] = k6
+            row["k6_share_of_device"] = k6_us / p["device_busy_us"]
+        rows.append(row)
+    emit(distributed_timing=rows)
+    del own, dense, compressed, tr_dense, tr_comp
+    torch.cuda.empty_cache()
+    return rows
+
+
+def distributed_phase(torch, smi=None):
+    """Data-parallel training on the card: the one-rank NCCL group, (a)
+    K6 against its plain versions and timed, (b) the path (its launches:
+    the phase's return), (c) the kill switch, (d) gradCompression.npz,
+    (e) SameDiff under set_mesh, then the timing turns. Returns (the
+    path's launches, (a)'s rows, (a)'s timing, the timing rows)."""
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch._device import resolve_device
+    from deeplearning4j_tpu_torch.parallel.mesh import ensure_group
+    dev = resolve_device(None)
+    ensure_group(dev)
+    try:
+        return _distributed_phase(torch, dev, smi)
+    finally:
+        # the one-rank group this phase started
+        dist.destroy_process_group()
+
+
+def _distributed_phase(torch, dev, smi):
+    bucket = dist_net(dev).numParams()
+    torch.cuda.empty_cache()
+    reset_all_counts()
+    rows, timing = k6_phase(torch, bucket, dev)
+    checked = all_counts()
+    check(not TRACE_ON_DEVICE or all(
+        checked[ALL_KERNELS.index(k)] > 0
+        for k in ("k6_encode", "k6_decode", "k6s_encode", "k6s_decode")),
+        f"(a) a K6 kernel did not launch: {dict(zip(ALL_KERNELS, checked))}")
+    torch.cuda.empty_cache()
+    launches, path = dist_path(torch, dev)
+    torch.cuda.empty_cache()
+    dist_kill_switch(torch, dev)
+    torch.cuda.empty_cache()
+    dist_checkpoint(torch, dev)
+    torch.cuda.empty_cache()
+    dist_samediff(torch, dev)
+    torch.cuda.empty_cache()
+    timing_rows = dist_timing(torch, dev, smi)
+    return launches, {"rows": rows, "timing": timing, "path": path,
+                      "checked": dict(zip(ALL_KERNELS, checked)),
+                      "turns": timing_rows}
+
+
+def check_distributed_launches(launches):
+    """The path launched K6e and K6d once a compressed step and nothing
+    else of the port."""
+    check(launches == launch_counts(k6_encode=DIST_STEPS,
+                                    k6_decode=DIST_STEPS),
+          f"the distributed path launched "
+          f"{dict(zip(ALL_KERNELS, launches))}")
+
+
+K6_REPLACES = {"k6_encode": "deeplearning4j_tpu/parallel/compression.py:259",
+               "k6_decode": "deeplearning4j_tpu/parallel/compression.py:266",
+               "k6s_encode": "deeplearning4j_tpu/kernels/threshold.py:36",
+               "k6s_decode": "deeplearning4j_tpu/kernels/threshold.py:61"}
+K6_TIMED = {"k6_encode": "encode", "k6_decode": "decode",
+            "k6s_encode": "sparse_encode", "k6s_decode": "sparse_decode"}
+
+
+def k6_kernel_entries(launches, dist):
+    """The kernels-line entries of K6e, K6d, K6s-enc and K6s-dec, their
+    numbers at ResNet-50's bucket (BERT-base's beside them);
+    ``launches`` maps each kernel to its launches by path."""
+    rows, (main, bert) = dist["rows"], dist["timing"]
+    out = []
+    for name, part in K6_TIMED.items():
+        sparse = name.startswith("k6s")
+        errs = [r.get("decode_err" if "decode" in part else "encode_err",
+                      0.0) for r in rows
+                if ("capacity" in r) == sparse and "n" in r]
+        on_path = not sparse
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "deeplearning4j_tpu_torch/kernels/csrc/threshold.cu",
+            "replaces": K6_REPLACES[name],
+            "launches": sum(launches[name].values()),
+            "launches_by_path": launches[name],
+            "on_main_path": on_path,
+            "checked_launches": dist["checked"][name],
+            "max_abs_err": max(errs, default=0.0),
+            "ms": main[f"{part}_ms"], "device_ms": main[f"{part}_device_ms"],
+            "plain_ms": main[f"{part}_plain_ms"],
+            "bound_ms": main[f"{part}_bound_ms"],
+            "bound_by": main[f"{part}_bound_by"],
+            "library": "none (no one call)", "library_ms": None,
+            "bert_base": {k: bert[f"{part}_{k}"] for k in
+                          ("ms", "device_ms", "plain_ms", "bound_ms")},
+            "at": {"n": main["n"], "t": main["t"],
+                   "capacity": main["capacity"] if sparse else None}})
+    return out
+
+
+# ------------------------------------------------ several cards (--ranks N)
+RANKS_STEPS = 3            # dense steps, held across ranks and to one card
+RANKS_COMP_STEPS = 12      # compressed steps
+RANKS_TIMEOUT_S = 600.0
+#: the ranks' first dense step may sit this many times the largest of the
+#: one-card floors from rank 0's params: the same fit twice (cuDNN's own
+#: spread), and the fits of the batch with its rows reversed and in
+#: RANKS_PERMUTATIONS seeded orders (the same function, its sums in another
+#: order; at init the net amplifies them, and heavy-tailed)
+RANKS_FLOOR_FACTOR = 4.0
+RANKS_PERMUTATIONS = 5
+
+
+def ranks_phase(n):
+    """``--ranks N``: N processes of this script, one card each, joined by
+    NCCL (``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` /
+    ``MASTER_PORT`` on 127.0.0.1); each runs :func:`rank_worker`. Rank 0's
+    lines are printed; any rank's failure (or the time limit) fails."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    procs, files = [], []
+    for r in range(n):
+        env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
+                   WORLD_SIZE=str(n), LOCAL_WORLD_SIZE=str(n),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        f = open(OUT_DIR / f"rank{r}.log", "w")
+        files.append(f)
+        procs.append(subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--rank-worker"],
+            env=env, stdout=f, stderr=subprocess.STDOUT))
+    deadline = time.time() + RANKS_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.time()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in files:
+            f.close()
+    for line in (OUT_DIR / "rank0.log").read_text().splitlines():
+        if line.startswith("{"):
+            print(line, flush=True)
+    rcs = [p.returncode for p in procs]
+    bad = [r for r, rc in enumerate(rcs) if rc != 0]
+    check(not bad, f"ranks exited {rcs}: " + " | ".join(
+        (OUT_DIR / f"rank{r}.log").read_text()[-2000:] for r in bad))
+
+
+def _rank_spread(torch, t):
+    """max |t_r − t_0| over the ranks (every rank gets it)."""
+    import torch.distributed as dist
+    rows = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(rows, t.contiguous())
+    return max(float((r - rows[0]).abs().max()) for r in rows)
+
+
+def _allreduce_ms(torch, t, calls=20, repeats=7):
+    """Median CUDA-event ms of one all-reduce of ``t`` over the group."""
+    import torch.distributed as dist
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(calls):
+            dist.all_reduce(t)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    return statistics.median(times)
+
+
+def rank_worker(torch, smi):
+    """One rank of ``--ranks N``: (i) the dense trainer, RANKS_STEPS steps
+    of DIST_BATCH a rank: the ranks' params identical, and rank 0's beside
+    the net's own fit of the global batch on one card, held after the
+    first step to RANKS_FLOOR_FACTOR times the largest one-card floor
+    (that fit twice; the batch's rows reversed or permuted); (ii) the
+    compressed
+    trainer (adaptive), RANKS_COMP_STEPS steps: params and thresholds
+    identical on every rank, each rank its own residual; (iii) NCCL's
+    all-reduce of ResNet-50's bucket as the int8 wire and as f32, and the
+    dense against the compressed step in turns."""
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch.parallel.master import DistributedConfig
+    from deeplearning4j_tpu_torch.parallel.trainer import ShardedTrainer
+    dev = DistributedConfig().initialize()
+    n, rank = dist.get_world_size(), dist.get_rank()
+    gb = DIST_BATCH * n
+    try:
+        x, y = dist_batches(RANKS_STEPS * n, seed=SEED + 7)
+        net = dist_net(dev)
+        tr = ShardedTrainer(net)
+        # rank 0: the same global batch through the net's own fit on one
+        # card (the reference's global program), that fit again, and the
+        # fit of the batch with its rows reversed
+        ones = ([dist_net(dev) for _ in range(3)] if rank == 0 else [])
+        p0 = ones[0].params().clone() if ones else None
+        losses, one_losses, vs_one = [], [], []
+        twice, reversed_rows, permuted, first_step = [], [], [], None
+        for i in range(RANKS_STEPS):
+            xb, yb = x[i * gb:(i + 1) * gb], y[i * gb:(i + 1) * gb]
+            tr.fit(xb, yb)
+            losses.append(tr.score())
+            if ones:
+                one, again, rev = ones
+                one.fit(xb, yb)
+                again.fit(xb, yb)
+                rev.fit(xb[::-1].copy(), yb[::-1].copy())
+                one_losses.append(one.score())
+                p1 = one.params()
+                vs_one.append(float((p1 - net.params()).abs().max()))
+                twice.append(float((p1 - again.params()).abs().max()))
+                reversed_rows.append(float((p1 - rev.params()).abs().max()))
+            if ones and i == 0:
+                first_step = float((p1 - p0).abs().max())
+                order = np.random.default_rng(SEED + 9)
+                for _ in range(RANKS_PERMUTATIONS):
+                    perm = order.permutation(gb)
+                    other = dist_net(dev)
+                    other.fit(xb[perm], yb[perm])
+                    permuted.append(float((p1 - other.params())
+                                          .abs().max()))
+                    del other
+        dense = {"losses": losses,
+                 "rank_spread": _rank_spread(torch, net.params()),
+                 "backend": dist.get_backend(),
+                 "one_card_losses": one_losses,
+                 "params_vs_one_card_by_step": vs_one,
+                 "one_card_twice_by_step": twice,
+                 "one_card_rows_reversed_by_step": reversed_rows,
+                 "one_card_rows_permuted_step1": permuted,
+                 "one_card_first_step_max_abs": first_step}
+        del ones
+        x2, y2 = dist_batches(RANKS_COMP_STEPS * n, seed=SEED + 8)
+        net2 = dist_net(dev)
+        tr2 = ShardedTrainer(net2, grad_compression="adaptive")
+        losses2 = []
+        for i in range(RANKS_COMP_STEPS):
+            tr2.fit(x2[i * gb:(i + 1) * gb], y2[i * gb:(i + 1) * gb])
+            losses2.append(tr2.score())
+        state = net2._grad_compression_state
+        thr = torch.stack([t.reshape(()) for t in state["threshold"]])
+        comp = {"losses": losses2,
+                "rank_spread": _rank_spread(torch, net2.params()),
+                "threshold_spread": _rank_spread(torch, thr),
+                "thresholds": [float(t) for t in thr],
+                "residual_spread": _rank_spread(torch, state["residual"][0]),
+                "launches": {k: v for k, v in zip(ALL_KERNELS, all_counts())
+                             if v}}
+        size = net2.numParams()
+        wire = torch.ones(size, dtype=torch.int8, device=dev)
+        bucket = torch.ones(size, dtype=torch.float32, device=dev)
+        wire_ms = _allreduce_ms(torch, wire)
+        f32_ms = _allreduce_ms(torch, bucket)
+        bus = 2 * (n - 1) / n
+        xd = torch.as_tensor(x[:gb], device=dev)
+        yd = torch.as_tensor(y[:gb], device=dev)
+        timed = {"dense": [], "compressed": []}
+        for who in ("dense", "compressed", "compressed", "dense"):
+            step = ((lambda: tr.fit(xd, yd)) if who == "dense"
+                    else (lambda: tr2.fit(xd, yd)))
+            ms, _all = step_timing(torch, step)
+            timed[who].append(ms)
+        timing = {"gpu": smi, "elements": size,
+                  "allreduce_int8_ms": wire_ms, "allreduce_f32_ms": f32_ms,
+                  "int8_bus_gb_s": bus * size / (wire_ms * 1e-3) / 1e9,
+                  "f32_bus_gb_s": bus * 4 * size / (f32_ms * 1e-3) / 1e9}
+        for who, ms in timed.items():
+            med = statistics.median(ms)
+            timing[who] = {"host_ms_per_step": med, "turns_ms": ms,
+                           "images_per_s": gb / (med / 1e3)}
+        report = {"world": n, "dense": dense, "compressed": comp,
+                  "timing": timing}
+        if rank == 0:
+            emit(ranks=report)
+        check(dense["backend"] == "nccl", f"the group runs {dense['backend']}")
+        check(dense["rank_spread"] == 0.0 and comp["rank_spread"] == 0.0
+              and comp["threshold_spread"] == 0.0,
+              f"the ranks' params or thresholds differ: {report}")
+        check(all(math.isfinite(v) for v in losses + losses2),
+              f"losses {losses} {losses2}")
+        if rank == 0:
+            floor = max([twice[0], reversed_rows[0]] + permuted)
+            check(vs_one[0] <= RANKS_FLOOR_FACTOR * floor,
+                  f"(i) the ranks' first step sits {vs_one[0]} from one "
+                  f"card's, above {RANKS_FLOOR_FACTOR} x its floor {floor}")
+        check(comp["launches"].get("k6_encode") == RANKS_COMP_STEPS
+              and comp["launches"].get("k6_decode") == RANKS_COMP_STEPS,
+              f"K6 launches {comp['launches']}")
+    finally:
+        dist.destroy_process_group()
+
+
 def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -10426,6 +11334,21 @@ def main() -> int:
                         "graph, served and fine-tuned at batch 32, the "
                         "registry's fused attention ops on K1/K2) after "
                         "building the flash kernels")
+    parser.add_argument("--distributed", action="store_true",
+                        help="run only the distributed phase (K6 against "
+                        "its plain versions, ResNet-50 through "
+                        "SharedTrainingMaster over a one-rank NCCL group, "
+                        "the kill switch, gradCompression.npz, SameDiff "
+                        "under set_mesh, the timing turns) after building "
+                        "threshold.cu and the flash sources")
+    parser.add_argument("--ranks", type=int, metavar="N",
+                        help="train data-parallel over N cards, one "
+                        "process each over NCCL (ResNet-50 on 64² at "
+                        "batch 32 a rank: the dense and the compressed "
+                        "trainer, NCCL's all-reduce timed), and nothing "
+                        "else")
+    parser.add_argument("--rank-worker", action="store_true",
+                        help=argparse.SUPPRESS)
     parser.add_argument("--precision-ce-f32", action="store_true",
                         help="measure the f32 K3 kernels and their plain "
                         "versions against f64 at the training shape, and "
@@ -10534,6 +11457,33 @@ def main() -> int:
             "onnx_import": dict(zip(ALL_KERNELS, imported)),
             "onnx_attention": dict(zip(ALL_KERNELS, attention))},
             phase_seconds={"onnx_phase": time.perf_counter() - t0})
+        return 0
+    if args.rank_worker:
+        rank_worker(torch, smi)
+        return 0
+    if args.ranks is not None:
+        check(torch.cuda.device_count() >= args.ranks,
+              f"--ranks {args.ranks} on {torch.cuda.device_count()} cards")
+        _build.load("threshold")        # built once, before the ranks start
+        t0 = time.perf_counter()
+        ranks_phase(args.ranks)
+        emit(phase_seconds={"ranks_phase": time.perf_counter() - t0})
+        return 0
+    if args.distributed:
+        t0 = time.perf_counter()
+        started = {n: _build._start(n) for n in (
+            "threshold", "flash_attention_fwd", "flash_attention_bwd")}
+        for n, st in started.items():
+            if st is not None:
+                _build._finish(n, st)
+        emit(build={"seconds": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        distributed, dist = distributed_phase(torch, smi)
+        check_distributed_launches(distributed)
+        emit(kernels=k6_kernel_entries(
+            {k: {"distributed": distributed[i]}
+             for i, k in enumerate(ALL_KERNELS)}, dist),
+            phase_seconds={"distributed_phase": time.perf_counter() - t0})
         return 0
     if args.recurrent:
         t0 = time.perf_counter()
@@ -10701,6 +11651,9 @@ def main() -> int:
         "samediff_phase", samediff_phase, torch, smi)
     torch.cuda.empty_cache()
     onnx_import, onnx_attention = timed("onnx_phase", onnx_phase, torch, smi)
+    torch.cuda.empty_cache()
+    distributed, dist = timed("distributed_phase", distributed_phase, torch,
+                              smi)
     paths = {"serve": serve, "serve_modes": modes, "pipeline": pipeline,
              "frontdoor": frontdoor, "fleet": fleet, "train": train,
              "moe": moe, "f32_serve": f32_serve, "f32_train": f32_train,
@@ -10709,7 +11662,8 @@ def main() -> int:
              "detection": detection, "transfer": transfer,
              "scoring": scoring, "samediff_import": samediff_import,
              "samediff_attention": samediff_attention,
-             "onnx_import": onnx_import, "onnx_attention": onnx_attention}
+             "onnx_import": onnx_import, "onnx_attention": onnx_attention,
+             "distributed": distributed}
     launches = {name: {path: counts_[i] for path, counts_ in paths.items()}
                 for i, name in enumerate(ALL_KERNELS)}
     emit(main_path_launches=launches)
@@ -10721,6 +11675,7 @@ def main() -> int:
           f"{launches['attention_plain']}")
     check_recurrent_launches(recurrent, wide, (attention, attention_modules,
                                                onnx_attention))
+    check_distributed_launches(distributed)
     emit(kernels=[kernel_entry("wgmma", cases, launches["wgmma"], masked),
                   kernel_entry("simple", cases, launches["simple"], masked),
                   bwd_kernel_entry("bwd_wgmma", bwd_cases,
@@ -10746,7 +11701,8 @@ def main() -> int:
             for k in ("ce_fwd_tf32", "ce_dlogits_tf32", "ce_split_tf32")]
          + [decode_kernel_entry("paged_attention_write", decode_cases,
                                 launches["paged_attention_write"])]
-         + recurrent_kernel_entries(launches, k11_rows, k11l_rows))
+         + recurrent_kernel_entries(launches, k11_rows, k11l_rows)
+         + k6_kernel_entries(launches, dist))
     seconds["script"] = time.perf_counter() - t_script
     emit(phase_seconds=seconds)
     emit(ok=True, device={"platform": "gpu",

@@ -39,8 +39,10 @@ The ops that draw without a key (``random_normal_gen``, ``normal``,
 keyword) get a generator on the graph's device seeded from (execution
 seed, node index); a ``seed`` attribute seeds their own.
 
-Not ported here: ``set_mesh`` (data-parallel training over several
-cards, ROADMAP queue 1 item 7): it raises.
+``set_mesh`` trains data-parallel over a ``parallel.mesh`` mesh: each rank
+takes its shard of every feed batch, and the gradients and the loss are
+averaged over the ranks with one all-reduce (the reference's global
+program for a loss that averages over the batch).
 """
 from __future__ import annotations
 
@@ -758,6 +760,7 @@ class SameDiff:
         self.random = SDRandom(self)
         self.bitwise = SDBitwise(self)
         self.image = SDImage(self)
+        self.mesh = None               # set_mesh: data-parallel training
 
     @staticmethod
     def create(device=None) -> "SameDiff":
@@ -765,16 +768,53 @@ class SameDiff:
 
     # ---- multi-device -------------------------------------------------
     def set_mesh(self, mesh) -> "SameDiff":
-        """Data-parallel training over several cards: not ported yet
-        (ROADMAP queue 1 item 7, the multi-GPU slice)."""
-        raise NotImplementedError(
-            "SameDiff.set_mesh (data-parallel training over several cards) "
-            "is not ported yet: ROADMAP queue 1 item 7")
+        """Train data-parallel over ``mesh`` (``parallel.mesh.MeshSpec
+        .build``, one rank a GPU) with a 'data' axis: ``fit`` starts every
+        rank from rank 0's values, gives each rank its shard of each feed
+        batch (an indivisible one runs whole on every rank) and averages
+        the gradients and the loss over the ranks. ``None`` trains on this
+        rank alone again."""
+        from deeplearning4j_tpu_torch.parallel.mesh import DATA_AXIS
 
-    def _shard_feed(self, ph):
-        raise NotImplementedError(
-            "SameDiff._shard_feed belongs to set_mesh: ROADMAP queue 1 "
-            "item 7")
+        if mesh is not None and DATA_AXIS not in mesh.axis_names:
+            raise ValueError(f"mesh has no {DATA_AXIS!r} axis: "
+                             f"{mesh.axis_names}")
+        self.mesh = mesh
+        self._train_step = None        # re-placement on the next fit
+        return self
+
+    def _shard_feed(self, ph: Dict[str, Any]) -> Dict[str, Any]:
+        """This rank's rows of each placeholder whose batch divides over
+        the data axis; the others whole (replicated)."""
+        from deeplearning4j_tpu_torch.parallel.mesh import (DATA_AXIS,
+                                                            axis_size)
+
+        dp = axis_size(self.mesh, DATA_AXIS)
+        r = self.mesh.rank
+        out = {}
+        for k, v in ph.items():
+            if v.dim() >= 1 and v.shape[0] % dp == 0:
+                b = v.shape[0] // dp
+                out[k] = v[r * b:(r + 1) * b]
+            else:
+                out[k] = v
+        return out
+
+    def _replicate_values(self):
+        """Every rank takes rank 0's values (the reference replicates
+        them onto the mesh)."""
+        import torch.distributed as dist
+        for n in sorted(self._values):
+            v = self._values[n]
+            if isinstance(v, torch.Tensor):
+                dist.broadcast(v, src=0, group=self.mesh.group)
+
+    def _mesh_exchange(self, grads, loss):
+        """The gradients and the loss to their mean over the ranks."""
+        from deeplearning4j_tpu_torch.parallel.compression import mean_over
+        *grads, loss = mean_over(list(grads) + [loss.reshape(1)],
+                                 self.mesh.group, self.mesh.world_size)
+        return grads, loss[0]
 
     def _unique(self, base: str) -> str:
         if base not in self._vars and base not in self._name_counter:
@@ -1308,7 +1348,7 @@ class SameDiff:
         names = sorted(self.trainable_names())     # the optax leaf order
         l1, l2 = tc.l1, tc.l2
 
-        def step(params, fixed_vals, opt_state, ph, rng_seed):
+        def step(params, fixed_vals, opt_state, ph, rng_seed, exchange=None):
             leaves = [p.detach().requires_grad_(True) for p in params]
             with torch.enable_grad():
                 outs = emitted({**fixed_vals, **dict(zip(names, leaves))},
@@ -1324,11 +1364,14 @@ class SameDiff:
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
             grads = [g if g is not None else torch.zeros_like(p)
                      for g, p in zip(grads, params)]
+            loss = loss.detach()
+            if exchange is not None:
+                grads, loss = exchange(grads, loss)
             with torch.no_grad():
                 updates, opt_state = transform.update(grads, opt_state,
                                                       params)
                 params = _T.apply_updates(params, updates)
-            return params, opt_state, loss.detach()
+            return params, opt_state, loss
 
         init_state = transform.init([self._values[n] for n in names])
         if self._pending_opt_leaves is not None:
@@ -1449,6 +1492,8 @@ class SameDiff:
                           and self._opt_state is not None
                           and self._pending_opt_leaves is None
                           and self._pending_opt_named is None)
+            if self.mesh is not None:
+                self._replicate_values()
             self._train_step, fresh_state = self._build_train_step(sig)
             if not keep_state:
                 self._opt_state = fresh_state
@@ -1461,10 +1506,15 @@ class SameDiff:
             if epoch > 0 and hasattr(data, "reset"):
                 data.reset()
             for ph in self._batches(data):
+                exchange = None
+                if self.mesh is not None:
+                    # a replicated (indivisible) feed is averaged too: the
+                    # ranks take one step whatever their kernels round
+                    ph, exchange = self._shard_feed(ph), self._mesh_exchange
                 params = [self._values[n] for n in names]
                 params, self._opt_state, loss = self._train_step(
                     params, fixed_vals, self._opt_state, ph,
-                    rng_seed + self.iteration_count)
+                    rng_seed + self.iteration_count, exchange)
                 self._values.update(zip(names, params))
                 loss = float(loss)
                 losses.append(loss)

@@ -439,21 +439,26 @@ class DevicePrefetchIterator(_PrefetchIterator):
     the tensors' use on that stream for the caching allocator. On the CPU
     a batch becomes CPU tensors.
 
-    ``device`` (default: the card) is where batches land.
+    ``device`` (default: the card) is where batches land. ``placement``
+    (ref: the reference's ``placement`` hook) customizes what lands: a
+    function of a DataSet run on the producer thread before the copy
+    (``ShardedTrainer`` passes one that keeps its rank's rows).
     """
 
     _THREAD_NAME = "dl4j-device-prefetch"
 
     def __init__(self, backing: DataSetIterator, depth: Optional[int] = None,
-                 device=None):
+                 device=None, placement=None):
         from deeplearning4j_tpu_torch._device import resolve_device
         super().__init__(backing, depth if depth is not None
                          else _async.prefetch_depth())
         self._device = resolve_device(device)
         self._side_stream = None
+        self._placement = placement
 
     @classmethod
-    def wrap(cls, iterator, depth: Optional[int] = None, device=None):
+    def wrap(cls, iterator, depth: Optional[int] = None, device=None,
+             placement=None):
         """Wrap a DataSetIterator for device prefetch when the async
         runtime is enabled; anything else (plain lists, generators,
         already-wrapped iterators, kill switch off) passes through."""
@@ -461,9 +466,11 @@ class DevicePrefetchIterator(_PrefetchIterator):
                 or isinstance(iterator, DevicePrefetchIterator)
                 or not isinstance(iterator, DataSetIterator)):
             return iterator
-        return cls(iterator, depth=depth, device=device)
+        return cls(iterator, depth=depth, device=device, placement=placement)
 
     def _place(self, ds):
+        if self._placement is not None:
+            ds = self._placement(ds)
         dev = self._device
         if dev.type != "cuda":
             return _place_dataset(ds, lambda a: torch.as_tensor(a, device=dev))

@@ -32,6 +32,10 @@ COUNTERS = {
     "rnn_cell_bwd": ("rnn_cell", "launches_cell_bwd"),
     "rnn_layer_fwd": ("rnn_cell", "launches_layer_fwd"),
     "rnn_layer_bwd": ("rnn_cell", "launches_layer_bwd"),
+    "k6_encode": ("threshold", "launches_encode"),
+    "k6_decode": ("threshold", "launches_decode"),
+    "k6s_encode": ("threshold", "launches_sparse_encode"),
+    "k6s_decode": ("threshold", "launches_sparse_decode"),
     "attention_plain": ("flash_attention", "plain_route_calls"),
 }
 

@@ -22,6 +22,7 @@ those names, which a profile capture reads as its per-module times.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import threading
 import time
@@ -254,6 +255,12 @@ class NetworkBase:
         self._signature_lock = threading.Lock()
         #: rnnTimeStep's carries between calls, by layer key
         self._rnn_state: Dict[str, tuple] = {}
+        #: the data-parallel exchange of the step being driven (set by
+        #: ``parallel.ShardedTrainer``), else None
+        self._grad_exchange = None
+        #: the compressed exchange's error-feedback state (residuals and
+        #: thresholds), checkpointed as ``gradCompression.npz``
+        self._grad_compression_state = None
         self._initialized = False
 
     # ------------------------------------------------------------------ init
@@ -400,16 +407,33 @@ class NetworkBase:
 
     def _train_step(self, inputs, labels, fmasks, lmasks, carries=None):
         """One step; returns (loss, health, new_carries). The carries
-        leave detached: gradients stop at a TBPTT chunk's boundary."""
-        loss, new_states, new_carries, keys, leaves, grads = \
-            self._value_and_grad(inputs, labels, fmasks, lmasks, self._gen,
-                                 carries)
+        leave detached: gradients stop at a TBPTT chunk's boundary.
+
+        ``_grad_exchange`` (set by ``parallel.ShardedTrainer`` for the
+        steps it drives) goes between the gradients and the optimizer:
+        ``forward()`` is the context of the forward and backward,
+        ``reduce(loss, states, grads)`` gives the exchanged loss, states
+        and gradients and the extra ``(new, old)`` trees a skipped step
+        keeps the old of, and ``commit`` takes those trees as kept."""
+        ex = self._grad_exchange
+        with (ex.forward() if ex is not None else contextlib.nullcontext()):
+            loss, new_states, new_carries, keys, leaves, grads = \
+                self._value_and_grad(inputs, labels, fmasks, lmasks,
+                                     self._gen, carries)
         frozen = [k in self._frozen for k, _ in keys]
         with torch.no_grad():
-            new_leaves, self._opt_state, (new_states,), health = \
+            extra = ()
+            if ex is not None:
+                loss, new_states, grads, extra = ex.reduce(loss, new_states,
+                                                           grads)
+            new_leaves, self._opt_state, news, health = \
                 finish_train_step(self._opt, leaves, self._opt_state, grads,
                                   loss, frozen,
-                                  guarded=((new_states, self._states),))
+                                  guarded=((new_states, self._states),)
+                                  + tuple(extra))
+            new_states = news[0]
+            if ex is not None:
+                ex.commit(news[1:])
         self._set_leaves(keys, new_leaves)
         self._states = new_states
         if new_carries is not None:

@@ -37,7 +37,7 @@ from deeplearning4j_tpu_torch.nn import losses as _loss
 from deeplearning4j_tpu_torch.nn import weights as _winit
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType, conv_out_size
 from deeplearning4j_tpu_torch.ops import standard as _ops
-from deeplearning4j_tpu_torch.ops.moments import one_pass_moments
+from deeplearning4j_tpu_torch.ops.moments import batch_moments, one_pass_moments
 from deeplearning4j_tpu_torch.ops.standard import promote_mm
 
 _LAYER_TYPES: Dict[str, type] = {}
@@ -816,7 +816,7 @@ class BatchNormalization(Layer):
 
     def apply(self, params, x, training=False, gen=None, state=None):
         if training:
-            mean, var = one_pass_moments(x, tuple(range(x.dim() - 1)))
+            mean, var = batch_moments(x, tuple(range(x.dim() - 1)))
             new_state = {
                 "mean": self.decay * state["mean"]
                 + (1 - self.decay) * mean.detach(),

@@ -60,7 +60,7 @@ A bundle is a directory under ``DL4J_TPU_POSTMORTEM_DIR`` (default
   ``trace_store`` is enabled)
 
 The port's copy leaves out the reference's ``elastic.json`` section:
-the elastic layer is not ported yet (ROADMAP queue 1 item 7).
+the elastic layer is not ported yet (ROADMAP queue 1 item 7B).
 
 Kill switch: ``DL4J_TPU_FLIGHT_RECORDER=0`` disables the watchdog and the
 crash hooks; explicit ``dump()`` calls always work.

@@ -8,6 +8,9 @@ accumulation dtype (callers cast back at their boundary).
 """
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 
 
@@ -28,3 +31,58 @@ def one_pass_moments(x: torch.Tensor, dims, keepdim: bool = False):
     xf = _acc(x)
     mean = torch.mean(xf, dim=dims, keepdim=keepdim)
     return mean, one_pass_variance(xf, mean, dims, keepdim)
+
+
+# ------------------------------------------------ data-parallel batch moments
+_batch = threading.local()
+
+
+@contextlib.contextmanager
+def global_batch(group, world: int):
+    """Within this context :func:`batch_moments` takes its moments over the
+    whole data-parallel batch: each rank's E[x] and E[x²] are summed over
+    ``group`` by a differentiable all-reduce and divided by ``world`` (equal
+    shards), so the formula is the global batch's, with sums in another
+    order. ``parallel.ShardedTrainer``'s dense exchange sets it."""
+    prev = getattr(_batch, "group", None)
+    _batch.group = (group, world)
+    try:
+        yield
+    finally:
+        _batch.group = prev
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over a process group; its backward sums the output gradients
+    over the group the same way (each rank's loss reaches every rank's
+    moments)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        import torch.distributed as dist
+        ctx.group = group
+        out = t.clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+        out = grad.clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=ctx.group)
+        return out, None
+
+
+def batch_moments(x: torch.Tensor, dims):
+    """BatchNormalization's training moments: :func:`one_pass_moments`,
+    over the global batch inside :func:`global_batch`."""
+    over = getattr(_batch, "group", None)
+    if over is None:
+        return one_pass_moments(x, dims)
+    group, world = over
+    xf = _acc(x)
+    both = torch.stack([torch.mean(xf, dim=dims),
+                        torch.mean(torch.square(xf), dim=dims)])
+    both = _AllReduceSum.apply(both, group) / world
+    mean, ex2 = both[0], both[1]
+    return mean, torch.clamp_min(ex2 - torch.square(mean), 0)

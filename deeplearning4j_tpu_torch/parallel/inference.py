@@ -51,7 +51,7 @@ Every metric series is the reference's (``dl4j_inference_*``). The cost
 model names each bucket ``<Net>._output_jit[b<n>]`` and counts its FLOPs
 analytically (``cost_model.maybe_account_bucket``). ``workers`` shards
 the forward over N devices in the reference (a ``ShardedTrainer``);
-multi-GPU is ROADMAP queue 1 item 7, so ``workers`` > 1 raises.
+multi-GPU serving is ROADMAP queue 1 item 7B, so ``workers`` > 1 raises.
 """
 from __future__ import annotations
 
@@ -308,13 +308,13 @@ class ParallelInference:
         self._async = _async.async_enabled()
         self._seen_buckets: set = set()
         # workers: the reference shards the forward over N devices through
-        # a ShardedTrainer. One card runs one program; multi-GPU comes with
-        # ROADMAP queue 1 item 7, so more than one worker is refused, never
+        # a ShardedTrainer. Sharding a forward over several cards is ROADMAP
+        # queue 1 item 7B, so more than one worker is refused, never
         # silently served by one
         if workers is not None and int(workers) > 1:
             raise NotImplementedError(
                 f"workers={workers}: sharding the forward over several GPUs "
-                "waits for multi-GPU training (ROADMAP queue 1 item 7); "
+                "is not ported yet (ROADMAP queue 1 item 7B); "
                 "one card serves with workers=None or 1")
         dev = getattr(model, "device", None)
         self._device = (torch.device(dev) if isinstance(dev, (str,

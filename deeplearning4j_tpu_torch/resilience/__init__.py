@@ -26,7 +26,7 @@ fail-fast circuit gating) lives in ``parallel/inference.py`` and
 and ``dl4j_decode_shed_total``.
 
 The reference's ``elastic`` layer waits for multi-GPU training (ROADMAP
-queue 1 item 7), so :func:`snapshot` has no ``elastic`` section.
+queue 1 item 7B), so :func:`snapshot` has no ``elastic`` section.
 
 Kill switch: ``DL4J_TPU_RESILIENCE=0`` disarms everything. :func:`snapshot`
 feeds the flight recorder's ``resilience.json`` bundle section.

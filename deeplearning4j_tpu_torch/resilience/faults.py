@@ -317,7 +317,7 @@ class FaultRegistry:
             if kind == "host_loss":
                 # a host-loss fault only means something when the elastic
                 # layer can act on it; the port has no elastic layer yet
-                # (ROADMAP queue 1 item 7), so the spec is inert, as the
+                # (ROADMAP queue 1 item 7B), so the spec is inert, as the
                 # reference's is under DL4J_TPU_ELASTIC=0
                 continue
             with self._lock:

@@ -28,7 +28,7 @@ flight-recorder ``resilience.json``) and the metrics registry. Under
 
 The reference's elastic posture (async sharded manifests, shrinking and
 re-expanding a ``ShardedTrainer``'s mesh on host loss) needs several
-GPUs: it comes with ROADMAP queue 1 item 7, and ``elastic=True`` raises
+GPUs: it comes with ROADMAP queue 1 item 7B, and ``elastic=True`` raises
 until then.
 """
 from __future__ import annotations
@@ -164,7 +164,7 @@ class ResilientTrainer:
         if elastic:
             raise NotImplementedError(
                 "elastic=True: elastic checkpoints and mesh reshaping wait "
-                "for multi-GPU training (ROADMAP queue 1 item 7)")
+                "are not ported yet (ROADMAP queue 1 item 7B)")
         self.target = target
         self.net = getattr(target, "net", target)
         self.checkpoint_dir = checkpoint_dir

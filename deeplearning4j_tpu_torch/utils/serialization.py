@@ -15,14 +15,17 @@ package restores in the other:
 - ``normalizer.json`` / ``normalizer.npz`` — an optional fitted
   ``DataNormalization``;
 - ``meta.json``          — ``iteration``, ``epoch``, ``format_version`` 1,
-  ``model_type``.
+  ``model_type``;
+- ``gradCompression.npz`` — the compressed-gradient exchange's state
+  (``parallel/compression.py``): ``residual_<i>`` (n_replicas, size) and
+  ``threshold_<i>`` for each bucket, as the reference writes it; over
+  several ranks every rank calls ``save`` (the rows are gathered) and rank
+  0 writes the zip.
 
 Every float array is f32: master params, states and updater state are f32
 in both packages, and ``np.savez`` of a bfloat16 array could not be read
 back without ml_dtypes. A non-f32 leaf is refused loudly, on write and on
-read. ``gradCompression.npz`` (the compressed-gradient exchange's state)
-belongs to ROADMAP queue 1 item 7: a zip that carries it is refused, never
-restored without it.
+read.
 
 ``save`` copies each tensor to the host once and leaves the net's own
 tensors where they are; a restore builds the whole tree on the host and
@@ -197,10 +200,18 @@ class ModelSerializer:
     def write_model(net, path, save_updater: bool = True, normalizer=None):
         if not net._initialized:
             net.init()
-        if getattr(net, "_grad_compression_state", None) is not None:
-            raise NotImplementedError(
-                "gradCompression.npz waits for the compressed-gradient "
-                "exchange (ROADMAP queue 1 item 7)")
+        comp = getattr(net, "_grad_compression_state", None)
+        comp_arrays = None
+        if comp is not None:
+            # the error-feedback state of the compressed exchange: the
+            # residual rows of every rank, gathered (a collective when a
+            # trainer placed it over several ranks: every rank calls
+            # write_model, rank 0 writes the zip)
+            from deeplearning4j_tpu_torch.parallel.compression import (
+                state_to_arrays)
+            comp_arrays = state_to_arrays(comp)
+            if int(comp.get("world", 1)) > 1 and comp.get("rank", 0) != 0:
+                return
         coeffs = _save_npz_bytes(**_tree_to_npz(net._params, "param"))
         states = _tree_to_npz(net._states, "state")
         upd = (_updater_leaves(net._opt_state)
@@ -214,6 +225,10 @@ class ModelSerializer:
                             compress_type=stored)
             if upd is not None:
                 zf.writestr("updaterState.npz", _save_npz_bytes(**upd),
+                            compress_type=stored)
+            if comp_arrays is not None:
+                zf.writestr("gradCompression.npz",
+                            _save_npz_bytes(**comp_arrays),
                             compress_type=stored)
             if normalizer is not None:
                 state = normalizer.state_dict()
@@ -245,11 +260,6 @@ class ModelSerializer:
         line up with the net's (another updater) keeps the fresh state,
         with a warning."""
         names = zf.namelist()
-        if "gradCompression.npz" in names:
-            raise NotImplementedError(
-                "this zip carries gradCompression.npz (the compressed-"
-                "gradient exchange's residuals), which the port restores "
-                "only with ROADMAP queue 1 item 7")
         net.init()
         fresh_params = net._params
         with np.load(io.BytesIO(zf.read("coefficients.npz"))) as z:
@@ -315,6 +325,15 @@ class ModelSerializer:
                     "checkpoint updater state (%d leaves) does not fit the "
                     "model's updater (%d leaves); keeping fresh state",
                     len(leaves), len(template))
+        if "gradCompression.npz" in names:
+            # the global (n_replicas, size) residuals and the thresholds; a
+            # ShardedTrainer hands each rank its row at placement, or
+            # reshapes them to another replica count
+            from deeplearning4j_tpu_torch.parallel.compression import (
+                state_from_arrays)
+            with np.load(io.BytesIO(zf.read("gradCompression.npz"))) as z:
+                net._grad_compression_state = state_from_arrays(
+                    {k: z[k] for k in z.files})
         if "meta.json" in names:
             meta = json.loads(zf.read("meta.json"))
             net._iteration = meta.get("iteration", 0)

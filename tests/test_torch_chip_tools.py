@@ -508,14 +508,17 @@ def test_expected_launches_per_step():
     config is bf16 at d 1024), K7 twice per MoE layer (three times under
     remat), K4a, K4w and K4a+w (decode only) never."""
     assert chip_smoke.expected_per_step(12, False, 0) == (
-        12, 0, 12, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+        12, 0, 12, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0)
     assert chip_smoke.expected_per_step(12, True, 8) == (
-        24, 0, 12, 0, 0, 0, 0, 0, 1, 8, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+        24, 0, 12, 0, 0, 0, 0, 0, 1, 8, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0)
     assert chip_smoke.expected_per_step(12, False, 8, moe=True) == (
-        12, 0, 12, 0, 0, 0, 24, 24, 1, 8, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+        12, 0, 12, 0, 0, 0, 24, 24, 1, 8, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0)
     assert chip_smoke.expected_per_step(2, True, 0, moe=True)[6:] == (
-        6, 6, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
-    assert len(chip_smoke.ALL_KERNELS) == 21
+        6, 6, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+    assert len(chip_smoke.ALL_KERNELS) == 25
     assert chip_smoke.ALL_KERNELS[:4] == chip_smoke.KERNELS
     assert chip_smoke.ALL_KERNELS[8:10] == ("ce_fwd_wgmma",
                                             "ce_dlogits_wgmma")
@@ -535,19 +538,24 @@ def test_expected_launches_per_step():
                                              "rnn_layer_fwd", "rnn_layer_bwd")
     assert {chip_smoke.SOURCES[k] for k in chip_smoke.ALL_KERNELS[16:20]} \
         == {"rnn_cell.cu"}
+    assert chip_smoke.ALL_KERNELS[20:24] == ("k6_encode", "k6_decode",
+                                             "k6s_encode", "k6s_decode")
+    assert {chip_smoke.SOURCES[k] for k in chip_smoke.ALL_KERNELS[20:24]} \
+        == {"threshold.cu"}
     # the last count is no kernel's: the attention op's plain route
-    assert chip_smoke.ALL_KERNELS[20] == "attention_plain"
+    assert chip_smoke.ALL_KERNELS[24] == "attention_plain"
     assert "attention_plain" not in chip_smoke.SOURCES
 
 
 def test_all_counts_reads_every_counter_in_order():
-    """all_counts gives the twenty-one counters in ALL_KERNELS' order, and
+    """all_counts gives the twenty-five counters in ALL_KERNELS' order, and
     reset_all_counts zeroes every one."""
     from deeplearning4j_tpu_torch.kernels import chunked_ce as ce
     from deeplearning4j_tpu_torch.kernels import flash_attention as fa
     from deeplearning4j_tpu_torch.kernels import moe_route as mr
     from deeplearning4j_tpu_torch.kernels import paged_attention as pa
     from deeplearning4j_tpu_torch.kernels import rnn_cell as rc
+    from deeplearning4j_tpu_torch.kernels import threshold as th
     names = [(fa, "launches_wgmma"), (fa, "launches_simple"),
              (fa, "launches_bwd_wgmma"), (fa, "launches_bwd"),
              (ce, "launches_fwd"), (ce, "launches_dlogits"),
@@ -558,22 +566,26 @@ def test_all_counts_reads_every_counter_in_order():
              (ce, "launches_split_tf32"), (pa, "launches_attend_write"),
              (rc, "launches_cell_fwd"), (rc, "launches_cell_bwd"),
              (rc, "launches_layer_fwd"), (rc, "launches_layer_bwd"),
+             (th, "launches_encode"), (th, "launches_decode"),
+             (th, "launches_sparse_encode"), (th, "launches_sparse_decode"),
              (fa, "plain_route_calls")]
     saved = [getattr(m, n) for m, n in names]
     try:
         for i, (m, n) in enumerate(names):
             setattr(m, n, i + 1)
-        assert chip_smoke.all_counts() == tuple(range(1, 22))
+        assert chip_smoke.all_counts() == tuple(range(1, 26))
         before = chip_smoke.all_counts()
         pa.launches_attend += 5
         ce.launches_split_tf32 += 2
         pa.launches_attend_write += 3
         rc.launches_cell_bwd += 4
         rc.launches_layer_fwd += 6
+        th.launches_decode += 1
         assert chip_smoke.delta(before) == (0,) * 10 + (5, 0, 0, 0, 2, 3,
-                                                        0, 4, 6, 0, 0)
+                                                        0, 4, 6, 0, 0, 1,
+                                                        0, 0, 0)
         chip_smoke.reset_all_counts()
-        assert chip_smoke.all_counts() == (0,) * 21
+        assert chip_smoke.all_counts() == (0,) * 25
     finally:
         for (m, n), v in zip(names, saved):
             setattr(m, n, v)
@@ -772,7 +784,7 @@ def test_launch_counts_names_each_kernel():
     the rest; a name that is no kernel raises."""
     got = chip_smoke.launch_counts(wgmma=12, paged_attention_write=372,
                                    kv_quant_write=1)
-    assert len(got) == len(chip_smoke.ALL_KERNELS) == 21
+    assert len(got) == len(chip_smoke.ALL_KERNELS) == 25
     assert dict(zip(chip_smoke.ALL_KERNELS, got)) == dict(
         {k: 0 for k in chip_smoke.ALL_KERNELS}, wgmma=12,
         paged_attention_write=372, kv_quant_write=1)
@@ -1070,9 +1082,11 @@ def test_expected_launches_per_step_of_the_f32_model():
     pass for the forward and before the backward's chunks; neither
     chunked_ce.cu's nor the wgmma one), no wgmma flash kernel."""
     assert chip_smoke.expected_per_step(12, False, 0, f32=True) == (
-        0, 12, 0, 12, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+        0, 12, 0, 12, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0)
     assert chip_smoke.expected_per_step(12, False, 8, f32=True) == (
-        0, 12, 0, 12, 0, 0, 0, 0, 0, 0, 0, 0, 1, 8, 2, 0, 0, 0, 0, 0, 0)
+        0, 12, 0, 12, 0, 0, 0, 0, 0, 0, 0, 0, 1, 8, 2, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0)
     assert chip_smoke.expected_per_step(12, True, 8, f32=True)[:4] == (
         0, 24, 0, 12)
     assert chip_smoke.F32_RUNGS == ((8, False, 0), (8, False, 8))
@@ -1109,7 +1123,7 @@ def _path_launches():
     detection = (0,) * 20
     transfer = (0,) * 20
     scoring = (0,) * 20
-    return [path + (0,) for path in (
+    return [path + (0,) * 5 for path in (
         serve, modes, train, moe, f32_serve, f32_train, pipeline, frontdoor,
         fleet, network, recurrent, wide, detection, transfer, scoring)]
 
@@ -1179,7 +1193,8 @@ def _path_launches():
     (12, 15, "the detection path launching K4a+w"),
     (12, 16, "the detection path launching K11f"),
     (12, 19, "the detection path launching K11Lb"),
-    (12, 20, "the detection path taking the attention op's plain route")])
+    (12, 20, "the detection path launching K6e"),
+    (12, 24, "the detection path taking the attention op's plain route")])
 def test_path_launch_checks_catch_each_misroute(path, kernel, what):
     paths = _path_launches()
     chip_smoke.check_path_launches(*paths)
@@ -2075,7 +2090,7 @@ def test_transfer_readings_sit_under_the_solver_row():
             100 * chip_smoke.TOL_TRANSFER_SOLVER
 
 
-@pytest.mark.parametrize("kernel", [0, 1, 9, 15, 18, 20])
+@pytest.mark.parametrize("kernel", [0, 1, 9, 15, 18, 20, 24])
 def test_path_launch_checks_catch_a_transfer_launch(kernel):
     paths = _path_launches()
     chip_smoke.check_path_launches(*paths)
@@ -2086,7 +2101,7 @@ def test_path_launch_checks_catch_a_transfer_launch(kernel):
         chip_smoke.check_path_launches(*paths)
 
 
-@pytest.mark.parametrize("kernel", [0, 1, 9, 15, 18, 20])
+@pytest.mark.parametrize("kernel", [0, 1, 9, 15, 18, 20, 24])
 def test_path_launch_checks_catch_a_scoring_launch(kernel):
     """A hand kernel, or the attention op's plain route, launched on the
     scoring path fails the whole check and the scoring phase's own

@@ -232,8 +232,11 @@ def test_namespace_registry_fallthrough_and_unported_ops_raise():
                                   [2, 1])
     with pytest.raises(AttributeError):
         sd.nn.no_such_op
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        sd.set_mesh(None)
+    # set_mesh(None) is the reference's single-rank posture; a mesh
+    # without a data axis is refused as there
+    assert sd.set_mesh(None) is sd and sd.mesh is None
+    with pytest.raises(ValueError, match="no 'data' axis"):
+        sd.set_mesh(type("M", (), {"axis_names": ("model",)})())
 
 
 def test_image_ops_that_are_standard_run():

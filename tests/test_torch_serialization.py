@@ -311,8 +311,14 @@ def test_zip_with_grad_compression_state_is_refused(tmp_path):
     _rewrite_zip(path, edited, add)
     with zipfile.ZipFile(edited, "a") as zf:
         zf.writestr("gradCompression.npz", buf.getvalue())
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        t_ser.ModelSerializer.restore(edited, device="cpu")
+    # a gradCompression.npz without its thresholds is refused as the
+    # reference refuses it: the net restores with no compression state
+    # (state_from_arrays gives None); whole states restore in
+    # tests/test_torch_compression.py
+    net = t_ser.ModelSerializer.restore(edited, device="cpu")
+    ref = j_ser.ModelSerializer.restore(edited)
+    assert net._grad_compression_state is None
+    assert ref._grad_compression_state is None
 
 
 def test_non_f32_leaves_are_refused(tmp_path):
