@@ -310,7 +310,32 @@ K4w spill nothing, and that no wgmma source has its products serialized
    causal, on K1/K2 against the same graphs on the ops' plain versions.
    (a)-(c) launch no kernel of the port; every path of (d) launches K1
    and K2 and takes no plain route.
-16. distributed phase (last; ``--distributed`` runs it alone after
+16. Keras phase (``--keras`` runs it alone after building rnn_cell.cu) —
+   ``tools/keras_h5.py`` authors ``keras.applications.ResNet50``'s
+   functional model as Keras's legacy H5 save writes it (224², 1000
+   classes, 25.6 M params drawn from SEED, ~103 MB) and the port's HDF5
+   reader and ``KerasModelImport`` import it into a ComputationGraph (the
+   read's and the import's seconds and MB/s): (a) at batch 4 on the card
+   against the same file imported on the CPU: inference and
+   training-mode probabilities, the loss, every gradient leaf, one Adam
+   step's displacements and the BN statistics, with the Dense head made
+   an OutputLayer (``keras_trainable``; ``TOL_KERAS``), a TF32 control
+   above them; (b) deployed through ``ModelRegistry.deploy`` behind a
+   ``FrontDoor``: rounds of 32 concurrent one-image ``POST /v1/classify``
+   requests (the scoring lane batches them), each answer against
+   ``output()`` of the 32 at batch 32, then the direct batch-32 ``output``
+   and the ONNX-imported zoo ResNet-50's in turns (host and device ms,
+   images/s, kernels a call, busy share); (c) ``fit`` at batch 32 (2
+   warm-up and 5 timed steps: images/s, device ms); (d) the Keras
+   char-LSTM (two LSTM(256), a per-step softmax over 47: R1's widths)
+   imported into a MultiLayerNetwork, both LSTMs on K11L, fitted on the
+   card and on the CPU over char_stream's sequences written as CSV and
+   read by ``CSVSequenceRecordReader`` into
+   ``SequenceRecordReaderDataSetIterator`` (the first batch's output and
+   each batch's loss under R1's rows), its characters/s beside R1's in
+   turns. (a)-(c) launch no kernel of the port; (d) K11Lf and K11Lb once
+   a layer and batch.
+17. distributed phase (last; ``--distributed`` runs it alone after
    building threshold.cu and the flash sources) — data-parallel training
    over a one-rank NCCL process group: (a) K6 (K6e, K6d, K6s-enc, K6s-dec
    of ``threshold.cu``) against its plain versions at ResNet-50's bucket
@@ -371,7 +396,9 @@ ResNet-50 at 64², the ranks' params held equal, NCCL's all-reduce timed);
 ``--attention`` the attention phase alone (after building every kernel);
 ``--recurrent`` the recurrent phase alone (it builds only rnn_cell.cu,
 K11 and K11L); ``--samediff`` the SameDiff phase alone (it builds only the
-flash sources); ``--onnx`` the ONNX phase alone (the four flash sources).
+flash sources); ``--onnx`` the ONNX phase alone (the four flash sources);
+``--keras`` the Keras phase alone (rnn_cell.cu); ``--readings keras``
+takes the CPU readings of the Keras rows (OUT_DIR/``keras_readings.json``).
 """
 from __future__ import annotations
 
@@ -10404,6 +10431,524 @@ def onnx_phase(torch, smi=None):
 
 
 
+# ------------------------------------------------------------------- keras
+# Keras H5 import and DataVec on the card (PERF.md's Keras rows). The
+# tool's Keras ResNet-50 (tools/keras_h5.py: keras.applications.ResNet50's
+# functional layout and names, 224², 1000 classes, conv biases, BN epsilon
+# 1.001e-5, weights drawn from SEED) is read by the port's HDF5 reader and
+# imported by KerasModelImport into a ComputationGraph; its head is the
+# Dense layer Keras saved, which neither package trains, so (a) and (c)
+# train it with the Dense made an OutputLayer (softmax, mcxent) on the same
+# params (``keras_trainable``) under the imported updater (the reference's
+# Adam(1e-3)). The tool's char-LSTM (Input((50, 47)), LSTM(256,
+# return_sequences) × 2, TimeDistributed(Dense(47, softmax)): R1's widths)
+# is imported into a MultiLayerNetwork and trained on char_stream's
+# sequences written as CSV, one file a sequence, and read back through
+# CSVSequenceRecordReader and SequenceRecordReaderDataSetIterator.
+KERAS_CHECK_BATCH = NET_CHECK_BATCH    # (a) the card against the CPU
+KERAS_BATCH = 32                       # (b) and (c)
+KERAS_WARM, KERAS_TIMED = 2, 10        # (b) output calls a turn
+KERAS_FIT_WARM, KERAS_FIT_TIMED = 2, 5  # (c) fit steps
+# (b) a 32-image JSON body at 224² is ~50 MB, over the front door's 16 MiB
+# request limit: the batch of 32 is 32 clients of one image each at once,
+# batched by the scoring lane (batch_limit 32), KERAS_ROUNDS times
+KERAS_CLIENTS, KERAS_ROUNDS = 32, 3
+# the lane waits up to this long to fill a batch (a request's JSON, ~3 MB,
+# takes the front door tens of ms to parse)
+KERAS_MAX_WAIT_MS = 1000.0
+KL_BATCHES = 10                        # (d) DataVec batches of RNN_BATCH
+KL_STEPS = 50                          # the Keras input's length
+# (a) rows, set before the first card run from CPU readings of f32 against
+# f64 (``keras_readings``, ``--readings keras`` on the CPU of the H100's
+# host machine, batch 4, 224²): probabilities 5.3e-7, loss 5.2e-7, the
+# worst gradient leaf 0.0088 (median 0.0028), BN statistics 1.8e-5, the
+# inference output (the file's BN statistics) 1.6e-6, the Adam step where
+# the gradients agree 3.5e-5 with 1.6 % of the elements left out. Each
+# sits under network_phase's ResNet-50 rows (TOL_NET_F32) by more than 3×
+# two f32 runs' spread, so those rows stand; the step takes the zoo's
+# Adam rows (_AGREED), the inference output the probabilities' row
+TOL_KERAS = {**TOL_NET_F32, **_AGREED, "output": TOL_NET_F32["probs"]}
+# a convolution's bias ahead of a BN layer has no gradient in exact
+# arithmetic (the BN takes out any shift): each leaf's norm is floored at
+# this share of its tree's
+KERAS_FLOOR = 1e-5
+# (d) R1's (a) rows: the fitted nets' output on the first batch (relative
+# L2) and each batch's loss (largest |Δ|); the same CPU readings of the
+# Keras net read 7.6e-8 and 2.4e-7 (its loss a mean over the masked
+# steps, ~3.8, where R1's sums the chunk's, ~190)
+TOL_KERAS_LSTM = {k: TOL_RNN_F32[k] for k in ("probs", "loss")}
+
+
+def keras_trainable(net):
+    """``net`` (an imported functional graph) with its Dense outputs made
+    OutputLayers (the loss from the activation, as the sequential import
+    promotes its last Dense), on the same params and BN statistics, with
+    a fresh updater."""
+    import dataclasses
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    conf = type(net.conf).from_json(net.conf.to_json())
+    keep = {f.name for f in dataclasses.fields(L.OutputLayer)}
+    for name in conf.network_outputs:
+        node = conf.nodes[name]
+        d = node.layer
+        if type(d) is L.DenseLayer:
+            node.layer = L.OutputLayer(
+                **{f.name: getattr(d, f.name)
+                   for f in dataclasses.fields(d) if f.name in keep},
+                loss_function={"softmax": "mcxent", "sigmoid": "xent"}.get(
+                    d.activation, "mse"))
+    new = ComputationGraph(conf, device=net.device).init()
+    new.set_param_tree(net.param_tree())
+    new.set_state_tree(net.state_tree())
+    new._opt_state = new._opt.init(new._leaves())
+    return new
+
+
+def keras_import(path, device):
+    """(the imported graph, seconds to read every weight through the
+    port's reader, the bytes read, seconds of the whole import)."""
+    from deeplearning4j_tpu_torch.modelimport import hdf5
+    from deeplearning4j_tpu_torch.modelimport import keras as K
+    t = time.perf_counter()
+    with hdf5.File(path) as f:
+        json.loads(f.attrs["model_config"])
+        weights = K._H5Weights(f)
+    read_s = time.perf_counter() - t
+    nbytes = sum(a.nbytes for layer in weights.by_layer.values()
+                 for a in layer.values())
+    del weights
+    t = time.perf_counter()
+    net = K.KerasModelImport.import_keras_model_and_weights(path,
+                                                            device=device)
+    if device != "cpu":
+        __import__("torch").cuda.synchronize()
+    return net, read_s, nbytes, time.perf_counter() - t
+
+
+def keras_card_vs_cpu(torch, path, smi):
+    """(a): the file imported on the card and on the CPU at
+    KERAS_CHECK_BATCH: inference probabilities (the file's BN statistics),
+    then ``zoo_run``'s training-mode probabilities, loss, every gradient
+    leaf, one Adam step's displacements (held where the gradients agree,
+    ``agreed_step_errors``) and BN statistics, under TOL_KERAS; a TF32
+    control must read above them."""
+    from deeplearning4j_tpu_torch.nn.params import tree_to_numpy
+    x, y = network_data(KERAS_CHECK_BATCH, seed=SEED + 61)
+    cpu_graph, read_s, nbytes, import_s = keras_import(path, "cpu")
+    cpu_infer = cpu_graph.output(x).float().numpy()
+    cpu = keras_trainable(cpu_graph)
+    del cpu_graph
+    base = tree_to_numpy(cpu.param_tree())
+    eps = elementwise(cpu)
+    cpu_out = zoo_run(cpu, x, y)
+    del cpu
+    reports, timings = {}, {"cpu": {"read_s": read_s, "import_s": import_s}}
+    for label, tf32 in (("f32", False), ("tf32_control", True)):
+        graph, read_s, nbytes, import_s = keras_import(path, None)
+        timings[label] = {"read_s": read_s, "import_s": import_s,
+                          "read_mb_per_s": nbytes / 1e6 / read_s,
+                          "import_mb_per_s": nbytes / 1e6 / import_s}
+        card = keras_trainable(graph)
+        torch.backends.cudnn.allow_tf32 = tf32    # the import pins it off
+        try:
+            infer = graph.output(x).float().cpu().numpy()
+            del graph
+            rep = zoo_compare(zoo_run(card, x, y), cpu_out, base,
+                              KERAS_FLOOR, eps)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        rep["output"] = rel_l2(infer, cpu_infer)
+        reports[label] = rep
+        del card
+        torch.cuda.empty_cache()
+    failed = rows_failed(reports["f32"], TOL_KERAS)
+    control = rows_failed(reports["tf32_control"], TOL_KERAS)
+    emit(keras_import={"gpu": smi, "bytes": nbytes, **timings},
+         keras_card_vs_cpu=reports, rows=TOL_KERAS, floor=KERAS_FLOOR,
+         failed=failed, control_failed=control)
+    check(not failed, f"(a) the Keras ResNet-50 f32 on the card against "
+          f"the CPU above its rows: {failed}: {reports['f32']}")
+    check(bool(control), "(a) the TF32 control passed the f32 rows: they "
+          "cannot tell TF32 from f32")
+    return reports
+
+
+def keras_classify(addr, x):
+    """KERAS_CLIENTS concurrent ``POST /v1/classify`` requests, one image
+    of ``x`` each: (each response's status and outputs, wall seconds)."""
+    bodies = [json.dumps({"inputs": x[i:i + 1].tolist()},
+                         separators=(",", ":")).encode()
+              for i in range(KERAS_CLIENTS)]
+    results = [None] * KERAS_CLIENTS
+
+    def client(i):
+        code, body, _h = http_call(addr, "/v1/classify", raw=bodies[i])
+        results[i] = (code, body.get("outputs"))
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(KERAS_CLIENTS)]
+    t = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(FD_TIMEOUT_S)
+    return results, time.perf_counter() - t
+
+
+def keras_serve(torch, net, smi):
+    """(b): ``net`` deployed through ``ModelRegistry.deploy`` (batch limit
+    KERAS_BATCH) behind a FrontDoor: KERAS_ROUNDS rounds of KERAS_CLIENTS
+    concurrent one-image classify requests, every response held against
+    ``net.output`` of the 32 images at batch 32 (TOL_SCORING's f32 row);
+    then the direct batch-32 ``output`` and the ONNX-imported zoo
+    ResNet-50's (``onnx_phase``'s path) in turns (Keras, ONNX, ONNX, Keras): host
+    ms, images/s, and a profiler window of 3 calls each (device ms,
+    kernels a call, busy share)."""
+    from deeplearning4j_tpu_torch.modelimport.onnximport import (
+        OnnxGraphMapper)
+    from deeplearning4j_tpu_torch.serving import (FrontDoor, ModelRegistry,
+                                                  ServingRouter)
+    from deeplearning4j_tpu_torch.tools import onnx_resnet
+    x, _ = network_data(KERAS_BATCH, seed=SEED + 63)
+    want = net.output(x).float().cpu().numpy()
+    reg = ModelRegistry()
+    t = time.perf_counter()
+    reg.deploy("keras-resnet50", net, sample_input=x[:1],
+               batch_limit=KERAS_BATCH, max_wait_ms=KERAS_MAX_WAIT_MS)
+    deploy_s = time.perf_counter() - t
+    fd = FrontDoor(ServingRouter(reg, "keras-resnet50"), host="127.0.0.1",
+                   port=0).start()
+    batches0 = counter_value("dl4j_inference_batches_total")
+    rounds = []
+    try:
+        for _ in range(KERAS_ROUNDS):
+            results, wall = keras_classify(fd.get_address(), x)
+            codes = [r[0] if r else None for r in results]
+            ok = all(c == 200 for c in codes)
+            err = (max(float(np.abs(np.asarray(r[1], np.float32)[0]
+                                    - want[i]).max())
+                       for i, r in enumerate(results)) if ok else None)
+            rounds.append({"wall_s": wall, "images_per_s":
+                           KERAS_CLIENTS / wall, "codes_ok": ok,
+                           "max_abs_err": err})
+    finally:
+        fd.stop()
+        reg.shutdown(drain_timeout_s=FD_TIMEOUT_S)
+    lane_batches = counter_value("dl4j_inference_batches_total") - batches0
+    emit(keras_classify={"gpu": smi, "deploy_s": deploy_s, "rounds": rounds,
+                         "lane_batches": lane_batches,
+                         "requests": KERAS_CLIENTS * KERAS_ROUNDS,
+                         "row": TOL_SCORING["float32"]})
+    check(all(r["codes_ok"] for r in rounds),
+          f"(b) a /v1/classify request failed: {rounds}")
+    check(all(r["max_abs_err"] <= TOL_SCORING["float32"] for r in rounds),
+          f"(b) /v1/classify against output() at batch 32 above "
+          f"{TOL_SCORING['float32']}: {rounds}")
+
+    onnx = onnx_net(torch, None)
+    t = time.perf_counter()
+    model = onnx_resnet.to_onnx(onnx, KERAS_BATCH)
+    del onnx
+    torch.cuda.empty_cache()
+    sd = OnnxGraphMapper.import_model(model)
+    onnx_s = time.perf_counter() - t
+    del model
+    xn = np.ascontiguousarray(x.transpose(0, 3, 1, 2))
+    calls = {"keras": lambda: net.output(x),
+             "onnx": lambda: sd.output({"input": xn}, "output")}
+    for fn in calls.values():
+        for _ in range(KERAS_WARM):
+            fn()
+    torch.cuda.synchronize()
+    host = {k: [] for k in calls}
+    for who in ("keras", "onnx", "onnx", "keras"):
+        for _ in range(KERAS_TIMED):
+            t = time.perf_counter()
+            calls[who]()
+            torch.cuda.synchronize()
+            host[who].append(1e3 * (time.perf_counter() - t))
+    rows = {}
+    for who, fn in calls.items():
+        prof = profile_window(torch, f"keras_serve_{who}",
+                              lambda f=fn: [f() for _ in range(3)],
+                              f"keras_serve_{who}_trace.json")
+        ms = statistics.median(host[who])
+        rows[who] = {"host_ms": ms, "images_per_s": KERAS_BATCH * 1e3 / ms,
+                     "device_ms": prof.get("device_busy_us", 0) / 3e3,
+                     "kernels_per_call": prof.get("kernels", 0) / 3,
+                     "busy_share": prof.get("busy_share"),
+                     "top_kernels": prof.get("top_kernels")}
+    del sd
+    torch.cuda.empty_cache()
+    emit(keras_serve={"gpu": smi, "batch": KERAS_BATCH,
+                      "onnx_author_import_s": onnx_s, **rows})
+    return rows
+
+
+def keras_fit(torch, net, smi):
+    """(c): the trainable graph fits KERAS_FIT_WARM + KERAS_FIT_TIMED
+    steps at batch 32 on one seeded batch: host ms and images/s a step, a
+    profiled step's device ms, kernels and busy share; every loss
+    finite."""
+    x, y = network_data(KERAS_BATCH, seed=SEED + 65)
+    net.score_every = 1
+    losses, host = [], []
+    for i in range(KERAS_FIT_WARM + KERAS_FIT_TIMED):
+        t = time.perf_counter()
+        net.fit(x, y)
+        torch.cuda.synchronize()
+        if i >= KERAS_FIT_WARM:
+            host.append(1e3 * (time.perf_counter() - t))
+        losses.append(net.score())
+    prof = profile_window(torch, "keras_fit", lambda: net.fit(x, y),
+                          "keras_fit_trace.json")
+    ms = statistics.median(host)
+    fit = {"gpu": smi, "batch": KERAS_BATCH, "host_ms": ms,
+           "host_ms_all": host, "images_per_s": KERAS_BATCH * 1e3 / ms,
+           "device_ms": prof.get("device_busy_us", 0) / 1e3,
+           "kernels_per_step": prof.get("kernels", 0),
+           "busy_share": prof.get("busy_share"),
+           "top_kernels": prof.get("top_kernels"), "losses": losses}
+    emit(keras_fit=fit)
+    check(all(math.isfinite(v) for v in losses),
+          f"(c) non-finite fit losses {losses}")
+    return fit
+
+
+def keras_char_csv(root, x, y):
+    """One CSV a sequence under ``root``, a row a step: the step's 47
+    one-hot features, then the next character's index (the label)."""
+    root.mkdir(parents=True, exist_ok=True)
+    labels = y.argmax(-1)
+    for i in range(len(x)):
+        lines = [",".join("1" if v else "0" for v in x[i, t])
+                 + f",{labels[i, t]}" for t in range(x.shape[1])]
+        (root / f"seq_{i:05d}.csv").write_text("\n".join(lines) + "\n")
+
+
+def keras_char_iterator(root):
+    from deeplearning4j_tpu_torch.data.record_reader_iterator import (
+        SequenceRecordReaderDataSetIterator)
+    from deeplearning4j_tpu_torch.datavec import (CSVSequenceRecordReader,
+                                                  FileSplit)
+    rr = CSVSequenceRecordReader().initialize(FileSplit(str(root)))
+    return SequenceRecordReaderDataSetIterator(
+        rr, batch_size=RNN_BATCH, num_possible_labels=RNN_CHARS,
+        label_index=-1)
+
+
+def keras_lstm(torch, root, smi):
+    """(d): the Keras char-LSTM on the card against the CPU, each fitted
+    once over the DataVec iterator (KL_BATCHES batches): every count 0
+    just before the card's fit and read just after (K11Lf and K11Lb once
+    a layer and batch, nothing else); the fitted nets' output on the
+    first batch and each batch's loss under R1's (a) rows; then
+    characters/s of the Keras net and of R1 (the zoo's
+    TextGenerationLSTM, TBPTT 50) over as many characters, in turns
+    (Keras, R1, R1, Keras). Returns the launch tuple."""
+    from deeplearning4j_tpu_torch.data import ListDataSetIterator
+    from deeplearning4j_tpu_torch.modelimport import KerasModelImport
+    from deeplearning4j_tpu_torch.tools import keras_h5
+    path = str(root / "char_lstm.h5")
+    keras_h5.write_char_lstm(path, seed=SEED, steps=KL_STEPS,
+                             chars=RNN_CHARS, units=RNN_WIDTH["R1"])
+    x, y = char_stream(RNN_BATCH * KL_BATCHES, KL_STEPS, seed=SEED + 67)
+    t = time.perf_counter()
+    keras_char_csv(root / "chars", x, y)
+    write_s = time.perf_counter() - t
+    t = time.perf_counter()
+    batches = list(keras_char_iterator(root / "chars"))
+    read_s = time.perf_counter() - t
+    got_x = np.concatenate([b.features for b in batches])
+    got_y = np.concatenate([b.labels for b in batches])
+    check(len(batches) == KL_BATCHES and np.array_equal(got_x, x)
+          and np.array_equal(got_y, y)
+          and all(np.all(b.features_mask == 1) for b in batches),
+          "(d) the DataVec iterator did not read back char_stream's "
+          "sequences")
+    nets = {dev: KerasModelImport.import_keras_sequential_model_and_weights(
+        path, device=dev) for dev in (None, "cpu")}
+    card, cpu = nets[None], nets["cpu"]
+    routes = [layer.cell_route() for layer in card.conf.layers[:2]]
+    check(routes == ["k11_layer"] * 2, f"(d) the imported LSTMs take "
+          f"{routes}, not K11L")
+    recorded = {}
+    for dev, net in nets.items():
+        rec = _ChunkScores()
+        net.setListeners(rec)
+        if dev is None:
+            reset_all_counts()
+        net.fit(keras_char_iterator(root / "chars"))
+        if dev is None:
+            launches = all_counts()
+        net.setListeners([])
+        recorded[dev] = rec.scores
+    first = batches[0].features
+    report = {"probs": rel_l2(card.output(first).float().cpu().numpy(),
+                              cpu.output(first).float().numpy()),
+              "loss": float(np.max(np.abs(np.subtract(recorded[None],
+                                                      recorded["cpu"]))))}
+    failed = rows_failed(report, TOL_KERAS_LSTM)
+    want = launch_counts(rnn_layer_fwd=2 * KL_BATCHES,
+                         rnn_layer_bwd=2 * KL_BATCHES)
+    emit(keras_lstm_card_vs_cpu=report, rows=TOL_KERAS_LSTM, failed=failed,
+         losses_card=recorded[None], losses_cpu=recorded["cpu"],
+         routes=routes, datavec={"files": len(x), "write_s": write_s,
+                                 "read_s": read_s,
+                                 "steps_per_s": x.shape[0] * x.shape[1]
+                                 / read_s},
+         keras_lstm_launches=dict(zip(ALL_KERNELS, launches)))
+    check(len(recorded[None]) == KL_BATCHES
+          and all(math.isfinite(v) for v in recorded[None]),
+          f"(d) the card's fit losses {recorded[None]}")
+    check(not failed, f"(d) the Keras char-LSTM on the card against the "
+          f"CPU above R1's rows: {failed}: {report}")
+    check(launches == want, f"(d) one fit of the Keras char-LSTM launched "
+          f"{dict(zip(ALL_KERNELS, launches))}, not K11Lf and K11Lb once a "
+          f"layer and batch")
+    del cpu, nets
+
+    # characters/s: the Keras net over the batches read, R1 over as many
+    # characters (KL_BATCHES chunks of RNN_TBPTT at RNN_BATCH)
+    r1 = rnn_net("R1", card.device)
+    xr, yr = char_stream(RNN_BATCH, KL_BATCHES * RNN_TBPTT, seed=SEED + 69)
+    runs = {"keras": lambda: card.fit(ListDataSetIterator(batches)),
+            "r1": lambda: r1.fit(xr, yr)}
+    timed = {k: [] for k in runs}
+    for who in ("keras", "r1", "r1", "keras"):
+        timed[who].append(fit_timing(torch, runs[who]))
+    rows = {}
+    chars = RNN_BATCH * KL_BATCHES * KL_STEPS
+    for who, fn in runs.items():
+        prof = profile_window(torch, f"keras_lstm_{who}", fn,
+                              f"keras_lstm_{who}_trace.json", top=12)
+        ms = statistics.median(timed[who])
+        busy = prof.get("device_busy_us")
+        k11_us = sum(k["us"] for k in prof.get("rnn_kernels") or [])
+        rows[who] = {"host_ms_per_fit": ms, "turns_ms": timed[who],
+                     "chars_per_s": chars / (ms / 1e3),
+                     "device_ms_per_fit": (busy / 1e3 if busy is not None
+                                           else None),
+                     "busy_share": prof.get("busy_share"),
+                     "k11l_share": (k11_us / busy if busy else None),
+                     "top_kernels": prof.get("top_kernels")}
+    emit(keras_lstm_timing={"gpu": smi, "chars_per_fit": chars, **rows})
+    del card, r1
+    return launches
+
+
+def keras_phase(torch, smi=None):
+    """Keras import and DataVec on the card: (a) the tool's ResNet-50
+    imported on the card against the CPU, (b) served over /v1/classify
+    and timed beside the ONNX ResNet-50, (c) fine-tuned, (d) the Keras
+    char-LSTM on K11L over DataVec. Returns ((a)-(c)'s launches, (d)'s);
+    (a)-(c) must launch no port kernel (their convolutions are
+    cuDNN's)."""
+    import tempfile
+    from deeplearning4j_tpu_torch.tools import keras_h5
+    if smi is None:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60).stdout.strip()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_keras_") as tmp:
+        root = Path(tmp)
+        path = str(root / "resnet50.h5")
+        reset_all_counts()
+        t = time.perf_counter()
+        keras_h5.write_resnet50(path, NET_SHAPE, NET_CLASSES, seed=SEED)
+        emit(keras_model={"bytes": os.path.getsize(path),
+                          "author_s": time.perf_counter() - t})
+        keras_card_vs_cpu(torch, path, smi)
+        net = keras_import(path, None)[0]
+        keras_serve(torch, net, smi)
+        trainable = keras_trainable(net)
+        del net
+        torch.cuda.empty_cache()
+        keras_fit(torch, trainable, smi)
+        del trainable
+        torch.cuda.empty_cache()
+        imported = all_counts()
+        check(not any(imported), f"the imported Keras ResNet-50 launched "
+              f"port kernels: {dict(zip(ALL_KERNELS, imported))}")
+        lstm = keras_lstm(torch, root, smi)
+        torch.cuda.empty_cache()
+    return imported, lstm
+
+
+def keras_readings():
+    """CPU readings for (a)'s rows: the file's ResNet-50 in f32 against
+    the same net in f64 at KERAS_CHECK_BATCH (``zoo_run`` on both,
+    ``zoo_compare`` with KERAS_FLOOR, the inference output too); and the
+    char-LSTM's fit over KL_BATCHES batches, f32 against f64 (each
+    batch's loss, the output on the first batch)."""
+    import tempfile
+    import torch
+    from deeplearning4j_tpu_torch.modelimport import KerasModelImport
+    from deeplearning4j_tpu_torch.nn.params import tree_to_numpy
+    from deeplearning4j_tpu_torch.tools import keras_h5
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_keras_") as tmp:
+        path = f"{tmp}/resnet50.h5"
+        keras_h5.write_resnet50(path, NET_SHAPE, NET_CLASSES, seed=SEED)
+        x, y = network_data(KERAS_CHECK_BATCH, seed=SEED + 61)
+        graph = KerasModelImport.import_keras_model_and_weights(
+            path, device="cpu")
+
+        def make():
+            return keras_trainable(graph)
+
+        net = make()
+        base = tree_to_numpy(net.param_tree())
+        f64 = _keeps_f64(_f64_copy(net, make))
+        f64._states = {k: {p: v.double() for p, v in layer.items()}
+                       for k, layer in f64._states.items()}
+        with torch.no_grad():
+            infer64, _, _ = f64._forward(f64._params, f64._states,
+                                         (f64._to_device(x),), False, None)
+        infer32 = graph.output(x).numpy()
+        truth = zoo_run(f64, x.astype(np.float64), y.astype(np.float64))
+        rep = zoo_compare(zoo_run(net, x, y), truth, base, KERAS_FLOOR,
+                          elementwise(net))
+        rep["output"] = rel_l2(infer32, infer64[
+            graph.conf.network_outputs[0]].numpy())
+        out["resnet50_f32_vs_f64"] = rep
+        print(json.dumps(out, default=str), flush=True)
+        del graph, net, f64, truth
+
+        lpath = f"{tmp}/char_lstm.h5"
+        keras_h5.write_char_lstm(lpath, seed=SEED, steps=KL_STEPS,
+                                 chars=RNN_CHARS, units=RNN_WIDTH["R1"])
+        x, y = char_stream(RNN_BATCH * KL_BATCHES, KL_STEPS, seed=SEED + 67)
+
+        def make_lstm():
+            return KerasModelImport.import_keras_sequential_model_and_weights(
+                lpath, device="cpu")
+
+        from deeplearning4j_tpu_torch.data.dataset import DataSet
+        net = make_lstm()
+        f64 = _keeps_f64(_f64_copy(net, make_lstm))
+        losses = {32: [], 64: []}
+        ones = np.ones((RNN_BATCH, KL_STEPS), np.float32)
+        for i in range(KL_BATCHES):      # as the DataVec iterator yields
+            s = slice(i * RNN_BATCH, (i + 1) * RNN_BATCH)
+            net.fit(DataSet(x[s], y[s], ones, ones))
+            losses[32].append(net.score())
+            f64.fit(DataSet(x[s].astype(np.float64), y[s].astype(np.float64),
+                            ones.astype(np.float64), ones.astype(np.float64)))
+            losses[64].append(f64.score())
+        first = x[:RNN_BATCH]
+        with torch.no_grad():
+            p64 = f64.output(first.astype(np.float64)).numpy()
+        out["char_lstm_f32_vs_f64"] = {
+            "probs": rel_l2(net.output(first).numpy(), p64),
+            "loss": float(np.max(np.abs(np.subtract(losses[32],
+                                                    losses[64])))),
+            "losses_f32": losses[32]}
+    print(json.dumps(out, default=str), flush=True)
+    return out
+
+
 # ------------------------------------------------------------ distributed
 # Data-parallel training and the compressed gradient exchange (K6): the
 # zoo ResNet-50 on TinyImageNetDataSetIterator's seeded synthetic images
@@ -11334,6 +11879,12 @@ def main() -> int:
                         "graph, served and fine-tuned at batch 32, the "
                         "registry's fused attention ops on K1/K2) after "
                         "building the flash kernels")
+    parser.add_argument("--keras", action="store_true",
+                        help="run only the Keras phase (the authored Keras "
+                        "ResNet-50 imported against the CPU, served over "
+                        "/v1/classify and fine-tuned at batch 32; the Keras "
+                        "char-LSTM on K11L over DataVec) after building "
+                        "rnn_cell.cu")
     parser.add_argument("--distributed", action="store_true",
                         help="run only the distributed phase (K6 against "
                         "its plain versions, ResNet-50 through "
@@ -11361,6 +11912,8 @@ def main() -> int:
             readings, name = transfer_readings(), "transfer_readings.json"
         elif args.readings == ["scoring"]:
             readings, name = scoring_readings(), "scoring_readings.json"
+        elif args.readings == ["keras"]:
+            readings, name = keras_readings(), "keras_readings.json"
         else:
             readings = (zoo_readings(tuple(args.readings)) if args.readings
                         else zoo_readings())
@@ -11457,6 +12010,17 @@ def main() -> int:
             "onnx_import": dict(zip(ALL_KERNELS, imported)),
             "onnx_attention": dict(zip(ALL_KERNELS, attention))},
             phase_seconds={"onnx_phase": time.perf_counter() - t0})
+        return 0
+    if args.keras:
+        t0 = time.perf_counter()
+        _build.load("rnn_cell")
+        emit(build={"seconds": time.perf_counter() - t0})
+        check_rnn_cell_build(_build)
+        t0 = time.perf_counter()
+        imported, lstm = keras_phase(torch, smi)
+        emit(keras_launches={"keras_import": dict(zip(ALL_KERNELS, imported)),
+                             "keras_lstm": dict(zip(ALL_KERNELS, lstm))},
+             phase_seconds={"keras_phase": time.perf_counter() - t0})
         return 0
     if args.rank_worker:
         rank_worker(torch, smi)
@@ -11652,6 +12216,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     onnx_import, onnx_attention = timed("onnx_phase", onnx_phase, torch, smi)
     torch.cuda.empty_cache()
+    keras_import, keras_lstm = timed("keras_phase", keras_phase, torch, smi)
+    torch.cuda.empty_cache()
     distributed, dist = timed("distributed_phase", distributed_phase, torch,
                               smi)
     paths = {"serve": serve, "serve_modes": modes, "pipeline": pipeline,
@@ -11663,6 +12229,7 @@ def main() -> int:
              "scoring": scoring, "samediff_import": samediff_import,
              "samediff_attention": samediff_attention,
              "onnx_import": onnx_import, "onnx_attention": onnx_attention,
+             "keras_import": keras_import, "keras_lstm": keras_lstm,
              "distributed": distributed}
     launches = {name: {path: counts_[i] for path, counts_ in paths.items()}
                 for i, name in enumerate(ALL_KERNELS)}
@@ -11674,7 +12241,7 @@ def main() -> int:
           f"the attention op took its plain route on the card: "
           f"{launches['attention_plain']}")
     check_recurrent_launches(recurrent, wide, (attention, attention_modules,
-                                               onnx_attention))
+                                               onnx_attention, keras_import))
     check_distributed_launches(distributed)
     emit(kernels=[kernel_entry("wgmma", cases, launches["wgmma"], masked),
                   kernel_entry("simple", cases, launches["simple"], masked),

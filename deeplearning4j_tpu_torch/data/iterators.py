@@ -2,8 +2,8 @@
 (the reference's ``DataSetIterator``, ``ListDataSetIterator``,
 ``ArrayDataSetIterator``, ``AsyncDataSetIterator``, ``MultipleEpochsIterator``
 and the device prefetch the fit loops wrap an iterator in).
-``record_reader_iterator.py`` comes with ``datavec/`` (ROADMAP queue 1
-item 10)."""
+``record_reader_iterator.py`` holds the DataVec bridges,
+``RecordReaderDataSetIterator`` and ``SequenceRecordReaderDataSetIterator``."""
 from __future__ import annotations
 
 import queue

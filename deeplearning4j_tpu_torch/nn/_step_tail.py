@@ -33,10 +33,13 @@ def finish_train_step(opt, params: List[torch.Tensor], opt_state,
     any_frozen = any(frozen)
     if any_frozen:
         grads = _mask(grads, frozen)
-    updates, new_opt_state = opt.update(grads, opt_state, params)
-    if any_frozen:
-        updates = _mask(updates, frozen)
-    new_params = apply_updates(params, updates)
+    if params:
+        updates, new_opt_state = opt.update(grads, opt_state, params)
+        if any_frozen:
+            updates = _mask(updates, frozen)
+        new_params = apply_updates(params, updates)
+    else:                     # a net without params (a pooling-only graph)
+        updates, new_opt_state, new_params = [], opt_state, []
     news = [new for new, _ in guarded]
     health = None
     if _num.numerics_enabled():

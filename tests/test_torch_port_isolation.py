@@ -89,7 +89,15 @@ def test_port_has_modules_to_check():
                              "tools/onnx_resnet", "parallel/mesh",
                              "parallel/master", "parallel/sharding",
                              "parallel/compression", "parallel/trainer",
-                             "parallel/__init__", "kernels/threshold"))):
+                             "parallel/__init__", "kernels/threshold",
+                             "modelimport/hdf5", "modelimport/keras",
+                             "modelimport/__init__", "tools/keras_h5",
+                             "data/record_reader_iterator",
+                             "utils/resources",
+                             *(f"datavec/{m}" for m in (
+                                 "__init__", "writable", "schema",
+                                 "records", "transform", "local",
+                                 "distributed", "image", "arrow"))))):
         assert must in names and (ROOT / must).exists()
 
 
@@ -215,3 +223,62 @@ def test_unresolved_lazy_import_is_caught(tmp_path):
     refs = list(_port_references(src))
     assert refs == [(f"{PORT}.resilience", "elastic", 3)]
     assert not _resolves(*refs[0][:2])
+
+
+# the imports a module of the port may make only inside the functions
+# that need them, as the JAX package's DataVec does: where those
+# functions live (the card's machine has none of these packages)
+LAZY = {"PIL": {"deeplearning4j_tpu_torch/datavec/image.py",
+                "deeplearning4j_tpu_torch/data/vision.py"},
+        "pyarrow": {"deeplearning4j_tpu_torch/datavec/arrow.py"},
+        "h5py": set()}
+
+
+@pytest.mark.parametrize("path", FILES,
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_pil_pyarrow_and_h5py_only_lazily(path):
+    """No module imports PIL, pyarrow or h5py when it is imported; PIL
+    and pyarrow are imported inside functions of the modules the JAX
+    package imports them in (DataVec's image and Arrow modules, the Tiny
+    ImageNet reader), and h5py nowhere."""
+    rel = path.relative_to(ROOT).as_posix()
+    eager = _module_level_imports(path) & set(LAZY)
+    assert not eager, f"{rel} imports {eager} at module level"
+    for name in set(_top_level_imports(path)) & set(LAZY):
+        assert rel in LAZY[name], f"{rel} imports {name}"
+
+
+def test_keras_import_and_datavec_import_nothing_heavy():
+    """Importing the Keras importer, the HDF5 reader, the Keras tool,
+    DataVec and its iterators in a fresh interpreter pulls in none of
+    JAX, the JAX package, TF, h5py, PIL or pyarrow; and the reader reads
+    the tool's char-LSTM there."""
+    import subprocess
+    import sys
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        code = (
+            "import sys; sys.path.insert(0, %r)\n"
+            "from deeplearning4j_tpu_torch.modelimport import "
+            "KerasModelImport\n"
+            "from deeplearning4j_tpu_torch.modelimport import hdf5\n"
+            "from deeplearning4j_tpu_torch.tools import keras_h5\n"
+            "import deeplearning4j_tpu_torch.datavec\n"
+            "import deeplearning4j_tpu_torch.datavec.image\n"
+            "import deeplearning4j_tpu_torch.data.record_reader_iterator\n"
+            "keras_h5.write_char_lstm(%r)\n"
+            "net = KerasModelImport.import_keras_sequential_model_and_weights("
+            "%r, device='cpu')\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'tensorflow', 'keras', 'h5py', 'PIL', "
+            "'pyarrow', 'deeplearning4j_tpu'))\n"
+            "print(net.numParams(), bad)\n") % (
+                str(ROOT), f"{d}/c.h5", f"{d}/c.h5")
+        out = subprocess.run([sys.executable, "-I", "-c", code],
+                             capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    n, bad = out.stdout.strip().split(" ", 1)
+    assert int(n) == (4 * 256 * (47 + 256 + 1) + 4 * 256 * (256 + 256 + 1)
+                      + 47 * (256 + 1))
+    assert bad == "[]", out.stdout
