@@ -335,7 +335,7 @@ K4w spill nothing, and that no wgmma source has its products serialized
    each batch's loss under R1's rows), its characters/s beside R1's in
    turns. (a)-(c) launch no kernel of the port; (d) K11Lf and K11Lb once
    a layer and batch.
-17. distributed phase (last; ``--distributed`` runs it alone after
+17. distributed phase (``--distributed`` runs it alone after
    building threshold.cu and the flash sources) — data-parallel training
    over a one-rank NCCL process group: (a) K6 (K6e, K6d, K6s-enc, K6s-dec
    of ``threshold.cu``) against its plain versions at ResNet-50's bucket
@@ -360,6 +360,25 @@ K4w spill nothing, and that no wgmma source has its products serialized
    skeleton at (2, 128) against no mesh (``TOL_SD``'s loss row); then the
    net's own fit, the dense and the compressed trainer in turns, profiled
    (K6's share of the compressed step's device time).
+18. ND4J phase (last; ``--nd4j`` runs it alone after building the two
+   K1 sources) — the port's ``NDArray``, ``nd``/``Nd4j``, ``Transforms``,
+   ``NDArrayIndex`` and the executioner on the card: (a) transforms over
+   2^26 f32 elements and reductions along each dim of an (8192, 8192)
+   array against the port on the CPU on the same numpy inputs
+   (``TOL_ND``), ``gemm`` at 8192³ f32 (TF32 off; a TF32 control must miss
+   the row), a view chain ``get(interval, all).get(point)`` written with
+   ``addi``/``assign`` (exact); (b) ``net.params()`` on the zoo ResNet-50
+   (25.6 M params): ``muli(0.5)`` against a net given ``setParams(0.5
+   p0)``, ``get(interval(a, b)).assign(0)`` zeroing exactly one layer's W;
+   (c) ``Nd4j.getExecutioner().exec`` of ``dot_product_attention`` (f32:
+   K1 simple; bf16: K1 wgmma) with a ragged key mask and of
+   ``multi_head_dot_product_attention`` on ``Nd4j.randn`` arrays at
+   BERT-base's widths (32, 12 heads, 128, 64) against the op's plain
+   version; (d) ``saveBinary``/``readBinary``, ``toByteArray``/
+   ``fromByteArray`` and the compressor on the flat params, bitwise, the
+   bytes ``np.save``'s; (e) gemm TFLOP/s, transforms GB/s, µs per eager
+   ``addi`` against raw ``add_``, the params view's read and write ms, IO
+   MB/s. The phase launches K1 (both kernels) and nothing else.
 
 Every phase must pass: any failure exits nonzero. Output is one JSON
 object per line; the last line is ``{"ok": true, "device": {...}}``.
@@ -398,7 +417,8 @@ ResNet-50 at 64², the ranks' params held equal, NCCL's all-reduce timed);
 K11 and K11L); ``--samediff`` the SameDiff phase alone (it builds only the
 flash sources); ``--onnx`` the ONNX phase alone (the four flash sources);
 ``--keras`` the Keras phase alone (rnn_cell.cu); ``--readings keras``
-takes the CPU readings of the Keras rows (OUT_DIR/``keras_readings.json``).
+takes the CPU readings of the Keras rows (OUT_DIR/``keras_readings.json``);
+``--nd4j`` the ND4J phase alone (the two K1 sources).
 """
 from __future__ import annotations
 
@@ -11722,7 +11742,7 @@ def rank_worker(torch, smi):
         # card (the reference's global program), that fit again, and the
         # fit of the batch with its rows reversed
         ones = ([dist_net(dev) for _ in range(3)] if rank == 0 else [])
-        p0 = ones[0].params().clone() if ones else None
+        p0 = ones[0].params().buf().clone() if ones else None
         losses, one_losses, vs_one = [], [], []
         twice, reversed_rows, permuted, first_step = [], [], [], None
         for i in range(RANKS_STEPS):
@@ -11735,10 +11755,10 @@ def rank_worker(torch, smi):
                 again.fit(xb, yb)
                 rev.fit(xb[::-1].copy(), yb[::-1].copy())
                 one_losses.append(one.score())
-                p1 = one.params()
-                vs_one.append(float((p1 - net.params()).abs().max()))
-                twice.append(float((p1 - again.params()).abs().max()))
-                reversed_rows.append(float((p1 - rev.params()).abs().max()))
+                p1 = one.params().buf()
+                vs_one.append(float((p1 - net.params().buf()).abs().max()))
+                twice.append(float((p1 - again.params().buf()).abs().max()))
+                reversed_rows.append(float((p1 - rev.params().buf()).abs().max()))
             if ones and i == 0:
                 first_step = float((p1 - p0).abs().max())
                 order = np.random.default_rng(SEED + 9)
@@ -11746,11 +11766,11 @@ def rank_worker(torch, smi):
                     perm = order.permutation(gb)
                     other = dist_net(dev)
                     other.fit(xb[perm], yb[perm])
-                    permuted.append(float((p1 - other.params())
+                    permuted.append(float((p1 - other.params().buf())
                                           .abs().max()))
                     del other
         dense = {"losses": losses,
-                 "rank_spread": _rank_spread(torch, net.params()),
+                 "rank_spread": _rank_spread(torch, net.params().buf()),
                  "backend": dist.get_backend(),
                  "one_card_losses": one_losses,
                  "params_vs_one_card_by_step": vs_one,
@@ -11769,7 +11789,7 @@ def rank_worker(torch, smi):
         state = net2._grad_compression_state
         thr = torch.stack([t.reshape(()) for t in state["threshold"]])
         comp = {"losses": losses2,
-                "rank_spread": _rank_spread(torch, net2.params()),
+                "rank_spread": _rank_spread(torch, net2.params().buf()),
                 "threshold_spread": _rank_spread(torch, thr),
                 "thresholds": [float(t) for t in thr],
                 "residual_spread": _rank_spread(torch, state["residual"][0]),
@@ -11817,6 +11837,328 @@ def rank_worker(torch, smi):
               f"K6 launches {comp['launches']}")
     finally:
         dist.destroy_process_group()
+
+
+# -------------------------------------------------------------------- nd4j
+# ND4J on the card (PERF.md's ND4J rows): the port's NDArray surface at the
+# sizes its users call it at — a 2^26-element f32 array (256 MiB), an
+# 8192³ product — held against the same surface on the CPU (the same numpy
+# inputs); the write-through params view at the zoo ResNet-50 (25.6 M
+# params); the executioner's attention on K1 at BERT-base's widths.
+ND_SIDE = 8192                     # (a): an (ND_SIDE, ND_SIDE) f32 = 2^26
+ND_TRANSFORMS = ("sigmoid", "tanh", "gelu", "softmax", "log", "exp")
+ND_REDUCTIONS = ("sum", "mean", "std", "norm2", "argMax")
+ND_VIEW = ((100, 3, 4000), 7)      # (a): interval(begin, stride, end), point
+ND_ATTENTION = SD_ATTENTION        # (c): B, heads, T, head dim
+ND_ADDI = (1000, 1024)             # (e): eager calls, vector length
+# the rows, set before the first run: transforms at the registry's
+# elementwise row (the card's and the CPU's libm a few ulp apart),
+# reductions and the product by relative L2 at the reduction row (sums in
+# other orders), argMax and the view chain exact; (c) at K1's rows
+TOL_ND = {"transform": 1e-6, "reduction": 1e-5, "gemm": 1e-5}
+
+
+def nd_rel_l2(got, want):
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).norm() / max(float(want.norm()), 1e-30))
+
+
+def nd_card_vs_cpu(torch, out):
+    """(a): transforms, reductions, gemm and a view chain on the card
+    against the port on the CPU; (e)'s gemm, transform and eager-op
+    numbers."""
+    from deeplearning4j_tpu_torch.ndarray import NDArrayIndex as I
+    from deeplearning4j_tpu_torch.ndarray import nd
+    from deeplearning4j_tpu_torch.ops import transforms as T
+    rng = np.random.default_rng(SEED + 21)
+    x = rng.standard_normal((ND_SIDE, ND_SIDE), dtype=np.float32)
+    pos = np.abs(x) + np.float32(1e-2)
+    xc, xh = nd.create(x), nd.create(x, device="cpu")
+    check(xc.device.type == "cuda" and xh.device.type == "cpu",
+          f"(a) arrays on {xc.device} and {xh.device}")
+    n = x.size
+    rows = {}
+    for name in ND_TRANSFORMS:
+        fn = getattr(T, name)
+        a, h = ((nd.create(pos), nd.create(pos, device="cpu"))
+                if name == "log" else (xc, xh))
+        got, want = fn(a).buf().cpu(), fn(h).buf()
+        ok = bool(torch.allclose(got, want, atol=TOL_ND["transform"],
+                                 rtol=TOL_ND["transform"]))
+        dms = device_ms(lambda: fn(a), torch, launches=5, repeats=3)
+        rows[name] = {"max_abs_err": float((got - want).abs().max()),
+                      "ok": ok, "device_ms": dms,
+                      "GB_s": 8.0 * n / (dms * 1e-3) / 1e9,
+                      "bound_ms": 1e3 * 8.0 * n / PEAK_BYTES}
+        del got, want
+    out["transforms"] = rows
+    red = {}
+    for name in ND_REDUCTIONS:
+        for dim in (0, 1):
+            got = getattr(xc, name)(dim).buf()
+            want = getattr(xh, name)(dim).buf()
+            if name == "argMax":
+                err = int((got.cpu() != want).sum())
+                ok = err == 0
+            else:
+                err = nd_rel_l2(got, want)
+                ok = err <= TOL_ND["reduction"]
+            red[f"{name}/{dim}"] = {"err": err, "ok": ok}
+    red["sum/1"]["device_ms"] = device_ms(lambda: xc.sum(1), torch,
+                                          launches=5, repeats=3)
+    out["reductions"] = red
+    y = np.random.default_rng(SEED + 23).standard_normal(
+        (ND_SIDE, ND_SIDE), dtype=np.float32)
+    yc, yh = nd.create(y), nd.create(y, device="cpu")
+    t = time.perf_counter()
+    want = nd.gemm(xh, yh).buf()
+    cpu_s = time.perf_counter() - t
+    got = nd.gemm(xc, yc).buf()
+    err = nd_rel_l2(got, want)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        err_tf32 = nd_rel_l2(nd.gemm(xc, yc).buf(), want)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dms = device_ms(lambda: nd.gemm(xc, yc), torch, launches=3, repeats=3)
+    hms = time_ms(lambda: nd.gemm(xc, yc), torch, iters=3, repeats=3)
+    flops = 2.0 * ND_SIDE ** 3
+    out["gemm"] = {"rel_l2": err, "tf32_control_rel_l2": err_tf32,
+                   "device_ms": dms, "ms": hms, "TFLOP_s": flops / dms / 1e9,
+                   "bound_ms": 1e3 * flops / PEAK_FLOPS["float32"],
+                   "cpu_s": cpu_s}
+    del got, want, yc, yh
+    (b, st, e), p = ND_VIEW
+    for arr in (xc, xh):
+        chain = arr.get(I.interval(b, st, e), I.all())
+        chain.get(I.point(p)).addi(1.5)
+        chain.get(I.point(p + 1)).assign(-2.0)
+    out["view_chain_exact"] = bool(torch.equal(xc.buf().cpu(), xh.buf()))
+    calls, length = ND_ADDI
+    v = nd.zeros(length)
+    raw = torch.zeros(length, device=v.device)
+    v.addi(1.0)
+    raw.add_(1.0)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        v.addi(1.0)
+    torch.cuda.synchronize()
+    nd_us = (time.perf_counter() - t) / calls * 1e6
+    t = time.perf_counter()
+    for _ in range(calls):
+        raw.add_(1.0)
+    torch.cuda.synchronize()
+    raw_us = (time.perf_counter() - t) / calls * 1e6
+    out["eager_addi"] = {"us_per_op": nd_us, "raw_add_us_per_op": raw_us,
+                         "same": bool(torch.equal(v.buf(), raw))}
+    del xc, xh
+    for name, row in rows.items():
+        check(row["ok"], f"(a) {name}: card against CPU {row} over "
+              f"{TOL_ND['transform']}")
+    for key, row in red.items():
+        check(row["ok"], f"(a) {key}: card against CPU {row}")
+    check(err <= TOL_ND["gemm"], f"(a) gemm rel L2 {err} over "
+          f"{TOL_ND['gemm']}")
+    check(err_tf32 > TOL_ND["gemm"], f"(a) the TF32 control {err_tf32} "
+          f"met the f32 row {TOL_ND['gemm']}: the row cannot see TF32")
+    check(out["view_chain_exact"], "(a) the view chain differs between the "
+          "card and the CPU")
+    check(out["eager_addi"]["same"], "(a) eager addi != add_")
+
+
+def nd_params_view(torch, dev, out):
+    """(b): ``net.params()`` on the zoo ResNet-50; returns the flat params
+    (an NDArray on the card) for (d)."""
+    from deeplearning4j_tpu_torch.ndarray import NDArrayIndex as I
+    from deeplearning4j_tpu_torch.nn import params as flat
+    net = zoo_resnet("float32").init_model(device=dev)
+    twin = zoo_resnet("float32").init_model(device=dev)
+    xs, _ = network_data(NET_CHECK_BATCH)
+    view = net.params()
+    p0 = view.buf().clone()
+    read_ms = time_ms(lambda: view.buf(), torch, iters=5, repeats=3)
+    write_ms = time_ms(lambda: view.muli(1.0), torch, iters=3, repeats=3)
+    unchanged = bool(torch.equal(view.buf(), p0))
+    twin.set_state_tree(net.state_tree())
+    twin.setParams(0.5 * p0)
+    view.muli(0.5)
+    halved = bool(torch.equal(net.params().buf(), 0.5 * p0))
+    o_net, o_twin, o_twin2 = net.output(xs), twin.output(xs), twin.output(xs)
+    gap = float((o_net - o_twin).abs().max())
+    two_calls = float((o_twin2 - o_twin).abs().max())
+    del twin, o_net, o_twin, o_twin2
+    keys = flat.leaf_keys(net.param_tree())
+    sizes = [net.param_tree()[k][p].numel() for k, p in keys]
+    at = next(i for i, (k, p) in enumerate(keys)
+              if p == "W" and sizes[i] >= 1 << 16)
+    a = sum(sizes[:at])
+    name = "_".join(keys[at])
+    before = {k: t.clone() for k, t in net.paramTable().items()}
+    view.get(I.interval(a, a + sizes[at])).assign(0.0)
+    after = net.paramTable()
+    changed = sorted(k for k in after if not torch.equal(after[k],
+                                                         before[k]))
+    zeroed = bool((after[name] == 0).all())
+    out["params_view"] = {
+        "params": int(p0.numel()), "read_ms": read_ms, "write_ms": write_ms,
+        "muli_1_unchanged": unchanged, "halved_exact": halved,
+        "output_gap": gap, "two_calls_gap": two_calls,
+        "zeroed": name, "changed": changed, "zeroed_all": zeroed}
+    check(unchanged and halved, f"(b) params view writes: {out}")
+    check(gap <= two_calls, f"(b) output after params().muli(0.5) "
+          f"{gap} from the setParams(0.5 p0) net's, two calls of that net "
+          f"{two_calls}")
+    check(changed == [name] and zeroed, f"(b) params().get(interval)."
+          f"assign(0) changed {changed}, want exactly {name} zeroed")
+    got = net.params().dup()
+    del net, before, after
+    return got
+
+
+def nd_attention(torch, out):
+    """(c): the executioner's attention ops on ``Nd4j.randn`` arrays at
+    BERT-base's widths against the ops' plain versions on the card;
+    returns the launches of the executioner's calls."""
+    from deeplearning4j_tpu_torch.ndarray import Nd4j, nd
+    from deeplearning4j_tpu_torch.ops import standard as std
+    b, h, t, d = ND_ATTENTION
+    nd.setSeed(SEED)
+    q, k, v = (Nd4j.randn(b, h, t, d) for _ in range(3))
+    keep = np.random.default_rng(SEED + 22).integers(t // 2, t + 1, b)
+    mask = nd.create((np.arange(t)[None, :] < keep[:, None])[:, None, None])
+    ex = Nd4j.getExecutioner()
+    total = [0] * len(ALL_KERNELS)
+    rows = []
+
+    def run(op, *args):
+        before = all_counts()
+        got = ex.exec(op, *args)
+        torch.cuda.synchronize()
+        launched = delta(before)
+        for i, c in enumerate(launched):
+            total[i] += c
+        return got.buf(), dict(zip(ALL_KERNELS, launched))
+
+    for dtype in ("float32", "bfloat16"):
+        qd, kd, vd = (a.castTo(dtype) for a in (q, k, v))
+        got, named = run("dot_product_attention", qd, kd, vd, mask)
+        want = std.dot_product_attention_plain(qd.buf(), kd.buf(), vd.buf(),
+                                               mask.buf())
+        rows.append({"op": "dot_product_attention", "dtype": dtype,
+                     "max_abs_err": float((got.float() - want.float())
+                                          .abs().max()),
+                     "tol": TOL_O[dtype], "launches": named})
+    width = h * d
+    xq, xk, xv = (Nd4j.randn(b, t, width) for _ in range(3))
+    wq, wk, wv = (Nd4j.randn(width, h, d).mul(width ** -0.5)
+                  for _ in range(3))
+    wo = Nd4j.randn(h, d, width).mul(width ** -0.5)
+    got, named = run("multi_head_dot_product_attention", xq, xk, xv, wq,
+                     wk, wv, wo, mask)
+
+    def proj(x_, w_):
+        return torch.einsum("ntd,dhk->nhtk", x_.buf(), w_.buf())
+
+    core = std.attention_plain(proj(xq, wq), proj(xk, wk), proj(xv, wv),
+                               mask.buf())
+    want = torch.einsum("nhtk,hkd->ntd", core, wo.buf())
+    # K1's f32 row carried through the output projection: each output
+    # moves at most by the row times its column's l1 norm of wo
+    l1 = float(wo.buf().reshape(width, width).abs().sum(0).max())
+    rows.append({"op": "multi_head_dot_product_attention",
+                 "dtype": "float32",
+                 "max_abs_err": float((got - want).abs().max()),
+                 "tol": TOL_O["float32"] * l1, "launches": named})
+    out["attention"] = {"shape": ND_ATTENTION, "rows": rows}
+    for row in rows:
+        check(row["max_abs_err"] <= row["tol"], f"(c) {row}")
+        check(row["launches"]["attention_plain"] == 0
+              and sum(row["launches"][n] for n in K1_NAMES) >= 1,
+              f"(c) {row}: K1 not launched or a plain route taken")
+    return total
+
+
+def nd_io(torch, flat, out):
+    """(d): npy IO and the compressor on the flat params, bitwise, the
+    bytes ``np.save``'s; (e)'s MB/s."""
+    import io
+    import tempfile
+    from deeplearning4j_tpu_torch.ndarray import nd
+    bio = io.BytesIO()
+    np.save(bio, flat.buf().cpu().numpy())
+    want = bio.getvalue()
+    mb = len(want) / 1e6
+    rep = {"bytes": len(want)}
+
+    def timed(fn):
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t
+
+    blob, s = timed(lambda: nd.toByteArray(flat))
+    rep["toByteArray_MB_s"], rep["bytes_equal"] = mb / s, blob == want
+    back, s = timed(lambda: nd.fromByteArray(blob))
+    rep["fromByteArray_MB_s"] = mb / s
+    rep["fromByteArray_exact"] = bool(torch.equal(back.buf(), flat.buf()))
+    rep["on_card"] = back.device.type == "cuda"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nd4j_") as d:
+        path = os.path.join(d, "params.npy")
+        _, s = timed(lambda: nd.saveBinary(flat, path))
+        rep["saveBinary_MB_s"] = mb / s
+        with open(path, "rb") as f:
+            rep["file_equal"] = f.read() == want
+        back, s = timed(lambda: nd.readBinary(path))
+        rep["readBinary_MB_s"] = mb / s
+        rep["readBinary_exact"] = bool(torch.equal(back.buf(), flat.buf()))
+    comp = nd.getCompressor()
+    packed, s = timed(lambda: comp.compress(flat))
+    rep["compress_MB_s"], rep["compressed_bytes"] = mb / s, len(packed)
+    back, s = timed(lambda: comp.decompress(packed))
+    rep["decompress_MB_s"] = mb / s
+    rep["decompress_exact"] = bool(torch.equal(back.buf(), flat.buf()))
+    out["io"] = rep
+    check(all(rep[k] for k in ("bytes_equal", "fromByteArray_exact",
+                               "on_card", "file_equal", "readBinary_exact",
+                               "decompress_exact")), f"(d) IO: {rep}")
+
+
+def nd4j_phase(torch, smi=None):
+    """ND4J on the card (see ND_* above): (a)-(e). Returns the phase's
+    launches: K1 (both kernels, from (c)) and nothing else."""
+    from deeplearning4j_tpu_torch._device import resolve_device
+    from deeplearning4j_tpu_torch.ndarray import Nd4j, nd
+    t0 = time.perf_counter()
+    dev = resolve_device(None)
+    nd.setDefaultDevice(None)
+    reset_all_counts()
+    out = {"gpu": smi, "backend": nd.backend(),
+           "devices": Nd4j.getAffinityManager().getNumberOfDevices()}
+    check(out["backend"] == "cuda" and nd.zeros(1).device.type == "cuda",
+          f"the factory's arrays are not on the card: {out}")
+    nd_card_vs_cpu(torch, out)
+    torch.cuda.empty_cache()
+    flat = nd_params_view(torch, dev, out)
+    torch.cuda.empty_cache()
+    out["allocated_bytes"] = Nd4j.getMemoryManager().allocatedMemory(
+        dev.index)
+    nd_attention(torch, out)
+    nd_io(torch, flat, out)
+    del flat
+    torch.cuda.empty_cache()
+    launched = all_counts()
+    named = dict(zip(ALL_KERNELS, launched))
+    out["launches"] = named
+    out["seconds"] = time.perf_counter() - t0
+    emit(nd4j=out)
+    check(named["wgmma"] > 0 and named["simple"] > 0
+          and named["attention_plain"] == 0
+          and not any(c for k, c in named.items()
+                      if k not in ("wgmma", "simple")),
+          f"the nd4j path must launch K1 (wgmma and simple) and nothing "
+          f"else: {named}")
+    return launched
 
 
 def main() -> int:
@@ -11900,6 +12242,12 @@ def main() -> int:
                         "else")
     parser.add_argument("--rank-worker", action="store_true",
                         help=argparse.SUPPRESS)
+    parser.add_argument("--nd4j", action="store_true",
+                        help="run only the ND4J phase (NDArray and the "
+                        "factory against the CPU at 2^26 elements and an "
+                        "8192³ gemm, the params view at ResNet-50, the "
+                        "executioner's attention on K1 at BERT-base's "
+                        "widths, npy IO) after building the K1 sources")
     parser.add_argument("--precision-ce-f32", action="store_true",
                         help="measure the f32 K3 kernels and their plain "
                         "versions against f64 at the training shape, and "
@@ -12021,6 +12369,19 @@ def main() -> int:
         emit(keras_launches={"keras_import": dict(zip(ALL_KERNELS, imported)),
                              "keras_lstm": dict(zip(ALL_KERNELS, lstm))},
              phase_seconds={"keras_phase": time.perf_counter() - t0})
+        return 0
+    if args.nd4j:
+        t0 = time.perf_counter()
+        started = {n: _build._start(n) for n in (
+            "flash_attention_fwd", "flash_attention_fwd_wgmma")}
+        for n, st in started.items():
+            if st is not None:
+                _build._finish(n, st)
+        emit(build={"seconds": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        nd4j = nd4j_phase(torch, smi)
+        emit(nd4j_launches=dict(zip(ALL_KERNELS, nd4j)),
+             phase_seconds={"nd4j_phase": time.perf_counter() - t0})
         return 0
     if args.rank_worker:
         rank_worker(torch, smi)
@@ -12220,6 +12581,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     distributed, dist = timed("distributed_phase", distributed_phase, torch,
                               smi)
+    torch.cuda.empty_cache()
+    nd4j = timed("nd4j_phase", nd4j_phase, torch, smi)
     paths = {"serve": serve, "serve_modes": modes, "pipeline": pipeline,
              "frontdoor": frontdoor, "fleet": fleet, "train": train,
              "moe": moe, "f32_serve": f32_serve, "f32_train": f32_train,
@@ -12230,7 +12593,7 @@ def main() -> int:
              "samediff_attention": samediff_attention,
              "onnx_import": onnx_import, "onnx_attention": onnx_attention,
              "keras_import": keras_import, "keras_lstm": keras_lstm,
-             "distributed": distributed}
+             "distributed": distributed, "nd4j": nd4j}
     launches = {name: {path: counts_[i] for path, counts_ in paths.items()}
                 for i, name in enumerate(ALL_KERNELS)}
     emit(main_path_launches=launches)

@@ -1,7 +1,9 @@
 """Minibatch containers: counterpart of ``deeplearning4j_tpu/data/dataset.py``
 (the reference's ``DataSet`` / ``MultiDataSet``). Fields hold numpy arrays,
-or tensors where a caller (the device prefetch) placed them; the
-NDArray wrappers wait for ``ndarray/``, so the getters return the arrays."""
+or tensors where a caller (the device prefetch) placed them; an NDArray
+given is held as its tensor. The getters return the port's ``NDArray``, as
+the reference's return its own (a numpy field goes to the default
+device)."""
 from __future__ import annotations
 
 from typing import List, Optional, Sequence
@@ -10,8 +12,12 @@ import numpy as np
 
 import torch
 
+from deeplearning4j_tpu_torch.ndarray.ndarray import NDArray
+
 
 def _arr(x):
+    if isinstance(x, NDArray):
+        x = x.buf()
     if x is None or isinstance(x, torch.Tensor):
         return x
     return np.asarray(x)
@@ -31,11 +37,11 @@ class DataSet:
 
     numExamples = num_examples
 
-    def get_features(self):
-        return self.features
+    def get_features(self) -> NDArray:
+        return NDArray(self.features)
 
-    def get_labels(self):
-        return self.labels
+    def get_labels(self) -> NDArray:
+        return NDArray(self.labels)
 
     getFeatures = get_features
     getLabels = get_labels

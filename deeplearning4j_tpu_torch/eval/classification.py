@@ -14,10 +14,14 @@ from typing import Optional
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.ndarray.ndarray import NDArray
+
 
 def _np(x):
     if x is None:
         return None
+    if isinstance(x, NDArray):
+        x = x.buf()
     if isinstance(x, torch.Tensor):
         t = x.detach()
         if t.is_floating_point() and t.dtype != torch.float64:

@@ -299,9 +299,11 @@ class NetworkBase:
     def numParams(self) -> int:
         return _flat.num_params(self._param_shapes)
 
-    def params(self) -> torch.Tensor:
-        """The flat parameter vector (a copy; see ``nn/params.py``)."""
-        return _flat.flatten_params(self._params, self.device)
+    def params(self):
+        """The flat parameter vector as a write-through NDArray view
+        (``nn/params.py``): writes through it change the live net;
+        ``.buf()`` is the flat tensor."""
+        return _flat.params_view(self)
 
     def setParams(self, flat) -> None:
         self._params = _flat.unflatten_params(flat, self._param_shapes,

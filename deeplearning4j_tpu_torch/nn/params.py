@@ -15,8 +15,11 @@ swaps a BatchNormalization's gamma and beta: ROADMAP queue 3.) The port
 packs and unpacks in the one order, so ``setParams(params())`` is the
 identity and ``setParams`` takes the reference's ``params()``.
 
-``params()`` returns a new flat tensor; the reference's write-through
-NDArray view waits for ``ndarray/`` (ROADMAP queue 1 item 10).
+``params()`` is the reference's write-through NDArray view
+(:func:`params_view`): reading it flattens the tree in that one order,
+writing it unpacks into the live params, so ``net.params().muli(0.9)``
+scales the net and ``net.params().get(interval(a, b)).assign(0)`` zeroes
+that slice of it. ``.buf()`` is the flat tensor.
 """
 from __future__ import annotations
 
@@ -24,6 +27,8 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+
+from deeplearning4j_tpu_torch.ndarray.ndarray import NDArray
 
 ParamTree = Dict[str, Dict[str, torch.Tensor]]
 
@@ -65,9 +70,11 @@ def unflatten_params(flat, shapes_per_layer, device) -> ParamTree:
 
 
 def to_tensor(a, device, dtype=None) -> torch.Tensor:
-    """``a`` (numpy, tensor, list) as a tensor on ``device``; floating
-    input becomes f32 (the JAX package's default dtype) unless ``dtype``
-    says otherwise."""
+    """``a`` (NDArray, numpy, tensor, list) as a tensor on ``device``;
+    floating input becomes f32 (the JAX package's default dtype) unless
+    ``dtype`` says otherwise."""
+    if isinstance(a, NDArray):
+        a = a.buf()
     if isinstance(a, torch.Tensor):
         t = a
     else:
@@ -88,3 +95,24 @@ def tree_to_device(tree, device) -> ParamTree:
 def tree_to_numpy(tree) -> Dict[str, Dict[str, np.ndarray]]:
     return {k: {p: v.detach().float().cpu().numpy() for p, v in layer.items()}
             for k, layer in tree.items()}
+
+
+class _ModelParamAdapter:
+    """The base of ``net.params()``: an NDArray view base whose ``buf()``
+    is the flat vector of a network's live params and whose ``_write``
+    unpacks a flat vector into them (ref: ``nn/params.py``'s adapter)."""
+
+    def __init__(self, model):
+        self._model = model
+
+    def buf(self) -> torch.Tensor:
+        return flatten_params(self._model._params, self._model.device)
+
+    def _write(self, new_buf):
+        m = self._model
+        m._params = unflatten_params(new_buf, m._param_shapes, m.device)
+
+
+def params_view(model) -> NDArray:
+    """``net.params()``: a write-through NDArray over the flat params."""
+    return NDArray(None, base=_ModelParamAdapter(model), index=slice(None))

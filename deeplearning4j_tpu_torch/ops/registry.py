@@ -18,6 +18,8 @@ from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
+from deeplearning4j_tpu_torch.ndarray.ndarray import NDArray
+
 
 class UnknownOpError(KeyError):
     """The registry holds no op by this name."""
@@ -113,8 +115,13 @@ def names() -> list:
     return sorted({op.name for op in _REGISTRY.values()})
 
 
+def _unwrap(a):
+    return a.buf() if isinstance(a, NDArray) else a
+
+
 def exec_op(name: str, *args, **attrs):
-    return get(name)(*args, **attrs)
+    """Run op ``name``; the port's NDArrays are taken as their tensors."""
+    return get(name)(*[_unwrap(a) for a in args], **attrs)
 
 
 def _meta(x):

@@ -32,7 +32,7 @@ def _set_flat(net, vec: np.ndarray):
 
 
 def _get_flat(net) -> np.ndarray:
-    return net.params().cpu().numpy()
+    return net.params().buf().cpu().numpy()
 
 
 class BaseOptimizer:

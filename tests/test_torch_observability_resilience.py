@@ -731,9 +731,7 @@ COPIED = {
     "nn/graph_conf": ({}, {}),
     "nn/weightnoise": ({}, {}),
     "nn/params": (
-        {"param_layout": "the port's flat order is leaf_keys'",
-         "params_view": "the NDArray write-through view: ROADMAP queue 1 "
-                        "item 10"},
+        {"param_layout": "the port's flat order is leaf_keys'"},
         {n: "tree <-> tensor helpers the JAX package has from jax.tree "
             "and jnp.asarray" for n in ("leaf_keys", "to_tensor",
                                         "tree_to_device", "tree_to_numpy")}),
@@ -757,6 +755,35 @@ COPIED = {
     "models/zoo/inception": ({}, {}),
     "models/zoo/facenet": ({}, {}),
     "models/zoo/__init__": ({}, {}),
+    "ndarray/ndarray": ({}, {
+        **{n: "jnp's reduction with 64-bit types off, over torch" for n in (
+            "r_sum", "r_mean", "r_prod", "r_max", "r_min", "r_var", "r_std",
+            "r_argmax", "r_argmin", "r_cumsum", "r_cumprod", "r_quantile",
+            "r_sort")},
+        "as_tensor": "jnp.asarray with 64-bit types off, on a device",
+        "np_to_tensor": "jnp.asarray of host data with 64-bit types off",
+        "getitem": "numpy's basic indexing (negative steps) over torch",
+        "setitem": "numpy's indexed assignment (negative steps) over torch",
+        "matmul": "jnp.matmul with the reference's preferred_element_type",
+        "rev_dims": "jnp's .T at any rank",
+        "cast": "XLA's float-to-int conversion (saturating) over torch",
+        **{n: "the device arrays are made on: JAX_PLATFORMS' counterpart"
+           for n in ("set_default_device", "default_device", "device_of")}}),
+    "ndarray/factory": ({}, {
+        n: "the device arrays are made on: JAX_PLATFORMS' counterpart"
+        for n in ("setDefaultDevice", "getDefaultDevice")}),
+    "ndarray/random": ({}, {"seeded": "a generator at an explicit seed, "
+                                      "jax.random.key's counterpart"}),
+    "ndarray/dtypes": ({}, {
+        "canonical": "the 64-bit narrowing jnp applies",
+        "to_torch": "the torch type that stores a dtype",
+        "from_torch": "the NDArray-facing dtype of a torch type",
+        "storage": "the narrowed storage type and jnp's UserWarning"}),
+    **{m: ({}, {}) for m in (
+        "ndarray/indexing", "ndarray/executioner", "ndarray/parity",
+        "ndarray/surface", "ndarray/surface4", "ndarray/surface5",
+        "ndarray/__init__", "ops/transforms", "interop/runners",
+        "interop/__init__")},
 }
 
 

@@ -97,7 +97,14 @@ def test_port_has_modules_to_check():
                              *(f"datavec/{m}" for m in (
                                  "__init__", "writable", "schema",
                                  "records", "transform", "local",
-                                 "distributed", "image", "arrow"))))):
+                                 "distributed", "image", "arrow")),
+                             *(f"ndarray/{m}" for m in (
+                                 "__init__", "dtypes", "random", "ndarray",
+                                 "indexing", "surface", "surface4",
+                                 "surface5", "factory", "executioner",
+                                 "parity")),
+                             "ops/transforms", "interop/__init__",
+                             "interop/runners"))):
         assert must in names and (ROOT / must).exists()
 
 
@@ -111,6 +118,9 @@ def test_no_jax_or_jax_package_imports(path):
 # the skeleton tool freezes a TF BERT; nothing of the package imports it,
 # and it imports TF and transformers inside its functions only
 TF_TOOL = ROOT / "deeplearning4j_tpu_torch" / "tools" / "bert_skeleton.py"
+# the interop runners gate on TF and onnxruntime as the reference's do:
+# each imports its runtime inside its constructor only
+INTEROP = ROOT / "deeplearning4j_tpu_torch" / "interop" / "runners.py"
 TF_NAMES = {"tensorflow", "transformers", "keras", "tf_keras", "h5py",
             "onnx", "onnxruntime"}
 
@@ -136,9 +146,9 @@ def _module_level_imports(path: Path):
                          ids=lambda p: p.relative_to(ROOT).as_posix())
 def test_no_tensorflow_in_the_package(path):
     """No module of the port imports TF, transformers, h5py or the onnx
-    packages anywhere; the skeleton tool TF and transformers only inside
-    its functions."""
-    names = (_module_level_imports(path) if path == TF_TOOL
+    packages anywhere; the skeleton tool TF and transformers, and the
+    interop runners TF and onnxruntime, only inside their functions."""
+    names = (_module_level_imports(path) if path in (TF_TOOL, INTEROP)
              else set(_top_level_imports(path)))
     assert not names & TF_NAMES, f"{path.relative_to(ROOT)}: {names & TF_NAMES}"
 
@@ -282,3 +292,33 @@ def test_keras_import_and_datavec_import_nothing_heavy():
     assert int(n) == (4 * 256 * (47 + 256 + 1) + 4 * 256 * (256 + 256 + 1)
                       + 47 * (256 + 1))
     assert bad == "[]", out.stdout
+
+
+def test_nd4j_imports_nothing_heavy():
+    """Importing the port's ND4J (the ``nd`` factory, ``Transforms``, the
+    executioner, the interop runners) in a fresh interpreter pulls in none
+    of JAX, the JAX package, TF, onnxruntime or ml_dtypes; and an NDArray
+    computes and writes npy bytes there."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys; sys.path.insert(0, %r)\n"
+        "from deeplearning4j_tpu_torch import nd\n"
+        "from deeplearning4j_tpu_torch.ndarray import Nd4j, NDArrayIndex\n"
+        "from deeplearning4j_tpu_torch.ops.transforms import Transforms\n"
+        "import deeplearning4j_tpu_torch.interop\n"
+        "nd.setDefaultDevice('cpu')\n"
+        "a = nd.arange(6.0).reshape(2, 3)\n"
+        "a.get(NDArrayIndex.point(1)).addi(1)\n"
+        "out = Nd4j.getExecutioner().exec('relu', Transforms.tanh(a))\n"
+        "b = Nd4j.fromByteArray(Nd4j.toByteArray(out))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'tensorflow', 'onnxruntime', 'ml_dtypes', "
+        "'deeplearning4j_tpu'))\n"
+        "print(float(b.sumNumber()), bad)\n") % str(ROOT)
+    out = subprocess.run([sys.executable, "-I", "-c", code],
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    total, bad = out.stdout.strip().split(" ", 1)
+    assert abs(float(total) - 4.7248480) < 1e-5 and bad == "[]", out.stdout

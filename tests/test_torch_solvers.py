@@ -112,7 +112,7 @@ def test_solver_without_an_acceptable_step_restores_the_params():
     net = P["MLN"](conf(P), device="cpu").init()
     opt = t_sol.LineGradientDescent(net, max_iterations=3)
     x, y = batch()
-    before = net.params().clone()
+    before = net.params().buf().clone()
     # a direction uphill: no step meets the Armijo bound
     f0, g = t_sol._score_and_flat_grad(net, x, y)
     alpha, score = opt._line_search(x, y, g, f0, g, max_steps=4)

@@ -401,7 +401,7 @@ def test_bidirectional_gru_net_carries_the_reference_state():
     net.set_updater_state_from_jax(_np_tree(ref._opt_state))
     assert sorted(net.param_tree()["0"]) == sorted(ref.param_tree()["0"]) \
         == ["b_RW", "b_W", "b_b", "b_bR", "f_RW", "f_W", "f_b", "f_bR"]
-    np.testing.assert_array_equal(net.params().numpy(),
+    np.testing.assert_array_equal(net.params().toNumpy(),
                                   np.asarray(ref.params().toNumpy()))
     x, y = _data(6, t_len=9)
     m = np.ones((N, 9), np.float32)
@@ -412,5 +412,5 @@ def test_bidirectional_gru_net_carries_the_reference_state():
     ref.fit(JDS(x, y, m, m))
     net.fit(TDS(x, y, m, m))
     assert abs(net.score() - ref.score()) <= 1e-5
-    np.testing.assert_allclose(net.params().numpy(),
+    np.testing.assert_allclose(net.params().toNumpy(),
                                np.asarray(ref.params().toNumpy()), atol=1e-5)

@@ -55,7 +55,7 @@ def test_resnet50_num_params(resnet_confs):
                for s in n.layer.param_shapes().values())
     net = t_zoo.ResNet50().init_model(device="cpu")
     assert net.numParams() == want == 25_557_032
-    assert int(net.params().numel()) == want
+    assert int(net.params().buf().numel()) == want
 
 
 def _resnet50_forward_flops(batch, hw=224, classes=1000):
